@@ -1,0 +1,23 @@
+"""mxnet_tpu_torch — the PyTorch/CUDA port of ``mxnet_tpu``.
+
+The port mirrors ``mxnet_tpu``'s module paths and public names, slice by
+slice (ROADMAP.md). Plain tensor code is PyTorch; every kernel that
+``mxnet_tpu`` wrote in Pallas for the TPU is a kernel written by hand for
+the H100 (``csrc/``), built with ``nvcc`` at first use. Entry points run
+on ``gpu(0)`` unless given ``ctx=cpu()``.
+
+    import mxnet_tpu_torch as mx
+    net = mx.gluon.model_zoo.transformer.transformer_lm(impl="flash")
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0),
+                   generator=torch.Generator().manual_seed(0))
+"""
+from __future__ import annotations
+
+from .base import MXNetError  # noqa: F401
+from .context import Context, cpu, current_context, gpu, tpu  # noqa: F401
+from . import initializer  # noqa: F401
+from . import initializer as init  # noqa: F401
+from . import ops, gluon, serving  # noqa: F401
+
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
+           "initializer", "init", "ops", "gluon", "serving"]

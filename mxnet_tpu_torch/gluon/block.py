@@ -1,0 +1,174 @@
+"""Gluon Block / HybridBlock as PyTorch modules (parity:
+python/mxnet/gluon/block.py).
+
+Counterpart of ``mxnet_tpu/gluon/block.py``. A Block is an ``nn.Module``
+that also carries MXNet's naming: a prefix from ``prefix=`` or from the
+lower-cased class name plus a per-scope counter (``transformerblock0_``),
+nested through ``name_scope()``, so ``collect_params()`` gives the same
+names, letter for letter, as ``mxnet_tpu``. Subclasses write ``forward``
+on tensors. ``hybridize()`` is accepted and does nothing: PyTorch runs
+eagerly.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+
+from torch import nn
+
+from ..base import MXNetError, torch_dtype
+from ..context import as_device
+from .. import initializer
+from .parameter import Parameter, ParameterDict
+
+__all__ = ["Block", "HybridBlock"]
+
+
+class _BlockScope:
+    """Scope for naming child Blocks (gluon/block.py:34)."""
+
+    _current = None
+    _global_counter = {}  # top-level naming (reference: NameManager current)
+
+    def __init__(self, block):
+        self._block = block
+        self._counter = {}
+        self._old_scope = None
+
+    @staticmethod
+    def create(prefix, hint):
+        current = _BlockScope._current
+        if current is None:
+            if prefix is None:
+                prefix = _name_with_count(_BlockScope._global_counter,
+                                          hint) + "_"
+            return prefix
+        if prefix is None:
+            prefix = _name_with_count(current._counter, hint) + "_"
+        return current._block.prefix + prefix
+
+    def __enter__(self):
+        if self._block._empty_prefix:
+            return self
+        self._old_scope = _BlockScope._current
+        _BlockScope._current = self
+        return self
+
+    def __exit__(self, *exc):
+        if self._block._empty_prefix:
+            return
+        _BlockScope._current = self._old_scope
+
+
+def _name_with_count(counter, hint):
+    count = counter.get(hint, 0)
+    counter[hint] = count + 1
+    return f"{hint}{count}"
+
+
+class Block(nn.Module):
+    """Base class of all layers and models (gluon/block.py:229).
+
+    ``self.weight = self.params.get("weight", shape=...)`` declares a
+    parameter; after :meth:`initialize`, ``self.weight`` is its tensor.
+    """
+
+    def __init__(self, prefix=None):
+        super().__init__()
+        self._empty_prefix = prefix == ""
+        self._prefix = _BlockScope.create(prefix, self._alias())
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+        self._scope = _BlockScope(self)
+        self._params = ParameterDict(self._prefix)
+        self._reg_params = OrderedDict()  # attribute -> Parameter
+
+    def __setattr__(self, name, value):
+        if isinstance(value, Parameter):
+            value._bind(self, name)
+            self._reg_params[name] = value
+            self.register_parameter(name, None)
+            return
+        super().__setattr__(name, value)
+
+    def _alias(self):
+        return self.__class__.__name__.lower()
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    @property
+    def name(self):
+        return self._name
+
+    @property
+    def params(self):
+        """This Block's own ParameterDict (children not included)."""
+        return self._params
+
+    def name_scope(self):
+        """Scope in which child Blocks take this Block's prefix."""
+        return self._scope
+
+    def _children_blocks(self):
+        return [m for m in self._modules.values() if isinstance(m, Block)]
+
+    def _param_objects(self):
+        """Ordered MXNet name -> Parameter, own first, then children in
+        registration order (gluon/block.py:504)."""
+        out = OrderedDict((p.name, p) for p in self._reg_params.values())
+        for child in self._children_blocks():
+            out.update(child._param_objects())
+        return out
+
+    def collect_params(self):
+        """Ordered MXNet name -> tensor (None before ``initialize``)."""
+        return OrderedDict((name, p._tensor())
+                           for name, p in self._param_objects().items())
+
+    def initialize(self, init=None, ctx=None, generator=None,
+                   force_reinit=False):
+        """Initialize every parameter on ``ctx`` (default: the current
+        context, ``gpu(0)``) with ``init`` as the default initializer
+        (``Uniform()`` when None), drawing from ``generator``."""
+        device = as_device(ctx)
+        default = initializer.create(init) or initializer.Uniform()
+        for p in self._param_objects().values():
+            p.initialize(None, device, generator, default, force_reinit)
+
+    def hybridize(self, active=True, **kwargs):
+        """Accepted for API parity; PyTorch runs the module eagerly."""
+
+    def cast(self, dtype):
+        """Cast every parameter to ``dtype``."""
+        torch_dtype(dtype)
+        for p in self._param_objects().values():
+            p.cast(dtype)
+        return self
+
+    def load_numpy_params(self, params, strict=True):
+        """Copy ``{mxnet_name: numpy array}`` (e.g. ``{k: v.data().asnumpy()}``
+        of ``mxnet_tpu``'s ``collect_params()``) into the initialized
+        tensors, on their device and in their dtype. With ``strict``, any
+        missing, unexpected or shape-mismatched name raises and lists the
+        names; otherwise only shape mismatches raise."""
+        own = self._param_objects()
+        missing = [n for n in own if n not in params]
+        unexpected = [n for n in params if n not in own]
+        mismatched = [f"{n}: {tuple(params[n].shape)} vs {p.shape}"
+                      for n, p in own.items()
+                      if n in params and tuple(params[n].shape) != p.shape]
+        if mismatched or (strict and (missing or unexpected)):
+            raise MXNetError(
+                "load_numpy_params: "
+                + "; ".join(f"{what} {names}" for what, names in (
+                    ("missing", missing), ("unexpected", unexpected),
+                    ("shape mismatch", mismatched)) if names))
+        for name, p in own.items():
+            if name in params:
+                p.set_data(params[name])
+
+
+class HybridBlock(Block):
+    """A Block that MXNet could hybridize (gluon/block.py:839). In the port
+    it is an ordinary eager ``nn.Module``."""

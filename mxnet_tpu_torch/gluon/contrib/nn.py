@@ -1,0 +1,64 @@
+"""Contrib layers (subset of ``mxnet_tpu/gluon/contrib/nn.py``):
+multi-head self-attention with a selectable attention kernel."""
+from __future__ import annotations
+
+from ..block import HybridBlock
+from .. import nn as _nn
+from ...ops import nn as _ops
+
+__all__ = ["MultiHeadAttention"]
+
+
+class MultiHeadAttention(HybridBlock):
+    """Multi-head self-attention: ``block(x)`` with x (B, L, units) ->
+    (B, L, units).
+
+    impl:
+      - 'dense': the plain PyTorch composition
+      - 'flash': the streaming flash kernel (ops/kernels.py), which on a
+        CUDA tensor is the hand-written CUDA kernel
+      - 'ring' / 'auto': not ported yet (ROADMAP, sharding and ring
+        attention)
+    """
+
+    def __init__(self, units, num_heads, impl="dense", causal=False,
+                 use_bias=True, **kwargs):
+        super().__init__(**kwargs)
+        if units % num_heads:
+            raise ValueError(f"units {units} not divisible by num_heads "
+                             f"{num_heads}")
+        if impl in ("ring", "auto"):
+            raise NotImplementedError(
+                f"MultiHeadAttention(impl={impl!r}) is not ported yet: see "
+                "ROADMAP.md, Queue 1, item 8 'Sharded training and ring "
+                "attention'")
+        if impl not in ("dense", "flash"):
+            raise ValueError(f"unknown impl {impl!r}")
+        self._units = units
+        self._heads = num_heads
+        self._impl = impl
+        self._causal = causal
+        with self.name_scope():
+            self.qkv_proj = _nn.Dense(3 * units, use_bias=use_bias,
+                                      flatten=False, in_units=units,
+                                      prefix="qkv_")
+            self.out_proj = _nn.Dense(units, use_bias=use_bias,
+                                      flatten=False, in_units=units,
+                                      prefix="out_")
+
+    def _split_heads(self, x, n):
+        # (B, L, n*units) -> n tensors (B, H, L, d): reshape to (B, L, n*H,
+        # d), move heads forward, slice [0:H], [H:2H], ... — the channel
+        # layout [q | k | v] of contrib/nn.py:225-232
+        b, l, _ = x.shape
+        h, d = self._heads, self._units // self._heads
+        x = x.reshape(b, l, n * h, d).transpose(1, 2)
+        return [x[:, i * h:(i + 1) * h] for i in range(n)]
+
+    def forward(self, x):
+        q, k, v = self._split_heads(self.qkv_proj(x), 3)
+        out = _ops.scaled_dot_product_attention(
+            q, k, v, causal=self._causal,
+            impl="flash" if self._impl == "flash" else "xla")
+        b, h, l, d = out.shape
+        return self.out_proj(out.transpose(1, 2).reshape(b, l, h * d))

@@ -1,0 +1,130 @@
+"""Gluon Parameter / ParameterDict (parity: python/mxnet/gluon/parameter.py).
+
+Counterpart of ``mxnet_tpu/gluon/parameter.py``. A :class:`Parameter`
+holds one weight's MXNet name, shape, dtype and initializer; the tensor
+itself is an ``nn.Parameter`` attribute of the owning Block, so the Block's
+``forward`` reads ``self.weight`` as any PyTorch module does. Shapes must
+be known when the Block is built: this slice has no deferred
+initialization (pass ``in_units``/``in_channels``).
+
+The port is forward-only for now, so tensors are created with
+``requires_grad=False``.
+"""
+from __future__ import annotations
+
+import warnings
+from collections import OrderedDict
+
+import numpy as _np
+import torch
+from torch import nn
+
+from ..base import MXNetError, torch_dtype
+from .. import initializer
+
+__all__ = ["Parameter", "ParameterDict"]
+
+
+class Parameter:
+    """One weight of a Block: name, shape, dtype and initializer."""
+
+    def __init__(self, name, shape, dtype="float32", init=None):
+        self.name = name
+        self.shape = tuple(int(s) for s in shape)
+        self.dtype = torch_dtype(dtype)
+        self.init = init
+        self._owner = None
+        self._attr = None
+
+    def __repr__(self):
+        return f"Parameter {self.name} (shape={self.shape}, dtype={self.dtype})"
+
+    def _bind(self, block, attr):
+        self._owner, self._attr = block, attr
+
+    def _tensor(self):
+        return self._owner._parameters.get(self._attr)
+
+    def _set(self, tensor):
+        setattr(self._owner, self._attr,
+                nn.Parameter(tensor, requires_grad=False))
+
+    def data(self):
+        t = self._tensor()
+        if t is None:
+            raise MXNetError(f"Parameter '{self.name}' has not been "
+                             "initialized")
+        return t
+
+    def initialize(self, init=None, device=None, generator=None,
+                   default_init=None, force_reinit=False):
+        """Draw the value with this parameter's own initializer, else
+        ``init``, else ``default_init`` (MXNet's precedence), from
+        ``generator`` (a ``torch.Generator``; the global one when None),
+        and place it on ``device`` in this parameter's dtype."""
+        if self._tensor() is not None and not force_reinit:
+            warnings.warn(f"Parameter '{self.name}' is already initialized, "
+                          "ignoring. Set force_reinit=True to re-initialize.",
+                          stacklevel=2)
+            return
+        if not self.shape or any(s <= 0 for s in self.shape):
+            raise MXNetError(
+                f"Cannot initialize Parameter '{self.name}' with shape "
+                f"{self.shape}: the PyTorch port has no deferred "
+                "initialization (pass in_units / in_channels)")
+        chosen = initializer.create(
+            self.init if self.init is not None else
+            (init if init is not None else default_init))
+        if chosen is None:
+            chosen = initializer.Uniform()
+        gen_device = generator.device if generator is not None else "cpu"
+        buf = torch.empty(self.shape, dtype=torch.float32, device=gen_device)
+        chosen(self.name, buf, generator)
+        self._set(buf.to(device=device, dtype=self.dtype))
+
+    def set_data(self, value):
+        """Copy ``value`` (numpy array or tensor) into the initialized
+        tensor, on its device and in its dtype."""
+        t = self.data()
+        if not isinstance(value, torch.Tensor):
+            arr = _np.ascontiguousarray(value)
+            if arr.dtype.kind not in "biuf":  # e.g. ml_dtypes bfloat16
+                arr = arr.astype(_np.float32)
+            value = torch.from_numpy(arr)
+        if tuple(value.shape) != self.shape:
+            raise MXNetError(f"Parameter '{self.name}': value shape "
+                             f"{tuple(value.shape)} != {self.shape}")
+        with torch.no_grad():
+            t.copy_(value)
+
+    def cast(self, dtype):
+        self.dtype = torch_dtype(dtype)
+        t = self._tensor()
+        if t is not None:
+            self._set(t.detach().to(self.dtype))
+
+
+class ParameterDict:
+    """The Parameters a Block creates, named ``prefix + name``."""
+
+    def __init__(self, prefix=""):
+        self._prefix = prefix
+        self._params = OrderedDict()
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    def get(self, name, shape, dtype="float32", init=None):
+        """Create (or return) the Parameter named ``prefix + name``."""
+        full = self._prefix + name
+        param = self._params.get(full)
+        if param is None:
+            param = self._params[full] = Parameter(full, shape, dtype, init)
+        elif tuple(shape) != param.shape:
+            raise MXNetError(f"Parameter '{full}' exists with shape "
+                             f"{param.shape}, not {tuple(shape)}")
+        return param
+
+    def items(self):
+        return self._params.items()

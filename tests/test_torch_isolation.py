@@ -1,0 +1,108 @@
+"""The PyTorch port stands alone: no JAX, nothing of mxnet_tpu, no quiet
+move to the CPU, and no kernel launch counted for a CPU tensor."""
+import os
+import re
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import mxnet_tpu_torch as mt  # noqa: E402
+from mxnet_tpu_torch import serving  # noqa: E402
+from mxnet_tpu_torch.gluon.model_zoo import transformer as tzoo  # noqa: E402
+from mxnet_tpu_torch.ops import _build, kernels  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "mxnet_tpu_torch")
+
+# `mxnet_tpu` not followed by `_torch`: the port's own name starts with it
+_FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|mxnet_tpu(?!_torch)\b)",
+    re.MULTILINE)
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    offenders = []
+    for path in _port_sources():
+        with open(path) as f:
+            for m in _FORBIDDEN.finditer(f.read()):
+                offenders.append(f"{os.path.relpath(path, ROOT)}: "
+                                 f"{m.group(0).strip()}")
+    assert not offenders, offenders
+    assert _FORBIDDEN.search("from mxnet_tpu.ops import nn")
+    assert not _FORBIDDEN.search("from mxnet_tpu_torch.ops import nn")
+
+
+def test_imports_and_runs_with_jax_and_mxnet_tpu_blocked():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        for name in ("jax", "jaxlib", "mxnet_tpu"):
+            sys.modules[name] = None      # any import of them now fails
+        import torch
+        import mxnet_tpu_torch as mt
+        mods = [m.name for m in pkgutil.walk_packages(
+            mt.__path__, "mxnet_tpu_torch.")]
+        for m in mods:
+            importlib.import_module(m)
+        from mxnet_tpu_torch.gluon.model_zoo import transformer
+        net = transformer.transformer_lm(vocab=32, units=16, num_heads=2,
+                                         num_layers=1, max_len=16,
+                                         impl="flash")
+        net.initialize(ctx=mt.cpu())
+        out = net(torch.randint(0, 32, (2, 8)))
+        assert out.shape == (2, 8, 32) and torch.isfinite(out).all()
+        leaked = [n for n in sys.modules
+                  if n == "jax" or n.startswith("jax.")
+                  or n == "mxnet_tpu" or n.startswith("mxnet_tpu.")]
+        assert all(sys.modules[n] is None for n in leaked), leaked
+        print("OK", len(mods))
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.startswith("OK")
+    assert int(res.stdout.split()[1]) >= 15
+
+
+def test_entry_points_without_ctx_need_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default context works")
+    assert mt.current_context() == mt.gpu(0)
+    net = tzoo.transformer_lm(vocab=16, units=8, num_heads=2, num_layers=1,
+                              max_len=8)
+    with pytest.raises(mt.MXNetError, match="CUDA"):
+        net.initialize()
+    net.initialize(ctx=mt.cpu())
+    with pytest.raises(mt.MXNetError, match="CUDA"):
+        serving.Predictor.from_block(net, input_shapes={"data": (8,)})
+    with mt.cpu():
+        serving.Predictor.from_block(net, input_shapes={"data": (8,)},
+                                     batch_sizes=(1,))
+    with pytest.raises(mt.MXNetError):
+        mt.tpu()
+
+
+def test_cpu_flash_counts_no_launch_and_builds_nothing():
+    before = kernels.flash_attention.launches
+    q = torch.randn(1, 2, 40, 16)
+    kernels.flash_attention(q, q, q, causal=True)
+    assert kernels.flash_attention.launches == before
+    assert "flash_attn_fwd" not in _build._libs
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(mt.MXNetError, match="nvcc"):
+        _build._nvcc()
