@@ -9,14 +9,24 @@ Phases, each failing loudly with a non-zero exit:
   (a) the card's name and power limit, as nvidia-smi reports them;
       then every CUDA kernel is built from csrc/ with nvcc (sm_90a);
   (b) each kernel against its plain PyTorch version on the card, on
-      fixed cases, with the tolerance and its reason printed;
-  (c) kernel, plain-version and library times at the slice's shape,
-      beside the kernel's bound on the H100;
+      fixed cases, with the tolerance and its reason printed: K1 (flash
+      attention), K3 (conv3x3 + BN statistics, its determinism, and its
+      trainable wrapper's gradients against autograd);
+  (c) kernel, plain-version and library times at the slices' shapes,
+      beside each kernel's bound on the H100 (K3 also beside the unfused
+      cuDNN conv + batch_norm path);
   (d) the slice: TransformerLM(impl='flash') at GPT-2-small widths in
       bf16, behind Predictor + BatchServer, served to concurrent
       requests; the kernel launch count must be 12 x predict calls;
   (e) a 2-layer fp32 model of the same widths with the kernel against the
-      same model with plain attention.
+      same model with plain attention;
+  (f) ResNet-50 v1 (NHWC, s2d stem) at full depth and width in bf16,
+      behind Predictor + BatchServer, served to 128 concurrent
+      single-image requests, and one bucket-32 predict profiled;
+  (g) K3 fed that model's own tensors (the 3x3 conv of each stage's first
+      bottleneck): exactly 4 launches, each within tolerance of cuDNN's
+      output and of the plain version; no copy kernel per conv; and an
+      fp32 NHWC ResNet-50 against the same weights in NCHW.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. ``--summary PATH`` also writes the
@@ -44,6 +54,10 @@ PEAK_BYTES = 3.35e12
 # GPT-2-small widths: the slice's model
 VOCAB, UNITS, HEADS, LAYERS, T = 50257, 768, 12, 12, 1024
 BATCH = 8
+
+# ResNet-50 v1's 3x3 convs (stride 1, SAME, Cin = Cout): (H = W, C)
+RESNET_3X3 = ((56, 64), (28, 128), (14, 256), (7, 512))
+CONV_N = 32
 
 
 def log(*args):
@@ -173,6 +187,124 @@ def check_flash(torch, kernels):
     return records, slice_err
 
 
+def ulp_err(torch, got, ref):
+    """Largest |got - ref| in units in the last place of ``ref``'s 16-bit
+    dtype. Values below 2^-6 of max|ref| take the ulp of that floor: there
+    the two f32 accumulators, summed in other orders, differ by more than
+    an ulp of the tiny value but far less than one of the floor."""
+    mant, min_exp = {torch.bfloat16: (7, -126), torch.float16: (10, -14)}[
+        ref.dtype]
+    r = ref.float().abs()
+    mag = torch.maximum(r, r.max() * 2.0 ** -6).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)).clamp_min(min_exp) - mant)
+    return ((got.float() - ref.float()).abs() / ulp).max().item()
+
+
+def rel_err(a, b):
+    """max|a - b| / max|b| (0 when both are all zero)."""
+    scale = b.float().abs().max().item()
+    err = (a.float() - b.float()).abs().max().item()
+    return err / scale if scale else err
+
+
+def conv_inputs(torch, gen, n, h, w, cin, cout, dtype):
+    """Seeded x (N, H, W, Cin) ~ N(0, 1) and w (3, 3, Cin, Cout) scaled by
+    1/sqrt(9 Cin), so y ~ N(0, 1)."""
+    x = torch.randn((n, h, w, cin), generator=gen, device="cuda").to(dtype)
+    wt = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda")
+          / math.sqrt(9 * cin)).to(dtype)
+    return x, wt
+
+
+def check_conv(torch, kernels):
+    """K3 against its plain version on fixed cases, its determinism, and
+    its trainable wrapper's gradients. Returns the check records."""
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    cases = [("fp32 ragged", (3, 7, 7, 5, 13), f32),
+             ("fp32 non-square", (2, 9, 11, 64, 32), f32)]
+    cases += [(f"fp32 resnet {hw}x{hw}x{c}", (8, hw, hw, c, c), f32)
+              for hw, c in RESNET_3X3]
+    cases += [(f"{name} resnet {hw}x{hw}x{c}", (CONV_N, hw, hw, c, c), dt)
+              for name, dt in (("bf16", bf16), ("fp16", f16))
+              for hw, c in RESNET_3X3]
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    records = []
+    for name, (n, h, w, cin, cout), dtype in cases:
+        x, wt = conv_inputs(torch, gen, n, h, w, cin, cout, dtype)
+        y, s, q = kernels.conv3x3_bn_stats(x, wt)
+        torch.cuda.synchronize()
+        yr, sr, qr = kernels.conv3x3_bn_stats_reference(x, wt)
+        s_err, q_err = rel_err(s, sr), rel_err(q, qr)
+        if dtype == f32:
+            y_err, y_tol, s_tol = rel_err(y, yr), 1e-4, 1e-4
+            why = ("fp32: y, sum, sumsq within 1e-4 of max|ref| (f32 sums "
+                   "in other orders)")
+            y_txt = f"y rel {y_err:.3e}"
+        else:
+            y_err, y_tol, s_tol = ulp_err(torch, y, yr), 2.0, 1e-3
+            why = ("16-bit: y within 2 output ulps (one rounding of f32 "
+                   "accumulators that differ in order), sums 1e-3 rel")
+            y_txt = f"y {y_err:.2f} ulp"
+        ok = (y.shape == yr.shape and y.dtype == dtype
+              and bool(torch.isfinite(y.float()).all())
+              and y_err <= y_tol and s_err <= s_tol and q_err <= s_tol)
+        log(f"[b] conv {name:26s} {str((n, h, w, cin, cout)):22s} {y_txt} "
+            f"(tol {y_tol:g})  sum rel {s_err:.2e} sumsq rel {q_err:.2e} "
+            f"(tol {s_tol:g})  {'ok' if ok else 'FAIL'}  -- {why}")
+        if not ok:
+            raise SystemExit(f"phase b: conv3x3_bn_stats disagrees with its "
+                             f"plain version on '{name}'")
+        records.append({"case": name, "y_err": y_err, "sum_rel": s_err,
+                        "sumsq_rel": q_err})
+        if dtype == bf16 and h in (RESNET_3X3[0][0], RESNET_3X3[-1][0]):
+            again = kernels.conv3x3_bn_stats(x, wt)
+            same = all(torch.equal(a, b) for a, b in zip((y, s, q), again))
+            log(f"[b] conv {name}: second launch bitwise equal: {same}")
+            if not same:
+                raise SystemExit(f"phase b: conv3x3_bn_stats is not "
+                                 f"deterministic on '{name}'")
+    records.append(check_conv_train(torch, kernels, gen))
+    return records
+
+
+def check_conv_train(torch, kernels, gen):
+    """conv3x3_bn_relu_train (K3 forward, plain-op backward) against
+    autograd through the plain composition, fp32, TF32 off."""
+    import torch.nn.functional as F
+
+    eps = 1e-3
+    x, w = conv_inputs(torch, gen, 4, 14, 14, 64, 64, torch.float32)
+    gamma = torch.rand(64, generator=gen, device="cuda") + 0.5
+    beta = torch.randn(64, generator=gen, device="cuda")
+
+    def plain(x, w, gamma, beta):
+        y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                     padding=1).permute(0, 2, 3, 1)
+        mean = y.mean(dim=(0, 1, 2))
+        var = torch.clamp_min((y * y).mean(dim=(0, 1, 2)) - mean ** 2, 0.0)
+        inv = torch.rsqrt(var + eps) * gamma
+        return torch.relu(y * inv + (beta - mean * inv))
+
+    def run(fn):
+        args = [t.clone().requires_grad_(True) for t in (x, w, gamma, beta)]
+        out = fn(*args)
+        out = out[0] if isinstance(out, tuple) else out
+        (out * torch.cos(out)).sum().backward()
+        return [out.detach()] + [a.grad for a in args]
+
+    got = run(lambda *a: kernels.conv3x3_bn_relu_train(*a, eps=eps))
+    want = run(plain)
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    ok = max(errs) <= 1e-4
+    log(f"[b] conv3x3_bn_relu_train fp32 (4, 14, 14, 64, 64): out, dx, dw, "
+        f"dgamma, dbeta rel err {', '.join(f'{e:.2e}' for e in errs)} "
+        f"(tol 1e-4: f32 sums in other orders) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase b: conv3x3_bn_relu_train gradients disagree")
+    return {"case": "conv3x3_bn_relu_train fp32", "rel_errs": errs}
+
+
 # ------------------------------------------------------------------ phase c
 def time_flash(torch, kernels):
     import torch.nn.functional as F
@@ -198,6 +330,66 @@ def time_flash(torch, kernels):
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
             "bytes": nbytes}
+
+
+def conv_work(n, h, w, cin, cout, itemsize):
+    """(FLOP, bytes) one K3 call needs: 2*9*N*H*W*Cin*Cout; x and w read
+    once, y written once, the two f32 per-channel sums written once."""
+    flops = 2.0 * 9 * n * h * w * cin * cout
+    nbytes = itemsize * (n * h * w * (cin + cout) + 9.0 * cin * cout) \
+        + 8.0 * cout
+    return flops, nbytes
+
+
+def bound(flops, nbytes):
+    """(bound ms, 'bytes' or 'operations') at the H100's bf16 peaks."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_conv(torch, kernels):
+    """K3 at each ResNet-50 3x3 shape, N=32, bf16: the kernel, its plain
+    version, cuDNN's conv alone (channels_last) and the unfused path of
+    tools/bench_fused_conv_bn.py (cuDNN conv, then the port's batch_norm
+    statistics and apply)."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for hw, c in RESNET_3X3:
+        x, w = conv_inputs(torch, gen, CONV_N, hw, hw, c, c, torch.bfloat16)
+        x_cf = x.permute(0, 3, 1, 2)           # channels_last NCHW view
+        w_cl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        ones = torch.ones(c, device="cuda")
+        zeros = torch.zeros(c, device="cuda")
+
+        def unfused():
+            y = F.conv2d(x_cf, w_cl, padding=1).permute(0, 2, 3, 1)
+            return ops_nn.batch_norm(y, ones, zeros, zeros, ones, axis=3,
+                                     _train=True)
+
+        ms = median_ms(lambda: kernels.conv3x3_bn_stats(x, w))
+        plain_ms = median_ms(
+            lambda: kernels.conv3x3_bn_stats_reference(x, w))
+        library_ms = median_ms(lambda: F.conv2d(x_cf, w_cl, padding=1))
+        unfused_ms = median_ms(unfused)
+        flops, nbytes = conv_work(CONV_N, hw, hw, c, c, 2)
+        bound_ms, bound_by = bound(flops, nbytes)
+        shape = (CONV_N, hw, hw, c, c)
+        log(f"[c] conv3x3_bn_stats bf16 {shape}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library (cuDNN conv alone) {library_ms:.4f}"
+            f" ms, unfused (cuDNN conv + batch_norm) {unfused_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FLOP, "
+            f"{nbytes:.3e} B); kernel at {bound_ms / ms:.2%} of bound, "
+            f"{flops / ms / 1e9:.2f} TFLOP/s")
+        rows.append({"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "unfused_ms": unfused_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "flops": flops, "bytes": nbytes})
+    return rows
 
 
 # ------------------------------------------------------------------ phase d
@@ -290,9 +482,11 @@ def serve_slice(torch, mx, kernels):
             "launches": launches}
 
 
-def profile_predict(torch, pred, ids):
-    """Device time by kernel for one bucket-8 predict, from torch.profiler:
-    where the slice's time goes."""
+def profile_predict(torch, pred, ids, phase="d", kernel="flash_fwd_kernel"):
+    """Device time by kernel for one predict of ``ids``, from
+    torch.profiler: where the slice's time goes. ``kernel`` (a name part,
+    or a tuple of them) picks the kernels whose share is reported."""
+    parts = (kernel,) if isinstance(kernel, str) else kernel
     from torch.profiler import ProfilerActivity, profile
 
     pred.predict(ids)
@@ -312,18 +506,23 @@ def profile_predict(torch, pred, ids):
             rows.append((us / 1e3, evt.count, evt.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    flash_ms = sum(r[0] for r in rows if "flash_fwd_kernel" in r[2])
-    log(f"[d] profile of one bucket-8 predict: wall {wall_ms:.3f} ms "
-        f"(profiler on), device busy {busy_ms:.3f} ms "
-        f"({busy_ms / wall_ms:.1%} of wall), flash_fwd_kernel "
-        f"{flash_ms:.3f} ms ({flash_ms / busy_ms:.1%} of device time)"
-        if busy_ms else "[d] profile: no device time recorded (not measured)")
+    kernel_ms = sum(r[0] for r in rows if any(p in r[2] for p in parts))
+    log(f"[{phase}] profile of one bucket-{len(ids)} predict: wall "
+        f"{wall_ms:.3f} ms (profiler on), device busy {busy_ms:.3f} ms "
+        f"({busy_ms / wall_ms:.1%} of wall), "
+        f"{sum(r[1] for r in rows)} kernel launches, {'/'.join(parts)} "
+        f"{kernel_ms:.3f} ms ({kernel_ms / busy_ms:.1%} of device time)"
+        if busy_ms else f"[{phase}] profile: no device time recorded (not "
+        "measured)")
     for ms, count, key in rows[:8]:
-        log(f"[d]   {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+        log(f"[{phase}]   {ms:9.3f} ms  x{count:<4d} {key[:90]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "flash_ms": flash_ms,
+            "kernel": "/".join(parts), "kernel_ms": kernel_ms,
+            "launches": sum(r[1] for r in rows),
             "top": [{"ms": ms, "count": c, "kernel": k[:120]}
-                    for ms, c, k in rows[:8]]}
+                    for ms, c, k in rows[:8]],
+            "all": [{"ms": ms, "count": c, "kernel": k[:120]}
+                    for ms, c, k in rows]}
 
 
 # ------------------------------------------------------------------ phase e
@@ -350,6 +549,242 @@ def model_vs_plain(torch, mx):
         f"layers and a {UNITS}-wide head) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("phase e: model logits disagree")
+    return err
+
+
+# ------------------------------------------------------------------ phase f
+def serve_resnet(torch, mx):
+    """ResNet-50 v1 (NHWC, s2d stem, 1000 classes) at full depth and width
+    in bf16, behind Predictor + BatchServer, served to 4 threads x 32
+    single-image requests. Returns the measurements and what phase g needs
+    (the predictor, the net and one bucket-32 batch)."""
+    import numpy as np
+
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    net = vision.resnet50_v1(layout="NHWC", stem="s2d", classes=1000)
+    # Xavier over fan-in only: with OHWI weights its fan-out would read the
+    # wrong axes (the reference initializer's rule), shrinking every layer
+    net.initialize(mx.init.Xavier(factor_type="in", magnitude=2),
+                   generator=gen)                   # default ctx: gpu(0)
+    net.cast("bfloat16")
+    t0 = time.perf_counter()
+    pred = serving.Predictor.from_block(
+        net, input_shapes={"data": (3, 224, 224)}, batch_sizes=(1, 8, 32),
+        dtype="bfloat16")
+    log(f"[f] resnet50_v1 NHWC s2d built (bf16, "
+        f"{sum(t.numel() for t in net.collect_params().values())} "
+        f"parameters); warmup of buckets {pred.buckets} "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    rng = np.random.RandomState(0)
+    n_threads, per_thread = 4, 32
+    requests = [[rng.rand(1, 3, 224, 224).astype(np.float32)
+                 for _ in range(per_thread)] for _ in range(n_threads)]
+    results = [[None] * per_thread for _ in range(n_threads)]
+    serving.reset_stats()
+    with serving.BatchServer(pred, max_batch_size=32,
+                             batch_timeout_ms=5.0) as server:
+        def client(i):
+            futs = [server.submit(img) for img in requests[i]]
+            for j, f in enumerate(futs):
+                results[i][j] = f.result(timeout=600)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(n_threads)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        wall = time.perf_counter() - t0
+    st = serving.stats()
+    n_req = n_threads * per_thread
+    if any(th.is_alive() for th in threads):
+        raise SystemExit("phase f: a client thread did not finish")
+    for row in results:
+        for r in row:
+            logits = r[0]
+            if tuple(logits[0].shape) != (1000,):
+                raise SystemExit(f"phase f: result shape {logits.shape}")
+            if not bool(torch.isfinite(logits).all()):
+                raise SystemExit("phase f: non-finite logits")
+    log(f"[f] served {n_req} images from {n_threads} threads in "
+        f"{st['serving_batches']} batches ({st['serving_predict_calls']} "
+        f"predict calls, {st['serving_padded_samples']} padded rows): "
+        f"{n_req / wall:.3f} images/s, "
+        f"p50 {st['serving_p50_latency_us'] / 1e3:.2f} ms, "
+        f"p99 {st['serving_p99_latency_us'] / 1e3:.2f} ms")
+
+    # a request coalesced into one full bucket-32 batch equals its row of
+    # predict on the same bucket, bitwise
+    batch = requests[0]
+    with serving.BatchServer(pred, max_batch_size=32,
+                             batch_timeout_ms=10000.0) as server:
+        futs = [server.submit(img) for img in batch]
+        served = [f.result(timeout=600)[0] for f in futs]
+    images = np.concatenate(batch, axis=0)
+    direct = pred.predict(images)[0]
+    same = all(torch.equal(served[j][0], direct[j]) for j in range(32))
+    log(f"[f] batched request == its row of predict (bucket 32): {same}; "
+        f"logits max |x| {direct.float().abs().max().item():.4e}")
+    if not same:
+        raise SystemExit("phase f: batched result differs from predict")
+    predict_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pred.predict(images)
+        torch.cuda.synchronize()
+        predict_ms.append((time.perf_counter() - t0) * 1e3)
+    predict_ms = sorted(predict_ms)[2]
+    log(f"[f] bucket-32 predict, host clock, profiler off: median of 5 "
+        f"{predict_ms:.3f} ms ({32e3 / predict_ms:.1f} images/s with no "
+        "batching or client threads)")
+    breakdown = profile_predict(torch, pred, images, phase="f",
+                                kernel=("fprop", "implicit_gemm", "conv"))
+    measured = {"breakdown": breakdown, "requests": n_req, "wall_s": wall,
+                "images_per_s": n_req / wall, "predict32_ms": predict_ms,
+                "p50_ms": st["serving_p50_latency_us"] / 1e3,
+                "p99_ms": st["serving_p99_latency_us"] / 1e3,
+                "batches": st["serving_batches"],
+                "predict_calls": st["serving_predict_calls"],
+                "padded_rows": st["serving_padded_samples"]}
+    return measured, (pred, net, images)
+
+
+# ------------------------------------------------------------------ phase g
+_COPY_KERNELS = ("copy", "nchwToNhwc", "nhwcToNchw", "transpose",
+                 "Transpose")
+
+
+def conv_on_model(torch, kernels, pred, net, images):
+    """K3 fed the served model's own tensors: the input and weight of the
+    3x3 conv (body[3]) of each stage's first bottleneck, captured by
+    forward hooks during one bucket-32 predict. Returns the launches and
+    errors of that main path."""
+    stages = [blk for blk in net.features
+              if blk.prefix.endswith(tuple(f"stage{i}_"
+                                           for i in range(1, 5)))]
+    convs = [list(list(stage)[0].body)[3] for stage in stages]
+    captured = []
+    hooks = [c.register_forward_hook(
+        lambda mod, inp, out: captured.append((inp[0], mod.weight, out)))
+        for c in convs]
+    try:
+        pred.predict(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    if len(captured) != 4:
+        raise SystemExit(f"phase g: captured {len(captured)} convs, want 4")
+
+    with torch.inference_mode():
+        kernels.conv3x3_bn_stats.launches = 0
+        fused = [kernels.conv3x3_bn_stats(
+            x, w.permute(1, 2, 3, 0).contiguous()) for x, w, _ in captured]
+        torch.cuda.synchronize()
+        launches = kernels.conv3x3_bn_stats.launches
+        max_abs, records = 0.0, []
+        for (x, w, y_lib), (y, s, q) in zip(captured, fused):
+            yr, sr, qr = kernels.conv3x3_bn_stats_reference(
+                x, w.permute(1, 2, 3, 0).contiguous())
+            lib_ulp, plain_ulp = ulp_err(torch, y, y_lib), ulp_err(torch, y,
+                                                                    yr)
+            s_err, q_err = rel_err(s, sr), rel_err(q, qr)
+            max_abs = max(max_abs, (y.float() - yr.float()).abs().max()
+                          .item())
+            ok = lib_ulp <= 4 and plain_ulp <= 2 and max(s_err, q_err) \
+                <= 1e-3
+            log(f"[g] K3 on the model's {tuple(x.shape)} -> "
+                f"{tuple(y.shape)}: vs cuDNN's output {lib_ulp:.2f} ulp "
+                f"(tol 4: its own f32 order), vs plain {plain_ulp:.2f} ulp "
+                f"(tol 2), sum rel {s_err:.2e} sumsq rel {q_err:.2e} "
+                f"(tol 1e-3) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("phase g: K3 disagrees on the model's "
+                                 "tensors")
+            records.append({"shape": list(x.shape), "vs_cudnn_ulp": lib_ulp,
+                            "vs_plain_ulp": plain_ulp, "sum_rel": s_err,
+                            "sumsq_rel": q_err})
+    log(f"[g] conv3x3_bn_stats launches on the model's tensors: {launches} "
+        f"(want 4)")
+    if launches != 4:
+        raise SystemExit(f"phase g: {launches} K3 launches, want 4")
+
+    copies, n_convs = conv_layer_copies(torch, net, images)
+    n_copies = sum(c for _, c in copies)
+    log(f"[g] copy/layout kernels when the model's {n_convs} conv layers "
+        f"run alone on their own inputs: {n_copies} launches "
+        f"({', '.join(f'{k[:70]} x{c}' for k, c in copies) or 'none'})")
+    if n_copies >= n_convs:
+        raise SystemExit("phase g: a conv layer inserts a copy per conv")
+    return {"launches": launches, "max_abs_err": max_abs, "checks": records,
+            "copy_launches": n_copies, "copies": copies, "convs": n_convs}
+
+
+def conv_layer_copies(torch, net, images):
+    """[(kernel, launches)] of copy or layout-transform kernels launched
+    when each Conv2D layer of ``net`` runs on the input it saw in one
+    predict, and the number of conv layers. NHWC convs hand cuDNN
+    channels_last views, so none should copy its activation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    layers = [m for m in net.modules() if type(m).__name__ == "Conv2D"]
+    inputs = {}
+
+    def keep_input(mod, inp, out):      # returns None: the output stands
+        inputs[mod] = inp[0]
+
+    hooks = [m.register_forward_hook(keep_input) for m in layers]
+    try:
+        with torch.inference_mode():
+            net(torch.from_numpy(images).to("cuda", layers[0].weight.dtype))
+    finally:
+        for h in hooks:
+            h.remove()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for m in layers:
+                m(inputs[m])
+            torch.cuda.synchronize()
+    found = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and any(
+                k in evt.key for k in _COPY_KERNELS):
+            found[evt.key] = found.get(evt.key, 0) + evt.count
+    return sorted(found.items()), len(layers)
+
+
+def resnet_layouts(torch, mx):
+    """An fp32 NHWC conv7 ResNet-50 and the same weights in NCHW
+    (OHWI -> OIHW) give the same logits on 2 images, TF32 off."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    nhwc = vision.resnet50_v1(layout="NHWC", stem="conv7", prefix="r50_")
+    nchw = vision.resnet50_v1(layout="NCHW", stem="conv7", prefix="r50_")
+    nhwc.initialize(mx.init.Xavier(factor_type="in", magnitude=2),
+                    generator=gen)
+    nchw.initialize(mx.init.Zero())
+    target = nchw._param_objects()
+    for name, p in nhwc._param_objects().items():
+        t = p.data()
+        target[name].set_data(t.permute(0, 3, 1, 2) if t.dim() == 4 else t)
+    x = torch.rand((2, 3, 224, 224), generator=gen, device="cuda")
+    with torch.inference_mode():
+        a, b = nhwc(x), nchw(x)
+    err = rel_err(a, b)
+    ok = bool(torch.isfinite(a).all()) and a.shape == (2, 1000) \
+        and err <= 1e-3
+    log(f"[g] fp32 resnet50_v1 conv7 NHWC vs NCHW (same weights): logits "
+        f"max abs err / max |logit| {err:.3e} (tol 1e-3: f32 convs in other "
+        f"algorithms through 53 layers; max |logit| "
+        f"{b.abs().max().item():.4e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase g: NHWC and NCHW logits disagree")
     return err
 
 
@@ -386,13 +821,25 @@ def main(argv=None):
             log(f"[a] ptxas {entry}: {usage}")
 
     checks, slice_err = check_flash(torch, kernels)
+    conv_checks = check_conv(torch, kernels)
     if args.quick:
-        log("[quick] phase b passed; phases c-e skipped")
+        log("[quick] phase b passed; phases c-g skipped")
         return 0
     timing = time_flash(torch, kernels)
+    conv_timing = time_conv(torch, kernels)
     served = serve_slice(torch, mx, kernels)
     model_err = model_vs_plain(torch, mx)
+    vision, (pred, net, images) = serve_resnet(torch, mx)
+    on_model = conv_on_model(torch, kernels, pred, net, images)
+    del pred, net, images
+    torch.cuda.empty_cache()
+    layout_err = resnet_layouts(torch, mx)
 
+    # K3's four launches on the main path are one per ResNet-50 shape, so
+    # its totals are over the four shapes at N=32
+    conv_flops = sum(r["flops"] for r in conv_timing)
+    conv_bytes = sum(r["bytes"] for r in conv_timing)
+    conv_bound_ms, conv_bound_by = bound(conv_flops, conv_bytes)
     record = {"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -401,15 +848,33 @@ def main(argv=None):
         "check": f"{len(checks)} cases within tolerance",
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}]}
+        "library_ms": timing["library_ms"]}, {
+        "name": "conv3x3_bn_stats", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/conv3x3_bn_stats.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:446",
+        "launches": on_model["launches"],
+        "max_abs_err": on_model["max_abs_err"],
+        "check": f"{len(conv_checks)} cases and the model's 4 tensors "
+                 "within tolerance",
+        "ms": sum(r["ms"] for r in conv_timing),
+        "plain_ms": sum(r["plain_ms"] for r in conv_timing),
+        "bound_ms": conv_bound_ms, "bound_by": conv_bound_by,
+        "library_ms": sum(r["library_ms"] for r in conv_timing),
+        "unfused_ms": sum(r["unfused_ms"] for r in conv_timing),
+        "per_shape": [{k: r[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "unfused_ms")} for r in conv_timing]}]}
     kind = torch.cuda.get_device_name(0)
     if args.summary:
         os.makedirs(os.path.dirname(os.path.abspath(args.summary)),
                     exist_ok=True)
         with open(args.summary, "w") as f:
             json.dump({"card": card, "kind": kind, "kernel_checks": checks,
-                       "timing": timing, "slice": served,
-                       "model_vs_plain_err": model_err, **record}, f,
+                       "conv_checks": conv_checks, "timing": timing,
+                       "conv_timing": conv_timing, "slice": served,
+                       "model_vs_plain_err": model_err, "vision": vision,
+                       "conv_on_model": on_model,
+                       "resnet_layout_err": layout_err, **record}, f,
                       indent=1)
     log(card)
     print(json.dumps(record), flush=True)

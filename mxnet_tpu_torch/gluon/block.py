@@ -140,10 +140,14 @@ class Block(nn.Module):
         """Accepted for API parity; PyTorch runs the module eagerly."""
 
     def cast(self, dtype):
-        """Cast every parameter to ``dtype``."""
+        """Cast every parameter to ``dtype``: this Block's own, then each
+        child's through its ``cast`` (so a layer may keep another dtype,
+        as BatchNorm keeps float32 under float16)."""
         torch_dtype(dtype)
-        for p in self._param_objects().values():
+        for p in self._reg_params.values():
             p.cast(dtype)
+        for child in self._children_blocks():
+            child.cast(dtype)
         return self
 
     def load_numpy_params(self, params, strict=True):

@@ -1,2 +1,2 @@
 """Model zoo of the PyTorch port."""
-from . import transformer  # noqa: F401
+from . import transformer, vision  # noqa: F401

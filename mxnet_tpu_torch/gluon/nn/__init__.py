@@ -1,3 +1,6 @@
 """Gluon layers of the PyTorch port."""
 from .basic_layers import *  # noqa: F401,F403
-from .basic_layers import __all__  # noqa: F401
+from .conv_layers import *  # noqa: F401,F403
+from . import basic_layers, conv_layers
+
+__all__ = basic_layers.__all__ + conv_layers.__all__

@@ -2,12 +2,16 @@
 parity: python/mxnet/gluon/nn/basic_layers.py)."""
 from __future__ import annotations
 
+import torch
+
 from ..block import HybridBlock
+from ... import autograd
+from ...base import torch_dtype
 from ...ops import math as _math
 from ...ops import nn as _nn
 
-__all__ = ["HybridSequential", "Dense", "LayerNorm", "Embedding",
-           "Activation", "LeakyReLU", "GELU"]
+__all__ = ["HybridSequential", "Dense", "BatchNorm", "LayerNorm",
+           "Embedding", "Flatten", "Activation", "LeakyReLU", "GELU"]
 
 
 class HybridSequential(HybridBlock):
@@ -59,6 +63,57 @@ class Dense(HybridBlock):
         return self.act(out) if self.act is not None else out
 
 
+class BatchNorm(HybridBlock):
+    """Batch normalization (gluon/nn/basic_layers.py:282;
+    ``mxnet_tpu/gluon/nn/basic_layers.py:166-211``). ``in_channels`` is
+    required.
+
+    Inside ``autograd.record()`` / ``train_mode()`` it normalises with the
+    batch's statistics and writes the updated running statistics back into
+    ``running_mean``/``running_var`` in place; otherwise it uses them.
+    ``cast('float16')`` keeps the parameters in float32, as MXNet does."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
+                        "fix_gamma": not scale,
+                        "use_global_stats": use_global_stats}
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                differentiable=scale)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                differentiable=center)
+            self.running_mean = self.params.get(
+                "running_mean", grad_req="null", shape=(in_channels,),
+                init=running_mean_initializer, differentiable=False)
+            self.running_var = self.params.get(
+                "running_var", grad_req="null", shape=(in_channels,),
+                init=running_variance_initializer, differentiable=False)
+
+    def cast(self, dtype):
+        if torch_dtype(dtype) == torch.float16:
+            dtype = "float32"
+        return super().cast(dtype)
+
+    def forward(self, x):
+        train = autograd.is_training()
+        out, mean, var = _nn.batch_norm(
+            x, self.gamma, self.beta, self.running_mean, self.running_var,
+            _train=train, **self._kwargs)
+        if train and not self._kwargs["use_global_stats"]:
+            self._reg_params["running_mean"].set_data(mean)
+            self._reg_params["running_var"].set_data(var)
+        return out
+
+
 class LayerNorm(HybridBlock):
     """Layer normalization over the last axis (gluon/nn/basic_layers.py:546).
     ``in_channels`` is required."""
@@ -97,6 +152,13 @@ class Embedding(HybridBlock):
 
     def forward(self, x):
         return _math.embedding(x, self.weight)
+
+
+class Flatten(HybridBlock):
+    """Flattens the input to (batch, -1) (gluon/nn/basic_layers.py:435)."""
+
+    def forward(self, x):
+        return _nn.flatten(x)
 
 
 class Activation(HybridBlock):

@@ -8,7 +8,10 @@ be known when the Block is built: this slice has no deferred
 initialization (pass ``in_units``/``in_channels``).
 
 The port is forward-only for now, so tensors are created with
-``requires_grad=False``.
+``requires_grad=False``; ``grad_req`` is kept for the training slice, and
+is ``"null"`` for a parameter that is not ``differentiable`` (BatchNorm's
+running statistics). Those auxiliary states are written back in place with
+:meth:`Parameter.set_data`.
 """
 from __future__ import annotations
 
@@ -28,13 +31,27 @@ __all__ = ["Parameter", "ParameterDict"]
 class Parameter:
     """One weight of a Block: name, shape, dtype and initializer."""
 
-    def __init__(self, name, shape, dtype="float32", init=None):
+    def __init__(self, name, shape, dtype="float32", init=None,
+                 grad_req="write", differentiable=True):
         self.name = name
         self.shape = tuple(int(s) for s in shape)
         self.dtype = torch_dtype(dtype)
         self.init = init
+        self._differentiable = differentiable
+        self.grad_req = grad_req
         self._owner = None
         self._attr = None
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in ("write", "add", "null"):
+            raise ValueError("grad_req must be one of write, add, null, but "
+                             f"got {req!r}")
+        self._grad_req = req if self._differentiable else "null"
 
     def __repr__(self):
         return f"Parameter {self.name} (shape={self.shape}, dtype={self.dtype})"
@@ -84,7 +101,8 @@ class Parameter:
 
     def set_data(self, value):
         """Copy ``value`` (numpy array or tensor) into the initialized
-        tensor, on its device and in its dtype."""
+        tensor in place, on its device and in its dtype (also inside
+        ``torch.inference_mode``)."""
         t = self.data()
         if not isinstance(value, torch.Tensor):
             arr = _np.ascontiguousarray(value)
@@ -115,12 +133,14 @@ class ParameterDict:
     def prefix(self):
         return self._prefix
 
-    def get(self, name, shape, dtype="float32", init=None):
+    def get(self, name, shape, dtype="float32", init=None, grad_req="write",
+            differentiable=True):
         """Create (or return) the Parameter named ``prefix + name``."""
         full = self._prefix + name
         param = self._params.get(full)
         if param is None:
-            param = self._params[full] = Parameter(full, shape, dtype, init)
+            param = self._params[full] = Parameter(
+                full, shape, dtype, init, grad_req, differentiable)
         elif tuple(shape) != param.shape:
             raise MXNetError(f"Parameter '{full}' exists with shape "
                              f"{param.shape}, not {tuple(shape)}")

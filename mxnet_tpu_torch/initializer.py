@@ -3,7 +3,8 @@
 Counterpart of ``mxnet_tpu/initializer.py`` (subset: Zero, One, Uniform,
 Xavier). An initializer fills a tensor in place and dispatches on the
 parameter's name as MXNet does: ``*_weight`` draws from the initializer's
-distribution, ``*_bias``/``*_beta`` are zeros, ``*_gamma`` ones. Random
+distribution, ``*_bias``/``*_beta`` are zeros, ``*_gamma`` ones, running
+means zeros and running variances ones (``mxnet_tpu/initializer.py:78-81``). Random
 draws come from the ``torch.Generator`` the caller passes, so a seed fixes
 the weights. The generator does not reproduce ``mxnet_tpu``'s random
 bits: tests carry weights across with ``Block.load_numpy_params``.
@@ -29,6 +30,10 @@ class Initializer:
             elif name.endswith("bias") or name.endswith("beta"):
                 arr.zero_()
             elif name.endswith("gamma"):
+                arr.fill_(1.0)
+            elif name.endswith("moving_mean") or name.endswith("running_mean"):
+                arr.zero_()
+            elif name.endswith("moving_var") or name.endswith("running_var"):
                 arr.fill_(1.0)
             else:
                 self._init_weight(name, arr, generator)

@@ -3,13 +3,18 @@
 K1, the flash-attention forward, replaces the TPU kernel
 ``mxnet_tpu/ops/pallas_kernels.py:_mha_kernel`` (built by ``_build_flash``,
 entered through ``flash_attention``). Its CUDA source is
-``mxnet_tpu_torch/csrc/flash_attn_fwd.cu``; the source's header says what
-bounds it on the H100 and how it is laid out.
+``mxnet_tpu_torch/csrc/flash_attn_fwd.cu``.
 
-:func:`flash_attention` takes the plain version,
-:func:`flash_attention_reference`, only for tensors on the CPU. For a CUDA
+K3, the fused 3x3 conv + BatchNorm statistics, replaces the TPU kernel
+``mxnet_tpu/ops/pallas_kernels.py:conv3x3_bn_stats``; its CUDA source is
+``mxnet_tpu_torch/csrc/conv3x3_bn_stats.cu``, and
+:func:`conv3x3_bn_relu_train` is its trainable wrapper. Each source's
+header says what bounds it on the H100 and how it is laid out.
+
+Each wrapper (:func:`flash_attention`, :func:`conv3x3_bn_stats`) takes its
+plain version (``*_reference``) only for tensors on the CPU. For a CUDA
 tensor it launches the kernel or raises: a build or launch failure is an
-error, never a quiet fall-back. ``flash_attention.launches`` counts kernel
+error, never a quiet fall-back. ``<wrapper>.launches`` counts kernel
 launches, and nothing else.
 """
 from __future__ import annotations
@@ -18,11 +23,14 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..base import MXNetError
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_reference"]
+__all__ = ["flash_attention", "flash_attention_reference",
+           "conv3x3_bn_stats", "conv3x3_bn_stats_reference",
+           "conv3x3_bn_relu_train"]
 
 _NEG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -149,3 +157,177 @@ def flash_attention(q, k, v, causal=False, scale=None, return_lse=False,
 
 
 flash_attention.launches = 0
+
+
+# ----------------------------------------------------------------------- K3
+def _check_conv(x, w):
+    for name, t in (("x", x), ("w", w)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"conv3x3_bn_stats: {name} must be a tensor, "
+                            f"got {type(t).__name__}")
+    if x.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"conv3x3_bn_stats: x must be (N, H, W, Cin) and w "
+                         f"(3, 3, Cin, Cout), got {tuple(x.shape)} and "
+                         f"{tuple(w.shape)}")
+    if tuple(w.shape[:2]) != (3, 3):
+        raise ValueError(f"conv3x3_bn_stats: the weight must be 3x3 HWIO, "
+                         f"got shape {tuple(w.shape)}")
+    if w.shape[2] != x.shape[3]:
+        raise ValueError(f"conv3x3_bn_stats: x has {x.shape[3]} channels but "
+                         f"w expects {w.shape[2]}")
+    if w.dtype != x.dtype:
+        raise ValueError(f"conv3x3_bn_stats: x and w dtypes differ "
+                         f"({x.dtype}, {w.dtype})")
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"conv3x3_bn_stats: unsupported dtype {x.dtype} "
+                         "(float32, bfloat16 or float16)")
+    if w.device != x.device:
+        raise ValueError("conv3x3_bn_stats: x and w lie on different devices")
+    if min(x.shape) < 1 or w.shape[3] < 1:
+        raise ValueError(f"conv3x3_bn_stats: empty shape x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}")
+
+
+def conv3x3_bn_stats_reference(x, w):
+    """The plain version of K3: the 3x3 stride-1 SAME conv in f32 (TF32 off)
+    on x (N, H, W, Cin) and w (3, 3, Cin, Cout), with the per-channel sum
+    and sum of squares taken from the f32 result before y is cast to x's
+    dtype. Returns (y, sum (Cout,) f32, sumsq (Cout,) f32)."""
+    xc = x.float().permute(0, 3, 1, 2)           # NCHW view, NHWC memory
+    wc = w.float().permute(3, 2, 0, 1)           # HWIO -> OIHW
+    with torch.backends.cudnn.flags(
+            enabled=torch.backends.cudnn.enabled,
+            benchmark=torch.backends.cudnn.benchmark,
+            deterministic=torch.backends.cudnn.deterministic,
+            allow_tf32=False):
+        acc = F.conv2d(xc, wc, padding=1)
+    y = acc.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+    return y, acc.sum(dim=(0, 2, 3)), (acc * acc).sum(dim=(0, 2, 3))
+
+
+def _conv_library():
+    lib = _build.load("conv3x3_bn_stats")
+    fn = lib.conv3x3_bn_stats
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+        lib.conv3x3_bn_stats_block_m.restype = ctypes.c_int
+        lib.conv3x3_bn_stats_error_string.argtypes = [i]
+        lib.conv3x3_bn_stats_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_conv(x, w):
+    for name, t in (("x", x), ("w", w)):
+        if not t.is_contiguous():
+            raise ValueError(f"conv3x3_bn_stats: {name} must be contiguous")
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    if n * h * wd * max(cin, cout) > _INT32[1]:
+        raise ValueError(f"conv3x3_bn_stats: x {tuple(x.shape)} with Cout "
+                         f"{cout} exceeds the kernel's int32 pixel indexing")
+    lib = _conv_library()
+    m_tiles = -(-(n * h * wd) // lib.conv3x3_bn_stats_block_m())
+    y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
+    part = torch.empty((2, m_tiles, cout), dtype=torch.float32,
+                       device=x.device)
+    sums = torch.empty((2, cout), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.conv3x3_bn_stats(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(),
+            sums.data_ptr(), n, h, wd, cin, cout, _DTYPE_CODE[x.dtype],
+            stream)
+    if err:
+        raise MXNetError("conv3x3_bn_stats launch failed: "
+                         f"{lib.conv3x3_bn_stats_error_string(err).decode()}"
+                         f" (cudaError {err})")
+    conv3x3_bn_stats.launches += 1
+    return y, sums[0], sums[1]
+
+
+def conv3x3_bn_stats(x, w):
+    """Fused 3x3 stride-1 SAME conv + BatchNorm statistics.
+
+    x (N, H, W, Cin) NHWC, w (3, 3, Cin, Cout) HWIO, one dtype of float32,
+    bfloat16 or float16. Returns y (N, H, W, Cout) in x's dtype and the
+    per-channel sum and sum of squares (Cout,) in f32, taken from the f32
+    accumulator (not from the rounded y). CUDA tensors must be contiguous.
+    """
+    _check_conv(x, w)
+    if x.device.type == "cuda":
+        return _launch_conv(x, w)
+    if x.device.type == "cpu":
+        return conv3x3_bn_stats_reference(x, w)
+    raise ValueError(f"conv3x3_bn_stats: unsupported device {x.device}")
+
+
+conv3x3_bn_stats.launches = 0
+
+
+def _conv_nchw(t):
+    return t.permute(0, 3, 1, 2)
+
+
+class _Conv3x3BnReluTrain(torch.autograd.Function):
+    """K3, then the batch-statistics BatchNorm fold and relu; the backward
+    is ``mxnet_tpu``'s ``f_bwd`` (pallas_kernels.py:506-542) in plain ops."""
+
+    @staticmethod
+    def forward(ctx, x, w, gamma, beta, eps):
+        n, h, wd, _ = x.shape
+        cnt = n * h * wd
+        y_raw, s, q = conv3x3_bn_stats(x, w)
+        mean = s / cnt
+        var = torch.clamp_min(q / cnt - mean * mean, 0.0)
+        inv32 = torch.rsqrt(var + eps) * gamma.float()
+        shift = beta.float() - mean * inv32
+        pre = y_raw * inv32.to(y_raw.dtype) + shift.to(y_raw.dtype)
+        out = torch.relu(pre)
+        ctx.save_for_backward(x, w, gamma, y_raw, mean, var, out)
+        ctx.eps, ctx.cnt = eps, cnt
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dout, dmean, dvar):
+        x, w, gamma, y_raw, mean, var, out = ctx.saved_tensors
+        cnt = ctx.cnt
+        red = (0, 1, 2)
+        inv = torch.rsqrt(var + ctx.eps)
+        dy = torch.where(out > 0, dout, torch.zeros_like(dout)).float()
+        y32 = y_raw.float()
+        xhat = (y32 - mean) * inv
+        dbeta = dy.sum(dim=red)
+        dgamma = (dy * xhat).sum(dim=red)
+        dxhat = dy * gamma.float()
+        # batch-stats BN backward (mean and var are functions of y_raw)
+        dy_raw = (inv / cnt) * (cnt * dxhat - dxhat.sum(dim=red)
+                                - xhat * (dxhat * xhat).sum(dim=red))
+        # cotangents of the exposed statistics: mean = sum(y) / cnt and
+        # var = sum(y^2) / cnt - mean^2, so dvar/dy = 2 (y - mean) / cnt
+        if dmean is not None:
+            dy_raw = dy_raw + dmean.float() / cnt
+        if dvar is not None:
+            dy_raw = dy_raw + dvar.float() * 2.0 * (y32 - mean) / cnt
+        dy_raw = _conv_nchw(dy_raw.to(y_raw.dtype))
+        w_oihw = w.permute(3, 2, 0, 1)
+        x_nchw = _conv_nchw(x)
+        dx = torch.nn.grad.conv2d_input(x_nchw.shape, w_oihw, dy_raw,
+                                        padding=1)
+        dw = torch.nn.grad.conv2d_weight(x_nchw, w_oihw.shape, dy_raw,
+                                         padding=1)
+        return (dx.permute(0, 2, 3, 1).to(x.dtype),
+                dw.permute(2, 3, 1, 0).to(w.dtype),
+                dgamma.to(gamma.dtype), dbeta.to(gamma.dtype), None)
+
+
+def conv3x3_bn_relu_train(x, w, gamma, beta, eps=1e-3):
+    """Trainable fused conv3x3 (stride 1, SAME) + batch-statistics
+    BatchNorm + relu: K3's forward, then the normalise fold and relu.
+
+    x (N, H, W, Cin), w (3, 3, Cin, Cout), gamma and beta (Cout,). Returns
+    (out (N, H, W, Cout), mean (Cout,) f32, var (Cout,) f32); mean and var
+    feed the moving-average update and carry gradients like any output.
+    """
+    return _Conv3x3BnReluTrain.apply(x, w, gamma, beta, eps)

@@ -1,5 +1,13 @@
 """Neural-network ops (subset of ``mxnet_tpu/ops/nn.py``): dense layers,
-layer norm, activations and scaled dot-product attention."""
+convolution, pooling, batch and layer norm, activations, flatten and
+scaled dot-product attention.
+
+Convolution and pooling take ``mxnet_tpu``'s layouts: channels-first
+(NCHW, OIHW weights) or channels-last (NHWC, OHWI weights). A
+channels-last tensor is a contiguous (N, H, W, C) tensor; its
+``permute(0, 3, 1, 2)`` is torch's ``channels_last`` NCHW view of the same
+memory, so the library runs its NHWC kernels with no copy, and the
+result's inverse permute is contiguous NHWC again."""
 from __future__ import annotations
 
 import math
@@ -7,7 +15,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["fully_connected", "layer_norm", "activation", "leaky_relu",
+__all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
+           "layer_norm", "activation", "leaky_relu", "flatten",
            "scaled_dot_product_attention"]
 
 _NEG = -1e30
@@ -19,6 +28,162 @@ def fully_connected(data, weight, bias=None, flatten=True):
     x = data.reshape(data.shape[0], -1) if flatten and data.dim() > 2 \
         else data
     return F.linear(x, weight, bias)
+
+
+def _pair(v, n):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v,) * n
+
+
+def _channels_last(layout):
+    return bool(layout) and layout[1] != "C"
+
+
+def _to_channels_first(t):
+    """(N, *spatial, C) -> the (N, C, *spatial) view of the same memory."""
+    return t.permute(0, t.dim() - 1, *range(1, t.dim() - 1))
+
+
+def _to_channels_last(t):
+    return t.permute(0, *range(2, t.dim()), 1)
+
+
+def _torch_pad(pads):
+    """[(lo, hi) per spatial dim] -> F.pad's last-dim-first flat list."""
+    return [p for lo_hi in reversed(pads) for p in lo_hi]
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def convolution(data, weight, bias=None, kernel=None, stride=None,
+                dilate=None, pad=None, num_filter=None, num_group=1,
+                no_bias=False, layout=None):
+    """N-d convolution (``mxnet_tpu/ops/nn.py:73-98``; parity:
+    convolution.cc). Channels-first layouts take OI* weights, channels-last
+    ones (``layout='NHWC'``) O*I weights. ``pad`` entries are ints
+    (symmetric) or (lo, hi) pairs; an asymmetric pad is applied with
+    ``F.pad`` in the data's own layout, then the conv runs unpadded."""
+    sdims = data.dim() - 2
+    stride = _pair(stride or 1, sdims)
+    dilate = _pair(dilate or 1, sdims)
+    pad = pad if isinstance(pad, (tuple, list)) else _pair(pad or 0, sdims)
+    pads = [tuple(p) if isinstance(p, (tuple, list)) else (p, p)
+            for p in pad]
+    last = _channels_last(layout)
+    x = data
+    if all(lo == hi for lo, hi in pads):
+        padding = tuple(lo for lo, _ in pads)
+    else:
+        x = F.pad(x, ([0, 0] if last else []) + _torch_pad(pads))
+        padding = 0
+    b = None if no_bias else bias
+    if last:
+        out = _CONV[sdims](_to_channels_first(x), _to_channels_first(weight),
+                           b, stride, padding, dilate, num_group)
+        return _to_channels_last(out)
+    return _CONV[sdims](x, weight, b, stride, padding, dilate, num_group)
+
+
+_POOL = {"max": {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d},
+         "avg": {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}}
+
+
+def pooling(data, kernel=None, pool_type="max", global_pool=False,
+            stride=None, pad=None, pooling_convention="valid",
+            count_include_pad=True, layout=None):
+    """Max/avg/sum pooling (``mxnet_tpu/ops/nn.py:138-208``; parity:
+    pooling.cc). ``pooling_convention='full'`` is ceil mode with the extra
+    window padded on the high side; an avg window always divides by the
+    full kernel size with ``count_include_pad`` (padding included), else
+    by the count of real elements."""
+    sdims = data.dim() - 2
+    last = _channels_last(layout)
+    if pool_type not in ("max", "avg", "sum"):
+        raise ValueError(f"pooling: pool_type {pool_type!r} is not ported "
+                         "(max, avg or sum)")
+    if global_pool:
+        axes = tuple(range(1, data.dim() - 1)) if last \
+            else tuple(range(2, data.dim()))
+        if pool_type == "max":
+            return data.amax(dim=axes, keepdim=True)
+        red = torch.mean if pool_type == "avg" else torch.sum
+        return red(data, dim=axes, keepdim=True)
+    kernel = _pair(kernel, sdims)
+    stride = _pair(stride or 1, sdims)
+    pad = _pair(pad or 0, sdims)
+    x = _to_channels_first(data) if last else data
+    spatial = x.shape[2:]
+    if pooling_convention == "full":
+        pads = []
+        for i in range(sdims):
+            out = -(-(spatial[i] + 2 * pad[i] - kernel[i]) // stride[i]) + 1
+            need = (out - 1) * stride[i] + kernel[i] - spatial[i] - pad[i]
+            pads.append((pad[i], max(need, pad[i])))
+    else:
+        pads = [(p, p) for p in pad]
+    if all(lo == hi and 2 * lo <= k for (lo, hi), k in zip(pads, kernel)):
+        # torch pads implicitly; valid windows never reach past the pad, so
+        # every avg window divides as the reference's does
+        padding = tuple(lo for lo, _ in pads)
+    else:
+        fill = float("-inf") if pool_type == "max" else 0.0
+        x = F.pad(x, _torch_pad(pads), value=fill)
+        padding = 0
+    if pool_type == "max":
+        out = _POOL["max"][sdims](x, kernel, stride, padding)
+    elif pool_type == "sum" or (not count_include_pad and padding == 0):
+        out = _POOL["avg"][sdims](x, kernel, stride, padding,
+                                  divisor_override=1)
+        if pool_type == "avg":   # divide by the real elements per window
+            ones = F.pad(x.new_ones((1, 1) + tuple(spatial)),
+                         _torch_pad(pads))
+            out = out / _POOL["avg"][sdims](ones, kernel, stride, 0,
+                                            divisor_override=1)
+    else:
+        out = _POOL["avg"][sdims](x, kernel, stride, padding,
+                                  count_include_pad=count_include_pad)
+    return _to_channels_last(out) if last else out
+
+
+def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+               momentum=0.9, fix_gamma=True, use_global_stats=False,
+               axis=1, _train=True):
+    """BatchNorm (``mxnet_tpu/ops/nn.py:242-279``; parity: batch_norm.cc).
+    Returns (out, new_moving_mean, new_moving_var), the functional form of
+    the reference's aux-state mutation.
+
+    In training (``_train`` and not ``use_global_stats``) the statistics
+    are single-pass f32 moments (E[x^2] - E[x]^2, clamped at 0) and the
+    moving stats take an EMA step; otherwise the moving stats are used.
+    Either way scale and shift are folded per channel in f32, cast to the
+    data's dtype, and applied in one multiply-add."""
+    axis = axis if axis >= 0 else data.dim() + axis
+    red = tuple(i for i in range(data.dim()) if i != axis)
+    bshape = [1] * data.dim()
+    bshape[axis] = data.shape[axis]
+    if _train and not use_global_stats:
+        x32 = data.float()
+        mean = x32.mean(dim=red)
+        var = torch.clamp_min((x32 * x32).mean(dim=red) - mean * mean, 0.0)
+        new_mm = (moving_mean.float() * momentum
+                  + mean * (1 - momentum)).to(moving_mean.dtype)
+        new_mv = (moving_var.float() * momentum
+                  + var * (1 - momentum)).to(moving_var.dtype)
+    else:
+        mean, var = moving_mean.float(), moving_var.float()
+        new_mm, new_mv = moving_mean, moving_var
+    inv = torch.rsqrt(var + eps)
+    if not fix_gamma:
+        inv = inv * gamma.float()
+    shift = beta.float() - mean * inv
+    out = torch.addcmul(shift.to(data.dtype).view(bshape), data,
+                        inv.to(data.dtype).view(bshape))
+    return out, new_mm, new_mv
+
+
+def flatten(data):
+    """(N, ...) -> (N, prod(...)) (parity: Flatten)."""
+    return data.reshape(data.shape[0], -1)
 
 
 def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):

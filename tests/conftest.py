@@ -39,6 +39,10 @@ def pytest_configure(config):
         "markers", "slow: long-running test (skip with -m 'not slow')")
     config.addinivalue_line(
         "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the PyTorch port's hand-written "
+        "kernels); skips without one, run with -m cuda on the card")
+    config.addinivalue_line(
+        "markers",
         "exhaustive: full-coverage sweep; the fast tier is "
         "-m 'not exhaustive and not slow' (~<8 min), the FULL default run "
         "remains the merge gate")

@@ -61,6 +61,12 @@ def test_imports_and_runs_with_jax_and_mxnet_tpu_blocked():
         net.initialize(ctx=mt.cpu())
         out = net(torch.randint(0, 32, (2, 8)))
         assert out.shape == (2, 8, 32) and torch.isfinite(out).all()
+        from mxnet_tpu_torch.gluon.model_zoo import vision
+        cnn = vision.resnet18_v1(layout="NHWC", stem="s2d", classes=4)
+        cnn.initialize(mt.init.Xavier(), ctx=mt.cpu())
+        with torch.inference_mode():
+            logits = cnn(torch.rand(1, 3, 32, 32))
+        assert logits.shape == (1, 4) and torch.isfinite(logits).all()
         leaked = [n for n in sys.modules
                   if n == "jax" or n.startswith("jax.")
                   or n == "mxnet_tpu" or n.startswith("mxnet_tpu.")]
@@ -72,7 +78,7 @@ def test_imports_and_runs_with_jax_and_mxnet_tpu_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.startswith("OK")
-    assert int(res.stdout.split()[1]) >= 15
+    assert int(res.stdout.split()[1]) >= 24
 
 
 def test_entry_points_without_ctx_need_cuda():
