@@ -61,4 +61,6 @@ class MultiHeadAttention(HybridBlock):
             q, k, v, causal=self._causal,
             impl="flash" if self._impl == "flash" else "xla")
         b, h, l, d = out.shape
+        # the tensor-core flash kernel writes O as (B, L, H, d) memory, so
+        # this merge of the heads is a view there, not a copy
         return self.out_proj(out.transpose(1, 2).reshape(b, l, h * d))

@@ -2,8 +2,11 @@
 
 K1, the flash-attention forward, replaces the TPU kernel
 ``mxnet_tpu/ops/pallas_kernels.py:_mha_kernel`` (built by ``_build_flash``,
-entered through ``flash_attention``). Its CUDA source is
-``mxnet_tpu_torch/csrc/flash_attn_fwd.cu``.
+entered through ``flash_attention``). It has two CUDA sources, chosen by
+the fixed rule of :func:`_flash_route`: ``csrc/flash_attn_fwd_tc.cu`` on
+the tensor cores (wgmma + TMA; 16-bit, D 64 or 128, any 16-byte-aligned
+layout with a unit-stride D) and ``csrc/flash_attn_fwd.cu`` on the CUDA
+cores (everything else, after ``.contiguous()``).
 
 K3, the fused 3x3 conv + BatchNorm statistics, replaces the TPU kernel
 ``mxnet_tpu/ops/pallas_kernels.py:conv3x3_bn_stats``; its CUDA source is
@@ -15,7 +18,8 @@ Each wrapper (:func:`flash_attention`, :func:`conv3x3_bn_stats`) takes its
 plain version (``*_reference``) only for tensors on the CPU. For a CUDA
 tensor it launches the kernel or raises: a build or launch failure is an
 error, never a quiet fall-back. ``<wrapper>.launches`` counts kernel
-launches, and nothing else.
+launches, and nothing else; ``flash_attention.launches_by_route`` splits
+K1's count by route.
 """
 from __future__ import annotations
 
@@ -95,6 +99,36 @@ def flash_attention_reference(q, k, v, causal=False, scale=None,
     return out
 
 
+_TC_MAX_T = 65535 * 128      # the tensor-core grid's Q tiles, 128 rows each
+
+
+def _flash_route(dtype, d, strides, ptrs, t):
+    """Which K1 kernel takes these inputs: "tc" (tensor cores) for bf16 or
+    fp16, D of 64 or 128, T up to 65535 * 128, and q, k, v (given by their
+    (B, H, T, D) element strides and base addresses) with unit stride in
+    D, every other stride a positive multiple of 8 elements (16 bytes) and
+    16-byte-aligned bases; "simt" (CUDA cores, contiguous copies) for
+    everything else. A fixed rule, not a fall-back: a failure of the
+    chosen kernel raises."""
+    if (dtype not in (torch.bfloat16, torch.float16) or d not in (64, 128)
+            or t > _TC_MAX_T):
+        return "simt"
+    for st in strides:
+        if st[3] != 1 or any(x <= 0 or x % 8 for x in st[:3]):
+            return "simt"
+    return "tc" if all(p % 16 == 0 for p in ptrs) else "simt"
+
+
+def _tma_strides(x):
+    """x's (B, H, T) element strides for a tensor map; a size-1 dim, whose
+    stride never matters, takes its contiguous stride so that it meets the
+    map's rules."""
+    contiguous = (x.shape[1] * x.shape[2] * x.shape[3],
+                  x.shape[2] * x.shape[3], x.shape[3])
+    return tuple(c if n == 1 else s for n, s, c in
+                 zip(x.shape[:3], x.stride()[:3], contiguous))
+
+
 def _library():
     lib = _build.load("flash_attn_fwd")
     fn = lib.flash_attn_fwd
@@ -107,14 +141,45 @@ def _library():
     return lib
 
 
-def _launch(q, k, v, causal, scale, q_offset, k_offset):
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be contiguous")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention on CUDA is forward-only: its backward kernel "
-            "(K2) is not ported yet; run under torch.inference_mode()")
+def _tc_library():
+    lib = _build.load("flash_attn_fwd_tc")
+    fn = lib.flash_attn_fwd_tc
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, p, i, ctypes.c_float, i,
+                       i, i, p]
+        fn.restype = ctypes.c_int
+        lib.flash_attn_tc_error_string.argtypes = [i]
+        lib.flash_attn_tc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_tc(q, k, v, causal, scale, q_offset, k_offset):
+    """The tensor-core K1 on q, k, v as they lie (strided views welcome).
+    O is written into (B, T, H, D) memory and returned as its (B, H, T, D)
+    view, so merging the heads afterwards is free."""
+    lib = _tc_library()
+    b, h, t, d = q.shape
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, t, 1), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 9)(
+        *(s for x in (q, k, v) for s in _tma_strides(x)))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attn_fwd_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, h, t, d, strides, _DTYPE_CODE[q.dtype],
+            float(scale), int(bool(causal)), int(q_offset), int(k_offset),
+            stream)
+    if err:
+        raise MXNetError("flash_attn_fwd_tc launch failed: "
+                         f"{lib.flash_attn_tc_error_string(err).decode()} "
+                         f"(error {err})")
+    return out.transpose(1, 2), lse
+
+
+def _launch_simt(q, k, v, causal, scale, q_offset, k_offset):
+    """The CUDA-core K1 on contiguous q, k, v."""
     lib = _library()
     b, h, t, d = q.shape
     out = torch.empty_like(q)
@@ -129,7 +194,26 @@ def _launch(q, k, v, causal, scale, q_offset, k_offset):
         raise MXNetError("flash_attn_fwd launch failed: "
                          f"{lib.flash_attn_error_string(err).decode()} "
                          f"(cudaError {err})")
+    return out, lse
+
+
+def _launch(q, k, v, causal, scale, q_offset, k_offset):
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention on CUDA is forward-only: its backward kernel "
+            "(K2) is not ported yet; run under torch.inference_mode()")
+    qkv = (q, k, v)
+    route = _flash_route(q.dtype, q.shape[-1],
+                         [_tma_strides(x) + (x.stride(3),) for x in qkv],
+                         [x.data_ptr() for x in qkv], q.shape[2])
+    if route == "tc":
+        out, lse = _launch_tc(q, k, v, causal, scale, q_offset, k_offset)
+    else:
+        out, lse = _launch_simt(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal, scale, q_offset,
+                                k_offset)
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out, lse
 
 
@@ -141,7 +225,9 @@ def flash_attention(q, k, v, causal=False, scale=None, return_lse=False,
     ``q_offset``/``k_offset`` place the Q rows and K/V rows in a larger
     global sequence for causal masking (the ring-attention hop case).
     ``scale`` defaults to 1/sqrt(D). Self-attention shapes only, D <= 256,
-    float32/bfloat16/float16; any T. CUDA tensors must be contiguous.
+    float32/bfloat16/float16; any T and any strides. On CUDA,
+    :func:`_flash_route` picks the kernel; on its tensor-core route O is
+    the (B, H, T, D) view of (B, T, H, D) memory.
     """
     _check(q, k, v, q_offset, k_offset)
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
@@ -157,6 +243,7 @@ def flash_attention(q, k, v, causal=False, scale=None, return_lse=False,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = {"tc": 0, "simt": 0}
 
 
 # ----------------------------------------------------------------------- K3

@@ -235,7 +235,9 @@ def scaled_dot_product_attention(q, k, v, mask=None, causal=False,
     softmax. ``impl="flash"`` runs the streaming kernel
     (:func:`~mxnet_tpu_torch.ops.kernels.flash_attention`): on a CUDA
     tensor it launches the hand-written CUDA kernel or raises; there is
-    no fall-back to the dense path.
+    no fall-back to the dense path. q, k, v go as they are: the kernel's
+    route decides whether it reads the strided views in place (the
+    tensor-core kernel) or takes contiguous copies (the CUDA-core one).
     """
     if impl == "flash":
         if mask is not None:
@@ -245,8 +247,7 @@ def scaled_dot_product_attention(q, k, v, mask=None, causal=False,
                 "guarantee you opted into")
         from .kernels import flash_attention
 
-        return flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=causal, scale=scale)
+        return flash_attention(q, k, v, causal=causal, scale=scale)
     if impl != "xla":
         raise ValueError(f"unknown attention impl {impl!r}")
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
