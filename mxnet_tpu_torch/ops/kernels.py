@@ -9,21 +9,25 @@ layout with a unit-stride D) and ``csrc/flash_attn_fwd.cu`` on the CUDA
 cores (everything else, after ``.contiguous()``).
 
 K3, the fused 3x3 conv + BatchNorm statistics, replaces the TPU kernel
-``mxnet_tpu/ops/pallas_kernels.py:conv3x3_bn_stats``; its CUDA source is
-``mxnet_tpu_torch/csrc/conv3x3_bn_stats.cu``, and
-:func:`conv3x3_bn_relu_train` is its trainable wrapper. Each source's
-header says what bounds it on the H100 and how it is laid out.
+``mxnet_tpu/ops/pallas_kernels.py:conv3x3_bn_stats``, and
+:func:`conv3x3_bn_relu_train` is its trainable wrapper. It has two CUDA
+sources, chosen by the fixed rule of :func:`_conv_route`:
+``csrc/conv3x3_bn_stats_tc.cu`` on the tensor cores (wgmma + TMA im2col;
+16-bit, Cin and Cout multiples of 64, tiles from :func:`_conv_tiles`) and
+``csrc/conv3x3_bn_stats.cu`` on the CUDA cores (everything else). Each
+source's header says what bounds it on the H100 and how it is laid out.
 
 Each wrapper (:func:`flash_attention`, :func:`conv3x3_bn_stats`) takes its
 plain version (``*_reference``) only for tensors on the CPU. For a CUDA
 tensor it launches the kernel or raises: a build or launch failure is an
 error, never a quiet fall-back. ``<wrapper>.launches`` counts kernel
-launches, and nothing else; ``flash_attention.launches_by_route`` splits
-K1's count by route.
+launches, and nothing else; ``<wrapper>.launches_by_route`` splits the
+count by route.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -292,6 +296,39 @@ def conv3x3_bn_stats_reference(x, w):
     return y, acc.sum(dim=(0, 2, 3)), (acc * acc).sum(dim=(0, 2, 3))
 
 
+_CONV_TILES = ((128, 128), (64, 128), (128, 64), (64, 64))
+
+
+def _conv_route(dtype, cin, cout, contiguous, ptrs):
+    """Which K3 kernel takes these inputs: "tc" (tensor cores) for bf16 or
+    fp16, Cin and Cout multiples of 64, x and w contiguous with 16-byte
+    aligned base addresses ``ptrs``; "simt" (CUDA cores) for everything
+    else, fp32 among it (TF32 products cannot hold its 1e-4). A fixed
+    rule, not a fall-back: a failure of the chosen kernel raises."""
+    if (dtype not in (torch.bfloat16, torch.float16) or cin % 64
+            or cout % 64 or not contiguous):
+        return "simt"
+    return "tc" if all(p % 16 == 0 for p in ptrs) else "simt"
+
+
+def _conv_tiles(m_total, cout, sms):
+    """(BM, BN) of the tensor-core K3 for M = N*H*W output pixels and Cout
+    channels on a card of ``sms`` streaming multiprocessors: the first of
+    (128, 128), (64, 128), (128, 64), (64, 64) whose BN divides Cout and
+    whose grid has a CTA for each SM, else 64 x 64. The order is measured
+    (tools/torch_k3_variants.py, PERF.md)."""
+    for bm, bn in _CONV_TILES:
+        if cout % bn == 0 and -(-m_total // bm) * (cout // bn) >= sms:
+            return bm, bn
+    return 64, 64
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _conv_library():
     lib = _build.load("conv3x3_bn_stats")
     fn = lib.conv3x3_bn_stats
@@ -305,16 +342,51 @@ def _conv_library():
     return lib
 
 
-def _launch_conv(x, w):
+def _conv_tc_library():
+    lib = _build.load("conv3x3_bn_stats_tc")
+    fn = lib.conv3x3_bn_stats_tc
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+        lib.conv3x3_tc_error_string.argtypes = [i]
+        lib.conv3x3_tc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_conv_tc(x, w, tiles=None):
+    """The tensor-core K3 on contiguous 16-bit x and w; ``tiles`` (BM, BN)
+    overrides :func:`_conv_tiles`, for design measurements."""
+    lib = _conv_tc_library()
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    m_total = n * h * wd
+    bm, bn = tiles or _conv_tiles(m_total, cout, _sm_count(x.device.index))
+    y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
+    part = torch.empty((2, -(-m_total // bm), cout), dtype=torch.float32,
+                       device=x.device)
+    sums = torch.empty((2, cout), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.conv3x3_bn_stats_tc(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(),
+            sums.data_ptr(), n, h, wd, cin, cout, _DTYPE_CODE[x.dtype], bm,
+            bn, stream)
+    if err:
+        raise MXNetError("conv3x3_bn_stats_tc launch failed: "
+                         f"{lib.conv3x3_tc_error_string(err).decode()} "
+                         f"(error {err})")
+    return y, sums[0], sums[1]
+
+
+def _launch_conv_simt(x, w):
+    """The CUDA-core K3 on contiguous x and w of any of its dtypes."""
     for name, t in (("x", x), ("w", w)):
         if not t.is_contiguous():
             raise ValueError(f"conv3x3_bn_stats: {name} must be contiguous")
+    lib = _conv_library()
     n, h, wd, cin = x.shape
     cout = w.shape[3]
-    if n * h * wd * max(cin, cout) > _INT32[1]:
-        raise ValueError(f"conv3x3_bn_stats: x {tuple(x.shape)} with Cout "
-                         f"{cout} exceeds the kernel's int32 pixel indexing")
-    lib = _conv_library()
     m_tiles = -(-(n * h * wd) // lib.conv3x3_bn_stats_block_m())
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
     part = torch.empty((2, m_tiles, cout), dtype=torch.float32,
@@ -330,8 +402,25 @@ def _launch_conv(x, w):
         raise MXNetError("conv3x3_bn_stats launch failed: "
                          f"{lib.conv3x3_bn_stats_error_string(err).decode()}"
                          f" (cudaError {err})")
-    conv3x3_bn_stats.launches += 1
     return y, sums[0], sums[1]
+
+
+def _launch_conv(x, w):
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    if n * h * wd * max(cin, cout) > _INT32[1]:
+        raise ValueError(f"conv3x3_bn_stats: x {tuple(x.shape)} with Cout "
+                         f"{cout} exceeds the kernel's int32 pixel indexing")
+    route = _conv_route(x.dtype, cin, cout,
+                        x.is_contiguous() and w.is_contiguous(),
+                        (x.data_ptr(), w.data_ptr()))
+    if route == "tc":
+        out = _launch_conv_tc(x, w)
+    else:
+        out = _launch_conv_simt(x, w)
+    conv3x3_bn_stats.launches += 1
+    conv3x3_bn_stats.launches_by_route[route] += 1
+    return out
 
 
 def conv3x3_bn_stats(x, w):
@@ -340,7 +429,8 @@ def conv3x3_bn_stats(x, w):
     x (N, H, W, Cin) NHWC, w (3, 3, Cin, Cout) HWIO, one dtype of float32,
     bfloat16 or float16. Returns y (N, H, W, Cout) in x's dtype and the
     per-channel sum and sum of squares (Cout,) in f32, taken from the f32
-    accumulator (not from the rounded y). CUDA tensors must be contiguous.
+    accumulator (not from the rounded y). CUDA tensors must be contiguous;
+    on CUDA, :func:`_conv_route` picks the kernel.
     """
     _check_conv(x, w)
     if x.device.type == "cuda":
@@ -351,6 +441,7 @@ def conv3x3_bn_stats(x, w):
 
 
 conv3x3_bn_stats.launches = 0
+conv3x3_bn_stats.launches_by_route = {"tc": 0, "simt": 0}
 
 
 def _conv_nchw(t):

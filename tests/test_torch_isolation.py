@@ -25,15 +25,22 @@ _FORBIDDEN = re.compile(
 
 
 def _port_sources():
+    """The package, chip_smoke.py and the port's tools (tools/torch_*.py)."""
     out = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    tools = os.path.join(ROOT, "tools")
+    out += [os.path.join(tools, f) for f in sorted(os.listdir(tools))
+            if f.startswith("torch_") and f.endswith(".py")]
     return out
 
 
 def test_no_source_imports_jax_or_the_jax_package():
+    sources = _port_sources()
+    assert {"torch_k1_variants.py", "torch_k3_variants.py"} <= {
+        os.path.basename(p) for p in sources}
     offenders = []
-    for path in _port_sources():
+    for path in sources:
         with open(path) as f:
             for m in _FORBIDDEN.finditer(f.read()):
                 offenders.append(f"{os.path.relpath(path, ROOT)}: "
