@@ -14,7 +14,12 @@ Phases, each failing loudly with a non-zero exit:
       fixed cases, with the tolerance and its reason printed: K1 (flash
       attention) on both of its routes -- the tensor-core kernel (16-bit,
       D 64/128, contiguous or the LM's strided q/k/v, launched twice
-      for bitwise equality) and the CUDA-core one (fp32, other D) --, K3
+      for bitwise equality) and the CUDA-core one (fp32, other D) --, K2
+      (the flash backward: fp32/bf16/fp16, D 64/128/80/256, ragged T,
+      offsets, rows that see no key, dlse, the LM's strided layout; a
+      second launch bitwise equal; the plain version without its dlse term
+      must fail the check) and the K1 + K2 autograd Function against
+      autograd through dense attention --, K3
       (conv3x3 + BN statistics) on both of its routes -- the tensor-core
       kernel (16-bit, channels in multiples of 64, every tile rule) and
       the CUDA-core one (fp32, ragged channels) --, a second launch
@@ -22,9 +27,11 @@ Phases, each failing loudly with a non-zero exit:
       wrapper's gradients against autograd;
   (c) kernel, plain-version and library times at the slices' shapes, in
       device time, beside each kernel's bound on the H100 (K1 also on the
-      strided layout and for fp32 on the CUDA cores; K3 also beside its
-      CUDA-core kernel on the same inputs and the unfused cuDNN conv +
-      batch_norm path);
+      strided layout and for fp32 on the CUDA cores; K2 beside torch SDPA's
+      backward, also on the LM's layout, on the CUDA cores and in fp32; K3
+      also beside its
+      CUDA-core kernel on the same inputs, the unfused cuDNN conv +
+      batch_norm path, and in fp32 beside cuDNN's fp32 conv);
   (d) the slice: TransformerLM(impl='flash') at GPT-2-small widths in
       bf16, behind Predictor + BatchServer, served to concurrent
       requests; 12 tensor-core K1 launches per predict call and none on
@@ -39,7 +46,15 @@ Phases, each failing loudly with a non-zero exit:
       bottleneck): exactly 4 launches, all on the tensor-core route, each
       within tolerance of cuDNN's output and of the plain version; no copy
       kernel per conv; and an fp32 NHWC ResNet-50 against the same weights
-      in NCHW.
+      in NCHW;
+  (h) the training slice: the same LM at full width and depth in bf16,
+      gluon.Trainer + Adam (lr 1e-3) + SoftmaxCrossEntropyLoss, 10 steps on
+      one fixed batch (B=8, T=1024) of a learnable sequence: finite losses,
+      loss 10 at least 0.5 below loss 1, exactly 12 tensor-core K1 and 12
+      K2 launches a step; median step time and tokens/s; one more step
+      profiled (forward + backward, and the Adam update);
+  (i) one training step of a 2-layer model of the same widths with K1 + K2
+      against plain attention, in fp32 and bf16: loss and every gradient.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. ``--summary PATH`` also writes the
@@ -286,6 +301,244 @@ def check_flash(torch, kernels):
                         "o_err_unit": unit.strip() or "abs",
                         "lse_err": l_err})
     return records, slice_err
+
+
+def bwd_inputs(torch, kernels, gen, shape, dtype, layout, causal, qo, ko,
+               with_dlse):
+    """q, k, v as flash_inputs gives them; O and lse from K1 on the card; a
+    seeded dO ~ N(0, 1) (``layout="qkv"``: the (B, H, T, D) view of
+    (B, T, H, D) memory, as autograd hands the LM's K1 output its
+    cotangent) and, with ``with_dlse``, a seeded dlse ~ N(0, 1)."""
+    b, h, t, d = shape
+    q, k, v = flash_inputs(torch, gen, shape, dtype, layout)
+    out, lse = kernels.flash_attention(q, k, v, causal=causal,
+                                       return_lse=True, q_offset=qo,
+                                       k_offset=ko)
+    if layout == "qkv":
+        dout = torch.randn((b, t, h, d), generator=gen, device="cuda").to(
+            dtype).transpose(1, 2)
+    else:
+        dout = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    dlse = (torch.randn((b, h, t, 1), generator=gen, device="cuda")
+            if with_dlse else None)
+    return q, k, v, out, lse, dout, dlse
+
+
+def grads_err(torch, got, ref):
+    """Largest error of dq, dk, dv: output ulps (ulp_err) for 16-bit,
+    max|a - b| / max|b| for fp32."""
+    if ref[0].dtype == torch.float32:
+        return max(rel_err(a, b) for a, b in zip(got, ref))
+    return max(ulp_err(torch, a, b) for a, b in zip(got, ref))
+
+
+def check_flash_bwd(torch, kernels):
+    """K2 (the flash-attention backward) against its plain version on fixed
+    cases: fp32, bf16 and fp16; causal and not; D 64, 128, 80 (in the
+    128-wide instantiation) and 256; T 1024, ragged 1000 and 300; q and k
+    offsets, rows that see no key; a nonzero dlse; the LM's strided q/k/v
+    with the tensor-core K1's O and a strided dO. A second launch must be
+    bitwise equal, and a plain version without the dlse term must fail
+    the same check. Then the K1 + K2 autograd Function against autograd
+    through dense attention. Returns the check records and the largest
+    error at the slice's shape."""
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    tol32 = 1e-4
+    tol16 = 4.0
+    why = (f"fp32: dq, dk, dv within {tol32:g} of max|ref| (f32 sums in "
+           f"other orders); 16-bit: within {tol16:g} output ulps (one "
+           "rounding of f32 sums taken in another order; below max|ref| * "
+           "2^-6 the ulp of that floor)")
+    sl = (BATCH, HEADS, T, UNITS // HEADS)
+    cases = [
+        # name, (B, H, T, D), dtype, causal, q_offset, k_offset, layout,
+        # dlse, route
+        ("fp32 causal", (2, 4, 256, 64), f32, True, 0, 0, "contiguous",
+         False, "simt"),
+        ("fp32 non-causal", (2, 4, 256, 64), f32, False, 0, 0,
+         "contiguous", False, "simt"),
+        ("fp32 causal D=128", (1, 2, 512, 128), f32, True, 0, 0,
+         "contiguous", False, "simt"),
+        ("fp32 causal ragged T=300 D=80", (1, 2, 300, 80), f32, True, 0, 0,
+         "contiguous", False, "simt"),
+        ("fp32 causal D=256", (1, 2, 256, 256), f32, True, 0, 0,
+         "contiguous", False, "simt"),
+        ("fp32 causal q_offset=128", (1, 2, 256, 64), f32, True, 128, 0,
+         "contiguous", False, "simt"),
+        ("fp32 causal k_offset=100 (blind rows)", (1, 2, 256, 64), f32,
+         True, 0, 100, "contiguous", False, "simt"),
+        ("fp32 causal dlse", (2, 4, 256, 64), f32, True, 0, 0, "contiguous",
+         True, "simt"),
+        ("fp32 non-causal ragged T=1000 dlse", (1, 2, 1000, 64), f32, False,
+         0, 0, "contiguous", True, "simt"),
+        ("bf16 causal D=80 ragged T=300", (1, 2, 300, 80), bf16, True, 0, 0,
+         "contiguous", False, "simt"),
+        ("fp16 causal D=256", (1, 2, 256, 256), f16, True, 0, 0,
+         "contiguous", False, "simt"),
+        ("bf16 causal D=80 dlse", (1, 2, 256, 80), bf16, True, 0, 0,
+         "contiguous", True, "simt"),
+        ("bf16 causal slice shape", sl, bf16, True, 0, 0, "contiguous",
+         False, "tc"),
+        ("fp16 causal slice shape", sl, f16, True, 0, 0, "contiguous",
+         False, "tc"),
+        ("bf16 causal slice shape, LM layout", sl, bf16, True, 0, 0, "qkv",
+         False, "tc"),
+        ("bf16 non-causal", (2, 4, 256, 64), bf16, False, 0, 0,
+         "contiguous", False, "tc"),
+        ("bf16 causal D=128 T=1024", (1, 4, 1024, 128), bf16, True, 0, 0,
+         "contiguous", False, "tc"),
+        ("fp16 causal D=128 LM layout", (2, 4, 512, 128), f16, True, 0, 0,
+         "qkv", False, "tc"),
+        ("fp16 non-causal D=128 ragged T=300", (1, 2, 300, 128), f16, False,
+         0, 0, "contiguous", False, "tc"),
+        ("fp16 causal ragged T=1000", (2, 2, 1000, 64), f16, True, 0, 0,
+         "contiguous", False, "tc"),
+        ("bf16 causal ragged T=40", (2, 3, 40, 64), bf16, True, 0, 0, "qkv",
+         False, "tc"),
+        ("bf16 causal q_offset=128", (1, 2, 256, 64), bf16, True, 128, 0,
+         "contiguous", False, "tc"),
+        ("bf16 causal k_offset=100 (blind rows)", (1, 2, 256, 64), bf16,
+         True, 0, 100, "contiguous", False, "tc"),
+        ("fp16 causal k_offset=100 (blind rows) D=128", (1, 2, 256, 128),
+         f16, True, 0, 100, "contiguous", False, "tc"),
+        ("bf16 causal dlse", (2, 4, 256, 64), bf16, True, 0, 0, "contiguous",
+         True, "tc"),
+        ("fp16 causal dlse LM layout", (2, 4, 256, 64), f16, True, 0, 0,
+         "qkv", True, "tc"),
+    ]
+    log(f"[b] K2 tolerances -- {why}")
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    records, slice_err, relaunched = [], 0.0, set()
+    for name, shape, dtype, causal, qo, ko, layout, with_dlse, route in \
+            cases:
+        q, k, v, out, lse, dout, dlse = bwd_inputs(
+            torch, kernels, gen, shape, dtype, layout, causal, qo, ko,
+            with_dlse)
+        kw = dict(causal=causal, dlse=dlse, q_offset=qo, k_offset=ko)
+        before = dict(kernels.flash_attention_backward.launches_by_route)
+        got = kernels.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        took = [r for r, n in kernels.flash_attention_backward
+                .launches_by_route.items() if n != before[r]]
+        ref = kernels.flash_attention_backward_reference(
+            q, k, v, out, lse, dout, **kw)
+        err = grads_err(torch, got, ref)
+        tol = tol32 if dtype == f32 else tol16
+        ok = (took == [route] and all(
+            a.shape == b.shape and a.dtype == dtype
+            and bool(torch.isfinite(a.float()).all())
+            for a, b in zip(got, ref)) and err <= tol)
+        extra = ""
+        if ko > qo:
+            # rows before k_offset - q_offset see no key: dq exactly 0 there,
+            # and zeroing their dO leaves dk and dv bitwise unchanged
+            blind = ko - qo
+            dout2 = dout.clone()
+            dout2[:, :, :blind] = 0
+            again = kernels.flash_attention_backward(q, k, v, out, lse, dout2,
+                                                     **kw)
+            exact = (bool((got[0][:, :, :blind] == 0).all())
+                     and torch.equal(got[1], again[1])
+                     and torch.equal(got[2], again[2]))
+            extra += f"; blind rows: dq 0, add nothing to dk/dv: {exact}"
+            ok = ok and exact
+        if (dtype, route) not in relaunched:
+            relaunched.add((dtype, route))
+            same = all(torch.equal(a, b) for a, b in zip(
+                got, kernels.flash_attention_backward(q, k, v, out, lse, dout,
+                                                      **kw)))
+            extra += f"; second launch bitwise equal: {same}"
+            ok = ok and same
+        if with_dlse:
+            # the check has teeth: the plain version without the dlse term
+            wrong = kernels.flash_attention_backward_reference(
+                q, k, v, out, lse, dout, causal=causal, q_offset=qo,
+                k_offset=ko)
+            wrong_err = grads_err(torch, wrong, ref)
+            caught = wrong_err > tol
+            extra += (f"; without the dlse term {wrong_err:.3e}: caught "
+                      f"{caught}")
+            ok = ok and caught
+        if dtype != f32 and shape == sl and layout == "contiguous":
+            # informational: p rounded to the input dtype before p^T dO
+            p16 = p_rounded_dv(torch, q, k, out, lse, dout, causal)
+            extra += (f"; p rounded to {str(dtype)[6:]} before p^T dO: dv "
+                      f"{ulp_err(torch, p16, ref[2]):.2f} ulp")
+        unit = "" if dtype == f32 else " ulp"
+        log(f"[b] bwd {name:42s} {str(tuple(shape)):20s} "
+            f"{'/'.join(took):4s} err {err:.3e}{unit} (tol {tol:g}){extra}  "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase b: flash_attention_backward disagrees "
+                             f"with its plain version on '{name}' (route "
+                             f"{took}, want {route})")
+        if shape == sl and dtype == bf16:
+            slice_err = max(slice_err, max(
+                (a.float() - b.float()).abs().max().item()
+                for a, b in zip(got, ref)))
+        records.append({"case": name, "route": route, "err": err,
+                        "err_unit": unit.strip() or "rel"})
+    records.append(check_flash_function(torch, kernels, gen))
+    return records, slice_err
+
+
+def p_rounded_dv(torch, q, k, out, lse, dout, causal):
+    """dv of the plain version with p rounded to the input dtype before
+    p^T dO: a wrong variant, logged beside the 16-bit tolerance."""
+    t, d = q.shape[-2:]
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(d)
+    if causal:
+        logits = logits.masked_fill(torch.ones(
+            t, t, dtype=torch.bool, device=q.device).triu(1), float("-inf"))
+    p = torch.exp(logits - lse).to(q.dtype).float()
+    return torch.matmul(p.transpose(-1, -2), dout.float()).to(q.dtype)
+
+
+def check_flash_function(torch, kernels, gen):
+    """flash_attention_with_lse (K1 forward, K2 backward through
+    torch.autograd) against autograd through dense attention in f32, on a
+    loss that uses both O and lse, with q, k, v the LM's views of one
+    (B, T, 3 H D) leaf: fp32 (CUDA-core K1) within 1e-4 of max|grad|,
+    bf16 (tensor-core K1) within 3e-2 of max|grad| of the f32 dense
+    gradient of the same bf16 values (O and the gradients are rounded to
+    bf16, 2^-8, and delta is formed from the rounded O)."""
+    b, h, t, d = 2, 4, 256, 64
+
+    def split(buf):
+        x = buf.reshape(b, t, 3 * h, d).transpose(1, 2)
+        return x[:, :h], x[:, h:2 * h], x[:, 2 * h:]
+
+    def dense(q, k, v):
+        logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d)
+        logits = logits.masked_fill(torch.ones(
+            t, t, dtype=torch.bool, device=q.device).triu(1), float("-inf"))
+        return torch.matmul(torch.softmax(logits, -1), v), \
+            torch.logsumexp(logits, -1, keepdim=True)
+
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        buf = torch.randn((b, t, 3 * h * d), generator=gen,
+                          device="cuda").to(dtype).requires_grad_(True)
+        wo = torch.randn((b, h, t, d), generator=gen, device="cuda")
+        wl = torch.randn((b, h, t, 1), generator=gen, device="cuda")
+        before = kernels.flash_attention_backward.launches
+        o, lse = kernels.flash_attention_with_lse(*split(buf), causal=True)
+        ((o.float() * wo).sum() + (lse * wl).sum()).backward()
+        launched = kernels.flash_attention_backward.launches - before
+        ref = buf.detach().float().requires_grad_(True)
+        o_r, lse_r = dense(*split(ref))
+        ((o_r * wo).sum() + (lse_r * wl).sum()).backward()
+        err = rel_err(buf.grad, ref.grad)
+        ok = launched == 1 and err <= tol and buf.grad.dtype == dtype
+        log(f"[b] K1 + K2 autograd Function {str(dtype)[6:]} LM layout "
+            f"{(b, h, t, d)} causal, loss on O and lse: d(qkv) vs dense "
+            f"autograd (f32) {err:.3e} of max|grad| (tol {tol:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("phase b: the flash autograd Function's "
+                             "gradients disagree with dense attention")
+        errs[str(dtype)[6:]] = err
+    return {"case": "K1 + K2 autograd Function", "rel_errs": errs}
 
 
 def ulp_err(torch, got, ref):
@@ -557,6 +810,85 @@ def time_flash(torch, kernels):
             "bytes": nbytes}
 
 
+def attention_bwd_work(b, h, t, d, causal, itemsize):
+    """(FLOP, bytes) the attention backward needs for these inputs: five
+    products over the visible (query, key) pairs (s, dO v^T, dv, dk, dq),
+    2*D each; q, k, v, O, dO and the f32 lse read once, dq, dk, dv written
+    once."""
+    pairs = t * (t + 1) // 2 if causal else t * t
+    flops = 5 * 2.0 * d * pairs * b * h
+    nbytes = 8.0 * b * h * t * d * itemsize + 4.0 * b * h * t
+    return flops, nbytes
+
+
+def time_flash_bwd(torch, kernels):
+    """K2 at the LM's shape (8, 12, 1024, 64), causal, in device time
+    (device_ms): bf16 on contiguous q, k, v, O, dO and on the LM's layout
+    (q/k/v views of one qkv buffer, the tensor-core K1's O, a strided dO),
+    fp32, the plain version, and torch SDPA's backward alone (autograd.grad
+    through one recorded SDPA forward, retained). ``call_ms``: the median
+    of CUDA events around one call, host enqueue included."""
+    import torch.nn.functional as F
+
+    shape = (BATCH, HEADS, T, UNITS // HEADS)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    args = bwd_inputs(torch, kernels, gen, shape, torch.bfloat16,
+                      "contiguous", True, 0, 0, False)[:6]
+    lm_args = bwd_inputs(torch, kernels, gen, shape, torch.bfloat16, "qkv",
+                         True, 0, 0, False)[:6]
+    f32_args = bwd_inputs(torch, kernels, gen, shape, torch.float32,
+                          "contiguous", True, 0, 0, False)[:6]
+
+    def k2(a=args):
+        return kernels.flash_attention_backward(*a, causal=True)
+
+    for name, a, want in (("bf16", args, "tc"), ("bf16 LM layout", lm_args,
+                                                 "tc"),
+                          ("fp32", f32_args, "simt")):
+        before = dict(kernels.flash_attention_backward.launches_by_route)
+        k2(a)
+        took = [r for r, n in kernels.flash_attention_backward
+                .launches_by_route.items() if n != before[r]]
+        if took != [want]:
+            raise SystemExit(f"phase c: K2 {name} took route {took}, want "
+                             f"{want}")
+    scale = 1.0 / math.sqrt(shape[-1])
+
+    q, k, v, _, _, dout = args
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    o_sdpa = F.scaled_dot_product_attention(*leaves, is_causal=True)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o_sdpa, leaves, dout, retain_graph=True)
+
+    ms = device_ms(k2)
+    lm_ms = device_ms(lambda: k2(lm_args))
+    fp32_ms = device_ms(lambda: k2(f32_args), n=5)
+    simt_ms = device_ms(lambda: kernels._launch_bwd(
+        *args, None, True, scale, 0, 0, route="simt"), n=5)
+    plain_ms = device_ms(lambda: kernels.flash_attention_backward_reference(
+        *args, causal=True), n=5)
+    library_ms = device_ms(sdpa_bwd)
+    call_ms = median_ms(k2)
+    flops, nbytes = attention_bwd_work(*shape, True, 2)
+    bound_ms, bound_by = bound(flops, nbytes)
+    log(f"[c] flash_attn_bwd bf16 {shape} causal: kernel {ms:.4f} ms device "
+        f"({call_ms:.4f} ms events around one call), on the LM's layout "
+        f"{lm_ms:.4f} ms; torch SDPA backward {library_ms:.4f} ms device, "
+        f"kernel / SDPA {ms / library_ms:.2f}x; plain {plain_ms:.4f} ms; "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FLOP, "
+        f"{nbytes:.3e} B); kernel at {bound_ms / ms:.2%} of bound, "
+        f"{flops / ms / 1e9:.2f} TFLOP/s of the five products (it computes "
+        f"seven); CUDA-core K2 on the same bf16 inputs {simt_ms:.4f} ms "
+        f"({simt_ms / ms:.1f}x the tensor-core one); fp32 (CUDA cores) "
+        f"{fp32_ms:.4f} ms device")
+    del o_sdpa, leaves
+    return {"ms": ms, "call_ms": call_ms, "lm_layout_ms": lm_ms,
+            "simt_ms": simt_ms, "fp32_ms": fp32_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "flops": flops, "bytes": nbytes}
+
+
 def conv_work(n, h, w, cin, cout, itemsize):
     """(FLOP, bytes) one K3 call needs: 2*9*N*H*W*Cin*Cout; x and w read
     once, y written once, the two f32 per-channel sums written once."""
@@ -606,8 +938,19 @@ def time_conv(torch, kernels):
             return ops_nn.batch_norm(y, ones, zeros, zeros, ones, axis=3,
                                      _train=True)
 
+        x32, w32 = x.float(), w.float()
+        w32_cl = w_cl.float()
+        before = kernels.conv3x3_bn_stats.launches_by_route["simt"]
+        kernels.conv3x3_bn_stats(x32, w32)
+        if kernels.conv3x3_bn_stats.launches_by_route["simt"] != before + 1:
+            raise SystemExit(f"phase c: K3 at {shape} fp32 did not take the "
+                             "CUDA-core route")
         ms = device_ms(lambda: kernels.conv3x3_bn_stats(x, w))
         simt_ms = device_ms(lambda: kernels._launch_conv_simt(x, w), n=5)
+        simt_fp32_ms = device_ms(lambda: kernels.conv3x3_bn_stats(x32, w32),
+                                 n=5)
+        fp32_library_ms = device_ms(lambda: F.conv2d(x32.permute(0, 3, 1, 2),
+                                                     w32_cl, padding=1))
         plain_ms = device_ms(
             lambda: kernels.conv3x3_bn_stats_reference(x, w), n=5)
         library_ms = device_ms(lambda: F.conv2d(x_cf, w_cl, padding=1))
@@ -625,11 +968,14 @@ def time_conv(torch, kernels):
             f"({simt_ms / ms:.1f}x the tensor-core one); plain "
             f"{plain_ms:.4f} ms; cuDNN conv alone {library_ms:.4f} ms "
             f"(kernel / cuDNN {ms / library_ms:.2f}x); unfused cuDNN conv + "
-            f"batch_norm {unfused_ms:.4f} ms")
+            f"batch_norm {unfused_ms:.4f} ms; fp32: CUDA-core K3 "
+            f"{simt_fp32_ms:.4f} ms, cuDNN conv (TF32 off) "
+            f"{fp32_library_ms:.4f} ms")
         rows.append({"shape": list(shape), "tiles": list(tiles), "ms": ms,
                      "call_ms": call_ms, "simt_ms": simt_ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
-                     "unfused_ms": unfused_ms, "bound_ms": bound_ms,
+                     "unfused_ms": unfused_ms, "simt_fp32_ms": simt_fp32_ms,
+                     "fp32_library_ms": fp32_library_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "flops": flops, "bytes": nbytes})
     return rows
 
@@ -742,18 +1088,26 @@ def serve_slice(torch, mx, kernels):
 
 
 def profile_predict(torch, pred, ids, phase="d", kernel="flash_fwd"):
-    """Device time by kernel for one predict of ``ids``, from
-    torch.profiler: where the slice's time goes. ``kernel`` (a name part,
-    or a tuple of them) picks the kernels whose share is reported."""
+    """Device time by kernel for one predict of ``ids`` (after a warm-up
+    predict), from torch.profiler: where the slice's time goes. ``kernel``
+    (a name part, or a tuple of them) picks the kernels whose share is
+    reported."""
+    pred.predict(ids)
+    torch.cuda.synchronize()
+    return profile_window(torch, lambda: pred.predict(ids),
+                          f"one bucket-{len(ids)} predict", phase, kernel)
+
+
+def profile_window(torch, fn, label, phase, kernel, top=8):
+    """Device time by kernel for one call of ``fn``, from torch.profiler,
+    with the wall time of the call (ended by a synchronise)."""
     parts = (kernel,) if isinstance(kernel, str) else kernel
     from torch.profiler import ProfilerActivity, profile
 
-    pred.predict(ids)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.predict(ids)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -766,20 +1120,20 @@ def profile_predict(torch, pred, ids, phase="d", kernel="flash_fwd"):
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
     kernel_ms = sum(r[0] for r in rows if any(p in r[2] for p in parts))
-    log(f"[{phase}] profile of one bucket-{len(ids)} predict: wall "
-        f"{wall_ms:.3f} ms (profiler on), device busy {busy_ms:.3f} ms "
-        f"({busy_ms / wall_ms:.1%} of wall), "
-        f"{sum(r[1] for r in rows)} kernel launches, {'/'.join(parts)} "
-        f"{kernel_ms:.3f} ms ({kernel_ms / busy_ms:.1%} of device time)"
+    log(f"[{phase}] profile of {label}: wall {wall_ms:.3f} ms (profiler "
+        f"on), device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%} of "
+        f"wall), {sum(r[1] for r in rows)} kernel launches, "
+        f"{'/'.join(parts)} {kernel_ms:.3f} ms ({kernel_ms / busy_ms:.1%} of "
+        "device time)"
         if busy_ms else f"[{phase}] profile: no device time recorded (not "
         "measured)")
-    for ms, count, key in rows[:8]:
+    for ms, count, key in rows[:top]:
         log(f"[{phase}]   {ms:9.3f} ms  x{count:<4d} {key[:90]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "kernel": "/".join(parts), "kernel_ms": kernel_ms,
             "launches": sum(r[1] for r in rows),
             "top": [{"ms": ms, "count": c, "kernel": k[:120]}
-                    for ms, c, k in rows[:8]],
+                    for ms, c, k in rows[:top]],
             "all": [{"ms": ms, "count": c, "kernel": k[:120]}
                     for ms, c, k in rows]}
 
@@ -1076,6 +1430,227 @@ def resnet_layouts(torch, mx):
     return err
 
 
+# ------------------------------------------------------------------ phase h
+TRAIN_STEPS = 10
+LR = 1e-3
+
+
+def lm_batch(torch, batch, t, vocab, seed=0):
+    """One fixed batch of the learnable sequence x_{t+1} = (5 x_t + 3) mod
+    vocab (examples/transformer_lm.py:84-88): ids and next-token labels,
+    (batch, t) int64 on the card."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    seq = np.zeros((batch, t + 1), np.int64)
+    seq[:, 0] = rng.randint(0, vocab, batch)
+    for i in range(t):
+        seq[:, i + 1] = (5 * seq[:, i] + 3) % vocab
+    return (torch.from_numpy(seq[:, :-1]).cuda(),
+            torch.from_numpy(seq[:, 1:]).cuda())
+
+
+def zero_counts(kernels):
+    for fn in (kernels.flash_attention, kernels.flash_attention_backward):
+        fn.launches = 0
+        for route in fn.launches_by_route:
+            fn.launches_by_route[route] = 0
+
+
+_STEP_GROUPS = (("K1 flash_fwd", ("flash_fwd",)),
+                ("K2 flash_bwd", ("flash_bwd",)),
+                ("GEMMs", ("gemm", "nvjet", "cutlass", "xmma")),
+                ("softmax / log_softmax", ("softmax", "SoftMax")),
+                ("copies", _COPY_KERNELS))
+
+
+def step_breakdown(rows):
+    """{group: (device ms, launches)} of a profile's kernels, by name."""
+    out, rest = {}, [0.0, 0]
+    for r in rows:
+        for group, parts in _STEP_GROUPS:
+            if any(p in r["kernel"] for p in parts):
+                ms, n = out.get(group, (0.0, 0))
+                out[group] = (ms + r["ms"], n + r["count"])
+                break
+        else:
+            rest[0] += r["ms"]
+            rest[1] += r["count"]
+    out["other (elementwise, reductions, layer norm, GELU, embedding)"] = \
+        tuple(rest)
+    return out
+
+
+def train_slice(torch, mx, kernels):
+    """The training step at GPT-2-small widths, full depth, bf16: B=8,
+    T=1024, seeded Xavier weights, Adam (lr 1e-3, weights and states in
+    bf16 as mxnet_tpu keeps them), SoftmaxCrossEntropyLoss, 10 steps on one
+    fixed batch of the learnable sequence. Asserts finite losses, a loss
+    10 at least 0.5 below loss 1, and exactly 12 tensor-core K1 and 12 K2
+    launches per step; then profiles one more step (forward + backward,
+    and the Adam update, as two windows)."""
+    from mxnet_tpu_torch.gluon.model_zoo import transformer
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    net = transformer.transformer_lm(
+        vocab=VOCAB, units=UNITS, num_heads=HEADS, num_layers=LAYERS,
+        max_len=T, impl="flash", prefix="tlm_")
+    net.initialize(mx.init.Xavier(), generator=gen)   # default ctx: gpu(0)
+    net.cast("bfloat16")
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": LR})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    x, y = lm_batch(torch, BATCH, T, VOCAB)
+
+    def forward_backward():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y).mean()
+        loss.backward()
+        return loss
+
+    zero_counts(kernels)
+    losses, step_ms, per_step = [], [], []
+    for i in range(TRAIN_STEPS):
+        k1 = dict(kernels.flash_attention.launches_by_route)
+        k2 = dict(kernels.flash_attention_backward.launches_by_route)
+        t0 = time.perf_counter()
+        loss = forward_backward()
+        trainer.step(1)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append((
+            {r: n - k1[r] for r, n in
+             kernels.flash_attention.launches_by_route.items()},
+            {r: n - k2[r] for r, n in
+             kernels.flash_attention_backward.launches_by_route.items()}))
+        log(f"[h] step {i + 1}: loss {losses[-1]:.4f}, {step_ms[-1]:.2f} ms "
+            f"(host clock), K1 {per_step[-1][0]}, K2 {per_step[-1][1]}")
+    k1_total = kernels.flash_attention.launches
+    k1_by_route = dict(kernels.flash_attention.launches_by_route)
+    k2_total = kernels.flash_attention_backward.launches
+    k2_by_route = dict(kernels.flash_attention_backward.launches_by_route)
+    timed = sorted(step_ms[1:])
+    median = timed[len(timed) // 2]
+    tokens_per_s = BATCH * T / (median / 1e3)
+    drop = losses[0] - losses[-1]
+    ok = (all(math.isfinite(v) for v in losses) and drop >= 0.5
+          and all(k1 == {"tc": LAYERS, "simt": 0}
+                  and k2 == {"tc": LAYERS, "simt": 0}
+                  for k1, k2 in per_step))
+    log(f"[h] {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(drop {drop:.4f}, want >= 0.5); median step {median:.2f} ms over "
+        f"steps 2-{TRAIN_STEPS} (host clock, profiler off), "
+        f"{tokens_per_s:.1f} tokens/s; K1 launches {k1_total} "
+        f"{k1_by_route}, K2 launches {k2_total} {k2_by_route} (want "
+        f"{LAYERS} tensor-core K1 and {LAYERS} tensor-core K2 a step) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase h: the training step failed its checks")
+
+    torch.cuda.synchronize()
+    fb = profile_window(torch, forward_backward, "one step's forward + "
+                        "backward", "h", ("flash_fwd", "flash_bwd"), top=12)
+    upd = profile_window(torch, lambda: trainer.step(1), "one step's Adam "
+                         "update", "h", ("elementwise", "vectorized"))
+    groups = step_breakdown(fb["all"])
+    groups["Adam update (all its kernels)"] = (upd["device_busy_ms"],
+                                               upd["launches"])
+    busy = fb["device_busy_ms"] + upd["device_busy_ms"]
+    wall = fb["wall_ms"] + upd["wall_ms"]
+    log(f"[h] one step profiled: device busy {busy:.3f} ms of {wall:.3f} ms "
+        f"wall ({busy / wall:.1%}; profiler on); by group:")
+    for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"[h]   {ms:9.3f} ms  x{n:<5d} {group} ({ms / busy:.1%})")
+    gemms = [r for r in fb["all"] if any(
+        p in r["kernel"] for p in _STEP_GROUPS[2][1])][:6]
+    for r in gemms:
+        log(f"[h]   GEMM {r['ms']:9.3f} ms  x{r['count']:<4d} "
+            f"{r['kernel'][:90]}")
+    del net, trainer
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms, "median_step_ms": median,
+            "tokens_per_s": tokens_per_s, "k1_launches": k1_total,
+            "k1_launches_by_route": k1_by_route, "k2_launches": k2_total,
+            "k2_launches_by_route": k2_by_route,
+            "profile": {"forward_backward": {k: fb[k] for k in (
+                "wall_ms", "device_busy_ms", "launches", "top")},
+                "update": {k: upd[k] for k in (
+                    "wall_ms", "device_busy_ms", "launches", "top")},
+                "groups": {g: {"ms": ms, "launches": n}
+                           for g, (ms, n) in groups.items()},
+                "gemms": gemms}}
+
+
+# ------------------------------------------------------------------ phase i
+def train_vs_plain(torch, mx, kernels):
+    """One training step (loss, backward) of a 2-layer model of the slice's
+    widths with K1 + K2 against the same weights with plain attention, in
+    fp32 and in bf16: the loss and every parameter's gradient. Gradients
+    are compared as max|a - b| / max|b| per parameter, without the key
+    third of attn_qkv_bias, whose true gradient is 0 (a bias on every key
+    shifts a row's logits by a constant) and which holds rounding noise on
+    both sides. Returns {dtype: {"loss": rel err, "grad": worst rel err}}.
+    """
+    from mxnet_tpu_torch.gluon.model_zoo import transformer
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    nets = {impl: transformer.transformer_lm(
+        vocab=VOCAB, units=UNITS, num_heads=HEADS, num_layers=2, max_len=T,
+        impl=impl, prefix="tlm_") for impl in ("flash", "dense")}
+    nets["flash"].initialize(mx.init.Xavier(), generator=gen)
+    nets["dense"].initialize(mx.init.Zero())
+    nets["dense"].load_numpy_params(nets["flash"].collect_params())
+    x, y = lm_batch(torch, 2, T, VOCAB, seed=1)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def grads(net):
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y).mean()
+        loss.backward()
+        out = {n: p.grad().float().clone()
+               for n, p in net._param_objects().items()}
+        net.zero_grad()
+        return loss.item(), out
+
+    def trim(name, g):
+        if name.endswith("attn_qkv_bias"):
+            return torch.cat([g[:UNITS], g[2 * UNITS:]])
+        return g
+
+    errs = {}
+    for dtype, loss_tol, grad_tol, why in (
+            ("float32", 1e-5, 1e-3, "f32 sums in other orders"),
+            ("bfloat16", 1e-2, 5e-2, "bf16 activations and gradients "
+             "(2^-8) rounded at other places; the plain path also rounds "
+             "its logits and probabilities")):
+        if dtype != "float32":
+            for net in nets.values():
+                net.cast(dtype)
+        zero_counts(kernels)
+        l_flash, g_flash = grads(nets["flash"])
+        launches = (kernels.flash_attention.launches,
+                    kernels.flash_attention_backward.launches)
+        l_dense, g_dense = grads(nets["dense"])
+        loss_err = abs(l_flash - l_dense) / abs(l_dense)
+        worst = max((rel_err(trim(n, g_flash[n]), trim(n, g_dense[n])), n)
+                    for n in g_flash)
+        ok = (math.isfinite(l_flash) and launches == (2, 2)
+              and loss_err <= loss_tol and worst[0] <= grad_tol)
+        log(f"[i] 2-layer {dtype} training step, flash (K1 + K2: "
+            f"{launches}) vs plain attention: loss {l_flash:.5f} vs "
+            f"{l_dense:.5f} (rel {loss_err:.2e}, tol {loss_tol:g}); worst "
+            f"gradient {worst[0]:.2e} of max|grad| in {worst[1]} (tol "
+            f"{grad_tol:g}: {why}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase i: {dtype} training step disagrees")
+        errs[dtype] = {"loss": loss_err, "grad": worst[0],
+                       "grad_param": worst[1]}
+    del nets
+    torch.cuda.empty_cache()
+    return errs
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -1112,11 +1687,13 @@ def main(argv=None):
                 raise SystemExit(f"phase a: {entry} spills registers")
 
     checks, slice_err = check_flash(torch, kernels)
+    bwd_checks, bwd_slice_err = check_flash_bwd(torch, kernels)
     conv_checks = check_conv(torch, kernels)
     if args.quick:
-        log("[quick] phase b passed; phases c-g skipped")
+        log("[quick] phase b passed; phases c-i skipped")
         return 0
     timing = time_flash(torch, kernels)
+    bwd_timing = time_flash_bwd(torch, kernels)
     conv_timing = time_conv(torch, kernels)
     served = serve_slice(torch, mx, kernels)
     model_err = model_vs_plain(torch, mx, kernels)
@@ -1125,6 +1702,8 @@ def main(argv=None):
     del pred, net, images
     torch.cuda.empty_cache()
     layout_err = resnet_layouts(torch, mx)
+    training = train_slice(torch, mx, kernels)
+    train_err = train_vs_plain(torch, mx, kernels)
 
     # K3's four launches on the main path are one per ResNet-50 shape, so
     # its totals are over the four shapes at N=32; they take the
@@ -1151,7 +1730,24 @@ def main(argv=None):
         "strided_ms": timing["strided_ms"],
         "simt_fp32_ms": timing["simt_fp32_ms"],
         "fp32_plain_ms": timing["fp32_plain_ms"],
-        "fp32_library_ms": timing["fp32_library_ms"]}, {
+        "fp32_library_ms": timing["fp32_library_ms"],
+        "training_launches": training["k1_launches"],
+        "training_launches_by_route": training["k1_launches_by_route"]}, {
+        "name": "flash_attn_bwd", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:241",
+        "launches": training["k2_launches"],
+        "launches_by_route": training["k2_launches_by_route"],
+        "launches_per_step": training["k2_launches"] / TRAIN_STEPS,
+        "max_abs_err": bwd_slice_err,
+        "check": f"{len(bwd_checks)} cases within tolerance",
+        "ms": bwd_timing["ms"], "plain_ms": bwd_timing["plain_ms"],
+        "bound_ms": bwd_timing["bound_ms"],
+        "bound_by": bwd_timing["bound_by"],
+        "library_ms": bwd_timing["library_ms"],
+        "lm_layout_ms": bwd_timing["lm_layout_ms"],
+        "simt_ms": bwd_timing["simt_ms"],
+        "fp32_ms": bwd_timing["fp32_ms"]}, {
         "name": "conv3x3_bn_stats", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/conv3x3_bn_stats_tc.cu",
         "sources": {"tc": "mxnet_tpu_torch/csrc/conv3x3_bn_stats_tc.cu",
@@ -1170,7 +1766,8 @@ def main(argv=None):
         "unfused_ms": sum(r["unfused_ms"] for r in conv_timing),
         "per_shape": [{k: r[k] for k in (
             "shape", "tiles", "ms", "simt_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "unfused_ms")}
+            "bound_by", "library_ms", "unfused_ms", "simt_fp32_ms",
+            "fp32_library_ms")}
             for r in conv_timing]}]}
     kind = torch.cuda.get_device_name(0)
     if args.summary:
@@ -1178,6 +1775,8 @@ def main(argv=None):
                     exist_ok=True)
         with open(args.summary, "w") as f:
             json.dump({"card": card, "kind": kind, "kernel_checks": checks,
+                       "bwd_checks": bwd_checks, "bwd_timing": bwd_timing,
+                       "training": training, "train_vs_plain": train_err,
                        "conv_checks": conv_checks, "timing": timing,
                        "conv_timing": conv_timing, "slice": served,
                        "model_vs_plain_err": model_err, "vision": vision,

@@ -10,6 +10,11 @@ on ``gpu(0)`` unless given ``ctx=cpu()``.
     net = mx.gluon.model_zoo.transformer.transformer_lm(impl="flash")
     net.initialize(mx.init.Xavier(), ctx=mx.gpu(0),
                    generator=torch.Generator().manual_seed(0))
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam")
+    with mx.autograd.record():
+        loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y).mean()
+    loss.backward()
+    trainer.step(1)
 """
 from __future__ import annotations
 
@@ -17,7 +22,8 @@ from .base import MXNetError  # noqa: F401
 from .context import Context, cpu, current_context, gpu, tpu  # noqa: F401
 from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
-from . import ops, gluon, serving  # noqa: F401
+from . import autograd, optimizer, ops, gluon, serving  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
-           "initializer", "init", "ops", "gluon", "serving"]
+           "initializer", "init", "autograd", "optimizer", "ops", "gluon",
+           "serving"]

@@ -7,20 +7,34 @@ lower-cased class name plus a per-scope counter (``transformerblock0_``),
 nested through ``name_scope()``, so ``collect_params()`` gives the same
 names, letter for letter, as ``mxnet_tpu``. Subclasses write ``forward``
 on tensors. ``hybridize()`` is accepted and does nothing: PyTorch runs
-eagerly.
+eagerly. As in MXNet, a Block called outside ``autograd.record()`` records
+nothing: it runs under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 
+import torch
 from torch import nn
 
 from ..base import MXNetError, torch_dtype
 from ..context import as_device
-from .. import initializer
+from .. import autograd, initializer
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "ParameterTensors"]
+
+
+class ParameterTensors(OrderedDict):
+    """What :meth:`Block.collect_params` returns: MXNet name -> tensor
+    (None before ``initialize``), as the serving code reads it, and in
+    ``param_objects`` the same names -> :class:`Parameter`, which is what
+    ``gluon.Trainer`` needs (``grad_req``, ``lr_mult``, ``wd_mult``)."""
+
+    def __init__(self, params=None):
+        params = params if params is not None else OrderedDict()
+        super().__init__((name, p._tensor()) for name, p in params.items())
+        self.param_objects = params
 
 
 class _BlockScope:
@@ -82,6 +96,12 @@ class Block(nn.Module):
         self._params = ParameterDict(self._prefix)
         self._reg_params = OrderedDict()  # attribute -> Parameter
 
+    def __call__(self, *args, **kwargs):
+        if torch.is_grad_enabled() and not autograd.is_recording():
+            with torch.no_grad():
+                return super().__call__(*args, **kwargs)
+        return super().__call__(*args, **kwargs)
+
     def __setattr__(self, name, value):
         if isinstance(value, Parameter):
             value._bind(self, name)
@@ -122,9 +142,16 @@ class Block(nn.Module):
         return out
 
     def collect_params(self):
-        """Ordered MXNet name -> tensor (None before ``initialize``)."""
-        return OrderedDict((name, p._tensor())
-                           for name, p in self._param_objects().items())
+        """Ordered MXNet name -> tensor (None before ``initialize``), as a
+        :class:`ParameterTensors` that also carries the Parameters."""
+        return ParameterTensors(self._param_objects())
+
+    def zero_grad(self, set_to_none=False):
+        """Set every parameter's gradient to zero (MXNet's
+        ``collect_params().zero_grad()``); ``set_to_none`` is accepted for
+        ``nn.Module``'s signature and ignored."""
+        for p in self._param_objects().values():
+            p.zero_grad()
 
     def initialize(self, init=None, ctx=None, generator=None,
                    force_reinit=False):

@@ -7,15 +7,19 @@ itself is an ``nn.Parameter`` attribute of the owning Block, so the Block's
 be known when the Block is built: this slice has no deferred
 initialization (pass ``in_units``/``in_channels``).
 
-The port is forward-only for now, so tensors are created with
-``requires_grad=False``; ``grad_req`` is kept for the training slice, and
-is ``"null"`` for a parameter that is not ``differentiable`` (BatchNorm's
-running statistics). Those auxiliary states are written back in place with
-:meth:`Parameter.set_data`.
+A parameter whose ``grad_req`` is not ``"null"`` is a leaf that requires
+grad; its gradient is the tensor's ``.grad``. ``grad_req="write"`` (MXNet's
+kWriteTo) overwrites the gradient at each backward, where PyTorch would
+accumulate: a hook on the tensor drops the old gradient just before
+autograd adds the new one. ``"add"`` accumulates. A parameter that is not
+``differentiable`` (BatchNorm's running statistics) has ``grad_req`` "null"
+and never requires grad; those auxiliary states are written back in place
+with :meth:`Parameter.set_data`.
 """
 from __future__ import annotations
 
 import warnings
+import weakref
 from collections import OrderedDict
 
 import numpy as _np
@@ -32,15 +36,19 @@ class Parameter:
     """One weight of a Block: name, shape, dtype and initializer."""
 
     def __init__(self, name, shape, dtype="float32", init=None,
-                 grad_req="write", differentiable=True):
+                 grad_req="write", differentiable=True, lr_mult=1.0,
+                 wd_mult=1.0):
         self.name = name
         self.shape = tuple(int(s) for s in shape)
         self.dtype = torch_dtype(dtype)
         self.init = init
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
         self._differentiable = differentiable
-        self.grad_req = grad_req
         self._owner = None
         self._attr = None
+        self._hooked = None      # weakref to the tensor with the 'write' hook
+        self.grad_req = grad_req
 
     @property
     def grad_req(self):
@@ -52,6 +60,9 @@ class Parameter:
             raise ValueError("grad_req must be one of write, add, null, but "
                              f"got {req!r}")
         self._grad_req = req if self._differentiable else "null"
+        t = self._tensor() if self._owner is not None else None
+        if t is not None:
+            self._track_grad(t)
 
     def __repr__(self):
         return f"Parameter {self.name} (shape={self.shape}, dtype={self.dtype})"
@@ -62,9 +73,31 @@ class Parameter:
     def _tensor(self):
         return self._owner._parameters.get(self._attr)
 
+    def _track_grad(self, t):
+        """Make ``t`` require grad unless grad_req is "null", with the
+        'write' hook registered once per tensor."""
+        t.requires_grad_(self._grad_req != "null")
+        if self._grad_req == "null":
+            t.grad = None
+            return
+        if self._hooked is not None and self._hooked() is t:
+            return
+        ref = weakref.ref(t)
+
+        def overwrite(grad, param=self):
+            # runs before autograd adds `grad` into .grad: for 'write',
+            # drop the previous gradient so the new one replaces it
+            leaf = ref()
+            if param._grad_req == "write" and leaf is not None:
+                leaf.grad = None
+
+        t.register_hook(overwrite)
+        self._hooked = ref
+
     def _set(self, tensor):
-        setattr(self._owner, self._attr,
-                nn.Parameter(tensor, requires_grad=False))
+        t = nn.Parameter(tensor, requires_grad=False)
+        self._track_grad(t)
+        setattr(self._owner, self._attr, t)
 
     def data(self):
         t = self._tensor()
@@ -72,6 +105,30 @@ class Parameter:
             raise MXNetError(f"Parameter '{self.name}' has not been "
                              "initialized")
         return t
+
+    def list_data(self):
+        return [self.data()]
+
+    def grad(self):
+        """The gradient buffer: zeros until a backward writes it, as
+        MXNet's buffer is from initialization on."""
+        t = self.data()
+        if self._grad_req == "null":
+            raise MXNetError(f"Cannot get gradient array for Parameter "
+                             f"'{self.name}' because grad_req='null'")
+        if t.grad is None:
+            t.grad = torch.zeros_like(t)
+        return t.grad
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def zero_grad(self):
+        """Set the gradient to zero (parameters with grad_req 'null' have
+        none)."""
+        t = self._tensor() if self._owner is not None else None
+        if t is not None and t.grad is not None:
+            t.grad.zero_()
 
     def initialize(self, init=None, device=None, generator=None,
                    default_init=None, force_reinit=False):

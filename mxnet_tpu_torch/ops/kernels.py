@@ -17,12 +17,21 @@ sources, chosen by the fixed rule of :func:`_conv_route`:
 ``csrc/conv3x3_bn_stats.cu`` on the CUDA cores (everything else). Each
 source's header says what bounds it on the H100 and how it is laid out.
 
-Each wrapper (:func:`flash_attention`, :func:`conv3x3_bn_stats`) takes its
-plain version (``*_reference``) only for tensors on the CPU. For a CUDA
-tensor it launches the kernel or raises: a build or launch failure is an
-error, never a quiet fall-back. ``<wrapper>.launches`` counts kernel
-launches, and nothing else; ``<wrapper>.launches_by_route`` splits the
-count by route.
+K2, the flash-attention backward, replaces
+``mxnet_tpu/ops/pallas_kernels.py:_flash_bwd_blockwise`` (a ``lax.scan``
+there): ``csrc/flash_attn_bwd.cu``, behind :func:`flash_attention_backward`,
+with two routes chosen by the fixed rule of :func:`_flash_bwd_route`: the
+tensor cores (warp-level mma.sync; 16-bit, D 64 or 128, 16-byte-aligned
+rows) and the CUDA cores (everything else). :class:`_FlashAttention`
+pairs it with K1 as one ``torch.autograd.Function``, entered through
+:func:`flash_attention_with_grad` and :func:`flash_attention_with_lse`.
+
+Each wrapper (:func:`flash_attention`, :func:`flash_attention_backward`,
+:func:`conv3x3_bn_stats`) takes its plain version (``*_reference``) only
+for tensors on the CPU. For a CUDA tensor it launches the kernel or
+raises: a build or launch failure is an error, never a quiet fall-back.
+``<wrapper>.launches`` counts kernel launches, and nothing else;
+``<wrapper>.launches_by_route`` splits the count by route.
 """
 from __future__ import annotations
 
@@ -37,6 +46,8 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_reference",
+           "flash_attention_backward", "flash_attention_backward_reference",
+           "flash_attention_with_grad", "flash_attention_with_lse",
            "conv3x3_bn_stats", "conv3x3_bn_stats_reference",
            "conv3x3_bn_relu_train"]
 
@@ -202,10 +213,6 @@ def _launch_simt(q, k, v, causal, scale, q_offset, k_offset):
 
 
 def _launch(q, k, v, causal, scale, q_offset, k_offset):
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention on CUDA is forward-only: its backward kernel "
-            "(K2) is not ported yet; run under torch.inference_mode()")
     qkv = (q, k, v)
     route = _flash_route(q.dtype, q.shape[-1],
                          [_tma_strides(x) + (x.stride(3),) for x in qkv],
@@ -248,6 +255,195 @@ def flash_attention(q, k, v, causal=False, scale=None, return_lse=False,
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = {"tc": 0, "simt": 0}
+
+
+# ----------------------------------------------------------------------- K2
+def _check_bwd(q, k, v, out, lse, dout, dlse, q_offset, k_offset):
+    _check(q, k, v, q_offset, k_offset)
+    for name, x in (("out", out), ("dout", dout)):
+        if not isinstance(x, torch.Tensor) or x.shape != q.shape or \
+                x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"flash_attention_backward: {name} must be a "
+                             f"{q.dtype} tensor of q's shape "
+                             f"{tuple(q.shape)} on {q.device}")
+    want = tuple(q.shape[:3]) + (1,)
+    for name, x in (("lse", lse), ("dlse", dlse)):
+        if x is None and name == "dlse":
+            continue
+        if not isinstance(x, torch.Tensor) or tuple(x.shape) != want or \
+                not x.is_floating_point() or x.device != q.device:
+            raise ValueError(f"flash_attention_backward: {name} must be a "
+                             f"float tensor of shape {want} on {q.device}")
+    if lse.dtype != torch.float32:
+        raise ValueError("flash_attention_backward: lse must be float32 "
+                         "(K1's row log-sum-exp)")
+    if q.shape[0] * q.shape[1] * q.shape[2] > _INT32[1]:
+        raise ValueError(f"flash_attention_backward: {tuple(q.shape)} "
+                         "exceeds the kernel's int32 row indexing")
+
+
+def flash_attention_backward_reference(q, k, v, out, lse, dout, causal=False,
+                                       scale=None, dlse=None, q_offset=0,
+                                       k_offset=0):
+    """The plain version of K2, after ``_flash_bwd_blockwise``: P
+    recomputed from the saved ``lse`` (exactly 0 where a key is masked,
+    by K1's rule), ``D = rowsum(dO * O) - dlse``, ``ds = p * (dp - D)``,
+    then ``dq = ds k scale``, ``dk = ds^T q scale``, ``dv = p^T dO``; all
+    in f32, the results cast to the input dtype. A row that sees no key
+    has p = 0, so its dq is 0 and it adds nothing to dk or dv."""
+    t, d = q.shape[-2], q.shape[-1]
+    s = scale if scale is not None else 1.0 / math.sqrt(d)
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, dout))
+    delta = (do32 * out.float()).sum(dim=-1, keepdim=True)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    logits = torch.matmul(q32, k32.transpose(-1, -2)) * s
+    if causal:
+        pos = torch.arange(t, device=q.device)
+        visible = (q_offset + pos)[:, None] >= (k_offset + pos)[None, :]
+        logits = logits.masked_fill(~visible, float("-inf"))
+    p = torch.exp(logits - lse)
+    ds = p * (torch.matmul(do32, v32.transpose(-1, -2)) - delta)
+    dq = torch.matmul(ds, k32) * s
+    dk = torch.matmul(ds.transpose(-1, -2), q32) * s
+    dv = torch.matmul(p.transpose(-1, -2), do32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_library():
+    lib = _build.load("flash_attn_bwd")
+    if lib.flash_attn_bwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.flash_attn_bwd, lib.flash_attn_bwd_tc):
+            fn.argtypes = [p] * 12 + [i, i, i, i, i, ctypes.c_float, i, i,
+                                      i, p]
+            fn.restype = ctypes.c_int
+        lib.flash_attn_bwd_error_string.argtypes = [i]
+        lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_BWD_TC_MAX_T = 65535 * 64   # the tensor-core grid's tiles, 64 rows each
+
+
+def _flash_bwd_route(dtype, d, strides, ptrs, t):
+    """Which K2 kernel takes these operands (q, k, v, O, dO, given as for
+    :func:`_flash_route`): "tc" (tensor cores, mma.sync) under K1's rule
+    for its tensor-core kernel -- bf16 or fp16, D of 64 or 128, unit
+    stride in D, every other stride a positive multiple of 8 elements,
+    16-byte-aligned bases -- and T up to 65535 * 64; "simt" (CUDA cores)
+    for everything else. A fixed rule, not a fall-back."""
+    if t > _BWD_TC_MAX_T:
+        return "simt"
+    return _flash_route(dtype, d, strides, ptrs, t)
+
+
+def _launch_bwd(q, k, v, out, lse, dout, dlse, causal, scale, q_offset,
+                k_offset, route=None):
+    """K2 on q, k, v, O, dO as they lie (any strides with a unit stride in
+    D; others are copied), lse and dlse as contiguous f32; ``route``
+    overrides :func:`_flash_bwd_route` with "simt", for design
+    measurements."""
+    lib = _bwd_library()
+    ops = [x if x.stride(3) == 1 else x.contiguous()
+           for x in (q, k, v, out, dout)]
+    route = route or _flash_bwd_route(
+        q.dtype, q.shape[-1], [_tma_strides(x) + (x.stride(3),) for x in ops],
+        [x.data_ptr() for x in ops], q.shape[2])
+    fn = lib.flash_attn_bwd_tc if route == "tc" else lib.flash_attn_bwd
+    b, h, t, d = q.shape
+    lse = lse.contiguous()
+    dlse = None if dlse is None else dlse.float().contiguous()
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    grads = [torch.empty((b, h, t, d), dtype=q.dtype, device=q.device)
+             for _ in range(3)]
+    strides = (ctypes.c_longlong * 15)(*(s for x in ops
+                                          for s in x.stride()[:3]))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            *(x.data_ptr() for x in ops), lse.data_ptr(),
+            None if dlse is None else dlse.data_ptr(), delta.data_ptr(),
+            *(g.data_ptr() for g in grads), strides, b, h, t, d,
+            _DTYPE_CODE[q.dtype], float(scale), int(bool(causal)),
+            int(q_offset), int(k_offset), stream)
+    if err:
+        raise MXNetError(f"flash_attn_bwd ({route}) launch failed: "
+                         f"{lib.flash_attn_bwd_error_string(err).decode()} "
+                         f"(cudaError {err})")
+    flash_attention_backward.launches += 1
+    flash_attention_backward.launches_by_route[route] += 1
+    return tuple(grads)
+
+
+def flash_attention_backward(q, k, v, out, lse, dout, causal=False,
+                             scale=None, dlse=None, q_offset=0, k_offset=0):
+    """Fused attention backward: (dq, dk, dv) in q's dtype from q, k, v,
+    the forward's O and f32 ``lse`` (B, H, T, 1), the output cotangent
+    ``dout`` and, optionally, the lse cotangent ``dlse`` (None: no such
+    term). Same shapes, masking, offsets and ``scale`` as
+    :func:`flash_attention`. On CUDA it launches K2, on the kernel
+    :func:`_flash_bwd_route` picks (strided operands read in place); on
+    the CPU it runs the plain version."""
+    _check_bwd(q, k, v, out, lse, dout, dlse, q_offset, k_offset)
+    s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cuda":
+        return _launch_bwd(q, k, v, out, lse, dout, dlse, causal, s,
+                           q_offset, k_offset)
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(
+            q, k, v, out, lse, dout, causal=causal, scale=s, dlse=dlse,
+            q_offset=q_offset, k_offset=k_offset)
+    raise ValueError(f"flash_attention_backward: unsupported device "
+                     f"{q.device}")
+
+
+flash_attention_backward.launches = 0
+flash_attention_backward.launches_by_route = {"tc": 0, "simt": 0}
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward (O and lse), K2 backward: ``mxnet_tpu``'s custom_vjp
+    pair (pallas_kernels.py:300-344). The lse cotangent reaches K2 as
+    ``dlse``; an unused output's cotangent arrives as None, not zeros."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_offset, k_offset):
+        ctx.set_materialize_grads(False)
+        out, lse = flash_attention(q, k, v, causal=causal, scale=scale,
+                                   return_lse=True, q_offset=q_offset,
+                                   k_offset=k_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, scale, q_offset, k_offset)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, scale, q_offset, k_offset = ctx.args
+        if dout is None:
+            dout = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, dout, causal=causal, scale=scale, dlse=dlse,
+            q_offset=q_offset, k_offset=k_offset)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_with_lse(q, k, v, causal=False, scale=None, q_offset=0,
+                             k_offset=0):
+    """Differentiable (O, lse) pair (``pallas_kernels.py:300``): K1 forward,
+    K2 backward, with a gradient path through lse too (the ring-attention
+    merge). Arguments as :func:`flash_attention`."""
+    _check(q, k, v, q_offset, k_offset)
+    s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttention.apply(q, k, v, bool(causal), float(s),
+                                 int(q_offset), int(k_offset))
+
+
+def flash_attention_with_grad(q, k, v, causal=False, scale=None):
+    """Differentiable flash attention (``pallas_kernels.py:347``): O from
+    K1, gradients from K2 through the lse saved by the forward."""
+    return flash_attention_with_lse(q, k, v, causal=causal, scale=scale)[0]
 
 
 # ----------------------------------------------------------------------- K3

@@ -1,5 +1,6 @@
-"""Tensor math ops (subset of ``mxnet_tpu/ops/math.py``): the gather, index
-and layout ops the decoder LM's and ResNet's forwards need."""
+"""Tensor math ops (subset of ``mxnet_tpu/ops/math.py``): the gather, index,
+layout and reduction ops the decoder LM's and ResNet's forwards and the
+losses need."""
 from __future__ import annotations
 
 import torch
@@ -7,7 +8,8 @@ import torch.nn.functional as F
 
 from ..base import torch_dtype
 
-__all__ = ["embedding", "arange", "transpose", "space_to_depth"]
+__all__ = ["embedding", "pick", "sum", "mean", "arange", "transpose",
+           "space_to_depth"]
 
 
 def embedding(data, weight):
@@ -20,6 +22,49 @@ def embedding(data, weight):
     """
     ids = data.to(torch.int64).clamp(0, weight.shape[0] - 1)
     return F.embedding(ids, weight)
+
+
+def pick(data, index, axis=-1, keepdims=False, mode="clip"):
+    """The element of ``data`` at ``index`` along ``axis``
+    (``mxnet_tpu/ops/math.py:632-640``; parity: broadcast_reduce_op_index.cc
+    pick). ``index`` has ``data``'s shape without ``axis``, or with it of
+    size 1. An index outside ``[0, n)`` reads the nearest edge (MXNet's
+    ``mode="clip"``, the only mode ported). ``mxnet_tpu``'s ``pick``
+    ignores ``mode``: its ``take_along_axis`` fills an index past the end
+    with NaN and wraps a negative one (ROADMAP Queue 3); the port follows
+    MXNet."""
+    if mode != "clip":
+        raise ValueError(f"pick: mode {mode!r} is not ported (only 'clip')")
+    axis = axis % data.dim()
+    idx = index.to(torch.int64).clamp(0, data.shape[axis] - 1)
+    if idx.dim() != data.dim():
+        idx = idx.unsqueeze(axis)
+    out = torch.gather(data, axis, idx)
+    return out if keepdims else out.squeeze(axis)
+
+
+def _axes(data, axis, exclude):
+    """The reduced axes: ``axis`` (all when None), or with ``exclude``
+    every axis but those (``mxnet_tpu/ops/math.py:192-196``)."""
+    if axis is None:
+        return tuple(range(data.dim()))
+    ax = (axis,) if isinstance(axis, int) else tuple(axis)
+    if exclude:
+        keep = {a % data.dim() for a in ax}
+        return tuple(i for i in range(data.dim()) if i not in keep)
+    return ax
+
+
+def sum(data, axis=None, keepdims=False, exclude=False):  # noqa: A001
+    """Sum over ``axis`` (``mxnet_tpu/ops/math.py:186-189``)."""
+    axes = _axes(data, axis, exclude)
+    return torch.sum(data, dim=axes, keepdim=keepdims) if axes else data
+
+
+def mean(data, axis=None, keepdims=False, exclude=False):
+    """Mean over ``axis`` (``mxnet_tpu/ops/math.py:199-201``)."""
+    axes = _axes(data, axis, exclude)
+    return torch.mean(data, dim=axes, keepdim=keepdims) if axes else data
 
 
 def arange(start, stop=None, step=1, dtype="float32", device=None):

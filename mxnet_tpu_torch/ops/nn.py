@@ -1,6 +1,6 @@
 """Neural-network ops (subset of ``mxnet_tpu/ops/nn.py``): dense layers,
-convolution, pooling, batch and layer norm, activations, flatten and
-scaled dot-product attention.
+convolution, pooling, batch and layer norm, activations, softmax and
+log-softmax, flatten and scaled dot-product attention.
 
 Convolution and pooling take ``mxnet_tpu``'s layouts: channels-first
 (NCHW, OIHW weights) or channels-last (NHWC, OHWI weights). A
@@ -15,9 +15,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..base import torch_dtype
+
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
-           "layer_norm", "activation", "leaky_relu", "flatten",
-           "scaled_dot_product_attention"]
+           "layer_norm", "activation", "leaky_relu", "softmax",
+           "log_softmax", "flatten", "scaled_dot_product_attention"]
 
 _NEG = -1e30
 
@@ -226,18 +228,37 @@ def leaky_relu(data, act_type="leaky", slope=0.25):
     raise ValueError(f"unsupported LeakyReLU act_type {act_type!r}")
 
 
+def _softmax_input(data, temperature):
+    return data / temperature if temperature else data
+
+
+def softmax(data, axis=-1, temperature=None, dtype=None):
+    """Softmax over ``axis``, after dividing by ``temperature`` if given
+    (``mxnet_tpu/ops/nn.py:362-366``); cast to ``dtype`` if given."""
+    out = torch.softmax(_softmax_input(data, temperature), dim=axis)
+    return out.to(torch_dtype(dtype)) if dtype else out
+
+
+def log_softmax(data, axis=-1, temperature=None, dtype=None):
+    """Log-softmax over ``axis`` (``mxnet_tpu/ops/nn.py:369-373``)."""
+    out = torch.log_softmax(_softmax_input(data, temperature), dim=axis)
+    return out.to(torch_dtype(dtype)) if dtype else out
+
+
 def scaled_dot_product_attention(q, k, v, mask=None, causal=False,
                                  scale=None, impl="xla"):
     """Attention over (B, H, L, D) tensors.
 
     ``impl="xla"`` is the plain dense composition (``mxnet_tpu``'s XLA
     path, ops/nn.py:661-671): masked logits are set to -1e30 before the
-    softmax. ``impl="flash"`` runs the streaming kernel
-    (:func:`~mxnet_tpu_torch.ops.kernels.flash_attention`): on a CUDA
-    tensor it launches the hand-written CUDA kernel or raises; there is
-    no fall-back to the dense path. q, k, v go as they are: the kernel's
-    route decides whether it reads the strided views in place (the
-    tensor-core kernel) or takes contiguous copies (the CUDA-core one).
+    softmax. ``impl="flash"`` runs the streaming kernels through
+    :func:`~mxnet_tpu_torch.ops.kernels.flash_attention_with_grad`, as
+    ``mxnet_tpu/ops/nn.py:654`` does: K1 forward, K2 backward. On a CUDA
+    tensor each launches its hand-written CUDA kernel or raises; there is
+    no fall-back to the dense path. q, k, v go as they are: K1's route
+    decides whether it reads the strided views in place (the tensor-core
+    kernel) or takes contiguous copies (the CUDA-core one); K2 reads them
+    in place.
     """
     if impl == "flash":
         if mask is not None:
@@ -245,9 +266,9 @@ def scaled_dot_product_attention(q, k, v, mask=None, causal=False,
                 "impl='flash' does not support an explicit mask (only "
                 "causal=True); the dense path would defeat the O(T) memory "
                 "guarantee you opted into")
-        from .kernels import flash_attention
+        from .kernels import flash_attention_with_grad
 
-        return flash_attention(q, k, v, causal=causal, scale=scale)
+        return flash_attention_with_grad(q, k, v, causal=causal, scale=scale)
     if impl != "xla":
         raise ValueError(f"unknown attention impl {impl!r}")
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
