@@ -15,11 +15,16 @@ Phases, each failing loudly with a non-zero exit:
       attention) on both of its routes -- the tensor-core kernel (16-bit,
       D 64/128, contiguous or the LM's strided q/k/v, launched twice
       for bitwise equality) and the CUDA-core one (fp32, other D) --, K2
-      (the flash backward: fp32/bf16/fp16, D 64/128/80/256, ragged T,
-      offsets, rows that see no key, dlse, the LM's strided layout; a
-      second launch bitwise equal; the plain version without its dlse term
-      must fail the check) and the K1 + K2 autograd Function against
-      autograd through dense attention --, K3
+      (the flash backward, on both of its routes -- the tensor-core kernel
+      (wgmma + TMA; 16-bit, D 64/128) and the CUDA-core one (fp32, other
+      D) --: ragged T, offsets, rows that see no key, dlse, the LM's
+      strided layout; a second launch bitwise equal; the plain version
+      without its dlse term must fail the check; dq, dk, dv written into
+      the heads of a larger buffer whose other heads must keep a
+      sentinel), the K1 + K2 autograd Function against autograd through
+      dense attention, and the packed qkv Function (the LM's path: one
+      d(qkv) buffer) against dense autograd and, bitwise, against the
+      three-view Function --, K3
       (conv3x3 + BN statistics) on both of its routes -- the tensor-core
       kernel (16-bit, channels in multiples of 64, every tile rule) and
       the CUDA-core one (fp32, ragged channels) --, a second launch
@@ -28,7 +33,9 @@ Phases, each failing loudly with a non-zero exit:
   (c) kernel, plain-version and library times at the slices' shapes, in
       device time, beside each kernel's bound on the H100 (K1 also on the
       strided layout and for fp32 on the CUDA cores; K2 beside torch SDPA's
-      backward, also on the LM's layout, on the CUDA cores and in fp32; K3
+      backward, also on the LM's layout, on the CUDA cores and in fp32
+      beside SDPA's fp32 backward and the fp32 plain version, with the
+      tensor-core work it really issues; K3
       also beside its
       CUDA-core kernel on the same inputs, the unfused cuDNN conv +
       batch_norm path, and in fp32 beside cuDNN's fp32 conv);
@@ -52,7 +59,8 @@ Phases, each failing loudly with a non-zero exit:
       one fixed batch (B=8, T=1024) of a learnable sequence: finite losses,
       loss 10 at least 0.5 below loss 1, exactly 12 tensor-core K1 and 12
       K2 launches a step; median step time and tokens/s; one more step
-      profiled (forward + backward, and the Adam update);
+      profiled (forward + backward, and the Adam update), with fewer copy
+      kernels than layers (the qkv projection's gradient is one buffer);
   (i) one training step of a 2-layer model of the same widths with K1 + K2
       against plain attention, in fp32 and bf16: loss and every gradient.
 
@@ -478,8 +486,99 @@ def check_flash_bwd(torch, kernels):
                 for a, b in zip(got, ref)))
         records.append({"case": name, "route": route, "err": err,
                         "err_unit": unit.strip() or "rel"})
+    records.append(check_bwd_into_heads(torch, kernels, gen))
     records.append(check_flash_function(torch, kernels, gen))
+    records.append(check_flash_qkv(torch, kernels, gen))
     return records, slice_err
+
+
+SENTINEL = -7.25
+
+
+def check_bwd_into_heads(torch, kernels, gen):
+    """The tensor-core K2 writing dq, dk, dv through their strides into
+    three head ranges of one (B, T, 4H, D) buffer prefilled with a
+    sentinel: the written heads equal, bitwise, the same launch into
+    contiguous gradients, and every element of the fourth head range
+    keeps the sentinel."""
+    b, h, t, d = 2, 4, 300, 64
+    q, k, v, out, lse, dout, _ = bwd_inputs(
+        torch, kernels, gen, (b, h, t, d), torch.bfloat16, "qkv", True, 0, 0,
+        False)
+    want = kernels.flash_attention_backward(q, k, v, out, lse, dout,
+                                            causal=True)
+    big = torch.full((b, t, 4 * h, d), SENTINEL, dtype=torch.bfloat16,
+                     device="cuda")
+    heads = big.transpose(1, 2)
+    grads = (heads[:, 3 * h:], heads[:, :h], heads[:, 2 * h:3 * h])
+    before = kernels.flash_attention_backward.launches_by_route["tc"]
+    kernels.flash_attention_backward(q, k, v, out, lse, dout, causal=True,
+                                     grads=grads)
+    torch.cuda.synchronize()
+    launched = kernels.flash_attention_backward.launches_by_route["tc"] - \
+        before
+    same = all(torch.equal(g, w) for g, w in zip(grads, want))
+    kept = bool((heads[:, h:2 * h] == SENTINEL).all())
+    ok = launched == 1 and same and kept
+    log(f"[b] bwd into the heads of a (B, T, 4H, D) buffer {(b, h, t, d)} "
+        f"bf16: == contiguous gradients bitwise: {same}; the other heads "
+        f"keep the sentinel: {kept}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase b: K2 writing through output strides "
+                         "disagrees or writes outside its heads")
+    return {"case": "bwd into strided heads", "bitwise": same,
+            "sentinel_kept": kept}
+
+
+def check_flash_qkv(torch, kernels, gen):
+    """flash_attention_qkv (the LM's path: K1 on the qkv buffer's head
+    views, K2 writing one d(qkv) buffer) against autograd through dense
+    attention in f32 on the same values -- fp32 within 1e-4 of max|grad|,
+    bf16 within 3e-2 (as check_flash_function) -- and its d(qkv) bitwise
+    equal to the one autograd scatters back from the three-view Function
+    on the same card."""
+    b, h, t, d = 2, 4, 256, 64
+
+    def split(buf):
+        x = buf.reshape(b, t, 3 * h, d).transpose(1, 2)
+        return x[:, :h], x[:, h:2 * h], x[:, 2 * h:]
+
+    def dense(q, k, v):
+        logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d)
+        logits = logits.masked_fill(torch.ones(
+            t, t, dtype=torch.bool, device=q.device).triu(1), float("-inf"))
+        return torch.matmul(torch.softmax(logits, -1), v)
+
+    errs = {}
+    for dtype, tol, route in ((torch.float32, 1e-4, "simt"),
+                              (torch.bfloat16, 3e-2, "tc")):
+        x = torch.randn((b, t, 3 * h * d), generator=gen,
+                        device="cuda").to(dtype)
+        wo = torch.randn((b, h, t, d), generator=gen, device="cuda")
+        packed = x.clone().requires_grad_(True)
+        before = dict(kernels.flash_attention_backward.launches_by_route)
+        (kernels.flash_attention_qkv(packed, h, causal=True).float()
+         * wo).sum().backward()
+        took = {r: n - before[r] for r, n in
+                kernels.flash_attention_backward.launches_by_route.items()}
+        views = x.clone().requires_grad_(True)
+        (kernels.flash_attention_with_grad(*split(views), causal=True)
+         .float() * wo).sum().backward()
+        ref = x.float().requires_grad_(True)
+        (dense(*split(ref)) * wo).sum().backward()
+        err = rel_err(packed.grad, ref.grad)
+        same = torch.equal(packed.grad, views.grad)
+        ok = (took[route] == 1 and sum(took.values()) == 1 and same
+              and err <= tol and packed.grad.dtype == dtype)
+        log(f"[b] packed qkv Function {str(dtype)[6:]} {(b, h, t, d)} "
+            f"causal ({route}): d(qkv) vs dense autograd (f32) {err:.3e} of "
+            f"max|grad| (tol {tol:g}); == three-view Function's d(qkv) "
+            f"bitwise: {same}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("phase b: the packed qkv Function's gradient "
+                             "disagrees")
+        errs[str(dtype)[6:]] = err
+    return {"case": "packed qkv Function", "rel_errs": errs}
 
 
 def p_rounded_dv(torch, q, k, out, lse, dout, causal):
@@ -821,13 +920,46 @@ def attention_bwd_work(b, h, t, d, causal, itemsize):
     return flops, nbytes
 
 
+def k2_issued_flops(b, h, t, d, causal, q_offset=0, k_offset=0):
+    """Tensor-core FLOP the tensor-core K2 issues for these inputs, by its
+    own tile walk (csrc/flash_attn_bwd_tc.cu): the dk/dv kernel's
+    (64-key, 32-query) pairs that a warpgroup does not skip, six products
+    each (S^T, dP^T, dV and dK as hi + lo), and the dq kernel's (64-query,
+    64-key) pairs, four each (S, dP, dQ as hi + lo). Each warpgroup owns
+    64 rows, whatever its CTA's size, so the walk is counted per 64."""
+    bq, own, bk = 32, 128, 64
+    shift = q_offset - k_offset
+    n_tiles = -(-t // own)
+    n_qb = -(-t // bq)
+    kv_pairs = q_pairs = 0
+    for k0 in range(0, n_tiles * own, own):
+        first = k0 - shift
+        qb0 = (0 if not causal or first <= 0 else
+               n_qb if first >= t else first // bq)
+        for kw0 in (k0, k0 + 64):
+            kv_pairs += sum(1 for qb in range(qb0, n_qb)
+                            if not causal or qb * bq + bq - 1 + shift >= kw0)
+    for q0 in range(0, n_tiles * own, own):
+        n_kb = -(-t // bk)
+        if causal:
+            last_key = q0 + min(own, t - q0) - 1 + shift
+            n_kb = 0 if last_key < 0 else min(n_kb, last_key // bk + 1)
+        for wg in (0, 1):
+            last_seen = q0 + 64 * wg + shift
+            q_pairs += sum(1 for i in range(n_kb)
+                           if not causal or i * bk <= last_seen + 63)
+    return (kv_pairs * 6 * bq + q_pairs * 4 * bk) * 2.0 * 64 * d * b * h
+
+
 def time_flash_bwd(torch, kernels):
     """K2 at the LM's shape (8, 12, 1024, 64), causal, in device time
     (device_ms): bf16 on contiguous q, k, v, O, dO and on the LM's layout
     (q/k/v views of one qkv buffer, the tensor-core K1's O, a strided dO),
-    fp32, the plain version, and torch SDPA's backward alone (autograd.grad
-    through one recorded SDPA forward, retained). ``call_ms``: the median
-    of CUDA events around one call, host enqueue included."""
+    the CUDA-core route on the same bf16 inputs, fp32, the plain version
+    (bf16 and fp32 inputs), and torch SDPA's backward alone (autograd.grad
+    through one recorded SDPA forward, retained; bf16 and fp32, TF32 off).
+    ``call_ms``: the median of CUDA events around one call, host enqueue
+    included."""
     import torch.nn.functional as F
 
     shape = (BATCH, HEADS, T, UNITS // HEADS)
@@ -861,6 +993,14 @@ def time_flash_bwd(torch, kernels):
     def sdpa_bwd():
         return torch.autograd.grad(o_sdpa, leaves, dout, retain_graph=True)
 
+    f32_leaves = [x.detach().clone().requires_grad_(True)
+                  for x in f32_args[:3]]
+    o_sdpa32 = F.scaled_dot_product_attention(*f32_leaves, is_causal=True)
+
+    def sdpa32_bwd():
+        return torch.autograd.grad(o_sdpa32, f32_leaves, f32_args[5],
+                                   retain_graph=True)
+
     ms = device_ms(k2)
     lm_ms = device_ms(lambda: k2(lm_args))
     fp32_ms = device_ms(lambda: k2(f32_args), n=5)
@@ -868,25 +1008,39 @@ def time_flash_bwd(torch, kernels):
         *args, None, True, scale, 0, 0, route="simt"), n=5)
     plain_ms = device_ms(lambda: kernels.flash_attention_backward_reference(
         *args, causal=True), n=5)
+    fp32_plain_ms = device_ms(
+        lambda: kernels.flash_attention_backward_reference(*f32_args,
+                                                           causal=True), n=5)
     library_ms = device_ms(sdpa_bwd)
+    fp32_library_ms = device_ms(sdpa32_bwd, n=5)
     call_ms = median_ms(k2)
     flops, nbytes = attention_bwd_work(*shape, True, 2)
+    issued = k2_issued_flops(*shape, True)
     bound_ms, bound_by = bound(flops, nbytes)
-    log(f"[c] flash_attn_bwd bf16 {shape} causal: kernel {ms:.4f} ms device "
-        f"({call_ms:.4f} ms events around one call), on the LM's layout "
-        f"{lm_ms:.4f} ms; torch SDPA backward {library_ms:.4f} ms device, "
-        f"kernel / SDPA {ms / library_ms:.2f}x; plain {plain_ms:.4f} ms; "
-        f"bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FLOP, "
-        f"{nbytes:.3e} B); kernel at {bound_ms / ms:.2%} of bound, "
-        f"{flops / ms / 1e9:.2f} TFLOP/s of the five products (it computes "
-        f"seven); CUDA-core K2 on the same bf16 inputs {simt_ms:.4f} ms "
-        f"({simt_ms / ms:.1f}x the tensor-core one); fp32 (CUDA cores) "
-        f"{fp32_ms:.4f} ms device")
-    del o_sdpa, leaves
+    log(f"[c] flash_attn_bwd_tc bf16 {shape} causal: kernel {ms:.4f} ms "
+        f"device ({call_ms:.4f} ms events around one call), on the LM's "
+        f"layout {lm_ms:.4f} ms; torch SDPA backward {library_ms:.4f} ms "
+        f"device, kernel / SDPA {ms / library_ms:.2f}x; plain "
+        f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+        f"({flops:.3e} FLOP, {nbytes:.3e} B); kernel at "
+        f"{bound_ms / ms:.2%} of bound, {flops / ms / 1e9:.2f} TFLOP/s of "
+        f"the five products, {issued / ms / 1e9:.2f} TFLOP/s of the "
+        f"{issued:.3e} FLOP it issues ({issued / flops:.2f}x the five); "
+        f"CUDA-core K2 on the same bf16 inputs {simt_ms:.4f} ms "
+        f"({simt_ms / ms:.1f}x the tensor-core one)")
+    log(f"[c] flash_attn_bwd (CUDA cores) fp32 {shape} causal: "
+        f"{fp32_ms:.4f} ms device, {flops / fp32_ms / 1e9:.2f} TFLOP/s of "
+        f"the five products; plain fp32 {fp32_plain_ms:.4f} ms; torch SDPA "
+        f"fp32 backward (TF32 off) {fp32_library_ms:.4f} ms device, kernel "
+        f"/ SDPA {fp32_ms / fp32_library_ms:.2f}x")
+    del o_sdpa, leaves, o_sdpa32, f32_leaves
     return {"ms": ms, "call_ms": call_ms, "lm_layout_ms": lm_ms,
             "simt_ms": simt_ms, "fp32_ms": fp32_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "flops": flops, "bytes": nbytes}
+            "fp32_plain_ms": fp32_plain_ms, "library_ms": library_ms,
+            "fp32_library_ms": fp32_library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "flops": flops, "issued_flops": issued,
+            "tflops": flops / ms / 1e9, "issued_tflops": issued / ms / 1e9,
+            "bytes": nbytes}
 
 
 def conv_work(n, h, w, cin, cout, itemsize):
@@ -1562,6 +1716,14 @@ def train_slice(torch, mx, kernels):
         f"wall ({busy / wall:.1%}; profiler on); by group:")
     for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         log(f"[h]   {ms:9.3f} ms  x{n:<5d} {group} ({ms / busy:.1%})")
+    n_copies = groups.get("copies", (0.0, 0))[1]
+    log(f"[h] copy kernels in one step's forward + backward: {n_copies} "
+        f"launches (want fewer than {LAYERS}: K2 writes the qkv "
+        f"projection's gradient as one buffer) "
+        f"{'ok' if n_copies < LAYERS else 'FAIL'}")
+    if n_copies >= LAYERS:
+        raise SystemExit("phase h: the training step still copies per "
+                         "layer (the q/k/v gradients scattered back)")
     gemms = [r for r in fb["all"] if any(
         p in r["kernel"] for p in _STEP_GROUPS[2][1])][:6]
     for r in gemms:
@@ -1572,7 +1734,7 @@ def train_slice(torch, mx, kernels):
     return {"losses": losses, "step_ms": step_ms, "median_step_ms": median,
             "tokens_per_s": tokens_per_s, "k1_launches": k1_total,
             "k1_launches_by_route": k1_by_route, "k2_launches": k2_total,
-            "k2_launches_by_route": k2_by_route,
+            "k2_launches_by_route": k2_by_route, "copy_launches": n_copies,
             "profile": {"forward_backward": {k: fb[k] for k in (
                 "wall_ms", "device_busy_ms", "launches", "top")},
                 "update": {k: upd[k] for k in (
@@ -1734,7 +1896,9 @@ def main(argv=None):
         "training_launches": training["k1_launches"],
         "training_launches_by_route": training["k1_launches_by_route"]}, {
         "name": "flash_attn_bwd", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
+        "source": "mxnet_tpu_torch/csrc/flash_attn_bwd_tc.cu",
+        "sources": {"tc": "mxnet_tpu_torch/csrc/flash_attn_bwd_tc.cu",
+                    "simt": "mxnet_tpu_torch/csrc/flash_attn_bwd.cu"},
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:241",
         "launches": training["k2_launches"],
         "launches_by_route": training["k2_launches_by_route"],
@@ -1746,8 +1910,13 @@ def main(argv=None):
         "bound_by": bwd_timing["bound_by"],
         "library_ms": bwd_timing["library_ms"],
         "lm_layout_ms": bwd_timing["lm_layout_ms"],
+        "issued_flops": bwd_timing["issued_flops"],
+        "tflops": bwd_timing["tflops"],
+        "issued_tflops": bwd_timing["issued_tflops"],
         "simt_ms": bwd_timing["simt_ms"],
-        "fp32_ms": bwd_timing["fp32_ms"]}, {
+        "fp32_ms": bwd_timing["fp32_ms"],
+        "fp32_plain_ms": bwd_timing["fp32_plain_ms"],
+        "fp32_library_ms": bwd_timing["fp32_library_ms"]}, {
         "name": "conv3x3_bn_stats", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/conv3x3_bn_stats_tc.cu",
         "sources": {"tc": "mxnet_tpu_torch/csrc/conv3x3_bn_stats_tc.cu",

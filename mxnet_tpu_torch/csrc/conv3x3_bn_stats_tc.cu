@@ -85,24 +85,15 @@
 // 14x14x256, 0.025-0.050 ms at 7x7x512 (200 CTAs of 64 x 64 on 132 SMs:
 // the SMs with two take twice as long): 150-370 TFLOP/s, 10-25x the
 // CUDA-core kernel.
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <stdint.h>
-
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int PANEL = 64;          // 16-bit channels per swizzled row
-constexpr int ROW_BYTES = 128;     // bytes per swizzled row
 constexpr int SMEM_PER_SM = 232448;
 constexpr int RC = 32;             // channels per reduction block
 constexpr int RS = 32;             // partial-sum segments per channel
-constexpr int ERR_NO_ENCODER = 1000;  // a tensor-map encoder is missing
-constexpr int ERR_ENCODE = 1001;      // the driver refused a tensor map
-constexpr int ERR_SHAPE = 1002;       // a shape or tiling not taken
 
 // C consumer warpgroups (BM = 64 C rows) by BN output channels.
 template <int C, int BN>
@@ -125,173 +116,6 @@ struct Cfg {
   static constexpr int FIT = FIT_SMEM < FIT_REGS ? FIT_SMEM : FIT_REGS;
   static constexpr int MIN_BLOCKS = FIT < 1 ? 1 : FIT > 3 ? 3 : FIT;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Waits for the completion of the barrier's phase of this parity. A wait
-// that outlasts any real load or tile by orders of magnitude traps, so a
-// lost arrival fails the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  for (uint32_t n = 0; !mbar_try_wait(a, parity); ++n)
-    if (n == (1u << 24)) __trap();
-}
-
-// BM pixels x 64 channels of x, starting at the im2col position
-// (w, h, n), shifted by the tap (kw, kh); out of the image reads as zero.
-__device__ __forceinline__ void tma_load_im2col(void* dst,
-                                                const CUtensorMap* map,
-                                                uint64_t* bar, int c, int w,
-                                                int h, int n, uint16_t kw,
-                                                uint16_t kh) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c),
-      "r"(w), "r"(h), "r"(n), "h"(kw), "h"(kh)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled tile: start
-// address, leading and stride byte offsets (16-byte units), layout type 1.
-// The K-major A: SBO = 1024 (8 rows of 128 bytes), LBO unused. The
-// MN-major B: SBO = 1024 (8 K-rows), LBO = the stride between panels of
-// 64 N-columns.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
-                                               uint32_t sbo) {
-  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) |
-         (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
-         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Ties registers that an in-flight wgmma reads or writes to this point of
-// the instruction stream, so the compiler moves no access across it.
-template <int N>
-__device__ __forceinline__ void pin(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// Only the consumer warpgroups meet here; the producer warp has left.
-__device__ __forceinline__ void consumers_sync(int threads) {
-  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
-}
-
-// D (64 x N, f32) += A (64 x 16, K-major) B (16 x N, MN-major), both from
-// shared memory. F16 picks fp16 inputs over bf16.
-template <int N, bool F16>
-__device__ void wgmma_ss(float* d, uint64_t da, uint64_t db);
-
-template <> __device__ __forceinline__ void
-wgmma_ss<64, false>(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-template <> __device__ __forceinline__ void
-wgmma_ss<128, false>(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-template <> __device__ __forceinline__ void
-wgmma_ss<64, true>(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-template <> __device__ __forceinline__ void
-wgmma_ss<128, true>(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <typename T> __device__ uint32_t pack2(float lo, float hi);
-template <> __device__ __forceinline__ uint32_t
-pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo,
-                                                             float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Accumulator fragment of wgmma m64nN f32, for the thread at lane
 // (g = lane / 4, c = lane % 4) of warp w in its warpgroup: register
@@ -324,7 +148,7 @@ conv3x3_tc_kernel(const __grid_constant__ CUtensorMap tx,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 4 * C);   // one arrival per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -367,9 +191,10 @@ conv3x3_tc_kernel(const __grid_constant__ CUtensorMap tx,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < PANEL / 16; ++kk)
-      wgmma_ss<BN, F16>(acc, sw128_desc(a + kk * 32, 16, 1024),
-                        sw128_desc(b + kk * 16 * ROW_BYTES,
-                                   PANEL * ROW_BYTES, 1024));
+      wgmma_ss<BN, F16, 1>(acc, sw128_desc(a + kk * 32, 16, 1024),
+                           sw128_desc(b + kk * 16 * ROW_BYTES,
+                                      PANEL * ROW_BYTES, 1024),
+                           1);
     wgmma_commit();
     // the previous stage's products are done: hand its buffers back
     wgmma_wait<1>();
@@ -463,12 +288,6 @@ reduce_stats_kernel(const float* __restrict__ part, float* __restrict__ sums,
 }
 
 // ------------------------------------------------------------------ host
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
 typedef CUresult (*EncodeIm2col)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const int*, const int*,
@@ -476,23 +295,6 @@ typedef CUresult (*EncodeIm2col)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
-
-// A driver entry point reached through the runtime, so the library needs
-// no -lcuda; nullptr if the driver lacks it.
-void* driver_entry(const char* name) {
-  void* p = nullptr;
-  cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-  cudaError_t err = cudaGetDriverEntryPointByVersion(name, &p, 12000,
-                                                     cudaEnableDefault,
-                                                     &found);
-#else
-  cudaError_t err = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault,
-                                            &found);
-#endif
-  return (err == cudaSuccess && found == cudaDriverEntryPointSuccess) ? p
-                                                                      : nullptr;
-}
 
 // x (n, h, w, cin) as an im2col map (C, W, H, N): pixel boxes of a 3x3
 // SAME conv (corners -1 and -1 on W and H), 64 channels, bm pixels.
@@ -549,22 +351,14 @@ int launch(const void* x, const void* w, void* y, void* part, void* sums,
     return err;
   auto kernel = conv3x3_tc_kernel<T, C, BN>;
   static unsigned long long attr_set = 0;   // one bit per device
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return int(e);
-  if (dev >= 64 || !((attr_set >> dev) & 1)) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             K::SMEM);
-    if (e != cudaSuccess) return int(e);
-    if (dev < 64) attr_set |= 1ull << dev;
-  }
+  if ((err = allow_smem(kernel, K::SMEM, attr_set))) return err;
   const int m_total = n * h * wd;
   const int m_tiles = (m_total + K::BM - 1) / K::BM;
   kernel<<<dim3(m_tiles, cout / BN), K::NT, K::SMEM, stream>>>(
       tx, tw, static_cast<T*>(y), static_cast<float*>(part), h, wd, cin,
       cout, m_total);
-  if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
   reduce_stats_kernel<<<(cout + RC - 1) / RC, dim3(RC, RS), 0, stream>>>(
       static_cast<const float*>(part), static_cast<float*>(sums), m_tiles,
       cout);
@@ -593,8 +387,8 @@ int dispatch(const void* x, const void* w, void* y, void* part, void* sums,
 // cin and cout multiples of 64, cout of bn. Tiles: bm in {64, 128}, bn in
 // {64, 128}. part is f32 scratch of 2 * ceil(n*h*w / bm) * cout; sums is
 // f32 (2, cout): sum then sum of squares. Launches on `stream`, never
-// synchronises, and returns 0, a cudaError_t, or one of this file's ERR_*
-// codes.
+// synchronises, and returns 0, a cudaError_t, or one of hopper.cuh's
+// ERR_* codes.
 extern "C" int conv3x3_bn_stats_tc(const void* x, const void* w, void* y,
                                    void* part, void* sums, int n, int height,
                                    int width, int cin, int cout, int dtype,

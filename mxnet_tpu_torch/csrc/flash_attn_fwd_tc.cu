@@ -72,14 +72,11 @@
 // the two warpgroups on named barriers (spills at 96 registers). The
 // next step is warpgroups with setmaxnreg-raised register budgets, so
 // that the overlap fits without giving up warps per SM.
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <math.h>
-#include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -87,15 +84,10 @@ constexpr int BQ = 128;                 // query rows per CTA
 constexpr int CONSUMERS = 2;            // consumer warpgroups, 64 rows each
 constexpr int NT = CONSUMERS * 128 + 32;  // + one producer warp
 constexpr int STAGES = 3;               // K/V ring depth
-constexpr int PANEL = 64;               // 16-bit columns per swizzled row
-constexpr int ROW_BYTES = 128;          // bytes per swizzled row
 constexpr float NEG = -1e30f;           // the TPU kernel's mask value
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr int MAX_Q_TILES = 65535;      // gridDim.y
-constexpr int ERR_NO_ENCODER = 1000;    // cuTensorMapEncodeTiled not found
-constexpr int ERR_ENCODE = 1001;        // it refused a tensor map
-constexpr int ERR_SHAPE = 1002;         // a shape the kernel does not take
 
 template <int D> struct Tiles;
 // BK: key rows per K/V tile. MIN_BLOCKS: CTAs per SM that the register
@@ -115,240 +107,8 @@ constexpr int smem_bytes() {
          (2 * STAGES + 1) * 8 + 1024;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Waits for the completion of the barrier's phase of this parity. A wait
-// that outlasts any real load or tile by orders of magnitude traps, so a
-// lost arrival fails the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  for (uint32_t n = 0; !mbar_try_wait(a, parity); ++n)
-    if (n == (1u << 24)) __trap();
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled tile: start
-// address, leading and stride byte offsets (16-byte units), layout type 1.
-// K-major operands (Q, K): SBO = 1024 (8 rows of 128 bytes), LBO unused.
-// The MN-major V: SBO = 1024 (8 K-rows), LBO = the stride between panels
-// of 64 N-columns.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
-                                               uint32_t sbo) {
-  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) |
-         (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
-         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
-}
-
-// 2^x by the special-function unit (relative error ~2^-22; 0 for -inf).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Ties registers that an in-flight wgmma reads or writes to this point of
-// the instruction stream, so the compiler moves no access across it.
-template <int N>
-__device__ __forceinline__ void pin(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// D (64 x N, f32) = or += A (64 x 16) B (16 x N): SS takes A and B from
-// shared memory, both K-major; RS takes A from registers (the 16-bit
-// fragment of one k16 slice) and B from shared memory, MN-major. acc = 0
-// overwrites D. F16 picks fp16 inputs over bf16.
-template <int N, bool F16>
-__device__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int acc);
-template <int N, bool F16>
-__device__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db);
-
-template <> __device__ __forceinline__ void
-wgmma_ss<64, false>(float* d, uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-template <> __device__ __forceinline__ void
-wgmma_rs<64, false>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <> __device__ __forceinline__ void
-wgmma_ss<128, false>(float* d, uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
-}
-template <> __device__ __forceinline__ void
-wgmma_rs<128, false>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <> __device__ __forceinline__ void
-wgmma_ss<64, true>(float* d, uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-template <> __device__ __forceinline__ void
-wgmma_rs<64, true>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <> __device__ __forceinline__ void
-wgmma_ss<128, true>(float* d, uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
-}
-template <> __device__ __forceinline__ void
-wgmma_rs<128, true>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <typename T> __device__ uint32_t pack2(float lo, float hi);
-template <> __device__ __forceinline__ uint32_t
-pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo,
-                                                             float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (a, b) = hi + lo, each a pair of 16-bit values packed low half first,
-// so that ~16 bits of each value survive. For bf16, hi keeps the top 16
-// bits of each f32 (a bit mask, no conversion) and lo is the rest,
-// rounded.
-template <typename T>
-__device__ void split2(float a, float b, uint32_t& hi, uint32_t& lo);
-template <> __device__ __forceinline__ void split2<__nv_bfloat16>(
-    float a, float b, uint32_t& hi, uint32_t& lo) {
-  const uint32_t ua = __float_as_uint(a) & 0xFFFF0000u;
-  const uint32_t ub = __float_as_uint(b) & 0xFFFF0000u;
-  hi = __byte_perm(ua, ub, 0x7632);
-  lo = pack2<__nv_bfloat16>(a - __uint_as_float(ua), b - __uint_as_float(ub));
-}
-template <> __device__ __forceinline__ void split2<__half>(
-    float a, float b, uint32_t& hi, uint32_t& lo) {
-  hi = pack2<__half>(a, b);
-  const float2 h = __half22float2(*reinterpret_cast<__half2*>(&hi));
-  lo = pack2<__half>(a - h.x, b - h.y);
-}
-
-// The tensor-map coordinates (c1, c2, c3) of row t, head h, batch b: pos
-// packs the map position (1..3) of T, H and B in 2 bits each.
-__device__ __forceinline__ void coords(int pos, int t, int h, int b, int& c1,
-                                       int& c2, int& c3) {
-  const int pt = pos & 3, ph = (pos >> 2) & 3;
-  c1 = pt == 1 ? t : ph == 1 ? h : b;
-  c2 = pt == 2 ? t : ph == 2 ? h : b;
-  c3 = pt == 3 ? t : ph == 3 ? h : b;
-}
-
-// Accumulator fragment of wgmma m64nN f32, for the thread at lane
-// (g = lane / 4, c = lane % 4) of warp w in its warpgroup: register
-// 4j + e holds row 16w + g + 8 (e / 2), column 8j + 2c + e % 2. The
-// 16-bit A fragment of the k16 slice kk is, in the same thread, registers
-// {8kk + 2r, 8kk + 2r + 1} for r = 0..3, which is how P is packed.
+// The accumulator fragment and its map to the A fragment of the next
+// product, which is how P is packed: hopper.cuh.
 template <typename scalar_t, int D>
 __global__ void __launch_bounds__(NT, Tiles<D>::MIN_BLOCKS)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
@@ -400,7 +160,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(&empty[s], CONSUMERS * 4);   // one arrival per warp
     }
     mbar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -458,12 +218,12 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int off = (kk % 4) * 32;   // 16 columns = 32 bytes
-        wgmma_ss<BK, F16>(
+        wgmma_ss<BK, F16, 0>(
             sc, sw128_desc(qw + (kk / 4) * Q_PANEL + off, 16, 1024),
             sw128_desc(kt + (kk / 4) * KV_PANEL + off, 16, 1024), kk > 0);
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       pin<BK / 2>(sc);
 
       const bool unmasked =
@@ -528,7 +288,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_rs<D, F16>(acc, plo[kk], dv);
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       pin<D / 2>(acc);
     }
     __syncwarp();
@@ -558,74 +318,6 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// ------------------------------------------------------------------ host
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, reached through the runtime, so the
-// library needs no -lcuda.
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 4-D map (D, then T, H, B in the order of increasing stride) over a
-// tensor of 16-bit elements with element strides st, sh, sb; boxes of 64
-// columns by `rows` rows of T, 128-byte swizzled. *pos receives the map
-// positions of T, H and B (see coords).
-int make_map(CUtensorMap* map, const void* ptr, bool f16, int d, int t,
-             int h, int b, long long st, long long sh, long long sb,
-             int rows, int* pos) {
-  EncodeTiled enc = encoder();
-  if (!enc) return ERR_NO_ENCODER;
-  long long size[3] = {t, h, b}, stride[3] = {st, sh, sb};
-  int order[3] = {0, 1, 2};   // which of (T, H, B) sits at map dim 1, 2, 3
-  for (int i = 0; i < 3; ++i)
-    for (int j = i + 1; j < 3; ++j)
-      if (stride[order[j]] < stride[order[i]]) {
-        const int x = order[i];
-        order[i] = order[j];
-        order[j] = x;
-      }
-  cuuint64_t gdim[4] = {cuuint64_t(d)};
-  cuuint64_t gstride[3];
-  cuuint32_t box[4] = {cuuint32_t(PANEL)};
-  cuuint32_t estride[4] = {1, 1, 1, 1};
-  *pos = 0;
-  for (int i = 0; i < 3; ++i) {
-    const int which = order[i];
-    gdim[i + 1] = cuuint64_t(size[which]);
-    gstride[i] = cuuint64_t(stride[which]) * 2;
-    box[i + 1] = which == 0 ? cuuint32_t(rows) : 1;
-    *pos |= (i + 1) << (2 * which);
-  }
-  CUresult r = enc(map,
-                   f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                   4, const_cast<void*>(ptr), gdim, gstride, box, estride,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
-}
-
 template <typename scalar_t, int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int b, int h, int t, const long long* st, float scale, int causal,
@@ -644,15 +336,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   constexpr int smem = smem_bytes<D>();
   auto kernel = flash_fwd_tc_kernel<scalar_t, D>;
   static unsigned long long attr_set = 0;   // one bit per device
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return int(e);
-  if (dev >= 64 || !((attr_set >> dev) & 1)) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return int(e);
-    if (dev < 64) attr_set |= 1ull << dev;
-  }
+  if ((err = allow_smem(kernel, smem, attr_set))) return err;
   dim3 grid(b * h, (t + BQ - 1) / BQ);
   kernel<<<grid, NT, smem, stream>>>(
       tq, tk, tv, static_cast<scalar_t*>(o), static_cast<float*>(lse), h, t,
@@ -666,7 +350,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 // with unit stride in d; strides holds their element strides over
 // (b, h, t): q's three, then k's, then v's. o is contiguous (b, t, h, d);
 // lse contiguous f32 (b, h, t). Launches on `stream`, never synchronises,
-// and returns 0, a cudaError_t, or one of this file's ERR_* codes.
+// and returns 0, a cudaError_t, or one of hopper.cuh's ERR_* codes.
 extern "C" int flash_attn_fwd_tc(const void* q, const void* k, const void* v,
                                  void* o, void* lse, int b, int h, int t,
                                  int d, const long long* strides, int dtype,

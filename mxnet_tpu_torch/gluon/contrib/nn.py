@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from ..block import HybridBlock
 from .. import nn as _nn
+from ...ops import kernels as _kernels
 from ...ops import nn as _ops
 
 __all__ = ["MultiHeadAttention"]
@@ -15,8 +16,10 @@ class MultiHeadAttention(HybridBlock):
 
     impl:
       - 'dense': the plain PyTorch composition
-      - 'flash': the streaming flash kernel (ops/kernels.py), which on a
-        CUDA tensor is the hand-written CUDA kernel
+      - 'flash': the streaming flash kernels (ops/kernels.py), which on a
+        CUDA tensor are the hand-written CUDA kernels: K1 reads q, k, v as
+        views of the qkv projection's output, and K2 writes the
+        projection's gradient as one buffer (``flash_attention_qkv``)
       - 'ring' / 'auto': not ported yet (ROADMAP, sharding and ring
         attention)
     """
@@ -46,20 +49,14 @@ class MultiHeadAttention(HybridBlock):
                                       flatten=False, in_units=units,
                                       prefix="out_")
 
-    def _split_heads(self, x, n):
-        # (B, L, n*units) -> n tensors (B, H, L, d): reshape to (B, L, n*H,
-        # d), move heads forward, slice [0:H], [H:2H], ... — the channel
-        # layout [q | k | v] of contrib/nn.py:225-232
-        b, l, _ = x.shape
-        h, d = self._heads, self._units // self._heads
-        x = x.reshape(b, l, n * h, d).transpose(1, 2)
-        return [x[:, i * h:(i + 1) * h] for i in range(n)]
-
     def forward(self, x):
-        q, k, v = self._split_heads(self.qkv_proj(x), 3)
-        out = _ops.scaled_dot_product_attention(
-            q, k, v, causal=self._causal,
-            impl="flash" if self._impl == "flash" else "xla")
+        qkv = self.qkv_proj(x)
+        if self._impl == "flash":
+            out = _kernels.flash_attention_qkv(qkv, self._heads,
+                                               causal=self._causal)
+        else:
+            out = _ops.scaled_dot_product_attention(
+                *_kernels._split_qkv(qkv, self._heads), causal=self._causal)
         b, h, l, d = out.shape
         # the tensor-core flash kernel writes O as (B, L, H, d) memory, so
         # this merge of the heads is a view there, not a copy

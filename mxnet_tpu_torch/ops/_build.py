@@ -3,14 +3,16 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 ``nvcc`` for ``sm_90a`` into ``mxnet_tpu_torch/_build/`` at first use, then
 loaded with ``ctypes``. The library's file name carries a digest of the
-source and the flags, so an edited source is rebuilt and a stale library
-is never loaded. Nothing is built when a module is imported.
+source, the headers it includes from ``csrc/`` (``hopper.cuh``) and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded. Nothing is built when a module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_attn_fwd", "flash_attn_fwd_tc", "flash_attn_bwd",
-           "conv3x3_bn_stats", "conv3x3_bn_stats_tc")
+           "flash_attn_bwd_tc", "conv3x3_bn_stats", "conv3x3_bn_stats_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,11 +45,28 @@ def _nvcc():
                      "/usr/local/cuda): the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _headers(path, seen=None):
+    """The ``#include "..."`` files of ``path`` found beside it, and theirs,
+    in first-seen order."""
+    seen = [] if seen is None else seen
+    for name in _INCLUDE.findall(path.read_bytes()):
+        dep = path.parent / name.decode()
+        if dep.exists() and dep not in seen:
+            seen.append(dep)
+            _headers(dep, seen)
+    return seen
+
+
 def _paths(name):
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}.{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for dep in _headers(src):
+        h.update(dep.name.encode() + b"\0" + dep.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{name}.{h.hexdigest()[:16]}.so"
 
 
 def _start(name):

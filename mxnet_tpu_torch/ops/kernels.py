@@ -19,12 +19,17 @@ source's header says what bounds it on the H100 and how it is laid out.
 
 K2, the flash-attention backward, replaces
 ``mxnet_tpu/ops/pallas_kernels.py:_flash_bwd_blockwise`` (a ``lax.scan``
-there): ``csrc/flash_attn_bwd.cu``, behind :func:`flash_attention_backward`,
-with two routes chosen by the fixed rule of :func:`_flash_bwd_route`: the
-tensor cores (warp-level mma.sync; 16-bit, D 64 or 128, 16-byte-aligned
-rows) and the CUDA cores (everything else). :class:`_FlashAttention`
-pairs it with K1 as one ``torch.autograd.Function``, entered through
-:func:`flash_attention_with_grad` and :func:`flash_attention_with_lse`.
+there), behind :func:`flash_attention_backward`. It has two CUDA sources,
+chosen by the fixed rule of :func:`_flash_bwd_route`:
+``csrc/flash_attn_bwd_tc.cu`` on the tensor cores (wgmma + TMA; 16-bit, D
+64 or 128, 16-byte-aligned rows; dq, dk, dv written through their own
+strides) and ``csrc/flash_attn_bwd.cu`` on the CUDA cores (everything
+else). :class:`_FlashAttention` pairs it with K1 as one
+``torch.autograd.Function``, entered through
+:func:`flash_attention_with_grad` and :func:`flash_attention_with_lse`;
+:class:`_FlashAttentionQKV` does the same over the qkv projection's packed
+output (:func:`flash_attention_qkv`, the LM's path), so that K2 writes the
+projection's gradient as one buffer.
 
 Each wrapper (:func:`flash_attention`, :func:`flash_attention_backward`,
 :func:`conv3x3_bn_stats`) takes its plain version (``*_reference``) only
@@ -48,8 +53,8 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_backward", "flash_attention_backward_reference",
            "flash_attention_with_grad", "flash_attention_with_lse",
-           "conv3x3_bn_stats", "conv3x3_bn_stats_reference",
-           "conv3x3_bn_relu_train"]
+           "flash_attention_qkv", "conv3x3_bn_stats",
+           "conv3x3_bn_stats_reference", "conv3x3_bn_relu_train"]
 
 _NEG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -96,9 +101,13 @@ def flash_attention_reference(q, k, v, causal=False, scale=None,
     ``causal``). A row with no visible key gives O = 0 and
     lse = -1e30 + log(1e-20), the kernel's definition.
     """
-    t, d = q.shape[-2], q.shape[-1]
+    t, d, dtype = q.shape[-2], q.shape[-1], q.dtype
     s = scale if scale is not None else 1.0 / math.sqrt(d)
-    logits = torch.matmul(q.float() * s, k.float().transpose(-1, -2))
+    # contiguous operands, so that the products take one BLAS layout
+    # whatever the callers' strides (the LM's q/k/v are views): strided
+    # and contiguous inputs then give bitwise equal results
+    q, k, v = (x.float().contiguous() for x in (q, k, v))
+    logits = torch.matmul(q * s, k.transpose(-1, -2))
     if causal:
         pos = torch.arange(t, device=q.device)
         visible = (q_offset + pos)[:, None] >= (k_offset + pos)[None, :]
@@ -108,7 +117,7 @@ def flash_attention_reference(q, k, v, causal=False, scale=None,
     m = logits.amax(dim=-1, keepdim=True).clamp_min(_NEG)
     p = torch.exp(logits - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
-    out = (torch.matmul(p, v.float()) / l).to(q.dtype)
+    out = (torch.matmul(p, v) / l).to(dtype)
     if return_lse:
         return out, m + torch.log(l)
     return out
@@ -312,23 +321,35 @@ def flash_attention_backward_reference(q, k, v, out, lse, dout, causal=False,
 
 def _bwd_library():
     lib = _build.load("flash_attn_bwd")
-    if lib.flash_attn_bwd.argtypes is None:
+    fn = lib.flash_attn_bwd
+    if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.flash_attn_bwd, lib.flash_attn_bwd_tc):
-            fn.argtypes = [p] * 12 + [i, i, i, i, i, ctypes.c_float, i, i,
-                                      i, p]
-            fn.restype = ctypes.c_int
+        fn.argtypes = [p] * 12 + [i, i, i, i, i, ctypes.c_float, i, i, i, p]
+        fn.restype = ctypes.c_int
         lib.flash_attn_bwd_error_string.argtypes = [i]
         lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
-_BWD_TC_MAX_T = 65535 * 64   # the tensor-core grid's tiles, 64 rows each
+def _bwd_tc_library():
+    lib = _build.load("flash_attn_bwd_tc")
+    fn = lib.flash_attn_bwd_tc
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 7 + [i, i, i, i, i, ctypes.c_float, i, i, i, p]
+        fn.restype = ctypes.c_int
+        lib.flash_attn_bwd_tc_error_string.argtypes = [i]
+        lib.flash_attn_bwd_tc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_BWD_TC_ROWS = 128           # lse and delta rows are padded to this
+_BWD_TC_MAX_T = 65535 * 64   # the grids' tiles, at least 64 rows each
 
 
 def _flash_bwd_route(dtype, d, strides, ptrs, t):
     """Which K2 kernel takes these operands (q, k, v, O, dO, given as for
-    :func:`_flash_route`): "tc" (tensor cores, mma.sync) under K1's rule
+    :func:`_flash_route`): "tc" (tensor cores, wgmma + TMA) under K1's rule
     for its tensor-core kernel -- bf16 or fp16, D of 64 or 128, unit
     stride in D, every other stride a positive multiple of 8 elements,
     16-byte-aligned bases -- and T up to 65535 * 64; "simt" (CUDA cores)
@@ -338,62 +359,140 @@ def _flash_bwd_route(dtype, d, strides, ptrs, t):
     return _flash_route(dtype, d, strides, ptrs, t)
 
 
+def _check_grads(grads, q):
+    """``grads`` (dq, dk, dv) to write into: tensors of q's shape, dtype
+    and device with unit stride in D and 4-byte-aligned rows."""
+    if len(grads) != 3:
+        raise ValueError("flash_attention_backward: grads must hold dq, dk "
+                         "and dv")
+    for g in grads:
+        if not isinstance(g, torch.Tensor) or g.shape != q.shape or \
+                g.dtype != q.dtype or g.device != q.device or \
+                g.stride(3) != 1 or any(st % 2 for st in g.stride()[:3]) \
+                or g.data_ptr() % 4:
+            raise ValueError(
+                f"flash_attention_backward: each of grads must be a "
+                f"{q.dtype} tensor of shape {tuple(q.shape)} on {q.device} "
+                "with unit stride in D and even, 4-byte-aligned rows")
+
+
+def _launch_bwd_tc(ops, lse, dlse, grads, causal, scale, q_offset,
+                   k_offset):
+    """The tensor-core K2 on q, k, v, O, dO (``ops``) as they lie, writing
+    dq, dk, dv into ``grads`` through their strides."""
+    lib = _bwd_tc_library()
+    b, h, t, d = ops[0].shape
+    t_pad = -(-t // _BWD_TC_ROWS) * _BWD_TC_ROWS
+    scratch = torch.empty((2, b * h, t_pad), dtype=torch.float32,
+                          device=ops[0].device)
+    ins = (ctypes.c_void_p * 5)(*(x.data_ptr() for x in ops))
+    outs = (ctypes.c_void_p * 3)(*(g.data_ptr() for g in grads))
+    strides = (ctypes.c_longlong * 15)(*(s for x in ops
+                                          for s in _tma_strides(x)))
+    out_strides = (ctypes.c_longlong * 9)(*(s for g in grads
+                                             for s in g.stride()[:3]))
+    with torch.cuda.device(ops[0].device):
+        stream = torch.cuda.current_stream(ops[0].device).cuda_stream
+        err = lib.flash_attn_bwd_tc(
+            ins, strides, lse.data_ptr(),
+            None if dlse is None else dlse.data_ptr(), scratch.data_ptr(),
+            outs, out_strides, b, h, t, d, _DTYPE_CODE[ops[0].dtype],
+            float(scale), int(bool(causal)), int(q_offset), int(k_offset),
+            stream)
+    if err:
+        raise MXNetError("flash_attn_bwd_tc launch failed: "
+                         f"{lib.flash_attn_bwd_tc_error_string(err).decode()}"
+                         f" (error {err})")
+
+
+def _launch_bwd_simt(ops, lse, dlse, causal, scale, q_offset, k_offset):
+    """The CUDA-core K2 on q, k, v, O, dO as they lie (unit stride in D);
+    returns contiguous (dq, dk, dv)."""
+    lib = _bwd_library()
+    b, h, t, d = ops[0].shape
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=ops[0].device)
+    grads = [torch.empty((b, h, t, d), dtype=ops[0].dtype,
+                         device=ops[0].device) for _ in range(3)]
+    strides = (ctypes.c_longlong * 15)(*(s for x in ops
+                                          for s in x.stride()[:3]))
+    with torch.cuda.device(ops[0].device):
+        stream = torch.cuda.current_stream(ops[0].device).cuda_stream
+        err = lib.flash_attn_bwd(
+            *(x.data_ptr() for x in ops), lse.data_ptr(),
+            None if dlse is None else dlse.data_ptr(), delta.data_ptr(),
+            *(g.data_ptr() for g in grads), strides, b, h, t, d,
+            _DTYPE_CODE[ops[0].dtype], float(scale), int(bool(causal)),
+            int(q_offset), int(k_offset), stream)
+    if err:
+        raise MXNetError("flash_attn_bwd launch failed: "
+                         f"{lib.flash_attn_bwd_error_string(err).decode()} "
+                         f"(cudaError {err})")
+    return grads
+
+
 def _launch_bwd(q, k, v, out, lse, dout, dlse, causal, scale, q_offset,
-                k_offset, route=None):
+                k_offset, route=None, grads=None):
     """K2 on q, k, v, O, dO as they lie (any strides with a unit stride in
     D; others are copied), lse and dlse as contiguous f32; ``route``
     overrides :func:`_flash_bwd_route` with "simt", for design
-    measurements."""
-    lib = _bwd_library()
+    measurements. Writes into ``grads`` (dq, dk, dv) when given: the
+    tensor-core kernel through their strides, the CUDA-core one by a copy
+    of its contiguous results."""
     ops = [x if x.stride(3) == 1 else x.contiguous()
            for x in (q, k, v, out, dout)]
     route = route or _flash_bwd_route(
         q.dtype, q.shape[-1], [_tma_strides(x) + (x.stride(3),) for x in ops],
         [x.data_ptr() for x in ops], q.shape[2])
-    fn = lib.flash_attn_bwd_tc if route == "tc" else lib.flash_attn_bwd
-    b, h, t, d = q.shape
     lse = lse.contiguous()
     dlse = None if dlse is None else dlse.float().contiguous()
-    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    grads = [torch.empty((b, h, t, d), dtype=q.dtype, device=q.device)
-             for _ in range(3)]
-    strides = (ctypes.c_longlong * 15)(*(s for x in ops
-                                          for s in x.stride()[:3]))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            *(x.data_ptr() for x in ops), lse.data_ptr(),
-            None if dlse is None else dlse.data_ptr(), delta.data_ptr(),
-            *(g.data_ptr() for g in grads), strides, b, h, t, d,
-            _DTYPE_CODE[q.dtype], float(scale), int(bool(causal)),
-            int(q_offset), int(k_offset), stream)
-    if err:
-        raise MXNetError(f"flash_attn_bwd ({route}) launch failed: "
-                         f"{lib.flash_attn_bwd_error_string(err).decode()} "
-                         f"(cudaError {err})")
+    if route == "tc":
+        if grads is None:
+            grads = [torch.empty_like(q, memory_format=torch.contiguous_format)
+                     for _ in range(3)]
+        _launch_bwd_tc(ops, lse, dlse, grads, causal, scale, q_offset,
+                       k_offset)
+    else:
+        got = _launch_bwd_simt(ops, lse, dlse, causal, scale, q_offset,
+                               k_offset)
+        if grads is None:
+            grads = got
+        else:
+            for g, x in zip(grads, got):
+                g.copy_(x)
     flash_attention_backward.launches += 1
     flash_attention_backward.launches_by_route[route] += 1
     return tuple(grads)
 
 
 def flash_attention_backward(q, k, v, out, lse, dout, causal=False,
-                             scale=None, dlse=None, q_offset=0, k_offset=0):
+                             scale=None, dlse=None, q_offset=0, k_offset=0,
+                             grads=None):
     """Fused attention backward: (dq, dk, dv) in q's dtype from q, k, v,
     the forward's O and f32 ``lse`` (B, H, T, 1), the output cotangent
     ``dout`` and, optionally, the lse cotangent ``dlse`` (None: no such
     term). Same shapes, masking, offsets and ``scale`` as
-    :func:`flash_attention`. On CUDA it launches K2, on the kernel
-    :func:`_flash_bwd_route` picks (strided operands read in place); on
-    the CPU it runs the plain version."""
+    :func:`flash_attention`. ``grads``, three tensors of q's shape, dtype
+    and device (unit stride in D, any other strides), receive dq, dk, dv
+    and are returned: the views of one (B, T, 3H, D) buffer give the qkv
+    projection's gradient with no scatter. On CUDA it launches K2, on the
+    kernel :func:`_flash_bwd_route` picks (strided operands read in
+    place); on the CPU it runs the plain version."""
     _check_bwd(q, k, v, out, lse, dout, dlse, q_offset, k_offset)
+    if grads is not None:
+        _check_grads(grads, q)
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cuda":
         return _launch_bwd(q, k, v, out, lse, dout, dlse, causal, s,
-                           q_offset, k_offset)
+                           q_offset, k_offset, grads=grads)
     if q.device.type == "cpu":
-        return flash_attention_backward_reference(
+        got = flash_attention_backward_reference(
             q, k, v, out, lse, dout, causal=causal, scale=s, dlse=dlse,
             q_offset=q_offset, k_offset=k_offset)
+        if grads is None:
+            return got
+        for g, x in zip(grads, got):
+            g.copy_(x)
+        return tuple(grads)
     raise ValueError(f"flash_attention_backward: unsupported device "
                      f"{q.device}")
 
@@ -444,6 +543,59 @@ def flash_attention_with_grad(q, k, v, causal=False, scale=None):
     """Differentiable flash attention (``pallas_kernels.py:347``): O from
     K1, gradients from K2 through the lse saved by the forward."""
     return flash_attention_with_lse(q, k, v, causal=causal, scale=scale)[0]
+
+
+def _split_qkv(x, heads):
+    """q, k, v (B, H, T, D): the strided views of the qkv projection's
+    output x (B, T, 3 H D), whose channels are [q | k | v], heads inside
+    each (``mxnet_tpu/gluon/contrib/nn.py:225-232``)."""
+    b, t, c = x.shape
+    x = x.reshape(b, t, 3 * heads, c // (3 * heads)).transpose(1, 2)
+    return x[:, :heads], x[:, heads:2 * heads], x[:, 2 * heads:]
+
+
+class _FlashAttentionQKV(torch.autograd.Function):
+    """K1 forward, K2 backward over the qkv projection's output: the same
+    function as :class:`_FlashAttention` on its three head views, whose
+    backward allocates one (B, T, 3H, D) gradient and has K2 write dq, dk
+    and dv into its three head ranges. Autograd gets the projection's
+    gradient whole, with nothing to scatter."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads, causal, scale):
+        q, k, v = _split_qkv(qkv, heads)
+        out, lse = flash_attention(q, k, v, causal=causal, scale=scale,
+                                   return_lse=True)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.args = (heads, causal, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out, lse = ctx.saved_tensors
+        heads, causal, scale = ctx.args
+        grad = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
+        flash_attention_backward(
+            *_split_qkv(qkv, heads), out, lse, dout, causal=causal,
+            scale=scale, grads=_split_qkv(grad, heads))
+        return grad, None, None, None
+
+
+def flash_attention_qkv(qkv, num_heads, causal=False, scale=None):
+    """Differentiable flash attention over the qkv projection's output
+    ``qkv`` (B, T, 3 * num_heads * D), channels [q | k | v]: O (B, H, T, D)
+    from K1 on the three strided head views, and in the backward one
+    d(qkv) buffer that K2 fills through its strides (the LM's path,
+    ``MultiHeadAttention(impl='flash')``)."""
+    if not isinstance(qkv, torch.Tensor) or qkv.dim() != 3 or \
+            qkv.shape[-1] % (3 * num_heads):
+        raise ValueError(f"flash_attention_qkv: qkv must be (B, T, 3 * "
+                         f"{num_heads} * D), got {getattr(qkv, 'shape', qkv)}")
+    q, k, v = _split_qkv(qkv, num_heads)
+    _check(q, k, v, 0, 0)
+    s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttentionQKV.apply(qkv, int(num_heads), bool(causal),
+                                    float(s))
 
 
 # ----------------------------------------------------------------------- K3

@@ -209,7 +209,29 @@ def test_cpu_backward_counts_no_launch_and_builds_nothing():
     assert set(kernels.flash_attention_backward.launches_by_route) == {
         "tc", "simt"}
     assert "flash_attn_bwd" not in _build._libs
-    assert "flash_attn_bwd" in _build.SOURCES
+    assert "flash_attn_bwd_tc" not in _build._libs
+    assert {"flash_attn_bwd", "flash_attn_bwd_tc"} <= set(_build.SOURCES)
+
+
+def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
+    """Editing csrc/hopper.cuh changes the library name of every source
+    that includes it (so each is rebuilt) and of no other source."""
+    import shutil
+
+    for f in _build.CSRC.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build._paths(n)[1].name for n in _build.SOURCES}
+    users = {n for n in _build.SOURCES
+             if [h.name for h in _build._headers(tmp_path / f"{n}.cu")]
+             == ["hopper.cuh"]}
+    assert users == {"flash_attn_fwd_tc", "flash_attn_bwd_tc",
+                     "conv3x3_bn_stats_tc"}
+    header = tmp_path / "hopper.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    after = {n: _build._paths(n)[1].name for n in _build.SOURCES}
+    changed = {n for n in _build.SOURCES if before[n] != after[n]}
+    assert changed == users
 
 
 def _lm_strides(b, h, t, d):
@@ -231,28 +253,33 @@ BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
     (BF16, 256, _lm_strides(1, 2, 256, 256), [0] * 5, 256, "simt"),
     (BF16, 64, _lm_strides(2, 4, 256, 64), [0, 0, 0, 0, 8], 256, "simt"),
     (BF16, 64, [(64 * 3, 64 * 3, 3, 1)] * 5, [0] * 5, 64, "simt"),
+    (BF16, 64, _lm_strides(1, 1, 65535 * 64, 64), [0] * 5, 65535 * 64,
+     "tc"),
     (BF16, 64, _lm_strides(1, 1, 65535 * 64 + 1, 64), [0] * 5,
      65535 * 64 + 1, "simt"),
 ], ids=["lm_bf16", "fp16_d128", "fp32", "d80", "d256", "misaligned_dout",
-        "row_stride_not_8", "t_past_grid"])
+        "row_stride_not_8", "t_at_grid_edge", "t_past_grid"])
 def test_backward_route_rule(dtype, d, strides, ptrs, t, want):
     """The tensor-core K2 takes 16-bit D 64/128 operands whose rows are
-    16-byte aligned (the LM's strided layout among them); the CUDA-core
-    kernel everything else."""
+    16-byte aligned (the LM's strided layout among them) and T up to its
+    grids' 65535 tiles of (at least) 64 rows; the CUDA-core kernel
+    everything else."""
+    assert kernels._BWD_TC_MAX_T == 65535 * 64
     assert kernels._flash_bwd_route(dtype, d, strides, ptrs, t) == want
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_matches_plain_on_card(dtype):
+@pytest.mark.parametrize("dtype,d", [("float32", 64), ("bfloat16", 64),
+                                     ("float16", 128)])
+def test_kernel_matches_plain_on_card(dtype, d):
     """On the card: K2 on the LM's strided q/k/v, K1's O and a strided dO
-    (fp32 on the CUDA cores, bf16 on the tensor cores), against its plain
-    version (fp32 within 1e-4 of max|ref|; bf16 within 4 output ulps); a
-    second launch is bitwise equal."""
+    (fp32 on the CUDA cores, bf16 and fp16 D=128 on the tensor cores,
+    wgmma + TMA), against its plain version (fp32 within 1e-4 of max|ref|;
+    16-bit within 4 output ulps); a second launch is bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dt = getattr(torch, dtype)
-    b, h, t, d = 2, 4, 300, 64
+    b, h, t = 2, 4, 300
     gen = torch.Generator().manual_seed(4)
     buf = torch.randn(b, t, 3 * h * d, generator=gen).to(dt).cuda()
     x = buf.reshape(b, t, 3 * h, d).transpose(1, 2)
@@ -278,5 +305,6 @@ def test_kernel_matches_plain_on_card(dtype):
         else:
             rf = r.float().abs()
             mag = torch.maximum(rf, rf.max() * 2.0 ** -6)
-            ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+            mant = 7 if dt == torch.bfloat16 else 10
+            ulp = torch.exp2(torch.floor(torch.log2(mag)) - mant)
             assert ((g.float() - r.float()).abs() / ulp).max().item() <= 4

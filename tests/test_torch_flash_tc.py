@@ -103,7 +103,12 @@ def test_strided_views_match_contiguous_and_pallas(causal, qo, ko):
     o_s, lse_s = kernels.flash_attention(*views, **kw)
     o_c, lse_c = kernels.flash_attention(*(t.contiguous() for t in views),
                                          **kw)
-    assert torch.equal(o_s, o_c) and torch.equal(lse_s, lse_c)
+    env = (f"torch threads {torch.get_num_threads()}, q/k/v base mod 64 "
+           f"{[t.data_ptr() % 64 for t in views]}")
+    assert torch.equal(o_s, o_c) and torch.equal(lse_s, lse_c), (
+        f"strided views != contiguous copies: O max diff "
+        f"{(o_s - o_c).abs().max().item():.3e}, lse max diff "
+        f"{(lse_s - lse_c).abs().max().item():.3e} ({env})")
     o_j, lse_j = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                            causal=causal, interpret=True, return_lse=True,
                            q_offset=qo, k_offset=ko)
@@ -116,8 +121,10 @@ def test_strided_views_match_contiguous_and_pallas(causal, qo, ko):
         assert (o_s[:, :, :blind] == 0).all()
         o_s, lse_s = o_s[:, :, blind:], lse_s[:, :, blind:]
         o_j, lse_j = o_j[:, :, blind:], lse_j[:, :, blind:]
-    np.testing.assert_allclose(o_s.numpy(), o_j, rtol=0, atol=TOL)
-    np.testing.assert_allclose(lse_s.numpy(), lse_j, rtol=0, atol=TOL)
+    np.testing.assert_allclose(o_s.numpy(), o_j, rtol=0, atol=TOL,
+                               err_msg=f"O vs Pallas ({env})")
+    np.testing.assert_allclose(lse_s.numpy(), lse_j, rtol=0, atol=TOL,
+                               err_msg=f"lse vs Pallas ({env})")
 
 
 @pytest.mark.parametrize("t", [24, 130])

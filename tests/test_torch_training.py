@@ -303,6 +303,19 @@ def _noise_mask(name, got, want):
     return noisy
 
 
+def _graph_nodes(fn):
+    """Type names of the autograd nodes reachable from ``fn``."""
+    seen, todo, names = set(), [fn], []
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        names.append(type(node).__name__)
+        todo.extend(n for n, _ in node.next_functions)
+    return names
+
+
 def test_three_adam_steps_match_jax_eager():
     jnet, tnet = _jax_pair(seed=7)
     seq = np.zeros((2, T + 1), np.int64)
@@ -331,6 +344,9 @@ def test_three_adam_steps_match_jax_eager():
         assert abs(got - want) <= 1e-5 * abs(want), (step, got, want)
         if step == 0:
             assert tloss.grad_fn is not None
+            # the attention layers' backward is the packed qkv Function
+            assert _graph_nodes(tloss.grad_fn).count(
+                "_FlashAttentionQKVBackward") == CFG["num_layers"]
             noisy = {}
             for name, p in tparams.items():
                 got, want = p.grad().numpy(), jparams[name].grad().asnumpy()

@@ -5,7 +5,8 @@
 
 Needs one CUDA card and nvcc. Each variant is the committed
 ``mxnet_tpu_torch/csrc/flash_attn_fwd_tc.cu`` with a few lines replaced,
-built with the port's nvcc flags into ``mxnet_tpu_torch/_build/`` and run
+built with the port's nvcc flags (and ``csrc/`` on the include path, for
+``hopper.cuh``) into ``mxnet_tpu_torch/_build/`` and run
 through ``ops.kernels.flash_attention`` on the LM's shape (8, 12, 1024, 64),
 bf16, causal, q/k/v as strided views of one qkv buffer. For each variant
 it prints ptxas's registers and spills, O's largest error in output ulps
@@ -31,7 +32,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-QK = """        wgmma_ss<BK, F16>(
+QK = """        wgmma_ss<BK, F16, 0>(
             sc, sw128_desc(qw + (kk / 4) * Q_PANEL + off, 16, 1024),
             sw128_desc(kt + (kk / 4) * KV_PANEL + off, 16, 1024), kk > 0);"""
 PV = """        wgmma_rs<D, F16>(acc, phi[kk], dv);
@@ -92,7 +93,7 @@ def main(argv=None):
                                  f"the lines it replaces:\n{old}")
             text = text.replace(old, new)
         jobs[name] = build(name, text, _build.BUILD_DIR, _build._nvcc(),
-                           _build.NVCC_FLAGS)
+                           [*_build.NVCC_FLAGS, "-I", str(_build.CSRC)])
     shape = (8, 12, 1024, 64)
     gen = torch.Generator(device="cuda").manual_seed(7)
     q, k, v = chip_smoke.flash_inputs(torch, gen, shape, torch.bfloat16,

@@ -6,7 +6,8 @@ kernel (K3) at ResNet-50's four 3x3 shapes.
 
 Needs one CUDA card and nvcc. Each variant is the committed
 ``mxnet_tpu_torch/csrc/conv3x3_bn_stats_tc.cu`` with a few lines replaced,
-built with the port's nvcc flags into ``mxnet_tpu_torch/_build/`` and run
+built with the port's nvcc flags (and ``csrc/`` on the include path, for
+``hopper.cuh``) into ``mxnet_tpu_torch/_build/`` and run
 through ``ops.kernels._launch_conv_tc`` on x (32, H, W, C) and w
 (3, 3, C, C) in bf16 for (H = W, C) in (56, 64), (28, 128), (14, 256),
 (7, 512). For each variant and tiling it prints y's largest error in
@@ -22,7 +23,6 @@ reported and skipped. Variants:
                (BM, BN) of 64 and 128
   stages2      2 ring stages for every tiling
   stages6      6 ring stages for every tiling
-  bn256        tiles of 256 output channels (128 x 256, 64 x 256)
   no_stats     the statistics left out of the epilogue (time only)
 """
 from __future__ import annotations
@@ -39,28 +39,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = ((56, 64), (28, 128), (14, 256), (7, 512))
 N = 32
 STAGES = "static constexpr int STAGES = C * BN >= 256 ? 3 : 4;"
-DISPATCH = "  if (bm == 64 && bn == 64)\n"
-PACK2 = "template <typename T> __device__ uint32_t pack2(float lo, float hi);"
 STATS_START = "  // statistics: the thread's two rows"
 STATS_END = "}\n\n// sums[0][c] = sum over M tiles"
-
-
-def wgmma_text(n, f16):
-    """The source's wgmma_ss<n, f16> specialisation, for widths it lacks."""
-    r = n // 2
-    regs = ", ".join(f"%{i}" for i in range(r))
-    outs = ", ".join(f'"+f"(d[{i}])' for i in range(r))
-    kind = "f16.f16" if f16 else "bf16.bf16"
-    return (
-        "template <> __device__ __forceinline__ void\n"
-        f"wgmma_ss<{n}, {'true' if f16 else 'false'}>(float* d, uint64_t da,"
-        " uint64_t db) {\n  asm volatile(\n"
-        f'      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 2}, 0;\\n"\n'
-        f'      "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.{kind} "\n'
-        f'      "{{{regs}}}, "\n'
-        f'      "%{r}, %{r + 1}, p, 1, 1, 0, 1;\\n}}\\n"\n'
-        f"      : {outs}\n"
-        '      : "l"(da), "l"(db), "r"(1));\n}\n')
 
 
 def _replace(old, new):
@@ -79,16 +59,6 @@ def _drop_stats(text):
     return text[:i] + text[j:]
 
 
-BN256 = [
-    _replace(PACK2, wgmma_text(256, False) + wgmma_text(256, True) + PACK2),
-    _replace(DISPATCH,
-             "  if (bm == 128 && bn == 256)\n"
-             "    return launch<T, 2, 256>(x, w, y, part, sums, n, h, wd, "
-             "cin, cout, s);\n"
-             "  if (bm == 64 && bn == 256)\n"
-             "    return launch<T, 1, 256>(x, w, y, part, sums, n, h, wd, "
-             "cin, cout, s);\n"
-             + DISPATCH)]
 VARIANTS = {
     "committed": ([], ["rule", (128, 128), (128, 64), (64, 128),
                         (64, 64)]),
@@ -96,7 +66,6 @@ VARIANTS = {
                 ["rule"]),
     "stages6": ([_replace(STAGES, "static constexpr int STAGES = 6;")],
                 ["rule"]),
-    "bn256": (BN256, [(128, 256), (64, 256)]),
     "no_stats": ([_drop_stats], ["rule"]),
 }
 
@@ -155,7 +124,7 @@ def main(argv=None):
         for edit in edits:
             text = edit(text)
         jobs[name] = build(name, text, _build.BUILD_DIR, _build._nvcc(),
-                           _build.NVCC_FLAGS)
+                           [*_build.NVCC_FLAGS, "-I", str(_build.CSRC)])
     gen = torch.Generator(device="cuda").manual_seed(11)
     sms = kernels._sm_count(torch.cuda.current_device())
     cases = []
