@@ -62,7 +62,25 @@ Phases, each failing loudly with a non-zero exit:
       profiled (forward + backward, and the Adam update), with fewer copy
       kernels than layers (the qkv projection's gradient is one buffer);
   (i) one training step of a 2-layer model of the same widths with K1 + K2
-      against plain attention, in fp32 and bf16: loss and every gradient.
+      against plain attention, in fp32 and bf16: loss and every gradient;
+  (j) ResNet-50 v1 (NHWC, s2d stem) at full depth and width trained as
+      train_imagenet.py trains it: parallel.ShardedTrainer on one card,
+      SGD (lr 0.1, momentum 0.9, wd 1e-4), bf16 compute over fp32 masters,
+      20 steps on one fixed batch of 256 images: finite losses, the last at
+      least 1.0 below the first, fp32 masters, momentum and running
+      statistics, the running statistics moved; median step, images/s and
+      peak memory; one more step profiled, and the SGD update alone; a
+      microbatches=2 step against the fused step on each half; then
+      sync_to_net and a predict-mode forward through Predictor;
+  (k) K3's trainable wrapper (conv3x3_bn_relu_train) at ResNet-50's four
+      stride-1 3x3 shapes at phase j's batch, bf16, against the path the
+      model runs (cuDNN conv, batch_norm in training, relu; backward by
+      autograd): outputs, statistics and gradients within tolerance of
+      the same function in f32 and no further from it than the unfused
+      path, every K3 launch on the tensor-core route, forward and
+      forward + backward
+      timed, and the difference weighted by the 16 convs set against phase
+      j's step.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. ``--summary PATH`` also writes the
@@ -1473,9 +1491,7 @@ def conv_on_model(torch, kernels, pred, net, images):
 
     with torch.inference_mode():
         weights = [w.permute(1, 2, 3, 0).contiguous() for _, w, _ in captured]
-        kernels.conv3x3_bn_stats.launches = 0
-        for route in kernels.conv3x3_bn_stats.launches_by_route:
-            kernels.conv3x3_bn_stats.launches_by_route[route] = 0
+        zero_counts(kernels)
         fused = [kernels.conv3x3_bn_stats(x, w)
                  for (x, _, _), w in zip(captured, weights)]
         torch.cuda.synchronize()
@@ -1605,7 +1621,8 @@ def lm_batch(torch, batch, t, vocab, seed=0):
 
 
 def zero_counts(kernels):
-    for fn in (kernels.flash_attention, kernels.flash_attention_backward):
+    for fn in (kernels.flash_attention, kernels.flash_attention_backward,
+               kernels.conv3x3_bn_stats):
         fn.launches = 0
         for route in fn.launches_by_route:
             fn.launches_by_route[route] = 0
@@ -1813,6 +1830,398 @@ def train_vs_plain(torch, mx, kernels):
     return errs
 
 
+# ------------------------------------------------------------------ phase j
+# train_imagenet.py's recipe: ResNet-50 v1 (NHWC, s2d), SGD lr 0.1,
+# momentum 0.9, wd 1e-4, bf16 compute over fp32 masters, batch 256 of
+# 3x224x224; 20 steps on one fixed batch, whose loss must fall by 1.0
+RESNET_BATCH = 256
+RESNET_STEPS = 20
+RESNET_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+RESNET_LOSS_DROP = 1.0
+# microbatches=2 against the fused step on each 128-image half from the
+# same state: the same bf16 computation on the same slices, so within one
+# bf16 ulp (2^-8) of the loss
+RESNET_MB_TOL = 2.0 ** -8
+RESNET_GROUPS = (("convolutions (cuDNN)", ("xmma", "conv", "cudnn",
+                                           "implicit", "cutlass", "sm90",
+                                           "wgrad", "dgrad", "fprop")),
+                 ("SGD update (foreach)", ("multi_tensor",)),
+                 ("reductions (BN moments, sums)", ("reduce",)),
+                 ("copies and dtype casts", _COPY_KERNELS),
+                 ("elementwise (BN apply, relu, adds, products)",
+                  ("elementwise", "vectorized")),
+                 ("max-pool", ("max_pool", "MaxPool")))
+
+
+def imagenet_batch(torch, n, seed=0):
+    """One fixed batch that the recipe can learn: two classes told apart by
+    brightness, images uniform in [0, 0.5) for one and [0.5, 1) for the
+    other, labels 93 and 812 as float32 (the loss reads them as class
+    indices), from a numpy seed; on the card. train_imagenet.py's own
+    synthetic batch (uniform images, labels rand * 1000) does not train on
+    one fixed batch under this recipe: its loss falls for 3 steps and then
+    climbs past where it began, in both packages alike (CPU runs of 20
+    steps at 64x64 and 96x96 images, PERF.md)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    cls = rng.randint(0, 2, n)
+    x = (0.5 * rng.rand(n, 3, 224, 224)
+         + 0.5 * cls[:, None, None, None]).astype(np.float32)
+    y = np.where(cls == 1, 812.0, 93.0).astype(np.float32)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+
+
+def clone_trainer(torch, mx, trainer):
+    """A second ShardedTrainer over the same net holding a copy of
+    ``trainer``'s params, running statistics and momentum."""
+    twin = mx.parallel.ShardedTrainer(
+        trainer.net, trainer.loss_fn, "sgd", dict(RESNET_OPT),
+        dtype="bfloat16")
+    with torch.no_grad():
+        for src, dst in ((trainer.params, twin.params),
+                         (trainer.aux, twin.aux),
+                         (trainer.opt_state["state"],
+                          twin.opt_state["state"])):
+            for k, v in src.items():
+                dst[k].copy_(v)
+    twin.opt_state["t"] = trainer.opt_state["t"]
+    return twin
+
+
+def resnet_breakdown(rows):
+    """{group: (device ms, launches)} of a ResNet step's kernels."""
+    out, rest = {}, [0.0, 0]
+    for r in rows:
+        for group, parts in RESNET_GROUPS:
+            if any(p in r["kernel"] for p in parts):
+                ms, n = out.get(group, (0.0, 0))
+                out[group] = (ms + r["ms"], n + r["count"])
+                break
+        else:
+            rest[0] += r["ms"]
+            rest[1] += r["count"]
+    out["other"] = tuple(rest)
+    return out
+
+
+def train_resnet(torch, mx):
+    """ResNet-50 v1 (NHWC, s2d stem, 1000 classes) at full depth and width
+    trained by parallel.ShardedTrainer on one card: Xavier(gaussian, in, 2)
+    weights from a seeded generator, fp32 masters, bf16 compute, SGD
+    momentum with wd, 20 steps on one fixed batch of 256 images. Gates:
+    a microbatches=2 step from a copy of the initial state equal to the
+    fused step on each half, finite losses, the last at least 1.0 below
+    the first, fp32 masters, momentum and running statistics, the running
+    statistics moved, and a predict-mode forward after sync_to_net with
+    finite (32, 1000) logits.
+    """
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    net = vision.resnet50_v1(layout="NHWC", stem="s2d", classes=1000)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), generator=gen)
+    trainer = mx.parallel.ShardedTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+        dict(RESNET_OPT), dtype="bfloat16")         # default mesh: gpu(0)
+    aux0 = {k: v.clone() for k, v in trainer.aux.items()}
+    x, y = imagenet_batch(torch, RESNET_BATCH)
+    n_params = sum(v.numel() for v in trainer.params.values())
+    log(f"[j] resnet50_v1 NHWC s2d: {n_params} trainable parameters "
+        f"({len(trainer.params)} tensors), {len(trainer.aux)} running "
+        f"statistics; batch {tuple(x.shape)}, mesh {trainer.mesh}")
+
+    half = RESNET_BATCH // 2
+    twins = [clone_trainer(torch, mx, trainer) for _ in range(4)]
+    mb = twins[0].step(x, y, microbatches=2).item()
+    halves = [twins[1].step(x[:half], y[:half]).item(),
+              twins[2].step(x[half:], y[half:]).item()]
+    fused = twins[3].step(x, y).item()
+    del twins
+    want = sum(halves) / 2
+    mb_err = abs(mb - want) / abs(want)
+    ok = math.isfinite(mb) and mb_err <= RESNET_MB_TOL
+    log(f"[j] microbatches=2 step from a copy of the initial state: loss "
+        f"{mb:.5f}; the fused step on each {half}-image half: "
+        f"{halves[0]:.5f}, "
+        f"{halves[1]:.5f} (mean {want:.5f}, rel {mb_err:.2e}, tol "
+        f"{RESNET_MB_TOL:.2e}: one bf16 ulp) {'ok' if ok else 'FAIL'}; the "
+        f"fused {RESNET_BATCH}-image step: {fused:.5f} (rel "
+        f"{abs(mb - fused) / fused:.2e}; BatchNorm's statistics there are "
+        f"over {RESNET_BATCH} images, not {half})")
+    if not ok:
+        raise SystemExit("phase j: microbatches=2 disagrees with the fused "
+                         "step")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        losses.append(trainer.step(x, y))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [v.item() for v in losses]
+    for i in range(0, RESNET_STEPS, 4):
+        log(f"[j] steps {i + 1}-{min(i + 4, RESNET_STEPS)}: loss "
+            + ", ".join(f"{v:.4f}" for v in losses[i:i + 4]) + "; ms "
+            + ", ".join(f"{v:.2f}" for v in step_ms[i:i + 4]))
+    timed = sorted(step_ms[1:])
+    median = timed[len(timed) // 2]
+    images_per_s = RESNET_BATCH / (median / 1e3)
+    drop = losses[0] - losses[-1]
+    fp32 = all(v.dtype == torch.float32 for v in trainer.params.values()) \
+        and all(v.dtype == torch.float32
+                for v in trainer.opt_state["state"].values()) \
+        and all(v.dtype == torch.float32 for v in trainer.aux.values())
+    moved = sum(not torch.equal(v, aux0[k]) for k, v in trainer.aux.items())
+    ok = (all(math.isfinite(v) for v in losses)
+          and drop >= RESNET_LOSS_DROP and fp32 and moved == len(aux0))
+    log(f"[j] {RESNET_STEPS} steps: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (drop {drop:.4f}, want >= {RESNET_LOSS_DROP}); "
+        f"masters, momentum and running statistics fp32: {fp32}; running "
+        f"statistics moved: {moved} of {len(aux0)}; median step "
+        f"{median:.2f} ms over steps 2-{RESNET_STEPS} (host clock, "
+        f"profiler off), {images_per_s:.1f} images/s; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase j: the ResNet-50 training step failed its "
+                         "checks")
+
+    step = profile_window(torch, lambda: trainer.step(x, y),
+                          "one ResNet-50 training step", "j",
+                          ("xmma", "conv", "cudnn"), top=12)
+    _, grads, _ = trainer._loss_and_grads(x, y)
+    torch.cuda.synchronize()
+    upd = profile_window(torch, lambda: trainer._update(
+        trainer.params, grads, trainer.opt_state),
+        "the SGD update alone", "j", ("multi_tensor",))
+    del grads
+    groups = resnet_breakdown(step["all"])
+    log(f"[j] one step profiled: device busy {step['device_busy_ms']:.3f} "
+        f"ms of {step['wall_ms']:.3f} ms wall "
+        f"({step['device_busy_ms'] / step['wall_ms']:.1%}; profiler on), "
+        f"{step['launches']} launches; the SGD update alone: "
+        f"{upd['launches']} launches, {upd['device_busy_ms']:.3f} ms "
+        f"device; by group:")
+    for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"[j]   {ms:9.3f} ms  x{n:<5d} {group} "
+            f"({ms / step['device_busy_ms']:.1%})")
+
+    trainer.sync_to_net()
+    pred = serving.Predictor.from_block(
+        net, input_shapes={"data": (3, 224, 224)}, batch_sizes=(32,))
+    logits = pred.predict(x[:32])[0]
+    top1 = mx.metric.Accuracy()
+    top1.update(y[:32], logits)
+    ok = tuple(logits.shape) == (32, 1000) and bool(
+        torch.isfinite(logits).all())
+    log(f"[j] sync_to_net, then Predictor (predict mode, running "
+        f"statistics): logits {tuple(logits.shape)} {logits.dtype}, finite "
+        f"{bool(torch.isfinite(logits).all())}, train top-1 on 32 of the "
+        f"batch's images {top1.get()[1]:.3f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase j: the synced net's logits are wrong")
+    del pred, net, trainer, x, y
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms, "median_step_ms": median,
+            "images_per_s": images_per_s, "max_memory_allocated": peak,
+            "microbatch_loss": mb, "half_losses": halves,
+            "fused_loss": fused, "microbatch_rel_err": mb_err,
+            "top1": top1.get()[1],
+            "profile": {"step": {k: step[k] for k in (
+                "wall_ms", "device_busy_ms", "launches", "top")},
+                "update": {k: upd[k] for k in (
+                    "wall_ms", "device_busy_ms", "launches", "top")},
+                "groups": {g: {"ms": ms, "launches": n}
+                           for g, (ms, n) in groups.items()}}}
+
+
+# ------------------------------------------------------------------ phase k
+# ResNet-50's stride-1 3x3 convs per shape (stages 1-4: 3, 4, 6, 3 blocks)
+RESNET_3X3_COUNTS = (3, 4, 6, 3)
+# K3's trainable wrapper and the model's unfused path, both bf16, are each
+# held to the unfused path in f32 on the same (bf16-valued) inputs, as
+# ||a - b|| / ||b||. K3 must lie within K3_TRAIN_TOL of it: both round y,
+# the output and every gradient term to bf16 (2^-8), and relu's mask flips
+# where bf16 and f32 disagree on the sign, so each lies ~4e-3 from f32 in
+# its output and ~3e-2 in its gradients (CPU runs of the plain version at
+# small shapes); K3 takes its statistics from the f32 accumulator. And it
+# must be no less accurate than the unfused path: within K3_VS_F32_FACTOR
+# times that path's own error plus 1e-3. K3 against the unfused path is
+# printed, not gated: at 56x56x64, N=256 the unfused path's dw lies 0.21
+# from f32 (its BatchNorm backward sums bf16 terms before the weight
+# gradient's 802816-long reduction), K3's 0.039 (its dy is formed in f32
+# and rounded once).
+K3_VS_F32_FACTOR = 2.0
+K3_TRAIN_TOL = {"out": 1e-2, "mean": 1e-3, "var": 1e-3, "dx": 1e-1,
+                "dw": 1e-1, "dgamma": 1e-1, "dbeta": 1e-1}
+RESNET_BN_EPS = 1e-5
+
+
+def k3_train_inputs(torch, gen, n, hw, c):
+    """The model's tensors at one 3x3 conv: a relu'd activation, He-scaled
+    HWIO weights, bf16 gamma and beta (ShardedTrainer's bf16 casts), and a
+    seeded cotangent."""
+    x = torch.relu(torch.randn((n, hw, hw, c), generator=gen,
+                               device="cuda")).to(torch.bfloat16)
+    w = (torch.randn((3, 3, c, c), generator=gen, device="cuda")
+         * math.sqrt(2.0 / (9 * c))).to(torch.bfloat16)
+    gamma = (torch.rand(c, generator=gen, device="cuda") + 0.5).to(
+        torch.bfloat16)
+    beta = (torch.randn(c, generator=gen, device="cuda") * 0.1).to(
+        torch.bfloat16)
+    dout = torch.randn((n, hw, hw, c), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    return x, w, gamma, beta, dout
+
+
+def unfused_conv_bn_relu(torch, x, w_ohwi, gamma, beta):
+    """The path the model runs: ops.nn.convolution (cuDNN, NHWC), then
+    ops.nn.batch_norm in training, then relu. Returns (out, mean, var):
+    with zero moving statistics and momentum 0 its new moving statistics
+    are the batch's own."""
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    c = w_ohwi.shape[0]
+    y = ops_nn.convolution(x, w_ohwi, kernel=(3, 3), pad=(1, 1),
+                           num_filter=c, no_bias=True, layout="NHWC")
+    zeros = torch.zeros(c, device=x.device)
+    out, mean, var = ops_nn.batch_norm(
+        y, gamma, beta, zeros, zeros, eps=RESNET_BN_EPS, momentum=0.0,
+        fix_gamma=False, axis=3, _train=True)
+    return torch.relu(out), mean, var
+
+
+def k3_at_training_shapes(torch, kernels, n, step_ms=None, shapes=None):
+    """K3's trainable wrapper (ops/kernels.conv3x3_bn_relu_train) against
+    the unfused path at ResNet-50's four stride-1 3x3 shapes at phase j's
+    batch, bf16: outputs, batch statistics and gradients within
+    K3_TRAIN_TOL of the f32 reference and no further from it than the
+    unfused path, every K3 launch on the tensor-core route, and both
+    timed (device_ms) forward and forward + backward. The difference,
+    weighted by the 16 convs, is set against phase j's step ``step_ms``
+    when given. ``shapes``: [((H, C), convs of that shape)], by default
+    ResNet-50's four."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows = []
+    for (hw, c), count in shapes or zip(RESNET_3X3, RESNET_3X3_COUNTS):
+        x, w, gamma, beta, dout = k3_train_inputs(torch, gen, n, hw, c)
+        w_ohwi = w.permute(3, 0, 1, 2).contiguous()
+        k3_leaves = leaves_of(x, w, gamma, beta)
+        plain_leaves = leaves_of(x, w_ohwi, gamma, beta)
+
+        def k3_fwd():
+            return kernels.conv3x3_bn_relu_train(*k3_leaves,
+                                                 eps=RESNET_BN_EPS)
+
+        def plain_fwd():
+            return unfused_conv_bn_relu(torch, *plain_leaves)
+
+        zero_counts(kernels)
+        k3 = k3_values(torch, kernels, k3_leaves, dout)
+        torch.cuda.synchronize()
+        launches = dict(kernels.conv3x3_bn_stats.launches_by_route)
+        un = unfused_values(torch, plain_leaves, dout)
+        f32 = unfused_values(torch, leaves_of(*(t.float() for t in (
+            x, w_ohwi, gamma, beta))), dout.float())
+        names = ("out", "mean", "var", "dx", "dw", "dgamma", "dbeta")
+        errs = {k: l2_err(a, b) for k, a, b in zip(names, k3, un)}
+        k3_f32 = {k: l2_err(a, b) for k, a, b in zip(names, k3, f32)}
+        un_f32 = {k: l2_err(a, b) for k, a, b in zip(names, un, f32)}
+        del un, f32
+        ok = launches == {"tc": 1, "simt": 0} and all(
+            k3_f32[k] <= min(tol, K3_VS_F32_FACTOR * un_f32[k] + 1e-3)
+            for k, tol in K3_TRAIN_TOL.items())
+        log(f"[k] conv3x3_bn_relu_train bf16 ({n}, {hw}, {hw}, {c}) x "
+            f"{count}: ||a - f32|| / ||f32||, K3 / unfused: "
+            + ", ".join(f"{k} {k3_f32[k]:.2e} / {un_f32[k]:.2e}"
+                        for k in names)
+            + f" (K3 within {K3_TRAIN_TOL} and within "
+            f"{K3_VS_F32_FACTOR:g}x the unfused path's + 1e-3); "
+            "||K3 - unfused|| / ||unfused||: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f"; K3 launches {launches} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("phase k: K3's trainable wrapper strays from "
+                             "f32 beyond its tolerance or the unfused "
+                             "path's error, or left the tensor-core route")
+        with torch.no_grad():
+            k3_ms = device_ms(k3_fwd, n=10)
+            plain_ms = device_ms(plain_fwd, n=10)
+        k3_fb_ms = device_ms(lambda: k3_values(torch, kernels, k3_leaves,
+                                               dout), n=5)
+        plain_fb_ms = device_ms(lambda: unfused_values(torch, plain_leaves,
+                                                       dout), n=5)
+        flops, nbytes = conv_work(n, hw, hw, c, c, 2)
+        bound_ms, bound_by = bound(flops, nbytes)
+        by_route = dict(kernels.conv3x3_bn_stats.launches_by_route)
+        if by_route["simt"]:
+            raise SystemExit("phase k: a K3 launch took the CUDA-core route")
+        log(f"[k]   forward: K3 {k3_ms:.4f} ms, unfused {plain_ms:.4f} ms "
+            f"(K3 / unfused {k3_ms / plain_ms:.2f}x; K3's conv + statistics "
+            f"bound {bound_ms:.4f} ms by {bound_by}); forward + backward: "
+            f"K3 {k3_fb_ms:.4f} ms, unfused {plain_fb_ms:.4f} ms "
+            f"({k3_fb_ms / plain_fb_ms:.2f}x); K3 launches {by_route}")
+        rows.append({"shape": [n, hw, hw, c, c], "count": count,
+                     "errs": errs, "k3_vs_f32": k3_f32,
+                     "unfused_vs_f32": un_f32, "fwd_ms": k3_ms,
+                     "unfused_fwd_ms": plain_ms, "fwd_bwd_ms": k3_fb_ms,
+                     "unfused_fwd_bwd_ms": plain_fb_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "launches_by_route": by_route})
+        del x, w, w_ohwi, gamma, beta, dout, k3_leaves, plain_leaves, k3
+    fwd = sum(r["count"] * (r["unfused_fwd_ms"] - r["fwd_ms"])
+              for r in rows)
+    fwd_bwd = sum(r["count"] * (r["unfused_fwd_bwd_ms"] - r["fwd_bwd_ms"])
+                  for r in rows)
+    n_convs = sum(r["count"] for r in rows)
+    for what, saved in (("forward", fwd), ("forward + backward", fwd_bwd)):
+        share = (f" of phase j's {step_ms:.2f} ms step "
+                 f"({abs(saved) / step_ms:.2%})" if step_ms else "")
+        log(f"[k] weighted by the {n_convs} convs, {what}: K3 would "
+            f"{'save' if saved >= 0 else 'cost'} {abs(saved):.3f} ms{share}")
+    torch.cuda.empty_cache()
+    return {"per_shape": rows, "saved_fwd_ms": fwd,
+            "saved_fwd_bwd_ms": fwd_bwd, "step_ms": step_ms,
+            "launches": sum(sum(r["launches_by_route"].values())
+                            for r in rows)}
+
+
+def l2_err(a, b):
+    """||a - b|| / ||b|| in f32 (0 when both are all zero)."""
+    a, b = a.float(), b.float()
+    scale = b.norm().item()
+    err = (a - b).norm().item()
+    return err / scale if scale else err
+
+
+def leaves_of(*tensors):
+    """Copies of ``tensors`` that require grad."""
+    return [t.detach().clone().requires_grad_(True) for t in tensors]
+
+
+def k3_values(torch, kernels, leaves, dout):
+    """(out, mean, var, dx, dw (OHWI), dgamma, dbeta) of K3's trainable
+    wrapper on ``leaves`` = (x, w HWIO, gamma, beta) and cotangent
+    ``dout``, in one forward and one backward."""
+    out = kernels.conv3x3_bn_relu_train(*leaves, eps=RESNET_BN_EPS)
+    dx, dw, dg, db = torch.autograd.grad(out[0], leaves, dout)
+    return [t.detach() for t in out] + [dx, dw.permute(3, 0, 1, 2), dg, db]
+
+
+def unfused_values(torch, leaves, dout):
+    """The same seven values through the unfused path on ``leaves`` = (x,
+    w OHWI, gamma, beta)."""
+    out = unfused_conv_bn_relu(torch, *leaves)
+    grads = torch.autograd.grad(out[0], leaves, dout)
+    return [t.detach() for t in out] + list(grads)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -1852,7 +2261,7 @@ def main(argv=None):
     bwd_checks, bwd_slice_err = check_flash_bwd(torch, kernels)
     conv_checks = check_conv(torch, kernels)
     if args.quick:
-        log("[quick] phase b passed; phases c-i skipped")
+        log("[quick] phase b passed; phases c-k skipped")
         return 0
     timing = time_flash(torch, kernels)
     bwd_timing = time_flash_bwd(torch, kernels)
@@ -1866,6 +2275,9 @@ def main(argv=None):
     layout_err = resnet_layouts(torch, mx)
     training = train_slice(torch, mx, kernels)
     train_err = train_vs_plain(torch, mx, kernels)
+    resnet_training = train_resnet(torch, mx)
+    k3_training = k3_at_training_shapes(
+        torch, kernels, RESNET_BATCH, resnet_training["median_step_ms"])
 
     # K3's four launches on the main path are one per ResNet-50 shape, so
     # its totals are over the four shapes at N=32; they take the
@@ -1937,7 +2349,14 @@ def main(argv=None):
             "shape", "tiles", "ms", "simt_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "unfused_ms", "simt_fp32_ms",
             "fp32_library_ms")}
-            for r in conv_timing]}]}
+            for r in conv_timing],
+        # phase k: the trainable wrapper at the training step's shapes
+        "training_shape_launches": k3_training["launches"],
+        "training_shape": [{k: r[k] for k in (
+            "shape", "count", "fwd_ms", "unfused_fwd_ms", "fwd_bwd_ms",
+            "unfused_fwd_bwd_ms", "bound_ms", "bound_by")}
+            for r in k3_training["per_shape"]],
+        "training_saved_fwd_bwd_ms": k3_training["saved_fwd_bwd_ms"]}]}
     kind = torch.cuda.get_device_name(0)
     if args.summary:
         os.makedirs(os.path.dirname(os.path.abspath(args.summary)),
@@ -1950,7 +2369,9 @@ def main(argv=None):
                        "conv_timing": conv_timing, "slice": served,
                        "model_vs_plain_err": model_err, "vision": vision,
                        "conv_on_model": on_model,
-                       "resnet_layout_err": layout_err, **record}, f,
+                       "resnet_layout_err": layout_err,
+                       "resnet_training": resnet_training,
+                       "k3_training": k3_training, **record}, f,
                       indent=1)
     log(card)
     print(json.dumps(record), flush=True)

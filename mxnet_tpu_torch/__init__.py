@@ -15,6 +15,21 @@ on ``gpu(0)`` unless given ``ctx=cpu()``.
         loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y).mean()
     loss.backward()
     trainer.step(1)
+
+ResNet-50 v1 trained as ``mxnet_tpu``'s ImageNet recipe trains it
+(``examples/image_classification/train_imagenet.py``): fp32 master
+weights, bf16 forward and backward, on a one-card mesh.
+
+    net = mx.gluon.model_zoo.vision.resnet50_v1(layout="NHWC", stem="s2d")
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2),
+                   generator=torch.Generator().manual_seed(0))
+    trainer = mx.parallel.ShardedTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+        {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4},
+        dtype="bfloat16")
+    loss = trainer.step(x, y)          # a 0-d tensor on the card
+    trainer.sync_to_net()
 """
 from __future__ import annotations
 
@@ -23,7 +38,8 @@ from .context import Context, cpu, current_context, gpu, tpu  # noqa: F401
 from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import autograd, optimizer, ops, gluon, serving  # noqa: F401
+from . import lr_scheduler, metric, parallel  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
            "initializer", "init", "autograd", "optimizer", "ops", "gluon",
-           "serving"]
+           "serving", "lr_scheduler", "metric", "parallel"]

@@ -7,9 +7,17 @@ counts; its ``update`` calls a fused update op of
 state tensors in place. States are zeros in the weight's dtype on its
 device. ``multi_precision`` master weights cover float16 only, as in the
 reference, so a bf16 net trains with bf16 weights and states. Ported:
-``SGD`` (with momentum) and ``Adam``; the other optimizers and the
-learning-rate schedulers wait in ROADMAP Queue 1 (an ``lr_scheduler`` is
-any callable of the update count).
+``SGD`` (with momentum) and ``Adam``; the other optimizers wait in ROADMAP
+Queue 1. ``lr_scheduler`` takes a scheduler of
+:mod:`mxnet_tpu_torch.lr_scheduler` (or any callable of the update count
+with a ``base_lr``), which gives the rate at every update.
+
+Weight decay: ``wd`` times the parameter's ``wd_mult``. Through
+``gluon.Trainer`` every parameter's ``wd_mult`` comes from its Parameter
+(1.0 unless set), biases and BatchNorm's gamma and beta included, as in
+``mxnet_tpu``; the zero default for names ending in ``_bias``, ``_gamma``
+or ``_beta`` applies where the optimizer is built with ``param_idx2name``
+and no ``param_dict``.
 """
 from __future__ import annotations
 
