@@ -41,9 +41,11 @@ Phases, each failing loudly with a non-zero exit:
       batch_norm path, and in fp32 beside cuDNN's fp32 conv);
   (d) the slice: TransformerLM(impl='flash') at GPT-2-small widths in
       bf16, behind Predictor + BatchServer, served to concurrent
-      requests; 12 tensor-core K1 launches per predict call and none on
-      the CUDA cores; one bucket-8 predict profiled, with its copy
-      kernels counted;
+      requests: each bucket captured as a CUDA graph at the predictor's
+      warm-up (12 tensor-core K1 launches enqueued at each of its 2
+      warm-up runs and its capture, none on the CUDA cores, none at a
+      replay); one bucket-8 predict profiled, with its copy kernels
+      counted;
   (e) a 2-layer model of the same widths with the kernel against the
       same model with plain attention, in fp32 and in bf16;
   (f) ResNet-50 v1 (NHWC, s2d stem) at full depth and width in bf16,
@@ -80,7 +82,22 @@ Phases, each failing loudly with a non-zero exit:
       path, every K3 launch on the tensor-core route, forward and
       forward + backward
       timed, and the difference weighted by the 16 convs set against phase
-      j's step.
+      j's step;
+  (l) capture (mxnet_tpu_torch/capture.py, CUDA graphs): each route of
+      K1, K2 and K3 captured alone and replayed on new inputs, bitwise
+      equal to an eager launch; phase h's LM step through
+      capture.capture(trainer, net=, loss_fn=) and phase j's ResNet-50
+      step through ShardedTrainer, each against the kill switch's eager
+      step from one start (eager run twice: bitwise when eager repeats
+      bitwise, else within eager's own spread), with median step ms,
+      tokens/s or images/s, kernels per step (profiled) and the graph's
+      kernel nodes (its DOT dump, kept in graphs/ beside the --summary
+      file: 12 K1 and 12
+      K2 nodes in the LM step), busy and wall time, capture time and peak
+      memory; the LM bucket-8 and ResNet-50 bucket-32 predicts captured
+      against eager (bitwise, p50, busy and wall, BatchServer
+      requests/s; 12 K1 nodes in the LM bucket); no retrace and no eager
+      run after warm-up.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. ``--summary PATH`` also writes the
@@ -90,6 +107,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -1156,7 +1174,7 @@ def time_conv(torch, kernels):
 def serve_slice(torch, mx, kernels):
     import numpy as np
 
-    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch import capture, serving
     from mxnet_tpu_torch.gluon.model_zoo import transformer
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1165,12 +1183,18 @@ def serve_slice(torch, mx, kernels):
         max_len=T, impl="flash", prefix="tlm_")
     net.initialize(mx.init.Xavier(), generator=gen)   # default ctx: gpu(0)
     net.cast("bfloat16")
+    # the main path: building the predictor captures each bucket's graph
+    # (K1 enqueued at 2 warm-up runs and the capture), serving replays them
+    zero_counts(kernels)
     t0 = time.perf_counter()
     pred = serving.Predictor.from_block(
-        net, input_shapes={"data": (T,)}, batch_sizes=(1, 2, 4, 8))
+        net, input_shapes={"data": (T,)}, batch_sizes=(1, 2, 4, 8),
+        warmup=False).warmup(dtype="int64")     # token ids pass uncast
+    built = dict(kernels.flash_attention.launches_by_route)
     log(f"[d] model built (bf16, {LAYERS} layers, {UNITS} units, {HEADS} "
-        f"heads, vocab {VOCAB}, T {T}); warmup of buckets {pred.buckets} "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"heads, vocab {VOCAB}, T {T}); warm-up and capture of buckets "
+        f"{pred.buckets} {time.perf_counter() - t0:.2f} s; K1 enqueued "
+        f"{built}")
 
     rng = np.random.RandomState(0)
     n_threads, per_thread = 4, 16
@@ -1178,10 +1202,9 @@ def serve_slice(torch, mx, kernels):
                  for _ in range(per_thread)] for _ in range(n_threads)]
     results = [[None] * per_thread for _ in range(n_threads)]
 
-    kernels.flash_attention.launches = 0
-    for route in kernels.flash_attention.launches_by_route:
-        kernels.flash_attention.launches_by_route[route] = 0
     serving.reset_stats()
+    graphs = pred._exec.compiled_signatures
+    captured = capture.stats()
     with serving.BatchServer(pred, max_batch_size=8,
                              batch_timeout_ms=5.0) as server:
         def client(i):
@@ -1200,6 +1223,9 @@ def serve_slice(torch, mx, kernels):
     launches = kernels.flash_attention.launches
     by_route = dict(kernels.flash_attention.launches_by_route)
     st = serving.stats()
+    replays = capture.stats()["capture_hits"] - captured["capture_hits"]
+    new_graphs = capture.stats()["capture_misses"] - \
+        captured["capture_misses"]
     n_req = n_threads * per_thread
     if any(th.is_alive() for th in threads):
         raise SystemExit("phase d: a client thread did not finish")
@@ -1218,11 +1244,32 @@ def serve_slice(torch, mx, kernels):
         f"p50 {st['serving_p50_latency_us'] / 1e3:.2f} ms, "
         f"p99 {st['serving_p99_latency_us'] / 1e3:.2f} ms; "
         f"flash launches {launches} (by route {by_route})")
-    if (calls < 1 or launches != LAYERS * calls
-            or by_route != {"tc": LAYERS * calls, "simt": 0}):
+    want = LAYERS * 3 * len(pred.buckets)
+    if calls < 1 or by_route != built or built != {"tc": want, "simt": 0}:
         raise SystemExit(f"phase d: {launches} flash launches {by_route} "
                          f"for {calls} predict calls (want {LAYERS} "
-                         "tensor-core launches per call, none on the CUDA "
+                         "tensor-core launches at each bucket's 2 warm-up "
+                         "runs and capture, none on the CUDA cores and none "
+                         "at a replay)")
+    # the served run only replayed the bucket graphs built above, and each
+    # of them holds the 12 tensor-core K1 launches as kernel nodes
+    nodes = {sig[0][0][0]: graph_nodes(
+        pred._exec, f"lm_bucket_{sig[0][0][0]}",
+        ("flash_fwd_tc_kernel", "flash_fwd_kernel"), sig) for sig in graphs}
+    log(f"[d] served by {replays} graph replays and {new_graphs} new "
+        "captures; K1 kernel nodes per bucket graph (tensor-core, "
+        "CUDA-core): " + ", ".join(
+            f"{b}: ({n['flash_fwd_tc_kernel']}, {n['flash_fwd_kernel']})"
+            for b, n in sorted(nodes.items())))
+    if (new_graphs or replays != calls
+            or pred._exec.compiled_signatures != graphs
+            or sorted(nodes) != sorted(pred.buckets)
+            or any(n["flash_fwd_tc_kernel"] != LAYERS or n["flash_fwd_kernel"]
+                   for n in nodes.values())):
+        raise SystemExit(f"phase d: {calls} predict calls served by "
+                         f"{replays} replays and {new_graphs} new captures; "
+                         f"K1 nodes {nodes} (want {LAYERS} tensor-core K1 "
+                         "nodes in every bucket graph, none on the CUDA "
                          "cores)")
 
     # a request coalesced into one full batch equals its row of predict on
@@ -1256,7 +1303,10 @@ def serve_slice(torch, mx, kernels):
             "p50_ms": st["serving_p50_latency_us"] / 1e3,
             "p99_ms": st["serving_p99_latency_us"] / 1e3,
             "batches": st["serving_batches"], "predict_calls": calls,
-            "launches": launches, "launches_by_route": by_route}
+            "launches": launches, "launches_by_route": by_route,
+            "graph_replays": replays,
+            "k1_graph_nodes": {b: n["flash_fwd_tc_kernel"]
+                               for b, n in nodes.items()}}
 
 
 def profile_predict(torch, pred, ids, phase="d", kernel="flash_fwd"):
@@ -1471,7 +1521,8 @@ _COPY_KERNELS = ("copy", "nchwToNhwc", "nhwcToNchw", "transpose",
 def conv_on_model(torch, kernels, pred, net, images):
     """K3 fed the served model's own tensors: the input and weight of the
     3x3 conv (body[3]) of each stage's first bottleneck, captured by
-    forward hooks during one bucket-32 predict. Returns the launches and
+    forward hooks during one bucket-32 forward of the net (a predict
+    replays its graph, where no hook runs). Returns the launches and
     errors of that main path."""
     stages = [blk for blk in net.features
               if blk.prefix.endswith(tuple(f"stage{i}_"
@@ -1482,7 +1533,8 @@ def conv_on_model(torch, kernels, pred, net, images):
         lambda mod, inp, out: captured.append((inp[0], mod.weight, out)))
         for c in convs]
     try:
-        pred.predict(images)
+        with torch.inference_mode():
+            net(torch.from_numpy(images).to("cuda", torch.bfloat16))
     finally:
         for h in hooks:
             h.remove()
@@ -1934,12 +1986,18 @@ def train_resnet(torch, mx):
         f"statistics; batch {tuple(x.shape)}, mesh {trainer.mesh}")
 
     half = RESNET_BATCH // 2
-    twins = [clone_trainer(torch, mx, trainer) for _ in range(4)]
-    mb = twins[0].step(x, y, microbatches=2).item()
-    halves = [twins[1].step(x[:half], y[:half]).item(),
-              twins[2].step(x[half:], y[half:]).item()]
-    fused = twins[3].step(x, y).item()
-    del twins
+
+    def twin_step(*args, **kwargs):
+        # one at a time: each twin captures its own step's graph
+        twin = clone_trainer(torch, mx, trainer)
+        loss = twin.step(*args, **kwargs).item()
+        del twin
+        torch.cuda.empty_cache()
+        return loss
+
+    mb = twin_step(x, y, microbatches=2)
+    halves = [twin_step(x[:half], y[:half]), twin_step(x[half:], y[half:])]
+    fused = twin_step(x, y)
     want = sum(halves) / 2
     mb_err = abs(mb - want) / abs(want)
     ok = math.isfinite(mb) and mb_err <= RESNET_MB_TOL
@@ -2222,6 +2280,467 @@ def unfused_values(torch, leaves, dout):
     return [t.detach() for t in out] + list(grads)
 
 
+# ------------------------------------------------------------------ phase l
+CAPTURE_LM_STEPS = 10
+CAPTURE_RESNET_STEPS = 6
+CAPTURE_PREDICTS = 20
+GRAPH_DIR = []      # where graphs' DOT dumps are kept (--summary's dir)
+
+
+_DOT_NODE = re.compile(r'(?m)^\s*(?="graph_\d+_node_\d+"\s*\[)')
+
+
+def graph_nodes(ex, name, parts=(), sig=None):
+    """{"kernels": kernel nodes, part: kernel nodes whose function name
+    holds part} of a graph of ``ex`` (its last, or ``sig``'s), from its DOT
+    dump, which is kept gzipped in GRAPH_DIR when --summary gives one."""
+    import gzip
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"{name}.dot")
+        ex.debug_dump(sig if sig is not None else ex.last_entry.sig, path)
+        with open(path) as f:
+            text = f.read()
+    if GRAPH_DIR:
+        os.makedirs(GRAPH_DIR[0], exist_ok=True)
+        with gzip.open(os.path.join(GRAPH_DIR[0], f"{name}.dot.gz"),
+                       "wt") as f:
+            f.write(text)
+    nodes = [c for c in _DOT_NODE.split(text)[1:]
+             if "KERNEL" in c or "Kernel" in c]
+    if not nodes:
+        raise SystemExit(f"phase l: no kernel node found in {name}'s DOT "
+                         f"dump (starts: {text[:600]!r})")
+    out = {"kernels": len(nodes)}
+    for p in parts:
+        out[p] = sum(p in c for c in nodes)
+    return out
+
+
+def capture_kernels_alone(torch, kernels, capture):
+    """Each route of K1, K2 and K3 captured alone in a graph, then replayed
+    on new inputs copied into its static buffers: each replay bitwise equal
+    to an eager launch on those inputs, on the route it names."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rnd(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    def attn(dtype):
+        return [rnd((2, 4, 256, 64), dtype) for _ in range(3)]
+
+    def bwd_inputs(dtype):
+        q, k, v = attn(dtype)
+        out, lse = kernels.flash_attention(q, k, v, causal=True,
+                                           return_lse=True)
+        return [q, k, v, out, lse, rnd(q.shape, dtype)]
+
+    def conv(dtype):
+        return [rnd((4, 16, 16, 64), dtype), rnd((3, 3, 64, 64), dtype,
+                                                 0.05)]
+
+    def k1(q, k, v):
+        return list(kernels.flash_attention(q, k, v, causal=True,
+                                            return_lse=True))
+
+    def k2(q, k, v, o, lse, dout):
+        return list(kernels.flash_attention_backward(q, k, v, o, lse, dout,
+                                                     causal=True))
+
+    def k3(x, w):
+        return list(kernels.conv3x3_bn_stats(x, w))
+
+    cases = []
+    for route, dtype in (("tc", bf16), ("simt", f32)):
+        cases += [("K1", route, kernels.flash_attention, k1, attn(dtype),
+                   attn(dtype)),
+                  ("K2", route, kernels.flash_attention_backward, k2,
+                   bwd_inputs(dtype), bwd_inputs(dtype)),
+                  ("K3", route, kernels.conv3x3_bn_stats, k3, conv(dtype),
+                   conv(dtype))]
+    records = []
+    for name, route, wrapper, fn, first, second in cases:
+        ex = capture.CapturedExec(fn, label=f"{name} {route} alone",
+                                  device="cuda")
+        before = wrapper.launches_by_route[route]
+        ex(*first)
+        enqueued = wrapper.launches_by_route[route] - before
+        got = ex(*second)
+        replays = wrapper.launches_by_route[route] - before - enqueued
+        want = fn(*second)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        nodes = graph_nodes(ex, f"{name}_{route}_alone")
+        ok = same and enqueued == 3 and replays == 0
+        log(f"[l] {name} ({route}) captured alone: replay on new inputs "
+            f"== eager launch bitwise: {same}; wrapper launches at warm-up "
+            f"+ capture {enqueued} (want 3), at a replay {replays} (want 0); "
+            f"graph kernel nodes {nodes['kernels']} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase l: {name} ({route}) replayed from a "
+                             "graph differs from its eager launch")
+        records.append({"kernel": name, "route": route, "bitwise": same,
+                        "nodes": nodes["kernels"]})
+    return records
+
+
+def max_abs_diff(torch, a, b):
+    """max |a - b| over two {name: tensor} dicts, in f32."""
+    return max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+
+
+def equal_dicts(torch, a, b):
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def judge(torch, label, eager, eager2, captured):
+    """The card check of a captured path against eager (each a dict of
+    tensors from one start): bitwise when eager repeats itself bitwise,
+    else within eager's own run-to-run spread. Returns the verdict."""
+    repeats = equal_dicts(torch, eager, eager2)
+    same = equal_dicts(torch, eager, captured)
+    spread = 0.0 if repeats else max_abs_diff(torch, eager, eager2)
+    diff = 0.0 if same else max_abs_diff(torch, eager, captured)
+    ok = same if repeats else diff <= spread
+    case = ("eager repeats bitwise, so captured must equal it bitwise"
+            if repeats else "eager does not repeat bitwise (spread "
+            f"{spread:.3e}), so captured may differ by no more")
+    log(f"[l] {label}: {case}; captured == eager bitwise: {same} (max "
+        f"|diff| {diff:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"phase l: the captured {label} disagrees with "
+                         "eager")
+    return {"eager_repeats_bitwise": repeats, "bitwise": same,
+            "eager_spread": spread, "max_abs_diff": diff}
+
+
+class kill_switch:
+    """MXNET_TPU_TORCH_CAPTURE=0 inside the block: the eager path."""
+
+    def __enter__(self):
+        self._old = os.environ.get("MXNET_TPU_TORCH_CAPTURE")
+        os.environ["MXNET_TPU_TORCH_CAPTURE"] = "0"
+
+    def __exit__(self, *exc):
+        if self._old is None:
+            del os.environ["MXNET_TPU_TORCH_CAPTURE"]
+        else:
+            os.environ["MXNET_TPU_TORCH_CAPTURE"] = self._old
+
+
+def step_run(torch, capture, mode, make_step, n_steps, label, groups):
+    """``n_steps`` steps of ``make_step()`` (returns (step(), state(),
+    exec or None)) on one path: losses, host-clock ms, peak memory, the
+    state after the steps, one more step profiled, the capture counters."""
+    scope = kill_switch() if mode == "eager" else contextlib.nullcontext()
+    with scope:
+        step, state, ex = make_step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for i in range(n_steps):
+            if i == 1:
+                capture.reset_stats()    # after warm-up and capture
+                capture.clear_retrace_log()
+            t0 = time.perf_counter()
+            losses.append(step())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counters = capture.stats()
+        retraces = capture.retrace_log()
+        peak = torch.cuda.max_memory_allocated()
+        after = {k: v.detach().clone() for k, v in state().items()}
+        after.update({f"loss{i}": v.detach().reshape(1)
+                      for i, v in enumerate(losses)})
+        prof = profile_window(torch, step, f"one {mode} {label}", "l",
+                              groups, top=4)
+    timed = sorted(ms[1:])
+    rec = {"step_ms": ms, "median_ms": timed[len(timed) // 2],
+           "peak_bytes": peak, "busy_ms": prof["device_busy_ms"],
+           "wall_ms": prof["wall_ms"], "launches": prof["launches"],
+           "counters": counters,
+           "capture_s": (ex.last_entry.capture_s if mode == "captured"
+                         else None),
+           "retraces": retraces, "losses": [v.item() for v in losses]}
+    if mode == "captured" and (counters["capture_retraces"]
+                               or counters["capture_fallback_eager"]):
+        raise SystemExit(f"phase l: {label} retraced or ran eagerly after "
+                         f"warm-up: {counters} {retraces}")
+    return rec, after, ex
+
+
+def capture_lm_step(torch, mx, kernels, capture):
+    """Phase h's LM step (bf16, B=8, T=1024, Adam lr 1e-3) through
+    capture.capture(trainer, net=, loss_fn=) and through the kill switch,
+    each CAPTURE_LM_STEPS steps from one start (eager twice)."""
+    from mxnet_tpu_torch.gluon.model_zoo import transformer
+
+    def net_of(values=None):
+        net = transformer.transformer_lm(
+            vocab=VOCAB, units=UNITS, num_heads=HEADS, num_layers=LAYERS,
+            max_len=T, impl="flash", prefix="tlm_")
+        if values is None:
+            net.initialize(mx.init.Xavier(), generator=torch.Generator(
+                device="cuda").manual_seed(0))
+        else:
+            net.initialize(mx.init.Zero())
+        net.cast("bfloat16")
+        if values is not None:
+            for k, p in net._param_objects().items():
+                p.set_data(values[k])
+        return net
+
+    values = {k: v.detach().clone()
+              for k, v in net_of().collect_params().items()}
+    x, y = lm_batch(torch, BATCH, T, VOCAB)
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def lm_loss(out, label):
+        return ce(out, label).mean()
+
+    def make_step():
+        net = net_of(values)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": LR})
+        step = capture.capture(trainer, net=net, loss_fn=lm_loss)
+        return ((lambda: step(x, y, batch_size=1)),
+                (lambda: dict(net.collect_params())), step._exec)
+
+    groups = ("flash_fwd", "flash_bwd")
+    runs, afters = {}, {}
+    for mode in ("eager", "eager2", "captured"):
+        rec, after, ex = step_run(torch, capture, mode.rstrip("2"),
+                                  make_step, CAPTURE_LM_STEPS, "LM step",
+                                  groups)
+        runs[mode], afters[mode] = rec, after
+        if mode == "captured":
+            nodes = graph_nodes(ex, "lm_step", (
+                "flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
+                "flash_bwd_dq_tc_kernel"))
+        del after
+        torch.cuda.empty_cache()
+    verdict = judge(torch, f"LM step ({CAPTURE_LM_STEPS} steps: losses and "
+                    "every weight)",
+                    afters["eager"], afters["eager2"], afters["captured"])
+    del afters
+    torch.cuda.empty_cache()
+    k1, k2 = nodes["flash_fwd_tc_kernel"], nodes["flash_bwd_dkdv_tc_kernel"]
+    ok = k1 == LAYERS and k2 == LAYERS and \
+        nodes["flash_bwd_dq_tc_kernel"] == LAYERS
+    for mode in ("eager", "captured"):
+        r = runs[mode]
+        log(f"[l] LM step {mode}: median {r['median_ms']:.2f} ms (steps "
+            f"2-{CAPTURE_LM_STEPS}, host clock), "
+            f"{BATCH * T / (r['median_ms'] / 1e3):.1f} tokens/s; one step "
+            f"profiled: busy {r['busy_ms']:.3f} ms of {r['wall_ms']:.3f} ms "
+            f"wall, {r['launches']} kernels; peak memory "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB"
+            + (f"; capture {r['capture_s']:.2f} s" if r["capture_s"]
+               else ""))
+    log(f"[l] LM step graph: {nodes['kernels']} kernel nodes, K1 "
+        f"(flash_fwd_tc) {k1}, K2 (dk/dv, dq) {k2}, "
+        f"{nodes['flash_bwd_dq_tc_kernel']} (want {LAYERS} each) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase l: the LM step graph does not hold 12 K1 "
+                         "and 12 K2 nodes")
+    return {"runs": runs, "nodes": nodes, "verdict": verdict}
+
+
+def capture_resnet_step(torch, mx, capture):
+    """Phase j's ResNet-50 step (ShardedTrainer, bf16 over fp32 masters,
+    SGD, batch 256) captured and through the kill switch, each
+    CAPTURE_RESNET_STEPS steps from one start (eager twice)."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    x, y = imagenet_batch(torch, RESNET_BATCH)
+
+    def make_step():
+        net = vision.resnet50_v1(layout="NHWC", stem="s2d", classes=1000,
+                                 prefix="r50_")
+        net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                      magnitude=2),
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+        trainer = mx.parallel.ShardedTrainer(
+            net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            dict(RESNET_OPT), dtype="bfloat16")
+
+        def state():
+            out = {f"p:{k}": v for k, v in trainer.params.items()}
+            out.update({f"a:{k}": v for k, v in trainer.aux.items()})
+            out.update({f"m:{k}": v for k, v in
+                        trainer.opt_state["state"].items()})
+            return out
+
+        return (lambda: trainer.step(x, y)), state, trainer._exec
+
+    groups = ("xmma", "conv", "cudnn")
+    runs, afters = {}, {}
+    for mode in ("eager", "eager2", "captured"):
+        rec, after, ex = step_run(torch, capture, mode.rstrip("2"),
+                                  make_step, CAPTURE_RESNET_STEPS,
+                                  "ResNet-50 step", groups)
+        runs[mode], afters[mode] = rec, after
+        if mode == "captured":
+            nodes = graph_nodes(ex, "resnet_step")
+        del after
+        torch.cuda.empty_cache()
+    verdict = judge(torch, f"ResNet-50 step ({CAPTURE_RESNET_STEPS} steps: "
+                    "losses, masters, running statistics, momentum)",
+                    afters["eager"],
+                    afters["eager2"], afters["captured"])
+    del afters
+    torch.cuda.empty_cache()
+    for mode in ("eager", "captured"):
+        r = runs[mode]
+        log(f"[l] ResNet-50 step {mode}: median {r['median_ms']:.2f} ms "
+            f"(steps 2-{CAPTURE_RESNET_STEPS}, host clock), "
+            f"{RESNET_BATCH / (r['median_ms'] / 1e3):.1f} images/s; one "
+            f"step profiled: busy {r['busy_ms']:.3f} ms of "
+            f"{r['wall_ms']:.3f} ms wall, {r['launches']} kernels; peak "
+            f"memory {r['peak_bytes'] / 2**30:.2f} GiB"
+            + (f"; capture {r['capture_s']:.2f} s" if r["capture_s"]
+               else ""))
+    log(f"[l] ResNet-50 step graph: {nodes['kernels']} kernel nodes")
+    return {"runs": runs, "nodes": nodes, "verdict": verdict}
+
+
+def serve_both(torch, capture, serving, pred, batch, requests, max_batch,
+               label, groups, node_parts=()):
+    """One predictor served captured and through the kill switch: a
+    bucket predict bitwise against eager (eager twice), p50 of
+    CAPTURE_PREDICTS predicts on the host clock, one profiled, and the
+    BatchServer's requests/s for 4 threads of ``requests``."""
+    out = {}
+    outs = {}
+    for mode in ("captured", "eager", "eager2"):
+        scope = kill_switch() if mode != "captured" else \
+            contextlib.nullcontext()
+        with scope:
+            capture.reset_stats()
+            capture.clear_retrace_log()
+            outs[mode] = pred.predict(batch)[0]
+            if mode == "eager2":
+                continue
+            ms = []
+            for _ in range(CAPTURE_PREDICTS):
+                t0 = time.perf_counter()
+                pred.predict(batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            prof = profile_window(torch, lambda: pred.predict(batch),
+                                  f"one {mode} {label} predict", "l",
+                                  groups, top=3)
+            results = []
+            with serving.BatchServer(pred, max_batch_size=max_batch,
+                                     batch_timeout_ms=5.0) as server:
+                def client(reqs):
+                    futs = [server.submit(r) for r in reqs]
+                    results.extend(f.result(timeout=600) for f in futs)
+
+                threads = [threading.Thread(target=client, args=(r,))
+                           for r in requests]
+                t0 = time.perf_counter()
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(600)
+                wall = time.perf_counter() - t0
+            n_req = sum(len(r) for r in requests)
+            if any(th.is_alive() for th in threads) or len(results) != n_req:
+                raise SystemExit(f"phase l: {label} {mode} serving did not "
+                                 "finish")
+            counters = capture.stats()
+            ms.sort()
+            out[mode] = {"p50_ms": ms[len(ms) // 2], "busy_ms":
+                         prof["device_busy_ms"], "wall_ms": prof["wall_ms"],
+                         "launches": prof["launches"],
+                         "requests_per_s": n_req / wall,
+                         "counters": counters}
+            log(f"[l] {label} {mode}: predict p50 {out[mode]['p50_ms']:.3f} "
+                f"ms (host clock, {CAPTURE_PREDICTS} predicts); one "
+                f"profiled: busy {prof['device_busy_ms']:.3f} ms of "
+                f"{prof['wall_ms']:.3f} ms wall, {prof['launches']} kernels; "
+                f"BatchServer {n_req / wall:.2f} requests/s")
+            if mode == "captured" and (counters["capture_retraces"] or
+                                       counters["capture_fallback_eager"]):
+                raise SystemExit(f"phase l: {label} retraced or ran eagerly "
+                                 f"after warm-up: {counters}")
+    ex = pred._exec
+    bucket = pred.bucket_for(len(batch))
+    sig = next(s for s in ex.compiled_signatures if s[0][0][0] == bucket)
+    out["nodes"] = graph_nodes(ex, label.replace(" ", "_"), node_parts, sig)
+    out["verdict"] = judge(torch, f"{label} predict", {"o": outs["eager"]},
+                           {"o": outs["eager2"]}, {"o": outs["captured"]})
+    return out
+
+
+def capture_serving(torch, mx, capture):
+    """The LM bucket-8 predict (phase d's model) and the ResNet-50
+    bucket-32 predict (phase f's), captured against eager."""
+    import numpy as np
+
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.gluon.model_zoo import transformer, vision
+
+    rng = np.random.RandomState(0)
+    lm = transformer.transformer_lm(
+        vocab=VOCAB, units=UNITS, num_heads=HEADS, num_layers=LAYERS,
+        max_len=T, impl="flash", prefix="tlm_")
+    lm.initialize(mx.init.Xavier(),
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+    lm.cast("bfloat16")
+    pred = serving.Predictor.from_block(
+        lm, input_shapes={"data": (T,)}, batch_sizes=(1, 8),
+        warmup=False).warmup(dtype="int64")
+    ids = rng.randint(0, VOCAB, (BATCH, T)).astype(np.int64)
+    reqs = [[rng.randint(0, VOCAB, (1, T)).astype(np.int64)
+             for _ in range(8)] for _ in range(4)]
+    lm_rec = serve_both(torch, capture, serving, pred, ids, reqs, 8,
+                        "LM bucket-8", ("flash_fwd",),
+                        ("flash_fwd_tc_kernel",))
+    k1 = lm_rec["nodes"]["flash_fwd_tc_kernel"]
+    log(f"[l] LM bucket-8 graph: {lm_rec['nodes']['kernels']} kernel nodes, "
+        f"K1 {k1} (want {LAYERS}) {'ok' if k1 == LAYERS else 'FAIL'}")
+    if k1 != LAYERS:
+        raise SystemExit("phase l: the LM bucket-8 graph does not hold 12 "
+                         "K1 nodes")
+    del pred, lm
+    torch.cuda.empty_cache()
+
+    net = vision.resnet50_v1(layout="NHWC", stem="s2d", classes=1000)
+    net.initialize(mx.init.Xavier(factor_type="in", magnitude=2),
+                   generator=torch.Generator(device="cuda").manual_seed(0))
+    net.cast("bfloat16")
+    pred = serving.Predictor.from_block(
+        net, input_shapes={"data": (3, 224, 224)}, batch_sizes=(1, 32),
+        dtype="bfloat16")
+    images = rng.rand(32, 3, 224, 224).astype(np.float32)
+    reqs = [[rng.rand(1, 3, 224, 224).astype(np.float32)
+             for _ in range(32)] for _ in range(4)]
+    rn_rec = serve_both(torch, capture, serving, pred, images, reqs, 32,
+                        "ResNet-50 bucket-32", ("fprop", "conv"))
+    del pred, net
+    torch.cuda.empty_cache()
+    return {"lm": lm_rec, "resnet": rn_rec}
+
+
+def capture_phase(torch, mx, kernels):
+    """Phase l: capture.py on the card."""
+    from mxnet_tpu_torch import capture
+
+    alone = capture_kernels_alone(torch, kernels, capture)
+    lm = capture_lm_step(torch, mx, kernels, capture)
+    resnet = capture_resnet_step(torch, mx, capture)
+    served = capture_serving(torch, mx, capture)
+    return {"alone": alone, "lm_step": lm, "resnet_step": resnet,
+            "serving": served}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2229,6 +2748,9 @@ def main(argv=None):
     ap.add_argument("--summary", metavar="PATH",
                     help="also write the measurements to PATH as JSON")
     args = ap.parse_args(argv)
+    if args.summary:
+        GRAPH_DIR.append(os.path.join(
+            os.path.dirname(os.path.abspath(args.summary)), "graphs"))
 
     import torch
 
@@ -2261,7 +2783,7 @@ def main(argv=None):
     bwd_checks, bwd_slice_err = check_flash_bwd(torch, kernels)
     conv_checks = check_conv(torch, kernels)
     if args.quick:
-        log("[quick] phase b passed; phases c-k skipped")
+        log("[quick] phase b passed; phases c-l skipped")
         return 0
     timing = time_flash(torch, kernels)
     bwd_timing = time_flash_bwd(torch, kernels)
@@ -2278,6 +2800,7 @@ def main(argv=None):
     resnet_training = train_resnet(torch, mx)
     k3_training = k3_at_training_shapes(
         torch, kernels, RESNET_BATCH, resnet_training["median_step_ms"])
+    captured = capture_phase(torch, mx, kernels)
 
     # K3's four launches on the main path are one per ResNet-50 shape, so
     # its totals are over the four shapes at N=32; they take the
@@ -2371,7 +2894,8 @@ def main(argv=None):
                        "conv_on_model": on_model,
                        "resnet_layout_err": layout_err,
                        "resnet_training": resnet_training,
-                       "k3_training": k3_training, **record}, f,
+                       "k3_training": k3_training, "capture": captured,
+                       **record}, f,
                       indent=1)
     log(card)
     print(json.dumps(record), flush=True)

@@ -38,8 +38,8 @@ from .context import Context, cpu, current_context, gpu, tpu  # noqa: F401
 from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import autograd, optimizer, ops, gluon, serving  # noqa: F401
-from . import lr_scheduler, metric, parallel  # noqa: F401
+from . import lr_scheduler, metric, parallel, capture  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
            "initializer", "init", "autograd", "optimizer", "ops", "gluon",
-           "serving", "lr_scheduler", "metric", "parallel"]
+           "serving", "lr_scheduler", "metric", "parallel", "capture"]

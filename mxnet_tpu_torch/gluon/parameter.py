@@ -15,6 +15,14 @@ autograd adds the new one. ``"add"`` accumulates. A parameter that is not
 ``differentiable`` (BatchNorm's running statistics) has ``grad_req`` "null"
 and never requires grad; those auxiliary states are written back in place
 with :meth:`Parameter.set_data`.
+
+Under a captured step (:mod:`mxnet_tpu_torch.capture`) the graph owns one
+static gradient buffer per parameter, which it hands back to ``.grad``
+after every replay, so :meth:`Parameter.grad` reads what the step
+computed. :meth:`Parameter.set_data` copies in place, which a captured
+program sees at its next replay; ``initialize`` and ``cast`` rebind the
+tensor to new memory (``_set``), which changes the captured step's key, so
+the step is captured again.
 """
 from __future__ import annotations
 

@@ -10,6 +10,14 @@ no backward wrote it). Multi-device kvstores, optimizer state save/load,
 and ``mxnet_tpu``'s step watchdog, health sentinel, fault hooks and trace
 spans (``mxnet_tpu/gluon/trainer.py:111-200``) wait for the sharding,
 resilience and observability slices (ROADMAP Queue 1).
+
+The update sweep (``mxnet_tpu/gluon/trainer.py:202-244``) is one
+multi-tensor op over every trainable parameter (``ops/optimizer_ops.py``),
+as ``parallel.ShardedTrainer``'s is. ``aggregate_num`` is accepted for
+parity and changes nothing: every grouping gives the same bits. Its
+scalars are computed first, on the host (:meth:`Trainer._scalars`), and
+the sweep takes them as Python floats or, in a captured step
+(:func:`mxnet_tpu_torch.capture.capture`), as device slots holding them.
 """
 from __future__ import annotations
 
@@ -85,8 +93,31 @@ class Trainer:
         """Apply the optimizer to every parameter whose ``grad_req`` is not
         "null" (``mxnet_tpu/gluon/trainer.py:161``)."""
         self._optimizer.rescale_grad = self._scale / batch_size
-        for i, param in enumerate(self._params):
-            if param.grad_req == "null":
-                continue
-            for weight, grad in zip(param.list_data(), param.list_grad()):
-                self._updater(i, grad, weight)
+        self._update(self._scalars())
+
+    def _active(self):
+        return [i for i, p in enumerate(self._params)
+                if p.grad_req != "null"]
+
+    def _scalars(self):
+        """This step's scalars as Python floats: ``rescale_grad``, then
+        ``lr`` and ``wd`` of each trainable parameter in sweep order. Each
+        parameter's update count advances, as its eager update does."""
+        optim = self._optimizer
+        out = [optim.rescale_grad]
+        for i in self._active():
+            out += optim._scalars(i)
+        return out
+
+    def _update(self, scal):
+        """The update sweep with the scalars ``scal`` of :meth:`_scalars`:
+        those floats, or device slots holding them."""
+        active = self._active()
+        if len(scal) != 1 + 2 * len(active):
+            raise ValueError(f"{len(scal)} scalars for {len(active)} "
+                             "trainable parameters")
+        weights = [self._params[i].data() for i in active]
+        grads = [self._params[i].grad() for i in active]
+        states = [self._updater.state(i, w) for i, w in zip(active, weights)]
+        self._optimizer.update_group(weights, grads, states, list(scal[1::2]),
+                                     list(scal[2::2]), scal[0])

@@ -37,6 +37,17 @@ for tensors on the CPU. For a CUDA tensor it launches the kernel or
 raises: a build or launch failure is an error, never a quiet fall-back.
 ``<wrapper>.launches`` counts kernel launches, and nothing else;
 ``<wrapper>.launches_by_route`` splits the count by route.
+
+The counters tick where a launch is enqueued. Under a CUDA graph
+(:mod:`mxnet_tpu_torch.capture`) that is during the warm-up runs and once
+in the capture; a replay launches the graph's kernel nodes without passing
+through a wrapper, so it adds nothing: count a graph's nodes
+(``CapturedExec.debug_dump``) for what a replay runs. Every wrapper
+launches on ``torch.cuda.current_stream()``, allocates its outputs and
+scratch with ``torch.empty``, and never synchronises or reads device
+memory on the host, so each captures as it is; the tensor maps of the
+tensor-core kernels go to the kernel by value, so a captured launch keeps
+its tensors' addresses, which the captured program's key holds fixed.
 """
 from __future__ import annotations
 

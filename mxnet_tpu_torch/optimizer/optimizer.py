@@ -12,6 +12,15 @@ Queue 1. ``lr_scheduler`` takes a scheduler of
 :mod:`mxnet_tpu_torch.lr_scheduler` (or any callable of the update count
 with a ``base_lr``), which gives the rate at every update.
 
+An update is two parts: :meth:`Optimizer._scalars` advances the update
+counts and gives the index's ``lr`` and ``wd`` as Python floats (the rate
+with its schedule and, for Adam, its bias correction), and
+:meth:`Optimizer.apply` runs the multi-tensor op over a group of weights
+with those scalars, given as floats or as 0-d device tensors ("slots").
+``gluon.Trainer`` runs its whole sweep as one op; a captured step
+(:mod:`mxnet_tpu_torch.capture`) runs the first part on the host every
+step and writes its values into the slots its graph reads.
+
 Weight decay: ``wd`` times the parameter's ``wd_mult``. Through
 ``gluon.Trainer`` every parameter's ``wd_mult`` comes from its Parameter
 (1.0 unless set), biases and BatchNorm's gamma and beta included, as in
@@ -62,7 +71,7 @@ class Optimizer:
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  begin_num_update=0, multi_precision=False, param_dict=None,
-                 **kwargs):
+                 aggregate_num=0, **kwargs):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -79,6 +88,9 @@ class Optimizer:
         self.lr_mult = {}
         self.wd_mult = {}
         self.set_wd_mult({})
+        # accepted for parity (mxnet_tpu/optimizer/optimizer.py:62-66):
+        # gluon.Trainer always updates every weight in one multi-tensor op
+        self.aggregate_num = int(aggregate_num)
 
     def create_state(self, index, weight):
         return None
@@ -89,17 +101,47 @@ class Optimizer:
             return (self.create_state(index, w32), w32)
         return self.create_state(index, weight)
 
-    def update(self, index, weight, grad, state):
+    def _scalars(self, index):
+        """Advance ``index``'s update count; its ``(lr, wd)`` for this
+        update, as Python floats."""
+        self._update_count(index)
+        return self._get_lr(index), self._get_wd(index)
+
+    def apply(self, weights, grads, states, lrs, wds, rescale_grad):
+        """One multi-tensor update of ``weights`` in place: ``lrs`` and
+        ``wds`` hold one scalar per weight and ``rescale_grad`` one for
+        all, each a float or a 0-d float32 tensor on the weights' device."""
         raise NotImplementedError
 
+    def update(self, index, weight, grad, state):
+        lr, wd = self._scalars(index)
+        self.apply([weight], [grad], [state], [lr], [wd], self.rescale_grad)
+
+    def _is_mp(self, weight):
+        return self.multi_precision and weight.dtype == torch.float16
+
     def update_multi_precision(self, index, weight, grad, state):
-        if self.multi_precision and weight.dtype == torch.float16:
-            inner_state, w32 = state
-            self.update(index, w32, grad.float(), inner_state)
+        lr, wd = self._scalars(index)
+        self.update_group([weight], [grad], [state], [lr], [wd],
+                          self.rescale_grad)
+
+    def update_group(self, weights, grads, states, lrs, wds, rescale_grad):
+        """:meth:`apply` over a group, fp16 weights with ``multi_precision``
+        updated through their float32 masters one at a time."""
+        plain = []
+        for k, (w, g, s) in enumerate(zip(weights, grads, states)):
+            if not self._is_mp(w):
+                plain.append(k)
+                continue
+            inner_state, w32 = s
+            self.apply([w32], [g.float()], [inner_state], [lrs[k]],
+                       [wds[k]], rescale_grad)
             with torch.no_grad():
-                weight.copy_(w32)
-        else:
-            self.update(index, weight, grad, state)
+                w.copy_(w32)
+        if plain:
+            self.apply([weights[k] for k in plain], [grads[k] for k in plain],
+                       [states[k] for k in plain], [lrs[k] for k in plain],
+                       [wds[k] for k in plain], rescale_grad)
 
     def set_learning_rate(self, lr):
         if self.lr_scheduler is not None:
@@ -145,13 +187,6 @@ class Optimizer:
     def _get_wd(self, index):
         return self.wd * self._mult(index, self.wd_mult, "wd_mult")
 
-    def _common_kwargs(self, index):
-        kw = {"lr": self._get_lr(index), "wd": self._get_wd(index),
-              "rescale_grad": self.rescale_grad}
-        if self.clip_gradient is not None:
-            kw["clip_gradient"] = self.clip_gradient
-        return kw
-
 
 def _zeros_like(weight):
     return torch.zeros_like(weight, memory_format=torch.contiguous_format)
@@ -160,7 +195,7 @@ def _zeros_like(weight):
 @register
 class SGD(Optimizer):
     """SGD with optional momentum (``optimizer.py:147-183``): the fused
-    ``sgd_update`` / ``sgd_mom_update``."""
+    ``multi_sgd_update`` / ``multi_sgd_mom_update``."""
 
     def __init__(self, momentum=0.0, **kwargs):
         super().__init__(**kwargs)
@@ -169,21 +204,21 @@ class SGD(Optimizer):
     def create_state(self, index, weight):
         return _zeros_like(weight) if self.momentum != 0.0 else None
 
-    def update(self, index, weight, grad, state):
-        self._update_count(index)
-        kw = self._common_kwargs(index)
-        if state is not None:
-            _ops.sgd_mom_update(weight, grad, state, momentum=self.momentum,
-                                **kw)
+    def apply(self, weights, grads, states, lrs, wds, rescale_grad):
+        if self.momentum != 0.0:
+            _ops.multi_sgd_mom_update(weights, grads, states, lrs, wds,
+                                      self.momentum, rescale_grad,
+                                      self.clip_gradient)
         else:
-            _ops.sgd_update(weight, grad, **kw)
+            _ops.multi_sgd_update(weights, grads, lrs, wds, rescale_grad,
+                                  self.clip_gradient)
 
 
 @register
 class Adam(Optimizer):
     """Adam (``optimizer.py:208-227``): the bias correction is folded into
     the learning rate, ``lr * sqrt(1 - beta2^t) / (1 - beta1^t)``, then
-    the fused ``adam_update``."""
+    the fused ``multi_adam_update``."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kwargs):
@@ -193,14 +228,17 @@ class Adam(Optimizer):
     def create_state(self, index, weight):
         return (_zeros_like(weight), _zeros_like(weight))
 
-    def update(self, index, weight, grad, state):
-        self._update_count(index)
+    def _scalars(self, index):
+        lr, wd = super()._scalars(index)
         t = self._index_update_count[index]
-        kw = self._common_kwargs(index)
-        kw["lr"] *= math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
-        mean, var = state
-        _ops.adam_update(weight, grad, mean, var, beta1=self.beta1,
-                         beta2=self.beta2, epsilon=self.epsilon, **kw)
+        lr *= math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
+        return lr, wd
+
+    def apply(self, weights, grads, states, lrs, wds, rescale_grad):
+        _ops.multi_adam_update(weights, grads, [s[0] for s in states],
+                               [s[1] for s in states], lrs, wds, self.beta1,
+                               self.beta2, self.epsilon, rescale_grad,
+                               self.clip_gradient)
 
 
 class Updater:
@@ -211,12 +249,16 @@ class Updater:
         self.optimizer = optimizer
         self.states = {}
 
-    def __call__(self, index, grad, weight):
+    def state(self, index, weight):
+        """``index``'s state, created at its first use."""
         if index not in self.states:
             self.states[index] = self.optimizer.create_state_multi_precision(
                 index, weight)
+        return self.states[index]
+
+    def __call__(self, index, grad, weight):
         self.optimizer.update_multi_precision(index, weight, grad,
-                                              self.states[index])
+                                              self.state(index, weight))
 
 
 def get_updater(optimizer):

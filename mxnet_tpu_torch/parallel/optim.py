@@ -12,10 +12,14 @@ BatchNorm's gamma and beta.
 Where ``mxnet_tpu`` returns new arrays, the port updates the weight and
 state tensors in place (the trainer owns them; updating in place keeps one
 copy of 25 M ResNet-50 weights instead of two) and returns the same dicts.
-SGD runs as one group of ``torch._foreach_*`` ops over every tensor, a few
-launches a step in place of several per parameter, element for element the
-arithmetic of ``sgd_update`` / ``sgd_mom_update`` (a CPU test holds the two
-bitwise equal). Ported: ``"sgd"`` / ``"lbsgd"`` and ``"adam"``; the other
+Each optimizer runs as one multi-tensor op of
+:mod:`mxnet_tpu_torch.ops.optimizer_ops` over every tensor, a few
+``torch._foreach_*`` launches a step in place of several per parameter,
+element for element the arithmetic of the per-parameter ops (a CPU test
+holds the two bitwise equal). ``lr``, ``wd`` and ``rescale_grad`` are
+scalar operands computed on the host each step, so a captured step reads
+them from device slots and a new rate or bias correction never
+re-captures. Ported: ``"sgd"`` / ``"lbsgd"`` and ``"adam"``; the other
 names of ``mxnet_tpu``'s registry are queued (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
@@ -54,40 +58,36 @@ def _check_empty(name, kw):
                          f"parameters {sorted(kw)}")
 
 
-# Each factory(optimizer_params) returns (init_one, update_group):
+# Each factory(optimizer_params) returns (init_one, scalars, apply):
 #   init_one(name, w) -> per-param state (a tensor, a tuple of them, or ()),
-#   update_group(ws, gs, ss, t) -> None: updates the lists of weights and
-#   states in place; t is the 1-based step count (a Python int).
+#   scalars(t) -> [lr, wd, rescale_grad] as Python floats for the 1-based
+#   step t (Adam's bias correction folded into lr, as mxnet_tpu does),
+#   apply(ws, gs, ss, scal) -> None: updates the lists of weights and states
+#   in place with scal = [lr, wd, rescale_grad], each a float or a 0-d
+#   float32 tensor on the weights' device (a captured step's slots).
+
+def _fixed_scalars(h):
+    return lambda t: [h["lr"], h["wd"], h["rescale_grad"]]
+
 
 @_register("sgd", "lbsgd")
 def _sgd(kw):
     h = _hyper(kw, 0.01)
     momentum = kw.pop("momentum", 0.0)
     _check_empty("sgd", kw)
-    lr, wd = h["lr"], h["wd"]
-    rescale, clip = h["rescale_grad"], h["clip_gradient"]
+    clip = h["clip_gradient"]
 
-    @torch.no_grad()
-    def update(ws, gs, ss, t):
-        # g = clip(grad * rescale); step = lr * (g + wd * w), as
-        # optimizer_ops.sgd_update / sgd_mom_update compute it
-        g = torch._foreach_mul(gs, rescale)
-        if clip is not None and clip >= 0:
-            torch._foreach_clamp_min_(g, -clip)
-            torch._foreach_clamp_max_(g, clip)
-        step = torch._foreach_mul(ws, wd)
-        torch._foreach_add_(step, g)
-        torch._foreach_mul_(step, lr)
+    def apply(ws, gs, ss, scal):
+        lr, wd, rescale = scal
         if momentum == 0.0:
-            torch._foreach_sub_(ws, step)
-            return
-        torch._foreach_mul_(ss, momentum)
-        torch._foreach_sub_(ss, step)
-        torch._foreach_add_(ws, ss)
+            _ops.multi_sgd_update(ws, gs, lr, wd, rescale, clip)
+        else:
+            _ops.multi_sgd_mom_update(ws, gs, ss, lr, wd, momentum, rescale,
+                                      clip)
 
     if momentum == 0.0:
-        return (lambda n, w: ()), update
-    return (lambda n, w: torch.zeros_like(w)), update
+        return (lambda n, w: ()), _fixed_scalars(h), apply
+    return (lambda n, w: torch.zeros_like(w)), _fixed_scalars(h), apply
 
 
 @_register("adam")
@@ -97,17 +97,21 @@ def _adam(kw):
     beta2 = kw.pop("beta2", 0.999)
     epsilon = kw.pop("epsilon", 1e-8)
     _check_empty("adam", kw)
-    base_lr = h.pop("lr")
 
-    def update(ws, gs, ss, t):
+    def scalars(t):
         # bias correction folded into the rate at step t
         # (mxnet_tpu/parallel/optim.py:97-99)
-        lr_t = base_lr * math.sqrt(1 - beta2 ** t) / (1 - beta1 ** t)
-        for w, g, (m, v) in zip(ws, gs, ss):
-            _ops.adam_update(w, g, m, v, lr=lr_t, beta1=beta1, beta2=beta2,
-                             epsilon=epsilon, **h)
+        lr_t = h["lr"] * math.sqrt(1 - beta2 ** t) / (1 - beta1 ** t)
+        return [lr_t, h["wd"], h["rescale_grad"]]
 
-    return (lambda n, w: (torch.zeros_like(w), torch.zeros_like(w))), update
+    def apply(ws, gs, ss, scal):
+        lr, wd, rescale = scal
+        _ops.multi_adam_update(ws, gs, [s[0] for s in ss], [s[1] for s in ss],
+                               lr, wd, beta1, beta2, epsilon, rescale,
+                               h["clip_gradient"])
+
+    return ((lambda n, w: (torch.zeros_like(w), torch.zeros_like(w))),
+            scalars, apply)
 
 
 def make_update_fn(optimizer="sgd", optimizer_params=None):
@@ -116,6 +120,8 @@ def make_update_fn(optimizer="sgd", optimizer_params=None):
     ``init(params) -> opt_state``: ``{"t": 0, "state": {name: state}}``.
     ``update(params, grads, opt_state) -> (params, opt_state)``: one step,
     applied in place to ``params`` and the state tensors, ``t`` advanced.
+    Its scalars are ``update.scalars(t)`` (Python floats) unless
+    ``opt_state["scalars"]`` holds them, as a captured step's device slots.
     """
     factory = FUNCTIONAL_OPTIMIZERS.get(optimizer)
     if factory is None:
@@ -124,7 +130,7 @@ def make_update_fn(optimizer="sgd", optimizer_params=None):
             f"registry has: {sorted(FUNCTIONAL_OPTIMIZERS)} (the other "
             "names of mxnet_tpu's registry are queued: ROADMAP Queue 1 "
             "item 5)")
-    init_one, update_group = factory(dict(optimizer_params or {}))
+    init_one, scalars, apply = factory(dict(optimizer_params or {}))
 
     def init(params):
         return {"t": 0,
@@ -133,9 +139,11 @@ def make_update_fn(optimizer="sgd", optimizer_params=None):
     def update(params, grads, opt_state):
         t = opt_state["t"] + 1
         names = list(params)
-        update_group([params[k] for k in names], [grads[k] for k in names],
-                     [opt_state["state"][k] for k in names], t)
+        scal = opt_state.get("scalars") or scalars(t)
+        apply([params[k] for k in names], [grads[k] for k in names],
+              [opt_state["state"][k] for k in names], scal)
         opt_state["t"] = t
         return params, opt_state
 
+    update.scalars = scalars
     return init, update

@@ -2,10 +2,20 @@
 ``mxnet_tpu/parallel/trainer.py``).
 
 ``mxnet_tpu`` compiles forward, backward and the optimizer update into one
-jitted program over a mesh. The port runs the same step eagerly on one
-card: the net's forward through :func:`functional_call` on the trainer's
-own tensors, ``torch.autograd.grad`` for the gradients, and the functional
-update of :func:`make_update_fn` in place. The dtype policy is
+jitted program over a mesh (``mxnet_tpu/parallel/trainer.py:292-355``).
+The port captures the same step as one CUDA graph per signature (batch
+shapes and dtypes, ``microbatches``) through
+:class:`mxnet_tpu_torch.capture.CapturedExec`: the net's forward through
+:func:`functional_call` on the trainer's own tensors,
+``torch.autograd.grad`` for the gradients, and the functional update of
+:func:`make_update_fn` in place, with ``lr``, ``wd`` and ``rescale_grad``
+read from device slots that the host refreshes every step (Adam's bias
+correction and :meth:`ShardedTrainer.set_learning_rate` included). The
+batch is copied into the graph's static inputs outside it, the running
+statistics are written back into the trainer's own aux tensors inside it,
+and the loss comes back as a copy. On a CPU mesh the same program runs
+directly; ``MXNET_TPU_TORCH_CAPTURE=0`` runs it eagerly. The dtype policy
+is
 ``mxnet_tpu``'s (``_make_compute_loss``, ``trainer.py:234-290``):
 
 - master parameters and optimizer state stay in the net's dtype (fp32);
@@ -24,13 +34,13 @@ Not ported, and raising where asked for: meshes over more than one device,
 ``param_rules``, ``remat``, a ``checkpoint_manager`` (ROADMAP Queue 1
 item 6), the pad mask ``length=``, and the step watchdog, fault
 injection, integrity fingerprints, elastic OOM retry, pod and multi-host
-recovery, optimizer-state save/load and capture (Queue 1 item 12).
+recovery and optimizer-state save/load (Queue 1 item 12).
 """
 from __future__ import annotations
 
 import torch
 
-from .. import autograd
+from .. import autograd, capture
 from ..base import torch_dtype
 from .functional import functional_call, param_arrays, aux_arrays
 from .mesh import create_mesh
@@ -95,6 +105,83 @@ class ShardedTrainer:
         init, self._update = make_update_fn(optimizer,
                                             dict(self._optimizer_params))
         self.opt_state = init(self.params)
+        self._slots = capture.SlotTable(self.device)
+        self._step_vals = None
+        self._exec = capture.CapturedExec(
+            self._captured_program, label="sharded_step",
+            device=self.device, state=self._state_tensors,
+            eager=self._eager_program, warmup_guard=self._warmup_guard)
+
+    # ----------------------------------------------------------- capture
+    def _capture_fingerprint(self, x=None, y=None, microbatches=None):
+        """The step program's structural key (``mxnet_tpu/parallel/
+        trainer.py:292``); with a batch, its shapes, dtypes and
+        ``microbatches`` too, which the captured entries are keyed by."""
+        parts = {"net": capture.net_sig(self.net),
+                 "loss": capture.code_sig(self.loss_fn),
+                 "optimizer": self._optimizer,
+                 "dtype": str(self._compute_dtype),
+                 "params": [(k, tuple(v.shape), str(v.dtype))
+                            for k, v in self.params.items()]}
+        if x is not None:
+            parts["batch"] = [(tuple(a.shape), str(a.dtype)) for a in (x, y)]
+            parts["microbatches"] = microbatches
+        return capture.fingerprint(parts)
+
+    def _state_tensors(self):
+        """Masters, aux and optimizer states: the tensors the captured
+        program updates in place, whose addresses key its entries."""
+        out = list(self.params.values()) + list(self.aux.values())
+        for v in self.opt_state["state"].values():
+            out += [v] if isinstance(v, torch.Tensor) else list(v)
+        return out
+
+    def _warmup_guard(self):
+        return capture._restored(self._state_tensors())
+
+    def _captured_program(self, x, y, n):
+        return self._program(x, y, n, None if self._step_vals is None
+                             else self._slots.views)
+
+    def _eager_program(self, x, y, n):
+        return self._program(x, y, n, self._step_vals)
+
+    def _write_aux(self, new_aux):
+        with torch.no_grad():
+            for k, v in new_aux.items():
+                self.aux[k].copy_(v)
+
+    def _program(self, x, y, n, scal):
+        """The whole step on the batch: loss (mean of the microbatch
+        losses), gradients, aux written back, the update in place with the
+        scalars ``scal`` (None: the update computes them itself)."""
+        if n == 1:
+            loss, grads, new_aux = self._loss_and_grads(x, y)
+            self._write_aux(new_aux)
+        else:
+            mb = int(x.shape[0]) // n
+            loss, grads = None, None
+            for i in range(n):
+                sl = slice(i * mb, (i + 1) * mb)
+                loss_i, g_i, new_aux = self._loss_and_grads(x[sl], y[sl])
+                self._write_aux(new_aux)
+                if grads is None:
+                    loss, grads = loss_i, g_i
+                else:
+                    loss = loss + loss_i
+                    for k, g in g_i.items():
+                        grads[k].add_(g)
+            inv = 1.0 / n
+            for g in grads.values():
+                g.mul_(inv)
+            loss = loss / n
+        if scal is not None:
+            self.opt_state["scalars"] = scal
+        try:
+            self._update(self.params, grads, self.opt_state)
+        finally:
+            self.opt_state.pop("scalars", None)
+        return loss
 
     # ------------------------------------------------------------ the step
     def _loss_and_grads(self, x, y):
@@ -158,32 +245,26 @@ class ShardedTrainer:
                     f"microbatches={n} does not divide the {rows}-row batch "
                     "into whole microbatches; accumulation must never "
                     "silently drop tail rows")
-        if n == 1:
-            loss, grads, self.aux = self._loss_and_grads(x, y)
-        else:
-            mb = rows // n
-            loss, grads = None, None
-            for i in range(n):
-                sl = slice(i * mb, (i + 1) * mb)
-                loss_i, g_i, self.aux = self._loss_and_grads(x[sl], y[sl])
-                if grads is None:
-                    loss, grads = loss_i, g_i
-                else:
-                    loss = loss + loss_i
-                    for k, g in g_i.items():
-                        grads[k].add_(g)
-            inv = 1.0 / n
-            for g in grads.values():
-                g.mul_(inv)
-            loss = loss / n
-        self.params, self.opt_state = self._update(self.params, grads,
-                                                   self.opt_state)
+        t = self.opt_state["t"] + 1
+        scalars = getattr(self._update, "scalars", None)
+        if scalars is None and self.device.type == "cuda" \
+                and capture.enabled():
+            raise capture.CaptureError(
+                "ShardedTrainer: an update function without .scalars bakes "
+                "its rate into the graph; give it scalars(t) or run with "
+                "MXNET_TPU_TORCH_CAPTURE=0")
+        self._step_vals = None if scalars is None else scalars(t)
+        if self._step_vals is not None:
+            self._slots.write(self._step_vals)
+        loss = self._exec(x, y, key=(n,))
+        self.opt_state["t"] = t
         return loss
 
     # ---------------------------------------------------------- the rate
     def set_learning_rate(self, lr):
-        """Change the learning rate; the update is rebuilt with it
-        (``mxnet_tpu/parallel/trainer.py:510-521``)."""
+        """Change the learning rate (``mxnet_tpu/parallel/trainer.py:
+        510-521``). The update is rebuilt with it; a captured step reads
+        the rate from its slot, so nothing is captured again."""
         self._optimizer_params["learning_rate"] = float(lr)
         _, self._update = make_update_fn(self._optimizer,
                                          dict(self._optimizer_params))

@@ -2,11 +2,16 @@
 ``mxnet_tpu/serving/predictor.py``; parity: the C predict API).
 
 ``mxnet_tpu`` traces a Symbol and compiles one executable per bucketed
-batch size. The port calls the Block directly, under
-``torch.inference_mode()``, on a batch padded with zero rows up to the
-smallest declared bucket that fits; outputs are sliced back to the true
-rows (``mxnet_tpu/serving/predictor.py:468-474, 697-728``). Loading a
-Symbol JSON is a later slice.
+batch size through ``capture.CapturedExec`` (``mxnet_tpu/serving/
+predictor.py:159, 282, 600``). The port captures the Block's forward,
+under ``torch.inference_mode()``, as one CUDA graph per bucket through
+:class:`mxnet_tpu_torch.capture.CapturedExec`; the buckets share one
+memory pool, calls are serialised and outputs cloned out. A batch is
+copied into its bucket's static input with zero rows up to the bucket,
+and outputs are sliced back to the true rows (``mxnet_tpu/serving/
+predictor.py:468-474, 697-728``). A batch larger than every declared
+bucket runs at its own size: a new graph, logged as a retrace. On a CPU
+context the forward runs directly. Loading a Symbol JSON is a later slice.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import threading
 import numpy as _np
 import torch
 
+from .. import capture
 from ..base import MXNetError, torch_dtype
 from ..context import as_device
 from . import _STATS
@@ -71,6 +77,10 @@ class Predictor:
             self._input_tails = None
         self._lock = threading.Lock()
         self._seen = set()   # buckets run at least once
+        self._param_objs = list(block._param_objects().values())
+        self._exec = capture.CapturedExec(
+            self._forward, label="predictor", device=self._device,
+            state=lambda: [p.data() for p in self._param_objs])
         if warmup and self._input_tails is not None:
             self.warmup()
 
@@ -106,22 +116,31 @@ class Predictor:
         if bucket not in self._buckets:
             _STATS["serving_unbucketed"] += 1
 
-    def _run(self, feeds):
+    def _forward(self, *inputs):
         with torch.inference_mode():
-            out = self._block(*[feeds[n] for n in self.input_names])
+            out = self._block(*inputs)
         return list(out) if isinstance(out, (list, tuple)) else [out]
 
-    def warmup(self, buckets=None):
-        """Run every declared bucket once on zeros (needs
-        ``input_shapes``), so the first request pays no first-run costs
-        such as building the CUDA kernels."""
+    def _run(self, feeds, bucket, rows=None):
+        """The bucket's graph on ``feeds`` (padded to ``bucket`` rows);
+        outputs cut to ``rows``."""
+        return self._exec(*[feeds[n] for n in self.input_names],
+                          batch=bucket, rows=rows)
+
+    def warmup(self, buckets=None, dtype=None):
+        """Capture every declared bucket on zeros of ``dtype`` (default the
+        predictor's; pass the requests' dtype, e.g. ``"int64"`` for token
+        ids, which pass through uncast) (needs ``input_shapes``), so the
+        first request pays no first-run costs such as building the CUDA
+        kernels or capturing its graph."""
         if self._input_tails is None:
             raise MXNetError("Predictor.warmup needs input_shapes")
+        dt = self._dtype if dtype is None else torch_dtype(dtype)
         for b in (buckets or self._buckets):
             self._note_bucket(int(b))
-            self._run({n: torch.zeros((int(b),) + tail, dtype=self._dtype,
+            self._run({n: torch.zeros((int(b),) + tail, dtype=dt,
                                       device=self._device)
-                       for n, tail in self._input_tails.items()})
+                       for n, tail in self._input_tails.items()}, int(b))
         if self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
         return self
@@ -157,14 +176,6 @@ class Predictor:
             raise MXNetError(f"missing inputs {missing}")
         return feeds, n
 
-    @staticmethod
-    def _pad(a, bucket):
-        n = a.shape[0]
-        if n == bucket:
-            return a
-        pad = a.new_zeros((bucket - n,) + tuple(a.shape[1:]))
-        return torch.cat([a, pad], dim=0)
-
     def predict_raw(self, data):
         """Run one batch; returns (list of output tensors, n_rows). The
         batch is padded up to its bucket and outputs are sliced back to the
@@ -175,13 +186,9 @@ class Predictor:
         _STATS["serving_predict_calls"] += 1
         bucket = self.bucket_for(n)
         self._note_bucket(bucket)
-        outs = self._run({name: self._pad(a, bucket)
-                          for name, a in feeds.items()})
+        outs = self._run(feeds, bucket, rows=n)
         _STATS["serving_batch_samples"] += bucket
         _STATS["serving_padded_samples"] += bucket - n
-        if bucket != n:
-            outs = [o[:n] if o.dim() and o.shape[0] == bucket else o
-                    for o in outs]
         return outs, n
 
     def predict(self, data):

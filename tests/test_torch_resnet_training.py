@@ -93,9 +93,9 @@ def test_batchnorm_layer_writes_running_stats_only_in_training(axis):
     nothing."""
     x, gamma, beta, mm, mv, _ = _bn_inputs(axis, 1.0, seed=1)
     c = gamma.shape[0]
-    jb = mx.gluon.nn.BatchNorm(axis=axis, in_channels=c)
+    jb = mx.gluon.nn.BatchNorm(axis=axis, in_channels=c, prefix="bn_")
     jb.initialize()
-    tb = mt.gluon.nn.BatchNorm(axis=axis, in_channels=c)
+    tb = mt.gluon.nn.BatchNorm(axis=axis, in_channels=c, prefix="bn_")
     tb.initialize(ctx=mt.cpu())
     values = {"gamma": gamma, "beta": beta, "running_mean": mm,
               "running_var": mv}
