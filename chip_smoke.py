@@ -8,16 +8,18 @@ Phases, each failing loudly with a non-zero exit:
 
   (a) the card's name and power limit, as nvidia-smi reports them;
       then every CUDA kernel is built from csrc/ with nvcc (sm_90a), and
-      ptxas's registers and spills printed (the tensor-core K1 and K3
-      must not spill);
+      ptxas's registers and spills printed (the tensor-core kernels,
+      16-bit and 3xTF32, must not spill);
   (b) each kernel against its plain PyTorch version on the card, on
       fixed cases, with the tolerance and its reason printed: K1 (flash
-      attention) on both of its routes -- the tensor-core kernel (16-bit,
+      attention) on its three routes -- the tensor-core kernel (16-bit,
       D 64/128, contiguous or the LM's strided q/k/v, launched twice
-      for bitwise equality) and the CUDA-core one (fp32, other D) --, K2
-      (the flash backward, on both of its routes -- the tensor-core kernel
-      (wgmma + TMA; 16-bit, D 64/128) and the CUDA-core one (fp32, other
-      D) --: ragged T, offsets, rows that see no key, dlse, the LM's
+      for bitwise equality), the 3xTF32 one (fp32, the same layouts,
+      also launched twice) and the CUDA-core one (other D, misaligned
+      bases) --, K2 (the flash backward, on its three routes -- the
+      tensor-core kernel (wgmma + TMA; 16-bit, D 64/128), the 3xTF32 one
+      (fp32, the same) and the CUDA-core one (other D, misaligned) --:
+      ragged T, offsets, rows that see no key, dlse, the LM's
       strided layout; a second launch bitwise equal; the plain version
       without its dlse term must fail the check; dq, dk, dv written into
       the heads of a larger buffer whose other heads must keep a
@@ -32,10 +34,11 @@ Phases, each failing loudly with a non-zero exit:
       wrapper's gradients against autograd;
   (c) kernel, plain-version and library times at the slices' shapes, in
       device time, beside each kernel's bound on the H100 (K1 also on the
-      strided layout and for fp32 on the CUDA cores; K2 beside torch SDPA's
+      strided layout, and in fp32 the 3xTF32 kernel beside the CUDA-core
+      one, SDPA fp32 and the 3xTF32 bound; K2 beside torch SDPA's
       backward, also on the LM's layout, on the CUDA cores and in fp32
-      beside SDPA's fp32 backward and the fp32 plain version, with the
-      tensor-core work it really issues; K3
+      (3xTF32) beside the CUDA-core route, SDPA's fp32 backward and the
+      fp32 plain version, with the tensor-core work each really issues; K3
       also beside its
       CUDA-core kernel on the same inputs, the unfused cuDNN conv +
       batch_norm path, and in fp32 beside cuDNN's fp32 conv);
@@ -47,7 +50,7 @@ Phases, each failing loudly with a non-zero exit:
       replay); one bucket-8 predict profiled, with its copy kernels
       counted;
   (e) a 2-layer model of the same widths with the kernel against the
-      same model with plain attention, in fp32 and in bf16;
+      same model with plain attention, in fp32 (3xTF32) and in bf16;
   (f) ResNet-50 v1 (NHWC, s2d stem) at full depth and width in bf16,
       behind Predictor + BatchServer, served to 128 concurrent
       single-image requests, and one bucket-32 predict profiled;
@@ -64,7 +67,8 @@ Phases, each failing loudly with a non-zero exit:
       profiled (forward + backward, and the Adam update), with fewer copy
       kernels than layers (the qkv projection's gradient is one buffer);
   (i) one training step of a 2-layer model of the same widths with K1 + K2
-      against plain attention, in fp32 and bf16: loss and every gradient;
+      against plain attention, in fp32 (both on route "tf32x3") and bf16
+      (both "tc"): loss and every gradient;
   (j) ResNet-50 v1 (NHWC, s2d stem) at full depth and width trained as
       train_imagenet.py trains it: parallel.ShardedTrainer on one card,
       SGD (lr 0.1, momentum 0.9, wd 1e-4), bf16 compute over fp32 masters,
@@ -85,7 +89,7 @@ Phases, each failing loudly with a non-zero exit:
       j's step;
   (l) capture (mxnet_tpu_torch/capture.py, CUDA graphs): each route of
       K1, K2 and K3 captured alone and replayed on new inputs, bitwise
-      equal to an eager launch; phase h's LM step through
+      equal to an eager launch (the 3xTF32 K1 one graph node, K2 three); phase h's LM step through
       capture.capture(trainer, net=, loss_fn=) and phase j's ResNet-50
       step through ShardedTrainer, each against the kill switch's eager
       step from one start (eager run twice: bitwise when eager repeats
@@ -97,7 +101,13 @@ Phases, each failing loudly with a non-zero exit:
       memory; the LM bucket-8 and ResNet-50 bucket-32 predicts captured
       against eager (bitwise, p50, busy and wall, BatchServer
       requests/s; 12 K1 nodes in the LM bucket); no retrace and no eager
-      run after warm-up.
+      run after warm-up;
+  (m) the fp32 training slice: phase h's LM left in fp32 (mxnet_tpu's
+      default dtype) at full width and depth, gluon.Trainer + Adam (lr
+      1e-3), 10 steps on phase h's batch: finite losses, loss 10 at least
+      0.5 below loss 1, exactly 12 K1 and 12 K2 launches a step, all on
+      the 3xTF32 route; median step, tokens/s and peak memory; one more
+      step profiled for K1's and K2's device ms and the busy time.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. ``--summary PATH`` also writes the
@@ -121,6 +131,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_FP32_FMA_FLOPS = 67e12   # f32 on the CUDA cores
 PEAK_BYTES = 3.35e12
 
 # GPT-2-small widths: the slice's model
@@ -208,25 +220,35 @@ def attention_work(b, h, t, d, causal, itemsize):
 def flash_inputs(torch, gen, shape, dtype, layout):
     """Seeded q, k, v (B, H, T, D) ~ N(0, 1). ``layout="qkv"`` gives them as
     the LM's strided views of one (B, T, 3 * H * D) buffer (the qkv
-    projection's output); ``"contiguous"`` as three contiguous tensors."""
+    projection's output); ``"contiguous"`` as three contiguous tensors;
+    ``"misaligned"`` as contiguous tensors whose base is one element past
+    a 16-byte boundary."""
     b, h, t, d = shape
     if layout == "qkv":
         buf = torch.randn((b, t, 3 * h * d), generator=gen,
                           device="cuda").to(dtype)
         x = buf.reshape(b, t, 3 * h, d).transpose(1, 2)
         return x[:, :h], x[:, h:2 * h], x[:, 2 * h:]
+    if layout == "misaligned":
+        # contiguous, but one element past a 16-byte boundary
+        n = b * h * t * d
+        return [torch.randn(n + 1, generator=gen, device="cuda").to(dtype)[
+            1:].view(shape) for _ in range(3)]
     return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
             for _ in range(3)]
 
 
 def check_flash(torch, kernels):
-    """K1 against its plain version on fixed cases, on both routes: the
-    CUDA-core kernel (fp32, D=80, D=256) and the tensor-core kernel (bf16
-    and fp16, D of 64 and 128, contiguous or the LM's strided layout).
-    Returns the check records and the largest O error at the slice's
-    shape."""
+    """K1 against its plain version on fixed cases, on its three routes:
+    the CUDA-core kernel (D=80, D=256, misaligned bases), the 3xTF32
+    kernel (fp32, D of 64 and 128, contiguous or the LM's strided layout)
+    and the tensor-core kernel (bf16 and fp16, the same layouts). Returns
+    the check records and the largest O error at the slice's shape, bf16
+    and fp32."""
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
-    tol32 = (1e-4, 1e-4, "fp32: O and lse within 1e-4 (reordered f32 sums)")
+    tol32 = (1e-4, 1e-4, "fp32: O and lse within 1e-4 (f32 sums in other "
+             "orders; the tf32x3 kernel's products as 3xTF32, ~2^-22 of "
+             "each product)")
     tol16 = (4.0, 1e-3, "16-bit: O within 4 output ulps (O rounded once "
              "from f32 sums taken in another order; the tensor-core kernel "
              "feeds P to P.V as hi + lo 16-bit terms, the CUDA-core one in "
@@ -237,23 +259,33 @@ def check_flash(torch, kernels):
         # name, (B, H, T, D), dtype, causal, q_offset, k_offset, layout,
         # route
         ("fp32 causal", (2, 4, 256, 64), f32, True, 0, 0, "contiguous",
-         "simt"),
+         "tf32x3"),
         ("fp32 non-causal", (2, 4, 256, 64), f32, False, 0, 0,
-         "contiguous", "simt"),
+         "contiguous", "tf32x3"),
         ("fp32 causal D=128", (1, 2, 512, 128), f32, True, 0, 0,
-         "contiguous", "simt"),
+         "contiguous", "tf32x3"),
         ("fp32 causal ragged T=1000", (2, 2, 1000, 64), f32, True, 0, 0,
-         "contiguous", "simt"),
+         "contiguous", "tf32x3"),
         ("fp32 non-causal ragged T=1000", (1, 2, 1000, 64), f32, False, 0,
-         0, "contiguous", "simt"),
+         0, "contiguous", "tf32x3"),
         ("fp32 causal q_offset=128", (1, 2, 256, 64), f32, True, 128, 0,
-         "contiguous", "simt"),
+         "contiguous", "tf32x3"),
         ("fp32 causal whole-skip k_offset=128", (1, 2, 256, 64), f32, True,
-         0, 128, "contiguous", "simt"),
+         0, 128, "contiguous", "tf32x3"),
+        ("fp32 causal whole-skip k_offset=128 D=128", (1, 2, 256, 128), f32,
+         True, 0, 128, "contiguous", "tf32x3"),
+        ("fp32 causal qkv views", (2, 4, 256, 64), f32, True, 0, 0, "qkv",
+         "tf32x3"),
+        ("fp32 causal D=128 qkv views ragged T=300", (2, 2, 300, 128), f32,
+         True, 0, 0, "qkv", "tf32x3"),
+        ("fp32 causal slice shape, qkv views", sl, f32, True, 0, 0, "qkv",
+         "tf32x3"),
         ("fp32 causal D=80 (masked in D=128)", (1, 2, 300, 80), f32, True,
          0, 0, "contiguous", "simt"),
-        ("fp32 causal qkv views (copied)", (2, 4, 256, 64), f32, True, 0,
-         0, "qkv", "simt"),
+        ("fp32 causal D=256", (1, 2, 256, 256), f32, True, 0, 0,
+         "contiguous", "simt"),
+        ("fp32 causal misaligned base", (2, 4, 256, 64), f32, True, 0, 0,
+         "misaligned", "simt"),
         ("bf16 causal D=256", (1, 2, 256, 256), bf16, True, 0, 0,
          "contiguous", "simt"),
         ("bf16 causal D=80", (1, 2, 300, 80), bf16, True, 0, 0,
@@ -289,7 +321,7 @@ def check_flash(torch, kernels):
     ]
     log(f"[b] K1 tolerances -- {tol32[2]}; {tol16[2]}")
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    records, slice_err = [], 0.0
+    records, slice_err, slice_err32 = [], 0.0, 0.0
     for name, shape, dtype, causal, qo, ko, layout, route in cases:
         q, k, v = flash_inputs(torch, gen, shape, dtype, layout)
         kw = dict(causal=causal, return_lse=True, q_offset=qo, k_offset=ko)
@@ -319,7 +351,7 @@ def check_flash(torch, kernels):
                 (lse[:, :, :blind].cpu() == want).all())
             ok = ok and exact
             extra += f"; blind rows exact: {exact}"
-        if route == "tc":
+        if route in ("tc", "tf32x3"):
             again = kernels.flash_attention(q, k, v, **kw)
             same = all(torch.equal(a, b) for a, b in zip((out, lse), again))
             extra += f"; second launch bitwise equal: {same}"
@@ -341,10 +373,12 @@ def check_flash(torch, kernels):
         if shape == sl and dtype == bf16:
             slice_err = max(slice_err,
                             (out.float() - ref.float()).abs().max().item())
+        if shape == sl and dtype == f32:
+            slice_err32 = max(slice_err32, o_err)
         records.append({"case": name, "route": route, "o_err": o_err,
                         "o_err_unit": unit.strip() or "abs",
                         "lse_err": l_err})
-    return records, slice_err
+    return records, slice_err, slice_err32
 
 
 def bwd_inputs(torch, kernels, gen, shape, dtype, layout, causal, qo, ko,
@@ -378,14 +412,16 @@ def grads_err(torch, got, ref):
 
 def check_flash_bwd(torch, kernels):
     """K2 (the flash-attention backward) against its plain version on fixed
-    cases: fp32, bf16 and fp16; causal and not; D 64, 128, 80 (in the
-    128-wide instantiation) and 256; T 1024, ragged 1000 and 300; q and k
-    offsets, rows that see no key; a nonzero dlse; the LM's strided q/k/v
-    with the tensor-core K1's O and a strided dO. A second launch must be
-    bitwise equal, and a plain version without the dlse term must fail
-    the same check. Then the K1 + K2 autograd Function against autograd
-    through dense attention. Returns the check records and the largest
-    error at the slice's shape."""
+    cases, on its three routes (fp32 as 3xTF32 "tf32x3", 16-bit "tc", and
+    the CUDA cores "simt" for D 80 and 256 and misaligned bases): causal
+    and not; D 64, 128, 80 (in the 128-wide instantiation) and 256; T
+    1024, ragged 1000 and 300; q and k offsets, rows that see no key; a
+    nonzero dlse; the LM's strided q/k/v with the tensor-core K1's O and a
+    strided dO. A second launch must be bitwise equal, and a plain version
+    without the dlse term must fail the same check. Then the K1 + K2
+    autograd Function against autograd through dense attention. Returns
+    the check records and the largest error at the slice's shape, bf16
+    and fp32."""
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     tol32 = 1e-4
     tol16 = 4.0
@@ -398,23 +434,33 @@ def check_flash_bwd(torch, kernels):
         # name, (B, H, T, D), dtype, causal, q_offset, k_offset, layout,
         # dlse, route
         ("fp32 causal", (2, 4, 256, 64), f32, True, 0, 0, "contiguous",
-         False, "simt"),
+         False, "tf32x3"),
         ("fp32 non-causal", (2, 4, 256, 64), f32, False, 0, 0,
-         "contiguous", False, "simt"),
+         "contiguous", False, "tf32x3"),
         ("fp32 causal D=128", (1, 2, 512, 128), f32, True, 0, 0,
-         "contiguous", False, "simt"),
+         "contiguous", False, "tf32x3"),
+        ("fp32 causal slice shape, LM layout", sl, f32, True, 0, 0, "qkv",
+         False, "tf32x3"),
+        ("fp32 causal D=128 LM layout ragged T=300", (2, 2, 300, 128), f32,
+         True, 0, 0, "qkv", False, "tf32x3"),
+        ("fp32 causal q_offset=128", (1, 2, 256, 64), f32, True, 128, 0,
+         "contiguous", False, "tf32x3"),
+        ("fp32 causal k_offset=100 (blind rows)", (1, 2, 256, 64), f32,
+         True, 0, 100, "contiguous", False, "tf32x3"),
+        ("fp32 causal k_offset=100 (blind rows) D=128", (1, 2, 256, 128),
+         f32, True, 0, 100, "contiguous", False, "tf32x3"),
+        ("fp32 causal dlse", (2, 4, 256, 64), f32, True, 0, 0, "contiguous",
+         True, "tf32x3"),
+        ("fp32 non-causal ragged T=1000 dlse", (1, 2, 1000, 64), f32, False,
+         0, 0, "contiguous", True, "tf32x3"),
+        ("fp32 causal dlse LM layout", (2, 4, 256, 64), f32, True, 0, 0,
+         "qkv", True, "tf32x3"),
         ("fp32 causal ragged T=300 D=80", (1, 2, 300, 80), f32, True, 0, 0,
          "contiguous", False, "simt"),
         ("fp32 causal D=256", (1, 2, 256, 256), f32, True, 0, 0,
          "contiguous", False, "simt"),
-        ("fp32 causal q_offset=128", (1, 2, 256, 64), f32, True, 128, 0,
-         "contiguous", False, "simt"),
-        ("fp32 causal k_offset=100 (blind rows)", (1, 2, 256, 64), f32,
-         True, 0, 100, "contiguous", False, "simt"),
-        ("fp32 causal dlse", (2, 4, 256, 64), f32, True, 0, 0, "contiguous",
-         True, "simt"),
-        ("fp32 non-causal ragged T=1000 dlse", (1, 2, 1000, 64), f32, False,
-         0, 0, "contiguous", True, "simt"),
+        ("fp32 causal misaligned base dlse", (2, 4, 256, 64), f32, True, 0,
+         0, "misaligned", True, "simt"),
         ("bf16 causal D=80 ragged T=300", (1, 2, 300, 80), bf16, True, 0, 0,
          "contiguous", False, "simt"),
         ("fp16 causal D=256", (1, 2, 256, 256), f16, True, 0, 0,
@@ -452,7 +498,7 @@ def check_flash_bwd(torch, kernels):
     ]
     log(f"[b] K2 tolerances -- {why}")
     gen = torch.Generator(device="cuda").manual_seed(2024)
-    records, slice_err, relaunched = [], 0.0, set()
+    records, slice_err, slice_err32, relaunched = [], 0.0, 0.0, set()
     for name, shape, dtype, causal, qo, ko, layout, with_dlse, route in \
             cases:
         q, k, v, out, lse, dout, dlse = bwd_inputs(
@@ -516,54 +562,114 @@ def check_flash_bwd(torch, kernels):
             raise SystemExit(f"phase b: flash_attention_backward disagrees "
                              f"with its plain version on '{name}' (route "
                              f"{took}, want {route})")
-        if shape == sl and dtype == bf16:
-            slice_err = max(slice_err, max(
-                (a.float() - b.float()).abs().max().item()
-                for a, b in zip(got, ref)))
+        if shape == sl:
+            worst = max((a.float() - b.float()).abs().max().item()
+                        for a, b in zip(got, ref))
+            if dtype == bf16:
+                slice_err = max(slice_err, worst)
+            elif dtype == f32:
+                slice_err32 = max(slice_err32, worst)
         records.append({"case": name, "route": route, "err": err,
                         "err_unit": unit.strip() or "rel"})
-    records.append(check_bwd_into_heads(torch, kernels, gen))
+    records += check_bwd_into_heads(torch, kernels, gen)
+    records.append(check_tf32x3_grid_edge(torch, kernels))
     records.append(check_flash_function(torch, kernels, gen))
     records.append(check_flash_qkv(torch, kernels, gen))
-    return records, slice_err
+    return records, slice_err, slice_err32
 
 
 SENTINEL = -7.25
 
 
 def check_bwd_into_heads(torch, kernels, gen):
-    """The tensor-core K2 writing dq, dk, dv through their strides into
-    three head ranges of one (B, T, 4H, D) buffer prefilled with a
-    sentinel: the written heads equal, bitwise, the same launch into
-    contiguous gradients, and every element of the fourth head range
-    keeps the sentinel."""
+    """Each tensor-core K2 (bf16 "tc", fp32 "tf32x3") writing dq, dk, dv
+    through their strides into three head ranges of one (B, T, 4H, D)
+    buffer prefilled with a sentinel: the written heads equal, bitwise,
+    the same launch into contiguous gradients, and every element of the
+    fourth head range keeps the sentinel."""
     b, h, t, d = 2, 4, 300, 64
-    q, k, v, out, lse, dout, _ = bwd_inputs(
-        torch, kernels, gen, (b, h, t, d), torch.bfloat16, "qkv", True, 0, 0,
-        False)
-    want = kernels.flash_attention_backward(q, k, v, out, lse, dout,
-                                            causal=True)
-    big = torch.full((b, t, 4 * h, d), SENTINEL, dtype=torch.bfloat16,
-                     device="cuda")
-    heads = big.transpose(1, 2)
-    grads = (heads[:, 3 * h:], heads[:, :h], heads[:, 2 * h:3 * h])
-    before = kernels.flash_attention_backward.launches_by_route["tc"]
-    kernels.flash_attention_backward(q, k, v, out, lse, dout, causal=True,
-                                     grads=grads)
+    records = []
+    for dtype, route in ((torch.bfloat16, "tc"), (torch.float32, "tf32x3")):
+        q, k, v, out, lse, dout, _ = bwd_inputs(
+            torch, kernels, gen, (b, h, t, d), dtype, "qkv", True, 0, 0,
+            False)
+        want = kernels.flash_attention_backward(q, k, v, out, lse, dout,
+                                                causal=True)
+        big = torch.full((b, t, 4 * h, d), SENTINEL, dtype=dtype,
+                         device="cuda")
+        heads = big.transpose(1, 2)
+        grads = (heads[:, 3 * h:], heads[:, :h], heads[:, 2 * h:3 * h])
+        before = kernels.flash_attention_backward.launches_by_route[route]
+        kernels.flash_attention_backward(q, k, v, out, lse, dout,
+                                         causal=True, grads=grads)
+        torch.cuda.synchronize()
+        launched = (kernels.flash_attention_backward.launches_by_route[route]
+                    - before)
+        same = all(torch.equal(g, w) for g, w in zip(grads, want))
+        kept = bool((heads[:, h:2 * h] == SENTINEL).all())
+        ok = launched == 1 and same and kept
+        log(f"[b] bwd into the heads of a (B, T, 4H, D) buffer "
+            f"{(b, h, t, d)} {str(dtype)[6:]} ({route}): == contiguous "
+            f"gradients bitwise: {same}; the other heads keep the sentinel: "
+            f"{kept}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("phase b: K2 writing through output strides "
+                             "disagrees or writes outside its heads")
+        records.append({"case": f"bwd into strided heads {route}",
+                        "bitwise": same, "sentinel_kept": kept})
+    return records
+
+
+def check_tf32x3_grid_edge(torch, kernels):
+    """K1 and K2 on fp32 D=128 at the "tf32x3" route's largest T
+    (kernels._TF32_MAX_T = 65535 * 64: 65535 tiles of 64 rows in each
+    grid): one seeded (1, 1, T, 128) tensor as q, k, v and dO, causal with
+    k_offset = T - 64, so that only the last 64 rows see a key (keys 0-63).
+    Those rows' O, lse and dq, and those keys' dk and dv, hold the plain
+    version on the 64 x 64 slice within 1e-4 (of max|ref| for the
+    gradients); every other row of O, dq, dk and dv is exactly 0, and
+    every other lse is the plain version's no-key value."""
+    t, d, tol = kernels._TF32_MAX_T, 128, 1e-4
+    gen = torch.Generator(device="cuda").manual_seed(65535)
+    x = torch.randn((1, 1, t, d), generator=gen, device="cuda")
+    kw = dict(causal=True, k_offset=t - 64)
+    counts = (kernels.flash_attention.launches_by_route,
+              kernels.flash_attention_backward.launches_by_route)
+    before = [c["tf32x3"] for c in counts]
+    out, lse = kernels.flash_attention(x, x, x, return_lse=True, **kw)
+    dq, dk, dv = kernels.flash_attention_backward(x, x, x, out, lse, x, **kw)
     torch.cuda.synchronize()
-    launched = kernels.flash_attention_backward.launches_by_route["tc"] - \
-        before
-    same = all(torch.equal(g, w) for g, w in zip(grads, want))
-    kept = bool((heads[:, h:2 * h] == SENTINEL).all())
-    ok = launched == 1 and same and kept
-    log(f"[b] bwd into the heads of a (B, T, 4H, D) buffer {(b, h, t, d)} "
-        f"bf16: == contiguous gradients bitwise: {same}; the other heads "
-        f"keep the sentinel: {kept}  {'ok' if ok else 'FAIL'}")
+    launched = [c["tf32x3"] - n for c, n in zip(counts, before)]
+    q, kv = x[:, :, -64:], x[:, :, :64]
+    ref, ref_lse = kernels.flash_attention_reference(q, kv, kv, causal=True,
+                                                     return_lse=True)
+    ref_g = kernels.flash_attention_backward_reference(
+        q, kv, kv, out[:, :, -64:], lse[:, :, -64:], q, causal=True)
+    blind_lse = kernels.flash_attention_reference(
+        kv[:, :, :1], kv[:, :, :1], kv[:, :, :1], causal=True,
+        return_lse=True, k_offset=1)[1]
+    err = max((out[:, :, -64:] - ref).abs().max().item(),
+              (lse[:, :, -64:] - ref_lse).abs().max().item())
+    g_err = max(rel_err(dq[:, :, -64:], ref_g[0]),
+                rel_err(dk[:, :, :64], ref_g[1]),
+                rel_err(dv[:, :, :64], ref_g[2]))
+    zero = (bool((out[:, :, :-64] == 0).all())
+            and bool((dq[:, :, :-64] == 0).all())
+            and bool((dk[:, :, 64:] == 0).all())
+            and bool((dv[:, :, 64:] == 0).all())
+            and bool((lse[:, :, :-64] == blind_lse).all()))
+    ok = launched == [1, 1] and err <= tol and g_err <= tol and zero
+    log(f"[b] tf32x3 at the grid edge (1, 1, {t}, {d}), only the last 64 "
+        f"rows see keys: tf32x3 launches K1/K2 {launched}; O, lse err "
+        f"{err:.3e}, grads err {g_err:.3e} of max|ref| (tol {tol:g}); every "
+        f"other row 0 and no-key lse: {zero}  {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit("phase b: K2 writing through output strides "
-                         "disagrees or writes outside its heads")
-    return {"case": "bwd into strided heads", "bitwise": same,
-            "sentinel_kept": kept}
+        raise SystemExit("phase b: the tf32x3 kernels fail at the largest T "
+                         "their route takes")
+    del x, out, lse, dq, dk, dv
+    torch.cuda.empty_cache()
+    return {"case": f"tf32x3 grid edge T={t} D={d}", "err": err,
+            "grads_err": g_err, "zero_elsewhere": zero}
 
 
 def check_flash_qkv(torch, kernels, gen):
@@ -586,7 +692,7 @@ def check_flash_qkv(torch, kernels, gen):
         return torch.matmul(torch.softmax(logits, -1), v)
 
     errs = {}
-    for dtype, tol, route in ((torch.float32, 1e-4, "simt"),
+    for dtype, tol, route in ((torch.float32, 1e-4, "tf32x3"),
                               (torch.bfloat16, 3e-2, "tc")):
         x = torch.randn((b, t, 3 * h * d), generator=gen,
                         device="cuda").to(dtype)
@@ -633,7 +739,7 @@ def check_flash_function(torch, kernels, gen):
     """flash_attention_with_lse (K1 forward, K2 backward through
     torch.autograd) against autograd through dense attention in f32, on a
     loss that uses both O and lse, with q, k, v the LM's views of one
-    (B, T, 3 H D) leaf: fp32 (CUDA-core K1) within 1e-4 of max|grad|,
+    (B, T, 3 H D) leaf: fp32 (3xTF32 K1 and K2) within 1e-4 of max|grad|,
     bf16 (tensor-core K1) within 3e-2 of max|grad| of the f32 dense
     gradient of the same bf16 values (O and the gradients are rounded to
     bf16, 2^-8, and delta is formed from the rounded O)."""
@@ -879,11 +985,12 @@ def device_ms(fn, n=20):
 def time_flash(torch, kernels):
     """K1 at the LM's shape (8, 12, 1024, 64), causal: the tensor-core
     kernel on contiguous bf16 q, k, v and on the LM's strided views of one
-    qkv buffer, the CUDA-core kernel on fp32 (the route fp32 callers
-    take), the plain version and torch SDPA (bf16 and fp32). ``*_ms`` is
-    device time (device_ms); ``*_call_ms`` is the median of CUDA events
-    around one call, which also holds the host's enqueue time of that
-    call."""
+    qkv buffer; in fp32 the 3xTF32 kernel (the route fp32 callers take,
+    contiguous and on the strided views) beside the CUDA-core kernel on
+    the same inputs; the plain version and torch SDPA (bf16 and fp32).
+    ``*_ms`` is device time (device_ms); ``*_call_ms`` is the median of
+    CUDA events around one call, which also holds the host's enqueue time
+    of that call."""
     import torch.nn.functional as F
 
     shape = (BATCH, HEADS, T, UNITS // HEADS)
@@ -891,9 +998,11 @@ def time_flash(torch, kernels):
     q, k, v = flash_inputs(torch, gen, shape, torch.bfloat16, "contiguous")
     qkv = flash_inputs(torch, gen, shape, torch.bfloat16, "qkv")
     f32 = [x.float() for x in (q, k, v)]
+    f32_qkv = flash_inputs(torch, gen, shape, torch.float32, "qkv")
     for name, args, want in (("bf16", (q, k, v), "tc"),
                              ("bf16 qkv views", qkv, "tc"),
-                             ("fp32", f32, "simt")):
+                             ("fp32", f32, "tf32x3"),
+                             ("fp32 qkv views", f32_qkv, "tf32x3")):
         before = dict(kernels.flash_attention.launches_by_route)
         kernels.flash_attention(*args, causal=True)
         took = [r for r, n in kernels.flash_attention.launches_by_route
@@ -911,9 +1020,15 @@ def time_flash(torch, kernels):
     ms = device_ms(tc)
     strided_ms = device_ms(lambda: kernels.flash_attention(*qkv,
                                                            causal=True))
-    simt_fp32_ms = device_ms(lambda: kernels.flash_attention(*f32,
-                                                             causal=True),
-                             n=5)
+    scale = 1.0 / math.sqrt(shape[-1])
+    tf32_ms = device_ms(lambda: kernels.flash_attention(*f32, causal=True))
+    tf32_strided_ms = device_ms(lambda: kernels.flash_attention(
+        *f32_qkv, causal=True))
+    simt_fp32_ms = device_ms(lambda: kernels._launch_simt(
+        *f32, True, scale, 0, 0), n=5)
+    got = kernels.flash_attention(*f32, causal=True)
+    tf32_err = (got - kernels.flash_attention_reference(
+        *f32, causal=True)).abs().max().item()
     plain_ms = device_ms(lambda: kernels.flash_attention_reference(
         q, k, v, causal=True, return_lse=True), n=5)
     fp32_plain_ms = device_ms(lambda: kernels.flash_attention_reference(
@@ -933,11 +1048,29 @@ def time_flash(torch, kernels):
         f"({flops:.3e} FLOP, {nbytes:.3e} B); kernel at "
         f"{bound_ms / ms:.2%} of bound, {flops / ms / 1e9:.2f} TFLOP/s")
     f32_flops, f32_bytes = attention_work(*shape, True, 4)
-    log(f"[c] flash_attn_fwd (CUDA cores) fp32 {shape} causal: "
-        f"{simt_fp32_ms:.4f} ms device, {f32_flops / simt_fp32_ms / 1e9:.2f}"
-        f" TFLOP/s ({f32_bytes:.3e} B); plain fp32 {fp32_plain_ms:.4f} ms; "
-        f"torch SDPA fp32 {fp32_library_ms:.4f} ms device")
+    t_bound, t_by, fma_ms = bound_tf32x3(f32_flops, f32_bytes)
+    issued = k1_tf32x3_issued_flops(
+        *shape, True, tf32x3_tiles(kernels, shape[-1])[0])
+    log(f"[c] flash_attn_fwd_tf32x3 fp32 {shape} causal: kernel "
+        f"{tf32_ms:.4f} ms device, on the LM's strided qkv views "
+        f"{tf32_strided_ms:.4f} ms; CUDA-core K1 on the same inputs "
+        f"{simt_fp32_ms:.4f} ms ({simt_fp32_ms / tf32_ms:.2f}x the 3xTF32 "
+        f"one); torch SDPA fp32 (its memory-efficient kernel: 3xTF32 on "
+        f"mma.sync) {fp32_library_ms:.4f} ms device, kernel / SDPA "
+        f"{tf32_ms / fp32_library_ms:.2f}x; plain fp32 {fp32_plain_ms:.4f} "
+        f"ms; bound {t_bound:.4f} ms by {t_by} (three TF32 passes of "
+        f"{f32_flops:.3e} FLOP at 495 TFLOP/s; {f32_bytes:.3e} B; at the 67 "
+        f"TFLOP/s f32 FMA peak {fma_ms:.4f} ms); kernel at "
+        f"{t_bound / tf32_ms:.2%} of bound, {f32_flops / tf32_ms / 1e9:.2f} "
+        f"TFLOP/s of the needed products, {issued / tf32_ms / 1e9:.2f} "
+        f"TFLOP/s of the {issued:.3e} TF32 FLOP it issues; max|O - plain| "
+        f"{tf32_err:.3e}")
     return {"ms": ms, "call_ms": call_ms, "strided_ms": strided_ms,
+            "tf32x3_ms": tf32_ms, "tf32x3_strided_ms": tf32_strided_ms,
+            "tf32x3_bound_ms": t_bound, "tf32x3_bound_by": t_by,
+            "tf32x3_fma_bound_ms": fma_ms, "tf32x3_issued_flops": issued,
+            "tf32x3_err": tf32_err, "fp32_flops": f32_flops,
+            "fp32_bytes": f32_bytes,
             "simt_fp32_ms": simt_fp32_ms, "fp32_plain_ms": fp32_plain_ms,
             "fp32_library_ms": fp32_library_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_call_ms": library_call_ms,
@@ -991,9 +1124,12 @@ def time_flash_bwd(torch, kernels):
     """K2 at the LM's shape (8, 12, 1024, 64), causal, in device time
     (device_ms): bf16 on contiguous q, k, v, O, dO and on the LM's layout
     (q/k/v views of one qkv buffer, the tensor-core K1's O, a strided dO),
-    the CUDA-core route on the same bf16 inputs, fp32, the plain version
-    (bf16 and fp32 inputs), and torch SDPA's backward alone (autograd.grad
-    through one recorded SDPA forward, retained; bf16 and fp32, TF32 off).
+    the CUDA-core route on the same bf16 inputs, fp32 on its 3xTF32 route
+    (contiguous and on the LM's layout) beside the CUDA-core route on the
+    same inputs, the plain version (bf16 and fp32 inputs), and torch
+    SDPA's backward alone (autograd.grad through one recorded SDPA
+    forward, retained; bf16, and fp32, whose memory-efficient kernel is
+    3xTF32 on mma.sync).
     ``call_ms``: the median of CUDA events around one call, host enqueue
     included."""
     import torch.nn.functional as F
@@ -1006,13 +1142,16 @@ def time_flash_bwd(torch, kernels):
                          True, 0, 0, False)[:6]
     f32_args = bwd_inputs(torch, kernels, gen, shape, torch.float32,
                           "contiguous", True, 0, 0, False)[:6]
+    f32_lm_args = bwd_inputs(torch, kernels, gen, shape, torch.float32,
+                             "qkv", True, 0, 0, False)[:6]
 
     def k2(a=args):
         return kernels.flash_attention_backward(*a, causal=True)
 
     for name, a, want in (("bf16", args, "tc"), ("bf16 LM layout", lm_args,
                                                  "tc"),
-                          ("fp32", f32_args, "simt")):
+                          ("fp32", f32_args, "tf32x3"),
+                          ("fp32 LM layout", f32_lm_args, "tf32x3")):
         before = dict(kernels.flash_attention_backward.launches_by_route)
         k2(a)
         took = [r for r, n in kernels.flash_attention_backward
@@ -1039,7 +1178,13 @@ def time_flash_bwd(torch, kernels):
 
     ms = device_ms(k2)
     lm_ms = device_ms(lambda: k2(lm_args))
-    fp32_ms = device_ms(lambda: k2(f32_args), n=5)
+    fp32_ms = device_ms(lambda: k2(f32_args))
+    fp32_lm_ms = device_ms(lambda: k2(f32_lm_args))
+    simt_fp32_ms = device_ms(lambda: kernels._launch_bwd(
+        *f32_args, None, True, scale, 0, 0, route="simt"), n=5)
+    fp32_err = grads_err(torch, k2(f32_args),
+                         kernels.flash_attention_backward_reference(
+                             *f32_args, causal=True))
     simt_ms = device_ms(lambda: kernels._launch_bwd(
         *args, None, True, scale, 0, 0, route="simt"), n=5)
     plain_ms = device_ms(lambda: kernels.flash_attention_backward_reference(
@@ -1064,14 +1209,32 @@ def time_flash_bwd(torch, kernels):
         f"{issued:.3e} FLOP it issues ({issued / flops:.2f}x the five); "
         f"CUDA-core K2 on the same bf16 inputs {simt_ms:.4f} ms "
         f"({simt_ms / ms:.1f}x the tensor-core one)")
-    log(f"[c] flash_attn_bwd (CUDA cores) fp32 {shape} causal: "
-        f"{fp32_ms:.4f} ms device, {flops / fp32_ms / 1e9:.2f} TFLOP/s of "
-        f"the five products; plain fp32 {fp32_plain_ms:.4f} ms; torch SDPA "
-        f"fp32 backward (TF32 off) {fp32_library_ms:.4f} ms device, kernel "
-        f"/ SDPA {fp32_ms / fp32_library_ms:.2f}x")
+    f32_bytes = attention_bwd_work(*shape, True, 4)[1]
+    t_bound, t_by, fma_ms = bound_tf32x3(flops, f32_bytes)
+    t_issued = k2_tf32x3_issued_flops(
+        *shape, True, tf32x3_tiles(kernels, shape[-1])[1])
+    log(f"[c] flash_attn_bwd_tf32x3 fp32 {shape} causal: kernel "
+        f"{fp32_ms:.4f} ms device, on the LM's layout {fp32_lm_ms:.4f} ms; "
+        f"CUDA-core K2 on the same inputs {simt_fp32_ms:.4f} ms "
+        f"({simt_fp32_ms / fp32_ms:.2f}x the 3xTF32 one); torch SDPA fp32 "
+        f"backward (memory-efficient kernel, 3xTF32 on mma.sync) "
+        f"{fp32_library_ms:.4f} ms device, kernel / SDPA "
+        f"{fp32_ms / fp32_library_ms:.2f}x; plain fp32 {fp32_plain_ms:.4f} "
+        f"ms; bound {t_bound:.4f} ms by {t_by} (three TF32 passes of "
+        f"{flops:.3e} FLOP at 495 TFLOP/s; {f32_bytes:.3e} B; at the 67 "
+        f"TFLOP/s f32 FMA peak {fma_ms:.4f} ms); kernel at "
+        f"{t_bound / fp32_ms:.2%} of bound, {flops / fp32_ms / 1e9:.2f} "
+        f"TFLOP/s of the five products, {t_issued / fp32_ms / 1e9:.2f} "
+        f"TFLOP/s of the {t_issued:.3e} TF32 FLOP it issues; grads vs plain "
+        f"{fp32_err:.3e} of max|ref|")
     del o_sdpa, leaves, o_sdpa32, f32_leaves
     return {"ms": ms, "call_ms": call_ms, "lm_layout_ms": lm_ms,
-            "simt_ms": simt_ms, "fp32_ms": fp32_ms, "plain_ms": plain_ms,
+            "simt_ms": simt_ms, "fp32_ms": fp32_ms,
+            "fp32_lm_layout_ms": fp32_lm_ms, "simt_fp32_ms": simt_fp32_ms,
+            "fp32_err": fp32_err, "tf32x3_bound_ms": t_bound,
+            "tf32x3_bound_by": t_by, "tf32x3_fma_bound_ms": fma_ms,
+            "tf32x3_issued_flops": t_issued, "fp32_bytes": f32_bytes,
+            "plain_ms": plain_ms,
             "fp32_plain_ms": fp32_plain_ms, "library_ms": library_ms,
             "fp32_library_ms": fp32_library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "flops": flops, "issued_flops": issued,
@@ -1092,6 +1255,76 @@ def bound(flops, nbytes):
     """(bound ms, 'bytes' or 'operations') at the H100's bf16 peaks."""
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bound_tf32x3(flops, nbytes):
+    """(bound ms, 'bytes' or 'operations', FMA ms) of fp32 work on the
+    H100: the least time at fp32 accuracy is three TF32 passes of the
+    needed FLOP at the 495 TFLOP/s TF32 peak, or the bytes at 3.35 TB/s;
+    FMA ms is the FLOP at the 67 TFLOP/s of f32 FMA on the CUDA cores."""
+    t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes),
+            "bytes" if t_bytes >= t_ops else "operations",
+            flops / PEAK_FP32_FMA_FLOPS * 1e3)
+
+
+def tf32x3_tiles(kernels, d):
+    """The 3xTF32 kernels' tiles at head dimension d, as their libraries
+    report them (flash_attn_*_tf32x3_tiles, from each source's Cfg): K1's
+    (query rows a CTA, keys a tile) and K2's (rows a streamed tile, keys a
+    dk/dv CTA, queries a dq CTA)."""
+    import ctypes
+
+    k1 = [ctypes.c_int() for _ in range(2)]
+    k2 = [ctypes.c_int() for _ in range(3)]
+    if kernels._tc_library("tf32x3").flash_attn_fwd_tf32x3_tiles(
+            d, *map(ctypes.byref, k1)) or \
+            kernels._bwd_tc_library("tf32x3").flash_attn_bwd_tf32x3_tiles(
+                d, *map(ctypes.byref, k2)):
+        raise SystemExit(f"the 3xTF32 kernels report no tiles for D={d}")
+    return tuple(x.value for x in k1), tuple(x.value for x in k2)
+
+
+def k1_tf32x3_issued_flops(b, h, t, d, causal, tiles):
+    """TF32 FLOP the 3xTF32 K1 issues for these inputs by its own tile
+    walk over its ``tiles`` (tf32x3_tiles): each 64-row warpgroup runs S =
+    Q K^T and O += P V, three passes each, on every K tile it does not
+    skip."""
+    bq, bk = tiles
+    pairs = 0
+    for q0 in range(0, t, bq):
+        n_kb = -(-t // bk)
+        if causal:
+            n_kb = min(n_kb, (q0 + min(bq, t - q0) - 1) // bk + 1)
+        for r0 in range(q0, q0 + bq, 64):
+            pairs += sum(1 for i in range(n_kb)
+                         if not causal or i * bk <= r0 + 63)
+    return pairs * 2 * 3 * 2.0 * 64 * bk * d * b * h
+
+
+def k2_tf32x3_issued_flops(b, h, t, d, causal, tiles):
+    """TF32 FLOP the 3xTF32 K2 issues by its tile walk over its ``tiles``
+    (tf32x3_tiles): the dk/dv kernel's (64-key, BOX-query) pairs that a
+    warpgroup does not skip, four products each (S^T, dP^T, dV, dK), and
+    the dq kernel's (64-query, BOX-key) pairs, three each (S, dP, dQ);
+    three passes each."""
+    box, kv_rows, q_rows = tiles
+    n_b = -(-t // box)
+    kv_pairs = q_pairs = 0
+    for k0 in range(0, t, kv_rows):
+        qb0 = min(k0 // box, n_b) if causal else 0
+        for kw0 in range(k0, k0 + kv_rows, 64):
+            kv_pairs += sum(1 for qb in range(qb0, n_b)
+                            if not causal or qb * box + box - 1 >= kw0)
+    for q0 in range(0, t, q_rows):
+        n_kb = n_b
+        if causal:
+            n_kb = min(n_kb, (q0 + min(q_rows, t - q0) - 1) // box + 1)
+        for r0 in range(q0, q0 + q_rows, 64):
+            q_pairs += sum(1 for i in range(n_kb)
+                           if not causal or i * box <= r0 + 63)
+    return (kv_pairs * 4 + q_pairs * 3) * 3 * 2.0 * 64 * box * d * b * h
 
 
 def time_conv(torch, kernels):
@@ -1245,7 +1478,8 @@ def serve_slice(torch, mx, kernels):
         f"p99 {st['serving_p99_latency_us'] / 1e3:.2f} ms; "
         f"flash launches {launches} (by route {by_route})")
     want = LAYERS * 3 * len(pred.buckets)
-    if calls < 1 or by_route != built or built != {"tc": want, "simt": 0}:
+    if calls < 1 or by_route != built or built != {"tc": want, "tf32x3": 0,
+                                                   "simt": 0}:
         raise SystemExit(f"phase d: {launches} flash launches {by_route} "
                          f"for {calls} predict calls (want {LAYERS} "
                          "tensor-core launches at each bucket's 2 warm-up "
@@ -1363,9 +1597,10 @@ def profile_window(torch, fn, label, phase, kernel, top=8):
 # ------------------------------------------------------------------ phase e
 def model_vs_plain(torch, mx, kernels):
     """A 2-layer model of the slice's widths with the flash kernel against
-    the same weights with plain attention: in fp32 (the CUDA-core kernel;
-    max abs error within 1e-3) and in bf16 (the tensor-core kernel on the
-    model's strided q/k/v; max abs error within 3e-2 of max|logits|).
+    the same weights with plain attention: in fp32 (the 3xTF32 kernel on
+    the model's strided q/k/v; max abs error within 1e-3) and in bf16 (the
+    tensor-core kernel on the same views; max abs error within 3e-2 of
+    max|logits|).
     Returns {dtype: error}."""
     from mxnet_tpu_torch.gluon.model_zoo import transformer
 
@@ -1380,7 +1615,7 @@ def model_vs_plain(torch, mx, kernels):
     nets["dense"].load_numpy_params(nets["flash"].collect_params())
     ids = torch.randint(0, VOCAB, (2, T), generator=gen, device="cuda")
     errs = {}
-    for dtype, route in (("float32", "simt"), ("bfloat16", "tc")):
+    for dtype, route in (("float32", "tf32x3"), ("bfloat16", "tc")):
         if dtype != "float32":
             for net in nets.values():
                 net.cast(dtype)
@@ -1758,8 +1993,7 @@ def train_slice(torch, mx, kernels):
     tokens_per_s = BATCH * T / (median / 1e3)
     drop = losses[0] - losses[-1]
     ok = (all(math.isfinite(v) for v in losses) and drop >= 0.5
-          and all(k1 == {"tc": LAYERS, "simt": 0}
-                  and k2 == {"tc": LAYERS, "simt": 0}
+          and all(k1 == k2 == {"tc": LAYERS, "tf32x3": 0, "simt": 0}
                   for k1, k2 in per_step))
     log(f"[h] {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
         f"(drop {drop:.4f}, want >= 0.5); median step {median:.2f} ms over "
@@ -1821,7 +2055,9 @@ def train_vs_plain(torch, mx, kernels):
     are compared as max|a - b| / max|b| per parameter, without the key
     third of attn_qkv_bias, whose true gradient is 0 (a bias on every key
     shifts a row's logits by a constant) and which holds rounding noise on
-    both sides. Returns {dtype: {"loss": rel err, "grad": worst rel err}}.
+    both sides. fp32 runs K1 and K2 on their 3xTF32 route, bf16 on the
+    tensor-core one. Returns {dtype: {"loss": rel err, "grad": worst rel
+    err}}.
     """
     from mxnet_tpu_torch.gluon.model_zoo import transformer
 
@@ -1850,9 +2086,9 @@ def train_vs_plain(torch, mx, kernels):
         return g
 
     errs = {}
-    for dtype, loss_tol, grad_tol, why in (
-            ("float32", 1e-5, 1e-3, "f32 sums in other orders"),
-            ("bfloat16", 1e-2, 5e-2, "bf16 activations and gradients "
+    for dtype, route, loss_tol, grad_tol, why in (
+            ("float32", "tf32x3", 1e-5, 1e-3, "f32 sums in other orders"),
+            ("bfloat16", "tc", 1e-2, 5e-2, "bf16 activations and gradients "
              "(2^-8) rounded at other places; the plain path also rounds "
              "its logits and probabilities")):
         if dtype != "float32":
@@ -1862,14 +2098,17 @@ def train_vs_plain(torch, mx, kernels):
         l_flash, g_flash = grads(nets["flash"])
         launches = (kernels.flash_attention.launches,
                     kernels.flash_attention_backward.launches)
+        on_route = (kernels.flash_attention.launches_by_route[route],
+                    kernels.flash_attention_backward.launches_by_route[route])
         l_dense, g_dense = grads(nets["dense"])
         loss_err = abs(l_flash - l_dense) / abs(l_dense)
         worst = max((rel_err(trim(n, g_flash[n]), trim(n, g_dense[n])), n)
                     for n in g_flash)
-        ok = (math.isfinite(l_flash) and launches == (2, 2)
+        ok = (math.isfinite(l_flash) and launches == on_route == (2, 2)
               and loss_err <= loss_tol and worst[0] <= grad_tol)
         log(f"[i] 2-layer {dtype} training step, flash (K1 + K2: "
-            f"{launches}) vs plain attention: loss {l_flash:.5f} vs "
+            f"{launches}, on {route}: {on_route}) vs plain attention: loss "
+            f"{l_flash:.5f} vs "
             f"{l_dense:.5f} (rel {loss_err:.2e}, tol {loss_tol:g}); worst "
             f"gradient {worst[0]:.2e} of max|grad| in {worst[1]} (tol "
             f"{grad_tol:g}: {why}) {'ok' if ok else 'FAIL'}")
@@ -2321,7 +2560,9 @@ def graph_nodes(ex, name, parts=(), sig=None):
 def capture_kernels_alone(torch, kernels, capture):
     """Each route of K1, K2 and K3 captured alone in a graph, then replayed
     on new inputs copied into its static buffers: each replay bitwise equal
-    to an eager launch on those inputs, on the route it names."""
+    to an eager launch on those inputs, on the route it names (fp32 D=64
+    takes "tf32x3", whose graphs must hold one kernel node for K1 and three
+    for K2; fp32 D=80 the CUDA cores)."""
     gen = torch.Generator(device="cuda").manual_seed(31)
     bf16, f32 = torch.bfloat16, torch.float32
 
@@ -2329,11 +2570,11 @@ def capture_kernels_alone(torch, kernels, capture):
         return (torch.randn(shape, generator=gen, device="cuda")
                 * scale).to(dtype)
 
-    def attn(dtype):
-        return [rnd((2, 4, 256, 64), dtype) for _ in range(3)]
+    def attn(dtype, d=64):
+        return [rnd((2, 4, 256, d), dtype) for _ in range(3)]
 
-    def bwd_inputs(dtype):
-        q, k, v = attn(dtype)
+    def bwd_inputs(dtype, d=64):
+        q, k, v = attn(dtype, d)
         out, lse = kernels.flash_attention(q, k, v, causal=True,
                                            return_lse=True)
         return [q, k, v, out, lse, rnd(q.shape, dtype)]
@@ -2354,15 +2595,17 @@ def capture_kernels_alone(torch, kernels, capture):
         return list(kernels.conv3x3_bn_stats(x, w))
 
     cases = []
-    for route, dtype in (("tc", bf16), ("simt", f32)):
-        cases += [("K1", route, kernels.flash_attention, k1, attn(dtype),
-                   attn(dtype)),
+    for route, dtype, d in (("tc", bf16, 64), ("tf32x3", f32, 64),
+                            ("simt", f32, 80)):
+        cases += [("K1", route, kernels.flash_attention, k1,
+                   attn(dtype, d), attn(dtype, d), 1),
                   ("K2", route, kernels.flash_attention_backward, k2,
-                   bwd_inputs(dtype), bwd_inputs(dtype)),
-                  ("K3", route, kernels.conv3x3_bn_stats, k3, conv(dtype),
-                   conv(dtype))]
+                   bwd_inputs(dtype, d), bwd_inputs(dtype, d), 3)]
+        if route != "tf32x3":
+            cases.append(("K3", route, kernels.conv3x3_bn_stats, k3,
+                          conv(dtype), conv(dtype), None))
     records = []
-    for name, route, wrapper, fn, first, second in cases:
+    for name, route, wrapper, fn, first, second, want_nodes in cases:
         ex = capture.CapturedExec(fn, label=f"{name} {route} alone",
                                   device="cuda")
         before = wrapper.launches_by_route[route]
@@ -2374,11 +2617,13 @@ def capture_kernels_alone(torch, kernels, capture):
         torch.cuda.synchronize()
         same = all(torch.equal(g, w) for g, w in zip(got, want))
         nodes = graph_nodes(ex, f"{name}_{route}_alone")
-        ok = same and enqueued == 3 and replays == 0
+        ok = same and enqueued == 3 and replays == 0 and (
+            route != "tf32x3" or nodes["kernels"] == want_nodes)
         log(f"[l] {name} ({route}) captured alone: replay on new inputs "
             f"== eager launch bitwise: {same}; wrapper launches at warm-up "
             f"+ capture {enqueued} (want 3), at a replay {replays} (want 0); "
-            f"graph kernel nodes {nodes['kernels']} "
+            f"graph kernel nodes {nodes['kernels']}"
+            f"{f' (want {want_nodes})' if route == 'tf32x3' else ''} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"phase l: {name} ({route}) replayed from a "
@@ -2741,6 +2986,102 @@ def capture_phase(torch, mx, kernels):
             "serving": served}
 
 
+# ------------------------------------------------------------------ phase m
+def train_fp32_lm(torch, mx, kernels):
+    """Phase h's model and batch left in fp32, mxnet_tpu's default dtype:
+    GPT-2-small widths at full depth, B=8, T=1024, seeded Xavier weights,
+    gluon.Trainer Adam (lr 1e-3), SoftmaxCrossEntropyLoss, 10 eager steps.
+    Asserts finite losses, loss 10 at least 0.5 below loss 1, and exactly
+    12 K1 and 12 K2 launches a step, all on the 3xTF32 route; reports the
+    median step on the host clock (steps 2-10, profiler off), tokens/s and
+    peak memory; then profiles one more step for K1's and K2's device ms
+    and the step's busy time."""
+    from mxnet_tpu_torch.gluon.model_zoo import transformer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    net = transformer.transformer_lm(
+        vocab=VOCAB, units=UNITS, num_heads=HEADS, num_layers=LAYERS,
+        max_len=T, impl="flash", prefix="tlm_")
+    net.initialize(mx.init.Xavier(), generator=gen)   # fp32, gpu(0)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": LR})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    x, y = lm_batch(torch, BATCH, T, VOCAB)
+
+    def step():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y).mean()
+        loss.backward()
+        trainer.step(1)
+        return loss
+
+    # the main path: counts set to 0 just before it, read just after
+    zero_counts(kernels)
+    losses, step_ms, per_step = [], [], []
+    for i in range(TRAIN_STEPS):
+        k1 = dict(kernels.flash_attention.launches_by_route)
+        k2 = dict(kernels.flash_attention_backward.launches_by_route)
+        t0 = time.perf_counter()
+        losses.append(step().item())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append((
+            {r: n - k1[r] for r, n in
+             kernels.flash_attention.launches_by_route.items()},
+            {r: n - k2[r] for r, n in
+             kernels.flash_attention_backward.launches_by_route.items()}))
+        log(f"[m] step {i + 1}: loss {losses[-1]:.4f}, {step_ms[-1]:.2f} ms "
+            f"(host clock), K1 {per_step[-1][0]}, K2 {per_step[-1][1]}")
+    k1_total = kernels.flash_attention.launches
+    k1_by_route = dict(kernels.flash_attention.launches_by_route)
+    k2_total = kernels.flash_attention_backward.launches
+    k2_by_route = dict(kernels.flash_attention_backward.launches_by_route)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    timed = sorted(step_ms[1:])
+    median = timed[len(timed) // 2]
+    tokens_per_s = BATCH * T / (median / 1e3)
+    drop = losses[0] - losses[-1]
+    want = {"tc": 0, "tf32x3": LAYERS, "simt": 0}
+    ok = (all(math.isfinite(v) for v in losses) and drop >= 0.5
+          and all(a == b == want for a, b in per_step))
+    log(f"[m] fp32 LM, {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (drop {drop:.4f}, want >= 0.5); median step "
+        f"{median:.2f} ms over steps 2-{TRAIN_STEPS} (host clock, profiler "
+        f"off), {tokens_per_s:.1f} tokens/s; peak memory {peak_gib:.2f} GiB;"
+        f" K1 launches {k1_total} {k1_by_route}, K2 launches {k2_total} "
+        f"{k2_by_route} (want {LAYERS} K1 and {LAYERS} K2 a step, all "
+        f"tf32x3) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase m: the fp32 training step failed its checks")
+
+    torch.cuda.synchronize()
+    prof = profile_window(torch, step, "one fp32 training step", "m",
+                          ("flash_fwd", "flash_bwd"), top=12)
+    k1_ms = sum(r["ms"] for r in prof["all"] if "flash_fwd" in r["kernel"])
+    k2_ms = sum(r["ms"] for r in prof["all"] if "flash_bwd" in r["kernel"])
+    groups = step_breakdown(prof["all"])
+    busy = prof["device_busy_ms"]
+    log(f"[m] one fp32 step profiled: device busy {busy:.3f} ms of "
+        f"{prof['wall_ms']:.3f} ms wall (profiler on); K1 {k1_ms:.3f} ms "
+        f"({k1_ms / LAYERS:.4f} a launch), K2 {k2_ms:.3f} ms "
+        f"({k2_ms / LAYERS:.4f} a launch); by group:")
+    for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"[m]   {ms:9.3f} ms  x{n:<5d} {group} ({ms / busy:.1%})")
+    del net, trainer
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms, "median_step_ms": median,
+            "tokens_per_s": tokens_per_s, "peak_gib": peak_gib,
+            "k1_launches": k1_total, "k1_launches_by_route": k1_by_route,
+            "k2_launches": k2_total, "k2_launches_by_route": k2_by_route,
+            "profile": {"wall_ms": prof["wall_ms"], "device_busy_ms": busy,
+                        "launches": prof["launches"], "k1_ms": k1_ms,
+                        "k2_ms": k2_ms, "top": prof["top"],
+                        "groups": {g: {"ms": ms, "launches": n}
+                                   for g, (ms, n) in groups.items()}}}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2775,15 +3116,16 @@ def main(argv=None):
     for name in _build.SOURCES:
         for entry, usage in ptxas_usage(_build.build_log(name)):
             log(f"[a] ptxas {entry}: {usage}")
-            if name.endswith("_tc") and not re.search(
+            if name.endswith(("_tc", "_tf32x3")) and not re.search(
                     r"\b0 bytes spill stores, 0 bytes spill loads", usage):
                 raise SystemExit(f"phase a: {entry} spills registers")
 
-    checks, slice_err = check_flash(torch, kernels)
-    bwd_checks, bwd_slice_err = check_flash_bwd(torch, kernels)
+    checks, slice_err, slice_err32 = check_flash(torch, kernels)
+    bwd_checks, bwd_slice_err, bwd_slice_err32 = check_flash_bwd(torch,
+                                                                 kernels)
     conv_checks = check_conv(torch, kernels)
     if args.quick:
-        log("[quick] phase b passed; phases c-l skipped")
+        log("[quick] phase b passed; phases c-m skipped")
         return 0
     timing = time_flash(torch, kernels)
     bwd_timing = time_flash_bwd(torch, kernels)
@@ -2801,6 +3143,7 @@ def main(argv=None):
     k3_training = k3_at_training_shapes(
         torch, kernels, RESNET_BATCH, resnet_training["median_step_ms"])
     captured = capture_phase(torch, mx, kernels)
+    fp32_training = train_fp32_lm(torch, mx, kernels)
 
     # K3's four launches on the main path are one per ResNet-50 shape, so
     # its totals are over the four shapes at N=32; they take the
@@ -2809,13 +3152,20 @@ def main(argv=None):
     conv_flops = sum(r["flops"] for r in conv_timing)
     conv_bytes = sum(r["bytes"] for r in conv_timing)
     conv_bound_ms, conv_bound_by = bound(conv_flops, conv_bytes)
-    # K1 has two sources chosen by a fixed route; the LM's path takes the
-    # tensor-core one, whose numbers these are; fp32 takes the CUDA-core one
+    # K1 and K2 have three sources each, chosen by a fixed route: the bf16
+    # LM's path (phases d, h) takes "tc", whose numbers the first two
+    # entries hold; the fp32 LM's path (phase m) takes "tf32x3", whose
+    # numbers the last two entries hold; "simt" takes the rest
+    k1_sources = {"tc": "mxnet_tpu_torch/csrc/flash_attn_fwd_tc.cu",
+                  "tf32x3": "mxnet_tpu_torch/csrc/flash_attn_fwd_tf32x3.cu",
+                  "simt": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu"}
+    k2_sources = {"tc": "mxnet_tpu_torch/csrc/flash_attn_bwd_tc.cu",
+                  "tf32x3": "mxnet_tpu_torch/csrc/flash_attn_bwd_tf32x3.cu",
+                  "simt": "mxnet_tpu_torch/csrc/flash_attn_bwd.cu"}
     record = {"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd_tc.cu",
-        "sources": {"tc": "mxnet_tpu_torch/csrc/flash_attn_fwd_tc.cu",
-                    "simt": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu"},
+        "sources": k1_sources,
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:149",
         "launches": served["launches"],
         "launches_by_route": served["launches_by_route"],
@@ -2832,8 +3182,7 @@ def main(argv=None):
         "training_launches_by_route": training["k1_launches_by_route"]}, {
         "name": "flash_attn_bwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_bwd_tc.cu",
-        "sources": {"tc": "mxnet_tpu_torch/csrc/flash_attn_bwd_tc.cu",
-                    "simt": "mxnet_tpu_torch/csrc/flash_attn_bwd.cu"},
+        "sources": k2_sources,
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:241",
         "launches": training["k2_launches"],
         "launches_by_route": training["k2_launches_by_route"],
@@ -2879,7 +3228,38 @@ def main(argv=None):
             "shape", "count", "fwd_ms", "unfused_fwd_ms", "fwd_bwd_ms",
             "unfused_fwd_bwd_ms", "bound_ms", "bound_by")}
             for r in k3_training["per_shape"]],
-        "training_saved_fwd_bwd_ms": k3_training["saved_fwd_bwd_ms"]}]}
+        "training_saved_fwd_bwd_ms": k3_training["saved_fwd_bwd_ms"]}, {
+        # phase m's path: the fp32 LM's 12 K1 and 12 K2 launches a step
+        "name": "flash_attn_fwd_tf32x3", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_attn_fwd_tf32x3.cu",
+        "sources": k1_sources,
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:149",
+        "launches": fp32_training["k1_launches"],
+        "launches_by_route": fp32_training["k1_launches_by_route"],
+        "max_abs_err": slice_err32,
+        "check": "the fp32 cases of phase b within 1e-4",
+        "ms": timing["tf32x3_ms"], "plain_ms": timing["fp32_plain_ms"],
+        "bound_ms": timing["tf32x3_bound_ms"],
+        "bound_by": timing["tf32x3_bound_by"],
+        "library_ms": timing["fp32_library_ms"],
+        "strided_ms": timing["tf32x3_strided_ms"],
+        "simt_ms": timing["simt_fp32_ms"],
+        "step_device_ms": fp32_training["profile"]["k1_ms"]}, {
+        "name": "flash_attn_bwd_tf32x3", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_attn_bwd_tf32x3.cu",
+        "sources": k2_sources,
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:241",
+        "launches": fp32_training["k2_launches"],
+        "launches_by_route": fp32_training["k2_launches_by_route"],
+        "max_abs_err": bwd_slice_err32,
+        "check": "the fp32 cases of phase b within 1e-4 of max|ref|",
+        "ms": bwd_timing["fp32_ms"], "plain_ms": bwd_timing["fp32_plain_ms"],
+        "bound_ms": bwd_timing["tf32x3_bound_ms"],
+        "bound_by": bwd_timing["tf32x3_bound_by"],
+        "library_ms": bwd_timing["fp32_library_ms"],
+        "lm_layout_ms": bwd_timing["fp32_lm_layout_ms"],
+        "simt_ms": bwd_timing["simt_fp32_ms"],
+        "step_device_ms": fp32_training["profile"]["k2_ms"]}]}
     kind = torch.cuda.get_device_name(0)
     if args.summary:
         os.makedirs(os.path.dirname(os.path.abspath(args.summary)),
@@ -2895,6 +3275,7 @@ def main(argv=None):
                        "resnet_layout_err": layout_err,
                        "resnet_training": resnet_training,
                        "k3_training": k3_training, "capture": captured,
+                       "fp32_training": fp32_training,
                        **record}, f,
                       indent=1)
     log(card)

@@ -375,7 +375,7 @@ extern "C" int flash_attn_fwd_tc(const void* q, const void* k, const void* v,
   return ERR_SHAPE;
 }
 
-extern "C" const char* flash_attn_tc_error_string(int err) {
+extern "C" const char* flash_attn_fwd_tc_error_string(int err) {
   switch (err) {
     case ERR_NO_ENCODER:
       return "cuTensorMapEncodeTiled is not available from the driver";

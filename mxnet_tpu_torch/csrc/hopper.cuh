@@ -1,10 +1,13 @@
 // Device and host helpers shared by the port's Hopper (sm_90a) kernels:
-// csrc/flash_attn_fwd_tc.cu (K1), csrc/flash_attn_bwd_tc.cu (K2) and
+// csrc/flash_attn_fwd_tc.cu and csrc/flash_attn_fwd_tf32x3.cu (K1),
+// csrc/flash_attn_bwd_tc.cu and csrc/flash_attn_bwd_tf32x3.cu (K2) and
 // csrc/conv3x3_bn_stats_tc.cu (K3) include it. It holds the mbarrier ring
 // primitives, TMA loads (tiled, im2col and plain bulk), the descriptor of a
-// 128-byte-swizzled shared-memory tile, the warpgroup products (wgmma) with
-// both operands in shared memory or A in registers, the 16-bit packing and
-// hi + lo split of f32 values, and the host's tensor-map encoding.
+// 128-byte-swizzled shared-memory tile, the warpgroup products (wgmma) in
+// 16-bit and TF32 with both operands in shared memory or A in registers,
+// the 16-bit packing and hi + lo split of f32 values, the TF32 hi + lo
+// split of f32 tiles in shared memory (3xTF32), and the host's tensor-map
+// encoding.
 //
 // ops/_build.py hashes this file into the digest of every source that
 // includes it, so editing it rebuilds them all. Everything here has
@@ -279,6 +282,68 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
   }
 }
 
+// D (64 x N, f32) = or += A (64 x 8) B (8 x N) in TF32, both from shared
+// memory, both K-major (TF32 has no transpose flags); acc = 0 overwrites D.
+// Each 32-bit operand is read as TF32: callers pass values that
+// cvt.rna.tf32.f32 produced (split_tf32).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tf32(float* d, uint64_t da,
+                                              uint64_t db, int acc) {
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(acc));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(acc));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(acc));
+  } else {
+    static_assert(N == 0, "wgmma_ss_tf32: no such shape");
+  }
+}
+
+// D (64 x N, f32) += A (64 x 8) B (8 x N) in TF32: A from registers (4 x
+// b32 a thread, see tf32_a_fragment below), B K-major from shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    static_assert(N == 0, "wgmma_rs_tf32: no such shape");
+  }
+}
+
 // Accumulator fragment of wgmma m64nN f32, for the thread at lane
 // (g = lane / 4, c = lane % 4) of warp w in its warpgroup: register
 // 4j + e holds row 16w + g + 8 (e / 2), column 8j + 2c + e % 2. The
@@ -319,6 +384,125 @@ template <> __device__ __forceinline__ void split2<__half>(
   lo = pack2<__half>(a - h.x, b - h.y);
 }
 
+// ----------------------------------------------------------------- TF32
+// fp32 products on the tensor cores as 3xTF32: each f32 operand x is split
+// into hi = rna_tf32(x) and lo = rna_tf32(x - hi) (x - hi is exact in
+// f32), and a b is taken as lo_a hi_b + hi_a lo_b + hi_a hi_b with f32
+// accumulation. Only lo_a lo_b (~2^-22 of |a b|) is dropped. A TF32 row of
+// a 128-byte-swizzled tile holds PANEL32 values; a k8 step is 32 bytes, as
+// a bf16 k16 step is, so sw128_desc serves both.
+constexpr int PANEL32 = 32;             // f32 columns per swizzled row
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// Makes this thread's shared-memory stores visible to the async proxy
+// (wgmma, TMA); a barrier among the threads must follow before the read.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Byte offset of f32 element (row, col) in a 128-byte-swizzled panel
+// (col < 32) whose base is 1024-byte aligned.
+__device__ __forceinline__ int sw128(int row, int col) {
+  return row * ROW_BYTES + ((((col >> 2) ^ row) & 7) << 4) + (col & 3) * 4;
+}
+
+// TF32 A fragment of wgmma m64k8: the thread at lane (g, c) holds
+// (row g, col c), (g + 8, c), (g, c + 4), (g + 8, c + 4) of its warp's 16
+// rows. An f32 accumulator fragment holds columns 2c and 2c + 1 of each
+// 8-column group instead (see below), so a product's result becomes the
+// next product's A operand when the reduction index j of each k8 step is
+// stored at column frag_col(j) of the B tile: j = 2c goes to c, j = 2c + 1
+// to c + 4. The A registers of step kk are then accumulator registers
+// 4kk + {0, 2, 1, 3}.
+__device__ __forceinline__ int frag_col(int j) {
+  return (j & ~7) | ((j & 7) >> 1) | ((j & 1) << 2);
+}
+
+template <int N>
+__device__ __forceinline__ void tf32_a_fragment(const float* acc,
+                                                uint32_t (*hi)[4],
+                                                uint32_t (*lo)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+    split_tf32(acc[4 * kk + 0], hi[kk][0], lo[kk][0]);
+    split_tf32(acc[4 * kk + 2], hi[kk][1], lo[kk][1]);
+    split_tf32(acc[4 * kk + 1], hi[kk][2], lo[kk][2]);
+    split_tf32(acc[4 * kk + 3], hi[kk][3], lo[kk][3]);
+  }
+}
+
+// A tile of `bytes` f32 (any layout) split in place into its hi part, the
+// lo part at the same offsets from `lo`; thread tid of n, 16 bytes a step.
+__device__ __forceinline__ void split_tile(uint8_t* src, uint8_t* lo,
+                                           int bytes, int tid, int n) {
+  for (int i = tid * 16; i < bytes; i += n * 16) {
+    const float4 x = *reinterpret_cast<const float4*>(src + i);
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(src + i) = h;
+    *reinterpret_cast<uint4*>(lo + i) = l;
+  }
+}
+
+// A TMA-loaded tile of R rows by D f32 columns (D / 32 swizzled panels of
+// R rows, one after the other) written transposed into `dst`: D rows by
+// 2R columns in panels of 32 columns (D rows each), hi of row r at column
+// frag_col(r), lo at R + frag_col(r), so that the tile is the K-major B
+// operand of a product that reduces over the R rows, hi and lo alike.
+// With NATURAL the source is also split in place (hi) with lo at the same
+// offsets from `lo`, by the thread that reads it. A warp's 32 threads take
+// 32 rows of one 4-column chunk: every access is free of bank conflicts.
+template <int R, int D, bool NATURAL>
+__device__ __forceinline__ void split_tile_t(uint8_t* src, uint8_t* lo,
+                                             uint8_t* dst, int tid, int n) {
+  constexpr int PANEL_BYTES = D * ROW_BYTES;
+  for (int i = tid; i < R * D / 4; i += n) {
+    const int r = i % R, x0 = (i / R) * 4;
+    const int at = (x0 / PANEL32) * R * ROW_BYTES + sw128(r, x0 % PANEL32);
+    const float4 v = *reinterpret_cast<const float4*>(src + at);
+    const float e[4] = {v.x, v.y, v.z, v.w};
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) split_tf32(e[k], h[k], l[k]);
+    if constexpr (NATURAL) {
+      *reinterpret_cast<uint4*>(src + at) = make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
+    }
+    const int yh = frag_col(r), yl = R + yh;
+    uint8_t* ph = dst + (yh / PANEL32) * PANEL_BYTES;
+    uint8_t* pl = dst + (yl / PANEL32) * PANEL_BYTES;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      *reinterpret_cast<uint32_t*>(ph + sw128(x0 + k, yh % PANEL32)) = h[k];
+      *reinterpret_cast<uint32_t*>(pl + sw128(x0 + k, yl % PANEL32)) = l[k];
+    }
+  }
+}
+
+// Descriptor of k8 step kk of such a transposed tile (R reduction rows):
+// its hi part, or with `lo` its lo part.
+template <int R, int D>
+__device__ __forceinline__ uint64_t t_desc(const uint8_t* dst, int kk,
+                                           bool lo) {
+  const int y = (lo ? R : 0) + 8 * kk;
+  return sw128_desc(dst + (y / PANEL32) * D * ROW_BYTES + (y % PANEL32) * 4,
+                    16, 1024);
+}
+
 // The 4-D tensor-map coordinates (c1, c2, c3) of row t, head h, batch b:
 // pos packs the map position (1..3) of T, H and B in 2 bits each (see
 // make_map).
@@ -356,12 +540,14 @@ inline void* driver_entry(const char* name) {
 }
 
 // A 4-D map (D, then T, H, B in the order of increasing stride) over a
-// tensor of 16-bit elements with element strides st, sh, sb; boxes of 64
-// columns by `rows` rows of T, 128-byte swizzled, rows past T zero-filled.
-// *pos receives the map positions of T, H and B (see coords).
-inline int make_map(CUtensorMap* map, const void* ptr, bool f16, int d,
-                    int t, int h, int b, long long st, long long sh,
-                    long long sb, int rows, int* pos) {
+// tensor of `elem`-byte elements of `type` with element strides st, sh,
+// sb; boxes of 128 bytes of D by `rows` rows of T, 128-byte swizzled, rows
+// past T zero-filled. *pos receives the map positions of T, H and B (see
+// coords).
+inline int encode_map(CUtensorMap* map, const void* ptr,
+                      CUtensorMapDataType type, int elem, int d, int t, int h,
+                      int b, long long st, long long sh, long long sb,
+                      int rows, int* pos) {
   static const EncodeTiled enc =
       reinterpret_cast<EncodeTiled>(driver_entry("cuTensorMapEncodeTiled"));
   if (!enc) return ERR_NO_ENCODER;
@@ -376,24 +562,40 @@ inline int make_map(CUtensorMap* map, const void* ptr, bool f16, int d,
       }
   cuuint64_t gdim[4] = {cuuint64_t(d)};
   cuuint64_t gstride[3];
-  cuuint32_t box[4] = {cuuint32_t(PANEL)};
+  cuuint32_t box[4] = {cuuint32_t(ROW_BYTES / elem)};
   cuuint32_t estride[4] = {1, 1, 1, 1};
   *pos = 0;
   for (int i = 0; i < 3; ++i) {
     const int which = order[i];
     gdim[i + 1] = cuuint64_t(size[which]);
-    gstride[i] = cuuint64_t(stride[which]) * 2;
+    gstride[i] = cuuint64_t(stride[which]) * elem;
     box[i + 1] = which == 0 ? cuuint32_t(rows) : 1;
     *pos |= (i + 1) << (2 * which);
   }
-  CUresult r = enc(map,
-                   f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                   4, const_cast<void*>(ptr), gdim, gstride, box, estride,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult r = enc(map, type, 4, const_cast<void*>(ptr), gdim, gstride, box,
+                   estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                   CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
+}
+
+// encode_map over bf16 (or, with f16, fp16) elements: boxes of 64 columns.
+inline int make_map(CUtensorMap* map, const void* ptr, bool f16, int d,
+                    int t, int h, int b, long long st, long long sh,
+                    long long sb, int rows, int* pos) {
+  return encode_map(map, ptr,
+                    f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    2, d, t, h, b, st, sh, sb, rows, pos);
+}
+
+// encode_map over f32 elements: boxes of PANEL32 columns.
+inline int make_map_f32(CUtensorMap* map, const void* ptr, int d, int t,
+                        int h, int b, long long st, long long sh,
+                        long long sb, int rows, int* pos) {
+  return encode_map(map, ptr, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, d, t, h, b,
+                    st, sh, sb, rows, pos);
 }
 
 // Raises `kernel`'s dynamic shared memory limit to `bytes` once per device

@@ -25,8 +25,9 @@ __all__ = ["load", "build_all", "build_log", "SOURCES"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_attn_fwd", "flash_attn_fwd_tc", "flash_attn_bwd",
-           "flash_attn_bwd_tc", "conv3x3_bn_stats", "conv3x3_bn_stats_tc")
+SOURCES = ("flash_attn_fwd", "flash_attn_fwd_tc", "flash_attn_fwd_tf32x3",
+           "flash_attn_bwd", "flash_attn_bwd_tc", "flash_attn_bwd_tf32x3",
+           "conv3x3_bn_stats", "conv3x3_bn_stats_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -2,11 +2,14 @@
 
 K1, the flash-attention forward, replaces the TPU kernel
 ``mxnet_tpu/ops/pallas_kernels.py:_mha_kernel`` (built by ``_build_flash``,
-entered through ``flash_attention``). It has two CUDA sources, chosen by
+entered through ``flash_attention``). It has three CUDA sources, chosen by
 the fixed rule of :func:`_flash_route`: ``csrc/flash_attn_fwd_tc.cu`` on
 the tensor cores (wgmma + TMA; 16-bit, D 64 or 128, any 16-byte-aligned
-layout with a unit-stride D) and ``csrc/flash_attn_fwd.cu`` on the CUDA
-cores (everything else, after ``.contiguous()``).
+layout with a unit-stride D), ``csrc/flash_attn_fwd_tf32x3.cu`` on the
+tensor cores in fp32 as 3xTF32 (route "tf32x3": f32 operands split into
+TF32 hi and lo parts, three wgmma passes; D 64 or 128, the same layouts)
+and ``csrc/flash_attn_fwd.cu`` on the CUDA cores (everything else, after
+``.contiguous()``).
 
 K3, the fused 3x3 conv + BatchNorm statistics, replaces the TPU kernel
 ``mxnet_tpu/ops/pallas_kernels.py:conv3x3_bn_stats``, and
@@ -19,12 +22,13 @@ source's header says what bounds it on the H100 and how it is laid out.
 
 K2, the flash-attention backward, replaces
 ``mxnet_tpu/ops/pallas_kernels.py:_flash_bwd_blockwise`` (a ``lax.scan``
-there), behind :func:`flash_attention_backward`. It has two CUDA sources,
-chosen by the fixed rule of :func:`_flash_bwd_route`:
+there), behind :func:`flash_attention_backward`. It has three CUDA
+sources, chosen by the fixed rule of :func:`_flash_bwd_route`:
 ``csrc/flash_attn_bwd_tc.cu`` on the tensor cores (wgmma + TMA; 16-bit, D
 64 or 128, 16-byte-aligned rows; dq, dk, dv written through their own
-strides) and ``csrc/flash_attn_bwd.cu`` on the CUDA cores (everything
-else). :class:`_FlashAttention` pairs it with K1 as one
+strides), ``csrc/flash_attn_bwd_tf32x3.cu`` (route "tf32x3": fp32 as
+3xTF32 on wgmma + TMA, the same layouts) and ``csrc/flash_attn_bwd.cu``
+on the CUDA cores (everything else). :class:`_FlashAttention` pairs it with K1 as one
 ``torch.autograd.Function``, entered through
 :func:`flash_attention_with_grad` and :func:`flash_attention_with_lse`;
 :class:`_FlashAttentionQKV` does the same over the qkv projection's packed
@@ -65,7 +69,8 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_backward", "flash_attention_backward_reference",
            "flash_attention_with_grad", "flash_attention_with_lse",
            "flash_attention_qkv", "conv3x3_bn_stats",
-           "conv3x3_bn_stats_reference", "conv3x3_bn_relu_train"]
+           "conv3x3_bn_stats_reference", "conv3x3_bn_relu_train",
+           "tf32_split_reference"]
 
 _NEG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -135,23 +140,57 @@ def flash_attention_reference(q, k, v, causal=False, scale=None,
 
 
 _TC_MAX_T = 65535 * 128      # the tensor-core grid's Q tiles, 128 rows each
+_TF32_MAX_T = 65535 * 64     # the 3xTF32 grids' tiles, at least 64 rows each
+
+
+def _tma_layout(strides, ptrs, elems):
+    """Whether operands given by their (B, H, T, D) element strides and
+    base addresses can be read by TMA in place: unit stride in D, every
+    other stride a positive multiple of ``elems`` elements (16 bytes) and
+    16-byte-aligned bases."""
+    for st in strides:
+        if st[3] != 1 or any(x <= 0 or x % elems for x in st[:3]):
+            return False
+    return all(p % 16 == 0 for p in ptrs)
 
 
 def _flash_route(dtype, d, strides, ptrs, t):
-    """Which K1 kernel takes these inputs: "tc" (tensor cores) for bf16 or
-    fp16, D of 64 or 128, T up to 65535 * 128, and q, k, v (given by their
-    (B, H, T, D) element strides and base addresses) with unit stride in
-    D, every other stride a positive multiple of 8 elements (16 bytes) and
-    16-byte-aligned bases; "simt" (CUDA cores, contiguous copies) for
-    everything else. A fixed rule, not a fall-back: a failure of the
-    chosen kernel raises."""
-    if (dtype not in (torch.bfloat16, torch.float16) or d not in (64, 128)
-            or t > _TC_MAX_T):
+    """Which K1 kernel takes these inputs (q, k, v given by their (B, H,
+    T, D) element strides and base addresses): "tc" (tensor cores) for
+    bf16 or fp16, "tf32x3" (tensor cores, 3xTF32) for fp32, each with D of
+    64 or 128, unit stride in D, every other stride a positive multiple of
+    16 bytes (8 or 4 elements), 16-byte-aligned bases and T up to its
+    grid's limit (65535 * 128, 65535 * 64); "simt" (CUDA cores, contiguous
+    copies) for everything else. A fixed rule, not a fall-back: a failure
+    of the chosen kernel raises."""
+    if d not in (64, 128):
         return "simt"
-    for st in strides:
-        if st[3] != 1 or any(x <= 0 or x % 8 for x in st[:3]):
-            return "simt"
-    return "tc" if all(p % 16 == 0 for p in ptrs) else "simt"
+    if dtype in (torch.bfloat16, torch.float16):
+        ok = t <= _TC_MAX_T and _tma_layout(strides, ptrs, 8)
+        return "tc" if ok else "simt"
+    if dtype == torch.float32:
+        ok = t <= _TF32_MAX_T and _tma_layout(strides, ptrs, 4)
+        return "tf32x3" if ok else "simt"
+    return "simt"
+
+
+def tf32_split_reference(x):
+    """The plain version of the 3xTF32 kernels' operand split: f32 x as
+    (hi, lo), hi = x rounded to TF32 (10 mantissa bits, the low 13 bits
+    zero) to nearest with ties away from zero, as ``cvt.rna.tf32.f32``
+    rounds, and lo = the same rounding of x - hi (exact in f32). hi + lo
+    holds x to within ~2^-22 of |x|; a product a b is taken as
+    lo_a hi_b + hi_a lo_b + hi_a hi_b. Used by the tests and chip_smoke.py
+    to emulate the kernels' products on the CPU."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        rounded = (bits + 0x1000) & -0x2000
+        special = (bits & 0x7F800000) == 0x7F800000   # inf, nan: kept
+        return torch.where(special, bits, rounded).view(torch.float32)
+
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
 
 
 def _tma_strides(x):
@@ -176,24 +215,38 @@ def _library():
     return lib
 
 
-def _tc_library():
-    lib = _build.load("flash_attn_fwd_tc")
-    fn = lib.flash_attn_fwd_tc
+# route -> the tensor-core K1 and K2 entry points; each library also
+# exports "<entry>_error_string", and a route's two entries share one C
+# signature (the dtype code included)
+_TC_ENTRY = {"tc": ("flash_attn_fwd_tc", "flash_attn_bwd_tc"),
+             "tf32x3": ("flash_attn_fwd_tf32x3", "flash_attn_bwd_tf32x3")}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_TC_ARGS = ([_P] * 5 + [_I] * 4 + [_P, _I, _F, _I, _I, _I, _P],
+            [_P] * 7 + [_I] * 5 + [_F, _I, _I, _I, _P])
+
+
+def _bind(lib, name, argtypes):
+    """``lib``'s entry point ``name`` and its ``name``_error_string,
+    typed once."""
+    fn, why = getattr(lib, name), getattr(lib, name + "_error_string")
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, p, i, ctypes.c_float, i,
-                       i, i, p]
-        fn.restype = ctypes.c_int
-        lib.flash_attn_tc_error_string.argtypes = [i]
-        lib.flash_attn_tc_error_string.restype = ctypes.c_char_p
-    return lib
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        why.argtypes, why.restype = [ctypes.c_int], ctypes.c_char_p
+    return fn, why
 
 
-def _launch_tc(q, k, v, causal, scale, q_offset, k_offset):
-    """The tensor-core K1 on q, k, v as they lie (strided views welcome).
-    O is written into (B, T, H, D) memory and returned as its (B, H, T, D)
-    view, so merging the heads afterwards is free."""
-    lib = _tc_library()
+def _tc_library(route):
+    """The library of K1's tensor-core kernel for ``route``."""
+    return _build.load(_TC_ENTRY[route][0])
+
+
+def _launch_tc(q, k, v, causal, scale, q_offset, k_offset, route="tc"):
+    """A tensor-core K1 (``route`` "tc", or "tf32x3" for fp32) on q, k, v
+    as they lie (strided views welcome). O is written into (B, T, H, D)
+    memory and returned as its (B, H, T, D) view, so merging the heads
+    afterwards is free."""
+    name = _TC_ENTRY[route][0]
+    fn, why = _bind(_tc_library(route), name, _TC_ARGS[0])
     b, h, t, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t, 1), dtype=torch.float32, device=q.device)
@@ -201,14 +254,12 @@ def _launch_tc(q, k, v, causal, scale, q_offset, k_offset):
         *(s for x in (q, k, v) for s in _tma_strides(x)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attn_fwd_tc(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, h, t, d, strides, _DTYPE_CODE[q.dtype],
-            float(scale), int(bool(causal)), int(q_offset), int(k_offset),
-            stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), b, h, t, d, strides, _DTYPE_CODE[q.dtype],
+                 float(scale), int(bool(causal)), int(q_offset),
+                 int(k_offset), stream)
     if err:
-        raise MXNetError("flash_attn_fwd_tc launch failed: "
-                         f"{lib.flash_attn_tc_error_string(err).decode()} "
+        raise MXNetError(f"{name} launch failed: {why(err).decode()} "
                          f"(error {err})")
     return out.transpose(1, 2), lse
 
@@ -237,8 +288,9 @@ def _launch(q, k, v, causal, scale, q_offset, k_offset):
     route = _flash_route(q.dtype, q.shape[-1],
                          [_tma_strides(x) + (x.stride(3),) for x in qkv],
                          [x.data_ptr() for x in qkv], q.shape[2])
-    if route == "tc":
-        out, lse = _launch_tc(q, k, v, causal, scale, q_offset, k_offset)
+    if route in ("tc", "tf32x3"):
+        out, lse = _launch_tc(q, k, v, causal, scale, q_offset, k_offset,
+                              route)
     else:
         out, lse = _launch_simt(q.contiguous(), k.contiguous(),
                                 v.contiguous(), causal, scale, q_offset,
@@ -257,8 +309,8 @@ def flash_attention(q, k, v, causal=False, scale=None, return_lse=False,
     global sequence for causal masking (the ring-attention hop case).
     ``scale`` defaults to 1/sqrt(D). Self-attention shapes only, D <= 256,
     float32/bfloat16/float16; any T and any strides. On CUDA,
-    :func:`_flash_route` picks the kernel; on its tensor-core route O is
-    the (B, H, T, D) view of (B, T, H, D) memory.
+    :func:`_flash_route` picks the kernel; on its tensor-core routes ("tc",
+    "tf32x3") O is the (B, H, T, D) view of (B, T, H, D) memory.
     """
     _check(q, k, v, q_offset, k_offset)
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
@@ -274,7 +326,7 @@ def flash_attention(q, k, v, causal=False, scale=None, return_lse=False,
 
 
 flash_attention.launches = 0
-flash_attention.launches_by_route = {"tc": 0, "simt": 0}
+flash_attention.launches_by_route = {"tc": 0, "tf32x3": 0, "simt": 0}
 
 
 # ----------------------------------------------------------------------- K2
@@ -342,16 +394,9 @@ def _bwd_library():
     return lib
 
 
-def _bwd_tc_library():
-    lib = _build.load("flash_attn_bwd_tc")
-    fn = lib.flash_attn_bwd_tc
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 7 + [i, i, i, i, i, ctypes.c_float, i, i, i, p]
-        fn.restype = ctypes.c_int
-        lib.flash_attn_bwd_tc_error_string.argtypes = [i]
-        lib.flash_attn_bwd_tc_error_string.restype = ctypes.c_char_p
-    return lib
+def _bwd_tc_library(route):
+    """The library of K2's tensor-core kernel for ``route``."""
+    return _build.load(_TC_ENTRY[route][1])
 
 
 _BWD_TC_ROWS = 128           # lse and delta rows are padded to this
@@ -360,11 +405,12 @@ _BWD_TC_MAX_T = 65535 * 64   # the grids' tiles, at least 64 rows each
 
 def _flash_bwd_route(dtype, d, strides, ptrs, t):
     """Which K2 kernel takes these operands (q, k, v, O, dO, given as for
-    :func:`_flash_route`): "tc" (tensor cores, wgmma + TMA) under K1's rule
-    for its tensor-core kernel -- bf16 or fp16, D of 64 or 128, unit
-    stride in D, every other stride a positive multiple of 8 elements,
-    16-byte-aligned bases -- and T up to 65535 * 64; "simt" (CUDA cores)
-    for everything else. A fixed rule, not a fall-back."""
+    :func:`_flash_route`): K1's rule for its tensor-core kernels -- "tc"
+    (wgmma + TMA) for bf16 or fp16, "tf32x3" (3xTF32 on wgmma + TMA) for
+    fp32, each with D of 64 or 128, unit stride in D, every other stride a
+    positive multiple of 16 bytes, 16-byte-aligned bases -- and T up to
+    65535 * 64; "simt" (CUDA cores) for everything else. A fixed rule, not
+    a fall-back."""
     if t > _BWD_TC_MAX_T:
         return "simt"
     return _flash_route(dtype, d, strides, ptrs, t)
@@ -388,10 +434,12 @@ def _check_grads(grads, q):
 
 
 def _launch_bwd_tc(ops, lse, dlse, grads, causal, scale, q_offset,
-                   k_offset):
-    """The tensor-core K2 on q, k, v, O, dO (``ops``) as they lie, writing
-    dq, dk, dv into ``grads`` through their strides."""
-    lib = _bwd_tc_library()
+                   k_offset, route="tc"):
+    """A tensor-core K2 (``route`` "tc", or "tf32x3" for fp32) on q, k, v,
+    O, dO (``ops``) as they lie, writing dq, dk, dv into ``grads`` through
+    their strides."""
+    name = _TC_ENTRY[route][1]
+    fn, why = _bind(_bwd_tc_library(route), name, _TC_ARGS[1])
     b, h, t, d = ops[0].shape
     t_pad = -(-t // _BWD_TC_ROWS) * _BWD_TC_ROWS
     scratch = torch.empty((2, b * h, t_pad), dtype=torch.float32,
@@ -402,18 +450,16 @@ def _launch_bwd_tc(ops, lse, dlse, grads, causal, scale, q_offset,
                                           for s in _tma_strides(x)))
     out_strides = (ctypes.c_longlong * 9)(*(s for g in grads
                                              for s in g.stride()[:3]))
+    dl = None if dlse is None else dlse.data_ptr()
     with torch.cuda.device(ops[0].device):
         stream = torch.cuda.current_stream(ops[0].device).cuda_stream
-        err = lib.flash_attn_bwd_tc(
-            ins, strides, lse.data_ptr(),
-            None if dlse is None else dlse.data_ptr(), scratch.data_ptr(),
-            outs, out_strides, b, h, t, d, _DTYPE_CODE[ops[0].dtype],
-            float(scale), int(bool(causal)), int(q_offset), int(k_offset),
-            stream)
+        err = fn(ins, strides, lse.data_ptr(), dl, scratch.data_ptr(), outs,
+                 out_strides, b, h, t, d, _DTYPE_CODE[ops[0].dtype],
+                 float(scale), int(bool(causal)), int(q_offset),
+                 int(k_offset), stream)
     if err:
-        raise MXNetError("flash_attn_bwd_tc launch failed: "
-                         f"{lib.flash_attn_bwd_tc_error_string(err).decode()}"
-                         f" (error {err})")
+        raise MXNetError(f"{name} launch failed: {why(err).decode()} "
+                         f"(error {err})")
 
 
 def _launch_bwd_simt(ops, lse, dlse, causal, scale, q_offset, k_offset):
@@ -447,7 +493,7 @@ def _launch_bwd(q, k, v, out, lse, dout, dlse, causal, scale, q_offset,
     D; others are copied), lse and dlse as contiguous f32; ``route``
     overrides :func:`_flash_bwd_route` with "simt", for design
     measurements. Writes into ``grads`` (dq, dk, dv) when given: the
-    tensor-core kernel through their strides, the CUDA-core one by a copy
+    tensor-core kernels through their strides, the CUDA-core one by a copy
     of its contiguous results."""
     ops = [x if x.stride(3) == 1 else x.contiguous()
            for x in (q, k, v, out, dout)]
@@ -456,12 +502,12 @@ def _launch_bwd(q, k, v, out, lse, dout, dlse, causal, scale, q_offset,
         [x.data_ptr() for x in ops], q.shape[2])
     lse = lse.contiguous()
     dlse = None if dlse is None else dlse.float().contiguous()
-    if route == "tc":
+    if route in ("tc", "tf32x3"):
         if grads is None:
             grads = [torch.empty_like(q, memory_format=torch.contiguous_format)
                      for _ in range(3)]
         _launch_bwd_tc(ops, lse, dlse, grads, causal, scale, q_offset,
-                       k_offset)
+                       k_offset, route)
     else:
         got = _launch_bwd_simt(ops, lse, dlse, causal, scale, q_offset,
                                k_offset)
@@ -509,7 +555,8 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal=False,
 
 
 flash_attention_backward.launches = 0
-flash_attention_backward.launches_by_route = {"tc": 0, "simt": 0}
+flash_attention_backward.launches_by_route = {"tc": 0, "tf32x3": 0,
+                                              "simt": 0}
 
 
 class _FlashAttention(torch.autograd.Function):

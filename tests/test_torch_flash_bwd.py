@@ -207,10 +207,12 @@ def test_cpu_backward_counts_no_launch_and_builds_nothing():
     assert q.grad is not None
     assert kernels.flash_attention_backward.launches == before
     assert set(kernels.flash_attention_backward.launches_by_route) == {
-        "tc", "simt"}
+        "tc", "tf32x3", "simt"}
     assert "flash_attn_bwd" not in _build._libs
     assert "flash_attn_bwd_tc" not in _build._libs
-    assert {"flash_attn_bwd", "flash_attn_bwd_tc"} <= set(_build.SOURCES)
+    assert "flash_attn_bwd_tf32x3" not in _build._libs
+    assert {"flash_attn_bwd", "flash_attn_bwd_tc",
+            "flash_attn_bwd_tf32x3"} <= set(_build.SOURCES)
 
 
 def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
@@ -226,6 +228,7 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
              if [h.name for h in _build._headers(tmp_path / f"{n}.cu")]
              == ["hopper.cuh"]}
     assert users == {"flash_attn_fwd_tc", "flash_attn_bwd_tc",
+                     "flash_attn_fwd_tf32x3", "flash_attn_bwd_tf32x3",
                      "conv3x3_bn_stats_tc"}
     header = tmp_path / "hopper.cuh"
     header.write_text(header.read_text() + "// edited\n")
@@ -248,7 +251,7 @@ BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
     (BF16, 64, _lm_strides(8, 12, 1024, 64), [0, 128, 256, 0, 0], 1024,
      "tc"),
     (F16, 128, _lm_strides(2, 4, 300, 128), [16] * 5, 300, "tc"),
-    (F32, 64, _lm_strides(2, 4, 256, 64), [0] * 5, 256, "simt"),
+    (F32, 64, _lm_strides(2, 4, 256, 64), [0] * 5, 256, "tf32x3"),
     (BF16, 80, _lm_strides(1, 2, 300, 80), [0] * 5, 300, "simt"),
     (BF16, 256, _lm_strides(1, 2, 256, 256), [0] * 5, 256, "simt"),
     (BF16, 64, _lm_strides(2, 4, 256, 64), [0, 0, 0, 0, 8], 256, "simt"),
@@ -260,10 +263,10 @@ BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
 ], ids=["lm_bf16", "fp16_d128", "fp32", "d80", "d256", "misaligned_dout",
         "row_stride_not_8", "t_at_grid_edge", "t_past_grid"])
 def test_backward_route_rule(dtype, d, strides, ptrs, t, want):
-    """The tensor-core K2 takes 16-bit D 64/128 operands whose rows are
-    16-byte aligned (the LM's strided layout among them) and T up to its
-    grids' 65535 tiles of (at least) 64 rows; the CUDA-core kernel
-    everything else."""
+    """The tensor-core K2 takes 16-bit ("tc") and fp32 ("tf32x3") D 64/128
+    operands whose rows are 16-byte aligned (the LM's strided layout among
+    them) and T up to its grids' 65535 tiles of (at least) 64 rows; the
+    CUDA-core kernel everything else."""
     assert kernels._BWD_TC_MAX_T == 65535 * 64
     assert kernels._flash_bwd_route(dtype, d, strides, ptrs, t) == want
 
@@ -273,8 +276,8 @@ def test_backward_route_rule(dtype, d, strides, ptrs, t, want):
                                      ("float16", 128)])
 def test_kernel_matches_plain_on_card(dtype, d):
     """On the card: K2 on the LM's strided q/k/v, K1's O and a strided dO
-    (fp32 on the CUDA cores, bf16 and fp16 D=128 on the tensor cores,
-    wgmma + TMA), against its plain version (fp32 within 1e-4 of max|ref|;
+    (fp32 as 3xTF32 and bf16 and fp16 D=128 on the tensor cores, wgmma +
+    TMA), against its plain version (fp32 within 1e-4 of max|ref|;
     16-bit within 4 output ulps); a second launch is bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -286,7 +289,7 @@ def test_kernel_matches_plain_on_card(dtype, d):
     q, k, v = x[:, :h], x[:, h:2 * h], x[:, 2 * h:]
     dout = torch.randn(b, t, h, d, generator=gen).to(dt).cuda().transpose(1, 2)
     out, lse = kernels.flash_attention(q, k, v, causal=True, return_lse=True)
-    route = "simt" if dt == torch.float32 else "tc"
+    route = "tf32x3" if dt == torch.float32 else "tc"
     before = kernels.flash_attention_backward.launches_by_route[route]
     got = kernels.flash_attention_backward(q, k, v, out, lse, dout,
                                            causal=True)

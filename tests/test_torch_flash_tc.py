@@ -59,7 +59,7 @@ ROUTES = [
      [256] * 3, 8, "tc"),
     ("bf16_qkv_views", BF16, 64, [(1024 * 2304, 64, 2304, 1)] * 3,
      [0, 1536, 3072], 1024, "tc"),
-    ("fp32", F32, 64, [_strides((2, 4, 8, 64))] * 3, [0] * 3, 8, "simt"),
+    ("fp32", F32, 64, [_strides((2, 4, 8, 64))] * 3, [0] * 3, 8, "tf32x3"),
     ("bf16_d80", BF16, 80, [_strides((2, 4, 8, 80))] * 3, [0] * 3, 8,
      "simt"),
     ("bf16_d256", BF16, 256, [_strides((2, 4, 8, 256))] * 3, [0] * 3, 8,
@@ -156,7 +156,8 @@ def test_multi_head_attention_flash_matches_mxnet_tpu(t):
 
 
 def test_launch_counts_by_route_name_both_kernels():
-    assert set(kernels.flash_attention.launches_by_route) == {"tc", "simt"}
+    assert set(kernels.flash_attention.launches_by_route) == {
+        "tc", "tf32x3", "simt"}
 
 
 @pytest.mark.cuda

@@ -106,14 +106,8 @@ def main(argv=None):
             raise SystemExit(f"variant {name} failed to build:\n{out}")
         usage = [u for e, u in chip_smoke.ptxas_usage(out)
                  if "bfloat16, 64>" in e]
-        lib = ctypes.CDLL(str(lib_path))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attn_fwd_tc.argtypes = [p, p, p, p, p, i, i, i, i, p, i,
-                                          ctypes.c_float, i, i, i, p]
-        lib.flash_attn_fwd_tc.restype = i
-        lib.flash_attn_tc_error_string.argtypes = [i]
-        lib.flash_attn_tc_error_string.restype = ctypes.c_char_p
-        kernels._tc_library = lambda lib=lib: lib
+        kernels._tc_library = lambda route, lib=ctypes.CDLL(
+            str(lib_path)): lib
         got = kernels.flash_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
         ulp = chip_smoke.ulp_err(torch, got, ref)

@@ -78,17 +78,6 @@ def build(name, text, build_dir, nvcc, flags):
                                  stderr=subprocess.STDOUT, text=True)
 
 
-def bind(path):
-    lib = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attn_bwd_tc.argtypes = [p] * 7 + [i, i, i, i, i,
-                                                ctypes.c_float, i, i, i, p]
-    lib.flash_attn_bwd_tc.restype = i
-    lib.flash_attn_bwd_tc_error_string.argtypes = [i]
-    lib.flash_attn_bwd_tc_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results to PATH as JSON")
@@ -133,7 +122,8 @@ def main(argv=None):
             continue
         usage = [f"{e}: {u}" for e, u in chip_smoke.ptxas_usage(log)
                  if "bfloat16, 64>" in e or name == "committed"]
-        kernels._bwd_tc_library = lambda lib=bind(lib_path): lib
+        kernels._bwd_tc_library = lambda route, lib=ctypes.CDLL(
+            str(lib_path)): lib
 
         def run():
             return kernels.flash_attention_backward(q, k, v, out, lse, dout,
