@@ -27,9 +27,12 @@ Phases, each failing loudly with a non-zero exit:
       dense attention, and the packed qkv Function (the LM's path: one
       d(qkv) buffer) against dense autograd and, bitwise, against the
       three-view Function --, K3
-      (conv3x3 + BN statistics) on both of its routes -- the tensor-core
-      kernel (16-bit, channels in multiples of 64, every tile rule) and
-      the CUDA-core one (fp32, ragged channels) --, a second launch
+      (conv3x3 + BN statistics) on its three routes -- the tensor-core
+      kernel (16-bit, channels in multiples of 64, every tile rule), the
+      3xTF32 one (fp32, Cin in multiples of 32, Cout of 64: ResNet-50's
+      shapes at N=32 and the edges, held to 1e-5 of max|ref|, which one
+      TF32 pass must miss; its weight pre-pass bitwise) and the CUDA-core
+      one (ragged channels, a misaligned base) --, a second launch
       bitwise equal for each route and tile rule, and K3's trainable
       wrapper's gradients against autograd;
   (c) kernel, plain-version and library times at the slices' shapes, in
@@ -39,9 +42,10 @@ Phases, each failing loudly with a non-zero exit:
       backward, also on the LM's layout, on the CUDA cores and in fp32
       (3xTF32) beside the CUDA-core route, SDPA's fp32 backward and the
       fp32 plain version, with the tensor-core work each really issues; K3
-      also beside its
-      CUDA-core kernel on the same inputs, the unfused cuDNN conv +
-      batch_norm path, and in fp32 beside cuDNN's fp32 conv);
+      also beside its CUDA-core kernel on the same inputs and the unfused
+      cuDNN conv + batch_norm path, and in fp32 the 3xTF32 kernel with the
+      TF32 work it issues beside the CUDA-core kernel, cuDNN's fp32 conv
+      with TF32 off and on, and the fp32 unfused path);
   (d) the slice: TransformerLM(impl='flash') at GPT-2-small widths in
       bf16, behind Predictor + BatchServer, served to concurrent
       requests: each bucket captured as a CUDA graph at the predictor's
@@ -56,9 +60,10 @@ Phases, each failing loudly with a non-zero exit:
       single-image requests, and one bucket-32 predict profiled;
   (g) K3 fed that model's own tensors (the 3x3 conv of each stage's first
       bottleneck): exactly 4 launches, all on the tensor-core route, each
-      within tolerance of cuDNN's output and of the plain version; no copy
-      kernel per conv; and an fp32 NHWC ResNet-50 against the same weights
-      in NCHW;
+      within tolerance of cuDNN's output and of the plain version; the same
+      on an fp32 ResNet-50's tensors: exactly 4 launches, all on the 3xTF32
+      route; no copy kernel per conv; and an fp32 NHWC ResNet-50 against
+      the same weights in NCHW;
   (h) the training slice: the same LM at full width and depth in bf16,
       gluon.Trainer + Adam (lr 1e-3) + SoftmaxCrossEntropyLoss, 10 steps on
       one fixed batch (B=8, T=1024) of a learnable sequence: finite losses,
@@ -86,10 +91,13 @@ Phases, each failing loudly with a non-zero exit:
       path, every K3 launch on the tensor-core route, forward and
       forward + backward
       timed, and the difference weighted by the 16 convs set against phase
-      j's step;
+      j's step; then in fp32, a measurement: the wrapper on the 3xTF32
+      route against the fp32 unfused path (cuDNN, TF32 off), forward and
+      forward + backward, weighted by the 16 convs;
   (l) capture (mxnet_tpu_torch/capture.py, CUDA graphs): each route of
       K1, K2 and K3 captured alone and replayed on new inputs, bitwise
-      equal to an eager launch (the 3xTF32 K1 one graph node, K2 three); phase h's LM step through
+      equal to an eager launch (the 3xTF32 K1 one graph node, K2 and K3
+      three each); phase h's LM step through
       capture.capture(trainer, net=, loss_fn=) and phase j's ResNet-50
       step through ShardedTrainer, each against the kill switch's eager
       step from one start (eager run twice: bitwise when eager repeats
@@ -146,6 +154,11 @@ CONV_N = 32
 # at most ~1e-5 at these shapes (f32 sums in other orders), statistics
 # taken from the rounded y read ~1e-4 (fp16) to ~1e-3 (bf16) on sum.
 CONV_STATS_TOL_16 = 5e-5
+# K3's 3xTF32 route (fp32): y, sum and sumsq, max|a - b| / max|ref| against
+# the plain version (TF32 off). The CPU emulation of its products reads at
+# most ~1e-6 against mxnet_tpu's Pallas K3 (tests/test_torch_conv_tf32x3.py),
+# one TF32 pass 1.4e-4-3.3e-4: the one-pass control below must miss it.
+CONV_TF32X3_TOL = 1e-5
 
 
 def log(*args):
@@ -184,6 +197,13 @@ def ptxas_usage(build_log):
     names = [re.sub(r"\(.*", "", n.replace("(anonymous namespace)::", "")
                     .replace("void ", "")) for n in names]
     return list(zip(names, usages))
+
+
+def ptxas_advisories(build_log):
+    """ptxas's performance advisories in nvcc's output (e.g. wgmma
+    instructions serialized), one line each."""
+    return [line.strip() for line in build_log.splitlines()
+            if "Performance" in line or "serializ" in line]
 
 
 def median_ms(fn, n=25, warmup=3):
@@ -803,32 +823,58 @@ def rel_err(a, b):
     return err / scale if scale else err
 
 
-def conv_inputs(torch, gen, n, h, w, cin, cout, dtype):
+def conv_inputs(torch, gen, n, h, w, cin, cout, dtype, misaligned=False):
     """Seeded x (N, H, W, Cin) ~ N(0, 1) and w (3, 3, Cin, Cout) scaled by
-    1/sqrt(9 Cin), so y ~ N(0, 1)."""
+    1/sqrt(9 Cin), so y ~ N(0, 1). ``misaligned``: x contiguous, but one
+    element past a 16-byte boundary."""
     x = torch.randn((n, h, w, cin), generator=gen, device="cuda").to(dtype)
     wt = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda")
           / math.sqrt(9 * cin)).to(dtype)
+    if misaligned:
+        x = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")[1:].view(
+            x.shape).copy_(x)
     return x, wt
 
 
+def one_tf32_pass(torch, kernels, x, w):
+    """The plain version on the TF32 hi parts of x and w: K3 with every
+    product taken in one TF32 pass (hi x hi is exact in f32), the control
+    that the 3xTF32 tolerance must reject."""
+    return kernels.conv3x3_bn_stats_reference(
+        kernels.tf32_split_reference(x)[0], kernels.tf32_split_reference(w)[0])
+
+
 def check_conv(torch, kernels):
-    """K3 against its plain version on fixed cases, on both routes: the
-    CUDA-core kernel (fp32, ragged channels) and the tensor-core kernel
-    (bf16 and fp16, channels in multiples of 64: ResNet-50's shapes, a
-    ragged last tile, H != W, N = 1, Cin != Cout), every tile rule of the
-    tensor-core kernel forced on one shape, a second launch bitwise equal
-    for each route and tile rule, and the trainable wrapper's gradients.
-    The 16-bit statistics limit is shown to catch statistics taken from
-    the rounded y: that control (the sum of y.float()) must exceed it on
-    every bf16 tensor-core case. Returns the check records."""
+    """K3 against its plain version on fixed cases, on its three routes:
+    the CUDA-core kernel (ragged channels, a misaligned base), the
+    tensor-core kernel (bf16 and fp16, channels in multiples of 64:
+    ResNet-50's shapes, a ragged last tile, H != W, N = 1, Cin != Cout) and
+    the 3xTF32 one (fp32: ResNet-50's shapes and the same edges, Cin = 32;
+    its one tiling, 64 x 64), every tile rule of the 16-bit kernel forced
+    on one shape, a second launch bitwise equal for each route and tile
+    rule, the 3xTF32
+    weight pre-pass bitwise against its plain version, and the trainable
+    wrapper's gradients. The 16-bit statistics limit is shown to catch
+    statistics taken from the rounded y: that control (the sum of
+    y.float()) must exceed it on every bf16 tensor-core case. The 3xTF32
+    limit is shown to catch one TF32 pass: that control (the plain version
+    on the TF32 hi parts) must exceed it on every fp32 ResNet case. Returns
+    the check records."""
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     cases = [("fp32 ragged", (3, 7, 7, 5, 13), f32, "simt"),
-             ("fp32 non-square", (2, 9, 11, 64, 32), f32, "simt"),
+             ("fp32 non-square Cout 32", (2, 9, 11, 64, 32), f32, "simt"),
+             ("fp32 misaligned x", (2, 9, 11, 64, 64), f32, "simt"),
              ("bf16 ragged channels", (3, 7, 7, 5, 13), bf16, "simt"),
              ("fp16 Cout 96", (2, 9, 11, 64, 96), f16, "simt")]
-    cases += [(f"fp32 resnet {hw}x{hw}x{c}", (8, hw, hw, c, c), f32, "simt")
-              for hw, c in RESNET_3X3]
+    cases += [(f"fp32 resnet {hw}x{hw}x{c}", (CONV_N, hw, hw, c, c), f32,
+               "tf32x3") for hw, c in RESNET_3X3]
+    cases += [("fp32 M not a multiple of BM", (3, 7, 7, 64, 64), f32,
+               "tf32x3"),
+              ("fp32 H != W", (2, 9, 11, 64, 128), f32, "tf32x3"),
+              ("fp32 N=1 56x56x64", (1, 56, 56, 64, 64), f32, "tf32x3"),
+              ("fp32 Cin 512 Cout 64", (8, 14, 14, 512, 64), f32, "tf32x3"),
+              ("fp32 Cin 64 Cout 512", (8, 14, 14, 64, 512), f32, "tf32x3"),
+              ("fp32 Cin 32", (4, 14, 14, 32, 64), f32, "tf32x3")]
     cases += [(f"{name} resnet {hw}x{hw}x{c}", (CONV_N, hw, hw, c, c), dt,
                "tc")
               for name, dt in (("bf16", bf16), ("fp16", f16))
@@ -843,9 +889,10 @@ def check_conv(torch, kernels):
               for t in ((128, 128), (128, 64), (64, 128), (64, 64))]
     gen = torch.Generator(device="cuda").manual_seed(4321)
     sms = kernels._sm_count(torch.cuda.current_device())
-    records, seen, controls = [], set(), []
+    records, seen, controls, controls32 = [], set(), [], []
     for name, (n, h, w, cin, cout), dtype, route in cases:
-        x, wt = conv_inputs(torch, gen, n, h, w, cin, cout, dtype)
+        x, wt = conv_inputs(torch, gen, n, h, w, cin, cout, dtype,
+                            misaligned="misaligned" in name)
         before = dict(kernels.conv3x3_bn_stats.launches_by_route)
         forced = isinstance(route, tuple)
         if forced:       # the tensor-core kernel launched with these tiles
@@ -854,8 +901,8 @@ def check_conv(torch, kernels):
             def run():
                 return kernels._launch_conv_tc(x, wt, tiles)
         else:
-            tiles = (kernels._conv_tiles(n * h * w, cout, sms)
-                     if route == "tc" else None)
+            tiles = {"tc": kernels._conv_tiles(n * h * w, cout, sms),
+                     "tf32x3": (64, 64)}.get(route)
 
             def run():
                 return kernels.conv3x3_bn_stats(x, wt)
@@ -867,10 +914,22 @@ def check_conv(torch, kernels):
         yr, sr, qr = kernels.conv3x3_bn_stats_reference(x, wt)
         s_err, q_err = rel_err(s, sr), rel_err(q, qr)
         ctl = None
-        if dtype == f32:
+        if route == "tf32x3":
+            y_err = rel_err(y, yr)
+            y_tol = s_tol = CONV_TF32X3_TOL
+            why = (f"3xTF32: y, sum, sumsq within {CONV_TF32X3_TOL:g} of "
+                   "max|ref| (the dropped lo x lo terms and f32 sums in "
+                   "other orders); one TF32 pass must miss it")
+            y_txt = f"y rel {y_err:.3e}"
+            if name.startswith("fp32 resnet"):
+                cy, cs, cq = one_tf32_pass(torch, kernels, x, wt)
+                ctl = (rel_err(cy, yr), rel_err(cs, sr), rel_err(cq, qr))
+                controls32.append(ctl)
+                del cy, cs, cq
+        elif dtype == f32:
             y_err, y_tol, s_tol = rel_err(y, yr), 1e-4, 1e-4
-            why = ("fp32: y, sum, sumsq within 1e-4 of max|ref| (f32 sums "
-                   "in other orders)")
+            why = ("fp32 on the CUDA cores: y, sum, sumsq within 1e-4 of "
+                   "max|ref| (f32 sums in other orders)")
             y_txt = f"y rel {y_err:.3e}"
         else:
             y_err, y_tol, s_tol = ulp_err(torch, y, yr), 2.0, \
@@ -885,8 +944,13 @@ def check_conv(torch, kernels):
         ok = (took == [route] and y.shape == yr.shape and y.dtype == dtype
               and bool(torch.isfinite(y.float()).all())
               and y_err <= y_tol and s_err <= s_tol and q_err <= s_tol)
-        extra = ("" if ctl is None
-                 else f", rounded-y control sum rel {ctl:.2e}")
+        if ctl is None:
+            extra = ""
+        elif route == "tf32x3":
+            extra = (", one-TF32-pass control y/sum/sumsq rel "
+                     + "/".join(f"{e:.2e}" for e in ctl))
+        else:
+            extra = f", rounded-y control sum rel {ctl:.2e}"
         if (route, tiles) not in seen:
             seen.add((route, tiles))
             same = all(torch.equal(a, b) for a, b in zip((y, s, q), run()))
@@ -903,7 +967,10 @@ def check_conv(torch, kernels):
         records.append({"case": name, "route": route,
                         "tiles": None if tiles is None else list(tiles),
                         "y_err": y_err, "sum_rel": s_err,
-                        "sumsq_rel": q_err, "rounded_y_sum_rel": ctl})
+                        "sumsq_rel": q_err,
+                        ("one_pass_rel" if route == "tf32x3"
+                         else "rounded_y_sum_rel"): ctl})
+        del x, wt, y, s, q, yr, sr, qr
     tc = [r for r in records if r["route"] == "tc"]
     caught = min(controls) > CONV_STATS_TOL_16
     log(f"[b] conv 16-bit statistics limit {CONV_STATS_TOL_16:g}: the "
@@ -915,8 +982,45 @@ def check_conv(torch, kernels):
     if not caught:
         raise SystemExit("phase b: the 16-bit statistics limit would pass "
                          "statistics taken from the rounded y")
+    t3 = [r for r in records if r["route"] == "tf32x3"]
+    worst = max(max(r["y_err"], r["sum_rel"], r["sumsq_rel"]) for r in t3)
+    # the control passes when all of its y, sum and sumsq are within
+    caught32 = all(max(c) > CONV_TF32X3_TOL for c in controls32)
+    log(f"[b] conv 3xTF32 limit {CONV_TF32X3_TOL:g}: the tf32x3 kernel reads "
+        f"at most {worst:.2e} (y, sum, sumsq over {len(t3)} cases); one "
+        f"TF32 pass reads y {min(c[0] for c in controls32):.2e}-"
+        f"{max(c[0] for c in controls32):.2e}, sum "
+        f"{min(c[1] for c in controls32):.2e}-"
+        f"{max(c[1] for c in controls32):.2e}, sumsq "
+        f"{min(c[2] for c in controls32):.2e}-"
+        f"{max(c[2] for c in controls32):.2e} on the fp32 ResNet cases: "
+        f"caught {caught32}")
+    if not caught32:
+        raise SystemExit("phase b: the 3xTF32 limit would pass one TF32 "
+                         "pass")
+    records.append(check_tf32x3_pack(torch, kernels, gen))
     records.append(check_conv_train(torch, kernels, gen))
     return records
+
+
+def check_tf32x3_pack(torch, kernels, gen):
+    """The 3xTF32 K3's weight pre-pass (TF32 hi and lo of w in (9, Cout,
+    Cin) K-major panels) bitwise against its plain version, at ResNet-50's
+    widest 3x3 weight and a Cin = 32 one."""
+    same = []
+    for cin, cout in ((512, 512), (32, 64)):
+        w = torch.randn((3, 3, cin, cout), generator=gen, device="cuda")
+        got = kernels._launch_pack_w_tf32x3(w)
+        want = kernels.conv_weight_tf32x3_pack_reference(w)
+        same.append(torch.equal(got.view(torch.int32),
+                                want.view(torch.int32)))
+    log(f"[b] conv3x3_bn_stats_tf32x3 weight pre-pass (3, 3, 512, 512), "
+        f"(3, 3, 32, 64) == its plain version bitwise: {same} "
+        f"{'ok' if all(same) else 'FAIL'}")
+    if not all(same):
+        raise SystemExit("phase b: the 3xTF32 weight pre-pass differs from "
+                         "its plain version")
+    return {"case": "tf32x3 weight pre-pass", "bitwise": same}
 
 
 def check_conv_train(torch, kernels, gen):
@@ -1327,20 +1431,34 @@ def k2_tf32x3_issued_flops(b, h, t, d, causal, tiles):
     return (kv_pairs * 4 + q_pairs * 3) * 3 * 2.0 * 64 * box * d * b * h
 
 
+def k3_tf32x3_issued_flops(n, h, w, cin, cout, bm):
+    """TF32 FLOP the 3xTF32 K3 issues for these inputs with BM-row tiles
+    (its library's conv3x3_tf32x3_block_m): every CTA's tile over K = 9
+    Cin, the rows past M of the last M tile included, three passes (its 64
+    channels a tile divide Cout)."""
+    return 3 * 2.0 * (-(-(n * h * w) // bm) * bm) * cout * 9 * cin
+
+
 def time_conv(torch, kernels):
-    """K3 at each ResNet-50 3x3 shape, N=32, bf16, in device time
-    (device_ms): the tensor-core kernel (whose route is asserted), the
-    CUDA-core kernel on the same inputs, the plain version, cuDNN's conv
-    alone (channels_last) and the unfused path of
-    tools/bench_fused_conv_bn.py (cuDNN conv, then the port's batch_norm
-    statistics and apply). ``call_ms`` is the median of CUDA events around
-    one call of the tensor-core kernel, which also holds the host's enqueue
-    time of that call."""
+    """K3 at each ResNet-50 3x3 shape, N=32, in device time (device_ms).
+    bf16: the tensor-core kernel (whose route is asserted), the CUDA-core
+    kernel on the same inputs, the plain version, cuDNN's conv alone
+    (channels_last) and the unfused path of tools/bench_fused_conv_bn.py
+    (cuDNN conv, then the port's batch_norm statistics and apply). fp32,
+    on inputs of their own: the 3xTF32 kernel (route asserted) with the TF32
+    FLOP it issues, the CUDA-core kernel on the same inputs, the plain
+    version, cuDNN's conv with TF32 off and with TF32 on (one TF32 pass:
+    less accurate, not the yardstick), and the fp32 unfused path (cuDNN,
+    TF32 off, then batch_norm). ``call_ms`` is the median of CUDA events
+    around one call of the tensor-core kernel, which also holds the host's
+    enqueue time of that call."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import nn as ops_nn
 
     gen = torch.Generator(device="cuda").manual_seed(11)
+    gen32 = torch.Generator(device="cuda").manual_seed(12)
+    sms = kernels._sm_count(torch.cuda.current_device())
     rows = []
     for hw, c in RESNET_3X3:
         x, w = conv_inputs(torch, gen, CONV_N, hw, hw, c, c, torch.bfloat16)
@@ -1356,24 +1474,13 @@ def time_conv(torch, kernels):
             raise SystemExit(f"phase c: K3 at {shape} bf16 did not take the "
                              "tensor-core route")
 
-        def unfused():
+        def unfused(x_cf=x_cf, w_cl=w_cl):
             y = F.conv2d(x_cf, w_cl, padding=1).permute(0, 2, 3, 1)
             return ops_nn.batch_norm(y, ones, zeros, zeros, ones, axis=3,
                                      _train=True)
 
-        x32, w32 = x.float(), w.float()
-        w32_cl = w_cl.float()
-        before = kernels.conv3x3_bn_stats.launches_by_route["simt"]
-        kernels.conv3x3_bn_stats(x32, w32)
-        if kernels.conv3x3_bn_stats.launches_by_route["simt"] != before + 1:
-            raise SystemExit(f"phase c: K3 at {shape} fp32 did not take the "
-                             "CUDA-core route")
         ms = device_ms(lambda: kernels.conv3x3_bn_stats(x, w))
         simt_ms = device_ms(lambda: kernels._launch_conv_simt(x, w), n=5)
-        simt_fp32_ms = device_ms(lambda: kernels.conv3x3_bn_stats(x32, w32),
-                                 n=5)
-        fp32_library_ms = device_ms(lambda: F.conv2d(x32.permute(0, 3, 1, 2),
-                                                     w32_cl, padding=1))
         plain_ms = device_ms(
             lambda: kernels.conv3x3_bn_stats_reference(x, w), n=5)
         library_ms = device_ms(lambda: F.conv2d(x_cf, w_cl, padding=1))
@@ -1381,8 +1488,7 @@ def time_conv(torch, kernels):
         call_ms = median_ms(lambda: kernels.conv3x3_bn_stats(x, w))
         flops, nbytes = conv_work(CONV_N, hw, hw, c, c, 2)
         bound_ms, bound_by = bound(flops, nbytes)
-        tiles = kernels._conv_tiles(CONV_N * hw * hw, c, kernels._sm_count(
-            torch.cuda.current_device()))
+        tiles = kernels._conv_tiles(CONV_N * hw * hw, c, sms)
         log(f"[c] conv3x3_bn_stats_tc bf16 {shape} tiles {tiles}: kernel "
             f"{ms:.4f} ms device ({call_ms:.4f} ms events around one call),"
             f" {flops / ms / 1e9:.2f} TFLOP/s, {bound_ms / ms:.2%} of bound "
@@ -1391,15 +1497,72 @@ def time_conv(torch, kernels):
             f"({simt_ms / ms:.1f}x the tensor-core one); plain "
             f"{plain_ms:.4f} ms; cuDNN conv alone {library_ms:.4f} ms "
             f"(kernel / cuDNN {ms / library_ms:.2f}x); unfused cuDNN conv + "
-            f"batch_norm {unfused_ms:.4f} ms; fp32: CUDA-core K3 "
-            f"{simt_fp32_ms:.4f} ms, cuDNN conv (TF32 off) "
-            f"{fp32_library_ms:.4f} ms")
+            f"batch_norm {unfused_ms:.4f} ms")
+        del x, w, x_cf, w_cl
+
+        # fp32: the route fp32 callers take
+        x, w = conv_inputs(torch, gen32, CONV_N, hw, hw, c, c, torch.float32)
+        x_cf = x.permute(0, 3, 1, 2)
+        w_cl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        before = kernels.conv3x3_bn_stats.launches_by_route["tf32x3"]
+        kernels.conv3x3_bn_stats(x, w)
+        if kernels.conv3x3_bn_stats.launches_by_route["tf32x3"] != \
+                before + 1:
+            raise SystemExit(f"phase c: K3 at {shape} fp32 did not take the "
+                             "3xTF32 route")
+
+        def cudnn_tf32(x_cf=x_cf, w_cl=w_cl):
+            with torch.backends.cudnn.flags(
+                    enabled=True, benchmark=torch.backends.cudnn.benchmark,
+                    deterministic=torch.backends.cudnn.deterministic,
+                    allow_tf32=True):
+                return F.conv2d(x_cf, w_cl, padding=1)
+
+        tf32x3_ms = device_ms(lambda: kernels.conv3x3_bn_stats(x, w))
+        simt_fp32_ms = device_ms(lambda: kernels._launch_conv_simt(x, w),
+                                 n=5)
+        fp32_plain_ms = device_ms(
+            lambda: kernels.conv3x3_bn_stats_reference(x, w), n=5)
+        fp32_library_ms = device_ms(lambda: F.conv2d(x_cf, w_cl, padding=1))
+        tf32_library_ms = device_ms(cudnn_tf32)
+        fp32_unfused_ms = device_ms(
+            lambda: unfused(x_cf=x_cf, w_cl=w_cl))
+        flops32, nbytes32 = conv_work(CONV_N, hw, hw, c, c, 4)
+        bound32_ms, bound32_by, fma_ms = bound_tf32x3(flops32, nbytes32)
+        bm32 = kernels._conv_tf32x3_library().conv3x3_tf32x3_block_m()
+        issued = k3_tf32x3_issued_flops(CONV_N, hw, hw, c, c, bm32)
+        log(f"[c] conv3x3_bn_stats_tf32x3 fp32 {shape} tiles ({bm32}, 64): "
+            f"kernel {tf32x3_ms:.4f} ms device, "
+            f"{flops32 / tf32x3_ms / 1e9:.2f} TFLOP/s of the needed "
+            f"products, {issued / tf32x3_ms / 1e9:.2f} TFLOP/s of the "
+            f"{issued:.3e} TF32 FLOP it issues, {bound32_ms / tf32x3_ms:.2%}"
+            f" of the 3xTF32 bound {bound32_ms:.4f} ms by {bound32_by} "
+            f"(f32 FMA {fma_ms:.4f} ms; {nbytes32:.3e} B); CUDA-core K3 "
+            f"{simt_fp32_ms:.4f} ms ({simt_fp32_ms / tf32x3_ms:.2f}x the "
+            f"3xTF32 one); plain {fp32_plain_ms:.4f} ms; cuDNN fp32 conv "
+            f"alone, TF32 off {fp32_library_ms:.4f} ms (kernel / cuDNN "
+            f"{tf32x3_ms / fp32_library_ms:.2f}x); cuDNN with TF32 on (one "
+            f"TF32 pass, less accurate: not the yardstick) "
+            f"{tf32_library_ms:.4f} ms; fp32 unfused cuDNN conv (TF32 off) "
+            f"+ batch_norm {fp32_unfused_ms:.4f} ms (kernel / unfused "
+            f"{tf32x3_ms / fp32_unfused_ms:.2f}x)")
         rows.append({"shape": list(shape), "tiles": list(tiles), "ms": ms,
                      "call_ms": call_ms, "simt_ms": simt_ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
-                     "unfused_ms": unfused_ms, "simt_fp32_ms": simt_fp32_ms,
-                     "fp32_library_ms": fp32_library_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "flops": flops, "bytes": nbytes})
+                     "unfused_ms": unfused_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+                     "tf32x3_tiles": [bm32, 64], "tf32x3_ms": tf32x3_ms,
+                     "simt_fp32_ms": simt_fp32_ms,
+                     "fp32_plain_ms": fp32_plain_ms,
+                     "fp32_library_ms": fp32_library_ms,
+                     "tf32_library_ms": tf32_library_ms,
+                     "fp32_unfused_ms": fp32_unfused_ms,
+                     "tf32x3_bound_ms": bound32_ms,
+                     "tf32x3_bound_by": bound32_by, "fma_ms": fma_ms,
+                     "fp32_bytes": nbytes32, "tf32x3_issued_flops": issued})
+        del x, w, x_cf, w_cl
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1807,7 +1970,7 @@ def conv_on_model(torch, kernels, pred, net, images):
                             "sumsq_rel": q_err})
     log(f"[g] conv3x3_bn_stats launches on the model's tensors: {launches} "
         f"by route {by_route} (want 4, all tensor-core)")
-    if launches != 4 or by_route != {"tc": 4, "simt": 0}:
+    if launches != 4 or by_route != {"tc": 4, "tf32x3": 0, "simt": 0}:
         raise SystemExit(f"phase g: {launches} K3 launches {by_route}, want "
                          "4 on the tensor-core route")
 
@@ -1821,6 +1984,79 @@ def conv_on_model(torch, kernels, pred, net, images):
     return {"launches": launches, "launches_by_route": by_route,
             "max_abs_err": max_abs, "checks": records,
             "copy_launches": n_copies, "copies": copies, "convs": n_convs}
+
+
+def conv_on_fp32_model(torch, mx, kernels, images):
+    """K3 fed an fp32 ResNet-50's own tensors (NHWC, s2d stem, seeded
+    Xavier as phase f's model, left in fp32, mxnet_tpu's default dtype):
+    the input and weight of each stage's first 3x3 conv, captured by
+    forward hooks during one bucket-32 forward. Exactly 4 launches, all on
+    the 3xTF32 route, each within the 3xTF32 limit of the plain version and
+    of cuDNN's own output. Returns the launches and errors of that path."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    net = vision.resnet50_v1(layout="NHWC", stem="s2d", classes=1000,
+                             prefix="r50fp32_")
+    net.initialize(mx.init.Xavier(factor_type="in", magnitude=2),
+                   generator=gen)
+    stages = [blk for blk in net.features
+              if blk.prefix.endswith(tuple(f"stage{i}_"
+                                           for i in range(1, 5)))]
+    convs = [list(list(stage)[0].body)[3] for stage in stages]
+    captured = []
+    hooks = [c.register_forward_hook(
+        lambda mod, inp, out: captured.append((inp[0], mod.weight, out)))
+        for c in convs]
+    try:
+        with torch.inference_mode():
+            logits = net(torch.from_numpy(images).to("cuda", torch.float32))
+    finally:
+        for h in hooks:
+            h.remove()
+    if len(captured) != 4 or logits.dtype != torch.float32 or not bool(
+            torch.isfinite(logits).all()):
+        raise SystemExit(f"phase g: the fp32 model gave {len(captured)} "
+                         f"convs (want 4) and {logits.dtype} logits")
+
+    with torch.inference_mode():
+        weights = [w.permute(1, 2, 3, 0).contiguous() for _, w, _ in captured]
+        zero_counts(kernels)
+        fused = [kernels.conv3x3_bn_stats(x, w)
+                 for (x, _, _), w in zip(captured, weights)]
+        torch.cuda.synchronize()
+        launches = kernels.conv3x3_bn_stats.launches
+        by_route = dict(kernels.conv3x3_bn_stats.launches_by_route)
+        max_abs, records = 0.0, []
+        for (x, _, y_lib), w, (y, s, q) in zip(captured, weights, fused):
+            yr, sr, qr = kernels.conv3x3_bn_stats_reference(x, w)
+            lib_err, plain_err = rel_err(y, y_lib), rel_err(y, yr)
+            s_err, q_err = rel_err(s, sr), rel_err(q, qr)
+            max_abs = max(max_abs, (y - yr).abs().max().item())
+            ok = y.dtype == torch.float32 and max(
+                lib_err, plain_err, s_err, q_err) <= CONV_TF32X3_TOL
+            log(f"[g] K3 on the fp32 model's {tuple(x.shape)} -> "
+                f"{tuple(y.shape)}: vs cuDNN's fp32 output (TF32 off) "
+                f"{lib_err:.2e} of max|y|, vs plain {plain_err:.2e}, sum rel "
+                f"{s_err:.2e} sumsq rel {q_err:.2e} (tol "
+                f"{CONV_TF32X3_TOL:g}: phase b's 3xTF32 limit; cuDNN's fp32 "
+                f"conv, the plain version's own, is accurate to ~1e-6) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("phase g: K3 disagrees on the fp32 model's "
+                                 "tensors")
+            records.append({"shape": list(x.shape), "vs_cudnn_rel": lib_err,
+                            "vs_plain_rel": plain_err, "sum_rel": s_err,
+                            "sumsq_rel": q_err})
+    log(f"[g] conv3x3_bn_stats launches on the fp32 model's tensors: "
+        f"{launches} by route {by_route} (want 4, all 3xTF32)")
+    if launches != 4 or by_route != {"tc": 0, "tf32x3": 4, "simt": 0}:
+        raise SystemExit(f"phase g: {launches} K3 launches {by_route} on the "
+                         "fp32 model, want 4 on the 3xTF32 route")
+    del net, captured, fused
+    torch.cuda.empty_cache()
+    return {"launches": launches, "launches_by_route": by_route,
+            "max_abs_err": max_abs, "checks": records}
 
 
 def conv_layer_copies(torch, net, images):
@@ -2360,20 +2596,19 @@ K3_TRAIN_TOL = {"out": 1e-2, "mean": 1e-3, "var": 1e-3, "dx": 1e-1,
 RESNET_BN_EPS = 1e-5
 
 
-def k3_train_inputs(torch, gen, n, hw, c):
+def k3_train_inputs(torch, gen, n, hw, c, dtype=None):
     """The model's tensors at one 3x3 conv: a relu'd activation, He-scaled
-    HWIO weights, bf16 gamma and beta (ShardedTrainer's bf16 casts), and a
-    seeded cotangent."""
+    HWIO weights, gamma and beta, and a seeded cotangent, in ``dtype`` (by
+    default bf16: ShardedTrainer's bf16 casts)."""
+    dtype = dtype or torch.bfloat16
     x = torch.relu(torch.randn((n, hw, hw, c), generator=gen,
-                               device="cuda")).to(torch.bfloat16)
+                               device="cuda")).to(dtype)
     w = (torch.randn((3, 3, c, c), generator=gen, device="cuda")
-         * math.sqrt(2.0 / (9 * c))).to(torch.bfloat16)
-    gamma = (torch.rand(c, generator=gen, device="cuda") + 0.5).to(
-        torch.bfloat16)
-    beta = (torch.randn(c, generator=gen, device="cuda") * 0.1).to(
-        torch.bfloat16)
+         * math.sqrt(2.0 / (9 * c))).to(dtype)
+    gamma = (torch.rand(c, generator=gen, device="cuda") + 0.5).to(dtype)
+    beta = (torch.randn(c, generator=gen, device="cuda") * 0.1).to(dtype)
     dout = torch.randn((n, hw, hw, c), generator=gen, device="cuda").to(
-        torch.bfloat16)
+        dtype)
     return x, w, gamma, beta, dout
 
 
@@ -2431,7 +2666,7 @@ def k3_at_training_shapes(torch, kernels, n, step_ms=None, shapes=None):
         k3_f32 = {k: l2_err(a, b) for k, a, b in zip(names, k3, f32)}
         un_f32 = {k: l2_err(a, b) for k, a, b in zip(names, un, f32)}
         del un, f32
-        ok = launches == {"tc": 1, "simt": 0} and all(
+        ok = launches == {"tc": 1, "tf32x3": 0, "simt": 0} and all(
             k3_f32[k] <= min(tol, K3_VS_F32_FACTOR * un_f32[k] + 1e-3)
             for k, tol in K3_TRAIN_TOL.items())
         log(f"[k] conv3x3_bn_relu_train bf16 ({n}, {hw}, {hw}, {c}) x "
@@ -2450,6 +2685,9 @@ def k3_at_training_shapes(torch, kernels, n, step_ms=None, shapes=None):
         with torch.no_grad():
             k3_ms = device_ms(k3_fwd, n=10)
             plain_ms = device_ms(plain_fwd, n=10)
+            # K3's plain version, the wrapper's conv + statistics
+            ref_ms = device_ms(
+                lambda: kernels.conv3x3_bn_stats_reference(x, w), n=3)
         k3_fb_ms = device_ms(lambda: k3_values(torch, kernels, k3_leaves,
                                                dout), n=5)
         plain_fb_ms = device_ms(lambda: unfused_values(torch, plain_leaves,
@@ -2457,17 +2695,20 @@ def k3_at_training_shapes(torch, kernels, n, step_ms=None, shapes=None):
         flops, nbytes = conv_work(n, hw, hw, c, c, 2)
         bound_ms, bound_by = bound(flops, nbytes)
         by_route = dict(kernels.conv3x3_bn_stats.launches_by_route)
-        if by_route["simt"]:
-            raise SystemExit("phase k: a K3 launch took the CUDA-core route")
+        if by_route["simt"] or by_route["tf32x3"]:
+            raise SystemExit("phase k: a K3 launch left the tensor-core "
+                             "route")
         log(f"[k]   forward: K3 {k3_ms:.4f} ms, unfused {plain_ms:.4f} ms "
             f"(K3 / unfused {k3_ms / plain_ms:.2f}x; K3's conv + statistics "
-            f"bound {bound_ms:.4f} ms by {bound_by}); forward + backward: "
+            f"bound {bound_ms:.4f} ms by {bound_by}, its plain version "
+            f"{ref_ms:.4f} ms); forward + backward: "
             f"K3 {k3_fb_ms:.4f} ms, unfused {plain_fb_ms:.4f} ms "
             f"({k3_fb_ms / plain_fb_ms:.2f}x); K3 launches {by_route}")
         rows.append({"shape": [n, hw, hw, c, c], "count": count,
                      "errs": errs, "k3_vs_f32": k3_f32,
                      "unfused_vs_f32": un_f32, "fwd_ms": k3_ms,
-                     "unfused_fwd_ms": plain_ms, "fwd_bwd_ms": k3_fb_ms,
+                     "unfused_fwd_ms": plain_ms, "plain_k3_ms": ref_ms,
+                     "fwd_bwd_ms": k3_fb_ms,
                      "unfused_fwd_bwd_ms": plain_fb_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "launches_by_route": by_route})
@@ -2485,6 +2726,102 @@ def k3_at_training_shapes(torch, kernels, n, step_ms=None, shapes=None):
     torch.cuda.empty_cache()
     return {"per_shape": rows, "saved_fwd_ms": fwd,
             "saved_fwd_bwd_ms": fwd_bwd, "step_ms": step_ms,
+            "launches": sum(sum(r["launches_by_route"].values())
+                            for r in rows)}
+
+
+# K3's trainable wrapper in fp32 against the fp32 unfused path, ||a - b|| /
+# ||b||: both compute in f32 (K3 as 3xTF32, within ~1e-6 of max|y|; cuDNN
+# with TF32 off), and their outputs and statistics agree to ~1e-6, but
+# relu's mask flips wherever the two pre-activations straddle 0 by that
+# much: over the 6-51 M elements of a shape at N=256 such flips moved dx,
+# dw and dbeta by up to 7.6e-4 on the H100. A wrong kernel or statistic
+# moves them by orders of magnitude more.
+K3_FP32_TRAIN_TOL = 1e-2
+
+
+def k3_fp32_at_training_shapes(torch, kernels, n, step_ms=None):
+    """Phase k in fp32, a measurement: K3's trainable wrapper on the 3xTF32
+    route against the fp32 unfused path (cuDNN conv with TF32 off,
+    batch_norm in training, relu; backward by autograd) at ResNet-50's four
+    stride-1 3x3 shapes at phase j's batch. Every K3 launch on "tf32x3" and
+    the seven values (out, mean, var, dx, dw, dgamma, dbeta) within
+    K3_FP32_TRAIN_TOL of the unfused path's are checked; forward and
+    forward + backward are timed (device_ms) and the difference, weighted
+    by the 16 convs, printed beside phase j's bf16 step ``step_ms``. K3
+    stays off ShardedTrainer's path, as in mxnet_tpu."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    names = ("out", "mean", "var", "dx", "dw", "dgamma", "dbeta")
+    rows = []
+    for (hw, c), count in zip(RESNET_3X3, RESNET_3X3_COUNTS):
+        x, w, gamma, beta, dout = k3_train_inputs(torch, gen, n, hw, c,
+                                                  torch.float32)
+        w_ohwi = w.permute(3, 0, 1, 2).contiguous()
+        k3_leaves = leaves_of(x, w, gamma, beta)
+        plain_leaves = leaves_of(x, w_ohwi, gamma, beta)
+        zero_counts(kernels)
+        k3 = k3_values(torch, kernels, k3_leaves, dout)
+        torch.cuda.synchronize()
+        launches = dict(kernels.conv3x3_bn_stats.launches_by_route)
+        un = unfused_values(torch, plain_leaves, dout)
+        errs = {k: l2_err(a, b) for k, a, b in zip(names, k3, un)}
+        del k3, un
+        ok = launches == {"tc": 0, "tf32x3": 1, "simt": 0} and all(
+            e <= K3_FP32_TRAIN_TOL for e in errs.values())
+        log(f"[k] conv3x3_bn_relu_train fp32 ({n}, {hw}, {hw}, {c}) x "
+            f"{count}: ||K3 - unfused|| / ||unfused|| "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f" (tol {K3_FP32_TRAIN_TOL:g}: both f32, relu's mask flips "
+            "where they straddle 0); K3 launches "
+            f"{launches} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("phase k: K3's fp32 trainable wrapper strays "
+                             "from the fp32 unfused path or left the 3xTF32 "
+                             "route")
+        with torch.no_grad():
+            k3_ms = device_ms(lambda: kernels.conv3x3_bn_relu_train(
+                *k3_leaves, eps=RESNET_BN_EPS), n=10)
+            plain_ms = device_ms(lambda: unfused_conv_bn_relu(
+                torch, *plain_leaves), n=10)
+            ref_ms = device_ms(
+                lambda: kernels.conv3x3_bn_stats_reference(x, w), n=3)
+        k3_fb_ms = device_ms(lambda: k3_values(torch, kernels, k3_leaves,
+                                               dout), n=5)
+        plain_fb_ms = device_ms(lambda: unfused_values(torch, plain_leaves,
+                                                       dout), n=5)
+        by_route = dict(kernels.conv3x3_bn_stats.launches_by_route)
+        if by_route["tc"] or by_route["simt"]:
+            raise SystemExit("phase k: an fp32 K3 launch left the 3xTF32 "
+                             "route")
+        flops, nbytes = conv_work(n, hw, hw, c, c, 4)
+        bound_ms, bound_by, _ = bound_tf32x3(flops, nbytes)
+        log(f"[k]   fp32 forward: K3 {k3_ms:.4f} ms, unfused {plain_ms:.4f} "
+            f"ms (K3 / unfused {k3_ms / plain_ms:.2f}x; K3's conv + "
+            f"statistics 3xTF32 bound {bound_ms:.4f} ms by {bound_by}, its "
+            f"plain version {ref_ms:.4f} ms); "
+            f"forward + backward: K3 {k3_fb_ms:.4f} ms, unfused "
+            f"{plain_fb_ms:.4f} ms ({k3_fb_ms / plain_fb_ms:.2f}x); K3 "
+            f"launches {by_route}")
+        rows.append({"shape": [n, hw, hw, c, c], "count": count,
+                     "errs": errs, "fwd_ms": k3_ms, "unfused_fwd_ms": plain_ms,
+                     "plain_k3_ms": ref_ms,
+                     "fwd_bwd_ms": k3_fb_ms,
+                     "unfused_fwd_bwd_ms": plain_fb_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "launches_by_route": by_route})
+        del x, w, w_ohwi, gamma, beta, dout, k3_leaves, plain_leaves
+    fwd = sum(r["count"] * (r["unfused_fwd_ms"] - r["fwd_ms"])
+              for r in rows)
+    fwd_bwd = sum(r["count"] * (r["unfused_fwd_bwd_ms"] - r["fwd_bwd_ms"])
+                  for r in rows)
+    n_convs = sum(r["count"] for r in rows)
+    for what, saved in (("forward", fwd), ("forward + backward", fwd_bwd)):
+        share = (f" (phase j's bf16 step is {step_ms:.2f} ms)" if step_ms
+                 else "")
+        log(f"[k] fp32, weighted by the {n_convs} convs, {what}: K3 would "
+            f"{'save' if saved >= 0 else 'cost'} {abs(saved):.3f} ms{share}")
+    torch.cuda.empty_cache()
+    return {"per_shape": rows, "saved_fwd_ms": fwd,
+            "saved_fwd_bwd_ms": fwd_bwd,
             "launches": sum(sum(r["launches_by_route"].values())
                             for r in rows)}
 
@@ -2561,8 +2898,10 @@ def capture_kernels_alone(torch, kernels, capture):
     """Each route of K1, K2 and K3 captured alone in a graph, then replayed
     on new inputs copied into its static buffers: each replay bitwise equal
     to an eager launch on those inputs, on the route it names (fp32 D=64
-    takes "tf32x3", whose graphs must hold one kernel node for K1 and three
-    for K2; fp32 D=80 the CUDA cores)."""
+    and fp32 convs of 64 channels take "tf32x3", whose graphs must hold one
+    kernel node for K1, three for K2 and three for K3 (the weight
+    pre-pass, the conv, the statistics' reduction); fp32 D=80 and fp32
+    convs of 60 channels the CUDA cores)."""
     gen = torch.Generator(device="cuda").manual_seed(31)
     bf16, f32 = torch.bfloat16, torch.float32
 
@@ -2579,9 +2918,8 @@ def capture_kernels_alone(torch, kernels, capture):
                                            return_lse=True)
         return [q, k, v, out, lse, rnd(q.shape, dtype)]
 
-    def conv(dtype):
-        return [rnd((4, 16, 16, 64), dtype), rnd((3, 3, 64, 64), dtype,
-                                                 0.05)]
+    def conv(dtype, c=64):
+        return [rnd((4, 16, 16, c), dtype), rnd((3, 3, c, c), dtype, 0.05)]
 
     def k1(q, k, v):
         return list(kernels.flash_attention(q, k, v, causal=True,
@@ -2595,15 +2933,14 @@ def capture_kernels_alone(torch, kernels, capture):
         return list(kernels.conv3x3_bn_stats(x, w))
 
     cases = []
-    for route, dtype, d in (("tc", bf16, 64), ("tf32x3", f32, 64),
-                            ("simt", f32, 80)):
+    for route, dtype, d, c in (("tc", bf16, 64, 64), ("tf32x3", f32, 64, 64),
+                               ("simt", f32, 80, 60)):
         cases += [("K1", route, kernels.flash_attention, k1,
                    attn(dtype, d), attn(dtype, d), 1),
                   ("K2", route, kernels.flash_attention_backward, k2,
-                   bwd_inputs(dtype, d), bwd_inputs(dtype, d), 3)]
-        if route != "tf32x3":
-            cases.append(("K3", route, kernels.conv3x3_bn_stats, k3,
-                          conv(dtype), conv(dtype), None))
+                   bwd_inputs(dtype, d), bwd_inputs(dtype, d), 3),
+                  ("K3", route, kernels.conv3x3_bn_stats, k3,
+                   conv(dtype, c), conv(dtype, c), 3)]
     records = []
     for name, route, wrapper, fn, first, second, want_nodes in cases:
         ex = capture.CapturedExec(fn, label=f"{name} {route} alone",
@@ -3114,6 +3451,8 @@ def main(argv=None):
     log(f"[a] built {', '.join(_build.SOURCES)} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name in _build.SOURCES:
+        for line in ptxas_advisories(_build.build_log(name)):
+            log(f"[a] ptxas advisory ({name}): {line}")
         for entry, usage in ptxas_usage(_build.build_log(name)):
             log(f"[a] ptxas {entry}: {usage}")
             if name.endswith(("_tc", "_tf32x3")) and not re.search(
@@ -3134,6 +3473,7 @@ def main(argv=None):
     model_err = model_vs_plain(torch, mx, kernels)
     vision, (pred, net, images) = serve_resnet(torch, mx)
     on_model = conv_on_model(torch, kernels, pred, net, images)
+    on_fp32_model = conv_on_fp32_model(torch, mx, kernels, images)
     del pred, net, images
     torch.cuda.empty_cache()
     layout_err = resnet_layouts(torch, mx)
@@ -3142,16 +3482,24 @@ def main(argv=None):
     resnet_training = train_resnet(torch, mx)
     k3_training = k3_at_training_shapes(
         torch, kernels, RESNET_BATCH, resnet_training["median_step_ms"])
+    k3_fp32_training = k3_fp32_at_training_shapes(
+        torch, kernels, RESNET_BATCH, resnet_training["median_step_ms"])
     captured = capture_phase(torch, mx, kernels)
     fp32_training = train_fp32_lm(torch, mx, kernels)
 
-    # K3's four launches on the main path are one per ResNet-50 shape, so
-    # its totals are over the four shapes at N=32; they take the
-    # tensor-core source, whose numbers these are (simt_ms: the CUDA-core
-    # kernel on the same inputs)
+    # K3's four launches on each main path are one per ResNet-50 shape, so
+    # its totals are over the four shapes at N=32: the bf16 model's (phase
+    # g) take the tensor-core source, the fp32 model's the 3xTF32 one, whose
+    # numbers the two K3 entries hold (simt_ms: the CUDA-core kernel on the
+    # same inputs)
     conv_flops = sum(r["flops"] for r in conv_timing)
     conv_bytes = sum(r["bytes"] for r in conv_timing)
     conv_bound_ms, conv_bound_by = bound(conv_flops, conv_bytes)
+    conv32_bound_ms, conv32_bound_by, _ = bound_tf32x3(
+        conv_flops, sum(r["fp32_bytes"] for r in conv_timing))
+    k3_sources = {"tc": "mxnet_tpu_torch/csrc/conv3x3_bn_stats_tc.cu",
+                  "tf32x3": "mxnet_tpu_torch/csrc/conv3x3_bn_stats_tf32x3.cu",
+                  "simt": "mxnet_tpu_torch/csrc/conv3x3_bn_stats.cu"}
     # K1 and K2 have three sources each, chosen by a fixed route: the bf16
     # LM's path (phases d, h) takes "tc", whose numbers the first two
     # entries hold; the fp32 LM's path (phase m) takes "tf32x3", whose
@@ -3203,8 +3551,7 @@ def main(argv=None):
         "fp32_library_ms": bwd_timing["fp32_library_ms"]}, {
         "name": "conv3x3_bn_stats", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/conv3x3_bn_stats_tc.cu",
-        "sources": {"tc": "mxnet_tpu_torch/csrc/conv3x3_bn_stats_tc.cu",
-                    "simt": "mxnet_tpu_torch/csrc/conv3x3_bn_stats.cu"},
+        "sources": k3_sources,
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:446",
         "launches": on_model["launches"],
         "launches_by_route": on_model["launches_by_route"],
@@ -3219,16 +3566,46 @@ def main(argv=None):
         "unfused_ms": sum(r["unfused_ms"] for r in conv_timing),
         "per_shape": [{k: r[k] for k in (
             "shape", "tiles", "ms", "simt_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "unfused_ms", "simt_fp32_ms",
-            "fp32_library_ms")}
+            "bound_by", "library_ms", "unfused_ms")}
             for r in conv_timing],
         # phase k: the trainable wrapper at the training step's shapes
         "training_shape_launches": k3_training["launches"],
         "training_shape": [{k: r[k] for k in (
-            "shape", "count", "fwd_ms", "unfused_fwd_ms", "fwd_bwd_ms",
-            "unfused_fwd_bwd_ms", "bound_ms", "bound_by")}
+            "shape", "count", "fwd_ms", "unfused_fwd_ms", "plain_k3_ms",
+            "fwd_bwd_ms", "unfused_fwd_bwd_ms", "bound_ms", "bound_by")}
             for r in k3_training["per_shape"]],
         "training_saved_fwd_bwd_ms": k3_training["saved_fwd_bwd_ms"]}, {
+        # the fp32 ResNet-50's path (phase g): 4 launches on route "tf32x3"
+        "name": "conv3x3_bn_stats_tf32x3", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/conv3x3_bn_stats_tf32x3.cu",
+        "sources": k3_sources,
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:446",
+        "launches": on_fp32_model["launches"],
+        "launches_by_route": on_fp32_model["launches_by_route"],
+        "max_abs_err": on_fp32_model["max_abs_err"],
+        "check": "the fp32 cases of phase b and the fp32 model's 4 tensors "
+                 f"within {CONV_TF32X3_TOL:g} of max|ref|",
+        "ms": sum(r["tf32x3_ms"] for r in conv_timing),
+        "plain_ms": sum(r["fp32_plain_ms"] for r in conv_timing),
+        "bound_ms": conv32_bound_ms, "bound_by": conv32_bound_by,
+        "library_ms": sum(r["fp32_library_ms"] for r in conv_timing),
+        "tf32_library_ms": sum(r["tf32_library_ms"] for r in conv_timing),
+        "unfused_ms": sum(r["fp32_unfused_ms"] for r in conv_timing),
+        "simt_ms": sum(r["simt_fp32_ms"] for r in conv_timing),
+        "issued_flops": sum(r["tf32x3_issued_flops"] for r in conv_timing),
+        "per_shape": [{k: r[k] for k in (
+            "shape", "tf32x3_ms", "simt_fp32_ms", "fp32_plain_ms",
+            "fp32_library_ms", "tf32_library_ms", "fp32_unfused_ms",
+            "tf32x3_bound_ms", "tf32x3_issued_flops")}
+            for r in conv_timing],
+        # phase k in fp32: the trainable wrapper at the training step's
+        # shapes
+        "training_shape_launches": k3_fp32_training["launches"],
+        "training_shape": [{k: r[k] for k in (
+            "shape", "count", "fwd_ms", "unfused_fwd_ms", "plain_k3_ms",
+            "fwd_bwd_ms", "unfused_fwd_bwd_ms", "bound_ms", "bound_by")}
+            for r in k3_fp32_training["per_shape"]],
+        "training_saved_fwd_bwd_ms": k3_fp32_training["saved_fwd_bwd_ms"]}, {
         # phase m's path: the fp32 LM's 12 K1 and 12 K2 launches a step
         "name": "flash_attn_fwd_tf32x3", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd_tf32x3.cu",
@@ -3272,9 +3649,12 @@ def main(argv=None):
                        "conv_timing": conv_timing, "slice": served,
                        "model_vs_plain_err": model_err, "vision": vision,
                        "conv_on_model": on_model,
+                       "conv_on_fp32_model": on_fp32_model,
                        "resnet_layout_err": layout_err,
                        "resnet_training": resnet_training,
-                       "k3_training": k3_training, "capture": captured,
+                       "k3_training": k3_training,
+                       "k3_fp32_training": k3_fp32_training,
+                       "capture": captured,
                        "fp32_training": fp32_training,
                        **record}, f,
                       indent=1)

@@ -28,8 +28,9 @@
 // axis in order. Here blocks run in no order, so no f32 atomics: each
 // block writes its tile's per-channel sum and sum of squares (over its
 // valid pixels, in a fixed order) to an f32 partials buffer
-// (2, M tiles, Cout), and a second small kernel reduces the partials of
-// each channel in a fixed order. Two launches give bitwise-equal outputs.
+// (2, M tiles, Cout), and a second small kernel (bn_stats.cuh, shared with
+// the other two K3 sources) reduces the partials of each channel in a fixed
+// order. Two launches give bitwise-equal outputs.
 //
 // Thread layout: thread t owns rows tm + 16 i (tm = t / 16) and columns
 // tn + 16 j (tn = t % 16), i, j < 4, so a warp reads the w chunk from 16
@@ -58,6 +59,8 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
+#include "bn_stats.cuh"
+
 namespace {
 
 constexpr int BM = 64;          // output pixels per block
@@ -71,8 +74,6 @@ constexpr int CSTEP = BN / TN;  // column stride between its columns (16)
 constexpr int AS = BM + 1;      // padded stride of the transposed x tile
 constexpr int AR = BM * BK / NT;  // x elements each thread stages (8)
 constexpr int BR = BK * BN / NT;  // w elements each thread stages (8)
-constexpr int RC = 32;          // channels per reduction block
-constexpr int RS = 32;          // partial-sum segments per channel
 static_assert(RSTEP * CSTEP == NT, "thread layout");
 static_assert(NT % BK == 0 && NT % BN == 0, "staging layout");
 static_assert(RSTEP * BN <= BK * AS && RSTEP * BN <= BK * BN,
@@ -224,38 +225,6 @@ conv3x3_stats_kernel(const scalar_t* __restrict__ x,
   }
 }
 
-// sums[0][c] = sum over M tiles of part[0][t][c], sums[1][c] likewise, in
-// a fixed order: segment g takes tiles g, g + RS, ... in turn, then the RS
-// segments are added in order.
-__global__ void __launch_bounds__(RC * RS)
-reduce_stats_kernel(const float* __restrict__ part, float* __restrict__ sums,
-                    int m_tiles, int cout) {
-  __shared__ float ss[RS][RC + 1];
-  __shared__ float sq[RS][RC + 1];
-  const int lane = threadIdx.x;
-  const int seg = threadIdx.y;
-  const int c = blockIdx.x * RC + lane;
-  float s = 0.f, q = 0.f;
-  if (c < cout) {
-    for (int t = seg; t < m_tiles; t += RS) {
-      s += part[(size_t)t * cout + c];
-      q += part[(size_t)(m_tiles + t) * cout + c];
-    }
-  }
-  ss[seg][lane] = s;
-  sq[seg][lane] = q;
-  __syncthreads();
-  if (seg == 0 && c < cout) {
-    float a = 0.f, b = 0.f;
-    for (int g = 0; g < RS; ++g) {
-      a += ss[g][lane];
-      b += sq[g][lane];
-    }
-    sums[c] = a;
-    sums[cout + c] = b;
-  }
-}
-
 template <typename scalar_t>
 cudaError_t launch(const void* x, const void* w, void* y, void* part,
                    void* sums, int n, int height, int width, int cin,
@@ -269,10 +238,7 @@ cudaError_t launch(const void* x, const void* w, void* y, void* part,
       cin, cout, m_total);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  reduce_stats_kernel<<<(cout + RC - 1) / RC, dim3(RC, RS), 0, stream>>>(
-      static_cast<const float*>(part), static_cast<float*>(sums), m_tiles,
-      cout);
-  return cudaGetLastError();
+  return reduce_stats(part, sums, m_tiles, cout, stream);
 }
 
 }  // namespace

@@ -52,8 +52,8 @@
 //   per column; xor shuffles add the 8 lanes that hold the same column; the
 //   warps' sums are added in a fixed order through shared memory. Each CTA
 //   writes its tile's sums to per-M-tile partials (2, M tiles, Cout), which
-//   reduce_stats_kernel adds in a fixed order. No f32 atomics: two launches
-//   are bitwise equal.
+//   reduce_stats_kernel (bn_stats.cuh) adds in a fixed order. No f32
+//   atomics: two launches are bitwise equal.
 //
 // Shared memory: STAGES x (BM + BN) x 128 bytes of tiles, plus the warps'
 // column sums. (BM, BN) = (128, 128) takes 3 stages, 105 KB; (128, 64),
@@ -87,13 +87,12 @@
 // CUDA-core kernel.
 #include <type_traits>
 
+#include "bn_stats.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 constexpr int SMEM_PER_SM = 232448;
-constexpr int RC = 32;             // channels per reduction block
-constexpr int RS = 32;             // partial-sum segments per channel
 
 // C consumer warpgroups (BM = 64 C rows) by BN output channels.
 template <int C, int BN>
@@ -255,38 +254,6 @@ conv3x3_tc_kernel(const __grid_constant__ CUtensorMap tx,
   }
 }
 
-// sums[0][c] = sum over M tiles of part[0][t][c], sums[1][c] likewise, in
-// a fixed order: segment g takes tiles g, g + RS, ... in turn, then the RS
-// segments are added in order.
-__global__ void __launch_bounds__(RC * RS)
-reduce_stats_kernel(const float* __restrict__ part, float* __restrict__ sums,
-                    int m_tiles, int cout) {
-  __shared__ float ss[RS][RC + 1];
-  __shared__ float sq[RS][RC + 1];
-  const int lane = threadIdx.x;
-  const int seg = threadIdx.y;
-  const int c = blockIdx.x * RC + lane;
-  float s = 0.f, q = 0.f;
-  if (c < cout) {
-    for (int t = seg; t < m_tiles; t += RS) {
-      s += part[(size_t)t * cout + c];
-      q += part[(size_t)(m_tiles + t) * cout + c];
-    }
-  }
-  ss[seg][lane] = s;
-  sq[seg][lane] = q;
-  __syncthreads();
-  if (seg == 0 && c < cout) {
-    float a = 0.f, b = 0.f;
-    for (int g = 0; g < RS; ++g) {
-      a += ss[g][lane];
-      b += sq[g][lane];
-    }
-    sums[c] = a;
-    sums[cout + c] = b;
-  }
-}
-
 // ------------------------------------------------------------------ host
 typedef CUresult (*EncodeIm2col)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
@@ -359,10 +326,7 @@ int launch(const void* x, const void* w, void* y, void* part, void* sums,
       cout, m_total);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
-  reduce_stats_kernel<<<(cout + RC - 1) / RC, dim3(RC, RS), 0, stream>>>(
-      static_cast<const float*>(part), static_cast<float*>(sums), m_tiles,
-      cout);
-  return int(cudaGetLastError());
+  return int(reduce_stats(part, sums, m_tiles, cout, stream));
 }
 
 template <typename T>

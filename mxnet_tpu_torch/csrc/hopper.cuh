@@ -1,13 +1,13 @@
 // Device and host helpers shared by the port's Hopper (sm_90a) kernels:
 // csrc/flash_attn_fwd_tc.cu and csrc/flash_attn_fwd_tf32x3.cu (K1),
 // csrc/flash_attn_bwd_tc.cu and csrc/flash_attn_bwd_tf32x3.cu (K2) and
-// csrc/conv3x3_bn_stats_tc.cu (K3) include it. It holds the mbarrier ring
-// primitives, TMA loads (tiled, im2col and plain bulk), the descriptor of a
-// 128-byte-swizzled shared-memory tile, the warpgroup products (wgmma) in
-// 16-bit and TF32 with both operands in shared memory or A in registers,
-// the 16-bit packing and hi + lo split of f32 values, the TF32 hi + lo
-// split of f32 tiles in shared memory (3xTF32), and the host's tensor-map
-// encoding.
+// csrc/conv3x3_bn_stats_tc.cu and csrc/conv3x3_bn_stats_tf32x3.cu (K3)
+// include it. It holds the mbarrier ring primitives, TMA loads (tiled,
+// im2col and plain bulk), the descriptor of a 128-byte-swizzled
+// shared-memory tile, the warpgroup products (wgmma) in 16-bit and TF32
+// with both operands in shared memory or A in registers, the 16-bit packing
+// and hi + lo split of f32 values, the TF32 hi + lo split of f32 tiles in
+// shared memory (3xTF32), and the host's tensor-map encoding.
 //
 // ops/_build.py hashes this file into the digest of every source that
 // includes it, so editing it rebuilds them all. Everything here has
@@ -318,11 +318,12 @@ __device__ __forceinline__ void wgmma_ss_tf32(float* d, uint64_t da,
   }
 }
 
-// D (64 x N, f32) += A (64 x 8) B (8 x N) in TF32: A from registers (4 x
-// b32 a thread, see tf32_a_fragment below), B K-major from shared memory.
+// D (64 x N, f32) = or += A (64 x 8) B (8 x N) in TF32: A from registers
+// (4 x b32 a thread, see tf32_a_fragment below), B K-major from shared
+// memory; acc = 0 overwrites D.
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tf32(float* d, const uint32_t* a,
-                                              uint64_t db) {
+                                              uint64_t db, int acc = 1) {
   if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -330,7 +331,7 @@ __device__ __forceinline__ void wgmma_rs_tf32(float* d, const uint32_t* a,
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
         "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
   } else if constexpr (N == 128) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -338,7 +339,7 @@ __device__ __forceinline__ void wgmma_rs_tf32(float* d, const uint32_t* a,
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
         "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
   } else {
     static_assert(N == 0, "wgmma_rs_tf32: no such shape");
   }

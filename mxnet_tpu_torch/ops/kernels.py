@@ -13,12 +13,17 @@ and ``csrc/flash_attn_fwd.cu`` on the CUDA cores (everything else, after
 
 K3, the fused 3x3 conv + BatchNorm statistics, replaces the TPU kernel
 ``mxnet_tpu/ops/pallas_kernels.py:conv3x3_bn_stats``, and
-:func:`conv3x3_bn_relu_train` is its trainable wrapper. It has two CUDA
+:func:`conv3x3_bn_relu_train` is its trainable wrapper. It has three CUDA
 sources, chosen by the fixed rule of :func:`_conv_route`:
 ``csrc/conv3x3_bn_stats_tc.cu`` on the tensor cores (wgmma + TMA im2col;
-16-bit, Cin and Cout multiples of 64, tiles from :func:`_conv_tiles`) and
-``csrc/conv3x3_bn_stats.cu`` on the CUDA cores (everything else). Each
-source's header says what bounds it on the H100 and how it is laid out.
+16-bit, Cin and Cout multiples of 64, tiles from :func:`_conv_tiles`),
+``csrc/conv3x3_bn_stats_tf32x3.cu`` on the tensor cores in fp32 as 3xTF32
+(route "tf32x3": the same im2col loads, A split into TF32 hi and lo in
+registers, w packed into TF32 hi and lo K-major panels by a pre-pass; Cin
+a multiple of 32, Cout of 64) and ``csrc/conv3x3_bn_stats.cu`` on the CUDA
+cores (everything else). The three share the statistics' fixed-order
+second pass (``csrc/bn_stats.cuh``). Each source's header says what bounds
+it on the H100 and how it is laid out.
 
 K2, the flash-attention backward, replaces
 ``mxnet_tpu/ops/pallas_kernels.py:_flash_bwd_blockwise`` (a ``lax.scan``
@@ -70,7 +75,7 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_with_grad", "flash_attention_with_lse",
            "flash_attention_qkv", "conv3x3_bn_stats",
            "conv3x3_bn_stats_reference", "conv3x3_bn_relu_train",
-           "tf32_split_reference"]
+           "tf32_split_reference", "conv_weight_tf32x3_pack_reference"]
 
 _NEG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -707,14 +712,18 @@ _CONV_TILES = ((128, 128), (64, 128), (128, 64), (64, 64))
 
 def _conv_route(dtype, cin, cout, contiguous, ptrs):
     """Which K3 kernel takes these inputs: "tc" (tensor cores) for bf16 or
-    fp16, Cin and Cout multiples of 64, x and w contiguous with 16-byte
-    aligned base addresses ``ptrs``; "simt" (CUDA cores) for everything
-    else, fp32 among it (TF32 products cannot hold its 1e-4). A fixed
+    fp16 with Cin a multiple of 64, "tf32x3" (tensor cores, 3xTF32) for
+    fp32 with Cin a multiple of 32 (one 128-byte TF32 row), each with Cout
+    a multiple of 64 and x and w contiguous with 16-byte-aligned base
+    addresses ``ptrs``; "simt" (CUDA cores) for everything else. A fixed
     rule, not a fall-back: a failure of the chosen kernel raises."""
-    if (dtype not in (torch.bfloat16, torch.float16) or cin % 64
-            or cout % 64 or not contiguous):
+    if cout % 64 or not contiguous or any(p % 16 for p in ptrs):
         return "simt"
-    return "tc" if all(p % 16 == 0 for p in ptrs) else "simt"
+    if dtype in (torch.bfloat16, torch.float16):
+        return "simt" if cin % 64 else "tc"
+    if dtype == torch.float32:
+        return "simt" if cin % 32 else "tf32x3"
+    return "simt"
 
 
 def _conv_tiles(m_total, cout, sms):
@@ -722,11 +731,23 @@ def _conv_tiles(m_total, cout, sms):
     channels on a card of ``sms`` streaming multiprocessors: the first of
     (128, 128), (64, 128), (128, 64), (64, 64) whose BN divides Cout and
     whose grid has a CTA for each SM, else 64 x 64. The order is measured
-    (tools/torch_k3_variants.py, PERF.md)."""
+    (tools/torch_k3_variants.py, PERF.md). The 3xTF32 kernel has one
+    tiling, 64 x 64 (its source's header says why)."""
     for bm, bn in _CONV_TILES:
         if cout % bn == 0 and -(-m_total // bm) * (cout // bn) >= sms:
             return bm, bn
     return 64, 64
+
+
+def conv_weight_tf32x3_pack_reference(w):
+    """The plain version of the 3xTF32 K3's pre-pass: w (3, 3, Cin, Cout)
+    as (2, 9, Cout, Cin) f32, [0] the TF32 hi parts and [1] the lo parts
+    (:func:`tf32_split_reference`) of each tap's weights transposed: for
+    each output channel a K-major row of Cin values, the B operand TF32
+    wgmma takes (it has no transpose flags)."""
+    cin, cout = w.shape[2], w.shape[3]
+    return torch.stack([t.reshape(9, cin, cout).transpose(1, 2)
+                        for t in tf32_split_reference(w)]).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -758,6 +779,67 @@ def _conv_tc_library():
         lib.conv3x3_tc_error_string.argtypes = [i]
         lib.conv3x3_tc_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _conv_tf32x3_library():
+    lib = _build.load("conv3x3_bn_stats_tf32x3")
+    fn = lib.conv3x3_bn_stats_tf32x3
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 6 + [i] * 5 + [p]
+        fn.restype = ctypes.c_int
+        lib.conv3x3_tf32x3_block_m.restype = ctypes.c_int
+        lib.conv3x3_tf32x3_pack_w.argtypes = [p, p, i, i, p]
+        lib.conv3x3_tf32x3_pack_w.restype = ctypes.c_int
+        lib.conv3x3_tf32x3_error_string.argtypes = [i]
+        lib.conv3x3_tf32x3_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _tf32x3_error(lib, what, err):
+    return MXNetError(f"{what} launch failed: "
+                      f"{lib.conv3x3_tf32x3_error_string(err).decode()} "
+                      f"(error {err})")
+
+
+def _launch_conv_tf32x3(x, w):
+    """The 3xTF32 K3 on contiguous fp32 x and w: the pre-pass packs w into
+    a (2, 9, Cout, Cin) workspace allocated here, then the conv and the
+    statistics' reduction run."""
+    lib = _conv_tf32x3_library()
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    m_tiles = -(-(n * h * wd) // lib.conv3x3_tf32x3_block_m())
+    f32 = torch.float32
+    wpack = torch.empty((2, 9, cout, cin), dtype=f32, device=x.device)
+    y = torch.empty((n, h, wd, cout), dtype=f32, device=x.device)
+    part = torch.empty((2, m_tiles, cout), dtype=f32, device=x.device)
+    sums = torch.empty((2, cout), dtype=f32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.conv3x3_bn_stats_tf32x3(
+            x.data_ptr(), w.data_ptr(), wpack.data_ptr(), y.data_ptr(),
+            part.data_ptr(), sums.data_ptr(), n, h, wd, cin, cout, stream)
+    if err:
+        raise _tf32x3_error(lib, "conv3x3_bn_stats_tf32x3", err)
+    return y, sums[0], sums[1]
+
+
+def _launch_pack_w_tf32x3(w):
+    """The 3xTF32 K3's pre-pass alone on contiguous fp32 w (3, 3, Cin,
+    Cout): the packed (2, 9, Cout, Cin) weight, to hold against
+    :func:`conv_weight_tf32x3_pack_reference` on the card."""
+    lib = _conv_tf32x3_library()
+    cin, cout = w.shape[2], w.shape[3]
+    wpack = torch.empty((2, 9, cout, cin), dtype=torch.float32,
+                        device=w.device)
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        err = lib.conv3x3_tf32x3_pack_w(w.data_ptr(), wpack.data_ptr(), cin,
+                                        cout, stream)
+    if err:
+        raise _tf32x3_error(lib, "conv3x3_tf32x3_pack_w", err)
+    return wpack
 
 
 def _launch_conv_tc(x, w, tiles=None):
@@ -822,6 +904,8 @@ def _launch_conv(x, w):
                         (x.data_ptr(), w.data_ptr()))
     if route == "tc":
         out = _launch_conv_tc(x, w)
+    elif route == "tf32x3":
+        out = _launch_conv_tf32x3(x, w)
     else:
         out = _launch_conv_simt(x, w)
     conv3x3_bn_stats.launches += 1
@@ -847,7 +931,7 @@ def conv3x3_bn_stats(x, w):
 
 
 conv3x3_bn_stats.launches = 0
-conv3x3_bn_stats.launches_by_route = {"tc": 0, "simt": 0}
+conv3x3_bn_stats.launches_by_route = {"tc": 0, "tf32x3": 0, "simt": 0}
 
 
 def _conv_nchw(t):

@@ -1,11 +1,13 @@
 """Kernel K3's tensor-core route in the PyTorch port, CPU side.
 
-K3 has two CUDA kernels, chosen by ``ops/kernels.py:_conv_route``: the
+K3 has three CUDA kernels, chosen by ``ops/kernels.py:_conv_route``: the
 tensor-core one (``csrc/conv3x3_bn_stats_tc.cu``: bf16/fp16, Cin and Cout
 multiples of 64, contiguous, 16-byte aligned) with tiles from
-``_conv_tiles``, and the CUDA-core one (``csrc/conv3x3_bn_stats.cu``) for
-everything else. Here the route and the tile rule are checked as rules;
-the plain version, which the wrapper runs for CPU tensors, is held to
+``_conv_tiles``, the fp32 3xTF32 one (``csrc/conv3x3_bn_stats_tf32x3.cu``,
+tests/test_torch_conv_tf32x3.py) and the CUDA-core one
+(``csrc/conv3x3_bn_stats.cu``) for everything else. Here the route and
+the tile rule are checked as rules; the plain version, which the wrapper
+runs for CPU tensors, is held to
 ``mxnet_tpu``'s Pallas K3 in interpret mode at 64-channel shapes within the
 tolerances of tests/test_torch_conv_bn.py (y 1e-5, sum 1e-4, sumsq 1e-3
 absolute: f32 sums in other orders). The kernel itself is held to its plain
@@ -33,7 +35,7 @@ STATS_TOL_16 = 5e-5
 ROUTES = [
     ("bf16_64", BF16, 64, 64, True, (0, 4096), "tc"),
     ("fp16_128_512", F16, 128, 512, True, (256, 16), "tc"),
-    ("fp32", F32, 64, 64, True, (0, 0), "simt"),
+    ("fp32", F32, 64, 64, True, (0, 0), "tf32x3"),
     ("float64", torch.float64, 64, 64, True, (0, 0), "simt"),
     ("cin_5", BF16, 5, 64, True, (0, 0), "simt"),
     ("cin_96", BF16, 96, 64, True, (0, 0), "simt"),
@@ -119,12 +121,13 @@ def test_cpu_call_counts_no_launch_and_builds_nothing():
     assert s.dtype == q.dtype == F32 and s.shape == (128,)
     assert kernels.conv3x3_bn_stats.launches == before
     assert kernels.conv3x3_bn_stats.launches_by_route == by_route
-    assert set(by_route) == {"tc", "simt"}
+    assert set(by_route) == {"tc", "tf32x3", "simt"}
     assert "conv3x3_bn_stats_tc" not in _build._libs
     assert "conv3x3_bn_stats_tc" in _build.SOURCES
 
 
-@pytest.mark.parametrize("dtype,route", [(BF16, "tc"), (F32, "simt")])
+@pytest.mark.parametrize("dtype,route", [(BF16, "tc"), (F32, "simt"),
+                                         (F32, "tf32x3")])
 def test_build_failure_raises_and_takes_no_other_path(monkeypatch, dtype,
                                                       route):
     """A failed build of the chosen kernel is an MXNetError: no move to the
@@ -133,10 +136,13 @@ def test_build_failure_raises_and_takes_no_other_path(monkeypatch, dtype,
         raise MXNetError("nvcc failed to build")
 
     monkeypatch.setattr(kernels, "_conv_tc_library", broken)
+    monkeypatch.setattr(kernels, "_conv_tf32x3_library", broken)
     monkeypatch.setattr(kernels, "_conv_library", broken)
     monkeypatch.setattr(kernels, "conv3x3_bn_stats_reference", broken)
-    x, w = (torch.from_numpy(t).to(dtype) for t in _inputs(1, 4, 4, 64, 64,
-                                                           seed=2))
+    cin, cout = (5, 13) if route == "simt" else (64, 64)
+    x, w = (torch.from_numpy(t).to(dtype) for t in _inputs(1, 4, 4, cin,
+                                                           cout, seed=2))
+    assert kernels._conv_route(dtype, cin, cout, True, (0, 0)) == route
     before = dict(kernels.conv3x3_bn_stats.launches_by_route)
     with pytest.raises(MXNetError, match="nvcc"):
         kernels._launch_conv(x, w)

@@ -215,9 +215,9 @@ def test_cpu_backward_counts_no_launch_and_builds_nothing():
             "flash_attn_bwd_tf32x3"} <= set(_build.SOURCES)
 
 
-def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
-    """Editing csrc/hopper.cuh changes the library name of every source
-    that includes it (so each is rebuilt) and of no other source."""
+def _edit_header(tmp_path, monkeypatch, header):
+    """(sources that include csrc/``header``, sources whose library name
+    changes when it is edited), on a copy of csrc/."""
     import shutil
 
     for f in _build.CSRC.iterdir():
@@ -225,15 +225,32 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = {n: _build._paths(n)[1].name for n in _build.SOURCES}
     users = {n for n in _build.SOURCES
-             if [h.name for h in _build._headers(tmp_path / f"{n}.cu")]
-             == ["hopper.cuh"]}
+             if header in [h.name
+                           for h in _build._headers(tmp_path / f"{n}.cu")]}
+    path = tmp_path / header
+    path.write_text(path.read_text() + "// edited\n")
+    after = {n: _build._paths(n)[1].name for n in _build.SOURCES}
+    return users, {n for n in _build.SOURCES if before[n] != after[n]}
+
+
+def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
+    """Editing csrc/hopper.cuh changes the library name of every source
+    that includes it (so each is rebuilt) and of no other source."""
+    users, changed = _edit_header(tmp_path, monkeypatch, "hopper.cuh")
     assert users == {"flash_attn_fwd_tc", "flash_attn_bwd_tc",
                      "flash_attn_fwd_tf32x3", "flash_attn_bwd_tf32x3",
-                     "conv3x3_bn_stats_tc"}
-    header = tmp_path / "hopper.cuh"
-    header.write_text(header.read_text() + "// edited\n")
-    after = {n: _build._paths(n)[1].name for n in _build.SOURCES}
-    changed = {n for n in _build.SOURCES if before[n] != after[n]}
+                     "conv3x3_bn_stats_tc", "conv3x3_bn_stats_tf32x3"}
+    assert changed == users
+
+
+def test_build_digest_covers_the_shared_statistics_header(tmp_path,
+                                                          monkeypatch):
+    """csrc/bn_stats.cuh (K3's fixed-order statistics reduction) is
+    included by K3's three sources, and editing it rebuilds those three
+    alone."""
+    users, changed = _edit_header(tmp_path, monkeypatch, "bn_stats.cuh")
+    assert users == {"conv3x3_bn_stats", "conv3x3_bn_stats_tc",
+                     "conv3x3_bn_stats_tf32x3"}
     assert changed == users
 
 
