@@ -34,7 +34,13 @@ Phases, each failing loudly with a non-zero exit:
       TF32 pass must miss; its weight pre-pass bitwise) and the CUDA-core
       one (ragged channels, a misaligned base) --, a second launch
       bitwise equal for each route and tile rule, and K3's trainable
-      wrapper's gradients against autograd;
+      wrapper's gradients against autograd --, and K4 (paged decode
+      attention, csrc/paged_decode_attn.cu): fp32, bf16 and fp16 q over
+      fp32 and int8 pools, shuffled page tables (one with other pages past
+      each row's length), ragged lengths, D 64 and 65, the slice's shape;
+      fp32 q within 1e-5 of max|ref|, 16-bit q within 1 ulp of the plain
+      version's rounded output, rows of length 0 exactly 0, a second launch
+      bitwise equal, and no call of the plain version on a CUDA tensor;
   (c) kernel, plain-version and library times at the slices' shapes, in
       device time, beside each kernel's bound on the H100 (K1 also on the
       strided layout, and in fp32 the 3xTF32 kernel beside the CUDA-core
@@ -45,7 +51,11 @@ Phases, each failing loudly with a non-zero exit:
       also beside its CUDA-core kernel on the same inputs and the unfused
       cuDNN conv + batch_norm path, and in fp32 the 3xTF32 kernel with the
       TF32 work it issues beside the CUDA-core kernel, cuDNN's fp32 conv
-      with TF32 off and on, and the fp32 unfused path);
+      with TF32 off and on, and the fp32 unfused path; K4 at B=32, H=12,
+      D=64, pages of 16, 1024 tokens a row, fp32 and int8 pools rotated
+      over 12 layers' pools so none is hot in L2, beside its bytes bound,
+      its plain version and one SDPA call over the same KV already
+      contiguous, which takes no page table);
   (d) the slice: TransformerLM(impl='flash') at GPT-2-small widths in
       bf16, behind Predictor + BatchServer, served to concurrent
       requests: each bucket captured as a CUDA graph at the predictor's
@@ -109,13 +119,26 @@ Phases, each failing loudly with a non-zero exit:
       memory; the LM bucket-8 and ResNet-50 bucket-32 predicts captured
       against eager (bitwise, p50, busy and wall, BatchServer
       requests/s; 12 K1 nodes in the LM bucket); no retrace and no eager
-      run after warm-up;
+      run after warm-up; K4 on each pool dtype captured alone (2 nodes,
+      replay on new tables and lengths bitwise);
   (m) the fp32 training slice: phase h's LM left in fp32 (mxnet_tpu's
       default dtype) at full width and depth, gluon.Trainer + Adam (lr
       1e-3), 10 steps on phase h's batch: finite losses, loss 10 at least
       0.5 below loss 1, exactly 12 K1 and 12 K2 launches a step, all on
       the 3xTF32 route; median step, tokens/s and peak memory; one more
-      step profiled for K1's and K2's device ms and the busy time.
+      step profiled for K1's and K2's device ms and the busy time;
+  (n) generative decode at the same widths (bf16 weights): DecodePredictor
+      (pages of 16, 32 slots, 32 x 64 + 1 pages, prefill buckets 64-512)
+      behind DecodeBatcher, 64 requests from 4 threads, seeded prompts of
+      64-512 tokens, 128 new tokens each, once with fp32 and once with
+      int8 KV: tokens/s, TTFT and inter-token p50/p99, pages at peak,
+      preemptions, the pool's bytes; 12 K4 launches at each of the step's 2
+      warm-up runs and its capture and none after, 24 K4 nodes in the step
+      graph, no capture after warm-up; the step with 32 live slots timed
+      and profiled (busy / wall, K4's share); then an fp32 copy of the
+      model with fp32 KV: 4 prompts x 32 greedy tokens, every step's
+      logits within 1e-3 of max|logits| of the flat forward's on the
+      generated sequence.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. ``--summary PATH`` also writes the
@@ -2144,8 +2167,11 @@ def lm_batch(torch, batch, t, vocab, seed=0):
 
 
 def zero_counts(kernels):
+    from mxnet_tpu_torch.ops import decode_attention
+
     for fn in (kernels.flash_attention, kernels.flash_attention_backward,
-               kernels.conv3x3_bn_stats):
+               kernels.conv3x3_bn_stats,
+               decode_attention.paged_decode_attention):
         fn.launches = 0
         for route in fn.launches_by_route:
             fn.launches_by_route[route] = 0
@@ -3315,7 +3341,10 @@ def capture_phase(torch, mx, kernels):
     """Phase l: capture.py on the card."""
     from mxnet_tpu_torch import capture
 
+    from mxnet_tpu_torch.ops import decode_attention
+
     alone = capture_kernels_alone(torch, kernels, capture)
+    alone += capture_decode_alone(torch, decode_attention, capture)
     lm = capture_lm_step(torch, mx, kernels, capture)
     resnet = capture_resnet_step(torch, mx, capture)
     served = capture_serving(torch, mx, capture)
@@ -3419,6 +3448,549 @@ def train_fp32_lm(torch, mx, kernels):
                                    for g, (ms, n) in groups.items()}}}
 
 
+# ------------------------------------------------------------------- K4
+# K4 (paged decode attention) against its plain version on the same
+# inputs: fp32 q within DECODE_TOL of max|ref| (f32 sums in other orders;
+# the CPU plain version reads <= 1e-6 against mxnet_tpu's), 16-bit q within
+# DECODE_ULP of the plain version's rounded output (two f32 values a few
+# f32 ulps apart round to neighbouring 16-bit values at most)
+DECODE_TOL = 1e-5
+DECODE_ULP = 1
+DECODE_PS = 16              # the slice's page size
+DECODE_MAX_PAGES = T // DECODE_PS
+
+
+@contextlib.contextmanager
+def plain_guard(da):
+    """While open, K4's plain version raises on a CUDA tensor: the wrapper
+    must launch the kernel for those, never fall back."""
+    plain = da.paged_decode_attention_reference
+
+    def guard(q, *args, **kwargs):
+        if q.is_cuda:
+            raise SystemExit("a CUDA tensor reached K4's plain version")
+        return plain(q, *args, **kwargs)
+
+    da.paged_decode_attention_reference = guard
+    try:
+        yield
+    finally:
+        da.paged_decode_attention_reference = plain
+
+
+def decode_pool(torch, da, gen, pages, page_size, h, d, int8):
+    """Seeded K and V pages (pages, page_size, H, D) ~ N(0, 1): fp32, or
+    int8 with scales by kv_quantize. Returns (kp, vp, ks, vs)."""
+    kf = torch.randn((pages, page_size, h, d), generator=gen, device="cuda")
+    vf = torch.randn((pages, page_size, h, d), generator=gen, device="cuda")
+    if not int8:
+        return kf, vf, None, None
+    (kp, ks), (vp, vs) = da.kv_quantize(kf), da.kv_quantize(vf)
+    return kp, vp, ks, vs
+
+
+def decode_table(torch, gen, lengths, page_size, max_pages, pages,
+                 junk=False):
+    """An int32 page table whose rows hold their pages in a shuffled order
+    of the pool's pages 1..pages-1 (no page shared); entries past a row's
+    pages are scratch page 0, or with ``junk`` other pool pages (which the
+    kernel must not read). Returns (table, lengths) on the card."""
+    perm = (torch.randperm(pages - 1, generator=gen, device="cuda") + 1).to(
+        torch.int32)
+    table = torch.zeros((len(lengths), max_pages), dtype=torch.int32,
+                        device="cuda")
+    if junk:
+        table.random_(1, pages, generator=gen)
+    used = 0
+    for i, n in enumerate(lengths):
+        k = -(-n // page_size)
+        table[i, :k] = perm[used:used + k]
+        used += k
+    if used > pages - 1:
+        raise SystemExit("decode_table: the pool is too small")
+    return table, torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+def check_decode_attention(torch, da):
+    """Phase b for K4: fp32, bf16 and fp16 q over fp32 and int8 pools,
+    shuffled tables (one with other pages past each row's length), ragged
+    lengths (1, page_size - 1, page_size, page_size + 1, full, others, 0),
+    D 64 and the odd D 65, and the slice's shape (B=32, H=12, D=64, pages
+    of 16, 64 a row). Each case launched twice (bitwise equal, one launch a
+    call, no call of the plain version on the card) and held to the plain
+    version; rows of length 0 must be exactly 0."""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    ps, mp = DECODE_PS, DECODE_MAX_PAGES
+    full = ps * mp
+    ragged = [1, ps - 1, ps, ps + 1, full, 0, 37, 700]
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    cases = [(qd, int8, h, d, ragged, junk)
+             for qd in (f32, bf16) for int8 in (False, True)
+             for h, d, junk in ((12, 64, False), (3, 65, True))]
+    slice_lengths = torch.randint(1, full + 1, (32,), generator=gen,
+                                  device="cuda").tolist()
+    slice_lengths[:3] = [0, 1, full]
+    cases += [(qd, int8, HEADS, UNITS // HEADS, slice_lengths, False)
+              for qd in (f32, bf16) for int8 in (False, True)]
+    cases.append((f16, True, 4, 64, ragged, True))
+    records, errs = [], {"float32": 0.0, "int8": 0.0}
+    for qd, int8, h, d, lengths, junk in cases:
+        pages = sum(-(-n // ps) for n in lengths) + 1
+        kp, vp, ks, vs = decode_pool(torch, da, gen, pages, ps, h, d, int8)
+        table, lens = decode_table(torch, gen, lengths, ps, mp, pages, junk)
+        q = torch.randn((len(lengths), h, d), generator=gen,
+                        device="cuda").to(qd)
+        args = (q, kp, vp, table, lens)
+        kw = {"k_scales": ks, "v_scales": vs}
+        before = da.paged_decode_attention.launches
+        with plain_guard(da):
+            out = da.paged_decode_attention(*args, **kw)
+            again = da.paged_decode_attention(*args, **kw)
+        launched = da.paged_decode_attention.launches - before
+        ref = da.paged_decode_attention_reference(*args, **kw)
+        torch.cuda.synchronize()
+        zero = lens == 0
+        zeros_ok = bool((out[zero] == 0).all())
+        bitwise = torch.equal(out, again)
+        if qd == f32:
+            err, limit = rel_err(out, ref), DECODE_TOL
+        else:
+            err, limit = ulp_err(torch, out, ref), DECODE_ULP
+        abs_err = (out.float() - ref.float()).abs().max().item()
+        route = "int8" if int8 else "float32"
+        errs[route] = max(errs[route], abs_err)
+        ok = (err <= limit and zeros_ok and bitwise and launched == 2
+              and out.dtype == qd and out.shape == q.shape)
+        name = (f"K4 q {str(qd)[6:]} kv {route} B={len(lengths)} H={h} "
+                f"D={d}{' junk past length' if junk else ''}")
+        log(f"[b] {name}: err {err:.3g} ({'ulp' if qd != f32 else 'rel'}, "
+            f"limit {limit:g}); max|diff| {abs_err:.3g}; length-0 rows "
+            f"exactly 0: {zeros_ok}; second launch bitwise: {bitwise}; "
+            f"launches {launched} (want 2) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase b: {name} disagrees with its plain "
+                             "version")
+        records.append({"case": name, "err": err, "limit": limit,
+                        "max_abs_err": abs_err, "bitwise": bitwise})
+    return records, errs
+
+
+def decode_work(lengths, b, h, d, max_pages, kv_itemsize, q_itemsize,
+                int8):
+    """(FLOP, bytes) one K4 call needs for these lengths: 4 D FLOP per
+    (token, head) (q.k and p.v); each live K and V element read once (with
+    its f32 scale for int8), q, the table and lengths read once, O written
+    once."""
+    tokens = float(sum(lengths))
+    flops = 4.0 * d * h * tokens
+    nbytes = (2.0 * tokens * h * (d * kv_itemsize + (4 if int8 else 0))
+              + 2.0 * b * h * d * q_itemsize + 4.0 * b * (max_pages + 1))
+    return flops, nbytes
+
+
+def time_decode_attention(torch, da):
+    """Phase c for K4 at the slice's decode shape: B=32 slots, H=12, D=64,
+    pages of 16, 64 pages a row, every row 1024 tokens long, bf16 q (the
+    model's), fp32 and int8 pools. Each of the 12 layers has a pool of its
+    own (32 x 64 + 1 pages), and the calls rotate over them, so no call
+    finds its pages in the 50 MB L2 (the int8 pool of one layer is 53 MB).
+    Device time beside the bytes bound at 3.35 TB/s, the plain version, and
+    one scaled_dot_product_attention call over the same KV already
+    contiguous (B, H, 1024, D): the same attention without a page table
+    (no PyTorch call takes one)."""
+    import torch.nn.functional as F
+
+    b, h, d, ps, mp = 32, HEADS, UNITS // HEADS, DECODE_PS, DECODE_MAX_PAGES
+    pages = b * mp + 1
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    q = torch.randn((b, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    lengths = [mp * ps] * b
+    table, lens = decode_table(torch, gen, lengths, ps, mp, pages)
+    out = {}
+    for int8 in (False, True):
+        route = "int8" if int8 else "float32"
+        pools = [decode_pool(torch, da, gen, pages, ps, h, d, int8)
+                 for _ in range(LAYERS)]
+        turn = [0]
+
+        def rotate(fn):
+            def call():
+                i = turn[0] % LAYERS
+                turn[0] += 1
+                kp, vp, ks, vs = pools[i]
+                return fn(q, kp, vp, table, lens, k_scales=ks, v_scales=vs)
+            return call
+
+        before = dict(da.paged_decode_attention.launches_by_route)
+        ms = device_ms(rotate(da.paged_decode_attention), n=24)
+        took = [r for r, n in da.paged_decode_attention.launches_by_route
+                .items() if n != before[r]]
+        if took != [route]:
+            raise SystemExit(f"phase c: K4 {route} took route {took}")
+        # the plain version issues ~300 launches a call: 2 calls stay
+        # inside the launch queue while the card spins
+        plain_ms = device_ms(rotate(da.paged_decode_attention_reference),
+                             n=2)
+        flops, nbytes = decode_work(lengths, b, h, d, mp,
+                                    1 if int8 else 4, 2, int8)
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = flops / PEAK_FP32_FMA_FLOPS * 1e3   # f32 on the CUDA cores
+        bound_ms = max(t_bytes, t_ops)
+        out[route] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+            "tb_per_s": nbytes / (ms * 1e-3) / 1e12,
+            "splits": da.decode_splits(b, mp, torch.cuda.get_device_properties(
+                0).multi_processor_count)}
+        del pools
+        torch.cuda.empty_cache()
+    # the same attention, KV contiguous, no page table: fp32 and bf16
+    qc = q.float().view(b, h, 1, d)
+    kc = torch.randn((b, h, mp * ps, d), generator=gen, device="cuda")
+    vc = torch.randn((b, h, mp * ps, d), generator=gen, device="cuda")
+    sdpa32 = device_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc),
+                       n=24)
+    kc, vc, qc = kc.bfloat16(), vc.bfloat16(), qc.bfloat16()
+    sdpa16 = device_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc),
+                       n=24)
+    del kc, vc
+    torch.cuda.empty_cache()
+    for route, r in out.items():
+        r["contiguous_sdpa_fp32_ms"] = sdpa32
+        r["contiguous_sdpa_bf16_ms"] = sdpa16
+        log(f"[c] paged_decode_attn kv {route} (B={b}, H={h}, D={d}, pages "
+            f"of {ps}, {mp * ps} tokens a row, bf16 q, {r['splits'][0]} "
+            f"splits of {r['splits'][1]} pages; {LAYERS} pools rotated): "
+            f"{r['ms']:.4f} "
+            f"ms device, {r['tb_per_s']:.2f} TB/s, bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}: {r['bytes'] / 1e6:.1f} MB; "
+            f"{r['bound_ms'] / r['ms']:.1%} of it); plain version "
+            f"{r['plain_ms']:.3f} ms; the same attention without a page "
+            f"table, KV contiguous, one SDPA call: fp32 {sdpa32:.4f} ms, "
+            f"bf16 {sdpa16:.4f} ms")
+    return out
+
+
+def capture_decode_alone(torch, da, capture):
+    """Phase l for K4: each route captured alone in a graph (the pool is
+    the graph's state), replayed on new q, table and lengths: bitwise equal
+    to an eager launch on those inputs, 3 launches enqueued at warm-up and
+    capture, none at a replay, 2 kernel nodes (splits, combine)."""
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    ps, mp, h, d = DECODE_PS, 8, HEADS, UNITS // HEADS
+    first, second = [5, 16, 100, 0], [128, 1, 17, 64]
+    records = []
+    for int8 in (False, True):
+        route = "int8" if int8 else "float32"
+        pages = 4 * mp + 1
+        kp, vp, ks, vs = decode_pool(torch, da, gen, pages, ps, h, d, int8)
+
+        def fn(q, table, lens):
+            return da.paged_decode_attention(q, kp, vp, table, lens,
+                                             k_scales=ks, v_scales=vs)
+
+        def inputs(lengths):
+            table, lens = decode_table(torch, gen, lengths, ps, mp, pages)
+            q = torch.randn((len(lengths), h, d), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            return q, table, lens
+
+        ex = capture.CapturedExec(
+            fn, label=f"K4 {route} alone", device="cuda",
+            state=lambda: [t for t in (kp, vp, ks, vs) if t is not None])
+        before = da.paged_decode_attention.launches_by_route[route]
+        ex(*inputs(first))
+        enqueued = da.paged_decode_attention.launches_by_route[route] - before
+        new = inputs(second)
+        got = ex(*new)
+        replays = (da.paged_decode_attention.launches_by_route[route]
+                   - before - enqueued)
+        want = fn(*new)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        nodes = graph_nodes(ex, f"K4_{route}_alone")
+        ok = same and enqueued == 3 and replays == 0 and nodes["kernels"] == 2
+        log(f"[l] K4 ({route}) captured alone: replay on new q, table and "
+            f"lengths == eager launch bitwise: {same}; wrapper launches at "
+            f"warm-up + capture {enqueued} (want 3), at a replay {replays} "
+            f"(want 0); graph kernel nodes {nodes['kernels']} (want 2) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase l: K4 ({route}) replayed from a graph "
+                             "differs from its eager launch")
+        records.append({"kernel": "K4", "route": route, "bitwise": same,
+                        "nodes": nodes["kernels"]})
+    return records
+
+
+# ------------------------------------------------------------------ phase n
+# The decode slice at full width: 32 slots of whole 1024-token contexts in
+# pages of 16 (scratch page included), prefill buckets up to 512, 64
+# requests from 4 threads, prompts of 64-512 seeded tokens, 128 new tokens
+DECODE_SEQS = 32
+DECODE_BUCKETS = (64, 128, 256, 512)
+DECODE_REQUESTS, DECODE_THREADS, DECODE_NEW = 64, 4, 128
+DECODE_PROMPTS = (64, 512)
+DECODE_STEP_POSITION = 352   # the profiled step's position: the traffic's
+#                              mean context (288-token prompt + 64)
+DECODE_LOGIT_TOL = 1e-3      # teacher-forced fp32 logits, of max|logits|
+
+
+def decode_net(torch, mx, dtype):
+    from mxnet_tpu_torch.gluon.model_zoo import transformer
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    net = transformer.transformer_lm(
+        vocab=VOCAB, units=UNITS, num_heads=HEADS, num_layers=LAYERS,
+        max_len=T, impl="flash", prefix="tlm_")
+    net.initialize(mx.init.Xavier(), generator=gen)   # default ctx: gpu(0)
+    if dtype != "float32":
+        net.cast(dtype)
+    return net
+
+
+def decode_traffic(torch, kernels, da, net, kv):
+    """One run of phase n on ``net`` with a ``kv`` pool: the predictor
+    built (every graph captured at its warm-up), then DECODE_REQUESTS
+    streams through DecodeBatcher from DECODE_THREADS threads."""
+    import numpy as np
+
+    from mxnet_tpu_torch import capture, serving
+    from mxnet_tpu_torch.serving.batcher import DecodeBatcher
+
+    torch.cuda.empty_cache()
+    # the main path: counts set to 0 just before it, read just after
+    zero_counts(kernels)
+    misses0 = capture.stats()["capture_misses"]
+    t0 = time.perf_counter()
+    pred = serving.DecodePredictor(
+        net, page_size=DECODE_PS, num_pages=DECODE_SEQS * DECODE_MAX_PAGES
+        + 1, max_seqs=DECODE_SEQS, prefill_buckets=DECODE_BUCKETS,
+        kv_dtype=kv)
+    build_s = time.perf_counter() - t0
+    captured = capture.stats()["capture_misses"] - misses0
+    capture.clear_retrace_log()
+    misses1 = capture.stats()["capture_misses"]
+    serving.reset_stats()
+    rs = np.random.RandomState(5)
+    prompts = [rs.randint(0, VOCAB, rs.randint(DECODE_PROMPTS[0],
+                                               DECODE_PROMPTS[1] + 1))
+               .tolist() for _ in range(DECODE_REQUESTS)]
+    results = [None] * DECODE_REQUESTS
+    errors = []
+    bat = DecodeBatcher(pred)
+
+    def client(k):
+        try:
+            mine = range(k, DECODE_REQUESTS, DECODE_THREADS)
+            streams = [(i, bat.submit(prompts[i], DECODE_NEW)) for i in mine]
+            for i, s in streams:
+                results[i] = s.result(timeout=600)
+        except Exception as e:   # noqa: BLE001 -- reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(DECODE_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(900)
+    wall = time.perf_counter() - t0
+    bat.close()
+    st = serving.stats()
+    launches = da.paged_decode_attention.launches
+    by_route = dict(da.paged_decode_attention.launches_by_route)
+    after_misses = capture.stats()["capture_misses"] - misses1
+    retraces = capture.retrace_log()
+    tokens = sum(len(r) for r in results if r is not None)
+    ok_tokens = all(r is not None and len(r) == DECODE_NEW and
+                    all(0 <= t < VOCAB for t in r) for r in results)
+    want = {"float32": 0, "int8": 0}
+    want[kv] = 3 * LAYERS
+    ok = (not errors and ok_tokens and after_misses == 0 and not retraces
+          and by_route == want and pred.pool.in_use == 0
+          and st["decode_sequences"] == DECODE_REQUESTS
+          and st["decode_tokens"] == DECODE_REQUESTS * DECODE_NEW)
+    rec = {
+        "kv_dtype": kv, "build_s": build_s, "graphs_captured": captured,
+        "captures_after_warmup": after_misses, "retraces": retraces,
+        "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+        "ttft_p50_ms": st["decode_p50_ttft_us"] / 1e3,
+        "ttft_p99_ms": st["decode_p99_ttft_us"] / 1e3,
+        "itl_p50_ms": st["decode_p50_itl_us"] / 1e3,
+        "itl_p99_ms": st["decode_p99_itl_us"] / 1e3,
+        "steps": st["decode_steps"], "prefills": st["decode_prefills"],
+        "pages_peak": st["decode_pages_inuse_peak"],
+        "preemptions": st["decode_preemptions"],
+        "backpressure": st["decode_backpressure"],
+        "ttft_misses": st["decode_ttft_misses"],
+        "kv_hbm_bytes": pred.kv_hbm_bytes, "launches": launches,
+        "launches_by_route": by_route, "errors": errors}
+    log(f"[n] kv {kv}: predictor built in {build_s:.2f} s ({captured} graphs "
+        f"captured: {len(DECODE_BUCKETS)} prefill buckets, the step, the "
+        f"probe), pool {pred.kv_hbm_bytes / 1e9:.3f} GB; "
+        f"{DECODE_REQUESTS} requests from {DECODE_THREADS} threads: "
+        f"{tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s; "
+        f"TTFT p50 {rec['ttft_p50_ms']:.2f} ms p99 {rec['ttft_p99_ms']:.2f} "
+        f"ms; inter-token p50 {rec['itl_p50_ms']:.3f} ms p99 "
+        f"{rec['itl_p99_ms']:.3f} ms; {rec['steps']} steps, "
+        f"{rec['prefills']} prefills, pages at peak {rec['pages_peak']}, "
+        f"preemptions {rec['preemptions']}, backpressure "
+        f"{rec['backpressure']}, TTFT misses ({bat.ttft_slo_s * 1e3:g} ms) "
+        f"{rec['ttft_misses']}; "
+        f"captures after warm-up {after_misses}, retrace log "
+        f"{len(retraces)}; K4 launches {launches} {by_route} (want "
+        f"{3 * LAYERS} on {kv}: 2 warm-up runs and the capture of the step) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"phase n: decode with {kv} KV failed its checks: "
+                         f"{errors[:2]}")
+    return pred, rec
+
+
+def decode_step_profile(torch, pred, kv):
+    """The step with every slot live at position DECODE_STEP_POSITION:
+    median host-clock ms of 20 steps (each ends by reading the next
+    tokens), and one step profiled for busy / wall and K4's share."""
+    import numpy as np
+
+    n = pred.max_seqs
+    per = -(-(DECODE_STEP_POSITION + 1) // pred.page_size)
+    pages = pred.pool.alloc(n * per)
+    table = np.zeros((n, pred.max_pages), np.int32)
+    table[:, :per] = np.asarray(pages, np.int32).reshape(n, per)
+    toks = np.arange(n, dtype=np.int32)
+    pos = np.full((n,), DECODE_STEP_POSITION, np.int32)
+    act = np.ones((n,), np.int32)
+    try:
+        pred.step(toks, pos, act, table)
+        ms = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            pred.step(toks, pos, act, table)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        prof = profile_window(torch, lambda: pred.step(toks, pos, act, table),
+                              f"one decode step (kv {kv}, {n} live slots)",
+                              "n", ("paged_decode_attn",), top=6)
+    finally:
+        pred.pool.free(pages)
+    ms.sort()
+    k4_ms = prof["kernel_ms"]
+    return {"step_ms": ms[len(ms) // 2], "busy_ms": prof["device_busy_ms"],
+            "wall_ms": prof["wall_ms"], "k4_ms": k4_ms,
+            "k4_share": k4_ms / prof["device_busy_ms"]
+            if prof["device_busy_ms"] else None,
+            "launches": prof["launches"], "top": prof["top"]}
+
+
+def decode_teacher_forced(torch, mx):
+    """Correctness on an fp32 copy of the model with fp32 KV: 4 seeded
+    prompts greedy-decoded 32 tokens together (4 slots of one step), each
+    step's logits held to the flat forward's at the same position on the
+    generated sequence (teacher forcing), within DECODE_LOGIT_TOL of
+    max|logits|; the top-2 margin reported wherever the tokens differ."""
+    import numpy as np
+
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.gluon.model_zoo import transformer as tf
+
+    net = decode_net(torch, mx, "float32")
+    n_new, rows = 32, 4
+    pred = serving.DecodePredictor(
+        net, page_size=DECODE_PS, num_pages=rows * DECODE_MAX_PAGES + 1,
+        max_seqs=rows, prefill_buckets=DECODE_BUCKETS, kv_dtype="float32")
+    rs = np.random.RandomState(9)
+    prompts = [rs.randint(0, VOCAB, n).tolist() for n in (64, 101, 230, 400)]
+    table = np.zeros((rows, pred.max_pages), np.int32)
+    held, gen_toks, logits = [], [], []
+    for r, p in enumerate(prompts):
+        k = -(-(len(p) + n_new) // DECODE_PS)
+        pages = pred.pool.alloc(k)
+        held += pages
+        table[r, :k] = pages
+        first, lg = pred.prefill(p, table[r])
+        gen_toks.append([first])
+        logits.append([lg.float()])
+    act = np.ones((rows,), np.int32)
+    for i in range(n_new - 1):
+        toks = np.asarray([g[-1] for g in gen_toks], np.int32)
+        pos = np.asarray([len(p) + i for p in prompts], np.int32)
+        nxt, lg = pred.step(toks, pos, act, table)
+        for r in range(rows):
+            gen_toks[r].append(int(nxt[r]))
+            logits[r].append(lg[r].float())
+    pred.pool.free(held)
+    worst, flips = 0.0, []
+    with torch.no_grad():
+        cells = pred._cells()
+        for r, p in enumerate(prompts):
+            seq = torch.tensor([p + gen_toks[r][:-1]], device="cuda")
+            flat = tf.flat_forward(cells, pred._spec, seq)[0].float()
+            ref = flat[len(p) - 1:]                    # (n_new, vocab)
+            got = torch.stack(logits[r])
+            err = ((got - ref).abs().max() / ref.abs().max()).item()
+            worst = max(worst, err)
+            for i in range(n_new):
+                want = int(ref[i].argmax())
+                if want != gen_toks[r][i]:
+                    top2 = ref[i].topk(2).values
+                    flips.append({"row": r, "step": i, "paged": gen_toks[r][i],
+                                  "flat": want, "top2_margin":
+                                  (top2[0] - top2[1]).item()})
+    ok = worst <= DECODE_LOGIT_TOL
+    log(f"[n] fp32 model, fp32 KV: {rows} prompts ({[len(p) for p in prompts]}"
+        f" tokens) x {n_new} greedy tokens, teacher-forced through "
+        f"flat_forward: max|logits - flat| / max|flat| {worst:.3g} (limit "
+        f"{DECODE_LOGIT_TOL:g}); token disagreements {len(flips)}"
+        f"{' ' + str(flips[:4]) if flips else ''} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase n: the paged decode's logits stray from the "
+                         "flat forward's")
+    del pred, net
+    torch.cuda.empty_cache()
+    return {"max_rel_err": worst, "flips": flips, "tokens": n_new,
+            "prompts": [len(p) for p in prompts]}
+
+
+def decode_phase(torch, mx, kernels):
+    """Phase n: generative decode at GPT-2-small width (bf16 weights) with
+    fp32 and int8 KV, then the fp32 teacher-forced check."""
+    from mxnet_tpu_torch.ops import decode_attention as da
+
+    net = decode_net(torch, mx, "bfloat16")
+    runs = {}
+    for kv in ("float32", "int8"):
+        pred, rec = decode_traffic(torch, kernels, da, net, kv)
+        if kv == "float32":
+            nodes = graph_nodes(pred._execs[("step",)], "decode_step",
+                                parts=("paged_decode_attn",))
+            rec["step_graph_nodes"] = nodes
+            log(f"[n] the step's graph: {nodes['kernels']} kernel nodes, "
+                f"{nodes['paged_decode_attn']} of them K4's (want "
+                f"{2 * LAYERS}: splits and combine for each of {LAYERS} "
+                "layers)")
+            if nodes["paged_decode_attn"] != 2 * LAYERS:
+                raise SystemExit("phase n: the step graph does not hold "
+                                 f"{2 * LAYERS} K4 nodes")
+        rec["step"] = decode_step_profile(torch, pred, kv)
+        s = rec["step"]
+        log(f"[n] kv {kv}: step ({DECODE_SEQS} live slots at position "
+            f"{DECODE_STEP_POSITION}) {s['step_ms']:.3f} ms median (host "
+            f"clock, next tokens read back); one step profiled: busy "
+            f"{s['busy_ms']:.3f} of {s['wall_ms']:.3f} ms wall, K4 "
+            f"{s['k4_ms']:.4f} ms ({s['k4_share']:.1%} of device time)")
+        runs[kv] = rec
+        del pred
+        torch.cuda.empty_cache()
+    del net
+    torch.cuda.empty_cache()
+    runs["teacher_forced"] = decode_teacher_forced(torch, mx)
+    return runs
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -3439,6 +4011,7 @@ def main(argv=None):
     sys.path.insert(0, ROOT)
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import _build, kernels
+    from mxnet_tpu_torch.ops import decode_attention as da
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3463,12 +4036,14 @@ def main(argv=None):
     bwd_checks, bwd_slice_err, bwd_slice_err32 = check_flash_bwd(torch,
                                                                  kernels)
     conv_checks = check_conv(torch, kernels)
+    dec_checks, dec_errs = check_decode_attention(torch, da)
     if args.quick:
-        log("[quick] phase b passed; phases c-m skipped")
+        log("[quick] phase b passed; phases c-n skipped")
         return 0
     timing = time_flash(torch, kernels)
     bwd_timing = time_flash_bwd(torch, kernels)
     conv_timing = time_conv(torch, kernels)
+    dec_timing = time_decode_attention(torch, da)
     served = serve_slice(torch, mx, kernels)
     model_err = model_vs_plain(torch, mx, kernels)
     vision, (pred, net, images) = serve_resnet(torch, mx)
@@ -3486,6 +4061,7 @@ def main(argv=None):
         torch, kernels, RESNET_BATCH, resnet_training["median_step_ms"])
     captured = capture_phase(torch, mx, kernels)
     fp32_training = train_fp32_lm(torch, mx, kernels)
+    decoding = decode_phase(torch, mx, kernels)
 
     # K3's four launches on each main path are one per ResNet-50 shape, so
     # its totals are over the four shapes at N=32: the bf16 model's (phase
@@ -3636,7 +4212,32 @@ def main(argv=None):
         "library_ms": bwd_timing["fp32_library_ms"],
         "lm_layout_ms": bwd_timing["fp32_lm_layout_ms"],
         "simt_ms": bwd_timing["simt_fp32_ms"],
-        "step_device_ms": fp32_training["profile"]["k2_ms"]}]}
+        "step_device_ms": fp32_training["profile"]["k2_ms"]}] + [{
+        # phase n's paths: the decode step's 12 K4 launches (enqueued at
+        # its 2 warm-up runs and its capture; replays add none), fp32 and
+        # int8 pools; times from phase c at the slice's shape, bf16 q
+        "name": "paged_decode_attn" + ("" if kv == "float32" else "_int8"),
+        "route": "cuda", "source": "mxnet_tpu_torch/csrc/paged_decode_attn.cu",
+        "replaces": "mxnet_tpu/ops/decode_attention.py:55",
+        "kv_dtype": kv,
+        "launches": decoding[kv]["launches"],
+        "launches_by_route": decoding[kv]["launches_by_route"],
+        "max_abs_err": dec_errs[kv],
+        "check": f"{sum(f'kv {kv}' in c['case'] for c in dec_checks)} "
+                 "cases of "
+                 f"phase b: fp32 q within {DECODE_TOL:g} of max|ref|, "
+                 f"16-bit q within {DECODE_ULP} ulp; length-0 rows 0",
+        "ms": dec_timing[kv]["ms"], "plain_ms": dec_timing[kv]["plain_ms"],
+        "bound_ms": dec_timing[kv]["bound_ms"],
+        "bound_by": dec_timing[kv]["bound_by"],
+        # no PyTorch call takes a page table; the same attention over KV
+        # already contiguous, as one SDPA call, stands beside it
+        "library_ms": None,
+        "contiguous_sdpa_fp32_ms": dec_timing[kv]["contiguous_sdpa_fp32_ms"],
+        "contiguous_sdpa_bf16_ms": dec_timing[kv]["contiguous_sdpa_bf16_ms"],
+        "step_device_ms": decoding[kv]["step"]["k4_ms"],
+        "step_share": decoding[kv]["step"]["k4_share"]}
+        for kv in ("float32", "int8")]}
     kind = torch.cuda.get_device_name(0)
     if args.summary:
         os.makedirs(os.path.dirname(os.path.abspath(args.summary)),
@@ -3656,6 +4257,8 @@ def main(argv=None):
                        "k3_fp32_training": k3_fp32_training,
                        "capture": captured,
                        "fp32_training": fp32_training,
+                       "decode_checks": dec_checks,
+                       "decode_timing": dec_timing, "decode": decoding,
                        **record}, f,
                       indent=1)
     log(card)

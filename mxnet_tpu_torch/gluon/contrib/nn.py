@@ -33,7 +33,7 @@ class MultiHeadAttention(HybridBlock):
         if impl in ("ring", "auto"):
             raise NotImplementedError(
                 f"MultiHeadAttention(impl={impl!r}) is not ported yet: see "
-                "ROADMAP.md, Queue 1, item 8 'Sharded training and ring "
+                "ROADMAP.md, Queue 1 item 6 'Sharded training and ring "
                 "attention'")
         if impl not in ("dense", "flash"):
             raise ValueError(f"unknown impl {impl!r}")

@@ -6,10 +6,26 @@ MLP, learned positional embeddings, causal attention, a final LayerNorm
 and an untied head with a bias. Parameter names match ``mxnet_tpu`` letter
 for letter (``tlm_blocks_transformerblock0_attn_qkv_weight`` ...). Unlike
 the JAX package every layer is built with its input width, since the port
-has no deferred initialization. ``impl`` is 'dense' or 'flash'; the paged
-decode functions come with the decode slice.
+has no deferred initialization. ``impl`` is 'dense' or 'flash'.
+
+The paged decode functions (``flat_forward``, ``paged_prefill``,
+``paged_step``; ``mxnet_tpu/gluon/model_zoo/transformer.py:170-371``) run
+the same math op for op over a flat parameter tuple in
+:func:`decode_param_names` order, reading and writing the paged KV cache
+that ``serving.DecodePredictor`` owns. Where ``mxnet_tpu`` returns new
+cache arrays, the port writes the pages in place (``index_put_``, no
+accumulation; masked and padded rows land on scratch page 0), so the
+writes are idempotent and a CUDA graph's warm-up runs are harmless. The
+prefill and the flat forward keep the reference's dense causal softmax; the
+step calls :func:`ops.decode_attention.paged_decode_attention` (K4) once a
+layer.
 """
 from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
 
 from .. import nn
 from ..block import HybridBlock
@@ -17,7 +33,8 @@ from ..contrib import nn as contrib_nn
 from ...ops import math as _math
 
 __all__ = ["TransformerBlock", "TransformerLM", "transformer_lm",
-           "decode_spec", "decode_param_names"]
+           "decode_spec", "decode_param_names", "flat_forward",
+           "paged_prefill", "paged_step"]
 
 
 class TransformerBlock(HybridBlock):
@@ -133,3 +150,188 @@ def decode_param_names(spec, names):
         ordered += [find("norm_gamma"), find("norm_beta")]
     ordered += [find("head_weight"), find("head_bias")]
     return ordered
+
+
+def _ln(x, gamma, beta):
+    """LayerNorm over the last axis, biased variance, eps 1e-5, in x's
+    dtype (a 16-bit mean and variance accumulate in f32 and round to it,
+    as ``jnp.mean`` and ``jnp.var`` do)."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    return (x - mean) * torch.rsqrt(var + 1e-5) * gamma + beta
+
+
+def _dense(x, w, b):
+    """x (..., in) against w (out, in), then + b: two ops, as the
+    reference's dot_general and add."""
+    return torch.matmul(x, w.t()) + b
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")      # jax.nn.gelu's default
+
+
+def _split_qkv(qkv, num_heads):
+    """(..., 3U) fused projection -> q, k, v views of (..., H, D), the
+    channel layout of ``contrib.nn.MultiHeadAttention``."""
+    u = qkv.shape[-1] // 3
+    d = u // num_heads
+    shape = tuple(qkv.shape[:-1]) + (num_heads, d)
+    return (qkv[..., :u].reshape(shape), qkv[..., u:2 * u].reshape(shape),
+            qkv[..., 2 * u:].reshape(shape))
+
+
+def _page_scatter(pages, scales, vals, page_idx, slot_idx, quantize):
+    """Write per-token K or V rows (N, H, D) into ``pages`` (P, page_size,
+    H, D) at (page_idx, slot_idx), in place; an int8 pool quantizes on
+    write and updates its scales (P, page_size, H)."""
+    if quantize:
+        from ...ops.decode_attention import kv_quantize
+
+        qv, sc = kv_quantize(vals)
+        pages.index_put_((page_idx, slot_idx), qv)
+        scales.index_put_((page_idx, slot_idx), sc)
+    else:
+        pages.index_put_((page_idx, slot_idx), vals.to(pages.dtype))
+
+
+def _block_params(params, i):
+    base = 2 + i * len(_BLOCK_PARAM_SUFFIXES)
+    return params[base:base + len(_BLOCK_PARAM_SUFFIXES)]
+
+
+def _head_logits(params, spec, h):
+    if spec["final_norm"]:
+        h = _ln(h, params[-4], params[-3])
+    return _dense(h, params[-2], params[-1])
+
+
+def _embed(params, spec, tokens, pos_ids):
+    """Token + position embeddings; out-of-range ids clamp, as JAX's gather
+    does."""
+    tokens = tokens.long().clamp(0, spec["vocab"] - 1)
+    return params[0][tokens] + params[1][pos_ids.long()]
+
+
+def _ffn(h, ln2_g, ln2_b, ff1_w, ff1_b, ff2_w, ff2_b):
+    return h + _dense(_gelu(_dense(_ln(h, ln2_g, ln2_b), ff1_w, ff1_b)),
+                      ff2_w, ff2_b)
+
+
+def _dense_attention(q, k, v, causal, d):
+    """Causal softmax attention, dense, in q's dtype: q, k, v (..., T, H,
+    D) -> (..., T, H, D)."""
+    # sqrt(D) in q's dtype and a true division, as the reference; a fill,
+    # not a host copy, so the step captures in a CUDA graph
+    root = torch.full((), float(d), dtype=q.dtype, device=q.device).sqrt()
+    s = torch.einsum("...qhd,...khd->...hqk", q, k) / root
+    s = s.masked_fill(~causal, -1e30)
+    return torch.einsum("...hqk,...khd->...qhd", torch.softmax(s, dim=-1), v)
+
+
+def flat_forward(params, spec, tokens):
+    """Full-context forward over the flat parameter tuple: (B, T) int ids
+    -> (B, T, vocab) logits, the math ``hybrid_forward`` runs (dense causal
+    attention)."""
+    b, t = tokens.shape
+    heads = spec["num_heads"]
+    d = spec["units"] // heads
+    pos = torch.clamp(torch.arange(t, device=tokens.device),
+                      max=spec["max_len"] - 1)
+    h = _embed(params, spec, tokens, pos)
+    causal = pos[:, None] >= pos[None, :]
+    for i in range(spec["num_layers"]):
+        (ln1_g, ln1_b, qkv_w, qkv_b, out_w, out_b, ln2_g, ln2_b,
+         ff1_w, ff1_b, ff2_w, ff2_b) = _block_params(params, i)
+        q, k, v = _split_qkv(_dense(_ln(h, ln1_g, ln1_b), qkv_w, qkv_b),
+                             heads)                   # (B, T, H, D)
+        attn = _dense_attention(q, k, v, causal, d)
+        h = h + _dense(attn.reshape(b, t, -1), out_w, out_b)
+        h = _ffn(h, ln2_g, ln2_b, ff1_w, ff1_b, ff2_w, ff2_b)
+    return _head_logits(params, spec, h)
+
+
+def paged_prefill(params, spec, tokens, true_len, kv, page_row):
+    """Run one prompt through the stack, writing each layer's K and V into
+    the pages ``page_row`` maps, and return the last true token's logits
+    (vocab,).
+
+    ``tokens`` (1, T) int ids padded to the bucket; ``true_len`` (1,) int32
+    on the device; ``kv`` the cache (k_pages, v_pages, k_scales, v_scales),
+    each with the layer axis first, written in place; ``page_row``
+    (max_pages,) int32 with unused entries on scratch page 0. Padded
+    positions write the scratch page, and their keys are causally invisible
+    to the true rows.
+    """
+    k_pages, v_pages, k_scales, v_scales = kv
+    quantize = k_pages.dtype == torch.int8
+    page_size = k_pages.shape[2]
+    t = tokens.shape[1]
+    heads = spec["num_heads"]
+    d = spec["units"] // heads
+    pos = torch.arange(t, device=tokens.device)
+    live = pos < true_len[0]
+    pos_ids = torch.clamp(pos, max=spec["max_len"] - 1)
+    h = _embed(params, spec, tokens[0], pos_ids)      # (T, U)
+    page_idx = torch.where(live, page_row.long()[pos // page_size], 0)
+    slot_idx = pos % page_size
+    causal = pos[:, None] >= pos[None, :]             # q >= k
+    for i in range(spec["num_layers"]):
+        (ln1_g, ln1_b, qkv_w, qkv_b, out_w, out_b, ln2_g, ln2_b,
+         ff1_w, ff1_b, ff2_w, ff2_b) = _block_params(params, i)
+        q, k, v = _split_qkv(_dense(_ln(h, ln1_g, ln1_b), qkv_w, qkv_b),
+                             heads)                   # (T, H, D)
+        _page_scatter(k_pages[i], k_scales[i], k, page_idx, slot_idx,
+                      quantize)
+        _page_scatter(v_pages[i], v_scales[i], v, page_idx, slot_idx,
+                      quantize)
+        attn = _dense_attention(q, k, v, causal, d)
+        h = h + _dense(attn.reshape(t, -1), out_w, out_b)
+        h = _ffn(h, ln2_g, ln2_b, ff1_w, ff1_b, ff2_w, ff2_b)
+    last = h.index_select(0, (true_len[:1] - 1).long())[0]
+    return _head_logits(params, spec, last)
+
+
+def paged_step(params, spec, tokens, positions, active, kv, page_table):
+    """ONE fixed-shape decode step for every sequence slot: embed each
+    row's last token, append its K and V to the paged cache, attend over
+    the row's pages through K4, and return (next greedy tokens (B,) int32,
+    logits (B, vocab)).
+
+    ``tokens``/``positions``/``active`` (B,) int32; ``kv`` the cache,
+    written in place; ``page_table`` (B, max_pages) int32. Inactive rows
+    write the scratch page and attend with length 1; the caller ignores
+    their outputs. Membership, lengths and the table are runtime operands.
+    """
+    from ...ops.decode_attention import paged_decode_attention
+
+    k_pages, v_pages, k_scales, v_scales = kv
+    quantize = k_pages.dtype == torch.int8
+    page_size = k_pages.shape[2]
+    heads = spec["num_heads"]
+    b = tokens.shape[0]
+    pos_ids = torch.clamp(positions.long(), max=spec["max_len"] - 1)
+    h = _embed(params, spec, tokens, pos_ids)         # (B, U)
+    on = active > 0
+    page_idx = torch.where(
+        on, torch.gather(page_table.long(), 1,
+                         (pos_ids // page_size)[:, None])[:, 0], 0)
+    slot_idx = pos_ids % page_size
+    lengths = torch.where(on, positions + 1, 1).to(torch.int32)
+    for i in range(spec["num_layers"]):
+        (ln1_g, ln1_b, qkv_w, qkv_b, out_w, out_b, ln2_g, ln2_b,
+         ff1_w, ff1_b, ff2_w, ff2_b) = _block_params(params, i)
+        q, k, v = _split_qkv(_dense(_ln(h, ln1_g, ln1_b), qkv_w, qkv_b),
+                             heads)                   # (B, H, D)
+        _page_scatter(k_pages[i], k_scales[i], k, page_idx, slot_idx,
+                      quantize)
+        _page_scatter(v_pages[i], v_scales[i], v, page_idx, slot_idx,
+                      quantize)
+        attn = paged_decode_attention(
+            q, k_pages[i], v_pages[i], page_table, lengths,
+            k_scales=k_scales[i] if quantize else None,
+            v_scales=v_scales[i] if quantize else None)
+        h = h + _dense(attn.reshape(b, -1), out_w, out_b)
+        h = _ffn(h, ln2_g, ln2_b, ff1_w, ff1_b, ff2_w, ff2_b)
+    logits = _head_logits(params, spec, h)            # (B, vocab)
+    return torch.argmax(logits, dim=-1).to(torch.int32), logits

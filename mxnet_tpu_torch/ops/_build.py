@@ -28,7 +28,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_attn_fwd", "flash_attn_fwd_tc", "flash_attn_fwd_tf32x3",
            "flash_attn_bwd", "flash_attn_bwd_tc", "flash_attn_bwd_tf32x3",
            "conv3x3_bn_stats", "conv3x3_bn_stats_tc",
-           "conv3x3_bn_stats_tf32x3")
+           "conv3x3_bn_stats_tf32x3", "paged_decode_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

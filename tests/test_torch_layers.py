@@ -143,7 +143,7 @@ def test_multi_head_attention(impl):
 
 
 def test_multi_head_attention_ring_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         tcontrib.nn.MultiHeadAttention(32, 4, impl="ring")
 
 
