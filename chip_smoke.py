@@ -35,12 +35,18 @@ Phases, each failing loudly with a non-zero exit:
       one (ragged channels, a misaligned base) --, a second launch
       bitwise equal for each route and tile rule, and K3's trainable
       wrapper's gradients against autograd --, and K4 (paged decode
-      attention, csrc/paged_decode_attn.cu): fp32, bf16 and fp16 q over
-      fp32 and int8 pools, shuffled page tables (one with other pages past
-      each row's length), ragged lengths, D 64 and 65, the slice's shape;
-      fp32 q within 1e-5 of max|ref|, 16-bit q within 1 ulp of the plain
-      version's rounded output, rows of length 0 exactly 0, a second launch
-      bitwise equal, and no call of the plain version on a CUDA tensor;
+      attention: csrc/paged_decode_attn.cu for fp32 pools and the int8
+      pools it keeps, csrc/paged_decode_attn_int8.cu, route "int8_bulk",
+      for int8 pools of D a multiple of 16 that are 16-byte aligned): fp32,
+      bf16 and fp16 q over fp32 and int8 pools, shuffled page tables (some
+      with other pages past each row's length), ragged lengths, D 64 and
+      65, the slice's shape, a misaligned int8 pool, each on the route the
+      rule names; fp32 q within 1e-5 of max|ref|, 16-bit q within 1 ulp of
+      the plain version's rounded output, rows of length 0 exactly 0, a
+      second launch bitwise equal, and no call of the plain version on a
+      CUDA tensor; and the int8 KV write (csrc/kv_quantize_write.cu) on
+      the qkv views in fp32, bf16 and fp16, bitwise equal to its plain
+      version, every byte outside the written slots unchanged;
   (c) kernel, plain-version and library times at the slices' shapes, in
       device time, beside each kernel's bound on the H100 (K1 also on the
       strided layout, and in fp32 the 3xTF32 kernel beside the CUDA-core
@@ -52,10 +58,12 @@ Phases, each failing loudly with a non-zero exit:
       cuDNN conv + batch_norm path, and in fp32 the 3xTF32 kernel with the
       TF32 work it issues beside the CUDA-core kernel, cuDNN's fp32 conv
       with TF32 off and on, and the fp32 unfused path; K4 at B=32, H=12,
-      D=64, pages of 16, 1024 tokens a row, fp32 and int8 pools rotated
-      over 12 layers' pools so none is hot in L2, beside its bytes bound,
-      its plain version and one SDPA call over the same KV already
-      contiguous, which takes no page table);
+      D=64, pages of 16, 1024 tokens a row (and at phase n's 353), fp32
+      and int8 pools rotated over 12 layers' pools so none is hot in L2,
+      the int8 pools on both int8 routes, beside its bytes bound, its
+      plain version and one SDPA call over the same KV already contiguous,
+      which takes no page table; the int8 write at the step's shape beside
+      its plain chain and bound);
   (d) the slice: TransformerLM(impl='flash') at GPT-2-small widths in
       bf16, behind Predictor + BatchServer, served to concurrent
       requests: each bucket captured as a CUDA graph at the predictor's
@@ -119,7 +127,7 @@ Phases, each failing loudly with a non-zero exit:
       memory; the LM bucket-8 and ResNet-50 bucket-32 predicts captured
       against eager (bitwise, p50, busy and wall, BatchServer
       requests/s; 12 K1 nodes in the LM bucket); no retrace and no eager
-      run after warm-up; K4 on each pool dtype captured alone (2 nodes,
+      run after warm-up; K4 on each route captured alone (2 nodes,
       replay on new tables and lengths bitwise);
   (m) the fp32 training slice: phase h's LM left in fp32 (mxnet_tpu's
       default dtype) at full width and depth, gluon.Trainer + Adam (lr
@@ -130,12 +138,15 @@ Phases, each failing loudly with a non-zero exit:
   (n) generative decode at the same widths (bf16 weights): DecodePredictor
       (pages of 16, 32 slots, 32 x 64 + 1 pages, prefill buckets 64-512)
       behind DecodeBatcher, 64 requests from 4 threads, seeded prompts of
-      64-512 tokens, 128 new tokens each, once with fp32 and once with
-      int8 KV: tokens/s, TTFT and inter-token p50/p99, pages at peak,
-      preemptions, the pool's bytes; 12 K4 launches at each of the step's 2
-      warm-up runs and its capture and none after, 24 K4 nodes in the step
-      graph, no capture after warm-up; the step with 32 live slots timed
-      and profiled (busy / wall, K4's share); then an fp32 copy of the
+      64-512 tokens, 128 new tokens each, twice with fp32 and twice with
+      int8 KV in the order fp32, int8, int8, fp32: tokens/s, TTFT and inter-token p50/p99, pages at peak,
+      preemptions, the pool's bytes; 12 K4 launches (int8 KV: route
+      "int8_bulk") at each of the step's 2 warm-up runs and its capture and
+      none after, 24 K4 nodes in the step graph; with int8 KV one write
+      launch a layer in each prefill bucket and the step (12 nodes in each
+      graph); no capture after warm-up; the step with 32 live slots timed
+      and profiled (busy / wall, kernels, K4's and the write's share); then
+      an fp32 copy of the
       model with fp32 KV: 4 prompts x 32 greedy tokens, every step's
       logits within 1e-3 of max|logits| of the flat forward's on the
       generated sequence.
@@ -2175,6 +2186,7 @@ def zero_counts(kernels):
         fn.launches = 0
         for route in fn.launches_by_route:
             fn.launches_by_route[route] = 0
+    decode_attention.kv_quantize_write.launches = 0
 
 
 _STEP_GROUPS = (("K1 flash_fwd", ("flash_fwd",)),
@@ -3478,15 +3490,34 @@ def plain_guard(da):
         da.paged_decode_attention_reference = plain
 
 
-def decode_pool(torch, da, gen, pages, page_size, h, d, int8):
+def decode_pool(torch, da, gen, pages, page_size, h, d, int8,
+                misaligned=False):
     """Seeded K and V pages (pages, page_size, H, D) ~ N(0, 1): fp32, or
-    int8 with scales by kv_quantize. Returns (kp, vp, ks, vs)."""
+    int8 with scales by kv_quantize. ``misaligned`` moves each int8 tensor
+    one element off a 16-byte boundary (contiguous all the same), which
+    the route rule must send to the one-element-a-lane kernel. Returns
+    (kp, vp, ks, vs)."""
     kf = torch.randn((pages, page_size, h, d), generator=gen, device="cuda")
     vf = torch.randn((pages, page_size, h, d), generator=gen, device="cuda")
     if not int8:
         return kf, vf, None, None
-    (kp, ks), (vp, vs) = da.kv_quantize(kf), da.kv_quantize(vf)
+    out = [t for x in (kf, vf) for t in da.kv_quantize(x)]
+    if misaligned:
+        def shift(t):
+            buf = torch.empty(t.numel() + 16, dtype=t.dtype, device="cuda")
+            view = buf[1:1 + t.numel()].view(t.shape)
+            view.copy_(t)
+            return view
+        out = [shift(t) for t in out]
+    kp, ks, vp, vs = out
     return kp, vp, ks, vs
+
+
+def decode_route_of(da, q, kp, vp, ks, vs):
+    """The route _decode_route gives these operands."""
+    ptrs = [] if ks is None else [t.data_ptr() for t in (kp, vp, ks, vs)]
+    return da._decode_route(kp.dtype, q.shape[2], q.shape[1], kp.shape[1],
+                            ptrs)
 
 
 def decode_table(torch, gen, lengths, page_size, max_pages, pages,
@@ -3513,40 +3544,53 @@ def decode_table(torch, gen, lengths, page_size, max_pages, pages,
 
 def check_decode_attention(torch, da):
     """Phase b for K4: fp32, bf16 and fp16 q over fp32 and int8 pools,
-    shuffled tables (one with other pages past each row's length), ragged
+    shuffled tables (some with other pages past each row's length), ragged
     lengths (1, page_size - 1, page_size, page_size + 1, full, others, 0),
-    D 64 and the odd D 65, and the slice's shape (B=32, H=12, D=64, pages
-    of 16, 64 a row). Each case launched twice (bitwise equal, one launch a
-    call, no call of the plain version on the card) and held to the plain
-    version; rows of length 0 must be exactly 0."""
+    D 64 and the odd D 65, the slice's shape (B=32, H=12, D=64, pages of
+    16, 64 a row) and an int8 pool off its 16-byte alignment. Every int8
+    pool of D 64 must take route "int8_bulk" (whole pages by bulk copy),
+    D 65 and the misaligned pool route "int8". Each case launched twice
+    (bitwise equal, one launch a call on the route it names, no call of
+    the plain version on the card) and held to the plain version; rows of
+    length 0 must be exactly 0."""
     gen = torch.Generator(device="cuda").manual_seed(41)
     ps, mp = DECODE_PS, DECODE_MAX_PAGES
     full = ps * mp
     ragged = [1, ps - 1, ps, ps + 1, full, 0, 37, 700]
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
-    cases = [(qd, int8, h, d, ragged, junk)
+    cases = [(qd, int8, h, d, ragged, junk, False)
              for qd in (f32, bf16) for int8 in (False, True)
              for h, d, junk in ((12, 64, False), (3, 65, True))]
     slice_lengths = torch.randint(1, full + 1, (32,), generator=gen,
                                   device="cuda").tolist()
     slice_lengths[:3] = [0, 1, full]
-    cases += [(qd, int8, HEADS, UNITS // HEADS, slice_lengths, False)
+    cases += [(qd, int8, HEADS, UNITS // HEADS, slice_lengths, False, False)
               for qd in (f32, bf16) for int8 in (False, True)]
-    cases.append((f16, True, 4, 64, ragged, True))
-    records, errs = [], {"float32": 0.0, "int8": 0.0}
-    for qd, int8, h, d, lengths, junk in cases:
+    cases += [(f16, True, 4, 64, ragged, True, False),
+              (f16, True, HEADS, UNITS // HEADS, slice_lengths, False, False),
+              (f32, True, 12, 64, ragged, True, False),
+              (bf16, True, 12, 64, ragged, True, True)]
+    records = []
+    errs = {r: 0.0 for r in da.paged_decode_attention.launches_by_route}
+    for qd, int8, h, d, lengths, junk, misaligned in cases:
         pages = sum(-(-n // ps) for n in lengths) + 1
-        kp, vp, ks, vs = decode_pool(torch, da, gen, pages, ps, h, d, int8)
+        kp, vp, ks, vs = decode_pool(torch, da, gen, pages, ps, h, d, int8,
+                                     misaligned)
         table, lens = decode_table(torch, gen, lengths, ps, mp, pages, junk)
         q = torch.randn((len(lengths), h, d), generator=gen,
                         device="cuda").to(qd)
         args = (q, kp, vp, table, lens)
         kw = {"k_scales": ks, "v_scales": vs}
-        before = da.paged_decode_attention.launches
+        want_route = ("float32" if not int8 else
+                      "int8" if d % 16 or misaligned else "int8_bulk")
+        route = decode_route_of(da, q, kp, vp, ks, vs)
+        before = dict(da.paged_decode_attention.launches_by_route)
         with plain_guard(da):
             out = da.paged_decode_attention(*args, **kw)
             again = da.paged_decode_attention(*args, **kw)
-        launched = da.paged_decode_attention.launches - before
+        launched = {r: n - before[r] for r, n in
+                    da.paged_decode_attention.launches_by_route.items()
+                    if n != before[r]}
         ref = da.paged_decode_attention_reference(*args, **kw)
         torch.cuda.synchronize()
         zero = lens == 0
@@ -3557,22 +3601,120 @@ def check_decode_attention(torch, da):
         else:
             err, limit = ulp_err(torch, out, ref), DECODE_ULP
         abs_err = (out.float() - ref.float()).abs().max().item()
-        route = "int8" if int8 else "float32"
         errs[route] = max(errs[route], abs_err)
-        ok = (err <= limit and zeros_ok and bitwise and launched == 2
-              and out.dtype == qd and out.shape == q.shape)
-        name = (f"K4 q {str(qd)[6:]} kv {route} B={len(lengths)} H={h} "
-                f"D={d}{' junk past length' if junk else ''}")
+        ok = (err <= limit and zeros_ok and bitwise and route == want_route
+              and launched == {route: 2} and out.dtype == qd
+              and out.shape == q.shape)
+        name = (f"K4 q {str(qd)[6:]} kv {'int8' if int8 else 'float32'} "
+                f"route {route} B={len(lengths)} H={h} D={d}"
+                f"{' junk past length' if junk else ''}"
+                f"{' misaligned pool' if misaligned else ''}")
         log(f"[b] {name}: err {err:.3g} ({'ulp' if qd != f32 else 'rel'}, "
             f"limit {limit:g}); max|diff| {abs_err:.3g}; length-0 rows "
             f"exactly 0: {zeros_ok}; second launch bitwise: {bitwise}; "
-            f"launches {launched} (want 2) {'ok' if ok else 'FAIL'}")
+            f"launches {launched} (want {{'{want_route}': 2}}) "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"phase b: {name} disagrees with its plain "
                              "version")
-        records.append({"case": name, "err": err, "limit": limit,
-                        "max_abs_err": abs_err, "bitwise": bitwise})
+        records.append({"case": name, "route": route, "err": err,
+                        "limit": limit, "max_abs_err": abs_err,
+                        "bitwise": bitwise})
     return records, errs
+
+
+def write_rows(torch, gen, n, h, d, dtype):
+    """K and V as the model hands them to the write: the (N, H, D) views
+    of an (N, 3 H D) qkv projection output, seeded, with an all-zero row
+    and a row of exact .5 ties (amax 127, scale 1)."""
+    qkv = torch.randn((n, 3 * h * d), generator=gen, device="cuda") * \
+        torch.rand((n, 1), generator=gen, device="cuda") * 4
+    u = h * d
+    qkv[0, u:] = 0
+    qkv[1, u:u + 6] = torch.tensor([127.0, 0.5, 1.5, -2.5, -126.5, 63.5],
+                                   device="cuda")
+    qkv = qkv.to(dtype)
+    _, k, v = (qkv[:, i * u:(i + 1) * u].view(n, h, d) for i in range(3))
+    return k, v
+
+
+def check_kv_write(torch, da):
+    """Phase b for the int8 write (csrc/kv_quantize_write.cu): K and V of
+    one layer, read through the qkv views' strides in fp32, bf16 and fp16,
+    written into a pool of random bytes at the decode step's shape (32
+    rows, H=12, D=64), a prefill bucket's (512 rows, the padded ones on
+    scratch page 0) and an odd D (65); the int8 bytes and scales bitwise
+    equal to the plain version (kv_quantize and index_put_) outside page 0,
+    every byte outside the written slots unchanged, one launch a call."""
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    ps = DECODE_PS
+    records = []
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for n, h, d, live in ((32, HEADS, UNITS // HEADS, 32),
+                              (512, HEADS, UNITS // HEADS, 300),
+                              (24, 3, 65, 24)):
+            pages = -(-n // ps) * 2 + 1
+            k, v = write_rows(torch, gen, n, h, d, dtype)
+            perm = torch.randperm((pages - 1) * ps, generator=gen,
+                                  device="cuda")[:n] + ps
+            page_idx = torch.where(torch.arange(n, device="cuda") < live,
+                                   perm // ps, 0)
+            slot_idx = perm % ps
+            pool = [torch.randint(-127, 128, (pages, ps, h, d),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int8) for _ in range(2)]
+            pool += [torch.rand((pages, ps, h), generator=gen,
+                                device="cuda") + 0.5 for _ in range(2)]
+            got = [t.clone() for t in pool]
+            want = [t.clone() for t in pool]
+            before = da.kv_quantize_write.launches
+            with write_plain_guard(da):
+                da.kv_quantize_write(*got, k, v, page_idx, slot_idx)
+            launched = da.kv_quantize_write.launches - before
+            da.kv_quantize_write_reference(*want, k, v, page_idx, slot_idx)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a[1:], b[1:]) for a, b in zip(got, want))
+            # the largest difference outside page 0, int8 bytes as ints
+            err = max((a[1:].float() - b[1:].float()).abs().max().item()
+                      for a, b in zip(got, want))
+            written = torch.zeros((pages, ps), dtype=torch.bool,
+                                  device="cuda")
+            written[page_idx, slot_idx] = True
+            kept = all(torch.equal(a[~written], b[~written])
+                       for a, b in zip(got, pool))
+            ok = same and kept and launched == 1
+            name = (f"kv_quantize_write {str(dtype)[6:]} N={n} ({live} "
+                    f"live) H={h} D={d}")
+            log(f"[b] {name}: int8 bytes and scales == plain version "
+                f"bitwise (page 0 aside): {same}, max |got - plain| "
+                f"{err!r}; bytes outside the written "
+                f"slots unchanged: {kept}; launches {launched} (want 1) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"phase b: {name} disagrees with its plain "
+                                 "version")
+            records.append({"case": name, "bitwise": same, "kept": kept,
+                            "max_abs_err": err})
+    return records
+
+
+@contextlib.contextmanager
+def write_plain_guard(da):
+    """While open, the int8 write's plain version raises on a CUDA
+    tensor: the wrapper must launch its kernel for those."""
+    plain = da.kv_quantize_write_reference
+
+    def guard(*args):
+        if args[4].is_cuda:
+            raise SystemExit("a CUDA tensor reached the int8 write's plain "
+                             "version")
+        return plain(*args)
+
+    da.kv_quantize_write_reference = guard
+    try:
+        yield
+    finally:
+        da.kv_quantize_write_reference = plain
 
 
 def decode_work(lengths, b, h, d, max_pages, kv_itemsize, q_itemsize,
@@ -3594,27 +3736,33 @@ def time_decode_attention(torch, da):
     model's), fp32 and int8 pools. Each of the 12 layers has a pool of its
     own (32 x 64 + 1 pages), and the calls rotate over them, so no call
     finds its pages in the 50 MB L2 (the int8 pool of one layer is 53 MB).
-    Device time beside the bytes bound at 3.35 TB/s, the plain version, and
-    one scaled_dot_product_attention call over the same KV already
-    contiguous (B, H, 1024, D): the same attention without a page table
-    (no PyTorch call takes one)."""
+    The int8 pools take route "int8_bulk"; the one-element-a-lane kernel
+    (route "int8") is timed on the same pools. Device time beside the
+    bytes bound at 3.35 TB/s, the plain version, and one
+    scaled_dot_product_attention call over the same KV already contiguous
+    (B, H, 1024, D): the same attention without a page table (no PyTorch
+    call takes one). Both int8 routes are also timed with every row at
+    phase n's profiled position (353 tokens: 23 of the 64 pages)."""
     import torch.nn.functional as F
 
     b, h, d, ps, mp = 32, HEADS, UNITS // HEADS, DECODE_PS, DECODE_MAX_PAGES
     pages = b * mp + 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(43)
     q = torch.randn((b, h, d), generator=gen, device="cuda").to(
         torch.bfloat16)
     lengths = [mp * ps] * b
+    short = [DECODE_STEP_POSITION + 1] * b
     table, lens = decode_table(torch, gen, lengths, ps, mp, pages)
+    short_lens = torch.tensor(short, dtype=torch.int32, device="cuda")
+    scale = 1.0 / math.sqrt(d)
     out = {}
     for int8 in (False, True):
-        route = "int8" if int8 else "float32"
         pools = [decode_pool(torch, da, gen, pages, ps, h, d, int8)
                  for _ in range(LAYERS)]
         turn = [0]
 
-        def rotate(fn):
+        def rotate(fn, lens=lens):
             def call():
                 i = turn[0] % LAYERS
                 turn[0] += 1
@@ -3622,28 +3770,46 @@ def time_decode_attention(torch, da):
                 return fn(q, kp, vp, table, lens, k_scales=ks, v_scales=vs)
             return call
 
-        before = dict(da.paged_decode_attention.launches_by_route)
-        ms = device_ms(rotate(da.paged_decode_attention), n=24)
-        took = [r for r, n in da.paged_decode_attention.launches_by_route
-                .items() if n != before[r]]
-        if took != [route]:
-            raise SystemExit(f"phase c: K4 {route} took route {took}")
+        def forced(route):
+            def fn(q, kp, vp, table, lens, k_scales, v_scales):
+                return da._launch(q, kp, vp, table, lens, scale, k_scales,
+                                  v_scales, route=route)
+            return fn
+
         # the plain version issues ~300 launches a call: 2 calls stay
         # inside the launch queue while the card spins
         plain_ms = device_ms(rotate(da.paged_decode_attention_reference),
                              n=2)
-        flops, nbytes = decode_work(lengths, b, h, d, mp,
-                                    1 if int8 else 4, 2, int8)
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = flops / PEAK_FP32_FMA_FLOPS * 1e3   # f32 on the CUDA cores
-        bound_ms = max(t_bytes, t_ops)
-        out[route] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops,
-            "tb_per_s": nbytes / (ms * 1e-3) / 1e12,
-            "splits": da.decode_splits(b, mp, torch.cuda.get_device_properties(
-                0).multi_processor_count)}
+        routes = ("int8_bulk", "int8") if int8 else ("float32",)
+        for route in routes:
+            before = dict(da.paged_decode_attention.launches_by_route)
+            fn = da.paged_decode_attention if route != "int8" else \
+                forced("int8")
+            ms = device_ms(rotate(fn), n=24)
+            took = [r for r, n in da.paged_decode_attention.launches_by_route
+                    .items() if n != before[r]]
+            if took != [route]:
+                raise SystemExit(f"phase c: K4 {route} took route {took}")
+            short_ms = device_ms(rotate(fn, short_lens), n=24)
+            flops, nbytes = decode_work(lengths, b, h, d, mp,
+                                        1 if int8 else 4, 2, int8)
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            t_ops = flops / PEAK_FP32_FMA_FLOPS * 1e3  # f32 on the CUDA cores
+            bound_ms = max(t_bytes, t_ops)
+            short_bytes = decode_work(short, b, h, d, mp, 1 if int8 else 4,
+                                      2, int8)[1]
+            bulk = route == "int8_bulk"
+            out[route] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "flops": flops,
+                "tb_per_s": nbytes / (ms * 1e-3) / 1e12,
+                "splits": ((da.int8_splits(b, mp, sms), None) if bulk
+                           else da.decode_splits(b, mp, sms)),
+                "stages": (da._int8_geometry(h, d, ps)["stages"] if bulk
+                           else None),
+                "step_position_ms": short_ms,
+                "step_position_bound_ms": short_bytes / PEAK_BYTES * 1e3}
         del pools
         torch.cuda.empty_cache()
     # the same attention, KV contiguous, no page table: fp32 and bf16
@@ -3660,32 +3826,76 @@ def time_decode_attention(torch, da):
     for route, r in out.items():
         r["contiguous_sdpa_fp32_ms"] = sdpa32
         r["contiguous_sdpa_bf16_ms"] = sdpa16
-        log(f"[c] paged_decode_attn kv {route} (B={b}, H={h}, D={d}, pages "
-            f"of {ps}, {mp * ps} tokens a row, bf16 q, {r['splits'][0]} "
-            f"splits of {r['splits'][1]} pages; {LAYERS} pools rotated): "
-            f"{r['ms']:.4f} "
+        splits, per = r["splits"]
+        deal = (f"{splits} splits of {per} pages" if per else
+                f"{splits} splits, a row's pages dealt round-robin, "
+                f"{r['stages']} stages")
+        log(f"[c] paged_decode_attn route {route} (B={b}, H={h}, D={d}, "
+            f"pages of {ps}, {mp * ps} tokens a row, bf16 q, {deal}; "
+            f"{LAYERS} pools rotated): {r['ms']:.4f} "
             f"ms device, {r['tb_per_s']:.2f} TB/s, bound {r['bound_ms']:.4f} "
             f"ms ({r['bound_by']}: {r['bytes'] / 1e6:.1f} MB; "
-            f"{r['bound_ms'] / r['ms']:.1%} of it); plain version "
+            f"{r['bound_ms'] / r['ms']:.1%} of it); rows at "
+            f"{DECODE_STEP_POSITION + 1} tokens {r['step_position_ms']:.4f} "
+            f"ms (bound {r['step_position_bound_ms']:.4f}); plain version "
             f"{r['plain_ms']:.3f} ms; the same attention without a page "
             f"table, KV contiguous, one SDPA call: fp32 {sdpa32:.4f} ms, "
             f"bf16 {sdpa16:.4f} ms")
     return out
 
 
+def write_work(n, h, d, itemsize):
+    """Bytes the int8 write must move: K and V read once, their int8 rows
+    and f32 scales written once, the two int64 index vectors read once."""
+    return 2.0 * n * h * (d * itemsize + d + 4) + 2.0 * 8 * n
+
+
+def time_kv_write(torch, da):
+    """Phase c for the int8 write at the decode step's shape: 32 rows,
+    H=12, D=64, bf16 views of the qkv output, into a pool of phase n's
+    size (2049 pages of 16): the kernel (one launch) beside the plain chain
+    (kv_quantize's elementwise and reduction kernels and two index_put_,
+    for K and for V) and the bytes bound."""
+    gen = torch.Generator(device="cuda").manual_seed(59)
+    n, h, d, ps = DECODE_SEQS, HEADS, UNITS // HEADS, DECODE_PS
+    pages = DECODE_SEQS * DECODE_MAX_PAGES + 1
+    k, v = write_rows(torch, gen, n, h, d, torch.bfloat16)
+    perm = torch.randperm((pages - 1) * ps, generator=gen,
+                          device="cuda")[:n] + ps
+    page_idx, slot_idx = perm // ps, perm % ps
+    pool = [torch.zeros((pages, ps, h, d), dtype=torch.int8, device="cuda")
+            for _ in range(2)]
+    pool += [torch.ones((pages, ps, h), device="cuda") for _ in range(2)]
+    ms = device_ms(lambda: da.kv_quantize_write(*pool, k, v, page_idx,
+                                                slot_idx), n=24)
+    plain_ms = device_ms(lambda: da.kv_quantize_write_reference(
+        *pool, k, v, page_idx, slot_idx), n=8)
+    nbytes = write_work(n, h, d, 2)
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes", "bytes": nbytes}
+    log(f"[c] kv_quantize_write (N={n} rows, H={h}, D={d}, bf16 qkv views, "
+        f"K and V): {ms:.4f} ms device, bound {bound_ms:.5f} ms (bytes: "
+        f"{nbytes / 1e3:.1f} KB); the plain chain (kv_quantize + index_put_, "
+        f"K and V) {plain_ms:.4f} ms")
+    return rec
+
+
 def capture_decode_alone(torch, da, capture):
     """Phase l for K4: each route captured alone in a graph (the pool is
-    the graph's state), replayed on new q, table and lengths: bitwise equal
-    to an eager launch on those inputs, 3 launches enqueued at warm-up and
-    capture, none at a replay, 2 kernel nodes (splits, combine)."""
+    the graph's state: fp32 for "float32", int8 for "int8_bulk", an int8
+    pool off its 16-byte alignment for "int8"), replayed on new q, table
+    and lengths: bitwise equal to an eager launch on those inputs, 3
+    launches enqueued at warm-up and capture, none at a replay, 2 kernel
+    nodes (splits, combine)."""
     gen = torch.Generator(device="cuda").manual_seed(47)
     ps, mp, h, d = DECODE_PS, 8, HEADS, UNITS // HEADS
     first, second = [5, 16, 100, 0], [128, 1, 17, 64]
     records = []
-    for int8 in (False, True):
-        route = "int8" if int8 else "float32"
+    for route in ("float32", "int8_bulk", "int8"):
         pages = 4 * mp + 1
-        kp, vp, ks, vs = decode_pool(torch, da, gen, pages, ps, h, d, int8)
+        kp, vp, ks, vs = decode_pool(torch, da, gen, pages, ps, h, d,
+                                     route != "float32", route == "int8")
 
         def fn(q, table, lens):
             return da.paged_decode_attention(q, kp, vp, table, lens,
@@ -3736,6 +3946,7 @@ DECODE_PROMPTS = (64, 512)
 DECODE_STEP_POSITION = 352   # the profiled step's position: the traffic's
 #                              mean context (288-token prompt + 64)
 DECODE_LOGIT_TOL = 1e-3      # teacher-forced fp32 logits, of max|logits|
+DECODE_ROUTE = {"float32": "float32", "int8": "int8_bulk"}   # K4's, by pool
 
 
 def decode_net(torch, mx, dtype):
@@ -3803,15 +4014,21 @@ def decode_traffic(torch, kernels, da, net, kv):
     st = serving.stats()
     launches = da.paged_decode_attention.launches
     by_route = dict(da.paged_decode_attention.launches_by_route)
+    writes = da.kv_quantize_write.launches
     after_misses = capture.stats()["capture_misses"] - misses1
     retraces = capture.retrace_log()
     tokens = sum(len(r) for r in results if r is not None)
     ok_tokens = all(r is not None and len(r) == DECODE_NEW and
                     all(0 <= t < VOCAB for t in r) for r in results)
-    want = {"float32": 0, "int8": 0}
-    want[kv] = 3 * LAYERS
+    want = dict.fromkeys(by_route, 0)
+    want[DECODE_ROUTE[kv]] = 3 * LAYERS
+    # one int8 write a layer in each prefill bucket and the step, at their
+    # 2 warm-up runs and capture
+    want_writes = 0 if kv == "float32" else \
+        (len(DECODE_BUCKETS) + 1) * 3 * LAYERS
     ok = (not errors and ok_tokens and after_misses == 0 and not retraces
-          and by_route == want and pred.pool.in_use == 0
+          and by_route == want and writes == want_writes
+          and pred.pool.in_use == 0
           and st["decode_sequences"] == DECODE_REQUESTS
           and st["decode_tokens"] == DECODE_REQUESTS * DECODE_NEW)
     rec = {
@@ -3828,7 +4045,8 @@ def decode_traffic(torch, kernels, da, net, kv):
         "backpressure": st["decode_backpressure"],
         "ttft_misses": st["decode_ttft_misses"],
         "kv_hbm_bytes": pred.kv_hbm_bytes, "launches": launches,
-        "launches_by_route": by_route, "errors": errors}
+        "launches_by_route": by_route, "write_launches": writes,
+        "errors": errors}
     log(f"[n] kv {kv}: predictor built in {build_s:.2f} s ({captured} graphs "
         f"captured: {len(DECODE_BUCKETS)} prefill buckets, the step, the "
         f"probe), pool {pred.kv_hbm_bytes / 1e9:.3f} GB; "
@@ -3843,8 +4061,10 @@ def decode_traffic(torch, kernels, da, net, kv):
         f"{rec['ttft_misses']}; "
         f"captures after warm-up {after_misses}, retrace log "
         f"{len(retraces)}; K4 launches {launches} {by_route} (want "
-        f"{3 * LAYERS} on {kv}: 2 warm-up runs and the capture of the step) "
-        f"{'ok' if ok else 'FAIL'}")
+        f"{3 * LAYERS} on {DECODE_ROUTE[kv]}: 2 warm-up runs and the capture "
+        f"of the step); int8 write launches {writes} (want {want_writes}: "
+        f"{LAYERS} in each of {len(DECODE_BUCKETS)} prefill buckets and the "
+        f"step, 3 times) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"phase n: decode with {kv} KV failed its checks: "
                          f"{errors[:2]}")
@@ -3879,10 +4099,13 @@ def decode_step_profile(torch, pred, kv):
         pred.pool.free(pages)
     ms.sort()
     k4_ms = prof["kernel_ms"]
-    return {"step_ms": ms[len(ms) // 2], "busy_ms": prof["device_busy_ms"],
+    write = [r for r in prof["all"] if "kv_quantize_write" in r["kernel"]]
+    busy = prof["device_busy_ms"]
+    return {"step_ms": ms[len(ms) // 2], "busy_ms": busy,
             "wall_ms": prof["wall_ms"], "k4_ms": k4_ms,
-            "k4_share": k4_ms / prof["device_busy_ms"]
-            if prof["device_busy_ms"] else None,
+            "k4_share": k4_ms / busy if busy else None,
+            "write_ms": sum(r["ms"] for r in write),
+            "write_launches": sum(r["count"] for r in write),
             "launches": prof["launches"], "top": prof["top"]}
 
 
@@ -3962,31 +4185,59 @@ def decode_phase(torch, mx, kernels):
 
     net = decode_net(torch, mx, "bfloat16")
     runs = {}
-    for kv in ("float32", "int8"):
+    # each pool twice, in the order A B B A, so that neither gains from
+    # going second; the first run of each is the record, the second its
+    # "repeat"
+    for kv in ("float32", "int8", "int8", "float32"):
         pred, rec = decode_traffic(torch, kernels, da, net, kv)
-        if kv == "float32":
-            nodes = graph_nodes(pred._execs[("step",)], "decode_step",
-                                parts=("paged_decode_attn",))
-            rec["step_graph_nodes"] = nodes
-            log(f"[n] the step's graph: {nodes['kernels']} kernel nodes, "
-                f"{nodes['paged_decode_attn']} of them K4's (want "
-                f"{2 * LAYERS}: splits and combine for each of {LAYERS} "
-                "layers)")
-            if nodes["paged_decode_attn"] != 2 * LAYERS:
-                raise SystemExit("phase n: the step graph does not hold "
-                                 f"{2 * LAYERS} K4 nodes")
+        want_writes = 0 if kv == "float32" else LAYERS
+        want_k4 = 2 * LAYERS
+        parts = ("paged_decode_attn", "kv_quantize_write")
+        nodes = graph_nodes(pred._execs[("step",)], f"decode_step_{kv}",
+                            parts=parts)
+        prefill = graph_nodes(pred._execs[("prefill", DECODE_BUCKETS[-1])],
+                              f"decode_prefill_{kv}", parts=parts)
+        rec["step_graph_nodes"] = nodes
+        rec["prefill_graph_nodes"] = prefill
+        log(f"[n] kv {kv}: the step's graph: {nodes['kernels']} kernel "
+            f"nodes, {nodes['paged_decode_attn']} of them K4's (want "
+            f"{want_k4}: splits and combine for each of {LAYERS} layers), "
+            f"{nodes['kv_quantize_write']} the int8 write's (want "
+            f"{want_writes}); the {DECODE_BUCKETS[-1]}-token prefill's: "
+            f"{prefill['kernels']} kernel nodes, "
+            f"{prefill['kv_quantize_write']} the int8 write's (want "
+            f"{want_writes})")
+        if (nodes["paged_decode_attn"] != want_k4
+                or nodes["kv_quantize_write"] != want_writes
+                or prefill["kv_quantize_write"] != want_writes):
+            raise SystemExit("phase n: the step or prefill graph does not "
+                             f"hold {want_k4} K4 nodes and {want_writes} "
+                             "int8 write nodes")
         rec["step"] = decode_step_profile(torch, pred, kv)
         s = rec["step"]
         log(f"[n] kv {kv}: step ({DECODE_SEQS} live slots at position "
             f"{DECODE_STEP_POSITION}) {s['step_ms']:.3f} ms median (host "
             f"clock, next tokens read back); one step profiled: busy "
-            f"{s['busy_ms']:.3f} of {s['wall_ms']:.3f} ms wall, K4 "
-            f"{s['k4_ms']:.4f} ms ({s['k4_share']:.1%} of device time)")
-        runs[kv] = rec
+            f"{s['busy_ms']:.3f} of {s['wall_ms']:.3f} ms wall, "
+            f"{s['launches']} kernels, K4 {s['k4_ms']:.4f} ms "
+            f"({s['k4_share']:.1%} of device time), int8 write "
+            f"{s['write_ms']:.4f} ms in {s['write_launches']} launches")
+        if kv in runs:
+            runs[kv]["repeat"] = rec
+        else:
+            runs[kv] = rec
         del pred
         torch.cuda.empty_cache()
     del net
     torch.cuda.empty_cache()
+    order = [runs["float32"], runs["int8"], runs["int8"]["repeat"],
+             runs["float32"]["repeat"]]
+    log("[n] in the order fp32, int8, int8, fp32: tokens/s " + ", ".join(
+        f"{r['tokens_per_s']:.1f}" for r in order) + "; inter-token p50 " +
+        ", ".join(f"{r['itl_p50_ms']:.3f}" for r in order) + " ms; the "
+        "step's busy time " + ", ".join(
+            f"{r['step']['busy_ms']:.3f}" for r in order) + " ms, kernels " +
+        ", ".join(str(r["step"]["launches"]) for r in order))
     runs["teacher_forced"] = decode_teacher_forced(torch, mx)
     return runs
 
@@ -4028,7 +4279,7 @@ def main(argv=None):
             log(f"[a] ptxas advisory ({name}): {line}")
         for entry, usage in ptxas_usage(_build.build_log(name)):
             log(f"[a] ptxas {entry}: {usage}")
-            if name.endswith(("_tc", "_tf32x3")) and not re.search(
+            if name.endswith(("_tc", "_tf32x3", "_int8")) and not re.search(
                     r"\b0 bytes spill stores, 0 bytes spill loads", usage):
                 raise SystemExit(f"phase a: {entry} spills registers")
 
@@ -4037,6 +4288,7 @@ def main(argv=None):
                                                                  kernels)
     conv_checks = check_conv(torch, kernels)
     dec_checks, dec_errs = check_decode_attention(torch, da)
+    write_checks = check_kv_write(torch, da)
     if args.quick:
         log("[quick] phase b passed; phases c-n skipped")
         return 0
@@ -4044,6 +4296,7 @@ def main(argv=None):
     bwd_timing = time_flash_bwd(torch, kernels)
     conv_timing = time_conv(torch, kernels)
     dec_timing = time_decode_attention(torch, da)
+    write_timing = time_kv_write(torch, da)
     served = serve_slice(torch, mx, kernels)
     model_err = model_vs_plain(torch, mx, kernels)
     vision, (pred, net, images) = serve_resnet(torch, mx)
@@ -4214,30 +4467,61 @@ def main(argv=None):
         "simt_ms": bwd_timing["simt_fp32_ms"],
         "step_device_ms": fp32_training["profile"]["k2_ms"]}] + [{
         # phase n's paths: the decode step's 12 K4 launches (enqueued at
-        # its 2 warm-up runs and its capture; replays add none), fp32 and
-        # int8 pools; times from phase c at the slice's shape, bf16 q
-        "name": "paged_decode_attn" + ("" if kv == "float32" else "_int8"),
-        "route": "cuda", "source": "mxnet_tpu_torch/csrc/paged_decode_attn.cu",
+        # its 2 warm-up runs and its capture; replays add none), the fp32
+        # pool's on csrc/paged_decode_attn.cu, the int8 pool's on route
+        # "int8_bulk"; times from phase c at the slice's shape, bf16 q
+        "name": name, "route": "cuda", "source": f"mxnet_tpu_torch/{src}",
         "replaces": "mxnet_tpu/ops/decode_attention.py:55",
-        "kv_dtype": kv,
+        "kv_dtype": kv, "k4_route": DECODE_ROUTE[kv],
         "launches": decoding[kv]["launches"],
         "launches_by_route": decoding[kv]["launches_by_route"],
-        "max_abs_err": dec_errs[kv],
-        "check": f"{sum(f'kv {kv}' in c['case'] for c in dec_checks)} "
-                 "cases of "
+        "max_abs_err": dec_errs[DECODE_ROUTE[kv]],
+        "check": f"{sum(c['route'] == DECODE_ROUTE[kv] for c in dec_checks)}"
+                 " cases of "
                  f"phase b: fp32 q within {DECODE_TOL:g} of max|ref|, "
                  f"16-bit q within {DECODE_ULP} ulp; length-0 rows 0",
-        "ms": dec_timing[kv]["ms"], "plain_ms": dec_timing[kv]["plain_ms"],
-        "bound_ms": dec_timing[kv]["bound_ms"],
-        "bound_by": dec_timing[kv]["bound_by"],
+        "ms": dec_timing[DECODE_ROUTE[kv]]["ms"],
+        "plain_ms": dec_timing[DECODE_ROUTE[kv]]["plain_ms"],
+        "bound_ms": dec_timing[DECODE_ROUTE[kv]]["bound_ms"],
+        "bound_by": dec_timing[DECODE_ROUTE[kv]]["bound_by"],
         # no PyTorch call takes a page table; the same attention over KV
         # already contiguous, as one SDPA call, stands beside it
         "library_ms": None,
-        "contiguous_sdpa_fp32_ms": dec_timing[kv]["contiguous_sdpa_fp32_ms"],
-        "contiguous_sdpa_bf16_ms": dec_timing[kv]["contiguous_sdpa_bf16_ms"],
+        "contiguous_sdpa_fp32_ms": dec_timing[DECODE_ROUTE[kv]][
+            "contiguous_sdpa_fp32_ms"],
+        "contiguous_sdpa_bf16_ms": dec_timing[DECODE_ROUTE[kv]][
+            "contiguous_sdpa_bf16_ms"],
+        "step_position_ms": dec_timing[DECODE_ROUTE[kv]]["step_position_ms"],
         "step_device_ms": decoding[kv]["step"]["k4_ms"],
-        "step_share": decoding[kv]["step"]["k4_share"]}
-        for kv in ("float32", "int8")]}
+        "step_share": decoding[kv]["step"]["k4_share"],
+        # the same source's int8 instance (route "int8": D off a multiple
+        # of 16, misaligned pools), timed on the int8 pools of phase c
+        **({"int8_route_ms": dec_timing["int8"]["ms"],
+            "int8_route_step_position_ms":
+                dec_timing["int8"]["step_position_ms"],
+            "int8_route_max_abs_err": dec_errs["int8"]}
+           if kv == "float32" else {})}
+        for kv, name, src in (
+            ("float32", "paged_decode_attn", "csrc/paged_decode_attn.cu"),
+            ("int8", "paged_decode_attn_int8",
+             "csrc/paged_decode_attn_int8.cu"))] + [{
+        # phase n's int8 path: one launch a layer in every prefill bucket
+        # and the step (enqueued at their warm-up runs and captures)
+        "name": "kv_quantize_write", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/kv_quantize_write.cu",
+        "replaces": "mxnet_tpu/ops/decode_attention.py:35 (kv_quantize) and "
+                    "mxnet_tpu/gluon/model_zoo/transformer.py:202 (the page "
+                    "scatter)",
+        "launches": decoding["int8"]["write_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in write_checks),
+        "check": f"{len(write_checks)} cases of phase b bitwise equal to "
+                 "the plain version; bytes outside the written slots "
+                 "unchanged",
+        "ms": write_timing["ms"], "plain_ms": write_timing["plain_ms"],
+        "bound_ms": write_timing["bound_ms"],
+        "bound_by": write_timing["bound_by"], "library_ms": None,
+        "step_device_ms": decoding["int8"]["step"]["write_ms"],
+        "step_launches": decoding["int8"]["step"]["write_launches"]}]}
     kind = torch.cuda.get_device_name(0)
     if args.summary:
         os.makedirs(os.path.dirname(os.path.abspath(args.summary)),
@@ -4259,6 +4543,8 @@ def main(argv=None):
                        "fp32_training": fp32_training,
                        "decode_checks": dec_checks,
                        "decode_timing": dec_timing, "decode": decoding,
+                       "write_checks": write_checks,
+                       "write_timing": write_timing,
                        **record}, f,
                       indent=1)
     log(card)

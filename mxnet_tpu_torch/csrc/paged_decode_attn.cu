@@ -15,7 +15,7 @@
 //
 // Bound on the H100 SXM. One token reads every live KV byte once and does
 // 4 D FLOP per (token, head): at B=32, H=12, D=64, 1024 tokens a row the
-// f32 pool moves 201 MB (60 us at 3.35 TB/s) for 3.2 GFLOP, the int8 pool
+// f32 pool moves 201 MB (60 us at 3.35 TB/s) for 0.1 GFLOP, the int8 pool
 // 50 MB plus 3 MB of scales (16 us). It is bytes-bound by far, so the
 // design is about keeping enough loads in flight, not about the products.
 //
@@ -30,40 +30,20 @@
 // loaded in one go (CH * NV * 2 independent loads a lane), the CH scores
 // reduced by xor shuffles, and folded into the warp's running max, sum and
 // accumulator (f32). The partials (m, l, acc) go to an f32 workspace (B,
-// splits, H, 2 + D); a second kernel combines each (slot, head) over its
-// splits in split order, so a second launch is bitwise equal. The loads
-// are plain per-lane loads through the read-only path; async copies of
-// whole pages and wider splits are later work.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <math.h>
+// splits, H, 2 + D); a second kernel (csrc/decode_combine.cuh) combines
+// each (slot, head) over its splits in split order, so a second launch is
+// bitwise equal. The loads are plain per-lane loads through the read-only
+// path. An int8 pool whose pages the copy engine can move takes
+// csrc/paged_decode_attn_int8.cu instead (ops/decode_attention.py:
+// _decode_route); this kernel keeps every f32 pool and the int8 pools that
+// one does not take (D not a multiple of 16, misaligned pools).
 #include <stdint.h>
+
+#include "decode_combine.cuh"
 
 namespace {
 
-constexpr float NEG = -1e30f;      // the reference's mask value
 constexpr int MAX_WARPS = 16;      // warps per CTA of the split kernel
-constexpr int COMBINE_WARPS = 4;   // warps per CTA of the combine kernel
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T> __device__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half(x);
-}
 
 __device__ __forceinline__ float kv_load(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float kv_load(const int8_t* p) {
@@ -177,32 +157,6 @@ paged_decode_attn_split_kernel(
   }
 }
 
-// One warp per (slot, head): the splits' partials in split order.
-template <typename QT>
-__global__ void __launch_bounds__(COMBINE_WARPS * 32)
-paged_decode_attn_combine_kernel(const float* __restrict__ work,
-                                 QT* __restrict__ out, int B, int H, int D,
-                                 int splits) {
-  const int gw = blockIdx.x * COMBINE_WARPS + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (gw >= B * H) return;
-  const int b = gw / H, h = gw % H;
-  const long long stride = (long long)H * (D + 2);   // one split's step
-  const float* w0 = work + ((long long)b * splits * H + h) * (D + 2);
-  float mx = NEG;
-  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, w0[s * stride]);
-  float total = 0.f;
-  for (int s = 0; s < splits; ++s)
-    total += w0[s * stride + 1] * expf(w0[s * stride] - mx);
-  QT* orow = out + ((long long)b * H + h) * D;
-  for (int d = lane; d < D; d += 32) {
-    float a = 0.f;
-    for (int s = 0; s < splits; ++s)
-      a = fmaf(w0[s * stride + 2 + d], expf(w0[s * stride] - mx), a);
-    orow[d] = from_f32<QT>(total > 0.f ? a / total : 0.f);
-  }
-}
-
 template <typename QT, typename KV, int NV>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* ks, const void* vs, const void* table,
@@ -221,12 +175,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
           q_sh, H, D, P, ps, max_pages, splits, per, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int rows = B * H;
-  paged_decode_attn_combine_kernel<QT>
-      <<<(rows + COMBINE_WARPS - 1) / COMBINE_WARPS, COMBINE_WARPS * 32, 0,
-         stream>>>(static_cast<const float*>(work), static_cast<QT*>(out), B,
-                   H, D, splits);
-  return cudaGetLastError();
+  return launch_combine<QT, 256>(work, out, B, H, D, splits, stream);
 }
 
 template <typename QT, typename KV>

@@ -181,18 +181,22 @@ def _split_qkv(qkv, num_heads):
             qkv[..., 2 * u:].reshape(shape))
 
 
-def _page_scatter(pages, scales, vals, page_idx, slot_idx, quantize):
-    """Write per-token K or V rows (N, H, D) into ``pages`` (P, page_size,
-    H, D) at (page_idx, slot_idx), in place; an int8 pool quantizes on
-    write and updates its scales (P, page_size, H)."""
-    if quantize:
-        from ...ops.decode_attention import kv_quantize
+def _page_scatter(kv, i, k, v, page_idx, slot_idx):
+    """Write layer ``i``'s per-token K and V rows (N, H, D) into the cache
+    ``kv`` (k_pages, v_pages (L, P, page_size, H, D), k_scales, v_scales)
+    at (page_idx, slot_idx), in place. An int8 pool quantizes on write and
+    updates its scales (L, P, page_size, H) through ``kv_quantize_write``:
+    one kernel for K and V on the card, ``kv_quantize`` and ``index_put_``
+    on the CPU."""
+    k_pages, v_pages, k_scales, v_scales = kv
+    if k_pages.dtype == torch.int8:
+        from ...ops.decode_attention import kv_quantize_write
 
-        qv, sc = kv_quantize(vals)
-        pages.index_put_((page_idx, slot_idx), qv)
-        scales.index_put_((page_idx, slot_idx), sc)
+        kv_quantize_write(k_pages[i], v_pages[i], k_scales[i], v_scales[i],
+                          k, v, page_idx, slot_idx)
     else:
-        pages.index_put_((page_idx, slot_idx), vals.to(pages.dtype))
+        k_pages[i].index_put_((page_idx, slot_idx), k.to(k_pages.dtype))
+        v_pages[i].index_put_((page_idx, slot_idx), v.to(v_pages.dtype))
 
 
 def _block_params(params, i):
@@ -263,9 +267,7 @@ def paged_prefill(params, spec, tokens, true_len, kv, page_row):
     positions write the scratch page, and their keys are causally invisible
     to the true rows.
     """
-    k_pages, v_pages, k_scales, v_scales = kv
-    quantize = k_pages.dtype == torch.int8
-    page_size = k_pages.shape[2]
+    page_size = kv[0].shape[2]
     t = tokens.shape[1]
     heads = spec["num_heads"]
     d = spec["units"] // heads
@@ -281,10 +283,7 @@ def paged_prefill(params, spec, tokens, true_len, kv, page_row):
          ff1_w, ff1_b, ff2_w, ff2_b) = _block_params(params, i)
         q, k, v = _split_qkv(_dense(_ln(h, ln1_g, ln1_b), qkv_w, qkv_b),
                              heads)                   # (T, H, D)
-        _page_scatter(k_pages[i], k_scales[i], k, page_idx, slot_idx,
-                      quantize)
-        _page_scatter(v_pages[i], v_scales[i], v, page_idx, slot_idx,
-                      quantize)
+        _page_scatter(kv, i, k, v, page_idx, slot_idx)
         attn = _dense_attention(q, k, v, causal, d)
         h = h + _dense(attn.reshape(t, -1), out_w, out_b)
         h = _ffn(h, ln2_g, ln2_b, ff1_w, ff1_b, ff2_w, ff2_b)
@@ -323,10 +322,7 @@ def paged_step(params, spec, tokens, positions, active, kv, page_table):
          ff1_w, ff1_b, ff2_w, ff2_b) = _block_params(params, i)
         q, k, v = _split_qkv(_dense(_ln(h, ln1_g, ln1_b), qkv_w, qkv_b),
                              heads)                   # (B, H, D)
-        _page_scatter(k_pages[i], k_scales[i], k, page_idx, slot_idx,
-                      quantize)
-        _page_scatter(v_pages[i], v_scales[i], v, page_idx, slot_idx,
-                      quantize)
+        _page_scatter(kv, i, k, v, page_idx, slot_idx)
         attn = paged_decode_attention(
             q, k_pages[i], v_pages[i], page_table, lengths,
             k_scales=k_scales[i] if quantize else None,

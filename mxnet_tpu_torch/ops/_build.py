@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 ``nvcc`` for ``sm_90a`` into ``mxnet_tpu_torch/_build/`` at first use, then
 loaded with ``ctypes``. The library's file name carries a digest of the
 source, the headers it includes from ``csrc/`` (``hopper.cuh``,
-``bn_stats.cuh``) and the flags, so an edited source or header is rebuilt
-and a stale library is never loaded. Nothing is built when a module is imported.
+``bn_stats.cuh``, ``decode_combine.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. Nothing
+is built when a module is imported.
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_attn_fwd", "flash_attn_fwd_tc", "flash_attn_fwd_tf32x3",
            "flash_attn_bwd", "flash_attn_bwd_tc", "flash_attn_bwd_tf32x3",
            "conv3x3_bn_stats", "conv3x3_bn_stats_tc",
-           "conv3x3_bn_stats_tf32x3", "paged_decode_attn")
+           "conv3x3_bn_stats_tf32x3", "paged_decode_attn",
+           "paged_decode_attn_int8", "kv_quantize_write")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

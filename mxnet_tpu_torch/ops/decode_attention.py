@@ -24,10 +24,28 @@ reference gives the mean of the V pages its table names there; its model
 path never sends such a row (ROADMAP Queue 3, deliberate differences).
 A table entry outside [0, P) is clamped into it, as JAX's gather clamps.
 
+A fixed rule, :func:`_decode_route`, picks the kernel: an int8 pool whose
+pages the copy engine can move (16-byte-aligned tensors, and a shape that
+the kernel's own geometry query, :func:`_int8_geometry`, accepts: D a
+multiple of 16 up to 128, a page's scales a multiple of 16 bytes, a ring
+of pages that fits in shared memory) takes
+``csrc/paged_decode_attn_int8.cu``, route "int8_bulk": whole pages by
+``cp.async.bulk`` into a ring of stages, 16-byte reads a lane, with its own
+split rule (:func:`int8_splits`: a row's pages dealt round-robin over the
+splits); every other int8 pool takes
+``csrc/paged_decode_attn.cu``'s int8 instance, route "int8", and every f32
+pool its f32 one, route "float32".
+
+The int8 write, :func:`kv_quantize_write`, quantizes one layer's K and V
+rows and scatters them and their scales into the pool in one launch of
+``csrc/kv_quantize_write.cu``, bitwise equal to its plain version
+:func:`kv_quantize_write_reference` (:func:`kv_quantize` and two
+``index_put_`` for each of K and V).
+
 ``paged_decode_attention.launches`` counts kernel launches, ticking where a
 launch is enqueued (at a CUDA graph's warm-up runs and capture, never at a
-replay); ``.launches_by_route`` splits them by the pool's dtype, "float32"
-or "int8".
+replay); ``.launches_by_route`` splits them by route, "float32", "int8"
+or "int8_bulk". ``kv_quantize_write.launches`` counts the write's.
 """
 from __future__ import annotations
 
@@ -41,15 +59,21 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_reference",
-           "kv_quantize", "kv_dequantize", "decode_attn_block_pages",
-           "decode_splits"]
+           "kv_quantize", "kv_dequantize", "kv_quantize_write",
+           "kv_quantize_write_reference", "decode_attn_block_pages",
+           "decode_splits", "int8_splits"]
 
 _NEG = -1e30
 DEFAULT_BLOCK_PAGES = 8      # mxnet_tpu/tune/schedule.py:88
+# the kernels' codes for q (and for k and v of the int8 write)
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _KV_DTYPES = (torch.float32, torch.int8)
 _MAX_D = 256
 _CTAS_PER_SM = 4             # the split rule's target CTAs per SM
+# route "int8_bulk" (csrc/paged_decode_attn_int8.cu): its split rule's
+# target CTAs per SM, measured best of 1, 2, 4 at the slice's shape
+# (tools/torch_k4_variants.py); its geometry comes from its source
+_INT8_CTAS_PER_SM = 1
 
 
 def decode_attn_block_pages(pages, block_pages=None):
@@ -199,23 +223,95 @@ def decode_splits(batch, max_pages, sm_count):
     return -(-max_pages // per), per
 
 
-def _library():
-    lib = _build.load("paged_decode_attn")
-    fn = lib.paged_decode_attn
+def int8_splits(batch, max_pages, sm_count):
+    """Splits of route "int8_bulk": as many CTAs (batch x splits) as
+    ``_INT8_CTAS_PER_SM`` on each SM hold at once, at most one split a
+    table entry. Split s takes a row's entries s, s + splits, ..., so the
+    live pages of a row of any length spread over all of them. From the
+    shapes and the SM count only, so a captured launch fits every later
+    ``lengths``."""
+    return max(1, min(max_pages, _INT8_CTAS_PER_SM * sm_count // batch))
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_geometry(heads, d, page_size):
+    """Route "int8_bulk"'s geometry at this shape, from its source
+    (``paged_decode_attn_int8_geometry``): {"head_warps", "token_warps",
+    "stages", "smem_bytes"} of a CTA, or None where the kernel does not
+    take the shape (D not a multiple of 16 in [16, 128], a page's scales
+    not a multiple of 16 bytes, more head warps than its consumers, a ring
+    beyond shared memory). Builds the kernel's library on first use."""
+    lib = _library("paged_decode_attn_int8")
+    out = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(),
+           ctypes.c_longlong()]
+    if lib.paged_decode_attn_int8_geometry(
+            int(heads), int(d), int(page_size), *map(ctypes.byref, out)):
+        return None
+    return dict(zip(("head_warps", "token_warps", "stages", "smem_bytes"),
+                    (x.value for x in out)))
+
+
+def _decode_route(kv_dtype, d, heads, page_size, ptrs,
+                  geometry=_int8_geometry):
+    """Which K4 kernel takes a pool of ``kv_dtype`` with head dim ``d``,
+    ``heads`` heads and pages of ``page_size`` tokens, whose K and V pages
+    and scales start at the addresses ``ptrs``: "float32" for an f32 pool;
+    "int8_bulk" (whole pages by bulk copy) for an int8 pool with
+    16-byte-aligned addresses at a shape that ``geometry`` (the kernel's
+    own query, :func:`_int8_geometry`) accepts; "int8" (one element a
+    lane) for every other int8 pool. A fixed rule, not a fall-back: a
+    failure of the chosen kernel raises."""
+    if kv_dtype != torch.int8:
+        return "float32"
+    if any(p % 16 for p in ptrs) or geometry(heads, d, page_size) is None:
+        return "int8"
+    return "int8_bulk"
+
+
+_SIGNATURES = {
+    # K4 one element a lane: 9 pointers, 2 strides, 9 ints, scale, stream
+    "paged_decode_attn": ["p"] * 9 + ["ll"] * 2 + ["i"] * 9 + ["f", "p"],
+    # K4 "int8_bulk": the same but the pages per split
+    "paged_decode_attn_int8": ["p"] * 9 + ["ll"] * 2 + ["i"] * 8 +
+    ["f", "p"],
+    # the int8 write: k and 3 strides, v and 3 strides, 6 pointers, 6
+    # ints, stream
+    "kv_quantize_write": ["p"] + ["ll"] * 3 + ["p"] + ["ll"] * 3 +
+    ["p"] * 6 + ["i"] * 6 + ["p"],
+}
+_CTYPES = {"p": ctypes.c_void_p, "ll": ctypes.c_longlong, "i": ctypes.c_int,
+           "f": ctypes.c_float}
+
+
+def _library(name):
+    lib = _build.load(name)
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [ctypes.c_longlong] * 2 + [i] * 9 + \
-            [ctypes.c_float, p]
+        fn.argtypes = [_CTYPES[c] for c in _SIGNATURES[name]]
         fn.restype = ctypes.c_int
-        lib.paged_decode_attn_error_string.argtypes = [i]
-        lib.paged_decode_attn_error_string.restype = ctypes.c_char_p
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
     return lib
 
 
+def _call(name, *args):
+    """Launch entry point ``name`` of its library; raises on a nonzero
+    return."""
+    lib = _library(name)
+    err = getattr(lib, name)(*args)
+    if err:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise MXNetError(f"{name} launch failed: {msg} (error {err})")
+
+
 def _launch(q, k_pages, v_pages, page_table, lengths, scale, k_scales,
-            v_scales):
+            v_scales, route=None):
     """K4 on q (unit stride in D; any batch and head strides), contiguous
-    pages, table and lengths; returns contiguous (B, H, D) in q's dtype."""
+    pages, table and lengths; returns contiguous (B, H, D) in q's dtype.
+    ``route`` defaults to :func:`_decode_route`'s; chip_smoke.py names
+    "int8" to time the one-element-a-lane kernel on the pools that
+    "int8_bulk" takes."""
     for name, x in (("k_pages", k_pages), ("v_pages", v_pages),
                     ("page_table", page_table), ("lengths", lengths),
                     ("k_scales", k_scales), ("v_scales", v_scales)):
@@ -225,30 +321,37 @@ def _launch(q, k_pages, v_pages, page_table, lengths, scale, k_scales,
                              "pool in place)")
     if q.stride(2) != 1:
         q = q.contiguous()
-    lib = _library()
     b, h, d = q.shape
     n_pool, page_size = k_pages.shape[:2]
     max_pages = page_table.shape[1]
-    splits, per = decode_splits(b, max_pages, _sm_count(q.device.index or 0))
+    quantized = k_pages.dtype == torch.int8
+    pool = (k_pages, v_pages, k_scales, v_scales) if quantized else ()
+    if route is None:
+        route = _decode_route(k_pages.dtype, d, h, page_size,
+                              [x.data_ptr() for x in pool])
+    sms = _sm_count(q.device.index or 0)
+    if route == "int8_bulk":
+        splits, per = int8_splits(b, max_pages, sms), None
+    else:
+        splits, per = decode_splits(b, max_pages, sms)
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     work = torch.empty((b, splits, h, d + 2), dtype=torch.float32,
                        device=q.device)
-    quantized = k_pages.dtype == torch.int8
     ks = k_scales.data_ptr() if quantized else None
     vs = v_scales.data_ptr() if quantized else None
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.paged_decode_attn(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ks, vs,
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ks, vs,
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             work.data_ptr(), q.stride(0), q.stride(1), b, h, d, n_pool,
-            page_size, max_pages, splits, per, _Q_DTYPES[q.dtype] +
-            (4 if quantized else 0), float(scale), stream)
-    if err:
-        raise MXNetError("paged_decode_attn launch failed: "
-                         f"{lib.paged_decode_attn_error_string(err).decode()}"
-                         f" (error {err})")
-    route = "int8" if quantized else "float32"
+            page_size, max_pages, splits)
+    code = _Q_DTYPES[q.dtype]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if per is None:
+            _call("paged_decode_attn_int8", *args, code, float(scale),
+                  stream)
+        else:
+            _call("paged_decode_attn", *args, per,
+                  code + (4 if quantized else 0), float(scale), stream)
     paged_decode_attention.launches += 1
     paged_decode_attention.launches_by_route[route] += 1
     return out
@@ -281,4 +384,103 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
 
 
 paged_decode_attention.launches = 0
-paged_decode_attention.launches_by_route = {"float32": 0, "int8": 0}
+paged_decode_attention.launches_by_route = {"float32": 0, "int8": 0,
+                                            "int8_bulk": 0}
+
+
+def kv_quantize_write_reference(k_pages, v_pages, k_scales, v_scales, k, v,
+                                page_idx, slot_idx):
+    """The plain version of the int8 write: :func:`kv_quantize` of K and of
+    V, then ``index_put_`` of the values and the scales at (page_idx,
+    slot_idx), in place. Where two rows name the same (page, slot), either
+    may win."""
+    for pages, scales, x in ((k_pages, k_scales, k), (v_pages, v_scales, v)):
+        qv, sc = kv_quantize(x)
+        pages.index_put_((page_idx, slot_idx), qv)
+        scales.index_put_((page_idx, slot_idx), sc)
+
+
+def _check_write(k_pages, v_pages, k_scales, v_scales, k, v, page_idx,
+                 slot_idx):
+    tensors = (("k_pages", k_pages), ("v_pages", v_pages),
+               ("k_scales", k_scales), ("v_scales", v_scales), ("k", k),
+               ("v", v), ("page_idx", page_idx), ("slot_idx", slot_idx))
+    for name, x in tensors:
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"kv_quantize_write: {name} must be a tensor, "
+                            f"got {type(x).__name__}")
+    if k.dim() != 3 or v.shape != k.shape or k.dtype not in _Q_DTYPES \
+            or v.dtype != k.dtype or k.shape[2] > _MAX_D or k.numel() == 0:
+        raise ValueError(f"kv_quantize_write: k and v must both be (N, H, "
+                         f"D <= {_MAX_D}) in float32, bfloat16 or float16, "
+                         f"got {tuple(k.shape)} {k.dtype} and "
+                         f"{tuple(v.shape)} {v.dtype}")
+    n, h, d = k.shape
+    if k_pages.dim() != 4 or tuple(k_pages.shape[2:]) != (h, d) or \
+            v_pages.shape != k_pages.shape or k_pages.dtype != torch.int8 \
+            or v_pages.dtype != torch.int8:
+        raise ValueError(f"kv_quantize_write: pages must both be int8 (P, "
+                         f"page_size, {h}, {d}), got {tuple(k_pages.shape)} "
+                         f"{k_pages.dtype} and {tuple(v_pages.shape)} "
+                         f"{v_pages.dtype}")
+    for name, sc in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if sc.dtype != torch.float32 or \
+                tuple(sc.shape) != tuple(k_pages.shape[:3]):
+            raise ValueError(f"kv_quantize_write: {name} must be float32 "
+                             f"{tuple(k_pages.shape[:3])}, got "
+                             f"{tuple(sc.shape)} {sc.dtype}")
+    for name, ix in (("page_idx", page_idx), ("slot_idx", slot_idx)):
+        if tuple(ix.shape) != (n,) or ix.dtype != torch.int64:
+            raise ValueError(f"kv_quantize_write: {name} must be int64 "
+                             f"({n},), got {tuple(ix.shape)} {ix.dtype}")
+    devs = {x.device for _, x in tensors}
+    if len(devs) != 1:
+        raise ValueError("kv_quantize_write: operands lie on different "
+                         f"devices {sorted(map(str, devs))}")
+
+
+def _launch_write(k_pages, v_pages, k_scales, v_scales, k, v, page_idx,
+                  slot_idx):
+    for name, x in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("k_scales", k_scales), ("v_scales", v_scales)):
+        if not x.is_contiguous():
+            raise ValueError(f"kv_quantize_write: {name} must be contiguous "
+                             "on CUDA (the kernel writes the pool in place)")
+    page_idx, slot_idx = page_idx.contiguous(), slot_idx.contiguous()
+    n, h, d = k.shape
+    n_pool, page_size = k_pages.shape[:2]
+    with torch.cuda.device(k.device):
+        stream = torch.cuda.current_stream(k.device).cuda_stream
+        _call("kv_quantize_write", k.data_ptr(), *k.stride(), v.data_ptr(),
+              *v.stride(), page_idx.data_ptr(), slot_idx.data_ptr(),
+              k_pages.data_ptr(), v_pages.data_ptr(), k_scales.data_ptr(),
+              v_scales.data_ptr(), n, h, d, n_pool, page_size,
+              _Q_DTYPES[k.dtype], stream)
+    kv_quantize_write.launches += 1
+
+
+def kv_quantize_write(k_pages, v_pages, k_scales, v_scales, k, v, page_idx,
+                      slot_idx):
+    """Quantize one layer's K and V rows (N, H, D) as :func:`kv_quantize`
+    does and write them, in place, into the int8 pages (P, page_size, H,
+    D) at (page_idx, slot_idx) (int64 (N,)), their f32 scales into
+    ``k_scales``/``v_scales`` (P, page_size, H). k and v are read through
+    their strides (the qkv projection's views), in f32, bf16 or f16. A CUDA
+    tensor launches ``csrc/kv_quantize_write.cu`` (one launch for K and V,
+    bitwise equal to the plain version) or raises; a CPU tensor takes
+    :func:`kv_quantize_write_reference`. Where two rows name the same
+    (page, slot), either may win; a row outside the pool is dropped by the
+    kernel (``index_put_`` raises on it)."""
+    _check_write(k_pages, v_pages, k_scales, v_scales, k, v, page_idx,
+                 slot_idx)
+    if k.device.type == "cuda":
+        _launch_write(k_pages, v_pages, k_scales, v_scales, k, v, page_idx,
+                      slot_idx)
+    elif k.device.type == "cpu":
+        kv_quantize_write_reference(k_pages, v_pages, k_scales, v_scales, k,
+                                    v, page_idx, slot_idx)
+    else:
+        raise ValueError(f"kv_quantize_write: unsupported device {k.device}")
+
+
+kv_quantize_write.launches = 0

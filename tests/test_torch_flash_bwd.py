@@ -239,7 +239,8 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     users, changed = _edit_header(tmp_path, monkeypatch, "hopper.cuh")
     assert users == {"flash_attn_fwd_tc", "flash_attn_bwd_tc",
                      "flash_attn_fwd_tf32x3", "flash_attn_bwd_tf32x3",
-                     "conv3x3_bn_stats_tc", "conv3x3_bn_stats_tf32x3"}
+                     "conv3x3_bn_stats_tc", "conv3x3_bn_stats_tf32x3",
+                     "paged_decode_attn_int8"}
     assert changed == users
 
 
@@ -251,6 +252,16 @@ def test_build_digest_covers_the_shared_statistics_header(tmp_path,
     users, changed = _edit_header(tmp_path, monkeypatch, "bn_stats.cuh")
     assert users == {"conv3x3_bn_stats", "conv3x3_bn_stats_tc",
                      "conv3x3_bn_stats_tf32x3"}
+    assert changed == users
+
+
+def test_build_digest_covers_the_decode_combine_header(tmp_path,
+                                                       monkeypatch):
+    """csrc/decode_combine.cuh (K4's fixed-order combine) is included by
+    K4's two split sources, and editing it rebuilds those two alone."""
+    users, changed = _edit_header(tmp_path, monkeypatch,
+                                  "decode_combine.cuh")
+    assert users == {"paged_decode_attn", "paged_decode_attn_int8"}
     assert changed == users
 
 

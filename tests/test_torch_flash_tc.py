@@ -92,6 +92,19 @@ def test_tma_strides_ignore_size_one_dims():
     assert kernels._tma_strides(y) == (12 * 16 * 192, 16 * 192, 192)
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread while the test runs. Two calls of the plain
+    version on the same values must then take the same arithmetic path: a
+    worker loaded by other processes or by other threads of its own process
+    can no longer split a product's work differently between them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("causal,qo,ko", [(True, 0, 0), (False, 0, 0),
                                           (True, 64, 0), (True, 0, 64)],
                          ids=["causal", "non_causal", "q_offset_64",
