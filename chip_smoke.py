@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --quick    # build + kernel checks (phase b) only
+    python3 chip_smoke.py --multirank-only   # build + phase o (4 ranks)
 
 Phases, each failing loudly with a non-zero exit:
 
@@ -149,7 +150,31 @@ Phases, each failing loudly with a non-zero exit:
       an fp32 copy of the
       model with fp32 KV: 4 prompts x 32 greedy tokens, every step's
       logits within 1e-3 of max|logits| of the flat forward's on the
-      generated sequence.
+      generated sequence;
+  (o) training over several ranks on this one card: 4 rank processes
+      (torch.multiprocessing, spawn) over a gloo group -- one card holds
+      one NCCL rank -- with MXNET_TPU_TORCH_CAPTURE=0 (a CUDA graph cannot
+      hold a host-staged collective); the one-rank references run first,
+      here, and reach the ranks through files in _multirank/. (o1) the
+      ring over {"sp": 4} at (2, 12, 4096, 64), bf16 (route "tc") and
+      fp32 ("tf32x3"), causal and full: O, lse, dq, dk, dv against one
+      whole-sequence K1 / K2 call (2e-2 / 1e-4 of max|ref|), 4 K1 and 4
+      K2 launches a rank on the named route, none plain, the staged
+      bytes; every hop's K1 and K2 timed alone beside the whole-sequence
+      call; (o2) phase h's LM (bf16 over fp32 masters, Adam) through
+      ShardedTrainer over {"dp": 4}, 2 rows a rank: loss and gradients
+      against the one-rank step (1e-2, 5e-2 of max|grad|), the weights
+      after one step within 5e-2 of max|grad|, 10 steps losing >= 0.5,
+      12 K1 + 12 K2 launches a step, step ms (eager, gloo); (o3) the same
+      over {"dp": 2, "fsdp": 2} with SpecLayout's rules, and the bytes a
+      rank holds; (o4) TransformerLM(impl='ring') over {"sp": 4}, 256
+      tokens a rank, loss and gradients against impl='flash' on one rank
+      (3e-2, 5e-2), without and with remat (K1 launched twice a hop);
+      (o5) phase j's ResNet-50 over {"dp": 4}, 64 images a rank, 2 steps
+      against the one-rank steps at 256 (losses within 2^-8, running
+      statistics within 1e-2: BatchNorm's statistics are the global
+      batch's). A rank that fails, or ranks that do not finish within
+      MR_JOIN_S, fail the phase.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. ``--summary PATH`` also writes the
@@ -4242,12 +4267,739 @@ def decode_phase(torch, mx, kernels):
     return runs
 
 
+# ------------------------------------------------------------------ phase o
+# training over several ranks on one card: 4 rank processes over a gloo
+# group (one H100 holds one NCCL rank only), the capture kill switch on
+# (a CUDA graph cannot hold a host-staged collective)
+MR_RANKS = 4
+MR_BACKEND = "gloo"
+MR_JOIN_S = 900                 # the whole of phase o's rank processes
+MR_DIR = os.path.join(ROOT, "_multirank")   # gitignored: references, results
+RING_SHAPE = (2, 12, 4096, 64)  # (B, H, T global, D): 1024 rows a rank
+# the ring against one K1 / K2 call over the whole sequence, max|a - b| /
+# max|ref|: bf16 O and gradients round to 2^-8 at other places (the hops'
+# merge and the f32 dq / dk / dv sums are the ring's own), fp32 (3xTF32)
+# differs by f32 sums in other orders
+RING_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+RING_ROUTE = {"bfloat16": "tc", "float32": "tf32x3"}
+# o2 / o3 against the one-rank step on the same batch. In bf16 a gradient
+# depends on how the batch is split: LayerNorm's gamma and beta gradients
+# are sums over every token that cancel, and each rank (or microbatch)
+# rounds its partial sum to bf16. One rank's own step split into 4
+# microbatches of 2 rows moves them by 3-6 % of max|grad| at 2 layers and
+# T=256 (CPU, bf16), 1e-6 in fp32, and by 15 % at full size (the card,
+# PR 13's first phase-o call). So the ranks are held to the one-rank step
+# split as they split the batch (microbatches=4: the same 2-row slices),
+# where only the fp32 sum's order differs, within phase i's tolerances
+# (loss 1e-2, every gradient 5e-2 of its max|grad|; the weights after one
+# step within 5e-2 of the largest gradient); and to the unsplit one-rank
+# step within 5e-2, or, for a gradient that the split alone moves
+# further, MR_SPLIT_FACTOR times that move plus 1e-3 (as phase k holds K3
+# to the unfused path's own error).
+MR_LOSS_TOL, MR_GRAD_TOL, MR_SPLIT_FACTOR = 1e-2, 5e-2, 2.0
+# o4 (sp, ring attention) in bf16 against the unsplit one-rank flash
+# step: loss 3e-2, each gradient the bound above; in fp32 (K1 / K2 on
+# "tf32x3") loss 1e-5 and every gradient 1e-4 of max|grad| (f32 sums in
+# other orders)
+SP_LOSS_TOL, SP32_LOSS_TOL, SP32_GRAD_TOL = 3e-2, 1e-5, 1e-4
+# o5's running statistics against the one-rank step's, max|a - b| /
+# max(1, max|ref|) a tensor (test_torch_parallel.py's scale: a running
+# mean starts at 0 and moves by 0.1 of a batch mean, so channels whose
+# mean is near 0 hold nothing but rounding). After the first step (the
+# same weights on both sides) both hold the 256-image batch's moments,
+# which differ only by the convs' rounding and f32 sums in other orders:
+# within MR_BN_TOL, and both losses within phase j's 2^-8. A per-rank
+# BatchNorm holds its 64 images' moments instead, whose two-class mix
+# differs from the batch's: the same first step with the moments left per
+# rank (the control) must miss the statistics' bound, and its loss is
+# printed beside phase j's (on the CPU, 4 ranks of 8 images at 64x64: the
+# control's loss 2.8e-2 and statistics 0.33 off, the synchronized step's
+# 4e-7 and 7.5e-6). The
+# second step carries the first update, which at initialization is
+# ill-conditioned (BatchNorm's beta gradients cancel: one rank's own fp32
+# step moves them by up to 11 % of their largest value when the batch's
+# rows are only permuted), so its statistics are printed, not gated.
+MR_BN_TOL = 1e-3
+
+
+def _trim_qkv_bias(name, g):
+    """Without the key third of attn_qkv_bias, whose true gradient is 0
+    (phase i)."""
+    if name.endswith("attn_qkv_bias"):
+        return g[[i for i in range(3 * UNITS)
+                  if not UNITS <= i < 2 * UNITS]]
+    return g
+
+
+def _worst_grad(grads, ref):
+    """(worst max|a - b| / max|b| over the parameters, its name)."""
+    return max((rel_err(_trim_qkv_bias(n, grads[n]),
+                        _trim_qkv_bias(n, ref[n].to(grads[n].device))), n)
+               for n in ref)
+
+
+def _held_bytes(trainer):
+    import torch
+
+    opt = 0
+    for v in trainer.opt_state["state"].values():
+        for t in ([v] if isinstance(v, torch.Tensor) else list(v)):
+            opt += t.numel() * t.element_size()
+    return (sum(v.numel() * v.element_size()
+                for v in trainer.params.values()), opt)
+
+
+def _lm_net(torch, mx, impl="flash", mesh=None, remat=None):
+    """Phase h's LM at full width and depth, Xavier from generator seed 0
+    on the card: the same weights in every process."""
+    from mxnet_tpu_torch.gluon.model_zoo import transformer
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    net = transformer.transformer_lm(
+        vocab=VOCAB, units=UNITS, num_heads=HEADS, num_layers=LAYERS,
+        max_len=T, impl=impl, mesh=mesh, remat=remat, prefix="tlm_")
+    net.initialize(mx.init.Xavier(), generator=gen)
+    return net
+
+
+def _resnet_net(torch, mx):
+    """Phase j's ResNet-50 with phase j's seeded weights, under a fixed
+    prefix (an automatic one counts the nets a process built before)."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    net = vision.resnet50_v1(layout="NHWC", stem="s2d", classes=1000,
+                             prefix="resnet_")
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), generator=gen)
+    return net
+
+
+def _checksum(torch, net):
+    return float(sum(p.data().double().sum().item()
+                     for p in net._param_objects().values()))
+
+
+def multirank_references(torch, mx, kernels):
+    """The one-rank references of phase o, each run once here, before the
+    ranks start, and left in MR_DIR for them: the whole-sequence K1 / K2
+    calls of o1 (each rank's rows of them), the one-rank LM step of o2-o4
+    (bf16 over fp32 masters, Adam, phase h's batch: loss and gradients at
+    the seeded weights, then the weights after one step) and the one-rank
+    ResNet-50 steps of o5 (phase j's recipe, 2 steps at 256: losses and
+    running statistics). Returns the whole-sequence calls' device ms."""
+    import shutil
+
+    shutil.rmtree(MR_DIR, ignore_errors=True)
+    os.makedirs(MR_DIR)
+    b, h, t, d = RING_SHAPE
+    rows = t // MR_RANKS
+    whole = {}
+    for dtype in ("bfloat16", "float32"):
+        for causal in (True, False):
+            gen = torch.Generator(device="cuda").manual_seed(13)
+            q, k, v, dout = (torch.randn(RING_SHAPE, generator=gen,
+                                         device="cuda").to(
+                getattr(torch, dtype)) for _ in range(4))
+            out, lse = kernels.flash_attention(q, k, v, causal=causal,
+                                               return_lse=True)
+            dq, dk, dv = kernels.flash_attention_backward(
+                q, k, v, out, lse, dout, causal=causal)
+            if causal:
+                whole[dtype] = {
+                    "k1_ms": device_ms(lambda: kernels.flash_attention(
+                        q, k, v, causal=True, return_lse=True)),
+                    "k2_ms": device_ms(
+                        lambda: kernels.flash_attention_backward(
+                            q, k, v, out, lse, dout, causal=True))}
+            full = {"q": q, "k": k, "v": v, "dout": dout, "out": out,
+                    "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+            for r in range(MR_RANKS):
+                torch.save({n: x[:, :, r * rows:(r + 1) * rows].contiguous()
+                            .cpu() for n, x in full.items()},
+                           os.path.join(MR_DIR, f"o1_{dtype}_{causal}_r{r}"
+                                                ".pt"))
+            del q, k, v, dout, out, lse, dq, dk, dv, full
+    log(f"[o] references: whole-sequence K1 + K2 at {RING_SHAPE}, causal, "
+        f"device ms: bf16 {whole['bfloat16']['k1_ms']:.4f} + "
+        f"{whole['bfloat16']['k2_ms']:.4f}, fp32 "
+        f"{whole['float32']['k1_ms']:.4f} + {whole['float32']['k2_ms']:.4f}")
+
+    with kill_switch():
+        x, y = lm_batch(torch, BATCH, T, VOCAB)
+        ref = {}
+        for dtype in ("bfloat16", "float32"):
+            net = _lm_net(torch, mx)
+            ref["checksum"] = _checksum(torch, net)
+            tr = mx.parallel.ShardedTrainer(
+                net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+                {"learning_rate": LR}, dtype=dtype)
+            loss, grads = tr.loss_and_grads(x, y)
+            ref[dtype] = {"loss": loss.item(),
+                          "grads": {n: g.cpu() for n, g in grads.items()}}
+            if dtype == "bfloat16":
+                loss4, grads4 = tr.loss_and_grads(x, y, microbatches=4)
+                split = {n: rel_err(grads4[n], grads[n]) for n in grads}
+                tr.step(x, y, microbatches=4)
+                ref["split"] = {
+                    "loss": loss4.item(), "split_err": split,
+                    "grads": {n: g.cpu() for n, g in grads4.items()},
+                    "params": {n: p.cpu() for n, p in tr.params.items()}}
+                worst = max((v, n) for n, v in split.items())
+                log(f"[o] references: the one-rank LM step (B={BATCH}, "
+                    f"T={T}, Adam) in bf16: loss {loss.item():.5f}; split "
+                    f"into 4 microbatches of {BATCH // 4} rows: loss "
+                    f"{loss4.item():.5f}, gradients up to {worst[0]:.2e} of "
+                    f"max|grad| from the unsplit step ({worst[1]})")
+            else:
+                log(f"[o] references: the one-rank LM step in fp32: loss "
+                    f"{loss.item():.5f}")
+            del net, tr, grads
+            torch.cuda.empty_cache()
+        torch.save(ref, os.path.join(MR_DIR, "lm_ref.pt"))
+        del ref
+
+        net = _resnet_net(torch, mx)
+        checksum = _checksum(torch, net)
+        tr = mx.parallel.ShardedTrainer(
+            net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            dict(RESNET_OPT), dtype="bfloat16")
+        x, y = imagenet_batch(torch, RESNET_BATCH)
+        losses, aux = [], []
+        for _ in range(2):
+            losses.append(tr.step(x, y).item())
+            aux.append({n: a.to("cpu", copy=True) for n, a in tr.aux.items()})
+        torch.save({"checksum": checksum, "losses": losses, "aux": aux},
+                   os.path.join(MR_DIR, "resnet_ref.pt"))
+        log(f"[o] references: one-rank ResNet-50 steps (batch "
+            f"{RESNET_BATCH}, bf16, SGD): losses {losses}")
+        del net, tr, x, y
+        torch.cuda.empty_cache()
+    return whole
+
+
+def _ring_alone(torch, kernels, parallel, rank):
+    """o1: the ring over {"sp": 4} at RING_SHAPE, bf16 and fp32, causal
+    and full, against the whole-sequence calls; then, on rank 0 while the
+    others wait, every hop's K1 and K2 of every rank timed alone."""
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch.parallel import collectives, ring
+
+    mesh = parallel.create_mesh({"sp": MR_RANKS})
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        route = RING_ROUTE[dtype]
+        for causal in (True, False):
+            ref = torch.load(os.path.join(
+                MR_DIR, f"o1_{dtype}_{causal}_r{rank}.pt"),
+                map_location="cuda")
+            q, k, v = (ref[n].clone().requires_grad_() for n in "qkv")
+            zero_counts(kernels)
+            ring.reset_stats()
+            collectives.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o, lse = parallel.ring_attention_inner(
+                q, k, v, mesh, "sp", causal=causal, impl="flash",
+                return_lse=True)
+            o.backward(ref["dout"])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            errs = {"out": rel_err(o, ref["out"]),
+                    "lse": rel_err(lse, ref["lse"]),
+                    "dq": rel_err(q.grad, ref["dq"]),
+                    "dk": rel_err(k.grad, ref["dk"]),
+                    "dv": rel_err(v.grad, ref["dv"])}
+            st, cs = ring.stats(), collectives.stats()
+            k1 = dict(kernels.flash_attention.launches_by_route)
+            k2 = dict(kernels.flash_attention_backward.launches_by_route)
+            want = {r: (MR_RANKS if r == route else 0) for r in k1}
+            ok = (max(errs.values()) <= RING_TOL[dtype] and k1 == want
+                  and k2 == want and st["k1"]["plain"] == 0
+                  and st["k2"]["plain"] == 0)
+            log(f"[o1] rank {rank} {dtype} {'causal' if causal else 'full'}"
+                f": O {errs['out']:.2e}, lse {errs['lse']:.2e}, dq "
+                f"{errs['dq']:.2e}, dk {errs['dk']:.2e}, dv {errs['dv']:.2e}"
+                f" of max|whole-sequence call| (tol {RING_TOL[dtype]:g}); K1"
+                f" {k1}, K2 {k2} (want {MR_RANKS} on {route!r}, none plain);"
+                f" {wall:.1f} ms wall (host clock); {cs['calls']} "
+                f"collectives, {cs['staged_bytes']} bytes staged through "
+                f"host buffers in {cs['seconds'] * 1e3:.1f} ms "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"phase o1: rank {rank}'s {dtype} ring "
+                                   "disagrees with the whole-sequence call")
+            out[f"{dtype}_{'causal' if causal else 'full'}"] = {
+                "errors": errs, "k1_launches_by_route": k1,
+                "k2_launches_by_route": k2, "wall_ms": wall,
+                "collective_calls": cs["calls"],
+                "staged_bytes": cs["staged_bytes"],
+                "collective_s": cs["seconds"]}
+            del q, k, v, o, lse, ref
+    dist.barrier()
+    if rank == 0:
+        out["device_ms"] = _ring_device_ms(torch, kernels)
+    dist.barrier()
+    return out
+
+
+def _ring_device_ms(torch, kernels):
+    """Every hop's K1 and K2 of every rank, causal, timed alone (device
+    time), and the hops' merge: the ring's compute, summed over the ranks
+    and for the busiest rank (the last: every hop sees keys)."""
+    b, h, t, d = RING_SHAPE
+    rows = t // MR_RANKS
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        parts = [torch.load(os.path.join(MR_DIR, f"o1_{dtype}_True_r{r}.pt"),
+                            map_location="cuda") for r in range(MR_RANKS)]
+        per_rank = []
+        for my in range(MR_RANKS):
+            q, o, lse, dout = (parts[my][n] for n in ("q", "out", "lse",
+                                                      "dout"))
+            ms = 0.0
+            for i in range(MR_RANKS):
+                src = (my - i) % MR_RANKS
+                k, v = parts[src]["k"], parts[src]["v"]
+                ms += device_ms(lambda: kernels.flash_attention(
+                    q, k, v, causal=True, return_lse=True,
+                    q_offset=my * rows, k_offset=src * rows), n=10)
+                ms += device_ms(lambda: kernels.flash_attention_backward(
+                    q, k, v, o, lse, dout, causal=True, q_offset=my * rows,
+                    k_offset=src * rows), n=10)
+            per_rank.append(ms)
+        out[dtype] = {"total_ms": sum(per_rank), "per_rank_ms": per_rank,
+                      "busiest_rank_ms": max(per_rank)}
+        del parts
+    return out
+
+
+def _same_on_every_rank(torch, tensors):
+    """Whether every rank holds bitwise the same ``tensors`` (a float64
+    checksum of their values, gathered)."""
+    import torch.distributed as dist
+
+    s = torch.tensor([sum(t.double().sum().item() for t in tensors)],
+                     dtype=torch.float64, device="cuda")
+    got = [torch.empty_like(s) for _ in range(dist.get_world_size())]
+    dist.all_gather(got, s)
+    return all(torch.equal(g, got[0]) for g in got)
+
+
+def _against_unsplit(grads, ref):
+    """(worst ratio of a gradient's error against the unsplit one-rank
+    bf16 step to its bound, the error, the name): the bound is MR_GRAD_TOL
+    or, where the one-rank step's own batch split moves that gradient
+    further, MR_SPLIT_FACTOR times that move plus 1e-3."""
+    split = ref["split"]["split_err"]
+    out = []
+    for n in grads:
+        err = rel_err(_trim_qkv_bias(n, grads[n]), _trim_qkv_bias(
+            n, ref["bfloat16"]["grads"][n].cuda()))
+        bound = max(MR_GRAD_TOL, MR_SPLIT_FACTOR * split[n] + 1e-3)
+        out.append((err / bound, err, n))
+    return max(out)
+
+
+def _lm_parallel(torch, mx, kernels, parallel, rank, ref, axes, rules):
+    """o2 / o3: the LM over ``axes`` (batch axes: all of them), 2 rows a
+    rank: the gradients at the seeded weights and the weights after one
+    step against the one-rank step (rank 0 checks; every rank must hold the
+    same weights), then steps to 10 timed; the bytes a rank holds."""
+    from mxnet_tpu_torch.parallel import collectives
+
+    mesh = parallel.create_mesh(axes)
+    net = _lm_net(torch, mx)
+    checksum = _checksum(torch, net)
+    lay = parallel.SpecLayout.for_mesh(mesh)
+    tr = parallel.ShardedTrainer.for_multihost(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+        {"learning_rate": LR}, axes=axes, backend=MR_BACKEND,
+        dtype="bfloat16", param_rules=lay.param_rules() if rules else (),
+        batch_axis_name=lay.batch_axes())
+    x, y = lm_batch(torch, BATCH, T, VOCAB)
+    per = BATCH // mesh.size
+    me = mesh.axis_index(lay.batch_axes())
+    xr, yr = x[me * per:(me + 1) * per], y[me * per:(me + 1) * per]
+    # with capture on, a multi-rank step on the card must refuse to run
+    # (a CUDA graph cannot hold a host-staged collective), not go eager
+    os.environ["MXNET_TPU_TORCH_CAPTURE"] = "1"
+    try:
+        tr.step(xr, yr)
+        refused = "ran"
+    except mx.capture.CaptureError as e:
+        refused = str(e)
+    finally:
+        os.environ["MXNET_TPU_TORCH_CAPTURE"] = "0"
+    if not refused.startswith("ShardedTrainer: a step over"):
+        raise RuntimeError(f"phase o: rank {rank}'s step with capture on "
+                           f"did not raise CaptureError ({refused})")
+    loss, grads = tr.loss_and_grads(xr, yr)
+    out = {"loss": loss.item(), "capture_refused": refused}
+    if rank == 0:
+        split = ref["split"]
+        out["loss_rel_err"] = abs(loss.item() - split["loss"]) / abs(
+            split["loss"])
+        out["worst_grad"] = _worst_grad(grads, split["grads"])
+        out["unsplit"] = _against_unsplit(grads, ref)
+    del grads
+    losses, step_ms, per_step, staged = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        zero_counts(kernels)
+        collectives.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(tr.step(xr, yr).item())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append((dict(kernels.flash_attention.launches_by_route),
+                         dict(kernels.flash_attention_backward
+                              .launches_by_route)))
+        staged.append(collectives.stats())
+        if i == 0:
+            full = tr._full(tr.params)
+            same = _same_on_every_rank(torch, list(full.values()))
+            if rank == 0:
+                scale = max(g.abs().max().item()
+                            for g in ref["split"]["grads"].values())
+                p_err = max((full[n] - ref["split"]["params"][n].cuda())
+                            .abs().max().item() for n in full)
+            del full
+    held = _held_bytes(tr)
+    timed = sorted(step_ms[1:])
+    median = timed[len(timed) // 2]
+    want = {"tc": LAYERS, "tf32x3": 0, "simt": 0}
+    drop = losses[0] - losses[-1]
+    ok = (checksum == ref["checksum"] and same
+          and all(math.isfinite(v) for v in losses) and drop >= 0.5
+          and all(a == b == want for a, b in per_step))
+    name = "o2" if not rules else "o3"
+    if rank == 0:
+        ok = ok and (out["loss_rel_err"] <= MR_LOSS_TOL
+                     and out["worst_grad"][0] <= MR_GRAD_TOL
+                     and out["unsplit"][0] <= 1
+                     and p_err <= MR_GRAD_TOL * scale)
+        log(f"[{name}] {axes}, {per} rows a rank: loss {loss.item():.5f}; "
+            f"against the one-rank step split into the same 2-row slices "
+            f"(microbatches=4): loss rel {out['loss_rel_err']:.2e} (tol "
+            f"{MR_LOSS_TOL:g}), worst gradient {out['worst_grad'][0]:.2e} "
+            f"of max|grad| in {out['worst_grad'][1]} (tol "
+            f"{MR_GRAD_TOL:g}), weights after one step max|diff| "
+            f"{p_err:.3e} (tol {MR_GRAD_TOL:g} x max|grad| {scale:.3e}); "
+            f"against the unsplit one-rank step: at most "
+            f"{out['unsplit'][0]:.2f} of the bound ({out['unsplit'][1]:.2e}"
+            f" in {out['unsplit'][2]}; bound {MR_GRAD_TOL:g}, or "
+            f"{MR_SPLIT_FACTOR:g} x the one-rank split's own move + 1e-3 "
+            f"where larger); with capture on the step raised CaptureError: "
+            f"{refused!r} {'ok' if ok else 'FAIL'}")
+        out.update(param_max_abs_diff=p_err, param_tol=MR_GRAD_TOL * scale)
+    log(f"[{name}] rank {rank}: seeded weights equal the reference's "
+        f"({checksum == ref['checksum']}), every rank's weights equal after "
+        f"a step ({same}); {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (drop {drop:.4f}, want >= 0.5); K1 / K2 a step "
+        f"{per_step[-1][0]} / {per_step[-1][1]}; median step {median:.1f} "
+        f"ms (host clock; eager: the kill switch; collectives over "
+        f"{MR_BACKEND}, which copies CUDA tensors through host memory); a "
+        f"step: {staged[-1]['calls']} collectives, {staged[-1]['bytes']} "
+        f"bytes, {staged[-1]['staged_bytes']} through host memory, "
+        f"{staged[-1]['seconds'] * 1e3:.1f} ms in them; held: parameters "
+        f"{held[0]} bytes, optimizer state {held[1]} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"phase {name}: rank {rank} disagrees with the "
+                           "one-rank step or failed its checks")
+    del tr, net
+    torch.cuda.empty_cache()
+    out.update(losses=losses, step_ms=step_ms, median_step_ms=median,
+               tokens_per_s=BATCH * T / (median / 1e3),
+               k1_launches_per_step=per_step[-1][0],
+               k2_launches_per_step=per_step[-1][1],
+               collectives_per_step=staged[-1], param_bytes=held[0],
+               opt_bytes=held[1])
+    return out
+
+
+def _lm_ring(torch, mx, kernels, parallel, rank, ref):
+    """o4: TransformerLM(impl='ring') over {"sp": 4}, every row, 256
+    tokens a rank, against the one-rank impl='flash' loss and gradients:
+    bf16 (route "tc") without remat and with it, then fp32 ("tf32x3")."""
+    from mxnet_tpu_torch.parallel import collectives, ring
+
+    mesh = parallel.create_mesh({"sp": MR_RANKS})
+    x, y = lm_batch(torch, BATCH, T, VOCAB)
+    per = T // MR_RANKS
+    xr, yr = x[:, rank * per:(rank + 1) * per], y[:, rank * per:(rank + 1)
+                                                   * per]
+    out = {}
+    for dtype, remat in (("bfloat16", None), ("bfloat16", True),
+                         ("float32", None)):
+        route = RING_ROUTE[dtype]
+        net = _lm_net(torch, mx, impl="ring", mesh=mesh, remat=remat)
+        tr = parallel.ShardedTrainer(
+            net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+            {"learning_rate": LR}, mesh=mesh, dtype=dtype)
+        tr.loss_and_grads(xr, yr)           # warm-up
+        zero_counts(kernels)
+        ring.reset_stats()
+        collectives.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = tr.loss_and_grads(xr, yr)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        k1 = dict(kernels.flash_attention.launches_by_route)
+        k2 = dict(kernels.flash_attention_backward.launches_by_route)
+        hops = MR_RANKS * LAYERS
+        want1 = {r: (hops * (2 if remat else 1) if r == route else 0)
+                 for r in k1}
+        want2 = {r: (hops if r == route else 0) for r in k2}
+        st, cs = ring.stats(), collectives.stats()
+        same = _same_on_every_rank(torch, list(grads.values()))
+        ok = (k1 == want1 and k2 == want2 and st["k1"]["plain"] == 0
+              and st["k2"]["plain"] == 0 and same)
+        res = {"loss": loss.item(), "k1_launches_by_route": k1,
+               "k2_launches_by_route": k2, "ms": ms, "collectives": cs}
+        if rank == 0:
+            want = ref[dtype]
+            loss_err = abs(loss.item() - want["loss"]) / abs(want["loss"])
+            worst = _worst_grad(grads, want["grads"])
+            if dtype == "bfloat16":
+                unsplit = _against_unsplit(grads, ref)
+                ok = ok and loss_err <= SP_LOSS_TOL and unsplit[0] <= 1
+                verdict = (f"at most {unsplit[0]:.2f} of the bound, "
+                           f"{unsplit[1]:.2e} in {unsplit[2]}: "
+                           f"{MR_GRAD_TOL:g}, or {MR_SPLIT_FACTOR:g} x the "
+                           "one-rank batch split's own move + 1e-3 where "
+                           f"larger; loss tol {SP_LOSS_TOL:g}")
+                res["unsplit"] = unsplit
+            else:
+                ok = ok and loss_err <= SP32_LOSS_TOL and \
+                    worst[0] <= SP32_GRAD_TOL
+                verdict = (f"tol {SP32_GRAD_TOL:g}; loss tol "
+                           f"{SP32_LOSS_TOL:g}")
+            res.update(loss_rel_err=loss_err, worst_grad=worst)
+            log(f"[o4] {{'sp': {MR_RANKS}}} impl='ring' {dtype} remat="
+                f"{remat}: loss {loss.item():.5f} vs one-rank flash "
+                f"{want['loss']:.5f} (rel {loss_err:.2e}); worst gradient "
+                f"{worst[0]:.2e} of max|grad| in {worst[1]} ({verdict}) "
+                f"{'ok' if ok else 'FAIL'}")
+        log(f"[o4] rank {rank} {dtype} remat={remat}: K1 {k1} (want "
+            f"{want1}), K2 {k2} (want {want2}); the ranks' gradients equal "
+            f"({same}); forward + backward {ms:.1f} ms (host clock, eager); "
+            f"{cs['calls']} collectives, {cs['staged_bytes']} bytes through "
+            f"host memory, {cs['seconds'] * 1e3:.1f} ms in them "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"phase o4: rank {rank}'s ring LM ({dtype}, "
+                               f"remat={remat}) failed its checks")
+        out[f"{dtype}{'_remat' if remat else ''}"] = res
+        del tr, net, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def _stat_err(got, ref):
+    """max|got - ref| / max(1, max|ref|) of a running statistic."""
+    ref = ref.to(got.device).float()
+    return (got.float() - ref).abs().max().item() / max(
+        1.0, ref.abs().max().item())
+
+
+def _resnet_dp(torch, mx, kernels, parallel, rank, ref):
+    """o5: ResNet-50 over {"dp": 4}, 64 images a rank, 2 steps of phase j's
+    recipe against the one-rank steps at 256 (BatchNorm's statistics over
+    the 256 images); then the control, one step with BatchNorm's moments
+    left per rank, which must miss the bounds."""
+    from mxnet_tpu_torch.parallel import collectives
+    from mxnet_tpu_torch.parallel.functional import functional_call
+
+    mesh = parallel.create_mesh({"dp": MR_RANKS})
+    x, y = imagenet_batch(torch, RESNET_BATCH)
+    per = RESNET_BATCH // MR_RANKS
+    xr, yr = (x[rank * per:(rank + 1) * per].clone(),
+              y[rank * per:(rank + 1) * per].clone())
+    del x, y
+
+    def trainer():
+        net = _resnet_net(torch, mx)
+        return net, parallel.ShardedTrainer(
+            net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            dict(RESNET_OPT), mesh=mesh, dtype="bfloat16")
+
+    net, tr = trainer()
+    checksum = _checksum(torch, net)
+    losses, step_ms, bn_err = [], [], []
+    for i in range(2):
+        collectives.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(tr.step(xr, yr).item())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        bn_err.append(max((_stat_err(tr.aux[n], ref["aux"][i][n]), n)
+                          for n in ref["aux"][i]))
+    cs = collectives.stats()
+    same = _same_on_every_rank(torch, list(tr.aux.values())
+                               + list(tr.params.values()))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                       ref["losses"]))
+    del tr, net
+    torch.cuda.empty_cache()
+    # the control: the trainer's step with BatchNorm's moments per rank
+    net, tr = trainer()
+    tr._fwd = functional_call(net, train=True)
+    ctl_loss = tr.step(xr, yr).item()
+    ctl_err = (abs(ctl_loss - ref["losses"][0]) / abs(ref["losses"][0]),
+               max(_stat_err(tr.aux[n], a)
+                   for n, a in ref["aux"][0].items()))
+    del tr, net
+    torch.cuda.empty_cache()
+    ok = (loss_err <= RESNET_MB_TOL and bn_err[0][0] <= MR_BN_TOL and same
+          and checksum == ref["checksum"] and ctl_err[1] > MR_BN_TOL)
+    log(f"[o5] rank {rank} {{'dp': {MR_RANKS}}} ResNet-50 bf16, {per} "
+        f"images a rank: losses {losses} vs one-rank at {RESNET_BATCH} "
+        f"{ref['losses']} (worst rel {loss_err:.2e}, tol "
+        f"{RESNET_MB_TOL:.2e}: phase j's); running statistics worst "
+        f"{bn_err[0][0]:.2e} of max(1, max|ref|) after step 1 "
+        f"({bn_err[0][1]}; tol {MR_BN_TOL:g}), {bn_err[1][0]:.2e} after "
+        f"step 2 ({bn_err[1][1]}; not gated); the control with per-rank "
+        f"BatchNorm: first loss rel {ctl_err[0]:.2e} (phase j's bound "
+        f"{'missed' if ctl_err[0] > RESNET_MB_TOL else 'met'}), statistics"
+        f" {ctl_err[1]:.2e} (must miss {MR_BN_TOL:g}); every rank the same "
+        f"weights "
+        f"and statistics ({same}); steps {step_ms[0]:.1f}, "
+        f"{step_ms[1]:.1f} ms (host clock, eager); a step: {cs['calls']} "
+        f"collectives, {cs['bytes']} bytes, {cs['staged_bytes']} through "
+        f"host memory, {cs['seconds'] * 1e3:.1f} ms in them "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"phase o5: rank {rank}'s ResNet-50 steps "
+                           "disagree with the one-rank steps, or the "
+                           "per-rank control met the bounds")
+    return {"losses": losses, "loss_rel_err": loss_err,
+            "bn_rel_err": [e[0] for e in bn_err],
+            "bn_worst": [e[1] for e in bn_err], "control": ctl_err,
+            "step_ms": step_ms, "collectives_per_step": cs}
+
+
+def multirank_rank(rank, world):
+    """One rank of phase o (a spawned process): o1-o5 in order, results in
+    MR_DIR/rank<r>.json. Any failed check raises, which fails the phase."""
+    os.environ["MXNET_TPU_TORCH_CAPTURE"] = "0"
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.ops import kernels
+
+    dist.init_process_group(MR_BACKEND, init_method="file://" + os.path.join(
+        MR_DIR, "rendezvous"), world_size=world, rank=rank)
+    if rank == 0:
+        log(f"[o] {world} ranks on {torch.cuda.get_device_name(0)}: backend "
+            f"{dist.get_backend()!r}, MXNET_TPU_TORCH_CAPTURE="
+            f"{os.environ['MXNET_TPU_TORCH_CAPTURE']}")
+    try:
+        res = {"o1": _ring_alone(torch, kernels, parallel, rank)}
+        lm_ref = torch.load(os.path.join(MR_DIR, "lm_ref.pt"), mmap=True)
+        res["o2"] = _lm_parallel(torch, mx, kernels, parallel, rank, lm_ref,
+                                 {"dp": MR_RANKS}, rules=False)
+        res["o3"] = _lm_parallel(torch, mx, kernels, parallel, rank, lm_ref,
+                                 {"dp": 2, "fsdp": 2}, rules=True)
+        res["o4"] = _lm_ring(torch, mx, kernels, parallel, rank, lm_ref)
+        del lm_ref
+        res["o5"] = _resnet_dp(torch, mx, kernels, parallel, rank,
+                               torch.load(os.path.join(MR_DIR,
+                                                       "resnet_ref.pt"),
+                                          mmap=True))
+        with open(os.path.join(MR_DIR, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def multirank_phase(torch, mx, kernels):
+    """Phase o: the one-rank references here, then MR_RANKS rank processes
+    on this card over a gloo group (o1-o5); fails if any rank fails or the
+    ranks do not finish within MR_JOIN_S."""
+    import torch.multiprocessing as mp
+
+    torch.cuda.empty_cache()
+    whole = multirank_references(torch, mx, kernels)
+    log(f"[o] spawning {MR_RANKS} rank processes on this card: backend "
+        f"{MR_BACKEND!r} (chosen: one H100 holds one NCCL rank), "
+        f"MXNET_TPU_TORCH_CAPTURE=0 set for them (a CUDA graph cannot hold "
+        f"a host-staged collective)")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(multirank_rank, args=(MR_RANKS,),
+                             nprocs=MR_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + MR_JOIN_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise SystemExit(f"phase o: the ranks did not finish within "
+                                 f"{MR_JOIN_S} s")
+    except mp.ProcessRaisedException as e:
+        raise SystemExit(f"phase o: a rank failed:\n{e}")
+    except mp.ProcessExitedException as e:
+        raise SystemExit(f"phase o: a rank exited: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(MR_RANKS):
+        with open(os.path.join(MR_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    dev = ranks[0]["o1"]["device_ms"]
+    b, h, t, d = RING_SHAPE
+    (f1, n1), (f2, n2) = (attention_work(b, h, t, d, True, 2),
+                          attention_bwd_work(b, h, t, d, True, 2))
+    (f1_32, n1_32), (f2_32, n2_32) = (attention_work(b, h, t, d, True, 4),
+                                      attention_bwd_work(b, h, t, d, True, 4))
+    # the work the ring must do is the whole sequence's: the same visible
+    # (query, key) pairs, each input read once, each output written once
+    whole["bfloat16"]["bound"] = bound(f1 + f2, n1 + n2)
+    whole["float32"]["bound"] = bound_tf32x3(f1_32 + f2_32,
+                                             n1_32 + n2_32)[:2]
+    for dtype in ("bfloat16", "float32"):
+        w = whole[dtype]["k1_ms"] + whole[dtype]["k2_ms"]
+        log(f"[o1] the ring's K1 + K2 at {RING_SHAPE} causal, {dtype}, every "
+            f"hop timed alone (device time): {dev[dtype]['total_ms']:.4f} ms "
+            f"summed over the ranks, busiest rank "
+            f"{dev[dtype]['busiest_rank_ms']:.4f}, per rank "
+            f"{[round(v, 4) for v in dev[dtype]['per_rank_ms']]}; one "
+            f"whole-sequence K1 + K2 {w:.4f} ms; bound "
+            f"{whole[dtype]['bound'][0]:.4f} ms ({whole[dtype]['bound'][1]})")
+    o2, o3 = ranks[0]["o2"], ranks[0]["o3"]
+    log(f"[o3] a {{'dp': 2, 'fsdp': 2}} rank holds "
+        f"{o3['param_bytes'] / o2['param_bytes']:.1%} of a {{'dp': 4}} "
+        f"rank's parameter bytes and {o3['opt_bytes'] / o2['opt_bytes']:.1%}"
+        f" of its optimizer state")
+    log(f"[o] {MR_RANKS} ranks finished o1-o5 in {wall:.1f} s")
+    import shutil
+
+    shutil.rmtree(MR_DIR, ignore_errors=True)
+    return {"backend": MR_BACKEND, "ranks": MR_RANKS, "wall_s": wall,
+            "whole_sequence_ms": whole, "per_rank": ranks}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="build and run the kernel checks (phase b) only")
     ap.add_argument("--summary", metavar="PATH",
                     help="also write the measurements to PATH as JSON")
+    ap.add_argument("--multirank-only", action="store_true",
+                    help="build, then run phase o (4 ranks) only")
     args = ap.parse_args(argv)
     if args.summary:
         GRAPH_DIR.append(os.path.join(
@@ -4283,6 +5035,10 @@ def main(argv=None):
                     r"\b0 bytes spill stores, 0 bytes spill loads", usage):
                 raise SystemExit(f"phase a: {entry} spills registers")
 
+    if args.multirank_only:
+        multirank_phase(torch, mx, kernels)
+        log("[multirank-only] phase o passed; phases b-n skipped")
+        return 0
     checks, slice_err, slice_err32 = check_flash(torch, kernels)
     bwd_checks, bwd_slice_err, bwd_slice_err32 = check_flash_bwd(torch,
                                                                  kernels)
@@ -4315,6 +5071,15 @@ def main(argv=None):
     captured = capture_phase(torch, mx, kernels)
     fp32_training = train_fp32_lm(torch, mx, kernels)
     decoding = decode_phase(torch, mx, kernels)
+    multirank = multirank_phase(torch, mx, kernels)
+    rank0 = multirank["per_rank"][0]
+
+    def ring_err(dtype, parts):
+        """The ring's largest error (of max|whole-sequence call|) over the
+        ranks, causal and full, in ``parts`` of O, dq, dk, dv."""
+        return max(r["o1"][f"{dtype}_{c}"]["errors"][g]
+                   for r in multirank["per_rank"] for c in ("causal", "full")
+                   for g in parts)
 
     # K3's four launches on each main path are one per ResNet-50 shape, so
     # its totals are over the four shapes at N=32: the bf16 model's (phase
@@ -4356,7 +5121,20 @@ def main(argv=None):
         "fp32_plain_ms": timing["fp32_plain_ms"],
         "fp32_library_ms": timing["fp32_library_ms"],
         "training_launches": training["k1_launches"],
-        "training_launches_by_route": training["k1_launches_by_route"]}, {
+        "training_launches_by_route": training["k1_launches_by_route"],
+        # phase o: the ring's hops (rank 0; every rank launches as many)
+        "ring_launches_by_route": rank0["o1"]["bfloat16_causal"][
+            "k1_launches_by_route"],
+        "ring_lm_launches_by_route": rank0["o4"]["bfloat16"][
+            "k1_launches_by_route"],
+        "ring_lm_remat_launches_by_route": rank0["o4"]["bfloat16_remat"][
+            "k1_launches_by_route"],
+        "ring_max_abs_err": ring_err("bfloat16", ("out",)),
+        "ring_device_ms": rank0["o1"]["device_ms"]["bfloat16"],
+        "whole_sequence_k1_ms": multirank["whole_sequence_ms"][
+            "bfloat16"]["k1_ms"],
+        "ring_k1_k2_bound_ms": multirank["whole_sequence_ms"]["bfloat16"][
+            "bound"][0]}, {
         "name": "flash_attn_bwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_bwd_tc.cu",
         "sources": k2_sources,
@@ -4377,7 +5155,14 @@ def main(argv=None):
         "simt_ms": bwd_timing["simt_ms"],
         "fp32_ms": bwd_timing["fp32_ms"],
         "fp32_plain_ms": bwd_timing["fp32_plain_ms"],
-        "fp32_library_ms": bwd_timing["fp32_library_ms"]}, {
+        "fp32_library_ms": bwd_timing["fp32_library_ms"],
+        "ring_launches_by_route": rank0["o1"]["bfloat16_causal"][
+            "k2_launches_by_route"],
+        "ring_lm_launches_by_route": rank0["o4"]["bfloat16"][
+            "k2_launches_by_route"],
+        "ring_max_abs_err": ring_err("bfloat16", ("dq", "dk", "dv")),
+        "whole_sequence_k2_ms": multirank["whole_sequence_ms"][
+            "bfloat16"]["k2_ms"]}, {
         "name": "conv3x3_bn_stats", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/conv3x3_bn_stats_tc.cu",
         "sources": k3_sources,
@@ -4450,7 +5235,17 @@ def main(argv=None):
         "library_ms": timing["fp32_library_ms"],
         "strided_ms": timing["tf32x3_strided_ms"],
         "simt_ms": timing["simt_fp32_ms"],
-        "step_device_ms": fp32_training["profile"]["k1_ms"]}, {
+        "step_device_ms": fp32_training["profile"]["k1_ms"],
+        "ring_launches_by_route": rank0["o1"]["float32_causal"][
+            "k1_launches_by_route"],
+        "ring_lm_launches_by_route": rank0["o4"]["float32"][
+            "k1_launches_by_route"],
+        "ring_max_abs_err": ring_err("float32", ("out",)),
+        "ring_device_ms": rank0["o1"]["device_ms"]["float32"],
+        "whole_sequence_k1_ms": multirank["whole_sequence_ms"][
+            "float32"]["k1_ms"],
+        "ring_k1_k2_bound_ms": multirank["whole_sequence_ms"]["float32"][
+            "bound"][0]}, {
         "name": "flash_attn_bwd_tf32x3", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_bwd_tf32x3.cu",
         "sources": k2_sources,
@@ -4465,7 +5260,14 @@ def main(argv=None):
         "library_ms": bwd_timing["fp32_library_ms"],
         "lm_layout_ms": bwd_timing["fp32_lm_layout_ms"],
         "simt_ms": bwd_timing["simt_fp32_ms"],
-        "step_device_ms": fp32_training["profile"]["k2_ms"]}] + [{
+        "step_device_ms": fp32_training["profile"]["k2_ms"],
+        "ring_launches_by_route": rank0["o1"]["float32_causal"][
+            "k2_launches_by_route"],
+        "ring_lm_launches_by_route": rank0["o4"]["float32"][
+            "k2_launches_by_route"],
+        "ring_max_abs_err": ring_err("float32", ("dq", "dk", "dv")),
+        "whole_sequence_k2_ms": multirank["whole_sequence_ms"][
+            "float32"]["k2_ms"]}] + [{
         # phase n's paths: the decode step's 12 K4 launches (enqueued at
         # its 2 warm-up runs and its capture; replays add none), the fp32
         # pool's on csrc/paged_decode_attn.cu, the int8 pool's on route
@@ -4545,6 +5347,7 @@ def main(argv=None):
                        "decode_timing": dec_timing, "decode": decoding,
                        "write_checks": write_checks,
                        "write_timing": write_timing,
+                       "multirank": multirank,
                        **record}, f,
                       indent=1)
     log(card)

@@ -40,12 +40,14 @@ __all__ = ["TransformerBlock", "TransformerLM", "transformer_lm",
 class TransformerBlock(HybridBlock):
     """One pre-norm decoder block: causal self-attention + GELU MLP."""
 
-    def __init__(self, units, num_heads, impl="dense", **kwargs):
+    def __init__(self, units, num_heads, impl="dense", mesh=None,
+                 sp_axis="sp", **kwargs):
         super().__init__(**kwargs)
         with self.name_scope():
             self.ln1 = nn.LayerNorm(in_channels=units, prefix="ln1_")
             self.attn = contrib_nn.MultiHeadAttention(
-                units, num_heads, impl=impl, causal=True, prefix="attn_")
+                units, num_heads, impl=impl, causal=True, mesh=mesh,
+                sp_axis=sp_axis, prefix="attn_")
             self.ln2 = nn.LayerNorm(in_channels=units, prefix="ln2_")
             self.ff1 = nn.Dense(units * 4, activation="gelu",
                                 flatten=False, in_units=units,
@@ -61,21 +63,30 @@ class TransformerBlock(HybridBlock):
 class TransformerLM(HybridBlock):
     """Decoder-only LM: token+position embed -> blocks -> [norm] -> head.
 
-    Input is (B, T) token ids; output is (B, T, vocab) logits.
+    Input is (B, T) token ids; output is (B, T, vocab) logits. Under ring
+    attention (an sp axis of n > 1 ranks) the input is this rank's (B,
+    T_local) slice and the global length n * T_local is held to max_len.
     """
 
     def __init__(self, vocab, units, num_heads, num_layers, max_len=512,
-                 impl="dense", final_norm=True, **kwargs):
+                 impl="dense", mesh=None, sp_axis="sp", remat=None,
+                 final_norm=True, **kwargs):
         super().__init__(**kwargs)
         self._max_len = max_len
+        ring = impl in ("ring", "auto") and mesh is not None and \
+            mesh.shape.get(sp_axis, 1) > 1
+        self._sp = (mesh, sp_axis) if ring else None
         with self.name_scope():
             self.embed = nn.Embedding(vocab, units, prefix="embed_")
             self.pos = nn.Embedding(max_len, units, prefix="pos_")
             self.blocks = nn.HybridSequential(prefix="blocks_")
             with self.blocks.name_scope():
                 for _ in range(num_layers):
-                    self.blocks.add(TransformerBlock(units, num_heads,
-                                                     impl=impl))
+                    blk = TransformerBlock(units, num_heads, impl=impl,
+                                           mesh=mesh, sp_axis=sp_axis)
+                    if remat is not None:
+                        blk = contrib_nn.Remat(blk, policy=remat)
+                    self.blocks.add(blk)
             self.norm = nn.LayerNorm(in_channels=units, prefix="norm_") \
                 if final_norm else None
             self.head = nn.Dense(vocab, flatten=False, in_units=units,
@@ -83,10 +94,15 @@ class TransformerLM(HybridBlock):
 
     def forward(self, x):
         t = x.shape[1]
-        if t > self._max_len:
-            raise ValueError(f"sequence length {t} exceeds max_len "
+        start, total = 0, t
+        if self._sp is not None:
+            mesh, axis = self._sp
+            start = mesh.axis_index(axis) * t
+            total = mesh.axis_size(axis) * t
+        if total > self._max_len:
+            raise ValueError(f"sequence length {total} exceeds max_len "
                              f"{self._max_len}")
-        pos = _math.arange(0, t, dtype="int64", device=x.device)
+        pos = _math.arange(start, start + t, dtype="int64", device=x.device)
         h = self.embed(x) + self.pos(pos)
         h = self.blocks(h)
         if self.norm is not None:
@@ -95,11 +111,13 @@ class TransformerLM(HybridBlock):
 
 
 def transformer_lm(vocab=64, units=64, num_heads=2, num_layers=2,
-                   max_len=512, impl="dense", final_norm=True, **kwargs):
+                   max_len=512, impl="dense", mesh=None, sp_axis="sp",
+                   remat=None, final_norm=True, **kwargs):
     """Factory with the JAX package's CI-sized defaults."""
     return TransformerLM(vocab, units, num_heads, num_layers,
-                         max_len=max_len, impl=impl, final_norm=final_norm,
-                         **kwargs)
+                         max_len=max_len, impl=impl, mesh=mesh,
+                         sp_axis=sp_axis, remat=remat,
+                         final_norm=final_norm, **kwargs)
 
 
 # canonical per-block parameter suffix order (matches name_scope output)

@@ -7,10 +7,18 @@ source, the headers it includes from ``csrc/`` (``hopper.cuh``,
 ``bn_stats.cuh``, ``decode_combine.cuh``) and the flags, so an edited
 source or header is rebuilt and a stale library is never loaded. Nothing
 is built when a module is imported.
+
+Builds are serialized across processes by an exclusive ``flock`` on
+``_build/build.lock`` (the kernel drops it when its holder exits, so a
+killed build leaves no stale lock): ranks of a multi-process job that
+need the same library wait for the first build and load its result.
+Within a process a ``threading.Lock`` does the same.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -100,10 +108,22 @@ def _finish(name, proc, tmp, lib, log):
     return ctypes.CDLL(str(lib))
 
 
+@contextlib.contextmanager
+def _file_lock():
+    """The build directory's cross-process lock."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names=SOURCES):
     """Build every named kernel library, one nvcc per source, all started
     together, and load them. Returns {name: CDLL}."""
-    with _lock:
+    with _lock, _file_lock():
         todo = [n for n in names if n not in _libs]
         started = [(n, _start(n)) for n in todo]
         errors = []

@@ -10,7 +10,9 @@ memory, so the library runs its NHWC kernels with no copy, and the
 result's inverse permute is contiguous NHWC again."""
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -18,8 +20,9 @@ import torch.nn.functional as F
 from ..base import torch_dtype
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
-           "layer_norm", "activation", "leaky_relu", "softmax",
-           "log_softmax", "flatten", "scaled_dot_product_attention"]
+           "sync_batch_stats", "batch_stats_sync", "layer_norm",
+           "activation", "leaky_relu", "softmax", "log_softmax", "flatten",
+           "scaled_dot_product_attention"]
 
 _NEG = -1e30
 
@@ -147,6 +150,30 @@ def pooling(data, kernel=None, pool_type="max", global_pool=False,
     return _to_channels_last(out) if last else out
 
 
+_BN_SYNC = threading.local()
+
+
+@contextlib.contextmanager
+def sync_batch_stats(reduce_sum, ranks):
+    """Within this scope (on this thread) a training BatchNorm takes its
+    moments over a batch split across ``ranks`` ranks, each holding as
+    many rows: ``reduce_sum(t)`` returns ``t`` summed over them, with the
+    gradient of that sum. A sharded step is then, as in ``mxnet_tpu``, the
+    one-device step over the global batch, running statistics included."""
+    prev = batch_stats_sync()
+    _BN_SYNC.sync = (reduce_sum, int(ranks))
+    try:
+        yield
+    finally:
+        _BN_SYNC.sync = prev
+
+
+def batch_stats_sync():
+    """The ``(reduce_sum, ranks)`` of the :func:`sync_batch_stats` scope
+    this thread is in, or None."""
+    return getattr(_BN_SYNC, "sync", None)
+
+
 def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                momentum=0.9, fix_gamma=True, use_global_stats=False,
                axis=1, _train=True):
@@ -157,16 +184,26 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     In training (``_train`` and not ``use_global_stats``) the statistics
     are single-pass f32 moments (E[x^2] - E[x]^2, clamped at 0) and the
     moving stats take an EMA step; otherwise the moving stats are used.
-    Either way scale and shift are folded per channel in f32, cast to the
-    data's dtype, and applied in one multiply-add."""
+    Inside :func:`sync_batch_stats` the moments' sums are all-reduced over
+    the ranks first. Either way scale and shift are folded per channel in
+    f32, cast to the data's dtype, and applied in one multiply-add."""
     axis = axis if axis >= 0 else data.dim() + axis
     red = tuple(i for i in range(data.dim()) if i != axis)
     bshape = [1] * data.dim()
     bshape[axis] = data.shape[axis]
     if _train and not use_global_stats:
         x32 = data.float()
-        mean = x32.mean(dim=red)
-        var = torch.clamp_min((x32 * x32).mean(dim=red) - mean * mean, 0.0)
+        sync = batch_stats_sync()
+        if sync is None:
+            mean = x32.mean(dim=red)
+            sq = (x32 * x32).mean(dim=red)
+        else:
+            reduce_sum, ranks = sync
+            count = x32.numel() // x32.shape[axis] * ranks
+            sums = reduce_sum(torch.stack([x32.sum(dim=red),
+                                           (x32 * x32).sum(dim=red)]))
+            mean, sq = sums[0] / count, sums[1] / count
+        var = torch.clamp_min(sq - mean * mean, 0.0)
         new_mm = (moving_mean.float() * momentum
                   + mean * (1 - momentum)).to(moving_mean.dtype)
         new_mv = (moving_var.float() * momentum

@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from .. import autograd
+from ..ops import nn as _nn
 
 __all__ = ["functional_call", "param_arrays", "aux_arrays"]
 
@@ -69,7 +70,7 @@ def _attr_paths(net):
     return paths
 
 
-def functional_call(net, train=False):
+def functional_call(net, train=False, mesh=None, batch_axes=()):
     """``fn(params, aux, *inputs) -> (outputs, new_aux)``: ``net``'s forward
     with ``params`` and ``aux`` ({name: tensor}, as :func:`param_arrays`
     and :func:`aux_arrays` give them) in place of its own tensors.
@@ -78,8 +79,16 @@ def functional_call(net, train=False):
     with the batch's statistics) and ``new_aux`` holds the updated running
     statistics; otherwise ``new_aux`` equals ``aux``. ``aux`` itself is not
     written. A name missing from the dicts keeps the net's own tensor.
+
+    ``mesh`` and ``batch_axes``: the inputs are this rank's rows of a batch
+    split over the mesh's ``batch_axes``. The training forward then takes
+    BatchNorm's moments over the whole batch (their sums all-reduced over
+    those axes, differentiably), as ``mxnet_tpu``'s sharded step does, so
+    the statistics, their gradient and the running statistics are the
+    global batch's.
     """
     paths = _attr_paths(net)
+    ranks = 1 if mesh is None else mesh.axis_size(batch_axes)
 
     def fn(pvals, avals, *inputs):
         new_aux = {k: v.detach().clone() for k, v in avals.items()}
@@ -87,7 +96,15 @@ def functional_call(net, train=False):
         tensors.update((paths[k], v) for k, v in new_aux.items())
         with autograd._Scope(recording=torch.is_grad_enabled(),
                              training=train):
-            out = torch.func.functional_call(net, tensors, inputs)
+            if train and ranks > 1:
+                from .collectives import all_reduce_sum_differentiable
+
+                with _nn.sync_batch_stats(
+                        lambda t: all_reduce_sum_differentiable(
+                            t, mesh, batch_axes), ranks):
+                    out = torch.func.functional_call(net, tensors, inputs)
+            else:
+                out = torch.func.functional_call(net, tensors, inputs)
         return out, new_aux
 
     return fn

@@ -143,8 +143,23 @@ def test_multi_head_attention(impl):
 
 
 def test_multi_head_attention_ring_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tcontrib.nn.MultiHeadAttention(32, 4, impl="ring")
+    """impl='ring' is ported (tests/test_torch_ring_attention.py runs it
+    over 4 ranks); with no sp mesh it is single-device attention, as
+    mxnet_tpu's parallel.attention makes it: the dense composition on the
+    CPU, equal to impl='dense'."""
+    ring = tcontrib.nn.MultiHeadAttention(32, 4, impl="ring", causal=True,
+                                          prefix="mha_")
+    dense = tcontrib.nn.MultiHeadAttention(32, 4, impl="dense", causal=True,
+                                           prefix="mha_")
+    for b in (ring, dense):
+        b.initialize(ctx=mt.cpu())
+    dense.load_numpy_params({k: p.detach().numpy() for k, p in
+                             ring.collect_params().items()})
+    x = torch.tensor(np.random.RandomState(3).randn(2, 8, 32)
+                     .astype(np.float32))
+    assert torch.equal(ring(x), dense(x))
+    with pytest.raises(ValueError, match="unknown impl"):
+        tcontrib.nn.MultiHeadAttention(32, 4, impl="rings")
 
 
 def test_load_numpy_params_strict_lists_names():
