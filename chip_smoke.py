@@ -158,23 +158,32 @@ Phases, each failing loudly with a non-zero exit:
       here, and reach the ranks through files in _multirank/. (o1) the
       ring over {"sp": 4} at (2, 12, 4096, 64), bf16 (route "tc") and
       fp32 ("tf32x3"), causal and full: O, lse, dq, dk, dv against one
-      whole-sequence K1 / K2 call (2e-2 / 1e-4 of max|ref|), 4 K1 and 4
-      K2 launches a rank on the named route, none plain, the staged
-      bytes; every hop's K1 and K2 timed alone beside the whole-sequence
-      call; (o2) phase h's LM (bf16 over fp32 masters, Adam) through
+      whole-sequence K1 / K2 call and against their plain versions over
+      the whole sequence (2e-2 / 1e-4 of max|ref|; the whole-sequence
+      call is held to the plain versions too), 4 K1 and 4 K2 launches a
+      rank on the named route, none plain, the staged bytes; every hop's
+      K1 and K2 timed alone beside the whole-sequence call and its plain
+      versions; (o2) phase h's LM (bf16 over fp32 masters, Adam) through
       ShardedTrainer over {"dp": 4}, 2 rows a rank: loss and gradients
       against the one-rank step (1e-2, 5e-2 of max|grad|), the weights
       after one step within 5e-2 of max|grad|, 10 steps losing >= 0.5,
       12 K1 + 12 K2 launches a step, step ms (eager, gloo); (o3) the same
       over {"dp": 2, "fsdp": 2} with SpecLayout's rules, and the bytes a
       rank holds; (o4) TransformerLM(impl='ring') over {"sp": 4}, 256
-      tokens a rank, loss and gradients against impl='flash' on one rank
-      (3e-2, 5e-2), without and with remat (K1 launched twice a hop);
-      (o5) phase j's ResNet-50 over {"dp": 4}, 64 images a rank, 2 steps
-      against the one-rank steps at 256 (losses within 2^-8, running
-      statistics within 1e-2: BatchNorm's statistics are the global
-      batch's). A rank that fails, or ranks that do not finish within
-      MR_JOIN_S, fail the phase.
+      tokens a rank, loss and gradients against impl='flash' on one rank:
+      fp32 within 1e-5 / 1e-4 (the check), bf16 within 3e-2 and the
+      unsplit bound of o2 (advisory), without and with remat (K1
+      launched twice a hop); (o5) phase j's ResNet-50 over {"dp": 4}, 64
+      images a rank, 2 steps against the one-rank steps at 256 (losses
+      within 2^-8, running statistics after step 1 within 1e-3 of
+      max(1, max|ref|): BatchNorm's statistics are the global batch's),
+      step 2 again from the one-rank state after step 1 (loss within
+      2^-8, statistics within 1e-3 or twice what the rows' order alone
+      moves the one-rank step 2 from that state, + 1e-3), a
+      per-rank-BatchNorm control that must miss the statistics' bound,
+      and the one-rank steps on the rows permuted as the witness of how
+      far rounding alone moves step 2. A rank that fails, or ranks that
+      do not finish within MR_JOIN_S, fail the phase.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. ``--summary PATH`` also writes the
@@ -4297,28 +4306,37 @@ RING_ROUTE = {"bfloat16": "tc", "float32": "tf32x3"}
 # further, MR_SPLIT_FACTOR times that move plus 1e-3 (as phase k holds K3
 # to the unfused path's own error).
 MR_LOSS_TOL, MR_GRAD_TOL, MR_SPLIT_FACTOR = 1e-2, 5e-2, 2.0
-# o4 (sp, ring attention) in bf16 against the unsplit one-rank flash
-# step: loss 3e-2, each gradient the bound above; in fp32 (K1 / K2 on
-# "tf32x3") loss 1e-5 and every gradient 1e-4 of max|grad| (f32 sums in
-# other orders)
+# o4 (sp, ring attention) in fp32 (K1 / K2 on "tf32x3") against the
+# one-rank fp32 flash step: loss 1e-5 and every gradient 1e-4 of max|grad|
+# (f32 sums in other orders). That is o4's check of the ring LM. In bf16
+# the ranks split the sequence, and no one-rank step splits it so; the
+# bf16 gate (loss 3e-2, each gradient the unsplit bound above, whose
+# allowance comes from the batch split) is advisory: a gross fault fails
+# it, but it is loose for the LayerNorm gradients.
 SP_LOSS_TOL, SP32_LOSS_TOL, SP32_GRAD_TOL = 3e-2, 1e-5, 1e-4
 # o5's running statistics against the one-rank step's, max|a - b| /
 # max(1, max|ref|) a tensor (test_torch_parallel.py's scale: a running
 # mean starts at 0 and moves by 0.1 of a batch mean, so channels whose
-# mean is near 0 hold nothing but rounding). After the first step (the
-# same weights on both sides) both hold the 256-image batch's moments,
-# which differ only by the convs' rounding and f32 sums in other orders:
-# within MR_BN_TOL, and both losses within phase j's 2^-8. A per-rank
-# BatchNorm holds its 64 images' moments instead, whose two-class mix
-# differs from the batch's: the same first step with the moments left per
-# rank (the control) must miss the statistics' bound, and its loss is
-# printed beside phase j's (on the CPU, 4 ranks of 8 images at 64x64: the
-# control's loss 2.8e-2 and statistics 0.33 off, the synchronized step's
-# 4e-7 and 7.5e-6). The
-# second step carries the first update, which at initialization is
-# ill-conditioned (BatchNorm's beta gradients cancel: one rank's own fp32
-# step moves them by up to 11 % of their largest value when the batch's
-# rows are only permuted), so its statistics are printed, not gated.
+# mean is near 0 hold nothing but rounding). After a step from the same
+# state on both sides, both hold the 256-image batch's moments, which
+# differ only by the convs' rounding and f32 sums in other orders: within
+# MR_BN_TOL, and the loss within phase j's 2^-8. That holds step 1 (from
+# the seeded weights). Step 2, taken again from the one-rank step's own
+# state after step 1, is held to the same loss bound, and its statistics
+# to MR_BN_TOL or, where the one-rank step 2 from that state on the
+# batch's rows permuted (the same function summed in another order) moves
+# them further, MR_SPLIT_FACTOR times that move plus 1e-3, as o2 is held
+# to the unsplit step. A per-rank BatchNorm holds its 64 images' moments
+# instead, whose two-class mix differs from the batch's: the same first
+# step with the moments left per rank (the control) must miss the
+# statistics' bound, and its loss is printed beside phase j's (on the
+# CPU, 4 ranks of 8 images at 64x64: the control's loss 2.8e-2 and
+# statistics 0.33 off, the synchronized step's 4e-7 and 7.5e-6). Step 2
+# run on from the ranks' own step 1 carries step 1's rounding through the
+# first update, which at initialization is ill-conditioned (BatchNorm's
+# beta gradients cancel); its losses are held to 2^-8, its statistics
+# printed beside the witness: the one-rank steps on the batch's rows
+# permuted, the same function summed in another order.
 MR_BN_TOL = 1e-3
 
 
@@ -4336,6 +4354,15 @@ def _worst_grad(grads, ref):
     return max((rel_err(_trim_qkv_bias(n, grads[n]),
                         _trim_qkv_bias(n, ref[n].to(grads[n].device))), n)
                for n in ref)
+
+
+def _mean_grads(tr, x, y, microbatches=1):
+    """The trainer's loss and mean gradients ({name: full tensor}) at its
+    current parameters, without an update. It runs the step's forward and
+    backward, collectives included (every rank calls it), and writes the
+    running statistics as a step does."""
+    loss, grads = tr._loss_and_mean_grads(x, y, microbatches)
+    return loss, tr._full(grads)
 
 
 def _held_bytes(trainer):
@@ -4360,6 +4387,19 @@ def _lm_net(torch, mx, impl="flash", mesh=None, remat=None):
         max_len=T, impl=impl, mesh=mesh, remat=remat, prefix="tlm_")
     net.initialize(mx.init.Xavier(), generator=gen)
     return net
+
+
+def _load_after1(torch, tr, after1, aux):
+    """``tr`` given the one-rank step's weights, momentum, step count and
+    running statistics ``aux`` after step 1."""
+    with torch.no_grad():
+        for n, p in after1["params"].items():
+            tr.params[n].copy_(p)
+        for n, m in after1["opt"].items():
+            tr.opt_state["state"][n].copy_(m)
+        for n, a in aux.items():
+            tr.aux[n].copy_(a)
+    tr.opt_state["t"] = after1["t"]
 
 
 def _resnet_net(torch, mx):
@@ -4387,8 +4427,11 @@ def multirank_references(torch, mx, kernels):
     (bf16 over fp32 masters, Adam, phase h's batch: loss and gradients at
     the seeded weights, then the weights after one step) and the one-rank
     ResNet-50 steps of o5 (phase j's recipe, 2 steps at 256: losses and
-    running statistics). Returns the whole-sequence calls' device ms."""
+    running statistics, the state after step 1, and the same steps on the
+    batch's rows permuted). Returns the whole-sequence calls' device ms."""
     import shutil
+
+    import numpy as np
 
     shutil.rmtree(MR_DIR, ignore_errors=True)
     os.makedirs(MR_DIR)
@@ -4405,25 +4448,59 @@ def multirank_references(torch, mx, kernels):
                                                return_lse=True)
             dq, dk, dv = kernels.flash_attention_backward(
                 q, k, v, out, lse, dout, causal=causal)
+            # the plain versions over the whole sequence (f32 inside), the
+            # truth both the whole-sequence call and the ring are held to
+            p_out, p_lse = kernels.flash_attention_reference(
+                q, k, v, causal=causal, return_lse=True)
+            p_dq, p_dk, p_dv = kernels.flash_attention_backward_reference(
+                q, k, v, p_out, p_lse, dout, causal=causal)
+            errs = {"out": rel_err(out, p_out), "lse": rel_err(lse, p_lse),
+                    "dq": rel_err(dq, p_dq), "dk": rel_err(dk, p_dk),
+                    "dv": rel_err(dv, p_dv)}
+            ok = max(errs.values()) <= RING_TOL[dtype]
+            log(f"[o] references: the whole-sequence K1 + K2 call at "
+                f"{RING_SHAPE}, {dtype} {'causal' if causal else 'full'}, "
+                f"against its plain versions: " + ", ".join(
+                    f"{n} {e:.2e}" for n, e in errs.items())
+                + f" of max|plain| (tol {RING_TOL[dtype]:g}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"phase o: the whole-sequence {dtype} K1 / "
+                                 "K2 call disagrees with its plain versions")
             if causal:
                 whole[dtype] = {
                     "k1_ms": device_ms(lambda: kernels.flash_attention(
                         q, k, v, causal=True, return_lse=True)),
                     "k2_ms": device_ms(
                         lambda: kernels.flash_attention_backward(
-                            q, k, v, out, lse, dout, causal=True))}
+                            q, k, v, out, lse, dout, causal=True)),
+                    "plain_k1_ms": device_ms(
+                        lambda: kernels.flash_attention_reference(
+                            q, k, v, causal=True, return_lse=True), n=5),
+                    "plain_k2_ms": device_ms(
+                        lambda: kernels.flash_attention_backward_reference(
+                            q, k, v, p_out, p_lse, dout, causal=True), n=5),
+                    "plain_errors": errs}
             full = {"q": q, "k": k, "v": v, "dout": dout, "out": out,
-                    "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+                    "lse": lse, "dq": dq, "dk": dk, "dv": dv,
+                    "p_out": p_out, "p_lse": p_lse, "p_dq": p_dq,
+                    "p_dk": p_dk, "p_dv": p_dv}
             for r in range(MR_RANKS):
                 torch.save({n: x[:, :, r * rows:(r + 1) * rows].contiguous()
                             .cpu() for n, x in full.items()},
                            os.path.join(MR_DIR, f"o1_{dtype}_{causal}_r{r}"
                                                 ".pt"))
             del q, k, v, dout, out, lse, dq, dk, dv, full
+            del p_out, p_lse, p_dq, p_dk, p_dv
+            torch.cuda.empty_cache()
     log(f"[o] references: whole-sequence K1 + K2 at {RING_SHAPE}, causal, "
         f"device ms: bf16 {whole['bfloat16']['k1_ms']:.4f} + "
         f"{whole['bfloat16']['k2_ms']:.4f}, fp32 "
-        f"{whole['float32']['k1_ms']:.4f} + {whole['float32']['k2_ms']:.4f}")
+        f"{whole['float32']['k1_ms']:.4f} + {whole['float32']['k2_ms']:.4f};"
+        f" their plain versions bf16 {whole['bfloat16']['plain_k1_ms']:.4f} "
+        f"+ {whole['bfloat16']['plain_k2_ms']:.4f}, fp32 "
+        f"{whole['float32']['plain_k1_ms']:.4f} + "
+        f"{whole['float32']['plain_k2_ms']:.4f}")
 
     with kill_switch():
         x, y = lm_batch(torch, BATCH, T, VOCAB)
@@ -4434,11 +4511,11 @@ def multirank_references(torch, mx, kernels):
             tr = mx.parallel.ShardedTrainer(
                 net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
                 {"learning_rate": LR}, dtype=dtype)
-            loss, grads = tr.loss_and_grads(x, y)
+            loss, grads = _mean_grads(tr, x, y)
             ref[dtype] = {"loss": loss.item(),
                           "grads": {n: g.cpu() for n, g in grads.items()}}
             if dtype == "bfloat16":
-                loss4, grads4 = tr.loss_and_grads(x, y, microbatches=4)
+                loss4, grads4 = _mean_grads(tr, x, y, 4)
                 split = {n: rel_err(grads4[n], grads[n]) for n in grads}
                 tr.step(x, y, microbatches=4)
                 ref["split"] = {
@@ -4459,21 +4536,68 @@ def multirank_references(torch, mx, kernels):
         torch.save(ref, os.path.join(MR_DIR, "lm_ref.pt"))
         del ref
 
-        net = _resnet_net(torch, mx)
-        checksum = _checksum(torch, net)
-        tr = mx.parallel.ShardedTrainer(
-            net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
-            dict(RESNET_OPT), dtype="bfloat16")
         x, y = imagenet_batch(torch, RESNET_BATCH)
-        losses, aux = [], []
-        for _ in range(2):
-            losses.append(tr.step(x, y).item())
-            aux.append({n: a.to("cpu", copy=True) for n, a in tr.aux.items()})
-        torch.save({"checksum": checksum, "losses": losses, "aux": aux},
+        # the witness: the same two steps on the batch's rows permuted, the
+        # same function in another summation order
+        perm = torch.from_numpy(np.random.RandomState(5).permutation(
+            RESNET_BATCH)).cuda()
+        runs = {}
+        for name, (xs, ys) in (("ref", (x, y)), ("permuted",
+                                                 (x[perm], y[perm]))):
+            net = _resnet_net(torch, mx)
+            checksum = _checksum(torch, net)
+            tr = mx.parallel.ShardedTrainer(
+                net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+                dict(RESNET_OPT), dtype="bfloat16")
+            losses, aux = [], []
+            for i in range(2):
+                losses.append(tr.step(xs, ys).item())
+                aux.append({n: a.to("cpu", copy=True)
+                            for n, a in tr.aux.items()})
+                if i == 0 and name == "ref":
+                    # the state step 2 starts from, for the ranks'
+                    # resynchronized step 2
+                    after1 = {
+                        "params": {n: p.to("cpu", copy=True)
+                                   for n, p in tr.params.items()},
+                        "opt": {n: m.to("cpu", copy=True) for n, m in
+                                tr.opt_state["state"].items()},
+                        "t": tr.opt_state["t"]}
+            runs[name] = {"checksum": checksum, "losses": losses, "aux": aux}
+            del net, tr, xs, ys
+            torch.cuda.empty_cache()
+        ref, wit = runs["ref"], runs["permuted"]
+        # and step 2 on the rows permuted from the unpermuted state after
+        # step 1: how far the order alone moves the resynchronized step
+        tr = mx.parallel.ShardedTrainer(
+            _resnet_net(torch, mx), mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+            "sgd", dict(RESNET_OPT), dtype="bfloat16")
+        _load_after1(torch, tr, after1, ref["aux"][0])
+        wit["losses"].append(tr.step(x[perm], y[perm]).item())
+        wit["aux"].append({n: a.to("cpu", copy=True)
+                           for n, a in tr.aux.items()})
+        del tr
+        torch.cuda.empty_cache()
+        witness = [{"loss": abs(wit["losses"][i] - ref["losses"][j])
+                    / abs(ref["losses"][j]),
+                    "stats": max((_stat_err(wit["aux"][i][n],
+                                            ref["aux"][j][n]), n)
+                                 for n in ref["aux"][j])}
+                   for i, j in ((0, 0), (1, 1), (2, 1))]
+        torch.save(dict(ref, after1=after1, witness=witness),
                    os.path.join(MR_DIR, "resnet_ref.pt"))
         log(f"[o] references: one-rank ResNet-50 steps (batch "
-            f"{RESNET_BATCH}, bf16, SGD): losses {losses}")
-        del net, tr, x, y
+            f"{RESNET_BATCH}, bf16, SGD): losses {ref['losses']}; the same "
+            f"steps on the rows permuted (the witness): losses "
+            f"{wit['losses'][:2]}, loss rel {witness[0]['loss']:.2e} / "
+            f"{witness[1]['loss']:.2e}, running statistics "
+            f"{witness[0]['stats'][0]:.2e} ({witness[0]['stats'][1]}) / "
+            f"{witness[1]['stats'][0]:.2e} ({witness[1]['stats'][1]}) of "
+            f"max(1, max|ref|) after step 1 / step 2; step 2 on the rows "
+            f"permuted from the unpermuted state after step 1: loss rel "
+            f"{witness[2]['loss']:.2e}, running statistics "
+            f"{witness[2]['stats'][0]:.2e} ({witness[2]['stats'][1]})")
+        del x, y, perm, runs, ref, wit, after1
         torch.cuda.empty_cache()
     return whole
 
@@ -4506,22 +4630,25 @@ def _ring_alone(torch, kernels, parallel, rank):
             o.backward(ref["dout"])
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-            errs = {"out": rel_err(o, ref["out"]),
-                    "lse": rel_err(lse, ref["lse"]),
-                    "dq": rel_err(q.grad, ref["dq"]),
-                    "dk": rel_err(k.grad, ref["dk"]),
-                    "dv": rel_err(v.grad, ref["dv"])}
+            got = {"out": o, "lse": lse, "dq": q.grad, "dk": k.grad,
+                   "dv": v.grad}
+            errs = {n: rel_err(g, ref[n]) for n, g in got.items()}
+            plain = {n: rel_err(g, ref["p_" + n]) for n, g in got.items()}
             st, cs = ring.stats(), collectives.stats()
             k1 = dict(kernels.flash_attention.launches_by_route)
             k2 = dict(kernels.flash_attention_backward.launches_by_route)
             want = {r: (MR_RANKS if r == route else 0) for r in k1}
-            ok = (max(errs.values()) <= RING_TOL[dtype] and k1 == want
+            ok = (max(errs.values()) <= RING_TOL[dtype]
+                  and max(plain.values()) <= RING_TOL[dtype] and k1 == want
                   and k2 == want and st["k1"]["plain"] == 0
                   and st["k2"]["plain"] == 0)
             log(f"[o1] rank {rank} {dtype} {'causal' if causal else 'full'}"
                 f": O {errs['out']:.2e}, lse {errs['lse']:.2e}, dq "
                 f"{errs['dq']:.2e}, dk {errs['dk']:.2e}, dv {errs['dv']:.2e}"
-                f" of max|whole-sequence call| (tol {RING_TOL[dtype]:g}); K1"
+                f" of max|whole-sequence call|; O {plain['out']:.2e}, lse "
+                f"{plain['lse']:.2e}, dq {plain['dq']:.2e}, dk "
+                f"{plain['dk']:.2e}, dv {plain['dv']:.2e} of max|plain "
+                f"version| (tol {RING_TOL[dtype]:g} for both); K1"
                 f" {k1}, K2 {k2} (want {MR_RANKS} on {route!r}, none plain);"
                 f" {wall:.1f} ms wall (host clock); {cs['calls']} "
                 f"collectives, {cs['staged_bytes']} bytes staged through "
@@ -4529,9 +4656,11 @@ def _ring_alone(torch, kernels, parallel, rank):
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise RuntimeError(f"phase o1: rank {rank}'s {dtype} ring "
-                                   "disagrees with the whole-sequence call")
+                                   "disagrees with the whole-sequence call "
+                                   "or the plain versions")
             out[f"{dtype}_{'causal' if causal else 'full'}"] = {
-                "errors": errs, "k1_launches_by_route": k1,
+                "errors": errs, "plain_errors": plain,
+                "k1_launches_by_route": k1,
                 "k2_launches_by_route": k2, "wall_ms": wall,
                 "collective_calls": cs["calls"],
                 "staged_bytes": cs["staged_bytes"],
@@ -4635,7 +4764,7 @@ def _lm_parallel(torch, mx, kernels, parallel, rank, ref, axes, rules):
     if not refused.startswith("ShardedTrainer: a step over"):
         raise RuntimeError(f"phase o: rank {rank}'s step with capture on "
                            f"did not raise CaptureError ({refused})")
-    loss, grads = tr.loss_and_grads(xr, yr)
+    loss, grads = _mean_grads(tr, xr, yr)
     out = {"loss": loss.item(), "capture_refused": refused}
     if rank == 0:
         split = ref["split"]
@@ -4739,13 +4868,13 @@ def _lm_ring(torch, mx, kernels, parallel, rank, ref):
         tr = parallel.ShardedTrainer(
             net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
             {"learning_rate": LR}, mesh=mesh, dtype=dtype)
-        tr.loss_and_grads(xr, yr)           # warm-up
+        _mean_grads(tr, xr, yr)           # warm-up
         zero_counts(kernels)
         ring.reset_stats()
         collectives.reset_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss, grads = tr.loss_and_grads(xr, yr)
+        loss, grads = _mean_grads(tr, xr, yr)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         k1 = dict(kernels.flash_attention.launches_by_route)
@@ -4771,7 +4900,8 @@ def _lm_ring(torch, mx, kernels, parallel, rank, ref):
                            f"{unsplit[1]:.2e} in {unsplit[2]}: "
                            f"{MR_GRAD_TOL:g}, or {MR_SPLIT_FACTOR:g} x the "
                            "one-rank batch split's own move + 1e-3 where "
-                           f"larger; loss tol {SP_LOSS_TOL:g}")
+                           f"larger; loss tol {SP_LOSS_TOL:g}; advisory: "
+                           "the fp32 gate below checks the ring LM")
                 res["unsplit"] = unsplit
             else:
                 ok = ok and loss_err <= SP32_LOSS_TOL and \
@@ -4844,6 +4974,15 @@ def _resnet_dp(torch, mx, kernels, parallel, rank, ref):
                                + list(tr.params.values()))
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses,
                                                        ref["losses"]))
+    # step 2 again, from the one-rank step's own state after step 1
+    # (weights, momentum, running statistics): the ranks' step is then
+    # held to the same bounds as step 1, without what step 1's rounding
+    # did to the first update
+    _load_after1(torch, tr, ref["after1"], ref["aux"][0])
+    resync_loss = tr.step(xr, yr).item()
+    resync = (abs(resync_loss - ref["losses"][1]) / abs(ref["losses"][1]),
+              max((_stat_err(tr.aux[n], ref["aux"][1][n]), n)
+                  for n in ref["aux"][1]))
     del tr, net
     torch.cuda.empty_cache()
     # the control: the trainer's step with BatchNorm's moments per rank
@@ -4855,15 +4994,27 @@ def _resnet_dp(torch, mx, kernels, parallel, rank, ref):
                    for n, a in ref["aux"][0].items()))
     del tr, net
     torch.cuda.empty_cache()
+    wit = ref["witness"]
+    resync_tol = max(MR_BN_TOL, MR_SPLIT_FACTOR * wit[2]["stats"][0] + 1e-3)
     ok = (loss_err <= RESNET_MB_TOL and bn_err[0][0] <= MR_BN_TOL and same
-          and checksum == ref["checksum"] and ctl_err[1] > MR_BN_TOL)
+          and checksum == ref["checksum"] and ctl_err[1] > MR_BN_TOL
+          and resync[0] <= RESNET_MB_TOL and resync[1][0] <= resync_tol)
     log(f"[o5] rank {rank} {{'dp': {MR_RANKS}}} ResNet-50 bf16, {per} "
         f"images a rank: losses {losses} vs one-rank at {RESNET_BATCH} "
         f"{ref['losses']} (worst rel {loss_err:.2e}, tol "
         f"{RESNET_MB_TOL:.2e}: phase j's); running statistics worst "
         f"{bn_err[0][0]:.2e} of max(1, max|ref|) after step 1 "
         f"({bn_err[0][1]}; tol {MR_BN_TOL:g}), {bn_err[1][0]:.2e} after "
-        f"step 2 ({bn_err[1][1]}; not gated); the control with per-rank "
+        f"step 2 ({bn_err[1][1]}; not gated: the one-rank step on its rows "
+        f"permuted moves them by {wit[1]['stats'][0]:.2e} "
+        f"({wit[1]['stats'][1]}) and its loss by {wit[1]['loss']:.2e}); "
+        f"step 2 from the one-rank step's state after step 1: loss rel "
+        f"{resync[0]:.2e} (tol {RESNET_MB_TOL:.2e}), running statistics "
+        f"{resync[1][0]:.2e} ({resync[1][1]}; tol {resync_tol:.2e}: "
+        f"{MR_BN_TOL:g}, or {MR_SPLIT_FACTOR:g} x the "
+        f"{wit[2]['stats'][0]:.2e} that the rows' order alone moves the "
+        f"one-rank step 2 + 1e-3 where larger); the "
+        f"control with per-rank "
         f"BatchNorm: first loss rel {ctl_err[0]:.2e} (phase j's bound "
         f"{'missed' if ctl_err[0] > RESNET_MB_TOL else 'met'}), statistics"
         f" {ctl_err[1]:.2e} (must miss {MR_BN_TOL:g}); every rank the same "
@@ -4879,7 +5030,11 @@ def _resnet_dp(torch, mx, kernels, parallel, rank, ref):
                            "per-rank control met the bounds")
     return {"losses": losses, "loss_rel_err": loss_err,
             "bn_rel_err": [e[0] for e in bn_err],
-            "bn_worst": [e[1] for e in bn_err], "control": ctl_err,
+            "bn_worst": [e[1] for e in bn_err], "resync_loss": resync_loss,
+            "resync_loss_rel_err": resync[0],
+            "resync_bn_rel_err": resync[1][0], "resync_bn_tol": resync_tol,
+            "witness": wit,
+            "control": ctl_err,
             "step_ms": step_ms, "collectives_per_step": cs}
 
 
@@ -4977,7 +5132,9 @@ def multirank_phase(torch, mx, kernels):
             f"summed over the ranks, busiest rank "
             f"{dev[dtype]['busiest_rank_ms']:.4f}, per rank "
             f"{[round(v, 4) for v in dev[dtype]['per_rank_ms']]}; one "
-            f"whole-sequence K1 + K2 {w:.4f} ms; bound "
+            f"whole-sequence K1 + K2 {w:.4f} ms, its plain versions "
+            f"{whole[dtype]['plain_k1_ms'] + whole[dtype]['plain_k2_ms']:.4f}"
+            f" ms; bound "
             f"{whole[dtype]['bound'][0]:.4f} ms ({whole[dtype]['bound'][1]})")
     o2, o3 = ranks[0]["o2"], ranks[0]["o3"]
     log(f"[o3] a {{'dp': 2, 'fsdp': 2}} rank holds "
@@ -5074,10 +5231,11 @@ def main(argv=None):
     multirank = multirank_phase(torch, mx, kernels)
     rank0 = multirank["per_rank"][0]
 
-    def ring_err(dtype, parts):
-        """The ring's largest error (of max|whole-sequence call|) over the
-        ranks, causal and full, in ``parts`` of O, dq, dk, dv."""
-        return max(r["o1"][f"{dtype}_{c}"]["errors"][g]
+    def ring_err(dtype, parts, key="errors"):
+        """The ring's largest error (of max|whole-sequence call|, or with
+        ``key="plain_errors"`` of max|plain version|) over the ranks,
+        causal and full, in ``parts`` of O, dq, dk, dv."""
+        return max(r["o1"][f"{dtype}_{c}"][key][g]
                    for r in multirank["per_rank"] for c in ("causal", "full")
                    for g in parts)
 
@@ -5130,9 +5288,13 @@ def main(argv=None):
         "ring_lm_remat_launches_by_route": rank0["o4"]["bfloat16_remat"][
             "k1_launches_by_route"],
         "ring_max_abs_err": ring_err("bfloat16", ("out",)),
+        "ring_plain_max_abs_err": ring_err("bfloat16", ("out",),
+                                           "plain_errors"),
         "ring_device_ms": rank0["o1"]["device_ms"]["bfloat16"],
         "whole_sequence_k1_ms": multirank["whole_sequence_ms"][
             "bfloat16"]["k1_ms"],
+        "whole_sequence_plain_k1_ms": multirank["whole_sequence_ms"][
+            "bfloat16"]["plain_k1_ms"],
         "ring_k1_k2_bound_ms": multirank["whole_sequence_ms"]["bfloat16"][
             "bound"][0]}, {
         "name": "flash_attn_bwd", "route": "cuda",
@@ -5161,8 +5323,12 @@ def main(argv=None):
         "ring_lm_launches_by_route": rank0["o4"]["bfloat16"][
             "k2_launches_by_route"],
         "ring_max_abs_err": ring_err("bfloat16", ("dq", "dk", "dv")),
+        "ring_plain_max_abs_err": ring_err("bfloat16", ("dq", "dk", "dv"),
+                                           "plain_errors"),
         "whole_sequence_k2_ms": multirank["whole_sequence_ms"][
-            "bfloat16"]["k2_ms"]}, {
+            "bfloat16"]["k2_ms"],
+        "whole_sequence_plain_k2_ms": multirank["whole_sequence_ms"][
+            "bfloat16"]["plain_k2_ms"]}, {
         "name": "conv3x3_bn_stats", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/conv3x3_bn_stats_tc.cu",
         "sources": k3_sources,
@@ -5241,9 +5407,13 @@ def main(argv=None):
         "ring_lm_launches_by_route": rank0["o4"]["float32"][
             "k1_launches_by_route"],
         "ring_max_abs_err": ring_err("float32", ("out",)),
+        "ring_plain_max_abs_err": ring_err("float32", ("out",),
+                                           "plain_errors"),
         "ring_device_ms": rank0["o1"]["device_ms"]["float32"],
         "whole_sequence_k1_ms": multirank["whole_sequence_ms"][
             "float32"]["k1_ms"],
+        "whole_sequence_plain_k1_ms": multirank["whole_sequence_ms"][
+            "float32"]["plain_k1_ms"],
         "ring_k1_k2_bound_ms": multirank["whole_sequence_ms"]["float32"][
             "bound"][0]}, {
         "name": "flash_attn_bwd_tf32x3", "route": "cuda",
@@ -5266,8 +5436,12 @@ def main(argv=None):
         "ring_lm_launches_by_route": rank0["o4"]["float32"][
             "k2_launches_by_route"],
         "ring_max_abs_err": ring_err("float32", ("dq", "dk", "dv")),
+        "ring_plain_max_abs_err": ring_err("float32", ("dq", "dk", "dv"),
+                                           "plain_errors"),
         "whole_sequence_k2_ms": multirank["whole_sequence_ms"][
-            "float32"]["k2_ms"]}] + [{
+            "float32"]["k2_ms"],
+        "whole_sequence_plain_k2_ms": multirank["whole_sequence_ms"][
+            "float32"]["plain_k2_ms"]}] + [{
         # phase n's paths: the decode step's 12 K4 launches (enqueued at
         # its 2 warm-up runs and its capture; replays add none), the fp32
         # pool's on csrc/paged_decode_attn.cu, the int8 pool's on route

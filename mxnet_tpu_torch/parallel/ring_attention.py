@@ -37,7 +37,8 @@ with weight exactly 0, and K2 gives it zero gradients (p = 0). Such hops
 are run, not skipped: every rank launches K1 and K2 once a hop.
 
 :func:`stats` counts the ring's K1 and K2 calls by route ("tc",
-"tf32x3", "simt", and "plain" for CPU tensors) and its hops.
+"tf32x3", "simt", and "plain" for the plain version, on any device) and
+its hops.
 """
 from __future__ import annotations
 
@@ -70,10 +71,12 @@ def stats():
             "hops": _STATS["hops"]}
 
 
-def _counted(which, wrapper, x, call):
+def _counted(which, wrapper, x, call, plain=False):
     """``call()``, counting it under the route ``wrapper`` launched (its
-    own per-route counter moves) or "plain" for a CPU tensor."""
-    if x.device.type != "cuda":
+    own per-route counter moves), or under "plain" when ``call`` runs the
+    plain version (``plain``, or a CPU tensor, where the wrapper takes it),
+    whatever the device."""
+    if plain or x.device.type != "cuda":
         _STATS[which]["plain"] += 1
         return call()
     before = dict(wrapper.launches_by_route)
@@ -153,7 +156,8 @@ def _ring_backward(q, k, v, out, lse, dout, mesh, axis, causal, scale,
         dq_i, dk_i, dv_i = _counted(
             "k2", kernels.flash_attention_backward, q,
             lambda: k2(q, kc, vc, out, lse, dout, causal=causal,
-                       scale=scale, q_offset=my * t, k_offset=src * t))
+                       scale=scale, q_offset=my * t, k_offset=src * t),
+            plain=impl != "flash")
         dq += dq_i.float()
         dk += dk_i.float()
         dv += dv_i.float()

@@ -548,17 +548,6 @@ class ShardedTrainer:
         self.opt_state["t"] = t
         return loss
 
-    def loss_and_grads(self, x, y, microbatches=None):
-        """The step's loss and mean gradients ({name: full tensor}) at the
-        current parameters, without an update, for checks against another
-        run. It runs the step's forward and backward (collectives
-        included, so every rank calls it) and writes the running
-        statistics, as a step does."""
-        x, y = self._place(x), self._place(y)
-        loss, grads = self._loss_and_mean_grads(
-            x, y, self._microbatches(x, microbatches))
-        return loss, self._full(grads)
-
     # ---------------------------------------------------------- the rate
     def set_learning_rate(self, lr):
         """Change the learning rate (``mxnet_tpu/parallel/trainer.py:

@@ -119,10 +119,9 @@ def _lm(values, mesh, impl, remat, layers, units, heads, vocab, max_len):
 
 
 def lm_ring_rank(rank, world, values, x, y, dims, remats):
-    """For each remat of ``remats``, the loss and mean gradients of
-    TransformerLM(impl='ring') over {"sp": world} through
-    ShardedTrainer.loss_and_grads: this rank holds every row and its slice
-    of the tokens."""
+    """For each remat of ``remats``, ShardedTrainer's loss and mean
+    gradients of TransformerLM(impl='ring') over {"sp": world}: this rank
+    holds every row and its slice of the tokens."""
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch import parallel
 
@@ -136,7 +135,9 @@ def lm_ring_rank(rank, world, values, x, y, dims, remats):
             net, mt.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
             {"learning_rate": 0.1}, mesh=mesh)
         parallel.ring.reset_stats()
-        loss, grads = tr.loss_and_grads(x[:, sl], y[:, sl])
+        loss, grads = tr._loss_and_mean_grads(tr._place(x[:, sl]),
+                                              tr._place(y[:, sl]), 1)
+        grads = tr._full(grads)
         out[remat] = {"loss": float(loss),
                       "grads": {k: _np(g) for k, g in grads.items()},
                       "stats": parallel.ring.stats()}

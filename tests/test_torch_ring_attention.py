@@ -14,10 +14,10 @@ mode). Under causal masking the blocks of later ranks hold keys that the
 earlier ranks' queries never see: those hops merge with weight 0.
 
 Then ``TransformerLM(impl='ring')`` over {"sp": 4}: the loss and every
-parameter's gradient through ``ShardedTrainer.loss_and_grads``, against
-``mxnet_tpu``'s ``ShardedTrainer`` on a {"dp": 1, "sp": 4} mesh (one SGD
-step at learning rate 1: the gradient is the weights' change), with and
-without ``remat``.
+parameter's gradient through ``ShardedTrainer``'s forward and backward,
+against ``mxnet_tpu``'s ``ShardedTrainer`` on a {"dp": 1, "sp": 4} mesh
+(one SGD step at learning rate 1: the gradient is the weights' change),
+with and without ``remat``.
 """
 import numpy as np
 import pytest
