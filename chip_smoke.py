@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --quick    # build + kernel checks (phase b) only
     python3 chip_smoke.py --multirank-only   # build + phase o (4 ranks)
+    python3 chip_smoke.py --int8-only        # build + K5's checks, phase p
+                                             # and K5's timing
 
 Phases, each failing loudly with a non-zero exit:
 
@@ -47,7 +49,15 @@ Phases, each failing loudly with a non-zero exit:
       second launch bitwise equal, and no call of the plain version on a
       CUDA tensor; and the int8 KV write (csrc/kv_quantize_write.cu) on
       the qkv views in fp32, bf16 and fp16, bitwise equal to its plain
-      version, every byte outside the written slots unchanged;
+      version, every byte outside the written slots unchanged; and K5
+      (csrc/s8_gemm.cu, csrc/requant_int8.cu): the int8 conv on
+      ResNet-18's 11 conv shapes at N=8 and on edges (Cin 5 with K = 45,
+      odd H and W, dilation 2, a ragged M without bias, misaligned bases),
+      the int8 GEMM on the FC and ragged, misaligned shapes, int32 exactly
+      equal to the float64 plain versions (cuDNN off for them); requantize
+      on both paths, bitwise equal, .5 ties included, a NaN range out NaN;
+      every case launched twice, bitwise; a grouped and an NHWC int8 conv
+      must raise;
   (c) kernel, plain-version and library times at the slices' shapes, in
       device time, beside each kernel's bound on the H100 (K1 also on the
       strided layout, and in fp32 the 3xTF32 kernel beside the CUDA-core
@@ -64,7 +74,11 @@ Phases, each failing loudly with a non-zero exit:
       the int8 pools on both int8 routes, beside its bytes bound, its
       plain version and one SDPA call over the same KV already contiguous,
       which takes no page table; the int8 write at the step's shape beside
-      its plain chain and bound);
+      its plain chain and bound; K5, after phase p, at the shapes phase p's
+      bucket-128 program calls it with: each conv beside its bound at the
+      int8 tensor-core peak or the bytes, the float64 plain version,
+      torch._int_mm on the same im2col'd GEMM and cuDNN's bf16 conv; the FC
+      beside torch._int_mm; the 36 requantize calls beside their bytes);
   (d) the slice: TransformerLM(impl='flash') at GPT-2-small widths in
       bf16, behind Predictor + BatchServer, served to concurrent
       requests: each bucket captured as a CUDA graph at the predictor's
@@ -162,8 +176,8 @@ Phases, each failing loudly with a non-zero exit:
       the whole sequence (2e-2 / 1e-4 of max|ref|; the whole-sequence
       call is held to the plain versions too), 4 K1 and 4 K2 launches a
       rank on the named route, none plain, the staged bytes; every hop's
-      K1 and K2 timed alone beside the whole-sequence call and its plain
-      versions; (o2) phase h's LM (bf16 over fp32 masters, Adam) through
+      K1 and K2 timed alone beside the whole-sequence call, its plain
+      versions and one SDPA forward + backward over the whole sequence; (o2) phase h's LM (bf16 over fp32 masters, Adam) through
       ShardedTrainer over {"dp": 4}, 2 rows a rank: loss and gradients
       against the one-rank step (1e-2, 5e-2 of max|grad|), the weights
       after one step within 5e-2 of max|grad|, 10 steps losing >= 0.5,
@@ -183,7 +197,19 @@ Phases, each failing loudly with a non-zero exit:
       per-rank-BatchNorm control that must miss the statistics' bound,
       and the one-rank steps on the rows permuted as the witness of how
       far rounding alone moves step 2. A rank that fails, or ranks that
-      do not finish within MR_JOIN_S, fail the phase.
+      do not finish within MR_JOIN_S, fail the phase;
+  (p) INT8 serving (before phase o): ResNet-18 v1 (224^2 NCHW, 1000
+      classes, seeded Xavier) exported, then Predictor(sym_file,
+      params_file, quantize="int8", naive calibration on 32 images,
+      buckets 1, 32, 128): the graph's op counts (20 quantized convs, 36
+      requantize, ...), K5's launches counted from just before the build
+      to just after the first predict (20 conv, 1 FC and 36 requantize a
+      bucket program, none of the plain versions), the bucket-128 graph's
+      21 s8_gemm and 36 requant nodes, int8 logits on 128 other images
+      within 0.15 of max|fp32| of the folded fp32 graph with top-1
+      agreement >= 0.75, a second predict bitwise; images/s at bucket 128
+      and p50 per bucket for fp32 (Symbol-fed), bf16 (Block-fed) and int8;
+      one int8 predict profiled (K5's convs, requantize, the other ops).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. ``--summary PATH`` also writes the
@@ -210,6 +236,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FMA_FLOPS = 67e12   # f32 on the CUDA cores
 PEAK_BYTES = 3.35e12
+PEAK_INT8_OPS = 1979e12       # int8 on the tensor cores
 
 # GPT-2-small widths: the slice's model
 VOCAB, UNITS, HEADS, LAYERS, T = 50257, 768, 12, 12, 1024
@@ -4480,6 +4507,7 @@ def multirank_references(torch, mx, kernels):
                     "plain_k2_ms": device_ms(
                         lambda: kernels.flash_attention_backward_reference(
                             q, k, v, p_out, p_lse, dout, causal=True), n=5),
+                    "sdpa_ms": sdpa_fwd_bwd_ms(torch, q, k, v, dout),
                     "plain_errors": errs}
             full = {"q": q, "k": k, "v": v, "dout": dout, "out": out,
                     "lse": lse, "dq": dq, "dk": dk, "dv": dv,
@@ -4493,6 +4521,10 @@ def multirank_references(torch, mx, kernels):
             del q, k, v, dout, out, lse, dq, dk, dv, full
             del p_out, p_lse, p_dq, p_dk, p_dv
             torch.cuda.empty_cache()
+    log(f"[o] references: SDPA forward + backward over the whole "
+        f"{RING_SHAPE} causal sequence (the library yardstick of the ring), "
+        f"device ms: bf16 {whole['bfloat16']['sdpa_ms']:.4f}, fp32 "
+        f"{whole['float32']['sdpa_ms']:.4f}")
     log(f"[o] references: whole-sequence K1 + K2 at {RING_SHAPE}, causal, "
         f"device ms: bf16 {whole['bfloat16']['k1_ms']:.4f} + "
         f"{whole['bfloat16']['k2_ms']:.4f}, fp32 "
@@ -4600,6 +4632,22 @@ def multirank_references(torch, mx, kernels):
         del x, y, perm, runs, ref, wit, after1
         torch.cuda.empty_cache()
     return whole
+
+
+def sdpa_fwd_bwd_ms(torch, q, k, v, dout):
+    """Device ms of one PyTorch SDPA forward + backward (causal) on q, k, v
+    with gradient ``dout``: the one library call that computes what the
+    ring's K1 + K2 hops compute together."""
+    import torch.nn.functional as F
+
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def step():
+        qg.grad = kg.grad = vg.grad = None
+        F.scaled_dot_product_attention(qg, kg, vg,
+                                       is_causal=True).backward(dout)
+
+    return device_ms(step, n=5)
 
 
 def _ring_alone(torch, kernels, parallel, rank):
@@ -5149,6 +5197,581 @@ def multirank_phase(torch, mx, kernels):
             "whole_sequence_ms": whole, "per_rank": ranks}
 
 
+# ------------------------------------------------------- K5 and phase p
+# ResNet-18 v1's convolutions at 224^2 (NCHW): (Cin, Cout, H = W in, kernel,
+# stride, pad, how many of the 20), and its FC 512 -> 1000
+R18_CONVS = ((3, 64, 224, 7, 2, 3, 1), (64, 64, 56, 3, 1, 1, 4),
+             (64, 128, 56, 3, 2, 1, 1), (128, 128, 28, 3, 1, 1, 3),
+             (64, 128, 56, 1, 2, 0, 1), (128, 256, 28, 3, 2, 1, 1),
+             (256, 256, 14, 3, 1, 1, 3), (128, 256, 28, 1, 2, 0, 1),
+             (256, 512, 14, 3, 2, 1, 1), (512, 512, 7, 3, 1, 1, 3),
+             (256, 512, 14, 1, 2, 0, 1))
+R18_FC = (512, 1000)
+K5_CHECK_N = 8
+INT8_BUCKETS = (1, 32, 128)
+INT8_CALIB = 32            # calibration images, batches of 16
+INT8_TOL = 0.15            # of max|fp32|, and top-1 agreement >= 0.75
+INT8_AGREE = 0.75          #   (mxnet_tpu's tests/test_int8_e2e.py:74-77)
+INT8_PREDICTS = 20         # timed predicts a dtype at bucket 128
+INT8_OPS = {"_contrib_quantize_v2": 1, "_contrib_quantized_conv": 20,
+            "_contrib_quantized_act": 17, "_contrib_quantized_pooling": 2,
+            "_contrib_quantized_elemwise_add": 8,
+            "_contrib_quantized_fully_connected": 1,
+            "_contrib_requantize": 36, "_contrib_dequantize": 1}
+
+
+@contextlib.contextmanager
+def exact_f64_convs(torch):
+    """The plain versions' float64 convs, exact on integers, through
+    PyTorch's own im2col + DGEMM: cuDNN's algorithms (FFT, Winograd) may
+    round, so it is off inside."""
+    with torch.backends.cudnn.flags(enabled=False):
+        yield
+
+
+def s8_rand(torch, gen, shape, lo=-127, hi=128, offset=0):
+    """Seeded int8 values in [lo, hi); ``offset`` bytes into a larger
+    buffer (a misaligned base)."""
+    n = 1
+    for s in shape:
+        n *= s
+    buf = torch.randint(lo, hi, (n + offset,), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    return buf[offset:].view(shape)
+
+
+def k5_zero_counts(q):
+    for fn in (q.s8_conv, q.s8_matmul, q.requant_epilogue):
+        fn.launches = 0
+        for route in fn.launches_by_route:
+            fn.launches_by_route[route] = 0
+
+
+def k5_counts(q):
+    return {"s8_conv": q.s8_conv.launches, "s8_matmul": q.s8_matmul.launches,
+            "requant_int8": q.requant_epilogue.launches,
+            "requant_by_path": dict(q.requant_epilogue.launches_by_route)}
+
+
+@contextlib.contextmanager
+def k5_plain_guard(q):
+    """While open, K5's plain versions raise on a CUDA tensor: the
+    wrappers must launch their kernels for those."""
+    saved = (q.s8_conv_reference, q.s8_matmul_reference,
+             q.requant_epilogue_reference)
+
+    def guarded(fn):
+        def call(data, *args, **kwargs):
+            if data.is_cuda:
+                raise SystemExit(f"a CUDA tensor reached {fn.__name__}")
+            return fn(data, *args, **kwargs)
+        return call
+
+    (q.s8_conv_reference, q.s8_matmul_reference,
+     q.requant_epilogue_reference) = map(guarded, saved)
+    try:
+        yield
+    finally:
+        (q.s8_conv_reference, q.s8_matmul_reference,
+         q.requant_epilogue_reference) = saved
+
+
+def check_k5(torch, q):
+    """Phase b for K5: csrc/s8_gemm.cu's conv on ResNet-18's 11 conv shapes
+    (its 20 convs) at N=8 with an int32 bias, and its edges (Cin 3 with K
+    off a multiple of 32, odd H and W, dilation 2, a ragged M, misaligned
+    bases, no bias); the GEMM on the FC (8 x 512 -> 1000) and ragged,
+    misaligned shapes: int32 exactly equal to the float64 plain versions,
+    a second launch bitwise equal. csrc/requant_int8.cu on both paths
+    bitwise equal to its plain version, on the int32 grid's whole range
+    and on exact .5 ties; a NaN range comes out NaN. Grouped and NHWC int8
+    convs on CUDA must raise."""
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    records = []
+    conv_cases = [(f"r18 {c[0]}->{c[1]} {c[2]}^2 k{c[3]} s{c[4]} p{c[5]}",
+                   K5_CHECK_N, c[0], c[1], c[2], c[2], c[3], c[4], c[5], 1,
+                   True, 0) for c in R18_CONVS]
+    conv_cases += [
+        ("Cin 5 odd 13x11 k3 s1 p1 (K=45)", 3, 5, 24, 13, 11, 3, 1, 1, 1,
+         True, 0),
+        ("dilation 2 k3 p2 odd 15x17", 2, 16, 40, 15, 17, 3, 1, 2, 2, True,
+         0),
+        ("ragged M 1x9x7 k3 s2 p0, no bias", 1, 32, 70, 9, 7, 3, 2, 0, 1,
+         False, 0),
+        ("misaligned bases k1 s1", 3, 48, 64, 10, 10, 1, 1, 0, 1, True, 3),
+    ]
+    for (name, n, cin, cout, h, w, k, s, p, dil, with_bias,
+         off) in conv_cases:
+        x = s8_rand(torch, gen, (n, cin, h, w), offset=off)
+        wt = s8_rand(torch, gen, (cout, cin, k, k), offset=off)
+        bias = (torch.randint(-2 ** 20, 2 ** 20, (cout,), generator=gen,
+                              device="cuda", dtype=torch.int32)
+                if with_bias else None)
+        before = q.s8_conv.launches
+        with k5_plain_guard(q):
+            got = q.s8_conv(x, wt, (s, s), (p, p), (dil, dil), bias=bias)
+            again = q.s8_conv(x, wt, (s, s), (p, p), (dil, dil), bias=bias)
+        with exact_f64_convs(torch):
+            want = q.s8_conv_reference(x, wt, (s, s), (p, p), (dil, dil),
+                                       bias=bias)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want) and got.dtype == torch.int32
+        repeat = torch.equal(got, again)
+        launched = q.s8_conv.launches - before
+        ok = same and repeat and launched == 2
+        log(f"[b] s8_conv {name} N={n}: int32 == plain (f64) exactly: "
+            f"{same}; second launch bitwise: {repeat}; launches {launched} "
+            f"(want 2) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase b: s8_conv {name} disagrees")
+        records.append({"case": f"s8_conv {name}", "exact": same,
+                        "max_abs_err": (got.double() - want.double())
+                        .abs().max().item()})
+    for name, m, k, n, off in (("r18 FC", K5_CHECK_N, *R18_FC, 0),
+                               ("ragged 77x45 -> 70", 77, 45, 70, 0),
+                               ("misaligned 33x64 -> 96", 33, 64, 96, 5)):
+        x = s8_rand(torch, gen, (m, k), offset=off)
+        wt = s8_rand(torch, gen, (n, k), offset=off)
+        bias = torch.randint(-2 ** 20, 2 ** 20, (n,), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        with k5_plain_guard(q):
+            got = q.s8_matmul(x, wt, bias=bias)
+            again = q.s8_matmul(x, wt, bias=bias)
+        want = q.s8_matmul_reference(x, wt) + bias
+        torch.cuda.synchronize()
+        same, repeat = torch.equal(got, want), torch.equal(got, again)
+        log(f"[b] s8_matmul {name}: int32 == plain (f64) exactly: {same}; "
+            f"second launch bitwise: {repeat} "
+            f"{'ok' if same and repeat else 'FAIL'}")
+        if not (same and repeat):
+            raise SystemExit(f"phase b: s8_matmul {name} disagrees")
+        records.append({"case": f"s8_matmul {name}", "exact": same,
+                        "max_abs_err": (got.double() - want.double())
+                        .abs().max().item()})
+    f32 = dict(dtype=torch.float32, device="cuda")
+    full = torch.randint(-2 ** 31, 2 ** 31 - 1, (8, 64, 56, 57),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    small = (torch.randn((4, 128, 28, 28), generator=gen, device="cuda")
+             * 3e6).to(torch.int32)
+    # real_in 2^31 makes each int32 x exactly x * 127 / 254 = x / 2 on the
+    # via_fp32 path: every odd x is a .5 tie
+    ties = torch.arange(-4001, 4002, device="cuda", dtype=torch.int32)
+    for name, x, rin, lo, hi in (
+            ("int32 range", full, 37.5, -3.25, 2.0),
+            ("conv-like", small, 1.7e4, -9.0, 11.5),
+            ("exact .5 ties", ties, 2.0 ** 31, -254.0, 254.0),
+            ("odd length", small.reshape(-1)[3:100004], 1.7e4, -9.0,
+             11.5)):
+        for path in ("via_fp32", "fused_scale"):
+            args = (torch.tensor(rin, **f32), torch.tensor(lo, **f32),
+                    torch.tensor(hi, **f32))
+            with k5_plain_guard(q):
+                got, glo, ghi = q.requant_epilogue(x, *args, path=path)
+                again = q.requant_epilogue(x, *args, path=path)[0]
+            want, wlo, whi = q.requant_epilogue_reference(x, *args,
+                                                          path=path)
+            torch.cuda.synchronize()
+            same = (torch.equal(got, want) and torch.equal(glo, wlo)
+                    and torch.equal(ghi, whi))
+            repeat = torch.equal(got, again)
+            ok = same and repeat
+            log(f"[b] requant_int8 {path} {name} ({x.numel()} values): "
+                f"int8 and range == plain bitwise: {same}; second launch "
+                f"bitwise: {repeat} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"phase b: requant_int8 {path} {name} "
+                                 "disagrees")
+            records.append({"case": f"requant_int8 {path} {name}",
+                            "bitwise": same, "max_abs_err": (
+                                got.float() - want.float()).abs().max()
+                            .item()})
+    nan = torch.tensor(float("nan"), **f32)
+    _, nlo, nhi = q.requant_epilogue(small, torch.tensor(1.7e4, **f32),
+                                     torch.tensor(-9.0, **f32), nan)
+    poisoned = bool(torch.isnan(nlo) and torch.isnan(nhi))
+    log(f"[b] requant_int8 with a NaN range: output range NaN: {poisoned} "
+        f"{'ok' if poisoned else 'FAIL'}")
+    if not poisoned:
+        raise SystemExit("phase b: requant_int8 drops the NaN poison")
+    x = s8_rand(torch, gen, (2, 8, 9, 9))
+    for name, call in (
+            ("grouped", lambda: q.s8_conv(x, s8_rand(torch, gen,
+                                                     (8, 4, 3, 3)),
+                                          (1, 1), (1, 1), (1, 1),
+                                          num_group=2)),
+            ("NHWC", lambda: q.s8_conv(x.permute(0, 2, 3, 1).contiguous(),
+                                       s8_rand(torch, gen, (8, 3, 3, 8)),
+                                       (1, 1), (1, 1), (1, 1),
+                                       layout="NHWC"))):
+        try:
+            call()
+        except Exception as e:   # noqa: BLE001 - the raise is the check
+            log(f"[b] s8_conv {name} on CUDA raises: "
+                f"{type(e).__name__}: {str(e)[:90]} ok")
+        else:
+            raise SystemExit(f"phase b: a {name} int8 conv on CUDA did not "
+                             "raise")
+    return records
+
+
+INT8_DIR = os.path.join(ROOT, "_int8")   # gitignored: the exported model
+
+
+def int8_images(n, seed):
+    """n seeded 224^2 images, NCHW float32 (numpy): per image and channel a
+    random level plus a random sinusoidal grating, plus 10 % uniform noise.
+    A randomly initialized ResNet averages i.i.d. pixel noise away, so
+    uniform-noise images all land on one class; gratings spread the
+    logits over several classes, which gives the top-1 agreement between
+    int8 and fp32 something to measure."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    axis = np.linspace(0, 1, 224, dtype=np.float32)
+    yy, xx = np.meshgrid(axis, axis, indexing="ij")
+    out = np.empty((n, 3, 224, 224), np.float32)
+    for i in range(n):
+        for c in range(3):
+            level, amp, fy, fx, phase = rng.rand(5)
+            out[i, c] = level + amp * np.sin(
+                2 * np.pi * (8 * fy * yy + 8 * fx * xx + phase))
+    return out + 0.1 * rng.rand(n, 3, 224, 224).astype(np.float32)
+
+
+def host_ms(torch, fn, n):
+    """Host-clock ms of each of ``n`` calls of ``fn``, each ended by a
+    synchronise."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def int8_serving(torch, mx, q):
+    """Phase p: INT8 serving of ResNet-18 v1 (224^2 NCHW, 1000 classes,
+    seeded Xavier) through the entry points a user calls: export, a
+    Predictor built from the exported files with quantize="int8" (BatchNorm
+    folded, naive calibration on 32 images, the full-int8 graph), buckets
+    (1, 32, 128), each one CUDA graph. K5's counts are zeroed just before
+    the Predictor is built and read after the first predict: 20 conv, 1 FC
+    and 36 requantize launches per bucket program, on the kernels, none
+    plain. Checks the graph's op counts, int8 against the folded fp32 graph
+    on 128 other images (within 0.15 max|fp32|, top-1 agreement >= 0.75),
+    bitwise replay and padding; times img/s at bucket 128 for fp32 (the
+    Symbol-fed Predictor), bf16 (the Block-fed one) and int8, p50 per
+    bucket, and profiles one int8 predict."""
+    import collections
+    import shutil
+
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.contrib import quantization as cq
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    os.makedirs(INT8_DIR, exist_ok=True)
+    net = vision.resnet18_v1(classes=1000)
+    net.initialize(mx.init.Xavier(),
+                   generator=torch.Generator(device="cuda").manual_seed(0))
+    sym_file, params_file = net.export(os.path.join(INT8_DIR, "resnet18_v1"))
+    calib_x = int8_images(INT8_CALIB, 1)
+    x = torch.from_numpy(int8_images(128, 2)).cuda()
+    tail = {"data": (3, 224, 224)}
+
+    k5_zero_counts(q)
+    t0 = time.perf_counter()
+    with k5_plain_guard(q):
+        pred8 = serving.Predictor(
+            sym_file, params_file, input_shapes=tail,
+            batch_sizes=INT8_BUCKETS, quantize="int8",
+            calib_data=mx.io.NDArrayIter(calib_x, batch_size=16),
+            calib_mode="naive")
+        out8 = pred8.predict(x)[0]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    counts = k5_counts(q)
+    programs = 3 * len(INT8_BUCKETS)   # 2 warm-up runs + the capture each
+    want = {"s8_conv": 20 * programs, "s8_matmul": programs,
+            "requant_int8": 36 * programs}
+    ops = collections.Counter(n.op for n in pred8._symbol._topo_nodes()
+                              if not n.is_var)
+    ok = all(counts[k] == v for k, v in want.items()) and \
+        dict(ops) == INT8_OPS and counts["requant_by_path"]["fused_scale"] \
+        == 0
+    log(f"[p] resnet18_v1 exported ({sum(t.numel() for t in net.collect_params().values())} "
+        f"parameters), Predictor(quantize='int8', naive calibration on "
+        f"{INT8_CALIB} images) built and buckets {INT8_BUCKETS} captured "
+        f"in {build_s:.2f} s; graph ops {dict(ops)}; K5 launches "
+        f"{counts} over {programs} bucket programs (want {want}: per "
+        f"predict 20 conv, 1 FC, 36 requantize), none plain "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase p: the int8 graph or K5's launches are not "
+                         "what the path must run")
+
+    # the folded fp32 graph, the int8 graph's truth
+    fsym, fargs, fauxs = cq.fold_batch_norm(
+        pred8._fp32_state[0], pred8._fp32_state[1], pred8._fp32_state[2])
+    ex = fsym.bind(mx.gpu(0), {**fargs, "data": x}, aux_states=fauxs)
+    ref = ex.forward()[0]
+    err = ((out8 - ref).abs().max() / ref.abs().max()).item()
+    agree = (out8.argmax(1) == ref.argmax(1)).float().mean().item()
+    finite = bool(torch.isfinite(out8).all())
+    ok = finite and err <= INT8_TOL and agree >= INT8_AGREE and \
+        tuple(out8.shape) == (128, 1000)
+    log(f"[p] int8 logits against the folded fp32 graph on 128 other "
+        f"images: max|int8 - fp32| {err:.4e} of max|fp32| (tol "
+        f"{INT8_TOL}), top-1 agreement {agree:.3f} (>= {INT8_AGREE}), "
+        f"{len(set(ref.argmax(1).tolist()))} distinct fp32 classes, finite "
+        f"{finite} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase p: int8 logits are off the fp32 graph's")
+    again = pred8.predict(x)[0]
+    replay = torch.equal(again, out8)
+    # 16 of the 36 requantize steps (the residual adds' int32 operands,
+    # mxnet_tpu's '<name>_rq') have no calibrated range and take the
+    # batch's own: a row's answer moves with the rows beside it
+    uncal = sum(n.op == "_contrib_requantize" and
+                "min_calib_range" not in n.params
+                for n in pred8._symbol._topo_nodes())
+    pad = pred8.predict(x[:3])[0]
+    row32 = pred8.predict(x[:32])[0][:3]
+    batch_dep = ((pad - row32).abs().max() / row32.abs().max()).item()
+    log(f"[p] a second predict bitwise equal: {replay} "
+        f"{'ok' if replay else 'FAIL'}; 3 rows padded to bucket 32 against "
+        f"those rows of a full bucket-32 predict: {batch_dep:.3e} of max "
+        f"(not gated: {uncal} requantize steps take the batch's range)")
+    if not replay:
+        raise SystemExit("phase p: int8 predict does not replay bitwise")
+    nodes = graph_nodes(pred8._exec, "int8_bucket128",
+                        parts=("s8_gemm_kernel", "requant_kernel"),
+                        sig=next(s for s in pred8._exec.compiled_signatures
+                                 if s[0][0][0] == 128))
+    log(f"[p] the bucket-128 int8 graph: {nodes['kernels']} kernel nodes, "
+        f"{nodes['s8_gemm_kernel']} s8_gemm (want 21), "
+        f"{nodes['requant_kernel']} requant (want 36)")
+    if nodes["s8_gemm_kernel"] != 21 or nodes["requant_kernel"] != 36:
+        raise SystemExit("phase p: the captured int8 graph does not hold "
+                         "K5's kernels")
+
+    pred32 = serving.Predictor(sym_file, params_file, input_shapes=tail,
+                               batch_sizes=INT8_BUCKETS)
+    out32 = pred32.predict(x)[0]
+    fold_err = ((out32 - ref).abs().max() / ref.abs().max()).item()
+    net.cast("bfloat16")
+    pred16 = serving.Predictor.from_block(net, input_shapes=tail,
+                                          batch_sizes=INT8_BUCKETS,
+                                          dtype="bfloat16")
+    out16 = pred16.predict(x)[0].float()
+    bf16_err = ((out16 - out32).abs().max() / out32.abs().max()).item()
+    log(f"[p] fp32 Symbol-fed Predictor against the folded graph "
+        f"{fold_err:.2e} of max|fp32|; bf16 Block-fed Predictor against fp32 "
+        f"{bf16_err:.2e}")
+    timing = {}
+    for label, pred in (("fp32", pred32), ("bf16", pred16),
+                        ("int8", pred8)):
+        ms = host_ms(torch, lambda: pred.predict(x), INT8_PREDICTS)
+        p50 = {}
+        for b in INT8_BUCKETS:
+            lat = sorted(host_ms(torch, lambda: pred.predict(x[:b]), 11))
+            p50[b] = lat[len(lat) // 2]
+        timing[label] = {"images_per_s": 128e3 * len(ms) / sum(ms),
+                         "predict128_ms": sorted(ms)[len(ms) // 2],
+                         "p50_ms": p50}
+        log(f"[p] {label}: {timing[label]['images_per_s']:.1f} images/s at "
+            f"bucket 128 ({INT8_PREDICTS} predicts, host clock, median "
+            f"{timing[label]['predict128_ms']:.3f} ms); p50 ms per bucket "
+            + ", ".join(f"{b}: {v:.3f}" for b, v in p50.items()))
+    breakdown = profile_window(torch, lambda: pred8.predict(x),
+                               "one bucket-128 int8 predict", "p",
+                               ("s8_gemm_kernel", "requant_kernel"), top=12)
+    groups = {"convs + FC (s8_gemm)": 0.0, "requantize": 0.0,
+              "other quantized ops": 0.0}
+    for r in breakdown["all"]:
+        key = ("convs + FC (s8_gemm)" if "s8_gemm_kernel" in r["kernel"]
+               else "requantize" if "requant_kernel" in r["kernel"]
+               else "other quantized ops")
+        groups[key] += r["ms"]
+    log("[p] device ms of one int8 predict: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in groups.items()))
+    del pred32, pred16, net, ex
+    torch.cuda.empty_cache()
+    shutil.rmtree(INT8_DIR, ignore_errors=True)
+    return {"build_s": build_s, "launches": counts,
+            "launches_per_predict": {k: v / programs for k, v in
+                                     counts.items() if k in want},
+            "graph_ops": dict(ops), "graph_nodes": nodes,
+            "max_rel_err": err, "top1_agreement": agree,
+            "uncalibrated_requantize": uncal, "batch_dependence": batch_dep,
+            "fold_err": fold_err, "bf16_err": bf16_err, "timing": timing,
+            "breakdown": breakdown, "device_ms_groups": groups,
+            "predictor": pred8, "x": x}
+
+
+def k5_shapes(torch, q, pred8, x):
+    """The shapes K5 is called at on the main path: one eager walk of the
+    bucket-128 int8 graph with the wrappers recording their arguments."""
+    calls = {"conv": [], "fc": [], "requant": []}
+    saved = (q.s8_conv, q.s8_matmul, q.requant_epilogue)
+
+    def conv(data, weight, stride, pad, dilate, *a, **kw):
+        calls["conv"].append((tuple(data.shape), tuple(weight.shape),
+                              tuple(stride), tuple(pad), tuple(dilate)))
+        return saved[0](data, weight, stride, pad, dilate, *a, **kw)
+
+    def fc(xx, w, *a, **kw):
+        calls["fc"].append((tuple(xx.shape), tuple(w.shape)))
+        return saved[1](xx, w, *a, **kw)
+
+    def rq(data, *a, **kw):
+        calls["requant"].append(tuple(data.shape))
+        return saved[2](data, *a, **kw)
+
+    for shim, fn in zip((conv, fc, rq), saved):
+        # the wrappers count through their module name, now the shims
+        shim.launches, shim.launches_by_route = 0, fn.launches_by_route
+    q.s8_conv, q.s8_matmul, q.requant_epilogue = conv, fc, rq
+    try:
+        pred8._graph_forward(x)
+    finally:
+        q.s8_conv, q.s8_matmul, q.requant_epilogue = saved
+    torch.cuda.synchronize()
+    return calls
+
+
+def int8_bound(ops, nbytes):
+    """(bound ms, 'bytes' or 'operations') at the H100's int8 tensor-core
+    peak and memory rate."""
+    t_ops = ops / PEAK_INT8_OPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_k5(torch, q, pred8, x):
+    """Phase c for K5 at the main path's shapes (bucket 128): each distinct
+    conv, the FC and each requantize call, the kernel (device time) beside
+    its bound (int8 operations at 1,979 TOP/s, or bytes: each input read
+    once, each output written once), its plain version (float64), and the
+    library: torch._int_mm on the same GEMM (a conv's im2col'd matrix, K
+    padded to a multiple of 8: the GEMM alone) and cuDNN's bf16 conv on the
+    same shape; requantize has no one-call PyTorch counterpart."""
+    import collections
+
+    import torch.nn.functional as F
+
+    calls = k5_shapes(torch, q, pred8, x)
+    gen = torch.Generator(device="cuda").manual_seed(67)
+    convs = collections.Counter(calls["conv"])
+    rows = []
+    for (xs, ws, st, pd, dl), count in convs.items():
+        a = s8_rand(torch, gen, xs)
+        w = s8_rand(torch, gen, ws)
+        bias = torch.zeros(ws[0], dtype=torch.int32, device="cuda")
+        out = q.s8_conv(a, w, st, pd, dl, bias=bias)
+        m, cout = out.shape[0] * out.shape[2] * out.shape[3], ws[0]
+        k = ws[1] * ws[2] * ws[3]
+        ops = 2.0 * m * cout * k
+        nbytes = a.numel() + w.numel() + 4.0 * out.numel() + 4.0 * cout
+        bound_ms, bound_by = int8_bound(ops, nbytes)
+        ms = device_ms(lambda: q.s8_conv(a, w, st, pd, dl, bias=bias), n=10)
+        with exact_f64_convs(torch):
+            plain_ms = device_ms(lambda: q.s8_conv_reference(
+                a, w, st, pd, dl, bias=bias), n=2)
+        kp = -(-k // 8) * 8
+        cols = F.unfold(a.half(), ws[2:], dilation=dl, padding=pd,
+                        stride=st).transpose(1, 2).reshape(m, k)
+        cols = F.pad(cols, (0, kp - k)).to(torch.int8).contiguous()
+        wk = F.pad(w.reshape(cout, k), (0, kp - k)).contiguous()
+        int_mm_ms = library_ms(lambda: torch._int_mm(cols, wk.t()),
+                               "torch._int_mm")
+        ab, wb = a.bfloat16(), w.bfloat16()
+        cudnn_ms = device_ms(lambda: F.conv2d(ab, wb, None, st, pd, dl),
+                             n=10)
+        del cols, wk, ab, wb
+        rows.append({"shape": [list(xs), list(ws), list(st), list(pd)],
+                     "count": count, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "ops": ops, "bytes": nbytes, "int_mm_ms": int_mm_ms,
+                     "cudnn_bf16_ms": cudnn_ms,
+                     "tops": ops / ms / 1e9})
+        log(f"[c] s8_conv x{count} {xs} * {ws} s{st[0]} p{pd[0]}: "
+            f"{ms:.4f} ms device ({ops / ms / 1e9:.1f} TOP/s), bound "
+            f"{bound_ms:.4f} ms ({bound_by}), plain (f64) {plain_ms:.3f} ms,"
+            f" torch._int_mm on the im2col GEMM {int_mm_ms} ms, cuDNN "
+            f"bf16 conv {cudnn_ms:.4f} ms")
+        torch.cuda.empty_cache()
+    (xs, ws), = set(calls["fc"])
+    a, w = s8_rand(torch, gen, xs), s8_rand(torch, gen, ws)
+    bias = torch.zeros(ws[0], dtype=torch.int32, device="cuda")
+    ops = 2.0 * xs[0] * ws[0] * ws[1]
+    nbytes = a.numel() + w.numel() + 4.0 * xs[0] * ws[0] + 4.0 * ws[0]
+    fc_bound = int8_bound(ops, nbytes)
+    fc = {"shape": [list(xs), list(ws)], "count": len(calls["fc"]),
+          "ms": device_ms(lambda: q.s8_matmul(a, w, bias=bias), n=20),
+          "plain_ms": device_ms(lambda: q.s8_matmul_reference(a, w), n=5),
+          "bound_ms": fc_bound[0], "bound_by": fc_bound[1],
+          "library_ms": library_ms(lambda: torch._int_mm(a, w.t()),
+                                   "torch._int_mm")}
+    log(f"[c] s8_matmul {xs} x {ws}^T: {fc['ms']:.4f} ms device, bound "
+        f"{fc['bound_ms']:.5f} ms ({fc['bound_by']}), plain (f64) "
+        f"{fc['plain_ms']:.4f} ms, torch._int_mm {fc['library_ms']} ms")
+    f32 = dict(dtype=torch.float32, device="cuda")
+    scal = (torch.tensor(3.1e4, **f32), torch.tensor(-7.0, **f32),
+            torch.tensor(6.5, **f32))
+    rq = []
+    for shape, count in collections.Counter(calls["requant"]).items():
+        d = torch.randint(-2 ** 24, 2 ** 24, shape, generator=gen,
+                          device="cuda", dtype=torch.int32)
+        n = d.numel()
+        rq.append({"shape": list(shape), "count": count,
+                   "ms": device_ms(lambda: q.requant_epilogue(d, *scal),
+                                   n=20),
+                   "plain_ms": device_ms(
+                       lambda: q.requant_epilogue_reference(d, *scal), n=5),
+                   "bound_ms": int8_bound(0, 5.0 * n + 24)[0],
+                   "bytes": 5.0 * n + 24})
+    req = {"calls": len(calls["requant"]),
+           "ms": sum(r["ms"] * r["count"] for r in rq),
+           "plain_ms": sum(r["plain_ms"] * r["count"] for r in rq),
+           "bound_ms": sum(r["bound_ms"] * r["count"] for r in rq),
+           "bytes": sum(r["bytes"] * r["count"] for r in rq),
+           "per_shape": rq}
+    log(f"[c] requant_int8 (via_fp32) over the {req['calls']} calls of one "
+        f"bucket-128 predict ({len(rq)} shapes): {req['ms']:.4f} ms device, "
+        f"bound {req['bound_ms']:.4f} ms (bytes: {req['bytes'] / 1e9:.3f} "
+        f"GB), {req['bound_ms'] / req['ms']:.1%} of bound; plain "
+        f"{req['plain_ms']:.4f} ms")
+    conv = {k: (None if any(r[k] is None for r in rows) else
+                sum(r[k] * r["count"] for r in rows))
+            for k in ("ms", "plain_ms", "bound_ms", "ops", "bytes",
+                      "int_mm_ms", "cudnn_bf16_ms")}
+    conv["bound_by"] = ("bytes" if conv["bytes"] / PEAK_BYTES
+                        >= conv["ops"] / PEAK_INT8_OPS else "operations")
+    conv["calls"] = len(calls["conv"])
+    conv["per_shape"] = rows
+    log(f"[c] s8_conv over the {conv['calls']} convs of one bucket-128 "
+        f"predict: {conv['ms']:.4f} ms device, bound {conv['bound_ms']:.4f} "
+        f"ms ({conv['bound_by']}: {conv['ops'] / 1e9:.1f} GOP, "
+        f"{conv['bytes'] / 1e9:.3f} GB), {conv['bound_ms'] / conv['ms']:.1%}"
+        f" of bound; plain {conv['plain_ms']:.3f} ms; torch._int_mm "
+        f"{conv['int_mm_ms']} ms, cuDNN bf16 {conv['cudnn_bf16_ms']:.4f}"
+        " ms")
+    return {"conv": conv, "fc": fc, "requant": req}
+
+
+def library_ms(fn, what):
+    """device_ms of a library call, or None (logged) where the library
+    refuses the call."""
+    try:
+        return device_ms(fn, n=10)
+    except RuntimeError as e:
+        log(f"[c] {what} refused: {str(e)[:120]} (library time not "
+            "measured)")
+        return None
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -5157,6 +5780,9 @@ def main(argv=None):
                     help="also write the measurements to PATH as JSON")
     ap.add_argument("--multirank-only", action="store_true",
                     help="build, then run phase o (4 ranks) only")
+    ap.add_argument("--int8-only", action="store_true",
+                    help="build, then run K5's checks, phase p and K5's "
+                         "timing only")
     args = ap.parse_args(argv)
     if args.summary:
         GRAPH_DIR.append(os.path.join(
@@ -5172,6 +5798,7 @@ def main(argv=None):
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import _build, kernels
     from mxnet_tpu_torch.ops import decode_attention as da
+    from mxnet_tpu_torch.ops import quantization as q
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5188,7 +5815,8 @@ def main(argv=None):
             log(f"[a] ptxas advisory ({name}): {line}")
         for entry, usage in ptxas_usage(_build.build_log(name)):
             log(f"[a] ptxas {entry}: {usage}")
-            if name.endswith(("_tc", "_tf32x3", "_int8")) and not re.search(
+            if name.endswith(("_tc", "_tf32x3", "_int8", "s8_gemm")) and \
+                    not re.search(
                     r"\b0 bytes spill stores, 0 bytes spill loads", usage):
                 raise SystemExit(f"phase a: {entry} spills registers")
 
@@ -5196,12 +5824,19 @@ def main(argv=None):
         multirank_phase(torch, mx, kernels)
         log("[multirank-only] phase o passed; phases b-n skipped")
         return 0
+    if args.int8_only:
+        check_k5(torch, q)
+        int8 = int8_serving(torch, mx, q)
+        time_k5(torch, q, int8.pop("predictor"), int8.pop("x"))
+        log("[int8-only] K5's checks, phase p and K5's timing passed")
+        return 0
     checks, slice_err, slice_err32 = check_flash(torch, kernels)
     bwd_checks, bwd_slice_err, bwd_slice_err32 = check_flash_bwd(torch,
                                                                  kernels)
     conv_checks = check_conv(torch, kernels)
     dec_checks, dec_errs = check_decode_attention(torch, da)
     write_checks = check_kv_write(torch, da)
+    k5_checks = check_k5(torch, q)
     if args.quick:
         log("[quick] phase b passed; phases c-n skipped")
         return 0
@@ -5228,6 +5863,8 @@ def main(argv=None):
     captured = capture_phase(torch, mx, kernels)
     fp32_training = train_fp32_lm(torch, mx, kernels)
     decoding = decode_phase(torch, mx, kernels)
+    int8 = int8_serving(torch, mx, q)
+    k5_timing = time_k5(torch, q, int8.pop("predictor"), int8.pop("x"))
     multirank = multirank_phase(torch, mx, kernels)
     rank0 = multirank["per_rank"][0]
 
@@ -5296,7 +5933,9 @@ def main(argv=None):
         "whole_sequence_plain_k1_ms": multirank["whole_sequence_ms"][
             "bfloat16"]["plain_k1_ms"],
         "ring_k1_k2_bound_ms": multirank["whole_sequence_ms"]["bfloat16"][
-            "bound"][0]}, {
+            "bound"][0],
+        "ring_library_ms": multirank["whole_sequence_ms"]["bfloat16"][
+            "sdpa_ms"]}, {
         "name": "flash_attn_bwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_bwd_tc.cu",
         "sources": k2_sources,
@@ -5415,7 +6054,9 @@ def main(argv=None):
         "whole_sequence_plain_k1_ms": multirank["whole_sequence_ms"][
             "float32"]["plain_k1_ms"],
         "ring_k1_k2_bound_ms": multirank["whole_sequence_ms"]["float32"][
-            "bound"][0]}, {
+            "bound"][0],
+        "ring_library_ms": multirank["whole_sequence_ms"]["float32"][
+            "sdpa_ms"]}, {
         "name": "flash_attn_bwd_tf32x3", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_bwd_tf32x3.cu",
         "sources": k2_sources,
@@ -5497,7 +6138,36 @@ def main(argv=None):
         "bound_ms": write_timing["bound_ms"],
         "bound_by": write_timing["bound_by"], "library_ms": None,
         "step_device_ms": decoding["int8"]["step"]["write_ms"],
-        "step_launches": decoding["int8"]["step"]["write_launches"]}]}
+        "step_launches": decoding["int8"]["step"]["write_launches"]}] + [{
+        # phase p's path: the int8 ResNet-18's 20 convs, its FC and 36
+        # requantize steps in every bucket program (enqueued at each
+        # bucket's 2 warm-up runs and its capture; replays add none);
+        # times from phase c at bucket 128's shapes, summed over the calls
+        # of one predict
+        "name": name, "route": "cuda", "source": f"mxnet_tpu_torch/{src}",
+        "replaces": f"mxnet_tpu/ops/quantization.py:{line}",
+        "launches": int8["launches"][key],
+        "launches_per_predict": int8["launches_per_predict"][key],
+        "max_abs_err": max(r["max_abs_err"] for r in k5_checks
+                           if r["case"].startswith(prefix)),
+        "check": f"{sum(r['case'].startswith(prefix) for r in k5_checks)} "
+                 f"cases of phase b {how}",
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t.get("bound_by", "bytes"), "library_ms": lib,
+        **extra}
+        for name, src, line, key, prefix, how, t, lib, extra in (
+            ("s8_conv", "csrc/s8_gemm.cu", 190, "s8_conv", "s8_conv",
+             "exactly equal (int32) to the float64 plain version",
+             k5_timing["conv"], k5_timing["conv"]["int_mm_ms"],
+             {"cudnn_bf16_ms": k5_timing["conv"]["cudnn_bf16_ms"],
+              "per_shape": k5_timing["conv"]["per_shape"]}),
+            ("s8_matmul", "csrc/s8_gemm.cu", 174, "s8_matmul", "s8_matmul",
+             "exactly equal (int32) to the float64 plain version",
+             k5_timing["fc"], k5_timing["fc"]["library_ms"], {}),
+            ("requant_int8", "csrc/requant_int8.cu", 207, "requant_int8",
+             "requant_int8", "bitwise equal to the plain version, both "
+             "paths", k5_timing["requant"], None,
+             {"per_shape": k5_timing["requant"]["per_shape"]}))]}
     kind = torch.cuda.get_device_name(0)
     if args.summary:
         os.makedirs(os.path.dirname(os.path.abspath(args.summary)),
@@ -5522,6 +6192,8 @@ def main(argv=None):
                        "write_checks": write_checks,
                        "write_timing": write_timing,
                        "multirank": multirank,
+                       "k5_checks": k5_checks, "int8": int8,
+                       "k5_timing": k5_timing,
                        **record}, f,
                       indent=1)
     log(card)

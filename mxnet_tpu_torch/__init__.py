@@ -30,6 +30,17 @@ weights, bf16 forward and backward, on a one-card mesh.
         dtype="bfloat16")
     loss = trainer.step(x, y)          # a 0-d tensor on the card
     trainer.sync_to_net()
+
+INT8 serving of an exported graph (``mxnet_tpu``'s Predictor flow): fold
+BatchNorm, calibrate, quantize, and serve each bucket as one CUDA graph.
+
+    sym_file, params_file = net.export("resnet18")
+    pred = mx.serving.Predictor(sym_file, params_file,
+                                input_shapes={"data": (3, 224, 224)},
+                                batch_sizes=(1, 32, 128), quantize="int8",
+                                calib_data=mx.io.NDArrayIter(x, batch_size=16),
+                                calib_mode="naive")
+    logits = pred.predict(images)[0]
 """
 from __future__ import annotations
 
@@ -39,7 +50,11 @@ from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import autograd, optimizer, ops, gluon, serving  # noqa: F401
 from . import lr_scheduler, metric, parallel, capture  # noqa: F401
+from . import symbol, executor, io, contrib, ndarray  # noqa: F401
+from . import symbol as sym  # noqa: F401
+from . import ndarray as nd  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
            "initializer", "init", "autograd", "optimizer", "ops", "gluon",
-           "serving", "lr_scheduler", "metric", "parallel", "capture"]
+           "serving", "lr_scheduler", "metric", "parallel", "capture",
+           "symbol", "sym", "executor", "io", "contrib", "ndarray", "nd"]

@@ -9,6 +9,15 @@ names, letter for letter, as ``mxnet_tpu``. Subclasses write ``forward``
 on tensors. ``hybridize()`` is accepted and does nothing: PyTorch runs
 eagerly. As in MXNet, a Block called outside ``autograd.record()`` records
 nothing: it runs under ``torch.no_grad()``.
+
+Called on a :class:`~mxnet_tpu_torch.symbol.Symbol`, a Block builds the
+graph instead (``mxnet_tpu/gluon/block.py:405-420``): a layer that defines
+``hybrid_forward(F, x, **params)`` gets ``F = mx.sym`` and its parameters
+as variables, and writes the same nodes, names and parameters as
+``mxnet_tpu``'s layer; a composite Block runs its ``forward``, whose
+children and ``ops`` functions build on the Symbol in turn.
+:meth:`HybridBlock.export` writes ``-symbol.json`` and ``-%04d.params``
+(``mxnet_tpu/gluon/block.py:451``).
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ from torch import nn
 from ..base import MXNetError, torch_dtype
 from ..context import as_device
 from .. import autograd, initializer
+from ..ops import registry as _registry
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock", "ParameterTensors"]
@@ -97,10 +107,20 @@ class Block(nn.Module):
         self._reg_params = OrderedDict()  # attribute -> Parameter
 
     def __call__(self, *args, **kwargs):
+        if args and _is_symbol(args[0]):
+            return self._call_symbolic(*args)
         if torch.is_grad_enabled() and not autograd.is_recording():
             with torch.no_grad():
                 return super().__call__(*args, **kwargs)
         return super().__call__(*args, **kwargs)
+
+    def _call_symbolic(self, *args):
+        """The graph of this Block on Symbol inputs."""
+        if getattr(type(self), "hybrid_forward", None) is not None:
+            from .. import symbol
+            params = {name: p.var() for name, p in self._reg_params.items()}
+            return self.hybrid_forward(symbol, *args, **params)
+        return self.forward(*args)
 
     def __setattr__(self, name, value):
         if isinstance(value, Parameter):
@@ -202,4 +222,24 @@ class Block(nn.Module):
 
 class HybridBlock(Block):
     """A Block that MXNet could hybridize (gluon/block.py:839). In the port
-    it is an ordinary eager ``nn.Module``."""
+    it is an ordinary eager ``nn.Module`` that can also build its Symbol
+    graph."""
+
+    def export(self, path, epoch=0):
+        """Write the graph on ``data`` to ``<path>-symbol.json`` and every
+        initialized parameter to ``<path>-<epoch:04d>.params``, in
+        ``mxnet_tpu``'s formats; returns the two file names."""
+        from .. import ndarray, symbol
+        out = self(symbol.var("data"))
+        if isinstance(out, (list, tuple)):
+            out = symbol.Group(list(out))
+        out.save(f"{path}-symbol.json")
+        params = {name: t for name, t in self.collect_params().items()
+                  if t is not None}
+        ndarray.save(f"{path}-{epoch:04d}.params", params)
+        return f"{path}-symbol.json", f"{path}-{epoch:04d}.params"
+
+
+def _is_symbol(x):
+    cls = _registry._SYMBOL_CLS     # set once the symbol module is loaded
+    return cls is not None and isinstance(x, cls)

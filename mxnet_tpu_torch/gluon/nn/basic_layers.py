@@ -62,6 +62,12 @@ class Dense(HybridBlock):
                                   flatten=self._flatten)
         return self.act(out) if self.act is not None else out
 
+    def hybrid_forward(self, F, x, weight, bias=None):
+        """The graph (``mxnet_tpu/gluon/nn/basic_layers.py:134``)."""
+        out = F.FullyConnected(x, weight, bias, no_bias=bias is None,
+                               num_hidden=self._units, flatten=self._flatten)
+        return self.act(out) if self.act is not None else out
+
 
 class BatchNorm(HybridBlock):
     """Batch normalization (gluon/nn/basic_layers.py:282;
@@ -113,6 +119,10 @@ class BatchNorm(HybridBlock):
             self._reg_params["running_var"].set_data(var)
         return out
 
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                           name="fwd", **self._kwargs)
+
 
 class LayerNorm(HybridBlock):
     """Layer normalization over the last axis (gluon/nn/basic_layers.py:546).
@@ -160,6 +170,9 @@ class Flatten(HybridBlock):
     def forward(self, x):
         return _nn.flatten(x)
 
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)
+
 
 class Activation(HybridBlock):
     """Applies an activation function; ``"gelu"`` is the tanh form."""
@@ -173,6 +186,9 @@ class Activation(HybridBlock):
 
     def forward(self, x):
         return _nn.activation(x, act_type=self._act_type)
+
+    def hybrid_forward(self, F, x):
+        return F.Activation(x, act_type=self._act_type, name="fwd")
 
 
 class LeakyReLU(HybridBlock):

@@ -66,6 +66,14 @@ class _Conv(HybridBlock):
         out = _nn.convolution(x, self.weight, self.bias, **self._kwargs)
         return self.act(out) if self.act is not None else out
 
+    def hybrid_forward(self, F, x, weight, bias=None):
+        """The graph (``mxnet_tpu/gluon/nn/conv_layers.py:76``)."""
+        if bias is None:
+            out = F.Convolution(x, weight, name="fwd", **self._kwargs)
+        else:
+            out = F.Convolution(x, weight, bias, name="fwd", **self._kwargs)
+        return self.act(out) if self.act is not None else out
+
 
 class Conv2D(_Conv):
     """2D convolution (gluon/nn/conv_layers.py:257)."""
@@ -104,6 +112,9 @@ class _Pooling(HybridBlock):
 
     def forward(self, x):
         return _nn.pooling(x, **self._kwargs)
+
+    def hybrid_forward(self, F, x):
+        return F.Pooling(x, name="fwd", **self._kwargs)
 
 
 class MaxPool2D(_Pooling):

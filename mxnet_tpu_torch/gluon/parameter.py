@@ -56,6 +56,7 @@ class Parameter:
         self._owner = None
         self._attr = None
         self._hooked = None      # weakref to the tensor with the 'write' hook
+        self._var = None
         self.grad_req = grad_req
 
     @property
@@ -116,6 +117,13 @@ class Parameter:
 
     def list_data(self):
         return [self.data()]
+
+    def var(self):
+        """The Symbol variable of this parameter (one per Parameter)."""
+        if self._var is None:
+            from .. import symbol
+            self._var = symbol.var(self.name)
+        return self._var
 
     def grad(self):
         """The gradient buffer: zeros until a backward writes it, as

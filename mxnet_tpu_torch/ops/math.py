@@ -7,6 +7,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import torch_dtype
+from .registry import register
 
 __all__ = ["embedding", "pick", "sum", "mean", "arange", "transpose",
            "space_to_depth"]
@@ -89,3 +90,37 @@ def space_to_depth(data, block_size=1):
     b = block_size
     x = data.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
     return x.reshape(n, c * b * b, h // b, w // b)
+
+
+# The Symbol operators' ops under their MXNet names
+# (``mxnet_tpu/ops/math.py:35-72, 109``)
+register("elemwise_add", aliases=("broadcast_add", "broadcast_plus",
+                                  "_plus", "_add"))(lambda a, b: a + b)
+register("elemwise_sub", aliases=("broadcast_sub", "broadcast_minus",
+                                  "_sub", "_minus"))(lambda a, b: a - b)
+register("elemwise_mul", aliases=("broadcast_mul", "_mul"))(
+    lambda a, b: a * b)
+register("elemwise_div", aliases=("broadcast_div", "_div"))(
+    lambda a, b: a / b)
+register("negative")(lambda a: -a)
+
+
+@register("elemwise_add_scalar", aliases=("_plus_scalar",))
+def _add_scalar(a, scalar=0.0, reverse=False):
+    return a + scalar
+
+
+@register("elemwise_sub_scalar", aliases=("_minus_scalar",
+                                          "_rminus_scalar"))
+def _sub_scalar(a, scalar=0.0, reverse=False):
+    return scalar - a if reverse else a - scalar
+
+
+@register("elemwise_mul_scalar", aliases=("_mul_scalar",))
+def _mul_scalar(a, scalar=1.0, reverse=False):
+    return a * scalar
+
+
+@register("elemwise_div_scalar", aliases=("_div_scalar", "_rdiv_scalar"))
+def _div_scalar(a, scalar=1.0, reverse=False):
+    return torch.full_like(a, scalar) / a if reverse else a / scalar

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import torch_dtype
+from .registry import register, symbolic
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
            "sync_batch_stats", "batch_stats_sync", "layer_norm",
@@ -247,6 +248,7 @@ _ACTIVATIONS = {
 }
 
 
+@symbolic("Activation")
 def activation(data, act_type="relu"):
     try:
         fn = _ACTIVATIONS[act_type]
@@ -318,3 +320,64 @@ def scaled_dot_product_attention(q, k, v, mask=None, causal=False,
         logits = logits.masked_fill(~mask.to(torch.bool), _NEG)
     w = torch.softmax(logits, dim=-1)
     return torch.matmul(w, v)
+
+
+# ------------------------------------------------- ops under their MXNet names
+# The Symbol layer's graphs name these (``mxnet_tpu/ops/nn.py:34, 73, 138,
+# 242, 332``); the signatures are ``mxnet_tpu``'s, so the symbol creators
+# find the same array inputs and the JSON the same parameters.
+
+@register("FullyConnected", aliases=("fully_connected",))
+def _fully_connected_op(data, weight, bias=None, num_hidden=None,
+                        no_bias=False, flatten=True):
+    return fully_connected(data, weight, None if no_bias else bias,
+                           flatten=flatten)
+
+
+@register("Convolution")
+def _convolution_op(data, weight, bias=None, kernel=None, stride=None,
+                    dilate=None, pad=None, num_filter=None, num_group=1,
+                    no_bias=False, cudnn_tune=None, cudnn_off=False,
+                    workspace=None, layout=None):
+    return convolution(data, weight, bias, kernel=kernel, stride=stride,
+                       dilate=dilate, pad=pad, num_filter=num_filter,
+                       num_group=num_group, no_bias=no_bias, layout=layout)
+
+
+@register("Pooling")
+def _pooling_op(data, kernel=None, pool_type="max", global_pool=False,
+                stride=None, pad=None, pooling_convention="valid",
+                count_include_pad=True, cudnn_off=False, p_value=2,
+                layout=None):
+    return pooling(data, kernel=kernel, pool_type=pool_type,
+                   global_pool=global_pool, stride=stride, pad=pad,
+                   pooling_convention=pooling_convention,
+                   count_include_pad=count_include_pad, layout=layout)
+
+
+@register("BatchNorm", aliases=("batch_norm",), mutate=(3, 4))
+def _batch_norm_op(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                   momentum=0.9, fix_gamma=True, use_global_stats=False,
+                   output_mean_var=False, axis=1, cudnn_off=False,
+                   min_calib_range=None, max_calib_range=None, _train=True):
+    """Returns (out, new_moving_mean, new_moving_var): one output, the
+    moving statistics through the mutate slots."""
+    return batch_norm(data, gamma, beta, moving_mean, moving_var, eps=eps,
+                      momentum=momentum, fix_gamma=fix_gamma,
+                      use_global_stats=use_global_stats, axis=axis,
+                      _train=_train)
+
+
+@register("Activation")
+def _activation_op(data, act_type="relu"):
+    return activation(data, act_type=act_type)
+
+
+@register("Flatten", aliases=("flatten",))
+def _flatten_op(data):
+    return flatten(data)
+
+
+@register("softmax")
+def _softmax_op(data, axis=-1, temperature=None, dtype=None):
+    return softmax(data, axis=axis, temperature=temperature, dtype=dtype)

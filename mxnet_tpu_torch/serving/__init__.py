@@ -1,9 +1,10 @@
 """mxnet_tpu_torch.serving — the inference runtime (subset of
 ``mxnet_tpu/serving``).
 
-- :class:`Predictor` wraps an initialized Block and runs one batch per
-  ``predict`` call, padded to the nearest declared batch bucket and sliced
-  back to the caller's rows.
+- :class:`Predictor` serves a Symbol with its params (fp32 or, with
+  ``quantize="int8"``, the calibrated full-int8 graph) or an initialized
+  Block, one batch per ``predict`` call, padded to the nearest declared
+  batch bucket and sliced back to the caller's rows.
 - :class:`BatchServer` is a thread-safe dynamic batcher over a Predictor:
   concurrent ``submit()`` calls return futures, requests coalesce up to
   ``max_batch_size`` rows or ``batch_timeout_ms``, and each future gets
@@ -34,6 +35,7 @@ _STATS = {
     "serving_unbucketed": 0,       # batches larger than every bucket
     "serving_batch_samples": 0,    # rows executed (bucket-padded)
     "serving_padded_samples": 0,   # of which padding (waste)
+    "serving_quantized_predictors": 0,  # Predictor.quantize() rewrites
     # BatchServer
     "serving_requests": 0,         # accepted submits
     "serving_batches": 0,          # coalesced batch executions
