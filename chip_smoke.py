@@ -74,11 +74,14 @@ Phases, each failing loudly with a non-zero exit:
       the int8 pools on both int8 routes, beside its bytes bound, its
       plain version and one SDPA call over the same KV already contiguous,
       which takes no page table; the int8 write at the step's shape beside
-      its plain chain and bound; K5, after phase p, at the shapes phase p's
-      bucket-128 program calls it with: each conv beside its bound at the
-      int8 tensor-core peak or the bytes, the float64 plain version,
-      torch._int_mm on the same im2col'd GEMM and cuDNN's bf16 conv; the FC
-      beside torch._int_mm; the 36 requantize calls beside their bytes);
+      its plain chain and bound; K5, after phase p, on one eager walk of
+      phase p's bucket-128 int8 graph: each of its 20 convs, its FC and its
+      36 requantize calls held on the inputs the path gave it to the plain
+      version (int32 exactly, requantize bitwise), then on those inputs
+      each conv shape timed beside its bound at the int8 tensor-core peak
+      or the bytes, the float64 plain version, torch._int_mm on the same
+      im2col'd GEMM and cuDNN's bf16 conv; the FC beside torch._int_mm;
+      each requantize shape beside its bytes);
   (d) the slice: TransformerLM(impl='flash') at GPT-2-small widths in
       bf16, behind Predictor + BatchServer, served to concurrent
       requests: each bucket captured as a CUDA graph at the predictor's
@@ -5609,35 +5612,129 @@ def int8_serving(torch, mx, q):
             "predictor": pred8, "x": x}
 
 
-def k5_shapes(torch, q, pred8, x):
-    """The shapes K5 is called at on the main path: one eager walk of the
-    bucket-128 int8 graph with the wrappers recording their arguments."""
-    calls = {"conv": [], "fc": [], "requant": []}
-    saved = (q.s8_conv, q.s8_matmul, q.requant_epilogue)
+K5_NODE_OPS = {"_contrib_quantized_conv": "conv",
+               "_contrib_quantized_fully_connected": "fc",
+               "_contrib_requantize": "requant"}
 
-    def conv(data, weight, stride, pad, dilate, *a, **kw):
-        calls["conv"].append((tuple(data.shape), tuple(weight.shape),
-                              tuple(stride), tuple(pad), tuple(dilate)))
-        return saved[0](data, weight, stride, pad, dilate, *a, **kw)
 
-    def fc(xx, w, *a, **kw):
-        calls["fc"].append((tuple(xx.shape), tuple(w.shape)))
-        return saved[1](xx, w, *a, **kw)
+def k5_path(torch, q, pred8, x):
+    """K5's calls on the main path: one eager walk of the bucket-128 int8
+    graph that each bucket captures, on the same feeds, through the
+    executor's tap. Returns {"conv" | "fc" | "requant": [(inputs by the op
+    function's parameter names, the node's outputs)]} in graph order."""
+    import inspect
 
-    def rq(data, *a, **kw):
-        calls["requant"].append(tuple(data.shape))
-        return saved[2](data, *a, **kw)
+    from mxnet_tpu_torch.ops import registry
 
-    for shim, fn in zip((conv, fc, rq), saved):
-        # the wrappers count through their module name, now the shims
-        shim.launches, shim.launches_by_route = 0, fn.launches_by_route
-    q.s8_conv, q.s8_matmul, q.requant_epilogue = conv, fc, rq
-    try:
-        pred8._graph_forward(x)
-    finally:
-        q.s8_conv, q.s8_matmul, q.requant_epilogue = saved
+    outs = {}
+
+    def tap(node, i, t):
+        outs[(id(node), i)] = t
+
+    values = dict(pred8._arg_params, **pred8._aux_params)
+    values[pred8.input_names[0]] = x
+    with torch.inference_mode():
+        pred8._graph.run([values[n] for n in pred8._arg_names],
+                         [values[n] for n in pred8._aux_names], tap=tap)
     torch.cuda.synchronize()
+    calls = {"conv": [], "fc": [], "requant": []}
+    for n in pred8._symbol._topo_nodes():
+        if n.is_var or registry.get_op(n.op).name not in K5_NODE_OPS:
+            continue
+        op = registry.get_op(n.op)
+        ins = [values[i.name] if i.is_var else outs[(id(i), s)]
+               for i, s in n.inputs]
+        bound = inspect.signature(op.fn).bind(*ins, **op.normalize(n.params))
+        bound.apply_defaults()
+        calls[K5_NODE_OPS[op.name]].append((
+            dict(bound.arguments),
+            [outs[(id(n), i)] for i in range(op.num_outputs)]))
     return calls
+
+
+def k5_conv_args(q, a):
+    """(data, weight, stride, pad, dilate, int32 bias) of a quantized conv
+    node's call of s8_conv, from its inputs and parameters."""
+    sdims = a["data"].dim() - 2
+    b = q._s8s8_bias(a["bias"], a["min_data"], a["max_data"],
+                     a["min_weight"], a["max_weight"], a["min_bias"],
+                     a["max_bias"], a["no_bias"])[2]
+    return (a["data"], a["weight"], q._pairs(a["stride"] or 1, sdims),
+            q._pairs(a["pad"] or 0, sdims), q._pairs(a["dilate"] or 1, sdims),
+            b)
+
+
+def k5_fc_args(q, a):
+    """(x, weight, int32 bias) of a quantized FC node's call of
+    s8_matmul."""
+    d = a["data"]
+    x = d.reshape(d.shape[0], -1) if a["flatten"] and d.dim() > 2 else d
+    b = q._s8s8_bias(a["bias"], a["min_data"], a["max_data"],
+                     a["min_weight"], a["max_weight"], a["min_bias"],
+                     a["max_bias"], a["no_bias"])[2]
+    return x, a["weight"], b
+
+
+def k5_requant_args(q, a):
+    """(data, real_in, out_min, out_max) of a requantize node's call of
+    requant_epilogue."""
+    return (a["data"], *q._requant_ranges(
+        a["data"], a["min_range"], a["max_range"], a["min_calib_range"],
+        a["max_calib_range"]))
+
+
+def int_err(torch, got, want):
+    """max |got - want| over int tensors, exactly (as int64)."""
+    return (got.long() - want.long()).abs().max().item()
+
+
+def check_k5_path(torch, q, calls):
+    """Each K5 call of one bucket-128 predict, held to its plain version
+    on the inputs the path gave it: every conv's and the FC's int32 output
+    exactly equal to the float64 plain version with the same int32 bias,
+    every requantize's int8 output and range bitwise equal. Returns the
+    largest |kernel - plain| of each."""
+    errs = {}
+    for kind, plain in (("conv", q.s8_conv_reference),
+                        ("fc", q.s8_matmul_reference)):
+        worst = 0
+        for a, res in calls[kind]:
+            if kind == "conv":
+                *args, b = k5_conv_args(q, a)
+                with exact_f64_convs(torch):
+                    ref = plain(*args, bias=b)
+            else:
+                xx, w, b = k5_fc_args(q, a)
+                ref = plain(xx, w)
+                ref = ref if b is None else ref + b
+            err = int_err(torch, res[0], ref)
+            if err or res[0].dtype != torch.int32 or \
+                    res[0].shape != ref.shape:
+                raise SystemExit(
+                    f"phase c: K5 {kind} on the path's inputs "
+                    f"{tuple(a['data'].shape)} differs from its plain "
+                    f"version (max |diff| {err})")
+            worst = max(worst, err)
+            del ref
+        errs[kind] = worst
+        log(f"[c] K5 {kind}: the {len(calls[kind])} calls of one bucket-128 "
+            f"predict, on the path's own inputs, exactly equal (int32) to "
+            f"the float64 plain version ok")
+    for a, res in calls["requant"]:
+        d, real_in, lo, hi = k5_requant_args(q, a)
+        ref = q.requant_epilogue_reference(
+            d, real_in.reshape(()), lo.reshape(()), hi.reshape(()))
+        same = all(torch.equal(g, w) for g, w in zip(res, ref))
+        if not same:
+            raise SystemExit(
+                f"phase c: K5 requantize on the path's {tuple(d.shape)} "
+                f"input differs from its plain version (max |diff| "
+                f"{int_err(torch, res[0], ref[0])})")
+    errs["requant"] = 0
+    log(f"[c] K5 requantize: the {len(calls['requant'])} calls of one "
+        "bucket-128 predict, on the path's own inputs, bitwise equal to "
+        "the plain version (int8 and range) ok")
+    return errs
 
 
 def int8_bound(ops, nbytes):
@@ -5649,30 +5746,33 @@ def int8_bound(ops, nbytes):
 
 
 def time_k5(torch, q, pred8, x):
-    """Phase c for K5 at the main path's shapes (bucket 128): each distinct
-    conv, the FC and each requantize call, the kernel (device time) beside
-    its bound (int8 operations at 1,979 TOP/s, or bytes: each input read
-    once, each output written once), its plain version (float64), and the
-    library: torch._int_mm on the same GEMM (a conv's im2col'd matrix, K
-    padded to a multiple of 8: the GEMM alone) and cuDNN's bf16 conv on the
-    same shape; requantize has no one-call PyTorch counterpart."""
-    import collections
-
+    """Phase c for K5 at the main path's calls (bucket 128): each call held
+    to its plain version on the path's own inputs (:func:`check_k5_path`);
+    then, on those inputs, each distinct conv, the FC and each requantize
+    shape timed: the kernel (device time) beside its bound (int8
+    operations at 1,979 TOP/s, or bytes: each input read once, each output
+    written once), its plain version (float64), and the library:
+    torch._int_mm on the same GEMM (a conv's im2col'd matrix, K padded to a
+    multiple of 8: the GEMM alone) and cuDNN's bf16 conv on the same shape;
+    requantize has no one-call PyTorch counterpart."""
     import torch.nn.functional as F
 
-    calls = k5_shapes(torch, q, pred8, x)
-    gen = torch.Generator(device="cuda").manual_seed(67)
-    convs = collections.Counter(calls["conv"])
+    calls = k5_path(torch, q, pred8, x)
+    errs = check_k5_path(torch, q, calls)
+    convs = {}
+    for a, _ in calls["conv"]:
+        args = k5_conv_args(q, a)
+        key = (tuple(args[0].shape), tuple(args[1].shape)) + args[2:5]
+        convs.setdefault(key, [args, 0])[1] += 1
     rows = []
-    for (xs, ws, st, pd, dl), count in convs.items():
-        a = s8_rand(torch, gen, xs)
-        w = s8_rand(torch, gen, ws)
-        bias = torch.zeros(ws[0], dtype=torch.int32, device="cuda")
-        out = q.s8_conv(a, w, st, pd, dl, bias=bias)
-        m, cout = out.shape[0] * out.shape[2] * out.shape[3], ws[0]
-        k = ws[1] * ws[2] * ws[3]
+    for (xs, ws, st, pd, dl), ((a, w, _, _, _, bias), count) in \
+            convs.items():
+        cout, k = ws[0], ws[1] * ws[2] * ws[3]
+        ho = (xs[2] + 2 * pd[0] - dl[0] * (ws[2] - 1) - 1) // st[0] + 1
+        wo = (xs[3] + 2 * pd[1] - dl[1] * (ws[3] - 1) - 1) // st[1] + 1
+        m = xs[0] * ho * wo
         ops = 2.0 * m * cout * k
-        nbytes = a.numel() + w.numel() + 4.0 * out.numel() + 4.0 * cout
+        nbytes = a.numel() + w.numel() + 4.0 * m * cout + 4.0 * cout
         bound_ms, bound_by = int8_bound(ops, nbytes)
         ms = device_ms(lambda: q.s8_conv(a, w, st, pd, dl, bias=bias), n=10)
         with exact_f64_convs(torch):
@@ -5701,9 +5801,9 @@ def time_k5(torch, q, pred8, x):
             f" torch._int_mm on the im2col GEMM {int_mm_ms} ms, cuDNN "
             f"bf16 conv {cudnn_ms:.4f} ms")
         torch.cuda.empty_cache()
-    (xs, ws), = set(calls["fc"])
-    a, w = s8_rand(torch, gen, xs), s8_rand(torch, gen, ws)
-    bias = torch.zeros(ws[0], dtype=torch.int32, device="cuda")
+    (fa, _), = calls["fc"]
+    a, w, bias = k5_fc_args(q, fa)
+    xs, ws = tuple(a.shape), tuple(w.shape)
     ops = 2.0 * xs[0] * ws[0] * ws[1]
     nbytes = a.numel() + w.numel() + 4.0 * xs[0] * ws[0] + 4.0 * ws[0]
     fc_bound = int8_bound(ops, nbytes)
@@ -5716,13 +5816,12 @@ def time_k5(torch, q, pred8, x):
     log(f"[c] s8_matmul {xs} x {ws}^T: {fc['ms']:.4f} ms device, bound "
         f"{fc['bound_ms']:.5f} ms ({fc['bound_by']}), plain (f64) "
         f"{fc['plain_ms']:.4f} ms, torch._int_mm {fc['library_ms']} ms")
-    f32 = dict(dtype=torch.float32, device="cuda")
-    scal = (torch.tensor(3.1e4, **f32), torch.tensor(-7.0, **f32),
-            torch.tensor(6.5, **f32))
+    shapes = {}
+    for a, _ in calls["requant"]:
+        args = k5_requant_args(q, a)
+        shapes.setdefault(tuple(args[0].shape), [args, 0])[1] += 1
     rq = []
-    for shape, count in collections.Counter(calls["requant"]).items():
-        d = torch.randint(-2 ** 24, 2 ** 24, shape, generator=gen,
-                          device="cuda", dtype=torch.int32)
+    for shape, ((d, *scal), count) in shapes.items():
         n = d.numel()
         rq.append({"shape": list(shape), "count": count,
                    "ms": device_ms(lambda: q.requant_epilogue(d, *scal),
@@ -5757,7 +5856,8 @@ def time_k5(torch, q, pred8, x):
         f" of bound; plain {conv['plain_ms']:.3f} ms; torch._int_mm "
         f"{conv['int_mm_ms']} ms, cuDNN bf16 {conv['cudnn_bf16_ms']:.4f}"
         " ms")
-    return {"conv": conv, "fc": fc, "requant": req}
+    return {"conv": conv, "fc": fc, "requant": req, "path_errs": errs,
+            "path_calls": {k: len(v) for k, v in calls.items()}}
 
 
 def library_ms(fn, what):
@@ -6148,25 +6248,28 @@ def main(argv=None):
         "replaces": f"mxnet_tpu/ops/quantization.py:{line}",
         "launches": int8["launches"][key],
         "launches_per_predict": int8["launches_per_predict"][key],
-        "max_abs_err": max(r["max_abs_err"] for r in k5_checks
-                           if r["case"].startswith(prefix)),
+        "max_abs_err": max([r["max_abs_err"] for r in k5_checks
+                            if r["case"].startswith(prefix)]
+                           + [k5_timing["path_errs"][kind]]),
         "check": f"{sum(r['case'].startswith(prefix) for r in k5_checks)} "
-                 f"cases of phase b {how}",
+                 f"cases of phase b and the "
+                 f"{k5_timing['path_calls'][kind]} calls of one bucket-128 "
+                 f"predict on the path's own inputs {how}",
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t.get("bound_by", "bytes"), "library_ms": lib,
         **extra}
-        for name, src, line, key, prefix, how, t, lib, extra in (
-            ("s8_conv", "csrc/s8_gemm.cu", 190, "s8_conv", "s8_conv",
+        for name, src, line, key, prefix, kind, how, t, lib, extra in (
+            ("s8_conv", "csrc/s8_gemm.cu", 190, "s8_conv", "s8_conv", "conv",
              "exactly equal (int32) to the float64 plain version",
              k5_timing["conv"], k5_timing["conv"]["int_mm_ms"],
              {"cudnn_bf16_ms": k5_timing["conv"]["cudnn_bf16_ms"],
               "per_shape": k5_timing["conv"]["per_shape"]}),
             ("s8_matmul", "csrc/s8_gemm.cu", 174, "s8_matmul", "s8_matmul",
-             "exactly equal (int32) to the float64 plain version",
+             "fc", "exactly equal (int32) to the float64 plain version",
              k5_timing["fc"], k5_timing["fc"]["library_ms"], {}),
             ("requant_int8", "csrc/requant_int8.cu", 207, "requant_int8",
-             "requant_int8", "bitwise equal to the plain version, both "
-             "paths", k5_timing["requant"], None,
+             "requant_int8", "requant", "bitwise equal to the plain version "
+             "(phase b on both paths)", k5_timing["requant"], None,
              {"per_shape": k5_timing["requant"]["per_shape"]}))]}
     kind = torch.cuda.get_device_name(0)
     if args.summary:

@@ -16,8 +16,6 @@ other than "null") are not ported (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
-import inspect as _inspect
-
 import numpy as _np
 import torch
 
@@ -60,8 +58,7 @@ class Executor:
                 continue
             op = _registry.get_op(n.op)
             params = op.normalize(n.params)
-            has_train = "_train" in _inspect.signature(op.fn).parameters
-            self._ops.append((n, op, params, has_train))
+            self._ops.append((n, op, params, op.takes_train))
         self._outputs = None
         self.monitor_callback = None
 
@@ -86,7 +83,7 @@ class Executor:
     def run(self, arg_vals, aux_vals, is_train=False, tap=None):
         """The graph on tensors: ``arg_vals`` / ``aux_vals`` in
         ``list_arguments()`` / ``list_auxiliary_states()`` order. Returns
-        (outputs, new aux values). ``tap(node_name, index, tensor)`` sees
+        (outputs, new aux values). ``tap(node, index, tensor)`` sees
         each node output."""
         arg_pos = {n: i for i, n in enumerate(self._arg_names)}
         aux_pos = {n: i for i, n in enumerate(self._aux_names)}
@@ -104,7 +101,7 @@ class Executor:
             for i in range(n_primary):
                 env[(id(n), i)] = raw[i]
                 if tap is not None:
-                    tap(n.name, i, raw[i])
+                    tap(n, i, raw[i])
             for slot, val in zip(op.mutate, raw[n_primary:]):
                 tgt, tgt_slot = n.inputs[slot]
                 env[(id(tgt), tgt_slot)] = val
@@ -128,8 +125,9 @@ class Executor:
         if self.monitor_callback is not None:
             cb = self.monitor_callback
 
-            def tap(name, i, t):
-                cb(f"{name}_output" if i == 0 else f"{name}_output{i}", t)
+            def tap(node, i, t):
+                cb(f"{node.name}_output" if i == 0
+                   else f"{node.name}_output{i}", t)
 
         with torch.no_grad():
             outs, new_aux = self.run(self.arg_arrays, self.aux_arrays,

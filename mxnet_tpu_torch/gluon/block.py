@@ -10,12 +10,14 @@ on tensors. ``hybridize()`` is accepted and does nothing: PyTorch runs
 eagerly. As in MXNet, a Block called outside ``autograd.record()`` records
 nothing: it runs under ``torch.no_grad()``.
 
-Called on a :class:`~mxnet_tpu_torch.symbol.Symbol`, a Block builds the
-graph instead (``mxnet_tpu/gluon/block.py:405-420``): a layer that defines
-``hybrid_forward(F, x, **params)`` gets ``F = mx.sym`` and its parameters
-as variables, and writes the same nodes, names and parameters as
-``mxnet_tpu``'s layer; a composite Block runs its ``forward``, whose
-children and ``ops`` functions build on the Symbol in turn.
+A HybridBlock that defines ``hybrid_forward(F, x, **params)`` is written
+once, as in MXNet: on tensors its ``forward`` calls it with ``F`` the
+registered ops (:data:`F_TENSOR`) and its parameters' tensors; called on a
+:class:`~mxnet_tpu_torch.symbol.Symbol` (``mxnet_tpu/gluon/block.py:
+405-420``) it gets ``F = mx.sym`` and its parameters as variables, and
+writes the same nodes, names and parameters as ``mxnet_tpu``'s layer. A
+Block without one runs its ``forward`` on the Symbol, whose children build
+on it in turn.
 :meth:`HybridBlock.export` writes ``-symbol.json`` and ``-%04d.params``
 (``mxnet_tpu/gluon/block.py:451``).
 """
@@ -32,7 +34,7 @@ from .. import autograd, initializer
 from ..ops import registry as _registry
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock", "ParameterTensors"]
+__all__ = ["Block", "HybridBlock", "ParameterTensors", "F_TENSOR"]
 
 
 class ParameterTensors(OrderedDict):
@@ -225,6 +227,10 @@ class HybridBlock(Block):
     it is an ordinary eager ``nn.Module`` that can also build its Symbol
     graph."""
 
+    def forward(self, *args):
+        params = {name: getattr(self, name) for name in self._reg_params}
+        return self.hybrid_forward(F_TENSOR, *args, **params)
+
     def export(self, path, epoch=0):
         """Write the graph on ``data`` to ``<path>-symbol.json`` and every
         initialized parameter to ``<path>-<epoch:04d>.params``, in
@@ -243,3 +249,32 @@ class HybridBlock(Block):
 def _is_symbol(x):
     cls = _registry._SYMBOL_CLS     # set once the symbol module is loaded
     return cls is not None and isinstance(x, cls)
+
+
+class _TensorOps:
+    """``F`` of a ``hybrid_forward`` on tensors: ``F.<op>(*arrays, name=None,
+    **params)`` calls the registered op (``ops/registry.py``) in the
+    current training mode. An op's mutated slots (BatchNorm's running
+    statistics) are written back into the tensors given for them, in
+    place, as MXNet's op updates its auxiliary states."""
+
+    def __getattr__(self, opname):
+        op = _registry.get_op(opname)
+
+        def call(*arrays, name=None, **params):
+            params = op.normalize(params)
+            if op.takes_train:
+                params["_train"] = autograd.is_training()
+            out = op.fn(*arrays, **params)
+            if not op.mutate:
+                return out
+            with torch.no_grad():
+                for slot, new in zip(op.mutate, out[op.num_outputs:]):
+                    if new is not arrays[slot]:
+                        arrays[slot].copy_(new)
+            return out[0] if op.num_outputs == 1 else out[:op.num_outputs]
+
+        return call
+
+
+F_TENSOR = _TensorOps()

@@ -17,7 +17,6 @@ from __future__ import annotations
 from ...block import HybridBlock
 from ... import nn
 from ....ops import math as _math
-from ....ops import nn as _nn
 
 __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "BottleneckV1", "BottleneckV2", "resnet18_v1", "resnet34_v1",
@@ -92,12 +91,12 @@ class BasicBlockV1(HybridBlock):
         else:
             self.downsample = None
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         residual = x
         x = self.body(x)
         if self.downsample is not None:
             residual = self.downsample(residual)
-        return _nn.activation(residual + x, act_type="relu")
+        return F.Activation(residual + x, act_type="relu")
 
 
 class BottleneckV1(HybridBlock):
@@ -130,12 +129,12 @@ class BottleneckV1(HybridBlock):
         else:
             self.downsample = None
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         residual = x
         x = self.body(x)
         if self.downsample is not None:
             residual = self.downsample(residual)
-        return _nn.activation(x + residual, act_type="relu")
+        return F.Activation(x + residual, act_type="relu")
 
 
 class BasicBlockV2(HybridBlock):
@@ -156,13 +155,13 @@ class BasicBlockV2(HybridBlock):
         else:
             self.downsample = None
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         residual = x
-        x = _nn.activation(self.bn1(x), act_type="relu")
+        x = F.Activation(self.bn1(x), act_type="relu")
         if self.downsample is not None:
             residual = self.downsample(x)
         x = self.conv1(x)
-        x = _nn.activation(self.bn2(x), act_type="relu")
+        x = F.Activation(self.bn2(x), act_type="relu")
         x = self.conv2(x)
         return x + residual
 
@@ -191,15 +190,15 @@ class BottleneckV2(HybridBlock):
         else:
             self.downsample = None
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         residual = x
-        x = _nn.activation(self.bn1(x), act_type="relu")
+        x = F.Activation(self.bn1(x), act_type="relu")
         if self.downsample is not None:
             residual = self.downsample(x)
         x = self.conv1(x)
-        x = _nn.activation(self.bn2(x), act_type="relu")
+        x = F.Activation(self.bn2(x), act_type="relu")
         x = self.conv2(x)
-        x = _nn.activation(self.bn3(x), act_type="relu")
+        x = F.Activation(self.bn3(x), act_type="relu")
         x = self.conv3(x)
         return x + residual
 

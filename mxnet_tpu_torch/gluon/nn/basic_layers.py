@@ -5,7 +5,6 @@ from __future__ import annotations
 import torch
 
 from ..block import HybridBlock
-from ... import autograd
 from ...base import torch_dtype
 from ...ops import math as _math
 from ...ops import nn as _nn
@@ -57,13 +56,8 @@ class Dense(HybridBlock):
             else:
                 self.act = None
 
-    def forward(self, x):
-        out = _nn.fully_connected(x, self.weight, self.bias,
-                                  flatten=self._flatten)
-        return self.act(out) if self.act is not None else out
-
     def hybrid_forward(self, F, x, weight, bias=None):
-        """The graph (``mxnet_tpu/gluon/nn/basic_layers.py:134``)."""
+        """``mxnet_tpu/gluon/nn/basic_layers.py:134``."""
         out = F.FullyConnected(x, weight, bias, no_bias=bias is None,
                                num_hidden=self._units, flatten=self._flatten)
         return self.act(out) if self.act is not None else out
@@ -108,16 +102,6 @@ class BatchNorm(HybridBlock):
         if torch_dtype(dtype) == torch.float16:
             dtype = "float32"
         return super().cast(dtype)
-
-    def forward(self, x):
-        train = autograd.is_training()
-        out, mean, var = _nn.batch_norm(
-            x, self.gamma, self.beta, self.running_mean, self.running_var,
-            _train=train, **self._kwargs)
-        if train and not self._kwargs["use_global_stats"]:
-            self._reg_params["running_mean"].set_data(mean)
-            self._reg_params["running_var"].set_data(var)
-        return out
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         return F.BatchNorm(x, gamma, beta, running_mean, running_var,
@@ -167,9 +151,6 @@ class Embedding(HybridBlock):
 class Flatten(HybridBlock):
     """Flattens the input to (batch, -1) (gluon/nn/basic_layers.py:435)."""
 
-    def forward(self, x):
-        return _nn.flatten(x)
-
     def hybrid_forward(self, F, x):
         return F.Flatten(x)
 
@@ -183,9 +164,6 @@ class Activation(HybridBlock):
 
     def _alias(self):
         return self._act_type
-
-    def forward(self, x):
-        return _nn.activation(x, act_type=self._act_type)
 
     def hybrid_forward(self, F, x):
         return F.Activation(x, act_type=self._act_type, name="fwd")

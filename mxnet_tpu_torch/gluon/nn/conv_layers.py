@@ -11,7 +11,6 @@ from __future__ import annotations
 import numpy as _np
 
 from ..block import HybridBlock
-from ...ops import nn as _nn
 from .basic_layers import Activation
 
 __all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalMaxPool2D",
@@ -62,12 +61,8 @@ class _Conv(HybridBlock):
     def _alias(self):
         return "conv"
 
-    def forward(self, x):
-        out = _nn.convolution(x, self.weight, self.bias, **self._kwargs)
-        return self.act(out) if self.act is not None else out
-
     def hybrid_forward(self, F, x, weight, bias=None):
-        """The graph (``mxnet_tpu/gluon/nn/conv_layers.py:76``)."""
+        """``mxnet_tpu/gluon/nn/conv_layers.py:76``."""
         if bias is None:
             out = F.Convolution(x, weight, name="fwd", **self._kwargs)
         else:
@@ -109,9 +104,6 @@ class _Pooling(HybridBlock):
 
     def _alias(self):
         return "pool"
-
-    def forward(self, x):
-        return _nn.pooling(x, **self._kwargs)
 
     def hybrid_forward(self, F, x):
         return F.Pooling(x, name="fwd", **self._kwargs)

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import torch_dtype
-from .registry import register, symbolic
+from .registry import register
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
            "sync_batch_stats", "batch_stats_sync", "layer_norm",
@@ -248,7 +248,6 @@ _ACTIVATIONS = {
 }
 
 
-@symbolic("Activation")
 def activation(data, act_type="relu"):
     try:
         fn = _ACTIVATIONS[act_type]

@@ -410,6 +410,15 @@ def _requantize(data, min_range, max_range, min_calib_range=None,
     """int32 -> int8 under the calibrated range, or under the data's own
     max |value| without one (requantize.cc); the step itself is K5's
     :func:`requant_epilogue`, path "via_fp32"."""
+    return requant_epilogue(
+        data, *_requant_ranges(data, min_range, max_range, min_calib_range,
+                               max_calib_range), path="via_fp32")
+
+
+def _requant_ranges(data, min_range, max_range, min_calib_range=None,
+                    max_calib_range=None):
+    """(real_in, out_min, out_max) of a requantize node: what it hands
+    :func:`requant_epilogue`."""
     real_in = _int8_range(min_range.reshape(()), max_range.reshape(()))
     if min_calib_range is not None and max_calib_range is not None:
         out_min = _scalar(min_calib_range, data)
@@ -420,8 +429,7 @@ def _requantize(data, min_range, max_range, min_calib_range=None,
     else:
         out_max = (data.float() * (real_in / _I32_MAX)).abs().max()
         out_min = -out_max
-    return requant_epilogue(data, real_in, out_min, out_max,
-                            path="via_fp32")
+    return real_in, out_min, out_max
 
 
 def _s8s8_out_range(min_d, max_d, min_w, max_w):
@@ -433,10 +441,18 @@ def _s8s8_out_range(min_d, max_d, min_w, max_w):
     return -hi, hi, level
 
 
-def _bias_i32(bias, min_bias, max_bias, level):
+def _s8s8_bias(bias, min_data, max_data, min_weight, max_weight,
+               min_bias=None, max_bias=None, no_bias=False):
+    """(lo, hi, int32 bias or None) of a quantized FC or conv: its
+    accumulator's range, and the int8 bias rescaled onto its grid, which
+    K5 adds in its epilogue."""
+    lo, hi, level = _s8s8_out_range(min_data, max_data, min_weight,
+                                    max_weight)
+    if bias is None or no_bias:
+        return lo, hi, None
     real_b = _int8_range(min_bias.reshape(()), max_bias.reshape(()))
     bias_fp = bias.float() * (real_b / 127.0)
-    return torch.round(bias_fp / level).to(torch.int32)
+    return lo, hi, torch.round(bias_fp / level).to(torch.int32)
 
 
 @register("_contrib_quantized_fully_connected", num_outputs=3,
@@ -450,11 +466,8 @@ def _quantized_fully_connected(data, weight, bias, min_data, max_data,
     grid and added in its epilogue. Returns (int32, min, max)."""
     x = data.reshape(data.shape[0], -1) if flatten and data.dim() > 2 \
         else data
-    lo, hi, level = _s8s8_out_range(min_data, max_data, min_weight,
-                                    max_weight)
-    b = None
-    if bias is not None and not no_bias:
-        b = _bias_i32(bias, min_bias, max_bias, level)
+    lo, hi, b = _s8s8_bias(bias, min_data, max_data, min_weight, max_weight,
+                           min_bias, max_bias, no_bias)
     return s8_matmul(x, weight, bias=b), lo, hi
 
 
@@ -468,11 +481,8 @@ def _quantized_conv(data, weight, bias, min_data, max_data, min_weight,
     """int8 convolution with int32 accumulation (quantized_conv.cc): K5's
     :func:`s8_conv`, the bias as in the FC. Returns (int32, min, max)."""
     sdims = data.dim() - 2
-    lo, hi, level = _s8s8_out_range(min_data, max_data, min_weight,
-                                    max_weight)
-    b = None
-    if bias is not None and not no_bias:
-        b = _bias_i32(bias, min_bias, max_bias, level)
+    lo, hi, b = _s8s8_bias(bias, min_data, max_data, min_weight, max_weight,
+                           min_bias, max_bias, no_bias)
     out = s8_conv(data, weight, _pairs(stride or 1, sdims),
                   _pairs(pad or 0, sdims), _pairs(dilate or 1, sdims),
                   num_group, layout, bias=b)

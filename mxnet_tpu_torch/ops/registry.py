@@ -19,11 +19,11 @@ from __future__ import annotations
 
 import ast
 import functools
+import inspect
 
 from ..base import MXNetError
 
-__all__ = ["OpDef", "register", "get_op", "list_ops", "parse_param",
-           "symbolic"]
+__all__ = ["OpDef", "register", "get_op", "list_ops", "parse_param"]
 
 _OPS: dict = {}
 _ALIASES: dict = {}
@@ -31,9 +31,10 @@ _ALIASES: dict = {}
 
 class OpDef:
     """A registered operator: its canonical name, function, number of
-    primary outputs and mutated input slots."""
+    primary outputs and mutated input slots, and whether the function takes
+    ``_train`` (training mode, which the caller supplies)."""
 
-    __slots__ = ("name", "fn", "num_outputs", "mutate", "doc")
+    __slots__ = ("name", "fn", "num_outputs", "mutate", "doc", "takes_train")
 
     def __init__(self, name, fn, num_outputs=1, mutate=()):
         self.name = name
@@ -41,6 +42,7 @@ class OpDef:
         self.num_outputs = num_outputs
         self.mutate = tuple(mutate)
         self.doc = fn.__doc__
+        self.takes_train = "_train" in inspect.signature(fn).parameters
 
     def normalize(self, params):
         """The params with None values dropped (the function's defaults
@@ -92,21 +94,3 @@ def parse_param(value):
 
 
 _SYMBOL_CLS = None    # set by symbol/symbol.py when it is imported
-
-
-def symbolic(opname):
-    """Decorator for a tensor function of this package (``ops/nn.py``)
-    whose first argument may also be a Symbol: then the call builds a node
-    of the registered op ``opname`` with the same keyword parameters, as
-    ``mxnet_tpu``'s ``F.<op>`` does under ``F = mx.sym``."""
-
-    def wrap(fn):
-        @functools.wraps(fn)
-        def call(data, *args, **kwargs):
-            if _SYMBOL_CLS is not None and isinstance(data, _SYMBOL_CLS):
-                from ..symbol.symbol import make_symbol_creator
-                return make_symbol_creator(opname)(data, *args, **kwargs)
-            return fn(data, *args, **kwargs)
-        return call
-
-    return wrap

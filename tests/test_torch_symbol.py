@@ -287,6 +287,31 @@ def test_executor_train_mode_updates_moving_stats_like_mxnet_tpu(nets):
                                    atol=1e-5)
 
 
+@pytest.mark.parametrize("train", [False, True])
+def test_block_forward_equals_its_own_graph(nets, train):
+    """Each layer is written once (``hybrid_forward``): on tensors through
+    the registered ops, on a Symbol as graph nodes. The Block's forward and
+    the executor's walk of its traced graph agree bit for bit, outputs and,
+    in training, the running statistics written back."""
+    _, _, _, ts, params = nets
+    x = torch.from_numpy(
+        np.random.RandomState(10).rand(4, 3, 16, 16).astype(np.float32))
+    _fresh_names()
+    net = tvision.resnet18_v1(thumbnail=True, classes=10)
+    net.initialize(ctx=mt.cpu())
+    net.load_numpy_params(params)
+    with mt.autograd.record(train_mode=train):
+        out = net(x)
+    args, auxs = _split(ts, params, lambda v: torch.from_numpy(v.copy()))
+    ex = ts.bind(mt.cpu(), {**args, "data": x}, aux_states=auxs)
+    want, = ex.forward(is_train=train)
+    assert torch.equal(out.detach(), want)
+    stats = net.collect_params()
+    for k in ts.list_auxiliary_states():
+        assert torch.equal(stats[k], ex.aux_dict[k]), k
+        assert torch.equal(stats[k], torch.from_numpy(params[k])) != train
+
+
 def test_bind_refuses_gradients_and_missing_inputs(nets):
     _, _, _, ts, params = nets
     args, auxs = _split(ts, params, torch.from_numpy)
