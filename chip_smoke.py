@@ -12,7 +12,7 @@ Phases, each failing loudly with a non-zero exit:
   (a) the card's name and power limit, as nvidia-smi reports them;
       then every CUDA kernel is built from csrc/ with nvcc (sm_90a), and
       ptxas's registers and spills printed (the tensor-core kernels,
-      16-bit and 3xTF32, must not spill);
+      16-bit, 3xTF32 and int8, must not spill);
   (b) each kernel against its plain PyTorch version on the card, on
       fixed cases, with the tolerance and its reason printed: K1 (flash
       attention) on its three routes -- the tensor-core kernel (16-bit,
@@ -50,14 +50,19 @@ Phases, each failing loudly with a non-zero exit:
       CUDA tensor; and the int8 KV write (csrc/kv_quantize_write.cu) on
       the qkv views in fp32, bf16 and fp16, bitwise equal to its plain
       version, every byte outside the written slots unchanged; and K5
-      (csrc/s8_gemm.cu, csrc/requant_int8.cu): the int8 conv on
-      ResNet-18's 11 conv shapes at N=8 and on edges (Cin 5 with K = 45,
-      odd H and W, dilation 2, a ragged M without bias, misaligned bases),
-      the int8 GEMM on the FC and ragged, misaligned shapes, int32 exactly
-      equal to the float64 plain versions (cuDNN off for them); requantize
-      on both paths, bitwise equal, .5 ties included, a NaN range out NaN;
-      every case launched twice, bitwise; a grouped and an NHWC int8 conv
-      must raise;
+      (csrc/s8_gemm_wgmma.cu, route "wgmma": s8 wgmma fed by TMA, its
+      pre-pass laying the operands out; csrc/s8_gemm.cu, route "mma_s8";
+      csrc/requant_int8.cu): the wgmma kernels' ptxas registers, shared
+      memory and spills; the int8 conv on ResNet-18's 11 conv shapes at
+      N=8 and on edges (Cin 5 with K = 45, odd H and W, dilation 2, a
+      ragged M without bias, misaligned bases) on both routes, NHWC on
+      "wgmma", the pre-pass bitwise equal to its plain version; the int8
+      GEMM on the FC and on ragged rows on both routes, on K off a
+      multiple of 16 and misaligned bases on the rule's "mma_s8"; int32
+      exactly equal to the float64 plain versions (cuDNN off for them);
+      requantize on both paths, bitwise equal, .5 ties included, a NaN
+      range out NaN; every case launched twice, bitwise; a grouped int8
+      conv must raise;
   (c) kernel, plain-version and library times at the slices' shapes, in
       device time, beside each kernel's bound on the H100 (K1 also on the
       strided layout, and in fp32 the 3xTF32 kernel beside the CUDA-core
@@ -78,10 +83,12 @@ Phases, each failing loudly with a non-zero exit:
       phase p's bucket-128 int8 graph: each of its 20 convs, its FC and its
       36 requantize calls held on the inputs the path gave it to the plain
       version (int32 exactly, requantize bitwise), then on those inputs
-      each conv shape timed beside its bound at the int8 tensor-core peak
-      or the bytes, the float64 plain version, torch._int_mm on the same
-      im2col'd GEMM and cuDNN's bf16 conv; the FC beside torch._int_mm;
-      each requantize shape beside its bytes);
+      each conv shape timed on route "wgmma" (its pre-pass and its product
+      also apart) and on "mma_s8", in turns, beside its bound at the int8
+      tensor-core peak or the bytes, the float64 plain version,
+      torch._int_mm on the same im2col'd GEMM and cuDNN's bf16 conv; the
+      FC on both routes beside torch._int_mm; each requantize shape beside
+      its bytes);
   (d) the slice: TransformerLM(impl='flash') at GPT-2-small widths in
       bf16, behind Predictor + BatchServer, served to concurrent
       requests: each bucket captured as a CUDA graph at the predictor's
@@ -207,12 +214,15 @@ Phases, each failing loudly with a non-zero exit:
       buckets 1, 32, 128): the graph's op counts (20 quantized convs, 36
       requantize, ...), K5's launches counted from just before the build
       to just after the first predict (20 conv, 1 FC and 36 requantize a
-      bucket program, none of the plain versions), the bucket-128 graph's
-      21 s8_gemm and 36 requant nodes, int8 logits on 128 other images
+      bucket program, every conv and the FC on route "wgmma", none on
+      "mma_s8" or the plain versions), the bucket-128 graph's 21 s8_wgmma,
+      20 pre-pass and 36 requant nodes, int8 logits on 128 other images
       within 0.15 of max|fp32| of the folded fp32 graph with top-1
-      agreement >= 0.75, a second predict bitwise; images/s at bucket 128
-      and p50 per bucket for fp32 (Symbol-fed), bf16 (Block-fed) and int8;
-      one int8 predict profiled (K5's convs, requantize, the other ops).
+      agreement >= 0.75, a second predict bitwise, the bucket-128 logits
+      bitwise equal to those of the same predict with the route rule
+      patched to "mma_s8"; images/s at bucket 128 and p50 per bucket for
+      fp32 (Symbol-fed), bf16 (Block-fed) and int8; one int8 predict
+      profiled (K5's convs, their pre-pass, requantize, the other ops).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. ``--summary PATH`` also writes the
@@ -223,6 +233,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -5253,7 +5264,24 @@ def k5_zero_counts(q):
 def k5_counts(q):
     return {"s8_conv": q.s8_conv.launches, "s8_matmul": q.s8_matmul.launches,
             "requant_int8": q.requant_epilogue.launches,
+            "conv_by_route": dict(q.s8_conv.launches_by_route),
+            "matmul_by_route": dict(q.s8_matmul.launches_by_route),
             "requant_by_path": dict(q.requant_epilogue.launches_by_route)}
+
+
+K5_ROUTES = ("wgmma", "mma_s8")
+
+
+@contextlib.contextmanager
+def k5_route(q, route):
+    """While open, K5's route rule names ``route`` for every conv and GEMM
+    (the wrappers call ``q._s8_route``)."""
+    saved = q._s8_route
+    q._s8_route = lambda *args, **kwargs: route
+    try:
+        yield
+    finally:
+        q._s8_route = saved
 
 
 @contextlib.contextmanager
@@ -5280,15 +5308,31 @@ def k5_plain_guard(q):
 
 
 def check_k5(torch, q):
-    """Phase b for K5: csrc/s8_gemm.cu's conv on ResNet-18's 11 conv shapes
-    (its 20 convs) at N=8 with an int32 bias, and its edges (Cin 3 with K
-    off a multiple of 32, odd H and W, dilation 2, a ragged M, misaligned
-    bases, no bias); the GEMM on the FC (8 x 512 -> 1000) and ragged,
-    misaligned shapes: int32 exactly equal to the float64 plain versions,
-    a second launch bitwise equal. csrc/requant_int8.cu on both paths
-    bitwise equal to its plain version, on the int32 grid's whole range
-    and on exact .5 ties; a NaN range comes out NaN. Grouped and NHWC int8
-    convs on CUDA must raise."""
+    """Phase b for K5: csrc/s8_gemm_wgmma.cu (route "wgmma") and
+    csrc/s8_gemm.cu (route "mma_s8"), the route forced, on ResNet-18's 11
+    conv shapes (its 20 convs) at N=8 with an int32 bias and on the edges
+    (Cin 5 with K off a multiple of 32, odd H and W, dilation 2, a ragged M,
+    misaligned bases, no bias), NHWC convs on "wgmma" (channels read in
+    place and folded), the wgmma route's pre-pass bitwise equal to its
+    plain version; the GEMM on the FC (8 x 512 -> 1000) and on ragged rows
+    on both routes, on K off a multiple of 16 and misaligned bases on
+    "mma_s8", the rule's route: int32 exactly equal to the float64 plain
+    versions, a second launch bitwise equal. csrc/requant_int8.cu on both
+    paths bitwise equal to its plain version, on the int32 grid's whole
+    range and on exact .5 ties; a NaN range comes out NaN. Grouped int8
+    convs on CUDA must raise. Prints the wgmma kernels' ptxas registers,
+    shared memory and spills first."""
+    from mxnet_tpu_torch.ops import _build
+
+    lib = _build.load("s8_gemm_wgmma")
+    lib.s8_wgmma_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.s8_wgmma_smem_bytes.restype = ctypes.c_int
+    for entry, usage in ptxas_usage(_build.build_log("s8_gemm_wgmma")):
+        log(f"[b] ptxas {entry}: {usage}")
+    log("[b] s8_wgmma_kernel dynamic shared memory a CTA (the ring; a "
+        "resident A tile adds its bytes): " + ", ".join(
+            f"{w} warpgroups x {cb} B loads {lib.s8_wgmma_smem_bytes(w, cb)}"
+            for w in (1, 2) for cb in (16, 32, 64, 128)))
     gen = torch.Generator(device="cuda").manual_seed(61)
     records = []
     conv_cases = [(f"r18 {c[0]}->{c[1]} {c[2]}^2 k{c[3]} s{c[4]} p{c[5]}",
@@ -5310,47 +5354,99 @@ def check_k5(torch, q):
         bias = (torch.randint(-2 ** 20, 2 ** 20, (cout,), generator=gen,
                               device="cuda", dtype=torch.int32)
                 if with_bias else None)
-        before = q.s8_conv.launches
-        with k5_plain_guard(q):
-            got = q.s8_conv(x, wt, (s, s), (p, p), (dil, dil), bias=bias)
-            again = q.s8_conv(x, wt, (s, s), (p, p), (dil, dil), bias=bias)
+        args = ((s, s), (p, p), (dil, dil))
+        rule = q._s8_route("conv", kernel=(k, k), stride=args[0],
+                           pad=args[1], dilate=args[2])
         with exact_f64_convs(torch):
-            want = q.s8_conv_reference(x, wt, (s, s), (p, p), (dil, dil),
-                                       bias=bias)
+            want = q.s8_conv_reference(x, wt, *args, bias=bias)
+        for route in K5_ROUTES:
+            before = dict(q.s8_conv.launches_by_route)
+            with k5_plain_guard(q), k5_route(q, route):
+                got = q.s8_conv(x, wt, *args, bias=bias)
+                again = q.s8_conv(x, wt, *args, bias=bias)
+            torch.cuda.synchronize()
+            same = torch.equal(got, want) and got.dtype == torch.int32
+            repeat = torch.equal(got, again)
+            launched = q.s8_conv.launches_by_route[route] - before[route]
+            ok = same and repeat and launched == 2 and rule == "wgmma"
+            log(f"[b] s8_conv [{route}] {name} N={n}: int32 == plain (f64) "
+                f"exactly: {same}; second launch bitwise: {repeat}; "
+                f"launches on the route {launched} (want 2); the rule's "
+                f"route {rule} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"phase b: s8_conv [{route}] {name} "
+                                 "disagrees")
+            records.append({"case": f"s8_conv [{route}] {name}",
+                            "exact": same, "max_abs_err": int_err(
+                                torch, got, want)})
+        shape = q._conv_shape(x, wt, *args, False)
+        xp, wp, pk = q._s8_conv_prepare(x, wt, shape)
+        rx, rw = q.s8_conv_pack_reference(x, wt, *args)
         torch.cuda.synchronize()
-        same = torch.equal(got, want) and got.dtype == torch.int32
-        repeat = torch.equal(got, again)
-        launched = q.s8_conv.launches - before
+        packed = torch.equal(xp, rx) and torch.equal(wp, rw)
+        log(f"[b] s8_wgmma_prep {name}: x {tuple(xp.shape)} and w "
+            f"{tuple(wp.shape)} (fold {pk.fold}) bitwise == plain: {packed} "
+            f"{'ok' if packed else 'FAIL'}")
+        if not packed:
+            raise SystemExit(f"phase b: the wgmma pre-pass of {name} "
+                             "differs from its plain version")
+    for name, n, c, cout, h, w, k, s, p, dil in (
+            ("NHWC 64 ch (read in place) k3 s1 p1", 2, 64, 96, 9, 9, 3, 1, 1,
+             1),
+            ("NHWC 5 ch (folded) k3 s2 p1 odd 9x11", 2, 5, 24, 9, 11, 3, 2, 1,
+             1),
+            ("NHWC 16 ch dilation 2 k3 p2", 2, 16, 64, 10, 12, 3, 1, 2, 2)):
+        x = s8_rand(torch, gen, (n, h, w, c))
+        wt = s8_rand(torch, gen, (cout, k, k, c))
+        bias = torch.randint(-2 ** 20, 2 ** 20, (cout,), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        args = ((s, s), (p, p), (dil, dil))
+        with exact_f64_convs(torch):
+            want = q.s8_conv_reference(x, wt, *args, layout="NHWC",
+                                       bias=bias)
+        before = q.s8_conv.launches_by_route["wgmma"]
+        with k5_plain_guard(q):
+            got = q.s8_conv(x, wt, *args, layout="NHWC", bias=bias)
+            again = q.s8_conv(x, wt, *args, layout="NHWC", bias=bias)
+        torch.cuda.synchronize()
+        same, repeat = torch.equal(got, want), torch.equal(got, again)
+        launched = q.s8_conv.launches_by_route["wgmma"] - before
         ok = same and repeat and launched == 2
-        log(f"[b] s8_conv {name} N={n}: int32 == plain (f64) exactly: "
+        log(f"[b] s8_conv [wgmma] {name}: int32 == plain (f64) exactly: "
             f"{same}; second launch bitwise: {repeat}; launches {launched} "
             f"(want 2) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"phase b: s8_conv {name} disagrees")
-        records.append({"case": f"s8_conv {name}", "exact": same,
-                        "max_abs_err": (got.double() - want.double())
-                        .abs().max().item()})
+        records.append({"case": f"s8_conv [wgmma] {name}", "exact": same,
+                        "max_abs_err": int_err(torch, got, want)})
     for name, m, k, n, off in (("r18 FC", K5_CHECK_N, *R18_FC, 0),
-                               ("ragged 77x45 -> 70", 77, 45, 70, 0),
+                               ("ragged rows 77x48 -> 70", 77, 48, 70, 0),
+                               ("ragged K 77x45 -> 70", 77, 45, 70, 0),
                                ("misaligned 33x64 -> 96", 33, 64, 96, 5)):
         x = s8_rand(torch, gen, (m, k), offset=off)
         wt = s8_rand(torch, gen, (n, k), offset=off)
         bias = torch.randint(-2 ** 20, 2 ** 20, (n,), generator=gen,
                              device="cuda", dtype=torch.int32)
-        with k5_plain_guard(q):
-            got = q.s8_matmul(x, wt, bias=bias)
-            again = q.s8_matmul(x, wt, bias=bias)
         want = q.s8_matmul_reference(x, wt) + bias
-        torch.cuda.synchronize()
-        same, repeat = torch.equal(got, want), torch.equal(got, again)
-        log(f"[b] s8_matmul {name}: int32 == plain (f64) exactly: {same}; "
-            f"second launch bitwise: {repeat} "
-            f"{'ok' if same and repeat else 'FAIL'}")
-        if not (same and repeat):
-            raise SystemExit(f"phase b: s8_matmul {name} disagrees")
-        records.append({"case": f"s8_matmul {name}", "exact": same,
-                        "max_abs_err": (got.double() - want.double())
-                        .abs().max().item()})
+        rule = q._s8_route("matmul", k=k, ptrs=(x.data_ptr(), wt.data_ptr()))
+        for route in K5_ROUTES if rule == "wgmma" else (rule,):
+            before = dict(q.s8_matmul.launches_by_route)
+            with k5_plain_guard(q), k5_route(q, route):
+                got = q.s8_matmul(x, wt, bias=bias)
+                again = q.s8_matmul(x, wt, bias=bias)
+            torch.cuda.synchronize()
+            same, repeat = torch.equal(got, want), torch.equal(got, again)
+            launched = q.s8_matmul.launches_by_route[route] - before[route]
+            ok = same and repeat and launched == 2
+            log(f"[b] s8_matmul [{route}] {name} (the rule's route {rule})"
+                f": int32 == plain (f64) exactly: {same}; second launch "
+                f"bitwise: {repeat} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"phase b: s8_matmul [{route}] {name} "
+                                 "disagrees")
+            records.append({"case": f"s8_matmul [{route}] {name}",
+                            "exact": same, "max_abs_err": int_err(
+                                torch, got, want)})
     f32 = dict(dtype=torch.float32, device="cuda")
     full = torch.randint(-2 ** 31, 2 ** 31 - 1, (8, 64, 56, 57),
                          generator=gen, device="cuda", dtype=torch.int32)
@@ -5397,23 +5493,15 @@ def check_k5(torch, q):
     if not poisoned:
         raise SystemExit("phase b: requant_int8 drops the NaN poison")
     x = s8_rand(torch, gen, (2, 8, 9, 9))
-    for name, call in (
-            ("grouped", lambda: q.s8_conv(x, s8_rand(torch, gen,
-                                                     (8, 4, 3, 3)),
-                                          (1, 1), (1, 1), (1, 1),
-                                          num_group=2)),
-            ("NHWC", lambda: q.s8_conv(x.permute(0, 2, 3, 1).contiguous(),
-                                       s8_rand(torch, gen, (8, 3, 3, 8)),
-                                       (1, 1), (1, 1), (1, 1),
-                                       layout="NHWC"))):
-        try:
-            call()
-        except Exception as e:   # noqa: BLE001 - the raise is the check
-            log(f"[b] s8_conv {name} on CUDA raises: "
-                f"{type(e).__name__}: {str(e)[:90]} ok")
-        else:
-            raise SystemExit(f"phase b: a {name} int8 conv on CUDA did not "
-                             "raise")
+    try:
+        q.s8_conv(x, s8_rand(torch, gen, (8, 4, 3, 3)), (1, 1), (1, 1),
+                  (1, 1), num_group=2)
+    except Exception as e:   # noqa: BLE001 - the raise is the check
+        log(f"[b] s8_conv grouped on CUDA raises: "
+            f"{type(e).__name__}: {str(e)[:90]} ok")
+    else:
+        raise SystemExit("phase b: a grouped int8 conv on CUDA did not "
+                         "raise")
     return records
 
 
@@ -5460,12 +5548,16 @@ def int8_serving(torch, mx, q):
     folded, naive calibration on 32 images, the full-int8 graph), buckets
     (1, 32, 128), each one CUDA graph. K5's counts are zeroed just before
     the Predictor is built and read after the first predict: 20 conv, 1 FC
-    and 36 requantize launches per bucket program, on the kernels, none
-    plain. Checks the graph's op counts, int8 against the folded fp32 graph
-    on 128 other images (within 0.15 max|fp32|, top-1 agreement >= 0.75),
-    bitwise replay and padding; times img/s at bucket 128 for fp32 (the
-    Symbol-fed Predictor), bf16 (the Block-fed one) and int8, p50 per
-    bucket, and profiles one int8 predict."""
+    and 36 requantize launches per bucket program, on the kernels (every
+    conv and the FC on route "wgmma"), none on "mma_s8" or plain. Checks
+    the graph's op counts and the bucket-128 graph's kernel nodes, int8
+    against the folded fp32 graph on 128 other images (within 0.15
+    max|fp32|, top-1 agreement >= 0.75), bitwise replay and padding, and
+    the bucket-128 logits bitwise against a Predictor of the same files and
+    calibration table built and run with the route rule patched to
+    "mma_s8"; times img/s at bucket 128 for fp32 (the Symbol-fed
+    Predictor), bf16 (the Block-fed one) and int8, p50 per bucket, and
+    profiles one int8 predict."""
     import collections
     import shutil
 
@@ -5501,13 +5593,16 @@ def int8_serving(torch, mx, q):
                               if not n.is_var)
     ok = all(counts[k] == v for k, v in want.items()) and \
         dict(ops) == INT8_OPS and counts["requant_by_path"]["fused_scale"] \
-        == 0
+        == 0 and counts["conv_by_route"] == {"wgmma": 20 * programs,
+                                             "mma_s8": 0} and \
+        counts["matmul_by_route"] == {"wgmma": programs, "mma_s8": 0}
     log(f"[p] resnet18_v1 exported ({sum(t.numel() for t in net.collect_params().values())} "
         f"parameters), Predictor(quantize='int8', naive calibration on "
         f"{INT8_CALIB} images) built and buckets {INT8_BUCKETS} captured "
         f"in {build_s:.2f} s; graph ops {dict(ops)}; K5 launches "
         f"{counts} over {programs} bucket programs (want {want}: per "
-        f"predict 20 conv, 1 FC, 36 requantize), none plain "
+        f"predict 20 conv, 1 FC, 36 requantize; every conv and the FC on "
+        f"route wgmma, none on mma_s8), none plain "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("phase p: the int8 graph or K5's launches are not "
@@ -5548,15 +5643,40 @@ def int8_serving(torch, mx, q):
     if not replay:
         raise SystemExit("phase p: int8 predict does not replay bitwise")
     nodes = graph_nodes(pred8._exec, "int8_bucket128",
-                        parts=("s8_gemm_kernel", "requant_kernel"),
+                        parts=("s8_wgmma_kernel", "s8_prep_kernel",
+                               "s8_gemm_kernel", "requant_kernel"),
                         sig=next(s for s in pred8._exec.compiled_signatures
                                  if s[0][0][0] == 128))
     log(f"[p] the bucket-128 int8 graph: {nodes['kernels']} kernel nodes, "
-        f"{nodes['s8_gemm_kernel']} s8_gemm (want 21), "
+        f"{nodes['s8_wgmma_kernel']} s8_wgmma (want 21), "
+        f"{nodes['s8_prep_kernel']} pre-pass (want 20), "
+        f"{nodes['s8_gemm_kernel']} s8_gemm (want 0), "
         f"{nodes['requant_kernel']} requant (want 36)")
-    if nodes["s8_gemm_kernel"] != 21 or nodes["requant_kernel"] != 36:
+    if (nodes["s8_wgmma_kernel"], nodes["s8_prep_kernel"],
+            nodes["s8_gemm_kernel"], nodes["requant_kernel"]) != \
+            (21, 20, 0, 36):
         raise SystemExit("phase p: the captured int8 graph does not hold "
                          "K5's kernels")
+    # the same predict with every conv and the FC on csrc/s8_gemm.cu: both
+    # routes are exact, so the logits must be bitwise equal
+    before = k5_counts(q)
+    with k5_plain_guard(q), k5_route(q, "mma_s8"):
+        pred_m = serving.Predictor(
+            sym_file, params_file, input_shapes=tail, batch_sizes=(128,),
+            quantize="int8", calib_table=pred8.calibration_table)
+        out_m = pred_m.predict(x)[0]
+    torch.cuda.synchronize()
+    after = k5_counts(q)
+    moved = {r: after["conv_by_route"][r] - before["conv_by_route"][r]
+             for r in K5_ROUTES}
+    routes_same = bool(torch.equal(out_m, out8))
+    log(f"[p] bucket-128 int8 logits with the route rule patched to mma_s8 "
+        f"(conv launches by route {moved}) bitwise equal to the wgmma "
+        f"route's: {routes_same} {'ok' if routes_same else 'FAIL'}")
+    if not routes_same or moved["wgmma"] or not moved["mma_s8"]:
+        raise SystemExit("phase p: the int8 logits differ between K5's "
+                         "routes")
+    del pred_m, out_m
 
     pred32 = serving.Predictor(sym_file, params_file, input_shapes=tail,
                                batch_sizes=INT8_BUCKETS)
@@ -5588,13 +5708,15 @@ def int8_serving(torch, mx, q):
             + ", ".join(f"{b}: {v:.3f}" for b, v in p50.items()))
     breakdown = profile_window(torch, lambda: pred8.predict(x),
                                "one bucket-128 int8 predict", "p",
-                               ("s8_gemm_kernel", "requant_kernel"), top=12)
-    groups = {"convs + FC (s8_gemm)": 0.0, "requantize": 0.0,
-              "other quantized ops": 0.0}
+                               ("s8_wgmma_kernel", "s8_prep_kernel",
+                                "requant_kernel"), top=12)
+    groups = {"convs + FC (s8_wgmma)": 0.0, "their pre-pass (s8_prep)": 0.0,
+              "requantize": 0.0, "other quantized ops": 0.0}
     for r in breakdown["all"]:
-        key = ("convs + FC (s8_gemm)" if "s8_gemm_kernel" in r["kernel"]
-               else "requantize" if "requant_kernel" in r["kernel"]
-               else "other quantized ops")
+        key = ("convs + FC (s8_wgmma)" if "s8_wgmma_kernel" in r["kernel"]
+               else "their pre-pass (s8_prep)" if "s8_prep_kernel" in
+               r["kernel"] else "requantize" if "requant_kernel" in
+               r["kernel"] else "other quantized ops")
         groups[key] += r["ms"]
     log("[p] device ms of one int8 predict: " + ", ".join(
         f"{k} {v:.3f}" for k, v in groups.items()))
@@ -5606,6 +5728,7 @@ def int8_serving(torch, mx, q):
                                      counts.items() if k in want},
             "graph_ops": dict(ops), "graph_nodes": nodes,
             "max_rel_err": err, "top1_agreement": agree,
+            "routes_bitwise": routes_same,
             "uncalibrated_requantize": uncal, "batch_dependence": batch_dep,
             "fold_err": fold_err, "bf16_err": bf16_err, "timing": timing,
             "breakdown": breakdown, "device_ms_groups": groups,
@@ -5754,7 +5877,10 @@ def time_k5(torch, q, pred8, x):
     written once), its plain version (float64), and the library:
     torch._int_mm on the same GEMM (a conv's im2col'd matrix, K padded to a
     multiple of 8: the GEMM alone) and cuDNN's bf16 conv on the same shape;
-    requantize has no one-call PyTorch counterpart."""
+    requantize has no one-call PyTorch counterpart. A conv and the FC are
+    timed on route "wgmma" (the path's: a conv's whole call, and its
+    pre-pass and product apart) and "mma_s8" on the same inputs, in turns
+    (wgmma, mma_s8, wgmma, mma_s8; each the mean of its two)."""
     import torch.nn.functional as F
 
     calls = k5_path(torch, q, pred8, x)
@@ -5774,7 +5900,18 @@ def time_k5(torch, q, pred8, x):
         ops = 2.0 * m * cout * k
         nbytes = a.numel() + w.numel() + 4.0 * m * cout + 4.0 * cout
         bound_ms, bound_by = int8_bound(ops, nbytes)
-        ms = device_ms(lambda: q.s8_conv(a, w, st, pd, dl, bias=bias), n=10)
+        turns = {r: [] for r in K5_ROUTES}
+        for route in K5_ROUTES * 2:
+            with k5_route(q, route):
+                turns[route].append(device_ms(
+                    lambda: q.s8_conv(a, w, st, pd, dl, bias=bias), n=10))
+        ms, mma_ms = (sum(turns[r]) / 2 for r in K5_ROUTES)
+        shape = q._conv_shape(a, w, st, pd, dl, False)
+        xp, wp, pk = q._s8_conv_prepare(a, w, shape)
+        prep_ms = device_ms(lambda: q._s8_conv_prepare(a, w, shape), n=10)
+        product_ms = device_ms(lambda: q._s8_conv_product(
+            xp, wp, pk, bias, shape), n=10)
+        del xp, wp
         with exact_f64_convs(torch):
             plain_ms = device_ms(lambda: q.s8_conv_reference(
                 a, w, st, pd, dl, bias=bias), n=2)
@@ -5790,16 +5927,22 @@ def time_k5(torch, q, pred8, x):
                              n=10)
         del cols, wk, ab, wb
         rows.append({"shape": [list(xs), list(ws), list(st), list(pd)],
-                     "count": count, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "count": count, "ms": ms, "turns": turns,
+                     "prep_ms": prep_ms, "product_ms": product_ms,
+                     "prep_share": prep_ms / ms, "mma_s8_ms": mma_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "of_bound": bound_ms / ms,
                      "ops": ops, "bytes": nbytes, "int_mm_ms": int_mm_ms,
-                     "cudnn_bf16_ms": cudnn_ms,
+                     "cudnn_bf16_ms": cudnn_ms, "fold": pk.fold,
                      "tops": ops / ms / 1e9})
-        log(f"[c] s8_conv x{count} {xs} * {ws} s{st[0]} p{pd[0]}: "
-            f"{ms:.4f} ms device ({ops / ms / 1e9:.1f} TOP/s), bound "
-            f"{bound_ms:.4f} ms ({bound_by}), plain (f64) {plain_ms:.3f} ms,"
-            f" torch._int_mm on the im2col GEMM {int_mm_ms} ms, cuDNN "
-            f"bf16 conv {cudnn_ms:.4f} ms")
+        vs = (f"{ms / int_mm_ms:.2f}x torch._int_mm {int_mm_ms:.4f} ms"
+              if int_mm_ms else "torch._int_mm not measured")
+        log(f"[c] s8_conv x{count} {xs} * {ws} s{st[0]} p{pd[0]}: wgmma "
+            f"{ms:.4f} ms device ({ops / ms / 1e9:.1f} TOP/s, "
+            f"{bound_ms / ms:.1%} of bound {bound_ms:.4f} ms, {bound_by}; "
+            f"pre-pass {prep_ms:.4f} = {prep_ms / ms:.1%}, product "
+            f"{product_ms:.4f}), mma_s8 {mma_ms:.4f} ms, {vs}, cuDNN bf16 "
+            f"conv {cudnn_ms:.4f} ms, plain (f64) {plain_ms:.3f} ms")
         torch.cuda.empty_cache()
     (fa, _), = calls["fc"]
     a, w, bias = k5_fc_args(q, fa)
@@ -5807,15 +5950,25 @@ def time_k5(torch, q, pred8, x):
     ops = 2.0 * xs[0] * ws[0] * ws[1]
     nbytes = a.numel() + w.numel() + 4.0 * xs[0] * ws[0] + 4.0 * ws[0]
     fc_bound = int8_bound(ops, nbytes)
+    turns = {r: [] for r in K5_ROUTES}
+    for route in K5_ROUTES * 2:
+        with k5_route(q, route):
+            turns[route].append(device_ms(
+                lambda: q.s8_matmul(a, w, bias=bias), n=20))
     fc = {"shape": [list(xs), list(ws)], "count": len(calls["fc"]),
-          "ms": device_ms(lambda: q.s8_matmul(a, w, bias=bias), n=20),
+          "ms": sum(turns["wgmma"]) / 2,
+          "mma_s8_ms": sum(turns["mma_s8"]) / 2, "turns": turns,
           "plain_ms": device_ms(lambda: q.s8_matmul_reference(a, w), n=5),
           "bound_ms": fc_bound[0], "bound_by": fc_bound[1],
           "library_ms": library_ms(lambda: torch._int_mm(a, w.t()),
                                    "torch._int_mm")}
-    log(f"[c] s8_matmul {xs} x {ws}^T: {fc['ms']:.4f} ms device, bound "
+    log(f"[c] s8_matmul {xs} x {ws}^T: wgmma {fc['ms']:.4f} ms device"
+        + (f" ({fc['ms'] / fc['library_ms']:.3f}x torch._int_mm "
+           f"{fc['library_ms']:.4f} ms)" if fc["library_ms"] else
+           ", torch._int_mm not measured")
+        + f", mma_s8 {fc['mma_s8_ms']:.4f} ms, bound "
         f"{fc['bound_ms']:.5f} ms ({fc['bound_by']}), plain (f64) "
-        f"{fc['plain_ms']:.4f} ms, torch._int_mm {fc['library_ms']} ms")
+        f"{fc['plain_ms']:.4f} ms")
     shapes = {}
     for a, _ in calls["requant"]:
         args = k5_requant_args(q, a)
@@ -5844,18 +5997,27 @@ def time_k5(torch, q, pred8, x):
     conv = {k: (None if any(r[k] is None for r in rows) else
                 sum(r[k] * r["count"] for r in rows))
             for k in ("ms", "plain_ms", "bound_ms", "ops", "bytes",
-                      "int_mm_ms", "cudnn_bf16_ms")}
+                      "int_mm_ms", "cudnn_bf16_ms", "mma_s8_ms", "prep_ms",
+                      "product_ms")}
     conv["bound_by"] = ("bytes" if conv["bytes"] / PEAK_BYTES
                         >= conv["ops"] / PEAK_INT8_OPS else "operations")
     conv["calls"] = len(calls["conv"])
     conv["per_shape"] = rows
     log(f"[c] s8_conv over the {conv['calls']} convs of one bucket-128 "
-        f"predict: {conv['ms']:.4f} ms device, bound {conv['bound_ms']:.4f} "
-        f"ms ({conv['bound_by']}: {conv['ops'] / 1e9:.1f} GOP, "
-        f"{conv['bytes'] / 1e9:.3f} GB), {conv['bound_ms'] / conv['ms']:.1%}"
-        f" of bound; plain {conv['plain_ms']:.3f} ms; torch._int_mm "
-        f"{conv['int_mm_ms']} ms, cuDNN bf16 {conv['cudnn_bf16_ms']:.4f}"
-        " ms")
+        f"predict: wgmma {conv['ms']:.4f} ms device (pre-pass "
+        f"{conv['prep_ms']:.4f}, product {conv['product_ms']:.4f}), bound "
+        f"{conv['bound_ms']:.4f} ms ({conv['bound_by']}: "
+        f"{conv['ops'] / 1e9:.1f} GOP, {conv['bytes'] / 1e9:.3f} GB), "
+        f"{conv['bound_ms'] / conv['ms']:.1%} of bound; mma_s8 "
+        f"{conv['mma_s8_ms']:.4f} ms; plain {conv['plain_ms']:.3f} ms; "
+        f"torch._int_mm {conv['int_mm_ms']} ms, cuDNN bf16 "
+        f"{conv['cudnn_bf16_ms']:.4f} ms")
+    slower = [r["shape"] for r in rows
+              if r["shape"][1][2] == 3 and r["int_mm_ms"] is not None
+              and r["ms"] > r["int_mm_ms"]]
+    log(f"[c] 3x3 shapes slower on wgmma than their own torch._int_mm: "
+        f"{len(slower)} of {sum(r['shape'][1][2] == 3 for r in rows)} "
+        f"{slower}")
     return {"conv": conv, "fc": fc, "requant": req, "path_errs": errs,
             "path_calls": {k: len(v) for k, v in calls.items()}}
 
@@ -5915,7 +6077,8 @@ def main(argv=None):
             log(f"[a] ptxas advisory ({name}): {line}")
         for entry, usage in ptxas_usage(_build.build_log(name)):
             log(f"[a] ptxas {entry}: {usage}")
-            if name.endswith(("_tc", "_tf32x3", "_int8", "s8_gemm")) and \
+            if name.endswith(("_tc", "_tf32x3", "_int8", "s8_gemm",
+                              "_wgmma")) and \
                     not re.search(
                     r"\b0 bytes spill stores, 0 bytes spill loads", usage):
                 raise SystemExit(f"phase a: {entry} spills registers")
@@ -6241,9 +6404,11 @@ def main(argv=None):
         "step_launches": decoding["int8"]["step"]["write_launches"]}] + [{
         # phase p's path: the int8 ResNet-18's 20 convs, its FC and 36
         # requantize steps in every bucket program (enqueued at each
-        # bucket's 2 warm-up runs and its capture; replays add none);
-        # times from phase c at bucket 128's shapes, summed over the calls
-        # of one predict
+        # bucket's 2 warm-up runs and its capture; replays add none); the
+        # convs and the FC on csrc/s8_gemm_wgmma.cu (route "wgmma";
+        # csrc/s8_gemm.cu, route "mma_s8", takes none of them and is timed
+        # beside it); times from phase c at bucket 128's shapes, summed
+        # over the calls of one predict
         "name": name, "route": "cuda", "source": f"mxnet_tpu_torch/{src}",
         "replaces": f"mxnet_tpu/ops/quantization.py:{line}",
         "launches": int8["launches"][key],
@@ -6259,14 +6424,26 @@ def main(argv=None):
         "bound_by": t.get("bound_by", "bytes"), "library_ms": lib,
         **extra}
         for name, src, line, key, prefix, kind, how, t, lib, extra in (
-            ("s8_conv", "csrc/s8_gemm.cu", 190, "s8_conv", "s8_conv", "conv",
+            ("s8_gemm_wgmma", "csrc/s8_gemm_wgmma.cu", 190, "s8_conv",
+             "s8_conv", "conv",
              "exactly equal (int32) to the float64 plain version",
              k5_timing["conv"], k5_timing["conv"]["int_mm_ms"],
-             {"cudnn_bf16_ms": k5_timing["conv"]["cudnn_bf16_ms"],
+             {"entry_point": "s8_wgmma_conv (after s8_wgmma_prep)",
+              "launches_by_route": int8["launches"]["conv_by_route"],
+              "prep_ms": k5_timing["conv"]["prep_ms"],
+              "product_ms": k5_timing["conv"]["product_ms"],
+              "mma_s8_ms": k5_timing["conv"]["mma_s8_ms"],
+              "mma_s8_source": "mxnet_tpu_torch/csrc/s8_gemm.cu",
+              "cudnn_bf16_ms": k5_timing["conv"]["cudnn_bf16_ms"],
               "per_shape": k5_timing["conv"]["per_shape"]}),
-            ("s8_matmul", "csrc/s8_gemm.cu", 174, "s8_matmul", "s8_matmul",
-             "fc", "exactly equal (int32) to the float64 plain version",
-             k5_timing["fc"], k5_timing["fc"]["library_ms"], {}),
+            ("s8_gemm_wgmma_matmul", "csrc/s8_gemm_wgmma.cu", 174,
+             "s8_matmul", "s8_matmul", "fc",
+             "exactly equal (int32) to the float64 plain version",
+             k5_timing["fc"], k5_timing["fc"]["library_ms"],
+             {"entry_point": "s8_wgmma_matmul",
+              "launches_by_route": int8["launches"]["matmul_by_route"],
+              "mma_s8_ms": k5_timing["fc"]["mma_s8_ms"],
+              "mma_s8_source": "mxnet_tpu_torch/csrc/s8_gemm.cu"}),
             ("requant_int8", "csrc/requant_int8.cu", 207, "requant_int8",
              "requant_int8", "requant", "bitwise equal to the plain version "
              "(phase b on both paths)", k5_timing["requant"], None,

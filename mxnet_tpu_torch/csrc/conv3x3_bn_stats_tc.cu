@@ -255,34 +255,12 @@ conv3x3_tc_kernel(const __grid_constant__ CUtensorMap tx,
 }
 
 // ------------------------------------------------------------------ host
-typedef CUresult (*EncodeIm2col)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const int*, const int*,
-                                 cuuint32_t, cuuint32_t, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
 // x (n, h, w, cin) as an im2col map (C, W, H, N): pixel boxes of a 3x3
 // SAME conv (corners -1 and -1 on W and H), 64 channels, bm pixels.
 int make_x_map(CUtensorMap* map, const void* x, CUtensorMapDataType dt,
                int n, int h, int w, int cin, int bm) {
-  static const EncodeIm2col enc =
-      reinterpret_cast<EncodeIm2col>(driver_entry("cuTensorMapEncodeIm2col"));
-  if (!enc) return ERR_NO_ENCODER;
-  const cuuint64_t dim[4] = {cuuint64_t(cin), cuuint64_t(w), cuuint64_t(h),
-                             cuuint64_t(n)};
-  const cuuint64_t stride[3] = {cuuint64_t(cin) * 2,
-                                cuuint64_t(w) * cin * 2,
-                                cuuint64_t(h) * w * cin * 2};
-  const int lower[2] = {-1, -1}, upper[2] = {-1, -1};
-  const cuuint32_t estride[4] = {1, 1, 1, 1};
-  CUresult r = enc(map, dt, 4, const_cast<void*>(x), dim, stride, lower,
-                   upper, PANEL, cuuint32_t(bm), estride,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
+  return make_im2col_map(map, x, dt, 2, n, h, w, cin, -1, -1, -1, -1, 1, 1,
+                         PANEL, bm, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // w (9, cin, cout) as a tiled map (Cout, Cin, 9), boxes of 64 x 64 x 1.

@@ -2,12 +2,13 @@
 // csrc/flash_attn_fwd_tc.cu and csrc/flash_attn_fwd_tf32x3.cu (K1),
 // csrc/flash_attn_bwd_tc.cu and csrc/flash_attn_bwd_tf32x3.cu (K2) and
 // csrc/conv3x3_bn_stats_tc.cu and csrc/conv3x3_bn_stats_tf32x3.cu (K3)
-// include it. It holds the mbarrier ring primitives, TMA loads (tiled,
-// im2col and plain bulk), the descriptor of a 128-byte-swizzled
-// shared-memory tile, the warpgroup products (wgmma) in 16-bit and TF32
-// with both operands in shared memory or A in registers, the 16-bit packing
-// and hi + lo split of f32 values, the TF32 hi + lo split of f32 tiles in
-// shared memory (3xTF32), and the host's tensor-map encoding.
+// and csrc/s8_gemm_wgmma.cu (K5) include it. It holds the mbarrier ring
+// primitives, TMA loads (tiled, im2col and plain bulk), the descriptors of
+// swizzled and unswizzled shared-memory tiles, the warpgroup products
+// (wgmma) in 16-bit, TF32 and int8 with both operands in shared memory or A
+// in registers, the 16-bit packing and hi + lo split of f32 values, the
+// TF32 hi + lo split of f32 tiles in shared memory (3xTF32), and the host's
+// tensor-map encoding (tiled and im2col).
 //
 // ops/_build.py hashes this file into the digest of every source that
 // includes it, so editing it rebuilds them all. Everything here has
@@ -109,6 +110,24 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// Fetches a tensor map (a __grid_constant__ parameter) ahead of its first
+// load.
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 // BM pixels x 64 channels of x, starting at the im2col position
 // (w, h, n), shifted by the tap (kw, kh); out of the image reads as zero.
 __device__ __forceinline__ void tma_load_im2col(void* dst,
@@ -146,6 +165,17 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
   return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) |
          (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
          (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
+}
+
+// The same for any layout type: 0 no swizzle (8-row x 16-byte core
+// matrices; K-major: LBO the stride between the two core matrices of a
+// 32-byte K step, SBO between 8-row groups), 1, 2, 3 the 128-, 64- and
+// 32-byte swizzles (K-major: SBO = 8 rows, LBO unused).
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo, int layout) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) |
+         (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(layout) << 62);
 }
 
 // 2^x by the special-function unit (relative error ~2^-22; 0 for -inf).
@@ -342,6 +372,25 @@ __device__ __forceinline__ void wgmma_rs_tf32(float* d, const uint32_t* a,
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
   } else {
     static_assert(N == 0, "wgmma_rs_tf32: no such shape");
+  }
+}
+
+// D (64 x N, s32) += A (64 x 32) B (32 x N) in int8 (s8 x s8, exact), both
+// from shared memory and both K-major: 8-bit wgmma has no transpose flags.
+// The s32 fragment is laid out as the f32 one below.
+template <int N>
+__device__ __forceinline__ void wgmma_s8(uint32_t* d, uint64_t da,
+                                         uint64_t db) {
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    static_assert(N == 0, "wgmma_s8: no such shape");
   }
 }
 
@@ -597,6 +646,72 @@ inline int make_map_f32(CUtensorMap* map, const void* ptr, int d, int t,
                         long long sb, int rows, int* pos) {
   return encode_map(map, ptr, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, d, t, h, b,
                     st, sh, sb, rows, pos);
+}
+
+// A 2-D tiled map over `outer` rows of `inner` elements of `type`
+// (`elem` bytes), rows `row_bytes` apart: boxes of box_inner x box_outer,
+// swizzled by `swizzle` (its span must hold a box row); what falls outside
+// reads as zero. K5 reads int8 operands through it, K-major.
+inline int make_tiled_2d(CUtensorMap* map, const void* ptr,
+                         CUtensorMapDataType type, long long inner,
+                         long long outer, long long row_bytes, int box_inner,
+                         int box_outer, CUtensorMapSwizzle swizzle) {
+  static const EncodeTiled enc =
+      reinterpret_cast<EncodeTiled>(driver_entry("cuTensorMapEncodeTiled"));
+  if (!enc) return ERR_NO_ENCODER;
+  const cuuint64_t dim[2] = {cuuint64_t(inner), cuuint64_t(outer)};
+  const cuuint64_t stride[1] = {cuuint64_t(row_bytes)};
+  const cuuint32_t box[2] = {cuuint32_t(box_inner), cuuint32_t(box_outer)};
+  const cuuint32_t estride[2] = {1, 1};
+  CUresult r = enc(map, type, 2, const_cast<void*>(ptr), dim, stride, box,
+                   estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
+}
+
+typedef CUresult (*EncodeIm2col)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const int*, const int*,
+                                 cuuint32_t, cuuint32_t, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The im2col map of a convolution over a dense NHWC tensor x (n, h, w, c)
+// of `elem`-byte elements of `type` (TMA's dims C, W, H, N). One load
+// brings `pixels` rows of `channels` elements (swizzled by `swizzle`): the
+// output pixels in order, row after row and image after image, each as the
+// input pixel of tap (0, 0), from the box's lower corner (lower_w, lower_h)
+// to (w - 1 + upper_w, h - 1 + upper_h) in steps of the conv's strides
+// (stride_w, stride_h); the load's offsets (the tap times the dilation)
+// shift every pixel, and what falls outside x reads as zero. For pad p,
+// kernel k and dilation d on an axis: lower = -p, upper = p - (k - 1) d.
+// Corners lie in [-128, 127], strides in [1, 8] (the driver refuses the
+// rest). K3 and K5 encode every im2col map here.
+inline int make_im2col_map(CUtensorMap* map, const void* x,
+                           CUtensorMapDataType type, int elem, int n, int h,
+                           int w, int c, int lower_w, int lower_h,
+                           int upper_w, int upper_h, int stride_w,
+                           int stride_h, int channels, int pixels,
+                           CUtensorMapSwizzle swizzle) {
+  static const EncodeIm2col enc =
+      reinterpret_cast<EncodeIm2col>(driver_entry("cuTensorMapEncodeIm2col"));
+  if (!enc) return ERR_NO_ENCODER;
+  const cuuint64_t dim[4] = {cuuint64_t(c), cuuint64_t(w), cuuint64_t(h),
+                             cuuint64_t(n)};
+  const cuuint64_t stride[3] = {cuuint64_t(c) * elem,
+                                cuuint64_t(w) * c * elem,
+                                cuuint64_t(h) * w * c * elem};
+  const int lower[2] = {lower_w, lower_h}, upper[2] = {upper_w, upper_h};
+  const cuuint32_t estride[4] = {1, cuuint32_t(stride_w),
+                                 cuuint32_t(stride_h), 1};
+  CUresult r = enc(map, type, 4, const_cast<void*>(x), dim, stride, lower,
+                   upper, cuuint32_t(channels), cuuint32_t(pixels), estride,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
 }
 
 // Raises `kernel`'s dynamic shared memory limit to `bytes` once per device

@@ -19,25 +19,33 @@ K5 replaces ``mxnet_tpu/ops/quantization.py:174`` ``_s8_matmul``, ``:190``
 ``conv_general_dilated`` with int32 accumulation, and the int32 -> int8
 step) with hand-written CUDA kernels:
 
-- :func:`s8_conv` / :func:`s8_matmul` -> ``csrc/s8_gemm.cu``, one int8
-  tensor-core GEMM core (``mma.sync`` m16n8k32 s8 x s8 -> s32) with two
-  entry points: an implicit-GEMM NCHW / OIHW conv (stride, pad, dilation)
-  and x (M, K) @ W (N, K)^T, the int32 bias added in the epilogue;
+- :func:`s8_conv` / :func:`s8_matmul` -> one int8 tensor-core GEMM core
+  with two entry points, an implicit-GEMM conv (stride, pad, dilation) and
+  x (M, K) @ W (N, K)^T, the int32 bias added in the epilogue, in two
+  sources that the fixed rule :func:`_s8_route` picks between: route
+  "wgmma", ``csrc/s8_gemm_wgmma.cu`` (s8 ``wgmma`` fed by TMA; a conv's
+  operands laid out NHWC and (Cout, KH, KW, Cin) by its pre-pass, whose
+  plain version is :func:`s8_conv_pack_reference`), for every 2-D
+  one-group conv (NCHW or NHWC) and every GEMM it takes; route "mma_s8",
+  ``csrc/s8_gemm.cu`` (``mma.sync`` m16n8k32, A gathered byte by byte),
+  for the rest (a GEMM whose K is not a multiple of 16 or whose operands
+  are not 16-byte aligned, a conv stride past 8);
 - :func:`requant_epilogue` -> ``csrc/requant_int8.cu``, both paths,
   bitwise equal to the plain version.
 
 On a CPU tensor each takes its plain version (``*_reference``: the GEMM and
 conv in float64, exact since |sum| <= K * 127^2 < 2^53, then int32; the
 epilogue in the kernel's order of float32 operations). On a CUDA tensor it
-launches its kernel or raises, grouped and channels-last int8 convs
-included (ROADMAP Queue 2). ``<wrapper>.launches`` counts launches and
-``launches_by_route`` splits them. ``mxnet_tpu``'s schedule axes keep a
-fixed rule here (``tune/`` is ROADMAP Queue 1 item 13): ``operand_width``
-"int8" and requantize ``path`` "via_fp32"; "int32" and "fused_scale" stay
-callable.
+launches the kernel its route names or raises (grouped int8 convs raise:
+ROADMAP Queue 2); nothing moves to the other route. ``<wrapper>.launches``
+counts launches and ``launches_by_route`` splits them. ``mxnet_tpu``'s
+schedule axes keep a fixed rule here (``tune/`` is ROADMAP Queue 1 item
+13): ``operand_width`` "int8" and requantize ``path`` "via_fp32"; "int32"
+and "fused_scale" stay callable.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 import os
@@ -49,8 +57,8 @@ from ..base import MXNetError
 from . import _build
 from .registry import register
 
-__all__ = ["s8_conv", "s8_conv_reference", "s8_matmul",
-           "s8_matmul_reference", "requant_epilogue",
+__all__ = ["s8_conv", "s8_conv_reference", "s8_conv_pack_reference",
+           "s8_matmul", "s8_matmul_reference", "requant_epilogue",
            "requant_epilogue_reference", "nan_poison_enabled"]
 
 _I32_MAX = 2147483647.0      # float32(2147483647) == 2^31, as in mxnet_tpu
@@ -137,6 +145,7 @@ def requant_epilogue_reference(data, real_in, out_min, out_max,
 
 
 _S8_LIB = "s8_gemm"
+_WG_LIB = "s8_gemm_wgmma"
 _RQ_LIB = "requant_int8"
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -145,6 +154,15 @@ _SIGNATURES = {
     "s8_conv": (_S8_LIB, [_VP] * 4 + [_I] * 15 + [_VP]),
     # x, w, bias, out, M, N, K, stream
     "s8_matmul": (_S8_LIB, [_VP] * 4 + [_I] * 3 + [_VP]),
+    # x, its N C H W strides, N, C, H, W, wq, fold, fs, fp, fd, w, its O I
+    # H W strides, Cout, KH, KW, cp, kpad, xp, wp, stream
+    "s8_wgmma_prep": (_WG_LIB, [_VP] + [_LL] * 4 + [_I] * 9 + [_VP]
+                      + [_LL] * 4 + [_I] * 5 + [_VP] * 3),
+    # xp, wp, bias, out, N, H, W, cp, Cout, KH, KW, SH, SW, PH, PW, DH, DW,
+    # Ho, Wo, kpad, nchw, warpgroups, stream
+    "s8_wgmma_conv": (_WG_LIB, [_VP] * 4 + [_I] * 18 + [_VP]),
+    # x, w, bias, out, M, N, K, stream
+    "s8_wgmma_matmul": (_WG_LIB, [_VP] * 4 + [_I] * 3 + [_VP]),
     # x, q, n, real_in, out_min, out_max, lo, hi, path, stream
     "requant_int8": (_RQ_LIB, [_VP, _VP, _LL] + [_VP] * 5 + [_I, _VP]),
 }
@@ -199,10 +217,99 @@ def _check_bias(name, bias, n, device):
     return bias.contiguous()
 
 
+def _s8_route(op, k=None, kernel=(1, 1), stride=(1, 1), pad=(0, 0),
+              dilate=(1, 1), ptrs=()):
+    """The fixed rule naming the kernel of a K5 GEMM or conv on CUDA:
+    "wgmma" (``csrc/s8_gemm_wgmma.cu``) or "mma_s8" (``csrc/s8_gemm.cu``).
+
+    ``op`` "matmul": "wgmma" where ``k`` is a multiple of 16 and every
+    operand address in ``ptrs`` (integers) is 16-byte aligned -- TMA reads
+    rows 16-byte aligned. ``op`` "conv" (2-D, one group; the pre-pass
+    copies the operands, so their addresses do not matter): "wgmma" where
+    TMA's im2col mode takes the geometry per axis -- a stride of 1 to 8,
+    the box corners -pad and pad - (kernel - 1) * dilate in [-128, 127],
+    the last tap's offset (kernel - 1) * dilate at most 127."""
+    if op == "matmul":
+        ok = int(k) % 16 == 0 and all(int(p) % 16 == 0 for p in ptrs)
+    elif op == "conv":
+        ok = all(1 <= s <= 8 and 0 <= p <= 128 and (kk - 1) * d <= 127
+                 and -128 <= p - (kk - 1) * d <= 127
+                 for kk, s, p, d in zip(kernel, stride, pad, dilate))
+    else:
+        raise ValueError(f"_s8_route: op {op!r} (matmul or conv)")
+    return "wgmma" if ok else "mma_s8"
+
+
+class _Pack(collections.namedtuple(
+        "_Pack", "fold cp kpad kw stride_w pad_w dilate_w")):
+    """How the wgmma route's pre-pass lays a conv out (:func:`_s8_pack`)."""
+
+
+def _s8_pack(c, kernel, stride, pad, dilate):
+    """The wgmma route's layout for a conv of C channels: ``fold`` -- the
+    KW taps along W folded into the channels (``fold`` = KW: channel s C +
+    ci of output column q holds x[ci, q SW - PW + s DW], and the conv
+    becomes KH x 1 with stride, pad and dilation 1, 0, 1 along W) where
+    that gives K fewer columns (a few channels: the stem's 3), else 1; cp
+    -- the channels padded to a multiple of 16; kpad -- the weight's K (KH
+    kw cp) padded to whole stages of the kernel's ring, a stage 128, 64 or
+    32 bytes of K as cp is a multiple of 128, of 64, or else; and the W
+    axis's kernel, stride, pad and dilation of the conv the kernel runs."""
+    (kh, kw), (_, sw), (_, pw), (_, dw) = kernel, stride, pad, dilate
+    pad16 = lambda v: -(-int(v) // 16) * 16   # noqa: E731
+    fold = kw if kw > 1 and pad16(kw * c) < kw * pad16(c) else 1
+    cp = pad16(fold * c)
+    kw1 = kw // fold
+    stage = 128 if cp % 128 == 0 else 64 if cp % 64 == 0 else 32
+    kpad = -(-(kh * kw1 * cp) // stage) * stage
+    if fold > 1:
+        return _Pack(fold, cp, kpad, 1, 1, 0, 1)
+    return _Pack(1, cp, kpad, kw, sw, pw, dw)
+
+
+def _s8_warpgroups(cout):
+    """Consumer warpgroups a CTA of the wgmma conv (64 output channels
+    each): the fewest that cover Cout, at most 2."""
+    return 1 if cout <= 64 else 2
+
+
+def s8_conv_pack_reference(data, weight, stride, pad, dilate, layout=None):
+    """The plain version of the wgmma route's pre-pass (layout by
+    :func:`_s8_pack`): (xp, wp) with xp (N, H, Wq, cp) int8 -- NHWC data
+    with its channels zero-padded (Wq = W), or with a fold each output
+    column's KW input pixels as channels (Wq = Wo) -- and wp the weight as
+    (Cout, kpad) int8 rows of k = (r kw + s) cp + j, zeros past the
+    channels and past the last tap. NCHW data with OIHW weights, or with
+    ``layout`` "NHWC" OHWI weights."""
+    last = bool(layout) and layout[1] != "C"
+    x = data.permute(0, 3, 1, 2) if last else data        # NCHW
+    wt = weight if last else weight.permute(0, 2, 3, 1)   # (Cout, KH, KW, C)
+    n, c, h, w = x.shape
+    cout, kh, kw = wt.shape[:3]
+    st, pd, dl = _pairs(stride, 2), _pairs(pad, 2), _pairs(dilate, 2)
+    pk = _s8_pack(c, (kh, kw), st, pd, dl)
+    if pk.fold > 1:
+        wo = (w + 2 * pd[1] - dl[1] * (kw - 1) - 1) // st[1] + 1
+        xw = F.pad(x, (pd[1], pd[1]))
+        taps = [xw[..., s * dl[1]:s * dl[1] + (wo - 1) * st[1] + 1:st[1]]
+                for s in range(kw)]                      # each (N, C, H, Wo)
+        xq = torch.stack(taps, 1).permute(0, 3, 4, 1, 2).reshape(
+            n, h, wo, kw * c)
+        wq = wt.reshape(cout, kh, 1, kw * c)
+    else:
+        xq, wq = x.permute(0, 2, 3, 1), wt
+    xp = F.pad(xq, (0, pk.cp - xq.shape[3])).contiguous()
+    k = kh * pk.kw * pk.cp
+    wp = F.pad(F.pad(wq, (0, pk.cp - wq.shape[3])).reshape(cout, k),
+               (0, pk.kpad - k)).contiguous()
+    return xp, wp
+
+
 def s8_matmul(x, weight, operand_width="int8", bias=None):
     """x (..., K) int8 @ weight (N, K)^T int8 -> int32 (..., N), plus the
     int32 ``bias`` (N,) (``mxnet_tpu/ops/quantization.py:174``). A CUDA
-    tensor launches ``csrc/s8_gemm.cu``'s ``s8_matmul``; a CPU tensor takes
+    tensor launches the GEMM of the kernel :func:`_s8_route` names
+    (``s8_wgmma_matmul`` or ``s8_matmul``); a CPU tensor takes
     :func:`s8_matmul_reference`. ``operand_width`` ("int8" or "int32",
     the schedule axis) changes no result and no kernel."""
     if operand_width not in ("int8", "int32"):
@@ -223,27 +330,99 @@ def s8_matmul(x, weight, operand_width="int8", bias=None):
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=torch.int32, device=device)
     if m and n:
+        route = _s8_route("matmul", k=k, ptrs=(x2.data_ptr(), w.data_ptr()))
         with torch.cuda.device(device):
-            _call("s8_matmul", x2.data_ptr(), w.data_ptr(),
+            _call("s8_wgmma_matmul" if route == "wgmma" else "s8_matmul",
+                  x2.data_ptr(), w.data_ptr(),
                   bias.data_ptr() if bias is not None else None,
                   out.data_ptr(), m, n, k, _stream(x2))
         s8_matmul.launches += 1
-        s8_matmul.launches_by_route["mma_s8"] += 1
+        s8_matmul.launches_by_route[route] += 1
     return out.reshape(*x.shape[:-1], n)
 
 
 s8_matmul.launches = 0
-s8_matmul.launches_by_route = {"mma_s8": 0}
+s8_matmul.launches_by_route = {"wgmma": 0, "mma_s8": 0}
+
+
+def _conv_shape(data, weight, stride, pad, dilate, last):
+    """(n, c, h, w, cout, kh, kw, (sh, sw), (ph, pw), (dh, dw), ho, wo) of a
+    2-D conv: NCHW / OIHW, or with ``last`` NHWC / OHWI."""
+    n, c, h, w = data.shape[0], *((data.shape[3], *data.shape[1:3]) if last
+                                  else data.shape[1:])
+    if weight.dim() != 4 or weight.shape[3 if last else 1] != c:
+        raise ValueError(f"s8_conv: weight {tuple(weight.shape)} does not "
+                         f"match data {tuple(data.shape)} "
+                         f"({'OHWI' if last else 'OIHW'})")
+    cout = weight.shape[0]
+    kh, kw = weight.shape[1:3] if last else weight.shape[2:]
+    st, pd, dl = _pairs(stride, 2), _pairs(pad, 2), _pairs(dilate, 2)
+    ho = (h + 2 * pd[0] - dl[0] * (kh - 1) - 1) // st[0] + 1
+    wo = (w + 2 * pd[1] - dl[1] * (kw - 1) - 1) // st[1] + 1
+    if ho < 1 or wo < 1:
+        raise ValueError(f"s8_conv: empty output {ho}x{wo}")
+    if n * ho * wo >= 2 ** 31 or c * kh * kw >= 2 ** 31:
+        raise ValueError("s8_conv: the GEMM's M or K exceeds int32")
+    return n, c, h, w, cout, kh, kw, st, pd, dl, ho, wo
+
+
+def _s8_conv_prepare(data, weight, shape, last=False):
+    """The wgmma route's pre-pass on the card: (xp, wp, pack), xp and wp as
+    :func:`s8_conv_pack_reference` lays them out, made by one launch of
+    ``s8_wgmma_prep`` into scratch from the caller's allocator (an NHWC x
+    that needs no fold, with C a multiple of 16, contiguous on a
+    16-byte-aligned base, is read in place). ``shape`` is
+    :func:`_conv_shape`'s tuple."""
+    n, c, h, w, cout, kh, kw, st, pd, dl, _, wo = shape
+    pk = _s8_pack(c, (kh, kw), st, pd, dl)
+    wq = wo if pk.fold > 1 else w
+    in_place = last and pk.fold == 1 and c == pk.cp and \
+        data.is_contiguous() and data.data_ptr() % 16 == 0
+    xp = data if in_place else torch.empty((n, h, wq, pk.cp),
+                                           dtype=torch.int8,
+                                           device=data.device)
+    wp = torch.empty((cout, pk.kpad), dtype=torch.int8, device=data.device)
+    sx, sw = data.stride(), weight.stride()
+    if last:     # (N, H, W, C) and (O, H, W, I) strides as N C H W, O I H W
+        sx = (sx[0], sx[3], sx[1], sx[2])
+        sw = (sw[0], sw[3], sw[1], sw[2])
+    fs, fp, fd = (st[1], pd[1], dl[1]) if pk.fold > 1 else (1, 0, 0)
+    with torch.cuda.device(data.device):
+        _call("s8_wgmma_prep", None if in_place else data.data_ptr(), *sx,
+              n, c, h, w, wq, pk.fold, fs, fp, fd, weight.data_ptr(), *sw,
+              cout, kh, kw, pk.cp, pk.kpad, xp.data_ptr(), wp.data_ptr(),
+              _stream(data))
+    return xp, wp, pk
+
+
+def _s8_conv_product(xp, wp, pk, bias, shape, last=False, warpgroups=None):
+    """The wgmma route's conv on the pre-pass's operands: int32 NCHW, or
+    with ``last`` NHWC. ``shape`` is :func:`_conv_shape`'s tuple, ``pk``
+    the layout :func:`_s8_conv_prepare` returns; ``warpgroups`` (1 or 2)
+    overrides :func:`_s8_warpgroups`."""
+    n, _, h, _, cout, kh, _, (sh, _), (ph, _), (dh, _), ho, wo = shape
+    out = torch.empty((n, ho, wo, cout) if last else (n, cout, ho, wo),
+                      dtype=torch.int32, device=xp.device)
+    with torch.cuda.device(xp.device):
+        _call("s8_wgmma_conv", xp.data_ptr(), wp.data_ptr(),
+              bias.data_ptr() if bias is not None else None, out.data_ptr(),
+              n, h, xp.shape[2], pk.cp, cout, kh, pk.kw, sh, pk.stride_w,
+              ph, pk.pad_w, dh, pk.dilate_w, ho, wo, pk.kpad,
+              0 if last else 1, warpgroups or _s8_warpgroups(cout),
+              _stream(xp))
+    return out
 
 
 def s8_conv(data, weight, stride, pad, dilate, num_group=1, layout=None,
             bias=None, operand_width="int8"):
     """int8 convolution with int32 accumulation plus the int32 ``bias``
-    (``mxnet_tpu/ops/quantization.py:190``): NCHW data, OIHW weights,
-    symmetric ``pad``. A CUDA tensor launches ``csrc/s8_gemm.cu``'s
-    implicit-GEMM ``s8_conv`` (2-D, channels-first, one group; anything
-    else raises); a CPU tensor takes :func:`s8_conv_reference`, which also
-    takes groups, 1-D / 3-D and channels-last."""
+    (``mxnet_tpu/ops/quantization.py:190``): NCHW data and OIHW weights, or
+    with ``layout`` "NHWC" NHWC data and OHWI weights; symmetric ``pad``.
+    A CUDA tensor of a 2-D one-group conv launches the kernel
+    :func:`_s8_route` names: "wgmma" (``csrc/s8_gemm_wgmma.cu``, after its
+    pre-pass) or "mma_s8" (``csrc/s8_gemm.cu``, NCHW only); anything else
+    raises. A CPU tensor takes :func:`s8_conv_reference`, which also takes
+    groups and 1-D / 3-D."""
     if operand_width not in ("int8", "int32"):
         raise ValueError(f"operand_width {operand_width!r} (int8 or int32)")
     device = _check_s8("s8_conv", data=data, weight=weight)
@@ -255,38 +434,37 @@ def s8_conv(data, weight, stride, pad, dilate, num_group=1, layout=None,
                                  num_group, layout, bias)
     if device.type != "cuda":
         raise ValueError(f"s8_conv: unsupported device {device}")
-    if int(num_group) != 1 or last or data.dim() != 4:
+    if int(num_group) != 1 or data.dim() != 4:
         raise MXNetError(
-            f"s8_conv: grouped, channels-last and non-2-D int8 convs are "
-            f"not ported to CUDA ({_QUEUE}); got num_group={num_group}, "
-            f"layout={layout}, data {tuple(data.shape)}")
-    n, c, h, w = data.shape
-    if weight.dim() != 4 or weight.shape[1] != c:
-        raise ValueError(f"s8_conv: weight {tuple(weight.shape)} does not "
-                         f"match data {tuple(data.shape)} (OIHW)")
-    kh, kw = weight.shape[2:]
-    (sh, sw), (ph, pw), (dh, dw) = (_pairs(stride, 2), _pairs(pad, 2),
-                                    _pairs(dilate, 2))
-    ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
-    wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
-    if ho < 1 or wo < 1:
-        raise ValueError(f"s8_conv: empty output {ho}x{wo}")
-    if n * ho * wo >= 2 ** 31 or c * kh * kw >= 2 ** 31:
-        raise ValueError("s8_conv: the GEMM's M or K exceeds int32")
-    x, wt = data.contiguous(), weight.contiguous()
-    out = torch.empty((n, nf, ho, wo), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        _call("s8_conv", x.data_ptr(), wt.data_ptr(),
-              bias.data_ptr() if bias is not None else None, out.data_ptr(),
-              n, c, h, w, nf, kh, kw, sh, sw, ph, pw, dh, dw, ho, wo,
-              _stream(x))
+            f"s8_conv: grouped and non-2-D int8 convs are not ported to "
+            f"CUDA ({_QUEUE}); got num_group={num_group}, layout={layout}, "
+            f"data {tuple(data.shape)}")
+    shape = _conv_shape(data, weight, stride, pad, dilate, last)
+    n, c, h, w, _, kh, kw, st, pd, dl, ho, wo = shape
+    route = _s8_route("conv", kernel=(kh, kw), stride=st, pad=pd, dilate=dl)
+    if route == "wgmma":
+        xp, wp, pk = _s8_conv_prepare(data, weight, shape, last)
+        out = _s8_conv_product(xp, wp, pk, bias, shape, last)
+    elif last:
+        raise MXNetError(
+            f"s8_conv: a channels-last int8 conv outside the wgmma kernel's "
+            f"geometry (stride {st}, pad {pd}, dilation {dl}) has no CUDA "
+            f"kernel ({_QUEUE})")
+    else:
+        x, wt = data.contiguous(), weight.contiguous()
+        out = torch.empty((n, nf, ho, wo), dtype=torch.int32, device=device)
+        with torch.cuda.device(device):
+            _call("s8_conv", x.data_ptr(), wt.data_ptr(),
+                  bias.data_ptr() if bias is not None else None,
+                  out.data_ptr(), n, c, h, w, nf, kh, kw, *st, *pd, *dl, ho,
+                  wo, _stream(x))
     s8_conv.launches += 1
-    s8_conv.launches_by_route["mma_s8"] += 1
+    s8_conv.launches_by_route[route] += 1
     return out
 
 
 s8_conv.launches = 0
-s8_conv.launches_by_route = {"mma_s8": 0}
+s8_conv.launches_by_route = {"wgmma": 0, "mma_s8": 0}
 
 
 def requant_epilogue(data, real_in, out_min, out_max, path="via_fp32"):

@@ -240,7 +240,7 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     assert users == {"flash_attn_fwd_tc", "flash_attn_bwd_tc",
                      "flash_attn_fwd_tf32x3", "flash_attn_bwd_tf32x3",
                      "conv3x3_bn_stats_tc", "conv3x3_bn_stats_tf32x3",
-                     "paged_decode_attn_int8"}
+                     "paged_decode_attn_int8", "s8_gemm_wgmma"}
     assert changed == users
 
 
