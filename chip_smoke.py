@@ -61,7 +61,13 @@ Phases, each failing loudly with a non-zero exit:
       multiple of 16 and misaligned bases on the rule's "mma_s8"; int32
       exactly equal to the float64 plain versions (cuDNN off for them);
       requantize on both paths, bitwise equal, .5 ties included, a NaN
-      range out NaN; every case launched twice, bitwise; a grouped int8
+      range out NaN; requantize under the batch's own range, computed by
+      the kernel (mode "own") or handed in (mode "given"), bitwise (a
+      relu'd input, all zeros, an odd length, a NaN real_in); the conv's
+      fused epilogues (s8_conv_requant: relu and a calibrated requantize
+      to int8, or the int32 and its range word) bitwise equal to the plain
+      chain on even and odd NCHW planes and NHWC, relu on and off, the NaN
+      poison in both; every case launched twice, bitwise; a grouped int8
       conv must raise;
   (c) kernel, plain-version and library times at the slices' shapes, in
       device time, beside each kernel's bound on the H100 (K1 also on the
@@ -80,15 +86,21 @@ Phases, each failing loudly with a non-zero exit:
       plain version and one SDPA call over the same KV already contiguous,
       which takes no page table; the int8 write at the step's shape beside
       its plain chain and bound; K5, after phase p, on one eager walk of
-      phase p's bucket-128 int8 graph: each of its 20 convs, its FC and its
-      36 requantize calls held on the inputs the path gave it to the plain
-      version (int32 exactly, requantize bitwise), then on those inputs
-      each conv shape timed on route "wgmma" (its pre-pass and its product
-      also apart) and on "mma_s8", in turns, beside its bound at the int8
-      tensor-core peak or the bytes, the float64 plain version,
+      the unfused nodes of phase p's bucket-128 int8 graph: each of its 20
+      convs, its FC and its 36 requantize calls held on the inputs the
+      path gave it to the plain version (int32 exactly, requantize
+      bitwise), the plan's 8 fused conv + relu + requantize calls bitwise
+      to the plain chain and its 11 range words bitwise to the plain
+      range (the requantize reading each bitwise too), then on those
+      inputs each conv shape timed on route "wgmma" (its pre-pass and its
+      product also apart) and on "mma_s8", in turns, beside its bound at
+      the int8 tensor-core peak or the bytes, the float64 plain version,
       torch._int_mm on the same im2col'd GEMM and cuDNN's bf16 conv; the
-      FC on both routes beside torch._int_mm; each requantize shape beside
-      its bytes);
+      FC on both routes beside torch._int_mm; the fused predict's 28
+      standalone requantize steps, each in its mode, on the path's inputs
+      and on random int32, beside their bytes, and a sweep of input
+      values (zeros, small, random); each fused conv against the unfused
+      conv + relu + requantize it replaces);
   (d) the slice: TransformerLM(impl='flash') at GPT-2-small widths in
       bf16, behind Predictor + BatchServer, served to concurrent
       requests: each bucket captured as a CUDA graph at the predictor's
@@ -212,11 +224,15 @@ Phases, each failing loudly with a non-zero exit:
       classes, seeded Xavier) exported, then Predictor(sym_file,
       params_file, quantize="int8", naive calibration on 32 images,
       buckets 1, 32, 128): the graph's op counts (20 quantized convs, 36
-      requantize, ...), K5's launches counted from just before the build
-      to just after the first predict (20 conv, 1 FC and 36 requantize a
-      bucket program, every conv and the FC on route "wgmma", none on
+      requantize, ...), the executor's plan (8 conv -> relu -> calibrated
+      requantize chains, 11 conv -> batch-range requantize chains), K5's
+      launches counted from just before the build to just after the first
+      predict (a bucket program: 1 conv, 19 fused convs by mode, 1 FC, 28
+      requantize by mode; every conv and the FC on route "wgmma", none on
       "mma_s8" or the plain versions), the bucket-128 graph's 21 s8_wgmma,
-      20 pre-pass and 36 requant nodes, int8 logits on 128 other images
+      20 pre-pass, 28 requant and 5 range-pass nodes, the captured fused
+      predict's logits bitwise equal to the unfused walk's, int8 logits
+      on 128 other images
       within 0.15 of max|fp32| of the folded fp32 graph with top-1
       agreement >= 0.75, a second predict bitwise, the bucket-128 logits
       bitwise equal to those of the same predict with the route rule
@@ -5255,18 +5271,23 @@ def s8_rand(torch, gen, shape, lo=-127, hi=128, offset=0):
 
 
 def k5_zero_counts(q):
-    for fn in (q.s8_conv, q.s8_matmul, q.requant_epilogue):
+    for fn in (q.s8_conv, q.s8_matmul, q.requant_epilogue,
+               q.s8_conv_requant):
         fn.launches = 0
-        for route in fn.launches_by_route:
-            fn.launches_by_route[route] = 0
+        for by in ("launches_by_route", "launches_by_mode"):
+            for key in getattr(fn, by, {}):
+                getattr(fn, by)[key] = 0
 
 
 def k5_counts(q):
     return {"s8_conv": q.s8_conv.launches, "s8_matmul": q.s8_matmul.launches,
             "requant_int8": q.requant_epilogue.launches,
+            "s8_conv_requant": q.s8_conv_requant.launches,
             "conv_by_route": dict(q.s8_conv.launches_by_route),
             "matmul_by_route": dict(q.s8_matmul.launches_by_route),
-            "requant_by_path": dict(q.requant_epilogue.launches_by_route)}
+            "requant_by_path": dict(q.requant_epilogue.launches_by_route),
+            "requant_by_mode": dict(q.requant_epilogue.launches_by_mode),
+            "fused_by_mode": dict(q.s8_conv_requant.launches_by_mode)}
 
 
 K5_ROUTES = ("wgmma", "mma_s8")
@@ -5288,8 +5309,10 @@ def k5_route(q, route):
 def k5_plain_guard(q):
     """While open, K5's plain versions raise on a CUDA tensor: the
     wrappers must launch their kernels for those."""
-    saved = (q.s8_conv_reference, q.s8_matmul_reference,
-             q.requant_epilogue_reference)
+    names = ("s8_conv_reference", "s8_matmul_reference",
+             "requant_epilogue_reference", "requant_range_reference",
+             "s8_conv_requant_reference")
+    saved = [getattr(q, name) for name in names]
 
     def guarded(fn):
         def call(data, *args, **kwargs):
@@ -5298,13 +5321,13 @@ def k5_plain_guard(q):
             return fn(data, *args, **kwargs)
         return call
 
-    (q.s8_conv_reference, q.s8_matmul_reference,
-     q.requant_epilogue_reference) = map(guarded, saved)
+    for name, fn in zip(names, saved):
+        setattr(q, name, guarded(fn))
     try:
         yield
     finally:
-        (q.s8_conv_reference, q.s8_matmul_reference,
-         q.requant_epilogue_reference) = saved
+        for name, fn in zip(names, saved):
+            setattr(q, name, fn)
 
 
 def check_k5(torch, q):
@@ -5492,6 +5515,16 @@ def check_k5(torch, q):
         f"{'ok' if poisoned else 'FAIL'}")
     if not poisoned:
         raise SystemExit("phase b: requant_int8 drops the NaN poison")
+    relu_d = small.clamp_min(0)
+    for name, x, rin in (("int32 range", full, 37.5),
+                         ("conv-like", small, 1.7e4),
+                         ("relu'd, half zeros", relu_d, 1.7e4),
+                         ("all zeros", torch.zeros_like(small), 1.7e4),
+                         ("odd length", small.reshape(-1)[3:100004], 1.7e4),
+                         ("NaN real_in", small, float("nan"))):
+        records += check_requant_batch_range(torch, q, name, x,
+                                             torch.tensor(rin, **f32))
+    records += check_conv_requant(torch, q, gen)
     x = s8_rand(torch, gen, (2, 8, 9, 9))
     try:
         q.s8_conv(x, s8_rand(torch, gen, (8, 4, 3, 3)), (1, 1), (1, 1),
@@ -5503,6 +5536,125 @@ def check_k5(torch, q):
         raise SystemExit("phase b: a grouped int8 conv on CUDA did not "
                          "raise")
     return records
+
+
+def same_bits(torch, a, b):
+    """Bitwise equal, a NaN anywhere matching a NaN (the card's NaN bits
+    and the CPU's differ)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        na, nb = torch.isnan(a), torch.isnan(b)
+        return bool(torch.equal(na, nb)) and bool(torch.equal(a[~na],
+                                                              b[~nb]))
+    return bool(torch.equal(a, b))
+
+
+def check_requant_batch_range(torch, q, name, x, real_in):
+    """csrc/requant_int8.cu without a calibrated range, on ``x``: mode
+    "own" (the kernel's range pass) and mode "given" (the plain range
+    handed in as a producer's word) against the plain versions:
+    requant_range_reference's range bitwise (NaN as NaN), the int8 output
+    bitwise where the range is finite."""
+    rng = q.requant_range_reference(x, real_in)
+    want = q.requant_epilogue_reference(x, real_in, -rng, rng)
+    finite = bool(torch.isfinite(rng))
+    out = []
+    for mode, amax in (("own", None), ("given", rng.clone())):
+        before = q.requant_epilogue.launches_by_mode[mode]
+        with k5_plain_guard(q):
+            got = q.requant_epilogue(x, real_in, amax=amax)
+            again = q.requant_epilogue(x, real_in, amax=amax)[0]
+        torch.cuda.synchronize()
+        ranges = same_bits(torch, got[1], want[1]) and \
+            same_bits(torch, got[2], want[2])
+        same = ranges and (not finite or torch.equal(got[0], want[0]))
+        repeat = torch.equal(got[0], again)
+        launched = q.requant_epilogue.launches_by_mode[mode] - before
+        ok = same and repeat and launched == 2
+        log(f"[b] requant_int8 batch range ({mode}) {name} ({x.numel()} "
+            f"values): range {got[2].item():.6g} == plain bitwise: {ranges}"
+            f"; int8 == plain bitwise{'' if finite else ' (not compared: '
+                                         'NaN range)'}: {same}; second "
+            f"launch bitwise: {repeat} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase b: requant_int8 batch range ({mode}) "
+                             f"{name} disagrees")
+        out.append({"case": f"requant_int8 {mode} range {name}",
+                    "bitwise": same, "max_abs_err": 0 if same else None})
+    return out
+
+
+def check_conv_requant(torch, q, gen):
+    """s8_wgmma_conv's fused epilogues (s8_conv_requant) against the plain
+    chain s8_conv_reference -> relu -> requant_epilogue_reference (mode
+    "requant": int8 and range bitwise) or -> requant_range_reference (mode
+    "range": int32 exactly, the range word bitwise), relu on and off, on
+    every store path: even NCHW planes, odd planes, NHWC; the NaN poison
+    in both modes (a NaN calibrated range, a NaN real_in)."""
+    f32 = dict(dtype=torch.float32, device="cuda")
+    out = []
+    for name, n, c, cout, h, k, s, p, layout in (
+            ("even planes 64->64 56^2 k3", 4, 64, 64, 56, 3, 1, 1, None),
+            ("even planes 64->128 56^2 k1 s2", 4, 64, 128, 56, 1, 2, 0,
+             None),
+            ("odd planes 256->512 14^2 k3 s2", 4, 256, 512, 14, 3, 2, 1,
+             None),
+            ("odd planes 32->96 9^2 k3 (ragged Cout)", 3, 32, 96, 9, 3, 1,
+             1, None),
+            ("NHWC 64->64 10^2 k3", 2, 64, 64, 10, 3, 1, 1, "NHWC")):
+        shape = (n, h, h, c) if layout else (n, c, h, h)
+        wshape = (cout, k, k, c) if layout else (cout, c, k, k)
+        x, w = s8_rand(torch, gen, shape), s8_rand(torch, gen, wshape)
+        bias = torch.randint(-2 ** 16, 2 ** 16, (cout,), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        args = (x, w, (s, s), (p, p), (1, 1), layout, bias)
+        # the int32 sums' spread is ~127^2 / 3 sqrt(K): a grid on which
+        # it reads ~2, so the range (-3, 2.5) clips its tails only
+        real_in = torch.tensor(2.0 ** 31 * 2.0 / (5376.0 * (c * k * k)
+                                                  ** 0.5), **f32)
+        for relu in (False, True):
+            for mode, lo, hi in (("requant", -3.0, 2.5), ("range", 0, 0),
+                                 ("requant", -3.0, float("nan")),
+                                 ("range", None, None)):
+                scal = {"real_in": real_in}
+                if mode == "requant":
+                    scal.update(out_min=torch.tensor(lo, **f32),
+                                out_max=torch.tensor(hi, **f32))
+                elif lo is None:
+                    scal["real_in"] = torch.tensor(float("nan"), **f32)
+                with exact_f64_convs(torch):
+                    want = q.s8_conv_requant_reference(*args, relu=relu,
+                                                       **scal)
+                before = q.s8_conv_requant.launches_by_mode[mode]
+                with k5_plain_guard(q):
+                    got = q.s8_conv_requant(*args, relu=relu, **scal)
+                torch.cuda.synchronize()
+                launched = q.s8_conv_requant.launches_by_mode[mode] - before
+                poison = hi != hi or lo is None
+                if mode == "requant":
+                    ranges = same_bits(torch, got[1], want[1]) and \
+                        same_bits(torch, got[2], want[2])
+                    same = ranges and (poison or torch.equal(got[0],
+                                                             want[0]))
+                    err = 0 if poison else int_err(torch, got[0], want[0])
+                else:
+                    same = torch.equal(got[0], want[0]) and \
+                        same_bits(torch, got[1], want[1])
+                    err = int_err(torch, got[0], want[0])
+                ok = same and launched == 1 and (
+                    not poison or bool(torch.isnan(got[-1])))
+                what = f"{mode}{' NaN poison' if poison else ''}"
+                log(f"[b] s8_conv_requant [{what}] {name} relu {relu}: "
+                    f"== plain chain bitwise: {same} (max |diff| {err}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"phase b: s8_conv_requant [{what}] "
+                                     f"{name} disagrees")
+                out.append({"case": f"s8_conv_requant [{what}] {name} "
+                                    f"relu {relu}", "bitwise": same,
+                            "max_abs_err": err})
+    return out
 
 
 INT8_DIR = os.path.join(ROOT, "_int8")   # gitignored: the exported model
@@ -5546,18 +5698,23 @@ def int8_serving(torch, mx, q):
     seeded Xavier) through the entry points a user calls: export, a
     Predictor built from the exported files with quantize="int8" (BatchNorm
     folded, naive calibration on 32 images, the full-int8 graph), buckets
-    (1, 32, 128), each one CUDA graph. K5's counts are zeroed just before
-    the Predictor is built and read after the first predict: 20 conv, 1 FC
-    and 36 requantize launches per bucket program, on the kernels (every
-    conv and the FC on route "wgmma"), none on "mma_s8" or plain. Checks
-    the graph's op counts and the bucket-128 graph's kernel nodes, int8
-    against the folded fp32 graph on 128 other images (within 0.15
-    max|fp32|, top-1 agreement >= 0.75), bitwise replay and padding, and
-    the bucket-128 logits bitwise against a Predictor of the same files and
-    calibration table built and run with the route rule patched to
-    "mma_s8"; times img/s at bucket 128 for fp32 (the Symbol-fed
-    Predictor), bf16 (the Block-fed one) and int8, p50 per bucket, and
-    profiles one int8 predict."""
+    (1, 32, 128), each one CUDA graph. The executor's plan must fuse 8
+    conv -> relu -> calibrated requantize chains (s8_conv_requant mode
+    "requant") and 11 conv -> batch-range requantize chains (mode "range",
+    then requant_int8 reading the conv's range word). K5's counts are
+    zeroed just before the Predictor is built and read after the first
+    predict: per bucket program 1 conv, 19 fused convs (8 + 11), 1 FC and
+    28 requantize launches (12 calibrated, 11 given a range, 5 computing
+    their own), on the kernels (every conv and the FC on route "wgmma"),
+    none on "mma_s8" or plain. Checks the graph's op counts and the
+    bucket-128 graph's kernel nodes, the captured predict's logits bitwise
+    against the unfused walk's, int8 against the folded fp32 graph on 128
+    other images (within 0.15 max|fp32|, top-1 agreement >= 0.75), bitwise
+    replay and padding, and the bucket-128 logits bitwise against a
+    Predictor of the same files and calibration table built and run with
+    the route rule patched to "mma_s8" (which fuses nothing); times img/s
+    at bucket 128 for fp32 (the Symbol-fed Predictor), bf16 (the Block-fed
+    one) and int8, p50 per bucket, and profiles one int8 predict."""
     import collections
     import shutil
 
@@ -5587,26 +5744,54 @@ def int8_serving(torch, mx, q):
     build_s = time.perf_counter() - t0
     counts = k5_counts(q)
     programs = 3 * len(INT8_BUCKETS)   # 2 warm-up runs + the capture each
-    want = {"s8_conv": 20 * programs, "s8_matmul": programs,
-            "requant_int8": 36 * programs}
+    chains = collections.Counter(c[3] for c in pred8._graph.fused_chains)
+    uncal = sum(n.op == "_contrib_requantize" and
+                "min_calib_range" not in n.params
+                for n in pred8._symbol._topo_nodes())
+    per = {"s8_conv": 20 - 19, "s8_conv_requant": 19, "s8_matmul": 1,
+           "requant_int8": 36 - 8}
+    want = {k: v * programs for k, v in per.items()}
+    want_modes = {"calibrated": (36 - uncal - 8) * programs,
+                  "given": 11 * programs, "own": (uncal - 11) * programs}
     ops = collections.Counter(n.op for n in pred8._symbol._topo_nodes()
                               if not n.is_var)
     ok = all(counts[k] == v for k, v in want.items()) and \
+        dict(chains) == {"requant": 8, "range": 11} and \
         dict(ops) == INT8_OPS and counts["requant_by_path"]["fused_scale"] \
-        == 0 and counts["conv_by_route"] == {"wgmma": 20 * programs,
-                                             "mma_s8": 0} and \
+        == 0 and counts["requant_by_mode"] == want_modes and \
+        counts["fused_by_mode"] == {"requant": 8 * programs,
+                                    "range": 11 * programs} and \
+        counts["conv_by_route"] == {"wgmma": programs, "mma_s8": 0} and \
         counts["matmul_by_route"] == {"wgmma": programs, "mma_s8": 0}
     log(f"[p] resnet18_v1 exported ({sum(t.numel() for t in net.collect_params().values())} "
         f"parameters), Predictor(quantize='int8', naive calibration on "
         f"{INT8_CALIB} images) built and buckets {INT8_BUCKETS} captured "
-        f"in {build_s:.2f} s; graph ops {dict(ops)}; K5 launches "
-        f"{counts} over {programs} bucket programs (want {want}: per "
-        f"predict 20 conv, 1 FC, 36 requantize; every conv and the FC on "
-        f"route wgmma, none on mma_s8), none plain "
-        f"{'ok' if ok else 'FAIL'}")
+        f"in {build_s:.2f} s; graph ops {dict(ops)}; fused chains "
+        f"{dict(chains)} (want 8 requant, 11 range); K5 launches "
+        f"{counts} over {programs} bucket programs (want {want}, "
+        f"requantize by mode {want_modes}: per predict 1 conv, 19 fused "
+        f"convs, 1 FC, 28 requantize; every conv and the FC on route "
+        f"wgmma, none on mma_s8), none plain {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("phase p: the int8 graph or K5's launches are not "
                          "what the path must run")
+    # the captured fused predict against the unfused walk (a tap walks the
+    # unfused nodes), eager, on the same feeds: bitwise
+    values = dict(pred8._arg_params, **pred8._aux_params)
+    values[pred8.input_names[0]] = x
+    with torch.inference_mode():
+        walk = pred8._graph.run([values[n] for n in pred8._arg_names],
+                                [values[n] for n in pred8._aux_names],
+                                tap=lambda *a: None)[0][0]
+    torch.cuda.synchronize()
+    unfused_same = bool(torch.equal(walk, out8))
+    log(f"[p] the captured fused bucket-128 predict's logits bitwise equal "
+        f"to the unfused walk's: {unfused_same} "
+        f"{'ok' if unfused_same else 'FAIL'}")
+    if not unfused_same:
+        raise SystemExit("phase p: the fused predict differs from the "
+                         "unfused walk")
+    del walk, values
 
     # the folded fp32 graph, the int8 graph's truth
     fsym, fargs, fauxs = cq.fold_batch_norm(
@@ -5630,9 +5815,6 @@ def int8_serving(torch, mx, q):
     # 16 of the 36 requantize steps (the residual adds' int32 operands,
     # mxnet_tpu's '<name>_rq') have no calibrated range and take the
     # batch's own: a row's answer moves with the rows beside it
-    uncal = sum(n.op == "_contrib_requantize" and
-                "min_calib_range" not in n.params
-                for n in pred8._symbol._topo_nodes())
     pad = pred8.predict(x[:3])[0]
     row32 = pred8.predict(x[:32])[0][:3]
     batch_dep = ((pad - row32).abs().max() / row32.abs().max()).item()
@@ -5644,17 +5826,20 @@ def int8_serving(torch, mx, q):
         raise SystemExit("phase p: int8 predict does not replay bitwise")
     nodes = graph_nodes(pred8._exec, "int8_bucket128",
                         parts=("s8_wgmma_kernel", "s8_prep_kernel",
-                               "s8_gemm_kernel", "requant_kernel"),
+                               "s8_gemm_kernel", "requant_kernel",
+                               "requant_range_kernel"),
                         sig=next(s for s in pred8._exec.compiled_signatures
                                  if s[0][0][0] == 128))
     log(f"[p] the bucket-128 int8 graph: {nodes['kernels']} kernel nodes, "
-        f"{nodes['s8_wgmma_kernel']} s8_wgmma (want 21), "
-        f"{nodes['s8_prep_kernel']} pre-pass (want 20), "
+        f"{nodes['s8_wgmma_kernel']} s8_wgmma (want 21: 1 conv, 19 fused, "
+        f"the FC), {nodes['s8_prep_kernel']} pre-pass (want 20), "
         f"{nodes['s8_gemm_kernel']} s8_gemm (want 0), "
-        f"{nodes['requant_kernel']} requant (want 36)")
+        f"{nodes['requant_kernel']} requant (want 28), "
+        f"{nodes['requant_range_kernel']} requant range passes (want "
+        f"{uncal - 11})")
     if (nodes["s8_wgmma_kernel"], nodes["s8_prep_kernel"],
-            nodes["s8_gemm_kernel"], nodes["requant_kernel"]) != \
-            (21, 20, 0, 36):
+            nodes["s8_gemm_kernel"], nodes["requant_kernel"],
+            nodes["requant_range_kernel"]) != (21, 20, 0, 28, uncal - 11):
         raise SystemExit("phase p: the captured int8 graph does not hold "
                          "K5's kernels")
     # the same predict with every conv and the FC on csrc/s8_gemm.cu: both
@@ -5669,11 +5854,14 @@ def int8_serving(torch, mx, q):
     after = k5_counts(q)
     moved = {r: after["conv_by_route"][r] - before["conv_by_route"][r]
              for r in K5_ROUTES}
+    fused_m = after["s8_conv_requant"] - before["s8_conv_requant"]
     routes_same = bool(torch.equal(out_m, out8))
     log(f"[p] bucket-128 int8 logits with the route rule patched to mma_s8 "
-        f"(conv launches by route {moved}) bitwise equal to the wgmma "
-        f"route's: {routes_same} {'ok' if routes_same else 'FAIL'}")
-    if not routes_same or moved["wgmma"] or not moved["mma_s8"]:
+        f"(conv launches by route {moved}, fused {fused_m}: the plan fuses "
+        f"no mma_s8 conv) bitwise equal to the wgmma route's fused "
+        f"predict: {routes_same} {'ok' if routes_same else 'FAIL'}")
+    if not routes_same or moved["wgmma"] or not moved["mma_s8"] or \
+            fused_m or pred_m._graph.fused_chains:
         raise SystemExit("phase p: the int8 logits differ between K5's "
                          "routes")
     del pred_m, out_m
@@ -5709,17 +5897,20 @@ def int8_serving(torch, mx, q):
     breakdown = profile_window(torch, lambda: pred8.predict(x),
                                "one bucket-128 int8 predict", "p",
                                ("s8_wgmma_kernel", "s8_prep_kernel",
-                                "requant_kernel"), top=12)
+                                "requant_kernel", "requant_range_kernel"),
+                               top=12)
     groups = {"convs + FC (s8_wgmma)": 0.0, "their pre-pass (s8_prep)": 0.0,
               "requantize": 0.0, "other quantized ops": 0.0}
     for r in breakdown["all"]:
         key = ("convs + FC (s8_wgmma)" if "s8_wgmma_kernel" in r["kernel"]
                else "their pre-pass (s8_prep)" if "s8_prep_kernel" in
                r["kernel"] else "requantize" if "requant_kernel" in
-               r["kernel"] else "other quantized ops")
+               r["kernel"] or "requant_range_kernel" in r["kernel"]
+               else "other quantized ops")
         groups[key] += r["ms"]
     log("[p] device ms of one int8 predict: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in groups.items()))
+        f"{k} {v:.3f}" for k, v in groups.items()) +
+        f"; busy {breakdown['device_busy_ms']:.3f} ms")
     del pred32, pred16, net, ex
     torch.cuda.empty_cache()
     shutil.rmtree(INT8_DIR, ignore_errors=True)
@@ -5728,7 +5919,8 @@ def int8_serving(torch, mx, q):
                                      counts.items() if k in want},
             "graph_ops": dict(ops), "graph_nodes": nodes,
             "max_rel_err": err, "top1_agreement": agree,
-            "routes_bitwise": routes_same,
+            "routes_bitwise": routes_same, "unfused_bitwise": unfused_same,
+            "fused_chains": dict(chains),
             "uncalibrated_requantize": uncal, "batch_dependence": batch_dep,
             "fold_err": fold_err, "bf16_err": bf16_err, "timing": timing,
             "breakdown": breakdown, "device_ms_groups": groups,
@@ -5743,8 +5935,12 @@ K5_NODE_OPS = {"_contrib_quantized_conv": "conv",
 def k5_path(torch, q, pred8, x):
     """K5's calls on the main path: one eager walk of the bucket-128 int8
     graph that each bucket captures, on the same feeds, through the
-    executor's tap. Returns {"conv" | "fc" | "requant": [(inputs by the op
-    function's parameter names, the node's outputs)]} in graph order."""
+    executor's tap (the unfused nodes). Returns {"conv" | "fc" | "requant":
+    [(inputs by the op function's parameter names, the node's outputs)]}
+    in graph order, and "chains": [(the conv's inputs and parameters by
+    name, relu, the requantize's calibrated range as keywords, the conv's
+    outputs, the requantize's outputs, "requant" or "range")] for each
+    chain the executor's plan fuses."""
     import inspect
 
     from mxnet_tpu_torch.ops import registry
@@ -5760,18 +5956,30 @@ def k5_path(torch, q, pred8, x):
         pred8._graph.run([values[n] for n in pred8._arg_names],
                          [values[n] for n in pred8._aux_names], tap=tap)
     torch.cuda.synchronize()
-    calls = {"conv": [], "fc": [], "requant": []}
-    for n in pred8._symbol._topo_nodes():
-        if n.is_var or registry.get_op(n.op).name not in K5_NODE_OPS:
-            continue
+    calls = {"conv": [], "fc": [], "requant": [], "chains": []}
+
+    def bound_args(n):
         op = registry.get_op(n.op)
         ins = [values[i.name] if i.is_var else outs[(id(i), s)]
                for i, s in n.inputs]
         bound = inspect.signature(op.fn).bind(*ins, **op.normalize(n.params))
         bound.apply_defaults()
+        return op, dict(bound.arguments)
+
+    for n in pred8._symbol._topo_nodes():
+        if n.is_var or registry.get_op(n.op).name not in K5_NODE_OPS:
+            continue
+        op, args = bound_args(n)
         calls[K5_NODE_OPS[op.name]].append((
-            dict(bound.arguments),
-            [outs[(id(n), i)] for i in range(op.num_outputs)]))
+            args, [outs[(id(n), i)] for i in range(op.num_outputs)]))
+    for conv, act, rq, mode in pred8._graph.fused_chains:
+        calib = {k: rq.params[k] for k in ("min_calib_range",
+                                           "max_calib_range")
+                 if rq.params.get(k) is not None}
+        calls["chains"].append((
+            bound_args(conv)[1], act is not None, calib,
+            [outs[(id(conv), i)] for i in range(3)],
+            [outs[(id(rq), i)] for i in range(3)], mode))
     return calls
 
 
@@ -5800,10 +6008,36 @@ def k5_fc_args(q, a):
 
 def k5_requant_args(q, a):
     """(data, real_in, out_min, out_max) of a requantize node's call of
-    requant_epilogue."""
+    requant_epilogue; out_min and out_max None where it takes the batch's
+    range."""
     return (a["data"], *q._requant_ranges(
-        a["data"], a["min_range"], a["max_range"], a["min_calib_range"],
+        a["min_range"], a["max_range"], a["min_calib_range"],
         a["max_calib_range"]))
+
+
+def requant_plain(q, d, real_in, lo, hi):
+    """The plain versions of a requantize step: under (lo, hi), or without
+    them under requant_range_reference's batch range."""
+    if lo is None:
+        hi = q.requant_range_reference(d, real_in)
+        lo = -hi
+    return q.requant_epilogue_reference(d, real_in, lo, hi)
+
+
+def chain_conv_args(q, a, relu, calib):
+    """(s8_conv_requant's positional arguments, its scalars as keywords)
+    of a fused chain from its conv's inputs and parameters, as
+    quantized_conv_requantize makes them."""
+    *args, b = k5_conv_args(q, a)
+    lo, hi, _ = q._s8s8_bias(a["bias"], a["min_data"], a["max_data"],
+                             a["min_weight"], a["max_weight"], a["min_bias"],
+                             a["max_bias"], a["no_bias"])
+    real_in, out_min, out_max = q._requant_ranges(
+        lo, hi, calib.get("min_calib_range"), calib.get("max_calib_range"))
+    scal = {"real_in": real_in, "relu": relu}
+    if out_min is not None:
+        scal.update(out_min=out_min, out_max=out_max)
+    return (*args, a["layout"], b), scal
 
 
 def int_err(torch, got, want):
@@ -5845,18 +6079,60 @@ def check_k5_path(torch, q, calls):
             f"the float64 plain version ok")
     for a, res in calls["requant"]:
         d, real_in, lo, hi = k5_requant_args(q, a)
-        ref = q.requant_epilogue_reference(
-            d, real_in.reshape(()), lo.reshape(()), hi.reshape(()))
-        same = all(torch.equal(g, w) for g, w in zip(res, ref))
+        ref = requant_plain(q, d, real_in, lo, hi)
+        same = all(same_bits(torch, g, w) for g, w in zip(res, ref))
         if not same:
             raise SystemExit(
                 f"phase c: K5 requantize on the path's {tuple(d.shape)} "
                 f"input differs from its plain version (max |diff| "
                 f"{int_err(torch, res[0], ref[0])})")
     errs["requant"] = 0
-    log(f"[c] K5 requantize: the {len(calls['requant'])} calls of one "
-        "bucket-128 predict, on the path's own inputs, bitwise equal to "
-        "the plain version (int8 and range) ok")
+    log(f"[c] K5 requantize: the {len(calls['requant'])} calls of the "
+        "unfused walk of one bucket-128 predict (calibrated, or computing "
+        "the batch range), on the path's own inputs, bitwise equal to the "
+        "plain version (int8 and range) ok")
+    given = fused = 0
+    for a, relu, calib, conv_out, rq_out, mode in calls["chains"]:
+        args, scal = chain_conv_args(q, a, relu, calib)
+        with k5_plain_guard(q):
+            got = q.quantized_conv_requantize(**a, relu=relu, **calib)
+            direct = q.s8_conv_requant(*args, **scal)
+        torch.cuda.synchronize()
+        same = all(same_bits(torch, g, w) for g, w in zip(got, rq_out))
+        d = conv_out[0].clamp_min(0) if relu else conv_out[0]
+        if mode == "requant":
+            with exact_f64_convs(torch):
+                plain = q.s8_conv_requant_reference(
+                    *args, **{k: (v.reshape(()) if torch.is_tensor(v)
+                                  else v) for k, v in scal.items()})
+            same = same and all(same_bits(torch, g, w)
+                                for g, w in zip(direct, plain))
+            fused += same
+        else:
+            word = q.requant_range_reference(d, scal["real_in"])
+            same = same and torch.equal(direct[0], d) and \
+                same_bits(torch, direct[1], word)
+            with k5_plain_guard(q):
+                alone = q.requant_epilogue(direct[0], scal["real_in"],
+                                           amax=direct[1])
+            torch.cuda.synchronize()
+            same = same and all(same_bits(torch, g, w)
+                                for g, w in zip(alone, rq_out))
+            given += same
+        if not same:
+            raise SystemExit(
+                f"phase c: the fused conv ({mode}) on the path's "
+                f"{tuple(a['data'].shape)} input differs from its plain "
+                "chain")
+    errs["chains"] = 0
+    log(f"[c] K5 fused convs on the path's own inputs: {fused} of the 8 "
+        f"mode-requant calls bitwise equal to the plain chain (conv, relu, "
+        f"requantize: int8 and range); {given} of the 11 mode-range calls' "
+        f"int32 exactly and range words bitwise equal to the plain "
+        f"version, and the requantize reading each word (mode given) "
+        f"bitwise equal to the unfused walk's ok")
+    if (fused, given) != (8, 11):
+        raise SystemExit("phase c: the plan's fused calls are not 8 + 11")
     return errs
 
 
@@ -5969,31 +6245,8 @@ def time_k5(torch, q, pred8, x):
         + f", mma_s8 {fc['mma_s8_ms']:.4f} ms, bound "
         f"{fc['bound_ms']:.5f} ms ({fc['bound_by']}), plain (f64) "
         f"{fc['plain_ms']:.4f} ms")
-    shapes = {}
-    for a, _ in calls["requant"]:
-        args = k5_requant_args(q, a)
-        shapes.setdefault(tuple(args[0].shape), [args, 0])[1] += 1
-    rq = []
-    for shape, ((d, *scal), count) in shapes.items():
-        n = d.numel()
-        rq.append({"shape": list(shape), "count": count,
-                   "ms": device_ms(lambda: q.requant_epilogue(d, *scal),
-                                   n=20),
-                   "plain_ms": device_ms(
-                       lambda: q.requant_epilogue_reference(d, *scal), n=5),
-                   "bound_ms": int8_bound(0, 5.0 * n + 24)[0],
-                   "bytes": 5.0 * n + 24})
-    req = {"calls": len(calls["requant"]),
-           "ms": sum(r["ms"] * r["count"] for r in rq),
-           "plain_ms": sum(r["plain_ms"] * r["count"] for r in rq),
-           "bound_ms": sum(r["bound_ms"] * r["count"] for r in rq),
-           "bytes": sum(r["bytes"] * r["count"] for r in rq),
-           "per_shape": rq}
-    log(f"[c] requant_int8 (via_fp32) over the {req['calls']} calls of one "
-        f"bucket-128 predict ({len(rq)} shapes): {req['ms']:.4f} ms device, "
-        f"bound {req['bound_ms']:.4f} ms (bytes: {req['bytes'] / 1e9:.3f} "
-        f"GB), {req['bound_ms'] / req['ms']:.1%} of bound; plain "
-        f"{req['plain_ms']:.4f} ms")
+    req = time_requant(torch, q, calls)
+    fused = time_fused(torch, q, calls)
     conv = {k: (None if any(r[k] is None for r in rows) else
                 sum(r[k] * r["count"] for r in rows))
             for k in ("ms", "plain_ms", "bound_ms", "ops", "bytes",
@@ -6018,8 +6271,192 @@ def time_k5(torch, q, pred8, x):
     log(f"[c] 3x3 shapes slower on wgmma than their own torch._int_mm: "
         f"{len(slower)} of {sum(r['shape'][1][2] == 3 for r in rows)} "
         f"{slower}")
-    return {"conv": conv, "fc": fc, "requant": req, "path_errs": errs,
+    return {"conv": conv, "fc": fc, "requant": req, "fused": fused,
+            "path_errs": errs,
             "path_calls": {k: len(v) for k, v in calls.items()}}
+
+
+RQ_SWEEP = ("random int32", "zeros 0 % (+-3e6)", "zeros 50 % (relu'd)",
+            "zeros 90 %", "zeros 100 %", "small (|x| < 128)")
+
+
+def rq_sweep_input(torch, gen, shape, kind):
+    """int32 of ``shape`` for requantize's value sweep (RQ_SWEEP)."""
+    if kind == "random int32":
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                             device="cuda", dtype=torch.int32)
+    if kind == "small (|x| < 128)":
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int32)
+    x = torch.randint(-3 * 10 ** 6, 3 * 10 ** 6, shape, generator=gen,
+                      device="cuda", dtype=torch.int32)
+    share = {"zeros 0 % (+-3e6)": 0.0, "zeros 50 % (relu'd)": None,
+             "zeros 90 %": 0.9, "zeros 100 %": 1.0}[kind]
+    if share is None:
+        return x.clamp_min(0)
+    keep = torch.rand(shape, generator=gen, device="cuda") >= share
+    return x * keep
+
+
+def time_requant(torch, q, calls):
+    """The standalone requantize steps of the fused predict (28 of the 36:
+    the 8 calibrated ones after a conv and relu run in the conv's
+    epilogue), each in its mode -- calibrated, given (the 11 after a conv,
+    reading its range word), own (the 5 after an add or a pool, computing
+    the batch range) -- on the path's own inputs and on random int32 of
+    the same shapes and modes: device ms beside the bound (bytes: each
+    input read once, each output written once; mode own's second read of x
+    counted apart as the bytes it moves), the plain versions' time; and
+    the value sweep (RQ_SWEEP) at the largest shape, calibrated."""
+    chain_end = {id(rq_out[0]): mode for *_, rq_out, mode in calls["chains"]}
+    steps = {}
+    for a, res in calls["requant"]:
+        mode = chain_end.get(id(res[0]))
+        if mode == "requant":
+            continue
+        d, real_in, lo, hi = k5_requant_args(q, a)
+        kind = "calibrated" if lo is not None else \
+            "given" if mode == "range" else "own"
+        amax = q.requant_range_reference(d, real_in) if kind == "given" \
+            else None
+        key = (tuple(d.shape), kind)
+        steps.setdefault(key, [(d, real_in, lo, hi, amax), 0])[1] += 1
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows = []
+    for (shape, kind), ((d, real_in, lo, hi, amax), count) in steps.items():
+        n = d.numel()
+        rand = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                             device="cuda", dtype=torch.int32)
+        ramax = q.requant_range_reference(rand, real_in) \
+            if kind == "given" else None
+
+        def run(x, m):
+            return q.requant_epilogue(x, real_in, lo, hi, amax=m)
+        rows.append({
+            "shape": list(shape), "mode": kind, "count": count,
+            "ms": device_ms(lambda: run(d, amax), n=20),
+            "random_ms": device_ms(lambda: run(rand, ramax), n=20),
+            "plain_ms": device_ms(lambda: requant_plain(
+                q, d, real_in, lo, hi), n=5),
+            "bound_ms": int8_bound(0, 5.0 * n + 24)[0],
+            "bytes": 5.0 * n + 24,
+            "kernel_bytes": (9.0 if kind == "own" else 5.0) * n + 24})
+        del rand
+    req = {"calls": sum(r["count"] for r in rows), "per_shape": rows}
+    for k in ("ms", "random_ms", "plain_ms", "bound_ms", "bytes",
+              "kernel_bytes"):
+        req[k] = sum(r[k] * r["count"] for r in rows)
+    req["kernel_bound_ms"] = int8_bound(0, req["kernel_bytes"])[0]
+    by_mode = {}
+    for r in rows:
+        by_mode[r["mode"]] = by_mode.get(r["mode"], 0) + r["count"]
+    req["calls_by_mode"] = by_mode
+    for r in rows:
+        log(f"[c] requant_int8 {r['mode']} x{r['count']} {r['shape']}: "
+            f"{r['ms']:.4f} ms device on the path's input, "
+            f"{r['random_ms']:.4f} on random int32, bound "
+            f"{r['bound_ms']:.4f} ({r['bound_ms'] / r['ms']:.1%}), plain "
+            f"{r['plain_ms']:.4f}")
+    log(f"[c] requant_int8 over the {req['calls']} standalone steps of one "
+        f"fused bucket-128 predict ({by_mode}): {req['ms']:.4f} ms device "
+        f"on the path's inputs, {req['random_ms']:.4f} on random int32 "
+        f"({req['ms'] / req['random_ms'] - 1:+.1%}); bound "
+        f"{req['bound_ms']:.4f} ms (bytes: {req['bytes'] / 1e9:.3f} GB), "
+        f"{req['bound_ms'] / req['ms']:.1%} of it; with mode own's second "
+        f"read {req['kernel_bytes'] / 1e9:.3f} GB, "
+        f"{req['kernel_bound_ms']:.4f} ms, "
+        f"{req['kernel_bound_ms'] / req['ms']:.1%}; plain "
+        f"{req['plain_ms']:.4f} ms")
+    (shape, _), ((_, real_in, lo, hi, _), _) = max(
+        ((k, v) for k, v in steps.items() if k[1] == "calibrated"),
+        key=lambda kv: kv[1][0][0].numel())
+    sweep = {}
+    for kind in RQ_SWEEP:
+        x = rq_sweep_input(torch, gen, shape, kind)
+        sweep[kind] = device_ms(lambda: q.requant_epilogue(x, real_in, lo,
+                                                           hi), n=20)
+        del x
+    req["sweep_shape"], req["sweep_ms"] = list(shape), sweep
+    log(f"[c] requant_int8 calibrated at {list(shape)} by input values "
+        f"(bound {int8_bound(0, 5.0 * math.prod(shape))[0]:.4f} ms): " +
+        ", ".join(f"{k} {v:.4f} ms" for k, v in sweep.items()))
+    return req
+
+
+def time_fused(torch, q, calls):
+    """Each fused conv of the predict (19 chains, by shape and mode) on
+    the path's own inputs: s8_conv_requant (mode range: and the
+    requantize reading its word) against the unfused s8_conv + relu +
+    requantize it replaces, device ms; its bound (int8 operations, or
+    bytes: the int8 input and weight read once, the int8 or int32 output
+    and its range written once) and the plain chain's time."""
+    groups = {}
+    for a, relu, calib, conv_out, _, mode in calls["chains"]:
+        args, scal = chain_conv_args(q, a, relu, calib)
+        key = (tuple(args[0].shape), tuple(args[1].shape), args[2], mode,
+               relu)
+        groups.setdefault(key, [(args, scal), 0])[1] += 1
+    rows = []
+    for (xs, ws, st, mode, relu), ((args, scal), count) in groups.items():
+        real_in = scal["real_in"]
+        lo, hi = scal.get("out_min"), scal.get("out_max")
+
+        def fused():
+            out = q.s8_conv_requant(*args, **scal)
+            if mode == "range":
+                q.requant_epilogue(out[0], real_in, amax=out[1])
+
+        def unfused():
+            out = q.s8_conv(*args[:5], layout=args[5], bias=args[6])
+            if relu:
+                out = out.clamp_min(0)
+            q.requant_epilogue(out, real_in, lo, hi)
+
+        def plain():
+            out = q.s8_conv_requant_reference(*args, **scal)
+            if mode == "range":
+                q.requant_epilogue_reference(out[0], real_in, -out[1],
+                                             out[1])
+        out = q.s8_conv_requant(*args, **scal)[0]
+        m, cout = out.numel() // ws[0], ws[0]
+        k = ws[1] * ws[2] * ws[3]
+        ops = 2.0 * m * cout * k
+        nbytes = args[0].numel() + args[1].numel() + 4.0 * cout + 8 + \
+            out.numel() * (1.0 if mode == "requant" else 4.0)
+        bound_ms, bound_by = int8_bound(ops, nbytes)
+        turns = {"fused": [], "unfused": []}
+        for which, fn in (("fused", fused), ("unfused", unfused)) * 2:
+            turns[which].append(device_ms(fn, n=10))
+        with exact_f64_convs(torch):
+            plain_ms = device_ms(plain, n=2)
+        row = {"shape": [list(xs), list(ws), list(st)], "mode": mode,
+               "relu": relu, "count": count,
+               "ms": sum(turns["fused"]) / 2,
+               "unfused_ms": sum(turns["unfused"]) / 2, "turns": turns,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "ops": ops, "bytes": nbytes}
+        rows.append(row)
+        with_rq = " (and the requantize reading its range)" \
+            if mode == "range" else ""
+        log(f"[c] s8_conv_requant [{mode}{', relu' if relu else ''}] "
+            f"x{count} {xs} * {ws} s{st[0]}: fused {row['ms']:.4f} ms "
+            f"device{with_rq}, unfused conv{' + relu' if relu else ''} + "
+            f"requantize {row['unfused_ms']:.4f} "
+            f"ms ({row['unfused_ms'] - row['ms']:+.4f}); bound "
+            f"{bound_ms:.4f} ({bound_by}, {bound_ms / row['ms']:.1%}); "
+            f"plain {plain_ms:.3f} ms")
+        torch.cuda.empty_cache()
+    tot = {"calls": sum(r["count"] for r in rows), "per_shape": rows}
+    for k in ("ms", "unfused_ms", "plain_ms", "bound_ms", "ops", "bytes"):
+        tot[k] = sum(r[k] * r["count"] for r in rows)
+    tot["bound_by"] = ("bytes" if tot["bytes"] / PEAK_BYTES
+                       >= tot["ops"] / PEAK_INT8_OPS else "operations")
+    log(f"[c] the {tot['calls']} fused convs of one bucket-128 predict: "
+        f"{tot['ms']:.4f} ms device against {tot['unfused_ms']:.4f} ms "
+        f"unfused ({tot['unfused_ms'] - tot['ms']:+.4f}); bound "
+        f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}), "
+        f"{tot['bound_ms'] / tot['ms']:.1%}; plain {tot['plain_ms']:.3f} ms")
+    return tot
 
 
 def library_ms(fn, what):
@@ -6425,7 +6862,7 @@ def main(argv=None):
         **extra}
         for name, src, line, key, prefix, kind, how, t, lib, extra in (
             ("s8_gemm_wgmma", "csrc/s8_gemm_wgmma.cu", 190, "s8_conv",
-             "s8_conv", "conv",
+             "s8_conv [", "conv",
              "exactly equal (int32) to the float64 plain version",
              k5_timing["conv"], k5_timing["conv"]["int_mm_ms"],
              {"entry_point": "s8_wgmma_conv (after s8_wgmma_prep)",
@@ -6446,8 +6883,28 @@ def main(argv=None):
               "mma_s8_source": "mxnet_tpu_torch/csrc/s8_gemm.cu"}),
             ("requant_int8", "csrc/requant_int8.cu", 207, "requant_int8",
              "requant_int8", "requant", "bitwise equal to the plain version "
-             "(phase b on both paths)", k5_timing["requant"], None,
-             {"per_shape": k5_timing["requant"]["per_shape"]}))]}
+             "(phase b on both paths and in the three modes)",
+             k5_timing["requant"], None,
+             {"launches_by_mode": int8["launches"]["requant_by_mode"],
+              "random_ms": k5_timing["requant"]["random_ms"],
+              "calls_by_mode": k5_timing["requant"]["calls_by_mode"],
+              "kernel_bytes": k5_timing["requant"]["kernel_bytes"],
+              "sweep_shape": k5_timing["requant"]["sweep_shape"],
+              "sweep_ms": k5_timing["requant"]["sweep_ms"],
+              "per_shape": k5_timing["requant"]["per_shape"]}),
+            # the 19 conv -> [relu] -> requantize chains the executor's
+            # plan fuses: s8_wgmma_conv with epilogue "requant" (8) or
+            # "range" (11, then requant_int8 reading the word, timed with
+            # it); no one PyTorch call does a conv and a requantize
+            ("s8_conv_requant", "csrc/s8_gemm_wgmma.cu", "190 and :207",
+             "s8_conv_requant", "s8_conv_requant", "chains",
+             "bitwise equal to the plain chain (conv, relu, requantize; "
+             "the range words to requant_range_reference)",
+             k5_timing["fused"], None,
+             {"entry_point": "s8_wgmma_conv, epilogue requant or range",
+              "launches_by_mode": int8["launches"]["fused_by_mode"],
+              "unfused_ms": k5_timing["fused"]["unfused_ms"],
+              "per_shape": k5_timing["fused"]["per_shape"]}))]}
     kind = torch.cuda.get_device_name(0)
     if args.summary:
         os.makedirs(os.path.dirname(os.path.abspath(args.summary)),

@@ -637,13 +637,30 @@ def fold_batch_norm(sym, arg_params, aux_params, eps_default=1e-3):
     into that conv: w' = w * gamma / sqrt(var + eps) per output channel,
     b' = (b - mean) * gamma / sqrt(var + eps) + beta, in float32 numpy as
     ``mxnet_tpu/contrib/quantization.py:755``. Returns (symbol, args, auxs)
-    as tensors on the parameters' device."""
+    as tensors on the parameters' device. The folded pair is named
+    ``<weight>_bnfold`` / ``<weight>_bnfold_bias``, as there; a weight that
+    two conv + BatchNorm pairs share gets one pair per fold: the second
+    fold and any later one are keyed on the conv node's name
+    (``<conv>_bnfold``, with a counter where that is taken too), where
+    ``mxnet_tpu`` would overwrite the first fold."""
     from ..symbol.symbol import Symbol, Variable, _Node
 
     device = _params_device(arg_params)
     args = {k: _numpy(v) for k, v in arg_params.items()}
     auxs = {k: _numpy(v) for k, v in aux_params.items()}
     mapping = {}
+    folded_keys = set()
+
+    def fold_key(w_n, conv_name):
+        """The base name of a fold's parameters: the weight's, or for a
+        weight folded before, the conv node's (made unique)."""
+        key, i = w_n, 0
+        while key + "_bnfold" in folded_keys or (
+                key != w_n and key + "_bnfold" in args):
+            key = conv_name if i == 0 else f"{conv_name}{i}"
+            i += 1
+        folded_keys.add(key + "_bnfold")
+        return key
 
     def var_of(node_inputs, idx):
         n, _ = node_inputs[idx]
@@ -675,17 +692,18 @@ def fold_batch_norm(sym, arg_params, aux_params, eps_default=1e-3):
         mean, var = auxs[mean_n], auxs[var_n]
         scale = gamma / np.sqrt(var + eps)
         w = args[w_n]
-        args[w_n + "_bnfold"] = (
+        key = fold_key(w_n, src.name)
+        args[key + "_bnfold"] = (
             w * scale.reshape((-1,) + (1,) * (w.ndim - 1))).astype(w.dtype)
         b_prev = 0.0
         bias_n = var_of(src.inputs, 2) if len(src.inputs) > 2 else None
         if bias_n is not None and bias_n in args:
             b_prev = args[bias_n]
-        args[w_n + "_bnfold_bias"] = (
+        args[key + "_bnfold_bias"] = (
             (b_prev - mean) * scale + beta).astype(beta.dtype)
         conv_clone = cloned(src)
-        wv = Variable(w_n + "_bnfold")._outputs[0][0]
-        bv = Variable(w_n + "_bnfold_bias")._outputs[0][0]
+        wv = Variable(key + "_bnfold")._outputs[0][0]
+        bv = Variable(key + "_bnfold_bias")._outputs[0][0]
         folded = _Node("Convolution", src.name + "_bnfold",
                        params={**src.params, "no_bias": False},
                        inputs=[conv_clone.inputs[0], (wv, 0), (bv, 0)])
@@ -731,10 +749,11 @@ def _grid_of(node):
 def _int8_grid_propagate(sym):
     """Peephole pass over a full-int8 graph (``mxnet_tpu/contrib/
     quantization.py:863``): quantize_v2(dequantize(int32)) ->
-    requantize; Pooling, relu and elemwise_add over dequantized int8 /
-    int32 triples -> their quantized ops. Each rewritten node keeps its
-    identity as the boundary dequantize; dead boundaries drop out of the
-    executor's walk."""
+    requantize; max and avg Pooling, relu and elemwise_add over
+    dequantized int8 / int32 triples -> their quantized ops (``mxnet_tpu``
+    rewrites every Pooling, and a 'sum' pool then raises). Each rewritten
+    node keeps its identity as the boundary dequantize; dead boundaries
+    drop out of the executor's walk."""
     from ..symbol.symbol import _Node
 
     def deq_src(inp):
@@ -762,7 +781,10 @@ def _int8_grid_propagate(sym):
                                    ("min_calib_range", "max_calib_range")
                                    if k in node.params}
                     changed = True
-            elif node.op == "Pooling":
+            elif node.op == "Pooling" and \
+                    node.params.get("pool_type", "max") in ("max", "avg"):
+                # quantized_pooling has max and avg only: a 'sum' (or lp)
+                # pool stays fp32 behind its dequantize
                 dq, q = deq_src(node.inputs[0])
                 layout_ok = (node.params.get("layout") or "NCHW")[1] == "C"
                 if dq is not None and layout_ok and _grid_of(q) is not None:

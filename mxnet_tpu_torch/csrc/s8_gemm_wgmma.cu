@@ -13,7 +13,13 @@
 //                     padded to a multiple of 16 (cp) and the weight laid
 //                     out (Cout, KH, KW, cp), flattened and zero-padded to
 //                     kpad columns, both made by s8_wgmma_prep; int32 out,
-//                     NCHW or NHWC;
+//                     NCHW or NHWC; or with relu and a
+//                     requantize in its epilogue, the counterpart of XLA
+//                     fusing :_requant_epilogue (:207) into the conv's
+//                     output on the TPU: int8 out under a calibrated range
+//                     (the int32 never stored), or int32 out and its batch
+//                     range folded into one word (csrc/requant.cuh's
+//                     arithmetic, bitwise the plain chain);
 //   s8_wgmma_matmul — x (M, K) row-major @ W (N, K)^T -> int32 (M, N).
 // Both add an optional int32 bias per output channel in the epilogue and
 // are exact: every product and sum is an integer, |sum| <= K * 127^2 <
@@ -71,7 +77,10 @@
 //   word at a time from the fragment stored 7x7 planes at ~0.5 TB/s, and
 //   the buffer costs the even planes 4-20 %); rows of `cols` (GEMM, NHWC)
 //   straight from the fragment. Nothing past the last pixel or channel is
-//   stored.
+//   stored. The fused modes (Epi) take the same paths: relu, then int8
+//   bytes (pairs, or a byte a lane) or the int32 with each thread's max
+//   |fl(fl(v) a)| as float bits, one warp reduce and one atomicMax a warp
+//   at the end. They run on one consumer warpgroup a CTA (dispatch_conv).
 //
 // What holds it back (PERF.md §6; tools/torch_k5_variants.py): the
 // deep and stride-2 convs are bound by the tile traffic from L2 (the
@@ -91,6 +100,7 @@
 //
 // Prediction and the measured times: PERF.md §6.
 #include "hopper.cuh"
+#include "requant.cuh"
 
 namespace {
 
@@ -141,6 +151,24 @@ int chunk_of(int cp) {
   return cp % 128 == 0 ? 128 : cp % 64 == 0 ? 64 : cp % 32 == 0 ? 32 : 16;
 }
 
+// The epilogue's modes (a conv's; the GEMM stores int32): EPI_INT32 stores
+// the int32 sum; EPI_REQUANT requantizes it under a calibrated range
+// (csrc/requant.cuh, via_fp32) and stores int8, so the int32 never reaches
+// memory; EPI_RANGE stores the int32 and folds its batch range into one
+// device word. The two fused modes take relu first where ep.relu is set.
+enum { EPI_INT32 = 0, EPI_REQUANT = 1, EPI_RANGE = 2 };
+
+struct Epi {
+  const float* real_in;   // the int32 grid's range (EPI_REQUANT, EPI_RANGE)
+  const float* out_min;   // the calibrated output range (EPI_REQUANT)
+  const float* out_max;
+  float* lo;              // written with -real_out, real_out (EPI_REQUANT)
+  float* hi;
+  unsigned* amax;         // the batch range's float bits (EPI_RANGE),
+                          //   zeroed by the entry point
+  int relu;
+};
+
 struct Geom {
   int rows;          // B rows: output pixels (conv) or x rows (GEMM)
   int cols;          // A rows: output channels (conv) or W rows (GEMM)
@@ -159,12 +187,12 @@ struct Geom {
 // B tile t / a_tiles and A tile t % a_tiles (CTAs running together share
 // a B tile, read once from HBM). The ring runs on across tiles, so the
 // producer loads the next tile while the consumers store this one.
-template <int C, int CB, bool CONV, bool RES>
+template <int C, int CB, bool CONV, bool RES, int EPI>
 __global__ void __launch_bounds__(Cfg<C, CB>::NT, 2)
 s8_wgmma_kernel(const __grid_constant__ CUtensorMap tb,
                 const __grid_constant__ CUtensorMap ta,
-                const int* __restrict__ bias, int* __restrict__ out,
-                const Geom gm) {
+                const int* __restrict__ bias, void* __restrict__ out_v,
+                const Geom gm, const Epi ep) {
   using K = Cfg<C, CB, RES>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* tiles = reinterpret_cast<uint8_t*>(
@@ -245,6 +273,53 @@ s8_wgmma_kernel(const __grid_constant__ CUtensorMap tb,
   // ---- consumers: warpgroup wg owns A rows m0 + 64 wg .. m0 + 64 wg + 63
   const int wg = warp / 4, w = warp % 4, g = lane / 4, c = lane % 4;
   const int hw = CONV ? gm.ho * gm.wo : 1;
+  int* out = static_cast<int*>(out_v);
+  int8_t* out8 = static_cast<int8_t*>(out_v);
+  rq::Scale sc{};
+  float step = 0.f;       // EPI_RANGE: real_in / 2147483647
+  uint32_t range = 0u;    // EPI_RANGE: the thread's max |fl(fl(v) step)| bits
+  if constexpr (EPI == EPI_REQUANT) {
+    const float rout = rq::calibrated(ep.out_min, ep.out_max);
+    sc = rq::make_scale<0>(*ep.real_in, rout);
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      *ep.lo = -rout;
+      *ep.hi = rout;
+    }
+  } else if constexpr (EPI == EPI_RANGE) {
+    step = rq::in_step(*ep.real_in);
+  }
+  // one output value: the sum plus the bias, relu'd where a fused mode
+  // asks (the int32 epilogue takes none, so its code is the plain store's)
+  const auto value = [&](uint32_t a, int add) {
+    const int v = int(a) + add;
+    if constexpr (EPI == EPI_INT32) {
+      return v;
+    } else {
+      return ep.relu && v < 0 ? 0 : v;
+    }
+  };
+  // stores v at element o of the output, as the mode says
+  const auto store = [&](long long o, int v) {
+    if constexpr (EPI == EPI_REQUANT) {
+      out8[o] = rq::requant<0>(v, sc);
+    } else {
+      out[o] = v;
+      if constexpr (EPI == EPI_RANGE) range = max(range, rq::abs_bits(v, step));
+    }
+  };
+  // stores the pair v0, v1 at elements o, o + 1 (o even: int8 pairs
+  // 2-byte aligned, int32 pairs 8-byte aligned)
+  const auto store2 = [&](long long o, int v0, int v1) {
+    if constexpr (EPI == EPI_REQUANT) {
+      *reinterpret_cast<char2*>(out8 + o) =
+          make_char2(rq::requant<0>(v0, sc), rq::requant<0>(v1, sc));
+    } else {
+      *reinterpret_cast<int2*>(out + o) = make_int2(v0, v1);
+      if constexpr (EPI == EPI_RANGE)
+        range = max(range, max(rq::abs_bits(v0, step),
+                               rq::abs_bits(v1, step)));
+    }
+  };
   uint32_t acc[BN / 2];
   if constexpr (RES) mbar_wait(a_ready, 0);
   int k = 0;
@@ -291,8 +366,8 @@ s8_wgmma_kernel(const __grid_constant__ CUtensorMap tb,
                    ? bias[co0 + g + 8 * h]
                    : 0;
     if (gm.nchw && hw % 2 == 0) {
-      // even planes: the fragment's pixel pairs, 8-byte aligned and never
-      // across two images, walking the planes (image img, position p)
+      // even planes: the fragment's pixel pairs, never across two images,
+      // walking the planes (image img, position p)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int co = co0 + g + 8 * h;
@@ -301,17 +376,16 @@ s8_wgmma_kernel(const __grid_constant__ CUtensorMap tb,
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
           if (n0 + 8 * j + 2 * c < gm.rows)
-            *reinterpret_cast<int2*>(out + ((long long)img * gm.cols + co) *
-                                               hw + p) =
-                make_int2(int(acc[4 * j + 2 * h]) + add[h],
-                          int(acc[4 * j + 2 * h + 1]) + add[h]);
+            store2(((long long)img * gm.cols + co) * hw + p,
+                   value(acc[4 * j + 2 * h], add[h]),
+                   value(acc[4 * j + 2 * h + 1], add[h]));
           for (p += 8; p >= hw; p -= hw) ++img;
         }
       }
     } else if (gm.nchw) {
       // odd planes: 16 pixels at a time through the warp's buffer, then
       // written with a lane a pixel (two rows a pass), consecutive lanes
-      // consecutive words of a plane
+      // consecutive elements of a plane
       uint32_t* buf = epi + warp * EPI_WORDS;
 #pragma unroll
       for (int q = 0; q < BN / 16; ++q) {
@@ -322,23 +396,25 @@ s8_wgmma_kernel(const __grid_constant__ CUtensorMap tb,
 #pragma unroll
             for (int e = 0; e < 2; ++e)
               buf[(g + 8 * h) * EPI_LD + 8 * jj + 2 * c + e] =
-                  acc[4 * (2 * q + jj) + 2 * h + e] + uint32_t(add[h]);
+                  uint32_t(value(acc[4 * (2 * q + jj) + 2 * h + e], add[h]));
         __syncwarp();
         const int px = n0 + 16 * q + (lane & 15);
         if (px < gm.rows) {
           const int img = px / hw;
-          int* dst = out + (long long)img * gm.cols * hw + (px - img * hw);
+          const long long dst =
+              (long long)img * gm.cols * hw + (px - img * hw);
 #pragma unroll 1
           for (int i = 0; i < 8; ++i) {
             const int r = 2 * i + (lane >> 4);
             if (co0 + r < gm.cols)
-              dst[(long long)(co0 + r) * hw] =
-                  int(buf[r * EPI_LD + (lane & 15)]);
+              store(dst + (long long)(co0 + r) * hw,
+                    int(buf[r * EPI_LD + (lane & 15)]));
           }
         }
         __syncwarp();
       }
     } else {
+      // rows of `cols` (NHWC, GEMM) straight from the fragment
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int co = co0 + g + 8 * h;
@@ -347,15 +423,16 @@ s8_wgmma_kernel(const __grid_constant__ CUtensorMap tb,
         for (int j = 0; j < BN / 8; ++j) {
           const int px = n0 + 8 * j + 2 * c;
           if (px < gm.rows)
-            out[(long long)px * gm.cols + co] =
-                int(acc[4 * j + 2 * h]) + add[h];
+            store((long long)px * gm.cols + co,
+                  value(acc[4 * j + 2 * h], add[h]));
           if (px + 1 < gm.rows)
-            out[(long long)(px + 1) * gm.cols + co] =
-                int(acc[4 * j + 2 * h + 1]) + add[h];
+            store((long long)(px + 1) * gm.cols + co,
+                  value(acc[4 * j + 2 * h + 1], add[h]));
         }
       }
     }
   }
+  if constexpr (EPI == EPI_RANGE) rq::fold_warp(range, ep.amax);
 }
 
 // The pre-pass, one launch for both operands.
@@ -523,11 +600,11 @@ s8_prep_kernel(const Prep p) {
       make_uint4(word[0], word[1], word[2], word[3]);
 }
 
-template <int C, int CB, bool CONV, bool RES = false>
+template <int C, int CB, bool CONV, bool RES, int EPI>
 int launch(const CUtensorMap& tb, const CUtensorMap& ta, const int* bias,
-           int* out, const Geom& gm, cudaStream_t stream) {
+           void* out, const Geom& gm, const Epi& ep, cudaStream_t stream) {
   using K = Cfg<C, CB, RES>;
-  auto kernel = s8_wgmma_kernel<C, CB, CONV, RES>;
+  auto kernel = s8_wgmma_kernel<C, CB, CONV, RES, EPI>;
   static unsigned long long attr_set = 0;   // one bit per device
   const int smem =
       K::SMEM + (RES ? gm.n_iter * K::G * K::BM * CB : 0);
@@ -546,20 +623,44 @@ int launch(const CUtensorMap& tb, const CUtensorMap& ta, const int* bias,
                             ((gm.cols + K::BM - 1) / K::BM);
   if (n_tiles >= (1LL << 31)) return ERR_SHAPE;
   const int grid = int(n_tiles < sms * per_sm ? n_tiles : sms * per_sm);
-  kernel<<<grid, K::NT, smem, stream>>>(tb, ta, bias, out, gm);
+  kernel<<<grid, K::NT, smem, stream>>>(tb, ta, bias, out, gm, ep);
   return int(cudaGetLastError());
 }
 
-template <int C, bool CONV, bool RES = false>
+template <int C, bool CONV, bool RES = false, int EPI = EPI_INT32>
 int dispatch_cb(int cb, const CUtensorMap& tb, const CUtensorMap& ta,
-                const int* bias, int* out, const Geom& gm, cudaStream_t s) {
+                const int* bias, void* out, const Geom& gm, const Epi& ep,
+                cudaStream_t s) {
+#define S8_LAUNCH(CB_) \
+  launch<C, CB_, CONV, RES, EPI>(tb, ta, bias, out, gm, ep, s)
   switch (cb) {
-    case 128: return launch<C, 128, CONV, RES>(tb, ta, bias, out, gm, s);
-    case 64: return launch<C, 64, CONV, RES>(tb, ta, bias, out, gm, s);
-    case 32: return launch<C, 32, CONV, RES>(tb, ta, bias, out, gm, s);
-    case 16: return launch<C, 16, CONV, RES>(tb, ta, bias, out, gm, s);
+    case 128: return S8_LAUNCH(128);
+    case 64: return S8_LAUNCH(64);
+    case 32: return S8_LAUNCH(32);
+    case 16: return S8_LAUNCH(16);
     default: return ERR_SHAPE;
   }
+#undef S8_LAUNCH
+}
+
+// The conv's kernel for wgs warpgroups and the epilogue mode EPI: one
+// warpgroup covering every output channel keeps A resident when it fits.
+// The fused modes run on one warpgroup a CTA: with two they do not fit the
+// 96 registers a thread that two CTAs an SM leave (the int32 epilogue
+// takes 94), and spill; the requantize's division calls its slow path as
+// a subroutine.
+template <int EPI>
+int dispatch_conv(int cb, int wgs, bool resident, const CUtensorMap& tb,
+                  const CUtensorMap& ta, const int* bias, void* out,
+                  const Geom& gm, const Epi& ep, cudaStream_t s) {
+  if (resident)
+    return dispatch_cb<1, true, true, EPI>(cb, tb, ta, bias, out, gm, ep, s);
+  if constexpr (EPI == EPI_INT32) {
+    if (wgs == 2)
+      return dispatch_cb<2, true, false, EPI>(cb, tb, ta, bias, out, gm, ep,
+                                              s);
+  }
+  return dispatch_cb<1, true, false, EPI>(cb, tb, ta, bias, out, gm, ep, s);
 }
 
 // Stages of K for `chunks` loads of cb bytes.
@@ -620,18 +721,33 @@ extern "C" int s8_wgmma_prep(const void* x, long long sxn, long long sxc,
 // kw, stride, pad and dilation along W are 1, 1, 0, 1); bias int32
 // (cout,) or null; out int32 (n, cout, ho, wo) with nchw, else (n, ho, wo,
 // cout); wgs consumer warpgroups a CTA
-// (1 or 2: 64 wgs output channels). Launches on `stream`, never
-// synchronises, and returns 0, a cudaError_t, or one of hopper.cuh's
-// ERR_* codes (ERR_SHAPE: a geometry TMA's im2col mode does not take).
+// (1 or 2: 64 wgs output channels). epi: 0 stores int32 out; 1 stores
+// int8 out, requantized under real_in and the calibrated (out_min,
+// out_max), and writes (-real_out, real_out) to lo and hi; 2 stores int32
+// out and the float bits of its batch range max |fl(fl(v) real_in /
+// 2147483647)| to amax (zeroed here first); relu (0 or 1) before either
+// (epi 0 takes none); epi 1 and 2 on wgs 1 only.
+// real_in, out_min, out_max float32 scalars on the device (null where the
+// mode reads none). Launches on `stream`, never synchronises, and returns
+// 0, a cudaError_t, or one of hopper.cuh's ERR_* codes (ERR_SHAPE: a
+// geometry TMA's im2col mode does not take, or a mode's scalars missing).
 extern "C" int s8_wgmma_conv(const void* xp, const void* wp, const void* bias,
                              void* out, int n, int h, int w, int cp,
                              int cout, int kh, int kw, int sh, int sw,
                              int ph, int pw, int dh, int dw, int ho, int wo,
-                             int kpad, int nchw, int wgs, void* stream) {
+                             int kpad, int nchw, int wgs, int epi, int relu,
+                             const void* real_in, const void* out_min,
+                             const void* out_max, void* lo, void* hi,
+                             void* amax, void* stream) {
   if (n < 1 || h < 1 || w < 1 || cp < 16 || cp % 16 || cout < 1 || kh < 1 ||
       kw < 1 || sh < 1 || sh > 8 || sw < 1 || sw > 8 || ph < 0 || pw < 0 ||
       dh < 1 || dw < 1 || ho < 1 || wo < 1 || !aligned16(xp) ||
-      !aligned16(wp) || (wgs != 1 && wgs != 2))
+      !aligned16(wp) || (wgs != 1 && wgs != 2) || epi < 0 || epi > 2 ||
+      (epi != 0 && wgs != 1) || (epi == 0 && relu) ||
+      (epi != 0 && real_in == nullptr) ||
+      (epi == 1 && (out_min == nullptr || out_max == nullptr ||
+                    lo == nullptr || hi == nullptr)) ||
+      (epi == 2 && amax == nullptr))
     return ERR_SHAPE;
   const int lw = -pw, lh = -ph, uw = pw - (kw - 1) * dw,
             uh = ph - (kh - 1) * dh;
@@ -656,14 +772,26 @@ extern "C" int s8_wgmma_conv(const void* xp, const void* wp, const void* bias,
   const Geom gm{int(rows), cout, stages_of(int(chunks), cb), int(chunks),
                 cpt, kw, dh, dw, sh, sw, ph, pw, ho, wo, nchw ? 1 : 0};
   const int* b = static_cast<const int*>(bias);
-  int* o = static_cast<int*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // one warpgroup covering every output channel keeps A resident when it
-  // fits
-  if (wgs == 1 && cout <= 64 && 64LL * kpad <= RES_BUDGET)
-    return dispatch_cb<1, true, true>(cb, tb, ta, b, o, gm, st);
-  return wgs == 2 ? dispatch_cb<2, true>(cb, tb, ta, b, o, gm, st)
-                  : dispatch_cb<1, true>(cb, tb, ta, b, o, gm, st);
+  const Epi ep{static_cast<const float*>(real_in),
+               static_cast<const float*>(out_min),
+               static_cast<const float*>(out_max), static_cast<float*>(lo),
+               static_cast<float*>(hi), static_cast<unsigned*>(amax),
+               relu ? 1 : 0};
+  const bool res = wgs == 1 && cout <= 64 && 64LL * kpad <= RES_BUDGET;
+  switch (epi) {
+    case EPI_REQUANT:
+      return dispatch_conv<EPI_REQUANT>(cb, wgs, res, tb, ta, b, out, gm, ep,
+                                        st);
+    case EPI_RANGE:
+      if ((err = int(cudaMemsetAsync(amax, 0, sizeof(unsigned), st))))
+        return err;
+      return dispatch_conv<EPI_RANGE>(cb, wgs, res, tb, ta, b, out, gm, ep,
+                                      st);
+    default:
+      return dispatch_conv<EPI_INT32>(cb, wgs, res, tb, ta, b, out, gm, ep,
+                                      st);
+  }
 }
 
 // x int8 (m, k) and w int8 (n, k), row-major, contiguous, 16-byte-aligned
@@ -683,9 +811,8 @@ extern "C" int s8_wgmma_matmul(const void* x, const void* w, const void* bias,
     return err;
   const Geom gm{m, n, stages_of(k / cb, cb), k / cb, 0, 1, 1, 1, 1, 1,
                 0, 0, 1, 1, 0};
-  return dispatch_cb<2, false>(cb, tb, ta, static_cast<const int*>(bias),
-                               static_cast<int*>(out), gm,
-                               static_cast<cudaStream_t>(stream));
+  return dispatch_cb<2, false>(cb, tb, ta, static_cast<const int*>(bias), out,
+                               gm, Epi{}, static_cast<cudaStream_t>(stream));
 }
 
 // The dynamic shared memory of a CTA of wgs warpgroups with loads of cb

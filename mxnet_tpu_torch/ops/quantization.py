@@ -31,7 +31,16 @@ step) with hand-written CUDA kernels:
   for the rest (a GEMM whose K is not a multiple of 16 or whose operands
   are not 16-byte aligned, a conv stride past 8);
 - :func:`requant_epilogue` -> ``csrc/requant_int8.cu``, both paths,
-  bitwise equal to the plain version.
+  bitwise equal to the plain version, under a calibrated range or, as
+  :func:`_requantize` without one, under the batch's own range: given by
+  its producer or computed by the kernel (plain version
+  :func:`requant_range_reference`);
+- :func:`s8_conv_requant` -> ``s8_wgmma_conv`` with a fused epilogue: relu
+  and a calibrated requantize (int8 out, the int32 never stored), or the
+  int32 and its batch range in one device word; plain version
+  :func:`s8_conv_requant_reference`. The executor runs a conv -> [relu] ->
+  requantize chain through it (``executor.py``, the plan), as XLA fuses
+  ``_requant_epilogue`` into the conv's output fusion on the TPU.
 
 On a CPU tensor each takes its plain version (``*_reference``: the GEMM and
 conv in float64, exact since |sum| <= K * 127^2 < 2^53, then int32; the
@@ -59,7 +68,9 @@ from .registry import register
 
 __all__ = ["s8_conv", "s8_conv_reference", "s8_conv_pack_reference",
            "s8_matmul", "s8_matmul_reference", "requant_epilogue",
-           "requant_epilogue_reference", "nan_poison_enabled"]
+           "requant_epilogue_reference", "requant_range_reference",
+           "s8_conv_requant", "s8_conv_requant_reference",
+           "quantized_conv_requantize", "nan_poison_enabled"]
 
 _I32_MAX = 2147483647.0      # float32(2147483647) == 2^31, as in mxnet_tpu
 _QUEUE = "ROADMAP Queue 2, K5"
@@ -144,6 +155,31 @@ def requant_epilogue_reference(data, real_in, out_min, out_max,
     return q.clamp(-127, 127).to(torch.int8), -real_out, real_out
 
 
+def requant_range_reference(data, real_in):
+    """The plain version of the batch range of a requantize without a
+    calibrated one (``mxnet_tpu/ops/quantization.py:141-144``): max |int32
+    ``data`` on the grid of ``real_in``| as a 0-d float32 tensor, NaN
+    propagating."""
+    return (data.float() * (real_in / _I32_MAX)).abs().max()
+
+
+def s8_conv_requant_reference(data, weight, stride, pad, dilate, layout=None,
+                              bias=None, *, real_in, out_min=None,
+                              out_max=None, relu=False):
+    """The plain version of :func:`s8_conv_requant`: the chain of plain
+    versions :func:`s8_conv_reference` -> relu (``relu``) -> with
+    ``out_min`` and ``out_max`` :func:`requant_epilogue_reference`, giving
+    (int8, -real_out, real_out); without them the int32 and
+    :func:`requant_range_reference` of it, (int32, batch range)."""
+    out = s8_conv_reference(data, weight, stride, pad, dilate, 1, layout,
+                            bias)
+    if relu:
+        out = out.clamp_min(0)
+    if out_min is None:
+        return out, requant_range_reference(out, real_in)
+    return requant_epilogue_reference(out, real_in, out_min, out_max)
+
+
 _S8_LIB = "s8_gemm"
 _WG_LIB = "s8_gemm_wgmma"
 _RQ_LIB = "requant_int8"
@@ -159,12 +195,13 @@ _SIGNATURES = {
     "s8_wgmma_prep": (_WG_LIB, [_VP] + [_LL] * 4 + [_I] * 9 + [_VP]
                       + [_LL] * 4 + [_I] * 5 + [_VP] * 3),
     # xp, wp, bias, out, N, H, W, cp, Cout, KH, KW, SH, SW, PH, PW, DH, DW,
-    # Ho, Wo, kpad, nchw, warpgroups, stream
-    "s8_wgmma_conv": (_WG_LIB, [_VP] * 4 + [_I] * 18 + [_VP]),
+    # Ho, Wo, kpad, nchw, warpgroups, epilogue, relu, real_in, out_min,
+    # out_max, lo, hi, amax, stream
+    "s8_wgmma_conv": (_WG_LIB, [_VP] * 4 + [_I] * 20 + [_VP] * 7),
     # x, w, bias, out, M, N, K, stream
     "s8_wgmma_matmul": (_WG_LIB, [_VP] * 4 + [_I] * 3 + [_VP]),
-    # x, q, n, real_in, out_min, out_max, lo, hi, path, stream
-    "requant_int8": (_RQ_LIB, [_VP, _VP, _LL] + [_VP] * 5 + [_I, _VP]),
+    # x, q, n, real_in, out_min, out_max, amax, lo, hi, mode, path, stream
+    "requant_int8": (_RQ_LIB, [_VP, _VP, _LL] + [_VP] * 6 + [_I, _I, _VP]),
 }
 
 
@@ -395,21 +432,49 @@ def _s8_conv_prepare(data, weight, shape, last=False):
     return xp, wp, pk
 
 
-def _s8_conv_product(xp, wp, pk, bias, shape, last=False, warpgroups=None):
-    """The wgmma route's conv on the pre-pass's operands: int32 NCHW, or
-    with ``last`` NHWC. ``shape`` is :func:`_conv_shape`'s tuple, ``pk``
-    the layout :func:`_s8_conv_prepare` returns; ``warpgroups`` (1 or 2)
-    overrides :func:`_s8_warpgroups`."""
+_EPILOGUES = {"int32": 0, "requant": 1, "range": 2}
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _s8_conv_product(xp, wp, pk, bias, shape, last=False, warpgroups=None,
+                     epilogue=("int32", False, None, None, None)):
+    """The wgmma route's conv on the pre-pass's operands, NCHW, or with
+    ``last`` NHWC. ``shape`` is :func:`_conv_shape`'s tuple, ``pk`` the
+    layout :func:`_s8_conv_prepare` returns; ``warpgroups`` (1 or 2)
+    overrides :func:`_s8_warpgroups` (the fused modes take 1: the kernel
+    has them on one consumer warpgroup only). ``epilogue`` (mode, relu,
+    real_in,
+    out_min, out_max), the 0-d float32 scalars contiguous on the device:
+    mode "int32" returns the int32 output; "requant" the output requantized
+    under (out_min, out_max), (int8, -real_out, real_out); "range" (int32,
+    its batch range on the grid of ``real_in``); relu before each."""
     n, _, h, _, cout, kh, _, (sh, _), (ph, _), (dh, _), ho, wo = shape
+    mode, relu, real_in, out_min, out_max = epilogue
+    dev = xp.device
     out = torch.empty((n, ho, wo, cout) if last else (n, cout, ho, wo),
-                      dtype=torch.int32, device=xp.device)
-    with torch.cuda.device(xp.device):
-        _call("s8_wgmma_conv", xp.data_ptr(), wp.data_ptr(),
-              bias.data_ptr() if bias is not None else None, out.data_ptr(),
-              n, h, xp.shape[2], pk.cp, cout, kh, pk.kw, sh, pk.stride_w,
-              ph, pk.pad_w, dh, pk.dilate_w, ho, wo, pk.kpad,
-              0 if last else 1, warpgroups or _s8_warpgroups(cout),
+                      dtype=torch.int8 if mode == "requant" else torch.int32,
+                      device=dev)
+    rng = torch.empty(2, dtype=torch.float32, device=dev) \
+        if mode == "requant" else None
+    word = torch.empty((), dtype=torch.float32, device=dev) \
+        if mode == "range" else None
+    with torch.cuda.device(dev):
+        _call("s8_wgmma_conv", xp.data_ptr(), wp.data_ptr(), _ptr(bias),
+              out.data_ptr(), n, h, xp.shape[2], pk.cp, cout, kh, pk.kw, sh,
+              pk.stride_w, ph, pk.pad_w, dh, pk.dilate_w, ho, wo, pk.kpad,
+              0 if last else 1,
+              warpgroups or (_s8_warpgroups(cout) if mode == "int32" else 1),
+              _EPILOGUES[mode], int(bool(relu)), _ptr(real_in),
+              _ptr(out_min), _ptr(out_max), _ptr(rng),
+              None if rng is None else rng.data_ptr() + 4, _ptr(word),
               _stream(xp))
+    if mode == "requant":
+        return out, rng[0], rng[1]
+    if mode == "range":
+        return out, word
     return out
 
 
@@ -467,48 +532,134 @@ s8_conv.launches = 0
 s8_conv.launches_by_route = {"wgmma": 0, "mma_s8": 0}
 
 
-def requant_epilogue(data, real_in, out_min, out_max, path="via_fp32"):
-    """int32 accumulator -> int8 under a calibrated output range
-    (``mxnet_tpu/ops/quantization.py:207``). ``real_in``, ``out_min`` and
-    ``out_max`` are 0-d float32 tensors on ``data``'s device, read there by
-    the kernel (never on the host, so the call captures). Returns (int8,
-    -real_out, real_out). A CUDA tensor launches ``csrc/requant_int8.cu``
-    (bitwise equal to :func:`requant_epilogue_reference` on finite
-    values); a CPU tensor takes the plain version."""
+def _check_scalars(name, device, **scalars):
+    """Each given 0-d float32 range on ``device``, reshaped to 0-d and
+    contiguous; None stays None."""
+    out = []
+    for what, t in scalars.items():
+        if t is None:
+            out.append(None)
+            continue
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 or \
+                t.numel() != 1 or t.device != device:
+            raise ValueError(f"{name}: {what} must be a float32 scalar "
+                             f"tensor on {device}")
+        out.append(t.reshape(()).contiguous())
+    return out
+
+
+def s8_conv_requant(data, weight, stride, pad, dilate, layout=None,
+                    bias=None, *, real_in, out_min=None, out_max=None,
+                    relu=False):
+    """The int8 conv (:func:`s8_conv`: 2-D, one group) with relu
+    (``relu``) and a requantize in its epilogue. With the calibrated
+    ``out_min`` and ``out_max``: the output requantized (via_fp32) under
+    them, (int8, -real_out, real_out), the int32 never stored; without
+    them: (int32, its batch range max |x * real_in / 2147483647|), the
+    range folded into one device word as the tiles are stored, for
+    :func:`requant_epilogue`'s ``amax``. ``real_in`` is the int32 grid's
+    range; the ranges are 0-d float32 tensors on the data's device. A CUDA
+    tensor launches ``s8_wgmma_conv`` with the mode's epilogue (after its
+    pre-pass) where :func:`_s8_route` names "wgmma", and raises otherwise;
+    a CPU tensor takes :func:`s8_conv_requant_reference`."""
+    device = _check_s8("s8_conv_requant", data=data, weight=weight)
+    if (out_min is None) != (out_max is None):
+        raise ValueError("s8_conv_requant: give both out_min and out_max, "
+                         "or neither")
+    real_in, out_min, out_max = _check_scalars(
+        "s8_conv_requant", device, real_in=real_in, out_min=out_min,
+        out_max=out_max)
+    last = bool(layout) and layout[1] != "C"
+    bias = _check_bias("s8_conv_requant", bias, weight.shape[0], device)
+    mode = "range" if out_min is None else "requant"
+    if device.type == "cpu":
+        return s8_conv_requant_reference(
+            data, weight, stride, pad, dilate, layout, bias, real_in=real_in,
+            out_min=out_min, out_max=out_max, relu=relu)
+    if device.type != "cuda":
+        raise ValueError(f"s8_conv_requant: unsupported device {device}")
+    if data.dim() != 4:
+        raise MXNetError(f"s8_conv_requant: a 2-D conv only, got data "
+                         f"{tuple(data.shape)}")
+    shape = _conv_shape(data, weight, stride, pad, dilate, last)
+    _, _, _, _, _, kh, kw, st, pd, dl, _, _ = shape
+    route = _s8_route("conv", kernel=(kh, kw), stride=st, pad=pd, dilate=dl)
+    if route != "wgmma":
+        raise MXNetError(
+            f"s8_conv_requant: the conv's route is {route!r}; only the "
+            f"wgmma kernel has the fused epilogue (stride {st}, pad {pd}, "
+            f"dilation {dl})")
+    xp, wp, pk = _s8_conv_prepare(data, weight, shape, last)
+    res = _s8_conv_product(xp, wp, pk, bias, shape, last, epilogue=(
+        mode, relu, real_in, out_min, out_max))
+    s8_conv_requant.launches += 1
+    s8_conv_requant.launches_by_mode[mode] += 1
+    return res
+
+
+s8_conv_requant.launches = 0
+s8_conv_requant.launches_by_mode = {"requant": 0, "range": 0}
+
+_RQ_MODES = {"calibrated": 0, "given": 1, "own": 2}
+
+
+def requant_epilogue(data, real_in, out_min=None, out_max=None,
+                     path="via_fp32", amax=None):
+    """int32 accumulator -> int8 (``mxnet_tpu/ops/quantization.py:207``)
+    under the calibrated output range (``out_min``, ``out_max``), or without
+    one under the batch's own (``:141-144``): ``amax``, the range its
+    producer folded (:func:`s8_conv_requant`'s), or else the range of
+    ``data`` itself. ``real_in``, ``out_min``, ``out_max`` and ``amax`` are
+    0-d float32 tensors on ``data``'s device, read there by the kernel
+    (never on the host, so the call captures). Returns (int8, -real_out,
+    real_out). A CUDA tensor launches ``csrc/requant_int8.cu`` (bitwise
+    equal to the plain versions on finite values; mode "own" runs its range
+    pass first); a CPU tensor takes :func:`requant_epilogue_reference`
+    under :func:`requant_range_reference` where the range is the batch's.
+    ``launches_by_mode`` counts "calibrated", "given" and "own"."""
     if path not in ("via_fp32", "fused_scale"):
         raise ValueError(f"requant path {path!r} (via_fp32 or fused_scale)")
     if data.dtype != torch.int32:
         raise ValueError(f"requant_epilogue: data must be int32, got "
                          f"{data.dtype}")
-    for name, t in (("real_in", real_in), ("out_min", out_min),
-                    ("out_max", out_max)):
-        if t.dtype != torch.float32 or t.numel() != 1 or \
-                t.device != data.device:
-            raise ValueError(f"requant_epilogue: {name} must be a float32 "
-                             f"scalar tensor on {data.device}")
+    if (out_min is None) != (out_max is None) or \
+            (out_min is not None and amax is not None):
+        raise ValueError("requant_epilogue: give out_min and out_max, or "
+                         "neither (and optionally amax)")
+    real_in, out_min, out_max, amax = _check_scalars(
+        "requant_epilogue", data.device, real_in=real_in, out_min=out_min,
+        out_max=out_max, amax=amax)
+    mode = "calibrated" if out_min is not None else \
+        "given" if amax is not None else "own"
     if data.device.type == "cpu":
-        return requant_epilogue_reference(data, real_in.reshape(()),
-                                          out_min.reshape(()),
-                                          out_max.reshape(()), path)
+        if mode != "calibrated":
+            out_max = amax if amax is not None else \
+                requant_range_reference(data, real_in)
+            out_min = -out_max
+        return requant_epilogue_reference(data, real_in, out_min, out_max,
+                                          path)
     if data.device.type != "cuda":
         raise ValueError(f"requant_epilogue: unsupported device "
                          f"{data.device}")
     x = data.contiguous()
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     rng = torch.empty(2, dtype=torch.float32, device=x.device)
+    if mode == "own":
+        amax = torch.empty((), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         _call("requant_int8", x.data_ptr(), q.data_ptr(), x.numel(),
-              real_in.contiguous().data_ptr(), out_min.contiguous().data_ptr(),
-              out_max.contiguous().data_ptr(), rng.data_ptr(),
-              rng.data_ptr() + 4, 0 if path == "via_fp32" else 1,
-              _stream(x))
+              real_in.data_ptr(), _ptr(out_min), _ptr(out_max), _ptr(amax),
+              rng.data_ptr(), rng.data_ptr() + 4, _RQ_MODES[mode],
+              0 if path == "via_fp32" else 1, _stream(x))
     requant_epilogue.launches += 1
     requant_epilogue.launches_by_route[path] += 1
+    requant_epilogue.launches_by_mode[mode] += 1
     return q, rng[0], rng[1]
 
 
 requant_epilogue.launches = 0
 requant_epilogue.launches_by_route = {"via_fp32": 0, "fused_scale": 0}
+requant_epilogue.launches_by_mode = {"calibrated": 0, "given": 0, "own": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -586,27 +737,27 @@ def _dequantize(data, min_range, max_range, out_type="float32"):
 def _requantize(data, min_range, max_range, min_calib_range=None,
                 max_calib_range=None):
     """int32 -> int8 under the calibrated range, or under the data's own
-    max |value| without one (requantize.cc); the step itself is K5's
-    :func:`requant_epilogue`, path "via_fp32"."""
+    max |value| without one (requantize.cc); the step itself, the batch's
+    range included, is K5's :func:`requant_epilogue`, path "via_fp32"."""
     return requant_epilogue(
-        data, *_requant_ranges(data, min_range, max_range, min_calib_range,
+        data, *_requant_ranges(min_range, max_range, min_calib_range,
                                max_calib_range), path="via_fp32")
 
 
-def _requant_ranges(data, min_range, max_range, min_calib_range=None,
+def _requant_ranges(min_range, max_range, min_calib_range=None,
                     max_calib_range=None):
-    """(real_in, out_min, out_max) of a requantize node: what it hands
-    :func:`requant_epilogue`."""
+    """(real_in, out_min, out_max) of a requantize node over an int32 input
+    on the grid (``min_range``, ``max_range``): what it hands
+    :func:`requant_epilogue`; out_min and out_max None without a calibrated
+    range (the kernel takes the batch's own)."""
     real_in = _int8_range(min_range.reshape(()), max_range.reshape(()))
-    if min_calib_range is not None and max_calib_range is not None:
-        out_min = _scalar(min_calib_range, data)
-        out_max = _scalar(max_calib_range, data)
-        if nan_poison_enabled():
-            flag = 0.0 * real_in
-            out_min, out_max = out_min + flag, out_max + flag
-    else:
-        out_max = (data.float() * (real_in / _I32_MAX)).abs().max()
-        out_min = -out_max
+    if min_calib_range is None or max_calib_range is None:
+        return real_in, None, None
+    out_min = _scalar(min_calib_range, real_in)
+    out_max = _scalar(max_calib_range, real_in)
+    if nan_poison_enabled():
+        flag = 0.0 * real_in
+        out_min, out_max = out_min + flag, out_max + flag
     return real_in, out_min, out_max
 
 
@@ -665,6 +816,36 @@ def _quantized_conv(data, weight, bias, min_data, max_data, min_weight,
                   _pairs(pad or 0, sdims), _pairs(dilate or 1, sdims),
                   num_group, layout, bias=b)
     return out, lo, hi
+
+
+def quantized_conv_requantize(data, weight, bias, min_data, max_data,
+                              min_weight, max_weight, min_bias=None,
+                              max_bias=None, kernel=None, stride=None,
+                              dilate=None, pad=None, num_filter=None,
+                              num_group=1, no_bias=False, layout=None,
+                              workspace=None, cudnn_tune=None,
+                              cudnn_off=False, relu=False,
+                              min_calib_range=None, max_calib_range=None):
+    """The chain ``_contrib_quantized_conv`` -> [``_contrib_quantized_act``
+    relu, with ``relu``] -> ``_contrib_requantize`` (with or without the
+    calibrated range) as one call, the executor's plan for it: the conv's
+    inputs and parameters, then the requantize's. Returns the requantize's
+    (int8, min, max), bitwise those of the three ops in turn. Calibrated:
+    one :func:`s8_conv_requant` (mode "requant"); else its mode "range"
+    then :func:`requant_epilogue` reading the range it folded."""
+    if int(num_group) != 1:
+        raise ValueError("quantized_conv_requantize: one group only")
+    lo, hi, b = _s8s8_bias(bias, min_data, max_data, min_weight, max_weight,
+                           min_bias, max_bias, no_bias)
+    real_in, out_min, out_max = _requant_ranges(lo, hi, min_calib_range,
+                                                max_calib_range)
+    args = (data, weight, _pairs(stride or 1, 2), _pairs(pad or 0, 2),
+            _pairs(dilate or 1, 2), layout, b)
+    if out_min is not None:
+        return s8_conv_requant(*args, real_in=real_in, out_min=out_min,
+                               out_max=out_max, relu=relu)
+    out, amax = s8_conv_requant(*args, real_in=real_in, relu=relu)
+    return requant_epilogue(out, real_in, amax=amax, path="via_fp32")
 
 
 def _windows(x, k, s, pads, fill):

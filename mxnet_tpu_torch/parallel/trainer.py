@@ -419,6 +419,8 @@ class ShardedTrainer:
             loss, grads, new_aux = self._loss_and_grads(x, y, full)
             self._write_aux(new_aux)
         else:
+            if self._multi and self._batch_axes:
+                x, y = self._global_slices(x, y, n)
             mb = int(x.shape[0]) // n
             loss, grads = None, None
             for i in range(n):
@@ -439,6 +441,28 @@ class ShardedTrainer:
         if self._multi:
             loss, grads = self._reduced(loss, grads)
         return loss, grads
+
+    def _global_slices(self, x, y, n):
+        """``x`` and ``y`` as this rank's rows of each of ``n`` microbatches
+        in turn, microbatch i being slice i of the global batch (placed over
+        the batch axes, as ``mxnet_tpu/parallel/trainer.py:1029-1077``
+        slices it), so that a BatchNorm takes its moments over that slice:
+        the batch is all-gathered over the batch axes, in rank order, and
+        each slice's rows dealt out by this rank's index along them."""
+        axes, mesh = self._batch_axes, self.mesh
+        shards = mesh.axis_size(axes)
+        if shards == 1:
+            return x, y
+        me = mesh.axis_index(axes)
+        part = int(x.shape[0]) // n       # this rank's rows of a slice
+        rows = part * shards              # a slice's rows
+        out = []
+        for t in (x, y):
+            g = collectives.all_gather(t, mesh, axes)
+            out.append(torch.cat([g[i * rows + me * part:
+                                    i * rows + (me + 1) * part]
+                                  for i in range(n)]))
+        return out
 
     def _program(self, x, y, n, scal):
         """The whole step on the batch: loss, gradients, aux written back,
@@ -520,7 +544,9 @@ class ShardedTrainer:
         applies it in one update; the running statistics chain through the
         slices, and the loss is the mean of the slice losses
         (``mxnet_tpu/parallel/trainer.py:1029-1077``); over several ranks
-        slice i is every rank's slice i. An ``n`` that does not split the
+        slice i is slice i of the global batch, spread over the ranks (the
+        batch is all-gathered over the batch axes first), so BatchNorm's
+        moments are the slice's, as there. An ``n`` that does not split the
         rows raises. ``length=`` (the pad mask) is not ported and raises.
         """
         if length is not None:

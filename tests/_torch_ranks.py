@@ -195,7 +195,8 @@ def trainer_rank(rank, world, model, values, opt, configs):
             tr.opt_state["t"] = st["t"]
             rows = st["x"].shape[0] // shards
             sl = slice(me * rows, (me + 1) * rows)
-            loss = tr.step(st["x"][sl], st["y"][sl])
+            loss = tr.step(st["x"][sl], st["y"][sl],
+                           microbatches=st.get("microbatches"))
             full = tr._full(tr.params)
             mom = tr._full(tr.opt_state["state"])
             out.append({"loss": float(loss),

@@ -265,6 +265,15 @@ def test_build_digest_covers_the_decode_combine_header(tmp_path,
     assert changed == users
 
 
+def test_build_digest_covers_the_requantize_header(tmp_path, monkeypatch):
+    """csrc/requant.cuh (K5's requantize arithmetic) is included by the
+    standalone requantize and by the int8 conv, whose fused epilogue uses
+    it, and editing it rebuilds those two alone."""
+    users, changed = _edit_header(tmp_path, monkeypatch, "requant.cuh")
+    assert users == {"requant_int8", "s8_gemm_wgmma"}
+    assert changed == users
+
+
 def _lm_strides(b, h, t, d):
     """(B, H, T, D) strides of the LM's q/k/v views of one (B, T, 3 H D)
     buffer, and of K1's (B, T, H, D)-memory O and the matching dO."""

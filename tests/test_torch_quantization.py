@@ -354,6 +354,78 @@ def test_folded_graph_runs_like_the_unfolded_one(flow):
                                atol=1e-4 * np.abs(unfolded).max())
 
 
+def test_fold_batch_norm_keys_a_shared_weight_per_conv():
+    """One weight read by two convs, each with its own BatchNorm: each
+    fold gets its own parameters (the second keyed on its conv node's
+    name, where mxnet_tpu's ``fold_batch_norm`` overwrites the first), so
+    the folded graph computes what the unfolded one does."""
+    rng = np.random.RandomState(7)
+    data, w = tsym.var("data"), tsym.var("shared_weight")
+    branches = []
+    for i in range(2):
+        c = tsym.Convolution(data, weight=w, kernel=(3, 3), pad=(1, 1),
+                             num_filter=4, no_bias=True, name=f"conv{i}")
+        branches.append(tsym.BatchNorm(c, fix_gamma=False, name=f"bn{i}"))
+    sy = tsym.elemwise_add(*branches, name="sum")
+    args = {"shared_weight": _t(rng.randn(4, 3, 3, 3).astype(np.float32))}
+    auxs = {}
+    for i in range(2):
+        args[f"bn{i}_gamma"] = _t(rng.rand(4).astype(np.float32) + 0.5)
+        args[f"bn{i}_beta"] = _t(rng.randn(4).astype(np.float32))
+        auxs[f"bn{i}_moving_mean"] = _t(rng.randn(4).astype(np.float32))
+        auxs[f"bn{i}_moving_var"] = _t(rng.rand(4).astype(np.float32) + .5)
+    fs, fa, fx = tq.fold_batch_norm(sy, args, auxs)
+    assert sorted(fa) == ["conv1_bnfold", "conv1_bnfold_bias",
+                          "shared_weight_bnfold",
+                          "shared_weight_bnfold_bias"]
+    x = rng.rand(2, 3, 6, 6).astype(np.float32)
+    want = _run_port(sy, args, auxs, x)
+    got = _run_port(fs, fa, fx, x)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def _pool_net(pool_type):
+    data = tsym.var("data")
+    c = tsym.Convolution(data, kernel=(3, 3), pad=(1, 1), num_filter=8,
+                         name="pc1")
+    r = tsym.Activation(c, act_type="relu", name="pr1")
+    p = tsym.Pooling(r, kernel=(2, 2), stride=(2, 2), pool_type=pool_type,
+                     name="pp1")
+    return tsym.FullyConnected(p, num_hidden=10, name="pfc1")
+
+
+@pytest.mark.parametrize("pool_type", ["sum", "max", "avg"])
+def test_int8_rewrite_quantizes_max_and_avg_pools_only(pool_type):
+    """The full-int8 rewrite turns a max or avg Pooling into
+    ``_contrib_quantized_pooling``; a 'sum' pool, which the quantized op
+    does not take, stays fp32 behind its dequantize, and the graph runs
+    (``mxnet_tpu`` rewrites it too, and then raises)."""
+    rng = np.random.RandomState(9)
+    sy = _pool_net(pool_type)
+    args = {"pc1_weight": rng.randn(8, 3, 3, 3) * 0.2,
+            "pc1_bias": rng.randn(8) * 0.05,
+            "pfc1_weight": rng.randn(10, 8 * 4 * 4) * 0.1,
+            "pfc1_bias": np.zeros(10)}
+    args = {k: _t(v.astype(np.float32)) for k, v in args.items()}
+    calib = rng.rand(8, 3, 8, 8).astype(np.float32)
+    table = tq.calibrate(sy, args, {}, mt.io.NDArrayIter(calib,
+                                                         batch_size=4),
+                         calib_mode="naive")
+    qs, qa, qx = tq.quantize_model(sy, args, {}, calib_table=table,
+                                   quantize_mode="full")
+    ops = Counter(n.op for n in qs._topo_nodes() if not n.is_var)
+    quantized = pool_type != "sum"
+    assert ops["_contrib_quantized_pooling"] == int(quantized)
+    assert ops["Pooling"] == int(not quantized)
+    x = rng.rand(4, 3, 8, 8).astype(np.float32)
+    got = _run_port(qs, qa, qx, x)
+    want = _run_port(sy, args, {}, x)
+    assert got.shape == (4, 10) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=0.1 * np.abs(want).max())
+
+
 def test_quantize_model_full_matches_mxnet_tpu(flow):
     (jqs, jqa, _), (tqs, tqa, _) = flow["jq"], flow["tq"]
     assert json.loads(tqs.tojson()) == json.loads(jqs.tojson())

@@ -11,8 +11,9 @@ folded into the channels for a few-channel input such as the stem's, and
 the (Cout, KH, KW', cp) weight) is held exactly to ``mxnet_tpu``'s
 ``_s8_conv``: a float64 channels-last conv over the laid-out operands
 against ``_s8_conv`` under ("NCHW", "OIHW", "NCHW"), inputs from numpy
-seeds. The ``cuda`` test holds both routes to the plain version on the
-card.
+seeds. The ``cuda`` tests hold both routes, and the conv's fused
+requantize epilogues (``s8_conv_requant``) with the batch-range
+requantize, to their plain versions on the card.
 """
 import numpy as np
 import pytest
@@ -202,3 +203,34 @@ def test_both_routes_equal_the_plain_version_on_the_card(case, monkeypatch):
     assert torch.equal(got, want_last)
     with pytest.raises(mt.MXNetError, match="ROADMAP"):
         tops.s8_conv(x, wt, *args, num_group=2)
+
+
+@pytest.mark.cuda
+def test_fused_conv_and_batch_range_on_the_card():
+    """The conv's fused epilogues (relu, then a calibrated requantize or
+    the batch range) and the requantize computing its own range, bitwise
+    equal to their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    rng = np.random.RandomState(16)
+    x = torch.from_numpy(rng.randint(-127, 128, (4, 64, 14, 14))
+                         .astype(np.int8)).cuda()
+    w = torch.from_numpy(rng.randint(-127, 128, (128, 64, 3, 3))
+                         .astype(np.int8)).cuda()
+    bias = torch.from_numpy(rng.randint(-2 ** 16, 2 ** 16, (128,))
+                            .astype(np.int32)).cuda()
+    args = (x, w, (1, 1), (1, 1), (1, 1), None, bias)
+    rin = torch.tensor(2.0 ** 31 * 2.0 / (5376.0 * 24.0), device="cuda")
+    lo, hi = (torch.tensor(v, device="cuda") for v in (-3.0, 2.5))
+    with torch.backends.cudnn.flags(enabled=False):
+        for scal in ({"out_min": lo, "out_max": hi}, {}):
+            got = tops.s8_conv_requant(*args, real_in=rin, relu=True,
+                                       **scal)
+            want = tops.s8_conv_requant_reference(*args, real_in=rin,
+                                                  relu=True, **scal)
+            assert all(torch.equal(g, v) for g, v in zip(got, want))
+    d = want[0]
+    got = tops.requant_epilogue(d, rin)
+    word = tops.requant_range_reference(d, rin)
+    ref = tops.requant_epilogue_reference(d, rin, -word, word)
+    assert all(torch.equal(g, v) for g, v in zip(got, ref))

@@ -11,7 +11,10 @@ the forward, gradients reduce-scattered), batch axes ``("dp", "fsdp")``.
 Two models: a 2-layer, 64-unit, 4-head ``TransformerLM`` and the narrow
 NHWC ResNet-50 v1 of ``test_torch_parallel.py``, whose BatchNorm must take
 its moments over the global batch (8 images, 2 a rank), as ``mxnet_tpu``'s
-sharded step does.
+sharded step does. Over {"dp": 4} the ResNet also steps with
+``microbatches=2`` on batches of 16: microbatch i is slice i of the
+global batch (8 images, 2 a rank), whose moments its BatchNorm takes, as
+``mxnet_tpu``'s accumulating step slices it.
 
 Three fp32 SGD-momentum steps; as in ``test_torch_parallel.py`` each step
 starts from ``mxnet_tpu``'s state before it (parameters, running
@@ -47,7 +50,15 @@ LM_DIMS = (2, 64, 4, 32, 16)     # layers, units, heads, vocab, max_len
 NARROW = dict(layers=[1, 1, 1, 1], channels=[8, 16, 32, 64, 128],
               classes=10)
 MESHES = {"dp4": {"dp": 4}, "dp2_fsdp2": {"dp": 2, "fsdp": 2}}
-CONFIGS = [(m, k) for m in ("lm", "resnet") for k in MESHES]
+# the ResNet also takes its steps as 2 microbatches over {"dp": 4}: slice
+# i of the global batch is microbatch i, its BatchNorm moments over it;
+# a batch of 16, so each slice's moments are over 8 images, as the other
+# runs' are (axes, microbatches, rows)
+MICROBATCHES = {"dp4_mb2": ({"dp": 4}, 2, 16)}
+RUNS = {"lm": {k: (v, None, 8) for k, v in MESHES.items()},
+        "resnet": {**{k: (v, None, 8) for k, v in MESHES.items()},
+                   **MICROBATCHES}}
+CONFIGS = [(m, k) for m in RUNS for k in RUNS[m]]
 
 
 def _values(jnet, rng):
@@ -68,7 +79,7 @@ def _values(jnet, rng):
     return values
 
 
-def _jax_model(kind):
+def _jax_model(kind, rows=8):
     rng = np.random.RandomState(3)
     if kind == "lm":
         layers, units, heads, vocab, max_len = LM_DIMS
@@ -98,8 +109,8 @@ def _jax_model(kind):
         batches = []
         for s in range(STEPS):
             r = np.random.RandomState(20 + s)
-            x = (r.rand(8, 3, 32, 32) - 0.5).astype(np.float32)
-            y = r.randint(0, NARROW["classes"], 8).astype(np.float32)
+            x = (r.rand(rows, 3, 32, 32) - 0.5).astype(np.float32)
+            y = r.randint(0, NARROW["classes"], rows).astype(np.float32)
             batches.append((x, y))
         model = {"kind": "resnet", "narrow": NARROW}
     return jnet, values, batches, model
@@ -123,10 +134,10 @@ def runs(tmp_path_factory):
     results)}: mxnet_tpu's runs here, then one run of the ranks a model
     for both meshes."""
     out = {}
-    for kind in ("lm", "resnet"):
+    for kind, runs_of in RUNS.items():
         configs, wants = [], {}
-        for mesh_name, axes in MESHES.items():
-            jnet, values, batches, model = _jax_model(kind)
+        for mesh_name, (axes, n_micro, rows) in runs_of.items():
+            jnet, values, batches, model = _jax_model(kind, rows)
             mesh = jpar.create_mesh(axes, jax.devices()[:WORLD])
             lay = jpar.SpecLayout.for_mesh(mesh)
             jtr = jpar.ShardedTrainer(
@@ -136,17 +147,17 @@ def runs(tmp_path_factory):
             steps, want = [], []
             for x, y in batches:
                 pre = _jax_state(jtr)
-                pre.update(x=x, y=y)
+                pre.update(x=x, y=y, microbatches=n_micro)
                 steps.append(pre)
                 jx = x.astype(np.int32) if kind == "lm" else x
-                loss = float(jtr.step(jx, y))
+                loss = float(jtr.step(jx, y, microbatches=n_micro))
                 want.append(dict(_jax_state(jtr), loss=loss))
-            configs.append((mesh_name, axes, mesh_name != "dp4", steps))
+            configs.append((mesh_name, axes, "fsdp" in axes, steps))
             wants[mesh_name] = want
         got = ranks.run_ranks(ranks.trainer_rank, WORLD,
                               (model, values, dict(OPT), configs),
                               tmp_path_factory.mktemp(kind))
-        for mesh_name in MESHES:
+        for mesh_name in runs_of:
             out[(kind, mesh_name)] = (wants[mesh_name],
                                       [r[mesh_name] for r in got])
     return out

@@ -3,7 +3,8 @@
 route "wgmma") at ResNet-18 v1's 11 conv shapes, N = 128.
 
     python3 tools/torch_k5_variants.py [--variants a,b,...]
-        [--warpgroups rule,1,2] [--probe] [--out PATH]
+        [--warpgroups rule,1,2] [--modes int32,requant,range] [--probe]
+        [--out PATH]
 
 Needs one CUDA card and nvcc. Each variant is the committed
 ``mxnet_tpu_torch/csrc/s8_gemm_wgmma.cu`` with a few lines replaced, built
@@ -15,10 +16,15 @@ and its weight part alone), ``torch._int_mm`` on the same im2col'd GEMM
 and csrc/s8_gemm.cu (route "mma_s8") on the same inputs; then per variant
 and
 per consumer-warpgroup count (1, 2: 64 or 128 output channels a CTA;
-"rule" is ``_s8_warpgroups``'s) the product's device time
-(``_s8_conv_product`` on the pre-pass's operands, chip_smoke.device_ms)
-with its int8 TOP/s, whether the int32 output equals the float64 plain
-version exactly (not for time-only variants), ptxas's registers and
+"rule" is the wrapper's: ``_s8_warpgroups``'s for int32, 1 for a fused
+mode) and per epilogue mode (``--modes``: int32; requant, relu and a
+calibrated requantize, int8 out; range, the int32 and its batch range)
+the product's device time (``_s8_conv_product`` on the pre-pass's
+operands, chip_smoke.device_ms) with its int8 TOP/s, whether the output
+equals the plain version bitwise (float64 conv; for the fused modes then
+relu and ``requant_epilogue_reference`` or ``requant_range_reference``;
+not for time-only variants; a count the source refuses is reported as
+refused), ptxas's registers and
 spills, the card's name and its power limit. Sums over the 20 convs of
 one predict close the table. ``--probe`` adds, outside the sums, the three
 stride-2 3x3 convs' GEMMs (M, N and K) as stride-1 convs on their output's
@@ -31,6 +37,9 @@ side. A variant that fails to build is reported and skipped. Variants:
   stages8        up to 8 ring stages, as many as fit (4 committed)
   no_stores      the epilogue's NCHW stores left out (time only)
   no_mma         the products left out (time only): loads, ring and stores
+  fused_wgs2     the fused modes also on two consumer warpgroups
+  fused_wgs2_cta1  the same with one CTA an SM (__launch_bounds__ min 1:
+                 no register cap of 96)
 """
 from __future__ import annotations
 
@@ -48,12 +57,18 @@ STAGES = ("  static constexpr int STAGES = FIT > 4 ? 4 : FIT < 2 ? 2 : "
           "FIT;")
 GRID = ("  const int grid = int(n_tiles < sms * per_sm ? n_tiles : sms * "
         "per_sm);")
-STORE = "            if (co0 + r < gm.cols)\n              dst["
+STORE = "            if (co0 + r < gm.cols)\n              store("
 PAIR = ("          if (n0 + 8 * j + 2 * c < gm.rows)\n"
-        "            *reinterpret_cast<int2*>")
+        "            store2(")
 MMA = ("        wgmma_s8<BN>(acc, smem_desc(a + 32 * kk, lbo_a, K::SBO, "
        "K::LAYOUT),\n                     smem_desc(b + 32 * kk, lbo_b, "
        "K::SBO, K::LAYOUT));")
+FUSED_WGS = ("  if constexpr (EPI == EPI_INT32) {\n    if (wgs == 2)\n"
+             "      return dispatch_cb<2, true, false, EPI>(cb, tb, ta, bias, "
+             "out, gm, ep,\n                                              s);\n"
+             "  }\n")
+WGS_CHECK = "(epi != 0 && wgs != 1) || "
+BOUNDS = "__launch_bounds__(Cfg<C, CB>::NT, 2)"
 PROBES = ((256, 512, 7, 3, 1, 1, 0), (128, 256, 14, 3, 1, 1, 0),
           (64, 128, 28, 3, 1, 1, 0))
 
@@ -76,11 +91,17 @@ VARIANTS = {
     # the NCHW stores (even planes' pairs, odd planes' buffer) only for a
     # pixel or row that cannot exist
     "no_stores": [_replace(STORE, "            if (co0 + r < 0)\n"
-                                  "              dst["),
+                                  "              store("),
                   _replace(PAIR, "          if (n0 + 8 * j + 2 * c < 0)\n"
-                                 "            *reinterpret_cast<int2*>")],
+                                 "            store2(")],
     "no_mma": [_replace(MMA, "        (void)lbo_a;\n        (void)lbo_b;")],
+    "fused_wgs2": [
+        _replace(FUSED_WGS, "  if (wgs == 2)\n    return dispatch_cb<2, true, "
+                            "false, EPI>(cb, tb, ta, bias, out, gm, ep, s);\n"),
+        _replace(WGS_CHECK, "")],
 }
+VARIANTS["fused_wgs2_cta1"] = VARIANTS["fused_wgs2"] + [
+    _replace(BOUNDS, "__launch_bounds__(Cfg<C, CB>::NT, 1)")]
 TIME_ONLY = ("no_stores", "no_mma")
 
 
@@ -99,6 +120,9 @@ def main(argv=None):
                     help="comma-separated variants to time")
     ap.add_argument("--warpgroups", default="rule,1,2",
                     help="comma-separated warpgroup counts (rule, 1, 2)")
+    ap.add_argument("--modes", default="int32",
+                    help="comma-separated epilogue modes (int32, requant, "
+                         "range)")
     ap.add_argument("--probe", action="store_true",
                     help="also time the stride-2 GEMMs as stride-1 convs")
     ap.add_argument("--out", help="also write the results to PATH as JSON")
@@ -106,6 +130,7 @@ def main(argv=None):
     names = args.variants.split(",")
     wgs_list = [w if w == "rule" else int(w)
                 for w in args.warpgroups.split(",")]
+    modes = args.modes.split(",")
 
     import torch
     import torch.nn.functional as F
@@ -142,6 +167,17 @@ def main(argv=None):
         xp, wp, pk = q._s8_conv_prepare(x, w, shape)
         with chip_smoke.exact_f64_convs(torch):
             ref = q.s8_conv_reference(x, w, st, pd, dl, bias=bias)
+        # the fused modes' scalars and plain results: the requantize's
+        # calibrated range half the relu'd output's batch range
+        real_in = torch.tensor(8.0, device="cuda")
+        half = q.requant_range_reference(ref.clamp_min(0), real_in) / 2
+        epis = {"int32": (("int32", False, None, None, None), (ref,)),
+                "requant": (("requant", True, real_in, -half, half),
+                            q.requant_epilogue_reference(
+                                ref.clamp_min(0), real_in, -half, half)),
+                "range": (("range", False, real_in, None, None),
+                          (ref, q.requant_range_reference(ref, real_in)))}
+        epis = {m: epis[m] for m in modes}
         m, kk = N * shape[-2] * shape[-1], cin * k * k
         kp = -(-kk // 8) * 8
         cols = F.unfold(x.half(), (k, k), padding=p, stride=s).transpose(
@@ -178,7 +214,7 @@ def main(argv=None):
               f"{row['prep_w_ms']:.4f}), torch._int_mm "
               f"{row['int_mm_ms']:.4f}, mma_s8 {row['mma_s8_ms']:.4f}",
               flush=True)
-        cases.append((row, x, w, bias, shape, xp, wp, pk, ref))
+        cases.append((row, x, w, bias, shape, xp, wp, pk, epis))
     results = {"card": card, "shapes": [c[0] for c in cases],
                "variants": {}}
     for name in names:
@@ -198,23 +234,37 @@ def main(argv=None):
         _build._libs[SOURCE] = ctypes.CDLL(str(lib_path))
         rows = results["variants"][name] = []
         totals = {}
-        for row, x, w, bias, shape, xp, wp, pk, ref in cases:
-            for wgs in wgs_list:
-                g = q._s8_warpgroups(shape[4]) if wgs == "rule" else wgs
+        for row, x, w, bias, shape, xp, wp, pk, epis in cases:
+            for (mode, (epi, want)), wgs in (
+                    (e, g) for e in epis.items() for g in wgs_list):
 
                 def run():
-                    return q._s8_conv_product(xp, wp, pk, bias, shape,
-                                              warpgroups=g)
-                got = run()
+                    return q._s8_conv_product(
+                        xp, wp, pk, bias, shape,
+                        warpgroups=None if wgs == "rule" else wgs,
+                        epilogue=epi)
+                try:
+                    got = run()
+                except q.MXNetError as e:
+                    print(f"{name:12s} {str(row['shape']):28s} {mode:7s} "
+                          f"wgs {wgs!s:4s} refused: {e}", flush=True)
+                    continue
                 torch.cuda.synchronize()
-                exact = bool(torch.equal(got, ref))
+                got = got if isinstance(got, tuple) else (got,)
+                exact = all(torch.equal(a.view(torch.int32) if
+                                        a.dtype == torch.float32 else a,
+                                        b.view(torch.int32) if
+                                        b.dtype == torch.float32 else b)
+                            for a, b in zip(got, want))
                 ms = chip_smoke.device_ms(run)
                 ok = exact or name in TIME_ONLY
-                rows.append({"shape": row["shape"], "warpgroups": wgs,
-                             "ms": ms, "exact": exact,
+                rows.append({"shape": row["shape"], "mode": mode,
+                             "warpgroups": wgs, "ms": ms, "exact": exact,
                              "tops": row["ops"] / ms / 1e9})
-                totals[wgs] = totals.get(wgs, 0.0) + ms * row["count"]
-                print(f"{name:12s} {str(row['shape']):28s} wgs {wgs!s:4s} "
+                key = (mode, wgs)
+                totals[key] = totals.get(key, 0.0) + ms * row["count"]
+                print(f"{name:12s} {str(row['shape']):28s} {mode:7s} "
+                      f"wgs {wgs!s:4s} "
                       f"{ms:.4f} ms ({row['ops'] / ms / 1e9:.0f} TOP/s), "
                       f"+ pre-pass {ms + row['prep_ms']:.4f} vs _int_mm "
                       f"{row['int_mm_ms']:.4f}; exact {exact} "
@@ -222,7 +272,7 @@ def main(argv=None):
         prep = sum(r[0]["prep_ms"] * r[0]["count"] for r in cases)
         int_mm = sum(r[0]["int_mm_ms"] * r[0]["count"] for r in cases)
         print(f"{name:12s} sums over the 20 convs: " + ", ".join(
-            f"wgs {k} {v:.4f} ms" for k, v in totals.items()) +
+            f"{m} wgs {g} {v:.4f} ms" for (m, g), v in totals.items()) +
             f"; pre-pass {prep:.4f}, _int_mm {int_mm:.4f}", flush=True)
     _build._libs.pop(SOURCE, None)
     print(card)
