@@ -218,8 +218,21 @@ Phases, each failing loudly with a non-zero exit:
       moves the one-rank step 2 from that state, + 1e-3), a
       per-rank-BatchNorm control that must miss the statistics' bound,
       and the one-rank steps on the rows permuted as the witness of how
-      far rounding alone moves step 2. A rank that fails, or ranks that
-      do not finish within MR_JOIN_S, fail the phase;
+      far rounding alone moves step 2; (o6) phase h's LM over {"tp": 4}
+      with SpecLayout's rules (tensor parallelism: attention and FFN
+      column- and row-parallel on each rank's heads and columns, the
+      embedding and head gathered), all 8 rows on every rank: loss,
+      gradients and the weights after one step (and after sync_to_net)
+      against the unsplit one-rank step within o2's bounds, 12 K1 + 12 K2
+      launches a step on route "tc" at (8, 3, 1024, 64), 48 tp
+      all-reduces a step and their bytes, the bytes a rank holds, 10
+      steps losing >= 0.5, step ms; then the same in fp32 (K1 and K2 on
+      "tf32x3"), gradients within 1e-4 of max|grad| of the one-rank fp32
+      step's, and the weights after one step and sync_to_net; (o7) the
+      same over {"fsdp": 2, "tp": 2}, 4 rows a rank, against the one-rank
+      step split into 2 microbatches of 4 rows, K1 / K2 at (4, 6, 1024,
+      64). A rank that fails, or ranks that do not finish within
+      MR_JOIN_S, fail the phase;
   (p) INT8 serving (before phase o): ResNet-18 v1 (224^2 NCHW, 1000
       classes, seeded Xavier) exported, then Predictor(sym_file,
       params_file, quantize="int8", naive calibration on 32 images,
@@ -4577,6 +4590,27 @@ def multirank_references(torch, mx, kernels):
             ref[dtype] = {"loss": loss.item(),
                           "grads": {n: g.cpu() for n, g in grads.items()}}
             if dtype == "bfloat16":
+                # o6's and o7's: the weights after one unsplit step, and a
+                # step split into 2 microbatches of 4 rows as {"fsdp": 2}
+                # splits the batch, from the seeded weights
+                for n_mb in (1, 2):
+                    tr_tp = mx.parallel.ShardedTrainer(
+                        _lm_net(torch, mx),
+                        mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+                        {"learning_rate": LR}, dtype=dtype)
+                    got = {}
+                    if n_mb == 2:
+                        loss2, grads2 = _mean_grads(tr_tp, x, y, 2)
+                        got = {"loss": loss2.item(),
+                               "grads": {n: g.cpu()
+                                         for n, g in grads2.items()}}
+                        del grads2
+                    tr_tp.step(x, y, microbatches=n_mb)
+                    got["params"] = {n: p.cpu()
+                                     for n, p in tr_tp.params.items()}
+                    ref["unsplit" if n_mb == 1 else "split2"] = got
+                    del tr_tp, got
+                    torch.cuda.empty_cache()
                 loss4, grads4 = _mean_grads(tr, x, y, 4)
                 split = {n: rel_err(grads4[n], grads[n]) for n in grads}
                 tr.step(x, y, microbatches=4)
@@ -4591,6 +4625,10 @@ def multirank_references(torch, mx, kernels):
                     f"{loss4.item():.5f}, gradients up to {worst[0]:.2e} of "
                     f"max|grad| from the unsplit step ({worst[1]})")
             else:
+                # o6's fp32 weights: one unsplit step from the seeded ones
+                tr.step(x, y)
+                ref[dtype]["params"] = {n: p.cpu()
+                                        for n, p in tr.params.items()}
                 log(f"[o] references: the one-rank LM step in fp32: loss "
                     f"{loss.item():.5f}")
             del net, tr, grads
@@ -4794,19 +4832,30 @@ def _same_on_every_rank(torch, tensors):
     return all(torch.equal(g, got[0]) for g in got)
 
 
-def _against_unsplit(grads, ref):
-    """(worst ratio of a gradient's error against the unsplit one-rank
-    bf16 step to its bound, the error, the name): the bound is MR_GRAD_TOL
-    or, where the one-rank step's own batch split moves that gradient
-    further, MR_SPLIT_FACTOR times that move plus 1e-3."""
-    split = ref["split"]["split_err"]
+def _grad_bounds(ref):
+    """{name: the bound of a bf16 gradient against a one-rank step}:
+    MR_GRAD_TOL or, where the one-rank step's own batch split moves that
+    gradient further, MR_SPLIT_FACTOR times that move plus 1e-3."""
+    return {n: max(MR_GRAD_TOL, MR_SPLIT_FACTOR * e + 1e-3)
+            for n, e in ref["split"]["split_err"].items()}
+
+
+def _against_bounds(grads, want, bounds):
+    """(worst ratio of a gradient's error against ``want`` to its bound,
+    the error, the name)."""
     out = []
     for n in grads:
-        err = rel_err(_trim_qkv_bias(n, grads[n]), _trim_qkv_bias(
-            n, ref["bfloat16"]["grads"][n].cuda()))
-        bound = max(MR_GRAD_TOL, MR_SPLIT_FACTOR * split[n] + 1e-3)
-        out.append((err / bound, err, n))
+        err = rel_err(_trim_qkv_bias(n, grads[n]),
+                      _trim_qkv_bias(n, want[n].cuda()))
+        out.append((err / bounds[n], err, n))
     return max(out)
+
+
+def _against_unsplit(grads, ref):
+    """(worst ratio of a gradient's error against the unsplit one-rank
+    bf16 step to its bound, the error, the name): :func:`_grad_bounds`."""
+    return _against_bounds(grads, ref["bfloat16"]["grads"],
+                           _grad_bounds(ref))
 
 
 def _lm_parallel(torch, mx, kernels, parallel, rank, ref, axes, rules):
@@ -5007,6 +5056,281 @@ def _lm_ring(torch, mx, kernels, parallel, rank, ref):
     return out
 
 
+# o6 / o7 (tensor parallelism) against the one-rank step split as the
+# batch is: a row-parallel product is summed over the tp ranks from bf16
+# partial products (g), and a column-parallel input's gradient from bf16
+# partial gradients (f), where one rank rounds one product. That moves
+# the bf16 gradients as a batch split does (the LayerNorm gradients most),
+# so each gradient is held to o2's unsplit bound (_grad_bounds), and the
+# loss to MR_LOSS_TOL. Adam's first step moves a weight by +-lr by its
+# gradient's sign, so the weights after one step are compared where the
+# one-rank gradient lies beyond that bound from 0 (the elements whose
+# sign the gradient check vouches for), within MR_GRAD_TOL of max|grad|
+# as o2's; the rest are counted. The fp32 step (o6) is the check of the
+# tp arithmetic: every gradient within SP32_GRAD_TOL of max|grad|, and the
+# weights after one step where the one-rank gradient lies beyond that
+# bound from 0 within o2's bound. Adam's first step is lr g / (|g| +
+# eps / sqrt(1 - beta2)), eps / sqrt(1 - beta2) = 3.2e-7, so a gradient
+# near that size moves its step by ~1e-6 when it moves by 1e-6 of
+# max|grad| (the chip: 1.5e-6); a misplaced shard or a missing update
+# moves a weight by a whole step, lr = 1e-3, far beyond o2's bound.
+TP_SHAPE = {"o6": (BATCH, HEADS // 4, T, UNITS // HEADS),
+            "o7": (BATCH // 2, HEADS // 2, T, UNITS // HEADS)}
+
+
+@contextlib.contextmanager
+def _tp_launch_shapes(kernels):
+    """Within this scope, each K1 and K2 launch appends (kernel, q shape)
+    to the yielded list: spies on the launch functions, whose wrappers
+    count the launches themselves."""
+    shapes = []
+    orig = kernels._launch, kernels._launch_bwd
+
+    def k1(q, *args, **kwargs):
+        shapes.append(("k1", tuple(q.shape)))
+        return orig[0](q, *args, **kwargs)
+
+    def k2(q, *args, **kwargs):
+        shapes.append(("k2", tuple(q.shape)))
+        return orig[1](q, *args, **kwargs)
+
+    kernels._launch, kernels._launch_bwd = k1, k2
+    try:
+        yield shapes
+    finally:
+        kernels._launch, kernels._launch_bwd = orig
+
+
+def _tp_trainer(torch, mx, parallel, axes, dtype):
+    mesh = parallel.create_mesh(axes)
+    net = _lm_net(torch, mx)
+    lay = parallel.SpecLayout.for_mesh(mesh)
+    tr = parallel.ShardedTrainer.for_multihost(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+        {"learning_rate": LR}, axes=axes, backend=MR_BACKEND, dtype=dtype,
+        param_rules=lay.param_rules(), batch_axis_name=lay.batch_axes())
+    per = BATCH // mesh.axis_size(lay.batch_axes())
+    me = mesh.axis_index(lay.batch_axes())
+    return net, tr, slice(me * per, (me + 1) * per)
+
+
+def _sure_weights_err(params, ref_params, ref_grads, bounds):
+    """(max|a - b| over the elements of ``params`` whose one-rank gradient
+    ``ref_grads`` lies beyond its bound (a share of its max|grad|) from
+    0, the count of the other elements)."""
+    worst, left = 0.0, 0
+    for n, p in params.items():
+        g = ref_grads[n].cuda().float().abs()
+        sure = g > bounds[n] * g.max()
+        left += int(sure.numel() - sure.sum().item())
+        if sure.any():
+            worst = max(worst, (p.float() - ref_params[n].cuda())[sure]
+                        .abs().max().item())
+    return worst, left
+
+
+def _spec_bytes(parallel, mesh, net):
+    """The bytes of ``net``'s fp32 parameters that a rank holds under
+    SpecLayout's rules on ``mesh``: each dimension a spec names split over
+    its axes' ranks (the last piece zero-padded)."""
+    rules = [(re.compile(p), s) for p, s in
+             parallel.SpecLayout.for_mesh(mesh).param_rules()]
+    total = 0
+    for name, p in net._param_objects().items():
+        shape = list(p.shape)
+        spec = next((s for pat, s in rules if pat.match(name)), ())
+        for d, e in enumerate(spec):
+            if e is not None:
+                shape[d] = -(-shape[d] // mesh.axis_size(e))
+        total += math.prod(shape) * 4
+    return total
+
+
+def _lm_tp(torch, mx, kernels, parallel, rank, ref, name, axes):
+    """o6 / o7: the LM over ``axes`` with SpecLayout's rules, tensor
+    parallelism over 'tp' (each rank's heads and FFN columns): the
+    gradients at the seeded weights and the weights after one step (and
+    after sync_to_net) against the one-rank step split as the batch is
+    (rank 0 checks; every rank must hold the same weights), K1 / K2 on
+    route "tc" at the tp heads' shape, the tp all-reduces, then steps to
+    10 timed; the bytes a rank holds. o6 also checks the fp32 gradients
+    (route "tf32x3") against the one-rank fp32 step's."""
+    from mxnet_tpu_torch.parallel import collectives
+
+    torch.cuda.reset_peak_memory_stats()
+    net, tr, sl = _tp_trainer(torch, mx, parallel, axes, "bfloat16")
+    checksum = _checksum(torch, net)
+    x, y = lm_batch(torch, BATCH, T, VOCAB)
+    xr, yr = x[sl], y[sl]
+    rows = xr.shape[0]
+    split = ref["unsplit"] if rows == BATCH else ref["split2"]
+    want = ref["bfloat16"] if rows == BATCH else split
+    loss, grads = _mean_grads(tr, xr, yr)
+    out = {"loss": loss.item(), "rows": rows}
+    if rank == 0:
+        bounds = _grad_bounds(ref)
+        out["loss_rel_err"] = abs(loss.item() - want["loss"]) / abs(
+            want["loss"])
+        out["worst_grad"] = _worst_grad(grads, want["grads"])
+        out["bounded"] = _against_bounds(grads, want["grads"], bounds)
+        scale = max(g.abs().max().item() for g in want["grads"].values())
+    del grads
+    losses, step_ms, per_step, stats = [], [], [], []
+    with _tp_launch_shapes(kernels) as shapes:
+        for i in range(TRAIN_STEPS):
+            zero_counts(kernels)
+            collectives.reset_stats()
+            del shapes[:]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(tr.step(xr, yr).item())
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            per_step.append((dict(kernels.flash_attention.launches_by_route),
+                             dict(kernels.flash_attention_backward
+                                  .launches_by_route), sorted(set(shapes))))
+            stats.append(collectives.stats())
+            if i == 0:
+                tr.sync_to_net()
+                synced = {n: p.data() for n, p in
+                          net._param_objects().items()}
+                full = tr._full(tr.params)
+                same = _same_on_every_rank(torch, list(full.values()))
+                if rank == 0:
+                    p_err, left = _sure_weights_err(
+                        full, split["params"], want["grads"], bounds)
+                    s_err, _ = _sure_weights_err(
+                        synced, split["params"], want["grads"], bounds)
+                del full, synced
+    params_b, opt_b = _held_bytes(tr)
+    peak = torch.cuda.max_memory_allocated()
+    spec_b = _spec_bytes(parallel, tr.mesh, net)
+    one_rank = sum(p.data().numel() * 4 for p in net._param_objects()
+                   .values())
+    timed = sorted(step_ms[1:])
+    median = timed[len(timed) // 2]
+    want_k = {"tc": LAYERS, "tf32x3": 0, "simt": 0}
+    want_shapes = [("k1", TP_SHAPE[name]), ("k2", TP_SHAPE[name])]
+    act = rows * T * UNITS * 2            # one bf16 all-reduce's bytes
+    want_tp = {"calls": 2 * LAYERS, "bytes": 2 * LAYERS * act}
+    tp_ok = all(st["tp"].get(k, {}).get("tp") == want_tp
+                for st in stats for k in ("copy_to_tp", "reduce_from_tp"))
+    drop = losses[0] - losses[-1]
+    share = params_b / one_rank
+    ok = (checksum == ref["checksum"] and same and tp_ok
+          and all(math.isfinite(v) for v in losses) and drop >= 0.5
+          and all(a == b == want_k and c == want_shapes
+                  for a, b, c in per_step)
+          and params_b == spec_b and opt_b == 2 * params_b)
+    if rank == 0:
+        ok = ok and (out["loss_rel_err"] <= MR_LOSS_TOL
+                     and out["bounded"][0] <= 1
+                     and max(p_err, s_err) <= MR_GRAD_TOL * scale)
+        against = ("the unsplit one-rank step" if rows == BATCH else
+                   "the one-rank step split into 2 microbatches of "
+                   f"{rows} rows")
+        log(f"[{name}] {axes}, {rows} rows a rank: loss {loss.item():.5f}; "
+            f"against {against}: loss rel {out['loss_rel_err']:.2e} (tol "
+            f"{MR_LOSS_TOL:g}), worst gradient {out['worst_grad'][0]:.2e} "
+            f"of max|grad| in {out['worst_grad'][1]}, at most "
+            f"{out['bounded'][0]:.2f} of its bound ({out['bounded'][1]:.2e} "
+            f"in {out['bounded'][2]}; bound {MR_GRAD_TOL:g}, or "
+            f"{MR_SPLIT_FACTOR:g} x the one-rank split's own move + 1e-3 "
+            f"where larger); weights after one step max|diff| {p_err:.3e}, "
+            f"the net's after sync_to_net {s_err:.3e} (tol {MR_GRAD_TOL:g} "
+            f"x max|grad| {scale:.3e}; {left} of the elements, whose "
+            f"one-rank gradient lies within its bound of 0, left out) "
+            f"{'ok' if ok else 'FAIL'}")
+        out.update(param_max_abs_diff=p_err, synced_max_abs_diff=s_err,
+                   param_tol=MR_GRAD_TOL * scale, weights_left_out=left)
+    last = stats[-1]
+    log(f"[{name}] rank {rank}: seeded weights equal the reference's "
+        f"({checksum == ref['checksum']}), every rank's weights equal after "
+        f"a step ({same}); {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (drop {drop:.4f}, want >= 0.5); K1 / K2 a step "
+        f"{per_step[-1][0]} / {per_step[-1][1]} at {per_step[-1][2]} (want "
+        f"{want_k} at {want_shapes}); tp all-reduces a step: {last['tp']} "
+        f"(want {want_tp} each); median step {median:.1f} ms (host clock; "
+        f"eager; collectives over {MR_BACKEND}, which copies CUDA tensors "
+        f"through host memory); a step: {last['calls']} collectives, "
+        f"{last['bytes_by_kind']} bytes by kind, {last['staged_bytes']} "
+        f"through host memory, {last['seconds'] * 1e3:.1f} ms in them; "
+        f"held: parameters {params_b} bytes ({share:.1%} of one rank's "
+        f"{one_rank}; the specs' shards: {spec_b}), optimizer state "
+        f"{opt_b}; peak allocated {peak / 2 ** 30:.2f} GiB "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"phase {name}: rank {rank} disagrees with the "
+                           "one-rank step or failed its checks")
+    del tr, net
+    torch.cuda.empty_cache()
+    out.update(losses=losses, step_ms=step_ms, median_step_ms=median,
+               tokens_per_s=BATCH * T / (median / 1e3),
+               k1_launches_per_step=per_step[-1][0],
+               k2_launches_per_step=per_step[-1][1],
+               launch_shapes=per_step[-1][2], collectives_per_step=last,
+               param_bytes=params_b, opt_bytes=opt_b,
+               one_rank_param_bytes=one_rank, peak_bytes=peak)
+    if name == "o6":
+        out["float32"] = _lm_tp_fp32(torch, mx, kernels, parallel, rank,
+                                     ref, name, axes)
+    return out
+
+
+def _lm_tp_fp32(torch, mx, kernels, parallel, rank, ref, name, axes):
+    """o6's fp32 check: the loss and gradients of the fp32 LM over
+    ``axes`` (K1 and K2 on route "tf32x3") against the one-rank fp32
+    step's, within SP32_LOSS_TOL and SP32_GRAD_TOL; then one step, and the
+    net's weights after sync_to_net against the one-rank fp32 step's where
+    its gradient lies beyond SP32_GRAD_TOL of max|grad| from 0, within
+    MR_GRAD_TOL of max|grad| (o2's bound)."""
+    net, tr, sl = _tp_trainer(torch, mx, parallel, axes, None)
+    x, y = lm_batch(torch, BATCH, T, VOCAB)
+    zero_counts(kernels)
+    loss, grads = _mean_grads(tr, x[sl], y[sl])
+    k1 = dict(kernels.flash_attention.launches_by_route)
+    k2 = dict(kernels.flash_attention_backward.launches_by_route)
+    want_k = {"tc": 0, "tf32x3": LAYERS, "simt": 0}
+    want = ref["float32"]
+    if rank == 0:
+        loss_err = abs(loss.item() - want["loss"]) / abs(want["loss"])
+        worst = _worst_grad(grads, want["grads"])
+    # the full gradients go before the step: 4 ranks and the parent share
+    # the card, and an fp32 step at 8 rows of 50257 logits needs ~10 GB
+    del grads
+    torch.cuda.empty_cache()
+    tr.step(x[sl], y[sl])
+    tr.sync_to_net()
+    ok = k1 == k2 == want_k
+    out = {"loss": loss.item(), "k1_launches_by_route": k1,
+           "k2_launches_by_route": k2}
+    if rank == 0:
+        scale = max(g.abs().max().item() for g in want["grads"].values())
+        p_err, left = _sure_weights_err(
+            {n: p.data() for n, p in net._param_objects().items()},
+            want["params"], want["grads"],
+            dict.fromkeys(want["grads"], SP32_GRAD_TOL))
+        ok = ok and loss_err <= SP32_LOSS_TOL and \
+            worst[0] <= SP32_GRAD_TOL and p_err <= MR_GRAD_TOL * scale
+        out.update(loss_rel_err=loss_err, worst_grad=worst,
+                   param_max_abs_diff=p_err, weights_left_out=left)
+        log(f"[{name}] fp32 {axes}: loss {loss.item():.6f} vs one-rank "
+            f"{want['loss']:.6f} (rel {loss_err:.2e}, tol "
+            f"{SP32_LOSS_TOL:g}); worst gradient {worst[0]:.2e} of "
+            f"max|grad| in {worst[1]} (tol {SP32_GRAD_TOL:g}); the net's "
+            f"weights after one step and sync_to_net max|diff| {p_err:.3e} "
+            f"(tol {MR_GRAD_TOL:g} x max|grad| {scale:.3e}; {left} "
+            f"elements, whose one-rank gradient lies within "
+            f"{SP32_GRAD_TOL:g} of max|grad| of 0, left out); K1 {k1}, K2 "
+            f"{k2} (want {want_k}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"phase {name}: rank {rank}'s fp32 gradients or "
+                           "routes failed their check")
+    del tr, net
+    torch.cuda.empty_cache()
+    return out
+
+
 def _stat_err(got, ref):
     """max|got - ref| / max(1, max|ref|) of a running statistic."""
     ref = ref.to(got.device).float()
@@ -5117,7 +5441,7 @@ def _resnet_dp(torch, mx, kernels, parallel, rank, ref):
 
 
 def multirank_rank(rank, world):
-    """One rank of phase o (a spawned process): o1-o5 in order, results in
+    """One rank of phase o (a spawned process): o1-o7 in order, results in
     MR_DIR/rank<r>.json. Any failed check raises, which fails the phase."""
     os.environ["MXNET_TPU_TORCH_CAPTURE"] = "0"
     import torch
@@ -5145,6 +5469,10 @@ def multirank_rank(rank, world):
         res["o3"] = _lm_parallel(torch, mx, kernels, parallel, rank, lm_ref,
                                  {"dp": 2, "fsdp": 2}, rules=True)
         res["o4"] = _lm_ring(torch, mx, kernels, parallel, rank, lm_ref)
+        res["o6"] = _lm_tp(torch, mx, kernels, parallel, rank, lm_ref, "o6",
+                           {"tp": MR_RANKS})
+        res["o7"] = _lm_tp(torch, mx, kernels, parallel, rank, lm_ref, "o7",
+                           {"fsdp": 2, "tp": 2})
         del lm_ref
         res["o5"] = _resnet_dp(torch, mx, kernels, parallel, rank,
                                torch.load(os.path.join(MR_DIR,
@@ -5158,12 +5486,23 @@ def multirank_rank(rank, world):
 
 def multirank_phase(torch, mx, kernels):
     """Phase o: the one-rank references here, then MR_RANKS rank processes
-    on this card over a gloo group (o1-o5); fails if any rank fails or the
+    on this card over a gloo group (o1-o7); fails if any rank fails or the
     ranks do not finish within MR_JOIN_S."""
+    import gc
+
     import torch.multiprocessing as mp
 
     torch.cuda.empty_cache()
     whole = multirank_references(torch, mx, kernels)
+    # the ranks share the card with this process: what earlier phases left
+    # in reference cycles (graphs, predictors) goes before they start
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[o] the card before the ranks: {free / 2 ** 30:.1f} of "
+        f"{total / 2 ** 30:.1f} GiB free; this process holds "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} reserved")
     log(f"[o] spawning {MR_RANKS} rank processes on this card: backend "
         f"{MR_BACKEND!r} (chosen: one H100 holds one NCCL rank), "
         f"MXNET_TPU_TORCH_CAPTURE=0 set for them (a CUDA graph cannot hold "
@@ -5219,7 +5558,18 @@ def multirank_phase(torch, mx, kernels):
         f"{o3['param_bytes'] / o2['param_bytes']:.1%} of a {{'dp': 4}} "
         f"rank's parameter bytes and {o3['opt_bytes'] / o2['opt_bytes']:.1%}"
         f" of its optimizer state")
-    log(f"[o] {MR_RANKS} ranks finished o1-o5 in {wall:.1f} s")
+    o6, o7 = ranks[0]["o6"], ranks[0]["o7"]
+    for name, o, axes in (("o6", o6, "{'tp': 4}"),
+                          ("o7", o7, "{'fsdp': 2, 'tp': 2}")):
+        tp_bytes = sum(a["bytes"] for kind in o["collectives_per_step"][
+            "tp"].values() for a in kind.values())
+        log(f"[{name}] a {axes} rank holds "
+            f"{o['param_bytes'] / o2['param_bytes']:.1%} of a {{'dp': 4}} "
+            f"rank's parameter bytes; median step {o['median_step_ms']:.1f} "
+            f"ms beside o2's {o2['median_step_ms']:.1f} and o3's "
+            f"{o3['median_step_ms']:.1f} (eager, gloo); tp all-reduces "
+            f"{tp_bytes} bytes a step")
+    log(f"[o] {MR_RANKS} ranks finished o1-o7 in {wall:.1f} s")
     import shutil
 
     shutil.rmtree(MR_DIR, ignore_errors=True)
@@ -6624,6 +6974,12 @@ def main(argv=None):
             "k1_launches_by_route"],
         "ring_lm_remat_launches_by_route": rank0["o4"]["bfloat16_remat"][
             "k1_launches_by_route"],
+        # phase o6 / o7: a tensor-parallel step's launches on each rank's
+        # heads (every rank launches as many)
+        "tp_launches_per_step": {o: rank0[o]["k1_launches_per_step"]
+                                 for o in ("o6", "o7")},
+        "tp_launch_shapes": {o: rank0[o]["launch_shapes"]
+                             for o in ("o6", "o7")},
         "ring_max_abs_err": ring_err("bfloat16", ("out",)),
         "ring_plain_max_abs_err": ring_err("bfloat16", ("out",),
                                            "plain_errors"),
@@ -6661,6 +7017,8 @@ def main(argv=None):
             "k2_launches_by_route"],
         "ring_lm_launches_by_route": rank0["o4"]["bfloat16"][
             "k2_launches_by_route"],
+        "tp_launches_per_step": {o: rank0[o]["k2_launches_per_step"]
+                                 for o in ("o6", "o7")},
         "ring_max_abs_err": ring_err("bfloat16", ("dq", "dk", "dv")),
         "ring_plain_max_abs_err": ring_err("bfloat16", ("dq", "dk", "dv"),
                                            "plain_errors"),
@@ -6745,6 +7103,8 @@ def main(argv=None):
             "k1_launches_by_route"],
         "ring_lm_launches_by_route": rank0["o4"]["float32"][
             "k1_launches_by_route"],
+        "tp_launches_by_route": rank0["o6"]["float32"][
+            "k1_launches_by_route"],
         "ring_max_abs_err": ring_err("float32", ("out",)),
         "ring_plain_max_abs_err": ring_err("float32", ("out",),
                                            "plain_errors"),
@@ -6775,6 +7135,8 @@ def main(argv=None):
         "ring_launches_by_route": rank0["o1"]["float32_causal"][
             "k2_launches_by_route"],
         "ring_lm_launches_by_route": rank0["o4"]["float32"][
+            "k2_launches_by_route"],
+        "tp_launches_by_route": rank0["o6"]["float32"][
             "k2_launches_by_route"],
         "ring_max_abs_err": ring_err("float32", ("dq", "dk", "dv")),
         "ring_plain_max_abs_err": ring_err("float32", ("dq", "dk", "dv"),

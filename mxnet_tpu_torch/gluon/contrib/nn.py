@@ -12,6 +12,7 @@ from ..block import HybridBlock
 from .. import nn as _nn
 from ...ops import kernels as _kernels
 from ...ops import nn as _ops
+from ...parallel import tensor_parallel as _tp
 
 __all__ = ["MultiHeadAttention", "Remat"]
 
@@ -29,8 +30,10 @@ class Remat(HybridBlock):
     returned, and outside the caller's ``autograd.record()``: so the
     block's tensors as the forward found them are passed in and bound
     again (``torch.func.functional_call``), in the forward's recording
-    and training mode and under its BatchNorm synchronization
-    (``ops.nn.sync_batch_stats``, a multi-rank step's). Tensors that take
+    and training mode, under its BatchNorm synchronization
+    (``ops.nn.sync_batch_stats``, a multi-rank step's) and in its tensor
+    parallelism context (``parallel.tensor_parallel``), so the
+    recomputation issues the same all-reduces. Tensors that take
     no gradient (BatchNorm's running statistics) are bound as copies, and
     only the forward's copies are written back: the recomputation updates
     no running statistic twice.
@@ -45,14 +48,14 @@ class Remat(HybridBlock):
         self._run = checkpointed(self._recorded,
                                  True if policy is None else policy)
 
-    def _recorded(self, training, sync, tensors, first, *args):
+    def _recorded(self, training, sync, tp, tensors, first, *args):
         state = {n: t for n, t in tensors.items() if not t.requires_grad}
         bound = dict(tensors)
         bound.update((n, t.clone()) for n, t in state.items())
         synced = _ops.sync_batch_stats(*sync) if sync is not None \
             else contextlib.nullcontext()
         with autograd._Scope(recording=True, training=bool(training)), \
-                synced:
+                synced, _tp.context(tp):
             out = torch.func.functional_call(self.block, bound, args)
         if first:                       # the forward, not a recomputation
             first.clear()
@@ -64,6 +67,7 @@ class Remat(HybridBlock):
     def forward(self, *args):
         if torch.is_grad_enabled():
             return self._run(autograd.is_training(), _ops.batch_stats_sync(),
+                             _tp.current(),
                              dict(self.block.named_parameters()), [True],
                              *args)
         return self.block(*args)
@@ -86,6 +90,12 @@ class MultiHeadAttention(HybridBlock):
       - 'auto': picks per shape and device (``parallel.attention``): the
         ring where ``mesh`` has an ``sp_axis`` of more than one rank, else
         the flash kernels on CUDA and the dense composition on the CPU
+
+    Inside a tensor parallelism context that names ``qkv_proj``
+    (``ShardedTrainer`` over a 'tp' axis), the block holds this rank's
+    heads: the qkv projection is column-parallel on their head-aligned
+    rows, attention runs on ``num_heads / tp`` heads through the same
+    ``impl``, and the output projection is row-parallel.
     """
 
     def __init__(self, units, num_heads, impl="dense", causal=False,
@@ -110,21 +120,46 @@ class MultiHeadAttention(HybridBlock):
                                       flatten=False, in_units=units,
                                       prefix="out_")
 
-    def forward(self, x):
-        qkv = self.qkv_proj(x)
-        if self._impl == "flash":
-            out = _kernels.flash_attention_qkv(qkv, self._heads,
-                                               causal=self._causal)
-        elif self._impl == "dense":
-            out = _ops.scaled_dot_product_attention(
-                *_kernels._split_qkv(qkv, self._heads), causal=self._causal)
-        else:
-            from ...parallel import ring
+    def _tp_layers(self):
+        """The (column, row) Dense pair that runs tensor-parallel inside
+        a tp context (``parallel.tensor_parallel``), whether the column
+        layer's rows are a qkv projection's, and the width that tp must
+        split."""
+        return [(self.qkv_proj, self.out_proj, True,
+                 ("num_heads", self._heads))]
 
-            out = ring.attention(
-                *_kernels._split_qkv(qkv, self._heads), causal=self._causal,
-                mesh=self._mesh, axis_name=self._sp_axis, impl="auto")
+    def _attend(self, qkv, heads):
+        """O (B, H, L, d) of ``heads`` heads from the packed projection
+        ``qkv`` (B, L, 3 * heads * d)."""
+        if self._impl == "flash":
+            return _kernels.flash_attention_qkv(qkv, heads,
+                                                causal=self._causal)
+        if self._impl == "dense":
+            return _ops.scaled_dot_product_attention(
+                *_kernels._split_qkv(qkv, heads), causal=self._causal)
+        from ...parallel import ring
+
+        return ring.attention(
+            *_kernels._split_qkv(qkv, heads), causal=self._causal,
+            mesh=self._mesh, axis_name=self._sp_axis, impl="auto")
+
+    def forward(self, x):
+        tp = _tp.running(self.qkv_proj)
+        if tp is not None:
+            # this rank's heads: its head-aligned rows of the qkv
+            # projection, its columns of the output projection
+            heads = tp.local(self._heads, "num_heads")
+            qkv = _tp.column_parallel(x, self.qkv_proj.weight,
+                                      self.qkv_proj.bias)
+        else:
+            heads = self._heads
+            qkv = self.qkv_proj(x)
+        out = self._attend(qkv, heads)
         b, h, l, d = out.shape
         # the tensor-core flash kernel writes O as (B, L, H, d) memory, so
         # this merge of the heads is a view there, not a copy
-        return self.out_proj(out.transpose(1, 2).reshape(b, l, h * d))
+        out = out.transpose(1, 2).reshape(b, l, h * d)
+        if tp is not None:
+            return _tp.row_parallel(out, self.out_proj.weight,
+                                    self.out_proj.bias)
+        return self.out_proj(out)

@@ -31,6 +31,7 @@ from .. import nn
 from ..block import HybridBlock
 from ..contrib import nn as contrib_nn
 from ...ops import math as _math
+from ...parallel import tensor_parallel as _tp
 
 __all__ = ["TransformerBlock", "TransformerLM", "transformer_lm",
            "decode_spec", "decode_param_names", "flat_forward",
@@ -38,26 +39,44 @@ __all__ = ["TransformerBlock", "TransformerLM", "transformer_lm",
 
 
 class TransformerBlock(HybridBlock):
-    """One pre-norm decoder block: causal self-attention + GELU MLP."""
+    """One pre-norm decoder block: causal self-attention + GELU MLP.
+
+    Inside a tensor parallelism context that names ``ff1``
+    (``ShardedTrainer`` over a 'tp' axis), the MLP's first layer is
+    column-parallel and its second row-parallel."""
 
     def __init__(self, units, num_heads, impl="dense", mesh=None,
                  sp_axis="sp", **kwargs):
         super().__init__(**kwargs)
+        self._ffn = units * 4
         with self.name_scope():
             self.ln1 = nn.LayerNorm(in_channels=units, prefix="ln1_")
             self.attn = contrib_nn.MultiHeadAttention(
                 units, num_heads, impl=impl, causal=True, mesh=mesh,
                 sp_axis=sp_axis, prefix="attn_")
             self.ln2 = nn.LayerNorm(in_channels=units, prefix="ln2_")
-            self.ff1 = nn.Dense(units * 4, activation="gelu",
+            self.ff1 = nn.Dense(self._ffn, activation="gelu",
                                 flatten=False, in_units=units,
                                 prefix="ff1_")
-            self.ff2 = nn.Dense(units, flatten=False, in_units=units * 4,
+            self.ff2 = nn.Dense(units, flatten=False, in_units=self._ffn,
                                 prefix="ff2_")
+
+    def _tp_layers(self):
+        """The FFN's (column, row) Dense pair, run tensor-parallel inside
+        a tp context (``parallel.tensor_parallel``), and the width that tp
+        must split."""
+        return [(self.ff1, self.ff2, False, ("ffn width", self._ffn))]
 
     def forward(self, x):
         x = x + self.attn(self.ln1(x))
-        return x + self.ff2(self.ff1(self.ln2(x)))
+        tp = _tp.running(self.ff1)
+        if tp is None:
+            return x + self.ff2(self.ff1(self.ln2(x)))
+        # this rank's columns of the hidden layer (gelu is elementwise),
+        # its rows of the second product summed over the tp ranks
+        h = self.ff1.act(_tp.column_parallel(self.ln2(x), self.ff1.weight,
+                                             self.ff1.bias))
+        return x + _tp.row_parallel(h, self.ff2.weight, self.ff2.bias)
 
 
 class TransformerLM(HybridBlock):

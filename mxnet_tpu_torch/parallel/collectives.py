@@ -20,10 +20,13 @@ The transport follows the group's backend and nothing else:
 - A CUDA stream that is capturing a graph can hold no host-side exchange:
   a gloo collective on a CUDA tensor then raises.
 
-:func:`stats` counts calls by kind, the bytes handed to collectives, the
-bytes staged through host buffers (both directions) and the host seconds
-spent in the calls (for NCCL the enqueue; for gloo the whole exchange,
-which blocks).
+:func:`stats` counts calls by kind, the bytes handed to collectives (in
+all and by kind), the bytes staged through host buffers (both
+directions) and the host seconds spent in the calls (for NCCL the
+enqueue; for gloo the whole exchange, which blocks). Under "tp" it also
+counts the all-reduces that tensor parallelism's pair issues:
+:func:`copy_to_tp` in its backward, :func:`reduce_from_tp` in its
+forward, by kind and axes.
 """
 from __future__ import annotations
 
@@ -32,25 +35,32 @@ import time
 import torch
 
 __all__ = ["all_reduce", "all_gather", "reduce_scatter", "broadcast",
-           "ring_shift", "all_reduce_sum_differentiable", "stats",
-           "reset_stats"]
+           "ring_shift", "all_reduce_sum_differentiable", "copy_to_tp",
+           "reduce_from_tp", "stats", "reset_stats"]
 
-_STATS = {"calls": {}, "bytes": 0, "staged_bytes": 0, "seconds": 0.0}
+_STATS = {"calls": {}, "bytes": 0, "bytes_by_kind": {}, "staged_bytes": 0,
+          "seconds": 0.0, "tp": {}}
 
 
 def stats():
-    """{"calls": {kind: n}, "bytes", "staged_bytes", "seconds"} since the
-    last :func:`reset_stats`."""
+    """{"calls": {kind: n}, "bytes", "bytes_by_kind": {kind: bytes},
+    "staged_bytes", "seconds", "tp": {kind: {axes: {"calls", "bytes"}}}}
+    since the last :func:`reset_stats` (``axes`` joined by commas)."""
     return {"calls": dict(_STATS["calls"]), "bytes": _STATS["bytes"],
+            "bytes_by_kind": dict(_STATS["bytes_by_kind"]),
             "staged_bytes": _STATS["staged_bytes"],
-            "seconds": _STATS["seconds"]}
+            "seconds": _STATS["seconds"],
+            "tp": {k: {a: dict(c) for a, c in v.items()}
+                   for k, v in _STATS["tp"].items()}}
 
 
 def reset_stats():
     _STATS["calls"] = {}
     _STATS["bytes"] = 0
+    _STATS["bytes_by_kind"] = {}
     _STATS["staged_bytes"] = 0
     _STATS["seconds"] = 0.0
+    _STATS["tp"] = {}
 
 
 class _counted:
@@ -67,6 +77,8 @@ class _counted:
     def __exit__(self, *exc):
         _STATS["calls"][self.kind] = _STATS["calls"].get(self.kind, 0) + 1
         _STATS["bytes"] += self.nbytes
+        by = _STATS["bytes_by_kind"]
+        by[self.kind] = by.get(self.kind, 0) + self.nbytes
         _STATS["staged_bytes"] += self.staged
         _STATS["seconds"] += time.perf_counter() - self.t0
 
@@ -260,3 +272,66 @@ def all_reduce_sum_differentiable(x, mesh, axes):
     if mesh.group(axes) is None:
         return x
     return _AllReduceSum.apply(x, mesh, axes)
+
+
+def _count_tp(kind, axes, x):
+    """One all-reduce of ``x`` issued by tensor parallelism's ``kind``."""
+    key = ",".join((axes,) if isinstance(axes, str) else axes)
+    c = _STATS["tp"].setdefault(kind, {}).setdefault(
+        key, {"calls": 0, "bytes": 0})
+    c["calls"] += 1
+    c["bytes"] += x.numel() * x.element_size()
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Megatron's *f*: the identity forward; the backward sums the ranks'
+    cotangents (each rank's product with its own rows of a
+    column-parallel weight contributes to the input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        _count_tp("copy_to_tp", ctx.axes, g)
+        return all_reduce(g, ctx.mesh, ctx.axes), None, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Megatron's *g*: the forward sums the ranks' partial products of a
+    row-parallel weight; the backward is the identity (every rank holds
+    the same cotangent of the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        x = x.contiguous().clone()
+        _count_tp("reduce_from_tp", axes, x)
+        return all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to_tp(x, mesh, axes):
+    """``x`` as it is, whose gradient is summed over the ranks along
+    ``axes``: the input of a column-parallel product. The identity outside
+    a group of more than one rank."""
+    if mesh.group(axes) is None:
+        return x
+    return _CopyToTP.apply(x, mesh, axes)
+
+
+def reduce_from_tp(x, mesh, axes):
+    """``x`` summed over the ranks along ``axes``, whose gradient passes
+    through as it is: the output of a row-parallel product. The identity
+    outside a group of more than one rank. Unlike
+    :func:`all_reduce_sum_differentiable` (BatchNorm's moments over other
+    rows), the ranks' cotangents here are equal, and summing them would
+    scale the gradient by the group's size."""
+    if mesh.group(axes) is None:
+        return x
+    return _ReduceFromTP.apply(x, mesh, axes)

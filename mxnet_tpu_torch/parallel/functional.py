@@ -32,6 +32,7 @@ import torch
 
 from .. import autograd
 from ..ops import nn as _nn
+from . import tensor_parallel
 
 __all__ = ["functional_call", "param_arrays", "aux_arrays"]
 
@@ -70,7 +71,7 @@ def _attr_paths(net):
     return paths
 
 
-def functional_call(net, train=False, mesh=None, batch_axes=()):
+def functional_call(net, train=False, mesh=None, batch_axes=(), tp=None):
     """``fn(params, aux, *inputs) -> (outputs, new_aux)``: ``net``'s forward
     with ``params`` and ``aux`` ({name: tensor}, as :func:`param_arrays`
     and :func:`aux_arrays` give them) in place of its own tensors.
@@ -86,6 +87,10 @@ def functional_call(net, train=False, mesh=None, batch_axes=()):
     those axes, differentiably), as ``mxnet_tpu``'s sharded step does, so
     the statistics, their gradient and the running statistics are the
     global batch's.
+
+    ``tp``: a :class:`tensor_parallel.TPContext`, opened around the
+    forward; the layers it names then take this rank's tp shards from
+    ``params`` and run column- and row-parallel.
     """
     paths = _attr_paths(net)
     ranks = 1 if mesh is None else mesh.axis_size(batch_axes)
@@ -95,7 +100,7 @@ def functional_call(net, train=False, mesh=None, batch_axes=()):
         tensors = {paths[k]: v for k, v in pvals.items()}
         tensors.update((paths[k], v) for k, v in new_aux.items())
         with autograd._Scope(recording=torch.is_grad_enabled(),
-                             training=train):
+                             training=train), tensor_parallel.context(tp):
             if train and ranks > 1:
                 from .collectives import all_reduce_sum_differentiable
 

@@ -19,8 +19,9 @@ is a tuple of the same form: one entry per leading dimension, each None
 first match wins, unmatched parameters replicate. On a mesh without 'tp'
 (:meth:`SpecLayout.for_mesh` drops the axes a mesh lacks) the rules name
 only 'fsdp': fully sharded data parallelism. Rules naming 'tp' are
-tensor parallelism, which the port's trainer does not run yet (ROADMAP
-Queue 1 item 6).
+tensor parallelism (:mod:`tensor_parallel`): the trainer runs the
+transformer's projections column- and row-parallel on each rank's shards
+and gathers the embedding and head tables.
 """
 from __future__ import annotations
 

@@ -17,6 +17,16 @@ collectives written out (:mod:`collectives`):
   shard, all-gathered before the forward and their gradients
   reduce-scattered after the backward, then all-reduced over the other
   reduction axes; their optimizer state is sharded with them;
+- over a 'tp' axis (tensor parallelism, :mod:`tensor_parallel`), the
+  transformer's qkv and FFN-up weights and biases split by rows and its
+  attention-output and FFN-down weights by columns, as ``SpecLayout``'s
+  rules ask: a rank holds its tp shard (the qkv rows of its own heads) and
+  computes on it, column- and row-parallel, its gradient the shard's own;
+  a second split of the same tensor over fsdp is storage, gathered and
+  reduce-scattered as above. Any other parameter whose spec names 'tp'
+  (the embedding, the head, an MLP's weight) is held as its shard and
+  all-gathered before the forward; its gradient is equal on the tp ranks,
+  so each keeps its own piece of it, reduced over the batch axes;
 - the functional update of :func:`make_update_fn` in place, on whatever
   each rank holds, with ``lr``, ``wd`` and ``rescale_grad`` as scalars
   (from device slots in a captured step).
@@ -40,23 +50,26 @@ The dtype policy is ``mxnet_tpu``'s (``_make_compute_loss``,
 - aux (BatchNorm's running statistics) stays uncast, and ``new_aux`` is
   cast back to each aux tensor's dtype;
 - the loss is ``loss_fn(out, y).mean()`` over the rank's rows, averaged
-  over the ranks: the global batch's mean, since every rank holds as many
-  rows.
+  over the ranks of the batch axes (and 'sp'): the global batch's mean,
+  since every rank holds as many rows. The tp ranks hold the same rows
+  and the same loss.
 
 The step returns the loss as a 0-d tensor on the device. The net's own
 tensors stay as they were until :meth:`ShardedTrainer.sync_to_net`.
 
-Not ported, and raising where asked for: tensor-parallel ``param_rules``
-(a spec naming 'tp') and mesh axes other than the batch axes and 'sp'
-(ROADMAP Queue 1 item 6); a ``checkpoint_manager``, the pad mask
-``length=``, the step watchdog, fault injection, integrity fingerprints,
-elastic OOM retry, pod recovery and optimizer-state save/load (Queue 1
-item 12).
+Not ported, and raising where asked for: mesh axes of more than one rank
+other than the batch axes, 'sp' and 'tp' ('pp', 'ep'), 'tp' together
+with 'sp', and a spec splitting two dimensions of a parameter outside a
+tensor-parallel layer (ROADMAP Queue 1 item 6); a ``checkpoint_manager``,
+the pad mask ``length=``, the step watchdog, fault injection, integrity
+fingerprints, elastic OOM retry, pod recovery and optimizer-state
+save/load (Queue 1 item 12).
 """
 from __future__ import annotations
 
 import re
 
+import numpy as np
 import torch
 
 from .. import autograd, capture
@@ -67,6 +80,7 @@ from .functional import functional_call, param_arrays, aux_arrays
 from .layout import PartitionSpec
 from .mesh import _torch_device, create_mesh
 from .optim import make_update_fn
+from . import tensor_parallel
 
 __all__ = ["ShardedTrainer", "make_update_fn"]
 
@@ -114,8 +128,9 @@ class ShardedTrainer:
         over 'dp', each on the current context, ``gpu(0)``)
     param_rules : (regex, PartitionSpec) pairs, first match wins,
         unmatched parameters replicate; a spec may name the batch axes
-        only (fsdp, e.g. ``SpecLayout.for_mesh(mesh).param_rules()`` on a
-        mesh without 'tp'), and shard one dimension
+        (fsdp) and 'tp' (e.g. ``SpecLayout.for_mesh(mesh).param_rules()``),
+        and shard one dimension, or two where a tensor-parallel layer
+        computes on the 'tp' one
     batch_axis_name : the mesh axis (or tuple of axes, e.g.
         ``SpecLayout.batch_axes()``) the batch is split over; an axis the
         mesh lacks holds one rank
@@ -144,13 +159,23 @@ class ShardedTrainer:
             a for a in ("sp",) if a in mesh.axis_names
             and a not in self._batch_axes)
         self._multi = mesh.size > 1
+        # 'tp' of more than one rank, outside the batch axes: tensor
+        # parallelism
+        self._tp_axis = "tp" if "tp" not in self._reduce_axes and \
+            mesh.shape.get("tp", 1) > 1 else None
         if self._multi:
             for a in mesh.axis_names:
-                if mesh.shape[a] > 1 and a not in self._reduce_axes:
+                if mesh.shape[a] > 1 and a not in self._reduce_axes \
+                        and a != self._tp_axis:
                     raise _queued(
                         f"mesh axis {a!r} of size {mesh.shape[a]} outside "
-                        "the batch axes and 'sp' (tensor, pipeline or "
-                        "expert parallelism)", 6)
+                        "the batch axes, 'sp' and 'tp' (pipeline or expert "
+                        "parallelism)", 6)
+            if self._tp_axis and mesh.shape.get("sp", 1) > 1:
+                raise _queued(
+                    f"'tp' of size {mesh.shape['tp']} together with 'sp' of "
+                    f"size {mesh.shape['sp']} (tensor and sequence "
+                    "parallelism at once)", 6)
             if not mesh._groups:
                 raise ValueError(
                     f"ShardedTrainer: {mesh} holds no process groups; "
@@ -160,27 +185,31 @@ class ShardedTrainer:
         self.net = net
         self.loss_fn = loss_fn
         self._compute_dtype = None if dtype is None else torch_dtype(dtype)
-        self._fwd = functional_call(net, train=True, mesh=mesh,
-                                    batch_axes=self._batch_axes)
-        if remat is None:
-            remat = mirror_enabled()
-        if remat:
-            self._fwd = checkpointed(self._fwd, remat)
         self._rules = [(re.compile(pat), spec) for pat, spec in param_rules]
         params = {k: v.detach().to(self.device, copy=True)
                   for k, v in param_arrays(net).items()}
         self.aux = {k: v.detach().to(self.device, copy=True)
                     for k, v in aux_arrays(net).items()}
-        self._shards = {k: s for k, s in (
-            (k, self._shard_of(k, v)) for k, v in params.items()) if s}
+        # {name: (dim, qkv)}: the tp shards the tensor-parallel layers
+        # compute on, and the context that names those layers
+        self._tp_split, tp = self._tp_plan(params)
+        self._fwd = functional_call(net, train=True, mesh=mesh,
+                                    batch_axes=self._batch_axes, tp=tp)
+        if remat is None:
+            remat = mirror_enabled()
+        if remat:
+            self._fwd = checkpointed(self._fwd, remat)
         if self._multi:
             # every rank starts from rank 0's values (mxnet_tpu's _place
             # broadcasts them): nets initialized from different streams
             # would otherwise train different replicas
             self._broadcast(list(params.values()) + list(self.aux.values()))
+        local = {k: self._tp_piece(k, v) for k, v in params.items()}
+        self._shards = {k: s for k, s in (
+            (k, self._shard_of(k, v)) for k, v in local.items()) if s}
         self.params = {k: (self._shards[k].piece(
             v, mesh.axis_index(self._shards[k].axes)).clone()
-            if k in self._shards else v) for k, v in params.items()}
+            if k in self._shards else v) for k, v in local.items()}
         self._optimizer = optimizer
         self._optimizer_params = dict(optimizer_params or {})
         init, self._update = make_update_fn(optimizer,
@@ -259,28 +288,107 @@ class ShardedTrainer:
                 return spec
         return PartitionSpec()
 
-    def _shard_of(self, name, value):
-        """The :class:`_Shard` of ``name`` under ``param_rules``, or None
-        where it replicates."""
+    def _spec_dims(self, name):
+        """[(dim, axes)] of ``name``'s spec over axes of more than one
+        rank; raises where it names an axis that is neither a batch axis
+        nor 'tp'."""
         spec = self._spec_for(name)
         dims = [(d, (e,) if isinstance(e, str) else tuple(e))
                 for d, e in enumerate(spec or ()) if e is not None]
         for _, axes in dims:
             for a in axes:
-                if a == "tp":
-                    raise _queued("tensor-parallel param_rules", 6)
-                if a not in self._batch_axes:
+                if a not in self._batch_axes and not (
+                        a == "tp" and a in self.mesh.axis_names):
                     raise ValueError(
                         f"param_rules: {name}'s spec {spec} names {a!r}, "
-                        f"not a batch axis of mesh {self.mesh.shape} "
-                        f"(batch axes {self._batch_axes})")
-        dims = [(d, axes) for d, axes in dims
+                        f"neither a batch axis of mesh {self.mesh.shape} "
+                        f"(batch axes {self._batch_axes}) nor its 'tp'")
+        return [(d, self.mesh._axes(axes)) for d, axes in dims
                 if self.mesh.axis_size(axes) > 1]
+
+    def _tp_plan(self, params):
+        """({name: (dim, qkv)}, context): the parameters that the
+        tensor-parallel layers compute on as tp shards (split along
+        ``dim``; ``qkv``: head-aligned rows), and the
+        :class:`tensor_parallel.TPContext` naming those layers (None
+        without any).
+
+        A block's (column, row) Dense pair (``_tp_layers``: the
+        attention's qkv and output projections, the FFN's two layers) runs
+        over tp where the column weight's spec splits dim 0 over 'tp'
+        alone and the row weight's dim 1, as ``SpecLayout`` has them; the
+        column bias must then split over 'tp' too, and the row bias must
+        not."""
+        tp = self._tp_axis
+        if tp is None:
+            return {}, None
+        split, layers, widths = {}, [], []
+
+        def tp_dim(name):
+            hit = [(d, axes) for d, axes in self._spec_dims(name)
+                   if tp in axes]
+            return hit[0][0] if len(hit) == 1 and hit[0][1] == (tp,) \
+                else None
+
+        for blk in self.net.modules():
+            pairs = getattr(blk, "_tp_layers", None)
+            for col, row, qkv, (what, width) in (pairs() if pairs else ()):
+                cw, rw = (m._reg_params["weight"].name for m in (col, row))
+                if cw not in params or rw not in params or \
+                        tp_dim(cw) != 0 or tp_dim(rw) != 1:
+                    continue
+                widths.append((width, what))
+                split[cw], split[rw] = (0, qkv), (1, False)
+                for m, want in ((col, 0), (row, None)):
+                    p = m._reg_params.get("bias")
+                    if p is None or p.name not in params:
+                        continue
+                    if tp_dim(p.name) != want:
+                        raise ValueError(
+                            f"param_rules: {p.name}'s spec "
+                            f"{self._spec_for(p.name)} must "
+                            + ("split dim 0 over 'tp' alone, as its "
+                               f"weight {cw}'s rows are" if want == 0 else
+                               f"not name 'tp': {rw}'s product is summed "
+                               "over tp before its bias is added"))
+                    if want == 0:
+                        split[p.name] = (0, qkv)
+                layers.append(id(col))
+        if not layers:
+            return {}, None
+        ctx = tensor_parallel.TPContext(self.mesh, tp, layers)
+        for width, what in widths:
+            ctx.local(width, what)
+        return split, ctx
+
+    def _tp_piece(self, name, value):
+        """This rank's tp shard of ``name`` (its full ``value``) where a
+        tensor-parallel layer computes on one, else ``value``."""
+        if name not in self._tp_split:
+            return value
+        dim, qkv = self._tp_split[name]
+        n, i = self.mesh.axis_size(self._tp_axis), \
+            self.mesh.axis_index(self._tp_axis)
+        if qkv:
+            return tensor_parallel.shard_qkv(value, i, n).clone()
+        return value.chunk(n, dim)[i].clone()
+
+    def _shard_of(self, name, value):
+        """The :class:`_Shard` of ``name`` under ``param_rules``, or None
+        where it is held whole. ``value`` is what the forward takes: a
+        tp shard's split over tp is not a _Shard's, only its split over
+        other axes."""
+        spec = self._spec_for(name)
+        dims = self._spec_dims(name)
+        if name in self._tp_split:
+            dims = [(d, axes) for d, axes in dims
+                    if d != self._tp_split[name][0]]
         if not dims:
             return None
         if len(dims) > 1:
             raise _queued("param_rules sharding more than one dimension "
-                          "of a parameter", 6)
+                          "of a parameter outside a tensor-parallel layer",
+                          6)
         (dim, axes), = dims
         if dim >= value.dim():
             raise ValueError(f"param_rules: {name}'s spec {spec} has more "
@@ -324,17 +432,47 @@ class ShardedTrainer:
                 at += n
         return out
 
+    def _local(self, tensors):
+        """``tensors`` ({name: tensor} as the trainer holds them) as the
+        forward takes them: the _Shards all-gathered, the tp shards as
+        they are."""
+        out = dict(tensors)
+        out.update(self._gathered({k: tensors[k] for k in self._shards}))
+        return out
+
     def _full(self, tensors):
-        """``tensors`` ({name: tensor} as the trainer holds them) with the
-        sharded ones all-gathered to their full shapes."""
-        full = dict(tensors)
-        full.update(self._gathered({k: tensors[k] for k in self._shards}))
+        """``tensors`` ({name: tensor} as the trainer holds them) at their
+        full shapes: the _Shards all-gathered, then the tp shards
+        all-gathered over tp (the qkv rows back in the net's order)."""
+        full = self._local(tensors)
+        for k, (dim, qkv) in self._tp_split.items():
+            got = collectives.all_gather(full[k], self.mesh, self._tp_axis,
+                                         dim)
+            full[k] = tensor_parallel.gather_qkv(got.chunk(
+                self.mesh.axis_size(self._tp_axis))) if qkv else got
         return full
+
+    def _pieces_by_row(self, axes):
+        """([[piece index]], batch axes): the pieces of a _Shard over
+        ``axes`` (indexed row-major over them), one row per index along
+        its batch axes (the reduce-scatter's chunks, in their order), each
+        row holding the pieces of every tp index in order. Without 'tp' in
+        ``axes`` a row holds one piece."""
+        live = self.mesh._axes(axes)
+        idx = np.arange(self.mesh.axis_size(live)).reshape(
+            [self.mesh.shape[a] for a in live])
+        if self._tp_axis in live:
+            idx = np.moveaxis(idx, live.index(self._tp_axis), -1)
+        bat = tuple(a for a in live if a != self._tp_axis)
+        return idx.reshape(self.mesh.axis_size(bat), -1).tolist(), bat
 
     def _reduced(self, loss, grads):
         """(global loss, {name: mean gradient}) from this rank's loss and
-        full gradients: the mean over the reduction axes' ranks, each
-        sharded parameter's as its shard."""
+        gradients of what the forward took: the mean over the reduction
+        axes' ranks, each sharded parameter's as its shard. A tp shard's
+        gradient is the shard's own (the tp ranks hold other heads); a
+        parameter gathered over tp has the same gradient on every tp
+        rank, whose piece each keeps."""
         mesh, n = self.mesh, self.mesh.axis_size(self._reduce_axes)
         repl = [k for k in grads if k not in self._shards]
         flat = torch.cat([grads[k].float().reshape(-1) for k in repl]
@@ -352,12 +490,16 @@ class ShardedTrainer:
             by_axes.setdefault(self._shards[k].axes, []).append(k)
         for axes, ks in by_axes.items():
             shards = [self._shards[k] for k in ks]
+            pieces, bat = self._pieces_by_row(axes)
             rows = torch.stack([torch.cat(
                 [sh.piece(grads[k].float(), i).reshape(-1)
-                 for k, sh in zip(ks, shards)]) for i in range(
-                     shards[0].parts)])
-            mine = collectives.reduce_scatter(rows, mesh, axes)[0]
-            rest = tuple(a for a in self._reduce_axes if a not in axes)
+                 for i in row for k, sh in zip(ks, shards)])
+                for row in pieces])
+            mine = collectives.reduce_scatter(rows, mesh, bat)[0]
+            if len(pieces[0]) > 1:      # this rank's tp index's piece
+                mine = mine.view(len(pieces[0]), -1)[
+                    mesh.axis_index(self._tp_axis)]
+            rest = tuple(a for a in self._reduce_axes if a not in bat)
             collectives.all_reduce(mine, mesh, rest)
             mine.div_(n)
             at = 0
@@ -414,7 +556,7 @@ class ShardedTrainer:
         and gradients of this rank's rows, running statistics written back;
         over several ranks, the global loss and mean gradients (shards for
         sharded parameters)."""
-        full = self._full(self.params) if self._multi else self.params
+        full = self._local(self.params) if self._multi else self.params
         if n == 1:
             loss, grads, new_aux = self._loss_and_grads(x, y, full)
             self._write_aux(new_aux)

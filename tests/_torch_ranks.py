@@ -233,25 +233,24 @@ def remat_rank(rank, world, values, x, y, dims):
 
 
 def raises_rank(rank, world, values, dims):
-    """The messages of a multi-rank trainer asked for tensor parallelism
-    (SpecLayout's rules on a mesh with a 'tp' axis, and a 'tp' axis of 2
-    ranks) and for a checkpoint manager."""
+    """The messages of a multi-rank trainer asked for what is not ported:
+    a 'pp' axis of 2 ranks, 'tp' together with 'sp', and a checkpoint
+    manager."""
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch import parallel
 
     net = _lm(values, None, "flash", None, *dims)
     loss = mt.gluon.loss.SoftmaxCrossEntropyLoss()
-    with_tp = _cpu_mesh(world, {"dp": 2, "fsdp": 2, "tp": 1})
-    tp2 = _cpu_mesh(world, {"dp": 2, "tp": 2})
+    pp = _cpu_mesh(world, {"dp": 2, "pp": 2})
+    sp_tp = _cpu_mesh(world, {"sp": 2, "tp": 2})
     cases = {
-        "tp_spec": lambda: parallel.ShardedTrainer(
-            net, loss, "sgd", mesh=with_tp,
-            param_rules=parallel.SpecLayout.for_mesh(with_tp).param_rules(),
-            batch_axis_name=("dp", "fsdp")),
-        "tp_axis": lambda: parallel.ShardedTrainer(net, loss, "sgd",
-                                                   mesh=tp2),
+        "pp_axis": lambda: parallel.ShardedTrainer(net, loss, "sgd",
+                                                   mesh=pp),
+        "sp_tp": lambda: parallel.ShardedTrainer(
+            net, loss, "sgd", mesh=sp_tp,
+            param_rules=parallel.SpecLayout.for_mesh(sp_tp).param_rules()),
         "checkpoint_manager": lambda: parallel.ShardedTrainer(
-            net, loss, "sgd", mesh=with_tp, checkpoint_manager=object()),
+            net, loss, "sgd", mesh=pp, checkpoint_manager=object()),
     }
     out = {}
     for name, make in cases.items():
@@ -267,3 +266,148 @@ def remat_and_raises_rank(rank, world, values, x, y, dims):
     """:func:`remat_rank` and :func:`raises_rank` in one run of ranks."""
     return {"remat": remat_rank(rank, world, values, x, y, dims),
             "raises": raises_rank(rank, world, values, dims)}
+
+
+def _tp_step_runs(world, values, batches, dims, opt, axes, remat=None,
+                  trainer_remat=False):
+    """The LM over ``axes`` with SpecLayout's rules: ``len(batches)``
+    chained steps on this rank's rows; the losses, the net's weights after
+    sync_to_net, the replicated parameters as held, the bytes held per
+    parameter and the collectives of the last step."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.parallel import collectives
+
+    mesh = _cpu_mesh(world, axes)
+    net = _lm(values, mesh, "flash", remat, *dims)
+    lay = parallel.SpecLayout.for_mesh(mesh)
+    tr = parallel.ShardedTrainer(
+        net, mt.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd", dict(opt),
+        mesh=mesh, param_rules=lay.param_rules(),
+        batch_axis_name=lay.batch_axes(), remat=trainer_remat)
+    shards = mesh.axis_size(lay.batch_axes())
+    me = mesh.axis_index(lay.batch_axes())
+    losses = []
+    for x, y in batches:
+        rows = x.shape[0] // shards
+        sl = slice(me * rows, (me + 1) * rows)
+        collectives.reset_stats()
+        losses.append(float(tr.step(x[sl], y[sl])))
+    stats = collectives.stats()
+    tr.sync_to_net()
+    held = tr.params
+    return {"losses": losses,
+            "net": {n: _np(p.data())
+                    for n, p in net._param_objects().items()},
+            "replicated": {k: _np(v) for k, v in held.items()
+                           if k not in tr._shards and k not in tr._tp_split},
+            "held": {k: v.numel() * v.element_size()
+                     for k, v in held.items()},
+            "opt_held": {k: v.numel() * v.element_size()
+                         for k, v in tr.opt_state["state"].items()},
+            "tp_split": sorted(tr._tp_split), "stats": stats}
+
+
+def _tp_mlp_run(world, values, batches, opt, feat, hidden, classes):
+    """The MLP (Dense relu, Dense) with every weight split over 'tp' by
+    rows, over {"dp": 2, "tp": world // 2}: chained steps on this rank's
+    rows; the losses and the weights after sync_to_net."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.gluon import nn
+
+    mesh = _cpu_mesh(world, {"dp": 2, "tp": world // 2})
+    net = nn.HybridSequential(prefix="mlp_")
+    with net.name_scope():
+        net.add(nn.Dense(hidden, activation="relu", in_units=feat,
+                         prefix="d0_"))
+        net.add(nn.Dense(classes, in_units=hidden, prefix="d1_"))
+    net.initialize(ctx=mt.cpu())
+    net.load_numpy_params(values)
+    tr = parallel.ShardedTrainer(
+        net, mt.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd", dict(opt),
+        mesh=mesh, param_rules=[(r".*_weight$",
+                                 parallel.PartitionSpec("tp", None))])
+    me = mesh.axis_index("dp")
+    losses = []
+    for x, y in batches:
+        rows = x.shape[0] // 2
+        losses.append(float(tr.step(x[me * rows:(me + 1) * rows],
+                                    y[me * rows:(me + 1) * rows])))
+    tr.sync_to_net()
+    return {"losses": losses, "shards": sorted(tr._shards),
+            "net": {n: _np(p.data())
+                    for n, p in net._param_objects().items()}}
+
+
+def _tp_products(rank, world, x, w1, b1, w2, b2, dy):
+    """A column-parallel product, gelu, a row-parallel product over
+    {"tp": world} on this rank's rows of w1 and b1 and columns of w2
+    (tensor_parallel's f and g), and the same with g replaced by the
+    BatchNorm all-reduce (whose backward sums the cotangents): the
+    outputs, the gradients of sum(y * dy), and f's and g's counts."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.parallel import collectives, tensor_parallel as tp
+
+    mesh = _cpu_mesh(world, {"tp": world})
+    ctx = tp.TPContext(mesh, "tp", ())
+    out = {}
+    for name in ("g", "all_reduce_sum"):
+        ins = [torch.tensor(a, requires_grad=True) for a in (
+            x, np.split(w1, world)[rank], np.split(b1, world)[rank],
+            np.split(w2, world, axis=1)[rank], b2)]
+        xs, w1r, b1r, w2r, b2s = ins
+        collectives.reset_stats()
+        with tp.context(ctx):
+            h = F.gelu(tp.column_parallel(xs, w1r, b1r), approximate="tanh")
+            if name == "g":
+                y = tp.row_parallel(h, w2r, b2s)
+            else:
+                y = collectives.all_reduce_sum_differentiable(
+                    F.linear(h, w2r), mesh, "tp") + b2s
+        (y * torch.tensor(dy)).sum().backward()
+        out[name] = {"y": _np(y), "grads": [_np(a.grad) for a in ins],
+                     "tp": collectives.stats()["tp"]}
+    return out
+
+
+def tensor_parallel_rank(rank, world, lm, mlp, unit):
+    """The port's tensor parallelism in one run of ranks: the LM's steps
+    over each mesh of ``lm["meshes"]``, with remat over the first; the
+    width that tp does not split; the MLP; f and g on their own."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import parallel
+
+    values, batches, dims, opt = (lm[k] for k in ("values", "batches",
+                                                   "dims", "opt"))
+    out = {"lm": {}}
+    for name, axes in lm["meshes"].items():
+        out["lm"][name] = _tp_step_runs(world, values, batches, dims, opt,
+                                        axes)
+    first = next(iter(lm["meshes"].values()))
+    out["remat"] = {
+        "trainer": _tp_step_runs(world, values, batches, dims, opt, first,
+                                 trainer_remat=True),
+        "blocks": _tp_step_runs(world, values, batches, dims, opt, first,
+                                remat=True)}
+    from mxnet_tpu_torch.gluon.model_zoo import transformer
+
+    # num_heads of world / 2 over tp = world: the trainer refuses it
+    _, units, _, vocab, max_len = dims
+    mesh = _cpu_mesh(world, {"tp": world})
+    narrow = transformer.transformer_lm(
+        vocab=vocab, units=units, num_heads=world // 2, num_layers=1,
+        max_len=max_len, impl="flash", prefix="narrow_")
+    narrow.initialize(ctx=mt.cpu())
+    try:
+        parallel.ShardedTrainer(
+            narrow, mt.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            mesh=mesh,
+            param_rules=parallel.SpecLayout.for_mesh(mesh).param_rules())
+        out["narrow"] = None
+    except ValueError as e:
+        out["narrow"] = str(e)
+    out["mlp"] = _tp_mlp_run(world, *mlp)
+    out["products"] = _tp_products(rank, world, *unit)
+    return out
