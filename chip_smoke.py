@@ -6,6 +6,7 @@
     python3 chip_smoke.py --multirank-only   # build + phase o (4 ranks)
     python3 chip_smoke.py --int8-only        # build + K5's checks, phase p
                                              # and K5's timing
+    python3 chip_smoke.py --amp-only         # build + phase q
 
 Phases, each failing loudly with a non-zero exit:
 
@@ -251,7 +252,26 @@ Phases, each failing loudly with a non-zero exit:
       bitwise equal to those of the same predict with the route rule
       patched to "mma_s8"; images/s at bucket 128 and p50 per bucket for
       fp32 (Symbol-fed), bf16 (Block-fed) and int8; one int8 predict
-      profiled (K5's convs, their pre-pass, requantize, the other ops).
+      profiled (K5's convs, their pre-pass, requantize, the other ops);
+  (q) the training frontend (last): (q1) phase h's LM at GPT-2-small
+      widths with fp32 parameters trained under amp.init("float16") with
+      LAMB (lr 1e-2) and MXNet's recipe (scale_loss, backward, unscale,
+      step), 10 steps on phase h's batch: the loss falls >= 0.5, every
+      step launches 12 K1 + 12 K2 on route "tc" with fp16 q / k / v and
+      none on another route, LayerNorm, log_softmax and the loss's mean
+      return fp32; median step, tokens/s, peak memory, the loss scale's
+      trajectory, one step profiled; (q2) an inf in one gradient: unscale
+      False, weights and LAMB's states bitwise unchanged, the scale
+      halved, the skip counted; (q3) the AMP step's unscaled gradients
+      against the fp32 step's (K1 / K2 on "tf32x3") within 5e-2 of
+      max|grad|, the worst parameter named; (q4) 3 steps under
+      amp.init() (bf16): scale 1.0, K1 / K2 on "tc" in bf16; (q5) 5 LAMB
+      steps, save_states, step 6 from a fresh Trainer with load_states
+      bitwise equal to the uninterrupted step 6; (q6) every optimizer
+      beyond SGD and Adam, gluon and functional, 3 updates of one block's
+      parameters against a CPU copy within 1e-5 of max|w|, and its device
+      ms an update; then K1 and K2 in fp16 at (8, 12, 1024, 64) beside
+      SDPA fp16, their plain versions and the bound.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. ``--summary PATH`` also writes the
@@ -6809,6 +6829,592 @@ def time_fused(torch, q, calls):
     return tot
 
 
+# ------------------------------------------------------------------ phase q
+AMP_STEPS = 10
+# LAMB's rate: each weight matrix moves by lr times its norm a step. At
+# 1e-3 (Adam's rate in phase h) the LM's loss fell only 0.205 in 10 steps
+# on an H100 (PERF.md section 6); 1e-2 moves each matrix by 1 % a step
+AMP_LR = 1e-2
+AMP_GRAD_TOL = 5e-2     # of max|grad|: phase h's bf16 bound (fp16 products)
+AMP_OPT_TOL = 1e-5      # of max|w|: an optimizer on the card vs a CPU copy
+AMP_BF16_STEPS = 3
+AMP_RESUME_STEPS = 5
+# q6: every optimizer beyond SGD and Adam, gluon (create) and functional
+# (parallel.make_update_fn), with the hyper-parameters each is tried with
+AMP_GLUON = (("nag", {"momentum": 0.9}), ("adamw", {"eta": 0.5}),
+             ("adagrad", {}), ("adadelta", {}), ("rmsprop", {}),
+             ("rmsprop", {"centered": True}), ("ftrl", {}), ("adamax", {}),
+             ("nadam", {}), ("signum", {}), ("sgld", {}),
+             ("dcasgd", {"momentum": 0.9}), ("ftml", {}), ("lamb", {}),
+             ("lars", {"momentum": 0.9}), ("lbsgd", {"momentum": 0.9}),
+             ("test", {}))
+AMP_FUNCTIONAL = (("nag", {"momentum": 0.9}), ("adamw", {"eta": 0.5}),
+                  ("ftrl", {}), ("rmsprop", {}),
+                  ("rmsprop", {"centered": True}), ("adagrad", {}),
+                  ("adadelta", {}), ("adamax", {}), ("nadam", {}),
+                  ("ftml", {}), ("signum", {}), ("lamb", {}), ("lars", {}),
+                  ("dcasgd", {"momentum": 0.9}), ("sgld", {}))
+
+
+_Q_FAILED = []
+
+
+def q_check(ok, what):
+    """Note a failed check of phase q; the phase runs its other parts and
+    fails at its end (amp_phase), naming every failure."""
+    if not ok:
+        _Q_FAILED.append(what)
+
+
+@contextlib.contextmanager
+def flash_launch_spy(kernels):
+    """Within this scope each K1 and K2 launch appends (kernel, q shape, q
+    dtype) to the yielded list: spies on the launch functions, whose
+    wrappers count the launches themselves."""
+    seen = []
+    orig = kernels._launch, kernels._launch_bwd
+
+    def k1(q, *args, **kwargs):
+        seen.append(("k1", tuple(q.shape), str(q.dtype)))
+        return orig[0](q, *args, **kwargs)
+
+    def k2(q, *args, **kwargs):
+        seen.append(("k2", tuple(q.shape), str(q.dtype)))
+        return orig[1](q, *args, **kwargs)
+
+    kernels._launch, kernels._launch_bwd = k1, k2
+    try:
+        yield seen
+    finally:
+        kernels._launch, kernels._launch_bwd = orig
+
+
+@contextlib.contextmanager
+def output_dtype_spy():
+    """Within this scope the dtypes LayerNorm, log_softmax (the loss's
+    softmax) and mean (the loss's per-sample mean) return, by op: the op
+    functions replaced by recording wrappers (the layers call them through
+    their module)."""
+    from mxnet_tpu_torch.ops import math as ops_math
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    seen = {}
+    spied = ((ops_nn, "layer_norm"), (ops_nn, "log_softmax"),
+             (ops_math, "mean"))
+    orig = [getattr(m, name) for m, name in spied]
+
+    def wrap(fn, name):
+        def spy(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            seen.setdefault(name, set()).add(str(out.dtype))
+            return out
+        return spy
+
+    for (m, name), fn in zip(spied, orig):
+        setattr(m, name, wrap(fn, name))
+    try:
+        yield seen
+    finally:
+        for (m, name), fn in zip(spied, orig):
+            setattr(m, name, fn)
+
+
+def amp_lm(torch, mx, seed=0):
+    """Phase h's LM at GPT-2-small widths, fp32 parameters, seeded
+    Xavier."""
+    from mxnet_tpu_torch.gluon.model_zoo import transformer
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    net = transformer.transformer_lm(
+        vocab=VOCAB, units=UNITS, num_heads=HEADS, num_layers=LAYERS,
+        max_len=T, impl="flash", prefix="tlm_")
+    net.initialize(mx.init.Xavier(), generator=gen)   # default ctx: gpu(0)
+    return net
+
+
+def amp_backward(mx, net, trainer, loss_fn, x, y):
+    """MXNet's recipe up to the update: the per-sample losses summed (the
+    update divides by the batch), scaled, backward. Returns the batch's
+    mean loss as a 0-d tensor."""
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y).sum()
+    with mx.amp.scale_loss(loss, trainer) as scaled:
+        scaled.backward()
+    return loss.detach() / x.shape[0]
+
+
+def amp_step(mx, net, trainer, loss_fn, x, y):
+    """One step of the recipe: (mean loss tensor, whether the update ran)."""
+    loss = amp_backward(mx, net, trainer, loss_fn, x, y)
+    applied = mx.amp.unscale(trainer)
+    if applied:
+        trainer.step(x.shape[0])
+    return loss, applied
+
+
+def _trim_qkv_bias_grad(torch, name, g):
+    """The key third of attn_qkv_bias has a true gradient of 0 (a bias on
+    every key shifts a row's logits by a constant): both sides hold
+    rounding noise there, so it is left out (as phase i does)."""
+    if name.endswith("attn_qkv_bias"):
+        return torch.cat((g[:UNITS], g[2 * UNITS:]))
+    return g
+
+
+def amp_train(torch, mx, kernels):
+    """q1: the LM trained under AMP fp16 with LAMB (lr 1e-2), 10 steps of
+    the recipe on phase h's batch: the loss falls >= 0.5; every step
+    launches 12 K1 + 12 K2 on route "tc" with fp16 q / k / v and none on
+    another route; LayerNorm, log_softmax and the loss's mean return fp32;
+    the loss scale's trajectory, median step, tokens/s, peak memory; one
+    more step profiled."""
+    net = amp_lm(torch, mx)
+    mx.amp.init("float16")
+    mx.amp.reset_health_stats()
+    trainer = mx.gluon.Trainer(net.collect_params(), "lamb",
+                               {"learning_rate": AMP_LR})
+    mx.amp.init_trainer(trainer)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    x, y = lm_batch(torch, BATCH, T, VOCAB)
+    scaler = trainer._amp_loss_scaler
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    losses, step_ms, scales, per_step, skipped = [], [], [], [], 0
+    with flash_launch_spy(kernels) as seen, output_dtype_spy() as dtypes:
+        for i in range(AMP_STEPS):
+            k1 = dict(kernels.flash_attention.launches_by_route)
+            k2 = dict(kernels.flash_attention_backward.launches_by_route)
+            first = len(seen)
+            t0 = time.perf_counter()
+            loss, applied = amp_step(mx, net, trainer, loss_fn, x, y)
+            losses.append(loss.item())
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            skipped += not applied
+            scales.append(scaler.loss_scale)
+            per_step.append((
+                {r: n - k1[r] for r, n in
+                 kernels.flash_attention.launches_by_route.items()},
+                {r: n - k2[r] for r, n in
+                 kernels.flash_attention_backward.launches_by_route.items()},
+                sorted({(k, d) for k, _, d in seen[first:]})))
+            log(f"[q1] step {i + 1}: loss {losses[-1]:.4f}, "
+                f"{step_ms[-1]:.2f} ms (host clock), scale "
+                f"{scales[-1]:g}{'' if applied else ' (overflow: skipped)'}, "
+                f"K1 {per_step[-1][0]}, K2 {per_step[-1][1]}")
+    k1_by_route = dict(kernels.flash_attention.launches_by_route)
+    k2_by_route = dict(kernels.flash_attention_backward.launches_by_route)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    shapes = sorted({(k, s, d) for k, s, d in seen})
+    timed = sorted(step_ms[1:])
+    median = timed[len(timed) // 2]
+    tokens_per_s = BATCH * T / (median / 1e3)
+    drop = losses[0] - losses[-1]
+    want_route = {"tc": LAYERS, "tf32x3": 0, "simt": 0}
+    want_launch = [("k1", "torch.float16"), ("k2", "torch.float16")]
+    fp32_ops = {op: sorted(d) for op, d in dtypes.items()}
+    ok = (all(math.isfinite(v) for v in losses) and drop >= 0.5
+          and all(a == b == want_route and kinds == want_launch
+                  for a, b, kinds in per_step)
+          and shapes == [("k1", (BATCH, HEADS, T, UNITS // HEADS),
+                          "torch.float16"),
+                         ("k2", (BATCH, HEADS, T, UNITS // HEADS),
+                          "torch.float16")]
+          and fp32_ops == {"layer_norm": ["torch.float32"],
+                           "log_softmax": ["torch.float32"],
+                           "mean": ["torch.float32"]})
+    log(f"[q1] {AMP_STEPS} AMP fp16 LAMB steps (lr {AMP_LR:g}): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (drop {drop:.4f}, want >= "
+        f"0.5); median step {median:.2f} ms over steps 2-{AMP_STEPS} (host "
+        f"clock, profiler off), {tokens_per_s:.1f} tokens/s, peak "
+        f"{peak_gib:.2f} GiB allocated; loss scale {scales} ({skipped} "
+        f"skipped); K1 {k1_by_route}, K2 {k2_by_route} (want {LAYERS} + "
+        f"{LAYERS} on 'tc' a step); launches {shapes}; output dtypes "
+        f"{fp32_ops} {'ok' if ok else 'FAIL'}")
+    q_check(ok, "q1: the AMP training step failed its checks")
+    torch.cuda.synchronize()
+    fb = profile_window(torch, lambda: amp_backward(
+        mx, net, trainer, loss_fn, x, y), "one AMP step's forward + "
+        "backward", "q1", ("flash_fwd", "flash_bwd"), top=12)
+    upd = profile_window(torch, lambda: (mx.amp.unscale(trainer),
+                                         trainer.step(BATCH)),
+                         "one AMP step's unscale + LAMB update", "q1",
+                         ("foreach", "elementwise", "vectorized"))
+    groups = step_breakdown(fb["all"])
+    groups["unscale + LAMB update (all its kernels)"] = (
+        upd["device_busy_ms"], upd["launches"])
+    busy = fb["device_busy_ms"] + upd["device_busy_ms"]
+    wall = fb["wall_ms"] + upd["wall_ms"]
+    log(f"[q1] one step profiled: device busy {busy:.3f} ms of {wall:.3f} "
+        f"ms wall ({busy / wall:.1%}; profiler on); by group:")
+    for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"[q1]   {ms:9.3f} ms  x{n:<5d} {group} ({ms / busy:.1%})")
+    out = {"losses": losses, "step_ms": step_ms, "median_step_ms": median,
+           "tokens_per_s": tokens_per_s, "peak_gib": peak_gib,
+           "loss_scales": scales, "skipped": skipped,
+           "k1_launches": sum(k1_by_route.values()),
+           "k1_launches_by_route": k1_by_route,
+           "k2_launches": sum(k2_by_route.values()),
+           "k2_launches_by_route": k2_by_route,
+           "launch_shapes": [list(s) for s in shapes],
+           "output_dtypes": fp32_ops,
+           "profile": {"forward_backward": {k: fb[k] for k in (
+               "wall_ms", "device_busy_ms", "launches", "top")},
+               "update": {k: upd[k] for k in (
+                   "wall_ms", "device_busy_ms", "launches", "top")},
+               "groups": {g: {"ms": ms, "launches": n}
+                          for g, (ms, n) in groups.items()}}}
+    return out, (net, trainer, loss_fn, x, y)
+
+
+def _state_tensors(trainer):
+    return [t for st in trainer._updater.states.values()
+            for t in (st if isinstance(st, tuple) else (st,))
+            if t is not None]
+
+
+def amp_overflow(torch, mx, net, trainer, loss_fn, x, y):
+    """q2: an inf put into one gradient of a step: unscale says False, the
+    weights and LAMB's states are bitwise as they were, the scale halves,
+    the skip is counted."""
+    scaler = trainer._amp_loss_scaler
+    amp_backward(mx, net, trainer, loss_fn, x, y)
+    params = net._param_objects()
+    name = next(iter(params))
+    params[name].grad().view(-1)[7] = float("inf")
+    weights = {n: t.clone() for n, t in net.collect_params().items()}
+    states = [t.clone() for t in _state_tensors(trainer)]
+    scale, skips = scaler.loss_scale, mx.amp.health_stats()
+    applied = mx.amp.unscale(trainer)
+    if applied:
+        trainer.step(x.shape[0])
+    torch.cuda.synchronize()
+    same_w = all(torch.equal(t, weights[n])
+                 for n, t in net.collect_params().items())
+    same_s = all(torch.equal(a, b)
+                 for a, b in zip(_state_tensors(trainer), states))
+    after = mx.amp.health_stats()
+    ok = (not applied and same_w and same_s
+          and scaler.loss_scale == scale / 2
+          and after["health_skipped_steps"] ==
+          skips["health_skipped_steps"] + 1
+          and after["amp_overflow_skips"] == skips["amp_overflow_skips"] + 1)
+    log(f"[q2] inf in {name}'s gradient: unscale {applied} (want False), "
+        f"weights bitwise unchanged {same_w}, {len(states)} LAMB states "
+        f"bitwise unchanged {same_s}, scale {scale:g} -> "
+        f"{scaler.loss_scale:g}, skips {skips} -> {after} "
+        f"{'ok' if ok else 'FAIL'}")
+    q_check(ok, "q2: the overflow step was not skipped cleanly")
+    del weights, states
+    return {"param": name, "scale_before": scale,
+            "scale_after": scaler.loss_scale, "skips": after}
+
+
+def amp_vs_fp32(torch, mx, kernels, net, trainer, loss_fn, x, y):
+    """q3: one AMP fp16 step's gradients, unscaled, against the fp32 step's
+    (K1 / K2 on "tf32x3", phase m's routes) on the same weights and batch:
+    each parameter within 5e-2 of its max|grad| (phase h's bf16 bound)."""
+    def grads():
+        return {n: p.grad().detach().clone()
+                for n, p in net._param_objects().items()}
+
+    mx.amp.reset()
+    zero_counts(kernels)
+    with mx.autograd.record():
+        loss32 = loss_fn(net(x), y).sum()
+    loss32.backward()
+    g32 = grads()
+    routes32 = (dict(kernels.flash_attention.launches_by_route),
+                dict(kernels.flash_attention_backward.launches_by_route))
+    mx.amp.init("float16")
+    scale = trainer._amp_loss_scaler.loss_scale
+    loss16 = amp_backward(mx, net, trainer, loss_fn, x, y)
+    g16 = {n: g / scale for n, g in grads().items()}
+    errs = sorted(((rel_err(_trim_qkv_bias_grad(torch, n, g16[n]),
+                            _trim_qkv_bias_grad(torch, n, g32[n])), n)
+                   for n in g32), reverse=True)
+    loss_err = abs(loss16.item() - loss32.item() / x.shape[0]) / abs(
+        loss32.item() / x.shape[0])
+    finite = all(bool(torch.isfinite(g).all()) for g in g16.values())
+    ok = finite and errs[0][0] <= AMP_GRAD_TOL and \
+        routes32[0]["tf32x3"] == routes32[1]["tf32x3"] == LAYERS
+    log(f"[q3] AMP fp16 gradients (unscaled by {scale:g}) vs fp32 (K1 / K2 "
+        f"{routes32}): loss rel {loss_err:.2e}; worst {errs[0][0]:.3e} of "
+        f"max|grad| in {errs[0][1]} (tol {AMP_GRAD_TOL:g}, phase h's bf16 "
+        f"bound), next {[(f'{e:.2e}', n) for e, n in errs[1:4]]} "
+        f"{'ok' if ok else 'FAIL'}")
+    q_check(ok, "q3: AMP gradients disagree with fp32")
+    net.zero_grad()
+    return {"worst": errs[0][0], "worst_param": errs[0][1],
+            "loss_rel": loss_err, "scale": scale,
+            "fp32_routes": routes32}
+
+
+def amp_bf16(torch, mx, kernels, net, loss_fn, x, y):
+    """q4: 3 steps of the recipe under amp.init() (bf16): the scale stays
+    1.0 and K1 / K2 run on "tc" with bf16 q / k / v."""
+    mx.amp.init()
+    trainer = mx.gluon.Trainer(net.collect_params(), "lamb",
+                               {"learning_rate": AMP_LR})
+    mx.amp.init_trainer(trainer)
+    zero_counts(kernels)
+    losses, scales = [], []
+    with flash_launch_spy(kernels) as seen:
+        for _ in range(AMP_BF16_STEPS):
+            loss, applied = amp_step(mx, net, trainer, loss_fn, x, y)
+            losses.append(loss.item())
+            scales.append(trainer._amp_loss_scaler.loss_scale)
+    kinds = sorted({(k, d) for k, _, d in seen})
+    k1 = dict(kernels.flash_attention.launches_by_route)
+    k2 = dict(kernels.flash_attention_backward.launches_by_route)
+    want = {"tc": LAYERS * AMP_BF16_STEPS, "tf32x3": 0, "simt": 0}
+    ok = (all(math.isfinite(v) for v in losses) and scales ==
+          [1.0] * AMP_BF16_STEPS and k1 == k2 == want
+          and kinds == [("k1", "torch.bfloat16"), ("k2", "torch.bfloat16")])
+    log(f"[q4] {AMP_BF16_STEPS} AMP bf16 steps: losses "
+        f"{[round(v, 4) for v in losses]}, scale {scales}, K1 {k1}, K2 {k2},"
+        f" launches {kinds} {'ok' if ok else 'FAIL'}")
+    q_check(ok, "q4: the bf16 AMP steps failed their checks")
+    return {"losses": losses, "scales": scales, "k1_launches_by_route": k1,
+            "k2_launches_by_route": k2}
+
+
+def amp_resume(torch, mx, net, loss_fn, x, y):
+    """q5: 5 LAMB steps of the fp16 recipe, save_states, step 6; then the
+    weights after step 5 again, a fresh Trainer with load_states, step 6:
+    bitwise equal to the uninterrupted run's step 6."""
+    mx.amp.init("float16")
+    path = os.path.join(ROOT, "_amp_states", "trainer.states")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    trainer = mx.gluon.Trainer(net.collect_params(), "lamb",
+                               {"learning_rate": AMP_LR})
+    mx.amp.init_trainer(trainer)
+    scaler = trainer._amp_loss_scaler
+    for _ in range(AMP_RESUME_STEPS):
+        amp_step(mx, net, trainer, loss_fn, x, y)
+    trainer.save_states(path)
+    # the loss scale's own save and load is ROADMAP Queue 1 item 12: it
+    # is carried by hand, as a resumed run must
+    saved_scale = (scaler.loss_scale, scaler._unskipped)
+    after5 = {n: t.clone() for n, t in net.collect_params().items()}
+    amp_step(mx, net, trainer, loss_fn, x, y)
+    want = {n: t.clone() for n, t in net.collect_params().items()}
+    for n, p in net._param_objects().items():
+        p.set_data(after5[n])
+    fresh = mx.gluon.Trainer(net.collect_params(), "lamb",
+                             {"learning_rate": AMP_LR})
+    mx.amp.init_trainer(fresh)
+    scaler.loss_scale, scaler._unskipped = saved_scale
+    fresh.load_states(path)
+    amp_step(mx, net, fresh, loss_fn, x, y)
+    torch.cuda.synchronize()
+    diff = [n for n, t in net.collect_params().items()
+            if not torch.equal(t, want[n])]
+    size = os.path.getsize(path)
+    import shutil
+
+    shutil.rmtree(os.path.dirname(path))
+    ok = not diff and fresh.optimizer.num_update == AMP_RESUME_STEPS + 1
+    log(f"[q5] resumed step {AMP_RESUME_STEPS + 1} from save_states "
+        f"({size} bytes) and a fresh Trainer: {len(want) - len(diff)} of "
+        f"{len(want)} parameters bitwise equal to the uninterrupted run's "
+        f"{'ok' if ok else 'FAIL ' + str(diff[:3])}")
+    q_check(ok, "q5: the resumed step differs")
+    del after5, want
+    return {"bytes": size, "params": len(trainer._params)}
+
+
+def _block_copies(torch, net):
+    """Block 0's 12 parameters: (name, card tensor, CPU float32 copy)."""
+    block = next(iter(net.blocks))
+    return [(n, t.detach().clone(), t.detach().float().cpu())
+            for n, t in block.collect_params().items()]
+
+
+def _sweep_grads(torch, shapes, step):
+    gen = torch.Generator().manual_seed(1000 + step)
+    return [torch.randn(s, generator=gen) * 1e-2 for s in shapes]
+
+
+def _normal_from_cpu(torch):
+    """An SGLD noise source that gives the card and the CPU the same
+    draws: the k-th call draws from a CPU generator seeded with k, moved to
+    the weight's device."""
+    calls = [0]
+
+    def normal(like, std, generator):
+        calls[0] += 1
+        gen = torch.Generator().manual_seed(calls[0])
+        noise = torch.randn(like.shape, generator=gen, dtype=like.dtype)
+        return noise.to(like.device) * std
+    return normal
+
+
+def _optimizer_sweep(torch, mx, kind, name, kw, ws):
+    """One update of the weights ``ws`` by the optimizer ``name``: a gluon
+    Optimizer's update_group over them, or a functional update."""
+    from mxnet_tpu_torch import parallel
+
+    if kind == "gluon":
+        opt = mx.optimizer.create(name, **kw)
+        up = mx.optimizer.get_updater(opt)
+        states = [up.state(i, w) for i, w in enumerate(ws)]
+
+        def sweep(gs):
+            scal = [opt._scalars(i) for i in range(len(ws))]
+            opt.update_group(ws, gs, states, scal, 1.0)
+        return sweep
+    init, update = parallel.make_update_fn(name, dict(kw))
+    pd = {str(i): w for i, w in enumerate(ws)}
+    st = init(pd)
+
+    def sweep(gs):
+        update(pd, {str(i): g for i, g in enumerate(gs)}, st)
+    return sweep
+
+
+def graph_ms(torch, fn):
+    """Device ms of one call of ``fn`` captured as a CUDA graph and
+    replayed back to back (device_ms): for launch-bound work, whose
+    kernels one at a time leave device_ms's queue dry. None (logged) if
+    ``fn`` cannot be captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    except RuntimeError as e:
+        log(f"[q6] capture refused: {str(e)[:120]} (not measured)")
+        return None
+    ms = device_ms(graph.replay)
+    del graph
+    return ms
+
+
+def amp_optimizers(torch, mx, net):
+    """q6: every optimizer beyond SGD and Adam, gluon and functional, 3
+    updates of block 0's parameters on the card against the same updates
+    of a CPU copy (the same gradients; SGLD's noise drawn on the CPU for
+    both), within 1e-5 of max|w| (fp32); the device ms of one update of
+    the 12 parameters (SGLD drawing its noise on the card), replayed from
+    a CUDA graph."""
+    from mxnet_tpu_torch.optimizer import optimizer as optim_mod
+
+    mx.amp.reset()
+    rows, worst = [], (0.0, "")
+    orig_normal = optim_mod._normal
+    for kind, table in (("gluon", AMP_GLUON), ("functional", AMP_FUNCTIONAL)):
+        for name, kw in table:
+            kw = dict(kw, learning_rate=kw.get("learning_rate", 0.01))
+            copies = _block_copies(torch, net)
+            shapes = [c[2].shape for c in copies]
+            finals = []
+            try:
+                for side in (1, 2):             # the card, then the CPU
+                    optim_mod._normal = _normal_from_cpu(torch)
+                    ws = [c[side] for c in copies]
+                    sweep = _optimizer_sweep(torch, mx, kind, name, kw, ws)
+                    for step in range(3):
+                        gs = _sweep_grads(torch, shapes, step)
+                        sweep([g.cuda() for g in gs] if side == 1 else gs)
+                    finals.append(ws)
+            finally:
+                optim_mod._normal = orig_normal
+            err = max(float((a.float().cpu() - b).abs().max()) /
+                      max(float(b.abs().max()), 1e-30)
+                      for a, b in zip(*finals))
+            sweep = _optimizer_sweep(torch, mx, kind, name, kw, finals[0])
+            gs = [g.cuda() for g in _sweep_grads(torch, shapes, 9)]
+            ms = graph_ms(torch, lambda: sweep(gs))
+            rows.append({"kind": kind, "name": name, "params": kw,
+                         "err": err, "ms": ms})
+            worst = max(worst, (err, f"{kind} {name}"))
+            took = "not measured" if ms is None else f"{ms:.4f} ms device"
+            log(f"[q6] {kind} {name} {kw}: card vs CPU after 3 updates "
+                f"{err:.2e} of max|w|, one update of block 0's 12 "
+                f"parameters {took} (a CUDA graph of it replayed) "
+                f"{'ok' if err <= AMP_OPT_TOL else 'FAIL'}")
+    ok = worst[0] <= AMP_OPT_TOL
+    log(f"[q6] {len(rows)} optimizer runs on the card against the CPU: "
+        f"worst {worst[0]:.2e} of max|w| ({worst[1]}; tol {AMP_OPT_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    q_check(ok, "q6: an optimizer disagrees with its CPU copy")
+    return {"runs": rows, "worst": worst[0], "worst_run": worst[1]}
+
+
+def time_flash_fp16(torch, kernels):
+    """K1 and K2 in fp16 at the LM's shape (8, 12, 1024, 64), causal, on
+    contiguous q, k, v (route "tc"), in device time beside SDPA fp16 on the
+    same inputs (forward; backward alone), their plain versions and the
+    16-bit bound."""
+    import torch.nn.functional as F
+
+    shape = (BATCH, HEADS, T, UNITS // HEADS)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v, out, lse, dout, _ = bwd_inputs(
+        torch, kernels, gen, shape, torch.float16, "contiguous", True, 0, 0,
+        False)
+    fwd_ms = device_ms(lambda: kernels.flash_attention(q, k, v, causal=True))
+    bwd_ms = device_ms(lambda: kernels.flash_attention_backward(
+        q, k, v, out, lse, dout, causal=True))
+    fwd_plain = device_ms(lambda: kernels.flash_attention_reference(
+        q, k, v, causal=True, return_lse=True), n=5)
+    bwd_plain = device_ms(lambda: kernels.flash_attention_backward_reference(
+        q, k, v, out, lse, dout, causal=True), n=3)
+    fwd_lib = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    o_sdpa = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    bwd_lib = device_ms(lambda: torch.autograd.grad(
+        o_sdpa, leaves, dout, retain_graph=True))
+    fb, nb = attention_work(*shape, True, 2)
+    f_bound, f_by = bound(fb, nb)
+    bb, bn = attention_bwd_work(*shape, True, 2)
+    b_bound, b_by = bound(bb, bn)
+    log(f"[q] flash_attn_fwd_tc fp16 {shape} causal: kernel {fwd_ms:.4f} ms "
+        f"device, SDPA fp16 {fwd_lib:.4f} ms ({fwd_ms / fwd_lib:.2f}x), "
+        f"plain {fwd_plain:.4f} ms, bound {f_bound:.4f} ms by {f_by} "
+        f"({f_bound / fwd_ms:.1%} of it)")
+    log(f"[q] flash_attn_bwd_tc fp16 {shape} causal: kernel {bwd_ms:.4f} ms "
+        f"device, SDPA fp16 backward {bwd_lib:.4f} ms "
+        f"({bwd_ms / bwd_lib:.2f}x), plain {bwd_plain:.4f} ms, bound "
+        f"{b_bound:.4f} ms by {b_by} ({b_bound / bwd_ms:.1%} of it)")
+    return {"k1": {"ms": fwd_ms, "library_ms": fwd_lib, "plain_ms": fwd_plain,
+                   "bound_ms": f_bound, "bound_by": f_by},
+            "k2": {"ms": bwd_ms, "library_ms": bwd_lib, "plain_ms": bwd_plain,
+                   "bound_ms": b_bound, "bound_by": b_by}}
+
+
+def amp_phase(torch, mx, kernels):
+    """Phase q: the training frontend on the card (AMP, the loss scaler,
+    LAMB, Trainer states, every optimizer beyond SGD and Adam), then K1 /
+    K2 in fp16 timed. AMP is off again at its end."""
+    _Q_FAILED.clear()
+    try:
+        train, (net, trainer, loss_fn, x, y) = amp_train(torch, mx, kernels)
+        overflow = amp_overflow(torch, mx, net, trainer, loss_fn, x, y)
+        vs_fp32 = amp_vs_fp32(torch, mx, kernels, net, trainer, loss_fn, x,
+                              y)
+        bf16 = amp_bf16(torch, mx, kernels, net, loss_fn, x, y)
+        resume = amp_resume(torch, mx, net, loss_fn, x, y)
+        optimizers = amp_optimizers(torch, mx, net)
+    finally:
+        mx.amp.reset()
+    del net, trainer
+    torch.cuda.empty_cache()
+    timing = time_flash_fp16(torch, kernels)
+    if _Q_FAILED:
+        raise SystemExit("phase q: " + "; ".join(_Q_FAILED))
+    return {"train": train, "overflow": overflow, "vs_fp32": vs_fp32,
+            "bf16": bf16, "resume": resume, "optimizers": optimizers,
+            "fp16_timing": timing}
+
+
 def library_ms(fn, what):
     """device_ms of a library call, or None (logged) where the library
     refuses the call."""
@@ -6832,6 +7438,9 @@ def main(argv=None):
     ap.add_argument("--int8-only", action="store_true",
                     help="build, then run K5's checks, phase p and K5's "
                          "timing only")
+    ap.add_argument("--amp-only", action="store_true",
+                    help="build, then run phase q (AMP, optimizers, "
+                         "Trainer states) only")
     args = ap.parse_args(argv)
     if args.summary:
         GRAPH_DIR.append(os.path.join(
@@ -6880,6 +7489,11 @@ def main(argv=None):
         time_k5(torch, q, int8.pop("predictor"), int8.pop("x"))
         log("[int8-only] K5's checks, phase p and K5's timing passed")
         return 0
+    if args.amp_only:
+        amp_phase(torch, mx, kernels)
+        log("[amp-only] phase q passed")
+        log(card)
+        return 0
     checks, slice_err, slice_err32 = check_flash(torch, kernels)
     bwd_checks, bwd_slice_err, bwd_slice_err32 = check_flash_bwd(torch,
                                                                  kernels)
@@ -6917,6 +7531,8 @@ def main(argv=None):
     k5_timing = time_k5(torch, q, int8.pop("predictor"), int8.pop("x"))
     multirank = multirank_phase(torch, mx, kernels)
     rank0 = multirank["per_rank"][0]
+    amp = amp_phase(torch, mx, kernels)
+    amp_train_run, fp16 = amp["train"], amp["fp16_timing"]
 
     def ring_err(dtype, parts, key="errors"):
         """The ring's largest error (of max|whole-sequence call|, or with
@@ -6991,7 +7607,14 @@ def main(argv=None):
         "ring_k1_k2_bound_ms": multirank["whole_sequence_ms"]["bfloat16"][
             "bound"][0],
         "ring_library_ms": multirank["whole_sequence_ms"]["bfloat16"][
-            "sdpa_ms"]}, {
+            "sdpa_ms"],
+        # phase q1: the AMP fp16 step's launches, 12 a step on "tc" with
+        # fp16 q / k / v; fp16 times at the LM's shape
+        "amp_fp16_launches": amp_train_run["k1_launches"],
+        "amp_fp16_launches_by_route": amp_train_run["k1_launches_by_route"],
+        "fp16_ms": fp16["k1"]["ms"], "fp16_plain_ms": fp16["k1"]["plain_ms"],
+        "fp16_bound_ms": fp16["k1"]["bound_ms"],
+        "fp16_library_ms": fp16["k1"]["library_ms"]}, {
         "name": "flash_attn_bwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_bwd_tc.cu",
         "sources": k2_sources,
@@ -7025,7 +7648,12 @@ def main(argv=None):
         "whole_sequence_k2_ms": multirank["whole_sequence_ms"][
             "bfloat16"]["k2_ms"],
         "whole_sequence_plain_k2_ms": multirank["whole_sequence_ms"][
-            "bfloat16"]["plain_k2_ms"]}, {
+            "bfloat16"]["plain_k2_ms"],
+        "amp_fp16_launches": amp_train_run["k2_launches"],
+        "amp_fp16_launches_by_route": amp_train_run["k2_launches_by_route"],
+        "fp16_ms": fp16["k2"]["ms"], "fp16_plain_ms": fp16["k2"]["plain_ms"],
+        "fp16_bound_ms": fp16["k2"]["bound_ms"],
+        "fp16_library_ms": fp16["k2"]["library_ms"]}, {
         "name": "conv3x3_bn_stats", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/conv3x3_bn_stats_tc.cu",
         "sources": k3_sources,
@@ -7292,7 +7920,7 @@ def main(argv=None):
                        "write_timing": write_timing,
                        "multirank": multirank,
                        "k5_checks": k5_checks, "int8": int8,
-                       "k5_timing": k5_timing,
+                       "k5_timing": k5_timing, "amp": amp,
                        **record}, f,
                       indent=1)
     log(card)

@@ -50,11 +50,12 @@ from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import autograd, optimizer, ops, gluon, serving  # noqa: F401
 from . import lr_scheduler, metric, parallel, capture  # noqa: F401
-from . import symbol, executor, io, contrib, ndarray  # noqa: F401
+from . import symbol, executor, io, contrib, ndarray, amp  # noqa: F401
 from . import symbol as sym  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
            "initializer", "init", "autograd", "optimizer", "ops", "gluon",
            "serving", "lr_scheduler", "metric", "parallel", "capture",
-           "symbol", "sym", "executor", "io", "contrib", "ndarray", "nd"]
+           "symbol", "sym", "executor", "io", "contrib", "ndarray", "nd",
+           "amp"]

@@ -1,5 +1,6 @@
-"""Recording and training scopes, and backward (subset of
-``mxnet_tpu/autograd.py``; parity: python/mxnet/autograd.py).
+"""Recording and training scopes, backward, ``grad``, ``mark_variables``
+and custom ``Function``s (port of ``mxnet_tpu/autograd.py``; parity:
+python/mxnet/autograd.py).
 
 The tape is PyTorch's own. :func:`record` makes the thread record (torch
 grad mode on) and, by default, train; :func:`pause` stops recording. As in
@@ -20,7 +21,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["is_recording", "is_training", "set_recording", "set_training",
-           "record", "pause", "train_mode", "predict_mode", "backward"]
+           "record", "pause", "train_mode", "predict_mode", "backward",
+           "grad", "mark_variables", "Function"]
 
 _STATE = threading.local()
 
@@ -106,3 +108,116 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     grads = [torch.ones_like(h) if g is None else g
              for h, g in zip(heads, head_grads)]
     torch.autograd.backward(heads, grads, retain_graph=retain_graph)
+
+
+def mark_variables(variables, gradients, grad_reqs="write"):
+    """Make ``variables`` (tensors) leaves whose gradients a backward
+    writes into ``gradients`` (same shapes), by ``grad_reqs`` ('write'
+    overwrites, 'add' accumulates; one for all or one each)
+    (``mxnet_tpu/autograd.py:128-133``). The buffers are the tensors'
+    ``.grad``: autograd adds into them in place, and for 'write' a hook
+    zeroes the buffer first."""
+    if isinstance(variables, torch.Tensor):
+        variables, gradients = [variables], [gradients]
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for v, g, req in zip(variables, gradients, grad_reqs):
+        if req not in ("write", "add", "null"):
+            raise ValueError(f"grad_req must be write, add or null, got "
+                             f"{req!r}")
+        v.requires_grad_(req != "null")
+        if req == "null":
+            continue
+        v.grad = g
+        if req == "write":
+            v.register_hook(_zero_buffer(v, g))
+
+
+def _zero_buffer(v, buf):
+    def hook(grad):
+        # runs before autograd adds ``grad`` into ``v.grad`` (= buf)
+        if v.grad is buf:
+            buf.zero_()
+    return hook
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """Gradients of ``heads`` with respect to ``variables``, returned as a
+    list and written into no ``.grad`` (``mxnet_tpu/autograd.py:239-303``).
+    ``create_graph=True`` records the gradient computation, so a
+    gradient of the result (second order) can be taken; ``retain_graph``
+    defaults to ``create_graph``."""
+    heads = [heads] if isinstance(heads, torch.Tensor) else list(heads)
+    variables = [variables] if isinstance(variables, torch.Tensor) \
+        else list(variables)
+    if head_grads is None:
+        head_grads = [None] * len(heads)
+    elif isinstance(head_grads, torch.Tensor):
+        head_grads = [head_grads]
+    grads = [torch.ones_like(h) if g is None else g
+             for h, g in zip(heads, head_grads)]
+    if retain_graph is None:
+        retain_graph = create_graph
+    with torch.enable_grad() if create_graph else torch.no_grad():
+        return list(torch.autograd.grad(heads, variables, grads,
+                                        retain_graph=retain_graph,
+                                        create_graph=create_graph))
+
+
+class _FunctionBridge(torch.autograd.Function):
+    """Runs a :class:`Function`'s ``forward`` and ``backward`` as one node
+    of torch's tape."""
+
+    @staticmethod
+    def forward(ctx, fn, *inputs):
+        ctx.fn = fn
+        with _Scope(recording=False):
+            outs = fn.forward(*inputs)
+        fn._single = not isinstance(outs, (list, tuple))
+        return outs if fn._single else tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *out_grads):
+        with _Scope(recording=False):
+            igs = ctx.fn.backward(*out_grads)
+        igs = [igs] if isinstance(igs, torch.Tensor) else list(igs)
+        return (None, *igs)
+
+
+class Function:
+    """A differentiable function with a hand-written gradient
+    (``mxnet_tpu/autograd.py:309-371``; parity: autograd.Function):
+    subclass it, write ``forward(*inputs)`` and ``backward(*out_grads)``
+    (one gradient per input), keep what backward needs with
+    :meth:`save_for_backward` and read it from ``saved_tensors``. Called
+    inside :func:`record`, it is one node of the tape; forward and
+    backward themselves run unrecorded."""
+
+    def __init__(self):
+        self._saved = None
+        self._single = True
+
+    def save_for_backward(self, *args):
+        self._saved = args
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *out_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        if is_recording() and torch.is_grad_enabled() and any(
+                isinstance(x, torch.Tensor) and x.requires_grad
+                for x in inputs):
+            outs = _FunctionBridge.apply(self, *inputs)
+        else:
+            with _Scope(recording=False):
+                outs = self.forward(*inputs)
+            return outs
+        return outs if self._single else list(outs)

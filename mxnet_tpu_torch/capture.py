@@ -48,8 +48,12 @@ node list, which :meth:`CapturedExec.debug_dump` writes out.
 
 Not ported: the AOT compile cache. A CUDA graph cannot be written to disk,
 so ``MXNET_TPU_TORCH_COMPILE_CACHE`` raises ``NotImplementedError``
-(ROADMAP Queue 1 item 4). The sentinel, loss scaler, numerics tap and
-integrity fingerprint wait for their modules (Queue 1 items 5 and 12).
+(ROADMAP Queue 1 item 4). The sentinel, numerics tap and integrity
+fingerprint wait for their modules (Queue 1 item 12). The AMP loss scaler
+inside a captured step (its all-finite flag computed in the graph and
+noted with ``LossScaler.note_finite``) is Queue 1 item 4: a gluon trainer
+with a loss scaler attached (``amp.init_trainer``) raises
+:class:`CaptureError` rather than run with its scaler ignored.
 """
 from __future__ import annotations
 
@@ -544,6 +548,7 @@ class CapturedTrainerStep:
         return a if a.device == self.device else a.to(self.device)
 
     def __call__(self, x, y, batch_size=None):
+        _no_loss_scaler(self.trainer)
         _STATS["capture_steps"] += 1
         x, y = self._as_tensor(x), self._as_tensor(y)
         bs = batch_size if batch_size is not None else (
@@ -596,6 +601,15 @@ class CapturedShardedStep:
         return self.trainer.mesh
 
 
+def _no_loss_scaler(trainer):
+    if getattr(trainer, "_amp_loss_scaler", None) is not None:
+        raise CaptureError(
+            "capture: this trainer has an AMP loss scaler attached "
+            "(amp.init_trainer); a captured step that checks the gradients "
+            "for overflow in the graph is ROADMAP Queue 1 item 4. Run the "
+            "step eagerly (amp.scale_loss, amp.unscale, trainer.step)")
+
+
 def capture(trainer, net=None, loss_fn=None, **kwargs):
     """A captured training step: ``capture(sharded_trainer)`` gives a
     :class:`CapturedShardedStep`, ``capture(trainer, net=net,
@@ -610,4 +624,5 @@ def capture(trainer, net=None, loss_fn=None, **kwargs):
         raise CaptureError(
             "capture(gluon_trainer) needs net= and loss_fn= (the step "
             "program is forward + backward + update, not just the update)")
+    _no_loss_scaler(trainer)
     return CapturedTrainerStep(net, loss_fn, trainer, **kwargs)

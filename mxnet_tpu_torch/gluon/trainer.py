@@ -6,10 +6,12 @@ to reduce, so :meth:`Trainer.step` is :meth:`Trainer.update` with
 ``rescale_grad = scale / batch_size``. ``ignore_stale_grad`` is accepted
 and, as in ``mxnet_tpu``, changes nothing: every parameter whose
 ``grad_req`` is not "null" is updated from its gradient buffer (zeros if
-no backward wrote it). Multi-device kvstores, optimizer state save/load,
-and ``mxnet_tpu``'s step watchdog, health sentinel, fault hooks and trace
-spans (``mxnet_tpu/gluon/trainer.py:111-200``) wait for the sharding,
-resilience and observability slices (ROADMAP Queue 1).
+no backward wrote it). Multi-device kvstores, and ``mxnet_tpu``'s step
+watchdog, health sentinel, fault hooks and trace spans
+(``mxnet_tpu/gluon/trainer.py:111-200``) wait for the sharding, resilience
+and observability slices (ROADMAP Queue 1). The optimizer's states and
+update counts save and load as ``mxnet_tpu``'s bytes
+(:meth:`Trainer.save_states`, :meth:`Trainer.load_states`).
 
 The update sweep (``mxnet_tpu/gluon/trainer.py:202-244``) is one
 multi-tensor op over every trainable parameter (``ops/optimizer_ops.py``),
@@ -20,6 +22,8 @@ the sweep takes them as Python floats or, in a captured step
 (:func:`mxnet_tpu_torch.capture.capture`), as device slots holding them.
 """
 from __future__ import annotations
+
+import os
 
 from .. import optimizer as opt
 from ..base import MXNetError
@@ -100,9 +104,10 @@ class Trainer:
                 if p.grad_req != "null"]
 
     def _scalars(self):
-        """This step's scalars as Python floats: ``rescale_grad``, then
-        ``lr`` and ``wd`` of each trainable parameter in sweep order. Each
-        parameter's update count advances, as its eager update does."""
+        """This step's scalars as Python floats: ``rescale_grad``, then the
+        optimizer's ``n_scalars`` scalars (``lr``, ``wd``, ...) of each
+        trainable parameter in sweep order. Each parameter's update count
+        advances, as its eager update does."""
         optim = self._optimizer
         out = [optim.rescale_grad]
         for i in self._active():
@@ -113,11 +118,61 @@ class Trainer:
         """The update sweep with the scalars ``scal`` of :meth:`_scalars`:
         those floats, or device slots holding them."""
         active = self._active()
-        if len(scal) != 1 + 2 * len(active):
+        k = self._optimizer.n_scalars
+        if len(scal) != 1 + k * len(active):
             raise ValueError(f"{len(scal)} scalars for {len(active)} "
                              "trainable parameters")
         weights = [self._params[i].data() for i in active]
         grads = [self._params[i].grad() for i in active]
         states = [self._updater.state(i, w) for i, w in zip(active, weights)]
-        self._optimizer.update_group(weights, grads, states, list(scal[1::2]),
-                                     list(scal[2::2]), scal[0])
+        per = [tuple(scal[1 + k * j:1 + k * (j + 1)])
+               for j in range(len(active))]
+        self._optimizer.update_group(weights, grads, states, per, scal[0])
+
+    def get_states_bytes(self):
+        """The optimizer's states and update counts as ``mxnet_tpu``'s
+        bytes (``mxnet_tpu/gluon/trainer.py:246-253``)."""
+        return self._updater.get_states()
+
+    def set_states_bytes(self, states):
+        """Read :meth:`get_states_bytes`' bytes, or ``mxnet_tpu``'s
+        (``mxnet_tpu/gluon/trainer.py:255-264``); each state moves to its
+        parameter's device at its first update."""
+        self._updater.set_states(states)
+        self._optimizer.param_dict = dict(enumerate(self._params))
+
+    def save_states(self, fname):
+        """Write the trainer's states to ``fname`` atomically: a temporary
+        file beside it, fsync, rename (``mxnet_tpu/gluon/trainer.py:
+        266-272``), so a crash never leaves a truncated file."""
+        atomic_write_bytes(fname, self.get_states_bytes())
+
+    def load_states(self, fname):
+        """Read the states :meth:`save_states` (or ``mxnet_tpu``) wrote."""
+        with open(fname, "rb") as f:
+            self.set_states_bytes(f.read())
+
+
+def atomic_write_bytes(path, data):
+    """Crash-safe write: a temporary file in the same directory, flushed
+    and fsynced, renamed over ``path``, then the directory fsynced (port
+    of ``mxnet_tpu/resilience/checkpoint.py:166-188``)."""
+    path = os.fspath(path)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    fd = os.open(os.path.dirname(path) or ".", os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)

@@ -6,11 +6,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..amp.amp import cast_op
 from ..base import torch_dtype
 from .registry import register
 
 __all__ = ["embedding", "pick", "sum", "mean", "arange", "transpose",
-           "space_to_depth"]
+           "space_to_depth", "log", "exp", "square", "norm"]
 
 
 def embedding(data, weight):
@@ -56,16 +57,39 @@ def _axes(data, axis, exclude):
     return ax
 
 
+@cast_op("sum")
 def sum(data, axis=None, keepdims=False, exclude=False):  # noqa: A001
     """Sum over ``axis`` (``mxnet_tpu/ops/math.py:186-189``)."""
     axes = _axes(data, axis, exclude)
     return torch.sum(data, dim=axes, keepdim=keepdims) if axes else data
 
 
+@cast_op("mean")
 def mean(data, axis=None, keepdims=False, exclude=False):
     """Mean over ``axis`` (``mxnet_tpu/ops/math.py:199-201``)."""
     axes = _axes(data, axis, exclude)
     return torch.mean(data, dim=axes, keepdim=keepdims) if axes else data
+
+
+@cast_op("log")
+def log(data):
+    return torch.log(data)
+
+
+@cast_op("exp")
+def exp(data):
+    return torch.exp(data)
+
+
+@cast_op("square")
+def square(data):
+    return data * data
+
+
+@cast_op("norm")
+def norm(data, axis=None, keepdims=False):
+    """The L2 norm over ``axis`` (all axes when None)."""
+    return torch.linalg.vector_norm(data, dim=axis, keepdim=keepdims)
 
 
 def arange(start, stop=None, step=1, dtype="float32", device=None):

@@ -17,17 +17,19 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from ..amp.amp import cast_op
 from ..base import torch_dtype
 from .registry import register
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
            "sync_batch_stats", "batch_stats_sync", "layer_norm",
            "activation", "leaky_relu", "softmax", "log_softmax", "flatten",
-           "scaled_dot_product_attention"]
+           "scaled_dot_product_attention", "ctc_loss"]
 
 _NEG = -1e30
 
 
+@cast_op("FullyConnected")
 def fully_connected(data, weight, bias=None, flatten=True):
     """``data @ weight.T + bias`` with weight ``(num_hidden, in)``
     (parity: fully_connected-inl.h; ``mxnet_tpu/ops/nn.py:34-45``)."""
@@ -61,6 +63,7 @@ def _torch_pad(pads):
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
+@cast_op("Convolution")
 def convolution(data, weight, bias=None, kernel=None, stride=None,
                 dilate=None, pad=None, num_filter=None, num_group=1,
                 no_bias=False, layout=None):
@@ -175,6 +178,7 @@ def batch_stats_sync():
     return getattr(_BN_SYNC, "sync", None)
 
 
+@cast_op("BatchNorm")
 def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                momentum=0.9, fix_gamma=True, use_global_stats=False,
                axis=1, _train=True):
@@ -226,6 +230,7 @@ def flatten(data):
     return data.reshape(data.shape[0], -1)
 
 
+@cast_op("LayerNorm")
 def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
     """Normalise over the last axis with the population variance
     (``mxnet_tpu/ops/nn.py:282-293``)."""
@@ -270,6 +275,7 @@ def _softmax_input(data, temperature):
     return data / temperature if temperature else data
 
 
+@cast_op("softmax")
 def softmax(data, axis=-1, temperature=None, dtype=None):
     """Softmax over ``axis``, after dividing by ``temperature`` if given
     (``mxnet_tpu/ops/nn.py:362-366``); cast to ``dtype`` if given."""
@@ -277,6 +283,7 @@ def softmax(data, axis=-1, temperature=None, dtype=None):
     return out.to(torch_dtype(dtype)) if dtype else out
 
 
+@cast_op("log_softmax")
 def log_softmax(data, axis=-1, temperature=None, dtype=None):
     """Log-softmax over ``axis`` (``mxnet_tpu/ops/nn.py:369-373``)."""
     out = torch.log_softmax(_softmax_input(data, temperature), dim=axis)
@@ -319,6 +326,65 @@ def scaled_dot_product_attention(q, k, v, mask=None, causal=False,
         logits = logits.masked_fill(~mask.to(torch.bool), _NEG)
     w = torch.softmax(logits, dim=-1)
     return torch.matmul(w, v)
+
+
+@cast_op("CTCLoss")
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             use_data_lengths=False, use_label_lengths=False,
+             blank_label="first"):
+    """Connectionist temporal classification loss, one value per sequence
+    (``mxnet_tpu/ops/nn.py:519-567``; parity: ctc_loss.cc): ``data`` (T,
+    N, C) scores (the blank among the C classes: first or last), ``label``
+    (N, L) ids, padded with the blank ("first") or -1 ("last"). The
+    log-alpha recursion over the extended label sequence (blanks between
+    and around the labels), with -1e30 for log 0, as the reference."""
+    t_len, n, _ = data.shape
+    blank = 0 if blank_label == "first" else data.shape[2] - 1
+    logp = torch.log_softmax(data, dim=-1)
+    lab = label.to(torch.int64)
+    ext_len = 2 * lab.shape[1] + 1
+    ext = torch.full((n, ext_len), blank, dtype=torch.int64,
+                     device=data.device)
+    ext[:, 1::2] = lab
+    if use_label_lengths and label_lengths is not None:
+        lab_lens = label_lengths.to(torch.int64)
+    else:
+        pad = blank if blank_label == "first" else -1
+        lab_lens = (lab != pad).sum(dim=1)
+    if use_data_lengths and data_lengths is not None:
+        dat_lens = data_lengths.to(torch.int64)
+    else:
+        dat_lens = torch.full((n,), t_len, dtype=torch.int64,
+                              device=data.device)
+    # padding ids (-1) sit past each row's extended length, which no read
+    # reaches; any valid class stands in for them
+    gather_ix = ext.clamp(0, data.shape[2] - 1)
+    prev2 = torch.full_like(ext, -1)
+    prev2[:, 2:] = ext[:, :-2]
+    can_skip = (ext != prev2) & (ext != blank)
+    # the alphas are float32 whatever the scores' dtype, as the reference's
+    neg = torch.full((n, 1), _NEG, dtype=torch.float32, device=data.device)
+    alpha = torch.full((n, ext_len), _NEG, dtype=torch.float32,
+                       device=data.device)
+    first = torch.gather(logp[0], 1, gather_ix[:, :2]).float()
+    alpha = torch.cat([first, alpha[:, 2:]], dim=1)
+    alphas = [alpha]
+    for t in range(1, t_len):
+        p = torch.gather(logp[t], 1, gather_ix)
+        a1 = torch.cat([neg, alpha[:, :-1]], dim=1)
+        a2 = torch.cat([neg, neg, alpha[:, :-2]], dim=1)
+        a2 = torch.where(can_skip, a2, torch.full_like(a2, _NEG))
+        alpha = torch.logaddexp(torch.logaddexp(alpha, a1), a2) + p
+        alphas.append(alpha)
+    all_alphas = torch.stack(alphas)                      # (T, N, ext)
+    t_idx = (dat_lens - 1).clamp(0, t_len - 1)
+    final = all_alphas[t_idx, torch.arange(n, device=data.device)]
+    ext_lens = 2 * lab_lens + 1
+    last1 = torch.gather(final, 1, (ext_lens - 1).clamp(
+        0, ext_len - 1)[:, None])[:, 0]
+    last2 = torch.gather(final, 1, (ext_lens - 2).clamp(
+        0, ext_len - 1)[:, None])[:, 0]
+    return -torch.logaddexp(last1, last2)
 
 
 # ------------------------------------------------- ops under their MXNet names
@@ -380,3 +446,11 @@ def _flatten_op(data):
 @register("softmax")
 def _softmax_op(data, axis=-1, temperature=None, dtype=None):
     return softmax(data, axis=axis, temperature=temperature, dtype=dtype)
+
+
+@register("CTCLoss", aliases=("ctc_loss",))
+def _ctc_loss_op(data, label, data_lengths=None, label_lengths=None,
+                 use_data_lengths=False, use_label_lengths=False,
+                 blank_label="first"):
+    return ctc_loss(data, label, data_lengths, label_lengths,
+                    use_data_lengths, use_label_lengths, blank_label)

@@ -1,6 +1,3 @@
-"""Optimizers (subset of ``mxnet_tpu/optimizer``)."""
-from .optimizer import (Optimizer, SGD, Adam, Updater, create,  # noqa: F401
-                        get_updater, register)
-
-__all__ = ["Optimizer", "SGD", "Adam", "Updater", "create", "get_updater",
-           "register"]
+"""Optimizers (port of ``mxnet_tpu/optimizer``)."""
+from .optimizer import *  # noqa: F401,F403
+from .optimizer import __all__  # noqa: F401

@@ -31,9 +31,9 @@ import contextlib
 import threading
 
 import torch
-import torch.nn.functional as F
 
 from . import collectives
+from ..ops import nn as _nn
 
 __all__ = ["TPContext", "context", "current", "running", "column_parallel",
            "row_parallel", "shard_qkv", "gather_qkv"]
@@ -100,16 +100,19 @@ def column_parallel(x, w, b=None):
     this rank's columns of the output. ``x`` passes *f* first, so its
     gradient is the sum over the tp ranks."""
     ctx = _required()
-    return F.linear(collectives.copy_to_tp(x, ctx.mesh, ctx.axis), w, b)
+    return _nn.fully_connected(collectives.copy_to_tp(x, ctx.mesh, ctx.axis),
+                               w, b, flatten=False)
 
 
 def row_parallel(x, w, b=None):
     """``x @ w.T`` on this rank's columns ``w`` (out, in / tp) and of
     ``x``, summed over the tp ranks by *g*, then ``+ b`` (replicated,
-    added once)."""
+    added once; under AMP in the product's dtype, as the unsplit
+    ``FullyConnected`` adds it)."""
     ctx = _required()
-    y = collectives.reduce_from_tp(F.linear(x, w), ctx.mesh, ctx.axis)
-    return y if b is None else y + b
+    y = collectives.reduce_from_tp(_nn.fully_connected(x, w, flatten=False),
+                                   ctx.mesh, ctx.axis)
+    return y if b is None else y + b.to(y.dtype)
 
 
 def shard_qkv(full, rank, tp):

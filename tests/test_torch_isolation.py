@@ -39,6 +39,12 @@ def test_no_source_imports_jax_or_the_jax_package():
     sources = _port_sources()
     assert {"torch_k1_variants.py", "torch_k3_variants.py"} <= {
         os.path.basename(p) for p in sources}
+    # the training frontend's modules, the amp package among them
+    assert {os.path.join("amp", f) for f in (
+        "__init__.py", "amp.py", "lists.py", "loss_scaler.py")} | {
+        "optimizer/optimizer.py", "parallel/optim.py", "gluon/loss.py",
+        "gluon/trainer.py", "metric.py", "autograd.py"} <= {
+        os.path.relpath(p, PKG) for p in sources}
     offenders = []
     for path in sources:
         with open(path) as f:
@@ -74,6 +80,21 @@ def test_imports_and_runs_with_jax_and_mxnet_tpu_blocked():
         with torch.inference_mode():
             logits = cnn(torch.rand(1, 3, 32, 32))
         assert logits.shape == (1, 4) and torch.isfinite(logits).all()
+        # the training frontend: an AMP fp16 LAMB step, saved states
+        import io, pickle
+        mt.amp.init("float16")
+        tr = mt.gluon.Trainer(net.collect_params(), "lamb")
+        mt.amp.init_trainer(tr)
+        with mt.autograd.record():
+            loss = mt.gluon.loss.SoftmaxCrossEntropyLoss()(
+                net(torch.randint(0, 32, (2, 8))),
+                torch.randint(0, 32, (2, 8))).mean()
+        with mt.amp.scale_loss(loss, tr) as scaled:
+            scaled.backward()
+        assert mt.amp.unscale(tr)
+        tr.step(2)
+        assert pickle.loads(tr.get_states_bytes())["__update_counts__"]
+        mt.amp.reset()
         leaked = [n for n in sys.modules
                   if n == "jax" or n.startswith("jax.")
                   or n == "mxnet_tpu" or n.startswith("mxnet_tpu.")]

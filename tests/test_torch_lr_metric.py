@@ -166,6 +166,8 @@ def test_metric_registry_and_unported_names():
     m.update(None, None)
     assert m.get() == ("half", 0.5)
     with pytest.raises(mt.MXNetError, match="not registered"):
-        tmetric.create("f1")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tmetric.create(lambda label, pred: 0.0)
+        tmetric.create("bleu")
+    custom = tmetric.create(lambda label, pred: 0.25)
+    assert isinstance(custom, tmetric.CustomMetric)
+    custom.update([np.zeros(2)], [np.zeros(2)])
+    assert custom.get() == ("custom(<lambda>)", 0.25)
