@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --quick    # build + kernel checks (phase b) only
+    python3 chip_smoke.py --module-only   # build + phase r (mx.nd, Module)
     python3 chip_smoke.py --multirank-only   # build + phase o (4 ranks)
     python3 chip_smoke.py --int8-only        # build + K5's checks, phase p
                                              # and K5's timing
@@ -271,7 +272,33 @@ Phases, each failing loudly with a non-zero exit:
       beyond SGD and Adam, gluon and functional, 3 updates of one block's
       parameters against a CPU copy within 1e-5 of max|w|, and its device
       ms an update; then K1 and K2 in fp16 at (8, 12, 1024, 64) beside
-      SDPA fp16, their plain versions and the bound.
+      SDPA fp16, their plain versions and the bound;
+  (r) the imperative and Module front end (last): (r1)
+      examples/train_mnist.py's configuration through mx.mod.Module with
+      no context (gpu(0)): its mlp() (784 -> 128 -> 64 -> 10,
+      SoftmaxOutput) on its synthetic set (3584 / 512), batch 128, SGD lr
+      0.05 momentum 0.9, Xavier, 5 epochs, Speedometer(128, 50),
+      validation accuracy >= 0.9; the same fit with shuffle off from one
+      set of initial parameters on gpu(0) and on cpu(), every parameter
+      within 1e-4 of max|w|; ms an epoch and samples/s (host clock); one
+      fit batch profiled; (r2) ResNet-18 v1 (224^2, fp32, 1000 classes)
+      exported, loaded as a Symbol with a SoftmaxOutput head and bound by
+      Module for training at batch 32: one forward_backward against the
+      Gluon Block under autograd.record() with SoftmaxCrossEntropyLoss
+      summed (every gradient within 1e-3 of max|grad|, BatchNorm's moving
+      statistics within 1e-5), then 5 Module steps beside 5 Gluon steps;
+      (r3) an mx.nd battery of every op family on gpu(0) against cpu(),
+      mx.nd.scaled_dot_product_attention(impl='flash') at (8, 12, 1024,
+      64) bf16 under autograd.record(): exactly one K1 and one K2 launch
+      on route "tc", no plain version, output and dq / dk / dv bitwise
+      equal to the direct Function, the same through a Symbol bound by
+      simple_bind; mx.random.seed's repeat and 9 samplers' mean and
+      variance over 1e6 draws within 5 standard errors; host us a call of
+      three mx.nd ops beside the torch calls; (r4) the 'local' and
+      'device' kvstores: push of 4 values and pull, bitwise their sum in
+      list order; set_optimizer's update bitwise the Updater's; optimizer
+      states saved and loaded, bitwise. ``--module-only`` runs the build
+      and phase r alone.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. ``--summary PATH`` also writes the
@@ -7415,6 +7442,531 @@ def amp_phase(torch, mx, kernels):
             "fp16_timing": timing}
 
 
+# ------------------------------------------------------------------ phase r
+# examples/train_mnist.py's configuration: its get_iters (the synthetic set
+# it trains on when no idx files are given, which is always here: they are
+# not in the repository) and its mlp(), as the example has them, with
+# mxnet_tpu_torch as mx
+MNIST_BATCH, MNIST_EPOCHS, MNIST_LR = 128, 5, 0.05
+R2_BATCH = 32
+R3_DRAWS = 1_000_000
+R3_DISPATCH_CALLS = 2000
+MODULE_DIR = os.path.join(ROOT, "_module")   # gitignored: r2's export
+
+
+def mnist_iters(mx, batch_size, shuffle=True):
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    centers = rng.rand(10, 784).astype(np.float32)
+    y = rng.randint(0, 10, 4096)
+    X = centers[y] + rng.randn(4096, 784).astype(np.float32) * 0.15
+    return (mx.io.NDArrayIter(X[:3584], y[:3584].astype(np.float32),
+                              batch_size, shuffle=shuffle),
+            mx.io.NDArrayIter(X[3584:], y[3584:].astype(np.float32),
+                              batch_size))
+
+
+def mnist_mlp(mx):
+    sym = mx.sym
+    data = sym.Variable("data")
+    net = sym.FullyConnected(data, num_hidden=128, name="fc1")
+    net = sym.Activation(net, act_type="relu")
+    net = sym.FullyConnected(net, num_hidden=64, name="fc2")
+    net = sym.Activation(net, act_type="relu")
+    net = sym.FullyConnected(net, num_hidden=10, name="fc3")
+    return sym.SoftmaxOutput(net, sym.Variable("softmax_label"),
+                             name="softmax")
+
+
+_R_FAILED = []
+
+
+def r_check(ok, what):
+    """Log a phase-r check; a failed one is collected and fails the phase
+    at its end."""
+    log(f"[r] {'ok  ' if ok else 'FAIL'} {what}")
+    if not ok:
+        _R_FAILED.append(what)
+    return ok
+
+
+def module_mnist(torch, mx):
+    """r1: the example's fit on gpu(0) (Module(context=None), SGD lr 0.05
+    momentum 0.9, Xavier, 5 epochs, Speedometer(128, 50)), gated at
+    validation accuracy 0.9; then the same fit with shuffle off from one
+    set of initial parameters on gpu(0) and on cpu(): every parameter
+    after 5 epochs within 1e-4 of max|w| (TF32 off); samples/s and ms an
+    epoch on the host clock; one fit batch profiled."""
+    opt = {"learning_rate": MNIST_LR, "momentum": 0.9}
+    mx.random.seed(0)
+    train, val = mnist_iters(mx, MNIST_BATCH)
+    speed = mx.callback.Speedometer(MNIST_BATCH, 50)
+    mod = mx.mod.Module(mnist_mlp(mx))
+    t0 = time.perf_counter()
+    mod.fit(train, eval_data=val, num_epoch=MNIST_EPOCHS, optimizer="sgd",
+            optimizer_params=opt, initializer=mx.initializer.Xavier(),
+            eval_metric="acc", batch_end_callback=speed)
+    fit_s = time.perf_counter() - t0
+    acc = mod.score(val, mx.metric.Accuracy())[0][1]
+    ctx = mod._execs[0].arg_dict["fc1_weight"].context
+    r_check(ctx == mx.gpu(0), f"r1 Module(context=None) ran on {ctx}")
+    r_check(acc >= 0.9, f"r1 validation accuracy {acc:.4f} after "
+            f"{MNIST_EPOCHS} epochs (>= 0.9, mxnet_tpu's bar); the fit took "
+            f"{fit_s:.3f} s with its scoring; Speedometer "
+            f"{[round(r, 1) for r in speed.rates]} samples/s (it logs "
+            "every 50 batches of an epoch, which has 28)")
+
+    mx.random.seed(1)
+    init_mod = mx.mod.Module(mnist_mlp(mx), context=mx.cpu())
+    init_mod.bind(train.provide_data, train.provide_label)
+    init_mod.init_params(mx.initializer.Xavier())
+    init = {k: v.asnumpy() for k, v in init_mod.get_params()[0].items()}
+    fits = {}
+    for name, ctx in (("gpu", mx.gpu(0)), ("cpu", mx.cpu())):
+        it, _ = mnist_iters(mx, MNIST_BATCH, shuffle=False)
+        stamps = []
+
+        def stamp(*_):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        m = mx.mod.Module(mnist_mlp(mx), context=ctx)
+        t0 = time.perf_counter()
+        m.fit(it, num_epoch=MNIST_EPOCHS, optimizer="sgd",
+              optimizer_params=opt, arg_params=init, eval_metric="acc",
+              epoch_end_callback=stamp)
+        epoch_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
+        fits[name] = (m, epoch_ms)
+    worst = 0.0
+    g_params, c_params = (fits[k][0].get_params()[0] for k in ("gpu", "cpu"))
+    for k in c_params:
+        c, g = c_params[k].asnumpy(), g_params[k].asnumpy()
+        err = float(abs(g - c).max() / max(abs(c).max(), 1e-12))
+        worst = max(worst, err)
+        r_check(err <= 1e-4, f"r1 {k}: gpu fit vs cpu fit, max|diff| / "
+                f"max|w| {err:.3e} (tol 1e-4)")
+    g_ms = fits["gpu"][1]
+    steady = sorted(g_ms[1:])[len(g_ms[1:]) // 2]
+    sps = 3584 / (steady / 1e3)
+    log(f"[r1] gpu fit, shuffle off: ms an epoch {[round(x, 3) for x in g_ms]}"
+        f" (median of epochs 2-5 {steady:.3f} ms, {sps:.1f} samples/s, host "
+        f"clock, metric updates included); cpu fit "
+        f"{[round(x, 3) for x in fits['cpu'][1]]} ms an epoch")
+    m = fits["gpu"][0]
+    it, _ = mnist_iters(mx, MNIST_BATCH, shuffle=False)
+    batch = next(iter(it))
+    prof = profile_window(
+        torch, lambda: (m.forward_backward(batch), m.update()),
+        "one Module fit batch (forward_backward + update)", "r1",
+        ("gemm", "nvjet", "cutlass", "xmma", "sm90"))
+    return {"val_accuracy": acc, "fit_s": fit_s,
+            "speedometer_samples_per_s": speed.rates,
+            "gpu_epoch_ms": g_ms, "cpu_epoch_ms": fits["cpu"][1],
+            "median_epoch_ms": steady, "samples_per_s": sps,
+            "gpu_vs_cpu_param_err": worst, "profile": prof}
+
+
+def module_resnet(torch, mx):
+    """r2: ResNet-18 v1 (224^2 NCHW fp32, 1000 classes, seeded Xavier)
+    exported, loaded as a Symbol with a SoftmaxOutput head, bound by
+    Module for training at batch 32; one forward_backward against the
+    Gluon Block with the same weights under autograd.record() with
+    SoftmaxCrossEntropyLoss summed over the batch (the same gradient when
+    normalization='null'): every gradient within 1e-3 of its max|grad|,
+    the BatchNorm moving statistics within 1e-5 of max(1, max|ref|). Then
+    5 Module steps (forward_backward + update) beside 5 Gluon steps on
+    the same batch, host clock with a synchronise."""
+    import shutil
+
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    os.makedirs(MODULE_DIR, exist_ok=True)
+    try:
+        net = vision.resnet18_v1(classes=1000)
+        net.initialize(mx.init.Xavier(), generator=gen)
+        sym_file, params_file = net.export(os.path.join(MODULE_DIR,
+                                                        "resnet18_v1"))
+        out = mx.sym.SoftmaxOutput(mx.sym.load(sym_file),
+                                   mx.sym.Variable("softmax_label"),
+                                   name="softmax")
+        params = mx.nd.load(params_file)
+    finally:
+        shutil.rmtree(MODULE_DIR, ignore_errors=True)
+    aux_names = set(out.list_auxiliary_states())
+    args = {k: v for k, v in params.items() if k not in aux_names}
+    auxs = {k: v for k, v in params.items() if k in aux_names}
+    mod = mx.mod.Module(out, context=mx.gpu(0))
+    mod.bind([("data", (R2_BATCH, 3, 224, 224))],
+             [("softmax_label", (R2_BATCH,))])
+    mod.set_params(args, auxs)
+    x = torch.randn((R2_BATCH, 3, 224, 224), generator=gen, device="cuda")
+    y = torch.randint(0, 1000, (R2_BATCH,), generator=gen,
+                      device="cuda").float()
+    batch = mx.io.DataBatch([mx.nd.NDArray(x)], [mx.nd.NDArray(y)])
+    mod.forward_backward(batch)
+    ex = mod._execs[0]
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y).sum()
+    loss.backward()
+    ref = net.collect_params()
+    worst = ("", 0.0)
+    for n in mod._param_names:
+        want = ref[n].grad
+        err = float((ex.grad_dict[n]._data - want).abs().max()
+                    / max(want.abs().max().item(), 1e-12))
+        if err > worst[1]:
+            worst = (n, err)
+    r_check(worst[1] <= 1e-3, f"r2 {len(mod._param_names)} gradients "
+            f"against Gluon's: worst {worst[0]} max|diff| / max|grad| "
+            f"{worst[1]:.3e} (tol 1e-3)")
+    stat = 0.0
+    for n in aux_names:
+        want = ref[n]
+        stat = max(stat, float((ex.aux_dict[n]._data - want).abs().max()
+                               / max(1.0, want.abs().max().item())))
+    r_check(stat <= 1e-5, f"r2 {len(aux_names)} BatchNorm moving statistics "
+            f"after the step: max|diff| / max(1, max|ref|) {stat:.3e} "
+            "(tol 1e-5)")
+    opt = {"learning_rate": 0.1, "momentum": 0.9}
+    mod.init_optimizer(optimizer="sgd", optimizer_params=opt)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", opt)
+
+    def module_step():
+        mod.forward_backward(batch)
+        mod.update()
+
+    def gluon_step():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y).sum()
+        loss.backward()
+        trainer.step(R2_BATCH)
+
+    times = {}
+    for name, step in (("module", module_step), ("gluon", gluon_step)):
+        step()
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        times[name] = ms
+    med = {k: sorted(v)[2] for k, v in times.items()}
+    log(f"[r2] ResNet-18 training step at batch {R2_BATCH}: Module "
+        f"{med['module']:.3f} ms, Gluon eager {med['gluon']:.3f} ms "
+        f"(median of 5, host clock with a synchronise; {times})")
+    del net, mod, trainer
+    torch.cuda.empty_cache()
+    return {"grad_err": worst[1], "grad_err_param": worst[0],
+            "stat_err": stat, "step_ms": times, "median_step_ms": med}
+
+
+def _r3_battery(np, gen):
+    """(name, inputs, params, tol): a call of every op family; tol is the
+    allowed max|gpu - cpu| / max(1, max|cpu|)."""
+    def r(*s):
+        return gen.uniform(-1, 1, s).astype(np.float32)
+
+    def p(*s):
+        return gen.uniform(0.5, 2, s).astype(np.float32)
+
+    spd = r(2, 4, 4)
+    spd = spd @ spd.transpose(0, 2, 1) + 4 * np.eye(4, dtype=np.float32)
+    f32 = np.float32
+    return [
+        ("broadcast_add", [r(64, 32), r(1, 32)], {}, 1e-6),
+        ("broadcast_greater", [r(64, 32), r(64, 32)], {}, 0),
+        ("elemwise_pow_scalar", [p(64, 32)], {"scalar": 2.5}, 1e-5),
+        ("erf", [r(64, 32)], {}, 1e-5),
+        ("gammaln", [p(64, 32)], {}, 1e-5),
+        ("sum", [r(8, 64, 32)], {"axis": (0, 2)}, 1e-5),
+        ("argmax", [r(64, 32)], {"axis": 1}, 0),
+        ("norm", [r(64, 32)], {}, 1e-5),
+        ("dot", [r(64, 128), r(128, 32)], {}, 1e-5),
+        ("batch_dot", [r(4, 64, 128), r(4, 128, 32)], {}, 1e-5),
+        ("linalg_gemm2", [r(2, 32, 16), r(2, 16, 8)], {"alpha": 2.0}, 1e-5),
+        ("linalg_potrf", [spd], {}, 1e-5),
+        ("linalg_inverse", [spd], {}, 1e-4),
+        ("Reshape", [r(4, 6, 8)], {"shape": (-4, 2, -1, -3)}, 0),
+        ("transpose", [r(4, 6, 8)], {"axes": (2, 0, 1)}, 0),
+        ("slice", [r(16, 16)], {"begin": (1, None), "end": (9, None),
+                                "step": (2, -1)}, 0),
+        ("Concat", [r(4, 8), r(2, 8)], {"dim": 0}, 0),
+        ("take", [r(16, 8), np.array([0, 15, 20, -3], f32)], {}, 0),
+        ("pick", [r(16, 8), gen.randint(0, 8, 16).astype(f32)], {}, 0),
+        ("one_hot", [np.array([0, 3, 7], f32)], {"depth": 8}, 0),
+        ("topk", [gen.permutation(64).reshape(4, 16).astype(f32)],
+         {"k": 3, "ret_typ": "both"}, 0),
+        ("sort", [r(4, 64)], {"is_ascend": False}, 0),
+        ("FullyConnected", [r(32, 64), r(16, 64), r(16)],
+         {"num_hidden": 16}, 1e-5),
+        ("Convolution", [r(4, 8, 16, 16), r(16, 8, 3, 3), r(16)],
+         {"kernel": (3, 3), "num_filter": 16, "pad": (1, 1)}, 1e-5),
+        ("Deconvolution", [r(2, 8, 8, 8), r(8, 4, 4, 4)],
+         {"kernel": (4, 4), "num_filter": 4, "stride": (2, 2),
+          "pad": (1, 1)}, 1e-5),
+        ("Pooling", [r(4, 8, 16, 16)], {"kernel": (2, 2), "stride": (2, 2),
+                                        "pool_type": "lp"}, 1e-5),
+        ("BatchNorm", [r(4, 8, 6, 6), p(8), r(8), r(8), p(8)],
+         {"fix_gamma": False}, 1e-5),
+        ("LayerNorm", [r(16, 64), p(64), r(64)], {}, 1e-5),
+        ("GroupNorm", [r(4, 8, 6, 6), p(2), r(2)], {"num_groups": 2}, 1e-5),
+        ("LeakyReLU", [r(64, 32)], {"act_type": "gelu"}, 1e-5),
+        ("softmax", [r(64, 32)], {"temperature": 2.0}, 1e-6),
+        ("SoftmaxOutput", [r(64, 10), gen.randint(0, 10, 64).astype(f32)],
+         {}, 1e-6),
+        ("UpSampling", [r(2, 4, 8, 8)], {"scale": 2,
+                                         "sample_type": "bilinear"}, 1e-5),
+        ("_contrib_interleaved_matmul_selfatt_qk", [r(16, 4, 96)],
+         {"heads": 4}, 1e-5),
+        ("_random_pdf_normal", [r(4, 64), r(4), p(4)], {}, 1e-5),
+        ("histogram", [r(4096)], {"bin_cnt": 16, "range": (-1.0, 1.0)}, 0),
+        ("_arange", [], {"start": 0.0, "stop": 12.0, "step": 1.5}, 0),
+    ]
+
+
+def nd_on_card(torch, mx, kernels):
+    """r3: the op battery on gpu(0) against cpu(); K1 / K2 through
+    mx.nd.scaled_dot_product_attention(impl='flash') at the LM's shape in
+    bf16 (exactly one tensor-core K1 and K2 launch, no plain version,
+    bitwise equal to the direct Function, the same through a bound Symbol
+    graph); the samplers' statistics over 1e6 draws and mx.random.seed's
+    repeat; host microseconds a call of three mx.nd ops beside the bare
+    torch calls."""
+    import numpy as np
+
+    gen = np.random.RandomState(0)
+    worst = {}
+    for name, inputs, params, tol in _r3_battery(np, gen):
+        outs = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            arrays = [mx.nd.array(a, ctx=ctx) for a in inputs]
+            with ctx:
+                o = getattr(mx.nd, name)(*arrays, **params)
+            outs.append([t.asnumpy() for t in (
+                o if isinstance(o, (list, tuple)) else [o])])
+        err = max(float(np.abs(g.astype(np.float64) - c).max()
+                        / max(1.0, float(np.abs(c).max())))
+                  for g, c in zip(*outs))
+        worst[name] = err
+        r_check(err <= tol, f"r3 nd.{name} gpu vs cpu: {err:.3e} "
+                f"(tol {tol:g} of max(1, max|cpu|))")
+
+    # K1 / K2 through mx.nd
+    shape = (BATCH, HEADS, T, UNITS // HEADS)
+    tgen = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v, dout = (torch.randn(shape, generator=tgen, device="cuda",
+                                 dtype=torch.bfloat16) for _ in range(4))
+    plain_cuda = []
+    orig = kernels.flash_attention_reference, \
+        kernels.flash_attention_backward_reference
+
+    def fwd_spy(q_, *a, **kw):
+        plain_cuda.append(q_.is_cuda)
+        return orig[0](q_, *a, **kw)
+
+    def bwd_spy(q_, *a, **kw):
+        plain_cuda.append(q_.is_cuda)
+        return orig[1](q_, *a, **kw)
+
+    kernels.flash_attention_reference, \
+        kernels.flash_attention_backward_reference = fwd_spy, bwd_spy
+    try:
+        arrs = [mx.nd.NDArray(t.clone()) for t in (q, k, v)]
+        for a in arrs:
+            a.attach_grad()
+        zero_counts(kernels)
+        with mx.autograd.record():
+            o = mx.nd.scaled_dot_product_attention(*arrs, causal=True,
+                                                   impl="flash")
+        o.backward(mx.nd.NDArray(dout))
+        torch.cuda.synchronize()
+        k1 = dict(kernels.flash_attention.launches_by_route)
+        k2 = dict(kernels.flash_attention_backward.launches_by_route)
+        launches = {"k1": kernels.flash_attention.launches,
+                    "k2": kernels.flash_attention_backward.launches,
+                    "k1_by_route": k1, "k2_by_route": k2}
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        direct = kernels.flash_attention_with_grad(*leaves, causal=True)
+        direct.backward(dout)
+        s = mx.sym.scaled_dot_product_attention(
+            mx.sym.Variable("q"), mx.sym.Variable("k"), mx.sym.Variable("v"),
+            causal=True, impl="flash")
+        ex = s.simple_bind(mx.gpu(0), q=shape, k=shape, v=shape,
+                           type_dict={n: "bfloat16" for n in "qkv"})
+        for n, t in zip("qkv", (q, k, v)):
+            ex.arg_dict[n][:] = mx.nd.NDArray(t)
+        zero_counts(kernels)
+        ex.forward(is_train=True)
+        ex.backward(out_grads=[mx.nd.NDArray(dout)])
+        torch.cuda.synchronize()
+        sym_launches = (kernels.flash_attention.launches_by_route["tc"],
+                        kernels.flash_attention_backward.launches_by_route[
+                            "tc"], kernels.flash_attention.launches,
+                        kernels.flash_attention_backward.launches)
+    finally:
+        kernels.flash_attention_reference, \
+            kernels.flash_attention_backward_reference = orig
+    r_check(launches["k1"] == 1 and k1["tc"] == 1 and launches["k2"] == 1
+            and k2["tc"] == 1, f"r3 nd.scaled_dot_product_attention "
+            f"{shape} bf16 causal: K1 {k1}, K2 {k2} (exactly one each on "
+            "route tc)")
+    r_check(not any(plain_cuda), f"r3 no plain version on a CUDA tensor "
+            f"({sum(plain_cuda)} calls)")
+    same = [torch.equal(o._data, direct)] + [
+        torch.equal(a.grad._data, leaf.grad) for a, leaf in zip(arrs,
+                                                                leaves)]
+    r_check(all(same), f"r3 output, dq, dk, dv bitwise equal to "
+            f"kernels.flash_attention_with_grad called directly: {same}")
+    sym_same = [torch.equal(ex.outputs[0]._data, direct)] + [
+        torch.equal(ex.grad_dict[n]._data, leaf.grad)
+        for n, leaf in zip("qkv", leaves)]
+    r_check(all(sym_same) and sym_launches == (1, 1, 1, 1),
+            f"r3 the same through a bound Symbol graph (simple_bind, "
+            f"forward, backward): bitwise {sym_same}, tc launches "
+            f"(K1, K2, all K1, all K2) {sym_launches}")
+
+    # random
+    draws = []
+    for _ in range(2):
+        mx.random.seed(0)
+        with mx.gpu(0):
+            draws.append(torch.cat([
+                mx.random.uniform(shape=(4096,))._data,
+                mx.random.normal(shape=(4096,))._data,
+                mx.random.gamma(2.0, shape=(4096,))._data,
+                mx.nd.Dropout(mx.nd.ones((4096,)), p=0.5,
+                              mode="always")._data]))
+    r_check(torch.equal(draws[0], draws[1]), "r3 mx.random.seed(0) repeats "
+            "uniform, normal, gamma and Dropout draws bitwise on gpu(0)")
+    stats = {}
+    for name, params, mean, var in (
+            ("_random_uniform", {"low": -1.0, "high": 3.0}, 1.0, 16 / 12),
+            ("_random_normal", {"loc": 1.0, "scale": 2.0}, 1.0, 4.0),
+            ("_random_gamma", {"alpha": 2.5, "beta": 0.5}, 1.25, 0.625),
+            ("_random_exponential", {"lam": 2.0}, 0.5, 0.25),
+            ("_random_poisson", {"lam": 3.0}, 3.0, 3.0),
+            ("_random_negative_binomial", {"k": 3, "p": 0.4}, 4.5, 11.25),
+            ("_random_generalized_negative_binomial",
+             {"mu": 2.0, "alpha": 0.5}, 2.0, 4.0),
+            ("_random_randint", {"low": 0, "high": 10}, 4.5, 8.25),
+            ("_random_bernoulli", {"p": 0.3}, 0.3, 0.21)):
+        with mx.gpu(0):
+            x = getattr(mx.nd, name)(shape=(R3_DRAWS,), **params)._data
+        x = x.double()
+        m, v_ = x.mean().item(), x.var(unbiased=False).item()
+        mu4 = ((x - m) ** 4).mean().item()
+        se_m, se_v = math.sqrt(var / R3_DRAWS), math.sqrt(
+            max(mu4 - v_ * v_, 0) / R3_DRAWS)
+        stats[name] = {"mean": m, "var": v_, "want": (mean, var),
+                       "se": (se_m, se_v)}
+        r_check(abs(m - mean) < 5 * se_m and abs(v_ - var) < 5 * se_v,
+                f"r3 nd.{name} over {R3_DRAWS} draws on gpu(0): mean {m:.5f}"
+                f" (want {mean:.5f}, 5 SE {5 * se_m:.5f}), var {v_:.5f} "
+                f"(want {var:.5f}, 5 SE {5 * se_v:.5f})")
+
+    # dispatch: host time of an mx.nd call beside the bare torch call
+    a = mx.nd.ones((64, 64), ctx=mx.gpu(0))
+    t = a._data
+    dispatch = {}
+    for name, nd_call, torch_call in (
+            ("elemwise_add", lambda: a + a, lambda: t + t),
+            ("relu", lambda: mx.nd.relu(a), lambda: torch.relu(t)),
+            ("sum(axis=1)", lambda: mx.nd.sum(a, axis=1),
+             lambda: t.sum(dim=1))):
+        us = {}
+        for kind, fn in (("nd", nd_call), ("torch", torch_call)):
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(R3_DISPATCH_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            us[kind] = (time.perf_counter() - t0) * 1e6 / R3_DISPATCH_CALLS
+        dispatch[name] = us
+        log(f"[r3] dispatch {name} (64, 64) fp32: mx.nd {us['nd']:.2f} us a "
+            f"call, torch {us['torch']:.2f} us, overhead "
+            f"{us['nd'] - us['torch']:.2f} us (host clock, {R3_DISPATCH_CALLS}"
+            " calls then a synchronise)")
+    return {"battery_err": worst, "sdpa_launches": launches,
+            "sdpa_sym_launches": sym_launches, "random": stats,
+            "dispatch_us": dispatch}
+
+
+def kvstore_on_card(torch, mx):
+    """r4: 'local' and 'device' stores on gpu(0): push of 4 values then
+    pull bitwise equal to ((v0 + v1) + v2) + v3; set_optimizer's update
+    bitwise equal to the same Updater applied directly; optimizer states
+    through save / load, then one more push on each, bitwise."""
+    import shutil
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    vals = [torch.randn((256, 128), generator=gen, device="cuda")
+            for _ in range(4)]
+    want = ((vals[0] + vals[1]) + vals[2]) + vals[3]
+    for kind in ("local", "device"):
+        kv = mx.kv.create(kind)
+        kv.init("w", mx.nd.zeros((256, 128), ctx=mx.gpu(0)))
+        kv.push("w", [mx.nd.NDArray(v) for v in vals])
+        got = mx.nd.zeros((256, 128), ctx=mx.gpu(0))
+        kv.pull("w", out=got)
+        r_check(torch.equal(got._data, want), f"r4 kvstore '{kind}': push "
+                "of 4 values, pull: bitwise their sum in list order")
+    w0 = torch.randn((256, 128), generator=gen, device="cuda")
+    kv = mx.kv.create("device")
+    kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=0.1,
+                                         momentum=0.9, wd=1e-4))
+    kv.init(0, mx.nd.NDArray(w0.clone()))
+    upd = mx.optimizer.get_updater(mx.optimizer.create(
+        "sgd", learning_rate=0.1, momentum=0.9, wd=1e-4))
+    direct = w0.clone()
+    for v in vals[:2]:
+        kv.push(0, mx.nd.NDArray(v))
+        upd(0, v, direct)
+    out = mx.nd.zeros((256, 128), ctx=mx.gpu(0))
+    kv.pull(0, out=out)
+    r_check(torch.equal(out._data, direct), "r4 set_optimizer: 2 pushes "
+            "bitwise equal to the same Updater applied directly")
+    fname = os.path.join(MODULE_DIR, "kv.states")
+    os.makedirs(MODULE_DIR, exist_ok=True)
+    try:
+        kv.save_optimizer_states(fname)
+        kv2 = mx.kv.create("device")
+        kv2.set_optimizer(mx.optimizer.create("sgd", learning_rate=0.1,
+                                              momentum=0.9, wd=1e-4))
+        kv2.init(0, mx.nd.NDArray(out._data.clone()))
+        kv2.load_optimizer_states(fname)
+    finally:
+        shutil.rmtree(MODULE_DIR, ignore_errors=True)
+    for store in (kv, kv2):
+        store.push(0, mx.nd.NDArray(vals[2]))
+    a, b = (mx.nd.zeros((256, 128), ctx=mx.gpu(0)) for _ in range(2))
+    kv.pull(0, out=a)
+    kv2.pull(0, out=b)
+    r_check(torch.equal(a._data, b._data), "r4 save_optimizer_states / "
+            "load_optimizer_states: the next push bitwise equal")
+    return {"ok": True}
+
+
+def module_phase(torch, mx, kernels):
+    """Phase r: the imperative and Module front end on the card (r1-r4);
+    its checks collect failures and the phase fails at its end naming
+    them all."""
+    _R_FAILED.clear()
+    mnist = module_mnist(torch, mx)
+    resnet = module_resnet(torch, mx)
+    nd = nd_on_card(torch, mx, kernels)
+    kv = kvstore_on_card(torch, mx)
+    if _R_FAILED:
+        raise SystemExit("phase r: " + "; ".join(_R_FAILED))
+    return {"mnist": mnist, "resnet": resnet, "nd": nd, "kvstore": kv}
+
+
 def library_ms(fn, what):
     """device_ms of a library call, or None (logged) where the library
     refuses the call."""
@@ -7441,6 +7993,9 @@ def main(argv=None):
     ap.add_argument("--amp-only", action="store_true",
                     help="build, then run phase q (AMP, optimizers, "
                          "Trainer states) only")
+    ap.add_argument("--module-only", action="store_true",
+                    help="build, then run phase r (mx.nd, Module, kvstore) "
+                         "only")
     args = ap.parse_args(argv)
     if args.summary:
         GRAPH_DIR.append(os.path.join(
@@ -7494,6 +8049,11 @@ def main(argv=None):
         log("[amp-only] phase q passed")
         log(card)
         return 0
+    if args.module_only:
+        module_phase(torch, mx, kernels)
+        log("[module-only] phase r passed")
+        log(card)
+        return 0
     checks, slice_err, slice_err32 = check_flash(torch, kernels)
     bwd_checks, bwd_slice_err, bwd_slice_err32 = check_flash_bwd(torch,
                                                                  kernels)
@@ -7533,6 +8093,8 @@ def main(argv=None):
     rank0 = multirank["per_rank"][0]
     amp = amp_phase(torch, mx, kernels)
     amp_train_run, fp16 = amp["train"], amp["fp16_timing"]
+    module = module_phase(torch, mx, kernels)
+    nd_launches = module["nd"]["sdpa_launches"]
 
     def ring_err(dtype, parts, key="errors"):
         """The ring's largest error (of max|whole-sequence call|, or with
@@ -7614,7 +8176,11 @@ def main(argv=None):
         "amp_fp16_launches_by_route": amp_train_run["k1_launches_by_route"],
         "fp16_ms": fp16["k1"]["ms"], "fp16_plain_ms": fp16["k1"]["plain_ms"],
         "fp16_bound_ms": fp16["k1"]["bound_ms"],
-        "fp16_library_ms": fp16["k1"]["library_ms"]}, {
+        "fp16_library_ms": fp16["k1"]["library_ms"],
+        # phase r3: one mx.nd.scaled_dot_product_attention(impl='flash')
+        # forward and backward at the LM's shape in bf16
+        "imperative_launches": nd_launches["k1"],
+        "imperative_launches_by_route": nd_launches["k1_by_route"]}, {
         "name": "flash_attn_bwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_bwd_tc.cu",
         "sources": k2_sources,
@@ -7653,7 +8219,9 @@ def main(argv=None):
         "amp_fp16_launches_by_route": amp_train_run["k2_launches_by_route"],
         "fp16_ms": fp16["k2"]["ms"], "fp16_plain_ms": fp16["k2"]["plain_ms"],
         "fp16_bound_ms": fp16["k2"]["bound_ms"],
-        "fp16_library_ms": fp16["k2"]["library_ms"]}, {
+        "fp16_library_ms": fp16["k2"]["library_ms"],
+        "imperative_launches": nd_launches["k2"],
+        "imperative_launches_by_route": nd_launches["k2_by_route"]}, {
         "name": "conv3x3_bn_stats", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/conv3x3_bn_stats_tc.cu",
         "sources": k3_sources,
@@ -7921,6 +8489,7 @@ def main(argv=None):
                        "multirank": multirank,
                        "k5_checks": k5_checks, "int8": int8,
                        "k5_timing": k5_timing, "amp": amp,
+                       "module": module,
                        **record}, f,
                       indent=1)
     log(card)

@@ -41,6 +41,20 @@ BatchNorm, calibrate, quantize, and serve each bucket as one CUDA graph.
                                 calib_data=mx.io.NDArrayIter(x, batch_size=16),
                                 calib_mode="naive")
     logits = pred.predict(images)[0]
+
+The imperative and symbolic front end (MXNet's ``mx.nd`` / ``mx.sym`` /
+Module), on the card unless told ``ctx=mx.cpu()``; MXNet's default
+context is the CPU, the port's is ``gpu(0)``:
+
+    x = mx.nd.ones((2, 3))                      # on gpu(0)
+    w = mx.nd.random.normal(shape=(4, 3))
+    w.attach_grad()
+    with mx.autograd.record():
+        y = mx.nd.FullyConnected(x, w, num_hidden=4, no_bias=True)
+    y.backward()                                # w.grad: an NDArray
+    mod = mx.mod.Module(softmax_output_symbol)  # Module(context=gpu(0))
+    mod.fit(mx.io.NDArrayIter(X, y, 128), num_epoch=5,
+            optimizer_params={"learning_rate": 0.05, "momentum": 0.9})
 """
 from __future__ import annotations
 
@@ -51,11 +65,16 @@ from . import initializer as init  # noqa: F401
 from . import autograd, optimizer, ops, gluon, serving  # noqa: F401
 from . import lr_scheduler, metric, parallel, capture  # noqa: F401
 from . import symbol, executor, io, contrib, ndarray, amp  # noqa: F401
+from . import random, kvstore, model, module, callback  # noqa: F401
+from .attribute import AttrScope  # noqa: F401
 from . import symbol as sym  # noqa: F401
 from . import ndarray as nd  # noqa: F401
+from . import kvstore as kv  # noqa: F401
+from . import module as mod  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
            "initializer", "init", "autograd", "optimizer", "ops", "gluon",
            "serving", "lr_scheduler", "metric", "parallel", "capture",
            "symbol", "sym", "executor", "io", "contrib", "ndarray", "nd",
-           "amp"]
+           "amp", "random", "kvstore", "kv", "model", "module", "mod",
+           "callback", "AttrScope"]

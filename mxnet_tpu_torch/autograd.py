@@ -11,6 +11,11 @@ outside ``record()`` builds no graph even though parameters require grad.
 Layers whose forward differs between training and inference (BatchNorm)
 read :func:`is_training`, which is False unless ``record()`` or
 ``train_mode()`` says otherwise. The state is per thread.
+
+Every function here takes NDArrays as well as tensors (``mx.nd``'s
+arrays hold one tensor each): ``backward``, ``grad`` and
+``mark_variables`` work on the tensors, and ``grad`` returns NDArrays for
+NDArray variables.
 """
 from __future__ import annotations
 
@@ -25,6 +30,20 @@ __all__ = ["is_recording", "is_training", "set_recording", "set_training",
            "grad", "mark_variables", "Function"]
 
 _STATE = threading.local()
+
+
+def _nd_cls():
+    from .ndarray.ndarray import NDArray
+
+    return NDArray
+
+
+def _tensors(xs):
+    """A tensor, an NDArray or a list of them -> a list of tensors."""
+    nd = _nd_cls()
+    if isinstance(xs, (torch.Tensor, nd)):
+        xs = [xs]
+    return [x._data if isinstance(x, nd) else x for x in xs]
 
 
 def is_recording():
@@ -97,11 +116,9 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     every recorded parameter, by its ``grad_req`` ('write' overwrites,
     'add' accumulates). ``head_grads`` default to ones
     (``mxnet_tpu/autograd.py:155-236``)."""
-    heads = [heads] if isinstance(heads, torch.Tensor) else list(heads)
-    if head_grads is None:
-        head_grads = [None] * len(heads)
-    elif isinstance(head_grads, torch.Tensor):
-        head_grads = [head_grads]
+    heads = _tensors(heads)
+    head_grads = [None] * len(heads) if head_grads is None \
+        else _tensors(head_grads)
     if not any(h.grad_fn is not None for h in heads):
         raise MXNetError("backward: no recorded computation found (did you "
                          "run inside autograd.record()?)")
@@ -116,9 +133,20 @@ def mark_variables(variables, gradients, grad_reqs="write"):
     overwrites, 'add' accumulates; one for all or one each)
     (``mxnet_tpu/autograd.py:128-133``). The buffers are the tensors'
     ``.grad``: autograd adds into them in place, and for 'write' a hook
-    zeroes the buffer first."""
-    if isinstance(variables, torch.Tensor):
+    zeroes the buffer first. An NDArray variable becomes a leaf (its
+    tensor detached, memory shared) before it is marked."""
+    nd = _nd_cls()
+    if isinstance(variables, (torch.Tensor, nd)):
         variables, gradients = [variables], [gradients]
+    leaves = []
+    for v in variables:
+        if isinstance(v, nd):
+            if v._data.grad_fn is not None:
+                v._data = v._data.detach()
+            leaves.append(v._data)
+        else:
+            leaves.append(v)
+    variables, gradients = leaves, _tensors(gradients)
     if isinstance(grad_reqs, str):
         grad_reqs = [grad_reqs] * len(variables)
     for v, g, req in zip(variables, gradients, grad_reqs):
@@ -148,21 +176,21 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     ``create_graph=True`` records the gradient computation, so a
     gradient of the result (second order) can be taken; ``retain_graph``
     defaults to ``create_graph``."""
-    heads = [heads] if isinstance(heads, torch.Tensor) else list(heads)
-    variables = [variables] if isinstance(variables, torch.Tensor) \
-        else list(variables)
-    if head_grads is None:
-        head_grads = [None] * len(heads)
-    elif isinstance(head_grads, torch.Tensor):
-        head_grads = [head_grads]
+    nd = _nd_cls()
+    as_nd = [isinstance(v, nd) for v in (
+        variables if isinstance(variables, (list, tuple)) else [variables])]
+    heads, variables = _tensors(heads), _tensors(variables)
+    head_grads = [None] * len(heads) if head_grads is None \
+        else _tensors(head_grads)
     grads = [torch.ones_like(h) if g is None else g
              for h, g in zip(heads, head_grads)]
     if retain_graph is None:
         retain_graph = create_graph
     with torch.enable_grad() if create_graph else torch.no_grad():
-        return list(torch.autograd.grad(heads, variables, grads,
-                                        retain_graph=retain_graph,
-                                        create_graph=create_graph))
+        out = list(torch.autograd.grad(heads, variables, grads,
+                                       retain_graph=retain_graph,
+                                       create_graph=create_graph))
+    return [nd(g) if w else g for g, w in zip(out, as_nd)]
 
 
 class _FunctionBridge(torch.autograd.Function):

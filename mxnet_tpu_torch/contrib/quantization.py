@@ -218,9 +218,13 @@ def _calibration_forward(sym, arg_params, aux_params, data_names,
                          on_batch=None, ctx=None):
     """Bind once with a monitor, feed each calibration batch (labels as
     zeros), stop at the example count. Returns the examples seen."""
+    from ..io import DataBatch
+    from ..ndarray.ndarray import to_tensor
+
     seen, ex = 0, None
     calib_data.reset()
     for batch in calib_data:
+        batch = DataBatch([to_tensor(d) for d in batch.data])
         if on_batch is not None:
             on_batch(batch)
         feeds = dict(zip(data_names, batch.data))

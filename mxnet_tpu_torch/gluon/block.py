@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from ..base import MXNetError, torch_dtype
-from ..context import as_device
+from ..context import as_device, current_context
 from .. import autograd, initializer
 from ..ops import registry as _registry
 from .parameter import Parameter, ParameterDict
@@ -111,6 +111,16 @@ class Block(nn.Module):
     def __call__(self, *args, **kwargs):
         if args and _is_symbol(args[0]):
             return self._call_symbolic(*args)
+        from ..ndarray.ndarray import NDArray
+
+        if any(isinstance(a, NDArray) for a in args):
+            # mx.nd arrays in, mx.nd arrays out; the Block sees tensors
+            out = self(*[a._data if isinstance(a, NDArray) else a
+                         for a in args], **kwargs)
+            if isinstance(out, (list, tuple)):
+                return type(out)(NDArray(o) if isinstance(o, torch.Tensor)
+                                 else o for o in out)
+            return NDArray(out) if isinstance(out, torch.Tensor) else out
         if torch.is_grad_enabled() and not autograd.is_recording():
             with torch.no_grad():
                 return super().__call__(*args, **kwargs)
@@ -254,25 +264,25 @@ def _is_symbol(x):
 class _TensorOps:
     """``F`` of a ``hybrid_forward`` on tensors: ``F.<op>(*arrays, name=None,
     **params)`` calls the registered op (``ops/registry.py``) in the
-    current training mode. An op's mutated slots (BatchNorm's running
-    statistics) are written back into the tensors given for them, in
-    place, as MXNet's op updates its auxiliary states."""
+    current training mode, on the first tensor's device (else the current
+    context's), with that device's ``mx.random`` generator. An op's mutated
+    slots (BatchNorm's running statistics) are written back into the
+    tensors given for them, in place, as MXNet's op updates its auxiliary
+    states."""
 
     def __getattr__(self, opname):
         op = _registry.get_op(opname)
 
         def call(*arrays, name=None, **params):
             params = op.normalize(params)
-            if op.takes_train:
-                params["_train"] = autograd.is_training()
-            out = op.fn(*arrays, **params)
-            if not op.mutate:
-                return out
-            with torch.no_grad():
-                for slot, new in zip(op.mutate, out[op.num_outputs:]):
-                    if new is not arrays[slot]:
-                        arrays[slot].copy_(new)
-            return out[0] if op.num_outputs == 1 else out[:op.num_outputs]
+            device = next((a.device for a in arrays
+                           if isinstance(a, torch.Tensor)), None) or \
+                current_context().torch_device()
+            raw = op.call(arrays, params, device, autograd.is_training())
+            if not op.mutate_slots(params):
+                return raw
+            out = op.write_back(arrays, params, raw)
+            return out[0] if len(out) == 1 else out
 
         return call
 

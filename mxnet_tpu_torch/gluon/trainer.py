@@ -1,12 +1,14 @@
 """Gluon Trainer: applies an Optimizer to a set of Parameters (subset of
 ``mxnet_tpu/gluon/trainer.py``; parity: python/mxnet/gluon/trainer.py).
 
-One process, one device: ``kvstore='device'`` (the default) has nothing
-to reduce, so :meth:`Trainer.step` is :meth:`Trainer.update` with
+One process, one device: ``kvstore`` 'device' (the default), 'local',
+'tpu' / 'nccl', a KVStore or None have nothing to reduce, so
+:meth:`Trainer.step` is :meth:`Trainer.update` with
 ``rescale_grad = scale / batch_size``. ``ignore_stale_grad`` is accepted
 and, as in ``mxnet_tpu``, changes nothing: every parameter whose
 ``grad_req`` is not "null" is updated from its gradient buffer (zeros if
-no backward wrote it). Multi-device kvstores, and ``mxnet_tpu``'s step
+no backward wrote it). The 'dist_*' stores and gradient compression
+raise, naming their ROADMAP items. ``mxnet_tpu``'s step
 watchdog, health sentinel, fault hooks and trace spans
 (``mxnet_tpu/gluon/trainer.py:111-200``) wait for the sharding, resilience
 and observability slices (ROADMAP Queue 1). The optimizer's states and
@@ -56,13 +58,15 @@ class Trainer:
                  kvstore="device", compression_params=None,
                  update_on_kvstore=None):
         self._params = _param_list(params)
-        if (kvstore not in (None, "device", "local") or update_on_kvstore
-                or compression_params is not None):
-            raise MXNetError(f"Trainer: kvstore={kvstore!r}, "
-                             f"update_on_kvstore={update_on_kvstore!r} and "
-                             "gradient compression are not ported yet: one "
-                             "process has nothing to reduce (kvstore "
-                             "'device', 'local' or None)")
+        # the names kvstore.create takes; one process has nothing to
+        # reduce, so each is the local update (gluon/trainer.py:56-60)
+        from ..kvstore import kvstore as _kvs
+
+        if isinstance(kvstore, str):
+            _kvs.check_name(kvstore)
+        if compression_params is not None:
+            _kvs.KVStore("local").set_gradient_compression(
+                compression_params)
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         param_dict = dict(enumerate(self._params))

@@ -1,4 +1,4 @@
 """Data iterators of the PyTorch port (subset of ``mxnet_tpu/io``)."""
-from .io import DataBatch, DataIter, NDArrayIter  # noqa: F401
+from .io import DataBatch, DataDesc, DataIter, NDArrayIter  # noqa: F401
 
-__all__ = ["DataBatch", "DataIter", "NDArrayIter"]
+__all__ = ["DataBatch", "DataDesc", "DataIter", "NDArrayIter"]

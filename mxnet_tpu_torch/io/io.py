@@ -1,25 +1,41 @@
-"""Data iterators (subset of ``mxnet_tpu/io/io.py:27-172``; parity:
-python/mxnet/io/io.py): :class:`DataBatch`, :class:`DataIter` and the
-in-memory :class:`NDArrayIter`, the calibration source of INT8 serving.
-Batches are CPU tensors; an executor copies them onto its device."""
+"""Data iterators (subset of ``mxnet_tpu/io/io.py:17-172``; parity:
+python/mxnet/io/io.py): :class:`DataDesc`, :class:`DataBatch`,
+:class:`DataIter` and the in-memory :class:`NDArrayIter`, which Module
+training reads and INT8 serving calibrates from.
+
+Batches are NDArrays on ``cpu()``, as MXNet's are; a Module or an
+executor copies them onto its device. ``shuffle`` draws each epoch's
+order from the port's CPU generator (``mx.random.generator("cpu")``, so
+``mx.random.seed`` repeats it); ``mxnet_tpu`` shuffles with numpy's
+unseeded global generator (``io.py:134``), so the two orders never agree.
+"""
 from __future__ import annotations
+
+from collections import namedtuple
 
 import numpy as _np
 import torch
 
 from ..base import MXNetError
 
-__all__ = ["DataBatch", "DataIter", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
+
+DataDesc = namedtuple("DataDesc", ["name", "shape", "dtype", "layout"])
+DataDesc.__new__.__defaults__ = (_np.float32, "NCHW")
 
 
 class DataBatch:
-    """One mini-batch: ``data`` and ``label`` are lists of tensors."""
+    """One mini-batch: ``data`` and ``label`` are lists of arrays."""
 
-    def __init__(self, data, label=None, pad=None, index=None):
+    def __init__(self, data, label=None, pad=None, index=None,
+                 bucket_key=None, provide_data=None, provide_label=None):
         self.data = data
         self.label = label
         self.pad = pad
         self.index = index
+        self.bucket_key = bucket_key
+        self.provide_data = provide_data
+        self.provide_label = provide_label
 
     def __str__(self):
         shapes = [tuple(d.shape) for d in self.data] if self.data else []
@@ -64,6 +80,8 @@ class DataIter:
 
 
 def _numpy(v):
+    if hasattr(v, "asnumpy"):
+        return v.asnumpy()
     if isinstance(v, torch.Tensor):
         return v.detach().cpu().numpy()
     return _np.asarray(v)
@@ -72,16 +90,13 @@ def _numpy(v):
 def _init_data(data, allow_empty, default_name):
     if data is None:
         data = []
-    if isinstance(data, (_np.ndarray, torch.Tensor)):
+    if not isinstance(data, (list, dict)):
         data = [data]
     if isinstance(data, list):
         if not allow_empty and not data:
             raise MXNetError("empty data")
         data = ({default_name: data[0]} if len(data) == 1 else
                 {f"_{i}_{default_name}": d for i, d in enumerate(data)})
-    if not isinstance(data, dict):
-        raise MXNetError("data must be a numpy array, a tensor, a list or a "
-                         "dict")
     return [(k, _numpy(v)) for k, v in data.items()]
 
 
@@ -109,9 +124,24 @@ class NDArrayIter(DataIter):
             self.num_batches = -(-self.num_data // batch_size)
         self.reset()
 
+    def _descs(self, arrays):
+        return [DataDesc(k, (self.batch_size,) + tuple(v.shape[1:]),
+                         v.dtype) for k, v in arrays]
+
+    @property
+    def provide_data(self):
+        return self._descs(self.data)
+
+    @property
+    def provide_label(self):
+        return self._descs(self.label)
+
     def reset(self):
         if self.shuffle:
-            _np.random.shuffle(self.idx)
+            from .. import random as _random
+
+            self.idx = torch.randperm(
+                self.num_data, generator=_random.generator("cpu")).numpy()
         if self.last_batch_handle == "roll_over" and \
                 0 < self.cursor < self.num_data:
             self.cursor = -self.batch_size + \
@@ -126,13 +156,16 @@ class NDArrayIter(DataIter):
         return self.cursor < self.num_data
 
     def _take(self, arrays):
+        from ..context import cpu
+        from ..ndarray.ndarray import NDArray
+
         end = min(self.cursor + self.batch_size, self.num_data)
         ids = self.idx[self.cursor:end]
         if len(ids) < self.batch_size:     # pad from the front
             ids = _np.concatenate([ids,
                                    self.idx[:self.batch_size - len(ids)]])
-        return [torch.from_numpy(_np.ascontiguousarray(v[ids]))
-                for _, v in arrays]
+        return [NDArray(torch.from_numpy(_np.ascontiguousarray(v[ids])),
+                        cpu()) for _, v in arrays]
 
     def getdata(self):
         return self._take(self.data)

@@ -9,8 +9,8 @@ Every metric of ``mxnet_tpu``: ``Accuracy``, ``TopKAccuracy``, ``F1``,
 a list, or a callable ``feval(label, pred)``, which becomes a
 ``CustomMetric``).
 
-Labels and predictions are tensors on any device, or numpy arrays, alone
-or in lists. A metric reads them to the host in ``update`` only, where it
+Labels and predictions are tensors on any device, NDArrays or numpy
+arrays, alone or in lists. A metric reads them to the host in ``update`` only, where it
 sums on the host in numpy as ``mxnet_tpu`` does.
 """
 from __future__ import annotations
@@ -57,8 +57,10 @@ def create(metric, *args, **kwargs):
 
 
 def _as_numpy(x):
-    """A tensor (any device, any float dtype) or array -> numpy, on the
-    host."""
+    """A tensor (any device, any float dtype), an NDArray or an array ->
+    numpy, on the host."""
+    if hasattr(x, "asnumpy"):
+        return x.asnumpy()
     if isinstance(x, torch.Tensor):
         x = x.detach()
         if x.dtype in (torch.bfloat16, torch.float16):

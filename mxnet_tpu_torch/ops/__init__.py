@@ -1,5 +1,7 @@
-"""Operators of the PyTorch port: plain tensor functions (``math``, ``nn``),
-the INT8 ops (``quantization``, with K5), the hand-written CUDA kernels with
-their plain versions (``kernels``), and the registry that names them for
-the Symbol layer (``registry``)."""
+"""Operators of the PyTorch port: plain tensor functions (``math``, ``nn``,
+``parity_aliases``, ``random_ops``, ``optimizer_ops``), the INT8 ops
+(``quantization``, with K5), the hand-written CUDA kernels with their plain
+versions (``kernels``), and the registry that names them for ``mx.nd``,
+``mx.sym`` and the executor (``registry``)."""
 from . import registry, kernels, math, nn, quantization  # noqa: F401
+from . import optimizer_ops, parity_aliases, random_ops  # noqa: F401

@@ -521,8 +521,8 @@ def _normal(like, std, generator):
 class SGLD(Optimizer):
     """Stochastic gradient Langevin dynamics (``optimizer.py:417-430``):
     ``w += -lr / 2 * g + N(0, sqrt(lr))``. ``mxnet_tpu`` draws the noise
-    from its JAX key, whose bits a torch generator cannot repeat (ROADMAP
-    Queue 1 item 9); the port draws it from ``generator`` (a
+    from its JAX key, whose bits a torch generator cannot repeat; the port
+    draws it from ``generator`` (a
     ``torch.Generator`` on the weights' device; the global stream when
     None)."""
 
@@ -839,6 +839,10 @@ class Updater:
         return self.states[index]
 
     def __call__(self, index, grad, weight):
+        """Update ``weight`` in place from ``grad`` (tensors, or NDArrays,
+        whose tensors are used)."""
+        grad, weight = getattr(grad, "_data", grad), \
+            getattr(weight, "_data", weight)
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self.state(index, weight))
 

@@ -22,9 +22,10 @@ Two things differ from ``mxnet_tpu`` by construction:
   JAX's immutable arrays do.
 
 ``mxnet_tpu`` also threads its global PRNG key through ``aux`` under
-``RNG_KEY``, for Dropout. The port has no global key yet (its ``random``
-module is queued, ROADMAP Queue 1 item 9) and ResNet has no Dropout, so
-``aux_arrays`` holds the BatchNorm statistics only and no key is faked.
+``RNG_KEY``, for Dropout. The port's ``mx.random`` keeps a generator per
+device, not a key, and ResNet has no Dropout, so ``aux_arrays`` holds the
+BatchNorm statistics only and no key is faked (a sharded step's Dropout
+draws: ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 

@@ -29,7 +29,7 @@ the group as one multi-tensor op, the others weight by weight. ``sgld``
 draws its noise from ``generator`` (a ``torch.Generator`` on the
 parameters' device, in ``optimizer_params``; the global stream when
 absent): ``mxnet_tpu`` draws it from a JAX key per parameter name, whose
-bits torch cannot repeat (ROADMAP Queue 1 item 9).
+bits torch cannot repeat.
 """
 from __future__ import annotations
 

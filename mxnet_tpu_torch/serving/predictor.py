@@ -55,6 +55,23 @@ def _declared_buckets(batch_sizes):
     return out
 
 
+def _check_capturable(graph, device):
+    """Raise :class:`~mxnet_tpu_torch.capture.CaptureError` when ``graph``
+    (an Executor) would be captured on ``device`` and holds an op that
+    reads its operands on the host (``host=True`` in ``ops/registry.py``:
+    its output shape depends on its data), which a CUDA graph cannot
+    replay."""
+    if device.type != "cuda" or not capture.enabled():
+        return
+    host = sorted({op.name for _, op, _ in graph._ops if op.host})
+    if host:
+        raise capture.CaptureError(
+            f"Predictor: {host} read their operands on the host (the output "
+            "shape depends on the data) and cannot be captured in a CUDA "
+            "graph; serve this graph on cpu() or with "
+            "MXNET_TPU_TORCH_CAPTURE=0")
+
+
 class Predictor:
     """Serve a Symbol with its params, or an initialized Block.
 
@@ -165,6 +182,7 @@ class Predictor:
         self.output_names = symbol.list_outputs()
         self._arg_params, self._aux_params = arg_params, aux_params
         self._graph = Executor(symbol, self._device, {}, {})
+        _check_capturable(self._graph, self._device)
 
     def _split_params(self, symbol, params):
         """params (dict or ``.params`` path) -> (arg, aux) dicts of tensors
@@ -184,6 +202,7 @@ class Predictor:
                 kind, name = ("aux" if key in aux_set else "arg"), key
             if name in aux_set:
                 kind = "aux"
+            v = ndarray.to_tensor(v)
             if not isinstance(v, torch.Tensor):
                 v = torch.from_numpy(_np.ascontiguousarray(v))
             (auxs if kind == "aux" else args)[name] = v.detach().to(

@@ -1,8 +1,8 @@
 """``mx.sym.contrib``: short names for the ``_contrib_*`` ops (port of the
 generated creators of ``mxnet_tpu/symbol/contrib.py``;
 ``sym.contrib.quantize_v2`` is ``_contrib_quantize_v2``). The control-flow
-builders (foreach, while_loop, cond) are not ported (ROADMAP Queue 1 item
-11)."""
+builders (foreach, while_loop, cond) wait for the word-LM slice (ROADMAP
+Queue 1 item 15)."""
 from __future__ import annotations
 
 import sys as _sys

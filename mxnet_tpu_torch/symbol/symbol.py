@@ -20,6 +20,7 @@ import threading
 
 import numpy as _np
 
+from ..attribute import current_attrs as _current_attrs
 from ..base import MXNetError
 from ..ops import registry as _registry
 
@@ -53,7 +54,7 @@ class _Node:
         self.name = name
         self.params = params or {}
         self.inputs = inputs or []     # [(node, out_index)]
-        self.attrs = dict(attrs or {})
+        self.attrs = {**_current_attrs(), **(attrs or {})}
         self.aux_mark = False          # a variable in a mutate slot
 
     @property
@@ -61,7 +62,10 @@ class _Node:
         return self.op is None
 
     def num_outputs(self):
-        return 1 if self.is_var else _registry.get_op(self.op).num_outputs
+        if self.is_var:
+            return 1
+        op = _registry.get_op(self.op)
+        return op.n_out(op.normalize(self.params))
 
 
 class Symbol:
@@ -126,6 +130,14 @@ class Symbol:
             else:
                 out.append(n.name if n.is_var else f"{n.name}_output")
         return out
+
+    def attr(self, key):
+        """The attribute ``key`` of this symbol's (first) node."""
+        return self._outputs[0][0].attrs.get(key)
+
+    def attr_dict(self):
+        """{node name: its attributes} for every node that has some."""
+        return {n.name: dict(n.attrs) for n in self._topo_nodes() if n.attrs}
 
     def get_internals(self):
         return Symbol([(n, i) for n in self._topo_nodes()
@@ -219,14 +231,34 @@ class Symbol:
 
     # --------------------------------------------------------------- binding
     def bind(self, ctx, args, args_grad=None, grad_req="null",
-             aux_states=None):
-        """An inference Executor over ``args`` (dict or list, in
-        ``list_arguments()`` order) and ``aux_states``. Gradients are not
-        ported: ``grad_req`` must be "null" (ROADMAP Queue 1 item 11)."""
-        from ..executor import Executor
+             aux_states=None, group2ctx=None, shared_exec=None):
+        """An Executor over ``args`` (dict or list, in ``list_arguments()``
+        order) and ``aux_states``, with gradient buffers ``args_grad``
+        (made for every argument whose ``grad_req`` -- one for all, a list
+        or a dict -- is not "null" when not given). Given tensors, the
+        executor's dicts and outputs are tensors; given NDArrays, it is an
+        :class:`~mxnet_tpu_torch.executor.NDArrayExecutor` over them."""
+        from ..executor import Executor, NDArrayExecutor
+        from ..ndarray.ndarray import NDArray
 
-        return Executor._bind(self, ctx, args, args_grad, grad_req,
-                              aux_states)
+        given = [*(args.values() if isinstance(args, dict) else args),
+                 *(args_grad.values() if isinstance(args_grad, dict)
+                   else args_grad or ())]
+        bind = NDArrayExecutor._bind if any(
+            isinstance(v, NDArray) for v in given) else Executor._bind
+        return bind(self, ctx, args, args_grad, grad_req, aux_states)
+
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    stype_dict=None, group2ctx=None, shared_arg_names=None,
+                    shared_exec=None, shared_buffer=None, **shapes):
+        """An :class:`~mxnet_tpu_torch.executor.NDArrayExecutor` with
+        zero-filled NDArrays for every argument and auxiliary state, their
+        shapes inferred from ``shapes``, and gradient buffers by
+        ``grad_req`` (``mxnet_tpu/symbol/symbol.py:349``)."""
+        from ..executor import Executor, NDArrayExecutor
+
+        return NDArrayExecutor(Executor._simple_bind(
+            self, ctx, grad_req=grad_req, type_dict=type_dict, **shapes))
 
     # ---------------------------------------------------------- (de)serialize
     def tojson(self):
@@ -253,7 +285,10 @@ def _eval_out_shapes(node, in_shapes):
     import torch
 
     op = _registry.get_op(node.op)
-    fn = op.closed(op.normalize(node.params))
+    params = op.normalize(node.params)
+    if op.takes_device:
+        params["device"] = "meta"
+    fn = op.closed(params)
     try:
         out = fn(*[torch.empty(s, device="meta") for s in in_shapes])
     except Exception as e:
@@ -306,9 +341,19 @@ _PARAM_SHAPE_HOOKS = {"FullyConnected": _fc_hook, "Convolution": _conv_hook,
 
 # ------------------------------------------------------------- construction
 
-def Variable(name, attr=None):
-    """A graph input named ``name`` (``attr``: its ``__*__`` attributes)."""
-    return Symbol([(_Node(None, name, attrs=attr), 0)])
+def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
+             dtype=None, init=None, stype=None, **kwargs):
+    """A graph input named ``name`` (``attr``: its ``__*__`` attributes;
+    ``lr_mult`` / ``wd_mult``, ``shape``, ``dtype`` and ``init`` become
+    ``__lr_mult__`` ...; ``mxnet_tpu/symbol/symbol.py:567``)."""
+    attrs = dict(attr or {})
+    for key, val in (("__shape__", None if shape is None else tuple(shape)),
+                     ("__lr_mult__", lr_mult), ("__wd_mult__", wd_mult),
+                     ("__dtype__", None if dtype is None else str(dtype)),
+                     ("__init__", None if init is None else str(init))):
+        if val is not None:
+            attrs[key] = val
+    return Symbol([(_Node(None, name, attrs=attrs), 0)])
 
 
 var = Variable
@@ -334,13 +379,19 @@ def _create(opname, input_syms, params, name=None, attr=None):
     return Symbol([(node, i) for i in range(node.num_outputs())])
 
 
+# array inputs that have a default (None) in the op functions
+_OPTIONAL_ARRAYS = ("bias", "rng_key", "sequence_length", "like")
+# ... of which a creator makes no variable when they are not given
+_NO_AUTO_VAR = ("sequence_length", "like")
+
+
 def _array_param_names(op):
     """Leading positional (array) parameter names of the op function."""
     names = []
     for p in _inspect.signature(op.fn).parameters.values():
         if p.kind is p.VAR_POSITIONAL:
             return names, True
-        if p.default is p.empty or p.name == "bias":
+        if p.default is p.empty or p.name in _OPTIONAL_ARRAYS:
             if p.kind in (p.POSITIONAL_OR_KEYWORD, p.POSITIONAL_ONLY):
                 names.append(p.name)
         else:
@@ -372,12 +423,13 @@ def make_symbol_creator(opname):
             else:
                 slots[an] = None
         params = dict(kwargs)
-        mutate = set(op.mutate)
+        mutate = set(op.mutate_slots(op.normalize(params)))
         inputs = []
         for idx, an in enumerate(arr_names):
             s = slots[an]
             if s is None:
-                if an == "bias" and params.get("no_bias"):
+                if (an == "bias" and params.get("no_bias")) or \
+                        an in _NO_AUTO_VAR:
                     continue
                 s = Variable(f"{name}_{an}")
                 if idx in mutate:
@@ -423,7 +475,7 @@ def _load_reference_json(data):
         if n.is_var:
             continue
         op = _registry.get_op(n.op)
-        for slot in op.mutate:
+        for slot in op.mutate_slots(op.normalize(n.params)):
             if slot < len(n.inputs) and n.inputs[slot][0].is_var:
                 n.inputs[slot][0].aux_mark = True
     return Symbol([(nodes[i], s) for i, s in map(_entry, data["heads"])])

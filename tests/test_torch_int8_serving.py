@@ -253,7 +253,7 @@ def test_ndarray_iter_batches_like_mxnet_tpu(handle):
     its = (mx.io.NDArrayIter(x, y, batch_size=4, last_batch_handle=handle),
            mt.io.NDArrayIter(x, y, batch_size=4, last_batch_handle=handle))
     for _ in range(2):
-        got = [[(b.data[0].numpy(), b.label[0].numpy(), b.pad)
+        got = [[(b.data[0].asnumpy(), b.label[0].asnumpy(), b.pad)
                 for b in its[1]]]
         want = [[(b.data[0].asnumpy(), b.label[0].asnumpy(), b.pad)
                  for b in its[0]]]

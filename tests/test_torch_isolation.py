@@ -43,7 +43,12 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert {os.path.join("amp", f) for f in (
         "__init__.py", "amp.py", "lists.py", "loss_scaler.py")} | {
         "optimizer/optimizer.py", "parallel/optim.py", "gluon/loss.py",
-        "gluon/trainer.py", "metric.py", "autograd.py"} <= {
+        "gluon/trainer.py", "metric.py", "autograd.py"} | {
+        # the imperative and Module front end
+        "ndarray/__init__.py", "ndarray/ndarray.py", "random.py",
+        "ops/random_ops.py", "ops/parity_aliases.py", "attribute.py",
+        "kvstore/kvstore.py", "model.py", "callback.py",
+        "module/base_module.py", "module/module.py"} <= {
         os.path.relpath(p, PKG) for p in sources}
     offenders = []
     for path in sources:
@@ -95,6 +100,22 @@ def test_imports_and_runs_with_jax_and_mxnet_tpu_blocked():
         tr.step(2)
         assert pickle.loads(tr.get_states_bytes())["__update_counts__"]
         mt.amp.reset()
+        # the imperative and Module front end
+        import numpy as np
+        with mt.cpu():
+            x = mt.nd.random.normal(shape=(32, 8))
+            x.attach_grad()
+            with mt.autograd.record():
+                y = mt.nd.FullyConnected(x, mt.nd.ones((4, 8)), num_hidden=4,
+                                         no_bias=True).sum()
+            y.backward()
+            assert x.grad.shape == (32, 8)
+            s = mt.sym.SoftmaxOutput(mt.sym.FullyConnected(
+                mt.sym.Variable("data"), num_hidden=3), name="softmax")
+            mod = mt.mod.Module(s, context=mt.cpu())
+            mod.fit(mt.io.NDArrayIter(x.asnumpy(), np.arange(32) % 3, 8),
+                    num_epoch=1, kvstore="device",
+                    batch_end_callback=mt.callback.Speedometer(8, 2))
         leaked = [n for n in sys.modules
                   if n == "jax" or n.startswith("jax.")
                   or n == "mxnet_tpu" or n.startswith("mxnet_tpu.")]

@@ -163,7 +163,7 @@ def test_kill_and_resume_is_bitwise(opt, tmp_path):
     tr.save_states(str(tmp_path / "trainer.states"))
     del net, tr
     net = _net(1)
-    net.load_numpy_params({k: v.numpy() for k, v in
+    net.load_numpy_params({k: v.asnumpy() for k, v in
                            mt.nd.load(str(tmp_path / "net.params")).items()})
     tr = mt.gluon.Trainer(net.collect_params(), opt, {"learning_rate": 0.01})
     tr.load_states(str(tmp_path / "trainer.states"))
