@@ -8,6 +8,8 @@
     python3 chip_smoke.py --int8-only        # build + K5's checks, phase p
                                              # and K5's timing
     python3 chip_smoke.py --amp-only         # build + phase q
+    python3 chip_smoke.py --rnn-only         # build + phase s (word LM)
+    python3 chip_smoke.py --lm-sweeps 6      # build + s1's LM, card and CPU
 
 Phases, each failing loudly with a non-zero exit:
 
@@ -273,7 +275,7 @@ Phases, each failing loudly with a non-zero exit:
       parameters against a CPU copy within 1e-5 of max|w|, and its device
       ms an update; then K1 and K2 in fp16 at (8, 12, 1024, 64) beside
       SDPA fp16, their plain versions and the bound;
-  (r) the imperative and Module front end (last): (r1)
+  (r) the imperative and Module front end: (r1)
       examples/train_mnist.py's configuration through mx.mod.Module with
       no context (gpu(0)): its mlp() (784 -> 128 -> 64 -> 10,
       SoftmaxOutput) on its synthetic set (3584 / 512), batch 128, SGD lr
@@ -298,7 +300,32 @@ Phases, each failing loudly with a non-zero exit:
       'device' kvstores: push of 4 values and pull, bitwise their sum in
       list order; set_optimizer's update bitwise the Updater's; optimizer
       states saved and loaded, bitwise. ``--module-only`` runs the build
-      and phase r alone.
+      and phase r alone;
+  (s) the word-LM slice in fp32 (TF32 off), which launches no K1-K5:
+      (s1) MXNet 1.6's tied 650-d word LM (2 LSTM layers, 10,000 words,
+      the decoder's weight the embedding's) trained through
+      BucketingModule over buckets 10-60 at batch 32 with Adam lr 0.01 on
+      word_lm.py's synthetic stream, 10 sweeps of the buckets in seeded
+      orders: every bucket bound once over the default bucket's parameter
+      and gradient tensors, the last sweep's perplexity at most half the
+      first's; each of the first 3 steps against CPU copies given the
+      card's weights and Adam states from before it, within 1e-4 of the
+      max: the gradients, Adam's weights and states on the card's
+      gradients, and the whole step's weights where the step's measured
+      gradient difference cannot move Adam's update by the tolerance
+      (the rest counted); median step ms by bucket, tokens/s, a profiled
+      bucket-60 step, peak memory, us a bucket switch; (s2) the RNN op
+      alone at
+      (60, 32, 650), 2 layers, beside torch.nn.LSTM (cuDNN, measured only)
+      on the same weights (within 1e-4 of max|out|): host ms, device ms
+      as a replayed CUDA graph, launches; (s3) gluon.rnn.LSTM against the
+      op on its flat parameters (1e-5), GRU / bidirectional / cells'
+      unroll on the card against the CPU, 5 gluon.Trainer steps with
+      clip_global_norm; (s4) sym.contrib.foreach over an LSTM step
+      against the fused op, while_loop's padding, cond's branches, a
+      Predictor refusing to capture _while_loop; (s5) SequentialModule +
+      PythonLossModule on the card against the CPU. ``--rnn-only`` runs
+      the build and phase s alone.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. ``--summary PATH`` also writes the
@@ -7301,11 +7328,13 @@ def _optimizer_sweep(torch, mx, kind, name, kw, ws):
     return sweep
 
 
-def graph_ms(torch, fn):
-    """Device ms of one call of ``fn`` captured as a CUDA graph and
-    replayed back to back (device_ms): for launch-bound work, whose
-    kernels one at a time leave device_ms's queue dry. None (logged) if
-    ``fn`` cannot be captured."""
+def graph_ms(torch, fn, phase, n=20):
+    """Device ms of one call of ``fn`` captured as a CUDA graph: CUDA
+    events around ``n`` replays queued behind a spin kernel, for
+    launch-bound work, whose kernels one at a time leave device_ms's queue
+    dry. A graph whose replay waits on the host (cuDNN's LSTM does) cannot
+    be queued ahead: then the time is logged as holding host time. None
+    (logged under ``phase``) if ``fn`` cannot be captured."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -7316,9 +7345,23 @@ def graph_ms(torch, fn):
         with torch.cuda.graph(graph):
             fn()
     except RuntimeError as e:
-        log(f"[q6] capture refused: {str(e)[:120]} (not measured)")
+        log(f"[{phase}] capture refused: {str(e)[:120]} (not measured)")
         return None
-    ms = device_ms(graph.replay)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e7))
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        graph.replay()
+    b.record()
+    ran_dry = a.query()
+    b.synchronize()
+    ms = a.elapsed_time(b) / n
+    if ran_dry:
+        log(f"[{phase}] the host fell behind the graph's replays: "
+            f"{ms:.3f} ms a replay holds host time")
     del graph
     return ms
 
@@ -7357,7 +7400,7 @@ def amp_optimizers(torch, mx, net):
                       for a, b in zip(*finals))
             sweep = _optimizer_sweep(torch, mx, kind, name, kw, finals[0])
             gs = [g.cuda() for g in _sweep_grads(torch, shapes, 9)]
-            ms = graph_ms(torch, lambda: sweep(gs))
+            ms = graph_ms(torch, lambda: sweep(gs), "q6")
             rows.append({"kind": kind, "name": name, "params": kw,
                          "err": err, "ms": ms})
             worst = max(worst, (err, f"{kind} {name}"))
@@ -7967,6 +8010,805 @@ def module_phase(torch, mx, kernels):
     return {"mnist": mnist, "resnet": resnet, "nd": nd, "kvstore": kv}
 
 
+# ------------------------------------------------------------------ phase s
+# MXNet 1.6's example/rnn/word_lm tied 650-d setting (SURVEY.md:421): two
+# LSTM layers of 650 units over 650-d embeddings, the decoder's weight the
+# embedding's Variable, PTB's 10,000-word vocabulary; trained through
+# BucketingModule with example/rnn/bucketing/lstm_bucketing.py's buckets,
+# batch 32 and examples/rnn/word_lm.py's Adam at lr 0.01. PTB is not in the
+# repository, so the text is word_lm.py's synthetic stream
+# x[t+1] = (3 x[t] + 7) mod vocab.
+LM_VOCAB, LM_UNITS, LM_LAYERS = 10000, 650, 2
+LM_BUCKETS = (10, 20, 30, 40, 50, 60)
+LM_BATCH, LM_LR = 32, 0.01
+LM_SWEEPS = 10          # each sweep runs every bucket once, in a drawn order
+LM_CPU_STEPS = 3        # the card's fit against a CPU copy over these steps
+LM_CPU_TOL = 1e-4       # of max|w|, max|grad| and max|Adam state|
+# Adam's update lr_t m / (sqrt(v) + eps) moves by at most
+# lr_t * ADAM_GAIN * |dg| / (sqrt(v) + eps) when an element's (rescaled)
+# gradient moves by dg: (1 - b1) from m, and from v at most (1 - b1) /
+# sqrt(1 - b1^2 / b2), the bound of |m| / sqrt(v) (Cauchy-Schwarz over the
+# steps), b1 0.9 and b2 0.999 as Adam's defaults. Where sqrt(v) is small
+# the float noise of two devices' gradients alone moves the update past
+# the tolerance, so the full step's weights are held on the elements
+# where it cannot (word_lm_cpu_step).
+ADAM_GAIN = 0.1 * (1 + 1 / math.sqrt(1 - 0.9 ** 2 / 0.999))
+S_GLUON_TOL = 1e-5      # gluon.rnn.LSTM against the op, of max|ref|
+S_CARD_TOL = 1e-5       # small widths on the card against the CPU
+S_CUDNN_TOL = 1e-4      # the op against torch.nn.LSTM (cuDNN), of max|out|
+S_SWITCHES = 600
+
+_S_FAILED = []
+
+
+def s_check(ok, what):
+    """Log a phase-s check; a failed one is collected and fails the phase
+    at its end."""
+    log(f"[s] {'ok  ' if ok else 'FAIL'} {what}")
+    if not ok:
+        _S_FAILED.append(what)
+    return ok
+
+
+def word_lm_sym_gen(mx):
+    """examples/rnn/word_lm.py's sym_gen at the tied setting: Embedding ->
+    transpose -> RNN(lstm) -> transpose / reshape -> FullyConnected over
+    the embedding's weight -> SoftmaxOutput."""
+    sym = mx.sym
+
+    def sym_gen(seq_len):
+        data, label = sym.Variable("data"), sym.Variable("softmax_label")
+        weight = sym.Variable("embed_weight")
+        emb = sym.Embedding(data, weight=weight, input_dim=LM_VOCAB,
+                            output_dim=LM_UNITS, name="embed")
+        rnn = sym.RNN(sym.transpose(emb, axes=(1, 0, 2)),
+                      state_size=LM_UNITS, num_layers=LM_LAYERS,
+                      mode="lstm", name="lstm")
+        out = sym.transpose(rnn, axes=(1, 0, 2)).reshape((-1, LM_UNITS))
+        logits = sym.FullyConnected(out, weight=weight, num_hidden=LM_VOCAB,
+                                    name="pred")
+        return (sym.SoftmaxOutput(logits, sym.reshape(label, shape=(-1,)),
+                                  name="softmax"),
+                ("data",), ("softmax_label",))
+    return sym_gen
+
+
+def word_lm_sweeps(seed=0, n_sweeps=LM_SWEEPS):
+    """``n_sweeps`` sweeps, each the buckets in an order drawn by
+    RandomState(seed); a batch is the next LM_BATCH x (T + 1) tokens of
+    word_lm.py's synthetic stream, as its batches() cuts them."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    orders = [[LM_BUCKETS[i] for i in rng.permutation(len(LM_BUCKETS))]
+              for _ in range(n_sweeps)]
+    need = sum(LM_BATCH * (t + 1) for order in orders for t in order)
+    x = [int(rng.randint(LM_VOCAB))]
+    for _ in range(need - 1):
+        x.append((3 * x[-1] + 7) % LM_VOCAB)
+    stream, i, sweeps = np.asarray(x), 0, []
+    for order in orders:
+        batches = []
+        for t in order:
+            chunk = stream[i:i + LM_BATCH * (t + 1)].reshape(LM_BATCH, t + 1)
+            i += LM_BATCH * (t + 1)
+            batches.append((t, chunk[:, :-1].astype(np.float32),
+                            chunk[:, 1:].astype(np.float32)))
+        sweeps.append(batches)
+    return sweeps
+
+
+def word_lm_batch(mx, t, x, y):
+    return mx.io.DataBatch(
+        data=[mx.nd.array(x, ctx=mx.cpu())],
+        label=[mx.nd.array(y, ctx=mx.cpu())], bucket_key=t,
+        provide_data=[mx.io.DataDesc("data", (LM_BATCH, t))],
+        provide_label=[mx.io.DataDesc("softmax_label", (LM_BATCH, t))])
+
+
+def word_lm_module(mx, ctx, arg=None):
+    """The BucketingModule on ``ctx``, bound at the default bucket (60),
+    its parameters Xavier from mx.random.seed(0) or ``arg``, Adam; with
+    {bucket: Modules generated} counted."""
+    mod = mx.mod.BucketingModule(word_lm_sym_gen(mx),
+                                 default_bucket_key=max(LM_BUCKETS),
+                                 context=ctx)
+    gens, make = {}, mod._gen_module
+
+    def counted(key):
+        gens[key] = gens.get(key, 0) + 1
+        return make(key)
+
+    mod._gen_module = counted
+    t = max(LM_BUCKETS)
+    mod.bind([mx.io.DataDesc("data", (LM_BATCH, t))],
+             [mx.io.DataDesc("softmax_label", (LM_BATCH, t))])
+    if arg is None:
+        mx.random.seed(0)
+        mod.init_params(mx.initializer.Xavier())
+    else:
+        mod.init_params(arg_params=arg, aux_params={})
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": LM_LR})
+    return mod, gens
+
+
+def word_lm_step(mod, batch):
+    mod.forward(batch, is_train=True)
+    mod.backward()
+    mod.update()
+
+
+def word_lm_flops(t):
+    """Forward and backward FLOPs of one bucket-``t`` step: the LSTM's
+    gate products and the decoder (2 FLOPs a MAC, x3 for the backward)."""
+    macs = LM_LAYERS * 4 * LM_UNITS * 2 * LM_UNITS + LM_UNITS * LM_VOCAB
+    return 6 * LM_BATCH * t * macs
+
+
+def word_lm_grads(mod):
+    """The current bucket's gradients on the host, by parameter name."""
+    m = mod._curr_module
+    return {n: m._execs[0].grad_dict[n].asnumpy() for n in m._param_names}
+
+
+def word_lm_rel(np, got, want, keep=None):
+    """{name: max|got - want| / max|want|}, over ``keep``'s elements when
+    given."""
+    out = {}
+    for k, w in want.items():
+        scale = max(float(np.abs(w).max()), 1e-12)
+        diff = np.abs(got[k].astype(np.float64) - w)
+        if keep is not None:
+            diff = np.where(keep[k], diff, 0.0)
+        out[k] = float(diff.max() / scale)
+    return out
+
+
+def word_lm_adam(np, mod):
+    """The updater's Adam states on the host: {name: (m, v)}."""
+    return {k: tuple(t.detach().cpu().numpy() for t in st)
+            for k, st in mod._curr_module._updater.states.items()}
+
+
+def word_lm_pre(mod):
+    """The weights (host) and the updater's states and counts (bytes)
+    before a step, for word_lm_cpu_step."""
+    return ({k: v.asnumpy() for k, v in mod.get_params()[0].items()},
+            mod._curr_module._updater.get_states())
+
+
+def word_lm_nll(mod, batch):
+    """The mean NLL of the last forward's outputs on ``batch``."""
+    probs = mod.get_outputs()[0]._data
+    labels = batch.label[0]._data.to(probs.device).long().reshape(-1)
+    return float(-probs.gather(1, labels[:, None]).clamp_min(
+        1e-10).log().mean())
+
+
+def word_lm_cpu_step(torch, np, mx, card, full, adam, pre, batch):
+    """One of s1's first LM_CPU_STEPS steps, the card's already taken, on
+    two CPU copies that first get the card's weights, Adam states and
+    update counts from before it (``pre``): ``full`` takes the whole step
+    on its own gradients, ``adam`` only Adam's update on the card's. Gated,
+    each at LM_CPU_TOL of the CPU's max: the card's gradients; its weights
+    and Adam states against ``adam``'s (every element); its weights against
+    ``full``'s on the elements where the largest gradient difference
+    measured in this step, through ADAM_GAIN, cannot move Adam's update by
+    the tolerance (the rest counted, and reported over every element)."""
+    w_pre, states = pre
+    for m in (full, adam):
+        m.set_params({k: mx.nd.array(v, ctx=mx.cpu())
+                      for k, v in w_pre.items()}, {})
+        m._curr_module._updater.set_states(states)
+    full.forward(batch, is_train=True)
+    full.backward()
+    g_card, g_cpu = word_lm_grads(card), word_lm_grads(full)
+    v_pre = {k: st[1] for k, st in word_lm_adam(np, full).items()}
+    full.update()
+    grads = adam._curr_module._execs[0].grad_dict
+    for k, g in g_card.items():
+        grads[k]._data.copy_(torch.from_numpy(g))
+    adam.update()
+    host = lambda m: {k: v.asnumpy() for k, v in m.get_params()[0].items()}  # noqa
+    w_card, w_full, w_adam = host(card), host(full), host(adam)
+    s_card, s_adam = word_lm_adam(np, card), word_lm_adam(np, adam)
+    opt = full._curr_module._updater.optimizer
+    out = {"grads": word_lm_rel(np, g_card, g_cpu),
+           "adam_weights": word_lm_rel(np, w_card, w_adam)}
+    for i, part in enumerate(("adam_m", "adam_v")):
+        out[part] = word_lm_rel(np, {k: v[i] for k, v in s_card.items()},
+                                {k: v[i] for k, v in s_adam.items()})
+    keep, left_out = {}, {}
+    for k, g in g_cpu.items():
+        t = opt._index_update_count[k]
+        lr_t = opt.lr * math.sqrt(1 - opt.beta2 ** t) / (1 - opt.beta1 ** t)
+        dg = float(np.abs(g_card[k] - g).max()) * opt.rescale_grad
+        gmin = np.maximum(np.abs(g) * opt.rescale_grad - dg, 0.0)
+        v_lo = opt.beta2 * v_pre.get(k, 0.0) + (1 - opt.beta2) * gmin ** 2
+        tol = LM_CPU_TOL * float(np.abs(w_full[k]).max())
+        keep[k] = lr_t * ADAM_GAIN * dg <= tol * (np.sqrt(v_lo) + opt.epsilon)
+        left_out[k] = int((~keep[k]).sum())
+    out["weights_kept"] = word_lm_rel(np, w_card, w_full, keep)
+    out["weights_all"] = word_lm_rel(np, w_card, w_full)
+    out["left_out"] = left_out
+    return out
+
+
+def word_lm_train(torch, mx):
+    """s1: the tied 650-d word LM trained through BucketingModule on the
+    card: every bucket bound once, over the parameter and gradient tensors
+    of the default bucket; the last sweep's perplexity at most half the
+    first's; each of the first 3 steps against CPU copies from the card's
+    state before it (word_lm_cpu_step); step ms by bucket, tokens/s, a
+    profiled bucket-60 step, peak memory and ms a bucket switch."""
+    import numpy as np
+
+    sweeps = word_lm_sweeps()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mod, gens = word_lm_module(mx, mx.gpu(0))
+    init = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    n_params = sum(v.size for v in init.values())
+    full, adam = (word_lm_module(mx, mx.cpu(), {
+        k: mx.nd.array(v, ctx=mx.cpu()) for k, v in init.items()})[0]
+        for _ in range(2))
+    metric = mx.metric.Perplexity(ignore_label=None)
+    ppl, first_ms, step_ms = [], {}, {t: [] for t in LM_BUCKETS}
+    cpu_checks, nll = [], []
+    step = 0
+    for sweep in sweeps:
+        metric.reset()
+        for t, x, y in sweep:
+            batch = word_lm_batch(mx, t, x, y)
+            if step < LM_CPU_STEPS:    # the card's state before the step
+                pre = word_lm_pre(mod)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            word_lm_step(mod, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if t in first_ms:
+                step_ms[t].append(ms)
+            else:
+                first_ms[t] = ms
+            mod.update_metric(metric, batch.label)
+            nll.append((t, word_lm_nll(mod, batch)))
+            if step < LM_CPU_STEPS:
+                cpu_checks.append(word_lm_cpu_step(torch, np, mx, mod, full,
+                                                   adam, pre, batch))
+            step += 1
+        ppl.append(metric.get()[1])
+    del full, adam
+    on_card = mod._buckets[max(LM_BUCKETS)]._execs[0].arg_dict[
+        "embed_weight"]._data.is_cuda
+    s_check(on_card, "s1 the parameters live on the card")
+    s_check(n_params > 13e6, f"s1 {n_params} parameters (the tied 650-d "
+            "LM's ~13.3 M)")
+    s_check(gens == {t: 1 for t in LM_BUCKETS},
+            f"s1 every bucket bound once: {dict(sorted(gens.items()))}")
+    mods = [mod._buckets[t] for t in LM_BUCKETS]
+    shared = all(
+        len({m._execs[0].arg_dict[n]._data.data_ptr() for m in mods}) == 1
+        and len({m._execs[0].grad_dict[n]._data.data_ptr()
+                 for m in mods}) == 1
+        for n in mods[0]._param_names)
+    s_check(shared, f"s1 the {len(mods)} buckets read the same parameter "
+            f"and gradient tensors ({len(mods[0]._param_names)} names, "
+            "data_ptr)")
+    s_check(ppl[-1] <= 0.5 * ppl[0], f"s1 perplexity by sweep "
+            f"{[round(p, 3) for p in ppl]}: the last at most half the "
+            "first")
+    log(f"[s1] (bucket, mean NLL) by step: "
+        f"{[(t, round(v, 3)) for t, v in nll]}")
+    buckets = [t for t, _, _ in sweeps[0][:LM_CPU_STEPS]]
+    fmt = lambda d: {k: float(f"{v:.3e}") for k, v in d.items()}  # noqa
+    sizes = {k: int(v.size) for k, v in init.items()}
+    for i, c in enumerate(cpu_checks):
+        what = (f"s1 step {i + 1} (bucket {buckets[i]}) from the card's "
+                "weights and Adam states before it, card vs CPU")
+        s_check(max(c["grads"].values()) <= LM_CPU_TOL,
+                f"{what}: gradients {fmt(c['grads'])} of max|grad| (tol "
+                f"{LM_CPU_TOL:g})")
+        worst = max(max(c[p].values())
+                    for p in ("adam_weights", "adam_m", "adam_v"))
+        s_check(worst <= LM_CPU_TOL,
+                f"{what}, Adam on the card's gradients: weights "
+                f"{fmt(c['adam_weights'])} of max|w|, m {fmt(c['adam_m'])}, "
+                f"v {fmt(c['adam_v'])} of their max (tol {LM_CPU_TOL:g})")
+        s_check(max(c["weights_kept"].values()) <= LM_CPU_TOL,
+                f"{what}, the whole step: weights {fmt(c['weights_kept'])} "
+                f"of max|w| (tol {LM_CPU_TOL:g}) where the step's gradient "
+                f"difference cannot move Adam's update by the tolerance; "
+                f"left out {c['left_out']} of {sizes}; over every element "
+                f"{fmt(c['weights_all'])}")
+    med = {t: sorted(v)[len(v) // 2] for t, v in step_ms.items()}
+    tps = {t: LM_BATCH * t / (med[t] / 1e3) for t in LM_BUCKETS}
+    bound = {t: word_lm_flops(t) / PEAK_FP32_FMA_FLOPS * 1e3
+             for t in LM_BUCKETS}
+    for t in LM_BUCKETS:
+        log(f"[s1] bucket {t}: median step {med[t]:.3f} ms over "
+            f"{len(step_ms[t])} steps (host clock, forward + backward + "
+            f"Adam, synchronised), {tps[t]:.1f} tokens/s; first step "
+            f"{first_ms[t]:.3f} ms (its bind included); fp32 FLOP bound "
+            f"{bound[t]:.3f} ms ({word_lm_flops(t) / 1e12:.4f} TFLOP)")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[s1] peak memory {peak:.3f} GiB")
+
+    keys = list(LM_BUCKETS)
+    descs = {t: ([mx.io.DataDesc("data", (LM_BATCH, t))],
+                 [mx.io.DataDesc("softmax_label", (LM_BATCH, t))])
+             for t in keys}
+    t0 = time.perf_counter()
+    for i in range(S_SWITCHES):
+        mod.switch_bucket(keys[i % len(keys)], *descs[keys[i % len(keys)]])
+    switch_ms = (time.perf_counter() - t0) * 1e3 / S_SWITCHES
+    log(f"[s1] a bucket switch: {switch_ms * 1e3:.3f} us (host clock, "
+        f"mean of {S_SWITCHES}; no bytes move)")
+
+    t_last, x, y = next(b for b in sweeps[-1] if b[0] == max(LM_BUCKETS))
+    batch = word_lm_batch(mx, t_last, x, y)
+    prof = profile_window(
+        torch, lambda: word_lm_step(mod, batch),
+        f"one bucket-{t_last} step (forward, backward, Adam)", "s1",
+        ("gemm", "nvjet", "cutlass", "xmma", "sm90"), top=10)
+    return {"perplexity_by_sweep": ppl, "nll_by_step": nll,
+            "buckets_bound": gens,
+            "params": int(n_params), "cpu_checks": cpu_checks,
+            "median_step_ms": med, "tokens_per_s": tps,
+            "first_step_ms": first_ms, "step_ms": step_ms,
+            "flop_bound_ms": bound, "peak_gib": peak,
+            "switch_ms": switch_ms, "profile": prof}
+
+
+def word_lm_ulp_grads(np, mx, mod, w, batch, seed):
+    """{name: max|dg| / max|g|} between ``mod``'s gradients on ``batch`` at
+    the weights ``w`` and at ``w`` moved by one float32 ulp an element in
+    seeded random directions: how far float noise alone moves them."""
+    rng = np.random.RandomState(seed)
+    grads = []
+    for ws in (w, {k: np.where(rng.rand(*v.shape) < 0.5,
+                               np.nextafter(v, -np.inf),
+                               np.nextafter(v, np.inf)).astype(v.dtype)
+                   for k, v in w.items()}):
+        mod.set_params({k: mx.nd.array(v, ctx=mx.cpu())
+                        for k, v in ws.items()}, {})
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        grads.append(word_lm_grads(mod))
+    return word_lm_rel(np, grads[1], grads[0])
+
+
+def word_lm_perplexities(torch, mx, n_sweeps):
+    """``--lm-sweeps N``: s1's word LM trained over N sweeps of its buckets
+    on the card and on a CPU copy from one start, in step; each one's NLL
+    by step and perplexity by sweep logged, and every step of the card's
+    held as s1 holds its first 3 (word_lm_cpu_step), its gradients where
+    one ulp of the weights does not move the CPU's own past the tolerance:
+    whether the two courses part because a step on the card is wrong or
+    because the function amplifies float noise there."""
+    import numpy as np
+
+    _S_FAILED.clear()
+    sweeps = word_lm_sweeps(n_sweeps=n_sweeps)
+    card = word_lm_module(mx, mx.gpu(0))[0]
+    init = {k: mx.nd.array(v.asnumpy(), ctx=mx.cpu())
+            for k, v in card.get_params()[0].items()}
+    cpu, full, adam = (word_lm_module(mx, mx.cpu(), init)[0]
+                       for _ in range(3))
+    ppl, nll, worst, unjudged = {"card": [], "cpu": []}, [], {}, []
+    parts = ("grads", "adam_weights", "adam_m", "adam_v", "weights_kept")
+    for sweep in sweeps:
+        metrics = {k: mx.metric.Perplexity(ignore_label=None) for k in ppl}
+        for t, x, y in sweep:
+            batch = word_lm_batch(mx, t, x, y)
+            pre = word_lm_pre(card)
+            step = {}
+            for name, mod in (("card", card), ("cpu", cpu)):
+                word_lm_step(mod, batch)
+                mod.update_metric(metrics[name], batch.label)
+                step[name] = word_lm_nll(mod, batch)
+            c = word_lm_cpu_step(torch, np, mx, card, full, adam, pre, batch)
+            errs = {p: max(c[p].values()) for p in parts}
+            if errs["grads"] > LM_CPU_TOL:
+                # judged only where the CPU's own gradients hold still
+                # under one ulp of its weights: else no answer at this
+                # tolerance can be told right from wrong
+                ulp = word_lm_ulp_grads(np, mx, full, pre[0], batch,
+                                        len(nll))
+                fmt = lambda d: {k: float(f"{v:.3e}")  # noqa
+                                 for k, v in d.items()}
+                log(f"[lm-sweeps] step {len(nll) + 1}: the card's gradients "
+                    f"vs the CPU's {fmt(c['grads'])}; the CPU's own, its "
+                    f"weights moved one ulp: {fmt(ulp)}")
+                if max(ulp.values()) > LM_CPU_TOL:
+                    unjudged.append(len(nll) + 1)
+                    errs["grads"] = 0.0
+            for p in parts:
+                worst[p] = max(worst.get(p, 0.0), errs[p])
+            nll.append((t, step["card"], step["cpu"]))
+            log(f"[lm-sweeps] step {len(nll)} bucket {t}: NLL card "
+                f"{step['card']:.4f} cpu {step['cpu']:.4f}; the card's step "
+                f"vs the CPU from its state: "
+                f"{ {p: float(f'{v:.3e}') for p, v in errs.items()} }")
+        for name in ppl:
+            ppl[name].append(metrics[name].get()[1])
+    for name in ppl:
+        log(f"[lm-sweeps] {name}: perplexity by sweep "
+            f"{[round(p, 3) for p in ppl[name]]}")
+    s_check(max(worst.values()) <= LM_CPU_TOL,
+            f"lm-sweeps every step of the card's vs the CPU from its state, "
+            f"worst {worst} (tol {LM_CPU_TOL:g}); the gradients of steps "
+            f"{unjudged} not judged (one ulp moves the CPU's own past the "
+            "tolerance)")
+    if _S_FAILED:
+        raise SystemExit("lm-sweeps: " + "; ".join(_S_FAILED))
+    return {"perplexity_by_sweep": ppl, "nll_by_step": nll, "worst": worst,
+            "unjudged": unjudged}
+
+
+def rnn_op_alone(torch, mx):
+    """s2: the RNN op at s1's bucket-60 shape ((60, 32, 650), 2 LSTM
+    layers): forward and forward + backward, host ms, device ms (the call
+    captured as a CUDA graph and replayed back to back) and one profiled
+    call's busy time and launches; torch.nn.LSTM (cuDNN) on the same
+    weights and input beside it, its output within 1e-4 of max|out|."""
+    from mxnet_tpu_torch.ops import rnn as rnn_op
+
+    t, n, h, layers = max(LM_BUCKETS), LM_BATCH, LM_UNITS, LM_LAYERS
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    flat = torch.rand(rnn_op.rnn_param_size(h, h, layers, False, "lstm"),
+                      device="cuda", generator=gen) * 0.14 - 0.07
+    x, dout = (torch.randn(t, n, h, device="cuda", generator=gen)
+               for _ in range(2))
+    h0, c0 = (torch.randn(layers, n, h, device="cuda", generator=gen) * 0.1
+              for _ in range(2))
+    lstm = torch.nn.LSTM(h, h, num_layers=layers).cuda()
+    ws = rnn_op._unpack(flat, h, h, layers, 1, "lstm")
+    with torch.no_grad():
+        for i in range(layers):
+            for name, w in zip(("weight_ih", "weight_hh", "bias_ih",
+                                "bias_hh"), ws[i][0]):
+                getattr(lstm, f"{name}_l{i}").copy_(w)
+
+    def op_fwd():
+        return rnn_op._rnn(x, flat, h0, c0, state_size=h, num_layers=layers,
+                           mode="lstm")
+
+    def op_fwd_bwd():
+        xg, fg = x.detach().requires_grad_(), flat.detach().requires_grad_()
+        rnn_op._rnn(xg, fg, h0, c0, state_size=h, num_layers=layers,
+                    mode="lstm").backward(dout)
+
+    def lib_fwd():
+        return lstm(x, (h0, c0))[0]
+
+    def lib_fwd_bwd():
+        lstm(x.detach().requires_grad_(), (h0, c0))[0].backward(dout)
+
+    with torch.no_grad():
+        err = rel_err(op_fwd(), lib_fwd())
+    s_check(err <= S_CUDNN_TOL, f"s2 the op vs torch.nn.LSTM (cuDNN) on the "
+            f"same weights: {err:.3e} of max|out| (tol {S_CUDNN_TOL:g})")
+    out = {"shape": [t, n, h], "layers": layers, "cudnn_err": err}
+    for name, fn, grad in (("op_fwd", op_fwd, False),
+                           ("op_fwd_bwd", op_fwd_bwd, True),
+                           ("cudnn_fwd", lib_fwd, False),
+                           ("cudnn_fwd_bwd", lib_fwd_bwd, True)):
+        with torch.set_grad_enabled(grad):
+            host = median_ms(fn, n=10)
+            dev = graph_ms(torch, fn, "s2")
+            prof = profile_window(torch, fn, f"one {name} call", "s2",
+                                  ("gemm", "nvjet", "cutlass", "xmma",
+                                   "sm90", "RNN", "LSTM"), top=5)
+        out[name] = {"host_ms": host, "device_ms": dev,
+                     "busy_ms": prof["device_busy_ms"],
+                     "launches": prof["launches"], "top": prof["top"]}
+        log(f"[s2] {name}: {host:.3f} ms a call (CUDA events around one "
+            f"call, the host's enqueue), device "
+            f"{'not measured' if dev is None else f'{dev:.3f} ms'} (one "
+            f"call as a CUDA graph, replayed), {prof['launches']} launches, "
+            f"busy {prof['device_busy_ms']:.3f} ms")
+    return out
+
+
+def _copy_params(src, dst):
+    """``src``'s parameter values into ``dst``'s, in order (the names'
+    counters differ)."""
+    import numpy as np
+
+    vals = [np.ascontiguousarray(p.data().detach().cpu().numpy())
+            for p in src._param_objects().values()]
+    dst.load_numpy_params(dict(zip(dst._param_objects(), vals)))
+
+
+def gluon_rnn_on_card(torch, mx):
+    """s3: gluon.rnn.LSTM(650, 2, input_size=650) against the op on its
+    own flat parameters (outputs and every gradient within 1e-5); GRU,
+    bidirectional and the cells' unroll at a small width on the card
+    against the CPU; five gluon.Trainer steps with clip_global_norm."""
+    from mxnet_tpu_torch.gluon import nn, rnn
+    from mxnet_tpu_torch.ops import rnn as rnn_op
+
+    t, n, h, layers = max(LM_BUCKETS), LM_BATCH, LM_UNITS, LM_LAYERS
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    layer = rnn.LSTM(h, layers, input_size=h)
+    layer.initialize(mx.init.Xavier(), ctx=mx.gpu(0), generator=gen)
+    x, dout = (torch.randn(t, n, h, device="cuda", generator=gen)
+               for _ in range(2))
+    with mx.autograd.record():
+        out = layer(x)
+    out.backward(dout)
+    flat = layer._flat_params().detach().requires_grad_()
+    zeros = torch.zeros(layers, n, h, device="cuda")
+    ref = rnn_op._rnn(x, flat, zeros, zeros, state_size=h,
+                      num_layers=layers, mode="lstm")
+    ref.backward(dout)
+    p = layer._param_objects()
+    grads = torch.cat([p[layer.prefix + k].grad().reshape(-1)
+                       for k in layer._names if k.endswith("weight")] +
+                      [p[layer.prefix + k].grad()
+                       for k in layer._names if k.endswith("bias")])
+    errs = {"out": rel_err(out.detach(), ref.detach()),
+            "grads": rel_err(grads, flat.grad)}
+    s_check(max(errs.values()) <= S_GLUON_TOL,
+            f"s3 gluon.rnn.LSTM({h}, {layers}) vs the op on its flat "
+            f"parameters: {errs} (tol {S_GLUON_TOL:g})")
+
+    import numpy as np
+
+    def stacked():
+        cell = rnn.SequentialRNNCell()
+        cell.add(rnn.LSTMCell(6, input_size=8))
+        cell.add(rnn.GRUCell(4, input_size=6))
+        return cell
+
+    rs = np.random.RandomState(0)
+    xs = rs.rand(5, 3, 8).astype(np.float32)
+    vl = np.array([5, 2, 4], np.float32)
+    small = (
+        ("GRU(6, 2, bidirectional)", lambda: rnn.GRU(
+            6, 2, bidirectional=True, input_size=8),
+         lambda b, x, v: b(x)),
+        ("LSTMCell unroll, valid_length", lambda: rnn.LSTMCell(
+            6, input_size=8),
+         lambda b, x, v: b.unroll(5, x, layout="TNC", merge_outputs=True,
+                                  valid_length=v)[0]),
+        ("BidirectionalCell(GRUCell) unroll, valid_length",
+         lambda: rnn.BidirectionalCell(rnn.GRUCell(6, input_size=8),
+                                       rnn.GRUCell(6, input_size=8)),
+         lambda b, x, v: b.unroll(5, x, layout="TNC", merge_outputs=True,
+                                  valid_length=v)[0]),
+        ("SequentialRNNCell(LSTMCell, GRUCell) unroll NTC", stacked,
+         lambda b, x, v: b.unroll(3, x.transpose(0, 1), layout="NTC",
+                                  merge_outputs=True)[0]))
+    small_errs = {}
+    for name, make, run in small:
+        host, card = make(), make()
+        host.initialize(ctx=mx.cpu())
+        card.initialize(ctx=mx.gpu(0))
+        _copy_params(host, card)
+        got = run(card, torch.tensor(xs, device="cuda"),
+                  torch.tensor(vl, device="cuda"))
+        want = run(host, torch.tensor(xs), torch.tensor(vl))
+        s_check(got.is_cuda, f"s3 {name} ran on the card")
+        small_errs[name] = rel_err(got.cpu(), want)
+        s_check(small_errs[name] <= S_CARD_TOL, f"s3 {name}: card vs cpu "
+                f"{small_errs[name]:.3e} of max|cpu| (tol {S_CARD_TOL:g})")
+
+    class TinyLM(mx.gluon.Block):
+        def __init__(self, vocab, units):
+            super().__init__()
+            with self.name_scope():
+                self.emb = nn.Embedding(vocab, units)
+                self.rnn = rnn.LSTM(units, 2, input_size=units)
+                self.out = nn.Dense(vocab, in_units=units, flatten=False)
+
+        def forward(self, ids):
+            hs = self.rnn(self.emb(ids).transpose(0, 1)).transpose(0, 1)
+            return self.out(hs)
+
+    vocab = 1000
+    net = TinyLM(vocab, 128)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0), generator=gen)
+    ids = torch.randint(0, vocab, (16, 21), device="cuda", generator=gen)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 0.01})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    losses, norms = [], []
+    for _ in range(5):
+        with mx.autograd.record():
+            loss = loss_fn(net(ids[:, :-1]), ids[:, 1:]).mean()
+        loss.backward()
+        norms.append(mx.gluon.utils.clip_global_norm(
+            [p.grad() for p in net._param_objects().values()], 1.0))
+        trainer.step(1)
+        losses.append(float(loss.detach()))
+    s_check(losses[-1] < losses[0] and all(np.isfinite(norms)),
+            f"s3 five gluon.Trainer steps with clip_global_norm(1.0): loss "
+            f"{[round(v, 4) for v in losses]}, norms before the clip "
+            f"{[round(v, 3) for v in norms]}")
+    return {"lstm_vs_op": errs, "small": small_errs, "trainer_losses": losses,
+            "clip_norms": norms}
+
+
+def foreach_lstm_graph(mx, n, i, h):
+    """A foreach whose body is an LSTM step written with sym ops over the
+    flat vector's slices, and sym.RNN on the same vector: (loop, fused)."""
+    sym = mx.sym
+    data, flat = sym.Variable("data"), sym.Variable("params")
+    h0, c0 = sym.Variable("h0"), sym.Variable("c0")
+    g4 = 4 * h
+    end = g4 * (i + h) + 2 * g4
+    w_i2h = sym.slice_axis(flat, axis=0, begin=0, end=g4 * i).reshape(
+        (g4, i))
+    w_h2h = sym.slice_axis(flat, axis=0, begin=g4 * i,
+                           end=g4 * (i + h)).reshape((g4, h))
+    b = sym.slice_axis(flat, axis=0, begin=g4 * (i + h),
+                       end=g4 * (i + h) + g4) + \
+        sym.slice_axis(flat, axis=0, begin=g4 * (i + h) + g4, end=end)
+
+    def step(x, states):
+        hh, cc = states
+        z = sym.FullyConnected(x, w_i2h, b, num_hidden=g4) + \
+            sym.FullyConnected(hh, w_h2h, num_hidden=g4, no_bias=True)
+        ig, fg, gg, og = sym.SliceChannel(z, num_outputs=4)
+        cc = sym.sigmoid(fg) * cc + sym.sigmoid(ig) * sym.tanh(gg)
+        hh = sym.sigmoid(og) * sym.tanh(cc)
+        return hh, [hh, cc]
+
+    outs, (h_t, c_t) = sym.contrib.foreach(
+        step, data, [sym.reshape(h0, shape=(n, h)),
+                     sym.reshape(c0, shape=(n, h))])
+    fused = sym.RNN(data, flat, h0, c0, state_size=h, mode="lstm",
+                    state_outputs=True, name="fused")
+    return sym.Group([outs, h_t, c_t]), fused, end
+
+
+def _bind_grads(mx, s, ctx, args, heads):
+    """Outputs and gradients of ``s`` bound on ``ctx`` (grad_req write)."""
+    arrays = {k: mx.nd.array(v, ctx=ctx) for k, v in args.items()}
+    grads = {k: mx.nd.zeros(v.shape, ctx=ctx) for k, v in args.items()}
+    ex = s.bind(ctx, arrays, args_grad=grads, grad_req="write")
+    outs = ex.forward(is_train=True)
+    ex.backward([mx.nd.array(v, ctx=ctx) for v in heads])
+    return ([o._data.detach() for o in outs],
+            {k: g._data for k, g in grads.items()})
+
+
+def control_flow_on_card(torch, mx):
+    """s4: a sym.contrib.foreach over an LSTM step against the fused op
+    (forward and gradients); while_loop's zero padding and cond's two
+    branches; a Predictor over a graph holding _while_loop refuses to
+    capture it."""
+    import numpy as np
+
+    from mxnet_tpu_torch import capture
+
+    t, n, i, h = 20, LM_BATCH, 64, 64
+    loop, fused, size = foreach_lstm_graph(mx, n, i, h)
+    rs = np.random.RandomState(0)
+    args = {"data": rs.randn(t, n, i).astype(np.float32),
+            "params": (rs.randn(size) * 0.1).astype(np.float32),
+            "h0": rs.randn(1, n, h).astype(np.float32),
+            "c0": rs.randn(1, n, h).astype(np.float32)}
+    heads = [rs.randn(t, n, h).astype(np.float32),
+             rs.randn(n, h).astype(np.float32),
+             rs.randn(n, h).astype(np.float32)]
+    l_out, l_g = _bind_grads(mx, loop, mx.gpu(0), args, heads)
+    f_out, f_g = _bind_grads(mx, fused, mx.gpu(0), args,
+                             [heads[0], heads[1][None], heads[2][None]])
+    errs = {"out": max(rel_err(a.reshape(b.shape), b)
+                       for a, b in zip(l_out, f_out)),
+            **{f"d{k}": rel_err(l_g[k], f_g[k]) for k in args}}
+    s_check(all(o.is_cuda for o in l_out),
+            "s4 the foreach ran on the card")
+    s_check(max(errs.values()) <= S_CARD_TOL,
+            f"s4 foreach over an LSTM step vs the fused op ({t}, {n}, {i}) "
+            f"H {h}: {errs} (tol {S_CARD_TOL:g} of max|ref|)")
+
+    sym = mx.sym
+    outs, (fi, fs) = sym.contrib.while_loop(
+        lambda a, s: a < 3.0, lambda a, s: (s * 2, (a + 1.0, s + 1.0)),
+        (sym.Variable("i0"), sym.Variable("s0")), max_iterations=5)
+    ex = sym.Group([outs, fi, fs]).bind(
+        mx.gpu(0), {"i0": mx.nd.zeros((1,), ctx=mx.gpu(0)),
+                    "s0": mx.nd.ones((1,), ctx=mx.gpu(0))})
+    got = [o.asnumpy().ravel().tolist() for o in ex.forward()]
+    s_check(got == [[2, 4, 6, 0, 0], [3], [4]],
+            f"s4 while_loop on the card: {got} (2, 4, 6 then two zero rows)")
+    picks = []
+    for pv in (1.0, 0.0):
+        a = sym.Variable("a")
+        c = sym.contrib.cond(sym.sum(sym.Variable("p")), lambda: a * 2,
+                             lambda: a * 3)
+        e = c.bind(mx.gpu(0), {"p": mx.nd.array([pv], ctx=mx.gpu(0)),
+                               "a": mx.nd.ones((2,), ctx=mx.gpu(0))})
+        picks.append(e.forward()[0].asnumpy().tolist())
+    s_check(picks == [[2, 2], [3, 3]], f"s4 cond's branches on the card: "
+            f"{picks}")
+    refused = None
+    try:
+        mx.serving.Predictor(outs, {"s0": np.ones((1,), np.float32)},
+                             ctx=mx.gpu(0), input_names=("i0",),
+                             input_shapes={"i0": ()}, warmup=False)
+    except capture.CaptureError as e:
+        refused = str(e)
+    s_check(refused is not None and "_while_loop" in refused,
+            f"s4 a Predictor over a _while_loop graph refuses to capture "
+            f"it: {refused!r}")
+    return {"foreach_vs_fused": errs, "while_loop": got, "cond": picks}
+
+
+def sequential_on_card(torch, mx):
+    """s5: SequentialModule of a FullyConnected Module and a
+    PythonLossModule head (tests/test_control_flow_bucketing.py:182's
+    net), 6 SGD steps on the card and on the CPU from one start: outputs
+    and parameters within 1e-5 of max|ref|."""
+    import numpy as np
+
+    def make(ctx, arg=None):
+        sym = mx.sym
+        net = sym.FullyConnected(sym.Variable("data"), num_hidden=4,
+                                 name="fc")
+        body = mx.mod.Module(net, data_names=("data",), label_names=None,
+                             context=ctx)
+        smod = mx.mod.SequentialModule()
+        smod.add(body).add(mx.mod.PythonLossModule(
+            data_names=("fc_output",)), take_labels=True)
+        smod.bind([mx.io.DataDesc("data", (6, 8))],
+                  [mx.io.DataDesc("softmax_label", (6,))])
+        if arg is None:
+            mx.random.seed(0)
+            smod.init_params(mx.initializer.Xavier())
+        else:
+            smod.init_params(arg_params=arg)
+        smod.init_optimizer(optimizer="sgd",
+                            optimizer_params={"learning_rate": 0.5})
+        return smod
+
+    card = make(mx.gpu(0))
+    init = {k: v.asnumpy() for k, v in card.get_params()[0].items()}
+    host = make(mx.cpu(), {k: mx.nd.array(v, ctx=mx.cpu())
+                           for k, v in init.items()})
+    rng = np.random.RandomState(0)
+    worst = 0.0
+    for _ in range(6):
+        x = rng.rand(6, 8).astype(np.float32)
+        y = x[:, :4].argmax(1).astype(np.float32)
+        outs = []
+        for mod in (card, host):
+            mod.forward(mx.io.DataBatch(
+                data=[mx.nd.array(x, ctx=mx.cpu())],
+                label=[mx.nd.array(y, ctx=mx.cpu())]), is_train=True)
+            outs.append(mod.get_outputs()[0]._data)
+            mod.backward()
+            mod.update()
+        worst = max(worst, rel_err(outs[0].cpu(), outs[1]))
+        for k, v in host.get_params()[0].items():
+            worst = max(worst, rel_err(card.get_params()[0][k]._data, v._data))
+    s_check(outs[0].is_cuda, "s5 the body Module ran on the card")
+    s_check(worst <= S_CARD_TOL, f"s5 SequentialModule + PythonLossModule, "
+            f"6 SGD steps: card vs cpu {worst:.3e} of max|cpu| (tol "
+            f"{S_CARD_TOL:g})")
+    return {"card_vs_cpu": worst}
+
+
+def rnn_phase(torch, mx):
+    """Phase s: the word-LM slice on the card (s1-s5); its checks collect
+    failures and the phase fails at its end naming them all."""
+    _S_FAILED.clear()
+    train = word_lm_train(torch, mx)
+    op = rnn_op_alone(torch, mx)
+    gluon = gluon_rnn_on_card(torch, mx)
+    flow = control_flow_on_card(torch, mx)
+    seq = sequential_on_card(torch, mx)
+    if _S_FAILED:
+        raise SystemExit("phase s: " + "; ".join(_S_FAILED))
+    return {"word_lm": train, "rnn_op": op, "gluon": gluon,
+            "control_flow": flow, "sequential": seq}
+
+
 def library_ms(fn, what):
     """device_ms of a library call, or None (logged) where the library
     refuses the call."""
@@ -7996,6 +8838,13 @@ def main(argv=None):
     ap.add_argument("--module-only", action="store_true",
                     help="build, then run phase r (mx.nd, Module, kvstore) "
                          "only")
+    ap.add_argument("--rnn-only", action="store_true",
+                    help="build, then run phase s (the word-LM slice) only")
+    ap.add_argument("--lm-sweeps", type=int, metavar="N",
+                    help="build, then train s1's word LM over N sweeps on "
+                         "the card and on a CPU copy, log each one's "
+                         "perplexity by sweep, and hold every step of the "
+                         "card's to the CPU from its state")
     args = ap.parse_args(argv)
     if args.summary:
         GRAPH_DIR.append(os.path.join(
@@ -8054,6 +8903,15 @@ def main(argv=None):
         log("[module-only] phase r passed")
         log(card)
         return 0
+    if args.lm_sweeps:
+        word_lm_perplexities(torch, mx, args.lm_sweeps)
+        log(card)
+        return 0
+    if args.rnn_only:
+        rnn_phase(torch, mx)
+        log("[rnn-only] phase s passed")
+        log(card)
+        return 0
     checks, slice_err, slice_err32 = check_flash(torch, kernels)
     bwd_checks, bwd_slice_err, bwd_slice_err32 = check_flash_bwd(torch,
                                                                  kernels)
@@ -8095,6 +8953,7 @@ def main(argv=None):
     amp_train_run, fp16 = amp["train"], amp["fp16_timing"]
     module = module_phase(torch, mx, kernels)
     nd_launches = module["nd"]["sdpa_launches"]
+    word_lm = rnn_phase(torch, mx)
 
     def ring_err(dtype, parts, key="errors"):
         """The ring's largest error (of max|whole-sequence call|, or with
@@ -8489,7 +9348,7 @@ def main(argv=None):
                        "multirank": multirank,
                        "k5_checks": k5_checks, "int8": int8,
                        "k5_timing": k5_timing, "amp": amp,
-                       "module": module,
+                       "module": module, "word_lm": word_lm,
                        **record}, f,
                       indent=1)
     log(card)

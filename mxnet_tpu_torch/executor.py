@@ -231,12 +231,16 @@ class Executor:
         accepted, as there, and changes nothing)."""
         self.monitor_callback = callback
 
-    def run(self, arg_vals, aux_vals, is_train=False, tap=None):
+    def run(self, arg_vals, aux_vals, is_train=False, tap=None,
+            device=None):
         """The graph on tensors: ``arg_vals`` / ``aux_vals`` in
         ``list_arguments()`` / ``list_auxiliary_states()`` order. Returns
         (outputs, new aux values). ``tap(node, index, tensor)`` sees
         each node output; with a tap the walk takes the unfused nodes (the
-        plan's chains one node at a time)."""
+        plan's chains one node at a time). ``device`` (the bound one when
+        None) is the device the ops are told, as a control-flow op tells
+        the subgraph it runs."""
+        device = device or self._device
         arg_pos = {n: i for i, n in enumerate(self._arg_names)}
         aux_pos = {n: i for i, n in enumerate(self._aux_names)}
         env, aux_out = {}, list(aux_vals)
@@ -248,7 +252,7 @@ class Executor:
         for n, op, params, *src in walk:
             # a fused chain reads its conv's inputs (src: the conv node)
             ins = [env[(id(i), s)] for i, s in (src[0] if src else n).inputs]
-            raw = op.call(ins, params, self._device, is_train)
+            raw = op.call(ins, params, device, is_train)
             raw = raw if isinstance(raw, tuple) else (raw,)
             n_primary = op.n_out(params)
             for i in range(n_primary):

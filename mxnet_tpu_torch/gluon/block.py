@@ -111,16 +111,10 @@ class Block(nn.Module):
     def __call__(self, *args, **kwargs):
         if args and _is_symbol(args[0]):
             return self._call_symbolic(*args)
-        from ..ndarray.ndarray import NDArray
-
-        if any(isinstance(a, NDArray) for a in args):
+        if _has_ndarray((args, kwargs)):
             # mx.nd arrays in, mx.nd arrays out; the Block sees tensors
-            out = self(*[a._data if isinstance(a, NDArray) else a
-                         for a in args], **kwargs)
-            if isinstance(out, (list, tuple)):
-                return type(out)(NDArray(o) if isinstance(o, torch.Tensor)
-                                 else o for o in out)
-            return NDArray(out) if isinstance(out, torch.Tensor) else out
+            args, kwargs = _unbox((args, kwargs))
+            return _box(self(*args, **kwargs))
         if torch.is_grad_enabled() and not autograd.is_recording():
             with torch.no_grad():
                 return super().__call__(*args, **kwargs)
@@ -254,6 +248,45 @@ class HybridBlock(Block):
                   if t is not None}
         ndarray.save(f"{path}-{epoch:04d}.params", params)
         return f"{path}-symbol.json", f"{path}-{epoch:04d}.params"
+
+
+def _has_ndarray(x):
+    """Whether ``x`` (nested in lists, tuples and dicts) holds an
+    NDArray."""
+    from ..ndarray.ndarray import NDArray
+
+    if isinstance(x, NDArray):
+        return True
+    if isinstance(x, (list, tuple)):
+        return any(_has_ndarray(v) for v in x)
+    if isinstance(x, dict):
+        return any(_has_ndarray(v) for v in x.values())
+    return False
+
+
+def _unbox(x):
+    """``x`` with every NDArray (nested as :func:`_has_ndarray` looks)
+    replaced by its tensor."""
+    from ..ndarray.ndarray import NDArray
+
+    if isinstance(x, NDArray):
+        return x._data
+    if isinstance(x, (list, tuple)):
+        return type(x)(_unbox(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _unbox(v) for k, v in x.items()}
+    return x
+
+
+def _box(x):
+    """``x`` with every tensor (nested in lists and tuples) an NDArray."""
+    from ..ndarray.ndarray import NDArray
+
+    if isinstance(x, torch.Tensor):
+        return NDArray(x)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_box(v) for v in x)
+    return x
 
 
 def _is_symbol(x):

@@ -4,7 +4,9 @@ Counterpart of ``mxnet_tpu/initializer.py`` (subset: Zero, One, Uniform,
 Xavier). An initializer fills a tensor in place and dispatches on the
 parameter's name as MXNet does: ``*_weight`` draws from the initializer's
 distribution, ``*_bias``/``*_beta`` are zeros, ``*_gamma`` ones, running
-means zeros and running variances ones (``mxnet_tpu/initializer.py:78-81``). Random
+means zeros and running variances ones (``mxnet_tpu/initializer.py:78-81``),
+a fused RNN's flat ``*_parameters`` U(-0.07, 0.07), and any other name (an
+RNN's learned ``*_state``) as a weight. Random
 draws come from the ``torch.Generator`` the caller passes, so a seed fixes
 the weights. The generator does not reproduce ``mxnet_tpu``'s random
 bits: tests carry weights across with ``Block.load_numpy_params``.
@@ -25,7 +27,9 @@ class Initializer:
 
     def __call__(self, name, arr, generator=None):
         with torch.no_grad():
-            if name.endswith("weight"):
+            if name.endswith("parameters"):
+                self._init_rnn(name, arr, generator)
+            elif name.endswith("weight"):
                 self._init_weight(name, arr, generator)
             elif name.endswith("bias") or name.endswith("beta"):
                 arr.zero_()
@@ -37,6 +41,11 @@ class Initializer:
                 arr.fill_(1.0)
             else:
                 self._init_weight(name, arr, generator)
+
+    def _init_rnn(self, name, arr, generator):
+        """A fused RNN's flat ``*_parameters`` vector: U(-0.07, 0.07),
+        whatever the initializer (``mxnet_tpu/initializer.py:91-98``)."""
+        arr.uniform_(-0.07, 0.07, generator=generator)
 
     def _init_weight(self, name, arr, generator):
         raise NotImplementedError

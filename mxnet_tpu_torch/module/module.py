@@ -9,7 +9,9 @@ are copied to every executor. ``init_optimizer`` rescales the gradients by
 1 / batch, reads the lr / wd multipliers from the symbol's attributes
 (``__lr_mult__`` / ``__wd_mult__``, e.g. from ``AttrScope`` or
 ``Variable(lr_mult=)``), and updates on a kvstore (several contexts) or
-with a local updater (``module.py:240-288``). ``Module(context=None)``
+with a local updater (``module.py:240-288``). ``bind(shared_module=m)``
+binds over ``m``'s parameter, gradient and auxiliary arrays, as MXNet
+does (``BucketingModule`` binds every bucket so). ``Module(context=None)``
 runs on ``gpu(0)``, the port's default context, where MXNet's default is
 the CPU. The initializer draws from ``mx.random``'s CPU generator, so
 ``mx.random.seed`` fixes the initial weights.
@@ -163,13 +165,46 @@ class Module(BaseModule):
         self._execs = [self._symbol.simple_bind(ctx, grad_req=req, **shapes)
                        for ctx in self._context]
         self.binded = True
-        if self.params_initialized:
+        if shared_module is not None:
+            self._share(shared_module)
+        elif self.params_initialized:
             # a Module made by load(): its parameters go to the executors
             for ex in self._execs:
                 ex.copy_params_from(self._arg_params, self._aux_params,
                                     allow_extra_params=True)
-        if shared_module is not None and shared_module.params_initialized:
-            self.set_params(*shared_module.get_params())
+
+    def _share(self, shared):
+        """Take ``shared``'s parameter, gradient and auxiliary arrays into
+        this Module's executors, and its host copies, as MXNet's
+        ``shared_module`` does: the two Modules then read and update the
+        same memory, and switching between them moves no bytes."""
+        if not (shared.binded and shared.params_initialized):
+            raise MXNetError("bind: shared_module must be bound and its "
+                             "parameters initialized")
+        if len(shared._execs) != len(self._execs):
+            raise MXNetError("bind: shared_module runs on "
+                             f"{len(shared._execs)} contexts, this Module on "
+                             f"{len(self._execs)}")
+        for ex, other in zip(self._execs, shared._execs):
+            for kind, names in (("arg_dict", self._param_names),
+                                ("grad_dict", self._param_names),
+                                ("aux_dict", self._aux_names)):
+                mine, theirs = getattr(ex, kind), getattr(other, kind)
+                for n in names:
+                    if kind == "grad_dict" and n not in mine:
+                        continue        # grad_req 'null' here
+                    if n not in theirs:
+                        raise MXNetError(f"bind: shared_module has no {n} "
+                                         f"in its {kind}")
+                    if mine[n].shape != theirs[n].shape:
+                        raise MXNetError(
+                            f"bind: {n} is {mine[n].shape} here and "
+                            f"{theirs[n].shape} in shared_module")
+                    mine[n] = theirs[n]
+            ex._sync()
+        self._arg_params = shared._arg_params
+        self._aux_params = shared._aux_params
+        self.params_initialized = True
 
     # --------------------------------------------------------------- params
     def init_params(self, initializer=None, arg_params=None, aux_params=None,

@@ -9,7 +9,8 @@ order. ``_train`` (``autograd.is_training()``), the device and the
 device's ``mx.random`` generator are supplied by
 :func:`~.ndarray.imperative_invoke`, where ``mxnet_tpu``'s wrappers
 insert the train flag and the global key cell
-(``ndarray/__init__.py:24-63``).
+(``ndarray/__init__.py:24-63``). ``mx.nd.contrib`` has the ``_contrib_*``
+ops under their short names and the eager control flow.
 """
 from __future__ import annotations
 
@@ -60,6 +61,8 @@ def _populate():
 
 
 _populate()
+
+from . import contrib  # noqa: E402,F401  (mx.nd.contrib)
 
 
 def __getattr__(name):

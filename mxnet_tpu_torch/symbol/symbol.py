@@ -15,6 +15,7 @@ runs each op on ``meta`` tensors where ``mxnet_tpu`` uses
 from __future__ import annotations
 
 import inspect as _inspect
+import itertools as _itertools
 import json
 import threading
 
@@ -44,10 +45,21 @@ def reset_name_counters():
         _NAME_COUNTERS.clear()
 
 
+_node_serial = _itertools.count()
+
+
+def node_serial_watermark():
+    """The creation-order watermark: nodes made after this call have a
+    ``serial`` at least the value returned (``symbol.contrib`` cuts a
+    control-flow body there)."""
+    return next(_node_serial)
+
+
 class _Node:
     """One graph node: a variable (``op`` None) or an op application."""
 
-    __slots__ = ("op", "name", "params", "inputs", "attrs", "aux_mark")
+    __slots__ = ("op", "name", "params", "inputs", "attrs", "aux_mark",
+                 "serial")
 
     def __init__(self, op, name, params=None, inputs=None, attrs=None):
         self.op = op
@@ -56,6 +68,7 @@ class _Node:
         self.inputs = inputs or []     # [(node, out_index)]
         self.attrs = {**_current_attrs(), **(attrs or {})}
         self.aux_mark = False          # a variable in a mutate slot
+        self.serial = next(_node_serial)   # creation order
 
     @property
     def is_var(self):
@@ -176,6 +189,38 @@ class Symbol:
 
     def __neg__(self):
         return _create("negative", [self], {})
+
+    def __gt__(self, o):
+        return self._binary(o, "broadcast_greater")
+
+    def __ge__(self, o):
+        return self._binary(o, "broadcast_greater_equal")
+
+    def __lt__(self, o):
+        return self._binary(o, "broadcast_lesser")
+
+    def __le__(self, o):
+        return self._binary(o, "broadcast_lesser_equal")
+
+    def __eq__(self, o):
+        if isinstance(o, (Symbol, int, float)):
+            return self._binary(o, "broadcast_equal")
+        return NotImplemented
+
+    def __ne__(self, o):
+        if isinstance(o, (Symbol, int, float)):
+            return self._binary(o, "broadcast_not_equal")
+        return NotImplemented
+
+    def __hash__(self):
+        return id(self)
+
+    # mirrors of common ops (``mxnet_tpu/symbol/symbol.py:226-236``)
+    def reshape(self, shape=None, **kw):
+        return _create("Reshape", [self], {"shape": tuple(shape)})
+
+    def sum(self, axis=None, keepdims=False):
+        return _create("sum", [self], {"axis": axis, "keepdims": keepdims})
 
     # ------------------------------------------------------------- inference
     def infer_shape(self, **kwargs):
@@ -335,8 +380,46 @@ def _bn_hook(in_shapes, p):
     return {i: (data[p.get("axis", 1)],) for i in range(1, 5)}
 
 
+def _embedding_hook(in_shapes, p):
+    return {1: (p["input_dim"], p["output_dim"])}
+
+
+def _rnn_hook(in_shapes, p):
+    """The flat parameter vector's length and the (L·D, N, H) states
+    (``mxnet_tpu/symbol/symbol.py:496-515``)."""
+    data = in_shapes[0]
+    if data is None:
+        return {}
+    from ..ops.rnn import rnn_param_size
+
+    _, N, I = data
+    H, L = p["state_size"], p.get("num_layers", 1)
+    bi = bool(p.get("bidirectional"))
+    state = (L * (2 if bi else 1), N, H)
+    hints = {1: (rnn_param_size(I, H, L, bi, p.get("mode", "lstm")),),
+             2: state}
+    if len(in_shapes) > 3:
+        hints[3] = state
+    return hints
+
+
+def _softmax_output_hook(in_shapes, p):
+    """The label's shape from the data's (softmax_output.cc
+    SoftmaxOutputShape; ``mxnet_tpu/symbol/symbol.py:518-531``)."""
+    data = in_shapes[0]
+    if data is None:
+        return {}
+    if p.get("multi_output"):
+        return {1: (data[0],) + tuple(data[2:])}
+    if p.get("preserve_shape"):
+        return {1: tuple(data[:-1])}
+    return {1: (data[0],)}
+
+
 _PARAM_SHAPE_HOOKS = {"FullyConnected": _fc_hook, "Convolution": _conv_hook,
-                      "BatchNorm": _bn_hook}
+                      "BatchNorm": _bn_hook, "Embedding": _embedding_hook,
+                      "RNN": _rnn_hook,
+                      "SoftmaxOutput": _softmax_output_hook}
 
 
 # ------------------------------------------------------------- construction
@@ -380,7 +463,8 @@ def _create(opname, input_syms, params, name=None, attr=None):
 
 
 # array inputs that have a default (None) in the op functions
-_OPTIONAL_ARRAYS = ("bias", "rng_key", "sequence_length", "like")
+_OPTIONAL_ARRAYS = ("bias", "state_cell", "rng_key", "sequence_length",
+                    "like")
 # ... of which a creator makes no variable when they are not given
 _NO_AUTO_VAR = ("sequence_length", "like")
 
@@ -429,7 +513,8 @@ def make_symbol_creator(opname):
             s = slots[an]
             if s is None:
                 if (an == "bias" and params.get("no_bias")) or \
-                        an in _NO_AUTO_VAR:
+                        an in _NO_AUTO_VAR or (an == "state_cell" and
+                                               params.get("mode") != "lstm"):
                     continue
                 s = Variable(f"{name}_{an}")
                 if idx in mutate:

@@ -1,7 +1,8 @@
 """Every op name and alias ``mxnet_tpu`` registers resolves in the port, or
 sits in :data:`PENDING` with the ROADMAP item that ports it. Later slices
 shrink the dict. The names of ``mxnet_tpu/ops/math.py``, ``nn.py``,
-``parity_aliases.py`` and ``random_ops.py`` each have a parity case
+``parity_aliases.py``, ``random_ops.py``, ``rnn.py`` and
+``control_flow.py`` each have a parity case
 (``test_torch_ops_parity.py``, ``test_torch_random.py``, or the earlier
 file named in :data:`ELSEWHERE`); the sparse-storage ones raise."""
 import inspect
@@ -16,12 +17,10 @@ import mxnet_tpu_torch as mt  # noqa: E402
 from mxnet_tpu.ops import registry as jreg  # noqa: E402
 from mxnet_tpu_torch.ops import registry as treg  # noqa: E402
 
-_WORD_LM = "ROADMAP Queue 1 item 15 (the word-LM slice)"
 _VISION = "ROADMAP Queue 1 item 11 (the remaining op families)"
 
 # name -> the ROADMAP item that ports it
 PENDING = {
-    **{n: _WORD_LM for n in ("_foreach", "_while_loop", "_cond", "RNN")},
     "Custom": "ROADMAP Queue 1 item 11 (operator.py, CustomOp)",
     **{n: _VISION for n in (
         # detection
@@ -69,11 +68,16 @@ ELSEWHERE = {
     "mp_lamb_update_phase2": "test_torch_optimizers.py",
     "preloaded_multi_mp_sgd_update": "test_torch_optimizers.py",
     "preloaded_multi_mp_sgd_mom_update": "test_torch_optimizers.py",
+    "RNN": "test_torch_rnn.py",
+    "_foreach": "test_torch_control_flow.py",
+    "_while_loop": "test_torch_control_flow.py",
+    "_cond": "test_torch_control_flow.py",
 }
 
 _SOURCES = ("mxnet_tpu/ops/math.py", "mxnet_tpu/ops/nn.py",
             "mxnet_tpu/ops/parity_aliases.py",
-            "mxnet_tpu/ops/random_ops.py")
+            "mxnet_tpu/ops/random_ops.py", "mxnet_tpu/ops/rnn.py",
+            "mxnet_tpu/ops/control_flow.py")
 
 
 def _source(op):
