@@ -10,6 +10,8 @@
     python3 chip_smoke.py --amp-only         # build + phase q
     python3 chip_smoke.py --rnn-only         # build + phase s (word LM)
     python3 chip_smoke.py --lm-sweeps 6      # build + s1's LM, card and CPU
+    python3 chip_smoke.py --ssd-only         # build + phase t (SSD)
+    python3 chip_smoke.py --dist-only        # build + phase u (dist_sync)
 
 Phases, each failing loudly with a non-zero exit:
 
@@ -325,7 +327,40 @@ Phases, each failing loudly with a non-zero exit:
       against the fused op, while_loop's padding, cond's branches, a
       Predictor refusing to capture _while_loop; (s5) SequentialModule +
       PythonLossModule on the card against the CPU. ``--rnn-only`` runs
-      the build and phase s alone.
+      the build and phase s alone;
+  (t) the SSD slice in fp32 (TF32 off), which launches no K1-K5: (t1)
+      examples/ssd/train_ssd.py's configuration -- its SSD block as
+      written (a user's HybridBlock: F = mx.nd on NDArrays), ImageDetIter
+      over its 48 synthetic 64x64 images (JPEGs through PIL where the
+      machine has it, else the same images as arrays through
+      ImageDetIter.decode; a line says which), shuffle and rand_mirror,
+      batch 8, Adam 0.002, 5 epochs: the last epoch's loss below the
+      first's; each of the first 3 steps against a CPU copy from the
+      card's weights and Adam states (loss and gradients within 1e-4,
+      class targets and masks exactly, Adam on the card's gradients
+      within 1e-5); host ms a step, images/s, one step profiled; the
+      VOC07 mAP of MultiBoxDetection (nms_topk 50) over the set; (t2)
+      SSD300-VGG16's 8732 anchors (maps 38-1, 4/6/6/6/4/4 a cell), 21
+      classes, batch 32, 1-8 boxes an image: MultiBoxPrior,
+      MultiBoxTarget (mining ratio 3) and MultiBoxDetection (nms_topk
+      400) against their CPU runs (targets, masks, ids, scores and kept
+      rows exactly; loc targets and boxes within 1e-5); the device time
+      of each one's kernels (profiler), host ms and launches, and the NMS
+      sweep's alone. ``--ssd-only``
+      runs the build and phase t alone;
+  (u) data-parallel training through kvstore='dist_sync', 2 ranks
+      started by the port's launcher (mxnet_tpu_torch/kvstore/launch.py)
+      on the one card over gloo, which
+      launches no K1-K5: (u1) examples/distributed/cifar10_dist.py's
+      configuration (synthetic CIFAR10, ToTensor, a shard a rank,
+      DataLoader shuffle, batch 32 a rank, Adam 0.002, 2 epochs): every
+      parameter bitwise equal across the ranks, the first step's summed
+      gradients (1e-4) and Adam's weights (1e-5) against one process's
+      step over both shards; (u2) resnet50_v1 fp32 at 224^2 through
+      gluon.Trainer(kvstore='dist_sync'), SGD, batch 32 a rank, 3 steps:
+      the ranks' trainable weights bitwise equal; step ms and the
+      all-reduce's share of it for each. ``--dist-only`` runs the build
+      and phase u alone.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. ``--summary PATH`` also writes the
@@ -8808,6 +8843,828 @@ def rnn_phase(torch, mx):
     return {"word_lm": train, "rnn_op": op, "gluon": gluon,
             "control_flow": flow, "sequential": seq}
 
+# -------------------------------------------------------------- phase t
+# examples/ssd/train_ssd.py's configuration (t1), kept here as the
+# script's own copy: 3 classes, 48 synthetic 64x64 images with one box
+# each, ImageDetIter (shuffle, rand_mirror), batch 8, 5 epochs, Adam 0.002,
+# SoftmaxCrossEntropyLoss(axis=1) + smooth-L1, MultiBoxDetection nms_topk 50
+SSD_CLASSES, SSD_IMAGES, SSD_SIZE = 3, 48, 64
+SSD_BATCH, SSD_EPOCHS, SSD_LR, SSD_NMS_TOPK = 8, 5, 0.002, 50
+SSD_CPU_STEPS = 3       # steps held to a CPU copy from the card's state
+SSD_CPU_TOL = 1e-4      # loss and gradients, of max|.| (cuDNN vs CPU convs)
+SSD_ADAM_TOL = 1e-5     # Adam on the card's gradients, of max|w|
+SSD_DIR = os.path.join(ROOT, "_ssd")      # gitignored: the JPEGs
+# SSD300-VGG16's anchor layout (MXNet 1.6 example/ssd, vgg16_reduced at
+# 300): feature maps and their sizes, ratios and steps (t2)
+SSD300_MAPS = (38, 19, 10, 5, 3, 1)
+SSD300_SIZES = ((0.1, 0.141), (0.2, 0.272), (0.37, 0.447), (0.54, 0.619),
+                (0.71, 0.79), (0.88, 0.961))
+SSD300_RATIOS = ((1, 2, 0.5), (1, 2, 0.5, 3, 1 / 3), (1, 2, 0.5, 3, 1 / 3),
+                 (1, 2, 0.5, 3, 1 / 3), (1, 2, 0.5), (1, 2, 0.5))
+SSD300_STEPS = (8, 16, 32, 64, 100, 300)
+SSD300_BATCH, SSD300_CLASSES, SSD300_MAX_GT = 32, 21, 8
+SSD300_NMS_TOPK, SSD300_NMS = 400, 0.45
+SSD300_TOL = 1e-5       # loc targets and boxes (log / exp), of max|ref|
+
+_T_FAILED = []
+
+
+def t_check(ok, what):
+    """Log a phase-t check; a failed one is collected and fails the phase
+    at its end."""
+    log(f"[t] {'ok  ' if ok else 'FAIL'} {what}")
+    if not ok:
+        _T_FAILED.append(what)
+    return ok
+
+
+def ssd_synthetic(n, size, root=None):
+    """train_ssd.py's synthetic_dataset: (entries [(label rows, file)],
+    {file: (size, size, 3) uint8 image}); the JPEGs written under ``root``
+    when given (PIL)."""
+    import numpy as np
+
+    entries, images = [], {}
+    rng = np.random.RandomState(0)
+    for i in range(n):
+        cls = i % SSD_CLASSES
+        img = np.full((size, size, 3), 30, np.uint8)
+        x0, y0 = rng.randint(4, size // 2, 2)
+        w, h = rng.randint(size // 4, size // 2, 2)
+        img[y0:y0 + h, x0:x0 + w] = 80 + 60 * cls
+        name = f"d{i}.jpg"
+        images[name] = img
+        if root is not None:
+            from PIL import Image
+
+            Image.fromarray(img).save(os.path.join(root, name))
+        entries.append((np.array([[cls, x0 / size, y0 / size,
+                                   min(1, (x0 + w) / size),
+                                   min(1, (y0 + h) / size)]], np.float32),
+                        name))
+    return entries, images
+
+
+def ssd_net(mx, num_classes):
+    """train_ssd.py's SSD, its class body as written (a HybridBlock of the
+    user's, so on mx.nd arrays its hybrid_forward gets F = mx.nd)."""
+    gluon = mx.gluon
+
+    class SSD(gluon.HybridBlock):
+        """Two feature scales, each with anchors + class/box heads."""
+
+        def __init__(self, num_classes):
+            super().__init__()
+            self.nc = num_classes
+            self.base = gluon.nn.HybridSequential()
+            self.base.add(gluon.nn.Conv2D(32, 3, strides=2, padding=1,
+                                          activation="relu"),
+                          gluon.nn.Conv2D(32, 3, strides=2, padding=1,
+                                          activation="relu"))
+            self.down = gluon.nn.Conv2D(64, 3, strides=2, padding=1,
+                                        activation="relu")
+            self.cls1 = gluon.nn.Conv2D(4 * (num_classes + 1), 3, padding=1)
+            self.loc1 = gluon.nn.Conv2D(4 * 4, 3, padding=1)
+            self.cls2 = gluon.nn.Conv2D(4 * (num_classes + 1), 3, padding=1)
+            self.loc2 = gluon.nn.Conv2D(4 * 4, 3, padding=1)
+
+        def hybrid_forward(self, F, x):
+            f1 = self.base(x)
+            f2 = self.down(f1)
+            a1 = F.contrib.MultiBoxPrior(f1, sizes=(0.2, 0.35),
+                                         ratios=(1, 2, 0.5))
+            a2 = F.contrib.MultiBoxPrior(f2, sizes=(0.5, 0.7),
+                                         ratios=(1, 2, 0.5))
+
+            def heads(f, cls, loc):
+                cp = cls(f).transpose((0, 2, 3, 1)).reshape(
+                    (0, -1, self.nc + 1))
+                lp = loc(f).transpose((0, 2, 3, 1)).reshape((0, -1))
+                return cp, lp
+            c1, l1 = heads(f1, self.cls1, self.loc1)
+            c2, l2 = heads(f2, self.cls2, self.loc2)
+            anchors = F.Concat(a1, a2, dim=1)
+            cls_pred = F.Concat(c1, c2, dim=1).transpose((0, 2, 1))
+            loc_pred = F.Concat(l1, l2, dim=1)
+            return anchors, cls_pred, loc_pred
+
+    return SSD(num_classes)
+
+
+class VOC07MApMetric:
+    """examples/ssd/eval_metric.py's VOC07MApMetric (11-point AP): each
+    detection matches its best-IoU ground truth of its class; a second
+    detection on a matched gt is a false positive."""
+
+    def __init__(self, iou_thresh=0.5):
+        self.iou_thresh = iou_thresh
+        self.records, self.gt_count = {}, {}
+
+    def update(self, labels, preds):
+        import numpy as np
+
+        labels, preds = labels.asnumpy(), preds.asnumpy()
+        for b in range(preds.shape[0]):
+            gts = labels[b][labels[b][:, 0] >= 0]
+            dets = preds[b][preds[b][:, 0] >= 0]
+            for c in np.unique(gts[:, 0]).astype(int):
+                self.gt_count[c] = self.gt_count.get(c, 0) + \
+                    int((gts[:, 0] == c).sum())
+            matched = np.zeros(len(gts), bool)
+            for d in dets[np.argsort(-dets[:, 1])]:
+                c = int(d[0])
+                cand = np.where(gts[:, 0] == c)[0]
+                tp = 0
+                if len(cand):
+                    g = gts[cand, 1:5]
+                    iw = np.maximum(np.minimum(d[4], g[:, 2]) -
+                                    np.maximum(d[2], g[:, 0]), 0)
+                    ih = np.maximum(np.minimum(d[5], g[:, 3]) -
+                                    np.maximum(d[3], g[:, 1]), 0)
+                    inter = iw * ih
+                    ious = inter / np.maximum(
+                        (d[4] - d[2]) * (d[5] - d[3]) + (g[:, 2] - g[:, 0])
+                        * (g[:, 3] - g[:, 1]) - inter, 1e-12)
+                    j = int(np.argmax(ious))
+                    if ious[j] >= self.iou_thresh and not matched[cand[j]]:
+                        matched[cand[j]] = True
+                        tp = 1
+                self.records.setdefault(c, []).append((float(d[1]), tp))
+
+    def get(self):
+        import numpy as np
+
+        aps = []
+        for c, n_gt in sorted(self.gt_count.items()):
+            recs = sorted(self.records.get(c, []), key=lambda r: -r[0])
+            if not recs or n_gt == 0:
+                aps.append(0.0)
+                continue
+            tps = np.cumsum([r[1] for r in recs])
+            fps = np.cumsum([1 - r[1] for r in recs])
+            recall, precision = tps / n_gt, tps / np.maximum(tps + fps, 1e-12)
+            aps.append(sum((precision[recall >= t].max()
+                            if (recall >= t).any() else 0.0) / 11.0
+                           for t in np.linspace(0, 1, 11)))
+        return "mAP", float(np.mean(aps)) if aps else 0.0
+
+
+def ssd_step(mx, net, trainer, cls_loss, x, label):
+    """One train_ssd.py step: forward, targets under autograd.pause, the
+    class + box loss, backward, trainer.step. Returns (loss, targets)."""
+    with mx.autograd.record():
+        anchors, cp, lp = net(x)
+        with mx.autograd.pause():
+            sm = mx.nd.softmax(cp, axis=1)
+            lt, lm, ct = mx.nd.contrib.MultiBoxTarget(
+                anchors, label, sm, negative_mining_ratio=3.0)
+        loss = (cls_loss(cp, ct).mean() +
+                mx.nd.smooth_l1((lp - lt) * lm, scalar=1.0).mean())
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss, (lt, lm, ct)
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-12))
+
+
+def ssd_cpu_check(torch, mx, step, before, states, x, label, card_net,
+                  card_loss, card_targets):
+    """A CPU copy of the card's step ``step`` from the card's weights and
+    Adam states before it: loss and gradients within SSD_CPU_TOL of max,
+    the targets (class targets and masks exactly), then Adam on the card's
+    gradients against the card's weights after the step."""
+    with mx.cpu():
+        net = ssd_net(mx, SSD_CLASSES)
+        net.initialize(mx.initializer.Xavier(), ctx=mx.cpu())
+        net(mx.nd.zeros((1, 3, SSD_SIZE, SSD_SIZE)))
+        cpu_params = list(net.collect_params().param_objects.values())
+        for p, w in zip(cpu_params, before):
+            p.set_data(w)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": SSD_LR})
+        trainer.set_states_bytes(states)
+        cls_loss = mx.gluon.loss.SoftmaxCrossEntropyLoss(axis=1)
+        xc, lc = x.as_in_context(mx.cpu()), label.as_in_context(mx.cpu())
+        with mx.autograd.record():
+            anchors, cp, lp = net(xc)
+            with mx.autograd.pause():
+                lt, lm, ct = mx.nd.contrib.MultiBoxTarget(
+                    anchors, lc, mx.nd.softmax(cp, axis=1),
+                    negative_mining_ratio=3.0)
+            loss = (cls_loss(cp, ct).mean() +
+                    mx.nd.smooth_l1((lp - lt) * lm, scalar=1.0).mean())
+        loss.backward()
+        card_params = list(card_net.collect_params().param_objects.values())
+        loss_err = abs(float(loss.asnumpy()) - card_loss) / abs(card_loss)
+        same_targets = all(torch.equal(a._data.cpu(), b._data) for a, b in
+                           zip(card_targets[1:], (lm, ct)))
+        lt_err = _rel(card_targets[0]._data.cpu(), lt._data)
+        grad_err = max(_rel(cp_.grad().cpu(), p.grad())
+                       for cp_, p in zip(card_params, cpu_params))
+        for cp_, p in zip(card_params, cpu_params):
+            p.grad().copy_(cp_.grad().cpu())
+        trainer.step(x.shape[0])
+        adam_err = max(_rel(cp_.data().detach().cpu(), p.data().detach())
+                       for cp_, p in zip(card_params, cpu_params))
+    t_check(loss_err <= SSD_CPU_TOL and grad_err <= SSD_CPU_TOL
+            and same_targets and lt_err <= SSD_CPU_TOL
+            and adam_err <= SSD_ADAM_TOL,
+            f"t1 step {step} vs a CPU copy from the card's state: loss "
+            f"{loss_err:.2e}, gradients {grad_err:.2e} of max|g| (tol "
+            f"{SSD_CPU_TOL:g}); class targets and masks equal: "
+            f"{same_targets}; loc targets {lt_err:.2e}; Adam on the card's "
+            f"gradients {adam_err:.2e} of max|w| (tol {SSD_ADAM_TOL:g})")
+    return {"loss": loss_err, "grad": grad_err, "loc_target": lt_err,
+            "targets_equal": same_targets, "adam": adam_err}
+
+
+def ssd_train(torch, mx):
+    """t1: train_ssd.py's configuration on gpu(0) through ImageDetIter
+    (JPEGs written and read through PIL where the machine has it, else
+    the same images as arrays through ImageDetIter.decode); 5 epochs,
+    loss by epoch (the last below the first); the first SSD_CPU_STEPS
+    steps each held to a CPU copy from the card's state; host ms a step,
+    images/s, one step profiled (busy share, launches); VOC07 mAP of
+    MultiBoxDetection over the set."""
+    import importlib.util
+    import random
+    import shutil
+
+    import numpy as np
+
+    has_pil = importlib.util.find_spec("PIL") is not None
+    shutil.rmtree(SSD_DIR, ignore_errors=True)
+    os.makedirs(SSD_DIR)
+    entries, images = ssd_synthetic(SSD_IMAGES, SSD_SIZE,
+                                    SSD_DIR if has_pil else None)
+    source = "JPEG files through PIL (imread)" if has_pil else \
+        "arrays from the same RandomState(0) through ImageDetIter.decode " \
+        "(no PIL on this machine: mx.image.imread raises, as mxnet_tpu's)"
+    log(f"[t1] image source: {source}")
+    random.seed(0)
+    np.random.seed(0)
+    torch.manual_seed(0)
+    it = mx.image.ImageDetIter(batch_size=SSD_BATCH,
+                               data_shape=(3, SSD_SIZE, SSD_SIZE),
+                               imglist=entries, path_root=SSD_DIR,
+                               shuffle=True, rand_mirror=True)
+    if not has_pil:
+        def decode(i):
+            label, name = it._entries[it._order[i]]
+            return images[name].astype(np.float32), label
+        it.decode = decode
+    net = ssd_net(mx, SSD_CLASSES)
+    net.initialize(mx.initializer.Xavier())
+    net(mx.nd.zeros((1, 3, SSD_SIZE, SSD_SIZE)))     # the deferred shapes
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": SSD_LR})
+    cls_loss = mx.gluon.loss.SoftmaxCrossEntropyLoss(axis=1)
+    epoch_loss, step_ms, checks, step = [], [], [], 0
+    for epoch in range(SSD_EPOCHS):
+        it.reset()
+        tot = []
+        for batch in it:
+            x = batch.data[0] / 255.0
+            label = batch.label[0]
+            if step < SSD_CPU_STEPS:
+                before = [t.detach().cpu().clone()
+                          for t in net.collect_params().values()]
+                states = trainer.get_states_bytes()
+            t0 = time.perf_counter()
+            loss, targets = ssd_step(mx, net, trainer, cls_loss, x, label)
+            tot.append(float(loss.asnumpy()))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if step < SSD_CPU_STEPS:
+                checks.append(ssd_cpu_check(torch, mx, step, before, states,
+                                            x, label, net, tot[-1], targets))
+            step += 1
+        epoch_loss.append(sum(tot) / len(tot))
+        log(f"[t1] epoch {epoch}: loss {epoch_loss[-1]:.4f}")
+    t_check(x.context == mx.gpu(0) and net.cls1.weight.is_cuda,
+            f"t1 the batches and the net on {x.context}")
+    t_check(epoch_loss[-1] < epoch_loss[0],
+            f"t1 the last epoch's loss {epoch_loss[-1]:.4f} below the "
+            f"first's {epoch_loss[0]:.4f}")
+    steady = sorted(step_ms[len(step_ms) // SSD_EPOCHS:])
+    med = steady[len(steady) // 2]
+    metric = VOC07MApMetric(iou_thresh=0.5)
+    it.reset()
+    kept = None
+    for batch in it:
+        anchors, cp, lp = net(batch.data[0] / 255.0)
+        det = mx.nd.contrib.MultiBoxDetection(
+            mx.nd.softmax(cp, axis=1), lp, anchors, nms_topk=SSD_NMS_TOPK)
+        metric.update(batch.label[0], det)
+        if kept is None:
+            k = det.asnumpy()[0]
+            kept = k[k[:, 0] >= 0]
+    name, value = metric.get()
+    t_check(0.0 <= value <= 1.0 and len(kept) > 0,
+            f"t1 {name}={value:.4f} (VOC07 11-point, iou 0.5) over the "
+            f"{SSD_IMAGES} images after {SSD_EPOCHS} epochs; "
+            f"{len(kept)} detections kept on image 0")
+    it.reset()
+    batch = next(iter(it))
+    x, label = batch.data[0] / 255.0, batch.label[0]
+    prof = profile_window(
+        torch, lambda: float(ssd_step(mx, net, trainer, cls_loss, x,
+                                      label)[0].asnumpy()),
+        "one SSD training step (forward, targets, loss, backward, Adam)",
+        "t1", ("nchwToNhwc", "conv", "cudnn", "xmma", "sm90", "gemm"))
+    log(f"[t1] host ms a step (median over epochs 2-{SSD_EPOCHS}, the "
+        f"loss read back each step as the example does): {med:.3f}; "
+        f"{SSD_BATCH / med * 1e3:.1f} images/s; {prof['launches']} kernel "
+        f"launches a step, the card busy "
+        f"{prof['device_busy_ms'] / prof['wall_ms']:.1%} of the profiled "
+        "step")
+    return {"image_source": "pil" if has_pil else "arrays",
+            "epoch_loss": epoch_loss, "median_step_ms": med,
+            "images_per_s": SSD_BATCH / med * 1e3, "step_ms": step_ms,
+            "cpu_checks": checks, "map": value, "profile": prof}
+
+
+def ssd300_inputs(torch, mx, ctx):
+    """SSD300-VGG16's 8732 anchors and a batch of SSD300_BATCH images'
+    labels (1-8 boxes each, padded with -1), class probabilities (21
+    classes) and box offsets, drawn from a seed, on ``ctx``."""
+    import numpy as np
+
+    rng = np.random.RandomState(21)
+    anchors = mx.nd.concat(*[
+        mx.nd.contrib.MultiBoxPrior(
+            mx.nd.zeros((1, 1, m, m), ctx=ctx), sizes=s, ratios=r,
+            steps=(st / 300, st / 300))
+        for m, s, r, st in zip(SSD300_MAPS, SSD300_SIZES, SSD300_RATIOS,
+                               SSD300_STEPS)], dim=1)
+    n = anchors.shape[1]
+    lab = np.full((SSD300_BATCH, SSD300_MAX_GT, 5), -1, np.float32)
+    for i in range(SSD300_BATCH):
+        for j in range(rng.randint(1, SSD300_MAX_GT + 1)):
+            c = np.sort(rng.rand(2, 2), axis=0)
+            lab[i, j] = [rng.randint(0, SSD300_CLASSES - 1), c[0, 0],
+                         c[0, 1], c[1, 0], c[1, 1]]
+    logits = rng.randn(SSD300_BATCH, SSD300_CLASSES, n).astype(np.float32)
+    prob = mx.nd.softmax(mx.nd.array(logits, ctx=ctx), axis=1)
+    loc = mx.nd.array(rng.randn(SSD300_BATCH, n * 4).astype(np.float32)
+                      * 0.1, ctx=ctx)
+    return anchors, mx.nd.array(lab, ctx=ctx), prob, loc
+
+
+def ssd300_ops(torch, mx):
+    """t2: MultiBoxPrior, MultiBoxTarget (negative_mining_ratio 3) and
+    MultiBoxDetection (nms_topk 400) at SSD300-VGG16's size on the card,
+    each against its CPU run on the same inputs (anchors, class targets,
+    masks, class ids, scores and kept rows exactly; loc targets and boxes
+    within SSD300_TOL of max|ref|); the device time of its kernels
+    (torch.profiler: a call queues too many launches for device_ms's
+    spin), host ms and launches of each, and of the NMS sweep alone."""
+    from mxnet_tpu_torch.ops import detection
+
+    card = ssd300_inputs(torch, mx, mx.gpu(0))
+    host = ssd300_inputs(torch, mx, mx.cpu())
+    anchors, label, prob, loc = card
+    t_check(anchors.shape == (1, 8732, 4),
+            f"t2 SSD300's anchors {anchors.shape} (maps {SSD300_MAPS})")
+    t_check(torch.equal(anchors._data.cpu(), host[0]._data),
+            "t2 MultiBoxPrior: the card's anchors equal the CPU's")
+    t_check(torch.equal(prob._data.cpu(), host[2]._data) or
+            _rel(prob._data.cpu(), host[2]._data) <= 1e-6,
+            f"t2 the inputs' softmax on the card against the CPU's: "
+            f"{_rel(prob._data.cpu(), host[2]._data):.2e} of max")
+    # both runs take the CPU's probabilities, so the ops see one input
+    prob = mx.nd.array(host[2], ctx=mx.gpu(0))
+
+    def target(a, lab, p):
+        return mx.nd.contrib.MultiBoxTarget(a, lab, p,
+                                            negative_mining_ratio=3.0)
+
+    def detect(p, lp, a):
+        return mx.nd.contrib.MultiBoxDetection(
+            p, lp, a, nms_topk=SSD300_NMS_TOPK, nms_threshold=SSD300_NMS)
+
+    got_t, want_t = target(anchors, label, prob), target(*host[:3])
+    t_check(all(torch.equal(g._data.cpu(), w._data)
+                for g, w in zip(got_t[1:], want_t[1:])) and
+            _rel(got_t[0]._data.cpu(), want_t[0]._data) <= SSD300_TOL,
+            f"t2 MultiBoxTarget: class targets and masks equal, loc targets "
+            f"{_rel(got_t[0]._data.cpu(), want_t[0]._data):.2e} of max "
+            f"(tol {SSD300_TOL:g}); "
+            f"{int((want_t[2]._data > 0).sum())} positives, "
+            f"{int((want_t[2]._data == 0).sum())} mined negatives")
+    got_d, want_d = detect(prob, loc, anchors), detect(host[2], host[3],
+                                                       host[0])
+    g, w = got_d._data.cpu(), want_d._data
+    kept = w[..., 0] >= 0
+    t_check(torch.equal(g[..., :2], w[..., :2]) and
+            _rel(g[..., 2:], w[..., 2:]) <= SSD300_TOL,
+            f"t2 MultiBoxDetection: class ids, scores and kept rows equal "
+            f"({int(kept.sum())} kept of {SSD300_BATCH} x "
+            f"{SSD300_NMS_TOPK}), boxes {_rel(g[..., 2:], w[..., 2:]):.2e} "
+            f"of max (tol {SSD300_TOL:g})")
+    # the NMS sweep alone, on the detection's own top-400 decoded boxes
+    fg = prob._data[:, 1:]
+    top = torch.sort(-fg.amax(1), dim=1,
+                     stable=True).indices[:, :SSD300_NMS_TOPK]
+    decoded = detection._decode_loc(
+        loc._data.reshape(SSD300_BATCH, -1, 4), anchors._data.reshape(-1, 4),
+        (0.1, 0.1, 0.2, 0.2)).clamp(0.0, 1.0)
+    boxes = detection._gather_rows(decoded, top)
+    ids = torch.gather(fg.argmax(1).float(), 1, top)
+    keep0 = torch.ones(top.shape, dtype=torch.bool, device=top.device)
+    feat38 = mx.nd.zeros((1, 1, 38, 38), ctx=mx.gpu(0))
+    out = {}
+    for name, fn in (
+            ("MultiBoxPrior (38 x 38)", lambda: mx.nd.contrib.MultiBoxPrior(
+                feat38, sizes=SSD300_SIZES[0], ratios=SSD300_RATIOS[0],
+                steps=(8 / 300, 8 / 300))),
+            ("MultiBoxTarget", lambda: target(anchors, label, prob)),
+            ("MultiBoxDetection", lambda: detect(prob, loc, anchors)),
+            ("NMS sweep (K=400)", lambda: detection._nms_sweep(
+                boxes, ids, keep0, SSD300_NMS, False))):
+        hms = sorted(host_ms(torch, fn, 5))[2]
+        prof = profile_window(torch, fn, f"one {name}", "t2",
+                              ("sort", "masked_fill"), top=4)
+        seen = prof["device_busy_ms"] > 0      # the profiler saw its kernels
+        out[name] = {"device_ms": prof["device_busy_ms"] if seen else None,
+                     "host_ms": hms,
+                     "launches": prof["launches"] if seen else None}
+        log(f"[t2] {name} at batch {SSD300_BATCH}, 8732 anchors, "
+            f"{SSD300_CLASSES} classes: host {hms:.3f} ms (median of 5, "
+            "ended by a synchronise); " + (
+                f"device {prof['device_busy_ms']:.3f} ms (its kernels' time, "
+                f"torch.profiler) in {prof['launches']} kernel launches"
+                if seen else "device time and launches not measured (the "
+                "profiler recorded no kernel)"))
+    return out
+
+
+def kernel_launch_total():
+    """The launch counts of every kernel wrapper (K1-K5), summed."""
+    from mxnet_tpu_torch.ops import decode_attention as da
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.ops import quantization as q
+
+    return sum(f.launches for f in (
+        kernels.flash_attention, kernels.flash_attention_backward,
+        kernels.conv3x3_bn_stats, da.paged_decode_attention,
+        da.kv_quantize_write, q.s8_conv, q.s8_matmul, q.requant_epilogue,
+        q.s8_conv_requant))
+
+
+def ssd_phase(torch, mx):
+    """Phase t: t1 and t2; its checks collect failures and the phase fails
+    at its end naming them all."""
+    import shutil
+
+    _T_FAILED.clear()
+    before = kernel_launch_total()
+    try:
+        train = ssd_train(torch, mx)
+        ops = ssd300_ops(torch, mx)
+    finally:
+        shutil.rmtree(SSD_DIR, ignore_errors=True)
+    t_check(kernel_launch_total() == before,
+            f"t K1-K5 launched {kernel_launch_total() - before} times in "
+            "phase t (no TPU kernel is on the SSD path)")
+    if _T_FAILED:
+        raise SystemExit("phase t: " + "; ".join(_T_FAILED))
+    return {"train": train, "ssd300": ops}
+
+
+# -------------------------------------------------------------- phase u
+# examples/distributed/cifar10_dist.py's configuration (u1) and BASELINE
+# config #5's model, resnet50_v1 through gluon.Trainer(kvstore='dist_sync')
+# (u2): DIST_RANKS worker processes started by the port's launcher
+# (mxnet_tpu_torch/kvstore/launch.py), sharing the one card over
+# gloo (backend_rule: one GPU for two workers)
+DIST_RANKS = 2
+DIST_DIR = os.path.join(ROOT, "_dist")    # gitignored: the ranks' results
+DIST_JOIN_S = 420
+U1_EPOCHS, U1_BATCH, U1_LR = 2, 32, 0.002
+# the summed gradient against one process's, of max|g|: a conv weight's
+# gradient sums 65,536 products in fp32, two halves then their sum against
+# one pass (the CPU rehearsal reads 3e-5)
+U1_GRAD_TOL = 1e-4
+# Adam's first step from them, of max|w|, where the one-process gradient is
+# at least U1_GRAD_FLOOR of its max (Adam's first update is +-lr wherever
+# |g| >> eps, so a gradient at noise level may take either sign; counted)
+U1_ADAM_TOL, U1_GRAD_FLOOR = 1e-5, 1e-3
+U2_BATCH, U2_STEPS = 32, 3
+U2_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+
+
+def cifar_net(mx):
+    """cifar10_dist.py's net."""
+    net = mx.gluon.nn.HybridSequential()
+    net.add(mx.gluon.nn.Conv2D(32, 3, padding=1, activation="relu"),
+            mx.gluon.nn.MaxPool2D(2),
+            mx.gluon.nn.GlobalAvgPool2D(),
+            mx.gluon.nn.Dense(10))
+    return net
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _dist_step(torch, mx, net, trainer, loss_fn, x, y):
+    """One data-parallel step, split as trainer.step splits it: forward +
+    backward, the gradients' all-reduce (push + pull), the update. Returns
+    (output, [ms of each part])."""
+    def fwd_bwd():
+        with mx.autograd.record():
+            out = net(x)
+            loss = loss_fn(out, y)
+        loss.backward()
+        return out
+    out, t_fb = _timed(torch, fwd_bwd)
+    _, t_ar = _timed(torch, trainer.allreduce_grads)
+    _, t_up = _timed(torch, lambda: trainer.update(x.shape[0]))
+    return out, [t_fb, t_ar, t_up]
+
+
+def _param_arrays(net):
+    """The trainable parameters (BatchNorm's running statistics are each
+    rank's own, as MXNet's are), as host arrays in collect_params order."""
+    return [p.data().detach().cpu().numpy().copy()
+            for p in net.collect_params().param_objects.values()
+            if p.grad_req != "null"]
+
+
+def dist_rank_u1(torch, mx, kv, rank, nw, out_dir):
+    """cifar10_dist.py's loop on this rank's shard, each step timed in
+    parts; the first step's batch, weights before, summed gradients and
+    weights after, and the final parameters saved."""
+    import numpy as np
+
+    np.random.seed(rank)
+    T = mx.gluon.data.vision.transforms
+    transform = T.Compose([T.ToTensor()])
+    ds = mx.gluon.data.vision.CIFAR10(train=True).transform_first(transform)
+    idx = list(range(rank, len(ds), nw))
+    shard = mx.gluon.data.SimpleDataset([ds[i] for i in idx])
+    loader = mx.gluon.data.DataLoader(shard, batch_size=U1_BATCH,
+                                      shuffle=True)
+    mx.random.seed(7)
+    torch.manual_seed(7)          # identical init on every rank
+    net = cifar_net(mx)
+    net.initialize(mx.initializer.Xavier())
+    net(mx.nd.zeros((1, 3, 32, 32)))      # the deferred shapes
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": U1_LR}, kvstore=kv)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    metric = mx.metric.Accuracy()
+    parts, first = [], {}
+    mx.gluon.data.dataloader.reset_stats()
+    for epoch in range(U1_EPOCHS):
+        metric.reset()
+        for x, y in loader:
+            if not first:
+                first = {"x": x.asnumpy(), "y": y.asnumpy()}
+                first.update({f"w0/{i}": w for i, w in
+                              enumerate(_param_arrays(net))})
+            out, ms = _dist_step(torch, mx, net, trainer, loss_fn, x, y)
+            if "w1/0" not in first:
+                for i, p in enumerate(
+                        net.collect_params().param_objects.values()):
+                    first[f"g/{i}"] = p.grad().cpu().numpy().copy()
+                first.update({f"w1/{i}": a for i, a in
+                              enumerate(_param_arrays(net))})
+            parts.append(ms)
+            metric.update([y], [out])
+        log(f"[u1 rank {rank}] epoch {epoch}: {metric.get()}")
+    params = _param_arrays(net)
+    checksum = sum(float(a.sum()) for a in params)
+    log(f"[u1 rank {rank}] param checksum {checksum:.6f}")
+    np.savez(os.path.join(out_dir, f"u1_rank{rank}.npz"), **first,
+             **{f"w/{i}": a for i, a in enumerate(params)})
+    return {"parts_ms": parts, "checksum": checksum,
+            "fingerprint_agree": kv.fingerprint_agree(
+                {str(i): a for i, a in enumerate(params)}),
+            "loader": mx.gluon.data.dataloader.stats(),
+            "batches": len(parts)}
+
+
+def dist_rank_u2(torch, mx, kv, rank, nw, out_dir):
+    """resnet50_v1 (fp32, NCHW, 224^2) through gluon.Trainer(kvstore=kv):
+    U2_STEPS SGD steps on this rank's seeded batch, timed in parts; the
+    final trainable parameters saved."""
+    import numpy as np
+
+    torch.manual_seed(0)
+    net = mx.gluon.model_zoo.vision.resnet50_v1()
+    net.initialize(mx.initializer.Xavier(rnd_type="gaussian",
+                                         factor_type="in", magnitude=2))
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(U2_OPT),
+                               kvstore="dist_sync")
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    rng = np.random.RandomState(100 + rank)
+    x = mx.nd.array(rng.rand(U2_BATCH, 3, 224, 224).astype(np.float32))
+    y = mx.nd.array(rng.randint(0, 1000, U2_BATCH).astype(np.float32))
+    parts = []
+    for _ in range(U2_STEPS):
+        parts.append(_dist_step(torch, mx, net, trainer, loss_fn, x, y)[1])
+    params = _param_arrays(net)
+    np.save(os.path.join(out_dir, f"u2_rank{rank}.npy"),
+            np.concatenate([a.ravel() for a in params]))
+    return {"parts_ms": parts, "n_params": int(sum(a.size for a in params)),
+            "checksum": sum(float(a.sum()) for a in params),
+            "fingerprint_agree": kv.fingerprint_agree(
+                {str(i): a for i, a in enumerate(params)})}
+
+
+def dist_rank(out_dir):
+    """One rank of phase u (a process the launcher started): u1, then u2,
+    their results in ``out_dir``/u1_rank<r>.json and u2_rank<r>.json."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kvstore import dist
+
+    kv = mx.kv.create("dist_sync")
+    rank, nw = kv.rank, kv.num_workers
+    if rank == 0:
+        log(f"[u] {nw} ranks on {torch.cuda.get_device_name(0)}: backend "
+            f"{kv.backend!r} ({dist.backend_rule(nw)[1]})")
+    for phase, body in (("u1", dist_rank_u1), ("u2", dist_rank_u2)):
+        t0 = time.perf_counter()
+        res = body(torch, mx, kv, rank, nw, out_dir)
+        kv.barrier()
+        res.update({"backend": kv.backend, "num_workers": nw,
+                    "wall_s": time.perf_counter() - t0})
+        with open(os.path.join(out_dir, f"{phase}_rank{rank}.json"),
+                  "w") as f:
+            json.dump(res, f)
+    return 0
+
+
+def _launch_ranks():
+    """Start DIST_RANKS ranks of phase u through the port's launcher;
+    fails the phase if the job fails or outlasts DIST_JOIN_S. Returns
+    ({phase: [each rank's results]}, the job's wall seconds)."""
+    # the launcher's file, run as a script: it imports only the standard
+    # library, where `-m mxnet_tpu_torch.kvstore.launch` imports the package
+    cmd = [sys.executable, os.path.join(ROOT, "mxnet_tpu_torch", "kvstore",
+                                        "launch.py"), "-n", str(DIST_RANKS),
+           sys.executable, os.path.abspath(__file__), "--dist-rank",
+           DIST_DIR]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep +
+               os.environ.get("PYTHONPATH", ""),
+               MXNET_TPU_TORCH_DIST_CLAIM_DIR=os.path.join(DIST_DIR,
+                                                           "claims"))
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(cmd, cwd=ROOT, env=env, timeout=DIST_JOIN_S)
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"phase u: the ranks did not finish within "
+                         f"{DIST_JOIN_S} s")
+    if r.returncode != 0:
+        raise SystemExit(f"phase u: the job exited {r.returncode}")
+    wall = time.perf_counter() - t0
+    ranks = {}
+    for phase in ("u1", "u2"):
+        ranks[phase] = []
+        for k in range(DIST_RANKS):
+            with open(os.path.join(DIST_DIR, f"{phase}_rank{k}.json")) as f:
+                ranks[phase].append(json.load(f))
+    return ranks, wall
+
+
+def _parts_summary(parts, skip):
+    """Median ms of the whole step and of each part, over the steps after
+    ``skip``, and the all-reduce's share of the step."""
+    rows = parts[skip:]
+    med = [sorted(r[k] for r in rows)[len(rows) // 2] for k in range(3)]
+    step = sorted(sum(r) for r in rows)[len(rows) // 2]
+    return {"step_ms": step, "fwd_bwd_ms": med[0], "allreduce_ms": med[1],
+            "update_ms": med[2], "allreduce_share": med[1] / step}
+
+
+_U_FAILED = []
+
+
+def u_check(ok, what):
+    """Log a phase-u check; a failed one is collected and fails the phase
+    at its end."""
+    log(f"[u] {'ok  ' if ok else 'FAIL'} {what}")
+    if not ok:
+        _U_FAILED.append(what)
+    return ok
+
+
+def dist_phase(torch, mx):
+    """Phase u: u1 and u2, each DIST_RANKS ranks on this card; the ranks
+    end bitwise equal (every trainable parameter), u1's first dist step
+    equals one process's step over both shards; step ms and the
+    all-reduce's share of it, on 2 ranks on one H100 over gloo."""
+    import shutil
+
+    import numpy as np
+
+    _U_FAILED.clear()
+    out = {}
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    torch.cuda.empty_cache()
+    try:
+        job, wall = _launch_ranks()
+        ranks = job["u1"]
+        where = (f"{DIST_RANKS} ranks on one {torch.cuda.get_device_name(0)}"
+                 f" over {ranks[0]['backend']}")
+        log(f"[u] the job of {DIST_RANKS} ranks took {wall:.1f} s (u1 "
+            f"{ranks[0]['wall_s']:.1f} s, u2 {job['u2'][0]['wall_s']:.1f} s "
+            "of it on rank 0)")
+        a, b = (np.load(os.path.join(DIST_DIR, f"u1_rank{k}.npz"))
+                for k in range(DIST_RANKS))
+        n = sum(k.startswith("w/") for k in a.files)
+        same = all(np.array_equal(a[f"w/{i}"], b[f"w/{i}"]) for i in range(n))
+        u_check(same and ranks[0]["checksum"] == ranks[1]["checksum"]
+                and all(r["fingerprint_agree"] for r in ranks),
+                f"u1 after {U1_EPOCHS} epochs ({ranks[0]['batches']} steps a "
+                f"rank) every parameter bitwise equal across the ranks; "
+                f"checksums {[r['checksum'] for r in ranks]}; "
+                "fingerprint_agree on every rank")
+        # one process over both shards, from the weights before step 1
+        net = cifar_net(mx)
+        net.initialize(mx.initializer.Xavier())
+        x = np.concatenate([a["x"], b["x"]])
+        y = np.concatenate([a["y"], b["y"]])
+        net(mx.nd.array(x[:1]))
+        params = list(net.collect_params().param_objects.values())
+        for i, p in enumerate(params):
+            p.set_data(a[f"w0/{i}"])
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": U1_LR})
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        with mx.autograd.record():
+            loss = loss_fn(net(mx.nd.array(x)), mx.nd.array(y))
+        loss.backward()
+        grads = [p.grad().cpu().numpy().copy() for p in params]
+        g_err = max(float(np.abs(g - a[f"g/{i}"]).max()
+                          / max(np.abs(g).max(), 1e-12))
+                    for i, g in enumerate(grads))
+        trainer.step(U1_BATCH)
+        w_err, noise = 0.0, 0
+        for i, (p, g) in enumerate(zip(params, grads)):
+            sure = np.abs(g) >= U1_GRAD_FLOOR * np.abs(g).max()
+            w = p.data().detach().cpu().numpy()
+            w_err = max(w_err, float(np.abs(w - a[f"w1/{i}"])[sure].max(
+                initial=0.0) / max(np.abs(w).max(), 1e-12)))
+            noise += int((~sure).sum())
+        u_check(g_err <= U1_GRAD_TOL and w_err <= U1_ADAM_TOL,
+                f"u1 the first dist step against one process's step over "
+                f"both shards ({2 * U1_BATCH} samples, rescale 1/"
+                f"{U1_BATCH}) from the same weights: summed gradients "
+                f"{g_err:.2e} of max|g| (tol {U1_GRAD_TOL:g}), weights after "
+                f"Adam {w_err:.2e} of max|w| (tol {U1_ADAM_TOL:g}) where "
+                f"|g| >= {U1_GRAD_FLOOR:g} max|g| ({noise} weights below "
+                "it not held)")
+        s1 = _parts_summary(ranks[0]["parts_ms"], skip=1)
+        log(f"[u1] {where}: median step {s1['step_ms']:.3f} ms (forward + "
+            f"backward {s1['fwd_bwd_ms']:.3f}, all-reduce "
+            f"{s1['allreduce_ms']:.3f}, update {s1['update_ms']:.3f}; the "
+            f"all-reduce {s1['allreduce_share']:.1%} of the step), host "
+            f"clock, rank 0; {U1_BATCH * DIST_RANKS / s1['step_ms'] * 1e3:.1f}"
+            f" images/s over the ranks; the loader's host-to-device copies "
+            f"{ranks[0]['loader']}")
+        out["u1"] = {"ranks": ranks, "summary": s1,
+                     "grad_err": g_err, "weight_err": w_err, "where": where}
+        ranks = job["u2"]
+        p0, p1 = (np.load(os.path.join(DIST_DIR, f"u2_rank{k}.npy"))
+                  for k in range(DIST_RANKS))
+        u_check(np.array_equal(p0, p1) and np.isfinite(p0).all()
+                and all(r["fingerprint_agree"] for r in ranks),
+                f"u2 resnet50_v1 after {U2_STEPS} steps: all "
+                f"{ranks[0]['n_params']} trainable weights bitwise equal "
+                "across the ranks and finite; fingerprint_agree on every "
+                "rank")
+        s2 = _parts_summary(ranks[0]["parts_ms"], skip=1)
+        log(f"[u2] {where}: resnet50_v1 fp32 batch {U2_BATCH} a rank, "
+            f"median step {s2['step_ms']:.3f} ms (forward + backward "
+            f"{s2['fwd_bwd_ms']:.3f}, all-reduce {s2['allreduce_ms']:.3f}, "
+            f"update {s2['update_ms']:.3f}; the all-reduce "
+            f"{s2['allreduce_share']:.1%} of the step), host clock, rank 0, "
+            f"steps 2-{U2_STEPS}; "
+            f"{U2_BATCH * DIST_RANKS / s2['step_ms'] * 1e3:.1f} images/s over"
+            f" the ranks")
+        out["u2"] = {"ranks": ranks, "summary": s2, "where": where}
+        out["job_wall_s"] = wall
+    finally:
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+    if _U_FAILED:
+        raise SystemExit("phase u: " + "; ".join(_U_FAILED))
+    return out
+
 
 def library_ms(fn, what):
     """device_ms of a library call, or None (logged) where the library
@@ -8840,6 +9697,12 @@ def main(argv=None):
                          "only")
     ap.add_argument("--rnn-only", action="store_true",
                     help="build, then run phase s (the word-LM slice) only")
+    ap.add_argument("--ssd-only", action="store_true",
+                    help="build, then run phase t (SSD, detection ops) only")
+    ap.add_argument("--dist-only", action="store_true",
+                    help="build, then run phase u (dist_sync ranks) only")
+    ap.add_argument("--dist-rank", metavar="DIR",
+                    help=argparse.SUPPRESS)   # one rank of phase u
     ap.add_argument("--lm-sweeps", type=int, metavar="N",
                     help="build, then train s1's word LM over N sweeps on "
                          "the card and on a CPU copy, log each one's "
@@ -8856,6 +9719,8 @@ def main(argv=None):
         print("chip_smoke: CUDA is not available; nothing to drive",
               file=sys.stderr)
         return 1
+    if args.dist_rank:
+        return dist_rank(args.dist_rank)
     sys.path.insert(0, ROOT)
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import _build, kernels
@@ -8912,6 +9777,22 @@ def main(argv=None):
         log("[rnn-only] phase s passed")
         log(card)
         return 0
+    if args.ssd_only:
+        ssd_phase(torch, mx)
+        log("[ssd-only] phase t passed")
+        log(card)
+        return 0
+    if args.dist_only:
+        dist_phase(torch, mx)
+        log("[dist-only] phase u passed")
+        log(card)
+        return 0
+    t_run = time.perf_counter()
+
+    def stamp(label):
+        log(f"[time] {label} from {time.perf_counter() - t_run:.1f} s after "
+            "the builds")
+
     checks, slice_err, slice_err32 = check_flash(torch, kernels)
     bwd_checks, bwd_slice_err, bwd_slice_err32 = check_flash_bwd(torch,
                                                                  kernels)
@@ -8922,11 +9803,13 @@ def main(argv=None):
     if args.quick:
         log("[quick] phase b passed; phases c-n skipped")
         return 0
+    stamp("time_flash")
     timing = time_flash(torch, kernels)
     bwd_timing = time_flash_bwd(torch, kernels)
     conv_timing = time_conv(torch, kernels)
     dec_timing = time_decode_attention(torch, da)
     write_timing = time_kv_write(torch, da)
+    stamp("serve_slice")
     served = serve_slice(torch, mx, kernels)
     model_err = model_vs_plain(torch, mx, kernels)
     vision, (pred, net, images) = serve_resnet(torch, mx)
@@ -8935,6 +9818,7 @@ def main(argv=None):
     del pred, net, images
     torch.cuda.empty_cache()
     layout_err = resnet_layouts(torch, mx)
+    stamp("train_slice")
     training = train_slice(torch, mx, kernels)
     train_err = train_vs_plain(torch, mx, kernels)
     resnet_training = train_resnet(torch, mx)
@@ -8942,18 +9826,29 @@ def main(argv=None):
         torch, kernels, RESNET_BATCH, resnet_training["median_step_ms"])
     k3_fp32_training = k3_fp32_at_training_shapes(
         torch, kernels, RESNET_BATCH, resnet_training["median_step_ms"])
+    stamp("capture_phase")
     captured = capture_phase(torch, mx, kernels)
     fp32_training = train_fp32_lm(torch, mx, kernels)
+    stamp("decode_phase")
     decoding = decode_phase(torch, mx, kernels)
+    stamp("int8_serving")
     int8 = int8_serving(torch, mx, q)
     k5_timing = time_k5(torch, q, int8.pop("predictor"), int8.pop("x"))
+    stamp("multirank_phase")
     multirank = multirank_phase(torch, mx, kernels)
     rank0 = multirank["per_rank"][0]
+    stamp("amp_phase")
     amp = amp_phase(torch, mx, kernels)
     amp_train_run, fp16 = amp["train"], amp["fp16_timing"]
+    stamp("module_phase")
     module = module_phase(torch, mx, kernels)
     nd_launches = module["nd"]["sdpa_launches"]
+    stamp("rnn_phase")
     word_lm = rnn_phase(torch, mx)
+    stamp("ssd_phase")
+    ssd = ssd_phase(torch, mx)
+    stamp("dist_phase")
+    dist_u = dist_phase(torch, mx)
 
     def ring_err(dtype, parts, key="errors"):
         """The ring's largest error (of max|whole-sequence call|, or with
@@ -9322,6 +10217,7 @@ def main(argv=None):
               "launches_by_mode": int8["launches"]["fused_by_mode"],
               "unfused_ms": k5_timing["fused"]["unfused_ms"],
               "per_shape": k5_timing["fused"]["per_shape"]}))]}
+    stamp("the end")
     kind = torch.cuda.get_device_name(0)
     if args.summary:
         os.makedirs(os.path.dirname(os.path.abspath(args.summary)),
@@ -9349,6 +10245,7 @@ def main(argv=None):
                        "k5_checks": k5_checks, "int8": int8,
                        "k5_timing": k5_timing, "amp": amp,
                        "module": module, "word_lm": word_lm,
+                       "ssd": ssd, "dist": dist_u,
                        **record}, f,
                       indent=1)
     log(card)

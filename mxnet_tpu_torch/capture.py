@@ -602,6 +602,11 @@ class CapturedShardedStep:
 
 
 def _no_loss_scaler(trainer):
+    if getattr(trainer, "_dist", None) is not None:
+        raise CaptureError(
+            "capture: this trainer sums its gradients over a distributed "
+            "kvstore; a captured multi-rank step is ROADMAP Queue 1 item 6. "
+            "Run the step eagerly (trainer.step)")
     if getattr(trainer, "_amp_loss_scaler", None) is not None:
         raise CaptureError(
             "capture: this trainer has an AMP loss scaler attached "

@@ -12,7 +12,14 @@ nothing: it runs under ``torch.no_grad()``.
 
 A HybridBlock that defines ``hybrid_forward(F, x, **params)`` is written
 once, as in MXNet: on tensors its ``forward`` calls it with ``F`` the
-registered ops (:data:`F_TENSOR`) and its parameters' tensors; called on a
+registered ops (:data:`F_TENSOR`, whose ``F.contrib.<name>`` is
+``_contrib_<name>``) and its parameters' tensors. A HybridBlock defined
+outside the port (a user's model, such as ``examples/ssd``'s ``SSD``)
+called on ``mx.nd`` arrays runs its ``hybrid_forward`` as MXNet does:
+``F = mx.nd`` and NDArrays in, so MXNet's array methods (``transpose``
+with an axes tuple, ``reshape`` with its 0 / -1 codes) work as written;
+the port's own layers take their tensor path under it, whatever they are
+called on. Called on a
 :class:`~mxnet_tpu_torch.symbol.Symbol` (``mxnet_tpu/gluon/block.py:
 405-420``) it gets ``F = mx.sym`` and its parameters as variables, and
 writes the same nodes, names and parameters as ``mxnet_tpu``'s layer. A
@@ -107,11 +114,14 @@ class Block(nn.Module):
         self._scope = _BlockScope(self)
         self._params = ParameterDict(self._prefix)
         self._reg_params = OrderedDict()  # attribute -> Parameter
+        self._pending_init = False       # a parameter awaits its shape
 
     def __call__(self, *args, **kwargs):
         if args and _is_symbol(args[0]):
             return self._call_symbolic(*args)
         if _has_ndarray((args, kwargs)):
+            if _user_hybrid(self):
+                return self._call_ndarray(*args, **kwargs)
             # mx.nd arrays in, mx.nd arrays out; the Block sees tensors
             args, kwargs = _unbox((args, kwargs))
             return _box(self(*args, **kwargs))
@@ -119,6 +129,22 @@ class Block(nn.Module):
             with torch.no_grad():
                 return super().__call__(*args, **kwargs)
         return super().__call__(*args, **kwargs)
+
+    def _call_ndarray(self, *args, **kwargs):
+        """``hybrid_forward(mx.nd, *NDArrays, **parameter NDArrays)``,
+        recording only inside ``autograd.record()``."""
+        from .. import ndarray
+        from ..ndarray.ndarray import NDArray
+
+        params = {name: None if t is None else NDArray(t)
+                  for name, t in ((name, getattr(self, name))
+                                  for name in self._reg_params)}
+        if autograd.is_recording():
+            return _box(self.hybrid_forward(ndarray, *args, **kwargs,
+                                            **params))
+        with torch.no_grad():
+            return _box(self.hybrid_forward(ndarray, *args, **kwargs,
+                                            **params))
 
     def _call_symbolic(self, *args):
         """The graph of this Block on Symbol inputs."""
@@ -210,6 +236,9 @@ class Block(nn.Module):
         missing, unexpected or shape-mismatched name raises and lists the
         names; otherwise only shape mismatches raise."""
         own = self._param_objects()
+        for name, p in own.items():      # a deferred shape takes the value's
+            if p._deferred is not None and name in params:
+                p.finish_deferred_init(tuple(params[name].shape))
         missing = [n for n in own if n not in params]
         unexpected = [n for n in params if n not in own]
         mismatched = [f"{n}: {tuple(params[n].shape)} vs {p.shape}"
@@ -232,8 +261,26 @@ class HybridBlock(Block):
     graph."""
 
     def forward(self, *args):
+        if self._pending_init:
+            self._finish_deferred_init(*args)
         params = {name: getattr(self, name) for name in self._reg_params}
         return self.hybrid_forward(F_TENSOR, *args, **params)
+
+    def _infer_shapes(self, *args):
+        """{attribute: shape} of the deferred parameters, from the first
+        forward's inputs; a layer that can tell overrides this."""
+        raise MXNetError(
+            f"{type(self).__name__} '{self.name}' cannot infer the shapes "
+            "of its deferred parameters: pass its input width (deferred "
+            "initialization beyond Conv2D and Dense is ROADMAP Queue 1 "
+            "item 8)")
+
+    def _finish_deferred_init(self, *args):
+        shapes = self._infer_shapes(*args)
+        for attr, p in self._reg_params.items():
+            if p._deferred is not None:
+                p.finish_deferred_init(shapes[attr])
+        self._pending_init = False
 
     def export(self, path, epoch=0):
         """Write the graph on ``data`` to ``<path>-symbol.json`` and every
@@ -294,6 +341,15 @@ def _is_symbol(x):
     return cls is not None and isinstance(x, cls)
 
 
+def _user_hybrid(block):
+    """Whether ``block`` is a HybridBlock written outside the port whose
+    ``hybrid_forward`` MXNet would hand NDArrays."""
+    cls = type(block)
+    return getattr(cls, "hybrid_forward", None) is not None and \
+        cls.forward is HybridBlock.forward and \
+        not cls.__module__.startswith("mxnet_tpu_torch.")
+
+
 class _TensorOps:
     """``F`` of a ``hybrid_forward`` on tensors: ``F.<op>(*arrays, name=None,
     **params)`` calls the registered op (``ops/registry.py``) in the
@@ -301,10 +357,23 @@ class _TensorOps:
     context's), with that device's ``mx.random`` generator. An op's mutated
     slots (BatchNorm's running statistics) are written back into the
     tensors given for them, in place, as MXNet's op updates its auxiliary
-    states."""
+    states. ``F.contrib.<name>`` is the op ``_contrib_<name>`` (else
+    ``<name>``), as ``mx.nd.contrib`` and ``mx.sym.contrib`` resolve it."""
+
+    def __init__(self, prefix=""):
+        self._prefix = prefix
 
     def __getattr__(self, opname):
-        op = _registry.get_op(opname)
+        if opname.startswith("__"):
+            raise AttributeError(opname)
+        if opname == "contrib" and not self._prefix:
+            return _CONTRIB
+        try:
+            op = _registry.get_op(self._prefix + opname)
+        except MXNetError:
+            if not self._prefix:
+                raise
+            op = _registry.get_op(opname)
 
         def call(*arrays, name=None, **params):
             params = op.normalize(params)
@@ -321,3 +390,4 @@ class _TensorOps:
 
 
 F_TENSOR = _TensorOps()
+_CONTRIB = _TensorOps("_contrib_")

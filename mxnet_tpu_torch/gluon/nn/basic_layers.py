@@ -4,13 +4,32 @@ from __future__ import annotations
 
 import torch
 
-from ..block import HybridBlock
+from ..block import Block, HybridBlock
 from ...base import torch_dtype
 from ...ops import math as _math
 from ...ops import nn as _nn
 
-__all__ = ["HybridSequential", "Dense", "BatchNorm", "LayerNorm",
+__all__ = ["Sequential", "HybridSequential", "Dense", "BatchNorm", "LayerNorm",
            "Embedding", "Flatten", "Activation", "LeakyReLU", "GELU"]
+
+
+class Sequential(Block):
+    """Stacks Blocks sequentially (gluon/nn/basic_layers.py:30)."""
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.add_module(str(len(self._modules)), block)
+
+    def forward(self, x):
+        for block in self._modules.values():
+            x = block(x)
+        return x
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self):
+        return len(self._modules)
 
 
 class HybridSequential(HybridBlock):
@@ -31,8 +50,8 @@ class HybridSequential(HybridBlock):
 
 class Dense(HybridBlock):
     """``act(x @ weight.T + bias)`` with weight (units, in_units)
-    (gluon/nn/basic_layers.py:144). ``in_units`` is required: the port has
-    no deferred initialization."""
+    (gluon/nn/basic_layers.py:144). Without ``in_units`` the weight waits
+    for the first forward, which reads the input's width."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype="float32", weight_initializer=None,
@@ -55,6 +74,12 @@ class Dense(HybridBlock):
                 self.act = Activation(activation, prefix=activation + "_")
             else:
                 self.act = None
+
+    def _infer_shapes(self, x, *args):
+        width = 1
+        for s in (x.shape[1:] if self._flatten else x.shape[-1:]):
+            width *= s
+        return {"weight": (self._units, width)}
 
     def hybrid_forward(self, F, x, weight, bias=None):
         """``mxnet_tpu/gluon/nn/basic_layers.py:134``."""

@@ -4,7 +4,8 @@ python/mxnet/gluon/nn/conv_layers.py).
 
 ``layout`` is NCHW (OIHW weights) or NHWC (OHWI weights, ``mxnet_tpu``'s
 channels-last parameter shape, so carried weights load unchanged).
-``in_channels`` is required: the port has no deferred initialization.
+Without ``in_channels`` the weight waits for the first forward, which
+reads the input's channels (deferred initialization).
 """
 from __future__ import annotations
 
@@ -60,6 +61,14 @@ class _Conv(HybridBlock):
 
     def _alias(self):
         return "conv"
+
+    def _infer_shapes(self, x, *args):
+        layout = self._kwargs["layout"]
+        cin = x.shape[-1] if layout and layout[1] != "C" else x.shape[1]
+        w = list(self._reg_params["weight"].shape)
+        w[-1 if layout and layout[1] != "C" else 1] = \
+            cin // self._kwargs["num_group"]
+        return {"weight": tuple(w)}
 
     def hybrid_forward(self, F, x, weight, bias=None):
         """``mxnet_tpu/gluon/nn/conv_layers.py:76``."""

@@ -3,9 +3,11 @@
 Counterpart of ``mxnet_tpu/gluon/parameter.py``. A :class:`Parameter`
 holds one weight's MXNet name, shape, dtype and initializer; the tensor
 itself is an ``nn.Parameter`` attribute of the owning Block, so the Block's
-``forward`` reads ``self.weight`` as any PyTorch module does. Shapes must
-be known when the Block is built: this slice has no deferred
-initialization (pass ``in_units``/``in_channels``).
+``forward`` reads ``self.weight`` as any PyTorch module does. A shape
+with an unknown (0) dimension defers ``initialize``: the draw waits until
+the owning layer's first forward supplies the shape
+(:meth:`Parameter.finish_deferred_init`; ``Conv2D`` and ``Dense`` infer
+their input width), as MXNet's deferred initialization does.
 
 A parameter whose ``grad_req`` is not ``"null"`` is a leaf that requires
 grad; its gradient is the tensor's ``.grad``. ``grad_req="write"`` (MXNet's
@@ -57,6 +59,7 @@ class Parameter:
         self._attr = None
         self._hooked = None      # weakref to the tensor with the 'write' hook
         self._var = None
+        self._deferred = None    # initialize's arguments, until the shape
         self.grad_req = grad_req
 
     @property
@@ -158,10 +161,11 @@ class Parameter:
                           stacklevel=2)
             return
         if not self.shape or any(s <= 0 for s in self.shape):
-            raise MXNetError(
-                f"Cannot initialize Parameter '{self.name}' with shape "
-                f"{self.shape}: the PyTorch port has no deferred "
-                "initialization (pass in_units / in_channels)")
+            # MXNet's deferred initialization: drawn at the first forward
+            self._deferred = (init, device, generator, default_init)
+            self._owner._pending_init = True
+            return
+        self._deferred = None
         chosen = initializer.create(
             self.init if self.init is not None else
             (init if init is not None else default_init))
@@ -171,6 +175,20 @@ class Parameter:
         buf = torch.empty(self.shape, dtype=torch.float32, device=gen_device)
         chosen(self.name, buf, generator)
         self._set(buf.to(device=device, dtype=self.dtype))
+
+    def finish_deferred_init(self, shape):
+        """Give a deferred parameter its ``shape`` and draw it with the
+        arguments ``initialize`` was called with."""
+        if self._deferred is None:
+            raise MXNetError(f"Parameter '{self.name}' is not waiting for "
+                             "its shape")
+        known = [s for s in self.shape if s > 0]
+        if known and tuple(s for s, t in zip(shape, self.shape)
+                           if t > 0) != tuple(known):
+            raise MXNetError(f"Parameter '{self.name}': shape {tuple(shape)}"
+                             f" does not fit {self.shape}")
+        self.shape = tuple(int(s) for s in shape)
+        self.initialize(*self._deferred)
 
     def set_data(self, value):
         """Copy ``value`` (numpy array or tensor) into the initialized

@@ -1,14 +1,23 @@
 """Gluon Trainer: applies an Optimizer to a set of Parameters (subset of
 ``mxnet_tpu/gluon/trainer.py``; parity: python/mxnet/gluon/trainer.py).
 
-One process, one device: ``kvstore`` 'device' (the default), 'local',
-'tpu' / 'nccl', a KVStore or None have nothing to reduce, so
+In one process ``kvstore`` 'device' (the default), 'local', 'tpu' /
+'nccl', a one-process KVStore or None have nothing to reduce, so
 :meth:`Trainer.step` is :meth:`Trainer.update` with
-``rescale_grad = scale / batch_size``. ``ignore_stale_grad`` is accepted
+``rescale_grad = scale / batch_size``. A distributed store ('dist_sync',
+'dist_device_sync', 'dist', or a :class:`~mxnet_tpu_torch.kvstore.dist.
+KVStoreDist`) is made at the first step (``mxnet_tpu/gluon/trainer.py:
+72-89``): every trainable parameter is ``init``-ed on it and pulled back,
+so every worker starts from rank 0's weights (MXNet's ``_init_params``);
+each step then pushes and pulls every gradient (the sum over the
+workers) before the update, whose ``rescale_grad`` stays ``scale /
+batch_size`` of one worker's batch, as ``mxnet_tpu``'s does. With
+``update_on_kvstore=True`` the store runs the optimizer and the step
+pulls the weights. 'dist_async' raises. ``ignore_stale_grad`` is accepted
 and, as in ``mxnet_tpu``, changes nothing: every parameter whose
 ``grad_req`` is not "null" is updated from its gradient buffer (zeros if
-no backward wrote it). The 'dist_*' stores and gradient compression
-raise, naming their ROADMAP items. ``mxnet_tpu``'s step
+no backward wrote it). Gradient compression raises, naming its ROADMAP
+item. ``mxnet_tpu``'s step
 watchdog, health sentinel, fault hooks and trace spans
 (``mxnet_tpu/gluon/trainer.py:111-200``) wait for the sharding, resilience
 and observability slices (ROADMAP Queue 1). The optimizer's states and
@@ -58,12 +67,18 @@ class Trainer:
                  kvstore="device", compression_params=None,
                  update_on_kvstore=None):
         self._params = _param_list(params)
-        # the names kvstore.create takes; one process has nothing to
-        # reduce, so each is the local update (gluon/trainer.py:56-60)
+        # a distributed store (by name or object) sums the gradients over
+        # the workers; every other store kvstore.create takes has nothing
+        # to reduce in one process (gluon/trainer.py:56-60)
         from ..kvstore import kvstore as _kvs
+        from ..kvstore.dist import KVStoreDist
 
-        if isinstance(kvstore, str):
-            _kvs.check_name(kvstore)
+        self._kvstore = None      # the distributed store, once made
+        self._dist = kvstore if isinstance(kvstore, KVStoreDist) else (
+            kvstore if isinstance(kvstore, str)
+            and _kvs.check_name(kvstore) == "dist" else None)
+        self._update_on_kvstore = bool(update_on_kvstore) and \
+            self._dist is not None
         if compression_params is not None:
             _kvs.KVStore("local").set_gradient_compression(
                 compression_params)
@@ -92,14 +107,59 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
+    def _init_kvstore(self):
+        """Make the distributed store; every trainable parameter takes
+        rank 0's value (``mxnet_tpu/gluon/trainer.py:72-89``)."""
+        from ..kvstore import kvstore as _kvs
+        from ..ndarray.ndarray import NDArray
+
+        kv = _kvs.create(self._dist) if isinstance(self._dist, str) \
+            else self._dist
+        if self._update_on_kvstore:
+            kv.set_optimizer(self._optimizer)
+        for i in self._active():
+            w = NDArray(self._params[i].data())
+            kv.init(i, w)
+            kv.pull(i, w)
+        self._kvstore = kv
+
+    def allreduce_grads(self):
+        """Sum every trainable parameter's gradient over the workers, in
+        place (``mxnet_tpu/gluon/trainer.py:148-163``)."""
+        from ..ndarray.ndarray import NDArray
+
+        if self._dist is None:
+            return
+        if self._kvstore is None:
+            self._init_kvstore()
+        for i in self._active():
+            g = NDArray(self._params[i].grad())
+            self._kvstore.push(i, g)
+            if not self._update_on_kvstore:
+                self._kvstore.pull(i, g)
+
     def step(self, batch_size, ignore_stale_grad=False):
-        """One update of every trainable parameter, with gradients scaled
-        by ``1 / batch_size`` (``mxnet_tpu/gluon/trainer.py:103``)."""
-        self.update(batch_size, ignore_stale_grad)
+        """One update of every trainable parameter, with gradients summed
+        over the workers of a distributed store and scaled by ``1 /
+        batch_size`` (``mxnet_tpu/gluon/trainer.py:103``)."""
+        if not self._update_on_kvstore:
+            self.allreduce_grads()
+            self.update(batch_size, ignore_stale_grad)
+            return
+        from ..ndarray.ndarray import NDArray
+
+        self._optimizer.rescale_grad = self._scale / batch_size
+        self.allreduce_grads()       # the store's updater runs at the push
+        for i in self._active():
+            self._kvstore.pull(i, NDArray(self._params[i].data()))
 
     def update(self, batch_size, ignore_stale_grad=False):
         """Apply the optimizer to every parameter whose ``grad_req`` is not
         "null" (``mxnet_tpu/gluon/trainer.py:161``)."""
+        if self._update_on_kvstore:
+            raise MXNetError("update() when parameters are updated on the "
+                             "kvstore is not supported; pass "
+                             "update_on_kvstore=False")
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(self._scalars())
 

@@ -9,9 +9,12 @@ value's device) and either applies the updater to the stored value or
 stores the sum; ``pull`` writes the stored value into each target in
 place. 'tpu' / 'nccl' is a device store here: ``mxnet_tpu``'s
 collective watchdog around its push waits for the resilience port
-(ROADMAP Queue 1 item 12). The 'dist_*' stores (``kvstore/dist.py``) and
-gradient compression (``kvstore/compression.py``) raise, naming ROADMAP
-Queue 1 item 11. Values are NDArrays; the updater is the optimizer's
+(ROADMAP Queue 1 item 12). 'dist', 'dist_sync' and 'dist_device_sync'
+are :class:`~mxnet_tpu_torch.kvstore.dist.KVStoreDist`, whose push sums
+each merged value over the workers (:meth:`KVStore._global_merge`);
+'dist_async' raises. Gradient compression (``kvstore/compression.py``)
+raises, naming ROADMAP Queue 1 item 11. Values are NDArrays; the updater
+is the optimizer's
 :class:`~mxnet_tpu_torch.optimizer.Updater` (``set_optimizer``) or any
 ``updater(key, value, stored)``.
 """
@@ -25,6 +28,7 @@ __all__ = ["KVStore", "KVStoreLocal", "KVStoreDevice", "create",
 
 _LOCAL = ("local", "local_update_cpu", "local_allreduce_cpu")
 _DEVICE = ("device", "local_allreduce_device", "tpu", "nccl", "horovod")
+_DIST = ("dist", "dist_sync", "dist_device_sync")
 
 
 def check_name(name):
@@ -34,16 +38,23 @@ def check_name(name):
         return "local"
     if name in _DEVICE:
         return "device"
-    if name.startswith("dist"):
-        raise MXNetError(f"kvstore {name!r}: the distributed stores "
-                         "(kvstore/dist.py) are ROADMAP Queue 1 item 11, "
-                         "not ported")
+    if name in _DIST:
+        return "dist"
+    if name.startswith("dist") and "async" in name:
+        raise MXNetError(
+            f"kvstore {name!r}: the asynchronous parameter server has no "
+            "counterpart in the port; use 'dist_sync' (a synchronous "
+            "all-reduce)")
     raise MXNetError(f"unknown kvstore type {name!r}")
 
 
 def create(name="local"):
-    """A store by name: 'local', 'device', 'tpu' / 'nccl'."""
+    """A store by name: 'local', 'device', 'tpu' / 'nccl', 'dist_sync'."""
     kind = check_name(name)
+    if kind == "dist":
+        from .dist import KVStoreDist
+
+        return KVStoreDist(name.lower())
     return KVStoreLocal(name.lower()) if kind == "local" \
         else KVStoreDevice(name.lower())
 
@@ -105,13 +116,18 @@ class KVStore:
             acc.add_(v._data.detach().to(acc.device))
         return NDArray(acc, values[0].context)
 
+    def _global_merge(self, merged):
+        """The merged value across processes: this one's, in one process
+        (``KVStoreDist`` all-reduces it)."""
+        return merged
+
     def push(self, key, value, priority=0):
         """Sum each key's values; apply the updater to the stored value,
         or store the sum when there is none (kvstore_local.h PushImpl)."""
         keys, values = _pairs(key, value)
         for k, v in zip(keys, values):
-            merged = self._reduce(list(v) if isinstance(v, (list, tuple))
-                                  else [v])
+            merged = self._global_merge(self._reduce(
+                list(v) if isinstance(v, (list, tuple)) else [v]))
             if k not in self._data:
                 self._data[k] = merged
             elif self._updater is not None:

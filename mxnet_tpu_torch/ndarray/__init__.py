@@ -10,7 +10,8 @@ device's ``mx.random`` generator are supplied by
 :func:`~.ndarray.imperative_invoke`, where ``mxnet_tpu``'s wrappers
 insert the train flag and the global key cell
 (``ndarray/__init__.py:24-63``). ``mx.nd.contrib`` has the ``_contrib_*``
-ops under their short names and the eager control flow.
+ops under their short names and the eager control flow; ``mx.nd.image``
+the ``_image_*`` ops under theirs.
 """
 from __future__ import annotations
 
@@ -62,7 +63,7 @@ def _populate():
 
 _populate()
 
-from . import contrib  # noqa: E402,F401  (mx.nd.contrib)
+from . import contrib, image  # noqa: E402,F401  (mx.nd.contrib, .image)
 
 
 def __getattr__(name):

@@ -219,6 +219,10 @@ class Symbol:
     def reshape(self, shape=None, **kw):
         return _create("Reshape", [self], {"shape": tuple(shape)})
 
+    def transpose(self, axes=None):
+        return _create("transpose", [self],
+                       {"axes": tuple(axes) if axes else None})
+
     def sum(self, axis=None, keepdims=False):
         return _create("sum", [self], {"axis": axis, "keepdims": keepdims})
 

@@ -54,7 +54,15 @@ def test_no_source_imports_jax_or_the_jax_package():
         "ndarray/contrib.py", "gluon/rnn/rnn_layer.py",
         "gluon/rnn/rnn_cell.py", "gluon/utils.py",
         "module/bucketing_module.py", "module/sequential_module.py",
-        "module/python_module.py"} <= {
+        "module/python_module.py"} | {
+        # the SSD and dist_sync slice, the launcher among them
+        "ops/detection.py", "ops/image_ops.py", "ndarray/image.py",
+        "image/__init__.py", "image/image.py", "image/detection.py",
+        "gluon/data/__init__.py", "gluon/data/dataset.py",
+        "gluon/data/sampler.py", "gluon/data/dataloader.py",
+        "gluon/data/vision/__init__.py", "gluon/data/vision/datasets.py",
+        "gluon/data/vision/transforms.py", "kvstore/dist.py",
+        "kvstore/launch.py"} <= {
         os.path.relpath(p, PKG) for p in sources}
     offenders = []
     for path in sources:
@@ -122,6 +130,29 @@ def test_imports_and_runs_with_jax_and_mxnet_tpu_blocked():
             mod.fit(mt.io.NDArrayIter(x.asnumpy(), np.arange(32) % 3, 8),
                     num_epoch=1, kvstore="device",
                     batch_end_callback=mt.callback.Speedometer(8, 2))
+        # the SSD and dist_sync slice: detection ops on the hybrid path,
+        # the image iterator's augmenters, the data loader, a dist store
+        import os as _os
+        with mt.cpu():
+            f = mt.nd.zeros((1, 4, 4, 4))
+            anc = mt.nd.contrib.MultiBoxPrior(f, sizes=(0.5,))
+            cp = mt.nd.softmax(mt.nd.ones((1, 2, 16)), axis=1)
+            lab = mt.nd.array(np.array([[[0, .1, .1, .5, .5]]]))
+            mt.nd.contrib.MultiBoxTarget(anc, lab, cp,
+                                         negative_mining_ratio=3.0)
+            det = mt.nd.contrib.MultiBoxDetection(cp, mt.nd.zeros((1, 64)),
+                                                  anc, nms_topk=8)
+            assert det.shape == (1, 16, 6)
+            im, lb = mt.image.DetHorizontalFlipAug(1.0)(
+                np.zeros((8, 8, 3), np.float32), np.array([[0, .1, .1, .5,
+                                                            .5]]))
+            T = mt.gluon.data.vision.transforms
+            ds = mt.gluon.data.ArrayDataset(
+                mt.nd.array(np.zeros((4, 8, 8, 3)), dtype="uint8"),
+                np.arange(4)).transform_first(T.ToTensor())
+            xb, yb = next(iter(mt.gluon.data.DataLoader(ds, batch_size=2)))
+            assert xb.shape == (2, 3, 8, 8)
+            assert mt.kv.create("dist_sync").num_workers == 1
         leaked = [n for n in sys.modules
                   if n == "jax" or n.startswith("jax.")
                   or n == "mxnet_tpu" or n.startswith("mxnet_tpu.")]

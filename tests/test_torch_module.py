@@ -148,9 +148,12 @@ def test_kvstore_against_mxnet_tpu(tmp_path):
     with mt.cpu():
         assert mt.kv.create("tpu").type == "tpu"
         assert mt.kv.create("nccl").num_workers == 1
+        # outside a launched job a dist store is one worker's store
         for name in ("dist_sync", "dist_device_sync"):
-            with pytest.raises(mt.MXNetError, match="item 11"):
-                mt.kv.create(name)
+            kv = mt.kv.create(name)
+            assert (kv.type, kv.num_workers, kv.rank) == (name, 1, 0)
+        with pytest.raises(mt.MXNetError, match="asynchronous"):
+            mt.kv.create("dist_async")
         with pytest.raises(mt.MXNetError, match="item 11"):
             mt.kv.create("local").set_gradient_compression({"type": "2bit"})
 
@@ -286,8 +289,9 @@ def test_gluon_trainer_takes_the_kvstore_names():
     net.initialize(ctx=mt.cpu())
     for kv in ("device", "local", "tpu", "nccl", None):
         mt.gluon.Trainer(net.collect_params(), "sgd", kvstore=kv)
-    with pytest.raises(mt.MXNetError, match="item 11"):
-        mt.gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
+    mt.gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
+    with pytest.raises(mt.MXNetError, match="asynchronous"):
+        mt.gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_async")
     with pytest.raises(mt.MXNetError, match="item 11"):
         mt.gluon.Trainer(net.collect_params(), "sgd",
                          compression_params={"type": "2bit"})

@@ -1,10 +1,11 @@
 """Every op name and alias ``mxnet_tpu`` registers resolves in the port, or
 sits in :data:`PENDING` with the ROADMAP item that ports it. Later slices
 shrink the dict. The names of ``mxnet_tpu/ops/math.py``, ``nn.py``,
-``parity_aliases.py``, ``random_ops.py``, ``rnn.py`` and
-``control_flow.py`` each have a parity case
-(``test_torch_ops_parity.py``, ``test_torch_random.py``, or the earlier
-file named in :data:`ELSEWHERE`); the sparse-storage ones raise."""
+``parity_aliases.py``, ``random_ops.py``, ``rnn.py``,
+``control_flow.py``, ``detection.py`` and ``image_ops.py`` each have a
+parity case (``test_torch_ops_parity.py``, ``test_torch_random.py``,
+``test_torch_detection.py``, ``test_torch_image.py``, or the earlier file
+named in :data:`ELSEWHERE`); the sparse-storage ones raise."""
 import inspect
 
 import pytest
@@ -17,31 +18,12 @@ import mxnet_tpu_torch as mt  # noqa: E402
 from mxnet_tpu.ops import registry as jreg  # noqa: E402
 from mxnet_tpu_torch.ops import registry as treg  # noqa: E402
 
-_VISION = "ROADMAP Queue 1 item 11 (the remaining op families)"
+_VISION = "ROADMAP Queue 1 item 11 (vision_extra, the last op family)"
 
 # name -> the ROADMAP item that ports it
 PENDING = {
     "Custom": "ROADMAP Queue 1 item 11 (operator.py, CustomOp)",
     **{n: _VISION for n in (
-        # detection
-        "_contrib_MultiBoxPrior", "_contrib_MultiBoxTarget",
-        "_contrib_MultiBoxDetection", "_contrib_box_nms", "_contrib_ROIAlign",
-        "_contrib_box_iou", "_contrib_bipartite_matching",
-        "_contrib_box_encode", "_contrib_box_decode", "MultiBoxPrior",
-        "MultiBoxTarget", "MultiBoxDetection", "box_nms", "ROIAlign",
-        "box_iou", "bipartite_matching", "box_encode", "box_decode",
-        # image_ops
-        "_image_to_tensor", "_image_normalize", "_image_flip_left_right",
-        "_image_flip_top_bottom", "_image_random_flip_left_right",
-        "_image_random_flip_top_bottom", "_image_crop", "_image_resize",
-        "_image_random_brightness", "_image_random_contrast",
-        "_image_random_saturation", "_image_adjust_lighting",
-        "_image_random_lighting", "image_to_tensor", "image_normalize",
-        "image_flip_left_right", "image_flip_top_bottom",
-        "image_random_flip_left_right", "image_random_flip_top_bottom",
-        "image_crop", "image_resize", "image_random_brightness",
-        "image_random_contrast", "image_random_saturation",
-        "image_adjust_lighting", "image_random_lighting",
         # vision_extra
         "BilinearSampler", "GridGenerator", "SpatialTransformer",
         "ROIPooling", "Correlation", "_contrib_Proposal",
@@ -77,7 +59,8 @@ ELSEWHERE = {
 _SOURCES = ("mxnet_tpu/ops/math.py", "mxnet_tpu/ops/nn.py",
             "mxnet_tpu/ops/parity_aliases.py",
             "mxnet_tpu/ops/random_ops.py", "mxnet_tpu/ops/rnn.py",
-            "mxnet_tpu/ops/control_flow.py")
+            "mxnet_tpu/ops/control_flow.py", "mxnet_tpu/ops/detection.py",
+            "mxnet_tpu/ops/image_ops.py")
 
 
 def _source(op):
@@ -110,12 +93,16 @@ def test_every_reference_name_resolves_or_is_pending():
 
 
 def test_every_slice_op_has_a_parity_case():
+    from test_torch_detection import CASE_NAMES as DETECTION
+    from test_torch_image import CASE_NAMES as IMAGE
     from test_torch_ops_parity import CASE_NAMES
     from test_torch_random import SAMPLERS
 
     required = sorted(n for n, op in jreg._OPS.items()
                       if _source(op) in _SOURCES)
-    covered = CASE_NAMES | set(SAMPLERS) | set(RAISES) | set(ELSEWHERE)
+    covered = CASE_NAMES | set(SAMPLERS) | set(RAISES) | set(ELSEWHERE) | \
+        DETECTION | IMAGE
+    assert {"_contrib_MultiBoxTarget", "_image_resize"} <= set(required)
     uncovered = [n for n in required if n not in covered]
     assert not uncovered, uncovered
 

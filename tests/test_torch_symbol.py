@@ -149,13 +149,14 @@ def test_reference_saved_json_loads_like_mxnet_tpu(name):
 
 def test_unported_op_in_a_graph_is_named():
     """SoftmaxOutput is ported since the Module slice, so the reference
-    MLP loads; an op still pending (ROIAlign; RNN until the word-LM
-    slice) is named."""
+    MLP loads; an op still pending (Correlation; ROIAlign until the SSD
+    slice, RNN until the word-LM slice) is named."""
     path = os.path.join(DATA, "mlp-symbol.json")
     assert tsym.load(path).list_outputs() == ["softmax_output"]
     with open(path) as f:
-        text = f.read().replace('"SoftmaxOutput"', '"ROIAlign"')
-    with pytest.raises(mt.MXNetError, match="'ROIAlign' is not registered"):
+        text = f.read().replace('"SoftmaxOutput"', '"Correlation"')
+    with pytest.raises(mt.MXNetError,
+                       match="'Correlation' is not registered"):
         tsym.load_json(text)
 
 
