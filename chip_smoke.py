@@ -12,6 +12,7 @@
     python3 chip_smoke.py --lm-sweeps 6      # build + s1's LM, card and CPU
     python3 chip_smoke.py --ssd-only         # build + phase t (SSD)
     python3 chip_smoke.py --dist-only        # build + phase u (dist_sync)
+    python3 chip_smoke.py --fleet-only       # build + phase v (serving)
 
 Phases, each failing loudly with a non-zero exit:
 
@@ -360,7 +361,36 @@ Phases, each failing loudly with a non-zero exit:
       gluon.Trainer(kvstore='dist_sync'), SGD, batch 32 a rank, 3 steps:
       the ranks' trainable weights bitwise equal; step ms and the
       all-reduce's share of it for each. ``--dist-only`` runs the build
-      and phase u alone.
+      and phase u alone;
+  (v) the serving runtime (checks collected, the phase failing at its
+      end): (v1) a Fleet of 2 thread replicas of phase d's LM (bf16, each
+      bucket a CUDA graph; K1 on route "tc" at every build's warm-up runs
+      and capture, none at a replay), 4 threads x 32 requests at a
+      deadline: every answer within 5e-2 of max|logit| of one Predictor
+      on the same weights at bucket 1 (the bitwise ones counted), 8
+      coalesced requests bitwise its bucket-8 predict; requests/s, p50
+      and p99 beside one BatchServer's; then replica_crash and
+      replica_hang (under a 0.5 s batch watchdog) on replica 0 under the
+      4 threads: every future terminates, the victim walks HEALTHY ->
+      DRAINING -> DEAD -> RESTARTING -> WARMING -> HEALTHY, the failover
+      time and the restart's capture seconds; (v2) one mode='process'
+      replica (a 2-layer LM at phase d's widths) built on the card in a
+      spawned child, its answer bitwise a Predictor's in this process,
+      SIGKILLed, restarted under a new pid, answering again; (v3)
+      swap_params into the captured buckets (the replay bitwise a fresh
+      Predictor on the new weights, the snapshot restoring the old), then
+      rollout_weights on v1's fleet: rollout_bad_weights rolled back at
+      the health gate and good weights promoted, clients answered
+      throughout with no error; (v4) a {fp32, int8} variant group of
+      phase p's ResNet-18 (2 replicas each, K5 on route "wgmma"), each
+      answer bitwise its variant's Predictor, replica_nan_storm on an
+      int8 replica caught by the sentinel and retried on its sibling;
+      (v5) a StreamRouter of 2 DecodeBatchers on phase n's model (bf16,
+      fp32 KV, K4), decode_replica_death mid-stream: every stream
+      completes, decode_reroutes, each stream's first divergence from the
+      unfaulted tokens, the rerouted streams' token gap. Each line names
+      the card and its power limit. ``--fleet-only`` runs the build and
+      phase v alone.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. ``--summary PATH`` also writes the
@@ -9666,6 +9696,654 @@ def dist_phase(torch, mx):
     return out
 
 
+
+# ------------------------------------------------------------------ phase v
+# the serving runtime: a fleet of phase d's LM (v1), a process replica
+# (v2), swap_params and rollouts (v3), a {fp32, int8} variant group of
+# phase p's ResNet-18 (v4), a StreamRouter of phase n's model (v5)
+FLEET_BUCKETS = (1, 2, 4, 8)
+FLEET_THREADS, FLEET_PER_THREAD = 4, 32
+FLEET_DEADLINE_MS = 60000.0
+FLEET_WATCHDOG_S = "0.5"      # the batch deadline of v1's drills
+FLEET_HANG_CAP_S = "3"
+# a fleet answer against the one Predictor at bucket 1 (it may have run in
+# another bucket: bf16 GEMMs of another M round otherwise), of max|logit|
+FLEET_BF16_TOL = 5e-2
+V2_LAYERS = 2                 # the process replica's LM: phase d's widths
+V4_BUCKETS = (1, 8)
+V5_SEQS, V5_STREAMS, V5_NEW = 8, 8, 48
+V5_PROMPTS = (64, 200)
+_V_FAILED = []
+
+
+def v_check(ok, what):
+    """Log a phase-v check; a failed one is collected and fails the phase
+    at its end."""
+    log(f"[v] {'ok  ' if ok else 'FAIL'} {what}")
+    if not ok:
+        _V_FAILED.append(what)
+    return ok
+
+
+def fleet_lm(torch, mx, seed=0, layers=LAYERS):
+    """Phase d's LM (GPT-2-small widths, bf16) with seeded weights."""
+    from mxnet_tpu_torch.gluon.model_zoo import transformer
+
+    net = transformer.transformer_lm(
+        vocab=VOCAB, units=UNITS, num_heads=HEADS, num_layers=layers,
+        max_len=T, impl="flash", prefix="tlm_")
+    net.initialize(mx.init.Xavier(), generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    net.cast("bfloat16")
+    return net
+
+
+def fleet_predictor(torch, mx, net, buckets=FLEET_BUCKETS):
+    from mxnet_tpu_torch import serving
+
+    return serving.Predictor.from_block(
+        net, input_shapes={"data": (T,)}, batch_sizes=buckets,
+        warmup=False).warmup(dtype="int64")
+
+
+def fleet_child_predictor():
+    """v2's factory, run in the spawned child: a V2_LAYERS-layer LM at
+    phase d's widths, seed 0, bucket 1, on the card."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import mxnet_tpu_torch as mx
+
+    return fleet_predictor(torch, mx, fleet_lm(torch, mx, 0, V2_LAYERS),
+                           buckets=(1,))
+
+
+def _drive(torch, submit, requests, threads=FLEET_THREADS):
+    """``requests[i]`` from thread i through ``submit``; returns (answers,
+    errors, lost, wall s)."""
+    answers = [[None] * len(r) for r in requests]
+    errors, lost = [], []
+
+    def client(i):
+        futs = [submit(ids) for ids in requests[i]]
+        for j, f in enumerate(futs):
+            try:
+                answers[i][j] = f.result(timeout=600)[0]
+            except TimeoutError:
+                lost.append((i, j))
+            except Exception as e:   # noqa: BLE001 -- counted below
+                errors.append(f"{type(e).__name__}: {str(e)[:80]}")
+
+    ths = [threading.Thread(target=client, args=(i,))
+           for i in range(threads)]
+    t0 = time.perf_counter()
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(900)
+    if any(th.is_alive() for th in ths):
+        lost.append("a client thread")
+    return answers, errors, lost, time.perf_counter() - t0
+
+
+def _pcts(xs):
+    xs = sorted(xs)
+    if not xs:
+        return 0.0, 0.0
+    return (xs[int(0.5 * (len(xs) - 1) + 0.5)],
+            xs[int(0.99 * (len(xs) - 1) + 0.5)])
+
+
+def _secs(x):
+    return "not reached" if x is None else f"{x:.3f} s"
+
+
+def _restart_walk(replica, since):
+    """(the victim's walk after ``since``, seconds of its RESTARTING ->
+    WARMING build (the capture), the fault-to-HEALTHY seconds)."""
+    tr = [t for t in replica.transitions if t[0] >= since]
+    walk = [(a, b) for _, a, b, _ in tr]
+    build = [t1[0] - t0[0] for t0, t1 in zip(tr, tr[1:])
+             if (t0[2], t1[2]) == ("RESTARTING", "WARMING")]
+    healthy = [t[0] for t in tr if t[2] == "HEALTHY"]
+    return walk, (build[-1] if build else None), \
+        ((healthy[-1] - since) if healthy else None)
+
+
+def fleet_drill(torch, serving, faults, fleet, kind, times, requests):
+    """One drill on replica 0 under the 4 client threads (its siblings
+    replay their graphs while it captures again): every future
+    terminates, the victim walks the machine back to HEALTHY."""
+    import gc
+
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    victim = fleet.replicas()[0]
+    before = serving.stats()
+    t0 = time.monotonic()
+    with faults.inject(kind, times=times) as f:
+        answers, errors, lost, wall = _drive(
+            torch, lambda ids: fleet.submit(ids, deadline_ms=FLEET_DEADLINE_MS),
+            requests)
+        deadline = time.monotonic() + 120
+        while f.fired < times and time.monotonic() < deadline:
+            fleet.submit(requests[0][0], deadline_ms=FLEET_DEADLINE_MS
+                         ).result(timeout=600)
+    deadline = time.monotonic() + 120
+    while victim.generation < 2 and time.monotonic() < deadline:
+        time.sleep(0.02)
+    healthy = fleet.wait_healthy(timeout=120)
+    walk, capture_s, failover_s = _restart_walk(victim, t0)
+    after = serving.stats()
+    delta = {k: after[k] - before[k] for k in (
+        "fleet_retries", "fleet_replica_failures", "fleet_breaker_opens",
+        "fleet_restarts", "fleet_shed_overloaded",
+        "serving_stalled_batches")}
+    machine = [("HEALTHY", "DRAINING"), ("DRAINING", "DEAD"),
+               ("DEAD", "RESTARTING"), ("RESTARTING", "WARMING"),
+               ("WARMING", "HEALTHY")]
+    n = sum(len(r) for r in requests)
+    done = sum(a is not None for r in answers for a in r)
+    # the answers' logits (100 MB a request) are not the replicas' memory:
+    # what is left after them is the abandoned replica's, if anything
+    del answers
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    v_check(not lost and done + len(errors) == n and f.fired == times
+            and healthy and walk[:5] == machine
+            and victim.generation >= 2,
+            f"v1 {kind} x{times} under {FLEET_THREADS} threads x "
+            f"{len(requests[0])} requests: {done} answered, {len(errors)} "
+            f"errors {errors[:2]}, {len(lost)} lost; victim walk "
+            f"{walk}; counters {delta}; failover (fault to HEALTHY) "
+            f"{_secs(failover_s)}, the restart's build and capture "
+            f"{_secs(capture_s)}; device memory {mem0 / 2**20:.0f} -> "
+            f"{mem1 / 2**20:.0f} MiB after the drill")
+    return {"kind": kind, "answered": done, "errors": len(errors),
+            "lost": len(lost), "walk": walk, "counters": delta,
+            "failover_s": failover_s, "capture_s": capture_s,
+            "wall_s": wall, "mem_before_mib": mem0 / 2**20,
+            "mem_after_mib": mem1 / 2**20}
+
+
+def fleet_v1(torch, mx, kernels, card):
+    """v1: a Fleet of 2 thread replicas of phase d's LM (bf16, K1 on
+    route "tc" at each bucket's warm-up runs and capture), 4 threads x 32
+    requests at a deadline against one Predictor on the same weights, beside
+    one BatchServer; then the replica_crash and replica_hang drills."""
+    import numpy as np
+
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.resilience import faults
+
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    # probes once a minute: a probe must not take a drill's one fire; one
+    # failure opens a breaker (a crashed batch fails all its requests)
+    fleet = serving.Fleet(
+        lambda: fleet_predictor(torch, mx, fleet_lm(torch, mx)),
+        replicas=2, probe_interval_ms=60000, breaker_k=1,
+        breaker_cooldown_ms=1000, retries=2, backoff_ms=1,
+        server_kw={"max_batch_size": 8, "batch_timeout_ms": 5.0})
+    build_s = time.perf_counter() - t0
+    ref = fleet_predictor(torch, mx, fleet_lm(torch, mx))
+    rng = np.random.RandomState(7)
+    requests = [[rng.randint(0, VOCAB, (1, T)).astype(np.int64)
+                 for _ in range(FLEET_PER_THREAD)]
+                for _ in range(FLEET_THREADS)]
+    serving.reset_stats()
+    answers, errors, lost, wall = _drive(
+        torch, lambda ids: fleet.submit(ids, deadline_ms=FLEET_DEADLINE_MS),
+        requests)
+    st = serving.stats()
+    n = FLEET_THREADS * FLEET_PER_THREAD
+    worst, exact = 0.0, 0
+    for i, row in enumerate(requests):
+        for j, ids in enumerate(row):
+            got = answers[i][j]
+            if got is None:
+                continue
+            want = ref.predict(ids)[0]
+            exact += bool(torch.equal(got, want))
+            worst = max(worst, float((got.float() - want.float()).abs().max()
+                                     / want.float().abs().max()))
+    # 8 requests coalesced into one bucket-8 batch: bitwise equal to the
+    # Predictor's bucket-8 predict of the same rows
+    batch = [requests[0][j] for j in range(8)]
+    slow = serving.Fleet(
+        lambda: fleet_predictor(torch, mx, fleet_lm(torch, mx)),
+        replicas=1, probe_interval_ms=60000,
+        server_kw={"max_batch_size": 8, "batch_timeout_ms": 10000.0})
+    try:
+        futs = [slow.submit(ids) for ids in batch]
+        coalesced = [f.result(timeout=600)[0] for f in futs]
+    finally:
+        slow.close()
+    direct = ref.predict(np.concatenate(batch))[0]
+    same8 = all(torch.equal(coalesced[j][0], direct[j]) for j in range(8))
+    p50, p99 = st["fleet_p50_latency_us"] / 1e3, \
+        st["fleet_p99_latency_us"] / 1e3
+    v_check(not errors and not lost and worst <= FLEET_BF16_TOL and same8,
+            f"v1 fleet of 2 replicas (built in {build_s:.2f} s), {n} "
+            f"requests from {FLEET_THREADS} threads at deadline "
+            f"{FLEET_DEADLINE_MS:g} ms: {n / wall:.2f} requests/s, p50 "
+            f"{p50:.2f} ms, p99 {p99:.2f} ms ({card}); {exact} of {n} "
+            f"answers bitwise the Predictor's bucket-1 predict, the rest "
+            f"within {worst:.3e} of max|logit| (tol {FLEET_BF16_TOL:g}); "
+            f"8 coalesced requests bitwise its bucket-8 predict: {same8}; "
+            f"{len(errors)} errors, {len(lost)} lost")
+    serving.reset_stats()
+    with serving.BatchServer(ref, max_batch_size=8,
+                             batch_timeout_ms=5.0) as server:
+        _, b_err, b_lost, b_wall = _drive(torch, server.submit, requests)
+    sb = serving.stats()
+    b50, b99 = sb["serving_p50_latency_us"] / 1e3, \
+        sb["serving_p99_latency_us"] / 1e3
+    log(f"[v] v1 one BatchServer on one Predictor, the same requests: "
+        f"{n / b_wall:.2f} requests/s, p50 {b50:.2f} ms, p99 {b99:.2f} ms "
+        f"({card})")
+    v_check(not b_err and not b_lost, "v1 the BatchServer answered all")
+
+    drill_env = {"MXNET_TPU_TORCH_WATCHDOG_BATCH_TIMEOUT": FLEET_WATCHDOG_S,
+                 "MXNET_TPU_TORCH_WATCHDOG_PROBE_TIMEOUT": "5",
+                 "MXNET_TPU_TORCH_FAULT_HANG_CAP": FLEET_HANG_CAP_S}
+    os.environ.update(drill_env)
+    try:
+        drills = [fleet_drill(torch, serving, faults, fleet, kind, 1,
+                              [r[:8] for r in requests])
+                  for kind in ("replica_crash", "replica_hang")]
+    finally:
+        for key in drill_env:
+            os.environ.pop(key, None)
+    by_route = dict(kernels.flash_attention.launches_by_route)
+    builds = 2 + 1 + 1 + sum(d["counters"]["fleet_restarts"]
+                             for d in drills)
+    want = LAYERS * 3 * len(FLEET_BUCKETS) * builds
+    v_check(by_route == {"tc": want, "tf32x3": 0, "simt": 0},
+            f"v1 K1 launches {by_route} (want {want} on tc: "
+            f"{LAYERS} at each bucket's 2 warm-up runs and capture, over "
+            f"{builds} predictor builds -- the 2 replicas, the reference, "
+            "the bucket-8 check's, and each restart -- none at a replay)")
+    return fleet, ref, requests, {
+        "build_s": build_s, "requests": n, "requests_per_s": n / wall,
+        "p50_ms": p50, "p99_ms": p99, "bitwise": exact,
+        "max_rel_err": worst, "coalesced_bitwise": same8,
+        "batchserver": {"requests_per_s": n / b_wall, "p50_ms": b50,
+                        "p99_ms": b99},
+        "drills": drills, "k1_launches_by_route": by_route, "card": card}
+
+
+def fleet_v2(torch, mx, card):
+    """v2: one mode='process' replica built on the card in a spawned
+    child; its answers bitwise a parent-side Predictor's on the same
+    weights; SIGKILLed, restarted (a new pid), answering again."""
+    import signal
+
+    import numpy as np
+
+    from mxnet_tpu_torch import serving
+
+    rng = np.random.RandomState(3)
+    ids = rng.randint(0, VOCAB, (1, T)).astype(np.int64)
+    ref = fleet_predictor(torch, mx, fleet_lm(torch, mx, 0, V2_LAYERS),
+                          buckets=(1,))
+    want = ref.predict(ids)[0].cpu()
+    t0 = time.perf_counter()
+    fleet = serving.Fleet(fleet_child_predictor, replicas=1, mode="process",
+                          probe_interval_ms=200, retries=0)
+    try:
+        start_s = time.perf_counter() - t0
+        got = fleet.submit(ids, deadline_ms=FLEET_DEADLINE_MS).result(600)[0]
+        r = fleet.replicas()[0]
+        pid = r.pid
+        t1 = time.monotonic()
+        os.kill(pid, signal.SIGKILL)
+        try:
+            fleet.submit(ids, deadline_ms=FLEET_DEADLINE_MS).result(600)
+            after_kill = "answered"
+        except Exception as e:   # noqa: BLE001 -- a structured error
+            after_kill = type(e).__name__
+        deadline = time.monotonic() + 300
+        while r.generation < 2 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        healthy = fleet.wait_healthy(timeout=300)
+        walk, build_s, restart_s = _restart_walk(r, t1)
+        new_pid = r.pid
+        again = fleet.submit(ids, deadline_ms=FLEET_DEADLINE_MS).result(
+            600)[0]
+    finally:
+        fleet.close()
+    v_check(torch.equal(got, want) and torch.equal(again, want) and healthy
+            and new_pid not in (None, pid) and after_kill in (
+                "ServerClosed", "FleetOverloaded", "answered"),
+            f"v2 process replica ({V2_LAYERS}-layer LM, bf16) started in "
+            f"{start_s:.2f} s; answers bitwise the parent's Predictor: "
+            f"{torch.equal(got, want)}; SIGKILL of pid {pid}: the in-flight "
+            f"request -> {after_kill}; restarted as pid {new_pid} in "
+            f"{_secs(restart_s)} (kill to HEALTHY; the child's spawn, CUDA "
+            f"start and capture {_secs(build_s)}), walk {walk}; answers "
+            f"again bitwise: {torch.equal(again, want)} ({card})")
+    return {"start_s": start_s, "restart_s": restart_s,
+            "build_s": build_s, "after_kill": after_kill, "walk": walk}
+
+
+def fleet_v3(torch, mx, fleet, ref, requests, card):
+    """v3: swap_params into a Predictor's captured buckets (its replayed
+    graph bitwise a fresh Predictor on the new weights, the snapshot
+    restoring the old bitwise), then rollout_weights on v1's fleet: the
+    poisoned candidate rolled back, then a good one promoted, with clients
+    sending all along and none failing."""
+    import numpy as np
+
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.resilience import faults
+
+    new_net = fleet_lm(torch, mx, seed=1)
+    fresh = fleet_predictor(torch, mx, new_net)
+    ids8 = np.concatenate([r[0] for r in requests] * 2)
+    before = ref.predict(ids8)[0]
+    cand = {k: v.detach().clone()
+            for k, v in new_net.collect_params().items()}
+    replays = ref._exec.compiled_signatures
+    t0 = time.perf_counter()
+    prev = ref.swap_params(cand)
+    swap_s = time.perf_counter() - t0
+    after = ref.predict(ids8)[0]
+    want = fresh.predict(ids8)[0]
+    ref.swap_params(prev)
+    back = ref.predict(ids8)[0]
+    v_check(torch.equal(after, want) and not torch.equal(after, before)
+            and torch.equal(back, before)
+            and ref._exec.compiled_signatures == replays,
+            f"v3 swap_params of {len(cand)} tensors into the captured "
+            f"buckets in {swap_s * 1e3:.1f} ms: the bucket-8 graph's "
+            f"replay bitwise a fresh Predictor on the new weights: "
+            f"{torch.equal(after, want)}; the snapshot restores the old "
+            f"bitwise: {torch.equal(back, before)}; no new capture")
+    rm = serving.RolloutManager(fleet, eval_batch=ids8, canary_calls=4,
+                                max_latency_x=50.0)
+    # while the poisoned candidate sits on the canary, clients routed there
+    # fail the sentinel and are retried on the other replica; a breaker that
+    # opened on them would rebuild the canary from the factory's weights
+    # mid-rollout, so it may not open here
+    for r in fleet.replicas():
+        r.breaker.k = 1000
+    results = {"ok": 0, "err": 0}
+    stop = threading.Event()
+
+    def client():
+        k = 0
+        while not stop.is_set():
+            try:
+                fleet.submit(requests[1][k % 8], deadline_ms=FLEET_DEADLINE_MS
+                             ).result(timeout=600)
+                results["ok"] += 1
+            except Exception:   # noqa: BLE001 -- counted
+                results["err"] += 1
+            k += 1
+
+    th = threading.Thread(target=client)
+    th.start()
+    try:
+        with faults.inject("rollout_bad_weights") as f:
+            bad = rm.rollout_weights(cand)
+        good = rm.rollout_weights(cand, reference=[want])
+    finally:
+        stop.set()
+        th.join(600)
+    served = [torch.equal(r.predictor.predict(ids8)[0], want)
+              for r in fleet.replicas()]
+    v_check(f.fired == 1 and bad["action"] == "rollback"
+            and bad["gate"] == "health" and good["action"] == "promote"
+            and results["err"] == 0 and results["ok"] > 0 and all(served),
+            f"v3 rollout_weights: rollout_bad_weights -> {bad['action']} "
+            f"at gate {bad.get('gate')}; the good weights -> "
+            f"{good['action']} (agreement {good.get('agreement')}, canary "
+            f"p50 {good.get('canary_p50_us')} us vs baseline "
+            f"{good.get('baseline_p50_us')} us, {card}); every replica "
+            f"serves the new weights bitwise: {served}; clients "
+            f"{results['ok']} answered, {results['err']} errors")
+    return {"swap_ms": swap_s * 1e3, "bad": bad, "good": good,
+            "clients": dict(results)}
+
+
+def fleet_v4(torch, mx, q, card):
+    """v4: a {fp32, int8} variant group of phase p's ResNet-18 (2 replicas
+    each), both variants served side by side (each answer bitwise its own
+    Predictor's at bucket 8), then replica_nan_storm on an int8 replica:
+    the sentinel fails its batches on their dequantized outputs, the
+    router retries them on the other int8 replica, the victim restarts."""
+    import shutil
+
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.resilience import faults
+
+    os.makedirs(INT8_DIR, exist_ok=True)
+    net = vision.resnet18_v1(classes=1000)
+    net.initialize(mx.init.Xavier(),
+                   generator=torch.Generator(device="cuda").manual_seed(0))
+    sym_file, params_file = net.export(os.path.join(INT8_DIR, "resnet18_v1"))
+    tail = {"data": (3, 224, 224)}
+    k5_zero_counts(q)
+    try:
+        with k5_plain_guard(q):
+            table = serving.Predictor(
+                sym_file, params_file, input_shapes=tail,
+                batch_sizes=(V4_BUCKETS[0],), quantize="int8",
+                calib_data=mx.io.NDArrayIter(int8_images(INT8_CALIB, 1),
+                                             batch_size=16),
+                calib_mode="naive").calibration_table
+
+            def make(quant):
+                return serving.Predictor(
+                    sym_file, params_file, input_shapes=tail,
+                    batch_sizes=V4_BUCKETS, quantize=quant,
+                    calib_table=table if quant else None)
+
+            x = int8_images(16, 3)
+            want = {v: [make(qt).predict(x[i:i + 8])[0] for i in (0, 8)]
+                    for v, qt in (("fp32", None), ("int8", "int8"))}
+            t0 = time.perf_counter()
+            fleet = serving.Fleet(
+                {"r18": {"fp32": lambda: make(None),
+                         "int8": lambda: make("int8")}},
+                replicas=2, probe_interval_ms=60000, breaker_k=2,
+                breaker_cooldown_ms=1000, retries=2, backoff_ms=1,
+                server_kw={"max_batch_size": 8, "batch_timeout_ms": 2.0})
+            build_s = time.perf_counter() - t0
+            try:
+                reqs = {v: [x[i:i + 8] for i in (0, 8)] * 8
+                        for v in ("fp32", "int8")}
+                serving.reset_stats()
+                out = {}
+                t0 = time.perf_counter()
+                for v in ("fp32", "int8"):
+                    out[v] = [fleet.submit(b, model="r18", variant=v,
+                                           deadline_ms=FLEET_DEADLINE_MS)
+                              for b in reqs[v]]
+                out = {v: [f.result(timeout=600)[0] for f in fs]
+                       for v, fs in out.items()}
+                wall = time.perf_counter() - t0
+                same = all(torch.equal(o, want[v][k % 2])
+                           for v in out for k, o in enumerate(out[v]))
+                st = serving.stats()
+                victim = fleet.replicas("r18", "int8")[0]
+                os.environ["MXNET_TPU_TORCH_FAULT_REPLICA"] = str(victim.rid)
+                t1 = time.monotonic()
+                with faults.inject("replica_nan_storm", times=2) as f:
+                    storm = [fleet.submit(x[0:8], model="r18",
+                                          variant="int8",
+                                          deadline_ms=FLEET_DEADLINE_MS)
+                             for _ in range(8)]
+                    storm = [s.result(timeout=600)[0] for s in storm]
+                deadline = time.monotonic() + 120
+                while victim.generation < 2 and time.monotonic() < deadline:
+                    time.sleep(0.02)
+                healthy = fleet.wait_healthy(timeout=120)
+                walk, capture_s, failover_s = _restart_walk(victim, t1)
+                sd = serving.stats()
+            finally:
+                fleet.close()
+                os.environ.pop("MXNET_TPU_TORCH_FAULT_REPLICA", None)
+    finally:
+        shutil.rmtree(INT8_DIR, ignore_errors=True)
+    counts = k5_counts(q)
+    n = sum(len(v) for v in reqs.values())
+    v_check(same and all(torch.equal(s, want["int8"][0]) for s in storm)
+            and f.fired == 2 and healthy
+            and sd["serving_poisoned_batches"] >= 2
+            and walk[:5] == [("HEALTHY", "DRAINING"), ("DRAINING", "DEAD"),
+                             ("DEAD", "RESTARTING"), ("RESTARTING",
+                                                      "WARMING"),
+                             ("WARMING", "HEALTHY")],
+            f"v4 variant group {{fp32, int8}} of resnet18_v1 (2 replicas "
+            f"each, built in {build_s:.2f} s): {n} 8-image requests in "
+            f"{wall:.3f} s ({n * 8 / wall:.1f} images/s, p50 "
+            f"{st['fleet_p50_latency_us'] / 1e3:.2f} ms, {card}), each "
+            f"bitwise its variant's Predictor: {same}; replica_nan_storm x2 "
+            f"on int8 replica {victim.rid}: {sd['serving_poisoned_batches']}"
+            f" batches failed by the sentinel, every request answered "
+            f"bitwise by the other int8 replica, victim walk {walk}, "
+            f"failover {_secs(failover_s)}, rebuild and capture "
+            f"{_secs(capture_s)}")
+    v_check(counts["s8_conv"] > 0 and counts["s8_conv_requant"] > 0
+            and counts["s8_matmul"] > 0 and counts["requant_int8"] > 0
+            and counts["conv_by_route"]["mma_s8"] == 0
+            and counts["matmul_by_route"]["mma_s8"] == 0,
+            f"v4 K5 launches {counts} (the int8 predictors' builds and the "
+            "restart; every conv and the FC on wgmma, none plain)")
+    return {"build_s": build_s, "images_per_s": n * 8 / wall,
+            "p50_ms": st["fleet_p50_latency_us"] / 1e3,
+            "failover_s": failover_s, "capture_s": capture_s,
+            "walk": walk, "k5_launches": counts}
+
+
+def fleet_v5(torch, mx, kernels, card):
+    """v5: a StreamRouter of 2 DecodeBatchers over phase n's model (bf16,
+    fp32 KV, K4), V5_STREAMS streams of V5_NEW tokens, run unfaulted, then
+    with decode_replica_death mid-stream: every stream completes, the dead
+    engine's streams resume on the survivor (its pages all freed), the
+    first divergence from the unfaulted tokens reported (bf16: a
+    re-prefill of the streamed tokens may round otherwise than the steps
+    that produced them), and the rerouted streams' gap at the reroute."""
+    import numpy as np
+
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.ops import decode_attention as da
+    from mxnet_tpu_torch.resilience import faults
+
+    net = decode_net(torch, mx, "bfloat16")
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(0, VOCAB, rng.randint(*V5_PROMPTS)).tolist()
+               for _ in range(V5_STREAMS)]
+
+    def make():
+        return serving.DecodePredictor(
+            net, page_size=DECODE_PS, num_pages=V5_SEQS * DECODE_MAX_PAGES
+            + 1, max_seqs=V5_SEQS, prefill_buckets=DECODE_BUCKETS,
+            kv_dtype="float32")
+
+    def run(router, rerouted):
+        stamps = [[] for _ in prompts]
+        streams = [router.submit_stream(p, V5_NEW) for p in prompts]
+
+        def consume(i):
+            for _ in streams[i].tokens(timeout=600):
+                stamps[i].append(time.perf_counter())
+
+        ths = [threading.Thread(target=consume, args=(i,))
+               for i in range(len(streams))]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(600)
+        toks = [s.generated for s in streams]
+        gaps = [max(np.diff(s)) if len(s) > 1 else 0.0 for s in stamps]
+        itl = [float(np.median(np.diff(s))) for s in stamps if len(s) > 1]
+        blips = [gaps[i] for i, s in enumerate(streams)
+                 if id(s) in rerouted]
+        return toks, [s.ttft_s for s in streams], blips, \
+            float(np.median(itl)), [s.reason for s in streams]
+
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    router = serving.StreamRouter(make, replicas=2)
+    build_s = time.perf_counter() - t0
+    rerouted = set()
+    for b in router.replicas:
+        sink = b.death_sink
+        b.death_sink = (lambda items, exc, sink=sink:
+                        (rerouted.update(id(s) for s, *_ in items),
+                         sink(items, exc))[1])
+    try:
+        base, ttft0, _, itl0, _ = run(router, set())
+        serving.reset_stats()
+        with faults.inject("decode_replica_death", at_step=V5_NEW // 2) as f:
+            got, ttft1, blips, itl1, reasons = run(router, rerouted)
+        st = serving.stats()
+        pools = [b.predictor.pool.in_use for b in router.replicas]
+        live = router.live_replicas
+        rebuilt = router.revive()
+    finally:
+        router.close()
+    launches = dict(da.paged_decode_attention.launches_by_route)
+    diverge = [next((k for k, (a, b) in enumerate(zip(x, y)) if a != b),
+                    None) for x, y in zip(got, base)]
+    complete = all(len(t) == V5_NEW for t in got) and all(
+        r == "length" for r in reasons)
+    v_check(f.fired == 1 and complete and st["decode_reroutes"] >= 1
+            and len(rerouted) == st["decode_reroutes"] and live == 1
+            and rebuilt == 1 and pools == [0, 0],
+            f"v5 StreamRouter of 2 DecodeBatchers (bf16 GPT-2-small, fp32 "
+            f"KV, built in {build_s:.2f} s): {V5_STREAMS} streams x "
+            f"{V5_NEW} tokens; decode_replica_death mid-stream: "
+            f"decode_reroutes {st['decode_reroutes']}, every stream "
+            f"completed: {complete}; pages in use after {pools}; the "
+            f"rerouted streams' largest token gap "
+            f"{[round(float(b) * 1e3, 2) for b in blips]} ms against a "
+            f"median "
+            f"inter-token {itl1 * 1e3:.2f} ms (unfaulted {itl0 * 1e3:.2f} "
+            f"ms), TTFT p50 {np.median(ttft1) * 1e3:.2f} ms; first "
+            f"divergence from the unfaulted tokens per stream {diverge} "
+            f"(bf16; None: equal) ({card})")
+    want = {"float32": 3 * LAYERS * 3, "int8": 0, "int8_bulk": 0}
+    v_check(launches == want,
+            f"v5 K4 launches {launches} (want {want['float32']} on float32: "
+            f"the step's 2 warm-up runs and capture in each of 3 predictor "
+            "builds -- the 2 replicas and the revived one)")
+    return {"build_s": build_s, "reroutes": st["decode_reroutes"],
+            "blip_ms": [float(b) * 1e3 for b in blips],
+            "itl_ms": itl1 * 1e3,
+            "unfaulted_itl_ms": itl0 * 1e3, "divergence": diverge,
+            "k4_launches_by_route": launches}
+
+
+def fleet_phase(torch, mx, kernels, q):
+    """Phase v: v1-v5; checks collected, the phase fails at its end."""
+    _V_FAILED.clear()
+    card = card_identity()
+    t0 = time.perf_counter()
+    fleet, ref, requests, v1 = fleet_v1(torch, mx, kernels, card)
+    try:
+        v3 = fleet_v3(torch, mx, fleet, ref, requests, card)
+    finally:
+        fleet.close()
+    del fleet, ref
+    torch.cuda.empty_cache()
+    v2 = fleet_v2(torch, mx, card)
+    v4 = fleet_v4(torch, mx, q, card)
+    v5 = fleet_v5(torch, mx, kernels, card)
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"[v] phase v took {wall:.1f} s ({card})")
+    if _V_FAILED:
+        raise SystemExit("phase v: " + "; ".join(_V_FAILED))
+    return {"v1": v1, "v2": v2, "v3": v3, "v4": v4, "v5": v5,
+            "wall_s": wall, "card": card}
+
+
 def library_ms(fn, what):
     """device_ms of a library call, or None (logged) where the library
     refuses the call."""
@@ -9701,6 +10379,9 @@ def main(argv=None):
                     help="build, then run phase t (SSD, detection ops) only")
     ap.add_argument("--dist-only", action="store_true",
                     help="build, then run phase u (dist_sync ranks) only")
+    ap.add_argument("--fleet-only", action="store_true",
+                    help="build, then run phase v (the serving runtime) "
+                         "only")
     ap.add_argument("--dist-rank", metavar="DIR",
                     help=argparse.SUPPRESS)   # one rank of phase u
     ap.add_argument("--lm-sweeps", type=int, metavar="N",
@@ -9787,6 +10468,11 @@ def main(argv=None):
         log("[dist-only] phase u passed")
         log(card)
         return 0
+    if args.fleet_only:
+        fleet_phase(torch, mx, kernels, q)
+        log("[fleet-only] phase v passed")
+        log(card)
+        return 0
     t_run = time.perf_counter()
 
     def stamp(label):
@@ -9849,6 +10535,8 @@ def main(argv=None):
     ssd = ssd_phase(torch, mx)
     stamp("dist_phase")
     dist_u = dist_phase(torch, mx)
+    stamp("fleet_phase")
+    fleet_v = fleet_phase(torch, mx, kernels, q)
 
     def ring_err(dtype, parts, key="errors"):
         """The ring's largest error (of max|whole-sequence call|, or with
@@ -9934,7 +10622,11 @@ def main(argv=None):
         # phase r3: one mx.nd.scaled_dot_product_attention(impl='flash')
         # forward and backward at the LM's shape in bf16
         "imperative_launches": nd_launches["k1"],
-        "imperative_launches_by_route": nd_launches["k1_by_route"]}, {
+        "imperative_launches_by_route": nd_launches["k1_by_route"],
+        # phase v1: the fleet's replicas, its reference and every restart
+        # (2 warm-up runs and the capture of each bucket; replays add none)
+        "fleet_launches_by_route": fleet_v["v1"]["k1_launches_by_route"]},
+        {
         "name": "flash_attn_bwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_bwd_tc.cu",
         "sources": k2_sources,
@@ -10123,6 +10815,10 @@ def main(argv=None):
         "step_position_ms": dec_timing[DECODE_ROUTE[kv]]["step_position_ms"],
         "step_device_ms": decoding[kv]["step"]["k4_ms"],
         "step_share": decoding[kv]["step"]["k4_share"],
+        # phase v5: the StreamRouter's 3 predictor builds (fp32 KV only)
+        **({"fleet_launches_by_route":
+            fleet_v["v5"]["k4_launches_by_route"]}
+           if kv == "float32" else {}),
         # the same source's int8 instance (route "int8": D off a multiple
         # of 16, misaligned pools), timed on the int8 pools of phase c
         **({"int8_route_ms": dec_timing["int8"]["ms"],
@@ -10179,6 +10875,8 @@ def main(argv=None):
              k5_timing["conv"], k5_timing["conv"]["int_mm_ms"],
              {"entry_point": "s8_wgmma_conv (after s8_wgmma_prep)",
               "launches_by_route": int8["launches"]["conv_by_route"],
+              # phase v4: the int8 variant's predictors and its restart
+              "fleet_launches": fleet_v["v4"]["k5_launches"],
               "prep_ms": k5_timing["conv"]["prep_ms"],
               "product_ms": k5_timing["conv"]["product_ms"],
               "mma_s8_ms": k5_timing["conv"]["mma_s8_ms"],
@@ -10245,7 +10943,7 @@ def main(argv=None):
                        "k5_checks": k5_checks, "int8": int8,
                        "k5_timing": k5_timing, "amp": amp,
                        "module": module, "word_lm": word_lm,
-                       "ssd": ssd, "dist": dist_u,
+                       "ssd": ssd, "dist": dist_u, "fleet": fleet_v,
                        **record}, f,
                       indent=1)
     log(card)

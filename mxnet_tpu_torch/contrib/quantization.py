@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..resilience import faults as _faults
 
 __all__ = ["quantize_model", "quantize_graph", "fold_batch_norm",
            "calibrate", "CalibrationTable", "CalibrationMismatchError",
@@ -509,6 +510,14 @@ class CalibrationTable:
         _STATS["calib_tables_loaded"] += 1
         return table
 
+    def stale_clone(self):
+        """A copy whose model digest is wrong: a stale table shipped
+        against a newer model (the ``int8_calib_mismatch`` fault)."""
+        return CalibrationTable(
+            self.thresholds, self.calib_mode, self.num_examples,
+            self.quantized_dtype, model_digest="0" * 16,
+            num_bins=self.num_bins)
+
     def validate_for(self, sym, arg_params=None, model_digest=None):
         """Raise :class:`CalibrationMismatchError` unless this table
         matches ``sym``: the same digest (when the table has one), a
@@ -593,6 +602,9 @@ def quantize_model(sym, arg_params, aux_params, data_names=("data",),
     if calib_table is not None:
         if isinstance(calib_table, str):
             calib_table = CalibrationTable.load(calib_table)
+        # the int8_calib_mismatch fault swaps a stale clone in here, on
+        # the real apply path, for validation to refuse
+        calib_table = _faults.maybe_calib_table_drift(calib_table)
         calib_table.validate_for(sym, arg_params=arg_params)
         ranges = dict(calib_table.thresholds)
     elif calib_mode in ("naive", "entropy"):

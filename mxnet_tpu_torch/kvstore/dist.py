@@ -14,7 +14,13 @@ The job is read from the launcher's environment (:func:`init_distributed`):
 ``DMLC_PS_ROOT_URI`` / ``DMLC_PS_ROOT_PORT``, ``DMLC_NUM_WORKER``,
 ``DMLC_WORKER_ID``; a bad value or a rank already claimed by a live
 process on this machine raises :class:`DistConfigError` before any
-socket opens. The backend is a fixed rule (:func:`backend_rule`): NCCL
+socket opens. On one machine (a loopback coordinator) rank 0 binds the
+rendezvous store itself and publishes the port it bound in the job's
+claim directory (``coordinator.port``); the launcher's port is released
+before rank 0 binds it, so when another process took it meanwhile rank 0
+binds a fresh port, and the other ranks connect only to the port rank 0
+published (the one whose writer is the live holder of rank 0's claim),
+never to a stranger on the launcher's port. The backend is a fixed rule (:func:`backend_rule`): NCCL
 when every worker has a GPU of its own, gloo otherwise -- so ranks that
 share one card run over gloo, on CUDA tensors. Every rank holds the same
 bits after an all-reduce: gloo's and NCCL's rings finish each chunk's sum
@@ -28,9 +34,12 @@ from __future__ import annotations
 
 import datetime
 import hashlib
+import json
 import logging
 import os
+import socket
 import tempfile
+import time
 import zlib
 
 import numpy as _np
@@ -167,6 +176,80 @@ def backend_rule(num_processes):
                     "workers share" + (" the card" if n_gpu else " the CPU"))
 
 
+_LOOPBACK = ("127.0.0.1", "localhost", "::1")
+
+
+def _addr_in_use(e):
+    text = str(e).lower()
+    return "eaddrinuse" in text or "address already in use" in text
+
+
+def _fresh_port(host):
+    with socket.socket() as sock:
+        sock.bind((host, 0))
+        return sock.getsockname()[1]
+
+
+def _port_file(coordinator):
+    return os.path.join(_claim_dir(coordinator), "coordinator.port")
+
+
+def _rank0_pid(coordinator):
+    try:
+        with open(os.path.join(_claim_dir(coordinator), "rank-0.claim"),
+                  encoding="utf-8") as fh:
+            return int(fh.read().strip())
+    except (OSError, ValueError):
+        return None
+
+
+def _local_store(coordinator, num_processes, process_id, timeout):
+    """The rendezvous store of a job whose coordinator is this machine:
+    rank 0 binds it (on a fresh port when the launcher's was taken) and
+    publishes the port; every other rank waits for the port published by
+    the live holder of rank 0's claim and connects there."""
+    host, _, port = str(coordinator).rpartition(":")
+    port = int(port)
+    delta = datetime.timedelta(seconds=timeout)
+    path = _port_file(coordinator)
+    if process_id == 0:
+        for attempt in range(8):
+            try:
+                store = torch.distributed.TCPStore(
+                    host, port, num_processes, is_master=True,
+                    timeout=delta, wait_for_workers=False)
+                break
+            except Exception as e:  # noqa: BLE001 - a taken port retries
+                if not _addr_in_use(e) or attempt == 7:
+                    raise
+                _log.warning("coordinator port %d is taken; rank 0 binds "
+                             "a fresh port", port)
+                port = _fresh_port(host)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w", encoding="utf-8") as fh:
+            json.dump({"port": port, "pid": os.getpid()}, fh)
+        os.replace(tmp, path)
+        return store
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            with open(path, encoding="utf-8") as fh:
+                info = json.load(fh)
+        except (OSError, ValueError):
+            info = None
+        if info is not None and info.get("pid") == _rank0_pid(coordinator) \
+                and _pid_alive(info["pid"]):
+            break
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"worker {process_id}: rank 0 published no coordinator "
+                f"port in {_claim_dir(coordinator)} within {timeout:.0f}s")
+        time.sleep(0.02)
+    return torch.distributed.TCPStore(host, int(info["port"]),
+                                      num_processes, is_master=False,
+                                      timeout=delta)
+
+
 def init_distributed(coordinator=None, num_processes=None, process_id=None,
                      timeout=None):
     """Make the process group from the launcher's environment (idempotent).
@@ -193,9 +276,17 @@ def init_distributed(coordinator=None, num_processes=None, process_id=None,
               backend, why)
     if backend == "nccl":
         torch.cuda.set_device(process_id % torch.cuda.device_count())
-    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
-                            world_size=num_processes, rank=process_id,
-                            timeout=datetime.timedelta(seconds=timeout))
+    delta = datetime.timedelta(seconds=timeout)
+    if str(coordinator).rpartition(":")[0] in _LOOPBACK:
+        store = _local_store(coordinator, num_processes, process_id,
+                             timeout)
+        dist.init_process_group(backend, store=store,
+                                world_size=num_processes, rank=process_id,
+                                timeout=delta)
+    else:
+        dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                                world_size=num_processes, rank=process_id,
+                                timeout=delta)
     return True
 
 

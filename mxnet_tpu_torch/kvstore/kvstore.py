@@ -157,6 +157,24 @@ class KVStore:
         raise MXNetError("row_sparse_pull needs the row-sparse arrays of "
                          "ROADMAP Queue 1 item 9, which are not ported")
 
+    def excise_dead_peers(self, ranks=None):
+        """Clear the watchdog's dead-peer bookkeeping so the store serves
+        again after dead ranks left the job (the serving fleet's
+        supervisor calls it per re-admitted replica). ``ranks=None`` clears
+        every dead rank; an iterable clears only those (one recovered
+        replica must not re-admit a peer that is still dead). Returns the
+        ranks cleared."""
+        from ..resilience import watchdog as _watchdog
+
+        dead = _watchdog.dead_peers()
+        if ranks is None:
+            cleared = dead
+        else:
+            wanted = {int(r) for r in ranks}
+            cleared = [r for r in dead if r in wanted]
+        _watchdog.reset_peers(cleared if ranks is not None else None)
+        return cleared
+
     def set_gradient_compression(self, compression_params):
         raise MXNetError("gradient compression (kvstore/compression.py) is "
                          "ROADMAP Queue 1 item 11, not ported")

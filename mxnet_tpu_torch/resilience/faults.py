@@ -1,0 +1,491 @@
+"""Deterministic fault injection (port of ``mxnet_tpu/resilience/faults.py``,
+the serving kinds).
+
+Every guarded operation of the serving runtime calls a cheap hook here
+(``maybe_*``) that does nothing unless its fault is armed. Faults are armed
+in code (:func:`inject` / :func:`arm`) or from ``MXNET_TPU_TORCH_FAULTS``, a
+comma list of ``kind[@at_step[:times]]`` (``*`` for unlimited), e.g.::
+
+    MXNET_TPU_TORCH_FAULTS="replica_crash@2,replica_nan_storm@0:4"
+
+``arm(kind, at_step=k, times=n)`` fires on the k-th .. (k+n-1)-th call of
+the hook (0-based; ``times=None`` = every call from k on).
+
+The serving kinds and their hooks:
+
+- ``nan_serving`` — one inference batch poisoned with NaN
+  (``serving.Predictor.predict_raw``; the BatchServer sentinel fails it);
+- ``hang_batch`` — a BatchServer batch wedged in an interruptible sleep
+  until the batch watchdog fires;
+- ``replica_crash`` / ``replica_hang`` / ``replica_nan_storm`` /
+  ``sdc_serving`` — one fleet replica (``MXNET_TPU_TORCH_FAULT_REPLICA``,
+  default 0) crashes mid-batch (a process replica exits), hangs, poisons
+  its batches, or flips one low bit of its outputs;
+- ``slo_burn`` — the fleet SLO counters the gauges and the burn-rate
+  rules read are inflated by ``MXNET_TPU_TORCH_FAULT_SLO_BURN_N`` (64)
+  deadline misses;
+- ``rollout_bad_weights`` / ``canary_slo_regression`` — a rollout's
+  candidate weights poisoned with NaN, or its canary latencies inflated
+  ``MXNET_TPU_TORCH_FAULT_CANARY_SLO_X`` (10) times;
+- ``autoscale_flap`` — the autoscaler's queue signal swings between
+  ``MXNET_TPU_TORCH_FAULT_FLAP_QUEUE`` (1e6) and 0 at every evaluation;
+- ``decode_replica_death`` — a decode engine dies between token steps;
+- ``kv_pool_exhaustion`` — the KV page pool reports no free page;
+- ``int8_calib_mismatch`` — a stale CalibrationTable clone swapped in at
+  quantize time, which validation must refuse.
+
+The parser knows every kind ``mxnet_tpu`` lists. The training kinds
+(:data:`TRAINING_KINDS`) have no hook in the port yet: arming one raises
+:class:`~mxnet_tpu_torch.base.MXNetError` naming ROADMAP Queue 1 item 12,
+so a drill never runs armed and unexercised.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import threading
+import time
+
+from ..base import MXNetError
+from ..observability import flight as _obs_flight
+
+__all__ = ["FaultInjected", "ReplicaCrash", "DecodeReplicaDead",
+           "SERVING_KINDS", "TRAINING_KINDS", "parse_spec", "inject", "arm",
+           "disarm", "reset", "active", "get", "stats", "reset_stats",
+           "install_from_env", "maybe_nan_batch", "maybe_hang",
+           "maybe_replica_crash", "maybe_replica_hang",
+           "maybe_replica_nan_storm", "maybe_sdc_serving",
+           "maybe_calib_table_drift", "maybe_slo_burn",
+           "maybe_rollout_bad_weights", "maybe_canary_slo_regression",
+           "maybe_autoscale_flap", "maybe_decode_replica_death",
+           "maybe_kv_pool_exhaustion"]
+
+SERVING_KINDS = (
+    "nan_serving", "hang_batch", "replica_crash", "replica_hang",
+    "replica_nan_storm", "slo_burn", "rollout_bad_weights",
+    "canary_slo_regression", "autoscale_flap", "decode_replica_death",
+    "kv_pool_exhaustion", "sdc_serving", "int8_calib_mismatch")
+
+# ``mxnet_tpu``'s kinds whose hooks sit in the training runtime (Trainer,
+# ShardedTrainer, checkpoints, the dist store, the integrity layer)
+TRAINING_KINDS = (
+    "nan_grad", "nonfinite_grad", "ckpt_enospc", "ckpt_partial_write",
+    "ckpt_shard_corrupt", "ckpt_crash_before_manifest", "ckpt_async_crash",
+    "dist_connect_timeout", "hang_step", "hang_collective", "oom_step",
+    "peer_death", "host_death", "host_hang_collective", "coordinator_loss",
+    "ckpt_partial_pod", "perf_regression", "record_corrupt",
+    "step_time_anomaly", "sdc_bitflip_param", "sdc_bitflip_grad",
+    "sdc_device_sticky", "preempt")
+
+
+class FaultInjected(RuntimeError):
+    """Base class of injected recoverable errors (a test can tell the
+    harness's failure from a real defect)."""
+
+
+class ReplicaCrash(FaultInjected):
+    """Injected death of one serving-fleet replica: a thread replica's
+    batch fails with it (the router retries elsewhere); a process
+    replica's worker turns it into ``os._exit``."""
+
+
+class DecodeReplicaDead(FaultInjected):
+    """Injected death of a decode engine mid-stream: its streams are
+    rerouted through the batcher's ``death_sink`` or failed with this
+    error, and its KV pages go back to the pool."""
+
+
+_LOCK = threading.Lock()
+_ACTIVE: dict = {}
+_STATS = {"faults_armed": 0, "faults_fired": 0}
+
+
+class _Fault:
+    """One armed fault: fires on calls [at_step, at_step + times)."""
+
+    def __init__(self, kind, at_step=0, times=1):
+        self.kind = kind
+        self.at_step = int(at_step)
+        self.times = None if times is None else int(times)
+        self.calls = 0
+        self.fired = 0
+
+    def should_fire(self):
+        with _LOCK:
+            step = self.calls
+            self.calls += 1
+            if step < self.at_step:
+                return False
+            if self.times is not None and self.fired >= self.times:
+                return False
+            self.fired += 1
+            _STATS["faults_fired"] += 1
+        _obs_flight.record("fault", fault=self.kind, call=step)
+        return True
+
+    def __repr__(self):
+        return (f"_Fault({self.kind!r}, at_step={self.at_step}, "
+                f"times={self.times}, calls={self.calls}, "
+                f"fired={self.fired})")
+
+
+def _check_kind(kind):
+    if kind in SERVING_KINDS:
+        return
+    if kind in TRAINING_KINDS:
+        raise MXNetError(
+            f"fault kind {kind!r} hooks into the training runtime, which "
+            "the port does not instrument yet (ROADMAP Queue 1 item 12, "
+            "training half); arming it would inject nothing")
+    raise MXNetError(f"unknown fault kind {kind!r} (serving kinds: "
+                     f"{', '.join(SERVING_KINDS)})")
+
+
+def arm(kind, at_step=0, times=1):
+    """Arm a fault; returns its record (``.fired`` counts its fires)."""
+    _check_kind(kind)
+    fault = _Fault(kind, at_step, times)
+    with _LOCK:
+        _ACTIVE[kind] = fault
+        _STATS["faults_armed"] += 1
+    return fault
+
+
+def disarm(kind):
+    with _LOCK:
+        _ACTIVE.pop(kind, None)
+
+
+def reset():
+    """Disarm everything (tests call this between cases)."""
+    with _LOCK:
+        _ACTIVE.clear()
+
+
+def active(kind=None):
+    if kind is None:
+        return bool(_ACTIVE)
+    return kind in _ACTIVE
+
+
+def get(kind):
+    return _ACTIVE.get(kind)
+
+
+@contextlib.contextmanager
+def inject(kind, at_step=0, times=1):
+    """Arm ``kind`` for the block; yields its record."""
+    fault = arm(kind, at_step, times)
+    try:
+        yield fault
+    finally:
+        disarm(kind)
+
+
+def stats():
+    return dict(_STATS)
+
+
+def reset_stats():
+    for k in _STATS:
+        _STATS[k] = 0
+
+
+def parse_spec(spec):
+    """``"kind[@at_step[:times]],..."`` -> ``[(kind, at_step, times)]``
+    (``times`` None for ``*``), the form ``MXNET_TPU_TORCH_FAULTS``
+    takes. Parses every kind ``mxnet_tpu`` lists; arming decides which
+    the port can honour."""
+    out = []
+    for item in (spec or "").split(","):
+        item = item.strip()
+        if not item:
+            continue
+        at_step, times = 0, 1
+        kind, _, addr = item.partition("@")
+        if addr:
+            s, _, t = addr.partition(":")
+            at_step = int(s)
+            if t:
+                times = None if t == "*" else int(t)
+        if kind not in SERVING_KINDS and kind not in TRAINING_KINDS:
+            raise MXNetError(f"unknown fault kind {kind!r} in {spec!r}")
+        out.append((kind, at_step, times))
+    return out
+
+
+def install_from_env():
+    """Arm every fault ``MXNET_TPU_TORCH_FAULTS`` names (done once at
+    import; a spawned process replica inherits the variable)."""
+    for kind, at_step, times in parse_spec(
+            os.environ.get("MXNET_TPU_TORCH_FAULTS", "")):
+        arm(kind, at_step=at_step, times=times)
+
+
+# --------------------------------------------------------------------- hooks
+# Each hook is called unconditionally; the `if not _ACTIVE` early-out keeps
+# the disarmed cost to one dict truthiness check.
+
+def _is_float(a):
+    import numpy as np
+
+    if hasattr(a, "is_floating_point"):
+        return a.is_floating_point()
+    return np.issubdtype(np.asarray(a).dtype, np.floating)
+
+
+def _nan_like(a):
+    import numpy as np
+
+    if hasattr(a, "is_floating_point"):
+        import torch
+
+        return torch.full_like(a, float("nan"))
+    return np.full_like(np.asarray(a), np.nan)
+
+
+def _poison_first_float(fault, feeds, kind):
+    """Replace the first floating-point entry of ``feeds`` (dict name ->
+    tensor or array) with NaNs, consuming one fire of ``fault``. The
+    victim is found BEFORE the fire window is consumed: an all-integer
+    batch (token ids) must fail the drill loudly, not burn the fire."""
+    target = next((name for name, v in feeds.items() if _is_float(v)),
+                  None)
+    if target is None:
+        raise FaultInjected(
+            f"{kind} armed but the batch has no floating-point input "
+            f"to poison (inputs: {list(feeds)})")
+    if not fault.should_fire():
+        return feeds
+    out = dict(feeds)
+    out[target] = _nan_like(feeds[target])
+    return out
+
+
+def maybe_nan_batch(feeds):
+    """Poison one inference batch (``nan_serving``), just before the
+    Predictor runs it."""
+    if not _ACTIVE:
+        return feeds
+    fault = _ACTIVE.get("nan_serving")
+    if fault is None:
+        return feeds
+    return _poison_first_float(fault, feeds, "nan_serving")
+
+
+def _hang_until_interrupted(point):
+    """The injected hang: short interruptible sleeps, so the watchdog's
+    asynchronous StallError can land between bytecodes. Capped
+    (``MXNET_TPU_TORCH_FAULT_HANG_CAP``, default 30 s) so a broken
+    watchdog fails the test instead of hanging it."""
+    cap = float(os.environ.get("MXNET_TPU_TORCH_FAULT_HANG_CAP", "30"))
+    deadline = time.monotonic() + cap
+    while time.monotonic() < deadline:
+        time.sleep(0.005)
+    raise FaultInjected(
+        f"injected hang at {point} ran its full {cap:.0f}s cap without "
+        "being interrupted — is the watchdog armed for this phase?")
+
+
+def maybe_hang(point):
+    """Wedge the calling thread at ``point`` (``hang_batch``)."""
+    if not _ACTIVE:
+        return
+    fault = _ACTIVE.get(point)
+    if fault is None or not fault.should_fire():
+        return
+    _hang_until_interrupted(point)
+
+
+# Fleet replica faults fire only on the replica MXNET_TPU_TORCH_FAULT_REPLICA
+# names (default 0), checked BEFORE the fire window is consumed.
+
+def _fault_replica_target():
+    return int(os.environ.get("MXNET_TPU_TORCH_FAULT_REPLICA", "0"))
+
+
+def maybe_replica_crash(replica_id):
+    """Raise :class:`ReplicaCrash` in the victim replica's serving path."""
+    if not _ACTIVE:
+        return
+    fault = _ACTIVE.get("replica_crash")
+    if fault is None or int(replica_id) != _fault_replica_target():
+        return
+    if fault.should_fire():
+        raise ReplicaCrash(
+            f"injected crash of serving replica {replica_id}")
+
+
+def maybe_replica_hang(replica_id):
+    """Wedge the victim replica's batch in an interruptible sleep."""
+    if not _ACTIVE:
+        return
+    fault = _ACTIVE.get("replica_hang")
+    if fault is None or int(replica_id) != _fault_replica_target():
+        return
+    if fault.should_fire():
+        _hang_until_interrupted("replica_hang")
+
+
+def maybe_replica_nan_storm(replica_id, feeds):
+    """Poison the victim replica's batch with NaN (arm with ``times=N``
+    for an N-batch storm)."""
+    if not _ACTIVE:
+        return feeds
+    fault = _ACTIVE.get("replica_nan_storm")
+    if fault is None or int(replica_id) != _fault_replica_target():
+        return feeds
+    return _poison_first_float(fault, feeds, "replica_nan_storm")
+
+
+def _flip_low_bit(a):
+    """A copy of ``a`` (tensor or array) with the low bit of its first
+    element flipped: finite, tiny, wrong."""
+    import numpy as np
+
+    if hasattr(a, "is_floating_point"):
+        import torch
+
+        out = a.detach().clone()
+        flat = out.reshape(-1)
+        if flat.numel():
+            bits = {4: torch.int32, 2: torch.int16}.get(
+                out.element_size(), torch.uint8)
+            view = flat.view(bits)
+            view[0] = view[0] ^ 1
+        return out
+    flat = np.ascontiguousarray(a).ravel().copy()
+    if flat.size:
+        bits = {4: np.uint32, 2: np.uint16}.get(flat.dtype.itemsize,
+                                                np.uint8)
+        flat.view(bits)[0] ^= bits(1)
+    return flat.reshape(np.shape(a))
+
+
+def maybe_sdc_serving(replica_id, outputs):
+    """Flip one low bit of the victim replica's first floating-point
+    output (``sdc_serving``); ``outputs`` is ``(list, n_rows)`` as
+    ``predict_raw`` returns it."""
+    if not _ACTIVE:
+        return outputs
+    fault = _ACTIVE.get("sdc_serving")
+    if fault is None or int(replica_id) != _fault_replica_target():
+        return outputs
+    outs, n = outputs
+    idx = next((i for i, o in enumerate(outs) if _is_float(o)), None)
+    if idx is None:
+        raise FaultInjected("sdc_serving armed but the replica's outputs "
+                            "hold no floating-point array")
+    if not fault.should_fire():
+        return outputs
+    outs = list(outs)
+    outs[idx] = _flip_low_bit(outs[idx])
+    return outs, n
+
+
+def maybe_calib_table_drift(table):
+    """A stale clone of ``table`` when ``int8_calib_mismatch`` fires (its
+    model digest matches no model), so ``quantize_model``'s validation
+    must refuse it."""
+    if not _ACTIVE:
+        return table
+    fault = _ACTIVE.get("int8_calib_mismatch")
+    if fault is None or not fault.should_fire():
+        return table
+    return table.stale_clone()
+
+
+def maybe_slo_burn(counters):
+    """``counters`` (the fleet SLO triple) with
+    ``MXNET_TPU_TORCH_FAULT_SLO_BURN_N`` (default 64) extra requests that
+    all missed their deadline, when ``slo_burn`` fires."""
+    if not _ACTIVE:
+        return counters
+    fault = _ACTIVE.get("slo_burn")
+    if fault is None or not fault.should_fire():
+        return counters
+    n = int(os.environ.get("MXNET_TPU_TORCH_FAULT_SLO_BURN_N", "64"))
+    out = dict(counters)
+    out["fleet_requests"] = out.get("fleet_requests", 0) + n
+    out["fleet_deadline_exceeded"] = \
+        out.get("fleet_deadline_exceeded", 0) + n
+    return out
+
+
+def maybe_rollout_bad_weights(params):
+    """The candidate ``params`` with its first floating-point entry
+    replaced by NaNs (same name, shape and dtype, so it passes the swap's
+    validation and must be caught by the canary's health gate)."""
+    if not _ACTIVE:
+        return params
+    fault = _ACTIVE.get("rollout_bad_weights")
+    if fault is None:
+        return params
+    target = next((name for name, v in params.items() if _is_float(v)),
+                  None)
+    if target is None:
+        raise FaultInjected(
+            "rollout_bad_weights armed but the candidate has no "
+            f"floating-point parameter to poison (params: {list(params)})")
+    if not fault.should_fire():
+        return params
+    out = dict(params)
+    out[target] = _nan_like(params[target])
+    return out
+
+
+def maybe_canary_slo_regression(seconds):
+    """One canary latency sample inflated
+    ``MXNET_TPU_TORCH_FAULT_CANARY_SLO_X`` (default 10) times."""
+    if not _ACTIVE:
+        return seconds
+    fault = _ACTIVE.get("canary_slo_regression")
+    if fault is None or not fault.should_fire():
+        return seconds
+    try:
+        factor = float(os.environ.get(
+            "MXNET_TPU_TORCH_FAULT_CANARY_SLO_X", "10"))
+    except ValueError:
+        factor = 10.0
+    return seconds * factor
+
+
+def maybe_autoscale_flap(queue_depth):
+    """The autoscaler's queue signal replaced by a square wave: odd fires
+    read ``MXNET_TPU_TORCH_FAULT_FLAP_QUEUE`` (default 1e6), even fires
+    0.0."""
+    if not _ACTIVE:
+        return queue_depth
+    fault = _ACTIVE.get("autoscale_flap")
+    if fault is None or not fault.should_fire():
+        return queue_depth
+    try:
+        high = float(os.environ.get("MXNET_TPU_TORCH_FAULT_FLAP_QUEUE",
+                                    "1e6"))
+    except ValueError:
+        high = 1e6
+    return high if fault.fired % 2 == 1 else 0.0
+
+
+def maybe_decode_replica_death():
+    """Raise :class:`DecodeReplicaDead` between decode token steps."""
+    if not _ACTIVE:
+        return
+    fault = _ACTIVE.get("decode_replica_death")
+    if fault is None or not fault.should_fire():
+        return
+    raise DecodeReplicaDead("injected decode engine death mid-stream")
+
+
+def maybe_kv_pool_exhaustion(available):
+    """0 free pages, whatever ``available`` is, when
+    ``kv_pool_exhaustion`` fires."""
+    if not _ACTIVE:
+        return available
+    fault = _ACTIVE.get("kv_pool_exhaustion")
+    if fault is None or not fault.should_fire():
+        return available
+    return 0
+
+
+install_from_env()

@@ -1,18 +1,36 @@
 """BatchServer — thread-safe dynamic batching over a Predictor, and
 DecodeBatcher — continuous token-level batching over a DecodePredictor
-(subset of ``mxnet_tpu/serving/batcher.py``: deadlines, load shedding,
-health checks, decode's fault hooks, ``death_sink`` reroute and trace
-spans come with later slices).
+(port of ``mxnet_tpu/serving/batcher.py``).
 
-``submit(batch)`` enqueues and returns a ``concurrent.futures.Future``; a
-background worker pops requests, coalesces up to ``max_batch_size`` rows
-or until ``batch_timeout_ms`` after the oldest request arrived, runs ONE
-``predict`` on the fused batch (which pads it to the Predictor's nearest
-bucket), and hands each future exactly its own rows. Only requests of the
-same per-row shape and dtype coalesce; a mixed queue batches in arrival
-order. On a CUDA predictor the worker waits for the device before it
-resolves the futures, so a request's recorded latency ends when its
-results exist.
+``submit(batch, deadline_ms=)`` enqueues and returns a
+``concurrent.futures.Future``; a background worker pops requests,
+coalesces up to ``max_batch_size`` rows or until ``batch_timeout_ms``
+after the oldest request arrived, runs ONE ``predict`` on the fused batch
+(which pads it to the Predictor's nearest bucket), and hands each future
+exactly its own rows. Only requests of the same per-row shape and dtype
+coalesce; a mixed queue batches in arrival order. On a CUDA predictor the
+worker waits for the device before it resolves the futures, so a
+request's recorded latency ends when its results exist.
+
+- A request whose deadline passes while queued fails with
+  :class:`DeadlineExceeded` and is never executed (expired requests are
+  pruned before every batch forms); a spent budget fails at admission.
+- At ``max_queue_depth`` the queue sheds with :class:`ServerOverloaded`:
+  ``reject_new`` fails the incoming request, ``reject_oldest`` the head.
+- Every batch runs under the ``batch`` watchdog
+  (``MXNET_TPU_TORCH_WATCHDOG_BATCH_TIMEOUT``) and its outputs pass a
+  :class:`~mxnet_tpu_torch.resilience.HealthSentinel` (one finiteness
+  reduction on the device): a poisoned or stalled batch fails only its
+  own requests with ``NumericHealthError`` / ``StallError`` and the
+  queue keeps serving.
+- The decode engine's fault hooks (``decode_replica_death``) and its
+  ``death_sink`` hand a dead engine's streams to another replica
+  (``serving.StreamRouter``).
+
+Settings default from ``MXNET_TPU_TORCH_SERVING_MAX_BATCH``,
+``_TIMEOUT_MS`` (2.0), ``_QUEUE_DEPTH`` (1024), ``_SHED_POLICY``
+(``reject_new``), ``_DEADLINE_MS`` (off) and ``_HEALTH`` (``skip_batch``),
+the port's names for ``mxnet_tpu``'s knobs and their defaults.
 """
 from __future__ import annotations
 
@@ -27,9 +45,14 @@ import numpy as _np
 import torch
 
 from ..base import MXNetError
+from ..observability import trace as _obs_trace
+from ..resilience import faults as _faults
+from ..resilience import watchdog as _watchdog
+from ..resilience.sentinel import HealthSentinel, NumericHealthError
 from . import _STATS, record_itl, record_latency, record_ttft
 
-__all__ = ["BatchServer", "ServerClosed", "DecodeBatcher", "TokenStream"]
+__all__ = ["BatchServer", "DeadlineExceeded", "ServerOverloaded",
+           "ServerClosed", "DecodeBatcher", "TokenStream"]
 
 
 def _env_float(name, default):
@@ -37,19 +60,37 @@ def _env_float(name, default):
     return float(v) if v else default
 
 
+def _env_int(name, default):
+    v = os.environ.get(name, "").strip()
+    return int(v) if v else default
+
+
+class DeadlineExceeded(RuntimeError):
+    """The request's deadline passed before execution started."""
+
+
+class ServerOverloaded(RuntimeError):
+    """The request was shed at the queue high-water mark."""
+
+
 class ServerClosed(RuntimeError):
     """The server is closed (or closing without drain)."""
 
 
 class _Request:
-    __slots__ = ("feeds", "rows", "sig", "future", "t_submit")
+    __slots__ = ("feeds", "rows", "sig", "future", "t_submit", "deadline",
+                 "ctx")
 
-    def __init__(self, feeds, rows, sig):
+    def __init__(self, feeds, rows, sig, deadline):
         self.feeds = feeds
         self.rows = rows
         self.sig = sig
         self.future = Future()
         self.t_submit = time.perf_counter()
+        self.deadline = deadline  # absolute perf_counter time, or None
+        # the submitter's trace context: the worker re-enters it so the
+        # batch's spans parent under the request / attempt span
+        self.ctx = _obs_trace.current()
 
 
 def _try_resolve(future, result=None, exc=None):
@@ -64,6 +105,12 @@ def _try_resolve(future, result=None, exc=None):
         return False
 
 
+def _failed(exc):
+    fut = Future()
+    fut.set_exception(exc)
+    return fut
+
+
 class BatchServer:
     """Dynamic batcher over a :class:`Predictor`.
 
@@ -75,40 +122,103 @@ class BatchServer:
         exceed it.
     batch_timeout_ms : float — how long the oldest queued request may wait
         for the batch to fill (default 2.0).
+    max_queue_depth : int — queued requests before shedding (default 1024).
+    shed_policy : 'reject_new' | 'reject_oldest'.
+    default_deadline_ms : the deadline of a request that gives none
+        (default off).
+    sentinel : HealthSentinel of the outputs (default: policy
+        ``MXNET_TPU_TORCH_SERVING_HEALTH`` or 'skip_batch');
+        ``check_health=False`` skips the check.
     """
 
-    def __init__(self, predictor, max_batch_size=None, batch_timeout_ms=2.0):
+    SHED_POLICIES = ("reject_new", "reject_oldest")
+
+    def __init__(self, predictor, max_batch_size=None, batch_timeout_ms=None,
+                 max_queue_depth=None, shed_policy=None,
+                 default_deadline_ms=None, sentinel=None, check_health=True):
         self.predictor = predictor
-        self.max_batch_size = int(max_batch_size if max_batch_size is not None
-                                  else max(predictor.buckets))
-        self.batch_timeout_s = float(batch_timeout_ms) / 1e3
+        self.max_batch_size = int(
+            max_batch_size if max_batch_size is not None
+            else _env_int("MXNET_TPU_TORCH_SERVING_MAX_BATCH",
+                          max(predictor.buckets)))
+        self.batch_timeout_s = (
+            batch_timeout_ms if batch_timeout_ms is not None
+            else _env_float("MXNET_TPU_TORCH_SERVING_TIMEOUT_MS", 2.0)) / 1e3
+        self.max_queue_depth = int(
+            max_queue_depth if max_queue_depth is not None
+            else _env_int("MXNET_TPU_TORCH_SERVING_QUEUE_DEPTH", 1024))
+        self.shed_policy = (shed_policy or os.environ.get(
+            "MXNET_TPU_TORCH_SERVING_SHED_POLICY", "reject_new"))
+        if self.shed_policy not in self.SHED_POLICIES:
+            raise ValueError(f"shed_policy must be one of "
+                             f"{self.SHED_POLICIES}, got {self.shed_policy!r}")
+        dms = (default_deadline_ms if default_deadline_ms is not None
+               else _env_float("MXNET_TPU_TORCH_SERVING_DEADLINE_MS", 0.0))
+        self.default_deadline_s = dms / 1e3 if dms else None
+        if check_health:
+            self.sentinel = sentinel or HealthSentinel(
+                policy=os.environ.get("MXNET_TPU_TORCH_SERVING_HEALTH",
+                                      "skip_batch"))
+        else:
+            self.sentinel = None
         self._queue = deque()
         self._cond = threading.Condition()
         self._closed = False
         self._drain = True
+        self._inflight = ()  # the batch executing now (close() fails it)
         self._worker = threading.Thread(target=self._serve_loop,
                                         name="mxnet-torch-serving",
                                         daemon=True)
         self._worker.start()
 
     # ------------------------------------------------------------------ intake
-    def submit(self, data):
+    def submit(self, data, deadline_ms=None):
         """Enqueue one request (array/tensor or dict name -> array, WITH the
-        batch axis; 1..max_batch_size rows). Returns a Future resolving to
-        the list of output tensors for exactly those rows. Inputs are
-        copied to the predictor's device here, so the caller may reuse its
-        buffers once submit returns."""
+        batch axis; 1..max_batch_size rows) with an optional deadline.
+        Returns a Future resolving to the list of output tensors for
+        exactly those rows. Inputs are copied to the predictor's device
+        here, so the caller may reuse its buffers once submit returns."""
+        # shed before the input copy: under sustained overload a doomed
+        # request must not pay for its copy just to be rejected
+        with self._cond:
+            if self._closed:
+                raise ServerClosed("BatchServer is closed")
+            if len(self._queue) >= self.max_queue_depth and \
+                    self.shed_policy == "reject_new":
+                _STATS["serving_shed_overload"] += 1
+                return _failed(ServerOverloaded(
+                    f"queue depth {len(self._queue)} at high-water "
+                    f"mark {self.max_queue_depth}"))
+        if deadline_ms is not None:
+            if deadline_ms <= 0:
+                _STATS["serving_shed_deadline"] += 1
+                return _failed(DeadlineExceeded(
+                    f"deadline budget ({deadline_ms:.3g}ms) already spent "
+                    "at admission"))
+            deadline = time.perf_counter() + deadline_ms / 1e3
+        elif self.default_deadline_s is not None:
+            deadline = time.perf_counter() + self.default_deadline_s
+        else:
+            deadline = None
         feeds, rows = self.predictor._coerce_feeds(data)
         feeds = {name: a.clone() for name, a in feeds.items()}
         if rows < 1 or rows > self.max_batch_size:
             raise MXNetError(f"request rows must be 1..{self.max_batch_size}"
                              f", got {rows}")
-        sig = tuple(sorted((n, tuple(a.shape[1:]), str(a.dtype))
-                           for n, a in feeds.items()))
-        req = _Request(feeds, rows, sig)
+        req = _Request(feeds, rows, self.predictor._sig_of(feeds), deadline)
         with self._cond:
             if self._closed:
                 raise ServerClosed("BatchServer is closed")
+            if len(self._queue) >= self.max_queue_depth:
+                _STATS["serving_shed_overload"] += 1
+                if self.shed_policy == "reject_new":
+                    req.future.set_exception(ServerOverloaded(
+                        f"queue depth {len(self._queue)} at high-water "
+                        f"mark {self.max_queue_depth}"))
+                    return req.future
+                oldest = self._queue.popleft()
+                _try_resolve(oldest.future, exc=ServerOverloaded(
+                    "shed by a newer request (reject_oldest)"))
             self._queue.append(req)
             _STATS["serving_requests"] += 1
             _STATS["serving_queue_peak"] = max(_STATS["serving_queue_peak"],
@@ -116,13 +226,43 @@ class BatchServer:
             self._cond.notify_all()
         return req.future
 
+    @property
+    def queue_depth(self):
+        with self._cond:
+            return len(self._queue)
+
+    @property
+    def outstanding(self):
+        """Queued + in-flight requests (the router's balancing signal)."""
+        with self._cond:
+            return len(self._queue) + len(self._inflight)
+
     # ------------------------------------------------------------------ worker
+    def _prune_expired(self):
+        """Fail every queued request whose deadline passed (under the
+        lock), so dead work neither fills the size trigger nor rides in a
+        batch."""
+        if not any(r.deadline is not None for r in self._queue):
+            return
+        now = time.perf_counter()
+        kept = deque()
+        for r in self._queue:
+            if r.deadline is not None and now > r.deadline:
+                _STATS["serving_shed_deadline"] += 1
+                _try_resolve(r.future, exc=DeadlineExceeded(
+                    f"deadline passed {(now - r.deadline) * 1e3:.2f}ms "
+                    "before execution"))
+            else:
+                kept.append(r)
+        self._queue = kept
+
     def _take_batch(self):
         """Pop the next run of same-signature requests (total rows <=
         max_batch_size), honouring the time trigger. None when closed and
         drained."""
         with self._cond:
             while True:
+                self._prune_expired()
                 if not self._queue:
                     if self._closed:
                         return None
@@ -146,63 +286,184 @@ class BatchServer:
                         batch.append(req)
                         rows += req.rows
                     return batch
-                self._cond.wait(max(0.0, t_flush - now))
+                # wake at the flush or the next queued deadline
+                t_wake = t_flush
+                for r in self._queue:
+                    if r.deadline is not None and r.deadline < t_wake:
+                        t_wake = r.deadline
+                self._cond.wait(max(0.0, t_wake - now))
 
     def _serve_loop(self):
+        """The serve loop; if it dies (a BaseException such as an
+        interpreter teardown), every admitted future fails with
+        ServerClosed before the thread exits."""
         try:
-            while True:
-                batch = self._take_batch()
-                if batch is None:
-                    return
-                if not self._drain:
-                    for r in batch:
-                        _try_resolve(r.future, exc=ServerClosed(
-                            "BatchServer closed without drain"))
-                    continue
-                self._execute(batch)
-        finally:
-            # a dying worker must not leave admitted futures pending
+            self._serve()
+        except BaseException as e:
             with self._cond:
                 self._closed = True
-                leftovers = list(self._queue)
+                leftovers = list(self._queue) + list(self._inflight)
                 self._queue.clear()
+                self._inflight = ()
+                self._cond.notify_all()
+            err = ServerClosed(
+                f"BatchServer worker died: {type(e).__name__}: {e}")
             for r in leftovers:
-                _try_resolve(r.future, exc=ServerClosed(
-                    "BatchServer worker stopped"))
+                _try_resolve(r.future, exc=err)
+            raise
 
-    def _execute(self, batch):
-        try:
+    def _serve(self):
+        while True:
+            batch = self._take_batch()
+            if batch is None:
+                return
+            self._dispatch(batch)
+            # an idle worker must not pin the last batch's inputs and
+            # results while it waits for the next one
+            del batch
+
+    def _dispatch(self, batch):
+        if not self._drain:
+            for r in batch:
+                _try_resolve(r.future, exc=ServerClosed(
+                    "BatchServer closed without drain"))
+            return
+        # time passes between the pop and the launch
+        now = time.perf_counter()
+        live = []
+        for r in batch:
+            if r.deadline is not None and now > r.deadline:
+                _STATS["serving_shed_deadline"] += 1
+                _try_resolve(r.future, exc=DeadlineExceeded(
+                    f"deadline passed {(now - r.deadline) * 1e3:.2f}ms "
+                    "before execution"))
+            else:
+                live.append(r)
+        if live:
+            self._execute(live)
+
+    def _run_batch(self, batch, rows):
+        """The batch under its watchdog: fused inputs through the
+        predictor, then the device wait. Returns (outputs, n)."""
+        with _watchdog.guard(
+                "batch", detail=f"BatchServer batch ({rows} rows, "
+                                f"{len(batch)} request(s))"):
+            _faults.maybe_hang("hang_batch")
             fused = {name: (batch[0].feeds[name] if len(batch) == 1 else
                             torch.cat([r.feeds[name] for r in batch], dim=0))
                      for name in batch[0].feeds}
-            outs, n = self.predictor.predict_raw(fused)
-            device = self.predictor.device
-            if device.type == "cuda":
-                torch.cuda.current_stream(device).synchronize()
+            with _obs_trace.span("serve.execute"):
+                outs, n = self.predictor.predict_raw(fused)
+                device = getattr(self.predictor, "device", None)
+                if device is not None and device.type == "cuda":
+                    torch.cuda.current_stream(device).synchronize()
+        return outs, n
+
+    def _execute(self, batch):
+        with self._cond:
+            self._inflight = tuple(batch)
+        rows = sum(r.rows for r in batch)
+        bsp = None
+        try:
+            with _obs_trace.context(batch[0].ctx), \
+                    _obs_trace.span("serve.batch", rows=rows,
+                                    requests=len(batch)) as bsp:
+                t0_ns = int(batch[0].t_submit * 1e9)
+                _obs_trace.record("serve.batch_form", t0_ns,
+                                  max(0, time.perf_counter_ns() - t0_ns))
+                outs, n = self._run_batch(batch, rows)
+                if self.sentinel is not None:
+                    tag = getattr(self.predictor, "quant_tag", "")
+                    with _obs_trace.span("serve.sentinel"):
+                        try:
+                            healthy = self.sentinel.check_finite(
+                                outs, what=f"serving batch outputs{tag}")
+                            err = None
+                        except NumericHealthError as e:
+                            healthy, err = False, e
+                    if not healthy:
+                        _STATS["serving_poisoned_batches"] += 1
+                        err = err or NumericHealthError(
+                            self.sentinel.last_reason or
+                            "non-finite values in serving batch outputs")
+                        for r in batch:
+                            _try_resolve(r.future, exc=err)
+                        return
+                _STATS["serving_batches"] += 1
+                t_done = time.perf_counter()
+                offset = 0
+                for r in batch:
+                    sl = slice(offset, offset + r.rows)
+                    if _try_resolve(r.future, result=[
+                            o[sl] if o.dim() and o.shape[0] == n else o
+                            for o in outs]):
+                        record_latency(t_done - r.t_submit)
+                    offset += r.rows
         except Exception as e:  # fail this batch, keep the queue serving
+            if isinstance(e, _watchdog.StallError):
+                _STATS["serving_stalled_batches"] += 1
             for r in batch:
                 _try_resolve(r.future, exc=e)
-            return
-        _STATS["serving_batches"] += 1
-        t_done = time.perf_counter()
-        offset = 0
-        for r in batch:
-            sl = slice(offset, offset + r.rows)
-            if _try_resolve(r.future, result=[
-                    o[sl] if o.dim() and o.shape[0] == n else o
-                    for o in outs]):
-                record_latency(t_done - r.t_submit)
-            offset += r.rows
+        except BaseException as e:
+            # the worker itself is dying: this batch's futures resolve
+            # before the unwind clears _inflight
+            err = ServerClosed(f"BatchServer worker died mid-batch: "
+                               f"{type(e).__name__}: {e}")
+            for r in batch:
+                _try_resolve(r.future, exc=err)
+            raise
+        finally:
+            if bsp is not None and bsp.ctx is not None and len(batch) > 1:
+                # the batch span parents under the head request only;
+                # each follower gets a serve.coalesced span in its own tree
+                dur_ns = time.perf_counter_ns() - bsp.t0_ns
+                for r in batch[1:]:
+                    if r.ctx is not None and r.ctx != batch[0].ctx:
+                        _obs_trace.record(
+                            "serve.coalesced", bsp.t0_ns, dur_ns,
+                            parent=r.ctx, batch_trace=bsp.trace_id,
+                            rows=rows, requests=len(batch))
+            with self._cond:
+                self._inflight = ()
 
     # ------------------------------------------------------------------- close
     def close(self, drain=True, timeout=None):
         """Stop intake; with ``drain`` (default) serve every queued request
-        first, otherwise fail them with ServerClosed. Idempotent."""
+        first, otherwise fail them with ServerClosed. Idempotent.
+
+        The drain is bounded: ``timeout`` (seconds; default from the batch
+        watchdog deadline times the pending batches, else unbounded)
+        caps the wait, after which the queued and in-flight requests fail
+        with :class:`ServerClosed` instead of leaking."""
         with self._cond:
             self._closed = True
             self._drain = self._drain and drain
+            pending_rows = sum(r.rows for r in self._queue)
+            inflight = 1 if self._inflight else 0
             self._cond.notify_all()
+        if timeout is None:
+            per_batch = _watchdog.timeout_for("batch")
+            if per_batch is not None:
+                batches = -(-pending_rows // self.max_batch_size) + inflight
+                timeout = per_batch * max(1, batches) + 1.0
         self._worker.join(timeout)
+        with self._cond:
+            leftovers = list(self._queue) + list(self._inflight)
+            if leftovers:
+                self._drain = False
+                self._queue.clear()
+                self._cond.notify_all()
+        if not leftovers:
+            return
+        err = ServerClosed(
+            "BatchServer drain exceeded its shutdown deadline "
+            f"({timeout:.3g}s); request abandoned at close"
+            if self._worker.is_alive() else
+            "BatchServer worker died before draining; request abandoned "
+            "at close")
+        for r in leftovers:
+            _try_resolve(r.future, exc=err)
+        self._worker.join(0.1)
 
     def __enter__(self):
         return self
@@ -217,7 +478,9 @@ class TokenStream:
     """Consumer handle for one streamed generation: the decode engine
     pushes tokens as they are produced; :meth:`tokens` iterates them as
     they arrive and :meth:`result` collects the completion. ``ttft_s``
-    (time to first token) is stamped when the first token lands."""
+    (time to first token) is stamped when the first token lands;
+    ``generated`` holds every token, across reroutes, so a fleet reroute
+    can resume the stream on another replica mid-completion."""
 
     def __init__(self):
         self.created = time.perf_counter()
@@ -281,8 +544,8 @@ class _DecodeSeq:
         self.pages = []
         self.row = None
         self.pos = 0            # next KV write position
-        self.generated = []     # tokens produced since the last (re)admit
-        self.t_last = 0.0
+        self.generated = []     # tokens THIS engine produced (the stream
+        self.t_last = 0.0       # may carry more, from before a reroute)
         self.preempts = 0
 
 
@@ -309,6 +572,11 @@ class DecodeBatcher:
     ``ttft_slo_ms`` (default ``MXNET_TPU_TORCH_DECODE_TTFT_SLO_MS``, 500)
     in ``decode_ttft_misses``; every inter-token gap goes to the ITL
     window (``serving.stats()``).
+
+    ``decode_replica_death`` raises inside the engine loop: every live and
+    pending stream is handed to ``death_sink`` (the fleet's StreamRouter
+    installs one) or failed with the error, and every page returns to the
+    pool.
     """
 
     def __init__(self, predictor, ttft_slo_ms=None):
@@ -317,6 +585,8 @@ class DecodeBatcher:
             ttft_slo_ms if ttft_slo_ms is not None
             else _env_float("MXNET_TPU_TORCH_DECODE_TTFT_SLO_MS", 500.0)
         ) / 1e3
+        self.death_sink = None   # callable(list of (stream, prompt,
+        self.dead = False        #   remaining_max_new, eos_id), exc)
         self._pending = deque()
         self._live = {}          # row -> _DecodeSeq
         self._free_rows = list(range(predictor.max_seqs))
@@ -329,8 +599,9 @@ class DecodeBatcher:
         self._engine_thread.start()
 
     # ------------------------------------------------------------ intake
-    def submit(self, prompt, max_new_tokens, eos_id=None):
-        """Queue one generation request; returns its :class:`TokenStream`."""
+    def submit(self, prompt, max_new_tokens, eos_id=None, stream=None):
+        """Queue one generation request; returns its :class:`TokenStream`
+        (or continues the one passed in: the fleet's reroute)."""
         prompt = [int(t) for t in prompt]
         max_len = self.predictor._spec["max_len"]
         if not prompt or len(prompt) >= max_len:
@@ -338,7 +609,7 @@ class DecodeBatcher:
                              f"{max_len - 1}, got {len(prompt)}")
         if int(max_new_tokens) < 1:
             raise MXNetError("max_new_tokens must be >= 1")
-        stream = TokenStream()
+        stream = stream if stream is not None else TokenStream()
         seq = _DecodeSeq(prompt, max_new_tokens, eos_id, stream)
         with self._cond:
             if self._closed:
@@ -346,6 +617,16 @@ class DecodeBatcher:
             self._pending.append(seq)
             self._cond.notify_all()
         return stream
+
+    @property
+    def outstanding(self):
+        with self._cond:
+            return len(self._pending) + len(self._live)
+
+    @property
+    def live_count(self):
+        with self._cond:
+            return len(self._live)
 
     # ------------------------------------------------------------ engine
     def _engine_loop(self):
@@ -363,15 +644,19 @@ class DecodeBatcher:
                             _try_resolve_stream(s.stream, ServerClosed(
                                 "DecodeBatcher closed before admission"))
                         return
+                _faults.maybe_decode_replica_death()
                 self._admit()
                 if not self._step_once():
                     # nothing live: pending blocked on pages (or closing)
                     with self._cond:
                         if self._pending and not self._closed:
                             self._cond.wait(0.005)
+        except _faults.DecodeReplicaDead as e:
+            self._die(e, reroute=True)
         except BaseException as e:
             self._die(ServerClosed(
-                f"decode engine died: {type(e).__name__}: {e}"))
+                f"decode engine died: {type(e).__name__}: {e}"),
+                reroute=False)
             raise
 
     def _admit(self):
@@ -396,12 +681,15 @@ class DecodeBatcher:
                 self._pending.popleft()
                 row = self._free_rows.pop()
             try:
-                seq.pages = list(pages)
-                seq.row = row
-                self._table[row, :] = 0
-                self._table[row, :len(pages)] = pages
-                first, _ = self.predictor.prefill(ctx, self._table[row])
-                seq.pos = len(ctx)
+                with _obs_trace.span("decode.admit", row=row,
+                                     ctx=len(ctx), pages=need):
+                    seq.pages = list(pages)
+                    seq.row = row
+                    self._table[row, :] = 0
+                    self._table[row, :len(pages)] = pages
+                    first, _ = self.predictor.prefill(ctx,
+                                                      self._table[row])
+                    seq.pos = len(ctx)
                 _STATS["decode_sequences"] += 1
                 self._emit(seq, first, time.perf_counter())
                 if not seq.stream.finished:
@@ -427,6 +715,9 @@ class DecodeBatcher:
                 _STATS["decode_ttft_misses"] += 1
         else:
             record_itl(now - t0)
+        _obs_trace.record("decode.token", int(t0 * 1e9),
+                          max(0, int((now - t0) * 1e9)), row=seq.row,
+                          position=seq.pos)
         seq.t_last = now
         hit_eos = seq.eos_id is not None and int(tok) == seq.eos_id
         if (len(seq.generated) >= seq.max_new or hit_eos
@@ -515,10 +806,12 @@ class DecodeBatcher:
             self._emit(seq, int(nxt[row]), now)
         return True
 
-    def _die(self, exc):
-        """The engine is gone: every page back to the pool, every
-        incomplete stream failed, so no consumer blocks forever."""
+    def _die(self, exc, reroute):
+        """The engine is gone: every page back to the pool, then each
+        incomplete stream handed to ``death_sink`` (``reroute``) or
+        failed, so no page leaks and no consumer blocks forever."""
         with self._cond:
+            self.dead = True
             self._closed = True
             victims = list(self._live.values()) + list(self._pending)
             self._live.clear()
@@ -528,6 +821,23 @@ class DecodeBatcher:
             if seq.pages:
                 self.predictor.pool.free(seq.pages)
                 seq.pages = []
+        sink = self.death_sink if reroute else None
+        if sink is not None:
+            items = [(s.stream, s.prompt + s.generated,
+                      s.max_new - len(s.generated), s.eos_id)
+                     for s in victims
+                     if not s.stream.finished and
+                     s.max_new - len(s.generated) > 0]
+            for s in victims:
+                if not s.stream.finished and \
+                        s.max_new - len(s.generated) <= 0:
+                    s.stream._finish("length")
+            try:
+                sink(items, exc)
+                return
+            except Exception:
+                pass  # fail what the sink did not take
+        for seq in victims:
             _try_resolve_stream(seq.stream, exc)
 
     # ------------------------------------------------------------- close

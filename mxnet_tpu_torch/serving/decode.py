@@ -25,10 +25,14 @@ Settings default from ``MXNET_TPU_TORCH_DECODE_PAGE_SIZE`` (8),
 ``_PREFILL_BUCKETS`` ("8,16,32") and ``_KV_DTYPE`` ("float32" or "int8"),
 the port's names for ``mxnet_tpu``'s knobs and their defaults.
 
-Not ported: the fault hooks (``kv_pool_exhaustion``), the trace spans, the
-AOT cache and its fingerprints, loading parameters from a file in
-``swap_params``, and the fleet's probe surface (``_coerce_feeds``,
-``buckets``, ``_input_tails``) (ROADMAP Queue 1 item 12).
+``PagePool.alloc`` carries the ``kv_pool_exhaustion`` fault hook; prefill,
+step and the probe forward run in ``decode.prefill`` / ``decode.step`` /
+``decode.predict`` spans. The fleet's probe surface (``buckets``,
+``_input_tails``, ``_coerce_feeds``, ``_probe_feeds``) lets a BatchServer
+and the fleet's health probes drive the flat forward.
+
+Not ported: the AOT cache and its fingerprints (ROADMAP Queue 1 item 4)
+and loading parameters from a file in ``swap_params``.
 """
 from __future__ import annotations
 
@@ -41,6 +45,8 @@ import torch
 from .. import capture
 from ..base import MXNetError
 from ..context import as_device
+from ..observability import trace as _obs_trace
+from ..resilience import faults as _faults
 from . import _STATS
 
 __all__ = ["PagePool", "DecodePredictor", "DEFAULT_PREFILL_BUCKETS"]
@@ -83,7 +89,8 @@ class PagePool:
             raise MXNetError(f"PagePool.alloc: need a positive count, "
                              f"got {n}")
         with self._lock:
-            if n > len(self._free):
+            avail = _faults.maybe_kv_pool_exhaustion(len(self._free))
+            if n > avail or n > len(self._free):
                 _STATS["decode_backpressure"] += 1
                 return None
             pages = self._free[:n]
@@ -287,7 +294,8 @@ class DecodePredictor:
         padded[0, :n] = toks
         row = _np.asarray(page_row, _np.int32).reshape(self.max_pages)
         ex = self._exec_for(("prefill", bucket))
-        with self._lock:
+        with self._lock, _obs_trace.span("decode.prefill", tokens=n,
+                                         bucket=bucket):
             logits = ex(torch.from_numpy(padded),
                         torch.tensor([n], dtype=torch.int32),
                         torch.from_numpy(row))
@@ -308,7 +316,8 @@ class DecodePredictor:
                              (active, (self.max_seqs,)),
                              (page_table, (self.max_seqs, self.max_pages)))]
         ex = self._exec_for(("step",))
-        with self._lock:
+        with self._lock, _obs_trace.span("decode.step",
+                                         live=int(arrs[2].sum())):
             nxt, logits = ex(*[torch.from_numpy(a) for a in arrs])
             nxt = nxt.cpu().numpy()
         _STATS["decode_steps"] += 1
@@ -374,9 +383,45 @@ class DecodePredictor:
                              f"token ids, got shape {tuple(a.shape)}")
         a = a.to(torch.int32)
         ex = self._exec_for(("full", int(a.shape[0]), int(a.shape[1])))
-        with self._lock:
+        with self._lock, _obs_trace.span("decode.predict",
+                                         rows=int(a.shape[0])):
             logits = ex(a)
         return [logits], int(a.shape[0])
+
+    # The fleet's probe surface: a thread Fleet serves the flat forward
+    # through a BatchServer, one row at a time, and its health probes
+    # send one row of ``prefill_buckets[0]`` token ids, a shape warmup()
+    # already captured.
+    @property
+    def buckets(self):
+        return (1,)
+
+    @property
+    def _input_tails(self):
+        return {"data": (self.prefill_buckets[0],)}
+
+    def _probe_feeds(self):
+        return {"data": torch.zeros((1, self.prefill_buckets[0]),
+                                    dtype=torch.int32)}
+
+    def _coerce_feeds(self, data):
+        if not isinstance(data, dict):
+            data = {"data": data}
+        if set(data) != {"data"}:
+            raise MXNetError("DecodePredictor takes one 'data' input, "
+                             f"got {sorted(data)}")
+        a = data["data"]
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(_np.ascontiguousarray(_np.asarray(a)))
+        if a.dim() != 2:
+            raise MXNetError("DecodePredictor wants (B, T) token ids, "
+                             f"got shape {tuple(a.shape)}")
+        return {"data": a.to(torch.int32)}, int(a.shape[0])
+
+    @staticmethod
+    def _sig_of(feeds):
+        return tuple(sorted((n, tuple(a.shape[1:]), str(a.dtype))
+                            for n, a in feeds.items()))
 
     # ------------------------------------------------------------ rollout
     def swap_params(self, params):

@@ -29,6 +29,13 @@ predictor.py:263-360``): BatchNorm is folded, the graph calibrated on
 requantize steps are K5's kernels; each bucket is then one CUDA graph of
 that graph. Quantizing again starts from the fp32 graph, drops the bucket
 graphs and records one retrace (``capture.retrace_log()``).
+
+``swap_params`` replaces parameter VALUES in place (the weight-rollout
+primitive of ``serving.operator``): every name, shape and dtype is checked
+before the first copy, and the copies run under the lock every bucket's
+replay takes, so a request sees all-old or all-new weights and no graph is
+captured again. ``predict_raw`` carries the ``nan_serving`` fault hook and
+the ``serve.predict`` span.
 """
 from __future__ import annotations
 
@@ -41,6 +48,8 @@ import torch
 from .. import capture
 from ..base import MXNetError, torch_dtype
 from ..context import Context, as_device
+from ..observability import trace as _obs_trace
+from ..resilience import faults as _faults
 from . import _STATS
 
 __all__ = ["Predictor", "DEFAULT_BUCKETS"]
@@ -113,6 +122,7 @@ class Predictor:
         self._device = as_device(ctx)
         self._buckets = _declared_buckets(batch_sizes)
         self._dtype = torch_dtype(dtype)
+        self._feed_dtype = self._dtype   # the probes' dtype (warmup's)
         self._lock = threading.Lock()
         self._seen = set()   # buckets run at least once
         self._quant = None
@@ -186,7 +196,8 @@ class Predictor:
 
     def _split_params(self, symbol, params):
         """params (dict or ``.params`` path) -> (arg, aux) dicts of tensors
-        on the predictor's device."""
+        on the predictor's device, copies the predictor owns (a swap never
+        writes into the caller's tensors or a sibling predictor's)."""
         from .. import ndarray
 
         if params is None:
@@ -206,7 +217,7 @@ class Predictor:
             if not isinstance(v, torch.Tensor):
                 v = torch.from_numpy(_np.ascontiguousarray(v))
             (auxs if kind == "aux" else args)[name] = v.detach().to(
-                self._device)
+                self._device, copy=True)
         extra = [n for n in args if n not in arg_set]
         extra += [n for n in auxs if n not in aux_set]
         if extra:
@@ -328,6 +339,70 @@ class Predictor:
         return self
 
     @property
+    def quant_tag(self):
+        """Suffix naming the served executable's dtype in health-check
+        messages (empty for fp32 / bf16)."""
+        q = self._quant
+        return f" ({q['dtype']} executable)" if q else ""
+
+    # ------------------------------------------------------------ live swap
+    def _bound_cells(self):
+        """``{("arg"|"aux", name): tensor}`` of the parameters every bucket
+        graph reads."""
+        if self._block is not None:
+            return {("arg", name): t for name, t in
+                    self._block.collect_params().items()}
+        cells = {("arg", n): t for n, t in self._arg_params.items()}
+        cells.update({("aux", n): t for n, t in self._aux_params.items()})
+        return cells
+
+    def swap_params(self, params):
+        """Replace bound parameter / aux VALUES in place: ``params`` is
+        ``{name | "arg:name" | "aux:name": array}`` or a ``.params`` path.
+        Every entry is validated (a bound name, its shape and dtype)
+        before the first copy, so a rejected swap leaves the predictor
+        untouched; the copies run under the lock the bucket graphs replay
+        under, so a concurrent request sees all-old or all-new weights.
+        An int8 predictor's bound cells are its quantized graph's (the
+        fp32 names it was built from are not bound), as in ``mxnet_tpu``.
+        Returns the prior values as ``{"arg:name"/"aux:name": tensor}``
+        clones: pass it back to roll back."""
+        from .. import ndarray
+
+        if isinstance(params, str):
+            params = ndarray.load(params)
+        cells = self._bound_cells()
+        updates = []
+        for key, v in params.items():
+            kind, _, name = key.partition(":")
+            if kind not in ("arg", "aux"):
+                name = key
+                kind = "aux" if ("aux", key) in cells else "arg"
+            cell = cells.get((kind, name))
+            if cell is None:
+                raise MXNetError(
+                    f"swap_params: '{name}' is not a bound {kind} parameter "
+                    "of this predictor (data inputs and unbound names "
+                    "cannot be swapped)")
+            t = ndarray.to_tensor(v)
+            if not isinstance(t, torch.Tensor):
+                t = torch.from_numpy(_np.ascontiguousarray(_np.asarray(t)))
+            if tuple(t.shape) != tuple(cell.shape) or t.dtype != cell.dtype:
+                raise MXNetError(
+                    f"swap_params: {kind} '{name}' is {tuple(t.shape)}/"
+                    f"{t.dtype} but the bound cell is {tuple(cell.shape)}/"
+                    f"{cell.dtype}; a changed architecture needs a new "
+                    "Predictor, not a live swap")
+            updates.append((f"{kind}:{name}", cell, t))
+        prev = {}
+        with self._lock, self._exec._lock, torch.no_grad():
+            for key, cell, t in updates:
+                prev[key] = cell.detach().clone()
+            for key, cell, t in updates:
+                cell.copy_(t)
+        return prev
+
+    @property
     def buckets(self):
         return self._buckets
 
@@ -379,6 +454,7 @@ class Predictor:
         if self._input_tails is None:
             raise MXNetError("Predictor.warmup needs input_shapes")
         dt = self._dtype if dtype is None else torch_dtype(dtype)
+        self._feed_dtype = dt
         for b in (buckets or self._buckets):
             self._note_bucket(int(b))
             self._run({n: torch.zeros((int(b),) + tail, dtype=dt,
@@ -387,6 +463,19 @@ class Predictor:
         if self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
         return self
+
+    def _probe_feeds(self):
+        """A 1-row zero batch of the warm-up dtype (the fleet's health
+        probe), or None without ``input_shapes``."""
+        if self._input_tails is None:
+            return None
+        return {n: torch.zeros((1,) + tail, dtype=self._feed_dtype)
+                for n, tail in self._input_tails.items()}
+
+    @staticmethod
+    def _sig_of(feeds):
+        return tuple(sorted((n, tuple(a.shape[1:]), str(a.dtype))
+                            for n, a in feeds.items()))
 
     def _coerce_feeds(self, data):
         """data: array | dict name->array -> (dict name->tensor on the
@@ -428,8 +517,10 @@ class Predictor:
             raise MXNetError("Predictor: empty batch")
         _STATS["serving_predict_calls"] += 1
         bucket = self.bucket_for(n)
+        feeds = _faults.maybe_nan_batch(feeds)
         self._note_bucket(bucket)
-        outs = self._run(feeds, bucket, rows=n)
+        with _obs_trace.span("serve.predict", rows=n, bucket=bucket):
+            outs = self._run(feeds, bucket, rows=n)
         _STATS["serving_batch_samples"] += bucket
         _STATS["serving_padded_samples"] += bucket - n
         return outs, n

@@ -20,7 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-JOB_TIMEOUT = 120
+JOB_TIMEOUT = 300   # the workers' own rendezvous limit (dist.py's default)
 BATCH = 4           # a worker's batch
 STEPS = 3
 LR = 0.1
@@ -125,11 +125,13 @@ def _env():
     return env
 
 
-def _launch(launcher, mode, tmp_path):
+def _launch(launcher, mode, tmp_path, port=None):
     cmd = [sys.executable, os.path.abspath(__file__), mode, str(tmp_path)]
     head = [sys.executable, "-m", "mxnet_tpu_torch.kvstore.launch"] \
         if launcher == "port" else \
         [sys.executable, os.path.join(REPO, "tools", "launch.py")]
+    if port is not None:
+        head += ["--port", str(port)]
     env = _env()
     env["MXNET_TPU_TORCH_DIST_CLAIM_DIR"] = str(tmp_path / "claims")
     r = subprocess.run(head + ["-n", "2"] + cmd, env=env, cwd=REPO,
@@ -152,6 +154,28 @@ def test_store_across_two_workers(tmp_path):
         assert bool(o["agree"]) and not bool(o["disagree"])
     np.testing.assert_array_equal(outs[0]["w_after"], outs[1]["w_after"])
     assert int(outs[0]["fingerprint"]) == int(outs[1]["fingerprint"])
+
+
+def test_store_rebinds_when_the_launch_port_is_taken(tmp_path):
+    """Another process listens on the launcher's coordinator port (taken
+    between the launcher's choice and rank 0's bind): rank 0 binds a fresh
+    port and publishes it, rank 1 connects there, and the job's sums are
+    those of an untroubled job."""
+    import json
+    import socket
+
+    with socket.socket() as squatter:
+        squatter.bind(("127.0.0.1", 0))
+        squatter.listen(1)
+        taken = squatter.getsockname()[1]
+        _launch("port", "store", tmp_path, port=taken)
+    outs = [np.load(tmp_path / f"store{r}.npz") for r in range(2)]
+    for o in outs:
+        assert int(o["nw"]) == 2
+        np.testing.assert_array_equal(o["g_sum"], np.full(3, 3.0))
+        np.testing.assert_allclose(o["w_after"], np.full(4, 6.7), rtol=1e-6)
+    with open(tmp_path / "claims" / "coordinator.port") as fh:
+        assert json.load(fh)["port"] != taken
 
 
 def test_trainer_across_two_workers_via_tools_launch(tmp_path):
