@@ -390,7 +390,31 @@ Phases, each failing loudly with a non-zero exit:
       completes, decode_reroutes, each stream's first divergence from the
       unfaulted tokens, the rerouted streams' token gap. Each line names
       the card and its power limit. ``--fleet-only`` runs the build and
-      phase v alone.
+      phase v alone;
+  (w) resilient training (checks collected, the phase failing at its
+      end), the LM of phases h / l through parallel.ShardedTrainer (bf16
+      over fp32 masters, Adam, B=8, T=1024, the step fingerprint on):
+      (w1) a spawned child trains 20 steps, an async CheckpointManager
+      save (keep_n=2) every 5, and is SIGKILLed while its step-20 save is
+      in flight; restore_latest skips the torn save and takes step 15, and
+      steps 16-25 from it are bitwise an unkilled run's (losses and step
+      fingerprints); the save's stall (sync, async), bytes and seconds,
+      the restore's seconds; (w2) a memory cap under which B=8 raises a
+      real torch.OutOfMemoryError and 2 x B=4 fits: the step retried as 2
+      microbatches, sticky, bitwise an explicit microbatches=2 step; then
+      the oom_step fault without the cap; (w3) the fold kernel
+      (csrc/state_fold.cu) over the LM's masters and gradients against
+      its plain version and fold_host, timed beside its bound; the step
+      with and without the fingerprint; sdc_bitflip_param under an audit
+      every 2 steps caught, rolled back and run again to the unfaulted
+      params; (w4) the numerics tap every 5 steps against eager
+      reductions, no capture when its cadence changes; the perf ledger's
+      FLOPs, device ms and MFU; profiler.dump()'s trace naming K1 and K2;
+      traceview over the step's spans; (w5) gluon.Trainer with a rollback
+      HealthSentinel: nan_grad skipped and rolled back, hang_step rolled
+      back by the step watchdog, an AMP fp16 loss scale through a
+      checkpoint. ``--resilience-only`` runs the build, the fold's phase-b
+      cases and phase w alone.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. ``--summary PATH`` also writes the
@@ -7313,8 +7337,9 @@ def amp_resume(torch, mx, net, loss_fn, x, y):
     for _ in range(AMP_RESUME_STEPS):
         amp_step(mx, net, trainer, loss_fn, x, y)
     trainer.save_states(path)
-    # the loss scale's own save and load is ROADMAP Queue 1 item 12: it
-    # is carried by hand, as a resumed run must
+    # save_states holds the optimizer's states only; a CheckpointManager
+    # checkpoint carries the loss scale too (phase w5): here it is
+    # carried by hand
     saved_scale = (scaler.loss_scale, scaler._unskipped)
     after5 = {n: t.clone() for n, t in net.collect_params().items()}
     amp_step(mx, net, trainer, loss_fn, x, y)
@@ -10344,6 +10369,712 @@ def fleet_phase(torch, mx, kernels, q):
             "wall_s": wall, "card": card}
 
 
+def check_fold(torch):
+    """Phase b for the fold kernel (csrc/state_fold.cu): on fixed leaves of
+    every dtype it takes (fp32, bf16, fp16, int32, int8, uint8, bool,
+    empty, an unaligned view, several blocks' worth), alone and together,
+    the kernel's 32-bit value equals its plain version's and fold_host's
+    exactly (integer arithmetic: no tolerance), a second launch the
+    same; an 8-byte leaf raises."""
+    from mxnet_tpu_torch.resilience import integrity
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def randint(lo, hi, n, dtype):
+        return torch.randint(lo, hi, (n,), generator=gen, device="cuda",
+                             dtype=dtype)
+
+    base = randn(4097)
+    leaves = {
+        "f32_odd": randn(1001), "f32_2d": randn(257, 33),
+        "f32_blocks": randn(3_000_001),
+        "bf16": randn(4099).to(torch.bfloat16),
+        "f16": randn(77).to(torch.float16),
+        "i32": randint(-2 ** 31, 2 ** 31 - 1, 999, torch.int32),
+        "i8": randint(-128, 128, 333, torch.int8),
+        "u8": randint(0, 256, 4097, torch.uint8),
+        "bool": randn(999) > 0, "empty": randn(0, 5),
+        "unaligned": base[1:]}
+    cases = [{k: v} for k, v in leaves.items()] + [leaves]
+    out = []
+    for named in cases:
+        got = integrity.as_uint32(integrity.fold_tree(named))
+        again = integrity.as_uint32(integrity.fold_tree(named))
+        plain = integrity.as_uint32(integrity.fold_plain(named))
+        host = integrity.fold_host({k: v.cpu() for k, v in named.items()})
+        name = "+".join(named) if len(named) < 3 else "all"
+        ok = got == again == plain == host
+        log(f"[b] state_fold {name}: kernel {got:#010x}, plain {plain:#010x}"
+            f", fold_host {host:#010x} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase b: state_fold disagrees on {name}")
+        out.append({"case": name, "max_abs_err": abs(got - plain)})
+    try:
+        integrity.fold_tree({"f64": randn(8).double()})
+        raise SystemExit("phase b: state_fold took an 8-byte leaf")
+    except TypeError:
+        log("[b] state_fold: an 8-byte leaf raises TypeError ok")
+    # a graph over leaves that keep their warm-up addresses (static
+    # gradients) reads the eager table warm-up made: more eager layouts
+    # than the eager cap must not evict it before the graph replays
+    from mxnet_tpu_torch import capture
+
+    static = {"w": randn(70_001), "g": randn(5003).to(torch.bfloat16)}
+    fold = capture.CapturedExec(lambda: integrity.fold_tree(static),
+                                label="fold_static", device="cuda")
+    before = integrity.as_uint32(fold())
+    for i in range(integrity._TABLES_EAGER_CAP + 1):
+        integrity.fold_tree({f"x{i}": randn(1000 + 100 * i)})
+    with torch.no_grad():
+        static["w"].mul_(1.5)
+        static["g"].add_(1)
+    got = integrity.as_uint32(fold())
+    plain = integrity.as_uint32(integrity.fold_plain(static))
+    ok = got == plain != before
+    log(f"[b] state_fold captured over static leaves, replayed after "
+        f"{integrity._TABLES_EAGER_CAP + 1} other eager layouts: "
+        f"{got:#010x}, plain {plain:#010x} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase b: state_fold's captured table was lost")
+    out.append({"case": "captured static", "max_abs_err": abs(got - plain)})
+    return out
+
+
+# ------------------------------------------------------------------ phase w
+# Resilient training: the LM of phases h / l (GPT-2-small widths, bf16
+# compute over fp32 masters, Adam lr 1e-3, B=8, T=1024) through
+# parallel.ShardedTrainer, with checkpoints, the elastic OOM retry, the
+# integrity fold, the numerics tap, the perf ledger and the profiler.
+W_DIR = os.path.join(ROOT, "_resilience")   # gitignored: checkpoints
+W_STEPS = 20            # the child's steps before the kill
+W_RESUME_TO = 25        # the resumed run's last step
+W_SAVE_EVERY = 5
+W_AUDIT_EVERY = 2
+W_TAP_EVERY = 5
+W_TAP_TOL = 1e-5        # tap stats vs eager reductions, of max(|ref|, 1)
+W_TAP_GRAD_TOL = 1e-3   # grad rows: recomputed eagerly, bf16 GEMMs may
+                        # round otherwise outside the graph
+W_HANG_S = 2.0          # the gluon step's watchdog deadline in w5
+_W_FAILED = []
+
+
+def w_check(ok, what):
+    log(f"[w] {what}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        _W_FAILED.append(what)
+
+
+def w_batch(torch, step):
+    """Step ``step``'s batch: the learnable sequence from seed ``step``."""
+    return lm_batch(torch, BATCH, T, VOCAB, seed=1000 + step)
+
+
+def w_net(torch, mx, seed=0):
+    """Phase h's LM at full width, fp32 (the trainer's masters), seeded
+    Xavier weights."""
+    from mxnet_tpu_torch.gluon.model_zoo import transformer
+
+    net = transformer.transformer_lm(
+        vocab=VOCAB, units=UNITS, num_heads=HEADS, num_layers=LAYERS,
+        max_len=T, impl="flash", prefix="tlm_")
+    net.initialize(mx.init.Xavier(), generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    return net
+
+
+def w_trainer(mx, net, **kw):
+    return mx.parallel.ShardedTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+        {"learning_rate": LR}, dtype="bfloat16", **kw)
+
+
+def w_same(torch, a, b):
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def resilience_child(out_dir):
+    """w1's child: 20 steps from the seeded LM, an async save every 5 steps
+    (keep_n=2), one JSON line a step; after the step-20 save is launched
+    it writes the marker ``save20`` and waits to be killed."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.resilience import CheckpointManager
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["MXNET_TPU_TORCH_INTEGRITY_FINGERPRINT"] = "1"
+    tr = w_trainer(mx, w_net(torch, mx))
+    mgr = CheckpointManager(os.path.join(out_dir, "ckpt"), keep_n=2)
+    with open(os.path.join(out_dir, "child.jsonl"), "w") as f:
+        for s in range(1, W_STEPS + 1):
+            x, y = w_batch(torch, s)
+            loss = tr.step(x, y)
+            rec = {"step": s, "loss": loss.item(), "fp": tr.last_fingerprint}
+            if s % W_SAVE_EVERY == 0:
+                mgr.save(s, trainer=tr, async_=True)
+                rec["save"] = mgr.last_save
+            f.write(json.dumps(rec) + "\n")
+            f.flush()
+    with open(os.path.join(out_dir, "save20"), "w") as f:
+        f.write(str(os.getpid()))
+    time.sleep(600)
+    return 1
+
+
+def w1_kill_and_resume(torch, mx, net):
+    """A spawned child trains 20 steps, saving async every 5, and is
+    SIGKILLed while its step-20 save is in flight; restore_latest must
+    skip the torn save and take step 15, and steps 16-25 from it must be
+    bitwise an unkilled run's (losses and step fingerprints)."""
+    import shutil
+    import signal as _signal
+
+    from mxnet_tpu_torch.resilience import CheckpointManager, checkpoint
+
+    shutil.rmtree(W_DIR, ignore_errors=True)
+    os.makedirs(W_DIR)
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--resilience-child", W_DIR])
+    ref, ref_ms = {}, []
+    try:
+        r = w_trainer(mx, net)
+        for s in range(1, W_RESUME_TO + 1):
+            x, y = w_batch(torch, s)
+            t0 = time.perf_counter()
+            loss = r.step(x, y)
+            ref[s] = (loss.item(), r.last_fingerprint)
+            ref_ms.append((time.perf_counter() - t0) * 1e3)
+        del r
+        marker = os.path.join(W_DIR, "save20")
+        deadline = time.monotonic() + 300
+        while not os.path.exists(marker):
+            if child.poll() is not None:
+                raise SystemExit(f"phase w1: the child exited "
+                                 f"({child.returncode}) before its step-20 "
+                                 "save")
+            if time.monotonic() > deadline:
+                raise SystemExit("phase w1: no step-20 save within 300 s")
+            time.sleep(0.002)
+        os.kill(child.pid, _signal.SIGKILL)
+        child.wait(60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(60)
+    with open(os.path.join(W_DIR, "child.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    debris = [n for n in os.listdir(os.path.join(W_DIR, "ckpt"))
+              if ".tmp." in n]
+    mgr = CheckpointManager(os.path.join(W_DIR, "ckpt"), keep_n=2)
+    listed = [s for s, _ in mgr.list_checkpoints()]
+    tr = w_trainer(mx, net)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    manifest = mgr.restore_latest(trainer=tr)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    w_check(manifest is not None and manifest["step"] == 15
+            and 20 not in listed,
+            f"w1 restore_latest took step "
+            f"{None if manifest is None else manifest['step']} (published "
+            f"{listed}; the torn step-20 save left {len(debris)} temp dir(s)"
+            ", removed by the next manager)")
+    w_check(all(recs[s - 1]["loss"] == ref[s][0]
+                and recs[s - 1]["fp"] == ref[s][1] for s in range(1, 21)),
+            "w1 the child's steps 1-20 bitwise the unkilled run's (losses "
+            "and fingerprints)")
+    kernels_zero()
+    got = {}
+    for s in range(16, W_RESUME_TO + 1):
+        x, y = w_batch(torch, s)
+        loss = tr.step(x, y)
+        got[s] = (loss.item(), tr.last_fingerprint)
+    main_path = kernel_counts()
+    same = all(got[s] == ref[s] for s in got)
+    w_check(same, "w1 resumed steps 16-25 bitwise the unkilled run's "
+            f"(losses {got[16][0]:.6f} .. {got[25][0]:.6f}, fingerprints "
+            f"{got[16][1]:#010x} .. {got[25][1]:#010x})")
+    steady = sorted(ref_ms[1:])[len(ref_ms[1:]) // 2]
+    x, y = w_batch(torch, W_RESUME_TO)
+    torch.cuda.synchronize()
+    mgr.save(W_RESUME_TO + 1, trainer=tr)
+    sync = dict(mgr.last_save)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(W_RESUME_TO + 2, trainer=tr, async_=True)
+    stall_async = time.perf_counter() - t0
+    tr.step(x, y)
+    torch.cuda.synchronize()
+    next_ms = (time.perf_counter() - t0) * 1e3
+    mgr.wait_for_async()
+    publish_s = time.perf_counter() - t0
+    child_stalls = [r["save"]["stall_s"] for r in recs if "save" in r]
+    out = {"restored_step": manifest["step"], "listed": listed,
+           "debris": len(debris), "restore_s": restore_s,
+           "save_bytes": sync["bytes"], "sync_save_s": sync["stall_s"],
+           "async_stall_s": stall_async,
+           "async_save_plus_step_ms": next_ms,
+           "async_publish_s": publish_s, "child_async_stall_s":
+           child_stalls, "median_step_ms": steady,
+           "main_path": main_path, "resumed_bitwise": same}
+    log(f"[w1] {sync['bytes'] / 2**30:.2f} GiB a checkpoint: sync save "
+        f"{sync['stall_s']:.3f} s of stall; async save "
+        f"{stall_async * 1e3:.1f} ms of stall (the child's "
+        f"{', '.join(f'{s * 1e3:.1f}' for s in child_stalls)} ms), the next "
+        f"step {next_ms:.1f} ms with it (median step {steady:.2f} ms), "
+        f"published {publish_s:.3f} s after the call; restore "
+        f"{restore_s:.3f} s; main-path launches {main_path}")
+    del tr
+    shutil.rmtree(W_DIR, ignore_errors=True)
+    return out
+
+
+def kernels_zero():
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.resilience import integrity
+
+    zero_counts(kernels)
+    integrity.fold_tree.launches = 0
+
+
+def kernel_counts():
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.resilience import integrity
+
+    return {"k1": dict(kernels.flash_attention.launches_by_route),
+            "k2": dict(kernels.flash_attention_backward.launches_by_route),
+            "fold": integrity.fold_tree.launches}
+
+
+def w2_elastic(torch, mx, net):
+    """B=8 under a memory cap that a B=8 step exceeds and two B=4
+    microbatches fit: a real torch.OutOfMemoryError, retried as 2
+    microbatches, sticky, bitwise an explicit microbatches=2 step; then
+    the oom_step fault without the cap, the same."""
+    import gc
+    import warnings
+
+    from mxnet_tpu_torch.resilience import elastic, faults
+
+    x, y = w_batch(torch, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = w_trainer(mx, net)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    l_ref = ref.step(x, y, microbatches=2)
+    peak_mb2 = torch.cuda.max_memory_allocated() - base
+    ref_params = {k: v.detach().clone() for k, v in ref.params.items()}
+    l_ref2 = ref.step(x, y, microbatches=2)
+    ref_params2 = {k: v.detach().clone() for k, v in ref.params.items()}
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = w_trainer(mx, net)
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = torch.cuda.memory_reserved() + int(peak_mb2 * 1.15) + (256 << 20)
+    elastic.reset_stats()
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            loss = tr.step(x, y)
+        real_oom = any("OOM" in str(w.message) for w in caught)
+        st = elastic.stats()
+        ok = real_oom and st["elastic_oom_events"] == 1 and \
+            tr._elastic_n == 2 and loss.item() == l_ref.item() and \
+            w_same(torch, tr.params, ref_params)
+        w_check(ok, f"w2 under a {cap / 2**30:.2f} GiB cap (B=4 x 2 peaked "
+                f"{peak_mb2 / 2**30:.2f} GiB over the trainer): a real "
+                f"torch.OutOfMemoryError retried as {tr._elastic_n} "
+                f"microbatches, bitwise microbatches=2 ({st})")
+        loss = tr.step(x, y)
+        st2 = elastic.stats()
+        w_check(st2["elastic_oom_events"] == 1 and tr._elastic_n == 2
+                and loss.item() == l_ref2.item()
+                and w_same(torch, tr.params, ref_params2),
+                "w2 the next step stays at 2 microbatches (sticky), no new "
+                "OOM, bitwise")
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = w_trainer(mx, net)
+    elastic.reset_stats()
+    with faults.inject("oom_step", times=1) as f, \
+            warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        loss = tr.step(x, y)
+    w_check(f.fired == 1 and tr._elastic_n == 2
+            and loss.item() == l_ref.item()
+            and w_same(torch, tr.params, ref_params),
+            "w2 oom_step (no cap): retried as 2 microbatches, bitwise "
+            "microbatches=2")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"cap_bytes": cap, "peak_mb2_bytes": peak_mb2}
+
+
+def w3_integrity(torch, mx, net):
+    """The fold kernel over the LM's whole state (fp32 masters and their
+    gradients) against its plain version and fold_host, timed beside its
+    bound; the audit catching sdc_bitflip_param; the step with and
+    without the fingerprint."""
+    import gc
+
+    from mxnet_tpu_torch.resilience import faults, integrity
+
+    tr = w_trainer(mx, net)
+    x, y = w_batch(torch, 1)
+    tr.step(x, y)
+    _, grads = tr._loss_and_mean_grads(x, y, 1)
+    named = {f"param:{k}": v for k, v in tr.params.items()}
+    named.update({f"grad:{k}": v.contiguous() for k, v in grads.items()})
+    nbytes = sum(v.numel() * v.element_size() for v in named.values())
+    got = integrity.as_uint32(integrity.fold_tree(named))
+    plain = integrity.as_uint32(integrity.fold_plain(named))
+    host = integrity.fold_host({k: v.cpu() for k, v in named.items()})
+    w_check(got == plain == host, f"w3 fold kernel {got:#010x}, plain "
+            f"{plain:#010x}, fold_host {host:#010x} over {len(named)} "
+            f"leaves, {nbytes / 2**30:.2f} GiB")
+    ms = device_ms(lambda: integrity.fold_tree(named), n=20)
+    # the plain version's ~4,000 launches a call outrun the card's work
+    # from the host even as one graph: timed as graph replays, which log
+    # whether the host fell behind
+    plain_ms = graph_ms(torch, lambda: integrity.fold_plain(named), "w3",
+                        n=5)
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    log(f"[w3] state_fold: {ms:.4f} ms device ({nbytes / ms / 1e6:.0f} "
+        f"GB/s, {bound_ms / ms:.1%} of the {bound_ms:.4f} ms bytes bound); "
+        f"plain version {plain_ms:.3f} ms")
+    del named, grads
+    # the step with and without the fingerprint (one trainer, two graphs)
+    times = {}
+    for mode in ("0", "1", "0", "1"):
+        os.environ["MXNET_TPU_TORCH_INTEGRITY_FINGERPRINT"] = mode
+        ms_ = []
+        for _ in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.step(x, y)
+            torch.cuda.synchronize()
+            ms_.append((time.perf_counter() - t0) * 1e3)
+        times.setdefault(mode, []).extend(ms_[1:])
+    os.environ["MXNET_TPU_TORCH_INTEGRITY_FINGERPRINT"] = "1"
+    med = {m: sorted(v)[len(v) // 2] for m, v in times.items()}
+    log(f"[w3] step without the fingerprint {med['0']:.2f} ms, with it "
+        f"{med['1']:.2f} ms (+{med['1'] - med['0']:.2f} ms, "
+        f"{(med['1'] - med['0']) / med['0']:.1%}); host clock, median of "
+        "14 in turns")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the audit: a bit flip after step 2's update, caught and rolled back
+    os.environ["MXNET_TPU_TORCH_INTEGRITY_AUDIT_EVERY"] = str(W_AUDIT_EVERY)
+    try:
+        finals = []
+        for faulted in (False, True):
+            integrity.reset_stats()
+            tr = w_trainer(mx, net)
+            ctx = faults.inject("sdc_bitflip_param", at_step=1, times=1) \
+                if faulted else contextlib.nullcontext()
+            with ctx:
+                for s in range(1, 5):
+                    xs, ys = w_batch(torch, s)
+                    tr.step(xs, ys)
+            finals.append(({k: v.detach().clone()
+                            for k, v in tr.params.items()},
+                           tr.last_fingerprint, integrity.stats()))
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        del os.environ["MXNET_TPU_TORCH_INTEGRITY_AUDIT_EVERY"]
+    st = finals[1][2]
+    w_check(st["integrity_audit_mismatches"] == 1
+            and st["integrity_rollbacks"] == 1
+            and st["integrity_selftest_failures"] == 0
+            and finals[0][1] == finals[1][1]
+            and w_same(torch, finals[0][0], finals[1][0]),
+            f"w3 sdc_bitflip_param caught by the audit (every "
+            f"{W_AUDIT_EVERY} steps), self-test passed, rolled back and run "
+            "again: the final params bitwise the unfaulted run's "
+            f"({ {k: v for k, v in st.items() if v} })")
+    return {"fold_ms": ms, "fold_plain_ms": plain_ms,
+            "fold_bound_ms": bound_ms, "fold_bytes": nbytes,
+            "fold_err": abs(got - plain), "step_ms_no_fp": med["0"],
+            "step_ms_fp": med["1"]}
+
+
+def w4_observe(torch, mx, net):
+    """The numerics tap on the captured step every 5 steps, its stats
+    against eager reductions of the same tensors and no capture when the
+    cadence changes; the perf ledger's FLOPs, device ms and MFU; the
+    profiler's Chrome trace naming K1 and K2; traceview over the step's
+    spans."""
+    import gc
+
+    from mxnet_tpu_torch import capture, profiler
+    from mxnet_tpu_torch.observability import (numerics, perf, trace,
+                                               traceview)
+
+    def eager_row(v, den):
+        # the five stat columns in plain torch, float64 sums: l2, max |v|,
+        # NaN/Inf count, the share of nonzeros that fp16 flushes to 0,
+        # and l2 over den's l2 (update rows)
+        v64 = v.double()
+        l2 = v64.square().sum().sqrt().item()
+        nz = v != 0
+        ratio = 0.0 if den is None else \
+            l2 / (den.double().square().sum().sqrt().item() + 1e-12)
+        return [l2, v.abs().max().item() if v.numel() else 0.0,
+                float((~torch.isfinite(v)).sum().item()),
+                (nz & (v.half() == 0)).sum().item()
+                / max(nz.sum().item(), 1), ratio]
+
+    numerics.reset()
+    perf.clear()
+    tap = numerics.NumericsTap(interval=W_TAP_EVERY, policy="record")
+    tr = w_trainer(mx, net)
+    tr.attach_numerics(tap)
+    x, y = w_batch(torch, 1)
+    for _ in range(W_TAP_EVERY):        # samples at the first step
+        tr.step(x, y)
+    pre = {k: v.detach().clone() for k, v in tr.params.items()}
+    tr.step(x, y)                       # a sampled step
+    sample = numerics.history()[-1]["tensors"]
+    post = tr.params
+    tr_params = tr.params
+    saved = {k: v.detach().clone() for k, v in post.items()}
+    with torch.no_grad():
+        for k, v in pre.items():
+            tr_params[k].copy_(v)
+    _, grads = tr._loss_and_mean_grads(x, y, 1)
+    with torch.no_grad():
+        for k, v in saved.items():
+            tr_params[k].copy_(v)
+    worst = {"same": 0.0, "grad": 0.0}
+    for k in sorted(pre):
+        for name, v, den in ((f"grad:{k}", grads[k].float(), None),
+                             (f"param:{k}", pre[k].float(), None),
+                             (f"update:{k}", post[k].float() - pre[k].float(),
+                              pre[k].float())):
+            want = eager_row(v.reshape(-1), den)
+            got_row = sample[name]
+            kind = "grad" if name.startswith("grad:") else "same"
+            for stat, w_ in zip(numerics.NUMERICS_STATS, want):
+                worst[kind] = max(worst[kind], abs(got_row[stat] - w_)
+                                  / max(abs(w_), 1.0))
+    w_check(worst["same"] <= W_TAP_TOL and worst["grad"] <= W_TAP_GRAD_TOL,
+            f"w4 the tap's {len(sample)} rows x 5 stats against eager torch "
+            f"reductions, of max(|ref|, 1): param and update rows (the "
+            f"same tensors) {worst['same']:.2e} (tol {W_TAP_TOL:g}), grad "
+            f"rows (recomputed eagerly from the pre-step state) "
+            f"{worst['grad']:.2e} (tol {W_TAP_GRAD_TOL:g})")
+    misses = capture.stats()["capture_misses"]
+    tap.set_interval(2)
+    tap.set_stats(("l2", "maxabs"))
+    for _ in range(4):
+        tr.step(x, y)
+    w_check(capture.stats()["capture_misses"] == misses,
+            f"w4 cadence 5 -> 2 and stats -> (l2, maxabs): no capture "
+            f"({misses} captures before and after); "
+            f"{len(numerics.history())} samples")
+    # perf: device time on, a few replays of the untapped graph
+    tr.attach_numerics(None)
+    perf.set_device_time(True)
+    try:
+        for _ in range(5):
+            tr.step(x, y)
+    finally:
+        perf.set_device_time(False)
+    timed = [e for e in perf.ledger().values() if e["device_calls"]]
+    e = max(timed, key=lambda e: e["device_calls"]) if timed else None
+    w_check(e is not None and bool(e["flops"]) and e["mfu"] is not None
+            and 0 < e["mfu"] < 1,
+            f"w4 perf ledger {len(perf.ledger())} graphs; the step's: "
+            + ("no device-timed graph" if e is None else
+               f"{e['flops'] / 1e12:.3f} TFLOP a step, device "
+               f"{e['device_ms']:.2f} ms, MFU {(e['mfu'] or 0):.1%} of 989 "
+               f"TFLOP/s, peak {e['peak_hbm_bytes'] / 2**30:.2f} GiB, "
+               f"capture {e['compile_ms'] / 1e3:.2f} s"))
+    e = e or {"flops": None, "device_ms": None, "mfu": None}
+    peaks = {k: v["peak_hbm_bytes"] for k, v in perf.ledger().items()}
+    log(f"[w4] graphs' peak memory (warm-up to capture): "
+        + ", ".join(f"{k} {v / 2**30:.2f} GiB" for k, v in peaks.items()))
+    # the profiler and traceview over one step
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    path = os.path.join(ROOT, "chiprun_out", "phase_w_profile.json")
+    profiler.set_config(filename=path)
+    trace.set_enabled(True)
+    try:
+        profiler.set_state("run")
+        with profiler.scope("w4_step"):
+            tr.step(x, y)
+        profiler.set_state("stop")
+        profiler.dump()
+        spans = trace.spans()
+    finally:
+        trace.set_enabled(False)
+    with open(path) as f:
+        names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
+    has = {k: any(k in n for n in names)
+           for k in ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq_tc",
+                     "fold_partials", "w4_step")}
+    w_check(has["flash_fwd_tc"] and has["flash_bwd_dkdv_tc"]
+            and has["fold_partials"],
+            f"w4 profiler.dump(): {len(names)} event names; {has}")
+    chrome = traceview.to_chrome_trace(spans)
+    got_spans = {ev["name"] for ev in chrome["traceEvents"]
+                 if ev.get("ph") == "X"}
+    w_check("train.sharded_step" in got_spans
+            and "sharded.execute" in got_spans,
+            f"w4 traceview: {len(chrome['traceEvents'])} events, spans "
+            f"{sorted(got_spans)}")
+    log("[w4] profiler.dumps() head:\n" + "\n".join(
+        profiler.dumps().splitlines()[:12]))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tap_worst": worst, "flops": e["flops"],
+            "device_ms": e["device_ms"], "mfu": e["mfu"],
+            "graph_peaks": peaks, "profile_names": has}
+
+
+def w5_gluon(torch, mx):
+    """The gluon.Trainer path (phase h's bf16 LM, Adam): a rollback-policy
+    HealthSentinel with a manager; nan_grad armed: the bad step skipped
+    and rolled back; hang_step under a 2 s step deadline: the stall
+    rolled back; an AMP fp16 trainer's loss scale through a checkpoint."""
+    import gc
+    import shutil
+
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.gluon.model_zoo import transformer
+    from mxnet_tpu_torch.resilience import (CheckpointManager,
+                                            HealthSentinel, faults,
+                                            sentinel, watchdog)
+
+    shutil.rmtree(W_DIR, ignore_errors=True)
+    net = w_net(torch, mx)
+    net.cast("bfloat16")
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": LR})
+    mgr = CheckpointManager(os.path.join(W_DIR, "gluon"), keep_n=2)
+    sent = HealthSentinel(policy="rollback").attach(
+        trainer, net=net, checkpoint_manager=mgr)
+    x, y = w_batch(torch, 1)
+
+    def step():
+        with mx.autograd.record():
+            loss = ce(net(x), y).mean()
+        loss.backward()
+        trainer.step(1)
+        return loss
+
+    step()
+    mgr.save(1, net=net, trainer=trainer)
+    saved = {k: v.detach().clone() for k, v in net.collect_params().items()}
+    sentinel.reset_stats()
+    with faults.inject("nan_grad"):
+        step()
+    st = sentinel.stats()
+    w_check(st["sentinel_nonfinite"] == 1 and st["sentinel_rollbacks"] == 1
+            and st["health_skipped_steps"] == 1
+            and w_same(torch, dict(net.collect_params()), saved),
+            f"w5 nan_grad: the step skipped and rolled back to step 1 "
+            f"({ {k: v for k, v in st.items() if v} })")
+    os.environ["MXNET_TPU_TORCH_WATCHDOG_STEP_TIMEOUT"] = str(W_HANG_S)
+    watchdog.reset_stats()
+    try:
+        t0 = time.perf_counter()
+        with faults.inject("hang_step"):
+            step()
+        hang_s = time.perf_counter() - t0
+    finally:
+        del os.environ["MXNET_TPU_TORCH_WATCHDOG_STEP_TIMEOUT"]
+    ws = watchdog.stats()
+    w_check(ws["watchdog_stalls"] == 1 and ws["watchdog_rollbacks"] == 1
+            and w_same(torch, dict(net.collect_params()), saved),
+            f"w5 hang_step: the step returned after {hang_s:.2f} s (a "
+            f"{W_HANG_S:g} s deadline, then the rollback's restore), rolled "
+            f"back to step 1 ({ws})")
+    sent.detach()
+    loss = step()
+    w_check(bool(torch.isfinite(loss)), "w5 training goes on after both")
+    del net, trainer, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    # AMP: the loss scaler's state through a checkpoint (a 2-layer LM)
+    amp.init("float16")
+    try:
+        small = transformer.transformer_lm(
+            vocab=VOCAB, units=UNITS, num_heads=HEADS, num_layers=2,
+            max_len=T, impl="flash", prefix="tlm_")
+        small.initialize(mx.init.Xavier(), generator=torch.Generator(
+            device="cuda").manual_seed(0))
+        tr16 = mx.gluon.Trainer(small.collect_params(), "adam",
+                                {"learning_rate": LR})
+        amp.init_trainer(tr16)
+        with mx.autograd.record():
+            loss = ce(small(x), y).mean()
+        with amp.scale_loss(loss, tr16) as scaled:
+            scaled.backward()
+        if amp.unscale(tr16):
+            tr16.step(1)
+        scaler = tr16._amp_loss_scaler
+        scaler.loss_scale, scaler._unskipped = 1024.0, 7
+        mgr.save(2, net=small, trainer=tr16)
+        scaler.loss_scale, scaler._unskipped = 3.0, 0
+        m = mgr.restore_latest(net=small, trainer=tr16)
+        w_check(m["step"] == 2 and scaler.loss_scale == 1024.0
+                and scaler._unskipped == 7,
+                f"w5 AMP fp16: the loss scale {scaler.loss_scale:g} "
+                f"(unskipped {scaler._unskipped}) back from the checkpoint")
+    finally:
+        amp.reset()
+    shutil.rmtree(W_DIR, ignore_errors=True)
+    return {"hang_s": hang_s}
+
+
+def resilience_phase(torch, mx):
+    """Phase w: w1-w5 on one card."""
+    t0 = time.perf_counter()
+    os.environ["MXNET_TPU_TORCH_INTEGRITY_FINGERPRINT"] = "1"
+    try:
+        net = w_net(torch, mx)
+        out = {"w1": w1_kill_and_resume(torch, mx, net)}
+        out["w2"] = w2_elastic(torch, mx, net)
+        out["w3"] = w3_integrity(torch, mx, net)
+        out["w4"] = w4_observe(torch, mx, net)
+        del net
+        out["w5"] = w5_gluon(torch, mx)
+    finally:
+        os.environ.pop("MXNET_TPU_TORCH_INTEGRITY_FINGERPRINT", None)
+    main = out["w1"]["main_path"]
+    w_check(main["k1"]["tc"] > 0 and main["k2"]["tc"] > 0
+            and main["fold"] > 0 and not main["k1"].get("simt")
+            and not main["k2"].get("simt"),
+            f"w main path (the resumed run): K1 {main['k1']}, K2 "
+            f"{main['k2']}, state_fold {main['fold']}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[w] phase w {out['seconds']:.1f} s")
+    if _W_FAILED:
+        raise SystemExit(f"phase w: {len(_W_FAILED)} check(s) failed: "
+                         f"{_W_FAILED}")
+    return out
+
+
 def library_ms(fn, what):
     """device_ms of a library call, or None (logged) where the library
     refuses the call."""
@@ -10382,6 +11113,11 @@ def main(argv=None):
     ap.add_argument("--fleet-only", action="store_true",
                     help="build, then run phase v (the serving runtime) "
                          "only")
+    ap.add_argument("--resilience-only", action="store_true",
+                    help="build, then run the fold's phase-b cases and "
+                         "phase w (resilient training) only")
+    ap.add_argument("--resilience-child", metavar="DIR",
+                    help=argparse.SUPPRESS)   # w1's child
     ap.add_argument("--dist-rank", metavar="DIR",
                     help=argparse.SUPPRESS)   # one rank of phase u
     ap.add_argument("--lm-sweeps", type=int, metavar="N",
@@ -10402,6 +11138,8 @@ def main(argv=None):
         return 1
     if args.dist_rank:
         return dist_rank(args.dist_rank)
+    if args.resilience_child:
+        return resilience_child(args.resilience_child)
     sys.path.insert(0, ROOT)
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import _build, kernels
@@ -10473,6 +11211,12 @@ def main(argv=None):
         log("[fleet-only] phase v passed")
         log(card)
         return 0
+    if args.resilience_only:
+        check_fold(torch)
+        resilience_phase(torch, mx)
+        log("[resilience-only] phase w passed")
+        log(card)
+        return 0
     t_run = time.perf_counter()
 
     def stamp(label):
@@ -10486,6 +11230,7 @@ def main(argv=None):
     dec_checks, dec_errs = check_decode_attention(torch, da)
     write_checks = check_kv_write(torch, da)
     k5_checks = check_k5(torch, q)
+    fold_checks = check_fold(torch)
     if args.quick:
         log("[quick] phase b passed; phases c-n skipped")
         return 0
@@ -10537,6 +11282,9 @@ def main(argv=None):
     dist_u = dist_phase(torch, mx)
     stamp("fleet_phase")
     fleet_v = fleet_phase(torch, mx, kernels, q)
+    stamp("resilience_phase")
+    resilience = resilience_phase(torch, mx)
+    w3 = resilience["w3"]
 
     def ring_err(dtype, parts, key="errors"):
         """The ring's largest error (of max|whole-sequence call|, or with
@@ -10914,7 +11662,22 @@ def main(argv=None):
              {"entry_point": "s8_wgmma_conv, epilogue requant or range",
               "launches_by_mode": int8["launches"]["fused_by_mode"],
               "unfused_ms": k5_timing["fused"]["unfused_ms"],
-              "per_shape": k5_timing["fused"]["per_shape"]}))]}
+              "per_shape": k5_timing["fused"]["per_shape"]}))] + [{
+        # phase w's path: the step fingerprint of the resumed run (w1), one
+        # launch (two kernels: partials, combine) at each of its graph's
+        # 2 warm-up runs and capture; times from w3 over the LM's fp32
+        # masters and gradients
+        "name": "state_fold", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/state_fold.cu",
+        "replaces": "mxnet_tpu/resilience/integrity.py:236",
+        "launches": resilience["w1"]["main_path"]["fold"],
+        "max_abs_err": max([r["max_abs_err"] for r in fold_checks]
+                           + [w3["fold_err"]]),
+        "check": f"{len(fold_checks)} cases of phase b and the LM's whole "
+                 "state bitwise equal to the plain version and fold_host",
+        "ms": w3["fold_ms"], "plain_ms": w3["fold_plain_ms"],
+        "bound_ms": w3["fold_bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "state_bytes": w3["fold_bytes"]}]}
     stamp("the end")
     kind = torch.cuda.get_device_name(0)
     if args.summary:
@@ -10944,6 +11707,8 @@ def main(argv=None):
                        "k5_timing": k5_timing, "amp": amp,
                        "module": module, "word_lm": word_lm,
                        "ssd": ssd, "dist": dist_u, "fleet": fleet_v,
+                       "fold_checks": fold_checks,
+                       "resilience": resilience,
                        **record}, f,
                       indent=1)
     log(card)

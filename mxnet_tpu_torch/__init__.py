@@ -66,6 +66,7 @@ from . import autograd, optimizer, ops, gluon, serving  # noqa: F401
 from . import lr_scheduler, metric, parallel, capture  # noqa: F401
 from . import symbol, executor, io, contrib, ndarray, amp  # noqa: F401
 from . import random, kvstore, model, module, callback, image  # noqa: F401
+from . import resilience, observability, profiler  # noqa: F401
 from .attribute import AttrScope  # noqa: F401
 from . import symbol as sym  # noqa: F401
 from . import ndarray as nd  # noqa: F401
@@ -77,4 +78,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
            "serving", "lr_scheduler", "metric", "parallel", "capture",
            "symbol", "sym", "executor", "io", "contrib", "ndarray", "nd",
            "amp", "random", "kvstore", "kv", "model", "module", "mod",
-           "callback", "image", "AttrScope"]
+           "callback", "image", "resilience", "observability", "profiler",
+           "AttrScope"]

@@ -31,7 +31,8 @@ The fp16 recipe (MXNet's)::
 ``scale_loss`` multiplies the loss by the scale and sets the trainer's
 ``rescale_grad`` to undo it in the update; ``unscale`` reads the
 gradients for inf / nan once (one host read), halves or grows the scale,
-and counts a skipped step in :func:`health_stats`.
+and counts a skipped step in :func:`health_stats` (the sentinel's
+``health_skipped_steps`` series).
 """
 from __future__ import annotations
 
@@ -53,27 +54,30 @@ _STATE = {"active": False, "target_dtype": None, "target_ops": frozenset(),
           "fp32_ops": frozenset(), "widest_ops": frozenset(),
           "loss_scaler": None}
 
-# Skipped steps, under mxnet_tpu's names: its unscale calls
-# resilience.sentinel.note_skip("amp_overflow"), which counts both
-# (mxnet_tpu/resilience/sentinel.py:39-45). The port of the sentinel
-# (ROADMAP Queue 1 item 12) takes these counters over.
-_HEALTH = {"health_skipped_steps": 0, "amp_overflow_skips": 0}
+_HEALTH_KEYS = ("health_skipped_steps", "amp_overflow_skips")
 
 
 def health_stats():
-    """``{"health_skipped_steps": n, "amp_overflow_skips": n}``."""
-    return dict(_HEALTH)
+    """``{"health_skipped_steps": n, "amp_overflow_skips": n}``: the
+    sentinel's shared skip series (``resilience.sentinel``), which
+    ``unscale`` counts an overflow skip in."""
+    from ..resilience import sentinel
+
+    s = sentinel.stats()
+    return {k: s[k] for k in _HEALTH_KEYS}
 
 
 def reset_health_stats():
-    for k in _HEALTH:
-        _HEALTH[k] = 0
+    from ..resilience import sentinel
+
+    for k in _HEALTH_KEYS:
+        sentinel._STATS[k] = 0
 
 
 def _note_skip(reason):
-    _HEALTH["health_skipped_steps"] += 1
-    if reason == "amp_overflow":
-        _HEALTH["amp_overflow_skips"] += 1
+    from ..resilience import sentinel
+
+    sentinel.note_skip(reason)
 
 
 def init(target_dtype="bfloat16", target_precision_ops=None,

@@ -6,7 +6,6 @@ import logging
 import math
 import time
 
-from .base import MXNetError
 
 __all__ = ["Speedometer", "ProgressBar", "do_checkpoint", "log_train_metric",
            "module_checkpoint", "resilient_checkpoint"]
@@ -38,11 +37,20 @@ def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
 
 def resilient_checkpoint(manager, net, trainer=None, period=1,
                          async_=False):
-    """``mxnet_tpu``'s crash-safe checkpoint callback needs its
-    ``resilience.CheckpointManager``: ROADMAP Queue 1 item 12."""
-    raise MXNetError("resilient_checkpoint needs resilience/ "
-                     "(CheckpointManager), ROADMAP Queue 1 item 12, which "
-                     "is not ported")
+    """An epoch-end callback writing atomic, versioned checkpoints through
+    a ``resilience.CheckpointManager`` every ``period`` epochs (net
+    parameters, trainer states, generators, loss scaler; CRC-stamped,
+    ``keep_n`` retention) — ``mxnet_tpu/callback.py:35``. ``async_=True``
+    publishes on the manager's background writer. Resume with
+    ``manager.restore_latest(net=net, trainer=trainer)``."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            manager.save(iter_no + 1, net=net, trainer=trainer,
+                         epoch=iter_no + 1, async_=async_)
+
+    return _callback
 
 
 def log_train_metric(period, auto_reset=False):

@@ -46,14 +46,23 @@ launch is enqueued: during warm-up and once in the capture, never at a
 replay. The kernels inside a graph are its nodes: every graph keeps its
 node list, which :meth:`CapturedExec.debug_dump` writes out.
 
+Each captured graph lands one entry in the perf ledger
+(``observability.perf``): its FLOPs (torch's FLOP table over the first
+warm-up run, plus what the port's kernels report), its peak device memory
+and capture time, and with device timing on its replays' event times.
+The step fingerprint (``resilience.integrity``) and the numerics tap
+(``observability.numerics``) are outputs of the captured trainer steps:
+a signature's key carries whether each is on, so a step with the tap and
+one without are two graphs, picked on the host each step, and the tap's
+column selection is a slot.
+
 Not ported: the AOT compile cache. A CUDA graph cannot be written to disk,
 so ``MXNET_TPU_TORCH_COMPILE_CACHE`` raises ``NotImplementedError``
-(ROADMAP Queue 1 item 4). The sentinel, numerics tap and integrity
-fingerprint wait for their modules (Queue 1 item 12). The AMP loss scaler
-inside a captured step (its all-finite flag computed in the graph and
-noted with ``LossScaler.note_finite``) is Queue 1 item 4: a gluon trainer
-with a loss scaler attached (``amp.init_trainer``) raises
-:class:`CaptureError` rather than run with its scaler ignored.
+(ROADMAP Queue 1 item 4). The AMP loss scaler and the health sentinel
+inside a captured step (the all-finite flag computed in the graph) are
+Queue 1 item 4 too: a gluon trainer with a loss scaler attached
+(``amp.init_trainer``) or a sentinel attached raises :class:`CaptureError`
+rather than run with either ignored.
 """
 from __future__ import annotations
 
@@ -67,6 +76,8 @@ import time
 
 import torch
 
+from .observability import perf as _perf
+
 __all__ = ["capture", "CapturedTrainerStep", "CapturedShardedStep",
            "CapturedExec", "CaptureError", "SlotTable", "enabled",
            "cache_dir", "note_recapture", "retrace_log",
@@ -75,6 +86,8 @@ __all__ = ["capture", "CapturedTrainerStep", "CapturedShardedStep",
 
 _LOCK = threading.Lock()
 _CAPTURE_LOCK = threading.Lock()   # one capture at a time, GC held off
+_DEFERRED = []     # writes that must wait for the running capture's end
+_IN_CAPTURE = threading.local()
 _WARMUP = 2                        # eager runs before each capture
 
 # Flat counters, named as mxnet_tpu's (the aot_* ones stay 0: no AOT cache)
@@ -106,6 +119,18 @@ class CaptureError(RuntimeError):
     """A step program could not be captured (or its scalar replay no longer
     matches the captured program). Raised, never answered by an eager
     fall-back."""
+
+
+def defer_until_captured(fn):
+    """Run ``fn()`` once the running capture of a :class:`CapturedExec`
+    has ended, before the graph's first replay: a host-to-device write of
+    what a kernel in the graph reads (a device table of the capture's own
+    addresses), which a capture cannot hold. Raises outside one."""
+    if not getattr(_IN_CAPTURE, "on", False):
+        raise CaptureError(
+            "a deferred device write inside a CUDA graph capture that "
+            "CapturedExec does not run: nothing would perform it")
+    _DEFERRED.append(fn)
 
 
 def enabled():
@@ -273,11 +298,11 @@ class SlotTable:
 # ------------------------------------------------------------ CapturedExec
 class _Entry:
     __slots__ = ("sig", "state", "inputs", "outputs", "as_list", "graph",
-                 "capture_s", "extra")
+                 "capture_s", "extra", "ledger_fp")
 
     def __init__(self, sig, state, inputs):
         self.sig, self.state, self.inputs = sig, state, inputs
-        self.outputs = self.graph = self.extra = None
+        self.outputs = self.graph = self.extra = self.ledger_fp = None
         self.as_list = False
         self.capture_s = 0.0
 
@@ -327,6 +352,9 @@ class CapturedExec:
     runs that restores what they changed. ``on_capture(entry)`` runs after
     each capture.
 
+    ``fingerprint(sig)`` gives the program identity its perf-ledger
+    entries are keyed by (default: the label and the signature).
+
     ``exec(*args, key=(), batch=None, rows=None)``: ``batch`` pads every
     arg's leading dimension with zero rows to ``batch`` (into the static
     buffer; on the eager path by concatenation); ``rows`` keeps only the
@@ -335,8 +363,9 @@ class CapturedExec:
     """
 
     def __init__(self, fn, *, label, device, state=None, eager=None,
-                 warmup_guard=None, on_capture=None):
+                 warmup_guard=None, on_capture=None, fingerprint=None):
         _check_cache()
+        self._fingerprint = fingerprint
         self._fn = fn
         self.label = label
         self.device = torch.device(device)
@@ -390,16 +419,60 @@ class CapturedExec:
                 _STATS["capture_hits"] += 1
                 _feed(entry.inputs, args)
             if entry.graph is None:     # a CPU context: the program itself
-                entry.keep(self._fn(*entry.inputs, *key))
+                if entry.outputs is None:
+                    self._first_run(entry, key)
+                else:
+                    entry.keep(self._fn(*entry.inputs, *key))
             else:
-                entry.graph.replay()
+                _perf.timed_call(entry.graph.replay, (), self.label,
+                                 entry.ledger_fp, self.device)
             self.last_entry = entry
             outs = _cut(entry.outputs, batch, rows, True)
         return outs if entry.as_list else outs[0]
 
+    def _ledger_fp(self, sig):
+        if self._fingerprint is not None:
+            return self._fingerprint(sig)
+        return fingerprint({"label": self.label, "sig": repr(sig)})
+
+    def _note_ledger(self, entry, flops, peak, base, seconds):
+        entry.ledger_fp = self._ledger_fp(entry.sig)
+        nbytes = sum(t.numel() * t.element_size() for t in entry.inputs)
+        out_bytes = sum(t.numel() * t.element_size() for t in entry.outputs
+                        if isinstance(t, torch.Tensor))
+        _perf.note_compile(self.label, entry.ledger_fp,
+                           flops=flops, argument_bytes=nbytes,
+                           output_bytes=out_bytes, peak_bytes=peak,
+                           temp_bytes=max(0, peak - base), compile_s=seconds,
+                           backend=self.device.type)
+
+    def _first_run(self, entry, key):
+        """A CPU context's first run of a signature: the program itself,
+        its FLOPs counted into the perf ledger."""
+        t0 = time.perf_counter()
+        with _perf.count_flops() as box:
+            out = self._fn(*entry.inputs, *key)
+        entry.keep(out)
+        self._note_ledger(entry, box["flops"], 0, 0,
+                          time.perf_counter() - t0)
+
+    def drop_failed(self):
+        """After a failed capture (an out-of-memory step): free what the
+        failed warm-up and capture held, and the private memory pool when
+        no graph uses it, so a retry starts from a clean allocator."""
+        with self._lock:
+            if not self._entries:
+                self._pool = None
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
     def _capture(self, entry, key):
         t0 = time.perf_counter()
         cur = torch.cuda.current_stream(self.device)
+        torch.cuda.reset_peak_memory_stats(self.device)
+        base = torch.cuda.memory_allocated(self.device)
+        graph = None
         try:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(cur)
@@ -407,8 +480,12 @@ class CapturedExec:
                 guard = self._guard() if self._guard is not None \
                     else contextlib.nullcontext()
                 with guard:
-                    for _ in range(_WARMUP):
-                        self._fn(*entry.inputs, *key)
+                    for i in range(_WARMUP):
+                        if i == 0:
+                            with _perf.count_flops() as box:
+                                self._fn(*entry.inputs, *key)
+                        else:
+                            self._fn(*entry.inputs, *key)
             cur.wait_stream(side)
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
@@ -422,22 +499,32 @@ class CapturedExec:
                 gc.collect()
                 collecting = gc.isenabled()
                 gc.disable()
+                del _DEFERRED[:]
+                _IN_CAPTURE.on = True
                 try:
                     with torch.cuda.graph(graph, pool=self._pool,
                                           capture_error_mode="thread_local"):
                         out = self._fn(*entry.inputs, *key)
+                    for fn in _DEFERRED:
+                        fn()
                 finally:
+                    _IN_CAPTURE.on = False
+                    del _DEFERRED[:]
                     if collecting:
                         gc.enable()
             graph.instantiate()
         except CaptureError:
             raise
         except Exception as e:  # the capture failed: say so, no fall-back
+            del graph
             raise CaptureError(f"{self.label}: capturing {entry.sig} failed: "
                                f"{type(e).__name__}: {e}") from e
         entry.keep(out)
         entry.graph = graph
         entry.capture_s = time.perf_counter() - t0
+        self._note_ledger(entry, box["flops"],
+                          torch.cuda.max_memory_allocated(self.device), base,
+                          entry.capture_s)
         if self._on_capture is not None:
             self._on_capture(entry)
 
@@ -488,7 +575,9 @@ class CapturedTrainerStep:
     """
 
     def __init__(self, net, loss_fn, trainer, batch_size=None,
-                 label="trainer_step"):
+                 label="trainer_step", numerics=None):
+        from .observability import numerics as _numerics
+
         self.net = net
         self.loss_fn = loss_fn
         self.trainer = trainer
@@ -496,10 +585,34 @@ class CapturedTrainerStep:
         self._batch_size = batch_size
         self.device = trainer._params[0].data().device
         self._slots = SlotTable(self.device)
+        self._tap_slots = SlotTable(self.device)
+        self.numerics = numerics if numerics is not None \
+            else _numerics.default_tap()
+        if self.numerics is not None:
+            self.numerics.bind(net, trainer)
+        self._step_count = 0
+        self._last_fp_out = None
         self._exec = CapturedExec(
             self._program, label=label, device=self.device,
             state=self._state_tensors, warmup_guard=self._warmup_guard,
-            on_capture=self._keep_grads)
+            on_capture=self._keep_grads, fingerprint=self._ledger_fp)
+
+    def _ledger_fp(self, sig):
+        return fingerprint({"net": net_sig(self.net),
+                            "loss": code_sig(self.loss_fn),
+                            "optimizer": type(self.trainer.optimizer)
+                            .__name__, "sig": repr(sig)})
+
+    @property
+    def last_fingerprint(self):
+        """The uint32 fingerprint of the last step (post-update parameters
+        and gradients, ``resilience.integrity``), or None when it is
+        off."""
+        if self._last_fp_out is None:
+            return None
+        from .resilience import integrity as _integrity
+
+        return _integrity.as_uint32(self._last_fp_out)
 
     def _active(self):
         return [(i, self.trainer._params[i]) for i in self.trainer._active()]
@@ -524,23 +637,48 @@ class CapturedTrainerStep:
         trainable parameter, which each replay hands back to ``.grad``."""
         entry.extra = [(p.data(), p.data().grad) for _, p in self._active()]
 
-    def _program(self, x, y, batch_size):
+    def _extra_outputs(self, loss, pre, fp, tap):
+        """[loss, fingerprint?, stats?] after the update (or the loss)."""
+        if not (fp or tap):
+            return loss
+        out = [loss]
+        if fp:
+            from .resilience import integrity as _integrity
+
+            out.append(_integrity.step_fold(
+                *_integrity.net_named_state(self.net)))
+        if tap:
+            params = [(p.name, p.data()) for _, p in self._active()]
+            grads = [(p.name, p.data().grad) for _, p in self._active()
+                     if p.data().grad is not None]
+            out.append(self.numerics.graph_stats(
+                grads, [(n, pre[n]) for n, _ in params], params, [],
+                torch.stack(self._tap_slots.views)))
+        return out
+
+    def _pre(self, tap):
+        return {p.name: p.data().detach().clone()
+                for _, p in self._active()} if tap else None
+
+    def _program(self, x, y, batch_size, fp=False, tap=False):
         from . import autograd
 
         with autograd.record():
             loss = self.loss_fn(self.net(x), y)
         autograd.backward(loss)
+        pre = self._pre(tap)
         self.trainer._update(self._slots.views)
-        return loss
+        return self._extra_outputs(loss, pre, fp, tap)
 
-    def _eager_step(self, x, y, batch_size):
+    def _eager_step(self, x, y, batch_size, fp=False, tap=False):
         from . import autograd
 
         with autograd.record():
             loss = self.loss_fn(self.net(x), y)
         autograd.backward(loss)
+        pre = self._pre(tap)
         self.trainer.step(batch_size)
-        return loss
+        return self._extra_outputs(loss, pre, fp, tap)
 
     def _as_tensor(self, a):
         if not isinstance(a, torch.Tensor):
@@ -548,16 +686,55 @@ class CapturedTrainerStep:
         return a if a.device == self.device else a.to(self.device)
 
     def __call__(self, x, y, batch_size=None):
+        from .observability import trace as _obs_trace
+        from .resilience import faults as _faults
+        from .resilience import integrity as _integrity
+        from .resilience import watchdog as _watchdog
+
         _no_loss_scaler(self.trainer)
         _STATS["capture_steps"] += 1
         x, y = self._as_tensor(x), self._as_tensor(y)
+        # the nan_grad drill: a graph cannot be poisoned from outside, so
+        # the batch is; nonfinite_grad poisons the target layer's weight
+        if _faults.active("nan_grad") and x.is_floating_point():
+            f = _faults.get("nan_grad")
+            if f is not None and f.should_fire():
+                x = x * float("nan")
+        _faults.maybe_nonfinite_grad(self.trainer._params, where="param")
         bs = batch_size if batch_size is not None else (
             self._batch_size if self._batch_size is not None
             else int(x.shape[0]))
+        fp_on = _integrity.fingerprint_enabled()
+        tap = self.numerics
+        tap_on = tap is not None and tap.tick()
+        if tap_on:
+            self._tap_slots.write(tap.sel_values().tolist())
+        self._step_count += 1
+        _watchdog.note_step(self._step_count)
         trainer, opt = self.trainer, self.trainer.optimizer
-        if not enabled():
-            _STATS["capture_fallback_eager"] += 1
-            return self._eager_step(x, y, bs)
+        attrs = {"step": self._step_count}
+        if tap_on:
+            attrs["numerics_sampled"] = True
+        with _obs_trace.span("train.captured_step", **attrs), \
+                _watchdog.guard("step", detail="capture.CapturedTrainerStep",
+                                step=self._step_count):
+            _faults.maybe_hang("hang_step")
+            if not enabled():
+                _STATS["capture_fallback_eager"] += 1
+                out = self._eager_step(x, y, bs, fp_on, tap_on)
+            else:
+                out = self._captured(x, y, bs, fp_on, tap_on, trainer, opt)
+        out = list(out) if isinstance(out, (list, tuple)) else [out]
+        loss = out.pop(0)
+        self._last_fp_out = out.pop(0) if fp_on else None
+        if fp_on:
+            _integrity.note_fingerprint_step()
+        if tap is not None:
+            tap.on_step(self._step_count, None,
+                        out.pop(0).cpu().numpy() if tap_on else None, (x, y))
+        return loss
+
+    def _captured(self, x, y, bs, fp_on, tap_on, trainer, opt):
         for i, p in self._active():       # states exist before the key
             trainer._updater.state(i, p.data())
         snap = (opt.num_update, dict(opt._index_update_count),
@@ -567,7 +744,7 @@ class CapturedTrainerStep:
         values = trainer._scalars()       # the host scalar replay
         try:
             self._slots.write(values)
-            loss = self._exec(x, y, key=(float(bs),))
+            out = self._exec(x, y, key=(float(bs), fp_on, tap_on))
         except BaseException:
             # the step never ran: un-advance the replay's bookkeeping
             opt.num_update, count, opt.rescale_grad, sched = snap
@@ -580,16 +757,28 @@ class CapturedTrainerStep:
             for leaf, buf in entry.extra:
                 if leaf.grad is not buf:
                     leaf.grad = buf
-        return loss
+        return out
 
 
 class CapturedShardedStep:
     """Captured view of a ``parallel.ShardedTrainer``, whose step already
-    runs through :class:`CapturedExec`: counts steps and delegates."""
+    runs through :class:`CapturedExec`: counts steps and delegates.
+    ``numerics`` (default: armed from ``MXNET_TPU_TORCH_NUMERICS``)
+    attaches a numerics tap to the trainer."""
 
-    def __init__(self, trainer, label="sharded_step"):
+    def __init__(self, trainer, label="sharded_step", numerics=None):
+        from .observability import numerics as _numerics
+
         self.trainer = trainer
         self.label = label
+        tap = numerics if numerics is not None else _numerics.default_tap()
+        if tap is not None:
+            trainer.attach_numerics(tap)
+        self.numerics = trainer._numerics
+
+    @property
+    def last_fingerprint(self):
+        return self.trainer.last_fingerprint
 
     def __call__(self, x, y, microbatches=None, length=None):
         _STATS["capture_steps"] += 1
@@ -607,6 +796,11 @@ def _no_loss_scaler(trainer):
             "capture: this trainer sums its gradients over a distributed "
             "kvstore; a captured multi-rank step is ROADMAP Queue 1 item 6. "
             "Run the step eagerly (trainer.step)")
+    if getattr(trainer, "_sentinel", None) is not None:
+        raise CaptureError(
+            "capture: this trainer has a HealthSentinel attached; its "
+            "finite check inside a captured step is ROADMAP Queue 1 item "
+            "4. Run the step eagerly (trainer.step)")
     if getattr(trainer, "_amp_loss_scaler", None) is not None:
         raise CaptureError(
             "capture: this trainer has an AMP loss scaler attached "

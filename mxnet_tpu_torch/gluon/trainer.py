@@ -17,12 +17,16 @@ pulls the weights. 'dist_async' raises. ``ignore_stale_grad`` is accepted
 and, as in ``mxnet_tpu``, changes nothing: every parameter whose
 ``grad_req`` is not "null" is updated from its gradient buffer (zeros if
 no backward wrote it). Gradient compression raises, naming its ROADMAP
-item. ``mxnet_tpu``'s step
-watchdog, health sentinel, fault hooks and trace spans
-(``mxnet_tpu/gluon/trainer.py:111-200``) wait for the sharding, resilience
-and observability slices (ROADMAP Queue 1). The optimizer's states and
-update counts save and load as ``mxnet_tpu``'s bytes
-(:meth:`Trainer.save_states`, :meth:`Trainer.load_states`).
+item. As in ``mxnet_tpu/gluon/trainer.py:103-206``, the step runs under
+the step watchdog (``MXNET_TPU_TORCH_WATCHDOG_STEP_TIMEOUT``; a stall with
+a rollback-policy sentinel attached resumes from the last checkpoint), the
+``hang_step`` / ``nan_grad`` / ``nonfinite_grad`` fault hooks, an attached
+``HealthSentinel``'s check before the update, and trace spans
+(``train.step``, ``step.allreduce``, ``step.sentinel``, ``step.update``).
+The optimizer's states and update counts save and load as
+``mxnet_tpu``'s bytes (:meth:`Trainer.save_states`,
+:meth:`Trainer.load_states`); a checkpoint also carries the AMP loss
+scaler's state.
 
 The update sweep (``mxnet_tpu/gluon/trainer.py:202-244``) is one
 multi-tensor op over every trainable parameter (``ops/optimizer_ops.py``),
@@ -38,6 +42,10 @@ import os
 
 from .. import optimizer as opt
 from ..base import MXNetError
+from ..observability import trace as _obs_trace
+from ..resilience import faults as _faults
+from ..resilience import watchdog as _watchdog
+from ..resilience.checkpoint import atomic_write_bytes
 from .parameter import Parameter
 
 __all__ = ["Trainer"]
@@ -95,6 +103,7 @@ class Trainer:
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **optimizer_params)
         self._updater = opt.get_updater(self._optimizer)
+        self._sentinel = None     # resilience.HealthSentinel.attach
 
     @property
     def learning_rate(self):
@@ -141,10 +150,11 @@ class Trainer:
     def step(self, batch_size, ignore_stale_grad=False):
         """One update of every trainable parameter, with gradients summed
         over the workers of a distributed store and scaled by ``1 /
-        batch_size`` (``mxnet_tpu/gluon/trainer.py:103``)."""
+        batch_size`` (``mxnet_tpu/gluon/trainer.py:103``), under the step
+        watchdog, with an attached sentinel consulted between the
+        all-reduce and the update."""
         if not self._update_on_kvstore:
-            self.allreduce_grads()
-            self.update(batch_size, ignore_stale_grad)
+            self._guarded(batch_size, allreduce=True)
             return
         from ..ndarray.ndarray import NDArray
 
@@ -160,8 +170,59 @@ class Trainer:
             raise MXNetError("update() when parameters are updated on the "
                              "kvstore is not supported; pass "
                              "update_on_kvstore=False")
+        self._guarded(batch_size, allreduce=False)
+
+    def _guarded(self, batch_size, allreduce):
         self._optimizer.rescale_grad = self._scale / batch_size
-        self._update(self._scalars())
+        try:
+            with _watchdog.guard(
+                    "step", detail="gluon.Trainer.step" if allreduce
+                    else "gluon.Trainer.update",
+                    step=getattr(self._sentinel, "_step", None)):
+                self._update_phases(allreduce)
+        except _watchdog.PeerLostError:
+            raise  # a dead peer does not come back at the next step
+        except _watchdog.StallError as e:
+            if not self._stall_rollback(e):
+                raise
+
+    def _stall_rollback(self, err):
+        """A stalled step resumes from the last good checkpoint when a
+        rollback-policy sentinel with a manager is attached: parameters,
+        optimizer states, generators and loss scaler restored, the crash
+        report amended, the step skipped. True when recovered."""
+        s = self._sentinel
+        if s is None or s.policy != "rollback" or s.manager is None:
+            return False
+        manifest = s.manager.restore_latest(net=s._net, trainer=self)
+        if manifest is None:
+            return False
+        _watchdog.note_rollback(err, manifest)
+        import warnings
+
+        warnings.warn(
+            f"training step stalled ({err}); rolled back to checkpoint "
+            f"step {manifest.get('step')} and skipped the step")
+        return True
+
+    def _update_phases(self, allreduce):
+        """The guarded step body, each phase under a trace span."""
+        with _obs_trace.span("train.step",
+                             entry="step" if allreduce else "update",
+                             step=getattr(self._sentinel, "_step", None)):
+            _faults.maybe_hang("hang_step")
+            if allreduce:
+                with _obs_trace.span("step.allreduce"):
+                    self.allreduce_grads()
+            _faults.maybe_nan_grads(self._params)
+            _faults.maybe_nonfinite_grad(self._params)
+            if self._sentinel is not None:
+                with _obs_trace.span("step.sentinel"):
+                    healthy = self._sentinel.before_update(self)
+                if not healthy:
+                    return  # skipped or rolled back per the policy
+            with _obs_trace.span("step.update"):
+                self._update(self._scalars())
 
     def _active(self):
         return [i for i, p in enumerate(self._params)
@@ -216,27 +277,3 @@ class Trainer:
         with open(fname, "rb") as f:
             self.set_states_bytes(f.read())
 
-
-def atomic_write_bytes(path, data):
-    """Crash-safe write: a temporary file in the same directory, flushed
-    and fsynced, renamed over ``path``, then the directory fsynced (port
-    of ``mxnet_tpu/resilience/checkpoint.py:166-188``)."""
-    path = os.fspath(path)
-    tmp = f"{path}.tmp.{os.getpid()}"
-    try:
-        with open(tmp, "wb") as f:
-            f.write(data)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    except BaseException:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        raise
-    fd = os.open(os.path.dirname(path) or ".", os.O_RDONLY)
-    try:
-        os.fsync(fd)
-    finally:
-        os.close(fd)

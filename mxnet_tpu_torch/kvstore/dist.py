@@ -40,9 +40,7 @@ import os
 import socket
 import tempfile
 import time
-import zlib
 
-import numpy as _np
 import torch
 
 from ..ndarray.ndarray import NDArray
@@ -290,57 +288,16 @@ def init_distributed(coordinator=None, num_processes=None, process_id=None,
     return True
 
 
-# ------------------------------------------------------------- xsf32-v1 fold
-# ``mxnet_tpu/resilience/integrity.py:152-212``: per array, the raw bits
-# as uint32 words; digest = sum(words) ^ (sum(words * words) * 2654435761),
-# all mod 2^32; arrays combine in sorted-name order as
-# acc = acc * 1000003 + digest + crc32(name).
-
-_FOLD_SEED = 2166136261
-_FOLD_MUL = 1000003
-_DIGEST_MUL = 2654435761
-_MASK = 0xFFFFFFFF
-
-
-def _words(a):
-    a = _np.asarray(a)
-    if a.dtype == _np.bool_:
-        return a.astype(_np.uint32).ravel()
-    flat = _np.ascontiguousarray(a).ravel()
-    size = flat.dtype.itemsize
-    if size == 4:
-        return flat.view(_np.uint32)
-    if size == 2:
-        return flat.view(_np.uint16).astype(_np.uint32)
-    if size == 1:
-        return flat.view(_np.uint8).astype(_np.uint32)
-    if size == 8:
-        return flat.view(_np.uint32)
-    raise TypeError(f"xsf32-v1 cannot fold dtype {a.dtype}")
-
-
-def _digest(a):
-    w = _words(a)
-    if w.size == 0:
-        return 0
-    s1 = int(_np.sum(w, dtype=_np.uint32))
-    s2 = int(_np.sum(w * w, dtype=_np.uint32))
-    return (s1 ^ ((s2 * _DIGEST_MUL) & _MASK)) & _MASK
-
-
 def state_fingerprint(named):
     """The xsf32-v1 fingerprint of ``{name: NDArray, tensor or array}``, as
-    ``mxnet_tpu``'s ``KVStore.state_fingerprint`` computes it."""
+    ``mxnet_tpu``'s ``KVStore.state_fingerprint`` computes it: the host
+    fold of :mod:`..resilience.integrity`."""
+    from ..resilience import integrity
+
     items = named.items() if hasattr(named, "items") else named
-    acc = _FOLD_SEED
-    for name, v in sorted((str(k), v) for k, v in items):
-        if isinstance(v, NDArray):
-            v = v.asnumpy()
-        elif isinstance(v, torch.Tensor):
-            v = v.detach().cpu().numpy()
-        acc = (acc * _FOLD_MUL + _digest(v)
-               + zlib.crc32(name.encode("utf-8"))) & _MASK
-    return acc
+    return integrity.fold_host(
+        [(k, v.asnumpy() if isinstance(v, NDArray) else v)
+         for k, v in items])
 
 
 class KVStoreDist(KVStore):

@@ -40,6 +40,7 @@ import torch
 from ..base import MXNetError, torch_dtype
 from ..context import Context, cpu, current_context
 from ..ops import registry as _reg
+from .. import profiler as _profiler
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "concat", "concatenate", "stack", "split", "waitall", "save",
@@ -545,6 +546,7 @@ def imperative_invoke(opname, *inputs, out=None, **params):
     from ..amp import amp as _amp
 
     op = _reg.get_op(opname)
+    _profiler.record_dispatch(op.name)
     params = op.normalize(params)
     ctx = _as_context(params.pop("ctx", None))
     if ctx is None:

@@ -1,5 +1,5 @@
-"""mxnet_tpu_torch.observability — runtime introspection for the serving
-runtime (port of ``mxnet_tpu/observability``, the modules serving uses).
+"""mxnet_tpu_torch.observability — runtime introspection (port of
+``mxnet_tpu/observability``).
 
 - :mod:`trace` — structured span tracing: ``trace.span(name, **attrs)``
   opens one timed span under a thread-local context; spans nest, cross
@@ -13,14 +13,19 @@ runtime (port of ``mxnet_tpu/observability``, the modules serving uses).
 - :mod:`flight` — the always-on flight recorder: one bounded event log of
   root-span ends, fired faults, watchdog stalls, fleet transitions,
   operator decisions and alert transitions.
-- :mod:`alerts` — the serving rules (SLO burn rates, breaker and
-  healthy-floor probes, decode TTFT burn, sentinel skip spikes), their
-  OK / PENDING / FIRING state machine and the incidents they open.
+- :mod:`alerts` — the serving and training rules (SLO burn rates,
+  breaker and healthy-floor probes, decode TTFT burn, input stall, step
+  time drift, device-time regression, sentinel skip spikes, the numerics
+  conditions, silent data corruption), their OK / PENDING / FIRING state
+  machine and the incidents they open.
+- :mod:`numerics` — the numerics tap of the captured training step.
+- :mod:`perf` — the perf ledger of captured graphs (FLOPs, peak memory,
+  device time) and the MFU / roofline gauges.
+- :mod:`traceview` — span records as a Chrome trace.
 
 The names of metrics, spans, counters and flight events are
 ``mxnet_tpu``'s, so the two packages' records compare one to one. Not
-ported (ROADMAP Queue 1 item 12, training half): ``numerics``, ``perf``,
-``traceview`` and the training alert rules.
+ported: the pod host-down rule (with pods, ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -37,6 +42,12 @@ _STATS = {
     "alert_transitions": 0,          # FIRING/RESOLVED state transitions
     "alert_incidents_opened": 0,     # incidents assembled on FIRING
     "alert_incidents_resolved": 0,   # incidents closed on RESOLVED
+    "numerics_samples": 0,           # tapped steps emitted
+    "numerics_nonfinite_steps": 0,   # sampled steps with NaN/Inf
+    "numerics_halts": 0,             # halt-policy raises
+    "numerics_snapshots": 0,         # divergence snapshots published
+    "perf_ledger_entries": 0,        # perf ledger keys created
+    "perf_device_timings": 0,        # device-timed executions folded in
 }
 
 
@@ -59,7 +70,10 @@ def runtime_counters():
 
     out = {}
     for name in ("mxnet_tpu_torch.capture", "mxnet_tpu_torch.serving",
-                 "mxnet_tpu_torch.resilience"):
+                 "mxnet_tpu_torch.resilience",
+                 "mxnet_tpu_torch.resilience.checkpoint",
+                 "mxnet_tpu_torch.resilience.elastic",
+                 "mxnet_tpu_torch.resilience.integrity"):
         mod = sys.modules.get(name)
         if mod is not None:
             try:
@@ -74,6 +88,9 @@ from . import trace  # noqa: E402
 from . import metrics  # noqa: E402
 from . import flight  # noqa: E402
 from . import alerts  # noqa: E402
+from . import numerics  # noqa: E402
+from . import perf  # noqa: E402
+from . import traceview  # noqa: E402
 
 # with MXNET_TPU_TORCH_METRICS_FILE set, the background JSON-lines flusher
 # arms itself when the runtime imports this layer (no-op otherwise)
@@ -93,9 +110,12 @@ def dump(limit=None):
         "series": metrics.series(),
         "alerts": alerts.snapshot(),
         "incidents": alerts.incidents(),
+        "numerics": numerics.snapshot_state(),
+        "perf": perf.snapshot(),
         "counters": runtime_counters(),
     }
 
 
-__all__ = ["trace", "metrics", "flight", "alerts", "dump", "stats",
+__all__ = ["trace", "metrics", "flight", "alerts", "numerics", "perf",
+           "traceview", "dump", "stats",
            "reset_stats", "runtime_counters"]

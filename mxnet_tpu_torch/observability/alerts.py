@@ -1,11 +1,15 @@
 """Alert rules, their state machine and incidents (port of
-``mxnet_tpu/observability/alerts.py``, the serving rules).
+``mxnet_tpu/observability/alerts.py``).
 
 - Rules, evaluated on the exporter cadence (every
   ``metrics.update_derived()`` call): multi-window SLO burn rates over the
   fleet counters (deadline misses, overload sheds) and decode's TTFT
   misses; live threshold probes (a breaker open, a model under its
-  healthy-replica floor).
+  healthy-replica floor, the input-stall fraction, the numerics tap's
+  three conditions); the training-step time against median + k*MAD of
+  its own history; the perf ledger's device time and MFU against their
+  own EWMA; windowed spikes of sentinel skips and of the integrity
+  layer's corruption counters.
 - Each rule walks ``OK -> PENDING -> FIRING -> OK`` with ``hold_s`` (a
   breach must persist) and ``cooldown_s`` (conditions must stay clean)
   against flapping; every FIRING / RESOLVED transition records one
@@ -16,10 +20,8 @@
   :func:`open_incidents` is what the autoscaler reads.
 
 Disabled (``MXNET_TPU_TORCH_ALERTS=0`` or :func:`set_enabled`), the
-evaluation site is one global check. Not ported (ROADMAP Queue 1 item
-12, training half): the input-stall, step-time, perf-ledger, sentinel
-skip, numerics, pod and integrity rules, and the Chrome-trace export of
-exemplars.
+evaluation site is one global check. Not ported: the pod host-down rule
+(with pods, the rest of ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -34,8 +36,10 @@ from collections import deque
 from . import _STATS
 from . import flight as _flight
 from . import metrics as _metrics
+from . import perf as _perf
 
 __all__ = ["AlertRule", "BurnRateRule", "ThresholdRule",
+           "StepTimeDriftRule", "PerfLedgerDropRule", "CounterSpikeRule",
            "ALERT_RULE_IDS", "register_rule", "unregister_rule", "rules",
            "get_rule", "evaluate", "maybe_evaluate", "enabled",
            "set_enabled", "incidents", "open_incidents", "snapshot",
@@ -81,7 +85,15 @@ ALERT_RULE_IDS = (
     "slo_shed_burn",          # fleet overload-shed burn rate, 2 windows
     "fleet_breaker_open",     # any live replica's circuit breaker open
     "fleet_healthy_floor",    # a model's HEALTHY replicas under the floor
+    "input_stall_high",       # input-stall fraction over its ceiling
+    "step_time_drift",        # step time outside median + k*MAD
+    "perf_device_regression",  # ledger device_ms/MFU off its own EWMA
+    "health_skip_spike",      # sentinel skips/grad-norm trips spiking
+    "numerics_nonfinite",     # numerics tap: non-finite gradient onset
+    "numerics_grad_explosion",  # numerics tap: grad norm off median+k*MAD
+    "numerics_dead_layer",    # numerics tap: a layer stopped training
     "decode_ttft_burn",       # decode TTFT SLO-miss burn rate, 2 windows
+    "sdc_detected",           # integrity layer caught silent corruption
 )
 
 
@@ -106,10 +118,11 @@ class _EvalContext:
     fresh observation (windowed counters), the history ring, and lazy
     accessors for the live sources (fleets, span ring, perf ledger)."""
 
-    def __init__(self, now, obs, history):
+    def __init__(self, now, obs, history, input_stall=None):
         self.now = now
         self.obs = obs
         self.history = history
+        self.input_stall = input_stall
 
     def windowed(self, group, key, window_s):
         """Delta of ``history[...][group][key]`` over the trailing
@@ -183,6 +196,23 @@ def _decode_counters():
         return _metrics.decode_counters()
     except Exception:
         return {}
+
+
+def _health_counters():
+    sentinel = sys.modules.get("mxnet_tpu_torch.resilience.sentinel")
+    if sentinel is None:
+        return {}
+    return {k: sentinel._STATS[k] for k in
+            ("health_skipped_steps", "sentinel_grad_norm_trips")}
+
+
+def _integrity_counters():
+    integrity = sys.modules.get("mxnet_tpu_torch.resilience.integrity")
+    if integrity is None:
+        return {}
+    return {k: integrity._STATS[k] for k in
+            ("integrity_audit_mismatches", "integrity_selftest_failures",
+             "integrity_serving_failures", "integrity_ckpt_mismatches")}
 
 
 # -------------------------------------------------------------------- rules
@@ -298,6 +328,145 @@ class ThresholdRule(AlertRule):
         return breached, evidence
 
 
+class StepTimeDriftRule(AlertRule):
+    """Rolling median/MAD drift detector on training-step wall time: it
+    ingests every new step-root span from the trace ring (tracing must be
+    on), and breaches when a step lands beyond ``median + k*1.4826*MAD``
+    (and at least twice the median) with ``min_n`` clean samples banked.
+    Outliers stay out of the baseline. The ``step_time_anomaly`` fault
+    inflates each ingested duration."""
+
+    STEP_ROOTS = ("train.step", "train.sharded_step",
+                  "train.captured_step")
+
+    def __init__(self, id, k=None, min_n=8, window_n=64, **kw):
+        kw.setdefault("span_names", self.STEP_ROOTS)
+        super().__init__(id, **kw)
+        self.k = _env_float("MXNET_TPU_TORCH_ALERT_MAD_K", 6.0) \
+            if k is None else float(k)
+        self.min_n = int(min_n)
+        self.durs = deque(maxlen=int(window_n))
+        self.last_t0 = 0
+
+    def _new_durations(self):
+        from . import trace as _trace
+        from ..resilience import faults
+
+        out = []
+        high = self.last_t0
+        for s in _trace.spans():
+            if s["name"] not in self.STEP_ROOTS or \
+                    s["t0_ns"] <= self.last_t0:
+                continue
+            high = max(high, s["t0_ns"])
+            # a numerics-sampled step pays the tap by design
+            if (s.get("attrs") or {}).get("numerics_sampled"):
+                continue
+            out.append(faults.maybe_step_time_anomaly(s["dur_ns"]))
+        self.last_t0 = high
+        return out
+
+    @staticmethod
+    def _median(values):
+        vals = sorted(values)
+        n = len(vals)
+        mid = n // 2
+        return vals[mid] if n % 2 else (vals[mid - 1] + vals[mid]) / 2.0
+
+    def check(self, ctx):
+        worst = None
+        for dur in self._new_durations():
+            if len(self.durs) >= self.min_n:
+                med = self._median(self.durs)
+                mad = self._median([abs(d - med) for d in self.durs])
+                limit = max(med + self.k * max(1.4826 * mad, 0.05 * med),
+                            2.0 * med)
+                if dur > limit:
+                    if worst is None or dur > worst["dur_ns"]:
+                        worst = {"dur_ns": dur, "limit_ns": limit,
+                                 "median_ns": med, "mad_ns": mad}
+                    continue
+            self.durs.append(dur)
+        if worst is None:
+            return False, None
+        keys = sorted(k for k, e in _perf.ledger().items()
+                      if not str(e.get("label", "")).startswith("serving"))
+        worst.update(k=self.k, n=len(self.durs), ledger_keys=keys)
+        return True, worst
+
+
+class PerfLedgerDropRule(AlertRule):
+    """Device-time / MFU regression against each perf-ledger entry's own
+    slow EWMA (device timing must be on): breaches when ``device_ms``
+    rises, or ``mfu`` falls, beyond ``tolerance`` of the baseline."""
+
+    def __init__(self, id, tolerance=None, min_calls=5, alpha=0.05, **kw):
+        kw.setdefault("span_names", ("perf.device_execute",))
+        super().__init__(id, **kw)
+        self.tolerance = _env_float("MXNET_TPU_TORCH_ALERT_PERF_TOL", 0.5) \
+            if tolerance is None else float(tolerance)
+        self.min_calls = int(min_calls)
+        self.alpha = float(alpha)
+        self.baselines: dict = {}
+
+    def check(self, ctx):
+        regressed = {}
+        live = set()
+        for key, e in _perf.device_timed_entries(self.min_calls).items():
+            live.add(key)
+            base = self.baselines.get(key)
+            if base is None:
+                self.baselines[key] = {"device_ms": e["device_ms"],
+                                       "mfu": e.get("mfu")}
+                continue
+            slow = e["device_ms"] > base["device_ms"] * (1 + self.tolerance)
+            mfu_drop = (e.get("mfu") is not None and base.get("mfu")
+                        and e["mfu"] < base["mfu"] * (1 - self.tolerance))
+            if slow or mfu_drop:
+                regressed[key] = {
+                    "device_ms": e["device_ms"],
+                    "baseline_device_ms": round(base["device_ms"], 4),
+                    "mfu": e.get("mfu"), "baseline_mfu": base.get("mfu"),
+                    "tolerance": self.tolerance}
+                continue
+            base["device_ms"] += self.alpha * (e["device_ms"]
+                                               - base["device_ms"])
+            if e.get("mfu") is not None:
+                prev = base.get("mfu") or e["mfu"]
+                base["mfu"] = prev + self.alpha * (e["mfu"] - prev)
+        for key in list(self.baselines):
+            if key not in live:
+                del self.baselines[key]
+        if not regressed:
+            return False, None
+        return True, {"regressed": regressed,
+                      "ledger_keys": sorted(regressed)}
+
+
+class CounterSpikeRule(AlertRule):
+    """The summed delta of ``keys`` (observation group ``group``) over the
+    fast window reaching ``threshold``."""
+
+    def __init__(self, id, group, keys, threshold=None, window_s=None,
+                 **kw):
+        fast = _env_float("MXNET_TPU_TORCH_ALERT_BURN_FAST_S", 60.0)
+        kw.setdefault("window_s", fast if window_s is None else window_s)
+        super().__init__(id, **kw)
+        self.group = group
+        self.keys = tuple(keys)
+        self.threshold = _env_float("MXNET_TPU_TORCH_ALERT_SKIP_SPIKE", 3.0) \
+            if threshold is None else float(threshold)
+
+    def check(self, ctx):
+        per_key = {k: ctx.windowed(self.group, k, self.window_s)
+                   for k in self.keys}
+        total = sum(per_key.values())
+        if total < self.threshold:
+            return False, None
+        return True, {"window_s": self.window_s, "total": total,
+                      "threshold": self.threshold, "by_counter": per_key}
+
+
 # -------------------------------------------------------- threshold probes
 
 def _probe_breakers(ctx):
@@ -347,8 +516,33 @@ def _probe_healthy_floor(ctx):
     return worst, {"healthy_by_model": detail}
 
 
+def _probe_input_stall(ctx):
+    value = (ctx.input_stall if ctx.input_stall is not None
+             else _metrics.update_input_stall())
+    return value, None
+
+
+def _probe_numerics(cond_name):
+    """Threshold probe over one numerics-tap condition: None until a tap
+    has judged it."""
+
+    def probe(ctx):
+        from . import numerics
+
+        cond = numerics.condition(cond_name)
+        if cond is None:
+            return None, None
+        detail = {"since_step": cond.get("since_step"),
+                  "snapshot": cond.get("snapshot")}
+        detail.update(cond.get("evidence") or {})
+        return (1 if cond.get("active") else 0), detail
+
+    return probe
+
+
 def _default_rules():
     floor = _env_float("MXNET_TPU_TORCH_ALERT_HEALTHY_FLOOR", 1.0)
+    stall_max = _env_float("MXNET_TPU_TORCH_ALERT_STALL_MAX", 0.5)
     return (
         BurnRateRule(
             "slo_deadline_burn", "fleet_deadline_exceeded",
@@ -369,6 +563,41 @@ def _default_rules():
             span_names=("serve.request",),
             description="a served model has fewer HEALTHY replicas than "
                         "the configured floor"),
+        ThresholdRule(
+            "input_stall_high", _probe_input_stall, ">", stall_max,
+            span_names=("step.data_wait",),
+            description="the training loop is input-bound: "
+                        "mxnet_tpu_input_stall_fraction over its ceiling"),
+        StepTimeDriftRule(
+            "step_time_drift",
+            description="training-step wall time drifted outside "
+                        "median + k*MAD of its recent history"),
+        PerfLedgerDropRule(
+            "perf_device_regression",
+            description="a captured graph's EWMA device time rose (or its "
+                        "MFU fell) beyond tolerance of its own baseline"),
+        CounterSpikeRule(
+            "health_skip_spike", "health",
+            ("health_skipped_steps", "sentinel_grad_norm_trips"),
+            description="HealthSentinel skips / grad-norm trips spiking "
+                        "inside one fast window"),
+        ThresholdRule(
+            "numerics_nonfinite", _probe_numerics("nonfinite"), ">=", 1,
+            span_names=("train.captured_step", "train.sharded_step"),
+            description="the numerics tap saw a non-finite value (NaN/Inf "
+                        "onset); a numerics snapshot was published"),
+        ThresholdRule(
+            "numerics_grad_explosion", _probe_numerics("grad_explosion"),
+            ">=", 1, span_names=("train.captured_step",
+                                 "train.sharded_step"),
+            description="the global gradient norm exploded outside "
+                        "median + k*MAD of its own clean history"),
+        ThresholdRule(
+            "numerics_dead_layer", _probe_numerics("dead_layer"), ">=", 1,
+            span_names=("train.captured_step", "train.sharded_step"),
+            description="a layer's gradients stayed ~0 or fully "
+                        "fp16-underflowed for N consecutive samples while "
+                        "the rest of the net kept training"),
         BurnRateRule(
             "decode_ttft_burn", "decode_ttft_misses", "decode_sequences",
             group="decode", span_names=("decode.prefill", "decode.admit"),
@@ -376,6 +605,15 @@ def _default_rules():
                         "the error budget in both the fast and slow "
                         "window (TTFT over "
                         "MXNET_TPU_TORCH_DECODE_TTFT_SLO_MS at admission)"),
+        CounterSpikeRule(
+            "sdc_detected", "integrity",
+            ("integrity_audit_mismatches", "integrity_selftest_failures",
+             "integrity_serving_failures", "integrity_ckpt_mismatches"),
+            threshold=1,
+            description="silent data corruption caught: a shadow replay "
+                        "audit mismatch, a failed device self-test, a "
+                        "lying serving replica, or a checkpoint whose "
+                        "values disagree with its fingerprint"),
     )
 
 
@@ -551,7 +789,7 @@ def _advance(rule, breached, evidence, ctx):
 _EVAL_LOCK = threading.Lock()
 
 
-def evaluate(now=None, force=False, slo=None):
+def evaluate(now=None, force=False, slo=None, input_stall=None):
     """Run every registered rule once against a fresh observation.
     ``now`` (monotonic seconds) defaults to ``time.monotonic()`` —
     tests and drills pass a synthetic clock to drive windows and
@@ -568,7 +806,9 @@ def evaluate(now=None, force=False, slo=None):
     with _EVAL_LOCK:
         obs = {"now": now, "seq": _flight.last_seq(),
                "slo": _slo_counters() if slo is None else slo,
-               "decode": _decode_counters()}
+               "decode": _decode_counters(),
+               "health": _health_counters(),
+               "integrity": _integrity_counters()}
         with _LOCK:
             # a clock that moved backwards (a synthetic test clock after
             # a real-clock run, or vice versa) restarts the window
@@ -587,7 +827,7 @@ def evaluate(now=None, force=False, slo=None):
             _HISTORY.append(obs)
             history = list(_HISTORY)
             current = list(_RULES.values())
-        ctx = _EvalContext(now, obs, history)
+        ctx = _EvalContext(now, obs, history, input_stall)
         transitions = {}
         for rule in current:
             try:
@@ -601,7 +841,7 @@ def evaluate(now=None, force=False, slo=None):
         return transitions
 
 
-def maybe_evaluate(slo=None):
+def maybe_evaluate(slo=None, input_stall=None):
     """The exporter-cadence hook (``metrics.update_derived`` calls it,
     passing its already-derived ``slo_counters()`` view): one global
     check when disabled, a full :func:`evaluate` otherwise, rate-limited
@@ -617,7 +857,7 @@ def maybe_evaluate(slo=None):
     real = time.monotonic()
     if min_s > 0 and _LAST_TICK is not None and real - _LAST_TICK < min_s:
         return None
-    out = evaluate(slo=slo)
+    out = evaluate(slo=slo, input_stall=input_stall)
     _LAST_TICK = real
     return out
 

@@ -33,7 +33,8 @@ from . import _STATS
 __all__ = ["counter", "gauge", "histogram", "get", "registry",
            "snapshot", "sample", "series", "render_prometheus",
            "flush_json", "start_flusher", "stop_flusher",
-           "update_slo", "update_decode_slo", "update_derived",
+           "update_slo", "update_decode_slo", "update_input_stall",
+           "update_derived",
            "slo_counters",
            "decode_counters",
            "note_span", "reset", "Counter", "Gauge", "Histogram"]
@@ -405,8 +406,43 @@ def update_decode_slo():
             serving._STATS["decode_ttft_misses"], seqs))
 
 
+_INPUT_STALL = gauge(
+    "mxnet_tpu_input_stall_fraction",
+    "step.data_wait time / observed training-window wall time (first "
+    "span start to last span end over data_wait + training-step root "
+    "spans); needs MXNET_TPU_TORCH_OBS_TRACE")
+
+_STEP_ROOT_SPANS = ("train.step", "train.sharded_step",
+                    "train.captured_step")
+
+
+def update_input_stall():
+    """``mxnet_tpu_input_stall_fraction`` from the ended-span ring: time
+    inside ``step.data_wait`` spans over the wall-clock window the
+    training spans cover (earliest start to latest end of data_wait and
+    step-root spans). Needs tracing on; an empty window reads 0.0."""
+    from . import trace as _trace
+
+    wait = 0
+    t_min = None
+    t_max = None
+    for s in _trace.spans():
+        if s["name"] == "step.data_wait":
+            wait += s["dur_ns"]
+        elif s["name"] not in _STEP_ROOT_SPANS:
+            continue
+        t_min = s["t0_ns"] if t_min is None else min(t_min, s["t0_ns"])
+        end = s["t0_ns"] + s["dur_ns"]
+        t_max = end if t_max is None else max(t_max, end)
+    window = (t_max - t_min) if t_min is not None else 0
+    value = min(1.0, _ratio(wait, window))
+    _INPUT_STALL.set(value)
+    return value
+
+
 def update_derived():
-    """Refresh every derived gauge family (fleet SLO, decode SLO) in one
+    """Refresh every derived gauge family (fleet SLO, decode SLO, the
+    perf ledger's per-graph gauges, the input-stall fraction) in one
     place, then give the alert engine its evaluation tick. Every exporter
     calls this. One ``slo_counters()`` view is taken per tick and shared
     by the SLO gauges and the alert windows (one ``slo_burn`` hook fire
@@ -415,8 +451,11 @@ def update_derived():
     update_slo(counters)
     update_decode_slo()
     from . import alerts as _alerts
+    from . import perf as _perf
 
-    _alerts.maybe_evaluate(slo=counters)
+    _perf.update_gauges()
+    stall = update_input_stall()
+    _alerts.maybe_evaluate(slo=counters, input_stall=stall)
 
 
 # per-span-name cell cache for the note_span hot path: skips the

@@ -39,7 +39,7 @@ SOURCES = ("flash_attn_fwd", "flash_attn_fwd_tc", "flash_attn_fwd_tf32x3",
            "conv3x3_bn_stats", "conv3x3_bn_stats_tc",
            "conv3x3_bn_stats_tf32x3", "paged_decode_attn",
            "paged_decode_attn_int8", "kv_quantize_write", "s8_gemm",
-           "s8_gemm_wgmma", "requant_int8")
+           "s8_gemm_wgmma", "requant_int8", "state_fold")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -68,6 +68,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from ..observability import perf as _perf
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_reference",
@@ -305,6 +306,20 @@ def _launch(q, k, v, causal, scale, q_offset, k_offset):
     return out, lse
 
 
+def _attn_flops(q, k, causal, products):
+    """The FLOPs of ``products`` (T x T x D) matrix products of one
+    attention call, counting only the (query, key) pairs causal attention
+    needs: what ``observability.perf`` adds for K1 (2 products) and K2
+    (5), which FlopCounterMode cannot see."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    pairs = tq * tk
+    if causal:
+        pairs = sum(min(tk, i + 1 + (tk - tq)) for i in range(tq)) \
+            if tq != tk else tq * (tq + 1) // 2
+    return 2 * products * b * h * pairs * d
+
+
 def flash_attention(q, k, v, causal=False, scale=None, return_lse=False,
                     q_offset=0, k_offset=0):
     """Fused attention forward: q, k, v (B, H, T, D) -> O (B, H, T, D), plus
@@ -321,6 +336,7 @@ def flash_attention(q, k, v, causal=False, scale=None, return_lse=False,
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cuda":
         out, lse = _launch(q, k, v, causal, s, q_offset, k_offset)
+        _perf.add_flops(_attn_flops(q, k, causal, 2))
     elif q.device.type == "cpu":
         out, lse = flash_attention_reference(
             q, k, v, causal=causal, scale=s, return_lse=True,
@@ -544,6 +560,7 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal=False,
         _check_grads(grads, q)
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cuda":
+        _perf.add_flops(_attn_flops(q, k, causal, 5))
         return _launch_bwd(q, k, v, out, lse, dout, dlse, causal, s,
                            q_offset, k_offset, grads=grads)
     if q.device.type == "cpu":

@@ -8,7 +8,7 @@ compute dtype) over dp, dp x fsdp (``SpecLayout`` rules), tp (tensor
 parallelism, :mod:`tensor_parallel`) and sp (ring attention), with
 ``remat``. The collectives GSPMD places in ``mxnet_tpu`` are written out
 in :mod:`collectives`. 'pp', 'ep' and tp x sp are ROADMAP Queue 1 item 6,
-pods and elastic recovery item 12.
+pods and the mesh shrink after a lost peer item 12.
 """
 from .mesh import (Mesh, create_mesh, default_mesh, named_mesh,
                    parse_mesh_spec, local_devices, shrink_mesh,

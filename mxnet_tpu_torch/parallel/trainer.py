@@ -57,22 +57,34 @@ The dtype policy is ``mxnet_tpu``'s (``_make_compute_loss``,
 The step returns the loss as a 0-d tensor on the device. The net's own
 tensors stay as they were until :meth:`ShardedTrainer.sync_to_net`.
 
+The resilience hooks (``mxnet_tpu/parallel/trainer.py:41-814``): a
+``checkpoint_manager`` (``enable_recovery``) that the preemption exit
+saves through, with the SIGTERM trap
+(``integrity.install_preempt_handler``),
+the step fingerprint (``integrity.step_fold``) as one more output of the
+captured step, the step under ``watchdog.guard("step")`` with the fault
+hooks, the shadow replay audit, the elastic OOM retry (bitwise an explicit
+``microbatches=N`` step), the pad mask ``length=``, the numerics tap
+(:meth:`ShardedTrainer.attach_numerics`) and optimizer-state
+``get_states_bytes`` / ``save_states`` / ``load_states``.
+
 Not ported, and raising where asked for: mesh axes of more than one rank
 other than the batch axes, 'sp' and 'tp' ('pp', 'ep'), 'tp' together
 with 'sp', and a spec splitting two dimensions of a parameter outside a
-tensor-parallel layer (ROADMAP Queue 1 item 6); a ``checkpoint_manager``,
-the pad mask ``length=``, the step watchdog, fault injection, integrity
-fingerprints, elastic OOM retry, pod recovery and optimizer-state
-save/load (Queue 1 item 12).
+tensor-parallel layer (ROADMAP Queue 1 item 6); the mesh-shrink recovery
+after a lost peer, pod and multi-host recovery, and the fingerprint and
+audit over several ranks (the rest of Queue 1 item 12).
 """
 from __future__ import annotations
 
 import re
+import warnings
 
 import numpy as np
 import torch
 
 from .. import autograd, capture
+from ..observability import trace as _obs_trace
 from ..base import torch_dtype
 from ..remat import checkpointed, mirror_enabled
 from . import collectives
@@ -139,15 +151,18 @@ class ShardedTrainer:
     remat : False: off; None: ``MXNET_BACKWARD_DO_MIRROR``; True, a policy
         name or a callable: the forward runs under activation
         checkpointing (:mod:`mxnet_tpu_torch.remat`)
-    checkpoint_manager : not ported; anything but None raises
+    checkpoint_manager : a ``resilience.CheckpointManager``: the
+        preemption exit saves through it, and with one the trainer traps
+        SIGTERM (``mxnet_tpu`` traps it for every trainer; the port only
+        where a checkpoint can be written); ``enable_recovery`` attaches
+        it later; the mesh shrink after a lost peer is not ported
     """
 
     def __init__(self, net, loss_fn, optimizer="sgd", optimizer_params=None,
                  mesh=None, param_rules=(), batch_axis_name="dp",
                  dtype=None, remat=None, checkpoint_manager=None):
-        if checkpoint_manager is not None:
-            raise _queued("checkpoint_manager (elastic mesh-shrink resume)",
-                          12)
+        from ..resilience import integrity as _integrity
+
         mesh = mesh if mesh is not None else create_mesh()
         self.mesh = mesh
         self._batch_axis = (batch_axis_name if isinstance(batch_axis_name,
@@ -210,6 +225,7 @@ class ShardedTrainer:
         self.params = {k: (self._shards[k].piece(
             v, mesh.axis_index(self._shards[k].axes)).clone()
             if k in self._shards else v) for k, v in local.items()}
+        self._hooks_now = False
         self._optimizer = optimizer
         self._optimizer_params = dict(optimizer_params or {})
         init, self._update = make_update_fn(optimizer,
@@ -220,7 +236,17 @@ class ShardedTrainer:
         self._exec = capture.CapturedExec(
             self._captured_program, label="sharded_step",
             device=self.device, state=self._state_tensors,
-            eager=self._eager_program, warmup_guard=self._warmup_guard)
+            eager=self._eager_program, warmup_guard=self._warmup_guard,
+            fingerprint=lambda sig: capture.fingerprint(
+                {"step": self._capture_fingerprint(), "sig": repr(sig)}))
+        self._ckpt_mgr = checkpoint_manager
+        self._elastic_n = 1        # sticky accumulation count
+        self._step_count = 0
+        self._last_fp_out = None
+        self._numerics = None
+        self._tap_slots = capture.SlotTable(self.device)
+        if checkpoint_manager is not None:
+            _integrity.install_preempt_handler()
 
     @classmethod
     def for_multihost(cls, net, loss_fn, optimizer="sgd",
@@ -276,6 +302,26 @@ class ShardedTrainer:
         mesh = create_mesh(dict(axes or {"dp": world}), devices)
         return cls(net, loss_fn, optimizer, optimizer_params, mesh=mesh,
                    **kwargs)
+
+    def enable_recovery(self, checkpoint_manager):
+        """Attach the ``CheckpointManager`` that the preemption exit saves
+        through (``mxnet_tpu/parallel/trainer.py:148``), and trap SIGTERM
+        (``integrity.install_preempt_handler``). Returns self."""
+        from ..resilience import integrity as _integrity
+
+        self._ckpt_mgr = checkpoint_manager
+        if checkpoint_manager is not None:
+            _integrity.install_preempt_handler()
+        return self
+
+    def attach_numerics(self, tap):
+        """Attach an ``observability.numerics.NumericsTap`` (None
+        detaches): on the tap's cadence the step runs its tapped program,
+        which also returns the stats matrix. Returns self."""
+        if tap is not None:
+            tap.bind(self.net, self)
+        self._numerics = tap
+        return self
 
     # --------------------------------------------------------- sharding
     def _batch_axis_names(self):
@@ -539,26 +585,27 @@ class ShardedTrainer:
     def _warmup_guard(self):
         return capture._restored(self._state_tensors())
 
-    def _captured_program(self, x, y, n):
-        return self._program(x, y, n, None if self._step_vals is None
+    def _captured_program(self, *args):
+        return self._program(*args, scal=None if self._step_vals is None
                              else self._slots.views)
 
-    def _eager_program(self, x, y, n):
-        return self._program(x, y, n, self._step_vals)
+    def _eager_program(self, *args):
+        return self._program(*args, scal=self._step_vals)
 
     def _write_aux(self, new_aux):
         with torch.no_grad():
             for k, v in new_aux.items():
                 self.aux[k].copy_(v)
 
-    def _loss_and_mean_grads(self, x, y, n):
+    def _loss_and_mean_grads(self, x, y, n, w=None):
         """(loss, {name: grad}): the mean of the ``n`` microbatch losses
         and gradients of this rank's rows, running statistics written back;
         over several ranks, the global loss and mean gradients (shards for
-        sharded parameters)."""
+        sharded parameters). ``w``: the pad mask's per-token weight (one
+        microbatch only)."""
         full = self._local(self.params) if self._multi else self.params
         if n == 1:
-            loss, grads, new_aux = self._loss_and_grads(x, y, full)
+            loss, grads, new_aux = self._loss_and_grads(x, y, full, w)
             self._write_aux(new_aux)
         else:
             if self._multi and self._batch_axes:
@@ -606,21 +653,57 @@ class ShardedTrainer:
                                   for i in range(n)]))
         return out
 
-    def _program(self, x, y, n, scal):
+    def _program(self, x, y, *rest, scal):
         """The whole step on the batch: loss, gradients, aux written back,
         the update in place with the scalars ``scal`` (None: the update
-        computes them itself)."""
-        loss, grads = self._loss_and_mean_grads(x, y, n)
+        computes them itself). ``rest`` is ``[length,] n, fp, tap``: the
+        pad mask's lengths, the microbatches, and whether the step
+        fingerprint and the numerics stats are outputs too. Returns the
+        loss, or [loss, fingerprint, stats] with those asked for."""
+        if len(rest) == 4:
+            length, n, fp, tap = rest
+            w = self._pad_weight(x, length)
+        else:
+            (n, fp, tap), w = rest, None
+        loss, grads = self._loss_and_mean_grads(x, y, n, w)
+        if self._hooks_now:
+            from ..resilience import faults as _faults
+
+            _faults.maybe_sdc_bitflip_grad(grads)
+        pre = {k: v.detach().clone() for k, v in self.params.items()} \
+            if tap else None
         if scal is not None:
             self.opt_state["scalars"] = scal
         try:
             self._update(self.params, grads, self.opt_state)
         finally:
             self.opt_state.pop("scalars", None)
-        return loss
+        if not (fp or tap):
+            return loss
+        out = [loss]
+        if fp:
+            from ..resilience import integrity as _integrity
+
+            out.append(_integrity.step_fold(self.params, grads))
+        if tap:
+            mask = torch.stack(self._tap_slots.views)
+            out.append(self._numerics.graph_stats(
+                sorted(grads.items()), sorted(pre.items()),
+                sorted(self.params.items()), [], mask))
+        return out
+
+    @staticmethod
+    def _pad_weight(x, length):
+        """The pad mask as a per-token weight (B, T, 1) normalized to sum
+        to B*T, so the loss's mean is sum(loss * mask) / sum(mask)
+        (``mxnet_tpu/parallel/trainer.py:369-397``)."""
+        t = int(x.shape[1])
+        mask = (torch.arange(t, device=x.device)[None, :]
+                < length.to(torch.int64)[:, None]).to(torch.float32)
+        return (mask * (float(mask.numel()) / mask.sum()))[..., None]
 
     # ------------------------------------------------------------ the step
-    def _loss_and_grads(self, x, y, params=None):
+    def _loss_and_grads(self, x, y, params=None, w=None):
         """(loss 0-d f32, {name: grad} in the master dtypes, new_aux) of
         this rank's rows at ``params`` (full tensors; by default the
         trainer's own, which on one rank are full)."""
@@ -642,7 +725,8 @@ class ShardedTrainer:
                 new_aux = {k: v.to(self.aux[k].dtype)
                            if self.aux[k].is_floating_point() else v
                            for k, v in new_aux.items()}
-            loss = self.loss_fn(out, y).mean()
+            loss = (self.loss_fn(out, y) if w is None
+                    else self.loss_fn(out, y, w)).mean()
         diff = [leaf for leaf in leaves if leaf.requires_grad]
         got = iter(torch.autograd.grad(loss, diff, allow_unused=True))
         grads = {}
@@ -689,15 +773,56 @@ class ShardedTrainer:
         slice i is slice i of the global batch, spread over the ranks (the
         batch is all-gathered over the batch axes first), so BatchNorm's
         moments are the slice's, as there. An ``n`` that does not split the
-        rows raises. ``length=`` (the pad mask) is not ported and raises.
+        rows raises.
+
+        Left at None, the step runs whole, and an out-of-memory step
+        (``torch.OutOfMemoryError``, in the step or in its capture, or
+        the ``oom_step`` fault) runs again as 2, 4, ... accumulated
+        microbatches until it fits (``resilience.elastic``), the failed
+        attempt's graph freed first; the shrink is sticky. ``length``
+        ((B,) valid token counts) masks pad tokens out of the loss:
+        sum(loss * mask) / sum(mask), one microbatch only.
+
+        The step runs under ``watchdog.guard("step")``
+        (``MXNET_TPU_TORCH_WATCHDOG_STEP_TIMEOUT``) with the ``hang_step``,
+        ``oom_step`` and SDC fault hooks; with the fingerprint armed
+        (``resilience.integrity``) it also returns the step fingerprint
+        (:attr:`last_fingerprint`), and on the audit cadence the step is
+        run again from its pre-step state and compared. A preemption
+        notice (SIGTERM, the ``preempt`` fault) finishes the step, saves
+        through the checkpoint manager and raises ``Preempted``.
         """
-        if length is not None:
-            raise _queued("length= (the pad-masked step)", 12)
+        with _obs_trace.span("train.sharded_step",
+                             step=self._step_count + 1):
+            return self._step_impl(x, y, microbatches, length)
+
+    def _step_impl(self, x, y, microbatches, length):
+        from ..resilience import elastic as _elastic
+        from ..resilience import faults as _faults
+        from ..resilience import integrity as _integrity
+        from ..resilience import watchdog as _watchdog
+
+        if length is not None and microbatches not in (None, 1):
+            raise ValueError(
+                "length= (pad masking) runs one microbatch only; "
+                "accumulated microbatches would re-normalize the mask per "
+                "slice — request microbatches=None")
         x, y = self._place(x), self._place(y)
-        n = self._microbatches(x, microbatches)
+        if length is not None:
+            length = self._place(length).to(torch.int32)
+        rows = int(x.shape[0])
+        if microbatches is not None:
+            n = self._microbatches(x, microbatches)
+        else:
+            n = self._elastic_n
+            while n > 1 and rows % n:   # a short tail batch: fall back
+                n //= 2
+        if length is not None:
+            n = 1
         t = self.opt_state["t"] + 1
         scalars = getattr(self._update, "scalars", None)
-        if self.device.type == "cuda" and capture.enabled():
+        captured = self.device.type == "cuda" and capture.enabled()
+        if captured:
             if self._multi:
                 raise capture.CaptureError(
                     f"ShardedTrainer: a step over {self.mesh.size} ranks "
@@ -709,12 +834,103 @@ class ShardedTrainer:
                     "ShardedTrainer: an update function without .scalars "
                     "bakes its rate into the graph; give it scalars(t) or "
                     "run with MXNET_TPU_TORCH_CAPTURE=0")
+        fp_on = _integrity.fingerprint_enabled()
+        if fp_on and self._multi:
+            raise _queued("the step fingerprint over several ranks", 12)
         self._step_vals = None if scalars is None else scalars(t)
         if self._step_vals is not None:
             self._slots.write(self._step_vals)
-        loss = self._exec(x, y, key=(n,))
+        tap = self._numerics
+        tap_on = tap is not None and tap.tick()
+        if tap_on:
+            self._tap_slots.write(tap.sel_values().tolist())
+        self._step_count += 1
+        _watchdog.note_step(self._step_count)
+        snap = _integrity.snapshot_step(self)
+
+        def run():
+            args = (x, y) if length is None else (x, y, length)
+            key = (n, fp_on, tap_on)
+            self._hooks_now = _faults.active("sdc_bitflip_grad")
+            try:
+                if self._hooks_now:   # a fault hook reaches no graph
+                    out = self._eager_program(*args, *key)
+                else:
+                    out = self._exec(*args, key=key)
+            finally:
+                self._hooks_now = False
+            out = list(out) if isinstance(out, (list, tuple)) else [out]
+            loss = out.pop(0)
+            fp = out.pop(0) if fp_on else None
+            return loss, fp, (out.pop(0) if tap_on else None)
+
+        while True:
+            try:
+                with _watchdog.guard("step",
+                                     detail="parallel.ShardedTrainer.step",
+                                     step=self._step_count):
+                    _faults.maybe_hang("hang_step")
+                    _faults.maybe_oom_step()
+                    with _obs_trace.span("sharded.execute", microbatches=n):
+                        loss, fp, stats = run()
+                _faults.maybe_sdc_bitflip_param(self.params)
+                _faults.maybe_sdc_sticky_param(
+                    self.params, 0 if self.device.index is None
+                    else self.device.index)
+                if snap is not None:
+                    verdict = _integrity.audit_step(
+                        self, snap, lambda: run()[1], live_fp=fp)
+                    if verdict == "retry":
+                        continue
+                    snap = None
+                break
+            except Exception as e:
+                if microbatches is not None or length is not None \
+                        or not (_elastic.enabled()
+                                and _elastic.is_oom_error(e)):
+                    raise
+                if self._multi:
+                    warnings.warn(
+                        "step OOM on a multi-rank mesh: the elastic retry "
+                        "runs on one rank only — lower the per-rank batch "
+                        "or request microbatches= explicitly")
+                    raise
+                _elastic._STATS["elastic_oom_events"] += 1
+                nxt = _elastic.next_microbatches(n, rows)
+                if nxt is None:
+                    raise
+                self._exec.drop_failed()
+                _elastic._STATS["elastic_shrinks"] += 1
+                warnings.warn(
+                    f"training step OOM at {n} microbatch(es) over a "
+                    f"{rows}-row batch; retrying as {nxt} accumulated "
+                    f"microbatches of {rows // nxt} rows")
+                n = nxt
+        if microbatches is None and n > self._elastic_n:
+            self._elastic_n = n
+        if n > 1:
+            _elastic._STATS["elastic_accum_steps"] += 1
         self.opt_state["t"] = t
+        self._last_fp_out = fp
+        if fp is not None:
+            _integrity.note_fingerprint_step()
+        if tap is not None:
+            tap.on_step(self._step_count, None,
+                        None if stats is None else stats.cpu().numpy(),
+                        (x, y))
+        if _integrity.preempt_requested() or _faults.maybe_preempt():
+            _integrity.preempt_exit(self, loss=loss)
         return loss
+
+    @property
+    def last_fingerprint(self):
+        """The uint32 step fingerprint of the last step, or None when the
+        fingerprint is off (reading it is the only host sync)."""
+        if self._last_fp_out is None:
+            return None
+        from ..resilience import integrity as _integrity
+
+        return _integrity.as_uint32(self._last_fp_out)
 
     # ---------------------------------------------------------- the rate
     def set_learning_rate(self, lr):
@@ -740,3 +956,190 @@ class ShardedTrainer:
                 p.set_data(full[name])
             elif name in self.aux:
                 p.set_data(self.aux[name])
+
+    # ----------------------------------------------------- checkpoints
+    def _opt_leaves(self):
+        """[(keystr, {name: tensor})]: each optimizer-state leaf position
+        of every parameter, keyed as ``jax.tree_util.keystr`` names
+        ``mxnet_tpu``'s opt_state leaves (``['state']['w'][0]``), plus
+        ``['t']``."""
+        out = {}
+        for k, s in self.opt_state["state"].items():
+            if isinstance(s, torch.Tensor):
+                out.setdefault("", {})[k] = s
+            else:
+                for i, leaf in enumerate(s):
+                    out.setdefault(f"[{i}]", {})[k] = leaf
+        return out
+
+    def _full_state(self, by_param):
+        """{name: full tensor} of a {name: tensor as this rank holds it}
+        that follows the parameters' layout."""
+        if not self._multi:
+            return dict(by_param)
+        if set(by_param) != set(self.params):
+            raise _queued("a checkpoint of an optimizer state that only "
+                          "some parameters hold, over several ranks", 12)
+        return self._full(by_param)
+
+    def _checkpoint_arrays(self):
+        """[(key, tensor)]: every array of the trainer's state at its
+        logical (full) shape, under ``mxnet_tpu``'s checkpoint keys
+        (``param:``, ``aux:``, ``opt:``). Over several ranks every rank
+        calls it (the shards are all-gathered)."""
+        out = [(f"param:{k}", v) for k, v in self._full_state(
+            self.params).items()]
+        out += [(f"aux:{k}", v) for k, v in self.aux.items()]
+        for suffix, leaves in self._opt_leaves().items():
+            full = self._full_state(leaves)
+            out += [(f"opt:['state'][{k!r}]{suffix}", full[k])
+                    for k in leaves]
+        out.append(("opt:['t']", torch.tensor(int(self.opt_state["t"]),
+                                              dtype=torch.int32)))
+        return out
+
+    def _local_value(self, name, full):
+        """``full`` (a parameter-shaped value at its logical shape) as this
+        rank holds it: its tp shard, then its _Shard piece."""
+        v = self._tp_piece(name, full.to(self.device))
+        sh = self._shards.get(name)
+        if sh is not None:
+            v = sh.piece(v, self.mesh.axis_index(sh.axes))
+        return v
+
+    def _restore_checkpoint_arrays(self, entries, opt):
+        """Place a checkpoint's full arrays (``param:``/``aux:`` keys, CPU
+        tensors) and optimizer leaves into the trainer's own tensors, in
+        place and in this trainer's layout. Everything is checked before
+        anything is written. ``mxnet_tpu``'s ``aux:__rng_key__`` (a JAX
+        key) is skipped: it cannot cross (ROADMAP Queue 3)."""
+        from ..resilience.checkpoint import CheckpointCorruptError
+
+        params, aux = {}, {}
+        for key, v in entries.items():
+            group, _, name = key.partition(":")
+            if group == "param":
+                if name not in self.params:
+                    raise CheckpointCorruptError(
+                        f"checkpoint param '{name}' unknown to trainer")
+                params[name] = self._local_value(name, v)
+            elif group == "aux":
+                if name == "__rng_key__" and name not in self.aux:
+                    continue  # mxnet_tpu's JAX key: no torch counterpart
+                if name not in self.aux:
+                    raise CheckpointCorruptError(
+                        f"checkpoint aux '{name}' unknown to trainer")
+                aux[name] = v
+        missing = set(self.params) - set(params)
+        if missing:
+            raise CheckpointCorruptError(
+                f"checkpoint lacks sharded params {sorted(missing)[:5]}")
+        for name, v in params.items():
+            if tuple(v.shape) != tuple(self.params[name].shape):
+                raise CheckpointCorruptError(
+                    f"checkpoint param '{name}' has shape "
+                    f"{tuple(v.shape)} here, the trainer "
+                    f"{tuple(self.params[name].shape)}")
+        placed = self._placed_opt(opt)
+        with torch.no_grad():
+            for name, v in params.items():
+                self.params[name].copy_(v)
+            for name, v in aux.items():
+                self.aux[name].copy_(v)
+        self._write_opt(placed)
+
+    def _placed_opt(self, mapping):
+        """The optimizer leaves of ``mapping`` ({keystr: array or tensor})
+        placed as this trainer holds them; raises on a missing or extra
+        leaf or a shape that disagrees."""
+        stored = {k: torch.as_tensor(v) for k, v in mapping.items()}
+        placed = {}
+        for suffix, leaves in self._opt_leaves().items():
+            for k, leaf in leaves.items():
+                key = f"['state'][{k!r}]{suffix}"
+                if key not in stored:
+                    raise ValueError(
+                        f"trainer states are missing opt_state leaf {key} "
+                        "(saved from a different optimizer/model?)")
+                v = stored.pop(key)
+                if self._multi and tuple(v.shape) != tuple(leaf.shape):
+                    v = self._local_value(k, v)
+                if tuple(v.shape) != tuple(leaf.shape):
+                    raise ValueError(
+                        f"opt_state leaf {key} has shape {tuple(v.shape)} in "
+                        f"the states but {tuple(leaf.shape)} in this trainer")
+                placed[key] = (leaf, v)
+        t = stored.pop("['t']", None)
+        if t is None:
+            raise ValueError("trainer states are missing opt_state leaf "
+                             "['t']")
+        if stored:
+            raise ValueError(
+                "trainer states have extra opt_state leaves "
+                f"{sorted(stored)[:3]} (saved from a different "
+                "optimizer/model?)")
+        placed["['t']"] = int(t)
+        return placed
+
+    def _write_opt(self, placed):
+        with torch.no_grad():
+            for key, val in placed.items():
+                if key != "['t']":
+                    leaf, v = val
+                    leaf.copy_(v)
+        self.opt_state["t"] = placed["['t']"]
+
+    def set_states_arrays(self, mapping):
+        """Restore the optimizer state from ``{keystr: array}``
+        (``mxnet_tpu``'s opt_state leaf names), in place."""
+        self._write_opt(self._placed_opt(mapping))
+
+    def get_states_bytes(self):
+        """The optimizer state as npz bytes keyed by ``mxnet_tpu``'s
+        opt_state leaf names, at full shape (over several ranks every rank
+        calls it)."""
+        import io
+
+        from ..resilience.checkpoint import _as_numpy
+
+        entries = {k[len("opt:"):]: _as_numpy(v)
+                   for k, v in self._checkpoint_arrays()
+                   if k.startswith("opt:")}
+        buf = io.BytesIO()
+        np.savez(buf, **entries)
+        return buf.getvalue()
+
+    def set_states_bytes(self, data):
+        import io
+
+        f = np.load(io.BytesIO(data), allow_pickle=False)
+        self.set_states_arrays({k: f[k] for k in f.files})
+
+    def save_states(self, fname):
+        """Save the optimizer state atomically (temp file, fsync,
+        rename)."""
+        from ..resilience.checkpoint import atomic_write_bytes
+
+        data = self.get_states_bytes()
+        if self._is_writer():
+            atomic_write_bytes(fname, data)
+        if self._multi:
+            self._barrier()
+
+    def load_states(self, fname):
+        with open(fname, "rb") as f:
+            self.set_states_bytes(f.read())
+
+    def _is_writer(self):
+        """Does this rank write shared files (rank 0 of the world)?"""
+        if not self._multi:
+            return True
+        import torch.distributed as dist
+
+        return dist.get_rank() == 0
+
+    def _barrier(self):
+        """Every rank of the mesh waits for the others."""
+        collectives.all_reduce(torch.zeros(1, device=self.device),
+                               self.mesh, tuple(self.mesh.axis_names))
+

@@ -1,37 +1,58 @@
-"""mxnet_tpu_torch.resilience — the serving runtime's failure paths (port
-of ``mxnet_tpu/resilience``, its serving half).
+"""mxnet_tpu_torch.resilience — survivable training and serving (port of
+``mxnet_tpu/resilience``).
 
-- :mod:`faults` — the deterministic fault-injection harness
-  (``MXNET_TPU_TORCH_FAULTS``) and every serving kind's hook;
-- :class:`HealthSentinel` — the NaN/Inf check over a batch's outputs
-  (``raise | skip_batch`` policies);
-- :mod:`watchdog` — phase deadlines (``batch``, ``probe``), crash reports
-  (:class:`StallError`) and the peer bookkeeping the fleet supervisor
-  uses.
+- :class:`CheckpointManager` — atomic, versioned, CRC-verified,
+  reshardable (format v2) checkpoints with async publish, retention and
+  verified fall-back restore;
+- :class:`HealthSentinel` — NaN/Inf and grad-norm check of a gluon
+  Trainer's gradients (``raise | skip_batch | rollback``) and of serving
+  outputs;
+- :mod:`watchdog` — phase deadlines (``step``, ``batch``, ``probe``),
+  crash reports (:class:`StallError`) and peer bookkeeping;
+- :mod:`elastic` — an out-of-memory step runs again as accumulated
+  microbatches;
+- :mod:`faults` — the deterministic fault-injection harness;
+- :mod:`integrity` — step fingerprints (a CUDA fold kernel), the shadow
+  replay audit, the device self-test and quarantine, checkpoint-manifest
+  fingerprints, serving golden-query audits and SIGTERM preemption.
 
-Not ported (ROADMAP Queue 1 item 12, training half): checkpoints,
-elastic retry, the integrity layer, and the trainers' hooks.
+Not ported (the rest of ROADMAP Queue 1 item 12): the pod distributed
+commit, pod and multi-host recovery, the mesh shrink after a lost peer,
+and the dist store's fault hooks.
 """
 from . import faults
+from . import checkpoint as _checkpoint_mod
 from . import sentinel as _sentinel_mod
 from . import watchdog
-from .sentinel import HealthSentinel, NumericHealthError
-from .watchdog import StallError
+from . import elastic
+from . import integrity
+from .checkpoint import (CheckpointManager, CheckpointCorruptError,
+                         atomic_write_bytes)
+from .sentinel import HealthSentinel, NumericHealthError, note_skip
+from .watchdog import StallError, PeerLostError
 
-__all__ = ["HealthSentinel", "NumericHealthError", "StallError", "faults",
-           "watchdog", "stats", "reset_stats"]
+__all__ = ["CheckpointManager", "CheckpointCorruptError",
+           "atomic_write_bytes", "HealthSentinel", "NumericHealthError",
+           "note_skip", "StallError", "PeerLostError", "faults",
+           "watchdog", "elastic", "integrity", "stats", "reset_stats"]
 
 
 def stats():
     """All resilience counters as one flat dict."""
     out = {}
     out.update(_sentinel_mod.stats())
+    out.update(_checkpoint_mod.stats())
     out.update(faults.stats())
     out.update(watchdog.stats())
+    out.update(elastic.stats())
+    out.update(integrity.stats())
     return out
 
 
 def reset_stats():
     _sentinel_mod.reset_stats()
+    _checkpoint_mod.reset_stats()
     faults.reset_stats()
     watchdog.reset_stats()
+    elastic.reset_stats()
+    integrity.reset_stats()

@@ -34,14 +34,44 @@ The serving kinds and their hooks:
 - ``int8_calib_mismatch`` — a stale CalibrationTable clone swapped in at
   quantize time, which validation must refuse.
 
-The parser knows every kind ``mxnet_tpu`` lists. The training kinds
-(:data:`TRAINING_KINDS`) have no hook in the port yet: arming one raises
-:class:`~mxnet_tpu_torch.base.MXNetError` naming ROADMAP Queue 1 item 12,
-so a drill never runs armed and unexercised.
+The training kinds and their hooks:
+
+- ``nan_grad`` / ``nonfinite_grad`` — one gradient poisoned with NaN
+  (gluon ``Trainer.step``/``update``; ``nonfinite_grad`` picks the layer
+  ``MXNET_TPU_TORCH_FAULT_NONFINITE_LAYER`` names, by default the middle
+  parameter). A captured gluon step poisons the batch (``nan_grad``) or
+  the layer's weight (``nonfinite_grad``) instead, so the NaN flows
+  through the real graph;
+- ``ckpt_enospc`` / ``ckpt_partial_write`` / ``ckpt_shard_corrupt`` — a
+  checkpoint byte write raises ENOSPC, is cut short, or has one byte of an
+  array payload flipped (:func:`checkpoint_write_filter`);
+- ``ckpt_crash_before_manifest`` / ``ckpt_async_crash`` — a simulated
+  death between the payloads and the manifest, or of the background
+  writer before it publishes (:func:`maybe_crash`);
+- ``hang_step`` — the training step wedged until the step watchdog fires;
+- ``oom_step`` — an injected out-of-memory error before the step runs
+  (``times`` = how many attempts fail, driving the elastic retry);
+- ``sdc_bitflip_param`` / ``sdc_bitflip_grad`` / ``sdc_device_sticky`` —
+  one low bit flipped in a parameter after the update, in a gradient
+  before it, or in every step's parameters and the victim device's
+  self-test (``MXNET_TPU_TORCH_FAULT_DEVICE``, default 0);
+- ``step_time_anomaly`` / ``perf_regression`` — one step-time sample, or
+  every number of a perf measurement, inflated
+  (``MXNET_TPU_TORCH_FAULT_STEP_TIME_FACTOR``, default 10; the factor
+  argument, default 3);
+- ``preempt`` — a preemption notice seen at the step boundary.
+
+The parser knows every kind ``mxnet_tpu`` lists. The kinds of the
+distributed store, peers, pod hosts and the coordinator, and
+``ckpt_partial_pod`` (:data:`QUEUED_KINDS`) have no hook in the port:
+arming one raises :class:`~mxnet_tpu_torch.base.MXNetError` naming the
+rest of ROADMAP Queue 1 item 12 (``record_corrupt``: item 10), so a drill
+never runs armed and unexercised.
 """
 from __future__ import annotations
 
 import contextlib
+import errno
 import os
 import threading
 import time
@@ -50,7 +80,8 @@ from ..base import MXNetError
 from ..observability import flight as _obs_flight
 
 __all__ = ["FaultInjected", "ReplicaCrash", "DecodeReplicaDead",
-           "SERVING_KINDS", "TRAINING_KINDS", "parse_spec", "inject", "arm",
+           "SimulatedCrash", "InjectedOOM", "SERVING_KINDS",
+           "TRAINING_KINDS", "QUEUED_KINDS", "parse_spec", "inject", "arm",
            "disarm", "reset", "active", "get", "stats", "reset_stats",
            "install_from_env", "maybe_nan_batch", "maybe_hang",
            "maybe_replica_crash", "maybe_replica_hang",
@@ -58,7 +89,12 @@ __all__ = ["FaultInjected", "ReplicaCrash", "DecodeReplicaDead",
            "maybe_calib_table_drift", "maybe_slo_burn",
            "maybe_rollout_bad_weights", "maybe_canary_slo_regression",
            "maybe_autoscale_flap", "maybe_decode_replica_death",
-           "maybe_kv_pool_exhaustion"]
+           "maybe_kv_pool_exhaustion", "maybe_nan_grads",
+           "maybe_nonfinite_grad", "checkpoint_write_filter", "maybe_crash",
+           "maybe_oom_step", "maybe_perf_regression",
+           "maybe_step_time_anomaly", "maybe_sdc_bitflip_param",
+           "maybe_sdc_bitflip_grad", "maybe_sdc_sticky_param",
+           "maybe_sdc_selftest", "maybe_preempt"]
 
 SERVING_KINDS = (
     "nan_serving", "hang_batch", "replica_crash", "replica_hang",
@@ -77,10 +113,26 @@ TRAINING_KINDS = (
     "step_time_anomaly", "sdc_bitflip_param", "sdc_bitflip_grad",
     "sdc_device_sticky", "preempt")
 
+# training kinds whose hooks are not ported: kind -> ROADMAP Queue 1 item
+QUEUED_KINDS = {k: 12 for k in (
+    "dist_connect_timeout", "hang_collective", "peer_death", "host_death",
+    "host_hang_collective", "coordinator_loss", "ckpt_partial_pod")}
+QUEUED_KINDS["record_corrupt"] = 10
+
+
+class SimulatedCrash(BaseException):
+    """Injected process death (a BaseException, so ordinary ``except
+    Exception`` handlers do not swallow it)."""
+
 
 class FaultInjected(RuntimeError):
     """Base class of injected recoverable errors (a test can tell the
     harness's failure from a real defect)."""
+
+
+class InjectedOOM(FaultInjected):
+    """Injected step OOM (``oom_step``); the elastic retry treats it as a
+    ``torch.OutOfMemoryError``."""
 
 
 class ReplicaCrash(FaultInjected):
@@ -130,13 +182,15 @@ class _Fault:
 
 
 def _check_kind(kind):
-    if kind in SERVING_KINDS:
-        return
-    if kind in TRAINING_KINDS:
+    if kind in QUEUED_KINDS:
+        what = ("the streamed-record reader" if kind == "record_corrupt"
+                else "the distributed store, peer and pod recovery")
         raise MXNetError(
-            f"fault kind {kind!r} hooks into the training runtime, which "
-            "the port does not instrument yet (ROADMAP Queue 1 item 12, "
-            "training half); arming it would inject nothing")
+            f"fault kind {kind!r} hooks into {what}, which the port does "
+            f"not instrument yet (ROADMAP Queue 1 item {QUEUED_KINDS[kind]}"
+            "); arming it would inject nothing")
+    if kind in SERVING_KINDS or kind in TRAINING_KINDS:
+        return
     raise MXNetError(f"unknown fault kind {kind!r} (serving kinds: "
                      f"{', '.join(SERVING_KINDS)})")
 
@@ -288,7 +342,8 @@ def _hang_until_interrupted(point):
 
 
 def maybe_hang(point):
-    """Wedge the calling thread at ``point`` (``hang_batch``)."""
+    """Wedge the calling thread at ``point`` (``hang_batch``,
+    ``hang_step``)."""
     if not _ACTIVE:
         return
     fault = _ACTIVE.get(point)
@@ -486,6 +541,224 @@ def maybe_kv_pool_exhaustion(available):
     if fault is None or not fault.should_fire():
         return available
     return 0
+
+
+# ------------------------------------------------------------ training hooks
+
+def maybe_nan_grads(params):
+    """Poison the first trainable gradient of ``params`` (gluon
+    Parameters) with NaN, in place (``nan_grad``; gluon ``Trainer``)."""
+    if not _ACTIVE:
+        return False
+    fault = _ACTIVE.get("nan_grad")
+    if fault is None or not fault.should_fire():
+        return False
+    for p in params:
+        if getattr(p, "grad_req", "write") == "null":
+            continue
+        p.grad().mul_(float("nan"))
+        return True
+    return False
+
+
+def maybe_nonfinite_grad(params, where="grad"):
+    """Poison one targeted layer with NaN (``nonfinite_grad``): the
+    parameter ``MXNET_TPU_TORCH_FAULT_NONFINITE_LAYER`` names (a substring
+    of its name), by default the middle trainable one. ``where="grad"``
+    poisons its gradient (the eager Trainer), ``"param"`` its weight (a
+    captured step). Returns the parameter's name, or None."""
+    if not _ACTIVE:
+        return None
+    fault = _ACTIVE.get("nonfinite_grad")
+    if fault is None:
+        return None
+    cands = [p for p in params if getattr(p, "grad_req", "write") != "null"]
+    if not cands:
+        return None
+    want = os.environ.get("MXNET_TPU_TORCH_FAULT_NONFINITE_LAYER",
+                          "").strip()
+    if want:
+        target = next((p for p in cands if want in p.name), None)
+        if target is None:
+            raise FaultInjected(
+                f"nonfinite_grad armed but no parameter matches "
+                f"MXNET_TPU_TORCH_FAULT_NONFINITE_LAYER={want!r} "
+                f"(params: {[p.name for p in cands]})")
+    else:
+        target = cands[len(cands) // 2]
+    if not fault.should_fire():
+        return None
+    victim = target.data() if where == "param" else target.grad()
+    with _no_grad():
+        victim.mul_(float("nan"))
+    return target.name
+
+
+def _no_grad():
+    import torch
+
+    return torch.no_grad()
+
+
+def checkpoint_write_filter(path, data):
+    """Every checkpoint byte write passes here: it may raise ENOSPC
+    (``ckpt_enospc``), come back cut short (``ckpt_partial_write``), or
+    have one byte of an array payload flipped (``ckpt_shard_corrupt``:
+    same length, so only the CRC catches it)."""
+    if not _ACTIVE:
+        return data
+    fault = _ACTIVE.get("ckpt_enospc")
+    if fault is not None and fault.should_fire():
+        raise OSError(errno.ENOSPC,
+                      "No space left on device [injected fault]", str(path))
+    fault = _ACTIVE.get("ckpt_partial_write")
+    if fault is not None and fault.should_fire():
+        return data[:max(1, len(data) // 2)]
+    fault = _ACTIVE.get("ckpt_shard_corrupt")
+    if fault is not None and data:
+        parts = str(path).replace(os.sep, "/").split("/")
+        if "arrays" in parts and fault.should_fire():
+            out = bytearray(data)
+            out[len(out) // 2] ^= 0xFF
+            return bytes(out)
+    return data
+
+
+def maybe_crash(point):
+    """Raise :class:`SimulatedCrash` when the fault ``point`` fires."""
+    if not _ACTIVE:
+        return
+    fault = _ACTIVE.get(point)
+    if fault is not None and fault.should_fire():
+        raise SimulatedCrash(f"injected crash at {point}")
+
+
+def maybe_oom_step():
+    """Raise :class:`InjectedOOM` before the step runs (``oom_step``)."""
+    if not _ACTIVE:
+        return
+    fault = _ACTIVE.get("oom_step")
+    if fault is not None and fault.should_fire():
+        raise InjectedOOM("CUDA out of memory while running the training "
+                          "step [injected fault]")
+
+
+def maybe_perf_regression(measured, factor=3.0):
+    """``measured`` ({key: {metric: value}}) with every number times
+    ``factor`` when ``perf_regression`` fires."""
+    if not _ACTIVE:
+        return measured
+    fault = _ACTIVE.get("perf_regression")
+    if fault is None or not fault.should_fire():
+        return measured
+    return {key: {m: (v * factor if isinstance(v, (int, float))
+                      and not isinstance(v, bool) else v)
+                  for m, v in metrics.items()}
+            for key, metrics in measured.items()}
+
+
+def maybe_step_time_anomaly(dur_ns):
+    """One step-time sample times ``MXNET_TPU_TORCH_FAULT_STEP_TIME_FACTOR``
+    (default 10) when ``step_time_anomaly`` fires (the step-time drift
+    rule's intake)."""
+    if not _ACTIVE:
+        return dur_ns
+    fault = _ACTIVE.get("step_time_anomaly")
+    if fault is None or not fault.should_fire():
+        return dur_ns
+    try:
+        factor = float(os.environ.get(
+            "MXNET_TPU_TORCH_FAULT_STEP_TIME_FACTOR", "10"))
+    except ValueError:
+        factor = 10.0
+    return int(dur_ns * factor)
+
+
+def _flip_in_place(t):
+    """Flip the low bit of ``t``'s first element, in place (a captured
+    step's tensors must keep their addresses)."""
+    import torch
+
+    flat = t.detach().reshape(-1)[:1]
+    bits = {4: torch.int32, 2: torch.int16}.get(t.element_size(),
+                                               torch.uint8)
+    with torch.no_grad():
+        flat.view(bits).bitwise_xor_(1)
+
+
+def _first_float(tree, kind):
+    target = next((name for name in sorted(tree)
+                   if _is_float(tree[name]) and tree[name].numel()), None)
+    if target is None:
+        raise FaultInjected(
+            f"{kind} armed but there is no floating-point leaf to corrupt "
+            f"(leaves: {sorted(tree)})")
+    return target
+
+
+def _flip_first_float(tree, kind):
+    fault = _ACTIVE.get(kind)
+    if fault is None:
+        return tree
+    target = _first_float(tree, kind)
+    if fault.should_fire():
+        _flip_in_place(tree[target])
+    return tree
+
+
+def maybe_sdc_bitflip_param(params):
+    """One low bit flipped, in place, in the first floating parameter of
+    ``params`` after the update (``sdc_bitflip_param``): only the
+    fingerprint audit sees it."""
+    if not _ACTIVE:
+        return params
+    return _flip_first_float(params, "sdc_bitflip_param")
+
+
+def maybe_sdc_bitflip_grad(grads):
+    """One low bit flipped, in place, in the first floating gradient
+    before the update (``sdc_bitflip_grad``)."""
+    if not _ACTIVE:
+        return grads
+    return _flip_first_float(grads, "sdc_bitflip_grad")
+
+
+def _fault_device_target():
+    return int(os.environ.get("MXNET_TPU_TORCH_FAULT_DEVICE", "0"))
+
+
+def maybe_sdc_sticky_param(params, device_id):
+    """The step side of a lying device (``sdc_device_sticky``): while the
+    step runs on the victim device, every fire flips a parameter bit."""
+    if not _ACTIVE or _ACTIVE.get("sdc_device_sticky") is None:
+        return params
+    if int(device_id) != _fault_device_target():
+        return params
+    return _flip_first_float(params, "sdc_device_sticky")
+
+
+def maybe_sdc_selftest(result, device_id):
+    """The attribution side of ``sdc_device_sticky``: the victim device's
+    known-answer self-test result (a numpy array) with one bit flipped."""
+    if not _ACTIVE:
+        return result
+    fault = _ACTIVE.get("sdc_device_sticky")
+    if fault is None or int(device_id) != _fault_device_target():
+        return result
+    if not fault.should_fire():
+        return result
+    out = result.copy()
+    out.ravel()[0] ^= 1
+    return out
+
+
+def maybe_preempt():
+    """True once when ``preempt`` fires: a preemption notice seen at the
+    step boundary."""
+    if not _ACTIVE:
+        return False
+    fault = _ACTIVE.get("preempt")
+    return fault is not None and fault.should_fire()
 
 
 install_from_env()

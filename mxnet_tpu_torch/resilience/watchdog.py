@@ -1,5 +1,5 @@
 """Stall watchdog: no guarded phase may block forever (port of
-``mxnet_tpu/resilience/watchdog.py``, the serving phases).
+``mxnet_tpu/resilience/watchdog.py``: the step, batch and probe phases).
 
 One daemon monitor thread watches every guarded scope. When a scope
 outlives its phase's deadline, the monitor writes a crash report (JSON:
@@ -12,6 +12,11 @@ error instead of hanging its queue.
 
 Phases and their deadlines (seconds; unset or ``0`` disables):
 
+- ``step`` — ``MXNET_TPU_TORCH_WATCHDOG_STEP_TIMEOUT`` (gluon
+  ``Trainer.step``/``update``, ``parallel.ShardedTrainer.step``, the
+  captured gluon step); a stalled gluon step with a rollback-policy
+  sentinel attached resumes from the last checkpoint
+  (:func:`note_rollback` amends the crash report);
 - ``batch`` — ``MXNET_TPU_TORCH_WATCHDOG_BATCH_TIMEOUT``
   (``serving.BatchServer`` batch execution and ``close()`` drain);
 - ``probe`` — ``MXNET_TPU_TORCH_WATCHDOG_PROBE_TIMEOUT`` (the fleet's
@@ -25,9 +30,10 @@ either way.
 Peer bookkeeping: ``mark_peer_dead`` / ``dead_peers`` / ``reset_peers``
 record which ranks (the fleet: which replica ids) are out; the supervisor
 marks a draining replica dead and a kvstore's ``excise_dead_peers``
-re-admits it. Not ported (ROADMAP Queue 1 item 12, training half): the
-``step`` and ``collective`` guards in the trainers and the dist store,
-and the pod (host-level) liveness layer.
+re-admits it. :class:`PeerLostError` is what a step raises when its
+device failed the integrity self-test. Not ported (the rest of ROADMAP
+Queue 1 item 12): the ``collective`` guard of the dist store and the pod
+(host-level) liveness layer.
 """
 from __future__ import annotations
 
@@ -42,18 +48,21 @@ import time
 
 from ..observability import flight as _obs_flight
 
-__all__ = ["StallError", "guard", "timeout_for",
+__all__ = ["StallError", "PeerLostError", "guard", "timeout_for",
            "crash_dir", "mark_peer_dead", "dead_peers", "reset_peers",
-           "stats", "reset_stats", "PHASES"]
+           "note_step", "note_rollback", "stats", "reset_stats", "PHASES"]
 
-PHASES = ("batch", "probe")
+PHASES = ("step", "batch", "probe")
 
 _STATS = {
     "watchdog_guards": 0,         # scopes armed (a timeout was configured)
     "watchdog_stalls": 0,         # deadlines that expired
     "watchdog_crash_reports": 0,  # reports successfully written
     "watchdog_peer_lost": 0,      # ranks declared dead
+    "watchdog_rollbacks": 0,      # stalls recovered from a checkpoint
 }
+
+_LAST_STEP = None
 
 
 def stats():
@@ -92,6 +101,13 @@ class StallError(RuntimeError):
         super().__init__(*args)
 
 
+class PeerLostError(RuntimeError):
+    """A rank (on one card: the device itself, after a failed integrity
+    self-test) is gone; ``.ranks`` names it."""
+
+    ranks = ()
+
+
 _PEER_LOCK = threading.Lock()
 _DEAD_PEERS: set = set()
 
@@ -122,6 +138,35 @@ def reset_peers(ranks=None):
         else:
             for r in ranks:
                 _DEAD_PEERS.discard(int(r))
+
+
+def note_step(step):
+    """Record the current training step, for crash reports of guards that
+    do not know it."""
+    global _LAST_STEP
+    _LAST_STEP = int(step)
+
+
+def note_rollback(err, manifest):
+    """A stall recovered by restoring a checkpoint: counts
+    ``watchdog_rollbacks`` and amends the stall's crash report with the
+    restored step and tag."""
+    _STATS["watchdog_rollbacks"] += 1
+    path = getattr(err, "report_path", None)
+    if not path:
+        return
+    try:
+        with open(path) as f:
+            report = json.load(f)
+        report["recovered_by"] = {"action": "checkpoint_rollback",
+                                  "restored_step": manifest.get("step"),
+                                  "restored_tag": manifest.get("tag")}
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        os.replace(tmp, path)
+    except (OSError, ValueError):
+        pass  # the report is forensics, never control flow
 
 
 # ------------------------------------------------------------------- guarding
@@ -373,7 +418,7 @@ def _write_crash_report(g):
             "phase": g.phase,
             "detail": g.detail,
             "timeout_s": g.timeout,
-            "step": g.step,
+            "step": g.step if g.step is not None else _LAST_STEP,
             "pid": os.getpid(),
             "thread": {"ident": g.thread_id, "name": g.thread_name},
             "wallclock": time.strftime("%Y-%m-%dT%H:%M:%S%z"),

@@ -232,10 +232,11 @@ def remat_rank(rank, world, values, x, y, dims):
     return got
 
 
-def raises_rank(rank, world, values, dims):
+def raises_rank(rank, world, values, dims, x=None, y=None):
     """The messages of a multi-rank trainer asked for what is not ported:
-    a 'pp' axis of 2 ranks, 'tp' together with 'sp', and a checkpoint
-    manager."""
+    a 'pp' axis of 2 ranks, 'tp' together with 'sp', and the step
+    fingerprint over several ranks (a trainer that keeps its checkpoint
+    manager)."""
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch import parallel
 
@@ -249,8 +250,8 @@ def raises_rank(rank, world, values, dims):
         "sp_tp": lambda: parallel.ShardedTrainer(
             net, loss, "sgd", mesh=sp_tp,
             param_rules=parallel.SpecLayout.for_mesh(sp_tp).param_rules()),
-        "checkpoint_manager": lambda: parallel.ShardedTrainer(
-            net, loss, "sgd", mesh=pp, checkpoint_manager=object()),
+        "checkpoint_manager": lambda: _fingerprint_step(
+            rank, world, net, loss, x, y),
     }
     out = {}
     for name, make in cases.items():
@@ -262,10 +263,30 @@ def raises_rank(rank, world, values, dims):
     return out
 
 
+def _fingerprint_step(rank, world, net, loss, x, y):
+    """A step with the fingerprint armed over {"dp": world}, by a trainer
+    holding a checkpoint manager (raises naming ROADMAP Queue 1 item
+    12)."""
+    from mxnet_tpu_torch import parallel
+
+    mgr = object()
+    tr = parallel.ShardedTrainer(net, loss, "sgd",
+                                 mesh=_cpu_mesh(world, {"dp": world}),
+                                 checkpoint_manager=mgr)
+    assert tr._ckpt_mgr is mgr
+    rows = x.shape[0] // world
+    sl = slice(rank * rows, (rank + 1) * rows)
+    os.environ["MXNET_TPU_TORCH_INTEGRITY_FINGERPRINT"] = "1"
+    try:
+        tr.step(x[sl], y[sl])
+    finally:
+        del os.environ["MXNET_TPU_TORCH_INTEGRITY_FINGERPRINT"]
+
+
 def remat_and_raises_rank(rank, world, values, x, y, dims):
     """:func:`remat_rank` and :func:`raises_rank` in one run of ranks."""
     return {"remat": remat_rank(rank, world, values, x, y, dims),
-            "raises": raises_rank(rank, world, values, dims)}
+            "raises": raises_rank(rank, world, values, dims, x, y)}
 
 
 def _tp_step_runs(world, values, batches, dims, opt, axes, remat=None,
@@ -411,3 +432,39 @@ def tensor_parallel_rank(rank, world, lm, mlp, unit):
     out["mlp"] = _tp_mlp_run(world, *mlp)
     out["products"] = _tp_products(rank, world, *unit)
     return out
+
+
+def checkpoint_reshard_rank(rank, world, one_dir, two_dir, values, x, y):
+    """The MLP of test_torch_checkpoint.py over {"dp": 1, "fsdp": world},
+    its dense weights sharded over fsdp: two Adam steps on this rank's
+    rows, saved to ``two_dir`` (rank 0 writes the gathered state); then
+    the one-rank checkpoint in ``one_dir`` restored onto it. Returns the
+    gathered state after the steps, this rank's restored shards and its
+    fsdp index."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.resilience import CheckpointManager
+
+    net = mt.gluon.nn.HybridSequential(prefix="m_")
+    with net.name_scope():
+        net.add(mt.gluon.nn.Dense(8, in_units=4, activation="relu"),
+                mt.gluon.nn.BatchNorm(in_channels=8),
+                mt.gluon.nn.Dense(3, in_units=8))
+    net.initialize(ctx=mt.cpu())
+    for name, p in net._param_objects().items():
+        p.set_data(values[name])
+    mesh = _cpu_mesh(world, {"dp": 1, "fsdp": world})
+    tr = parallel.ShardedTrainer(
+        net, mt.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+        {"learning_rate": 0.01}, mesh=mesh, batch_axis_name=("dp", "fsdp"),
+        param_rules=[(r"m_dense\d_weight", parallel.PartitionSpec("fsdp"))])
+    rows = x.shape[0] // world
+    sl = slice(rank * rows, (rank + 1) * rows)
+    for _ in range(2):
+        tr.step(x[sl], y[sl])
+    CheckpointManager(two_dir).save(2, trainer=tr)
+    full = {k: _np(v) for k, v in tr._full(tr.params).items()}
+    CheckpointManager(one_dir).restore_latest(trainer=tr)
+    return {"full": full, "index": mesh.axis_index(("fsdp",)),
+            "restored": {k: _np(v) for k, v in tr.params.items()},
+            "t": tr.opt_state["t"]}

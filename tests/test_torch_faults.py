@@ -96,8 +96,10 @@ def test_env_spec_arms_the_same_table(monkeypatch):
 
 def test_parse_spec_knows_every_mxnet_tpu_kind():
     """Every kind ``mxnet_tpu``'s docstring lists parses; the serving
-    kinds arm; the training kinds raise naming ROADMAP Queue 1 item 12;
-    an unknown kind raises."""
+    kinds and the ported training kinds arm; the kinds still queued (the
+    dist store, peers, pod hosts, ``ckpt_partial_pod``) raise naming the
+    rest of ROADMAP Queue 1 item 12, ``record_corrupt`` item 10; an
+    unknown kind raises."""
     doc_kinds = {k for k in faults.SERVING_KINDS + faults.TRAINING_KINDS}
     listed = {line.strip().split("``")[1] for line in
               jfaults.__doc__.splitlines()
@@ -106,8 +108,18 @@ def test_parse_spec_knows_every_mxnet_tpu_kind():
     assert faults.parse_spec("nan_grad@3,preempt") == [
         ("nan_grad", 3, 1), ("preempt", 0, 1)]
     for kind in faults.TRAINING_KINDS:
-        with pytest.raises(MXNetError, match="item 12"):
-            faults.arm(kind)
+        if kind in faults.QUEUED_KINDS:
+            with pytest.raises(MXNetError, match="item "
+                               f"{faults.QUEUED_KINDS[kind]}"):
+                faults.arm(kind)
+        else:
+            with faults.inject(kind) as f:
+                assert faults.active(kind) and f.fired == 0
+    assert set(faults.QUEUED_KINDS) == {
+        "dist_connect_timeout", "hang_collective", "peer_death",
+        "host_death", "host_hang_collective", "coordinator_loss",
+        "ckpt_partial_pod", "record_corrupt"}
+    assert faults.QUEUED_KINDS["record_corrupt"] == 10
     assert not faults.active()
     with pytest.raises(MXNetError, match="unknown fault kind"):
         faults.parse_spec("no_such_fault")
@@ -292,8 +304,20 @@ def test_sentinel_verdicts_match(case, policy):
 
 
 def test_sentinel_attach_raises_naming_item_12():
-    with pytest.raises(MXNetError, match="item 12"):
-        HealthSentinel().attach(object())
+    """Attaching is ported: the sentinel hooks the trainer, a rollback
+    policy needs a manager and the net, and detach unhooks it."""
+
+    class _Trainer:
+        _sentinel = None
+
+    tr = _Trainer()
+    s = HealthSentinel(policy="skip_batch").attach(tr)
+    assert tr._sentinel is s and s.detach() is s and tr._sentinel is None
+    with pytest.raises(ValueError, match="CheckpointManager"):
+        HealthSentinel(policy="rollback").attach(tr)
+    with pytest.raises(ValueError, match="needs the net"):
+        HealthSentinel(policy="rollback").attach(tr,
+                                                  checkpoint_manager=object())
 
 
 # ------------------------------------------- structured errors in serving

@@ -248,8 +248,16 @@ def test_module_surface(tmp_path):
         for f in (f"{prefix}-0001.params", f"{prefix}-0002.params",
                   f"{prefix}-symbol.json", f"{prefix}m-0002.params"):
             assert (tmp_path / f.rsplit("/", 1)[1]).exists(), f
-        with pytest.raises(mt.MXNetError, match="item 12"):
-            mt.callback.resilient_checkpoint(None, None)
+        # resilient_checkpoint is ported: it saves through its manager
+        mgr = mt.resilience.CheckpointManager(str(tmp_path / "ckpt"),
+                                              keep_n=1)
+        tnet = mt.gluon.nn.Dense(3, in_units=4)
+        tnet.initialize(ctx=mt.cpu())
+        cb = mt.callback.resilient_checkpoint(mgr, tnet, period=2)
+        cb(0)
+        assert mgr.list_checkpoints() == []
+        cb(1)
+        assert [s for s, _ in mgr.list_checkpoints()] == [2]
 
 
 def test_module_without_context_needs_the_card():

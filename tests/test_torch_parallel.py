@@ -469,9 +469,11 @@ def test_unported_options_raise():
     _, tnet, _ = _pair("NHWC", "s2d")
     mesh = tpar.create_mesh({"dp": 1}, [mt.cpu()])
     loss = mt.gluon.loss.SoftmaxCrossEntropyLoss()
-    with pytest.raises(NotImplementedError, match="checkpoint_manager"):
-        tpar.ShardedTrainer(tnet, loss, "sgd", mesh=mesh,
-                            checkpoint_manager=object())
+    # a checkpoint manager is ported: kept for the preemption exit
+    mgr = object()
+    ckt = tpar.ShardedTrainer(tnet, loss, "sgd", mesh=mesh,
+                              checkpoint_manager=mgr)
+    assert ckt._ckpt_mgr is mgr and ckt.enable_recovery(None) is ckt
     # tensor parallelism is ported (test_torch_tensor_parallel.py); a spec
     # naming 'tp' on a mesh without that axis is the caller's error
     with pytest.raises(ValueError, match="names 'tp'"):
@@ -485,5 +487,7 @@ def test_unported_options_raise():
         tpar.ShardedTrainer(tnet, loss, "adafactor", mesh=mesh)
     ttr = tpar.ShardedTrainer(tnet, loss, "sgd", mesh=mesh)
     x, y = _batch()
-    with pytest.raises(NotImplementedError, match="length="):
-        ttr.step(x, y, length=np.full((BATCH,), 3, np.int32))
+    # the pad mask is ported (test_torch_elastic.py); it runs one
+    # microbatch only
+    with pytest.raises(ValueError, match="length="):
+        ttr.step(x, y, microbatches=2, length=np.full((BATCH,), 3, np.int32))

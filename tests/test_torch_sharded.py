@@ -240,14 +240,17 @@ def test_remat_steps_equal_steps_without_it(remat_and_raises):
 def test_tensor_parallelism_and_checkpoint_manager_raise(remat_and_raises):
     """What is not ported raises, citing its ROADMAP item: a 'pp' axis
     and 'tp' together with 'sp' (item 6; tensor parallelism itself runs,
-    test_torch_tensor_parallel.py), and a checkpoint manager (item 12)."""
+    test_torch_tensor_parallel.py), and, for a trainer that keeps its
+    checkpoint manager, the step fingerprint over several ranks (the
+    rest of item 12)."""
     for r in remat_and_raises:
         r = r["raises"]
         assert "mesh axis 'pp' of size 2" in r["pp_axis"] and \
             "Queue 1 item 6" in r["pp_axis"]
         assert "'tp' of size 2 together with 'sp'" in r["sp_tp"] and \
             "Queue 1 item 6" in r["sp_tp"]
-        assert "checkpoint_manager" in r["checkpoint_manager"] and \
+        assert "step fingerprint over several ranks" in \
+            r["checkpoint_manager"] and \
             "Queue 1 item 12" in r["checkpoint_manager"]
 
 
