@@ -13,6 +13,8 @@
     python3 chip_smoke.py --ssd-only         # build + phase t (SSD)
     python3 chip_smoke.py --dist-only        # build + phase u (dist_sync)
     python3 chip_smoke.py --fleet-only       # build + phase v (serving)
+    python3 chip_smoke.py --resilience-only  # build + phase w
+    python3 chip_smoke.py --pod-only         # build + phase x (pod drills)
 
 Phases, each failing loudly with a non-zero exit:
 
@@ -360,7 +362,8 @@ Phases, each failing loudly with a non-zero exit:
       step over both shards; (u2) resnet50_v1 fp32 at 224^2 through
       gluon.Trainer(kvstore='dist_sync'), SGD, batch 32 a rank, 3 steps:
       the ranks' trainable weights bitwise equal; step ms and the
-      all-reduce's share of it for each. ``--dist-only`` runs the build
+      all-reduce's share of it for each; the liveness work's cost a call
+      (check_peers, a beat, a scan). ``--dist-only`` runs the build
       and phase u alone;
   (v) the serving runtime (checks collected, the phase failing at its
       end): (v1) a Fleet of 2 thread replicas of phase d's LM (bf16, each
@@ -414,7 +417,24 @@ Phases, each failing loudly with a non-zero exit:
       HealthSentinel: nan_grad skipped and rolled back, hang_step rolled
       back by the step watchdog, an AMP fp16 loss scale through a
       checkpoint. ``--resilience-only`` runs the build, the fold's phase-b
-      cases and phase w alone.
+      cases and phase w alone;
+  (x) pod and peer-loss recovery: 4 gloo rank processes on the card
+      train the LM (bf16 over fp32 masters, Adam, B=8 global) through
+      ShardedTrainer with a pod commit every 2 steps, the fingerprint over
+      the ranks (csrc/state_fold.cu's state_fold_sums, an all-reduce,
+      state_fold_chain) and an audit every 2 steps; (x1) at full depth
+      over {"fsdp": 2, "dp": 2} as 2 hosts, host_death kills host 1's two
+      processes at step 5; (x2, 2 layers) coordinator_loss kills host 0's;
+      (x3, 2 layers) peer_death kills rank 3 of a {"dp": 4} job without a
+      pod and the power-of-two shrink benches rank 2. The survivors detect
+      the loss, agree on it, shrink, rebuild their process groups, restore
+      the last commit and go on; their losses, fingerprints and final
+      parameters must equal a fresh job on the shrunk axes that restores
+      the same checkpoint (the oracle), bitwise. x1 also holds the sums and
+      chain kernels to sums_plain / chain_plain and the fold over the ranks
+      to one-rank state_fold of the gathered state, and times the sums
+      launch beside its bound. ``--pod-only`` runs the build, the fold's
+      phase-b cases and phase x alone.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. ``--summary PATH`` also writes the
@@ -9408,6 +9428,8 @@ U1_GRAD_TOL = 1e-4
 U1_ADAM_TOL, U1_GRAD_FLOOR = 1e-5, 1e-3
 U2_BATCH, U2_STEPS = 32, 3
 U2_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+U_LIVE_CALLS = 200    # calls a median of the liveness costs is taken over
+U_LIVE_NUMEL = 158_857    # u2's mean key: 25,575,912 weights in 161 keys
 
 
 def cifar_net(mx):
@@ -9534,6 +9556,51 @@ def dist_rank_u2(torch, mx, kv, rank, nw, out_dir):
                 {str(i): a for i, a in enumerate(params)})}
 
 
+def dist_liveness_us(torch, kv):
+    """Median microseconds of the liveness work a dist push does, over
+    U_LIVE_CALLS calls each: one ``check_peers`` (the beats cached), one
+    beat written, and one scan that reads every peer's beat afresh; and
+    of one all-reduce of U_LIVE_NUMEL fp32 on the card through the store
+    (the collective guard and the sliced wait) and through
+    ``torch.distributed`` alone, in alternating blocks. Every rank calls
+    it."""
+    import torch.distributed as tdist
+
+    from mxnet_tpu_torch.resilience import watchdog
+
+    def med(fn):
+        ts = []
+        for _ in range(U_LIVE_CALLS):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e6)
+        return sorted(ts)[len(ts) // 2]
+
+    def fresh_scan():
+        watchdog._PEER_BEATS.clear()
+        watchdog._scan_dead()
+
+    t = torch.zeros(U_LIVE_NUMEL, device="cuda")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(t)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e6
+
+    ar = {"guarded": [], "raw": []}
+    for _ in range(U_LIVE_CALLS // 20):
+        for name, fn in (("guarded", kv.allreduce),
+                         ("raw", tdist.all_reduce)):
+            ar[name].extend(timed(fn) for _ in range(10))
+    return {"check_peers": med(lambda: watchdog.check_peers("u")),
+            "beat_write": med(watchdog.heartbeat),
+            "scan_unread": med(fresh_scan),
+            **{f"allreduce_{k}": sorted(v)[len(v) // 2]
+               for k, v in ar.items()}}
+
+
 def dist_rank(out_dir):
     """One rank of phase u (a process the launcher started): u1, then u2,
     their results in ``out_dir``/u1_rank<r>.json and u2_rank<r>.json."""
@@ -9557,6 +9624,9 @@ def dist_rank(out_dir):
         kv.barrier()
         res.update({"backend": kv.backend, "num_workers": nw,
                     "wall_s": time.perf_counter() - t0})
+        if phase == "u2":
+            res["liveness_us"] = dist_liveness_us(torch, kv)
+            kv.barrier()
         with open(os.path.join(out_dir, f"{phase}_rank{rank}.json"),
                   "w") as f:
             json.dump(res, f)
@@ -9712,6 +9782,15 @@ def dist_phase(torch, mx):
             f"steps 2-{U2_STEPS}; "
             f"{U2_BATCH * DIST_RANKS / s2['step_ms'] * 1e3:.1f} images/s over"
             f" the ranks")
+        live = ranks[0]["liveness_us"]
+        log(f"[u] liveness on rank 0, median of {U_LIVE_CALLS} calls: "
+            f"check_peers {live['check_peers']:.1f} us (once a push), a "
+            f"beat written {live['beat_write']:.1f} us (once a second), a "
+            f"scan reading every beat {live['scan_unread']:.1f} us (once a "
+            f"generation); an all-reduce of {U_LIVE_NUMEL} fp32 on the card "
+            f"{live['allreduce_guarded']:.1f} us through the store (guard, "
+            f"sliced wait), {live['allreduce_raw']:.1f} us through "
+            "torch.distributed alone")
         out["u2"] = {"ranks": ranks, "summary": s2, "where": where}
         out["job_wall_s"] = wall
     finally:
@@ -10412,6 +10491,29 @@ def check_fold(torch):
         if not ok:
             raise SystemExit(f"phase b: state_fold disagrees on {name}")
         out.append({"case": name, "max_abs_err": abs(got - plain)})
+    # the split for several ranks: state_fold_sums (a leaf left out sums
+    # to 0) and state_fold_chain, exactly their plain versions, and the
+    # chain of every leaf's sums state_fold's value
+    names = sorted(leaves)
+    counted = {k: i % 2 == 0 for i, k in enumerate(names)}
+    for flags, label in ((None, "all counted"), (counted, "every other")):
+        sums = integrity.fold_sums(leaves, flags)
+        plain = integrity.sums_plain(leaves, flags)
+        chain = integrity.as_uint32(integrity.fold_chain(sums, names))
+        chain_plain = integrity.as_uint32(integrity.chain_plain(
+            plain, [integrity._crc(n) for n in names]))
+        ok = torch.equal(sums, plain) and chain == chain_plain
+        if flags is None:
+            ok = ok and chain == integrity.as_uint32(
+                integrity.fold_tree(leaves))
+        log(f"[b] state_fold_sums + state_fold_chain ({label}): chain "
+            f"{chain:#010x}, plain {chain_plain:#010x} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase b: state_fold_sums / _chain disagree "
+                             f"({label})")
+        out.append({"case": f"sums+chain {label}",
+                    "max_abs_err": int((sums - plain).abs().max())})
     try:
         integrity.fold_tree({"f64": randn(8).double()})
         raise SystemExit("phase b: state_fold took an 8-byte leaf")
@@ -11075,6 +11177,560 @@ def resilience_phase(torch, mx):
     return out
 
 
+# ------------------------------------------------------------------ phase x
+# Pod and peer-loss recovery: 4 gloo rank processes on this card train
+# phase h / l's LM (bf16 over fp32 masters, Adam 1e-3, B=8 global, T=1024)
+# through ShardedTrainer with a pod commit every 2 steps, the fingerprint
+# (the fold over several ranks) and an audit every 2 steps; a fault kills
+# processes at a step and the survivors must recover and equal, bitwise, a
+# fresh job of as many ranks on the shrunk axes that restores the same
+# checkpoint (the shrunk-topology oracle).
+X_DIR = os.path.join(ROOT, "_pod")          # gitignored: checkpoints, logs
+X_RANKS = 4
+X_JOIN_S = 400          # one drill's ranks, or its oracle's
+X_SAVE_EVERY = 2
+X_AUDIT_EVERY = 2
+X_COLLECTIVE_S = 120    # the collective watchdog's deadline in the ranks
+X_FAULT_EXIT = 42       # resilience.faults.FAULT_EXIT_CODE
+# (name, fault, axes, pod hosts, layers, steps, the step the fault kills
+# at, victims, benched)
+X_DRILLS = (
+    ("x1", "host_death", {"fsdp": 2, "dp": 2}, 2, LAYERS, 8, 5, (2, 3), ()),
+    ("x2", "coordinator_loss", {"fsdp": 2, "dp": 2}, 2, 2, 4, 3, (0, 1), ()),
+    ("x3", "peer_death", {"dp": 4}, None, 2, 4, 3, (3,), (2,)),
+)
+_X_FAILED = []
+
+
+def x_check(ok, what):
+    log(f"[x] {what}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        _X_FAILED.append(what)
+
+
+def _x_env(cfg):
+    env = {"MXNET_TPU_TORCH_CAPTURE": "0",
+           "MXNET_TPU_TORCH_HEARTBEAT_DIR": os.path.join(cfg["dir"], "hb"),
+           "MXNET_TPU_TORCH_CRASH_DIR": os.path.join(cfg["dir"], "crash"),
+           "MXNET_TPU_TORCH_INTEGRITY_AUDIT_EVERY": str(X_AUDIT_EVERY),
+           "MXNET_TPU_TORCH_WATCHDOG_COLLECTIVE_TIMEOUT": str(X_COLLECTIVE_S),
+           "MXNET_TPU_TORCH_CKPT_COMMIT_TIMEOUT_S": "300"}
+    if cfg.get("fault"):
+        env["MXNET_TPU_TORCH_FAULTS"] = f"{cfg['fault']}@{cfg['die_at'] - 1}"
+        env["MXNET_TPU_TORCH_FAULT_HOST_RANK"] = "1"
+        env["MXNET_TPU_TORCH_FAULT_PEER_RANK"] = "3"
+    return env
+
+
+def _x_setup(rank, cfg, tag):
+    """A phase-x rank's process: its environment, its output into
+    ``<dir>/<tag><rank>.log`` (the parent reads the victims' fault_exit
+    lines there), the card, the process group."""
+    import torch
+    import torch.distributed as dist
+
+    os.environ.update(_x_env(cfg))
+    fd = os.open(os.path.join(cfg["dir"], f"{tag}{rank}.log"),
+                 os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    sys.path.insert(0, ROOT)
+    if cfg["device"] == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    import datetime
+
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(cfg["dir"],
+                                                     f"{tag}.rendezvous"),
+        world_size=cfg["world"], rank=rank,
+        timeout=datetime.timedelta(seconds=X_COLLECTIVE_S))
+
+
+def _x_sync(torch, cfg):
+    if cfg["device"] == "cuda":
+        torch.cuda.synchronize()
+
+
+def _x_trainer(torch, mx, cfg, axes, pod, mesh=None):
+    """The LM (seeded Xavier on the device) through ShardedTrainer over
+    ``axes``: for_pod with ``pod`` hosts, else for_multihost; SpecLayout's
+    fsdp rules, batch over dp x fsdp; a CheckpointManager in the drill's
+    ckpt dir."""
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.gluon.model_zoo import transformer
+    from mxnet_tpu_torch.resilience import CheckpointManager
+
+    dev = cfg["device"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    net = transformer.transformer_lm(
+        vocab=cfg["vocab"], units=cfg["units"], num_heads=cfg["heads"],
+        num_layers=cfg["layers"], max_len=cfg["t"], impl="flash",
+        prefix="tlm_")
+    ctx = mx.gpu(0) if dev == "cuda" else mx.cpu()
+    net.initialize(mx.init.Xavier(), ctx=ctx, generator=gen)
+    lay = parallel.SpecLayout(data_axis="dp",
+                              fsdp_axis="fsdp" if "fsdp" in axes else None,
+                              tp_axis=None)
+    mgr = CheckpointManager(os.path.join(cfg["dir"], "ckpt"), keep_n=3)
+    kw = dict(param_rules=lay.param_rules(), batch_axis_name=lay.batch_axes(),
+              checkpoint_manager=mgr, dtype=cfg["dtype"])
+    args = (net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+            {"learning_rate": LR})
+    devices = [ctx] * cfg["world"]
+    if pod:
+        topo = parallel.PodTopology.simulated(pod, devices)
+        tr = parallel.ShardedTrainer.for_pod(*args, axes=axes, topology=topo,
+                                             backend="gloo", devices=devices,
+                                             **kw)
+        mgr.bind_pod(tr.pod)
+    else:
+        tr = parallel.ShardedTrainer.for_multihost(
+            *args, axes=axes, backend="gloo", devices=devices, **kw)
+    return tr, mgr, lay
+
+
+def _x_batch(torch, cfg, step, index, shards):
+    """Step ``step``'s rows of batch index ``index`` of ``shards``: the
+    learnable sequence of lm_batch from seed 3000 + step."""
+    import numpy as np
+
+    rng = np.random.RandomState(3000 + step)
+    seq = np.zeros((cfg["batch"], cfg["t"] + 1), np.int64)
+    seq[:, 0] = rng.randint(0, cfg["vocab"], cfg["batch"])
+    for i in range(cfg["t"]):
+        seq[:, i + 1] = (5 * seq[:, i] + 3) % cfg["vocab"]
+    per = cfg["batch"] // shards
+    rows = seq[index * per:(index + 1) * per]
+    return (torch.from_numpy(rows[:, :-1].copy()).to(cfg["device"]),
+            torch.from_numpy(rows[:, 1:].copy()).to(cfg["device"]))
+
+
+def _x_counts():
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.resilience import integrity
+
+    return {"k1": dict(kernels.flash_attention.launches_by_route),
+            "k2": dict(kernels.flash_attention_backward.launches_by_route),
+            "fold_sums": integrity.fold_sums.launches,
+            "fold_chain": integrity.fold_chain.launches,
+            "state_fold": integrity.fold_tree.launches}
+
+
+def _x_zero():
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.resilience import integrity
+
+    zero_counts(kernels)
+    integrity.fold_sums.launches = integrity.fold_chain.launches = 0
+    integrity.fold_tree.launches = 0
+
+
+def _x_fold_probe(torch, tr, x, y, cfg):
+    """After step 1, on every rank: the sums kernel over this rank's
+    masters and gradients against sums_plain and chain_plain, the sharded
+    fold against the one-rank state_fold of the gathered state (rank 0),
+    rank 0's sums launch timed alone beside its bound and the sums'
+    all-reduce in ms (every rank in step)."""
+    from mxnet_tpu_torch.parallel import collectives
+    from mxnet_tpu_torch.resilience import integrity
+
+    _, grads = tr._loss_and_mean_grads(x, y, 1)
+    named = {f"param:{k}": (k, v) for k, v in tr.params.items()}
+    named.update({f"grad:{k}": (k, g) for k, g in grads.items()})
+    leaves = {k: v.contiguous() for k, (_, v) in named.items()}
+    counted = {k: tr._counted(p) for k, (p, _) in named.items()}
+    sums = integrity.fold_sums(leaves, counted)
+    plain = integrity.sums_plain(leaves, counted)
+    out = {"sums_equal": bool(torch.equal(sums, plain))}
+    total = sums.clone()
+    collectives.all_reduce(total, tr.mesh, tuple(tr.mesh.axis_names))
+    total &= 0xFFFFFFFF
+    names = sorted(leaves)
+    chain = integrity.as_uint32(integrity.fold_chain(total, names))
+    out["chain_equal"] = chain == integrity.as_uint32(integrity.chain_plain(
+        total, [integrity._crc(n) for n in names]))
+    sharded = integrity.as_uint32(tr._fold(named))
+    full = {**{f"param:{k}": v for k, v in tr._full(tr.params).items()},
+            **{f"grad:{k}": v for k, v in tr._full(grads).items()}}
+    if tr.mesh.rank == 0:
+        one = integrity.as_uint32(integrity.fold_tree(
+            {k: v.contiguous() for k, v in full.items()}))
+        out["one_rank_equal"] = one == sharded == chain
+        out["fingerprint"] = sharded
+    del full
+    nbytes = sum(v.numel() * v.element_size() for k, v in leaves.items()
+                 if counted[k])
+    out["bytes"] = nbytes
+    out["sums_err"] = int((sums - plain).abs().max()) if sums.numel() \
+        else 0
+    out["chain_err"] = abs(chain - integrity.as_uint32(
+        integrity.chain_plain(total, [integrity._crc(n) for n in names])))
+    out["n_leaves"] = len(names)
+    tr._barrier()
+    if tr.mesh.rank == 0 and cfg["device"] == "cuda":
+        out["sums_ms"] = device_ms(
+            lambda: integrity.fold_sums(leaves, counted), n=20)
+        out["bound_ms"] = nbytes / PEAK_BYTES * 1e3
+        out["chain_ms"] = device_ms(
+            lambda: integrity.fold_chain(total, names), n=20)
+        # 16 bytes of sums and 8 of crc32 a leaf read, 4 written
+        out["chain_bound_ms"] = (24 * len(names) + 4) / PEAK_BYTES * 1e3
+
+        def host_ms(fn):
+            ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return sorted(ms)[1]
+
+        out["sums_plain_ms"] = host_ms(
+            lambda: integrity.sums_plain(leaves, counted))
+        out["chain_plain_ms"] = host_ms(lambda: integrity.chain_plain(
+            total, [integrity._crc(n) for n in names]))
+    tr._barrier()
+    ms = []
+    for _ in range(7):
+        _x_sync(torch, cfg)
+        t0 = time.perf_counter()
+        collectives.all_reduce(sums.clone(), tr.mesh,
+                               tuple(tr.mesh.axis_names))
+        _x_sync(torch, cfg)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["allreduce_ms"] = sorted(ms)[len(ms) // 2]
+    return out
+
+
+def pod_rank(rank, cfg):
+    """One rank of a phase-x drill (a spawned process): the steps, the
+    commits, the fault, the recovery; its record in
+    ``<dir>/result<origin rank>.json`` and its final parameters in
+    ``<dir>/final<new rank>.pt``. Ends with os._exit: its old process
+    groups may wait on the dead."""
+    code = 1
+    try:
+        _x_setup(rank, cfg, "rank")
+        import torch
+
+        import mxnet_tpu_torch as mx
+        from mxnet_tpu_torch.resilience import elastic, watchdog
+
+        tr, mgr, lay = _x_trainer(torch, mx, cfg, cfg["axes"], cfg["pod"])
+        first = tr.mesh
+        shards = first.axis_size(lay.batch_axes())
+        index = first.axis_index(lay.batch_axes())
+        rec = {"origin": rank, "index": index, "steps": [], "saves": {}}
+        for s in range(1, cfg["steps"] + 1):
+            x, y = _x_batch(torch, cfg, s, index, shards)
+            _x_zero()
+            _x_sync(torch, cfg)
+            t0 = time.perf_counter()
+            loss = tr.step(x, y).item()
+            _x_sync(torch, cfg)
+            t1 = time.perf_counter()
+            row = {"step": s, "loss": loss, "fp": tr.last_fingerprint,
+                   "ms": (t1 - t0) * 1e3, "end": time.time(),
+                   "gen": tr.mesh.generation, "counts": _x_counts()}
+            if tr.last_recovery is not None and "recovered" not in rec:
+                rec["recovered"] = dict(tr.recovery_times,
+                                        step=s, end=row["end"])
+            rec["steps"].append(row)
+            if s == 1 and cfg.get("probe"):
+                rec["probe"] = _x_fold_probe(torch, tr, x, y, cfg)
+            if s % X_SAVE_EVERY == 0:
+                mgr.save(s, trainer=tr)
+                rec["saves"][s] = dict(mgr.last_save)
+                # kept a line a commit: a victim's commits outlive it
+                with open(os.path.join(cfg["dir"], f"saves{rank}.jsonl"),
+                          "a") as f:
+                    f.write(json.dumps(dict(mgr.last_save, rank=rank,
+                                            host=_x_host(cfg, rank))) + "\n")
+        full = tr._full(tr.params)
+        rec.update(rank=tr.mesh.rank, axes=dict(tr.mesh.shape),
+                   generation=tr.mesh.generation,
+                   restored=None if tr.last_recovery is None
+                   else tr.last_recovery.get("step"),
+                   shrinks=elastic.stats()["elastic_mesh_shrinks"],
+                   recoveries=watchdog.stats()["watchdog_peer_recoveries"],
+                   pod=None if tr.pod is None else tr.pod.describe())
+        torch.save({k: v.cpu() for k, v in full.items()},
+                   os.path.join(cfg["dir"], f"final{tr.mesh.rank}.pt"))
+        with open(os.path.join(cfg["dir"], f"result{rank}.json"), "w") as f:
+            json.dump(rec, f)
+        code = 0
+    except BaseException:
+        import traceback
+
+        traceback.print_exc()
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
+
+
+def pod_oracle_rank(rank, cfg):
+    """One rank of a drill's shrunk-topology oracle: a fresh job over the
+    survivors' axes restores the checkpoint they resumed from and runs the
+    same steps, rank i feeding the rows survivor i fed."""
+    code = 1
+    try:
+        _x_setup(rank, cfg, "oracle")
+        import torch
+
+        import mxnet_tpu_torch as mx
+
+        tr, mgr, lay = _x_trainer(torch, mx, cfg, cfg["axes"], None)
+        mgr.restore(os.path.join(cfg["dir"], "ckpt",
+                                 f"ckpt-{cfg['restore']:08d}"), trainer=tr)
+        tr._step_count = cfg["restore"]
+        rec = {"steps": []}
+        for s in range(cfg["restore"] + 1, cfg["steps"] + 1):
+            x, y = _x_batch(torch, cfg, s, cfg["rows"][rank],
+                            cfg["old_shards"])
+            loss = tr.step(x, y).item()
+            rec["steps"].append({"step": s, "loss": loss,
+                                 "fp": tr.last_fingerprint})
+        full = tr._full(tr.params)
+        torch.save({k: v.cpu() for k, v in full.items()},
+                   os.path.join(cfg["dir"], f"oracle_final{rank}.pt"))
+        with open(os.path.join(cfg["dir"], f"oracle{rank}.json"), "w") as f:
+            json.dump(rec, f)
+        code = 0
+    except BaseException:
+        import traceback
+
+        traceback.print_exc()
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
+
+
+def _x_spawn(fn, cfg, world, expect):
+    """``world`` processes of ``fn``; waits (X_JOIN_S) and holds each exit
+    code to ``expect`` ({rank: code}, default 0); a rank's log tail goes to
+    the output when it is not."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=(dict(cfg, world=world),),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + X_JOIN_S
+    try:
+        while any(p.exitcode is None for p in ctx.processes):
+            if time.monotonic() > deadline:
+                raise SystemExit(f"phase x: {fn.__name__} ranks did not "
+                                 f"finish within {X_JOIN_S} s")
+            time.sleep(0.1)
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    codes = [p.exitcode for p in ctx.processes]
+    tag = "rank" if fn is pod_rank else "oracle"
+    for r, c in enumerate(codes):
+        if c != expect.get(r, 0):
+            path = os.path.join(cfg["dir"], f"{tag}{r}.log")
+            tail = open(path).read()[-3000:] if os.path.exists(path) else ""
+            log(f"[x] {fn.__name__} rank {r} exited {c} (expected "
+                f"{expect.get(r, 0)}); its log ends:\n{tail}")
+    return codes
+
+
+def _x_death_time(cfg, victims):
+    """The victims' death times, from their fault_exit lines."""
+    times = []
+    for r in victims:
+        path = os.path.join(cfg["dir"], f"rank{r}.log")
+        for line in open(path) if os.path.exists(path) else ():
+            if line.startswith('{"fault_exit"'):
+                times.append(json.loads(line)["time"])
+    return times
+
+
+def x_drill(torch, name, fault, axes, pod, layers, steps, die_at, victims,
+            benched, device="cuda", dims=None, probe=False):
+    """One drill and its oracle; returns its record (checks through
+    x_check)."""
+    import shutil
+
+    d = os.path.join(X_DIR, name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    vocab, units, heads, t, batch = dims or (VOCAB, UNITS, HEADS, T, BATCH)
+    cfg = {"dir": d, "axes": axes, "pod": pod, "layers": layers,
+           "steps": steps, "die_at": die_at, "fault": fault,
+           "device": device, "vocab": vocab, "units": units, "heads": heads,
+           "t": t, "batch": batch, "probe": probe,
+           "dtype": "bfloat16" if device == "cuda" else None}
+    t0 = time.perf_counter()
+    expect = {v: X_FAULT_EXIT for v in victims}
+    codes = _x_spawn(pod_rank, cfg, X_RANKS, expect)
+    drill_s = time.perf_counter() - t0
+    x_check(all(c == expect.get(r, 0) for r, c in enumerate(codes)),
+            f"{name} {fault}: exit codes {codes} (victims {list(victims)} "
+            f"exit {X_FAULT_EXIT}, benched {list(benched)} exit 0)")
+    recs = {}
+    for r in range(X_RANKS):
+        path = os.path.join(d, f"result{r}.json")
+        if os.path.exists(path):
+            recs[r] = json.load(open(path))
+    survivors = sorted((rec for r, rec in recs.items()),
+                       key=lambda rec: rec["rank"])
+    want_origins = [r for r in range(X_RANKS)
+                    if r not in victims and r not in benched]
+    x_check(sorted(recs) == want_origins,
+            f"{name} results from ranks {sorted(recs)} (want "
+            f"{want_origins}: the benched rank leaves with no result)")
+    if not survivors:
+        return {"drill_s": drill_s}
+    restore = die_at - 1 - (die_at - 1) % X_SAVE_EVERY
+    new_axes = survivors[0]["axes"]
+    x_check(all(rec["restored"] == restore and rec["generation"] == 1
+                and rec["shrinks"] == 1 and rec["recoveries"] == 1
+                and rec["axes"] == new_axes for rec in survivors),
+            f"{name} survivors {[rec['origin'] for rec in survivors]} -> "
+            f"ranks {[rec['rank'] for rec in survivors]} over {new_axes} at "
+            f"generation 1, restored step {restore}")
+    deaths = _x_death_time(cfg, victims)
+    rec0 = survivors[0]
+    got = rec0.get("recovered", {})
+    detect_s = (got["detected_at"] - min(deaths)) if deaths and got else None
+    recover_s = (got["end"] - got["detected_at"]) if got else None
+    before = [r["ms"] for r in rec0["steps"]
+              if r["step"] < die_at and r["step"] % X_AUDIT_EVERY]
+    after = [r["ms"] for r in rec0["steps"]
+             if r["step"] > die_at and r["step"] % X_AUDIT_EVERY]
+    out = {"drill_s": drill_s, "axes": axes, "new_axes": new_axes,
+           "survivors": [rec["origin"] for rec in survivors],
+           "detection_s": detect_s, "recovery_s": recover_s,
+           "recovery_times": got,
+           "step_ms_before": before, "step_ms_after": after,
+           "step_ms_all": [r["ms"] for r in rec0["steps"]],
+           "commits": _x_commits(cfg), "probe": rec0.get("probe")}
+    # the counts of a step without an audit, before the fault: every rank
+    # launches as many
+    plain_step = next(r for r in rec0["steps"] if r["step"] % X_AUDIT_EVERY)
+    out["step_counts"] = plain_step["counts"]
+    out["counts_by_step"] = [r["counts"] for r in rec0["steps"]]
+    # the oracle
+    ocfg = dict(cfg, axes=new_axes, restore=restore,
+                rows=[rec["index"] for rec in survivors],
+                old_shards=_x_shards(axes), fault=None)
+    t1 = time.perf_counter()
+    ocodes = _x_spawn(pod_oracle_rank, ocfg, len(survivors), {})
+    out["oracle_s"] = time.perf_counter() - t1
+    x_check(ocodes == [0] * len(survivors), f"{name} oracle exit codes "
+            f"{ocodes}")
+    same = ocodes == [0] * len(survivors)
+    for i, rec in enumerate(survivors):
+        if not same:
+            break
+        orc = json.load(open(os.path.join(d, f"oracle{i}.json")))
+        mine = [r for r in rec["steps"] if r["step"] > restore]
+        same &= [r["loss"] for r in mine] == \
+            [r["loss"] for r in orc["steps"]]
+        same &= [r["fp"] for r in mine] == [r["fp"] for r in orc["steps"]]
+        a = torch.load(os.path.join(d, f"final{i}.pt"))
+        b = torch.load(os.path.join(d, f"oracle_final{i}.pt"))
+        same &= set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+    x_check(same, f"{name} survivors' losses, fingerprints and final "
+            f"parameters of steps {restore + 1}-{steps} bitwise their "
+            f"oracle's ({len(survivors)} fresh ranks over {new_axes} "
+            f"restoring step {restore})")
+    out["bitwise"] = bool(same)
+    return out
+
+
+def _x_host(cfg, rank):
+    """The pod host of global rank ``rank`` when the job began (a rank is
+    its own host without a pod)."""
+    return rank // (X_RANKS // cfg["pod"]) if cfg["pod"] else rank
+
+
+def _x_commits(cfg):
+    """{step: {host: {"s": the slowest rank's stall, "bytes": the host's
+    ranks' payload bytes}}} of the drill's commits, from every rank's
+    saves<r>.jsonl (the victims' too)."""
+    out = {}
+    for r in range(X_RANKS):
+        path = os.path.join(cfg["dir"], f"saves{r}.jsonl")
+        for line in open(path) if os.path.exists(path) else ():
+            rec = json.loads(line)
+            cell = out.setdefault(str(rec["step"]), {}).setdefault(
+                str(rec["host"]), {"s": 0.0, "bytes": 0, "mode": rec["mode"]})
+            cell["s"] = max(cell["s"], rec["stall_s"])
+            cell["bytes"] += rec["bytes"]
+    return out
+
+
+def _x_shards(axes):
+    n = 1
+    for a in ("dp", "fsdp"):
+        n *= axes.get(a, 1)
+    return n
+
+
+def pod_phase(torch, mx, card=None, device="cuda", dims=None, layers=None):
+    """Phase x: x1 (host death at full depth, the fold probe), x2
+    (coordinator loss) and x3 (peer death without a pod, one rank benched),
+    each against its oracle."""
+    import gc
+
+    t0 = time.perf_counter()
+    if device == "cuda":
+        # the ranks share the card with this process: what earlier phases
+        # left in reference cycles goes before they start
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {}
+    for (name, fault, axes, pod, depth, steps, die_at, victims,
+         benched) in X_DRILLS:
+        out[name] = x_drill(torch, name, fault, axes, pod,
+                            depth if layers is None else layers, steps,
+                            die_at, victims, benched, device=device,
+                            dims=dims, probe=name == "x1")
+        r = out[name]
+        log(f"[x] {name} ({fault}, {axes} -> {r.get('new_axes')}): drill "
+            f"{r['drill_s']:.1f} s, oracle {r.get('oracle_s', 0):.1f} s; "
+            f"detection {r.get('detection_s')} s, recovery "
+            f"{r.get('recovery_s')} s ({r.get('recovery_times')}); step ms "
+            f"before {r.get('step_ms_before')}, after "
+            f"{r.get('step_ms_after')}; commits by step and host "
+            f"{r.get('commits')}")
+    x1 = out["x1"]
+    probe = x1.get("probe") or {}
+    x_check(bool(probe.get("sums_equal")) and bool(probe.get("chain_equal"))
+            and bool(probe.get("one_rank_equal")),
+            f"x1 fold over 4 ranks: state_fold_sums == sums_plain, "
+            f"state_fold_chain == chain_plain, both == one-rank state_fold "
+            f"of the gathered state ({probe.get('fingerprint')})")
+    if device == "cuda":
+        c = x1["step_counts"]
+        x_check(c["k1"].get("tc", 0) == LAYERS
+                and c["k2"].get("tc", 0) == LAYERS
+                and not c["k1"].get("simt")
+                and not c["k2"].get("simt") and c["fold_sums"] >= 1
+                and c["fold_chain"] >= 1,
+                f"x1 a step's launches on rank 0: K1 {c['k1']}, K2 "
+                f"{c['k2']}, fold sums {c['fold_sums']}, chain "
+                f"{c['fold_chain']}")
+        log(f"[x] {card}: x1 sums kernel {probe.get('sums_ms')} ms over "
+            f"{probe.get('bytes', 0) / 2**30:.3f} GiB (bound "
+            f"{probe.get('bound_ms')} ms, bytes); the sums' all-reduce "
+            f"{probe.get('allreduce_ms')} ms (host clock, gloo)")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[x] phase x {out['seconds']:.1f} s")
+    if _X_FAILED:
+        raise SystemExit(f"phase x: {len(_X_FAILED)} check(s) failed: "
+                         f"{_X_FAILED}")
+    return out
+
+
 def library_ms(fn, what):
     """device_ms of a library call, or None (logged) where the library
     refuses the call."""
@@ -11116,6 +11772,9 @@ def main(argv=None):
     ap.add_argument("--resilience-only", action="store_true",
                     help="build, then run the fold's phase-b cases and "
                          "phase w (resilient training) only")
+    ap.add_argument("--pod-only", action="store_true",
+                    help="build, then run the fold's phase-b cases and "
+                         "phase x (pod and peer-loss recovery) only")
     ap.add_argument("--resilience-child", metavar="DIR",
                     help=argparse.SUPPRESS)   # w1's child
     ap.add_argument("--dist-rank", metavar="DIR",
@@ -11217,6 +11876,12 @@ def main(argv=None):
         log("[resilience-only] phase w passed")
         log(card)
         return 0
+    if args.pod_only:
+        check_fold(torch)
+        pod_phase(torch, mx, card)
+        log("[pod-only] phase x passed")
+        log(card)
+        return 0
     t_run = time.perf_counter()
 
     def stamp(label):
@@ -11285,6 +11950,10 @@ def main(argv=None):
     stamp("resilience_phase")
     resilience = resilience_phase(torch, mx)
     w3 = resilience["w3"]
+    stamp("pod_phase")
+    pod = pod_phase(torch, mx, card)
+    probe = pod["x1"]["probe"]
+    x1_counts = pod["x1"]["counts_by_step"]
 
     def ring_err(dtype, parts, key="errors"):
         """The ring's largest error (of max|whole-sequence call|, or with
@@ -11671,13 +12340,43 @@ def main(argv=None):
         "source": "mxnet_tpu_torch/csrc/state_fold.cu",
         "replaces": "mxnet_tpu/resilience/integrity.py:236",
         "launches": resilience["w1"]["main_path"]["fold"],
+        "launches_by_path": {
+            "w1": resilience["w1"]["main_path"]["fold"],
+            "x1_rank0": sum(c["state_fold"] for c in x1_counts)},
         "max_abs_err": max([r["max_abs_err"] for r in fold_checks]
                            + [w3["fold_err"]]),
         "check": f"{len(fold_checks)} cases of phase b and the LM's whole "
                  "state bitwise equal to the plain version and fold_host",
         "ms": w3["fold_ms"], "plain_ms": w3["fold_plain_ms"],
         "bound_ms": w3["fold_bound_ms"], "bound_by": "bytes",
-        "library_ms": None, "state_bytes": w3["fold_bytes"]}]}
+        "library_ms": None, "state_bytes": w3["fold_bytes"]}] + [{
+        # phase x1's path: the step fingerprint and the audit over 4 (then
+        # 2) ranks, rank 0's launches over the drill's 8 steps; times from
+        # x1's probe over rank 0's shard set (its masters and gradients)
+        "name": "state_fold_sums", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/state_fold.cu",
+        "entry_point": "state_fold_sums",
+        "replaces": "mxnet_tpu/resilience/integrity.py:236",
+        "launches": sum(c["fold_sums"] for c in x1_counts),
+        "max_abs_err": probe["sums_err"],
+        "check": "rank 0's sums exactly sums_plain's; the fold over 4 "
+                 "ranks equal to one-rank state_fold of the gathered state",
+        "ms": probe["sums_ms"], "plain_ms": probe["sums_plain_ms"],
+        "plain_ms_clock": "host", "bound_ms": probe["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "state_bytes": probe["bytes"],
+        "allreduce_ms": probe["allreduce_ms"]}, {
+        "name": "state_fold_chain", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/state_fold.cu",
+        "entry_point": "state_fold_chain",
+        "replaces": "mxnet_tpu/resilience/integrity.py:236",
+        "launches": sum(c["fold_chain"] for c in x1_counts),
+        "max_abs_err": probe["chain_err"],
+        "check": "exactly chain_plain's over the all-reduced sums",
+        "ms": probe["chain_ms"], "plain_ms": probe["chain_plain_ms"],
+        "plain_ms_clock": "host", "bound_ms": probe["chain_bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "leaves": probe["n_leaves"]}]}
     stamp("the end")
     kind = torch.cuda.get_device_name(0)
     if args.summary:
@@ -11708,7 +12407,7 @@ def main(argv=None):
                        "module": module, "word_lm": word_lm,
                        "ssd": ssd, "dist": dist_u, "fleet": fleet_v,
                        "fold_checks": fold_checks,
-                       "resilience": resilience,
+                       "resilience": resilience, "pod": pod,
                        **record}, f,
                       indent=1)
     log(card)

@@ -25,6 +25,15 @@
 // shuffles and shared memory into one (s1, s2) partial per block. A second
 // launch of one block reduces each leaf's partials (one warp per leaf) and
 // its thread 0 runs the ordered combine.
+//
+// Over several ranks (a sharded state) the chain has to wait for the
+// ranks' sums: state_fold_sums runs fold_partials, then reduces each
+// leaf's partials (a warp a leaf) into sums[leaf] = (s1, s2) as int64
+// pairs, ready for the all-reduce (wrapping uint32 sums add over shards);
+// a rank leaves out a leaf it does not count by a row of 0 elements.
+// state_fold_chain then takes the all-reduced sums (their low 32 bits)
+// and runs the digests and the ordered chain in one block. Bound: the
+// sums are state_fold's bytes; the chain reads 16 bytes a leaf.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -166,6 +175,60 @@ fold_combine(const Row* __restrict__ rows, int n_leaves,
   }
 }
 
+constexpr int SUMS_WARPS = 8;
+
+__global__ void __launch_bounds__(SUMS_WARPS * 32)
+fold_sums(const Row* __restrict__ rows, int n_leaves,
+          const uint2* __restrict__ partials, long long* __restrict__ sums) {
+  const int lane = threadIdx.x & 31;
+  const int leaf = blockIdx.x * SUMS_WARPS + (threadIdx.x >> 5);
+  if (leaf >= n_leaves) return;
+  const Row r = rows[leaf];
+  uint32_t s1 = 0, s2 = 0;
+  for (long long k = lane; k < r.blocks; k += 32) {
+    const uint2 p = partials[r.first + k];
+    s1 += p.x;
+    s2 += p.y;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s1 += __shfl_xor_sync(FULL, s1, off);
+    s2 += __shfl_xor_sync(FULL, s2, off);
+  }
+  if (lane == 0) {
+    sums[2 * leaf] = (long long)s1;
+    sums[2 * leaf + 1] = (long long)s2;
+  }
+}
+
+constexpr int CHAIN_THREADS = 256;
+
+// One block: the digests of CHAIN_THREADS leaves at a time into shared
+// memory, then thread 0 chains them in order.
+__global__ void __launch_bounds__(CHAIN_THREADS)
+fold_chain(const long long* __restrict__ sums,
+           const long long* __restrict__ crcs, int n_leaves,
+           uint32_t* __restrict__ out) {
+  __shared__ uint32_t digests[CHAIN_THREADS];
+  uint32_t acc = SEED;
+  for (int base = 0; base < n_leaves; base += CHAIN_THREADS) {
+    const int leaf = base + threadIdx.x;
+    if (leaf < n_leaves) {
+      const uint32_t s1 = uint32_t(sums[2 * leaf]);
+      const uint32_t s2 = uint32_t(sums[2 * leaf + 1]);
+      digests[threadIdx.x] = (s1 ^ (s2 * DIGEST_MUL)) + uint32_t(crcs[leaf]);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const int n = n_leaves - base < CHAIN_THREADS ? n_leaves - base
+                                                    : CHAIN_THREADS;
+      for (int i = 0; i < n; ++i) acc = acc * FOLD_MUL + digests[i];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *out = acc;
+}
+
 }  // namespace
 
 // table: n_leaves rows of 6 int64 (pointer, elements, element size 1/2/4,
@@ -188,6 +251,40 @@ extern "C" int state_fold(const void* table, int n_leaves,
   fold_combine<<<1, COMBINE_THREADS, 0, s>>>(
       rows, n_leaves, static_cast<const uint2*>(partials),
       static_cast<uint32_t*>(digests), static_cast<uint32_t*>(out));
+  return int(cudaGetLastError());
+}
+
+// The table as state_fold's (a leaf a rank does not count: a row of 0
+// elements and one block); partials: total_blocks uint2; sums: n_leaves
+// pairs of int64 (s1, s2), each in [0, 2^32). Returns a cudaError_t code.
+extern "C" int state_fold_sums(const void* table, int n_leaves,
+                               long long total_blocks, void* partials,
+                               void* sums, void* stream) {
+  if (n_leaves < 1 || total_blocks < n_leaves ||
+      total_blocks > 2147483647LL)
+    return int(cudaErrorInvalidValue);
+  const Row* rows = static_cast<const Row*>(table);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  fold_partials<<<unsigned(total_blocks), THREADS, 0, s>>>(
+      rows, n_leaves, static_cast<uint2*>(partials));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  fold_sums<<<(n_leaves + SUMS_WARPS - 1) / SUMS_WARPS, SUMS_WARPS * 32, 0,
+              s>>>(rows, n_leaves, static_cast<const uint2*>(partials),
+                   static_cast<long long*>(sums));
+  return int(cudaGetLastError());
+}
+
+// sums: n_leaves pairs of int64 (all-reduced; their low 32 bits are the
+// wrapping sums); crcs: n_leaves int64 (crc32 of each name, in the
+// combine's order); out: one uint32. Returns a cudaError_t code.
+extern "C" int state_fold_chain(const void* sums, const void* crcs,
+                                int n_leaves, void* out, void* stream) {
+  if (n_leaves < 1) return int(cudaErrorInvalidValue);
+  fold_chain<<<1, CHAIN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(sums),
+      static_cast<const long long*>(crcs), n_leaves,
+      static_cast<uint32_t*>(out));
   return int(cudaGetLastError());
 }
 

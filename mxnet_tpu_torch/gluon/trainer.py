@@ -141,11 +141,11 @@ class Trainer:
             return
         if self._kvstore is None:
             self._init_kvstore()
-        for i in self._active():
-            g = NDArray(self._params[i].grad())
-            self._kvstore.push(i, g)
-            if not self._update_on_kvstore:
-                self._kvstore.pull(i, g)
+        keys = list(self._active())
+        grads = [NDArray(self._params[i].grad()) for i in keys]
+        self._kvstore.push(keys, grads)     # one push: one liveness check
+        if not self._update_on_kvstore:
+            self._kvstore.pull(keys, grads)
 
     def step(self, batch_size, ignore_stale_grad=False):
         """One update of every trainable parameter, with gradients summed

@@ -26,9 +26,19 @@ share one card run over gloo, on CUDA tensors. Every rank holds the same
 bits after an all-reduce: gloo's and NCCL's rings finish each chunk's sum
 on one rank and copy it to the others.
 
-Not ported here: ``mxnet_tpu``'s fault hooks and collective watchdog
-(``_faults``, ``_watchdog.collective_guard``; ROADMAP Queue 1 item 12)
-and ``fingerprint_agree``'s flight record (item 12).
+The connect retries with exponential backoff inside a deadline
+(``mxnet_tpu/kvstore/dist.py:178-267``): ``MXNET_TPU_TORCH_DIST_TIMEOUT``
+(300 s), ``MXNET_TPU_TORCH_DIST_RETRIES`` (60), ``MXNET_TPU_TORCH_DIST_
+BACKOFF`` (1 s, doubling, capped at 30, jittered over the upper half);
+the ``dist_connect_timeout`` fault fails an attempt. The store declares
+the job's liveness (``watchdog.join_job``); a push consults it once
+(``watchdog.check_peers``: the beats and this rank's own), and each
+all-reduce runs under ``watchdog.collective_guard`` with the
+``hang_collective`` hook: a dead peer surfaces as ``PeerLostError`` naming
+it, a wedged all-reduce as ``StallError`` past
+``MXNET_TPU_TORCH_WATCHDOG_COLLECTIVE_TIMEOUT``.
+``fingerprint_agree`` counts a disagreement in the integrity counters and
+the flight recorder.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ import hashlib
 import json
 import logging
 import os
+import random
 import socket
 import tempfile
 import time
@@ -44,6 +55,9 @@ import time
 import torch
 
 from ..ndarray.ndarray import NDArray
+from ..observability import flight as _obs_flight
+from ..resilience import faults as _faults
+from ..resilience import watchdog as _watchdog
 from .kvstore import KVStore, _pairs
 
 __all__ = ["KVStoreDist", "DistConfigError", "init_distributed",
@@ -248,12 +262,31 @@ def _local_store(coordinator, num_processes, process_id, timeout):
                                       timeout=delta)
 
 
+def _is_connect_error(e):
+    msg = str(e).lower()
+    return any(m in msg for m in ("deadline", "unavailable", "timed out",
+                                  "timeout", "connect", "refused",
+                                  "unreachable", "reset"))
+
+
+_JITTER = random.Random()
+
+
 def init_distributed(coordinator=None, num_processes=None, process_id=None,
-                     timeout=None):
+                     timeout=None, max_retries=None, backoff=None):
     """Make the process group from the launcher's environment (idempotent).
-    Returns False when the process was not launched as a worker. A worker
-    that cannot reach rank 0 within ``timeout`` seconds (env
-    ``MXNET_TPU_TORCH_DIST_TIMEOUT``, default 300) raises."""
+    Returns False when the process was not launched as a worker.
+
+    A rank that cannot reach the rendezvous fails in bounded time, not a
+    hang: ``timeout`` (env ``MXNET_TPU_TORCH_DIST_TIMEOUT``, default 300)
+    bounds the whole bootstrap, retries included; ``max_retries`` (env
+    ``MXNET_TPU_TORCH_DIST_RETRIES``, default 60) connect attempts beyond
+    the first are spaced by exponential backoff from ``backoff`` seconds
+    (env ``MXNET_TPU_TORCH_DIST_BACKOFF``, default 1.0, capped at 30),
+    each delay drawn over the upper half of its ceiling so the ranks do
+    not retry in lockstep; every retry is logged. Only connection-flavoured
+    errors retry; anything else surfaces at once. Raises TimeoutError
+    naming the coordinator when the deadline or the retries run out."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
@@ -269,11 +302,56 @@ def init_distributed(coordinator=None, num_processes=None, process_id=None,
     _claim_rank(coordinator, num_processes, process_id)
     if timeout is None:
         timeout = float(os.environ.get("MXNET_TPU_TORCH_DIST_TIMEOUT", "300"))
+    if max_retries is None:
+        max_retries = int(os.environ.get("MXNET_TPU_TORCH_DIST_RETRIES",
+                                         "60"))
+    if backoff is None:
+        backoff = float(os.environ.get("MXNET_TPU_TORCH_DIST_BACKOFF", "1.0"))
     backend, why = backend_rule(num_processes)
     _log.info("worker %d/%d: backend %s (%s)", process_id, num_processes,
               backend, why)
     if backend == "nccl":
         torch.cuda.set_device(process_id % torch.cuda.device_count())
+    deadline = time.monotonic() + timeout
+    attempt, last_err = 0, None
+    while True:
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            break
+        try:
+            _faults.maybe_dist_connect_fault()
+            _connect(coordinator, num_processes, process_id, backend,
+                     remaining)
+            return True
+        except (TimeoutError, ConnectionError) as e:
+            last_err = e
+        except RuntimeError as e:   # DistNetworkError / DistStoreError too
+            if not _is_connect_error(e):
+                raise
+            last_err = e
+        attempt += 1
+        if attempt > max_retries:
+            break
+        ceiling = min(backoff * (2 ** (attempt - 1)), 30.0)
+        delay = min(_JITTER.uniform(ceiling / 2.0, ceiling),
+                    max(0.0, deadline - time.monotonic()))
+        _log.warning("init_distributed: worker %s/%s attempt %d/%d failed "
+                     "(%r); next retry in %.2fs", process_id, num_processes,
+                     attempt, max_retries + 1, last_err, max(0.0, delay))
+        if delay > 0:
+            time.sleep(delay)
+    raise TimeoutError(
+        f"init_distributed: worker {process_id}/{num_processes} could not "
+        f"reach coordinator {coordinator} within {timeout:.1f}s ({attempt} "
+        f"attempt(s), exponential backoff from {backoff:.1f}s). Last error: "
+        f"{last_err!r}. Check that rank 0 is up and DMLC_PS_ROOT_URI / "
+        "DMLC_PS_ROOT_PORT point at it.")
+
+
+def _connect(coordinator, num_processes, process_id, backend, timeout):
+    """One attempt at the rendezvous and the process group."""
+    import torch.distributed as dist
+
     delta = datetime.timedelta(seconds=timeout)
     if str(coordinator).rpartition(":")[0] in _LOOPBACK:
         store = _local_store(coordinator, num_processes, process_id,
@@ -285,7 +363,6 @@ def init_distributed(coordinator=None, num_processes=None, process_id=None,
         dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                                 world_size=num_processes, rank=process_id,
                                 timeout=delta)
-    return True
 
 
 def state_fingerprint(named):
@@ -307,6 +384,8 @@ class KVStoreDist(KVStore):
     def __init__(self, kind="dist_sync"):
         super().__init__(kind)
         init_distributed()
+        if self.num_workers > 1:
+            _watchdog.join_job(self.num_workers, self.rank)
 
     @property
     def rank(self):
@@ -334,21 +413,43 @@ class KVStoreDist(KVStore):
             import torch.distributed as dist
 
             for k in _pairs(key, value)[0]:
-                dist.broadcast(self._data[k]._data, src=0)
+                with _watchdog.collective_guard(
+                        detail=f"kvstore('dist').init({k!r})"):
+                    _watchdog.wait_work(dist.broadcast(
+                        self._data[k]._data, src=0, async_op=True),
+                        "kvstore('dist').broadcast")
+
+    def push(self, key, value, priority=0):
+        """:meth:`KVStore.push`, one liveness consultation for all its
+        keys first (a dead peer raises PeerLostError before any
+        all-reduce)."""
+        if self.num_workers > 1:
+            _watchdog.check_peers("kvstore('dist').push")
+        super().push(key, value, priority)
 
     def _global_merge(self, merged):
         """The sum of this worker's merged value over every worker."""
         if self.num_workers > 1:
-            import torch.distributed as dist
-
-            dist.all_reduce(merged._data)
+            self.allreduce(merged._data)
         return merged
+
+    def allreduce(self, t):
+        """Sum ``t`` (the same shape on every worker) over the workers, in
+        place, under the collective watchdog (``mxnet_tpu/kvstore/dist.py:
+        376-383``): a dead peer raises PeerLostError naming it, a wedged
+        reduction StallError past the collective deadline."""
+        import torch.distributed as dist
+
+        detail = f"kvstore('dist').allreduce{tuple(t.shape)}"
+        with _watchdog.collective_guard(detail=detail):
+            _faults.maybe_hang("hang_collective")
+            _watchdog.wait_work(dist.all_reduce(t, async_op=True), detail)
+        return t
 
     def barrier(self):
         if self.num_workers > 1:
-            import torch.distributed as dist
-
-            dist.barrier()
+            self.allreduce(torch.zeros(
+                1, device="cuda" if self.backend == "nccl" else "cpu"))
 
     def state_fingerprint(self, named):
         return state_fingerprint(named)
@@ -358,18 +459,26 @@ class KVStoreDist(KVStore):
         fingerprint: the 32-bit fingerprint as two 16-bit halves, their
         sum and square-sum all-reduced in float64; ``sum(x_i) == n*x`` and
         ``sum(x_i^2) == n*x^2`` hold only when every x_i is x
-        (``mxnet_tpu/kvstore/dist.py:465``)."""
+        (``mxnet_tpu/kvstore/dist.py:465``). A disagreement counts in the
+        integrity layer's ``integrity_ckpt_mismatches`` and records a
+        ``kv_disagree`` flight event."""
         fp = self.state_fingerprint(named)
         n = self.num_workers
         if n <= 1:
             return True
-        import torch.distributed as dist
+        from ..resilience import integrity as _integrity
 
         halves = torch.tensor([fp & 0xFFFF, fp >> 16], dtype=torch.float64)
         vec = torch.cat([halves, halves * halves])
         total = vec.clone()
         if self.backend == "nccl":
             total = total.cuda()
-        dist.all_reduce(total)
-        return bool(torch.equal(total.cpu(), vec * float(n)))
+        self.allreduce(total)
+        agree = bool(torch.equal(total.cpu(), vec * float(n)))
+        if not agree:
+            _integrity._STATS["integrity_ckpt_mismatches"] += 1
+            _integrity._MET_MISMATCHES.inc(surface="checkpoint")
+            _obs_flight.record("integrity", op="kv_disagree",
+                               rank=self.rank, fingerprint=fp)
+        return agree
 

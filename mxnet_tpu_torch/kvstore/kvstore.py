@@ -7,9 +7,9 @@ src/kvstore/kvstore_local.h, comm.h).
 list sums it in list order (``((v0 + v1) + v2) + ...``, on the first
 value's device) and either applies the updater to the stored value or
 stores the sum; ``pull`` writes the stored value into each target in
-place. 'tpu' / 'nccl' is a device store here: ``mxnet_tpu``'s
-collective watchdog around its push waits for the resilience port
-(ROADMAP Queue 1 item 12). 'dist', 'dist_sync' and 'dist_device_sync'
+place. 'tpu' / 'nccl' is a device store here, without ``mxnet_tpu``'s
+collective watchdog around its push (one process has no peer to lose;
+the dist store's all-reduce runs under it). 'dist', 'dist_sync' and 'dist_device_sync'
 are :class:`~mxnet_tpu_torch.kvstore.dist.KVStoreDist`, whose push sums
 each merged value over the workers (:meth:`KVStore._global_merge`);
 'dist_async' raises. Gradient compression (``kvstore/compression.py``)

@@ -41,7 +41,8 @@ def _stderr_tail(path, limit=4096):
         return ""
 
 
-def launch_local(n, cmd, port=None, grace=None):
+def launch_local(n, cmd, port=None, grace=None, env_extra=None,
+                 kill_siblings=True):
     """Spawn ``n`` local workers; returns the job's exit code.
 
     Each worker's stderr is captured to a temp file. When the first
@@ -49,8 +50,12 @@ def launch_local(n, cmd, port=None, grace=None):
     ``grace`` seconds (env ``MXNET_TPU_TORCH_LAUNCH_GRACE_S``, default 10),
     SIGKILL — survivors would otherwise hang in collectives waiting for
     the dead peer. The failing rank's exit code is returned (not a
-    sibling's SIGTERM code) and its stderr tail echoed to this process's
-    stderr.
+    sibling's SIGTERM code), its stderr tail echoed to this process's
+    stderr, and ``launch_local.last_failure`` holds ``{"rank", "code",
+    "stderr_tail"}`` (None on success). ``kill_siblings=False`` keeps the
+    survivors running: a job that recovers from a lost peer outlives one
+    rank's death. ``env_extra``: variables added to every worker's
+    environment.
 
     A SIGTERM delivered to the launcher (a scheduler preemption notice)
     is forwarded to every live worker; ranks still alive after ``grace``
@@ -61,6 +66,7 @@ def launch_local(n, cmd, port=None, grace=None):
     port = port or free_port()
     if grace is None:
         grace = float(os.environ.get("MXNET_TPU_TORCH_LAUNCH_GRACE_S", "10"))
+    launch_local.last_failure = None
     procs = []
     logs = []
     preempt = {"deadline": None}
@@ -78,6 +84,7 @@ def launch_local(n, cmd, port=None, grace=None):
     try:
         for rank in range(n):
             env = dict(os.environ)
+            env.update(env_extra or {})
             env.update({
                 "DMLC_ROLE": "worker",
                 "DMLC_WORKER_ID": str(rank),
@@ -108,9 +115,10 @@ def launch_local(n, cmd, port=None, grace=None):
                 if code != 0 and failed_rank is None:
                     failed_rank = procs.index(p)
                     rc = code
-                    for q in live:
-                        q.send_signal(signal.SIGTERM)
-                    term_deadline = time.monotonic() + grace
+                    if kill_siblings:
+                        for q in live:
+                            q.send_signal(signal.SIGTERM)
+                        term_deadline = time.monotonic() + grace
             deadline = term_deadline or preempt["deadline"]
             if deadline is not None and time.monotonic() > deadline:
                 for q in live:
@@ -118,9 +126,12 @@ def launch_local(n, cmd, port=None, grace=None):
                         q.kill()
             time.sleep(0.1)
         if failed_rank is not None:
+            tail = _stderr_tail(logs[failed_rank])
+            launch_local.last_failure = {"rank": failed_rank, "code": rc,
+                                         "stderr_tail": tail}
             sys.stderr.write(
                 f"launch: worker rank {failed_rank} exited with code {rc}; "
-                f"stderr tail:\n{_stderr_tail(logs[failed_rank])}\n")
+                f"stderr tail:\n{tail}\n")
         return rc
     finally:
         if prev_handler is not None:
@@ -142,6 +153,8 @@ def launch_local(n, cmd, port=None, grace=None):
             except OSError:
                 pass
 
+
+launch_local.last_failure = None
 
 
 def main(argv=None):

@@ -24,8 +24,7 @@
 - :mod:`traceview` — span records as a Chrome trace.
 
 The names of metrics, spans, counters and flight events are
-``mxnet_tpu``'s, so the two packages' records compare one to one. Not
-ported: the pod host-down rule (with pods, ROADMAP Queue 1 item 12).
+``mxnet_tpu``'s, so the two packages' records compare one to one.
 """
 from __future__ import annotations
 

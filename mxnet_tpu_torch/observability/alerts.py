@@ -20,8 +20,8 @@
   :func:`open_incidents` is what the autoscaler reads.
 
 Disabled (``MXNET_TPU_TORCH_ALERTS=0`` or :func:`set_enabled`), the
-evaluation site is one global check. Not ported: the pod host-down rule
-(with pods, the rest of ROADMAP Queue 1 item 12).
+evaluation site is one global check. ``pod_host_down`` fires from any
+survivor once the watchdog's pod liveness layer marks a host dead.
 """
 from __future__ import annotations
 
@@ -93,6 +93,7 @@ ALERT_RULE_IDS = (
     "numerics_grad_explosion",  # numerics tap: grad norm off median+k*MAD
     "numerics_dead_layer",    # numerics tap: a layer stopped training
     "decode_ttft_burn",       # decode TTFT SLO-miss burn rate, 2 windows
+    "pod_host_down",          # a pod host's heartbeat/liveness lost
     "sdc_detected",           # integrity layer caught silent corruption
 )
 
@@ -540,6 +541,22 @@ def _probe_numerics(cond_name):
     return probe
 
 
+def _probe_pod_hosts(ctx):
+    """Dead pod hosts per the watchdog's host liveness tracker: no data
+    until this process configures a pod (a one-host run never evaluates a
+    host-down alert); the sticky dead set keeps the incident FIRING until
+    re-admission (``watchdog.configure_pod`` / ``reset_hosts``)."""
+    watchdog = sys.modules.get("mxnet_tpu_torch.resilience.watchdog")
+    if watchdog is None:
+        return None, None
+    snap = watchdog.pod_snapshot()
+    if not snap.get("configured"):
+        return None, None
+    dead = sorted(snap.get("dead_hosts") or ())
+    return len(dead), {"dead_hosts": dead, "num_hosts": snap.get("num_hosts"),
+                       "coordinator": snap.get("coordinator")}
+
+
 def _default_rules():
     floor = _env_float("MXNET_TPU_TORCH_ALERT_HEALTHY_FLOOR", 1.0)
     stall_max = _env_float("MXNET_TPU_TORCH_ALERT_STALL_MAX", 0.5)
@@ -605,6 +622,12 @@ def _default_rules():
                         "the error budget in both the fast and slow "
                         "window (TTFT over "
                         "MXNET_TPU_TORCH_DECODE_TTFT_SLO_MS at admission)"),
+        ThresholdRule(
+            "pod_host_down", _probe_pod_hosts, ">=", 1,
+            description="a pod host failure domain is dead: the "
+                        "watchdog's liveness layer (beats, pid checks, "
+                        "stall blame) marked at least one host dead; "
+                        "sticky until re-admission"),
         CounterSpikeRule(
             "sdc_detected", "integrity",
             ("integrity_audit_mismatches", "integrity_selftest_failures",

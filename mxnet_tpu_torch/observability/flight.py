@@ -23,7 +23,7 @@ import time
 from . import _STATS
 
 __all__ = ["record", "events", "snapshot", "clear", "set_ring",
-           "ring_size", "last_seq"]
+           "ring_size", "last_seq", "set_host", "host"]
 
 from collections import deque
 
@@ -36,6 +36,22 @@ except ValueError:
 _RING = deque(maxlen=_RING_SIZE) if _RING_SIZE > 0 else None
 _SEQ = itertools.count(1)
 _LAST_SEQ = 0
+_HOST = None  # pod host rank stamped onto every event (None = untagged)
+
+
+def set_host(host):
+    """Tag every later event with this process's pod host rank
+    (``watchdog.configure_pod`` calls it); ``None`` removes the tag.
+    Returns the previous value."""
+    global _HOST
+    prev = _HOST
+    _HOST = None if host is None else int(host)
+    return prev
+
+
+def host():
+    """The pod host rank events are tagged with, or None."""
+    return _HOST
 
 
 def set_ring(size):
@@ -60,15 +76,20 @@ def ring_size():
 
 def record(kind, **fields):
     """Append one event. ``fields`` must be flat JSON-serializable
-    values (the crash-report writer stringifies anything else). Returns
-    the event's sequence number, or 0 when the recorder is disabled."""
+    values (the crash-report writer stringifies anything else). Events
+    carry the pod host rank once :func:`set_host` was called (an explicit
+    ``host=`` field wins). Returns the event's sequence number, or 0 when
+    the recorder is disabled."""
     global _LAST_SEQ
     if _RING is None:
         return 0
     event = {"seq": 0, "t": time.time(), "ns": time.perf_counter_ns(),
              "kind": str(kind)}
+    if _HOST is not None:
+        event["host"] = _HOST
     for k, v in fields.items():
-        event.setdefault(k, v)  # kind/seq/t/ns are the recorder's own
+        if k == "host" or k not in event:  # kind/seq/t/ns: the recorder's
+            event[k] = v
     with _LOCK:
         # seq is drawn under the same lock hold as the append, so ring
         # order always equals seq order and last_seq() is a sound

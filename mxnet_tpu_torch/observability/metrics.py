@@ -37,7 +37,8 @@ __all__ = ["counter", "gauge", "histogram", "get", "registry",
            "update_derived",
            "slo_counters",
            "decode_counters",
-           "note_span", "reset", "Counter", "Gauge", "Histogram"]
+           "note_span", "reset", "Counter", "Gauge", "Histogram",
+           "update_pod"]
 
 _LOCK = threading.Lock()
 _REGISTRY: dict = {}
@@ -440,9 +441,54 @@ def update_input_stall():
     return value
 
 
+# --------------------------------------------------- derived pod gauges
+# The pod liveness view, from the watchdog's host tracker: one picture of
+# the whole pod on every host's exporter, so a host-down alert fires from
+# any survivor while the dead host's own exporter is gone.
+_POD_HOSTS = gauge(
+    "mxnet_tpu_pod_hosts",
+    "hosts in the pod's current topology (absent when no pod is "
+    "configured)")
+_POD_HOSTS_LIVE = gauge(
+    "mxnet_tpu_pod_hosts_live",
+    "pod hosts not currently marked dead by the watchdog liveness layer")
+_POD_HOST_UP = gauge(
+    "mxnet_tpu_pod_host_up",
+    "1 while the labeled pod host is live, 0 once the watchdog marks it "
+    "dead (sticky until re-admission)", labels=("host",))
+
+
+def update_pod():
+    """Refresh the ``mxnet_tpu_pod_*`` gauges from the watchdog's pod
+    snapshot (``mxnet_tpu/observability/metrics.py:490``). A process with
+    no pod leaves every pod series absent; after a shrink the renumbered
+    hosts' series replace the old ones. Returns the snapshot, or None."""
+    import sys
+
+    watchdog = sys.modules.get("mxnet_tpu_torch.resilience.watchdog")
+    if watchdog is None:
+        return None
+    snap = watchdog.pod_snapshot()
+    if not snap.get("configured"):
+        for ls in list(_POD_HOST_UP.labelsets()):
+            _POD_HOST_UP.remove(**dict(ls))
+        return None
+    num = int(snap["num_hosts"])
+    dead = set(snap["dead_hosts"])
+    _POD_HOSTS.set(num)
+    _POD_HOSTS_LIVE.set(num - len(dead & set(range(num))))
+    current = {str(h) for h in range(num)}
+    for ls in list(_POD_HOST_UP.labelsets()):
+        if dict(ls).get("host") not in current:
+            _POD_HOST_UP.remove(**dict(ls))
+    for h in range(num):
+        _POD_HOST_UP.set(0.0 if h in dead else 1.0, host=h)
+    return snap
+
+
 def update_derived():
-    """Refresh every derived gauge family (fleet SLO, decode SLO, the
-    perf ledger's per-graph gauges, the input-stall fraction) in one
+    """Refresh every derived gauge family (fleet SLO, decode SLO, the pod,
+    the perf ledger's per-graph gauges, the input-stall fraction) in one
     place, then give the alert engine its evaluation tick. Every exporter
     calls this. One ``slo_counters()`` view is taken per tick and shared
     by the SLO gauges and the alert windows (one ``slo_burn`` hook fire
@@ -450,6 +496,7 @@ def update_derived():
     counters = slo_counters()
     update_slo(counters)
     update_decode_slo()
+    update_pod()
     from . import alerts as _alerts
     from . import perf as _perf
 

@@ -7,13 +7,15 @@ the batch axes, optimizer update; fp32 masters with an optional 16-bit
 compute dtype) over dp, dp x fsdp (``SpecLayout`` rules), tp (tensor
 parallelism, :mod:`tensor_parallel`) and sp (ring attention), with
 ``remat``. The collectives GSPMD places in ``mxnet_tpu`` are written out
-in :mod:`collectives`. 'pp', 'ep' and tp x sp are ROADMAP Queue 1 item 6,
-pods and the mesh shrink after a lost peer item 12.
+in :mod:`collectives`. Pods (``PodTopology``, ``pod_mesh``) make hosts
+the failure domains; after a lost peer or host the survivors shrink the
+mesh (``shrink_mesh``, ``shrink_mesh_hosts``) and move onto it
+(``rejoin``). 'pp', 'ep' and tp x sp are ROADMAP Queue 1 item 6.
 """
 from .mesh import (Mesh, create_mesh, default_mesh, named_mesh,
                    parse_mesh_spec, local_devices, shrink_mesh,
                    MeshShrinkError, AXES, PodTopology, pod_mesh,
-                   shrink_mesh_hosts)
+                   shrink_mesh_hosts, rejoin)
 from .layout import SpecLayout, PartitionSpec
 from .functional import functional_call, param_arrays, aux_arrays
 from .optim import make_update_fn
@@ -27,7 +29,8 @@ from .ring_attention import ring_attention, ring_attention_inner, attention
 __all__ = ["ShardedTrainer", "create_mesh", "default_mesh", "named_mesh",
            "parse_mesh_spec", "local_devices", "shrink_mesh",
            "MeshShrinkError", "AXES", "PodTopology", "pod_mesh",
-           "shrink_mesh_hosts", "Mesh", "SpecLayout", "PartitionSpec",
+           "shrink_mesh_hosts", "rejoin", "Mesh", "SpecLayout",
+           "PartitionSpec",
            "functional_call", "param_arrays", "aux_arrays", "make_update_fn",
            "ring_attention", "ring_attention_inner", "attention", "ring",
            "collectives", "tensor_parallel"]

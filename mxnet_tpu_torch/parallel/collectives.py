@@ -20,6 +20,11 @@ The transport follows the group's backend and nothing else:
 - A CUDA stream that is capturing a graph can hold no host-side exchange:
   a gloo collective on a CUDA tensor then raises.
 
+Every call waits through ``resilience.watchdog.wait_work``: where the
+job's liveness is declared (a multi-rank trainer, the dist store), a peer
+that died leaves the wait as ``PeerLostError`` naming it, not as a gloo
+error or an endless block.
+
 :func:`stats` counts calls by kind, the bytes handed to collectives (in
 all and by kind), the bytes staged through host buffers (both
 directions) and the host seconds spent in the calls (for NCCL the
@@ -83,6 +88,17 @@ class _counted:
         _STATS["seconds"] += time.perf_counter() - self.t0
 
 
+def _wait(work, kind, sliced=True):
+    """Wait for one collective through the watchdog: a plain wait, or,
+    with a job's liveness declared, in slices that watch the peers
+    (``resilience.watchdog.wait_work``: a dead peer leaves as
+    ``PeerLostError``)."""
+    from ..resilience import watchdog
+
+    return watchdog.wait_work(work, detail=f"collectives.{kind}",
+                              sliced=sliced)
+
+
 def _check_transport(x, group, kind):
     """``group``'s backend; raises where it cannot take ``x``."""
     import torch.distributed as dist
@@ -119,7 +135,7 @@ def all_reduce(x, mesh, axes, op="sum"):
     nbytes = x.numel() * x.element_size()
     with _counted("all_reduce", nbytes,
                   _staged(x, group, "all_reduce", 2 * nbytes)):
-        dist.all_reduce(x, group=group)
+        _wait(dist.all_reduce(x, group=group, async_op=True), "all_reduce")
     if op == "mean":
         x.div_(mesh.axis_size(axes))
     elif op != "sum":
@@ -143,7 +159,8 @@ def all_gather(x, mesh, axes, dim=0):
     nbytes = out.numel() * out.element_size()
     with _counted("all_gather", nbytes,
                   _staged(x, group, "all_gather", nbytes + nbytes // n)):
-        dist.all_gather_into_tensor(out, x, group=group)
+        _wait(dist.all_gather_into_tensor(out, x, group=group,
+                                          async_op=True), "all_gather")
     return out.movedim(0, dim)
 
 
@@ -166,7 +183,8 @@ def reduce_scatter(x, mesh, axes, dim=0):
     nbytes = x.numel() * x.element_size()
     with _counted("reduce_scatter", nbytes,
                   _staged(x, group, "reduce_scatter", nbytes + nbytes // n)):
-        dist.reduce_scatter_tensor(out, x, group=group)
+        _wait(dist.reduce_scatter_tensor(out, x, group=group,
+                                         async_op=True), "reduce_scatter")
     return out.movedim(0, dim)
 
 
@@ -181,7 +199,8 @@ def broadcast(x, mesh, src=0):
     nbytes = x.numel() * x.element_size()
     with _counted("broadcast", nbytes, _staged(x, group, "broadcast",
                                                nbytes)):
-        dist.broadcast(x, src=src, group=group)
+        _wait(dist.broadcast(x, src=src, group=group, async_op=True),
+              "broadcast")
     return x
 
 
@@ -245,7 +264,7 @@ def ring_shift(tensors, mesh, axis, shift=1):
         ops = [dist.P2POp(dist.isend, send, dst, group),
                dist.P2POp(dist.irecv, recv, src, group)]
         for work in dist.batch_isend_irecv(ops):
-            work.wait()
+            _wait(work, "ring_shift", sliced=False)
         if staged:
             recv = recv.to(buf.device, non_blocking=True)
     return _from_bytes(recv, tensors)

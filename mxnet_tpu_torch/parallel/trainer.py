@@ -61,23 +61,39 @@ The resilience hooks (``mxnet_tpu/parallel/trainer.py:41-814``): a
 ``checkpoint_manager`` (``enable_recovery``) that the preemption exit
 saves through, with the SIGTERM trap
 (``integrity.install_preempt_handler``),
-the step fingerprint (``integrity.step_fold``) as one more output of the
+the step fingerprint (``integrity.step_fold``; over several ranks
+``integrity.fold_sharded``) as one more output of the
 captured step, the step under ``watchdog.guard("step")`` with the fault
 hooks, the shadow replay audit, the elastic OOM retry (bitwise an explicit
 ``microbatches=N`` step), the pad mask ``length=``, the numerics tap
 (:meth:`ShardedTrainer.attach_numerics`) and optimizer-state
 ``get_states_bytes`` / ``save_states`` / ``load_states``.
 
+Over several ranks (``mxnet_tpu/parallel/trainer.py:470-985``): the
+step fingerprint and the audit are the gathered state's
+(``integrity.fold_sharded``: each rank sums the leaves it counts, one
+all-reduce, the chain), the same on every rank; a lost peer or host
+(``watchdog.PeerLostError``, from the liveness checks at each attempt's
+top or from a collective) with a checkpoint manager attached shrinks the
+mesh to the survivors, rebuilds their process groups at the next
+generation, reloads the latest checkpoint and runs the batch again
+(:meth:`ShardedTrainer._recover_peer_loss`); :meth:`for_pod` /
+:meth:`bind_pod` make whole hosts the failure domains, and the manager's
+pod commit writes each host's own shards.
+
 Not ported, and raising where asked for: mesh axes of more than one rank
 other than the batch axes, 'sp' and 'tp' ('pp', 'ep'), 'tp' together
 with 'sp', and a spec splitting two dimensions of a parameter outside a
-tensor-parallel layer (ROADMAP Queue 1 item 6); the mesh-shrink recovery
-after a lost peer, pod and multi-host recovery, and the fingerprint and
-audit over several ranks (the rest of Queue 1 item 12).
+tensor-parallel layer (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
+import logging
+import math
+import os
 import re
+import sys
+import time
 import warnings
 
 import numpy as np
@@ -95,6 +111,26 @@ from .optim import make_update_fn
 from . import tensor_parallel
 
 __all__ = ["ShardedTrainer", "make_update_fn"]
+
+
+def _box(shape):
+    """The index of a whole array: [[0, d] for each dimension]."""
+    return [(0, int(d)) for d in shape]
+
+
+def _dtype_str(t):
+    """A tensor's manifest dtype: ``"bfloat16"``, else numpy's string."""
+    if t.dtype == torch.bfloat16:
+        return "bfloat16"
+    return torch.empty(0, dtype=t.dtype).numpy().dtype.str
+
+
+def _collective_timedelta():
+    import datetime
+
+    from ..resilience.watchdog import collective_timeout
+
+    return datetime.timedelta(seconds=collective_timeout())
 
 
 def _queued(what, item):
@@ -154,8 +190,9 @@ class ShardedTrainer:
     checkpoint_manager : a ``resilience.CheckpointManager``: the
         preemption exit saves through it, and with one the trainer traps
         SIGTERM (``mxnet_tpu`` traps it for every trainer; the port only
-        where a checkpoint can be written); ``enable_recovery`` attaches
-        it later; the mesh shrink after a lost peer is not ported
+        where a checkpoint can be written), and a lost peer is survived
+        by a mesh shrink that reloads from it; ``enable_recovery``
+        attaches it later
     """
 
     def __init__(self, net, loss_fn, optimizer="sgd", optimizer_params=None,
@@ -164,10 +201,57 @@ class ShardedTrainer:
         from ..resilience import integrity as _integrity
 
         mesh = mesh if mesh is not None else create_mesh()
-        self.mesh = mesh
         self._batch_axis = (batch_axis_name if isinstance(batch_axis_name,
                                                           str)
                             else tuple(batch_axis_name))
+        self.device = mesh.device
+        self.net = net
+        self.loss_fn = loss_fn
+        self._compute_dtype = None if dtype is None else torch_dtype(dtype)
+        self._rules = [(re.compile(pat), spec) for pat, spec in param_rules]
+        self._remat = mirror_enabled() if remat is None else remat
+        params = {k: v.detach().to(self.device, copy=True)
+                  for k, v in param_arrays(net).items()}
+        self.aux = {k: v.detach().to(self.device, copy=True)
+                    for k, v in aux_arrays(net).items()}
+        self._hooks_now = False
+        self._optimizer = optimizer
+        self._optimizer_params = dict(optimizer_params or {})
+        self._opt_init, self._update = make_update_fn(
+            optimizer, dict(self._optimizer_params))
+        self._pod = None
+        self._set_mesh(mesh, params, broadcast=True)
+        # this process's rank when the job began: a device fault's victim
+        # keeps its name through the renumbering of a shrink
+        self._origin_rank = mesh.rank
+        self._slots = capture.SlotTable(self.device)
+        self._step_vals = None
+        self._exec = self._new_exec()
+        self._ckpt_mgr = checkpoint_manager
+        self._elastic_n = 1        # sticky accumulation count
+        self._step_count = 0
+        self._last_fp_out = None
+        self._numerics = None
+        self._tap_slots = capture.SlotTable(self.device)
+        self.last_recovery = None
+        if checkpoint_manager is not None:
+            _integrity.install_preempt_handler()
+
+    def _new_exec(self):
+        return capture.CapturedExec(
+            self._captured_program, label="sharded_step",
+            device=self.device, state=self._state_tensors,
+            eager=self._eager_program, warmup_guard=self._warmup_guard,
+            fingerprint=lambda sig: capture.fingerprint(
+                {"step": self._capture_fingerprint(), "sig": repr(sig)}))
+
+    def _set_mesh(self, mesh, params, broadcast):
+        """Lay the trainer out over ``mesh``: its axes, the tensor-parallel
+        plan, the forward, and ``params`` ({name: full tensor}) as this
+        rank holds them, the optimizer state fresh (``broadcast``: rank
+        0's values first, as at construction). A mesh of several ranks
+        declares the job's liveness (``watchdog.join_job``)."""
+        self.mesh = mesh
         self._batch_axes = tuple(a for a in self._batch_axis_names()
                                  if a in mesh.axis_names)
         self._reduce_axes = self._batch_axes + tuple(
@@ -196,25 +280,18 @@ class ShardedTrainer:
                     f"ShardedTrainer: {mesh} holds no process groups; "
                     "build a mesh of several ranks with create_mesh under "
                     "torch.distributed (ShardedTrainer.for_multihost)")
-        self.device = mesh.device
-        self.net = net
-        self.loss_fn = loss_fn
-        self._compute_dtype = None if dtype is None else torch_dtype(dtype)
-        self._rules = [(re.compile(pat), spec) for pat, spec in param_rules]
-        params = {k: v.detach().to(self.device, copy=True)
-                  for k, v in param_arrays(net).items()}
-        self.aux = {k: v.detach().to(self.device, copy=True)
-                    for k, v in aux_arrays(net).items()}
+            from ..resilience import watchdog as _watchdog
+
+            if mesh.generation == 0:
+                _watchdog.join_job(mesh.size, mesh.rank)
         # {name: (dim, qkv)}: the tp shards the tensor-parallel layers
         # compute on, and the context that names those layers
         self._tp_split, tp = self._tp_plan(params)
-        self._fwd = functional_call(net, train=True, mesh=mesh,
+        self._fwd = functional_call(self.net, train=True, mesh=mesh,
                                     batch_axes=self._batch_axes, tp=tp)
-        if remat is None:
-            remat = mirror_enabled()
-        if remat:
-            self._fwd = checkpointed(self._fwd, remat)
-        if self._multi:
+        if self._remat:
+            self._fwd = checkpointed(self._fwd, self._remat)
+        if self._multi and broadcast:
             # every rank starts from rank 0's values (mxnet_tpu's _place
             # broadcasts them): nets initialized from different streams
             # would otherwise train different replicas
@@ -225,28 +302,7 @@ class ShardedTrainer:
         self.params = {k: (self._shards[k].piece(
             v, mesh.axis_index(self._shards[k].axes)).clone()
             if k in self._shards else v) for k, v in local.items()}
-        self._hooks_now = False
-        self._optimizer = optimizer
-        self._optimizer_params = dict(optimizer_params or {})
-        init, self._update = make_update_fn(optimizer,
-                                            dict(self._optimizer_params))
-        self.opt_state = init(self.params)
-        self._slots = capture.SlotTable(self.device)
-        self._step_vals = None
-        self._exec = capture.CapturedExec(
-            self._captured_program, label="sharded_step",
-            device=self.device, state=self._state_tensors,
-            eager=self._eager_program, warmup_guard=self._warmup_guard,
-            fingerprint=lambda sig: capture.fingerprint(
-                {"step": self._capture_fingerprint(), "sig": repr(sig)}))
-        self._ckpt_mgr = checkpoint_manager
-        self._elastic_n = 1        # sticky accumulation count
-        self._step_count = 0
-        self._last_fp_out = None
-        self._numerics = None
-        self._tap_slots = capture.SlotTable(self.device)
-        if checkpoint_manager is not None:
-            _integrity.install_preempt_handler()
+        self.opt_state = self._opt_init(self.params)
 
     @classmethod
     def for_multihost(cls, net, loss_fn, optimizer="sgd",
@@ -273,35 +329,96 @@ class ShardedTrainer:
         """
         import torch.distributed as dist
 
-        from ..context import as_device
-
         if not dist.is_initialized():
-            if backend is None:
-                here = as_device(None) if devices is None else \
-                    _torch_device(devices[int(process_id or 0)])
-                backend = "nccl" if here.type == "cuda" else "gloo"
-            if coordinator is None:
-                init = "env://"
-            elif "://" in coordinator:
-                init = coordinator
-            else:
-                init = f"tcp://{coordinator}"
-            kw = {}
-            if num_processes is not None:
-                kw["world_size"] = int(num_processes)
-            if process_id is not None:
-                kw["rank"] = int(process_id)
-            dist.init_process_group(backend, init_method=init, **kw)
+            cls._init_dist(coordinator, num_processes, process_id, backend,
+                           devices)
         elif backend is not None and dist.get_backend() != backend:
             raise ValueError(
                 f"for_multihost(backend={backend!r}): torch.distributed is "
                 f"already initialized with {dist.get_backend()!r}")
+        from ..context import as_device
+
         world = dist.get_world_size()
         if devices is None:
             devices = [as_device(None)] * world
         mesh = create_mesh(dict(axes or {"dp": world}), devices)
         return cls(net, loss_fn, optimizer, optimizer_params, mesh=mesh,
                    **kwargs)
+
+    @staticmethod
+    def _init_dist(coordinator, num_processes, process_id, backend,
+                   devices):
+        """``torch.distributed`` from :meth:`for_multihost`'s arguments,
+        its groups under the collective watchdog's timeout."""
+        import torch.distributed as dist
+
+        from ..context import as_device
+
+        if backend is None:
+            here = as_device(None) if devices is None else \
+                _torch_device(devices[int(process_id or 0)])
+            backend = "nccl" if here.type == "cuda" else "gloo"
+        if coordinator is None:
+            init = "env://"
+        elif "://" in coordinator:
+            init = coordinator
+        else:
+            init = f"tcp://{coordinator}"
+        kw = {}
+        if num_processes is not None:
+            kw["world_size"] = int(num_processes)
+        if process_id is not None:
+            kw["rank"] = int(process_id)
+        dist.init_process_group(backend, init_method=init,
+                                timeout=_collective_timedelta(), **kw)
+
+    @classmethod
+    def for_pod(cls, net, loss_fn, optimizer="sgd", optimizer_params=None,
+                axes=None, coordinator=None, num_processes=None,
+                process_id=None, topology=None, backend=None, devices=None,
+                **kwargs):
+        """A trainer over a pod with host failure domains
+        (``mxnet_tpu/parallel/trainer.py:470``): ``torch.distributed`` is
+        initialized as :meth:`for_multihost` does, the mesh is laid out
+        host-major (``parallel.mesh.pod_mesh``; ``topology`` or
+        ``PodTopology.detect()``: hosts of ``LOCAL_WORLD_SIZE`` ranks, or
+        ``MXNET_TPU_TORCH_POD_HOSTS`` virtual hosts), and the pod is bound
+        (:meth:`bind_pod`): a lost host is excised whole in one shrink."""
+        import torch.distributed as dist
+
+        from .mesh import PodTopology, pod_mesh
+
+        if not dist.is_initialized():
+            cls._init_dist(coordinator, num_processes, process_id, backend,
+                           devices)
+        if topology is None:
+            topology = PodTopology.detect(
+                None if devices is None else [_torch_device(d)
+                                              for d in devices])
+        mesh, topo = pod_mesh(dict(axes) if axes else None, topology)
+        trainer = cls(net, loss_fn, optimizer, optimizer_params, mesh=mesh,
+                      **kwargs)
+        return trainer.bind_pod(topo)
+
+    def bind_pod(self, topology):
+        """Attach a ``parallel.PodTopology``: a lost host is recovered by
+        excising its whole rank slice, and the watchdog's pod liveness
+        knows this process's host (``watchdog.configure_pod``). Returns
+        self."""
+        from ..resilience import watchdog as _watchdog
+
+        self._pod = topology
+        if topology is not None:
+            _watchdog.configure_pod(
+                topology.num_hosts, topology.host_of(self.mesh.rank),
+                generation=self.mesh.generation,
+                devices_per_host=topology.devices_per_host)
+        return self
+
+    @property
+    def pod(self):
+        """The bound PodTopology, or None."""
+        return self._pod
 
     def enable_recovery(self, checkpoint_manager):
         """Attach the ``CheckpointManager`` that the preemption exit saves
@@ -483,7 +600,8 @@ class ShardedTrainer:
         forward takes them: the _Shards all-gathered, the tp shards as
         they are."""
         out = dict(tensors)
-        out.update(self._gathered({k: tensors[k] for k in self._shards}))
+        out.update(self._gathered({k: tensors[k] for k in self._shards
+                                   if k in tensors}))
         return out
 
     def _full(self, tensors):
@@ -492,6 +610,8 @@ class ShardedTrainer:
         all-gathered over tp (the qkv rows back in the net's order)."""
         full = self._local(tensors)
         for k, (dim, qkv) in self._tp_split.items():
+            if k not in full:
+                continue
             got = collectives.all_gather(full[k], self.mesh, self._tp_axis,
                                          dim)
             full[k] = tensor_parallel.gather_qkv(got.chunk(
@@ -682,9 +802,7 @@ class ShardedTrainer:
             return loss
         out = [loss]
         if fp:
-            from ..resilience import integrity as _integrity
-
-            out.append(_integrity.step_fold(self.params, grads))
+            out.append(self._step_fingerprint(grads))
         if tap:
             mask = torch.stack(self._tap_slots.views)
             out.append(self._numerics.graph_stats(
@@ -835,11 +953,13 @@ class ShardedTrainer:
                     "bakes its rate into the graph; give it scalars(t) or "
                     "run with MXNET_TPU_TORCH_CAPTURE=0")
         fp_on = _integrity.fingerprint_enabled()
-        if fp_on and self._multi:
-            raise _queued("the step fingerprint over several ranks", 12)
-        self._step_vals = None if scalars is None else scalars(t)
-        if self._step_vals is not None:
-            self._slots.write(self._step_vals)
+
+        def step_scalars():
+            self._step_vals = None if scalars is None else scalars(t)
+            if self._step_vals is not None:
+                self._slots.write(self._step_vals)
+
+        step_scalars()
         tap = self._numerics
         tap_on = tap is not None and tap.tick()
         if tap_on:
@@ -869,14 +989,21 @@ class ShardedTrainer:
                 with _watchdog.guard("step",
                                      detail="parallel.ShardedTrainer.step",
                                      step=self._step_count):
+                    if self._multi:
+                        _watchdog.check_peers(
+                            detail="parallel.ShardedTrainer.step")
+                        if self._pod is not None:
+                            # a wedged (not crashed) host at the step's
+                            # entry: the survivors' collective deadline
+                            # blames it
+                            _faults.maybe_host_hang(
+                                self._pod.host_of(self.mesh.rank))
                     _faults.maybe_hang("hang_step")
                     _faults.maybe_oom_step()
                     with _obs_trace.span("sharded.execute", microbatches=n):
                         loss, fp, stats = run()
                 _faults.maybe_sdc_bitflip_param(self.params)
-                _faults.maybe_sdc_sticky_param(
-                    self.params, 0 if self.device.index is None
-                    else self.device.index)
+                _faults.maybe_sdc_sticky_param(self.params, self._fault_id())
                 if snap is not None:
                     verdict = _integrity.audit_step(
                         self, snap, lambda: run()[1], live_fp=fp)
@@ -884,6 +1011,24 @@ class ShardedTrainer:
                         continue
                     snap = None
                 break
+            except _watchdog.PeerLostError as e:
+                # a dead peer is unrecoverable in place; with a checkpoint
+                # manager the run survives it: shrink the mesh to the
+                # survivors, reload the latest checkpoint onto it and run
+                # this batch again (each survivor feeds its own rows)
+                if self._ckpt_mgr is None or not self._multi \
+                        or not _elastic.mesh_shrink_enabled():
+                    raise
+                self._recover_peer_loss(e)
+                snap = None     # the pre-step snapshot predates the restore
+                t = self.opt_state["t"] + 1
+                scalars = getattr(self._update, "scalars", None)
+                step_scalars()
+                if microbatches is None:
+                    n = self._elastic_n
+                    while n > 1 and rows % n:
+                        n //= 2
+                continue
             except Exception as e:
                 if microbatches is not None or length is not None \
                         or not (_elastic.enabled()
@@ -932,14 +1077,232 @@ class ShardedTrainer:
 
         return _integrity.as_uint32(self._last_fp_out)
 
+    # ------------------------------------------------------ peer recovery
+    def _recover_peer_loss(self, err):
+        """Mesh-shrink resume after a lost peer
+        (``mxnet_tpu/parallel/trainer.py:852-985``): the survivors agree on
+        the dead set (``watchdog.settle_dead``), shrink the mesh -- a pod
+        excises whole hosts (``shrink_mesh_hosts``), without one each rank
+        is its own failure domain (``shrink_mesh`` along the batch axis)
+        -- rebuild their process groups at the next generation
+        (``mesh.rejoin``), lay the trainer out over the smaller mesh,
+        re-declare the job (and the pod, and the manager's pod), reload the
+        latest checkpoint and re-arm the sticky microbatches; the caller
+        runs the batch again. A rank the shrink leaves out (a dead host's
+        live rank, a quarantined rank, a survivor the power-of-two rule
+        benches) leaves the job with exit code 0. Raises ``err`` when no
+        smaller mesh is viable, and RuntimeError when no checkpoint is."""
+        from ..resilience import elastic as _elastic
+        from ..resilience import watchdog as _watchdog
+        from .mesh import MeshShrinkError, rejoin, shrink_mesh, \
+            shrink_mesh_hosts
+
+        detected_at = time.time()
+        t0 = time.perf_counter()
+        old, gen = self.mesh, self.mesh.generation + 1
+        dead = _watchdog.settle_dead(tag=f"recover-g{old.generation}") \
+            or tuple(getattr(err, "ranks", ()))
+        old_axes = dict(old.shape)
+        new_topo, hosts = None, ()
+        try:
+            if self._pod is not None:
+                hosts = tuple(sorted({self._pod.host_of(r) for r in dead}))
+                shrunk, new_topo, kept = shrink_mesh_hosts(
+                    old, hosts, self._pod, batch_axis=self._batch_axis)
+            else:
+                shrunk = shrink_mesh(old, dead, batch_axis=self._batch_axis)
+        except MeshShrinkError:
+            raise err
+        t_settled = time.perf_counter()
+        if old.rank not in {int(r) for r in shrunk.source_ranks.flat}:
+            self._leave(old.rank, dead, hosts, dict(shrunk.shape))
+        mesh = rejoin(shrunk, old.rank, gen, _watchdog.job_dir())
+        _watchdog.reset_peers()
+        _watchdog.configure_liveness(mesh.size, mesh.rank,
+                                     _watchdog.job_dir(), generation=gen)
+        self._bind_mesh(mesh)
+        if new_topo is not None:
+            self.bind_pod(new_topo)
+            if getattr(self._ckpt_mgr, "_pod", None) is not None:
+                self._ckpt_mgr.bind_pod(new_topo)
+        t_joined = time.perf_counter()
+        manifest = self._ckpt_mgr.restore_latest(trainer=self)
+        if manifest is None:
+            raise RuntimeError(
+                f"rank(s) {list(dead)} lost and no valid checkpoint exists "
+                f"to reload onto the shrunk mesh {mesh.shape}; cannot "
+                "recover") from err
+        batch = self._batch_axis_names()
+        old_dp = math.prod(int(old_axes.get(a, 1)) for a in batch)
+        new_dp = math.prod(int(mesh.shape.get(a, 1)) for a in batch)
+        self._elastic_n = _elastic.rearm_microbatches(
+            self._elastic_n, old_dp, new_dp)
+        _elastic._STATS["elastic_mesh_shrinks"] += 1
+        err.ranks, err.hosts = tuple(dead), tuple(hosts)
+        _watchdog.note_peer_recovery(err, manifest, old_axes,
+                                     dict(mesh.shape))
+        self.last_recovery = manifest
+        t1 = time.perf_counter()
+        self.recovery_times = {"detected_at": detected_at,
+                               "settle_s": t_settled - t0,
+                               "rejoin_s": t_joined - t_settled,
+                               "restore_s": t1 - t_joined,
+                               "total_s": t1 - t0}
+        what = (f"pod host(s) {list(hosts)}" if hosts
+                else f"peer rank(s) {list(dead)}")
+        warnings.warn(
+            f"{what} lost: resumed from checkpoint step "
+            f"{manifest.get('step')} on a mesh shrunk {old_axes} -> "
+            f"{mesh.shape} (generation {gen}, this process rank "
+            f"{mesh.rank}); the step runs again on the survivors")
+
+    def _leave(self, rank, dead, hosts, new_axes):
+        """This rank is not in the shrunk mesh: say so and leave the job
+        (exit code 0, no cleanup: the old groups may hold work a dead peer
+        left in flight)."""
+        why = ("quarantined or of a dead host" if rank in dead
+               else "benched by the power-of-two shrink")
+        logging.getLogger("mxnet_tpu_torch.parallel").warning(
+            "rank %d leaves the job: %s (dead ranks %s, hosts %s; the "
+            "survivors go on over %s)", rank, why, list(dead), list(hosts),
+            new_axes)
+        sys.stderr.write(f"rank {rank} leaves the job: {why}; the "
+                         f"survivors go on over {new_axes}\n")
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
+
+    def _bind_mesh(self, mesh):
+        """Lay the trainer out over ``mesh`` (after a shrink): its tensors
+        at the new layout, the optimizer state fresh and the captured
+        programs dropped; a checkpoint restore fills them."""
+        params = {k: v.detach().to(self.device, copy=True)
+                  for k, v in param_arrays(self.net).items()}
+        self._set_mesh(mesh, params, broadcast=False)
+        self._exec = self._new_exec()
+
+    # ----------------------------------------------- the state over ranks
+    def _fault_id(self):
+        """The id a device fault's victim is named by: over several ranks
+        the process's rank when the job began, else the device's index."""
+        if self._multi:
+            return self._origin_rank
+        return 0 if self.device.index is None else self.device.index
+
+    def _counted(self, name):
+        """Does this rank add leaf ``name`` (a parameter's, or a tensor laid
+        out as it) to a fingerprint over the ranks: its coordinate is 0 on
+        every axis of the mesh the leaf is not split over, so each element
+        is added by one rank."""
+        split = set(self._shards[name].axes) if name in self._shards \
+            else set()
+        if name in self._tp_split:
+            split.add(self._tp_axis)
+        coords = self.mesh.coords
+        return all(coords[a] == 0 for a in self.mesh.axis_names
+                   if self.mesh.shape[a] > 1 and a not in split)
+
+    def _fold(self, named_by_param):
+        """The fingerprint of ``{fold name: (parameter name, tensor)}``,
+        the tensors laid out as the parameters: over several ranks
+        ``integrity.fold_sharded`` (equal to the gathered state's), else
+        ``integrity.fold_tree``."""
+        from ..resilience import integrity as _integrity
+
+        named = {k: v.contiguous() for k, (_, v) in named_by_param.items()}
+        if not self._multi:
+            return _integrity.fold_tree(named)
+        counted = {k: self._counted(p)
+                   for k, (p, _) in named_by_param.items()}
+        return _integrity.fold_sharded(named, counted, self.mesh)
+
+    def _step_fingerprint(self, grads):
+        """The step fingerprint (post-update parameters and gradients)
+        on the device."""
+        named = {f"param:{k}": (k, v) for k, v in self.params.items()}
+        named.update({f"grad:{k}": (k, g) for k, g in grads.items()})
+        return self._fold(named)
+
+    def _state_fingerprint(self):
+        """The parameter state's fingerprint as an int (every rank)."""
+        from ..resilience import integrity as _integrity
+
+        return _integrity.as_uint32(self._fold(
+            {f"param:{k}": (k, v) for k, v in self.params.items()}))
+
+    def _failed_ranks(self, passed):
+        """The ranks whose self-test failed, the same list on every rank."""
+        vec = torch.zeros(self.mesh.size, dtype=torch.int32,
+                          device=self.device)
+        vec[self.mesh.rank] = 0 if passed else 1
+        collectives.all_reduce(vec, self.mesh, tuple(self.mesh.axis_names))
+        return [r for r, v in enumerate(vec.tolist()) if v]
+
+    def _hosts_of(self, ranks):
+        if self._pod is None:
+            return ()
+        return tuple(sorted({self._pod.host_of(r) for r in ranks}))
+
+    def _pod_shards(self):
+        """[(key, shape, dtype, spec, [(index, tensor or None, owner)])]:
+        each array of :meth:`_checkpoint_arrays` as the distributed commit
+        writes it -- its unique shards (``index``: [start, stop) a
+        dimension), each owned by the lowest rank holding it, with this
+        rank's tensor where it holds the shard. Tensor-parallel leaves are
+        gathered (every rank calls this) and owned by rank 0."""
+        tp = set(self._tp_split)
+        out = []
+
+        def add(key, name, value):
+            if name in tp:
+                full = self._full({name: value})[name]
+                shards = [(_box(full.shape), full, 0)]
+                shape = tuple(full.shape)
+            elif name in self._shards:
+                sh = self._shards[name]
+                shape = list(value.shape)
+                shape[sh.dim] = sh.full
+                mine = self.mesh.axis_index(sh.axes)
+                owners = {}
+                for r in range(self.mesh.size):
+                    p = type(self.mesh)(self.mesh.devices,
+                                        self.mesh.axis_names,
+                                        r).axis_index(sh.axes)
+                    owners.setdefault(p, r)
+                shards = []
+                for p in range(sh.parts):
+                    lo, hi = p * sh.chunk, min((p + 1) * sh.chunk, sh.full)
+                    if hi <= lo:
+                        continue        # a piece of zero padding only
+                    index = _box(shape)
+                    index[sh.dim] = (lo, hi)
+                    shards.append((index, value.narrow(sh.dim, 0, hi - lo)
+                                   if p == mine else None, owners[p]))
+                shape = tuple(shape)
+            else:
+                shards = [(_box(value.shape), value, 0)]
+                shape = tuple(value.shape)
+            out.append((key, shape, _dtype_str(value), None, shards))
+
+        for k, v in self.params.items():
+            add(f"param:{k}", k, v)
+        for k, v in self.aux.items():
+            add(f"aux:{k}", None, v)
+        for suffix, leaves in self._opt_leaves().items():
+            for k, leaf in leaves.items():
+                add(f"opt:['state'][{k!r}]{suffix}", k, leaf)
+        add("opt:['t']", None, torch.tensor(int(self.opt_state["t"]),
+                                            dtype=torch.int32))
+        return out
+
     # ---------------------------------------------------------- the rate
     def set_learning_rate(self, lr):
         """Change the learning rate (``mxnet_tpu/parallel/trainer.py:
         510-521``). The update is rebuilt with it; a captured step reads
         the rate from its slot, so nothing is captured again."""
         self._optimizer_params["learning_rate"] = float(lr)
-        _, self._update = make_update_fn(self._optimizer,
-                                         dict(self._optimizer_params))
+        self._opt_init, self._update = make_update_fn(
+            self._optimizer, dict(self._optimizer_params))
 
     @property
     def learning_rate(self):
@@ -977,9 +1340,6 @@ class ShardedTrainer:
         that follows the parameters' layout."""
         if not self._multi:
             return dict(by_param)
-        if set(by_param) != set(self.params):
-            raise _queued("a checkpoint of an optimizer state that only "
-                          "some parameters hold, over several ranks", 12)
         return self._full(by_param)
 
     def _checkpoint_arrays(self):
@@ -1132,11 +1492,7 @@ class ShardedTrainer:
 
     def _is_writer(self):
         """Does this rank write shared files (rank 0 of the world)?"""
-        if not self._multi:
-            return True
-        import torch.distributed as dist
-
-        return dist.get_rank() == 0
+        return not self._multi or self.mesh.rank == 0
 
     def _barrier(self):
         """Every rank of the mesh waits for the others."""

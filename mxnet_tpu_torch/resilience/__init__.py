@@ -7,18 +7,19 @@
 - :class:`HealthSentinel` — NaN/Inf and grad-norm check of a gluon
   Trainer's gradients (``raise | skip_batch | rollback``) and of serving
   outputs;
-- :mod:`watchdog` — phase deadlines (``step``, ``batch``, ``probe``),
-  crash reports (:class:`StallError`) and peer bookkeeping;
+- :mod:`watchdog` — phase deadlines (``step``, ``batch``, ``probe``,
+  ``collective``), crash reports (:class:`StallError`), peer bookkeeping
+  and the liveness of a job of several processes (beats, pods of host
+  failure domains, the survivors' barrier, :class:`PeerLostError`);
 - :mod:`elastic` — an out-of-memory step runs again as accumulated
-  microbatches;
+  microbatches; a lost peer shrinks the mesh;
 - :mod:`faults` — the deterministic fault-injection harness;
-- :mod:`integrity` — step fingerprints (a CUDA fold kernel), the shadow
-  replay audit, the device self-test and quarantine, checkpoint-manifest
-  fingerprints, serving golden-query audits and SIGTERM preemption.
+- :mod:`integrity` — step fingerprints (a CUDA fold kernel, also split
+  over several ranks), the shadow replay audit, the device self-test and
+  quarantine, checkpoint-manifest fingerprints, serving golden-query
+  audits and SIGTERM preemption.
 
-Not ported (the rest of ROADMAP Queue 1 item 12): the pod distributed
-commit, pod and multi-host recovery, the mesh shrink after a lost peer,
-and the dist store's fault hooks.
+The checkpoint manager's pod commit writes each host's own shards.
 """
 from . import faults
 from . import checkpoint as _checkpoint_mod

@@ -24,10 +24,10 @@ checkpoints::
         arrays/00000-000.bin   # one raw-bytes payload per shard
         trainer.state      # gluon Trainer states (eager trainer only)
 
-Each array is saved whole, at its logical shape (a ``ShardedTrainer`` over
-several ranks gathers its shards first and rank 0 writes), and a restore
-places it through the restoring trainer's own layout, so a state saved
-from a dp x fsdp mesh restores onto one rank and back. Restores write the
+Each array is saved at its logical shape (whole, or over several ranks
+as the shards of the distributed commit below), and a restore places it
+through the restoring trainer's own layout, so a state saved from a
+dp x fsdp mesh restores onto one rank and back. Restores write the
 trainer's tensors in place, so a captured step stays valid.
 
 ``save(async_=True)`` copies the state into pinned host buffers on a
@@ -42,8 +42,29 @@ checkpoint an active restore or publish holds pinned.
 
 The generators' states are the port's ``torch.Generator`` states (field
 ``torch_rng``): ``mxnet_tpu``'s JAX key (``rng_key``) cannot cross
-(ROADMAP Queue 3). Not ported: the pod distributed commit (``pod=``,
-``bind_pod``), the rest of ROADMAP Queue 1 item 12.
+(ROADMAP Queue 3).
+
+The save of a ``ShardedTrainer`` over several ranks is a **distributed
+commit** (``mxnet_tpu/resilience/checkpoint.py:953-1101``) against the
+bound pod (``CheckpointManager(..., pod=PodTopology)``, ``bind_pod``), or
+without one against ``PodTopology(world, 1)``, each rank its own host. Every rank
+writes only the shards it owns -- the owner of a shard is the lowest
+rank holding it, so a replicated array is written once, by host 0 --
+into one shared ``.{tag}.tmp.pod`` temp dir, as ``arrays/<i>-h<host>-
+<j>.bin`` (``mxnet_tpu``'s v2 shard records), then its commit marker
+(``commit/host-<h>.rank-<r>.json``); rank 0 (host 0's lead) merges the
+markers into the manifest, stamps it ``pod`` and publishes with the same
+one rename, and the other ranks leave when the manifest is visible
+(``MXNET_TPU_TORCH_CKPT_COMMIT_TIMEOUT_S``, default 120). A tensor-
+parallel shard (the qkv rows of a rank's heads) is no box of the whole
+array: those parameters are gathered and written whole by host 0. A
+crash between a rank's shards and its marker (``ckpt_partial_pod``)
+leaves either a whole checkpoint or temp debris, never a torn manifest;
+the debris, and a manifest-absent checkpoint dir, are reclaimed only once
+quiet past ``MXNET_TPU_TORCH_CKPT_ORPHAN_GRACE_S`` (another host may
+still be writing there). A save over several ranks is synchronous, and
+its manifest, as ``mxnet_tpu``'s pod commit's, has no parameter
+fingerprint (no rank holds the whole state).
 """
 from __future__ import annotations
 
@@ -72,13 +93,15 @@ _MANIFEST = "manifest.json"
 _PARAMS = "params.npz"      # v1 payload name (recognized by retention)
 _TRAINER = "trainer.state"
 _ARRAYS_DIR = "arrays"
+_COMMIT_DIR = "commit"      # per-rank markers of a pod distributed commit
 _FORMAT_VERSION = 2
 _BF16 = "bfloat16"
 
 _STATS = {"ckpt_saves": 0, "ckpt_save_failures": 0, "ckpt_restores": 0,
           "ckpt_restore_skipped": 0, "ckpt_pruned": 0,
           "ckpt_prune_deferred": 0, "ckpt_async_saves": 0,
-          "ckpt_async_waits": 0, "ckpt_async_failures": 0}
+          "ckpt_async_waits": 0, "ckpt_async_failures": 0,
+          "ckpt_pod_commits": 0, "ckpt_pod_commit_failures": 0}
 
 _LIVE_MANAGERS = None
 _TRACK_LOCK = threading.Lock()
@@ -306,12 +329,13 @@ class CheckpointManager:
         ``MXNET_TPU_TORCH_CKPT_KEEP``, default 5; ``<= 0`` keeps all);
         pinned ones are never pruned
     prefix : the checkpoint directories' name prefix
-    pod : not ported (the pod distributed commit); anything but None raises
+    pod : a ``parallel.PodTopology``: the hosts the distributed commit of
+        a trainer over several ranks writes as (module docstring; None:
+        each rank its own host); ``bind_pod`` attaches it later
     """
 
     def __init__(self, directory, keep_n=None, prefix="ckpt", pod=None):
-        if pod is not None:
-            self.bind_pod(pod)
+        self._pod = pod
         self.directory = os.fspath(directory)
         if keep_n is None:
             keep_n = int(os.environ.get("MXNET_TPU_TORCH_CKPT_KEEP", "5"))
@@ -329,12 +353,11 @@ class CheckpointManager:
                 pass
 
     def bind_pod(self, pod):
-        if pod is None:
-            return self
-        raise MXNetError(
-            "CheckpointManager: the pod distributed commit (pod=, bind_pod) "
-            "is not ported (the rest of ROADMAP Queue 1 item 12: pod and "
-            "multi-host recovery)")
+        """Attach (None: detach) the PodTopology the distributed commit
+        writes against; a mesh shrink binds the shrunk, renumbered one.
+        Returns self."""
+        self._pod = pod
+        return self
 
     # ------------------------------------------------------------- listing
     def _tag(self, step):
@@ -471,30 +494,25 @@ class CheckpointManager:
             raise ValueError("save() needs a net and/or a trainer")
         t0 = time.perf_counter()
         self.wait_for_async()
-        multi = _is_sharded_trainer(trainer) and trainer._multi
-        if async_ and multi:
-            raise ValueError(
-                "save(async_=True) of a trainer over several ranks is the "
-                "pod distributed commit, not ported (ROADMAP Queue 1 item "
-                "12); save synchronously")
-        writer = not multi or trainer._is_writer()
+        if _is_sharded_trainer(trainer) and trainer._multi:
+            if async_:
+                raise ValueError(
+                    "a distributed commit is synchronous: the "
+                    "shard-complete barrier is the save (async_=True is "
+                    "unsupported for a trainer over several ranks)")
+            return self._save_pod(step, trainer, epoch, extra, t0)
         tag = self._tag(step)
         final = os.path.join(self.directory, tag)
-        if writer:
-            os.makedirs(self.directory, exist_ok=True)
-            self._gc_debris()
+        os.makedirs(self.directory, exist_ok=True)
+        self._gc_debris()
         keys, tensors, meta = self._collect(net, trainer)
         manifest = self._manifest(step, epoch, extra, tag, trainer, meta,
                                   net, tensors, keys)
         nbytes = sum(int(t.numel()) * t.element_size() for t in tensors)
         if not async_:
             with _obs_trace.span("ckpt.save", step=int(step), mode="sync"):
-                arrays = [_as_numpy(t) for t in tensors]
-                if writer:
-                    self._write_snapshot(keys, arrays, meta, manifest, tag,
-                                         final)
-            if multi:
-                trainer._barrier()
+                self._write_snapshot(keys, [_as_numpy(t) for t in tensors],
+                                     meta, manifest, tag, final)
             _obs_flight.record("ckpt", op="save", step=int(step), tag=tag)
             self.last_save = {"step": int(step), "mode": "sync",
                               "stall_s": time.perf_counter() - t0,
@@ -625,20 +643,7 @@ class CheckpointManager:
             manifest = dict(manifest, arrays=arrays_meta, files=files)
             atomic_write_bytes(os.path.join(tmpdir, _MANIFEST),
                                json.dumps(manifest, indent=1).encode())
-            old = None
-            if os.path.isdir(final):
-                old = os.path.join(self.directory,
-                                   f".{tag}.old.{os.getpid()}")
-                if os.path.isdir(old):
-                    shutil.rmtree(old)
-                os.replace(final, old)
-            with self._pin(final):
-                os.replace(tmpdir, final)
-                _fsync_dir(self.directory)
-                if old is not None:
-                    shutil.rmtree(old, ignore_errors=True)
-                _STATS["ckpt_saves"] += 1
-                self._prune()
+            self._publish(tmpdir, final, tag)
         except faults.SimulatedCrash:
             _STATS["ckpt_save_failures"] += 1
             raise  # the partial temp dir stays, as after a real kill
@@ -648,21 +653,198 @@ class CheckpointManager:
             raise
         return final
 
+    # ------------------------------------------------------ pod commit
+    def _save_pod(self, step, trainer, epoch, extra, t0):
+        """The distributed commit of a trainer over several ranks (module
+        docstring); returns the published path on every rank."""
+        mesh = trainer.mesh
+        pod = self._pod
+        if pod is None:
+            from ..parallel.mesh import PodTopology
+
+            pod = PodTopology(mesh.size, 1, this_host=mesh.rank)
+        tag = self._tag(step)
+        final = os.path.join(self.directory, tag)
+        tmpdir = os.path.join(self.directory, f".{tag}.tmp.pod")
+        commit_dir = os.path.join(tmpdir, _COMMIT_DIR)
+        publisher = mesh.rank == 0
+        if publisher:
+            os.makedirs(self.directory, exist_ok=True)
+            self._gc_debris()
+            # an earlier attempt's debris of this step must not leak stale
+            # markers into this one; the barrier below orders the removal
+            # before any rank writes
+            shutil.rmtree(tmpdir, ignore_errors=True)
+            os.makedirs(os.path.join(tmpdir, _ARRAYS_DIR))
+            os.makedirs(commit_dir)
+        arrays = trainer._pod_shards()
+        trainer._barrier()
+        host = pod.host_of(mesh.rank)
+        nbytes = 0
+        try:
+            with _obs_trace.span("ckpt.save_pod", step=int(step),
+                                 host=int(host)):
+                meta = {}
+                for i, (key, shape, dtype, spec, shards) in \
+                        enumerate(arrays):
+                    recs = []
+                    for j, (index, value, owner) in enumerate(shards):
+                        if owner != mesh.rank:
+                            continue
+                        arr = _as_numpy(value)
+                        fname = (f"{_ARRAYS_DIR}/{i:05d}-h{host:03d}-"
+                                 f"{j:03d}.bin")
+                        data = memoryview(_np.ascontiguousarray(arr)).cast(
+                            "B")
+                        _write_payload(os.path.join(tmpdir, fname), data)
+                        nbytes += len(data)
+                        recs.append({"file": fname,
+                                     "index": [list(ab) for ab in index],
+                                     "crc32": zlib.crc32(data) & 0xFFFFFFFF,
+                                     "size": len(data)})
+                    meta[key] = {"shape": list(shape), "dtype": dtype,
+                                 "spec": spec, "shards": recs}
+                _fsync_dir(os.path.join(tmpdir, _ARRAYS_DIR))
+                # the partial-pod kill lands here: shards durable, marker
+                # absent, so the barrier never counts this rank complete
+                faults.maybe_crash("ckpt_partial_pod")
+                atomic_write_bytes(
+                    os.path.join(commit_dir,
+                                 f"host-{host:03d}.rank-{mesh.rank:05d}.json"),
+                    json.dumps({"host": host, "rank": mesh.rank,
+                                "arrays": meta}).encode())
+                if publisher:
+                    merged = self._await_pod_markers(commit_dir, pod)
+                    shutil.rmtree(commit_dir, ignore_errors=True)
+                    manifest = self._manifest(
+                        step, epoch, extra, tag, trainer,
+                        {"kind": "sharded",
+                         "mesh_axes": dict(mesh.shape)}, None, [], [])
+                    manifest.update(arrays=merged, files={}, pod={
+                        "num_hosts": int(pod.num_hosts),
+                        "devices_per_host": int(pod.devices_per_host)})
+                    atomic_write_bytes(os.path.join(tmpdir, _MANIFEST),
+                                       json.dumps(manifest,
+                                                  indent=1).encode())
+                    self._publish(tmpdir, final, tag)
+                    _STATS["ckpt_pod_commits"] += 1
+                else:
+                    self._await_pod_publish(final)
+        except faults.SimulatedCrash:
+            _STATS["ckpt_save_failures"] += 1
+            _STATS["ckpt_pod_commit_failures"] += 1
+            raise   # the shared debris stays, as after a host kill
+        except BaseException:
+            _STATS["ckpt_save_failures"] += 1
+            _STATS["ckpt_pod_commit_failures"] += 1
+            raise   # peers may still write there: the GC reclaims it
+        _obs_flight.record("ckpt", op="save", step=int(step), tag=tag,
+                           pod_hosts=int(pod.num_hosts))
+        self.last_save = {"step": int(step), "mode": "pod",
+                          "stall_s": time.perf_counter() - t0,
+                          "bytes": nbytes}
+        return final
+
+    def _publish(self, tmpdir, final, tag):
+        """Move a complete temp dir into place, fsync the directory, prune.
+        A step saved again has its older copy moved aside first (renamed,
+        not deleted), so a kill here leaves it absent but recoverable,
+        never destroyed before it is replaced."""
+        old = None
+        if os.path.isdir(final):
+            old = os.path.join(self.directory, f".{tag}.old.{os.getpid()}")
+            if os.path.isdir(old):
+                shutil.rmtree(old)
+            os.replace(final, old)
+        with self._pin(final):
+            os.replace(tmpdir, final)
+            _fsync_dir(self.directory)
+            if old is not None:
+                shutil.rmtree(old, ignore_errors=True)
+            _STATS["ckpt_saves"] += 1
+            self._prune()
+
+    def _await_pod_markers(self, commit_dir, pod):
+        """Rank 0's shard-complete barrier: every rank's marker
+        (``MXNET_TPU_TORCH_CKPT_COMMIT_TIMEOUT_S``, default 120), merged
+        into one ``arrays`` section (markers disagreeing on a shape or
+        dtype are corruption, not a merge)."""
+        timeout = _env_float("MXNET_TPU_TORCH_CKPT_COMMIT_TIMEOUT_S", 120.0)
+        deadline = time.monotonic() + timeout
+        want = [f"host-{pod.host_of(r):03d}.rank-{r:05d}.json"
+                for r in range(pod.total_devices)]
+        while True:
+            missing = [w for w in want
+                       if not os.path.isfile(os.path.join(commit_dir, w))]
+            if not missing:
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"pod commit barrier timed out after {timeout:g}s "
+                    f"waiting for marker(s) {missing}: the manifest is "
+                    "not published; earlier checkpoints are intact")
+            time.sleep(0.02)
+        merged = {}
+        for w in want:
+            with open(os.path.join(commit_dir, w)) as f:
+                marker = json.load(f)
+            for key, meta in marker["arrays"].items():
+                cur = merged.get(key)
+                if cur is None:
+                    merged[key] = {"shape": meta["shape"],
+                                   "dtype": meta["dtype"],
+                                   "spec": meta["spec"],
+                                   "shards": list(meta["shards"])}
+                elif (cur["shape"] != meta["shape"]
+                      or cur["dtype"] != meta["dtype"]):
+                    raise CheckpointCorruptError(
+                        f"pod commit markers disagree on '{key}': "
+                        f"{cur['shape']}/{cur['dtype']} vs "
+                        f"{meta['shape']}/{meta['dtype']}")
+                else:
+                    cur["shards"].extend(meta["shards"])
+        for rec in merged.values():
+            rec["shards"].sort(key=lambda r: r["file"])
+        return merged
+
+    def _await_pod_publish(self, final):
+        """A non-publishing rank's side of the commit: wait for rank 0's
+        manifest (the same timeout)."""
+        timeout = _env_float("MXNET_TPU_TORCH_CKPT_COMMIT_TIMEOUT_S", 120.0)
+        deadline = time.monotonic() + timeout
+        manifest = os.path.join(final, _MANIFEST)
+        while not os.path.isfile(manifest):
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"pod commit publish of {final} not visible after "
+                    f"{timeout:g}s (host 0 lost mid-commit?)")
+            time.sleep(0.02)
+
     def _gc_debris(self):
         """Remove stale ``.{tag}.tmp.{pid}`` dirs of dead writers; a
         ``.{tag}.old.{pid}`` dir whose step is missing (a kill between
         move-aside and publish) is renamed back. Live pids are left
-        alone."""
+        alone; a pod commit's ``.{tag}.tmp.pod`` only once quiet past the
+        orphan grace."""
         pat = re.compile(
-            rf"^\.({re.escape(self.prefix)}-\d+)\.(tmp|old)\.(\d+)$")
+            rf"^\.({re.escape(self.prefix)}-\d+)\.(tmp|old)\.(\d+|pod)$")
         for name in os.listdir(self.directory):
             m = pat.match(name)
             if not m:
                 continue
-            tag, kind, pid = m.group(1), m.group(2), int(m.group(3))
+            tag, kind, owner = m.group(1), m.group(2), m.group(3)
+            path = os.path.join(self.directory, name)
+            if owner == "pod":
+                # a shared pod-commit dir has no one owner pid: reaped
+                # once every writer has plausibly stopped
+                grace = _env_float("MXNET_TPU_TORCH_CKPT_ORPHAN_GRACE_S",
+                                   900.0)
+                if _newest_mtime(path) + grace < time.time():
+                    shutil.rmtree(path, ignore_errors=True)
+                continue
+            pid = int(owner)
             if pid == os.getpid() or _pid_alive(pid):
                 continue
-            path = os.path.join(self.directory, name)
             final = os.path.join(self.directory, tag)
             if kind == "old" and not os.path.isdir(final):
                 os.replace(path, final)

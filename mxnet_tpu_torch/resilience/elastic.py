@@ -1,5 +1,6 @@
-"""Elastic step execution: survive a step OOM by microbatch accumulation
-(port of ``mxnet_tpu/resilience/elastic.py``, its OOM half).
+"""Elastic step execution: survive a step OOM by microbatch accumulation,
+and a lost peer by a mesh shrink (port of
+``mxnet_tpu/resilience/elastic.py``).
 
 ``parallel.ShardedTrainer.step`` catches an out-of-memory step (a real
 ``torch.OutOfMemoryError``, in the step itself or in the capture of its
@@ -10,13 +11,17 @@ program. Gradients of the microbatches are taken at the same parameters,
 summed, divided by N and applied in one update, so the retried step is
 bitwise an explicit ``step(x, y, microbatches=N)``.
 
-Knobs: ``MXNET_TPU_TORCH_ELASTIC`` (``0`` lets the OOM surface) and
-``MXNET_TPU_TORCH_ELASTIC_MIN_MICROBATCH`` (the fewest rows a microbatch
-may keep, default 1). Counters: ``elastic_oom_events``,
-``elastic_shrinks``, ``elastic_accum_steps``.
+A lost peer (``watchdog.PeerLostError``) on a trainer with a checkpoint
+manager shrinks the mesh to the survivors and reloads the latest
+checkpoint onto it (``ShardedTrainer._recover_peer_loss``);
+:func:`rearm_microbatches` keeps the per-rank microbatch where it last
+fit.
 
-Not ported: the mesh shrink after a lost peer (``mesh_shrink_enabled``,
-``rearm_microbatches``), ROADMAP Queue 1 item 12.
+Knobs: ``MXNET_TPU_TORCH_ELASTIC`` (``0`` lets the OOM surface),
+``MXNET_TPU_TORCH_ELASTIC_MIN_MICROBATCH`` (the fewest rows a microbatch
+may keep, default 1) and ``MXNET_TPU_TORCH_MESH_SHRINK`` (``0`` leaves a
+lost peer terminal). Counters: ``elastic_oom_events``,
+``elastic_shrinks``, ``elastic_accum_steps``, ``elastic_mesh_shrinks``.
 """
 from __future__ import annotations
 
@@ -25,12 +30,14 @@ import os
 from . import faults
 
 __all__ = ["enabled", "min_microbatch", "is_oom_error", "next_microbatches",
-           "stats", "reset_stats"]
+           "mesh_shrink_enabled", "rearm_microbatches", "stats",
+           "reset_stats"]
 
 _STATS = {
     "elastic_oom_events": 0,   # OOMs caught from a step
     "elastic_shrinks": 0,      # microbatch doublings performed
     "elastic_accum_steps": 0,  # steps run as accumulated microbatches
+    "elastic_mesh_shrinks": 0,  # peer losses survived on a smaller mesh
 }
 
 
@@ -94,3 +101,22 @@ def next_microbatches(n, rows, shards=1):
     if shards > 1 and mb % shards:
         return None
     return nxt
+
+
+def mesh_shrink_enabled():
+    """Is peer-loss recovery by mesh shrink on?
+    (``MXNET_TPU_TORCH_MESH_SHRINK``, default on; consulted only when the
+    trainer has a CheckpointManager to reload the state from.)"""
+    return os.environ.get("MXNET_TPU_TORCH_MESH_SHRINK", "1").strip() \
+        .lower() not in ("0", "false", "off")
+
+
+def rearm_microbatches(n, old_dp, new_dp):
+    """The sticky accumulation count after a shrink from ``old_dp`` to
+    ``new_dp`` batch shards: a run already at N microbatches had proven
+    only rows / (N * old_dp) rows fit a rank, so N scales by the shard
+    ratio; a run still whole (n == 1) stays whole."""
+    n = max(1, int(n))
+    if n == 1 or int(new_dp) >= int(old_dp):
+        return n
+    return n * max(1, int(old_dp) // int(new_dp))

@@ -61,12 +61,32 @@ The training kinds and their hooks:
   argument, default 3);
 - ``preempt`` — a preemption notice seen at the step boundary.
 
-The parser knows every kind ``mxnet_tpu`` lists. The kinds of the
-distributed store, peers, pod hosts and the coordinator, and
-``ckpt_partial_pod`` (:data:`QUEUED_KINDS`) have no hook in the port:
-arming one raises :class:`~mxnet_tpu_torch.base.MXNetError` naming the
-rest of ROADMAP Queue 1 item 12 (``record_corrupt``: item 10), so a drill
-never runs armed and unexercised.
+The kinds of the distributed store, of peers and of pod hosts:
+
+- ``dist_connect_timeout`` — the coordinator connect raises TimeoutError
+  (``kvstore.dist.init_distributed``, which retries with backoff);
+- ``hang_collective`` — the dist store's all-reduce wedged until its
+  collective watchdog fires;
+- ``peer_death`` / ``host_death`` / ``coordinator_loss`` — a process
+  death at the top of a step attempt (``watchdog.check_peers``): the
+  victim rank (``MXNET_TPU_TORCH_FAULT_PEER_RANK``, default 1), every
+  rank of the victim host (``MXNET_TPU_TORCH_FAULT_HOST_RANK``, default
+  1), or every rank of the coordinator (the lowest live host) leaves with
+  ``os._exit(FAULT_EXIT_CODE)``, after one ``fault_exit`` line on
+  stderr. ``mxnet_tpu`` marks the victim dead in its one process; here
+  the survivors must detect the loss themselves, through the beats or
+  the failed collective;
+- ``host_hang_collective`` — the victim host's ranks wedge at the step's
+  entry (an interruptible sleep); the survivors' collective deadline
+  blames that host (``watchdog._stall_suspect_hosts``);
+- ``ckpt_partial_pod`` — a simulated death inside the pod commit, after
+  this rank's shards and before its commit marker.
+
+The parser knows every kind ``mxnet_tpu`` lists. ``record_corrupt``
+(:data:`QUEUED_KINDS`) has no hook in the port: arming it raises
+:class:`~mxnet_tpu_torch.base.MXNetError` naming ROADMAP Queue 1 item 10
+(the streamed-record reader), so a drill never runs armed and
+unexercised.
 """
 from __future__ import annotations
 
@@ -94,7 +114,10 @@ __all__ = ["FaultInjected", "ReplicaCrash", "DecodeReplicaDead",
            "maybe_oom_step", "maybe_perf_regression",
            "maybe_step_time_anomaly", "maybe_sdc_bitflip_param",
            "maybe_sdc_bitflip_grad", "maybe_sdc_sticky_param",
-           "maybe_sdc_selftest", "maybe_preempt"]
+           "maybe_sdc_selftest", "maybe_preempt",
+           "maybe_dist_connect_fault", "maybe_peer_death",
+           "maybe_host_death", "maybe_coordinator_loss",
+           "maybe_host_hang", "FAULT_EXIT_CODE"]
 
 SERVING_KINDS = (
     "nan_serving", "hang_batch", "replica_crash", "replica_hang",
@@ -114,10 +137,11 @@ TRAINING_KINDS = (
     "sdc_device_sticky", "preempt")
 
 # training kinds whose hooks are not ported: kind -> ROADMAP Queue 1 item
-QUEUED_KINDS = {k: 12 for k in (
-    "dist_connect_timeout", "hang_collective", "peer_death", "host_death",
-    "host_hang_collective", "coordinator_loss", "ckpt_partial_pod")}
-QUEUED_KINDS["record_corrupt"] = 10
+QUEUED_KINDS = {"record_corrupt": 10}
+
+# the exit code of a process that a peer_death / host_death /
+# coordinator_loss fault kills
+FAULT_EXIT_CODE = 42
 
 
 class SimulatedCrash(BaseException):
@@ -183,8 +207,7 @@ class _Fault:
 
 def _check_kind(kind):
     if kind in QUEUED_KINDS:
-        what = ("the streamed-record reader" if kind == "record_corrupt"
-                else "the distributed store, peer and pod recovery")
+        what = "the streamed-record reader"
         raise MXNetError(
             f"fault kind {kind!r} hooks into {what}, which the port does "
             f"not instrument yet (ROADMAP Queue 1 item {QUEUED_KINDS[kind]}"
@@ -343,7 +366,7 @@ def _hang_until_interrupted(point):
 
 def maybe_hang(point):
     """Wedge the calling thread at ``point`` (``hang_batch``,
-    ``hang_step``)."""
+    ``hang_step``, ``hang_collective``)."""
     if not _ACTIVE:
         return
     fault = _ACTIVE.get(point)
@@ -762,3 +785,80 @@ def maybe_preempt():
 
 
 install_from_env()
+
+
+# ------------------------------------------------- the store, peers, hosts
+
+def maybe_dist_connect_fault():
+    """An unreachable coordinator in ``kvstore.dist.init_distributed``
+    (``dist_connect_timeout``)."""
+    if not _ACTIVE:
+        return
+    fault = _ACTIVE.get("dist_connect_timeout")
+    if fault is not None and fault.should_fire():
+        raise TimeoutError("coordinator connect timed out [injected fault]")
+
+
+def _exit_victim(kind, **who):
+    """The victim process's death: one ``fault_exit`` line on stderr (the
+    time a drill measures detection from), then ``os._exit``: no cleanup,
+    as after a kill."""
+    import json
+    import sys
+
+    _obs_flight.record("fault_exit", fault=kind, **who)
+    line = json.dumps({"fault_exit": kind, "pid": os.getpid(),
+                       "time": time.time(), **who})
+    try:
+        sys.stdout.flush()
+        sys.stderr.write(line + "\n")
+        sys.stderr.flush()
+    finally:
+        os._exit(FAULT_EXIT_CODE)
+
+
+def maybe_peer_death(rank):
+    """``peer_death``: when it fires and ``rank`` is the victim
+    (``MXNET_TPU_TORCH_FAULT_PEER_RANK``, default 1) this process exits.
+    Every rank calls it at the same steps, so the fire window is the
+    same everywhere."""
+    if not _ACTIVE:
+        return
+    fault = _ACTIVE.get("peer_death")
+    if fault is not None and fault.should_fire() and int(rank) == int(
+            os.environ.get("MXNET_TPU_TORCH_FAULT_PEER_RANK", "1")):
+        _exit_victim("peer_death", rank=int(rank))
+
+
+def maybe_host_death(host):
+    """``host_death``: every rank of the victim host
+    (``MXNET_TPU_TORCH_FAULT_HOST_RANK``, default 1) exits."""
+    if not _ACTIVE:
+        return
+    fault = _ACTIVE.get("host_death")
+    if fault is not None and fault.should_fire() and int(host) == int(
+            os.environ.get("MXNET_TPU_TORCH_FAULT_HOST_RANK", "1")):
+        _exit_victim("host_death", host=int(host))
+
+
+def maybe_coordinator_loss(host, coordinator):
+    """``coordinator_loss``: every rank of the coordinator host (the
+    lowest live host, ``coordinator``) exits."""
+    if not _ACTIVE:
+        return
+    fault = _ACTIVE.get("coordinator_loss")
+    if fault is not None and fault.should_fire() and coordinator is not None \
+            and int(host) == int(coordinator):
+        _exit_victim("coordinator_loss", host=int(host))
+
+
+def maybe_host_hang(host):
+    """``host_hang_collective``: the victim host's ranks
+    (``MXNET_TPU_TORCH_FAULT_HOST_RANK``, default 1) wedge at the step's
+    entry until a watchdog interrupts them."""
+    if not _ACTIVE:
+        return
+    fault = _ACTIVE.get("host_hang_collective")
+    if fault is not None and fault.should_fire() and int(host) == int(
+            os.environ.get("MXNET_TPU_TORCH_FAULT_HOST_RANK", "1")):
+        _hang_until_interrupted("host_hang_collective")

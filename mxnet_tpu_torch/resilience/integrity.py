@@ -10,7 +10,12 @@ preemption.
    On the card :func:`fold_tree` is one hand-written CUDA kernel
    (``csrc/state_fold.cu``) that writes one uint32 on the device, with no
    host sync, so it is captured into the step as one more output; on a
-   CPU tensor it takes its plain version :func:`fold_plain`.
+   CPU tensor it takes its plain version :func:`fold_plain`. Over several
+   ranks (:func:`fold_sharded`) the fold splits: each rank's per-leaf
+   sums (``state_fold_sums``; :func:`sums_plain`) of the shards it counts,
+   an all-reduce, then the chain (``state_fold_chain``;
+   :func:`chain_plain`): bit for bit :func:`fold_host` of the gathered
+   state, on every rank.
 2. **Shadow replay audit** — on a cadence
    (``MXNET_TPU_TORCH_INTEGRITY_AUDIT_EVERY``) the trainer's pre-step
    state is kept (a device copy) and the step is run again from it and
@@ -18,9 +23,11 @@ preemption.
    replay runs on the same device (ROADMAP Queue 3), which catches a
    transient corruption, not a sticky one. A mismatch runs the
    known-answer self-test (:func:`device_selftest`): a device that fails
-   it is quarantined and the step raises ``watchdog.PeerLostError``; if it
-   passes, the corruption was transient — the state rolls back to the
-   snapshot and the step runs again.
+   it is quarantined and the step raises ``watchdog.PeerLostError``
+   (over several ranks naming the failed ranks, which a trainer with a
+   checkpoint manager excises by a mesh shrink); if it passes, the
+   corruption was transient — the state rolls back to the snapshot and
+   the step runs again.
 3. **Boundary checks** — checkpoint manifests carry the parameter-state
    fingerprint and a restore verifies it before it changes the trainer
    (:mod:`checkpoint`); serving replicas are audited with golden queries
@@ -50,6 +57,7 @@ from ..observability import metrics as _obs_metrics
 __all__ = [
     "ALGO", "fingerprint_enabled", "audit_every", "audit_due",
     "fold_host", "fold_plain", "fold_tree", "as_uint32", "step_fold",
+    "sums_plain", "chain_plain", "fold_sums", "fold_chain", "fold_sharded",
     "step_fold_host",
     "net_named_state", "note_fingerprint_step", "state_fingerprint",
     "manifest_fingerprint", "verify_manifest_fingerprint",
@@ -214,32 +222,59 @@ def _words64(t):
     return t.contiguous().reshape(-1).view(view).to(torch.int64) & mask
 
 
-def _digest_plain(t):
-    """(s1 ^ s2 * 2654435761) mod 2^32 of one leaf, as a 0-d int64 tensor
-    on its device. The square is taken mod 2^32 from 16-bit halves: a
-    32-bit word's square overflows a signed int64."""
+def _sums_one(t):
+    """(s1, s2) of one leaf as 0-d int64 tensors on its device, each mod
+    2^32. The square is taken mod 2^32 from 16-bit halves: a 32-bit
+    word's square overflows a signed int64."""
     w = _words64(t)
     if w.numel() == 0:
-        return torch.zeros((), dtype=torch.int64, device=t.device)
+        zero = torch.zeros((), dtype=torch.int64, device=t.device)
+        return zero, zero
     lo, hi = w & 0xFFFF, w >> 16
     sq = (lo * lo + (((2 * hi * lo) & 0xFFFF) << 16)) & _MASK
-    s1 = w.sum() & _MASK
-    s2 = sq.sum() & _MASK
-    return torch.bitwise_xor(s1, (s2 * _DIGEST_MUL) & _MASK)
+    return w.sum() & _MASK, sq.sum() & _MASK
+
+
+def sums_plain(named, counted=None):
+    """The plain version of the ``state_fold_sums`` kernel: an (n, 2) int64
+    tensor of each leaf's wrapping uint32 sum and square-sum, in sorted-name
+    order; a leaf whose ``counted`` entry (by name; default: all counted)
+    is false sums to (0, 0)."""
+    items = _sorted_named(named)
+    dev = items[0][1].device if items else torch.device("cpu")
+    rows = []
+    for name, t in items:
+        if counted is None or counted.get(name, True):
+            rows.append(torch.stack(_sums_one(t)))
+        else:
+            rows.append(torch.zeros(2, dtype=torch.int64, device=dev))
+    if not rows:
+        return torch.zeros((0, 2), dtype=torch.int64, device=dev)
+    return torch.stack(rows)
+
+
+def chain_plain(sums, crcs):
+    """The plain version of the ``state_fold_chain`` kernel: the
+    fingerprint (a 0-d int32 holding the uint32's bits) from (n, 2) sums
+    (their low 32 bits) and the names' crc32s (ints), in order:
+    ``acc = acc * 1000003 + (s1 ^ s2 * 2654435761) + crc``."""
+    s = sums.to(torch.int64) & _MASK
+    digests = torch.bitwise_xor(s[:, 0], (s[:, 1] * _DIGEST_MUL) & _MASK)
+    # the crc32s stay host ints and the seed a fill: no host-to-device
+    # copy, so a CUDA graph can hold the plain fold
+    acc = torch.full((), _FOLD_SEED, dtype=torch.int64, device=s.device)
+    for i, crc in enumerate(crcs):
+        acc = (acc * _FOLD_MUL + digests[i] + int(crc)) & _MASK
+    return (acc - ((acc >> 31) << 32)).to(torch.int32)
 
 
 def fold_plain(named):
     """The plain PyTorch version of the fold kernel: the fingerprint of
     ``{name: tensor}`` as a 0-d int32 tensor holding the uint32's bits, on
-    the leaves' device (the CPU tests, and phase b on the card)."""
+    the leaves' device (the CPU tests, and phase b on the card):
+    :func:`chain_plain` of :func:`sums_plain`."""
     items = _sorted_named(named)
-    dev = items[0][1].device if items else torch.device("cpu")
-    # a fill, not a host-to-device copy: the plain fold never waits on
-    # the device
-    acc = torch.full((), _FOLD_SEED, dtype=torch.int64, device=dev)
-    for name, t in items:
-        acc = (acc * _FOLD_MUL + _digest_plain(t) + _crc(name)) & _MASK
-    return (acc - ((acc >> 31) << 32)).to(torch.int32)
+    return chain_plain(sums_plain(items), [_crc(n) for n, _ in items])
 
 
 # blocks a leaf's run may take: one per 64 KB, at most 4096
@@ -257,10 +292,11 @@ class _Table:
                  "pinned")
 
 
-def _table_for(items, device):
+def _table_for(items, device, counted=None):
     """The cached :class:`_Table` of ``items`` ([(name, tensor)] sorted):
     rows of (pointer, elements, element size, crc32, first block, block
-    count). Outside a capture the rows go to the device by one
+    count); a leaf whose ``counted`` flag (a tuple in order) is false is a
+    row of 0 elements. Outside a capture the rows go to the device by one
     asynchronous copy from pinned memory, and a spare device table of the
     same layout is set aside. Inside a ``CapturedExec`` capture (whose
     warm-up runs came first) the spare is taken and its write deferred to
@@ -269,8 +305,11 @@ def _table_for(items, device):
     the graph's memory with temporaries that a replay writes before the
     fold reads it. A table that a capture made or found is never evicted,
     since its graph reads it at every replay."""
-    key = (device,) + tuple((n, t.data_ptr(), t.numel(), t.element_size(),
-                             t.dtype == torch.bool) for n, t in items)
+    if counted is None:
+        counted = (True,) * len(items)
+    key = (device,) + tuple((n, t.data_ptr(), t.numel() if c else 0,
+                             t.element_size(), t.dtype == torch.bool)
+                            for (n, t), c in zip(items, counted))
     tab = _TABLES.get(key)
     if tab is not None:
         # an eager table that a capture reads (leaves at their warm-up
@@ -279,16 +318,16 @@ def _table_for(items, device):
             tab.pinned = True
         return tab
     rows, first = [], 0
-    for name, t in items:
+    for (name, t), c in zip(items, counted):
         esize = 1 if t.dtype == torch.bool else t.element_size()
         if esize not in _WORD_VIEWS:
             raise TypeError(
                 f"xsf32-v1 cannot fold dtype {t.dtype} in-graph")
-        nbytes = t.numel() * esize
+        n = t.numel() if c else 0
+        nbytes = n * esize
         blocks = max(1, min(_MAX_BLOCKS, -(-nbytes // _BLOCK_BYTES),
                             nbytes // 16))
-        rows.append([t.data_ptr(), t.numel(), esize, _crc(name), first,
-                     blocks])
+        rows.append([t.data_ptr(), n, esize, _crc(name), first, blocks])
         first += blocks
     layout = (device,) + tuple(k[0:1] + k[2:] for k in key[1:])
     capturing = torch.cuda.is_current_stream_capturing()
@@ -320,33 +359,48 @@ def _table_for(items, device):
     return tab
 
 
-def _launch_fold(items, device):
+def _fold_lib():
     import ctypes
 
     from ..ops import _build
 
+    lib = _build.load("state_fold")
+    if lib.state_fold.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.state_fold.argtypes = [p, i, ll, p, p, p, p]
+        lib.state_fold_sums.argtypes = [p, i, ll, p, p, p]
+        lib.state_fold_chain.argtypes = [p, p, i, p, p]
+        for fn in (lib.state_fold, lib.state_fold_sums,
+                   lib.state_fold_chain):
+            fn.restype = ctypes.c_int
+        lib.state_fold_error_string.argtypes = [ctypes.c_int]
+        lib.state_fold_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_err(lib, err, entry):
+    if err:
+        msg = lib.state_fold_error_string(err).decode()
+        raise MXNetError(f"{entry} launch failed: {msg} (error {err})")
+
+
+def _contiguous(items):
     for name, t in items:
         if not t.is_contiguous():
             raise ValueError(f"fold_tree: {name} must be contiguous on CUDA")
-    lib = _build.load("state_fold")
-    fn = lib.state_fold
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.state_fold_error_string.argtypes = [ctypes.c_int]
-        lib.state_fold_error_string.restype = ctypes.c_char_p
+
+
+def _launch_fold(items, device):
+    _contiguous(items)
+    lib = _fold_lib()
     out = torch.empty((), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         tab = _table_for(items, device)
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(tab.dev.data_ptr(), tab.n, tab.blocks,
-                 tab.partials.data_ptr(), tab.digests.data_ptr(),
-                 out.data_ptr(), stream)
-    if err:
-        msg = lib.state_fold_error_string(err).decode()
-        raise MXNetError(f"state_fold launch failed: {msg} (error {err})")
+        err = lib.state_fold(tab.dev.data_ptr(), tab.n, tab.blocks,
+                             tab.partials.data_ptr(), tab.digests.data_ptr(),
+                             out.data_ptr(), stream)
+    _check_err(lib, err, "state_fold")
     fold_tree.launches += 1
     return out
 
@@ -360,18 +414,99 @@ def fold_tree(named):
     items = [(n, t.detach()) for n, t in _sorted_named(named)]
     if not items:
         return torch.tensor(_FOLD_SEED - (1 << 32), dtype=torch.int32)
-    devs = {t.device for _, t in items}
-    if len(devs) != 1:
-        raise ValueError(f"fold_tree: leaves lie on several devices {devs}")
-    dev = devs.pop()
+    dev = _one_device(items)
     if dev.type == "cuda":
         return _launch_fold(items, dev)
-    if dev.type == "cpu":
-        return fold_plain(dict(items))
-    raise ValueError(f"fold_tree: unsupported device {dev}")
+    return fold_plain(dict(items))
 
 
 fold_tree.launches = 0
+
+
+def fold_sums(named, counted=None):
+    """Each leaf's wrapping (s1, s2) as an (n, 2) int64 tensor on the
+    leaves' device, in sorted-name order, a leaf whose ``counted`` flag
+    (``{name: bool}``, default all) is false as (0, 0): the half of the
+    fold that adds over shards. CUDA leaves launch ``state_fold_sums`` of
+    ``csrc/state_fold.cu`` (counted in ``fold_sums.launches``) or raise;
+    CPU leaves take :func:`sums_plain`."""
+    items = [(n, t.detach()) for n, t in _sorted_named(named)]
+    flags = tuple(bool(counted.get(n, True)) if counted is not None
+                  else True for n, _ in items)
+    dev = _one_device(items)
+    if dev.type == "cpu":
+        return sums_plain(dict(items), dict(zip((n for n, _ in items),
+                                                flags)))
+    _contiguous(items)
+    lib = _fold_lib()
+    sums = torch.empty((len(items), 2), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        tab = _table_for(items, dev, flags)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.state_fold_sums(tab.dev.data_ptr(), tab.n, tab.blocks,
+                                  tab.partials.data_ptr(), sums.data_ptr(),
+                                  stream)
+    _check_err(lib, err, "state_fold_sums")
+    fold_sums.launches += 1
+    return sums
+
+
+fold_sums.launches = 0
+_CRCS: dict = {}
+
+
+def fold_chain(sums, names):
+    """The fingerprint (a 0-d int32 holding the uint32's bits) from the
+    (n, 2) ``sums`` of the sorted ``names`` (all-reduced over the ranks:
+    their low 32 bits count). CUDA sums launch ``state_fold_chain``
+    (counted in ``fold_chain.launches``) or raise; CPU sums take
+    :func:`chain_plain`."""
+    names = tuple(sorted(str(n) for n in names))
+    if sums.device.type == "cpu":
+        return chain_plain(sums, [_crc(n) for n in names])
+    key = (sums.device, names)
+    crcs = _CRCS.get(key)
+    if crcs is None:
+        crcs = _CRCS[key] = torch.tensor([_crc(n) for n in names],
+                                         dtype=torch.int64,
+                                         device=sums.device)
+    sums = sums.contiguous()
+    lib = _fold_lib()
+    out = torch.empty((), dtype=torch.int32, device=sums.device)
+    with torch.cuda.device(sums.device):
+        stream = torch.cuda.current_stream(sums.device).cuda_stream
+        err = lib.state_fold_chain(sums.data_ptr(), crcs.data_ptr(),
+                                   len(names), out.data_ptr(), stream)
+    _check_err(lib, err, "state_fold_chain")
+    fold_chain.launches += 1
+    return out
+
+
+fold_chain.launches = 0
+
+
+def _one_device(items):
+    devs = {t.device for _, t in items}
+    if len(devs) != 1:
+        raise ValueError(f"fold: leaves lie on several devices {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"fold: unsupported device {dev}")
+    return dev
+
+
+def fold_sharded(named, counted, mesh):
+    """The fingerprint of a state split over ``mesh``'s ranks, equal on
+    every rank to :func:`fold_host` of the gathered state: each rank's
+    :func:`fold_sums` of what it holds (``counted[name]``: does this rank
+    add that leaf -- one rank per element), the sums all-reduced over
+    every rank (int64, then their low 32 bits), then :func:`fold_chain`.
+    Zero padding adds nothing to a sum. Every rank calls it."""
+    from ..parallel import collectives
+
+    sums = fold_sums(named, counted)
+    collectives.all_reduce(sums, mesh, tuple(mesh.axis_names))
+    return fold_chain(sums.bitwise_and_(_MASK), list(named))
 
 
 def as_uint32(fp):
@@ -494,13 +629,14 @@ def _device_id(device):
     return 0 if device.index is None else int(device.index)
 
 
-def device_selftest(device, rounds=None):
+def device_selftest(device, rounds=None, ident=None):
     """Known-answer battery for one device: 64x64 integer matrix products
     (entries within +-125, so every partial sum is an integer below 2^24)
     computed on the device in float64 and compared with the exact int64
     product from the host. There is one right answer, so any deviation is
     hardware corruption. ``sdc_device_sticky`` corrupts the victim's
-    result here."""
+    result here (``ident``: the id the fault's victim is named by; by
+    default the device's index; a multi-rank trainer passes its rank)."""
     from . import faults as _faults
 
     _STATS["integrity_selftests"] += 1
@@ -519,7 +655,8 @@ def device_selftest(device, rounds=None):
                            torch.as_tensor(b, dtype=torch.float64,
                                            device=device))
         got = got.cpu().numpy().astype(np.int64)
-        got = _faults.maybe_sdc_selftest(got, _device_id(device))
+        got = _faults.maybe_sdc_selftest(
+            got, _device_id(device) if ident is None else int(ident))
         if not np.array_equal(got, want):
             ok = False
             break
@@ -535,12 +672,9 @@ def device_selftest(device, rounds=None):
 def snapshot_step(trainer):
     """The pre-step state of ``trainer`` (a ShardedTrainer whose step
     counter has just advanced) when an audit is due, else None: device
-    copies of every state tensor the step updates in place. A multi-rank
-    mesh is skipped (counted)."""
+    copies of every state tensor the step updates in place (over several
+    ranks, each rank's own)."""
     if not audit_due(getattr(trainer, "_step_count", 0)):
-        return None
-    if getattr(trainer, "_multi", False):
-        _STATS["integrity_audit_skipped"] += 1
         return None
     return {"step": int(trainer._step_count),
             "state": [t.detach().clone() for t in trainer._state_tensors()],
@@ -553,25 +687,35 @@ def _restore_snapshot(trainer, snap):
             t.copy_(s)
 
 
+def _state_fp(trainer):
+    """The parameter-state fingerprint of ``trainer`` (over several ranks,
+    the gathered state's, the same on every rank)."""
+    fn = getattr(trainer, "_state_fingerprint", None)
+    return fn() if fn is not None else state_fingerprint(trainer.params)
+
+
 def audit_step(trainer, snap, run_step, live_fp=None):
     """The shadow replay audit: put the snapshot back, run the step again
     (``run_step()`` returns its fingerprint output or None) on the same
     device, and compare the state and step fingerprints with the live
     run's. Returns None (clean, or no snapshot) or ``"retry"`` after a
     transient-corruption rollback (the caller runs the step again); raises
-    ``watchdog.PeerLostError`` when the device fails the self-test. On a
-    clean audit the trainer holds the replay's state, bitwise the live
-    one."""
+    ``watchdog.PeerLostError`` naming the rank(s) whose device failed the
+    self-test. On a clean audit the trainer holds the replay's state,
+    bitwise the live one. Over several ranks every rank replays and
+    compares the global fingerprints, so all reach the same verdict, and
+    the self-test verdicts are all-reduced: every rank names the same
+    failed ranks, which the trainer's recovery excises."""
     if snap is None:
         return None
     from . import watchdog as _watchdog
 
     _STATS["integrity_audits"] += 1
     _MET_AUDITS.inc()
-    live_state = state_fingerprint(trainer.params)
+    live_state = _state_fp(trainer)
     _restore_snapshot(trainer, snap)
     replay_fp = run_step()
-    shadow_state = state_fingerprint(trainer.params)
+    shadow_state = _state_fp(trainer)
     ok = live_state == shadow_state
     if ok and live_fp is not None and replay_fp is not None:
         ok = as_uint32(live_fp) == as_uint32(replay_fp)
@@ -583,15 +727,24 @@ def audit_step(trainer, snap, run_step, live_fp=None):
     _MET_MISMATCHES.inc(surface="train")
     _obs_flight.record("integrity", op="mismatch", step=step_no,
                        live=live_state, shadow=shadow_state)
-    if not device_selftest(trainer.device):
-        dev = _device_id(trainer.device)
-        quarantine_device(dev)
-        _watchdog.mark_peer_dead(0)
+    multi = getattr(trainer, "_multi", False)
+    rank = trainer._fault_id() if multi else None
+    passed = device_selftest(trainer.device, ident=rank)
+    failed = trainer._failed_ranks(passed) if multi else \
+        ([] if passed else [0])
+    if failed:
+        for r in failed:
+            _watchdog.mark_peer_dead(r)
+        if not passed:
+            quarantine_device(_device_id(trainer.device) if rank is None
+                              else rank)
+        who = (f"device {_device_id(trainer.device)}" if not multi
+               else f"rank(s) {failed}")
         err = _watchdog.PeerLostError(
-            f"integrity audit at step {step_no}: device {dev} failed the "
-            "known-answer self-test and is quarantined (a mesh shrink "
-            "around it is ROADMAP Queue 1 item 12)")
-        err.ranks = (0,)
+            f"integrity audit at step {step_no}: {who} failed the "
+            "known-answer self-test and is quarantined")
+        err.ranks = tuple(failed)
+        err.hosts = tuple(trainer._hosts_of(failed)) if multi else ()
         raise err
     snap["retries"] += 1
     if snap["retries"] > 2:

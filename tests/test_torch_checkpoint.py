@@ -266,8 +266,22 @@ def test_gluon_trainer_states_scaler_and_generators(tmp_path):
 
 
 def test_pod_commit_raises_naming_item_12(tmp_path):
-    with pytest.raises(mt.MXNetError, match="item 12"):
-        CheckpointManager(str(tmp_path), pod=object())
+    """The pod commit is ported (it no longer raises): ``pod=`` and
+    ``bind_pod`` attach a topology, and a trainer of one rank under a
+    1-host pod saves and restores the ordinary way
+    (tests/test_torch_pod.py drives the distributed commit itself)."""
+    topo = tpar.PodTopology(1, 1)
+    mgr = CheckpointManager(str(tmp_path), pod=topo)
+    assert mgr._pod is topo and mgr.bind_pod(None) is mgr
+    assert mgr.bind_pod(topo)._pod is topo
+    tr = _tt(_pair()[1])
+    tr.step(X, Y)
+    path = mgr.save(1, trainer=tr)
+    assert os.path.isfile(os.path.join(path, "manifest.json"))
+    fresh = _tt(_pair()[1])
+    assert mgr.restore_latest(trainer=fresh)["step"] == 1
+    for k, v in tr.params.items():
+        assert torch.equal(fresh.params[k], v)
 
 
 def _gluon_step(net, tr, x=X, y=Y):
@@ -342,8 +356,8 @@ def test_resharding_over_two_ranks(tmp_path):
     """Resharding through the manifest's logical shapes: a one-rank
     checkpoint restores onto {"dp": 1, "fsdp": 2} (dense weights split
     over fsdp) as each rank's shard of it, and the 2-rank trainer's
-    checkpoint (rank 0 writes the gathered state) restores onto one rank
-    equal to the gathered state; both bitwise."""
+    checkpoint (a distributed commit, each rank its own host) restores
+    onto one rank equal to the gathered state; both bitwise."""
     _, net = _pair()
     values = {k: v.detach().numpy().copy()
               for k, v in net.collect_params().items()}

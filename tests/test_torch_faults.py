@@ -96,9 +96,9 @@ def test_env_spec_arms_the_same_table(monkeypatch):
 
 def test_parse_spec_knows_every_mxnet_tpu_kind():
     """Every kind ``mxnet_tpu``'s docstring lists parses; the serving
-    kinds and the ported training kinds arm; the kinds still queued (the
-    dist store, peers, pod hosts, ``ckpt_partial_pod``) raise naming the
-    rest of ROADMAP Queue 1 item 12, ``record_corrupt`` item 10; an
+    kinds and the ported training kinds arm (the dist store's, the peers',
+    the pod hosts' and ``ckpt_partial_pod`` among them); the one kind still
+    queued, ``record_corrupt``, raises naming ROADMAP Queue 1 item 10; an
     unknown kind raises."""
     doc_kinds = {k for k in faults.SERVING_KINDS + faults.TRAINING_KINDS}
     listed = {line.strip().split("``")[1] for line in
@@ -115,11 +115,7 @@ def test_parse_spec_knows_every_mxnet_tpu_kind():
         else:
             with faults.inject(kind) as f:
                 assert faults.active(kind) and f.fired == 0
-    assert set(faults.QUEUED_KINDS) == {
-        "dist_connect_timeout", "hang_collective", "peer_death",
-        "host_death", "host_hang_collective", "coordinator_loss",
-        "ckpt_partial_pod", "record_corrupt"}
-    assert faults.QUEUED_KINDS["record_corrupt"] == 10
+    assert faults.QUEUED_KINDS == {"record_corrupt": 10}
     assert not faults.active()
     with pytest.raises(MXNetError, match="unknown fault kind"):
         faults.parse_spec("no_such_fault")

@@ -154,7 +154,18 @@ def test_mesh_index_arithmetic_is_row_major():
 
 
 def test_pod_topology_is_queued():
-    for make in (lambda: tpar.PodTopology(2, 4), lambda: tpar.pod_mesh(),
-                 lambda: tpar.shrink_mesh_hosts()):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            make()
+    """Host failure domains are ported (no longer queued): a topology of
+    2 hosts of 4 ranks, the one-rank pod mesh, and a host shrink of an
+    arithmetic mesh that keeps the surviving host's ranks
+    (tests/test_torch_pod.py holds them to mxnet_tpu's)."""
+    topo = tpar.PodTopology(2, 4)
+    assert topo.host_ordinals(1) == (4, 5, 6, 7) and topo.host_of(5) == 1
+    mesh, one = tpar.pod_mesh(topology=tpar.PodTopology(
+        1, 1, devices=[torch.device("cpu")]))
+    assert mesh.shape == {"dp": 1} and one.num_hosts == 1
+    arr = np.empty(8, dtype=object)
+    arr[:] = [torch.device("cpu")] * 8
+    new, shrunk, kept = tpar.shrink_mesh_hosts(
+        tpar.Mesh(arr, ("dp",)), [0], topo)
+    assert kept == (1,) and shrunk.num_hosts == 1
+    assert list(new.source_ranks) == [4, 5, 6, 7]

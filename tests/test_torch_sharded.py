@@ -240,18 +240,24 @@ def test_remat_steps_equal_steps_without_it(remat_and_raises):
 def test_tensor_parallelism_and_checkpoint_manager_raise(remat_and_raises):
     """What is not ported raises, citing its ROADMAP item: a 'pp' axis
     and 'tp' together with 'sp' (item 6; tensor parallelism itself runs,
-    test_torch_tensor_parallel.py), and, for a trainer that keeps its
-    checkpoint manager, the step fingerprint over several ranks (the
-    rest of item 12)."""
+    test_torch_tensor_parallel.py). A trainer that keeps its checkpoint
+    manager now takes the step fingerprint over several ranks: the same
+    value on every rank, its state fingerprint mxnet_tpu's fold_host of
+    the gathered parameters."""
+    from mxnet_tpu.resilience import integrity as jintegrity
+
+    fps = set()
     for r in remat_and_raises:
         r = r["raises"]
         assert "mesh axis 'pp' of size 2" in r["pp_axis"] and \
             "Queue 1 item 6" in r["pp_axis"]
         assert "'tp' of size 2 together with 'sp'" in r["sp_tp"] and \
             "Queue 1 item 6" in r["sp_tp"]
-        assert "step fingerprint over several ranks" in \
-            r["checkpoint_manager"] and \
-            "Queue 1 item 12" in r["checkpoint_manager"]
+        got = r["checkpoint_manager"]
+        assert got["state_fp"] == jintegrity.fold_host(
+            {f"param:{k}": v for k, v in got["params"].items()})
+        fps.add(got["fp"])
+    assert len(fps) == 1 and None not in fps
 
 
 # ------------------------------------------------- remat, one process
