@@ -15,6 +15,7 @@
     python3 chip_smoke.py --fleet-only       # build + phase v (serving)
     python3 chip_smoke.py --resilience-only  # build + phase w
     python3 chip_smoke.py --pod-only         # build + phase x (pod drills)
+    python3 chip_smoke.py --data-only        # build + phase y (input path)
 
 Phases, each failing loudly with a non-zero exit:
 
@@ -434,7 +435,27 @@ Phases, each failing loudly with a non-zero exit:
       chain kernels to sums_plain / chain_plain and the fold over the ranks
       to one-rank state_fold of the gathered state, and times the sums
       launch beside its bound. ``--pod-only`` runs the build, the fold's
-      phase-b cases and phase x alone.
+      phase-b cases and phase x alone;
+  (y) the ImageNet input path: 1,280 train and 512 val synthetic JPEGs
+      (shorter side 256-500 px, q90, 1,000 classes) written through the
+      port's recordio under _data/. (y1) each ImageRecordIter backend's
+      decode rate, each one's val batches on the card bitwise its own on
+      the CPU (a ring slot released early would differ), native against
+      Python within mean |diff| 8; ResNet-50 (phase j's recipe, batch
+      256) trained 2 epochs from ImageRecordIter (random_resized_crop,
+      rand_mirror, train_imagenet.py's mean / std, preprocess_threads
+      the cores up to 16): step ms fed beside a resident batch's,
+      images/s, step.data_wait's share, H2D ms a batch, val top-1 through
+      resize=256; (y2) StreamBatchIter over 4 shards -> image_decoder ->
+      DevicePrefetcher.for_trainer, prefetch depth 2 then 0, a checkpoint
+      with data_iter= at step 3 restored into a fresh trainer and
+      iterator, bitwise the uninterrupted run (batch content hashes,
+      labels, losses), record_corrupt raised and skipped by policy; (y3)
+      ImageRecordDataset + transforms + DataLoader(num_workers=4,
+      pin_memory=True) bitwise num_workers=0's, through a SIGKILLed
+      worker (respawned, each batch once), feeding gluon.Trainer's
+      ResNet-50 step; /dev/shm's size printed. ``--data-only`` runs the
+      build and phase y alone.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. ``--summary PATH`` also writes the
@@ -11731,6 +11752,600 @@ def pod_phase(torch, mx, card=None, device="cuda", dims=None, layers=None):
     return out
 
 
+# -------------------------------------------------------------- phase y
+# train_imagenet.py --rec's configuration (examples/image_classification/
+# train_imagenet.py:36-47, 65-74) on synthetic JPEGs written through the
+# port's recordio: 1,280 train and 512 val images, shorter side 256-500 px
+# like ImageNet's, quality 90, 1,000 classes, under the gitignored _data/
+Y_DIR = os.path.join(ROOT, "_data")
+Y_TRAIN, Y_VAL, Y_CLASSES = 1280, 512, 1000
+Y_MEAN = (123.68, 116.78, 103.94)
+Y_STD = (58.4, 57.12, 57.38)
+Y_SHARDS = 4
+Y_EPOCHS = 2            # y1: train epochs of Y_TRAIN // RESNET_BATCH steps
+Y_STREAM_STEPS = 8      # y2: steps a run; the checkpoint after Y_CKPT_STEP
+Y_CKPT_STEP = 3
+Y_GLUON_BATCH, Y_GLUON_WORKERS = 64, 4
+Y_KILL_BATCHES, Y_GLUON_STEPS = 8, 3
+# the native (OpenCV) and Python (PIL) decoders differ; mxnet_tpu holds
+# them to a mean |diff| below 8 (tests/test_io_pipeline.py:179-191)
+Y_BACKEND_MEAN_DIFF = 8.0
+_Y_FAILED = []
+
+
+def y_check(ok, what):
+    """Log a phase-y check; a failed one is collected and fails the phase
+    at its end."""
+    log(f"[y] {'ok  ' if ok else 'FAIL'} {what}")
+    if not ok:
+        _Y_FAILED.append(what)
+    return ok
+
+
+def y_cores():
+    return min(16, os.cpu_count() or 1)
+
+
+def y_images(rng, n):
+    """``n`` synthetic photos (uint8 HWC) and labels from ``rng``: shorter
+    side 256-500 px, the longer 1-1.5x it, smooth colour fields (8 x 8
+    noise upsampled bicubic) plus a fixed grain tile, so they compress
+    and decode like photographs rather than like noise."""
+    from PIL import Image
+    import numpy as np
+
+    grain = rng.randint(-12, 13, (750, 750, 3)).astype(np.int16)
+    out = []
+    for _ in range(n):
+        short = int(rng.randint(256, 501))
+        long_ = int(short * rng.uniform(1.0, 1.5))
+        h, w = (short, long_) if rng.randint(0, 2) else (long_, short)
+        base = Image.fromarray(rng.randint(0, 256, (8, 8, 3)).astype(
+            np.uint8)).resize((w, h), Image.BICUBIC)
+        img = np.asarray(base, np.int16) + grain[:h, :w]
+        out.append((np.clip(img, 0, 255).astype(np.uint8),
+                    float(rng.randint(0, Y_CLASSES))))
+    return out
+
+
+def y_write_rec(prefix, records):
+    """``records`` ([(header label, packed bytes)]) as prefix.rec/.idx."""
+    from mxnet_tpu_torch import recordio
+
+    w = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    for i, payload in enumerate(records):
+        w.write_idx(i, payload)
+    w.close()
+    return prefix + ".rec"
+
+
+def y_data():
+    """The train and val .rec/.idx, and the train records again as
+    Y_SHARDS shards for the stream layer; returns their paths."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from mxnet_tpu_torch import recordio
+
+    shutil.rmtree(Y_DIR, ignore_errors=True)
+    os.makedirs(Y_DIR)
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(0)
+    imgs = y_images(rng, Y_TRAIN + Y_VAL)
+
+    def pack(i):
+        img, label = imgs[i]
+        return recordio.pack_img((0, label, i, 0), img, quality=90)
+
+    with ThreadPoolExecutor(y_cores()) as pool:
+        packed = list(pool.map(pack, range(len(imgs))))
+    train = y_write_rec(os.path.join(Y_DIR, "train"), packed[:Y_TRAIN])
+    val = y_write_rec(os.path.join(Y_DIR, "val"), packed[Y_TRAIN:])
+    per = Y_TRAIN // Y_SHARDS
+    shards = [y_write_rec(os.path.join(Y_DIR, f"shard-{s:05d}"),
+                          packed[s * per:(s + 1) * per])
+              for s in range(Y_SHARDS)]
+    nbytes = sum(len(p) for p in packed)
+    sides = [min(im.shape[:2]) for im, _ in imgs]
+    log(f"[y] wrote {Y_TRAIN} train + {Y_VAL} val JPEGs (q90, shorter "
+        f"side {min(sides)}-{max(sides)} px, {nbytes / len(packed) / 1e3:.1f}"
+        f" kB a record, {Y_CLASSES} classes) and {Y_SHARDS} train shards "
+        f"in {time.perf_counter() - t0:.1f} s under {Y_DIR}")
+    return {"train": train, "val": val, "shards": shards,
+            "record_kb": nbytes / len(packed) / 1e3}
+
+
+def y_resnet(torch, mx, seed=0):
+    """Phase j's ResNet-50 v1 trainer (NHWC, s2d stem, bf16 over fp32
+    masters, SGD momentum 0.9, wd 1e-4) from a seeded generator."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    net = vision.resnet50_v1(layout="NHWC", stem="s2d", classes=Y_CLASSES,
+                             prefix="y50_")   # one name set: checkpoints
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2),
+                   generator=torch.Generator(device="cuda").manual_seed(seed))
+    trainer = mx.parallel.ShardedTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+        dict(RESNET_OPT), dtype="bfloat16")
+    return net, trainer
+
+
+def y_iter_kw(rec, train=True):
+    """train_imagenet.py's ImageRecordIter arguments (:36-47), with
+    preprocess_threads the machine's cores up to 16."""
+    kw = dict(path_imgrec=rec, path_imgidx=rec[:-4] + ".idx",
+              data_shape=(3, 224, 224), batch_size=RESNET_BATCH,
+              mean_r=Y_MEAN[0], mean_g=Y_MEAN[1], mean_b=Y_MEAN[2],
+              std_r=Y_STD[0], std_g=Y_STD[1], std_b=Y_STD[2],
+              preprocess_threads=y_cores())
+    if train:
+        kw.update(shuffle=True, random_resized_crop=True, rand_mirror=True)
+    else:
+        kw.update(resize=256)
+    return kw
+
+
+def y_epoch(torch, it):
+    """One epoch of ``it`` on the card: ([(data, label)], images/s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [(b.data[0].data_, b.label[0].data_) for b in it]
+    torch.cuda.synchronize()
+    n = sum(int(x.shape[0]) for x, _ in out)
+    return out, n / (time.perf_counter() - t0)
+
+
+def y1_decode(torch, mx, data):
+    """Each backend's decode rate over a train epoch, and the batches it
+    lands on the card held to the same backend's on the CPU (bitwise: a
+    ring slot released before its copy finished would differ) and the
+    native ones to the Python ones (labels equal, mean |diff| < 8)."""
+    from mxnet_tpu_torch.io import record_pipeline as rp
+
+    out = {"native_build_error": None}
+    for force in (False, True):
+        it = mx.io.ImageRecordIter(force_python=force,
+                                   **y_iter_kw(data["train"]))
+        if it.backend in out:
+            continue
+        _, rate = y_epoch(torch, it)
+        out[it.backend] = {"decode_images_per_s": rate}
+        log(f"[y] decode, backend {it.backend}: {rate:.1f} images/s over "
+            f"{Y_TRAIN} train images (random_resized_crop, rand_mirror, "
+            f"{y_cores()} preprocess threads, batches landed on the card)")
+    if "native" not in out:
+        out["native_build_error"] = rp.build_error()
+        log(f"[y] native backend did not build; Python only. Build error: "
+            f"{rp.build_error()}")
+    val_kw = y_iter_kw(data["val"], train=False)
+    card = {}
+    for backend in [b for b in ("native", "python") if b in out]:
+        force = backend == "python"
+        on_card, _ = y_epoch(torch, mx.io.ImageRecordIter(
+            force_python=force, **val_kw))
+        with mx.cpu():
+            on_host = [(b.data[0].data_, b.label[0].data_) for b in
+                       mx.io.ImageRecordIter(force_python=force, **val_kw)]
+        same = len(on_card) == len(on_host) and all(
+            torch.equal(a.cpu(), c) and torch.equal(b.cpu(), d)
+            for (a, b), (c, d) in zip(on_card, on_host))
+        y_check(same, f"y1 {backend}: {len(on_card)} val batches (resize "
+                f"256, center crop) landed on the card bitwise the same "
+                "backend's batches on the CPU")
+        card[backend] = on_card
+    if len(card) == 2:
+        diff = max(float((a - c).abs().mean()) for (a, _), (c, _) in
+                   zip(card["native"], card["python"]))
+        labels = all(torch.equal(b, d) for (_, b), (_, d) in
+                     zip(card["native"], card["python"]))
+        y_check(labels and diff < Y_BACKEND_MEAN_DIFF,
+                f"y1 native vs Python val batches: labels equal {labels}, "
+                f"largest batch mean |diff| {diff:.3f} (libjpeg vs PIL; "
+                f"mxnet_tpu's bound {Y_BACKEND_MEAN_DIFF})")
+        out["backend_mean_diff"] = diff
+    del card
+    return out
+
+
+def y_h2d_ms(torch):
+    """Device time of one non-blocking copy of a pinned float32 batch of
+    (256, 3, 224, 224) to the card (CUDA events, median of 10)."""
+    host = torch.empty((RESNET_BATCH, 3, 224, 224), pin_memory=True)
+    dev = torch.empty(host.shape, device="cuda")
+    times = []
+    for _ in range(11):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        dev.copy_(host, non_blocking=True)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    ms = sorted(times[1:])[5]
+    return ms, host.numel() * 4
+
+
+def y1_train(torch, mx, data, decode):
+    """ResNet-50 trained from ImageRecordIter for Y_EPOCHS epochs, the
+    last one timed with step.data_wait spans; then val top-1 through
+    resize=256 and mx.metric.Accuracy; a resident-batch step beside it."""
+    from mxnet_tpu_torch.observability import metrics, trace
+
+    net, trainer = y_resnet(torch, mx)
+    it = mx.io.ImageRecordIter(**y_iter_kw(data["train"]))
+    before = kernel_launch_total()
+    prev = trace.set_enabled(True)
+    losses, step_ms, wait_ms = [], [], []
+    try:
+        for epoch in range(Y_EPOCHS):
+            if epoch:
+                it.reset()
+            trace.clear()       # the last epoch's spans are the window
+            for _ in range(len(it)):
+                t0 = time.perf_counter()
+                with trace.span("step.data_wait"):
+                    batch = it.next()
+                wait_ms.append((time.perf_counter() - t0) * 1e3)
+                loss = trainer.step(batch.data[0], batch.label[0])
+                losses.append(loss.item())
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        stall = metrics.update_input_stall()
+    finally:
+        trace.set_enabled(prev)
+        trace.clear()
+    # the same iterator's decode with the trainer resident and no step
+    # between batches: what the steps cost the decode
+    it.reset()
+    _, after_rate = y_epoch(torch, it)
+    per_epoch = len(it)
+    last = sorted(step_ms[-per_epoch:])
+    fed = last[len(last) // 2]
+    x, y = batch.data[0].data_, batch.label[0].data_
+    resident = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step(x, y).item()
+        resident.append((time.perf_counter() - t0) * 1e3)
+    res = sorted(resident[1:])[1]
+    y_check(all(math.isfinite(v) for v in losses),
+            f"y1 {len(losses)} steps from ImageRecordIter (backend "
+            f"{it.backend}): losses finite, "
+            + ", ".join(f"{v:.4f}" for v in losses))
+    y_check(kernel_launch_total() == before,
+            "y1 K1-K5 launched no time (the ResNet step bypasses K3, as "
+            "mxnet_tpu's)")
+    h2d, nbytes = y_h2d_ms(torch)
+    trainer.sync_to_net()
+    val = mx.io.ImageRecordIter(**y_iter_kw(data["val"], train=False))
+    acc = mx.metric.Accuracy()
+    for b in val:
+        acc.update([b.label[0]], [net(b.data[0])])
+    top1 = acc.get()[1]
+    y_check(math.isfinite(top1) and 0.0 <= top1 <= 1.0,
+            f"y1 val top-1 over {Y_VAL} images (resize 256, center crop): "
+            f"{top1:.4f} (random labels: says nothing of learning)")
+    out = {"backend": it.backend, "losses": losses, "step_ms": step_ms,
+           "fed_step_ms": fed, "resident_step_ms": res,
+           "images_per_s": RESNET_BATCH / (fed / 1e3),
+           "resident_images_per_s": RESNET_BATCH / (res / 1e3),
+           "input_stall_fraction": stall, "wait_ms": wait_ms,
+           "decode_after_train_images_per_s": after_rate, "h2d_ms": h2d,
+           "h2d_gb_s": nbytes / (h2d / 1e3) / 1e9, "h2d_bytes": nbytes,
+           "val_top1": top1, **decode}
+    log(f"[y] y1 step fed from ImageRecordIter ({it.backend}): median "
+        f"{fed:.2f} ms over epoch {Y_EPOCHS}'s {per_epoch} steps "
+        f"({out['images_per_s']:.1f} images/s); from a resident batch "
+        f"{res:.2f} ms ({out['resident_images_per_s']:.1f} images/s); "
+        f"step.data_wait {stall:.1%} of the window (next() median "
+        f"{sorted(wait_ms[-per_epoch:])[per_epoch // 2]:.2f} ms; the same "
+        f"iterator's decode after training, no steps between batches: "
+        f"{after_rate:.1f} images/s); H2D of one "
+        f"{nbytes / 1e6:.1f} MB batch {h2d:.3f} ms "
+        f"({out['h2d_gb_s']:.2f} GB/s, pinned, CUDA events)")
+    del net, trainer, x, y, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def y_digest(torch, x, weights):
+    """A content hash of a batch on the card: the sum and a positionally
+    weighted sum of its words as int64."""
+    w = x.contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+    return torch.stack([w.sum(), (w * weights[:w.numel()]).sum()])
+
+
+def y2_run(torch, mx, stream, shards, depth, steps, seed, restore_from=None,
+           save_to=None):
+    """Steps of a ResNet-50 trainer fed by StreamBatchIter ->
+    image_decoder -> DevicePrefetcher.for_trainer: (losses, digests,
+    labels, step ms, stall fraction over the steps after the first two)."""
+    from mxnet_tpu_torch.observability import metrics, trace
+    from mxnet_tpu_torch.resilience import CheckpointManager
+
+    _, trainer = y_resnet(torch, mx, seed)
+    it = stream.StreamBatchIter(
+        shards, batch_size=RESNET_BATCH, shuffle=True, seed=0,
+        decode_threads=y_cores(),
+        decode=stream.image_decoder((3, 224, 224), resize=256,
+                                    mean=list(Y_MEAN), std=list(Y_STD)))
+    pre = stream.DevicePrefetcher.for_trainer(trainer, it, depth=depth)
+    mgr = CheckpointManager(os.path.join(Y_DIR, "ckpt"), keep_n=1)
+    first = 1
+    if restore_from is not None:
+        m = mgr.restore_latest(trainer=trainer, data_iter=pre)
+        first = m["step"] + 1
+    weights = torch.arange(RESNET_BATCH * 3 * 224 * 224, device="cuda",
+                           dtype=torch.int64) % 65521 + 1
+    rec = {"losses": {}, "digests": {}, "labels": {}, "step_ms": {}}
+    prev = trace.set_enabled(True)
+    save_s = None
+    try:
+        trace.clear()
+        for step in range(first, steps + 1):
+            if step == first + 2:
+                trace.clear()   # the window: steps after the first two
+            t0 = time.perf_counter()
+            x, y = next(pre)
+            loss = trainer.step(x, y)
+            rec["losses"][step] = loss.item()
+            rec["step_ms"][step] = (time.perf_counter() - t0) * 1e3
+            rec["digests"][step] = y_digest(torch, x, weights).tolist()
+            rec["labels"][step] = y.tolist()
+            if save_to is not None and step == save_to:
+                t1 = time.perf_counter()
+                mgr.save(step, trainer=trainer, data_iter=pre)
+                save_s = time.perf_counter() - t1
+                trace.clear()
+        rec["stall"] = metrics.update_input_stall()
+    finally:
+        trace.set_enabled(prev)
+        trace.clear()
+        pre.close()
+        it.close()
+    rec["save_s"] = save_s
+    del trainer, weights
+    torch.cuda.empty_cache()
+    return rec
+
+
+def y2_stream(torch, mx, data):
+    """y2: the stream layer over the 4 shards into the trainer with
+    prefetch depth 2 (uninterrupted, a checkpoint with data_iter= after
+    step Y_CKPT_STEP) and 0 (a fresh trainer and iterator restored from
+    it); the restored run's batches and losses are the uninterrupted
+    run's, bitwise. Then record_corrupt under both policies."""
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.io import stream
+    from mxnet_tpu_torch.resilience import faults
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # bitwise across trainers
+    try:
+        a = y2_run(torch, mx, stream, data["shards"], 2, Y_STREAM_STEPS, 0,
+                   save_to=Y_CKPT_STEP)
+        b = y2_run(torch, mx, stream, data["shards"], 0, Y_STREAM_STEPS, 1,
+                   restore_from=Y_CKPT_STEP)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    resumed = range(Y_CKPT_STEP + 1, Y_STREAM_STEPS + 1)
+    same = all(a[k][s] == b[k][s] for k in ("losses", "digests", "labels")
+               for s in resumed)
+    y_check(same, f"y2 restored at step {Y_CKPT_STEP} (fresh trainer and "
+            f"iterator, checkpoint with data_iter=): steps "
+            f"{resumed.start}-{resumed.stop - 1}' batches (content hash, "
+            "labels) and losses bitwise the uninterrupted run's "
+            f"(losses {[a['losses'][s] for s in resumed]} vs "
+            f"{[b['losses'][s] for s in resumed]})")
+    y_check(len(set(tuple(a["digests"][s]) for s in a["digests"]))
+            == len(a["digests"]),
+            f"y2 {len(a['digests'])} distinct batches over the epoch edge "
+            f"({Y_TRAIN // RESNET_BATCH} batches an epoch)")
+    ms_a = sorted(a["step_ms"][s] for s in range(Y_CKPT_STEP + 2,
+                                                 Y_STREAM_STEPS + 1))
+    ms_b = sorted(b["step_ms"][s] for s in range(Y_CKPT_STEP + 3,
+                                                 Y_STREAM_STEPS + 1))
+    log(f"[y] y2 input-stall fraction: prefetch depth 2 {a['stall']:.1%} "
+        f"(median step {ms_a[len(ms_a) // 2]:.2f} ms), depth 0 "
+        f"{b['stall']:.1%} (median step {ms_b[len(ms_b) // 2]:.2f} ms); "
+        f"checkpoint save with data_state {a['save_s']:.2f} s")
+    out = {"stall_depth2": a["stall"], "stall_depth0": b["stall"],
+           "step_ms_depth2": ms_a, "step_ms_depth0": ms_b,
+           "save_s": a["save_s"], "losses": a["losses"],
+           "resumed_losses": b["losses"]}
+    dec = stream.image_decoder((3, 224, 224), resize=256)
+    raised = False
+    it = stream.StreamBatchIter(data["shards"], batch_size=8, decode=dec,
+                                corrupt_policy="raise", decode_threads=1)
+    with faults.inject("record_corrupt"):
+        try:
+            next(it)
+        except recordio.RecordCorruptError as e:
+            raised = "CRC32" in str(e)
+    it.close()
+    y_check(raised, "y2 record_corrupt armed, policy raise: "
+            "RecordCorruptError (CRC32)")
+    stream.reset_stats()
+    it = stream.StreamBatchIter(data["shards"], batch_size=8, decode=dec,
+                                corrupt_policy="skip", decode_threads=1)
+    with faults.inject("record_corrupt"):
+        b8 = next(it)
+    it.close()
+    n = stream.stats()["io_records_corrupt"]
+    y_check(n == 1 and b8.data.shape == (8, 3, 224, 224),
+            f"y2 record_corrupt armed, policy skip: io_records_corrupt {n}, "
+            "the batch whole")
+    return out
+
+
+def y3_gluon(torch, mx, data):
+    """y3: ImageRecordDataset + transforms + DataLoader(num_workers=4,
+    pin_memory=True) -> gluon.Trainer's ResNet-50 step; the batches equal
+    num_workers=0's; a worker SIGKILLed mid-epoch is respawned and every
+    batch arrives once; a dataset of arrays on the card takes the thread
+    pool."""
+    import multiprocessing
+    import signal
+
+    from mxnet_tpu_torch.gluon.data import dataloader as dl
+    from mxnet_tpu_torch.gluon.data.vision import transforms as tf
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    st = os.statvfs("/dev/shm")
+    shm_total, shm_free = st.f_blocks * st.f_frsize, st.f_bavail * st.f_frsize
+    bs = Y_GLUON_BATCH
+    need = lambda b: b * 3 * 224 * 224 * 4 * 2 * Y_GLUON_WORKERS  # noqa
+    while bs > 4 and need(bs) > shm_free // 2:
+        bs //= 2
+    log(f"[y] /dev/shm {shm_total / 2**20:.0f} MiB ({shm_free / 2**20:.0f} "
+        f"MiB free); y3 batch {bs}"
+        + ("" if bs == Y_GLUON_BATCH else
+           f" (not {Y_GLUON_BATCH}: {Y_GLUON_WORKERS} workers' prefetch "
+           "would not fit in half of it)"))
+    ds = mx.gluon.data.vision.ImageRecordDataset(data["train"]) \
+        .transform_first(tf.Compose([
+            tf.Resize(256), tf.CenterCrop(224), tf.ToTensor(),
+            tf.Normalize([m / 255 for m in Y_MEAN],
+                         [s / 255 for s in Y_STD])]))
+
+    def loader(workers, n, kill=False):
+        """n batches; (batches, s to the first, images/s after it)."""
+        import numpy as np
+
+        np.random.seed(0)
+        got = []
+        others = {c.pid for c in multiprocessing.active_children()}
+        t0 = time.perf_counter()
+        for x, y in mx.gluon.data.DataLoader(
+                ds, batch_size=bs, shuffle=True, num_workers=workers,
+                pin_memory=True, prefetch=Y_GLUON_WORKERS):
+            got.append((x.data_, y.data_))
+            if len(got) == 1:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                if kill:    # one of this loader's workers, dead on return
+                    victim = next(c for c in
+                                  multiprocessing.active_children()
+                                  if c.pid not in others)
+                    os.kill(victim.pid, signal.SIGKILL)
+                    victim.join(10)
+            if len(got) == n:
+                break
+        torch.cuda.synchronize()
+        return got, t1 - t0, (n - 1) * bs / (time.perf_counter() - t1)
+
+    def equal(a, b):
+        return len(a) == len(b) and all(
+            torch.equal(x, u) and torch.equal(y, v)
+            for (x, y), (u, v) in zip(a, b))
+
+    serial, _, serial_rate = loader(0, Y_KILL_BATCHES)
+    workers, first_s, rate = loader(Y_GLUON_WORKERS, Y_KILL_BATCHES)
+    y_check(equal(workers, serial) and workers[0][0].device.type == "cuda",
+            f"y3 DataLoader(num_workers={Y_GLUON_WORKERS}, pin_memory=True):"
+            f" {Y_KILL_BATCHES} batches of {bs} on the card bitwise "
+            f"num_workers=0's ({rate:.1f} vs {serial_rate:.1f} images/s "
+            f"after the first batch; the first after {first_s:.2f} s, the "
+            "forks included)")
+    dl.reset_stats()
+    with warnings_caught() as caught:
+        killed, _, _ = loader(Y_GLUON_WORKERS, Y_KILL_BATCHES, kill=True)
+    respawns = dl.stats()["dataloader_respawns"]
+    said = [str(w.message)[:90] for w in caught
+            if "respawned" in str(w.message)]
+    y_check(equal(killed, serial) and respawns == 1,
+            f"y3 one worker SIGKILLed after batch 1: {len(killed)} batches, "
+            f"each once and bitwise num_workers=0's; respawns {respawns} "
+            f"({'; '.join(said)})")
+    del serial, killed
+    if torch.cuda.is_available():
+        on_card = [mx.nd.array([float(i)], ctx=mx.gpu(0)) for i in range(6)]
+        with warnings_caught() as caught:
+            got = [b.asnumpy() for b in mx.gluon.data.DataLoader(
+                on_card, batch_size=2, num_workers=2)]
+        warned = any("cannot cross a fork" in str(w.message) for w in caught)
+        y_check(warned and [float(v) for b in got for v in b.ravel()]
+                == [float(i) for i in range(6)],
+                "y3 a dataset of arrays on the card: the loader warns and "
+                f"batches on the thread pool ({len(got)} batches, in order)")
+    net = vision.resnet50_v1(layout="NHWC", stem="s2d", classes=Y_CLASSES)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2),
+                   generator=torch.Generator(device="cuda").manual_seed(2))
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               dict(RESNET_OPT))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    losses, step_ms = [], []
+    for x, y in workers[:Y_GLUON_STEPS]:
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y).mean()
+        loss.backward()
+        trainer.step(1)
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    y_check(all(math.isfinite(v) for v in losses),
+            f"y3 gluon.Trainer ResNet-50 (fp32) {Y_GLUON_STEPS} steps from "
+            f"the loader's batches: losses "
+            + ", ".join(f"{v:.4f}" for v in losses) + "; ms "
+            + ", ".join(f"{v:.1f}" for v in step_ms))
+    del net, trainer, workers
+    torch.cuda.empty_cache()
+    return {"batch": bs, "shm_total": shm_total, "shm_free": shm_free,
+            "workers_images_per_s": rate, "serial_images_per_s":
+            serial_rate, "workers_first_batch_s": first_s,
+            "respawns": respawns, "losses": losses, "step_ms": step_ms}
+
+
+@contextlib.contextmanager
+def warnings_caught():
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        yield caught
+
+
+def data_phase(torch, mx, card, j_step_ms=None):
+    """Phase y: y1 (train_imagenet.py --rec on ImageRecordIter), y2 (the
+    stream layer, resume, record_corrupt), y3 (the gluon DataLoader with
+    workers); its checks collect failures and the phase fails at its end
+    naming them all. ``j_step_ms``: phase j's resident-batch step, printed
+    beside y1's."""
+    import shutil
+
+    _Y_FAILED.clear()
+    t0 = time.perf_counter()
+    log(f"[y] {card}; {os.cpu_count()} cores")
+    try:
+        data = y_data()
+        decode = y1_decode(torch, mx, data)
+        y1 = y1_train(torch, mx, data, decode)
+        y2 = y2_stream(torch, mx, data)
+        y3 = y3_gluon(torch, mx, data)
+    finally:
+        shutil.rmtree(Y_DIR, ignore_errors=True)
+    out = {"y1": y1, "y2": y2, "y3": y3, "record_kb": data["record_kb"],
+           "seconds": time.perf_counter() - t0}
+    log(f"[y] {card}: y1 backend {y1['backend']}, step fed "
+        f"{y1['fed_step_ms']:.2f} ms vs resident {y1['resident_step_ms']:.2f}"
+        f" ms" + (f" (phase j {j_step_ms:.2f} ms)" if j_step_ms else "")
+        + f", {y1['images_per_s']:.1f} images/s, stall "
+        f"{y1['input_stall_fraction']:.1%}, H2D {y1['h2d_ms']:.3f} ms a "
+        f"batch; decode images/s "
+        + ", ".join(f"{b} {y1[b]['decode_images_per_s']:.1f}"
+                    for b in ("native", "python") if b in y1)
+        + f"; y2 stall depth 2 {y2['stall_depth2']:.1%}, depth 0 "
+        f"{y2['stall_depth0']:.1%}; phase y {out['seconds']:.1f} s")
+    if _Y_FAILED:
+        raise SystemExit(f"phase y: {len(_Y_FAILED)} check(s) failed: "
+                         f"{_Y_FAILED}")
+    return out
+
+
 def library_ms(fn, what):
     """device_ms of a library call, or None (logged) where the library
     refuses the call."""
@@ -11775,6 +12390,9 @@ def main(argv=None):
     ap.add_argument("--pod-only", action="store_true",
                     help="build, then run the fold's phase-b cases and "
                          "phase x (pod and peer-loss recovery) only")
+    ap.add_argument("--data-only", action="store_true",
+                    help="build, then run phase y (the ImageNet input "
+                         "path) only")
     ap.add_argument("--resilience-child", metavar="DIR",
                     help=argparse.SUPPRESS)   # w1's child
     ap.add_argument("--dist-rank", metavar="DIR",
@@ -11882,6 +12500,11 @@ def main(argv=None):
         log("[pod-only] phase x passed")
         log(card)
         return 0
+    if args.data_only:
+        data_phase(torch, mx, card)
+        log("[data-only] phase y passed")
+        log(card)
+        return 0
     t_run = time.perf_counter()
 
     def stamp(label):
@@ -11952,6 +12575,8 @@ def main(argv=None):
     w3 = resilience["w3"]
     stamp("pod_phase")
     pod = pod_phase(torch, mx, card)
+    stamp("data_phase")
+    data_y = data_phase(torch, mx, card, resnet_training["median_step_ms"])
     probe = pod["x1"]["probe"]
     x1_counts = pod["x1"]["counts_by_step"]
 
@@ -12408,6 +13033,7 @@ def main(argv=None):
                        "ssd": ssd, "dist": dist_u, "fleet": fleet_v,
                        "fold_checks": fold_checks,
                        "resilience": resilience, "pod": pod,
+                       "data": data_y,
                        **record}, f,
                       indent=1)
     log(card)

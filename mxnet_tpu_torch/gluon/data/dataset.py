@@ -1,12 +1,15 @@
 """Gluon Datasets (port of ``mxnet_tpu/gluon/data/dataset.py``; parity:
-python/mxnet/gluon/data/dataset.py: Dataset :29, ArrayDataset :258).
-``RecordFileDataset`` waits for ``recordio`` (ROADMAP Queue 1 item 10).
+python/mxnet/gluon/data/dataset.py: Dataset :29, ArrayDataset :258,
+RecordFileDataset :291).
 """
 from __future__ import annotations
 
+import os
+import threading
+
 from ... import ndarray as nd
 
-__all__ = ["Dataset", "SimpleDataset", "ArrayDataset"]
+__all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset"]
 
 
 class Dataset:
@@ -108,3 +111,31 @@ class ArrayDataset(Dataset):
 
     def __len__(self):
         return self._length
+
+
+class RecordFileDataset(Dataset):
+    """Dataset over a RecordIO file and its ``.idx`` beside it
+    (gluon/data/dataset.py:291); each sample is a record's raw bytes.
+
+    Each thread (and each forked worker) reads through a file handle of
+    its own, so a DataLoader's thread pool never interleaves one handle's
+    seek and read."""
+
+    def __init__(self, filename):
+        from ...recordio import MXIndexedRecordIO
+        self.idx_file = os.path.splitext(filename)[0] + ".idx"
+        self.filename = filename
+        self._record = MXIndexedRecordIO(self.idx_file, self.filename, "r")
+        self._local = threading.local()
+
+    def __getitem__(self, idx):
+        from ...recordio import read_logical_record
+
+        local = self._local
+        if getattr(local, "pid", None) != os.getpid():
+            local.f, local.pid = open(self.filename, "rb"), os.getpid()
+        local.f.seek(self._record.idx[self._record.keys[idx]])
+        return read_logical_record(local.f)
+
+    def __len__(self):
+        return len(self._record.keys)

@@ -1,13 +1,13 @@
 """Vision datasets (port of ``mxnet_tpu/gluon/data/vision/datasets.py``;
 parity: python/mxnet/gluon/data/vision/datasets.py: MNIST, FashionMNIST,
-CIFAR10/100, ImageFolderDataset).
+CIFAR10/100, ImageRecordDataset, ImageFolderDataset).
 
 Nothing is downloaded: the files are read where they are, else a
 synthetic set is drawn from ``mxnet_tpu``'s ``RandomState`` seeds, bit for
 bit its set (``MXNET_TPU_TORCH_SYNTH_DATA``, default on; "0" turns it off
 and a missing file raises). The images live on ``cpu()`` as uint8
 NDArrays; a DataLoader moves batches to the card. ``ImageRecordDataset``
-waits for ``recordio`` (ROADMAP Queue 1 item 10).
+decodes a ``.rec`` record with PIL into such an array.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from ....context import cpu
 from .... import ndarray as nd
 
 __all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100",
-           "ImageFolderDataset"]
+           "ImageRecordDataset", "ImageFolderDataset"]
 
 
 def _synth_ok():
@@ -175,6 +175,26 @@ class CIFAR100(CIFAR10):
             self._data = _host_u8(self._data_np)
             return
         super()._get_data()
+
+
+class ImageRecordDataset(dataset.RecordFileDataset):
+    """Dataset over a RecordIO file of images
+    (gluon/data/vision/datasets.py:217): each sample is the decoded image,
+    an (H, W, C) uint8 NDArray on ``cpu()``, and the record's label."""
+
+    def __init__(self, filename, flag=1, transform=None):
+        super().__init__(filename)
+        self._flag = flag
+        self._transform = transform
+
+    def __getitem__(self, idx):
+        from ....recordio import unpack_img
+        record = super().__getitem__(idx)
+        header, img = unpack_img(record, self._flag)
+        label = header.label
+        if self._transform is not None:
+            return self._transform(_host_u8(img), label)
+        return _host_u8(img), label
 
 
 class ImageFolderDataset(dataset.Dataset):

@@ -5,7 +5,9 @@ stack of example/ssd). Host-side numpy and PIL; boxes ride along with every
 geometric transform, and the same ``np.random`` draws are taken in the
 same order as ``mxnet_tpu``'s.
 
-:meth:`ImageDetIter.decode` is the one place an image file is read:
+:meth:`ImageDetIter.decode` is the one place an image is read (a file
+of the list, or a record of a ``.rec`` whose header label holds the
+reference's det layout ``[A, B, extras..., (cls x1 y1 x2 y2)*N]``):
 everything after it (augmenters, label padding, batching) runs on the
 decoded array, so a caller with arrays in hand may replace it.
 :class:`ImageDetIter`'s batches land on the context current when it was
@@ -281,9 +283,11 @@ def CreateDetAugmenter(data_shape, resize=0, rand_crop=0, rand_pad=0,
 
 class ImageDetIter:
     """Detection iterator (detection.py:ImageDetIter). Sources: in-memory
-    ``imglist`` [(label, path), ...] or ``path_imglist`` in the reference's
+    ``imglist`` [(label, path), ...], ``path_imglist`` in the reference's
     det .lst format (idx\\tA\\tB\\t[extras]\\t(cls x1 y1 x2 y2)*N\\tpath,
-    A = header width incl. A and B, B = object width).
+    A = header width incl. A and B, B = object width), or ``path_imgrec``,
+    a ``.rec`` whose records carry that label (without the path) in their
+    header (upstream MXNet's ``im2rec.py --pack-label``).
 
     Yields DataBatch: data (B,C,H,W) float32, label (B, max_obj, obj_width)
     padded with -1.
@@ -292,7 +296,7 @@ class ImageDetIter:
     def __init__(self, batch_size, data_shape, path_imglist=None,
                  path_root="", imglist=None, shuffle=False, aug_list=None,
                  data_name="data", label_name="label",
-                 last_batch_handle="pad", **kwargs):
+                 last_batch_handle="pad", path_imgrec=None, **kwargs):
         from ..io import DataDesc
 
         self.batch_size = batch_size
@@ -300,8 +304,11 @@ class ImageDetIter:
         self.path_root = path_root
         self.shuffle = shuffle
         self._ctx = current_context()
+        self._imgrec = None
         entries = []
-        if path_imglist:
+        if path_imgrec:
+            entries = self._scan_rec(path_imgrec)
+        elif path_imglist:
             with open(path_imglist) as fin:
                 for line in fin:
                     parts = line.strip().split("\t")
@@ -320,7 +327,7 @@ class ImageDetIter:
                     arr = arr.reshape(-1, 5)
                 entries.append((arr, path))
         else:
-            raise MXNetError("need path_imglist or imglist")
+            raise MXNetError("need path_imgrec, path_imglist or imglist")
         if not entries:
             raise MXNetError("empty detection image list")
         self._entries = entries
@@ -360,11 +367,38 @@ class ImageDetIter:
             np.random.shuffle(self._order)
         self.cur = 0
 
+    def _scan_rec(self, path_imgrec):
+        """[(label rows, record offset)] of every record, in file order."""
+        from ..recordio import MXRecordIO, unpack
+
+        self._imgrec = MXRecordIO(path_imgrec, "r")
+        entries = []
+        while True:
+            off = self._imgrec.tell()
+            buf = self._imgrec.read()
+            if buf is None:
+                return entries
+            vals = np.atleast_1d(np.asarray(unpack(buf)[0].label,
+                                            np.float32))
+            if vals.size < 2:
+                raise MXNetError(
+                    f"record at offset {off} of {path_imgrec} has no det "
+                    "label [A, B, ...] in its header")
+            header_w, obj_w = int(vals[0]), int(vals[1])
+            entries.append((vals[header_w:].reshape(-1, obj_w), off))
+
     def decode(self, i):
         """The image of entry ``i`` (in the current order) as an (H, W, C)
         float32 numpy array, and its label rows."""
-        label, path = self._entries[self._order[i]]
-        return _to_np(_img.imread(os.path.join(self.path_root, path))), label
+        label, where = self._entries[self._order[i]]
+        if self._imgrec is None:
+            return _to_np(_img.imread(os.path.join(self.path_root,
+                                                   where))), label
+        from ..recordio import unpack
+
+        self._imgrec.record.seek(where)
+        payload = unpack(self._imgrec.read())[1]
+        return _to_np(_img.imdecode(payload)), label
 
     def _read(self, i):
         img, label = self.decode(i)

@@ -10,8 +10,9 @@ dtypes (uint8 pixels until a cast; numpy's float64 and int64 arrive as
 float32 and int32, as JAX keeps them). :class:`ImageIter`'s batches land
 on the context current when it was made (``gpu(0)`` unless told
 otherwise), one host-to-device copy for the data and one for the label a
-batch. Reading ``.rec`` files waits for ``recordio`` (ROADMAP Queue 1
-item 10).
+batch. Its source is an ``imglist``, a ``.lst`` file, or a ``.rec`` file
+read through ``recordio`` (by key through the ``.idx`` beside it, else in
+file order).
 """
 from __future__ import annotations
 
@@ -423,9 +424,8 @@ def CreateAugmenter(data_shape, resize=0, rand_crop=False, rand_resize=False,
 
 class ImageIter:
     """Image data iterator with augmentation (image.py:1210) over an
-    ``imglist`` or a ``path_imglist``; yields io.DataBatch on the context
-    current at construction. ``path_imgrec`` raises: ``recordio`` is
-    ROADMAP Queue 1 item 10."""
+    ``imglist``, a ``path_imglist`` or a ``path_imgrec``; yields
+    io.DataBatch on the context current at construction."""
 
     def __init__(self, batch_size, data_shape, label_width=1,
                  path_imgrec=None, path_imglist=None, path_root="",
@@ -441,25 +441,36 @@ class ImageIter:
         self.shuffle = shuffle
         self.dtype = dtype
         self._ctx = current_context()
+        self.imgrec = None
         if path_imgrec:
-            raise MXNetError("ImageIter(path_imgrec=...): recordio is ROADMAP "
-                             "Queue 1 item 10, not ported")
-        entries = {}
-        if path_imglist:
-            with open(path_imglist) as fin:
-                for line in fin:
-                    parts = line.strip().split("\t")
-                    label = np.array(
-                        [float(i) for i in parts[1:-1]], dtype=np.float32)
-                    entries[int(parts[0])] = (label, parts[-1])
+            from ..recordio import MXIndexedRecordIO, MXRecordIO
+            idx_path = os.path.splitext(path_imgrec)[0] + ".idx"
+            if os.path.isfile(idx_path):
+                self.imgrec = MXIndexedRecordIO(idx_path, path_imgrec, "r")
+                self.seq = list(self.imgrec.keys)
+            else:
+                self.imgrec = MXRecordIO(path_imgrec, "r")
+                self.seq = None
+            self.imglist = None
         else:
-            for i, rec in enumerate(imglist):
-                label = np.array(rec[0] if isinstance(rec[0], (list, tuple))
-                                 else [rec[0]], dtype=np.float32)
-                entries[i] = (label, rec[1])
-        self.imglist = entries
-        self.seq = list(self.imglist.keys())
-        if num_parts > 1:
+            entries = {}
+            if path_imglist:
+                with open(path_imglist) as fin:
+                    for line in fin:
+                        parts = line.strip().split("\t")
+                        label = np.array(
+                            [float(i) for i in parts[1:-1]],
+                            dtype=np.float32)
+                        entries[int(parts[0])] = (label, parts[-1])
+            else:
+                for i, rec in enumerate(imglist):
+                    label = np.array(
+                        rec[0] if isinstance(rec[0], (list, tuple))
+                        else [rec[0]], dtype=np.float32)
+                    entries[i] = (label, rec[1])
+            self.imglist = entries
+            self.seq = list(self.imglist.keys())
+        if num_parts > 1 and self.seq is not None:
             n = len(self.seq) // num_parts
             self.seq = self.seq[part_index * n:(part_index + 1) * n]
         if aug_list is None:
@@ -480,15 +491,28 @@ class ImageIter:
         self.reset()
 
     def reset(self):
-        if self.shuffle:
+        if self.shuffle and self.seq is not None:
             pyrandom.shuffle(self.seq)
+        if self.imgrec is not None and self.seq is None:
+            self.imgrec.reset()
         self.cur = 0
 
     def next_sample(self):
+        """(label, encoded image bytes) of the next sample."""
+        from ..recordio import unpack
+        if self.seq is None:
+            s = self.imgrec.read()
+            if s is None:
+                raise StopIteration
+            header, img = unpack(s)
+            return header.label, img
         if self.cur >= len(self.seq):
             raise StopIteration
         idx = self.seq[self.cur]
         self.cur += 1
+        if self.imgrec is not None:
+            header, img = unpack(self.imgrec.read_idx(idx))
+            return header.label, img
         label, fname = self.imglist[idx]
         with open(os.path.join(self.path_root, fname), "rb") as f:
             img = f.read()
@@ -510,6 +534,7 @@ class ImageIter:
                     data = aug(data)
                 arr = data.asnumpy() if isinstance(data, nd.NDArray) else data
                 batch_data[i] = arr.transpose(2, 0, 1)
+                label = np.atleast_1d(np.asarray(label, np.float32))
                 batch_label[i] = label if self.label_width > 1 else label[0]
                 i += 1
         except StopIteration:

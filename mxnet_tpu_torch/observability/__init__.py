@@ -60,19 +60,26 @@ def reset_stats():
         _STATS[k] = 0
 
 
+# modules whose stats()/reset_stats() the profiler's dispatch_stats()
+# merges and reset_dispatch_stats() zeroes (read only once imported)
+_COUNTER_MODULES = ("mxnet_tpu_torch.capture", "mxnet_tpu_torch.serving",
+                    "mxnet_tpu_torch.resilience",
+                    "mxnet_tpu_torch.gluon.data.dataloader",
+                    "mxnet_tpu_torch.io.stream")
+
+
 def runtime_counters():
     """Every flat runtime counter of the port in one dict: capture,
-    serving, resilience and observability (the port's counterpart of
+    serving, resilience, the input path (the DataLoader and the stream
+    layer) and observability (the port's counterpart of
     ``mxnet_tpu``'s ``profiler.dispatch_stats()``, which the exporters
     and crash reports read)."""
     import sys
 
     out = {}
-    for name in ("mxnet_tpu_torch.capture", "mxnet_tpu_torch.serving",
-                 "mxnet_tpu_torch.resilience",
-                 "mxnet_tpu_torch.resilience.checkpoint",
-                 "mxnet_tpu_torch.resilience.elastic",
-                 "mxnet_tpu_torch.resilience.integrity"):
+    for name in _COUNTER_MODULES + ("mxnet_tpu_torch.resilience.checkpoint",
+                                    "mxnet_tpu_torch.resilience.elastic",
+                                    "mxnet_tpu_torch.resilience.integrity"):
         mod = sys.modules.get(name)
         if mod is not None:
             try:

@@ -520,7 +520,16 @@ def _probe_healthy_floor(ctx):
 def _probe_input_stall(ctx):
     value = (ctx.input_stall if ctx.input_stall is not None
              else _metrics.update_input_stall())
-    return value, None
+    # the evidence names where the starving loop's streaming iterators sat
+    # (epoch and global cursor, io/stream.py); a lookup, not an import, so
+    # the alert path never loads the io package
+    detail = None
+    stream_mod = sys.modules.get("mxnet_tpu_torch.io.stream")
+    if stream_mod is not None:
+        positions = stream_mod.live_positions()
+        if positions:
+            detail = {"stream_positions": positions}
+    return value, detail
 
 
 def _probe_numerics(cond_name):

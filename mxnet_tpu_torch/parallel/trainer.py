@@ -95,6 +95,7 @@ import re
 import sys
 import time
 import warnings
+from collections import namedtuple
 
 import numpy as np
 import torch
@@ -110,7 +111,15 @@ from .mesh import _torch_device, create_mesh
 from .optim import make_update_fn
 from . import tensor_parallel
 
-__all__ = ["ShardedTrainer", "make_update_fn"]
+__all__ = ["ShardedTrainer", "BatchPlacement", "make_update_fn"]
+
+
+class BatchPlacement(namedtuple("BatchPlacement",
+                                ["device", "index", "count"])):
+    """Where a rank's step wants its batch: ``device``, and this rank's
+    ``index`` among the ``count`` ranks of the batch axes (its rows of the
+    global batch are part ``index`` of ``count``, in batch order). The
+    port's counterpart of ``mxnet_tpu``'s batch ``NamedSharding``."""
 
 
 def _box(shape):
@@ -853,9 +862,23 @@ class ShardedTrainer:
             grads[k] = torch.zeros_like(leaf) if g is None else g
         return loss.detach(), grads, new_aux
 
+    @property
+    def batch_sharding(self):
+        """:class:`BatchPlacement` of the step's batch on the CURRENT mesh
+        (re-derived after a mesh shrink): ``io.stream.DevicePrefetcher.
+        for_trainer`` lands each prefetched batch, this rank's rows of it,
+        on this device, so :meth:`step` copies nothing."""
+        axes = self._batch_axes
+        return BatchPlacement(self.device,
+                              self.mesh.axis_index(axes) if axes else 0,
+                              self.mesh.axis_size(axes) if axes else 1)
+
     def _place(self, a):
-        """A batch operand as a tensor on the trainer's device; one that is
-        there already is used as it is (no copy)."""
+        """A batch operand (a tensor, an NDArray or numpy) as a tensor on
+        the trainer's device; one that is there already is used as it is
+        (no copy)."""
+        if hasattr(a, "data_"):     # an NDArray: the tensor it holds
+            a = a.data_
         if not isinstance(a, torch.Tensor):
             a = torch.as_tensor(a)
         return a if a.device == self.device else a.to(self.device)

@@ -167,7 +167,8 @@ def dump(finished=True, profile_process="worker"):
 
 def dispatch_stats(reset=False):
     """Every runtime counter of the port (capture, serving, resilience,
-    observability) as one flat dict."""
+    the input path's DataLoader and stream counters, observability) as
+    one flat dict."""
     from .observability import runtime_counters
 
     stats = runtime_counters()
@@ -181,8 +182,7 @@ def reset_dispatch_stats():
 
     from . import observability
 
-    for name in ("mxnet_tpu_torch.capture", "mxnet_tpu_torch.serving",
-                 "mxnet_tpu_torch.resilience"):
+    for name in observability._COUNTER_MODULES:
         mod = sys.modules.get(name)
         if mod is not None:
             mod.reset_stats()

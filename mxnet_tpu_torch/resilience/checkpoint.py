@@ -476,7 +476,7 @@ class CheckpointManager:
 
     # ---------------------------------------------------------------- save
     def save(self, step, net=None, trainer=None, epoch=None, extra=None,
-             async_=False):
+             async_=False, data_iter=None):
         """Write one checkpoint atomically; returns its path.
 
         Saves, as given: the ``ShardedTrainer``'s parameters, aux and
@@ -489,25 +489,36 @@ class CheckpointManager:
         on a background thread. The next ``save``/``restore*`` waits for
         it; a failed writer is reported there (a warning and
         ``ckpt_async_failures``). ``last_save`` holds this call's step
-        stall (seconds the caller was held) and bytes."""
+        stall (seconds the caller was held) and bytes.
+
+        ``data_iter`` is a streaming input iterator with ``state()`` /
+        ``restore()`` (``io.stream.StreamBatchIter`` or its
+        ``DevicePrefetcher``): its resume token is taken here,
+        synchronously, into the manifest's ``data_state`` (a prefetcher's
+        token leaves out its ring), so a resume sees no sample twice; the
+        token is ``mxnet_tpu``'s, and either package restores the other's."""
         if net is None and trainer is None:
             raise ValueError("save() needs a net and/or a trainer")
         t0 = time.perf_counter()
         self.wait_for_async()
+        # the stream position at the moment of the save, not wherever an
+        # async writer later looks
+        data_state = None if data_iter is None else dict(data_iter.state())
         if _is_sharded_trainer(trainer) and trainer._multi:
             if async_:
                 raise ValueError(
                     "a distributed commit is synchronous: the "
                     "shard-complete barrier is the save (async_=True is "
                     "unsupported for a trainer over several ranks)")
-            return self._save_pod(step, trainer, epoch, extra, t0)
+            return self._save_pod(step, trainer, epoch, extra, t0,
+                                  data_state)
         tag = self._tag(step)
         final = os.path.join(self.directory, tag)
         os.makedirs(self.directory, exist_ok=True)
         self._gc_debris()
         keys, tensors, meta = self._collect(net, trainer)
         manifest = self._manifest(step, epoch, extra, tag, trainer, meta,
-                                  net, tensors, keys)
+                                  net, tensors, keys, data_state)
         nbytes = sum(int(t.numel()) * t.element_size() for t in tensors)
         if not async_:
             with _obs_trace.span("ckpt.save", step=int(step), mode="sync"):
@@ -558,7 +569,7 @@ class CheckpointManager:
         return keys, tensors, meta
 
     def _manifest(self, step, epoch, extra, tag, trainer, meta, net,
-                  tensors, keys):
+                  tensors, keys, data_state=None):
         from . import integrity as _integrity
 
         integrity_rec = None
@@ -572,7 +583,7 @@ class CheckpointManager:
                 "epoch": None if epoch is None else int(epoch),
                 "tag": tag, "rng_key": None, "torch_rng": _rng_state(),
                 "loss_scaler": _scaler_state(trainer),
-                "mesh_axes": meta["mesh_axes"], "data_state": None,
+                "mesh_axes": meta["mesh_axes"], "data_state": data_state,
                 "integrity": integrity_rec, "extra": extra or {}}
 
     def wait_for_async(self, timeout=None):
@@ -654,7 +665,7 @@ class CheckpointManager:
         return final
 
     # ------------------------------------------------------ pod commit
-    def _save_pod(self, step, trainer, epoch, extra, t0):
+    def _save_pod(self, step, trainer, epoch, extra, t0, data_state=None):
         """The distributed commit of a trainer over several ranks (module
         docstring); returns the published path on every rank."""
         mesh = trainer.mesh
@@ -719,7 +730,8 @@ class CheckpointManager:
                     manifest = self._manifest(
                         step, epoch, extra, tag, trainer,
                         {"kind": "sharded",
-                         "mesh_axes": dict(mesh.shape)}, None, [], [])
+                         "mesh_axes": dict(mesh.shape)}, None, [], [],
+                        data_state)
                     manifest.update(arrays=merged, files={}, pod={
                         "num_hosts": int(pod.num_hosts),
                         "devices_per_host": int(pod.devices_per_host)})
@@ -875,11 +887,14 @@ class CheckpointManager:
             _fsync_dir(self.directory)
 
     # ------------------------------------------------------------- restore
-    def restore_latest(self, net=None, trainer=None):
+    def restore_latest(self, net=None, trainer=None, data_iter=None):
         """Restore the newest valid checkpoint into ``net``/``trainer``;
         returns its manifest, or None when none is valid. A corrupt one
         (manifest, payload CRC, or integrity fingerprint) is skipped for
-        the previous one; nothing is changed before verification."""
+        the previous one; nothing is changed before verification.
+        ``data_iter`` (see :meth:`save`) is rewound to the manifest's
+        ``data_state``, first: a missing or mismatched token raises before
+        the net or trainer is touched."""
         self.wait_for_async()
         if os.path.isdir(self.directory):
             self._gc_debris()
@@ -887,21 +902,31 @@ class CheckpointManager:
             with self._pin(path):
                 try:
                     manifest, payloads = self._verify(path)
-                    return self._apply(manifest, payloads, net, trainer)
+                    return self._apply(manifest, payloads, net, trainer,
+                                       data_iter)
                 except CheckpointCorruptError as e:
                     self._skipped(path, e)
         return None
 
-    def restore(self, path, net=None, trainer=None):
+    def restore(self, path, net=None, trainer=None, data_iter=None):
         """Restore one checkpoint (verified, bitwise, onto the trainer's
         current layout); returns its manifest."""
         self.wait_for_async()
         with self._pin(path):
             manifest, payloads = self._verify(path)
-            return self._apply(manifest, payloads, net, trainer)
+            return self._apply(manifest, payloads, net, trainer, data_iter)
 
-    def _apply(self, manifest, payloads, net, trainer):
+    def _apply(self, manifest, payloads, net, trainer, data_iter=None):
         with _obs_trace.span("ckpt.restore", step=manifest.get("step")):
+            if data_iter is not None:
+                data_state = manifest.get("data_state")
+                if data_state is None:
+                    raise ValueError(
+                        "restore(data_iter=...) but the checkpoint "
+                        "manifest carries no data_state (saved without "
+                        "data_iter=?): resuming the stream from an "
+                        "unknown position would replay samples")
+                data_iter.restore(data_state)
             entries = self._assemble_arrays(manifest, payloads)
             dev = getattr(trainer, "device", None)
             if dev is not None and torch.device(dev).type == "cuda":

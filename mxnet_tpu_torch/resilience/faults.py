@@ -82,11 +82,15 @@ The kinds of the distributed store, of peers and of pod hosts:
 - ``ckpt_partial_pod`` — a simulated death inside the pod commit, after
   this rank's shards and before its commit marker.
 
-The parser knows every kind ``mxnet_tpu`` lists. ``record_corrupt``
-(:data:`QUEUED_KINDS`) has no hook in the port: arming it raises
-:class:`~mxnet_tpu_torch.base.MXNetError` naming ROADMAP Queue 1 item 10
-(the streamed-record reader), so a drill never runs armed and
-unexercised.
+The kind of the streamed-record reader:
+
+- ``record_corrupt`` — one streamed RecordIO payload has its middle byte
+  flipped between the range read and the CRC check
+  (``recordio.read_record_at``), so the policy of ``io.stream`` raises
+  ``RecordCorruptError`` or counts ``io_records_corrupt`` and skips.
+
+The parser knows every kind ``mxnet_tpu`` lists, and each has its hook
+(:data:`QUEUED_KINDS` is empty).
 """
 from __future__ import annotations
 
@@ -112,7 +116,8 @@ __all__ = ["FaultInjected", "ReplicaCrash", "DecodeReplicaDead",
            "maybe_kv_pool_exhaustion", "maybe_nan_grads",
            "maybe_nonfinite_grad", "checkpoint_write_filter", "maybe_crash",
            "maybe_oom_step", "maybe_perf_regression",
-           "maybe_step_time_anomaly", "maybe_sdc_bitflip_param",
+           "maybe_step_time_anomaly", "maybe_corrupt_record",
+           "maybe_sdc_bitflip_param",
            "maybe_sdc_bitflip_grad", "maybe_sdc_sticky_param",
            "maybe_sdc_selftest", "maybe_preempt",
            "maybe_dist_connect_fault", "maybe_peer_death",
@@ -137,7 +142,7 @@ TRAINING_KINDS = (
     "sdc_device_sticky", "preempt")
 
 # training kinds whose hooks are not ported: kind -> ROADMAP Queue 1 item
-QUEUED_KINDS = {"record_corrupt": 10}
+QUEUED_KINDS = {}
 
 # the exit code of a process that a peer_death / host_death /
 # coordinator_loss fault kills
@@ -207,11 +212,10 @@ class _Fault:
 
 def _check_kind(kind):
     if kind in QUEUED_KINDS:
-        what = "the streamed-record reader"
         raise MXNetError(
-            f"fault kind {kind!r} hooks into {what}, which the port does "
-            f"not instrument yet (ROADMAP Queue 1 item {QUEUED_KINDS[kind]}"
-            "); arming it would inject nothing")
+            f"fault kind {kind!r} has no hook in the port yet (ROADMAP "
+            f"Queue 1 item {QUEUED_KINDS[kind]}); arming it would inject "
+            "nothing")
     if kind in SERVING_KINDS or kind in TRAINING_KINDS:
         return
     raise MXNetError(f"unknown fault kind {kind!r} (serving kinds: "
@@ -695,6 +699,22 @@ def maybe_step_time_anomaly(dur_ns):
     except ValueError:
         factor = 10.0
     return int(dur_ns * factor)
+
+
+def maybe_corrupt_record(buf):
+    """When ``record_corrupt`` fires, ``buf`` (one streamed RecordIO
+    payload) with its middle byte flipped: the same length, so only the
+    CRC32 the offset index carries catches it. Hooked into
+    ``recordio.read_record_at`` between the range read and the check."""
+    if not _ACTIVE:
+        return buf
+    fault = _ACTIVE.get("record_corrupt")
+    if fault is None or not fault.should_fire():
+        return buf
+    out = bytearray(buf)
+    if out:
+        out[len(out) // 2] ^= 0xFF
+    return bytes(out)
 
 
 def _flip_in_place(t):

@@ -95,11 +95,12 @@ def test_env_spec_arms_the_same_table(monkeypatch):
 
 
 def test_parse_spec_knows_every_mxnet_tpu_kind():
-    """Every kind ``mxnet_tpu``'s docstring lists parses; the serving
-    kinds and the ported training kinds arm (the dist store's, the peers',
-    the pod hosts' and ``ckpt_partial_pod`` among them); the one kind still
-    queued, ``record_corrupt``, raises naming ROADMAP Queue 1 item 10; an
-    unknown kind raises."""
+    """Every kind ``mxnet_tpu``'s docstring lists parses; every serving
+    and training kind arms (the dist store's, the peers', the pod hosts',
+    ``ckpt_partial_pod`` and ``record_corrupt`` among them), none is
+    queued, and an armed ``record_corrupt`` flips the middle byte of the
+    next payload ``recordio.read_record_at`` reads; an unknown kind
+    raises."""
     doc_kinds = {k for k in faults.SERVING_KINDS + faults.TRAINING_KINDS}
     listed = {line.strip().split("``")[1] for line in
               jfaults.__doc__.splitlines()
@@ -108,15 +109,16 @@ def test_parse_spec_knows_every_mxnet_tpu_kind():
     assert faults.parse_spec("nan_grad@3,preempt") == [
         ("nan_grad", 3, 1), ("preempt", 0, 1)]
     for kind in faults.TRAINING_KINDS:
-        if kind in faults.QUEUED_KINDS:
-            with pytest.raises(MXNetError, match="item "
-                               f"{faults.QUEUED_KINDS[kind]}"):
-                faults.arm(kind)
-        else:
-            with faults.inject(kind) as f:
-                assert faults.active(kind) and f.fired == 0
-    assert faults.QUEUED_KINDS == {"record_corrupt": 10}
+        with faults.inject(kind) as f:
+            assert faults.active(kind) and f.fired == 0
+    assert faults.QUEUED_KINDS == {}
     assert not faults.active()
+    payload = bytes(range(16))
+    with faults.inject("record_corrupt") as f:
+        got = faults.maybe_corrupt_record(payload)
+        assert f.fired == 1
+    assert got == payload[:8] + bytes([payload[8] ^ 0xFF]) + payload[9:]
+    assert faults.maybe_corrupt_record(payload) == payload
     with pytest.raises(MXNetError, match="unknown fault kind"):
         faults.parse_spec("no_such_fault")
     with pytest.raises(MXNetError, match="unknown fault kind"):

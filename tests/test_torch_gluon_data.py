@@ -1,7 +1,8 @@
 """``gluon.data`` (``mxnet_tpu_torch/gluon/data/``) against ``mxnet_tpu`` on
 the CPU, after ``tests/test_gluon_data.py``: datasets, samplers, the
-``num_workers=0`` DataLoader, the vision datasets' synthetic sets and the
-transforms. Every comparison is bitwise under one ``np.random`` seed."""
+``num_workers=0`` DataLoader (the workers: ``test_torch_dataloader_workers.py``),
+the vision datasets' synthetic sets and the transforms. Every comparison is
+bitwise under one ``np.random`` seed."""
 import numpy as np
 import pytest
 
@@ -90,12 +91,6 @@ def test_dataloader_batches(shuffle):
     st = mt.gluon.data.dataloader.stats()
     assert st["dataloader_batches"] == 8
     assert st["dataloader_h2d_copies"] == 0      # the loader's ctx is cpu
-
-
-def test_dataloader_rejects_workers():
-    with pytest.raises(mt.MXNetError, match="item 10"):
-        mt.gluon.data.DataLoader(mt.gluon.data.SimpleDataset([1, 2]),
-                                 batch_size=1, num_workers=2)
 
 
 @pytest.mark.parametrize("cls,train", [("MNIST", True), ("FashionMNIST", False),
