@@ -9,6 +9,7 @@
                                              # and K5's timing
     python3 chip_smoke.py --amp-only         # build + phase q
     python3 chip_smoke.py --rnn-only         # build + phase s (word LM)
+    python3 chip_smoke.py --gates-only       # build + l4, l5, q7, r5, s6
     python3 chip_smoke.py --lm-sweeps 6      # build + s1's LM, card and CPU
     python3 chip_smoke.py --ssd-only         # build + phase t (SSD)
     python3 chip_smoke.py --dist-only        # build + phase u (dist_sync)
@@ -175,7 +176,17 @@ Phases, each failing loudly with a non-zero exit:
       against eager (bitwise, p50, busy and wall, BatchServer
       requests/s; 12 K1 nodes in the LM bucket); no retrace and no eager
       run after warm-up; K4 on each route captured alone (2 nodes,
-      replay on new tables and lengths bitwise);
+      replay on new tables and lengths bitwise); (l4) the LM step under a
+      skip_batch HealthSentinel with a grad-norm bound and the step
+      fingerprint on, 6 captured steps with the nan_grad drill firing at
+      step 3, bitwise its kill-switch run (losses, fingerprints, weights,
+      Adam states, the sentinel's counters), the poisoned step leaving
+      every weight and state bitwise as before it, 12 K1, 12 K2 (dk/dv,
+      dq) and the fold's nodes in the graph, 36 K1 and 36 K2 launches on
+      "tc" and 3 folds enqueued, its median step and peak memory against
+      the un-gated captured step's; (l5) a skip numerics tap gating a
+      poisoned step the same way, bitwise its kill switch, and a halt tap
+      raising after the gate;
   (m) the fp32 training slice: phase h's LM left in fp32 (mxnet_tpu's
       default dtype) at full width and depth, gluon.Trainer + Adam (lr
       1e-3), 10 steps on phase h's batch: finite losses, loss 10 at least
@@ -279,8 +290,15 @@ Phases, each failing loudly with a non-zero exit:
       bitwise equal to the uninterrupted step 6; (q6) every optimizer
       beyond SGD and Adam, gluon and functional, 3 updates of one block's
       parameters against a CPU copy within 1e-5 of max|w|, and its device
-      ms an update; then K1 and K2 in fp16 at (8, 12, 1024, 64) beside
-      SDPA fp16, their plain versions and the bound;
+      ms an update; (q7) q1's step captured with loss_scaler= (the scale a
+      slot, the overflow check and the gated update in the graph) from
+      q1's initial weights, a scale of 2**40 forcing one overflow,
+      bitwise its kill-switch run (losses, weights, LAMB states, the
+      loss-scale trajectory, amp.health_stats()), 36 K1 and 36 K2
+      launches on "tc" enqueued; its median step against q1's eager
+      recipe in the same call, its busy share; then K1 and K2 in fp16 at
+      (8, 12, 1024, 64) beside SDPA fp16, their plain versions and the
+      bound;
   (r) the imperative and Module front end: (r1)
       examples/train_mnist.py's configuration through mx.mod.Module with
       no context (gpu(0)): its mlp() (784 -> 128 -> 64 -> 10,
@@ -305,8 +323,15 @@ Phases, each failing loudly with a non-zero exit:
       three mx.nd ops beside the torch calls; (r4) the 'local' and
       'device' kvstores: push of 4 values and pull, bitwise their sum in
       list order; set_optimizer's update bitwise the Updater's; optimizer
-      states saved and loaded, bitwise. ``--module-only`` runs the build
-      and phase r alone;
+      states saved and loaded, bitwise; (r5) r1's fit, shuffle off, 2
+      epochs, captured (the executor's fused forward + backward one CUDA
+      graph) against its kill switch: every parameter (bitwise when the
+      eager fit repeats bitwise), samples/s and each run's own memory
+      of both; r1's MLP with a Dropout through simple_bind, 20 SGD steps
+      from one mx.random seed, captured against its kill switch (every
+      parameter; a fresh mask each training forward). The Module and
+      executor paths of r1-r3 run captured too. ``--module-only`` runs
+      the build and phase r alone;
   (s) the word-LM slice in fp32 (TF32 off), which launches no K1-K5:
       (s1) MXNet 1.6's tied 650-d word LM (2 LSTM layers, 10,000 words,
       the decoder's weight the embedding's) trained through
@@ -330,8 +355,13 @@ Phases, each failing loudly with a non-zero exit:
       clip_global_norm; (s4) sym.contrib.foreach over an LSTM step
       against the fused op, while_loop's padding, cond's branches, a
       Predictor refusing to capture _while_loop; (s5) SequentialModule +
-      PythonLossModule on the card against the CPU. ``--rnn-only`` runs
-      the build and phase s alone;
+      PythonLossModule on the card against the CPU; (s6) s1's
+      BucketingModule over 2 sweeps, captured (one fused graph a bucket)
+      against its kill switch: every parameter, one graph pool for all
+      buckets, each run's own memory (and with one pool a bucket), then
+      a bucket-60 step's median ms, busy share and kernels in each.
+      s1's steps run captured too. ``--rnn-only`` runs the build and
+      phase s alone;
   (t) the SSD slice in fp32 (TF32 off), which launches no K1-K5: (t1)
       examples/ssd/train_ssd.py's configuration -- its SSD block as
       written (a user's HybridBlock: F = mx.nd on NDArrays), ImageDetIter
@@ -423,8 +453,8 @@ Phases, each failing loudly with a non-zero exit:
       train the LM (bf16 over fp32 masters, Adam, B=8 global) through
       ShardedTrainer with a pod commit every 2 steps, the fingerprint over
       the ranks (csrc/state_fold.cu's state_fold_sums, an all-reduce,
-      state_fold_chain) and an audit every 2 steps; (x1) at full depth
-      over {"fsdp": 2, "dp": 2} as 2 hosts, host_death kills host 1's two
+      state_fold_chain) and an audit every 2 steps; (x1) at 6 of the 12
+      layers over {"fsdp": 2, "dp": 2} as 2 hosts, host_death kills host 1's two
       processes at step 5; (x2, 2 layers) coordinator_loss kills host 0's;
       (x3, 2 layers) peer_death kills rank 3 of a {"dp": 4} job without a
       pod and the power-of-two shrink benches rank 2. The survivors detect
@@ -3346,18 +3376,26 @@ def judge(torch, label, eager, eager2, captured):
             "eager_spread": spread, "max_abs_diff": diff}
 
 
-class kill_switch:
-    """MXNET_TPU_TORCH_CAPTURE=0 inside the block: the eager path."""
+class env_scope:
+    """``name`` set to ``value`` inside the block."""
+
+    def __init__(self, name, value):
+        self.name, self.value = name, value
 
     def __enter__(self):
-        self._old = os.environ.get("MXNET_TPU_TORCH_CAPTURE")
-        os.environ["MXNET_TPU_TORCH_CAPTURE"] = "0"
+        self._old = os.environ.get(self.name)
+        os.environ[self.name] = self.value
 
     def __exit__(self, *exc):
         if self._old is None:
-            del os.environ["MXNET_TPU_TORCH_CAPTURE"]
+            os.environ.pop(self.name, None)
         else:
-            os.environ["MXNET_TPU_TORCH_CAPTURE"] = self._old
+            os.environ[self.name] = self._old
+
+
+def kill_switch():
+    """MXNET_TPU_TORCH_CAPTURE=0 inside the block: the eager path."""
+    return env_scope("MXNET_TPU_TORCH_CAPTURE", "0")
 
 
 def step_run(torch, capture, mode, make_step, n_steps, label, groups):
@@ -3401,29 +3439,32 @@ def step_run(torch, capture, mode, make_step, n_steps, label, groups):
     return rec, after, ex
 
 
+def bf16_lm(torch, mx, values=None):
+    """Phase h's LM at GPT-2-small widths in bf16: seeded Xavier weights,
+    or ``values``."""
+    from mxnet_tpu_torch.gluon.model_zoo import transformer
+
+    net = transformer.transformer_lm(
+        vocab=VOCAB, units=UNITS, num_heads=HEADS, num_layers=LAYERS,
+        max_len=T, impl="flash", prefix="tlm_")
+    if values is None:
+        net.initialize(mx.init.Xavier(), generator=torch.Generator(
+            device="cuda").manual_seed(0))
+    else:
+        net.initialize(mx.init.Zero())
+    net.cast("bfloat16")
+    if values is not None:
+        for k, p in net._param_objects().items():
+            p.set_data(values[k])
+    return net
+
+
 def capture_lm_step(torch, mx, kernels, capture):
     """Phase h's LM step (bf16, B=8, T=1024, Adam lr 1e-3) through
     capture.capture(trainer, net=, loss_fn=) and through the kill switch,
     each CAPTURE_LM_STEPS steps from one start (eager twice)."""
-    from mxnet_tpu_torch.gluon.model_zoo import transformer
-
-    def net_of(values=None):
-        net = transformer.transformer_lm(
-            vocab=VOCAB, units=UNITS, num_heads=HEADS, num_layers=LAYERS,
-            max_len=T, impl="flash", prefix="tlm_")
-        if values is None:
-            net.initialize(mx.init.Xavier(), generator=torch.Generator(
-                device="cuda").manual_seed(0))
-        else:
-            net.initialize(mx.init.Zero())
-        net.cast("bfloat16")
-        if values is not None:
-            for k, p in net._param_objects().items():
-                p.set_data(values[k])
-        return net
-
     values = {k: v.detach().clone()
-              for k, v in net_of().collect_params().items()}
+              for k, v in bf16_lm(torch, mx).collect_params().items()}
     x, y = lm_batch(torch, BATCH, T, VOCAB)
     ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
 
@@ -3431,7 +3472,7 @@ def capture_lm_step(torch, mx, kernels, capture):
         return ce(out, label).mean()
 
     def make_step():
-        net = net_of(values)
+        net = bf16_lm(torch, mx, values)
         trainer = mx.gluon.Trainer(net.collect_params(), "adam",
                                    {"learning_rate": LR})
         step = capture.capture(trainer, net=net, loss_fn=lm_loss)
@@ -3666,10 +3707,11 @@ def capture_phase(torch, mx, kernels):
     alone = capture_kernels_alone(torch, kernels, capture)
     alone += capture_decode_alone(torch, decode_attention, capture)
     lm = capture_lm_step(torch, mx, kernels, capture)
+    gates = gates_phase(torch, mx, kernels, parts=("l",))
     resnet = capture_resnet_step(torch, mx, capture)
     served = capture_serving(torch, mx, capture)
-    return {"alone": alone, "lm_step": lm, "resnet_step": resnet,
-            "serving": served}
+    return {"alone": alone, "lm_step": lm, "gates": gates,
+            "resnet_step": resnet, "serving": served}
 
 
 # ------------------------------------------------------------------ phase m
@@ -7608,12 +7650,13 @@ def amp_phase(torch, mx, kernels):
         mx.amp.reset()
     del net, trainer
     torch.cuda.empty_cache()
+    gates = gates_phase(torch, mx, kernels, parts=("q",))
     timing = time_flash_fp16(torch, kernels)
     if _Q_FAILED:
         raise SystemExit("phase q: " + "; ".join(_Q_FAILED))
     return {"train": train, "overflow": overflow, "vs_fp32": vs_fp32,
             "bf16": bf16, "resume": resume, "optimizers": optimizers,
-            "fp16_timing": timing}
+            "fp16_timing": timing, "gates": gates}
 
 
 # ------------------------------------------------------------------ phase r
@@ -7975,8 +8018,9 @@ def nd_on_card(torch, mx, kernels):
         for n, t in zip("qkv", (q, k, v)):
             ex.arg_dict[n][:] = mx.nd.NDArray(t)
         zero_counts(kernels)
-        ex.forward(is_train=True)
-        ex.backward(out_grads=[mx.nd.NDArray(dout)])
+        for _ in range(2):      # the fused graph's capture, then a replay
+            ex.forward(is_train=True)
+            ex.backward(out_grads=[mx.nd.NDArray(dout)])
         torch.cuda.synchronize()
         sym_launches = (kernels.flash_attention.launches_by_route["tc"],
                         kernels.flash_attention_backward.launches_by_route[
@@ -7999,10 +8043,12 @@ def nd_on_card(torch, mx, kernels):
     sym_same = [torch.equal(ex.outputs[0]._data, direct)] + [
         torch.equal(ex.grad_dict[n]._data, leaf.grad)
         for n, leaf in zip("qkv", leaves)]
-    r_check(all(sym_same) and sym_launches == (1, 1, 1, 1),
+    r_check(all(sym_same) and sym_launches == (3, 3, 3, 3),
             f"r3 the same through a bound Symbol graph (simple_bind, "
-            f"forward, backward): bitwise {sym_same}, tc launches "
-            f"(K1, K2, all K1, all K2) {sym_launches}")
+            f"forward, backward, twice: the fused forward + backward "
+            f"captured, then replayed): bitwise {sym_same}, tc launches "
+            f"(K1, K2, all K1, all K2) {sym_launches} (want 3 each: the "
+            "graph's 2 warm-up runs and its capture; a replay adds none)")
 
     # random
     draws = []
@@ -8136,9 +8182,11 @@ def module_phase(torch, mx, kernels):
     resnet = module_resnet(torch, mx)
     nd = nd_on_card(torch, mx, kernels)
     kv = kvstore_on_card(torch, mx)
+    gates = gates_phase(torch, mx, kernels, parts=("r",))
     if _R_FAILED:
         raise SystemExit("phase r: " + "; ".join(_R_FAILED))
-    return {"mnist": mnist, "resnet": resnet, "nd": nd, "kvstore": kv}
+    return {"mnist": mnist, "resnet": resnet, "nd": nd, "kvstore": kv,
+            "gates": gates}
 
 
 # ------------------------------------------------------------------ phase s
@@ -8934,10 +8982,11 @@ def rnn_phase(torch, mx):
     gluon = gluon_rnn_on_card(torch, mx)
     flow = control_flow_on_card(torch, mx)
     seq = sequential_on_card(torch, mx)
+    gates = gates_phase(torch, mx, None, parts=("s",))
     if _S_FAILED:
         raise SystemExit("phase s: " + "; ".join(_S_FAILED))
     return {"word_lm": train, "rnn_op": op, "gluon": gluon,
-            "control_flow": flow, "sequential": seq}
+            "control_flow": flow, "sequential": seq, "gates": gates}
 
 # -------------------------------------------------------------- phase t
 # examples/ssd/train_ssd.py's configuration (t1), kept here as the
@@ -11214,9 +11263,12 @@ X_AUDIT_EVERY = 2
 X_COLLECTIVE_S = 120    # the collective watchdog's deadline in the ranks
 X_FAULT_EXIT = 42       # resilience.faults.FAULT_EXIT_CODE
 # (name, fault, axes, pod hosts, layers, steps, the step the fault kills
-# at, victims, benched)
+# at, victims, benched); x1 runs at half depth so that the whole script
+# stays inside its time limit
+X1_LAYERS = LAYERS // 2
 X_DRILLS = (
-    ("x1", "host_death", {"fsdp": 2, "dp": 2}, 2, LAYERS, 8, 5, (2, 3), ()),
+    ("x1", "host_death", {"fsdp": 2, "dp": 2}, 2, X1_LAYERS, 8, 5, (2, 3),
+     ()),
     ("x2", "coordinator_loss", {"fsdp": 2, "dp": 2}, 2, 2, 4, 3, (0, 1), ()),
     ("x3", "peer_death", {"dp": 4}, None, 2, 4, 3, (3,), (2,)),
 )
@@ -11697,7 +11749,7 @@ def _x_shards(axes):
 
 
 def pod_phase(torch, mx, card=None, device="cuda", dims=None, layers=None):
-    """Phase x: x1 (host death at full depth, the fold probe), x2
+    """Phase x: x1 (host death at half depth, the fold probe), x2
     (coordinator loss) and x3 (peer death without a pod, one rank benched),
     each against its oracle."""
     import gc
@@ -11732,8 +11784,8 @@ def pod_phase(torch, mx, card=None, device="cuda", dims=None, layers=None):
             f"of the gathered state ({probe.get('fingerprint')})")
     if device == "cuda":
         c = x1["step_counts"]
-        x_check(c["k1"].get("tc", 0) == LAYERS
-                and c["k2"].get("tc", 0) == LAYERS
+        x_check(c["k1"].get("tc", 0) == X1_LAYERS
+                and c["k2"].get("tc", 0) == X1_LAYERS
                 and not c["k1"].get("simt")
                 and not c["k2"].get("simt") and c["fold_sums"] >= 1
                 and c["fold_chain"] >= 1,
@@ -12346,6 +12398,643 @@ def data_phase(torch, mx, card, j_step_ms=None):
     return out
 
 
+# ------------------------------------------------ phases l4, l5, q7, r5, s6
+# The health gates inside the captured step and the captured Module
+# executor. l4: phase l's bf16 LM under a skip_batch HealthSentinel (a
+# grad_norm_threshold far above its norm: checked every step, never
+# tripped) with the step fingerprint on, GATED_STEPS captured steps, the
+# nan_grad drill firing at step GATED_POISON (0-based); l5: the same step
+# under a skip / halt numerics tap; q7: q1's AMP fp16 LAMB step captured
+# with loss_scaler=, a scale of 2**40 at step AMP_OVERFLOW_AT overflowing
+# fp16; r5: r1's Module fit, and a simple_bind executor of r1's MLP with
+# a Dropout (R5_DROPOUT_STEPS SGD steps from one mx.random seed); s6:
+# s1's BucketingModule bucket steps, with each run's own peak and what its
+# graphs hold, the buckets' shared graph pool against one pool a bucket.
+# Each is held to its kill-switch run (MXNET_TPU_TORCH_CAPTURE=0) from
+# the same start: bitwise when that run repeats itself bitwise (judge).
+GATED_STEPS = 6
+GATED_POISON = 2
+GATED_NORM_THRESHOLD = 1e6
+TAP_STEPS = 4
+AMP_CAPTURED_STEPS = 6
+AMP_OVERFLOW_AT = 2
+R5_EPOCHS = 2
+R5_DROPOUT_STEPS = 20
+S6_SWEEPS = 2
+S6_TIMED = 5            # bucket-60 steps timed after the sweeps
+
+_G_FAILED = []
+
+
+def g_check(ok, what):
+    """Log a gate-phase check; a failed one is collected and fails the
+    phase at its end."""
+    log(f"[gates] {'ok  ' if ok else 'FAIL'} {what}")
+    if not ok:
+        _G_FAILED.append(what)
+    return ok
+
+
+def _trainer_state(trainer, net):
+    """{name: tensor} of the parameters and the optimizer's states."""
+    out = {k: v for k, v in net.collect_params().items()}
+    for i, st in trainer._updater.states.items():
+        for j, t in enumerate(st if isinstance(st, (tuple, list))
+                              else (st,)):
+            if t is not None:
+                out[f"state{i}.{j}"] = t
+    return out
+
+
+def gated_run(torch, mx, capture, values, x, y, mode, *, sentinel=None,
+              tap=None, poison=None, fp=False, steps=GATED_STEPS):
+    """``steps`` steps of the bf16 LM through capture.capture(trainer,
+    net=, loss_fn=) in ``mode`` ("captured", or "eager": the kill switch),
+    from ``values``: losses, fingerprints, what each step raised,
+    host-clock ms, the run's own peak memory through the first step (the
+    net, its states, the capture and its first replay, above what the
+    caller held), the counters, whether the poisoned step
+    left every parameter and state bitwise as before it, and the state
+    after the steps (with the losses, for judge)."""
+    from mxnet_tpu_torch.observability import numerics
+    from mxnet_tpu_torch.resilience import HealthSentinel, faults
+    from mxnet_tpu_torch.resilience import sentinel as snt
+
+    import gc
+
+    scope = kill_switch() if mode == "eager" else contextlib.nullcontext()
+    gc.collect()        # an earlier run's garbage is not freed mid-run
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()  # what the caller holds
+    with scope, env_scope("MXNET_TPU_TORCH_INTEGRITY_FINGERPRINT",
+                          "1" if fp else "0"):
+        net = bf16_lm(torch, mx, values)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": LR})
+        if sentinel is not None:
+            HealthSentinel(**sentinel).attach(trainer, net=net)
+        ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        step = capture.capture(trainer, net=net, numerics=tap,
+                               loss_fn=lambda o, t: ce(o, t).mean())
+        drill = faults.inject("nan_grad", at_step=poison) \
+            if poison is not None else contextlib.nullcontext()
+        snt.reset_stats()
+        capture.reset_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, fps, raised, ms, held = [], [], [], [], None
+        with drill:
+            for i in range(steps):
+                before = ({k: v.clone() for k, v in
+                           _trainer_state(trainer, net).items()}
+                          if i == poison else None)
+                t0 = time.perf_counter()
+                try:
+                    loss = step(x, y, batch_size=1)
+                    raised.append(None)
+                except (numerics.NumericsDivergenceError,
+                        snt.NumericHealthError) as e:
+                    loss = None
+                    raised.append(type(e).__name__)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:        # the capture's and the first replay's
+                    peak = torch.cuda.max_memory_allocated() - base
+                losses.append(float("nan") if loss is None
+                              else loss.float().item())
+                fps.append(step.last_fingerprint)
+                if before is not None:
+                    now = _trainer_state(trainer, net)
+                    held = all(torch.equal(now[k], v)
+                               for k, v in before.items())
+                    del before, now
+        timed = sorted(m for i, m in enumerate(ms) if i)
+        after = {k: v.detach().clone()
+                 for k, v in _trainer_state(trainer, net).items()}
+        after["losses"] = torch.tensor(losses)
+        after["fingerprints"] = torch.tensor(
+            [-1 if f is None else f for f in fps], dtype=torch.int64)
+        rec = {"losses": losses, "fingerprints": fps, "raised": raised,
+               "step_ms": ms, "median_ms": timed[len(timed) // 2],
+               "peak_bytes": peak, "counters": capture.stats(),
+               "sentinel": snt.stats(),
+               "poisoned_step_held": held,
+               "updates": trainer.optimizer.num_update}
+        ex = step._exec
+        del net, trainer, step
+    torch.cuda.empty_cache()
+    return rec, after, ex
+
+
+def gates_lm(torch, mx, kernels, capture):
+    """l4 and l5 (see the section's head)."""
+    from mxnet_tpu_torch.observability import numerics
+
+    values = {k: v.detach().clone()
+              for k, v in bf16_lm(torch, mx).collect_params().items()}
+    x, y = lm_batch(torch, BATCH, T, VOCAB)
+    snt = {"policy": "skip_batch",
+           "grad_norm_threshold": GATED_NORM_THRESHOLD}
+    # the un-gated baseline folds the fingerprint too, so the gate's cost
+    # is its own
+    plain, _, _ = gated_run(torch, mx, capture, values, x, y, "captured",
+                            fp=True)
+    runs, afters = {}, {}
+    for mode in ("eager", "eager2", "captured"):
+        if mode == "captured":
+            kernels_zero()
+        runs[mode], afters[mode], ex = gated_run(
+            torch, mx, capture, values, x, y, mode.rstrip("2"),
+            sentinel=snt, poison=GATED_POISON, fp=True)
+        if mode == "captured":
+            counts = kernel_counts()
+            nodes = graph_nodes(ex, "l4_gated_step", (
+                "flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
+                "flash_bwd_dq_tc_kernel", "state_fold"))
+            del ex
+    verdict = judge(torch, f"l4 gated LM step ({GATED_STEPS} steps, step "
+                    f"{GATED_POISON + 1} poisoned: losses, fingerprints, "
+                    "weights and Adam states)", afters["eager"],
+                    afters["eager2"], afters["captured"])
+    del afters
+    torch.cuda.empty_cache()
+    cap, eag = runs["captured"], runs["eager"]
+    enq = 3 * LAYERS          # the graph's 2 warm-up runs and its capture
+    g_check(counts["k1"] == {"tc": enq, "tf32x3": 0, "simt": 0}
+            and counts["k2"] == {"tc": enq, "tf32x3": 0, "simt": 0}
+            and counts["fold"] == 3,
+            f"l4 launches on the captured path: K1 {counts['k1']}, K2 "
+            f"{counts['k2']}, state_fold {counts['fold']} (want {enq} K1 "
+            f"and {enq} K2 on 'tc' and 3 folds: 2 warm-up runs and the "
+            "capture; a replay adds none)")
+    g_check(nodes["flash_fwd_tc_kernel"] == LAYERS
+            and nodes["flash_bwd_dkdv_tc_kernel"] == LAYERS
+            and nodes["flash_bwd_dq_tc_kernel"] == LAYERS
+            and nodes["state_fold"] >= 1,
+            f"l4 graph: {nodes} (want {LAYERS} K1, {LAYERS} dk/dv and "
+            f"{LAYERS} dq nodes a step, all tc, and the fold's)")
+    for name, r in (("captured", cap), ("eager", eag)):
+        g_check(r["poisoned_step_held"] is True
+                and r["updates"] == GATED_STEPS - 1
+                and r["sentinel"]["sentinel_nonfinite"] == 1
+                and r["sentinel"]["sentinel_checks"] == GATED_STEPS
+                and r["sentinel"]["health_skipped_steps"] == 1,
+                f"l4 {name}: the poisoned step left every weight and Adam "
+                f"state bitwise as before it: {r['poisoned_step_held']}; "
+                f"{r['updates']} updates of {GATED_STEPS}; sentinel "
+                f"{ {k: r['sentinel'][k] for k in ('sentinel_checks', 'sentinel_nonfinite', 'health_skipped_steps')} }")
+    g_check(cap["sentinel"] == eag["sentinel"]
+            and cap["fingerprints"] == eag["fingerprints"]
+            and cap["counters"]["capture_fallback_eager"] == 0
+            and cap["counters"]["capture_misses"] == 1,
+            f"l4 counters equal to the kill switch's; fingerprints "
+            f"{cap['fingerprints']}; captured counters {cap['counters']}")
+    g_check(all(math.isfinite(v) for v in cap["losses"]),
+            f"l4 losses {[round(v, 4) for v in cap['losses']]}")
+    gate = cap["median_ms"] / plain["median_ms"] - 1
+    log(f"[l4] gated captured step median {cap['median_ms']:.2f} ms, "
+        f"peak {cap['peak_bytes'] / 2**30:.2f} GiB; the un-gated captured "
+        f"step (phase l's, fingerprint on as in the gated run) "
+        f"{plain['median_ms']:.2f} ms, {gate:+.1%} for the gate, peak "
+        f"{plain['peak_bytes'] / 2**30:.2f} GiB (each run's own, through "
+        f"its capture); kill switch {eag['median_ms']:.2f} ms (host clock, "
+        f"steps 2-{GATED_STEPS})")
+
+    # l5: a skip tap gates the same way; halt raises after the gate (the
+    # taps' divergence snapshots go to a temporary directory)
+    import tempfile
+
+    tap_runs = {}
+    with tempfile.TemporaryDirectory() as snaps:
+        for mode in ("captured", "eager"):
+            tap = numerics.NumericsTap(interval=TAP_STEPS, policy="skip",
+                                       snapshot_dir=snaps)
+            tap_runs[mode], tap_after, _ = gated_run(
+                torch, mx, capture, values, x, y, mode, tap=tap, poison=1,
+                steps=TAP_STEPS)
+            tap_runs[mode]["after"] = tap_after
+        same = equal_dicts(torch, tap_runs["captured"].pop("after"),
+                           tap_runs["eager"].pop("after"))
+        halt_tap = numerics.NumericsTap(interval=0, policy="halt",
+                                        snapshot_dir=snaps)
+        halt, _, _ = gated_run(torch, mx, capture, values, x, y,
+                               "captured", tap=halt_tap, poison=1, steps=2)
+    skip = tap_runs["captured"]
+    g_check(skip["poisoned_step_held"] is True
+            and skip["updates"] == TAP_STEPS - 1 and same,
+            f"l5 skip tap: the poisoned step held "
+            f"{skip['poisoned_step_held']}, {skip['updates']} updates of "
+            f"{TAP_STEPS}; bitwise the kill switch's run: {same}")
+    g_check(halt["raised"] == [None, "NumericsDivergenceError"]
+            and halt["poisoned_step_held"] is True,
+            f"l5 halt tap: {halt['raised']}, the weights held "
+            f"{halt['poisoned_step_held']}")
+    return {"plain": plain, "runs": runs, "verdict": verdict,
+            "counts": counts, "nodes": nodes, "tap_skip": skip,
+            "tap_halt": halt}
+
+
+def amp_captured(torch, mx, kernels):
+    """q7 (see the section's head): the captured AMP step and its kill
+    switch from q1's initial weights, bitwise; the median step against
+    q1's eager recipe from the same weights in this call; one captured
+    step profiled."""
+    import gc
+
+    from mxnet_tpu_torch import capture
+
+    x, y = lm_batch(torch, BATCH, T, VOCAB)
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def run(mode):
+        scope = kill_switch() if mode == "eager" \
+            else contextlib.nullcontext()
+        gc.collect()    # an earlier run's garbage is not freed mid-run
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()   # what earlier runs hold
+        with scope:
+            net = amp_lm(torch, mx)
+            mx.amp.init("float16")
+            mx.amp.reset_health_stats()
+            trainer = mx.gluon.Trainer(net.collect_params(), "lamb",
+                                       {"learning_rate": AMP_LR})
+            scaler = mx.amp.LossScaler(init_scale=2. ** 16,
+                                       scale_factor=2. ** 24)
+            step = capture.capture(trainer, net=net, loss_scaler=scaler,
+                                   loss_fn=lambda o, t: ce(o, t).sum())
+            capture.reset_stats()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, scales, ms = [], [], []
+            for i in range(AMP_CAPTURED_STEPS):
+                if i == AMP_OVERFLOW_AT:
+                    scaler.loss_scale = 2. ** 40
+                t0 = time.perf_counter()
+                losses.append(step(x, y, batch_size=BATCH).item() / BATCH)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                scales.append(scaler.loss_scale)
+            prof = profile_window(torch, lambda: step(x, y,
+                                                      batch_size=BATCH),
+                                  f"one {mode} AMP step (loss_scaler=)",
+                                  "q7", ("flash_fwd", "flash_bwd"), top=4)
+            after = {k: v.detach().clone() for k, v in
+                     _trainer_state(trainer, net).items()}
+            after["losses"] = torch.tensor(losses)
+            timed = sorted(m for i, m in enumerate(ms) if i)
+            rec = {"losses": losses, "scales": scales, "step_ms": ms,
+                   "median_ms": timed[len(timed) // 2],
+                   "health": mx.amp.health_stats(),
+                   "peak_bytes": torch.cuda.max_memory_allocated() - base,
+                   "counters": capture.stats(),
+                   "busy_ms": prof["device_busy_ms"],
+                   "wall_ms": prof["wall_ms"],
+                   "launches": prof["launches"]}
+            del net, trainer, step
+        torch.cuda.empty_cache()
+        return rec, after
+
+    try:
+        runs, afters = {}, {}
+        for mode in ("eager", "eager2", "captured"):
+            if mode == "captured":
+                zero_counts(kernels)
+            runs[mode], afters[mode] = run(mode.rstrip("2"))
+            if mode == "captured":
+                k1 = dict(kernels.flash_attention.launches_by_route)
+                k2 = dict(kernels.flash_attention_backward.launches_by_route)
+        verdict = judge(torch, f"q7 captured AMP step ({AMP_CAPTURED_STEPS}"
+                        " steps, one overflow: losses, weights, LAMB "
+                        "states)", afters["eager"], afters["eager2"],
+                        afters["captured"])
+        del afters
+        # q1's eager recipe from the same weights, for the step time
+        net = amp_lm(torch, mx)
+        mx.amp.init("float16")
+        trainer = mx.gluon.Trainer(net.collect_params(), "lamb",
+                                   {"learning_rate": AMP_LR})
+        mx.amp.init_trainer(trainer)
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        recipe = []
+        for _ in range(AMP_CAPTURED_STEPS):
+            t0 = time.perf_counter()
+            amp_step(mx, net, trainer, loss_fn, x, y)
+            torch.cuda.synchronize()
+            recipe.append((time.perf_counter() - t0) * 1e3)
+        del net, trainer
+        torch.cuda.empty_cache()
+    finally:
+        mx.amp.reset()
+    cap, eag = runs["captured"], runs["eager"]
+    recipe_ms = sorted(recipe[1:])[len(recipe[1:]) // 2]
+    want = {"tc": 3 * LAYERS, "tf32x3": 0, "simt": 0}
+    g_check(k1 == want and k2 == want,
+            f"q7 launches on the captured path: K1 {k1}, K2 {k2} (want "
+            f"{3 * LAYERS} each on 'tc': the graph's 2 warm-up runs and "
+            "its capture)")
+    g_check(cap["scales"] == eag["scales"] and cap["health"] == eag["health"]
+            and cap["health"] == {"health_skipped_steps": 1,
+                                  "amp_overflow_skips": 1}
+            and cap["scales"][AMP_OVERFLOW_AT] == 2. ** 16,
+            f"q7 loss-scale trajectory {cap['scales']} (kill switch "
+            f"{eag['scales']}), health {cap['health']} (kill switch "
+            f"{eag['health']})")
+    g_check(cap["counters"]["capture_fallback_eager"] == 0
+            and cap["counters"]["capture_misses"] == 1,
+            f"q7 captured counters {cap['counters']}")
+    busy = cap["busy_ms"] / cap["wall_ms"]
+    log(f"[q7] captured AMP step median {cap['median_ms']:.2f} ms, peak "
+        f"{cap['peak_bytes'] / 2**30:.2f} GiB, one step busy "
+        f"{cap['busy_ms']:.3f} of {cap['wall_ms']:.3f} ms ({busy:.1%}, "
+        f"profiler on); kill switch {eag['median_ms']:.2f} ms; q1's eager "
+        f"recipe {recipe_ms:.2f} ms in this call (host clock, steps "
+        f"2-{AMP_CAPTURED_STEPS})")
+    return {"runs": runs, "verdict": verdict, "recipe_ms": recipe,
+            "recipe_median_ms": recipe_ms, "busy_share": busy,
+            "k1_launches_by_route": k1, "k2_launches_by_route": k2}
+
+
+class run_memory:
+    """A run's own device memory: ``peak`` the most allocated inside the
+    block above what was allocated at its start, and (``mark()`` while
+    the run's objects live) ``held`` what stays reserved then above the
+    start, after the allocator's free cache is released: the run's
+    tensors and its graphs' pools."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        import gc
+
+        torch = self.torch
+        gc.collect()        # an earlier run's garbage is not freed mid-run
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        self._alloc = torch.cuda.memory_allocated()
+        self._reserved = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        self.held = None
+        return self
+
+    def mark(self):
+        torch = self.torch
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        self.held = torch.cuda.memory_reserved() - self._reserved
+
+    def __exit__(self, *exc):
+        self.peak = self.torch.cuda.max_memory_allocated() - self._alloc
+
+    def gib(self):
+        held = "not read" if self.held is None \
+            else f"{self.held / 2**30:.3f} GiB"
+        return f"peak {self.peak / 2**30:.3f} GiB, held {held}"
+
+
+def module_dropout(torch, mx):
+    """r5's Dropout arm: r1's first layer (784 -> 128, relu), a Dropout
+    and a 10-way head, bound by simple_bind (its rng_key's shape given),
+    R5_DROPOUT_STEPS SGD steps of r1's batch size from mx.random.seed(11),
+    captured and on the kill switch (twice): every parameter after them
+    (judge); the captured run's fresh mask each run."""
+    from mxnet_tpu_torch import capture
+
+    sym = mx.sym
+    net = sym.FullyConnected(sym.Variable("data"), num_hidden=128,
+                             name="fc1")
+    net = sym.Dropout(sym.Activation(net, act_type="relu"), p=0.5,
+                      name="drop")
+    net = sym.FullyConnected(net, num_hidden=10, name="fc2")
+    net = sym.SoftmaxOutput(net, sym.Variable("softmax_label"),
+                            name="softmax")
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(R5_DROPOUT_STEPS, MNIST_BATCH, 784, generator=g)
+    y = torch.randint(0, 10, (R5_DROPOUT_STEPS, MNIST_BATCH),
+                      generator=g).float()
+    w = {"fc1_weight": torch.randn(128, 784, generator=g) * 0.05,
+         "fc1_bias": torch.zeros(128),
+         "fc2_weight": torch.randn(10, 128, generator=g) * 0.1,
+         "fc2_bias": torch.zeros(10)}
+    x, y = x.cuda(), y.cuda()
+    runs, afters = {}, {}
+    for mode in ("eager", "eager2", "captured"):
+        scope = kill_switch() if mode != "captured" \
+            else contextlib.nullcontext()
+        with scope:
+            capture.reset_stats()
+            mx.random.seed(11)
+            ex = net.simple_bind(mx.gpu(0), grad_req="write",
+                                 data=(MNIST_BATCH, 784),
+                                 softmax_label=(MNIST_BATCH,),
+                                 drop_rng_key=(2,))
+            for k, v in w.items():
+                ex.arg_dict[k]._data.copy_(v)
+            for i in range(R5_DROPOUT_STEPS):
+                ex.forward(is_train=True, data=x[i], softmax_label=y[i])
+                ex.backward()
+                with torch.no_grad():
+                    for k in w:
+                        ex.arg_dict[k]._data.add_(ex.grad_dict[k]._data,
+                                                  alpha=-MNIST_LR)
+            afters[mode] = {k: ex.arg_dict[k]._data.clone() for k in w}
+            counters = capture.stats()
+            twice = []
+            for _ in range(2):
+                ex.forward(is_train=True, data=x[0], softmax_label=y[0])
+                twice.append(ex.outputs[0]._data.clone())
+            runs[mode] = {"counters": counters,
+                          "fresh_mask": not torch.equal(*twice)}
+            del ex
+    verdict = judge(torch, f"r5 Dropout MLP ({R5_DROPOUT_STEPS} SGD steps "
+                    "from one seed: every parameter)", afters["eager"],
+                    afters["eager2"], afters["captured"])
+    cap = runs["captured"]
+    g_check(cap["counters"]["capture_fallback_eager"] == 0
+            and cap["counters"]["capture_misses"] == 1
+            and cap["fresh_mask"] and runs["eager"]["fresh_mask"],
+            f"r5 Dropout: captured counters {cap['counters']}; a fresh "
+            f"mask each training forward: captured {cap['fresh_mask']}, "
+            f"kill switch {runs['eager']['fresh_mask']}")
+    return {"runs": runs, "verdict": verdict}
+
+
+def module_captured(torch, mx):
+    """r5: r1's fit with shuffle off from one set of initial parameters,
+    captured and through the kill switch (twice), R5_EPOCHS epochs each:
+    the parameters after them (judge), samples/s of each."""
+    from mxnet_tpu_torch import capture
+
+    mx.random.seed(1)
+    init_mod = mx.mod.Module(mnist_mlp(mx), context=mx.cpu())
+    it, _ = mnist_iters(mx, MNIST_BATCH, shuffle=False)
+    init_mod.bind(it.provide_data, it.provide_label)
+    init_mod.init_params(mx.initializer.Xavier())
+    init = {k: v.asnumpy() for k, v in init_mod.get_params()[0].items()}
+    opt = {"learning_rate": MNIST_LR, "momentum": 0.9}
+    runs, afters = {}, {}
+    for mode in ("eager", "eager2", "captured"):
+        scope = kill_switch() if mode != "captured" \
+            else contextlib.nullcontext()
+        with scope:
+            it, _ = mnist_iters(mx, MNIST_BATCH, shuffle=False)
+            stamps = []
+
+            def stamp(*_):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+
+            capture.reset_stats()
+            with run_memory(torch) as mem:
+                m = mx.mod.Module(mnist_mlp(mx), context=mx.gpu(0))
+                t0 = time.perf_counter()
+                m.fit(it, num_epoch=R5_EPOCHS, optimizer="sgd",
+                      optimizer_params=opt, arg_params=init,
+                      eval_metric="acc", epoch_end_callback=stamp)
+                mem.mark()
+            epoch_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps,
+                                                      stamps)]
+            runs[mode] = {"epoch_ms": epoch_ms,
+                          "samples_per_s": 3584 / (epoch_ms[-1] / 1e3),
+                          "counters": capture.stats(),
+                          "peak_bytes": mem.peak, "held_bytes": mem.held,
+                          "memory": mem.gib()}
+            afters[mode] = {k: v._data.clone() for k, v in
+                            m._execs[0].arg_dict.items()
+                            if k in m._param_names}
+            del m
+    verdict = judge(torch, f"r5 captured Module fit ({R5_EPOCHS} epochs: "
+                    "every parameter)", afters["eager"], afters["eager2"],
+                    afters["captured"])
+    cap, eag = runs["captured"], runs["eager"]
+    batches = R5_EPOCHS * 3584 // MNIST_BATCH
+    g_check(cap["counters"]["capture_fallback_eager"] == 0
+            and cap["counters"]["capture_misses"] == 1
+            and eag["counters"]["capture_fallback_eager"] == batches,
+            f"r5 counters: captured {cap['counters']}, kill switch "
+            f"{eag['counters']['capture_fallback_eager']} eager batches "
+            f"(want {batches})")
+    log(f"[r5] Module fit, last epoch: captured {cap['samples_per_s']:.1f} "
+        f"samples/s ({cap['epoch_ms'][-1]:.3f} ms), kill switch "
+        f"{eag['samples_per_s']:.1f} samples/s ({eag['epoch_ms'][-1]:.3f} "
+        "ms; host clock, metric updates included); each run's own memory: "
+        f"captured {cap['memory']}, kill switch {eag['memory']}")
+    return {"runs": runs, "verdict": verdict,
+            "dropout": module_dropout(torch, mx)}
+
+
+def bucket_captured(torch, mx):
+    """s6: s1's BucketingModule over S6_SWEEPS sweeps of the buckets,
+    captured and through the kill switch (twice), from mx.random.seed(0)'s
+    Xavier: every parameter after them (judge); one fused graph a bucket,
+    all in one graph pool; each run's own memory, and that of a captured
+    run with one pool a bucket; then S6_TIMED bucket-60 steps timed and
+    one profiled in each mode."""
+    from mxnet_tpu_torch import capture
+
+    sweeps = word_lm_sweeps(seed=1, n_sweeps=S6_SWEEPS)
+    t60 = [b for sw in sweeps for b in sw if b[0] == max(LM_BUCKETS)][0]
+    runs, afters, memory = {}, {}, {}
+    for mode in ("private", "eager", "eager2", "captured"):
+        scope = kill_switch() if mode.startswith("eager") \
+            else contextlib.nullcontext()
+        # "private": the captured sweeps with one graph pool a bucket, for
+        # the memory that the buckets' shared pool saves
+        share = mx.executor.Executor.share_graph_pool
+        if mode == "private":
+            mx.executor.Executor.share_graph_pool = lambda self, other: None
+        try:
+            with scope, run_memory(torch) as mem:
+                capture.reset_stats()
+                mod, _ = word_lm_module(mx, mx.gpu(0))
+                for sweep in sweeps:
+                    for t, x, y in sweep:
+                        word_lm_step(mod, word_lm_batch(mx, t, x, y))
+                mem.mark()
+        finally:
+            mx.executor.Executor.share_graph_pool = share
+        memory[mode] = {"peak_bytes": mem.peak, "held_bytes": mem.held,
+                        "text": mem.gib()}
+        pools = {id(m._execs[0]._exec._cap._pool)
+                 for m in mod._buckets.values()
+                 if m._execs[0]._exec._cap is not None}
+        if mode == "private":
+            memory[mode]["pools"] = len(pools)
+            del mod
+            torch.cuda.empty_cache()
+            continue
+        with scope:
+            afters[mode] = {k: v._data.clone() for k, v in
+                            mod._curr_module._execs[0].arg_dict.items()
+                            if k in mod._curr_module._param_names}
+            counters = capture.stats()
+            graphs = {t: len(m._execs[0]._exec._cap.compiled_signatures)
+                      if m._execs[0]._exec._cap is not None else 0
+                      for t, m in mod._buckets.items()}
+            batch = word_lm_batch(mx, *t60)
+            ms = []
+            for _ in range(S6_TIMED):
+                t0 = time.perf_counter()
+                word_lm_step(mod, batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            prof = profile_window(torch, lambda: word_lm_step(mod, batch),
+                                  f"one {mode} bucket-60 step", "s6",
+                                  ("gemm", "nvjet", "cutlass", "sm90"),
+                                  top=4)
+            runs[mode] = {"counters": counters, "graphs_by_bucket": graphs,
+                          "graph_pools": len(pools), "memory": memory[mode],
+                          "bucket60_ms": ms,
+                          "bucket60_median_ms": sorted(ms)[len(ms) // 2],
+                          "busy_ms": prof["device_busy_ms"],
+                          "wall_ms": prof["wall_ms"],
+                          "launches": prof["launches"]}
+            del mod
+        torch.cuda.empty_cache()
+    verdict = judge(torch, f"s6 captured bucket steps ({S6_SWEEPS} sweeps "
+                    "of 6 buckets: every parameter)", afters["eager"],
+                    afters["eager2"], afters["captured"])
+    cap, eag = runs["captured"], runs["eager"]
+    g_check(cap["graphs_by_bucket"] == {t: 1 for t in LM_BUCKETS}
+            and cap["counters"]["capture_fallback_eager"] == 0
+            and cap["graph_pools"] == 1
+            and memory["private"]["pools"] == len(LM_BUCKETS),
+            f"s6 one fused graph a bucket: {cap['graphs_by_bucket']}, in "
+            f"{cap['graph_pools']} graph pool (one a bucket without the "
+            f"sharing: {memory['private']['pools']}); counters "
+            f"{cap['counters']}")
+    log(f"[s6] each run's own memory over the sweeps: captured "
+        f"{memory['captured']['text']}; captured with one graph pool a "
+        f"bucket {memory['private']['text']}; kill switch "
+        f"{memory['eager']['text']}")
+    log(f"[s6] bucket-60 step: captured {cap['bucket60_median_ms']:.2f} ms "
+        f"(busy {cap['busy_ms']:.3f} of {cap['wall_ms']:.3f} ms, "
+        f"{cap['launches']} kernels profiled), kill switch "
+        f"{eag['bucket60_median_ms']:.2f} ms (busy {eag['busy_ms']:.3f} of "
+        f"{eag['wall_ms']:.3f} ms, {eag['launches']} kernels); host clock")
+    return {"runs": runs, "verdict": verdict, "memory": memory}
+
+
+def gates_phase(torch, mx, kernels, parts=("l", "q", "r", "s")):
+    """Phases l4 / l5, q7, r5 and s6 (``parts``: the phase letters);
+    failures collected and raised at the end."""
+    from mxnet_tpu_torch import capture
+
+    _G_FAILED.clear()
+    out = {}
+    if "l" in parts:
+        out["l4"] = gates_lm(torch, mx, kernels, capture)
+    if "q" in parts:
+        out["q7"] = amp_captured(torch, mx, kernels)
+    if "r" in parts:
+        out["r5"] = module_captured(torch, mx)
+    if "s" in parts:
+        out["s6"] = bucket_captured(torch, mx)
+    if _G_FAILED:
+        raise SystemExit("gates: " + "; ".join(_G_FAILED))
+    return out
+
+
 def library_ms(fn, what):
     """device_ms of a library call, or None (logged) where the library
     refuses the call."""
@@ -12375,6 +13064,10 @@ def main(argv=None):
     ap.add_argument("--module-only", action="store_true",
                     help="build, then run phase r (mx.nd, Module, kvstore) "
                          "only")
+    ap.add_argument("--gates-only", action="store_true",
+                    help="build, then run phases l4, l5, q7, r5 and s6 (the "
+                         "health gates in the captured step, the captured "
+                         "Module executor) only")
     ap.add_argument("--rnn-only", action="store_true",
                     help="build, then run phase s (the word-LM slice) only")
     ap.add_argument("--ssd-only", action="store_true",
@@ -12457,6 +13150,11 @@ def main(argv=None):
     if args.amp_only:
         amp_phase(torch, mx, kernels)
         log("[amp-only] phase q passed")
+        log(card)
+        return 0
+    if args.gates_only:
+        gates_phase(torch, mx, kernels)
+        log("[gates-only] phases l4, l5, q7, r5 and s6 passed")
         log(card)
         return 0
     if args.module_only:
@@ -12559,6 +13257,7 @@ def main(argv=None):
     stamp("amp_phase")
     amp = amp_phase(torch, mx, kernels)
     amp_train_run, fp16 = amp["train"], amp["fp16_timing"]
+    gates_l4, gates_q7 = captured["gates"]["l4"], amp["gates"]["q7"]
     stamp("module_phase")
     module = module_phase(torch, mx, kernels)
     nd_launches = module["nd"]["sdpa_launches"]
@@ -12661,6 +13360,11 @@ def main(argv=None):
         "fp16_ms": fp16["k1"]["ms"], "fp16_plain_ms": fp16["k1"]["plain_ms"],
         "fp16_bound_ms": fp16["k1"]["bound_ms"],
         "fp16_library_ms": fp16["k1"]["library_ms"],
+        # phases l4 and q7: the gated bf16 step's and the captured AMP
+        # step's graphs (2 warm-up runs and the capture, 12 each; a replay
+        # adds none)
+        "gated_launches_by_route": gates_l4["counts"]["k1"],
+        "amp_captured_launches_by_route": gates_q7["k1_launches_by_route"],
         # phase r3: one mx.nd.scaled_dot_product_attention(impl='flash')
         # forward and backward at the LM's shape in bf16
         "imperative_launches": nd_launches["k1"],
@@ -12705,6 +13409,8 @@ def main(argv=None):
             "bfloat16"]["plain_k2_ms"],
         "amp_fp16_launches": amp_train_run["k2_launches"],
         "amp_fp16_launches_by_route": amp_train_run["k2_launches_by_route"],
+        "gated_launches_by_route": gates_l4["counts"]["k2"],
+        "amp_captured_launches_by_route": gates_q7["k2_launches_by_route"],
         "fp16_ms": fp16["k2"]["ms"], "fp16_plain_ms": fp16["k2"]["plain_ms"],
         "fp16_bound_ms": fp16["k2"]["bound_ms"],
         "fp16_library_ms": fp16["k2"]["library_ms"],
@@ -12967,6 +13673,7 @@ def main(argv=None):
         "launches": resilience["w1"]["main_path"]["fold"],
         "launches_by_path": {
             "w1": resilience["w1"]["main_path"]["fold"],
+            "l4": gates_l4["counts"]["fold"],
             "x1_rank0": sum(c["state_fold"] for c in x1_counts)},
         "max_abs_err": max([r["max_abs_err"] for r in fold_checks]
                            + [w3["fold_err"]]),

@@ -32,7 +32,11 @@ The fp16 recipe (MXNet's)::
 ``rescale_grad`` to undo it in the update; ``unscale`` reads the
 gradients for inf / nan once (one host read), halves or grows the scale,
 and counts a skipped step in :func:`health_stats` (the sentinel's
-``health_skipped_steps`` series).
+``health_skipped_steps`` series). A captured step
+(``capture.capture(trainer, net=, loss_fn=, loss_scaler=)``) runs the
+recipe in its graph instead: the scale a slot, the gradients unscaled
+before the check, the overflow skip and the scaler's schedule from the
+graph's flag, counted in the same series.
 """
 from __future__ import annotations
 

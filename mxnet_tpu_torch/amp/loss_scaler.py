@@ -25,11 +25,11 @@ class LossScaler:
         self._noted_finite = None
 
     def note_finite(self, finite):
-        """Captured-step hook: a step that computes the all-finite flag
-        inside its own program notes it here, and the next
-        :meth:`has_overflow` consumes it instead of reading the gradients
-        again. Nothing calls it yet: a captured gluon step with a loss
-        scaler raises (ROADMAP Queue 1 item 4)."""
+        """Captured-step hook: the captured gluon step
+        (``capture.CapturedTrainerStep`` with ``loss_scaler=``) computes
+        the all-finite flag inside its graph and notes it here, and the
+        next :meth:`has_overflow` consumes it instead of reading the
+        gradients again."""
         self._noted_finite = bool(finite)
 
     def clear_note(self):

@@ -56,13 +56,18 @@ a signature's key carries whether each is on, so a step with the tap and
 one without are two graphs, picked on the host each step, and the tap's
 column selection is a slot.
 
+The health gates are in the captured gluon step: a ``HealthSentinel``, an
+AMP ``loss_scaler=`` and a halt / skip numerics tap make the graph compute
+the finite flag (and the sentinel's norm bound) and hold back the weight
+write on it, the loss scale and the sentinel's cadence being slots; the
+host reads the flag once a step and applies the policies
+(:class:`CapturedTrainerStep`). The Module executor's forward and fused
+forward + backward run through :class:`CapturedExec` too
+(``executor.py``).
+
 Not ported: the AOT compile cache. A CUDA graph cannot be written to disk,
 so ``MXNET_TPU_TORCH_COMPILE_CACHE`` raises ``NotImplementedError``
-(ROADMAP Queue 1 item 4). The AMP loss scaler and the health sentinel
-inside a captured step (the all-finite flag computed in the graph) are
-Queue 1 item 4 too: a gluon trainer with a loss scaler attached
-(``amp.init_trainer``) or a sentinel attached raises :class:`CaptureError`
-rather than run with either ignored.
+(ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -76,10 +81,11 @@ import time
 
 import torch
 
+from . import random as _random
 from .observability import perf as _perf
 
 __all__ = ["capture", "CapturedTrainerStep", "CapturedShardedStep",
-           "CapturedExec", "CaptureError", "SlotTable", "enabled",
+           "CapturedExec", "GraphPool", "CaptureError", "SlotTable", "enabled",
            "cache_dir", "note_recapture", "retrace_log",
            "clear_retrace_log", "stats", "reset_stats", "fingerprint",
            "code_sig", "net_sig"]
@@ -296,6 +302,18 @@ class SlotTable:
 
 
 # ------------------------------------------------------------ CapturedExec
+class GraphPool:
+    """One private memory pool for the CUDA graphs of several
+    CapturedExecs that never replay at once (a BucketingModule's buckets,
+    each its own executor): their temporaries share memory, so the pool
+    holds about the largest graph's, not their sum. Made on the first
+    capture."""
+
+    def __init__(self):
+        self.handle = None
+        self.users = 0
+
+
 class _Entry:
     __slots__ = ("sig", "state", "inputs", "outputs", "as_list", "graph",
                  "capture_s", "extra", "ledger_fp")
@@ -353,7 +371,14 @@ class CapturedExec:
     each capture.
 
     ``fingerprint(sig)`` gives the program identity its perf-ledger
-    entries are keyed by (default: the label and the signature).
+    entries are keyed by (default: the label and the signature). ``pool``
+    (a :class:`GraphPool`) is shared with other CapturedExecs; by default
+    the instance's graphs have a pool of their own.
+
+    A program that draws from the port's ``mx.random`` generator (Dropout,
+    the samplers) draws on replay as its eager run would: the warm-up
+    runs' draws are undone, and each graph registers the generator, so a
+    replay advances it by the graph's draws.
 
     ``exec(*args, key=(), batch=None, rows=None)``: ``batch`` pads every
     arg's leading dimension with zero rows to ``batch`` (into the static
@@ -363,7 +388,8 @@ class CapturedExec:
     """
 
     def __init__(self, fn, *, label, device, state=None, eager=None,
-                 warmup_guard=None, on_capture=None, fingerprint=None):
+                 warmup_guard=None, on_capture=None, fingerprint=None,
+                 pool=None):
         _check_cache()
         self._fingerprint = fingerprint
         self._fn = fn
@@ -375,7 +401,8 @@ class CapturedExec:
         self._on_capture = on_capture
         self._entries = {}
         self._last_sig = None
-        self._pool = None
+        self._pool = pool if pool is not None else GraphPool()
+        self._pool.users += 1
         self._lock = threading.Lock()
         self.last_entry = None
 
@@ -461,8 +488,8 @@ class CapturedExec:
         failed warm-up and capture held, and the private memory pool when
         no graph uses it, so a retry starts from a clean allocator."""
         with self._lock:
-            if not self._entries:
-                self._pool = None
+            if not self._entries and self._pool.users == 1:
+                self._pool.handle = None
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -473,6 +500,8 @@ class CapturedExec:
         torch.cuda.reset_peak_memory_stats(self.device)
         base = torch.cuda.memory_allocated(self.device)
         graph = None
+        rng = _random.made_generator(self.device)
+        rng_state = rng.get_state() if rng is not None else None
         try:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(cur)
@@ -487,11 +516,22 @@ class CapturedExec:
                         else:
                             self._fn(*entry.inputs, *key)
             cur.wait_stream(side)
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
+            # the warm-up runs' draws are undone (a generator they made
+            # goes back to its seed)
+            rng = _random.made_generator(self.device)
+            if rng is not None:
+                if rng_state is not None:
+                    rng.set_state(rng_state)
+                else:
+                    rng.manual_seed(rng.initial_seed())
+            if self._pool.handle is None:
+                self._pool.handle = torch.cuda.graph_pool_handle()
             # keep_graph keeps the node list for debug_dump after the graph
             # is instantiated
             graph = torch.cuda.CUDAGraph(keep_graph=True)
+            register = getattr(graph, "register_generator_state", None)
+            if rng is not None and register is not None:
+                register(rng)       # a replay advances it by its draws
             # a graph freed by the garbage collector inside a capture
             # (an owner that died in a reference cycle) would end it:
             # collect first, and not during the capture
@@ -502,7 +542,7 @@ class CapturedExec:
                 del _DEFERRED[:]
                 _IN_CAPTURE.on = True
                 try:
-                    with torch.cuda.graph(graph, pool=self._pool,
+                    with torch.cuda.graph(graph, pool=self._pool.handle,
                                           capture_error_mode="thread_local"):
                         out = self._fn(*entry.inputs, *key)
                     for fn in _DEFERRED:
@@ -555,14 +595,69 @@ def _restored(tensors):
 
 
 # ------------------------------------------------- gluon Trainer capture
+# the step's own slots after the optimizer's: the loss scale, the
+# sentinel's cadence gate (1.0 on a check step) and the nan_grad drill's
+# factor (NaN on the step it fires, else 1.0)
+_GATE_SLOTS = 3
+
+
+def _health_flags(grads, threshold):
+    """The fused health check over ``grads``, as 0-d bool device tensors:
+    ``(finite, norm_ok or None)``. ``finite`` is ``multi_all_finite``;
+    with a ``threshold``, ``norm_ok`` is ``sqrt(sum(multi_sum_sq)) <=
+    threshold``, the norm itself against the threshold (not its square),
+    as ``mxnet_tpu``'s captured step compares it."""
+    from .ops import optimizer_ops
+
+    finite = optimizer_ops.multi_all_finite(*grads) != 0
+    if threshold is None:
+        return finite, None
+    sq = optimizer_ops.multi_sum_sq(*grads, num_arrays=len(grads))
+    return finite, torch.sqrt(torch.stack(sq).sum()) <= threshold
+
+
+def _passed(finite, norm_ok, gate, scale, sentinel, tap_gates):
+    """Whether the update lands, from the flags: device tensors in the
+    program, Python bools and floats on the kill switch's path. ``gate``
+    is the cadence (nonzero on a sentinel check step, None without a
+    sentinel): off cadence an unhealthy batch lands, as the eager
+    ``before_update`` never looks at it, except where a loss scaler or a
+    halt / skip tap gates on ``finite`` every step. None when nothing
+    gates."""
+    ok = finite if norm_ok is None else finite & norm_ok
+    passed = None
+    if sentinel or scale:
+        if gate is not None:
+            passed = ok | (gate == 0)
+            if scale:
+                passed = passed & finite   # an AMP overflow always skips
+        else:
+            passed = ok
+    if tap_gates:
+        passed = finite if passed is None else passed & finite
+    return passed
+
+
 class CapturedTrainerStep:
-    """One gluon training step (forward, backward, the update sweep) as one
-    CUDA graph per signature, with its scalars in device slots.
+    """One gluon training step (forward, backward, the health check, the
+    update sweep) as one CUDA graph per signature, with its scalars in
+    device slots.
 
     Bitwise equal to the eager step (``autograd.record()`` around
     ``loss_fn(net(x), y)``, ``backward``, ``Trainer.step``): the update ops
     take their scalars as floats or slots with the same arithmetic
     (``ops/optimizer_ops.py``).
+
+    With a sentinel, a loss scaler or a halt / skip numerics tap the
+    program also computes the finite flag (``multi_all_finite``) and, with
+    the sentinel's ``grad_norm_threshold``, the norm bound, and holds back
+    the update on them: every tensor the sweep writes (parameters,
+    optimizer states) takes ``where(passed, new, pre)``, ``pre`` a copy
+    made in the graph before the sweep, so a gated step leaves them
+    bitwise as they were. The host reads the flag once a step, un-advances
+    the optimizer's update counts on a gated step and applies the policies
+    as the eager step does (:meth:`_apply_flag`). The tap's statistics see
+    the raw update; the step fingerprint is folded after the select.
 
     Parameters
     ----------
@@ -572,17 +667,36 @@ class CapturedTrainerStep:
     trainer : gluon.Trainer
     batch_size : rescale denominator for ``Trainer.step``; default the
         batch's row count
+    sentinel : HealthSentinel; default the one attached to ``trainer``,
+        which the step bypasses: its check runs in the graph and its
+        policy on the host
+    loss_scaler : amp.LossScaler; its scale is a slot: the loss is scaled
+        before the backward, the gradients unscaled before the check and
+        the update, an overflow skips the step, and the scaler's schedule
+        advances from the graph's flag (``note_finite``). Passed
+        explicitly, as in ``mxnet_tpu``: a trainer given
+        ``amp.init_trainer`` and no ``loss_scaler=`` steps unscaled, with
+        ``rescale_grad = trainer._scale / batch_size`` and no overflow
+        check, its attached scaler unused (pass
+        ``loss_scaler=trainer._amp_loss_scaler`` to scale).
+    numerics : observability.numerics.NumericsTap; default armed from
+        ``MXNET_TPU_TORCH_NUMERICS``
     """
 
     def __init__(self, net, loss_fn, trainer, batch_size=None,
-                 label="trainer_step", numerics=None):
+                 sentinel=None, loss_scaler=None, numerics=None,
+                 label="trainer_step"):
         from .observability import numerics as _numerics
 
+        _no_dist(trainer)
         self.net = net
         self.loss_fn = loss_fn
         self.trainer = trainer
         self.label = label
         self._batch_size = batch_size
+        self.sentinel = sentinel if sentinel is not None \
+            else getattr(trainer, "_sentinel", None)
+        self.loss_scaler = loss_scaler
         self.device = trainer._params[0].data().device
         self._slots = SlotTable(self.device)
         self._tap_slots = SlotTable(self.device)
@@ -597,11 +711,22 @@ class CapturedTrainerStep:
             state=self._state_tensors, warmup_guard=self._warmup_guard,
             on_capture=self._keep_grads, fingerprint=self._ledger_fp)
 
+    def _gates(self):
+        """(has_scale, has_gate, has_norm, tap_gates): what the program
+        gates on, part of every graph's key."""
+        s, tap = self.sentinel, self.numerics
+        return (self.loss_scaler is not None, s is not None,
+                s is not None and s.grad_norm_threshold is not None,
+                tap is not None and tap.gates_updates)
+
     def _ledger_fp(self, sig):
+        scale, gate, norm, tap_gates = self._gates()
         return fingerprint({"net": net_sig(self.net),
                             "loss": code_sig(self.loss_fn),
                             "optimizer": type(self.trainer.optimizer)
-                            .__name__, "sig": repr(sig)})
+                            .__name__, "has_scale": scale,
+                            "has_gate": gate, "has_norm": norm,
+                            "tap_gates": tap_gates, "sig": repr(sig)})
 
     @property
     def last_fingerprint(self):
@@ -617,6 +742,9 @@ class CapturedTrainerStep:
     def _active(self):
         return [(i, self.trainer._params[i]) for i in self.trainer._active()]
 
+    def _grads(self):
+        return [p.grad() for _, p in self._active()]
+
     def _state_tensors(self):
         """Everything the graph reads or writes in place: the net's and the
         trainer's parameters (aux included), the optimizer states and the
@@ -629,6 +757,16 @@ class CapturedTrainerStep:
         out += [p.grad() for _, p in self._active() if p.grad_req == "add"]
         return out
 
+    def _swept(self):
+        """The tensors the update sweep writes: each trainable parameter,
+        then its optimizer state's leaves."""
+        active = self._active()
+        states = self.trainer._updater.states
+        out = [p.data() for _, p in active]
+        for i, _ in active:
+            out += _leaves(states.get(i))
+        return out
+
     def _warmup_guard(self):
         return _restored(self._state_tensors())
 
@@ -637,48 +775,121 @@ class CapturedTrainerStep:
         trainable parameter, which each replay hands back to ``.grad``."""
         entry.extra = [(p.data(), p.data().grad) for _, p in self._active()]
 
-    def _extra_outputs(self, loss, pre, fp, tap):
-        """[loss, fingerprint?, stats?] after the update (or the loss)."""
-        if not (fp or tap):
-            return loss
-        out = [loss]
-        if fp:
-            from .resilience import integrity as _integrity
+    def _tap_stats(self, pre):
+        params = [(p.name, p.data()) for _, p in self._active()]
+        grads = [(p.name, p.data().grad) for _, p in self._active()
+                 if p.data().grad is not None]
+        return self.numerics.graph_stats(
+            grads, [(n, pre[n]) for n, _ in params], params, [],
+            torch.stack(self._tap_slots.views))
 
-            out.append(_integrity.step_fold(
-                *_integrity.net_named_state(self.net)))
-        if tap:
-            params = [(p.name, p.data()) for _, p in self._active()]
-            grads = [(p.name, p.data().grad) for _, p in self._active()
-                     if p.data().grad is not None]
-            out.append(self.numerics.graph_stats(
-                grads, [(n, pre[n]) for n, _ in params], params, [],
-                torch.stack(self._tap_slots.views)))
-        return out
+    def _fold(self):
+        from .resilience import integrity as _integrity
+
+        return _integrity.step_fold(*_integrity.net_named_state(self.net))
 
     def _pre(self, tap):
         return {p.name: p.data().detach().clone()
                 for _, p in self._active()} if tap else None
 
-    def _program(self, x, y, batch_size, fp=False, tap=False):
+    def _threshold(self, norm):
+        return self.sentinel.grad_norm_threshold if norm else None
+
+    def _program(self, x, y, batch_size, fp=False, tap=False, scale=False,
+                 gate=False, norm=False, tap_gates=False, drill=False):
+        """[loss, finite?, norm_ok?, fingerprint?, stats?]: the step with
+        its scalars in the slots; the flags only when something gates."""
+        from . import autograd
+
+        views = self._slots.views
+        scale_t, gate_t, drill_t = views[-_GATE_SLOTS:]
+        with autograd.record():
+            loss = self.loss_fn(self.net(x), y)
+            loss_b = loss * scale_t if scale else loss
+        autograd.backward(loss_b)
+        grads = self._grads()
+        if scale:
+            torch._foreach_mul_(grads, 1.0 / scale_t)
+        if drill:
+            grads[0].mul_(drill_t)
+        out, flags, swept, saved = [loss], None, [], []
+        if scale or gate or tap_gates:
+            flags = _health_flags(grads, self._threshold(norm))
+            out += [f for f in flags if f is not None]
+            swept = self._swept()
+            saved = [torch.empty_like(t) for t in swept]
+            with torch.no_grad():
+                torch._foreach_copy_(saved, swept)
+        pre = None
+        if tap:      # the copies made for the gate serve the tap as well
+            pre = {p.name: s for (_, p), s in zip(self._active(), saved)} \
+                if swept else self._pre(True)
+        self.trainer._update(views[:-_GATE_SLOTS])
+        stats = self._tap_stats(pre) if tap else None
+        if flags is not None:
+            passed = _passed(flags[0], flags[1], gate_t if gate else None,
+                             scale, gate, tap_gates)
+            with torch.no_grad():
+                for t, s in zip(swept, saved):
+                    torch.where(passed, t, s, out=t)
+        if fp:
+            out.append(self._fold())
+        if tap:
+            out.append(stats)
+        return out
+
+    def _eager_gated(self, x, y, bs, fp, tap, checking):
+        """The kill switch's step when something gates: the program's
+        semantics eagerly (``mxnet_tpu/capture.py`` ``_eager_step``): the
+        loss scaled and the gradients unscaled, the nan_grad /
+        nonfinite_grad drills, the fused check read on the host, and the
+        update only when it passes. Returns the program's outputs as
+        (loss, finite_ok, norm_ok, fingerprint, stats); on a gated step
+        the tap's update rows are zero (the update is never computed)."""
+        from . import autograd
+        from .resilience import faults as _faults
+
+        trainer, scaler = self.trainer, self.loss_scaler
+        has_scale, has_gate, norm, tap_gates = self._gates()
+        scale_t = None
+        if scaler is not None:
+            scaler.clear_note()        # an earlier step's flag never
+            scale_t = torch.tensor(    # answers this one's has_overflow
+                float(scaler.loss_scale), dtype=torch.float32,
+                device=self.device)
+        with autograd.record():
+            loss = self.loss_fn(self.net(x), y)
+            loss_b = loss * scale_t if scale_t is not None else loss
+        autograd.backward(loss_b)
+        grads = self._grads()
+        if scale_t is not None:
+            torch._foreach_mul_(grads, 1.0 / scale_t)
+        _faults.maybe_nan_grads(trainer._params)
+        _faults.maybe_nonfinite_grad(trainer._params)
+        finite_t, norm_t = _health_flags(grads, self._threshold(norm))
+        finite_ok = bool(finite_t.item())
+        norm_ok = bool(norm_t.item()) if norm_t is not None else None
+        if scaler is not None:
+            scaler.note_finite(finite_ok)
+        pre = self._pre(tap)
+        if _passed(finite_ok, norm_ok, (1.0 if checking else 0.0)
+                   if has_gate else None, has_scale, has_gate, tap_gates):
+            trainer._optimizer.rescale_grad = trainer._scale / bs
+            trainer._update(trainer._scalars())
+        return (loss, finite_ok, norm_ok, self._fold() if fp else None,
+                self._tap_stats(pre) if tap else None)
+
+    def _eager_step(self, x, y, bs, fp, tap):
+        """The kill switch's step when nothing gates: ``Trainer.step``."""
         from . import autograd
 
         with autograd.record():
             loss = self.loss_fn(self.net(x), y)
         autograd.backward(loss)
         pre = self._pre(tap)
-        self.trainer._update(self._slots.views)
-        return self._extra_outputs(loss, pre, fp, tap)
-
-    def _eager_step(self, x, y, batch_size, fp=False, tap=False):
-        from . import autograd
-
-        with autograd.record():
-            loss = self.loss_fn(self.net(x), y)
-        autograd.backward(loss)
-        pre = self._pre(tap)
-        self.trainer.step(batch_size)
-        return self._extra_outputs(loss, pre, fp, tap)
+        self.trainer.step(bs)
+        return (loss, None, None, self._fold() if fp else None,
+                self._tap_stats(pre) if tap else None)
 
     def _as_tensor(self, a):
         if not isinstance(a, torch.Tensor):
@@ -691,16 +902,9 @@ class CapturedTrainerStep:
         from .resilience import integrity as _integrity
         from .resilience import watchdog as _watchdog
 
-        _no_loss_scaler(self.trainer)
+        _no_dist(self.trainer)
         _STATS["capture_steps"] += 1
         x, y = self._as_tensor(x), self._as_tensor(y)
-        # the nan_grad drill: a graph cannot be poisoned from outside, so
-        # the batch is; nonfinite_grad poisons the target layer's weight
-        if _faults.active("nan_grad") and x.is_floating_point():
-            f = _faults.get("nan_grad")
-            if f is not None and f.should_fire():
-                x = x * float("nan")
-        _faults.maybe_nonfinite_grad(self.trainer._params, where="param")
         bs = batch_size if batch_size is not None else (
             self._batch_size if self._batch_size is not None
             else int(x.shape[0]))
@@ -709,55 +913,168 @@ class CapturedTrainerStep:
         tap_on = tap is not None and tap.tick()
         if tap_on:
             self._tap_slots.write(tap.sel_values().tolist())
+        has_scale, has_gate, has_norm, tap_gates = self._gates()
+        gating = has_scale or has_gate or tap_gates
+        checking = False
+        s = self.sentinel
+        if s is not None:                 # the eager before_update's cadence
+            s._step += 1
+            checking = (s._step - 1) % s.check_every == 0
         self._step_count += 1
         _watchdog.note_step(self._step_count)
-        trainer, opt = self.trainer, self.trainer.optimizer
         attrs = {"step": self._step_count}
         if tap_on:
             attrs["numerics_sampled"] = True
-        with _obs_trace.span("train.captured_step", **attrs), \
-                _watchdog.guard("step", detail="capture.CapturedTrainerStep",
-                                step=self._step_count):
-            _faults.maybe_hang("hang_step")
-            if not enabled():
-                _STATS["capture_fallback_eager"] += 1
-                out = self._eager_step(x, y, bs, fp_on, tap_on)
-            else:
-                out = self._captured(x, y, bs, fp_on, tap_on, trainer, opt)
-        out = list(out) if isinstance(out, (list, tuple)) else [out]
-        loss = out.pop(0)
-        self._last_fp_out = out.pop(0) if fp_on else None
+        try:
+            with _obs_trace.span("train.captured_step", **attrs), \
+                    _watchdog.guard("step", detail="capture.CapturedTrainerStep",
+                                    step=self._step_count):
+                _faults.maybe_hang("hang_step")
+                if not enabled():
+                    _STATS["capture_fallback_eager"] += 1
+                    out = self._eager_gated(x, y, bs, fp_on, tap_on,
+                                            checking) if gating \
+                        else self._eager_step(x, y, bs, fp_on, tap_on)
+                else:
+                    out = self._captured(x, y, bs, fp_on, tap_on, checking,
+                                         gating)
+        except _watchdog.StallError as e:
+            if not self._stall_rollback(e):
+                raise
+            return None
+        loss, finite_ok, norm_ok, fp_out, stats = out
+        self._last_fp_out = fp_out
         if fp_on:
             _integrity.note_fingerprint_step()
+        if gating:
+            self._apply_flag(finite_ok, norm_ok, checking)
         if tap is not None:
-            tap.on_step(self._step_count, None,
-                        out.pop(0).cpu().numpy() if tap_on else None, (x, y))
+            tap.on_step(self._step_count, finite_ok if gating else None,
+                        stats.cpu().numpy() if tap_on else None, (x, y))
         return loss
 
-    def _captured(self, x, y, bs, fp_on, tap_on, trainer, opt):
+    def _captured(self, x, y, bs, fp_on, tap_on, checking, gating):
+        from .resilience import faults as _faults
+
+        trainer, opt = self.trainer, self.trainer.optimizer
+        has_scale, has_gate, has_norm, tap_gates = self._gates()
+        # the nonfinite_grad drill's captured form poisons the target
+        # layer's weight, so the NaN flows through the graph to its
+        # activations and gradients (the kill switch poisons the gradient)
+        _faults.maybe_nonfinite_grad(trainer._params, where="param")
         for i, p in self._active():       # states exist before the key
             trainer._updater.state(i, p.data())
+        drill = _faults.active("nan_grad")
+        fire = False
+        if drill:
+            f = _faults.get("nan_grad")
+            fire = f is not None and f.should_fire()
         snap = (opt.num_update, dict(opt._index_update_count),
                 opt.rescale_grad, dict(vars(opt.lr_scheduler))
                 if opt.lr_scheduler is not None else None)
-        opt.rescale_grad = trainer._scale / bs
-        values = trainer._scalars()       # the host scalar replay
-        try:
-            self._slots.write(values)
-            out = self._exec(x, y, key=(float(bs), fp_on, tap_on))
-        except BaseException:
-            # the step never ran: un-advance the replay's bookkeeping
+
+        def unadvance():
             opt.num_update, count, opt.rescale_grad, sched = snap
             opt._index_update_count = count
             if sched is not None:
                 vars(opt.lr_scheduler).update(sched)
+
+        opt.rescale_grad = trainer._scale / bs
+        values = trainer._scalars()       # the host scalar replay
+        values += [float(self.loss_scaler.loss_scale) if has_scale else 1.0,
+                   1.0 if checking else 0.0,
+                   float("nan") if fire else 1.0]
+        try:
+            self._slots.write(values)
+            out = self._exec(x, y, key=(
+                float(bs), fp_on, tap_on, has_scale, has_gate, has_norm,
+                tap_gates, drill))
+        except BaseException:
+            unadvance()                   # the step never ran
             raise
         entry = self._exec.last_entry
         if entry.graph is not None:
             for leaf, buf in entry.extra:
                 if leaf.grad is not buf:
                     leaf.grad = buf
-        return out
+        loss = out.pop(0)
+        finite_ok = norm_ok = None
+        if gating:                        # the one host read of the step
+            finite_ok = bool(out.pop(0).item())
+            if has_norm:
+                norm_ok = bool(out.pop(0).item())
+            if has_scale:
+                self.loss_scaler.note_finite(finite_ok)
+            if not _passed(finite_ok, norm_ok,
+                           (1.0 if checking else 0.0) if has_gate else None,
+                           has_scale, has_gate, tap_gates):
+                unadvance()               # the gated update never landed
+        fp_out = out.pop(0) if fp_on else None
+        stats = out.pop(0) if tap_on else None
+        return loss, finite_ok, norm_ok, fp_out, stats
+
+    def _apply_flag(self, finite_ok, norm_ok, checking):
+        """The host side of the check (``mxnet_tpu/capture.py:1476-1519``),
+        the counterpart of ``HealthSentinel.before_update``: the scaler's
+        schedule, the sentinel's counters and its policy (the weights were
+        already gated). Off cadence the sentinel does nothing, as eager;
+        an overflow is counted every step."""
+        from .resilience import sentinel as _sentinel
+
+        scaler = self.loss_scaler
+        if scaler is not None:
+            scaler.update_scale(not finite_ok)
+        s = self.sentinel
+        if s is None or not checking:
+            if scaler is not None and not finite_ok:
+                _sentinel.note_skip("amp_overflow")
+            return
+        ok = finite_ok and norm_ok is not False
+        _sentinel.note_check(
+            ok, kind="nonfinite" if not finite_ok else "grad_norm")
+        if ok:
+            return
+        s.last_reason = (
+            "non-finite gradient (NaN/Inf) (captured step)"
+            if not finite_ok else
+            f"global grad norm exceeds threshold "
+            f"{s.grad_norm_threshold:.3e} (captured step)")
+        if s.policy == "raise":
+            raise _sentinel.NumericHealthError(
+                f"numeric health check failed at captured step "
+                f"{self._step_count}: {s.last_reason}")
+        if s.policy == "skip_batch" or s.manager is None:
+            _sentinel.note_skip("sentinel")
+            return
+        restored = s.manager.restore_latest(net=s._net or self.net,
+                                            trainer=self.trainer)
+        if restored is None:
+            raise _sentinel.NumericHealthError(
+                "rollback requested (captured step) but no valid "
+                f"checkpoint exists under {s.manager.directory}")
+        _sentinel.note_skip("sentinel")
+        _sentinel.note_rollback()
+
+    def _stall_rollback(self, err):
+        """A stalled step resumes from the last checkpoint under a
+        rollback-policy sentinel with a manager, as ``Trainer.step``'s
+        does. True when recovered."""
+        from .resilience import watchdog as _watchdog
+
+        s = self.sentinel
+        if s is None or s.policy != "rollback" or s.manager is None:
+            return False
+        manifest = s.manager.restore_latest(net=s._net or self.net,
+                                            trainer=self.trainer)
+        if manifest is None:
+            return False
+        _watchdog.note_rollback(err, manifest)
+        import warnings
+
+        warnings.warn(
+            f"captured step stalled ({err}); rolled back to checkpoint "
+            f"step {manifest.get('step')} and skipped the step")
+        return True
 
 
 class CapturedShardedStep:
@@ -790,23 +1107,12 @@ class CapturedShardedStep:
         return self.trainer.mesh
 
 
-def _no_loss_scaler(trainer):
+def _no_dist(trainer):
     if getattr(trainer, "_dist", None) is not None:
         raise CaptureError(
             "capture: this trainer sums its gradients over a distributed "
             "kvstore; a captured multi-rank step is ROADMAP Queue 1 item 6. "
             "Run the step eagerly (trainer.step)")
-    if getattr(trainer, "_sentinel", None) is not None:
-        raise CaptureError(
-            "capture: this trainer has a HealthSentinel attached; its "
-            "finite check inside a captured step is ROADMAP Queue 1 item "
-            "4. Run the step eagerly (trainer.step)")
-    if getattr(trainer, "_amp_loss_scaler", None) is not None:
-        raise CaptureError(
-            "capture: this trainer has an AMP loss scaler attached "
-            "(amp.init_trainer); a captured step that checks the gradients "
-            "for overflow in the graph is ROADMAP Queue 1 item 4. Run the "
-            "step eagerly (amp.scale_loss, amp.unscale, trainer.step)")
 
 
 def capture(trainer, net=None, loss_fn=None, **kwargs):
@@ -823,5 +1129,4 @@ def capture(trainer, net=None, loss_fn=None, **kwargs):
         raise CaptureError(
             "capture(gluon_trainer) needs net= and loss_fn= (the step "
             "program is forward + backward + update, not just the update)")
-    _no_loss_scaler(trainer)
     return CapturedTrainerStep(net, loss_fn, trainer, **kwargs)

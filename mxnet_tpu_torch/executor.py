@@ -1,30 +1,55 @@
 """Executor: a bound Symbol run as a walk of its nodes (port of
 ``mxnet_tpu/executor.py:27-420``; parity: include/mxnet/executor.h).
 
-``mxnet_tpu`` jits the walk into one XLA executable; the port calls each
-node's registered op on tensors in topological order. The walk reads
-nothing back to the host (calibrated constants are device fills), so a
-forward can be captured whole as one CUDA graph: the serving Predictor
-does that per bucket through :class:`~mxnet_tpu_torch.capture.
-CapturedExec`, with :meth:`Executor.run` as the captured function. A
-monitor callback (``set_monitor_callback``) sees every node output under
-``mxnet_tpu``'s names ``<node>_output`` / ``<node>_output<i>``; with one
-installed the walk runs eagerly, as calibration does. Nodes that no output
-depends on are not in the walk.
+The walk calls each node's registered op on tensors in topological order
+(:meth:`Executor.run`). It reads nothing back to the host (calibrated
+constants are device fills), so it can be captured whole as one CUDA
+graph: the serving Predictor does that per bucket, with :meth:`Executor.
+run` as the captured function. Nodes that no output depends on are not in
+the walk.
 
-Training. ``forward(is_train=True)`` walks the graph under
-``torch.enable_grad()`` with every argument whose ``grad_req`` is not
-"null" as a leaf of the tape (its tensor detached, memory shared), and
-keeps the graph; ``backward(out_grads)`` takes the gradients of the
-outputs (``out_grads`` as their head gradients, ones when None; the
-output heads such as ``SoftmaxOutput`` ignore them) into ``grad_dict``:
-'write' overwrites, 'add' accumulates across backward calls. The graph is
-freed by the backward unless an argument's ``grad_req`` is 'add' (which
-may call backward again), and dropped by the next forward. BatchNorm's
-moving statistics, the mutated auxiliary slots, are written back in
-training, detached, outside the graph. The inference walk
-(``is_train=False``), the fused int8 plan and :meth:`Executor.run`, which
-the Predictor captures, see none of this.
+Capture, the counterpart of ``mxnet_tpu``'s ``_jit_fwd`` / ``_jit_fwd_bwd``
+(``mxnet_tpu/executor.py:146-175``). :meth:`Executor.forward` and
+:meth:`Executor.backward` run two programs through one
+:class:`~mxnet_tpu_torch.capture.CapturedExec` (one CUDA graph per
+signature on the card; the same program run directly on the CPU):
+
+- the forward (``is_train`` False, or True with nothing to differentiate),
+  which writes the outputs and, in training, BatchNorm's moving
+  statistics (the mutated auxiliary slots) in place;
+- the forward and backward fused: ``forward(is_train=True)`` with an
+  argument whose ``grad_req`` is not "null" is deferred, as in
+  ``mxnet_tpu``, and ``backward(out_grads)`` runs the fused program, which
+  writes the outputs, the gradients into ``grad_dict`` ('write'
+  overwrites, 'add' accumulates; ``out_grads`` are the head gradients,
+  ones when None, and the output heads such as ``SoftmaxOutput`` ignore
+  them) and the mutated aux. Outputs read before the ``backward`` run the
+  training forward first, as ``mxnet_tpu``'s ``_LazyOutputs`` does, so its
+  moving statistics move twice that step, as ``mxnet_tpu``'s do.
+
+A signature's key holds every argument's and aux slot's shape and dtype,
+the ``grad_req``, whether ``out_grads`` are given, and ``is_train``; the
+graph reads and writes the bound tensors in place, so their addresses are
+its state: a feed of a new shape (bound in place of the old argument) or
+a rebound array is captured again, with its reason in
+``capture.retrace_log()``. A Dropout or a sampler in the graph draws from
+``mx.random``'s generator in the graph, a fresh draw each replay, as the
+eager walk draws. Executors bound over a ``shared_module`` (a
+BucketingModule's buckets) capture into one graph memory pool
+(:meth:`share_graph_pool`). A capture that fails on the card raises
+``CaptureError``. A monitor callback (``set_monitor_callback``) sees every
+node output under ``mxnet_tpu``'s names ``<node>_output`` /
+``<node>_output<i>``; with one installed, and under the kill switch
+``MXNET_TPU_TORCH_CAPTURE=0``, the walk runs eagerly, and so does a
+graph holding an op that reads its operands on the host (``host=True`` in
+``ops/registry.py``: ``_while_loop``, ``_cond``, ``boolean_mask``; listed
+in ``Executor.host_ops``), which a CUDA graph cannot replay; each such
+forward is counted in ``capture.stats()["capture_fallback_eager"]``: ``forward(is_train=True)``
+walks the graph under ``torch.enable_grad()`` with every differentiated
+argument a leaf of the tape (its tensor detached, memory shared) and
+``backward`` takes ``torch.autograd.grad`` of that tape, kept for another
+backward when an argument's ``grad_req`` is 'add'. The inference walk of
+a monitor, the fused int8 plan and :meth:`Executor.run` see none of this.
 
 The executor holds and returns tensors. :class:`NDArrayExecutor`, which
 ``simple_bind`` and ``bind`` with NDArrays give, is the same executor with
@@ -179,6 +204,15 @@ class Executor:
         self._plan_fusions()
         self._outputs = None
         self._graph = None
+        self._cap = None            # the CapturedExec, made at first use
+        self._graph_pool = None     # its graphs' memory pool
+        # ops that read their operands on the host (the registry's
+        # host=True: _while_loop, _cond, boolean_mask ...) cannot be held
+        # in a CUDA graph: a graph with one walks eagerly
+        self.host_ops = sorted({op.name for _, op, _ in self._ops
+                                if op.host})
+        self._fed_train = False     # a deferred training forward was fed
+        self._pending_train = False  # ... and has not run yet
         self.monitor_callback = None
 
     def _plan_fusions(self):
@@ -211,6 +245,9 @@ class Executor:
 
     @property
     def outputs(self):
+        if self._outputs is None and self._pending_train:
+            self._outputs = self._replay("forward", True)
+            self._pending_train = False
         return self._outputs or []
 
     @property
@@ -268,11 +305,14 @@ class Executor:
 
     def forward(self, is_train=False, **kwargs):
         """Copy the named feeds into the bound arguments (in their dtype;
-        a feed of another shape is bound in its place) and run the graph;
-        returns the output tensors. With ``is_train`` a BatchNorm uses the
-        batch's statistics and its moving statistics are written back, and
-        when any argument takes a gradient the walk is recorded for
-        :meth:`backward`."""
+        a feed of another shape is bound in its place) and run the
+        forward; returns the output tensors. With ``is_train`` a BatchNorm
+        uses the batch's statistics and its moving statistics are written
+        back; when an argument takes a gradient the training forward is
+        deferred to :meth:`backward`'s fused program (the returned list
+        runs it when read first)."""
+        from . import capture as _capture
+
         for k, v in kwargs.items():
             if k in self.arg_dict:
                 v = _tensor(v, self._device)
@@ -282,6 +322,25 @@ class Executor:
                         tgt.copy_(v)
                 else:
                     self.arg_dict[k] = v
+        self._graph = None
+        self._fed_train = self._pending_train = False
+        if self.monitor_callback is not None or self.host_ops or \
+                not _capture.enabled():
+            _capture._STATS["capture_fallback_eager"] += 1
+            return self._forward_eager(is_train)
+        if is_train and self._diff_names():
+            self._fed_train = self._pending_train = True
+            self._outputs = None
+            return _LazyOutputs(self)
+        self._outputs = self._replay("forward", bool(is_train))
+        return self._outputs
+
+    def _diff_names(self):
+        return [n for n in self._arg_names
+                if self.grad_req[n] != "null" and n in self.grad_dict]
+
+    def _forward_eager(self, is_train):
+        """The eager walk: a monitor's, and the kill switch's."""
         tap = None
         if self.monitor_callback is not None:
             cb = self.monitor_callback
@@ -290,7 +349,6 @@ class Executor:
                 cb(f"{node.name}_output" if i == 0
                    else f"{node.name}_output{i}", t.detach())
 
-        self._graph = None
         args, leaves = self.arg_arrays, {}
         if is_train:
             for i, n in enumerate(self._arg_names):
@@ -299,29 +357,47 @@ class Executor:
         with torch.set_grad_enabled(bool(leaves)):
             outs, new_aux = self.run(args, self.aux_arrays, bool(is_train),
                                      tap)
-        with torch.no_grad():
-            for n, v in zip(self._aux_names, new_aux):
-                if v is not self.aux_dict[n]:
-                    self.aux_dict[n].copy_(v)
+        self._write_aux(new_aux)
         if leaves:
             self._graph = (outs, leaves)
         self._outputs = [o.detach() for o in outs]
         return self._outputs
 
+    def _write_aux(self, new_aux):
+        with torch.no_grad():
+            for n, v in zip(self._aux_names, new_aux):
+                if v is not self.aux_dict[n]:
+                    self.aux_dict[n].copy_(v)
+
     def backward(self, out_grads=None, is_train=True):
         """Gradients of the last training forward's outputs into
         ``grad_dict``: ``out_grads`` (one tensor per output) are the head
-        gradients, ones when None. The graph is kept for another backward
-        when an argument's ``grad_req`` is 'add'; else it is freed here."""
+        gradients, ones when None. After a captured forward this runs the
+        fused forward + backward program (again at each call, as
+        ``mxnet_tpu``'s does); after an eager one it takes the tape's
+        gradients, the tape kept for another backward when an argument's
+        ``grad_req`` is 'add', else freed here."""
+        if out_grads is not None and not isinstance(out_grads, (list,
+                                                                tuple)):
+            out_grads = [out_grads]
         if self._graph is None:
-            if any(self.grad_req[n] != "null" for n in self.grad_dict):
+            if self._fed_train:
+                self._outputs = self._replay("backward", True, out_grads)
+                self._pending_train = False
+                return
+            if self._diff_names():
                 raise MXNetError("backward: run forward(is_train=True) "
                                  "first")
             return
         outs, leaves = self._graph
-        if out_grads is not None and not isinstance(out_grads, (list,
-                                                                tuple)):
-            out_grads = [out_grads]
+        names = list(leaves)
+        keep = any(self.grad_req[n] == "add" for n in names)
+        got = self._grads_of(outs, leaves, out_grads, keep)
+        if not keep:
+            self._graph = None
+        self._write_grads(names, got)
+
+    def _grads_of(self, outs, leaves, out_grads, keep):
         heads, grads = [], []
         for i, o in enumerate(outs):
             if o.requires_grad:
@@ -330,12 +406,11 @@ class Executor:
                 heads.append(o)
                 grads.append(g)
         names = list(leaves)
-        keep = any(self.grad_req[n] == "add" for n in names)
-        got = torch.autograd.grad(heads, [leaves[n] for n in names], grads,
-                                  retain_graph=keep, allow_unused=True) \
+        return torch.autograd.grad(heads, [leaves[n] for n in names], grads,
+                                   retain_graph=keep, allow_unused=True) \
             if heads else [None] * len(names)
-        if not keep:
-            self._graph = None
+
+    def _write_grads(self, names, got):
         with torch.no_grad():
             for n, g in zip(names, got):
                 buf = self.grad_dict[n]
@@ -346,6 +421,78 @@ class Executor:
                     buf.zero_()
                 else:
                     buf.copy_(g)
+
+    # ------------------------------------------------------------ capture
+    def _state(self):
+        """The tensors the programs read or write in place."""
+        return self.arg_arrays + self.aux_arrays + \
+            [self.grad_dict[n] for n in self._arg_names
+             if n in self.grad_dict]
+
+    def _mutated(self):
+        return self.aux_arrays + [self.grad_dict[n] for n in
+                                  self._arg_names if n in self.grad_dict]
+
+    def _warmup_guard(self):
+        from .capture import _restored
+
+        return _restored(self._mutated())
+
+    def share_graph_pool(self, other):
+        """Capture into ``other``'s graph memory pool (a BucketingModule's
+        buckets, which never run at once): the pool then holds about the
+        largest bucket's temporaries, not their sum."""
+        from . import capture as _capture
+
+        other = getattr(other, "_exec", other)    # an NDArrayExecutor's
+        if other._graph_pool is None:
+            other._graph_pool = _capture.GraphPool()
+        self._graph_pool = other._graph_pool
+
+    def _replay(self, kind, is_train, out_grads=None):
+        """Run ``kind`` ("forward" or "backward", the fused program)
+        through the CapturedExec; returns the outputs."""
+        from . import capture as _capture
+
+        if self._cap is None:
+            if self._graph_pool is None:
+                self._graph_pool = _capture.GraphPool()
+            self._cap = _capture.CapturedExec(
+                self._program, label="executor:" + ",".join(
+                    self._symbol.list_outputs()),
+                device=self._device, state=self._state,
+                warmup_guard=self._warmup_guard, pool=self._graph_pool)
+        shapes = tuple((tuple(t.shape), str(t.dtype))
+                       for t in self.arg_arrays + self.aux_arrays)
+        req = tuple(self.grad_req[n] for n in self._arg_names)
+        heads = [to_tensor(g) for g in out_grads] if out_grads else []
+        out = self._cap(*heads, key=(kind, is_train, req, bool(heads),
+                                     shapes))
+        return list(out) if isinstance(out, (list, tuple)) else [out]
+
+    def _program(self, *heads_and_key):
+        """The captured programs: the forward, or the forward and backward
+        fused. Writes the mutated aux and the gradients in place; returns
+        the outputs."""
+        heads, (kind, is_train, _req, has_heads, _shapes) = \
+            list(heads_and_key[:-5]), heads_and_key[-5:]
+        if kind == "forward":
+            with torch.no_grad():
+                outs, new_aux = self.run(self.arg_arrays, self.aux_arrays,
+                                         is_train)
+            self._write_aux(new_aux)
+            return [o.detach() for o in outs]
+        args, leaves = self.arg_arrays, {}
+        for i, n in enumerate(self._arg_names):
+            if self.grad_req[n] != "null" and n in self.grad_dict:
+                args[i] = leaves[n] = args[i].detach().requires_grad_()
+        with torch.enable_grad():
+            outs, new_aux = self.run(args, self.aux_arrays, True)
+        self._write_aux(new_aux)
+        got = self._grads_of(outs, leaves, heads if has_heads else None,
+                             False)
+        self._write_grads(list(leaves), got)
+        return [o.detach() for o in outs]
 
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False):
@@ -413,6 +560,28 @@ class Executor:
         return Executor(symbol, device, arg_dict, aux_dict, grad_dict, req)
 
 
+class _LazyOutputs(list):
+    """What a deferred ``forward(is_train=True)`` returns: a list that
+    runs the training forward when first read (``mxnet_tpu/executor.py``
+    ``_LazyOutputs``)."""
+
+    def __init__(self, owner):
+        super().__init__()
+        self._owner = owner
+
+    def _mat(self):
+        return self._owner.outputs
+
+    def __getitem__(self, i):
+        return self._mat()[i]
+
+    def __iter__(self):
+        return iter(self._mat())
+
+    def __len__(self):
+        return len(self._mat())
+
+
 class NDArrayExecutor:
     """An :class:`Executor` with NDArrays for its user: ``arg_dict``,
     ``aux_dict``, ``grad_dict`` and ``outputs`` are NDArrays over the
@@ -436,7 +605,16 @@ class NDArrayExecutor:
         self.arg_dict = boxed(executor.arg_dict, arg_dict)
         self.aux_dict = boxed(executor.aux_dict, aux_dict)
         self.grad_dict = boxed(executor.grad_dict, grad_dict)
-        self.outputs = []
+        self._boxed = (None, [])
+
+    @property
+    def outputs(self):
+        """The executor's outputs as NDArrays (a deferred training forward
+        runs here when read before ``backward``)."""
+        outs = self._exec.outputs
+        if self._boxed[0] is not outs:
+            self._boxed = (outs, [NDArray(o) for o in outs])
+        return self._boxed[1]
 
     def __getattr__(self, name):
         if name == "_exec":
@@ -472,8 +650,9 @@ class NDArrayExecutor:
             if k in self.arg_dict:
                 self.arg_dict[k]._set_data(v)
         self._sync()
-        self.outputs = [NDArray(o) for o in self._exec.forward(is_train)]
-        return self.outputs
+        outs = self._exec.forward(is_train)
+        return _LazyOutputs(self) if isinstance(outs, _LazyOutputs) \
+            else self.outputs
 
     def backward(self, out_grads=None, is_train=True):
         if isinstance(out_grads, NDArray):

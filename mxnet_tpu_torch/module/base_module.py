@@ -3,8 +3,11 @@
 python/mxnet/module/base_module.py, fit at :409-560).
 
 A training batch is ``forward_backward`` -> ``update`` ->
-``update_metric``; ``score``, ``predict`` and ``iter_predict`` run the
-forward alone.
+``update_metric``, as ``mxnet_tpu``'s: the training forward is deferred
+and ``backward`` runs each executor's fused forward + backward program
+(one CUDA graph a signature, ``executor.py``), the update stays outside
+it, and the metric reads the outputs that program wrote. ``score``,
+``predict`` and ``iter_predict`` run the captured forward alone.
 """
 from __future__ import annotations
 

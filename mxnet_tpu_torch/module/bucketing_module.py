@@ -10,7 +10,11 @@ gradient and auxiliary arrays, and one updater (its states keyed by
 name) follows them across buckets. Switching buckets moves no bytes.
 ``mxnet_tpu`` copies the live parameters into the target bucket on every
 switch instead (``bucketing_module.py:110-118``); the values are the
-same.
+same. Each bucket's executor captures its own fused forward + backward
+graph over the shared tensors (``executor.py``): one graph a bucket key,
+as ``mxnet_tpu`` compiles one program a bucket. The buckets' graphs share
+one memory pool (``capture.GraphPool``), so their temporaries take about
+the largest bucket's memory, not the sum over buckets.
 """
 from __future__ import annotations
 

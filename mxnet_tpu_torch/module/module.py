@@ -177,7 +177,8 @@ class Module(BaseModule):
         """Take ``shared``'s parameter, gradient and auxiliary arrays into
         this Module's executors, and its host copies, as MXNet's
         ``shared_module`` does: the two Modules then read and update the
-        same memory, and switching between them moves no bytes."""
+        same memory, and switching between them moves no bytes. Their
+        executors' CUDA graphs share one memory pool too."""
         if not (shared.binded and shared.params_initialized):
             raise MXNetError("bind: shared_module must be bound and its "
                              "parameters initialized")
@@ -202,6 +203,7 @@ class Module(BaseModule):
                             f"{theirs[n].shape} in shared_module")
                     mine[n] = theirs[n]
             ex._sync()
+            ex.share_graph_pool(other)
         self._arg_params = shared._arg_params
         self._aux_params = shared._aux_params
         self.params_initialized = True

@@ -23,11 +23,12 @@
   while the rest trains). Turning active writes a numerics snapshot
   (parameters, optimizer state, the batch; :func:`load_snapshot` reads it)
   and surfaces through the ``numerics_*`` alert rules.
-- **Policy** — ``MXNET_TPU_TORCH_NONFINITE_POLICY``: ``halt`` raises
-  :class:`NumericsDivergenceError` when a sampled step shows a non-finite
-  value; ``skip`` and ``record`` observe. The port's step does not gate
-  its weight write in the graph (ROADMAP Queue 3): the judgement comes
-  from the sampled matrix, after the update.
+- **Policy** — ``MXNET_TPU_TORCH_NONFINITE_POLICY``: under ``halt`` and
+  ``skip`` the captured gluon step computes the finite flag every step
+  and gates its weight write on it in the graph, so a non-finite batch
+  never lands; then ``halt`` raises :class:`NumericsDivergenceError` and
+  ``skip`` goes on. ``record`` observes only: its program carries no
+  flag, and its finite signal is the sampled matrix's nonfinite column.
 
 Knobs: ``MXNET_TPU_TORCH_NUMERICS``, ``..._NUMERICS_INTERVAL``,
 ``..._NUMERICS_STATS``, ``..._NUMERICS_SNAPSHOT_DIR``,
@@ -322,9 +323,11 @@ class NumericsTap:
 
     @property
     def gates_updates(self):
-        """False: the port's step does not gate its weight write on the
-        finite flag in the graph (ROADMAP Queue 3)."""
-        return False
+        """Whether the captured step's weight write also gates on the
+        finite flag for this tap (``halt`` / ``skip``): a non-finite batch
+        never touches the weights. ``record`` leaves the program as it is
+        without a tap."""
+        return self.policy in ("halt", "skip")
 
     # -------------------------------------------------------- capture-side
     def bind(self, net, trainer):

@@ -45,6 +45,12 @@ def generator(device="cpu"):
     return g
 
 
+def made_generator(device):
+    """The generator of ``device`` if one was made, else None (no seed is
+    drawn)."""
+    return _GENERATORS.get(_key(device))
+
+
 def seed(seed_state, ctx="all"):
     """Seed the generator of ``ctx`` (a Context), or every generator with
     ``ctx='all'`` (those made later too)."""

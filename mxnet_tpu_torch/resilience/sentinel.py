@@ -8,6 +8,12 @@
 - :meth:`HealthSentinel.check_finite` is what ``serving.BatchServer`` and
   the fleet's process replicas run on every batch's outputs.
 
+A captured gluon step (``capture.capture``) bypasses ``before_update``:
+its graph computes the same finite flag and norm bound and holds back the
+update on them, and the host applies the policy with :func:`note_check`,
+:func:`note_skip` and :func:`note_rollback`, so the counters move as the
+eager step's do.
+
 Policies (``MXNET_TPU_TORCH_HEALTH_POLICY`` or the constructor): ``raise``
 raises :class:`NumericHealthError`; ``skip_batch`` drops the step (the
 ``health_skipped_steps`` counter, shared with AMP overflow skips);

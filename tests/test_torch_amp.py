@@ -12,7 +12,8 @@ against mxnet_tpu's, on the CPU.
   products rounded at other places; both packages' K1 is its plain
   composition here).
 - An overflow leaves weights and states bitwise as they were, halves the
-  scale and is counted; a captured gluon step with a scaler raises.
+  scale and is counted; the captured gluon step with ``loss_scaler=``
+  runs the same recipe in its graph, bitwise its kill switch.
 """
 import warnings
 
@@ -315,17 +316,95 @@ def test_overflow_skips_the_step_bitwise(amp_off):
         "health_skipped_steps": 1, "amp_overflow_skips": 1}
 
 
-def test_capture_of_an_amp_trainer_raises(amp_off):
-    _, tnet = _pair()
-    tamp.init("float16")
-    tr = mt.gluon.Trainer(tnet.collect_params(), "sgd")
-    step = capture.capture(tr, net=tnet, loss_fn=lambda p, y: p.sum())
-    tamp.init_trainer(tr)
-    with pytest.raises(capture.CaptureError, match="item 4"):
-        capture.capture(tr, net=tnet, loss_fn=lambda p, y: p.sum())
-    with pytest.raises(capture.CaptureError, match="item 4"):
-        step(torch.zeros(1, 4, dtype=torch.int64),
-             torch.zeros(1, 4, dtype=torch.int64))
+def test_captured_amp_step_matches_eager_and_mxnet_tpu(amp_off,
+                                                      monkeypatch):
+    """The captured AMP fp16 LAMB step (``capture(..., loss_scaler=)``),
+    with an overflow forced at step 2 (a scale of 2**40 overflows fp16):
+    bitwise the kill switch's steps (losses, weights, states, the scale
+    trajectory, amp.health_stats()), and against mxnet_tpu's kill-switch
+    step with its scaler: the same trajectory and skip counters, the
+    losses within 1e-2 relative and the weights within 1e-3 (the fp16
+    bounds above)."""
+    from mxnet_tpu import capture as jcapture
+
+    skw = {"init_scale": 2. ** 16, "scale_factor": 2. ** 24,
+           "scale_window": 1000}
+    x, y = _batch()
+    opt = {"learning_rate": 1e-3}
+    jnet, tnet0 = _pair(seed=6)
+    values = {n: t.detach().numpy().copy()
+              for n, t in tnet0.collect_params().items()}
+
+    def port(eager):
+        if eager:
+            monkeypatch.setenv("MXNET_TPU_TORCH_CAPTURE", "0")
+        else:
+            monkeypatch.delenv("MXNET_TPU_TORCH_CAPTURE", raising=False)
+        tnet = tzoo.transformer_lm(impl="flash", prefix="tlm_", **CFG)
+        tnet.initialize(ctx=mt.cpu())
+        tnet.load_numpy_params(values)
+        tamp.init("float16")
+        tamp.reset_health_stats()
+        tr = mt.gluon.Trainer(tnet.collect_params(), "lamb", dict(opt))
+        scaler = tamp.LossScaler(**skw)
+        step = capture.capture(
+            tr, net=tnet, loss_scaler=scaler,
+            loss_fn=lambda o, t: mt.gluon.loss.SoftmaxCrossEntropyLoss()(
+                o, t).mean())
+        losses, scales = [], []
+        for k in range(4):
+            if k == 2:
+                scaler.loss_scale = 2. ** 40
+            losses.append(step(torch.from_numpy(x), torch.from_numpy(y),
+                               batch_size=2))
+            scales.append(scaler.loss_scale)
+        return (tnet, tr, losses, scales, tamp.health_stats(),
+                capture.stats()["capture_fallback_eager"])
+
+    capture.reset_stats()
+    cnet, ctr, closs, cscales, chealth, cfall = port(False)
+    enet, etr, eloss, escales, ehealth, efall = port(True)
+    assert (cfall, efall) == (0, 4)
+    assert cscales == escales == [2. ** 16, 2. ** 16, 2. ** 16, 2. ** 16]
+    assert chealth == ehealth == {"health_skipped_steps": 1,
+                                  "amp_overflow_skips": 1}
+    for a, b in zip(closs, eloss):
+        assert torch.equal(a, b)
+    for (n, a), b in zip(cnet.collect_params().items(),
+                         enet.collect_params().values()):
+        assert torch.equal(a, b), n
+    for i, st in ctr._updater.states.items():
+        assert all(torch.equal(a, b) for a, b in
+                   zip(capture._leaves(st),
+                       capture._leaves(etr._updater.states[i])))
+    # mxnet_tpu's kill-switch step with the same scaler and script
+    mx.amp.init("float16")
+    jsentinel.reset_stats()
+    jtr = mx.gluon.Trainer(jnet.collect_params(), "lamb", dict(opt))
+    jscaler = mx.amp.LossScaler(**skw)
+    jce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    jstep = jcapture.CapturedTrainerStep(
+        jnet, lambda o, t: jce(o, t).mean(), jtr, loss_scaler=jscaler)
+    monkeypatch.setenv("MXNET_TPU_CAPTURE", "0")
+    jscales = []
+    for k in range(4):
+        if k == 2:
+            jscaler.loss_scale = 2. ** 40
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            jl = float(jstep(mx.nd.array(x, dtype="int32"),
+                             mx.nd.array(y, dtype="int32"),
+                             batch_size=2).asnumpy())
+        got = float(closs[k])
+        assert abs(got - jl) <= 1e-2 * abs(jl), (k, got, jl)
+        jscales.append(jscaler.loss_scale)
+    assert jscales == cscales
+    assert {k: jsentinel.stats()[k] for k in tamp.health_stats()} == chealth
+    for n, p in cnet._param_objects().items():
+        want = jnet.collect_params()[n].data().asnumpy()
+        got = p.data().detach().numpy()
+        assert np.abs(got - want).max() <= 1e-3 * max(np.abs(want).max(),
+                                                      1.0), n
 
 
 def test_convert_helpers_cast_for_inference(amp_off):

@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 
 import mxnet_tpu_torch as mt  # noqa: E402
 from mxnet_tpu_torch.ops import optimizer_ops as topt  # noqa: E402
+from _torch_isolation import no_stale_preemption  # noqa: E402,F401
 
 SHAPES = [(7, 5), (11,), (3, 2, 4)]
 LR, WD, RESCALE = 0.0123456789, 1e-2, 0.37

@@ -26,6 +26,7 @@ import mxnet_tpu_torch as mt  # noqa: E402
 from mxnet_tpu_torch import capture, parallel as tpar, serving  # noqa: E402
 from mxnet_tpu_torch.gluon.model_zoo import transformer as tzoo  # noqa: E402
 from mxnet_tpu_torch.gluon.model_zoo import vision as tvision  # noqa: E402
+from _torch_isolation import no_stale_preemption  # noqa: E402,F401
 
 CFG = dict(vocab=64, units=32, num_heads=2, num_layers=2, max_len=64)
 B, T = 4, 16

@@ -22,6 +22,7 @@ from mxnet_tpu.resilience import elastic as jelastic  # noqa: E402
 import mxnet_tpu_torch as mt  # noqa: E402
 from mxnet_tpu_torch import capture, parallel as tpar  # noqa: E402
 from mxnet_tpu_torch.resilience import elastic, faults  # noqa: E402
+from _torch_isolation import no_stale_preemption  # noqa: E402,F401
 
 X = np.random.RandomState(0).randint(0, 40, (8, 8))
 Y = (5 * X + 3) % 40

@@ -315,24 +315,37 @@ def test_flash_attention_through_a_bound_graph():
 
 
 @pytest.mark.parametrize("grad_req", ["write", "add"])
-def test_backward_frees_the_graph_unless_it_is_needed(grad_req):
-    """The recorded graph outlives ``backward`` only for 'add', where a
-    second backward adds the same gradient again; once freed, another
-    backward asks for a forward."""
-    with mt.cpu():
+def test_backward_frees_the_graph_unless_it_is_needed(grad_req,
+                                                      monkeypatch):
+    """The eager walk (the kill switch's): the recorded graph outlives
+    ``backward`` only for 'add', where a second backward adds the same
+    gradient again; once freed, another backward asks for a forward. The
+    captured executor keeps no tape: each backward runs the fused forward
+    + backward program again, as mxnet_tpu's does, so 'add' adds again
+    and 'write' writes the same gradient."""
+    def bound():
         x = mt.sym.Variable("x")
         ex = (x * x).simple_bind(mt.cpu(), grad_req=grad_req, x=(3,))
         ex.arg_dict["x"][:] = np.array([1.0, 2.0, 3.0], np.float32)
         ex.forward(is_train=True)
         ex.backward()
+        return ex
+
+    twice = [4.0, 8.0, 12.0] if grad_req == "add" else [2.0, 4.0, 6.0]
+    with mt.cpu():
+        ex = bound()                       # captured
+        assert ex._graph is None
+        ex.backward()
+        np.testing.assert_array_equal(ex.grad_dict["x"].asnumpy(), twice)
+        monkeypatch.setenv("MXNET_TPU_TORCH_CAPTURE", "0")
+        ex = bound()                       # the eager walk
         assert (ex._graph is not None) is (grad_req == "add")
         if grad_req == "write":
             with pytest.raises(mt.base.MXNetError, match="forward"):
                 ex.backward()
             return
         ex.backward()
-        np.testing.assert_array_equal(ex.grad_dict["x"].asnumpy(),
-                                      [4.0, 8.0, 12.0])
+        np.testing.assert_array_equal(ex.grad_dict["x"].asnumpy(), twice)
 
 
 def test_the_executor_holds_tensors_under_its_ndarrays():

@@ -21,6 +21,7 @@ from mxnet_tpu.observability import numerics as jnum  # noqa: E402
 import mxnet_tpu_torch as mt  # noqa: E402
 from mxnet_tpu_torch import capture, parallel as tpar  # noqa: E402
 from mxnet_tpu_torch.observability import alerts, numerics  # noqa: E402
+from _torch_isolation import no_stale_preemption  # noqa: E402,F401
 
 TOL = 1e-6
 RNG = np.random.RandomState(5)

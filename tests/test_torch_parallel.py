@@ -51,6 +51,7 @@ import mxnet_tpu_torch as mt  # noqa: E402
 from mxnet_tpu_torch import parallel as tpar  # noqa: E402
 from mxnet_tpu_torch.gluon.model_zoo import vision as tvision  # noqa: E402
 from mxnet_tpu_torch.ops import optimizer_ops as topt  # noqa: E402
+from _torch_isolation import no_stale_preemption  # noqa: E402,F401
 
 NARROW = dict(layers=[1, 1, 1, 1], channels=[8, 16, 32, 64, 128],
               classes=10)

@@ -29,6 +29,7 @@ torch = pytest.importorskip("torch")
 from mxnet_tpu_torch.resilience import faults  # noqa: E402
 
 import _torch_ranks as ranks  # noqa: E402
+from _torch_isolation import no_stale_preemption  # noqa: E402,F401
 
 LM_DIMS = (1, 16, 2, 31, 8)     # layers, units, heads, vocab, max_len
 STEPS, DIE_AT, B = 8, 5, 8

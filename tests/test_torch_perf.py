@@ -21,6 +21,7 @@ from mxnet_tpu_torch.observability import (alerts, metrics,  # noqa: E402
                                            numerics, perf, trace)
 from mxnet_tpu_torch.resilience import (faults, integrity,  # noqa: E402
                                         sentinel)
+from _torch_isolation import no_stale_preemption  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True)

@@ -37,6 +37,7 @@ from mxnet_tpu_torch.resilience import (CheckpointManager,  # noqa: E402
                                         checkpoint, elastic, watchdog)
 
 import _torch_ranks as ranks  # noqa: E402
+from _torch_isolation import no_stale_preemption  # noqa: E402,F401
 
 LM_DIMS = (1, 16, 2, 31, 8)     # layers, units, heads, vocab, max_len
 RANK_LIMIT = 120.0

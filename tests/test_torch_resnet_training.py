@@ -36,6 +36,7 @@ from mxnet_tpu_torch.ops import nn as tops  # noqa: E402
 
 from test_torch_parallel import (LAYOUTS, OPT, STATE_TOL,  # noqa: E402
                                  _batch, _close, _np, _pair)
+from _torch_isolation import no_stale_preemption  # noqa: E402,F401
 
 BN_TOL = 1e-5
 

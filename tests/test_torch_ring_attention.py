@@ -32,6 +32,7 @@ from mxnet_tpu import parallel as jpar  # noqa: E402
 from mxnet_tpu.gluon.model_zoo import transformer as jzoo  # noqa: E402
 
 import _torch_ranks as ranks  # noqa: E402
+from _torch_isolation import no_stale_preemption  # noqa: E402,F401
 
 SP = 4
 SHAPE = (2, 4, 64, 16)          # (B, H, T global, D): 16 rows a rank

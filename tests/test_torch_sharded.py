@@ -41,6 +41,7 @@ from mxnet_tpu.gluon.model_zoo import transformer as jzoo  # noqa: E402
 from mxnet_tpu.gluon.model_zoo import vision as jvision  # noqa: E402
 
 import _torch_ranks as ranks  # noqa: E402
+from _torch_isolation import no_stale_preemption  # noqa: E402,F401
 
 WORLD = 4
 STEPS = 3

@@ -29,6 +29,7 @@ from mxnet_tpu_torch.observability import alerts, metrics, trace  # noqa: E402,E
 from mxnet_tpu_torch.parallel.trainer import BatchPlacement  # noqa: E402
 from mxnet_tpu_torch.resilience import CheckpointManager  # noqa: E402
 from mxnet_tpu_torch.resilience import faults as tfaults  # noqa: E402
+from _torch_isolation import no_stale_preemption  # noqa: E402,F401
 
 N_RECORDS = 47
 FEAT = 4

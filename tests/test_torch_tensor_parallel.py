@@ -33,6 +33,7 @@ import _torch_ranks as ranks  # noqa: E402
 from test_torch_sharded import LM_DIMS, OPT, _jax_model, _values  # noqa: E402
 
 from mxnet_tpu_torch.parallel import tensor_parallel as tp  # noqa: E402
+from _torch_isolation import no_stale_preemption  # noqa: E402,F401
 
 WORLD = 4
 MESHES = {"dp1_tp4": {"dp": 1, "tp": 4},
