@@ -17,6 +17,7 @@
     python3 chip_smoke.py --resilience-only  # build + phase w
     python3 chip_smoke.py --pod-only         # build + phase x (pod drills)
     python3 chip_smoke.py --data-only        # build + phase y (input path)
+    python3 chip_smoke.py --vision-only      # build + phase z (model zoo)
 
 Phases, each failing loudly with a non-zero exit:
 
@@ -220,11 +221,12 @@ Phases, each failing loudly with a non-zero exit:
       call is held to the plain versions too), 4 K1 and 4 K2 launches a
       rank on the named route, none plain, the staged bytes; every hop's
       K1 and K2 timed alone beside the whole-sequence call, its plain
-      versions and one SDPA forward + backward over the whole sequence; (o2) phase h's LM (bf16 over fp32 masters, Adam) through
+      versions and one SDPA forward + backward over the whole sequence; (o2) phase h's LM (bf16 over fp32 masters, Adam) at 6 of its 12
+      layers (MR_LAYERS: every LM arm of o and its references) through
       ShardedTrainer over {"dp": 4}, 2 rows a rank: loss and gradients
       against the one-rank step (1e-2, 5e-2 of max|grad|), the weights
       after one step within 5e-2 of max|grad|, 10 steps losing >= 0.5,
-      12 K1 + 12 K2 launches a step, step ms (eager, gloo); (o3) the same
+      6 K1 + 6 K2 launches a step, step ms (eager, gloo); (o3) the same
       over {"dp": 2, "fsdp": 2} with SpecLayout's rules, and the bytes a
       rank holds; (o4) TransformerLM(impl='ring') over {"sp": 4}, 256
       tokens a rank, loss and gradients against impl='flash' on one rank:
@@ -485,7 +487,26 @@ Phases, each failing loudly with a non-zero exit:
       pin_memory=True) bitwise num_workers=0's, through a SIGKILLed
       worker (respawned, each batch once), feeding gluon.Trainer's
       ResNet-50 step; /dev/shm's size printed. ``--data-only`` runs the
-      build and phase y alone.
+      build and phase y alone;
+  (z) the layer library and the vision model zoo, every model built with
+      its widths deferred and resolved by its first forward: (z1) VGG-16
+      (1000 classes, 224^2, fp32, TF32 off) trained through
+      capture.capture with SGD (lr 0.01, momentum 0.9, wd 5e-4), batch
+      64, 10 steps: its parameter count mxnet_tpu's 138,357,544, 2
+      captured steps bitwise the kill switch's from one state and seed
+      (Dropout's draws included; both on cuDNN's deterministic kernels),
+      losses finite and falling; step ms, images/s, peak
+      memory, device busy share; (z2) VGG-16-bn the same at batch 32, 5
+      steps, its running statistics moving; (z3) AlexNet, VGG-16,
+      VGG-16-bn, SqueezeNet 1.0 / 1.1, DenseNet-121, Inception v3 (299^2),
+      MobileNet 1.0 and MobileNet v2 1.0 served through Predictor at
+      buckets (1, 32): bucket 1 equal to the eager forward, the batch-2
+      forward within 1e-3 of max|logits| of a CPU copy, bucket-32
+      images/s and p50; (z4) MultiHeadAttention(768, 12, impl='flash',
+      cross_attention=True) in bf16 on (8, 1024, 768): one K1 and one K2
+      launch on "tc", none plain, against impl='dense' (output 3e-2 of
+      max|out|, gradients 5e-2 of max|grad|), S = 512 != L raising.
+      ``--vision-only`` runs the build and phase z alone.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. ``--summary PATH`` also writes the
@@ -497,6 +518,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import gc
 import json
 import math
 import os
@@ -4654,6 +4676,11 @@ SP_LOSS_TOL, SP32_LOSS_TOL, SP32_GRAD_TOL = 3e-2, 1e-5, 1e-4
 # printed beside the witness: the one-rank steps on the batch's rows
 # permuted, the same function summed in another order.
 MR_BN_TOL = 1e-3
+# phase o's LM arms (o2-o4, o6, o7 and their one-rank references) run 6 of
+# the LM's 12 layers at full width, to keep the whole script inside its
+# time limit; each arm's checks are unchanged, and its launch counts are
+# per MR_LAYERS
+MR_LAYERS = LAYERS // 2
 
 
 def _trim_qkv_bias(name, g):
@@ -4693,13 +4720,13 @@ def _held_bytes(trainer):
 
 
 def _lm_net(torch, mx, impl="flash", mesh=None, remat=None):
-    """Phase h's LM at full width and depth, Xavier from generator seed 0
-    on the card: the same weights in every process."""
+    """Phase h's LM at full width and MR_LAYERS deep, Xavier from
+    generator seed 0 on the card: the same weights in every process."""
     from mxnet_tpu_torch.gluon.model_zoo import transformer
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     net = transformer.transformer_lm(
-        vocab=VOCAB, units=UNITS, num_heads=HEADS, num_layers=LAYERS,
+        vocab=VOCAB, units=UNITS, num_heads=HEADS, num_layers=MR_LAYERS,
         max_len=T, impl=impl, mesh=mesh, remat=remat, prefix="tlm_")
     net.initialize(mx.init.Xavier(), generator=gen)
     return net
@@ -5171,7 +5198,7 @@ def _lm_parallel(torch, mx, kernels, parallel, rank, ref, axes, rules):
     held = _held_bytes(tr)
     timed = sorted(step_ms[1:])
     median = timed[len(timed) // 2]
-    want = {"tc": LAYERS, "tf32x3": 0, "simt": 0}
+    want = {"tc": MR_LAYERS, "tf32x3": 0, "simt": 0}
     drop = losses[0] - losses[-1]
     ok = (checksum == ref["checksum"] and same
           and all(math.isfinite(v) for v in losses) and drop >= 0.5
@@ -5252,7 +5279,7 @@ def _lm_ring(torch, mx, kernels, parallel, rank, ref):
         ms = (time.perf_counter() - t0) * 1e3
         k1 = dict(kernels.flash_attention.launches_by_route)
         k2 = dict(kernels.flash_attention_backward.launches_by_route)
-        hops = MR_RANKS * LAYERS
+        hops = MR_RANKS * MR_LAYERS
         want1 = {r: (hops * (2 if remat else 1) if r == route else 0)
                  for r in k1}
         want2 = {r: (hops if r == route else 0) for r in k2}
@@ -5455,10 +5482,10 @@ def _lm_tp(torch, mx, kernels, parallel, rank, ref, name, axes):
                    .values())
     timed = sorted(step_ms[1:])
     median = timed[len(timed) // 2]
-    want_k = {"tc": LAYERS, "tf32x3": 0, "simt": 0}
+    want_k = {"tc": MR_LAYERS, "tf32x3": 0, "simt": 0}
     want_shapes = [("k1", TP_SHAPE[name]), ("k2", TP_SHAPE[name])]
     act = rows * T * UNITS * 2            # one bf16 all-reduce's bytes
-    want_tp = {"calls": 2 * LAYERS, "bytes": 2 * LAYERS * act}
+    want_tp = {"calls": 2 * MR_LAYERS, "bytes": 2 * MR_LAYERS * act}
     tp_ok = all(st["tp"].get(k, {}).get("tp") == want_tp
                 for st in stats for k in ("copy_to_tp", "reduce_from_tp"))
     drop = losses[0] - losses[-1]
@@ -5536,7 +5563,7 @@ def _lm_tp_fp32(torch, mx, kernels, parallel, rank, ref, name, axes):
     loss, grads = _mean_grads(tr, x[sl], y[sl])
     k1 = dict(kernels.flash_attention.launches_by_route)
     k2 = dict(kernels.flash_attention_backward.launches_by_route)
-    want_k = {"tc": 0, "tf32x3": LAYERS, "simt": 0}
+    want_k = {"tc": 0, "tf32x3": MR_LAYERS, "simt": 0}
     want = ref["float32"]
     if rank == 0:
         loss_err = abs(loss.item() - want["loss"]) / abs(want["loss"])
@@ -13035,6 +13062,330 @@ def gates_phase(torch, mx, kernels, parts=("l", "q", "r", "s")):
     return out
 
 
+# ------------------------------------------------------------------ phase z
+# The Gluon layer library and the vision model zoo. Every model is built
+# from the port's model zoo at 1000 classes with its widths deferred,
+# initialized from a seeded generator of the card and resolved by its
+# first forward (batch 1, predict mode). z1: VGG-16 at 224^2 NCHW, fp32
+# with TF32 off, trained with gluon.Trainer("sgd", lr 0.01, momentum 0.9,
+# wd 5e-4) -- Simonyan & Zisserman 2015, section 3.1; their batch of 256
+# cut to Z1_BATCH for the time limit -- through capture.capture(trainer,
+# net=, loss_fn=SoftmaxCrossEntropyLoss()) on phase j's fixed two-class
+# batch; its first Z_BITWISE_STEPS captured steps are held bitwise to the
+# kill switch's (MXNET_TPU_TORCH_CAPTURE=0) from the same state and the
+# same mx.random seed, Dropout's draws included, both on cuDNN's
+# deterministic kernels; then Z1_STEPS captured steps from the same start
+# on its default kernels are timed. z2: VGG-16-bn the same
+# at Z2_BATCH for Z2_STEPS steps; its running statistics must move. z3:
+# each model of Z3_MODELS served through serving.Predictor at buckets
+# Z3_BUCKETS (captured): bucket 1 equal to the eager forward, the card's
+# batch-2 forward within Z3_CPU_TOL of max|logits| of a CPU copy given
+# the same weights (cuDNN's and the CPU's f32 sums in other orders). z4:
+# MultiHeadAttention(768, 12, impl="flash", cross_attention=True) in bf16
+# at GPT-2-small widths, x and key_value (8, 1024, 768): K1 forward and
+# K2 backward on the q and kv projections' views, every launch on route
+# "tc", against impl="dense" on the same weights at phase e's output
+# tolerance and phase i's gradient tolerance; S = 512 != L raises.
+Z_SEED = 0
+Z_OPT = {"learning_rate": 0.01, "momentum": 0.9, "wd": 5e-4}
+Z1_BATCH, Z1_STEPS = 64, 10
+Z2_BATCH, Z2_STEPS = 32, 5
+Z_BITWISE_STEPS = 2
+VGG16_PARAMS = 138_357_544       # mxnet_tpu's vgg16 at 1000 classes
+Z3_MODELS = ("alexnet", "vgg16", "vgg16_bn", "squeezenet1.0",
+             "squeezenet1.1", "densenet121", "inceptionv3", "mobilenet1.0",
+             "mobilenetv2_1.0")
+Z3_BUCKETS = (1, 32)
+Z3_CPU_TOL = 1e-3
+Z3_TIMED = 10
+Z4_KV_SHORT = 512
+Z4_OUT_TOL, Z4_GRAD_TOL = 3e-2, 5e-2
+_Z_FAILED = []
+
+
+def z_check(ok, what):
+    """Log a phase-z check; a failed one is collected and fails the phase
+    at its end."""
+    log(f"[z] {'ok  ' if ok else 'FAIL'} {what}")
+    if not ok:
+        _Z_FAILED.append(what)
+    return ok
+
+
+def z_side(name):
+    return 299 if name == "inceptionv3" else 224
+
+
+def z_net(torch, mx, name, seed=Z_SEED, ctx=None):
+    """``name`` at 1000 classes with every width deferred, initialized
+    from a seeded generator (of the card, or of the CPU with ``ctx``) and
+    resolved by a first forward at batch 1 in predict mode. Returns the
+    net and how many of its parameters waited for that forward."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    dev = "cuda" if ctx is None else "cpu"
+    net = vision.get_model(name, classes=1000, prefix="z_")
+    # layers without an initializer of their own (VGG's have theirs) take
+    # phase j's fan-in Xavier, which keeps the activations' scale
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=ctx,
+                   generator=torch.Generator(device=dev).manual_seed(seed))
+    pending = sum(p._deferred is not None
+                  for p in net._param_objects().values())
+    side = z_side(name)
+    with torch.inference_mode():
+        net(torch.zeros(1, 3, side, side, device=dev))
+    return net, pending
+
+
+def z_train(torch, mx, card, name, batch, steps, phase):
+    """``name`` trained ``steps`` captured steps on phase j's two-class
+    batch, after its first Z_BITWISE_STEPS captured steps are held bitwise
+    to the kill switch's from the same state and seed. Returns the run's
+    numbers."""
+    from mxnet_tpu_torch import capture
+
+    x, y = imagenet_batch(torch, batch)
+    t0 = time.perf_counter()
+    net, pending = z_net(torch, mx, name)
+    build_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in net.collect_params().values())
+    start = {k: t.detach().clone() for k, t in net.collect_params().items()}
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def fresh():
+        with torch.no_grad():
+            for k, t in net.collect_params().items():
+                t.copy_(start[k])
+        mx.random.seed(Z_SEED)
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(Z_OPT))
+        return capture.capture(trainer, net=net, loss_fn=ce)
+
+    def state():
+        return {k: t.detach().clone() for k, t in net.collect_params().items()}
+
+    # cuDNN's default backward kernels sum with atomics, so two eager runs
+    # differ in the last bits (7e-7 in the weights after 2 VGG-16 steps
+    # on an H100):
+    # the comparison runs both sides on its deterministic kernels, TF32
+    # still off; the timed run below takes the default ones
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        with kill_switch():
+            step = fresh()
+            eager = [step(x, y).detach().clone()
+                     for _ in range(Z_BITWISE_STEPS)]
+            eager_state = state()
+        step = fresh()
+        captured = [step(x, y).detach().clone()
+                    for _ in range(Z_BITWISE_STEPS)]
+        captured_state = state()
+    step = fresh()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(x, y).float().mean().item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_window(torch, lambda: step(x, y),
+                          f"one captured {name} step", "z",
+                          ("conv", "gemm", "cutlass"), top=4)
+    same = all(torch.equal(a, b) for a, b in zip(eager, captured)) and all(
+        torch.equal(eager_state[k], captured_state[k]) for k in eager_state)
+    diff = max((eager_state[k].float() - captured_state[k].float()).abs()
+               .max().item() for k in eager_state)
+    timed = sorted(ms[Z_BITWISE_STEPS:])
+    median = timed[len(timed) // 2]
+    moved = {k: (start[k] - captured_state[k]).abs().max().item()
+             for k in start if k.endswith(("running_mean", "running_var"))}
+    z_check(same, f"{phase} {name}: the first {Z_BITWISE_STEPS} captured "
+            "steps bitwise the kill switch's from the same state and seed "
+            "(Dropout's draws included; cuDNN's deterministic kernels on "
+            f"both sides; max |weight diff| {diff:.3e})")
+    z_check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+            f"{phase} {name}: losses finite, the last below the first: "
+            + ", ".join(f"{v:.4f}" for v in losses))
+    z_check(pending > 0, f"{phase} {name}: {pending} parameters deferred to "
+            "the first forward")
+    busy = prof["device_busy_ms"] / prof["wall_ms"] if prof["wall_ms"] \
+        else 0.0
+    log(f"[z] {card}: {phase} {name} batch {batch}, {n_params:,} parameters"
+        f" (built and resolved in {build_s:.2f} s): captured step median "
+        f"{median:.2f} ms (steps {Z_BITWISE_STEPS + 1}-{steps}, host clock),"
+        f" {batch / (median / 1e3):.1f} images/s, peak memory "
+        f"{peak / 2**30:.2f} GiB, device busy {busy:.1%} of one profiled "
+        "step")
+    out = {"batch": batch, "params": n_params, "deferred": pending,
+           "losses": losses, "step_ms": ms, "median_ms": median,
+           "images_per_s": batch / (median / 1e3), "peak_bytes": peak,
+           "busy_share": busy, "busy_ms": prof["device_busy_ms"],
+           "bitwise": same, "build_s": build_s}
+    if moved:
+        out["running_stats_moved"] = min(moved.values())
+        z_check(min(moved.values()) > 0,
+                f"{phase} {name}: every running statistic moved (least "
+                f"max|change| {min(moved.values()):.3e} over "
+                f"{len(moved)} tensors)")
+    del step, net, start, eager_state, captured_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def z_serve(torch, mx, card, name):
+    """``name`` served through Predictor at Z3_BUCKETS: bucket 1 against
+    the eager forward, the batch-2 forward against a CPU copy, bucket 32
+    timed."""
+    from mxnet_tpu_torch import serving
+
+    side = z_side(name)
+    net, pending = z_net(torch, mx, name)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x2 = torch.rand((2, 3, side, side), generator=gen, device="cuda")
+    with torch.inference_mode():
+        card_out = net(x2).float().cpu()
+    cpu_net, _ = z_net(torch, mx, name, ctx=mx.cpu())
+    cpu_net.load_numpy_params({k: t.detach().cpu().numpy()
+                               for k, t in net.collect_params().items()})
+    with torch.inference_mode():
+        ref = cpu_net(x2.cpu())
+    del cpu_net
+    scale = ref.abs().max().item()
+    cpu_err = (card_out - ref).abs().max().item() / max(scale, 1e-30)
+    t0 = time.perf_counter()
+    pred = serving.Predictor.from_block(
+        net, input_shapes={"data": (3, side, side)}, batch_sizes=Z3_BUCKETS)
+    build_s = time.perf_counter() - t0
+    direct = pred.predict(x2[:1])[0]
+    with torch.inference_mode():
+        eager = net(x2[:1])
+    same = torch.equal(direct, eager)
+    x32 = torch.rand((32, 3, side, side), generator=gen, device="cuda")
+    times = []
+    for _ in range(Z3_TIMED + 1):
+        t0 = time.perf_counter()
+        out = pred.predict(x32)[0]
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times = sorted(times[1:])
+    p50 = times[len(times) // 2]
+    z_check(same and tuple(out.shape) == (32, 1000)
+            and bool(torch.isfinite(out).all()),
+            f"z3 {name}: bucket-1 predict equal to the eager forward "
+            f"(max |diff| {(direct.float() - eager.float()).abs().max():.3e})"
+            ", bucket-32 logits finite (32, 1000)")
+    z_check(cpu_err <= Z3_CPU_TOL,
+            f"z3 {name}: the card's batch-2 forward vs a CPU copy "
+            f"{cpu_err:.3e} of max|logits| {scale:.4f} (tol {Z3_CPU_TOL:g})")
+    log(f"[z] {card}: z3 {name} ({side}^2, {pending} parameters deferred): "
+        f"predictor built in {build_s:.2f} s; bucket 32 p50 {p50:.3f} ms, "
+        f"{32 / (p50 / 1e3):.1f} images/s (host clock, {Z3_TIMED} "
+        "predicts)")
+    del pred, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"side": side, "deferred": pending, "cpu_err": cpu_err,
+            "bucket1_equal": same, "p50_ms": p50,
+            "images_per_s": 32 / (p50 / 1e3), "build_s": build_s}
+
+
+def z_cross_attention(torch, mx, kernels, card):
+    """z4: cross-attention on K1 / K2 against the dense composition."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import contrib
+
+    def block(impl):
+        blk = contrib.nn.MultiHeadAttention(
+            UNITS, HEADS, impl=impl, cross_attention=True, prefix="xattn_")
+        blk.initialize(mx.init.Xavier(), generator=torch.Generator(
+            device="cuda").manual_seed(Z_SEED))
+        blk.cast("bfloat16")
+        return blk
+
+    flash, dense = block("flash"), block("dense")
+    dense.load_numpy_params(dict(flash.collect_params()))
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shape = (BATCH, T, UNITS)
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    kv = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    head = torch.randn(shape, generator=gen, device="cuda")
+
+    def run(blk, counted):
+        xs = x.clone().requires_grad_()
+        kvs = kv.clone().requires_grad_()
+        if counted:
+            zero_counts(kernels)
+        with autograd.record():
+            out = blk(xs, kvs)
+            (out.float() * head).sum().backward()
+        torch.cuda.synchronize()
+        counts = ({"k1": dict(kernels.flash_attention.launches_by_route),
+                   "k2": dict(kernels.flash_attention_backward
+                              .launches_by_route)} if counted else None)
+        grads = {"x": xs.grad, "key_value": kvs.grad}
+        grads.update((k, p.grad().clone())
+                     for k, p in blk._param_objects().items())
+        return out.detach(), grads, counts
+
+    out, grads, counts = run(flash, True)
+    ref, ref_grads, _ = run(dense, False)
+    out_err = rel_err(out, ref)
+    worst = max((rel_err(grads[k], ref_grads[k]), k) for k in ref_grads)
+    want = {"tc": 1, "tf32x3": 0, "simt": 0}
+    z_check(counts["k1"] == want and counts["k2"] == want,
+            f"z4 K1 {counts['k1']}, K2 {counts['k2']} (want one launch "
+            "each, on 'tc'; none plain: a CUDA tensor never reaches the "
+            "plain versions)")
+    z_check(out_err <= Z4_OUT_TOL and worst[0] <= Z4_GRAD_TOL,
+            f"z4 bf16 cross-attention (8, 1024, 768), 12 heads, flash vs "
+            f"dense on the same weights: output {out_err:.3e} of max|out| "
+            f"(tol {Z4_OUT_TOL:g}, phase e's), worst gradient {worst[0]:.3e}"
+            f" of max|grad| ({worst[1]}; tol {Z4_GRAD_TOL:g}, phase i's)")
+    short = kv[:, :Z4_KV_SHORT]
+    try:
+        with torch.inference_mode():
+            flash(x, short)
+        refused = None
+    except mx.MXNetError as e:
+        refused = str(e)
+    z_check(refused is not None and "self-attention" in refused,
+            f"z4 S = {Z4_KV_SHORT} != L = {T} with impl='flash' raises: "
+            f"{(refused or 'no error')[:120]}")
+    fwd_ms = device_ms(lambda: flash(x, kv), n=10)
+    log(f"[z] {card}: z4 cross-attention block forward {fwd_ms:.3f} ms "
+        "(device time, outside record)")
+    return {"k1": counts["k1"], "k2": counts["k2"], "out_err": out_err,
+            "worst_grad": worst, "refused": refused, "fwd_ms": fwd_ms}
+
+
+def vision_phase(torch, mx, kernels, card):
+    """Phase z: z1 (VGG-16 trained), z2 (VGG-16-bn), z3 (the zoo served),
+    z4 (cross-attention on K1 / K2); its checks collect failures and the
+    phase fails at its end naming them all."""
+    _Z_FAILED.clear()
+    t0 = time.perf_counter()
+    log(f"[z] {card}")
+    z1 = z_train(torch, mx, card, "vgg16", Z1_BATCH, Z1_STEPS, "z1")
+    z_check(z1["params"] == VGG16_PARAMS,
+            f"z1 vgg16 holds {z1['params']:,} parameters (mxnet_tpu's: "
+            f"{VGG16_PARAMS:,})")
+    z2 = z_train(torch, mx, card, "vgg16_bn", Z2_BATCH, Z2_STEPS, "z2")
+    z3 = {name: z_serve(torch, mx, card, name) for name in Z3_MODELS}
+    z4 = z_cross_attention(torch, mx, kernels, card)
+    seconds = time.perf_counter() - t0
+    log(f"[z] {card}: z1 vgg16 {z1['images_per_s']:.1f} images/s "
+        f"({z1['median_ms']:.2f} ms a step), z2 vgg16_bn "
+        f"{z2['images_per_s']:.1f}; z3 bucket-32 images/s "
+        + ", ".join(f"{n} {r['images_per_s']:.1f}" for n, r in z3.items())
+        + f"; phase z {seconds:.1f} s")
+    if _Z_FAILED:
+        raise SystemExit(f"phase z: {len(_Z_FAILED)} check(s) failed: "
+                         f"{_Z_FAILED}")
+    return {"z1": z1, "z2": z2, "z3": z3, "z4": z4, "seconds": seconds}
+
+
 def library_ms(fn, what):
     """device_ms of a library call, or None (logged) where the library
     refuses the call."""
@@ -13086,6 +13437,9 @@ def main(argv=None):
     ap.add_argument("--data-only", action="store_true",
                     help="build, then run phase y (the ImageNet input "
                          "path) only")
+    ap.add_argument("--vision-only", action="store_true",
+                    help="build, then run phase z (the layer library and "
+                         "the vision model zoo) only")
     ap.add_argument("--resilience-child", metavar="DIR",
                     help=argparse.SUPPRESS)   # w1's child
     ap.add_argument("--dist-rank", metavar="DIR",
@@ -13203,6 +13557,11 @@ def main(argv=None):
         log("[data-only] phase y passed")
         log(card)
         return 0
+    if args.vision_only:
+        vision_phase(torch, mx, kernels, card)
+        log("[vision-only] phase z passed")
+        log(card)
+        return 0
     t_run = time.perf_counter()
 
     def stamp(label):
@@ -13276,6 +13635,9 @@ def main(argv=None):
     pod = pod_phase(torch, mx, card)
     stamp("data_phase")
     data_y = data_phase(torch, mx, card, resnet_training["median_step_ms"])
+    stamp("vision_phase")
+    vision_z = vision_phase(torch, mx, kernels, card)
+    z4 = vision_z["z4"]
     probe = pod["x1"]["probe"]
     x1_counts = pod["x1"]["counts_by_step"]
 
@@ -13371,7 +13733,10 @@ def main(argv=None):
         "imperative_launches_by_route": nd_launches["k1_by_route"],
         # phase v1: the fleet's replicas, its reference and every restart
         # (2 warm-up runs and the capture of each bucket; replays add none)
-        "fleet_launches_by_route": fleet_v["v1"]["k1_launches_by_route"]},
+        "fleet_launches_by_route": fleet_v["v1"]["k1_launches_by_route"],
+        # phase z4: one bf16 cross-attention forward + backward on the q
+        # and kv projections' views, (8, 12, 1024, 64)
+        "cross_attention_launches_by_route": z4["k1"]},
         {
         "name": "flash_attn_bwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_bwd_tc.cu",
@@ -13415,7 +13780,8 @@ def main(argv=None):
         "fp16_bound_ms": fp16["k2"]["bound_ms"],
         "fp16_library_ms": fp16["k2"]["library_ms"],
         "imperative_launches": nd_launches["k2"],
-        "imperative_launches_by_route": nd_launches["k2_by_route"]}, {
+        "imperative_launches_by_route": nd_launches["k2_by_route"],
+        "cross_attention_launches_by_route": z4["k2"]}, {
         "name": "conv3x3_bn_stats", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/conv3x3_bn_stats_tc.cu",
         "sources": k3_sources,
@@ -13740,7 +14106,7 @@ def main(argv=None):
                        "ssd": ssd, "dist": dist_u, "fleet": fleet_v,
                        "fold_checks": fold_checks,
                        "resilience": resilience, "pod": pod,
-                       "data": data_y,
+                       "data": data_y, "vision": vision_z,
                        **record}, f,
                       indent=1)
     log(card)

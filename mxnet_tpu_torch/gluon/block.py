@@ -39,7 +39,7 @@ from ..base import MXNetError, torch_dtype
 from ..context import as_device, current_context
 from .. import autograd, initializer
 from ..ops import registry as _registry
-from .parameter import Parameter, ParameterDict
+from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock", "ParameterTensors", "F_TENSOR"]
 
@@ -268,17 +268,22 @@ class HybridBlock(Block):
 
     def _infer_shapes(self, *args):
         """{attribute: shape} of the deferred parameters, from the first
-        forward's inputs; a layer that can tell overrides this."""
-        raise MXNetError(
+        forward's inputs; every layer of the port with parameters
+        overrides this."""
+        raise DeferredInitializationError(
             f"{type(self).__name__} '{self.name}' cannot infer the shapes "
-            "of its deferred parameters: pass its input width (deferred "
-            "initialization beyond Conv2D and Dense is ROADMAP Queue 1 "
-            "item 8)")
+            "of its deferred parameters: give their shapes in full")
 
     def _finish_deferred_init(self, *args):
+        """Draw every deferred parameter at the shape ``_infer_shapes``
+        reads off the first forward's inputs."""
         shapes = self._infer_shapes(*args)
         for attr, p in self._reg_params.items():
             if p._deferred is not None:
+                if attr not in shapes:
+                    raise DeferredInitializationError(
+                        f"{type(self).__name__} '{self.name}' cannot infer "
+                        f"the shape {p.shape} of '{p.name}'")
                 p.finish_deferred_init(shapes[attr])
         self._pending_init = False
 

@@ -1,2 +1,4 @@
-"""Contrib gluon layers of the PyTorch port."""
-from . import nn  # noqa: F401
+"""Contrib gluon layers of the PyTorch port (parity:
+python/mxnet/gluon/contrib/)."""
+from . import nn, rnn  # noqa: F401
+from .nn import MultiHeadAttention, Remat  # noqa: F401

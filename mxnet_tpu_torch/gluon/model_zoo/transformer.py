@@ -5,8 +5,8 @@ Pre-norm residual blocks (ln -> attn -> +x; ln -> ff -> +x), a tanh-GELU
 MLP, learned positional embeddings, causal attention, a final LayerNorm
 and an untied head with a bias. Parameter names match ``mxnet_tpu`` letter
 for letter (``tlm_blocks_transformerblock0_attn_qkv_weight`` ...). Unlike
-the JAX package every layer is built with its input width, since the port
-has no deferred initialization. ``impl`` is 'dense' or 'flash'.
+the JAX package every layer is built with its input width, so the net is
+whole at ``initialize``. ``impl`` is 'dense' or 'flash'.
 
 The paged decode functions (``flat_forward``, ``paged_prefill``,
 ``paged_step``; ``mxnet_tpu/gluon/model_zoo/transformer.py:170-371``) run

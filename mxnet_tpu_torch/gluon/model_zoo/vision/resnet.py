@@ -7,9 +7,9 @@ for letter, with its extensions: ``layout='NHWC'`` runs the whole network
 channels-last (inputs stay NCHW at the API edge and are transposed once on
 entry) and ``stem='s2d'`` replaces the 7x7/2 stem conv with
 space-to-depth(2) and a 4x4/1 conv padded ((2, 1), (2, 1)). Unlike the JAX
-package every layer is built with its input width, since the port has no
-deferred initialization; the name -> shape map equals ``mxnet_tpu``'s after
-its first forward. Like ``mxnet_tpu``, the forward does not call the fused
+package every layer is built with its input width, so the net is whole at
+``initialize``; the name -> shape map equals ``mxnet_tpu``'s after its
+first forward. Like ``mxnet_tpu``, the forward does not call the fused
 conv + BN-statistics kernel (K3): its convs are library convs.
 """
 from __future__ import annotations

@@ -1,16 +1,24 @@
-"""Gluon basic layers (subset of ``mxnet_tpu/gluon/nn/basic_layers.py``;
-parity: python/mxnet/gluon/nn/basic_layers.py)."""
+"""Gluon basic layers (port of ``mxnet_tpu/gluon/nn/basic_layers.py``;
+parity: python/mxnet/gluon/nn/basic_layers.py, activations.py).
+
+Every layer with parameters accepts an unknown (0) input width and infers
+it at the first forward (``_infer_shapes``), as MXNet's deferred
+initialization does.
+"""
 from __future__ import annotations
 
 import torch
 
-from ..block import Block, HybridBlock
-from ...base import torch_dtype
+from ..block import Block, HybridBlock, F_TENSOR
+from ...base import MXNetError, torch_dtype
+from ... import initializer
 from ...ops import math as _math
 from ...ops import nn as _nn
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "BatchNorm", "LayerNorm",
-           "Embedding", "Flatten", "Activation", "LeakyReLU", "GELU"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "InstanceNorm", "LayerNorm", "GroupNorm", "Embedding", "Flatten",
+           "Lambda", "HybridLambda", "Activation", "LeakyReLU", "PReLU",
+           "ELU", "SELU", "Swish", "GELU"]
 
 
 class Sequential(Block):
@@ -46,6 +54,9 @@ class HybridSequential(HybridBlock):
 
     def __iter__(self):
         return iter(self._modules.values())
+
+    def __len__(self):
+        return len(self._modules)
 
 
 class Dense(HybridBlock):
@@ -88,10 +99,37 @@ class Dense(HybridBlock):
         return self.act(out) if self.act is not None else out
 
 
+class Dropout(HybridBlock):
+    """Dropout (gluon/nn/basic_layers.py:235): in training each element
+    (each slice along ``axes``) is kept with probability ``1 - rate`` and
+    scaled by ``1 / (1 - rate)``; in predict mode, or at rate 0, the input
+    passes unchanged. The mask is drawn from ``mx.random``'s generator of
+    the input's device, which a captured step registers with its graph, so
+    a replay draws what the eager step draws."""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        if self._rate == 0:
+            return x
+        return F.Dropout(x, p=self._rate, axes=self._axes)
+
+    def __repr__(self):
+        return f"{type(self).__name__}(p = {self._rate}, axes={self._axes})"
+
+
+def _channel_shapes(names, n):
+    return {name: (n,) for name in names}
+
+
 class BatchNorm(HybridBlock):
     """Batch normalization (gluon/nn/basic_layers.py:282;
-    ``mxnet_tpu/gluon/nn/basic_layers.py:166-211``). ``in_channels`` is
-    required.
+    ``mxnet_tpu/gluon/nn/basic_layers.py:166-211``). Without
+    ``in_channels`` the four parameters take the input's width on ``axis``
+    at the first forward.
 
     Inside ``autograd.record()`` / ``train_mode()`` it normalises with the
     batch's statistics and writes the updated running statistics back into
@@ -104,9 +142,11 @@ class BatchNorm(HybridBlock):
                  running_variance_initializer="ones", in_channels=0,
                  **kwargs):
         super().__init__(**kwargs)
+        self._axis = axis
         self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
                         "fix_gamma": not scale,
                         "use_global_stats": use_global_stats}
+        self.in_channels = in_channels
         with self.name_scope():
             self.gamma = self.params.get(
                 "gamma", grad_req="write" if scale else "null",
@@ -123,6 +163,10 @@ class BatchNorm(HybridBlock):
                 "running_var", grad_req="null", shape=(in_channels,),
                 init=running_variance_initializer, differentiable=False)
 
+    def _infer_shapes(self, x, *args):
+        return _channel_shapes(("gamma", "beta", "running_mean",
+                                "running_var"), x.shape[self._axis])
+
     def cast(self, dtype):
         if torch_dtype(dtype) == torch.float16:
             dtype = "float32"
@@ -133,33 +177,100 @@ class BatchNorm(HybridBlock):
                            name="fwd", **self._kwargs)
 
 
+class InstanceNorm(HybridBlock):
+    """Instance normalization (gluon/nn/basic_layers.py:457): statistics
+    over each sample's spatial positions, per channel on ``axis``. With
+    ``scale=False`` (the default) or ``center=False`` the parameter stays,
+    ones or zeros with ``grad_req="null"``, as in ``mxnet_tpu``."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer)
+
+    def _infer_shapes(self, x, *args):
+        return _channel_shapes(("gamma", "beta"), x.shape[self._axis])
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        if self._axis == 1:
+            return F.InstanceNorm(x, gamma, beta, name="fwd",
+                                  eps=self._epsilon)
+        x = x.swapaxes(1, self._axis)
+        return F.InstanceNorm(x, gamma, beta, name="fwd",
+                              eps=self._epsilon).swapaxes(1, self._axis)
+
+
 class LayerNorm(HybridBlock):
-    """Layer normalization over the last axis (gluon/nn/basic_layers.py:546).
-    ``in_channels`` is required."""
+    """Layer normalization over ``axis`` (gluon/nn/basic_layers.py:546).
+    Without ``in_channels`` the parameters take the input's width on
+    ``axis``. With ``center=False`` / ``scale=False`` the parameter stays,
+    zeros or ones with ``grad_req="null"``
+    (``mxnet_tpu/gluon/nn/basic_layers.py:252-330``)."""
 
     def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",
                  in_channels=0, prefix=None):
         super().__init__(prefix=prefix)
-        if not (center and scale):
-            raise NotImplementedError("LayerNorm: center=False / "
-                                      "scale=False are not ported yet")
         self._axis = axis
         self._epsilon = epsilon
         with self.name_scope():
-            self.gamma = self.params.get("gamma", shape=(in_channels,),
-                                         init=gamma_initializer)
-            self.beta = self.params.get("beta", shape=(in_channels,),
-                                        init=beta_initializer)
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer)
+
+    def _infer_shapes(self, x, *args):
+        return _channel_shapes(("gamma", "beta"), x.shape[self._axis])
 
     def forward(self, x):
+        if self._pending_init:
+            self._finish_deferred_init(x)
         return _nn.layer_norm(x, self.gamma, self.beta, axis=self._axis,
                               eps=self._epsilon)
 
 
+class GroupNorm(HybridBlock):
+    """Group normalization (gluon/nn/basic_layers.py:625): statistics over
+    each group of channels; ``gamma`` and ``beta`` are one a group, as
+    ``mxnet_tpu`` has them."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 prefix=None):
+        super().__init__(prefix=prefix)
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(num_groups,), init=gamma_initializer)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(num_groups,), init=beta_initializer)
+
+    def _infer_shapes(self, x, *args):
+        return _channel_shapes(("gamma", "beta"), self._num_groups)
+
+    def hybrid_forward(self, F, data, gamma, beta):
+        return F.GroupNorm(data, gamma, beta, num_groups=self._num_groups,
+                           eps=self._epsilon)
+
+
 class Embedding(HybridBlock):
     """Maps integer ids to rows of a (input_dim, output_dim) table
-    (gluon/nn/basic_layers.py:379); out-of-range ids clip."""
+    (gluon/nn/basic_layers.py:379); out-of-range ids clip. The table's
+    shape cannot be read off the ids: both widths must be given."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, **kwargs):
@@ -169,7 +280,14 @@ class Embedding(HybridBlock):
                 "weight", shape=(input_dim, output_dim),
                 init=weight_initializer, dtype=dtype)
 
+    def _infer_shapes(self, x, *args):
+        raise MXNetError(f"Embedding '{self.name}': input_dim and "
+                         "output_dim must be given (the ids do not tell "
+                         f"them), got {self._reg_params['weight'].shape}")
+
     def forward(self, x):
+        if self._pending_init:
+            self._finish_deferred_init(x)
         return _math.embedding(x, self.weight)
 
 
@@ -178,6 +296,66 @@ class Flatten(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return F.Flatten(x)
+
+
+class Lambda(Block):
+    """A function of tensors, or the name of an ``mx.nd`` op, as a Block
+    (gluon/nn/basic_layers.py:701)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd
+
+            if not hasattr(nd, function):
+                raise ValueError(f"Function name {function} is not found in "
+                                 "ndarray.")
+            # the Block sees tensors (NDArrays are unboxed around it): the
+            # registered op of that name, as mx.nd's function calls it
+            self._func_impl = getattr(F_TENSOR, function)
+            self._func_name = function
+        elif callable(function):
+            self._func_impl = function
+            self._func_name = function.__name__
+        else:
+            raise ValueError("Unrecognized function in lambda: "
+                             f"{function} of type {type(function)}")
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self._func_name})"
+
+
+class HybridLambda(HybridBlock):
+    """``function(F, x, *args)``, or the registered op of that name, as a
+    HybridBlock (gluon/nn/basic_layers.py:746)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ...ops import registry
+
+            try:
+                registry.get_op(function)
+            except MXNetError:
+                raise ValueError(f"Function name {function} is not found in "
+                                 "ndarray/symbol.") from None
+            self._func = lambda F, *args: getattr(F, function)(*args)
+            self._func_name = function
+        elif callable(function):
+            self._func = function
+            self._func_name = function.__name__
+        else:
+            raise ValueError("Unrecognized function in lambda: "
+                             f"{function} of type {type(function)}")
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func(F, x, *args)
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self._func_name})"
 
 
 class Activation(HybridBlock):
@@ -206,6 +384,54 @@ class LeakyReLU(HybridBlock):
 
     def forward(self, x):
         return _nn.leaky_relu(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """Parametric leaky ReLU, a learned slope a channel (or one for all
+    with ``in_channels=1``, the default) (gluon/nn/activations.py:114).
+    ``in_channels=0`` takes the input's channels at the first forward."""
+
+    def __init__(self, alpha_initializer=initializer.Constant(0.25),
+                 in_channels=1, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.alpha = self.params.get("alpha", shape=(in_channels,),
+                                         init=alpha_initializer)
+
+    def _infer_shapes(self, x, *args):
+        return {"alpha": (x.shape[1],)}
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, alpha, act_type="prelu", name="fwd")
+
+
+class ELU(HybridBlock):
+    """Exponential linear unit (gluon/nn/activations.py:153)."""
+
+    def __init__(self, alpha=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    """Scaled exponential linear unit (gluon/nn/activations.py:184)."""
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu", name="fwd")
+
+
+class Swish(HybridBlock):
+    """``x * sigmoid(beta * x)`` (gluon/nn/activations.py:210)."""
+
+    def __init__(self, beta=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._beta = beta
+
+    def hybrid_forward(self, F, x):
+        return x * F.sigmoid(self._beta * x)
 
 
 class GELU(HybridBlock):

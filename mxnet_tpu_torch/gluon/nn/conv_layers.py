@@ -1,11 +1,14 @@
-"""Gluon convolution and pooling layers (subset of
-``mxnet_tpu/gluon/nn/conv_layers.py``; parity:
+"""Gluon convolution and pooling layers (port of
+``mxnet_tpu/gluon/nn/conv_layers.py:113-360``; parity:
 python/mxnet/gluon/nn/conv_layers.py).
 
-``layout`` is NCHW (OIHW weights) or NHWC (OHWI weights, ``mxnet_tpu``'s
-channels-last parameter shape, so carried weights load unchanged).
-Without ``in_channels`` the weight waits for the first forward, which
-reads the input's channels (deferred initialization).
+``Conv2D`` / ``MaxPool2D`` / ... take ``layout`` NCHW (OIHW weights) or
+NHWC (OHWI weights, ``mxnet_tpu``'s channels-last parameter shape, so
+carried weights load unchanged); the 1-D and 3-D layers and the transposed
+convolutions are channels-first only, as there. A transposed convolution's
+weight is (in_channels, channels / groups, *kernel). Without
+``in_channels`` the weight waits for the first forward, which reads the
+input's channels (deferred initialization).
 """
 from __future__ import annotations
 
@@ -14,8 +17,11 @@ import numpy as _np
 from ..block import HybridBlock
 from .basic_layers import Activation
 
-__all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalMaxPool2D",
-           "GlobalAvgPool2D"]
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
+           "Conv3DTranspose", "MaxPool1D", "MaxPool2D", "MaxPool3D",
+           "AvgPool1D", "AvgPool2D", "AvgPool3D", "GlobalMaxPool1D",
+           "GlobalMaxPool2D", "GlobalMaxPool3D", "GlobalAvgPool1D",
+           "GlobalAvgPool2D", "GlobalAvgPool3D", "ReflectionPad2D"]
 
 
 def _tuple(v, n):
@@ -26,22 +32,35 @@ def _tuple(v, n):
                  else int(x) for x in v)
 
 
+def _ktuple(kernel_size, n):
+    return (kernel_size,) * n if isinstance(kernel_size, int) \
+        else tuple(kernel_size)
+
+
 class _Conv(HybridBlock):
-    """Base for conv layers (reference gluon/nn/conv_layers.py:33)."""
+    """Base for conv layers (reference gluon/nn/conv_layers.py:33);
+    ``op_name`` "Convolution" or "Deconvolution"."""
 
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None,
                  use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", prefix=None):
+                 bias_initializer="zeros", op_name="Convolution", adj=None,
+                 prefix=None):
         super().__init__(prefix=prefix)
         ndim = len(kernel_size)
+        self._op_name = op_name
         self._kwargs = {
             "kernel": kernel_size, "stride": _tuple(strides, ndim),
             "dilate": _tuple(dilation, ndim), "pad": _tuple(padding, ndim),
             "num_filter": channels, "num_group": groups,
             "no_bias": not use_bias, "layout": layout}
+        if adj is not None:
+            self._kwargs["adj"] = _tuple(adj, ndim)
         with self.name_scope():
-            if layout and layout[1] != "C":  # channels-last: OHWI weights
+            if op_name == "Deconvolution":
+                wshape = (in_channels, channels // groups) + \
+                    tuple(kernel_size)
+            elif layout and layout[1] != "C":  # channels-last: OHWI weights
                 wshape = (channels,) + tuple(kernel_size) + \
                     (in_channels // groups,)
             else:
@@ -64,19 +83,37 @@ class _Conv(HybridBlock):
 
     def _infer_shapes(self, x, *args):
         layout = self._kwargs["layout"]
-        cin = x.shape[-1] if layout and layout[1] != "C" else x.shape[1]
+        last = bool(layout) and layout[1] != "C"
+        cin = x.shape[-1] if last else x.shape[1]
         w = list(self._reg_params["weight"].shape)
-        w[-1 if layout and layout[1] != "C" else 1] = \
-            cin // self._kwargs["num_group"]
+        if self._op_name == "Deconvolution":
+            w[0] = cin
+        else:
+            w[-1 if last else 1] = cin // self._kwargs["num_group"]
         return {"weight": tuple(w)}
 
     def hybrid_forward(self, F, x, weight, bias=None):
         """``mxnet_tpu/gluon/nn/conv_layers.py:76``."""
+        op = getattr(F, self._op_name)
         if bias is None:
-            out = F.Convolution(x, weight, name="fwd", **self._kwargs)
+            out = op(x, weight, name="fwd", **self._kwargs)
         else:
-            out = F.Convolution(x, weight, bias, name="fwd", **self._kwargs)
+            out = op(x, weight, bias, name="fwd", **self._kwargs)
         return self.act(out) if self.act is not None else out
+
+
+class Conv1D(_Conv):
+    """1D convolution (gluon/nn/conv_layers.py:177)."""
+
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 dilation=1, groups=1, layout="NCW", activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        assert layout == "NCW", "Only NCW layout is supported"
+        super().__init__(channels, _ktuple(kernel_size, 1), strides, padding,
+                         dilation, groups, layout, in_channels, activation,
+                         use_bias, weight_initializer, bias_initializer,
+                         **kwargs)
 
 
 class Conv2D(_Conv):
@@ -87,11 +124,89 @@ class Conv2D(_Conv):
                  use_bias=True, weight_initializer=None,
                  bias_initializer="zeros", in_channels=0, **kwargs):
         assert layout in ("NCHW", "NHWC"), "layout must be NCHW or NHWC"
-        if isinstance(kernel_size, int):
-            kernel_size = (kernel_size,) * 2
-        super().__init__(channels, kernel_size, strides, padding, dilation,
-                         groups, layout, in_channels, activation, use_bias,
-                         weight_initializer, bias_initializer, **kwargs)
+        super().__init__(channels, _ktuple(kernel_size, 2), strides, padding,
+                         dilation, groups, layout, in_channels, activation,
+                         use_bias, weight_initializer, bias_initializer,
+                         **kwargs)
+
+
+class Conv3D(_Conv):
+    """3D convolution (gluon/nn/conv_layers.py:341)."""
+
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), dilation=(1, 1, 1), groups=1,
+                 layout="NCDHW", activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, **kwargs):
+        assert layout == "NCDHW", "Only NCDHW layout is supported"
+        super().__init__(channels, _ktuple(kernel_size, 3), strides, padding,
+                         dilation, groups, layout, in_channels, activation,
+                         use_bias, weight_initializer, bias_initializer,
+                         **kwargs)
+
+
+class _ConvTranspose(_Conv):
+    """Transposed convolution: the output is
+    ``(in - 1) * stride - 2 * pad + dilation * (kernel - 1) +
+    output_padding + 1`` wide (gluon/nn/conv_layers.py:426-690)."""
+
+    def __init__(self, ndim, layout, channels, kernel_size, strides,
+                 padding, output_padding, dilation, groups, activation,
+                 use_bias, weight_initializer, bias_initializer,
+                 in_channels, **kwargs):
+        if isinstance(output_padding, int):
+            output_padding = (output_padding,) * ndim
+        super().__init__(channels, _ktuple(kernel_size, ndim), strides,
+                         padding, dilation, groups, layout, in_channels,
+                         activation, use_bias, weight_initializer,
+                         bias_initializer, op_name="Deconvolution",
+                         adj=output_padding, **kwargs)
+        self.out_pad = output_padding
+
+
+class Conv1DTranspose(_ConvTranspose):
+    """Transposed 1D convolution (gluon/nn/conv_layers.py:426)."""
+
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, layout="NCW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        assert layout == "NCW", "Only NCW layout is supported"
+        super().__init__(1, layout, channels, kernel_size, strides, padding,
+                         output_padding, dilation, groups, activation,
+                         use_bias, weight_initializer, bias_initializer,
+                         in_channels, **kwargs)
+
+
+class Conv2DTranspose(_ConvTranspose):
+    """Transposed 2D convolution (gluon/nn/conv_layers.py:514)."""
+
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 output_padding=(0, 0), dilation=(1, 1), groups=1,
+                 layout="NCHW", activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, **kwargs):
+        assert layout == "NCHW", \
+            "Deconvolution supports only NCHW (no NHWC kernel path)"
+        super().__init__(2, layout, channels, kernel_size, strides, padding,
+                         output_padding, dilation, groups, activation,
+                         use_bias, weight_initializer, bias_initializer,
+                         in_channels, **kwargs)
+
+
+class Conv3DTranspose(_ConvTranspose):
+    """Transposed 3D convolution (gluon/nn/conv_layers.py:606)."""
+
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), output_padding=(0, 0, 0),
+                 dilation=(1, 1, 1), groups=1, layout="NCDHW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        assert layout == "NCDHW", "Only NCDHW layout is supported"
+        super().__init__(3, layout, channels, kernel_size, strides, padding,
+                         output_padding, dilation, groups, activation,
+                         use_bias, weight_initializer, bias_initializer,
+                         in_channels, **kwargs)
 
 
 class _Pooling(HybridBlock):
@@ -118,36 +233,123 @@ class _Pooling(HybridBlock):
         return F.Pooling(x, name="fwd", **self._kwargs)
 
 
-class MaxPool2D(_Pooling):
+_LAYOUTS = {1: ("NCW",), 2: ("NCHW", "NHWC"), 3: ("NCDHW",)}
+
+
+def _check_layout(layout, ndim):
+    assert layout in _LAYOUTS[ndim], \
+        f"layout must be one of {_LAYOUTS[ndim]}, got {layout!r}"
+
+
+class _MaxPool(_Pooling):
+    def __init__(self, ndim, pool_size, strides, padding, layout, ceil_mode,
+                 **kwargs):
+        _check_layout(layout, ndim)
+        super().__init__(_ktuple(pool_size, ndim), strides, padding,
+                         ceil_mode, False, "max", layout, **kwargs)
+
+
+class _AvgPool(_Pooling):
+    def __init__(self, ndim, pool_size, strides, padding, layout, ceil_mode,
+                 count_include_pad, **kwargs):
+        _check_layout(layout, ndim)
+        super().__init__(_ktuple(pool_size, ndim), strides, padding,
+                         ceil_mode, False, "avg", layout, count_include_pad,
+                         **kwargs)
+
+
+class _GlobalPool(_Pooling):
+    def __init__(self, ndim, pool_type, layout, **kwargs):
+        _check_layout(layout, ndim)
+        super().__init__((1,) * ndim, None, 0, True, True, pool_type,
+                         layout, **kwargs)
+
+
+class MaxPool1D(_MaxPool):
+    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW",
+                 ceil_mode=False, **kwargs):
+        super().__init__(1, pool_size, strides, padding, layout, ceil_mode,
+                         **kwargs)
+
+
+class MaxPool2D(_MaxPool):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
                  layout="NCHW", ceil_mode=False, **kwargs):
-        assert layout in ("NCHW", "NHWC"), "layout must be NCHW or NHWC"
-        if isinstance(pool_size, int):
-            pool_size = (pool_size,) * 2
-        super().__init__(pool_size, strides, padding, ceil_mode, False,
-                         "max", layout, **kwargs)
+        super().__init__(2, pool_size, strides, padding, layout, ceil_mode,
+                         **kwargs)
 
 
-class AvgPool2D(_Pooling):
+class MaxPool3D(_MaxPool):
+    def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
+                 layout="NCDHW", ceil_mode=False, **kwargs):
+        super().__init__(3, pool_size, strides, padding, layout, ceil_mode,
+                         **kwargs)
+
+
+class AvgPool1D(_AvgPool):
+    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW",
+                 ceil_mode=False, count_include_pad=True, **kwargs):
+        super().__init__(1, pool_size, strides, padding, layout, ceil_mode,
+                         count_include_pad, **kwargs)
+
+
+class AvgPool2D(_AvgPool):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
                  layout="NCHW", ceil_mode=False, count_include_pad=True,
                  **kwargs):
-        assert layout in ("NCHW", "NHWC"), "layout must be NCHW or NHWC"
-        if isinstance(pool_size, int):
-            pool_size = (pool_size,) * 2
-        super().__init__(pool_size, strides, padding, ceil_mode, False,
-                         "avg", layout, count_include_pad, **kwargs)
+        super().__init__(2, pool_size, strides, padding, layout, ceil_mode,
+                         count_include_pad, **kwargs)
 
 
-class GlobalMaxPool2D(_Pooling):
+class AvgPool3D(_AvgPool):
+    def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
+                 layout="NCDHW", ceil_mode=False, count_include_pad=True,
+                 **kwargs):
+        super().__init__(3, pool_size, strides, padding, layout, ceil_mode,
+                         count_include_pad, **kwargs)
+
+
+class GlobalMaxPool1D(_GlobalPool):
+    def __init__(self, layout="NCW", **kwargs):
+        super().__init__(1, "max", layout, **kwargs)
+
+
+class GlobalMaxPool2D(_GlobalPool):
     def __init__(self, layout="NCHW", **kwargs):
-        assert layout in ("NCHW", "NHWC"), "layout must be NCHW or NHWC"
-        super().__init__((1, 1), None, 0, True, True, "max", layout,
-                         **kwargs)
+        super().__init__(2, "max", layout, **kwargs)
 
 
-class GlobalAvgPool2D(_Pooling):
+class GlobalMaxPool3D(_GlobalPool):
+    def __init__(self, layout="NCDHW", **kwargs):
+        super().__init__(3, "max", layout, **kwargs)
+
+
+class GlobalAvgPool1D(_GlobalPool):
+    def __init__(self, layout="NCW", **kwargs):
+        super().__init__(1, "avg", layout, **kwargs)
+
+
+class GlobalAvgPool2D(_GlobalPool):
     def __init__(self, layout="NCHW", **kwargs):
-        assert layout in ("NCHW", "NHWC"), "layout must be NCHW or NHWC"
-        super().__init__((1, 1), None, 0, True, True, "avg", layout,
-                         **kwargs)
+        super().__init__(2, "avg", layout, **kwargs)
+
+
+class GlobalAvgPool3D(_GlobalPool):
+    def __init__(self, layout="NCDHW", **kwargs):
+        super().__init__(3, "avg", layout, **kwargs)
+
+
+class ReflectionPad2D(HybridBlock):
+    """Pads an NCHW input's two spatial axes with the reflection of their
+    edges (gluon/nn/conv_layers.py:1156): ``padding`` an int for every
+    side, or the 8-tuple of (before, after) per axis."""
+
+    def __init__(self, padding=0, **kwargs):
+        super().__init__(**kwargs)
+        if isinstance(padding, int):
+            padding = (0, 0, 0, 0, padding, padding, padding, padding)
+        assert len(padding) == 8
+        self._padding = tuple(padding)
+
+    def hybrid_forward(self, F, x):
+        return F.pad(x, mode="reflect", pad_width=self._padding)

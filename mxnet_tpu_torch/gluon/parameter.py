@@ -6,8 +6,10 @@ itself is an ``nn.Parameter`` attribute of the owning Block, so the Block's
 ``forward`` reads ``self.weight`` as any PyTorch module does. A shape
 with an unknown (0) dimension defers ``initialize``: the draw waits until
 the owning layer's first forward supplies the shape
-(:meth:`Parameter.finish_deferred_init`; ``Conv2D`` and ``Dense`` infer
-their input width), as MXNet's deferred initialization does.
+(:meth:`Parameter.finish_deferred_init`; every layer with parameters
+infers its input width in ``_infer_shapes``), as MXNet's deferred
+initialization does. Reading the data of a parameter whose initialization
+is deferred raises :class:`DeferredInitializationError`, as in MXNet.
 
 A parameter whose ``grad_req`` is not ``"null"`` is a leaf that requires
 grad; its gradient is the tensor's ``.grad``. ``grad_req="write"`` (MXNet's
@@ -39,7 +41,12 @@ from torch import nn
 from ..base import MXNetError, torch_dtype
 from .. import initializer
 
-__all__ = ["Parameter", "ParameterDict"]
+__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
+
+
+class DeferredInitializationError(MXNetError):
+    """The data of a parameter whose initialization waits for its shape
+    was read (``mxnet_tpu/gluon/parameter.py:29-31``)."""
 
 
 class Parameter:
@@ -114,6 +121,13 @@ class Parameter:
     def data(self):
         t = self._tensor()
         if t is None:
+            if self._deferred is not None:
+                raise DeferredInitializationError(
+                    f"Parameter '{self.name}' has not been initialized yet "
+                    "because initialization was deferred. Actual "
+                    "initialization happens during the first forward pass. "
+                    "Please pass one batch of data through the network "
+                    "before accessing Parameters.")
             raise MXNetError(f"Parameter '{self.name}' has not been "
                              "initialized")
         return t
@@ -172,9 +186,14 @@ class Parameter:
         if chosen is None:
             chosen = initializer.Uniform()
         gen_device = generator.device if generator is not None else "cpu"
-        buf = torch.empty(self.shape, dtype=torch.float32, device=gen_device)
-        chosen(self.name, buf, generator)
-        self._set(buf.to(device=device, dtype=self.dtype))
+        # a deferred draw may run inside a forward under inference_mode:
+        # the parameter must still be an ordinary tensor, which training
+        # and set_data later update in place
+        with torch.inference_mode(False):
+            buf = torch.empty(self.shape, dtype=torch.float32,
+                              device=gen_device)
+            chosen(self.name, buf, generator)
+            self._set(buf.to(device=device, dtype=self.dtype))
 
     def finish_deferred_init(self, shape):
         """Give a deferred parameter its ``shape`` and draw it with the

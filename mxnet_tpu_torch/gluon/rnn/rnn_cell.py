@@ -20,7 +20,6 @@ import functools
 
 import torch
 
-from ...base import MXNetError
 from ...context import current_context
 from ...ops import math as _math
 from ..block import Block, HybridBlock, F_TENSOR, _box, _has_ndarray, \
@@ -171,19 +170,23 @@ class HybridRecurrentCell(RecurrentCell, HybridBlock):
     """A cell whose step is ``hybrid_forward(F, inputs, states, **params)``
     (``rnn_cell.py:340``)."""
 
+    def _infer_shapes(self, inputs, *args):
+        """A gate cell's ``i2h_weight`` takes the input's width."""
+        w = self._reg_params["i2h_weight"]
+        return {"i2h_weight": (w.shape[0], inputs.shape[-1])}
+
     def forward(self, inputs, states):
         self._counter += 1
+        if self._pending_init:
+            self._finish_deferred_init(inputs)
         params = {name: getattr(self, name) for name in self._reg_params}
         return self.hybrid_forward(F_TENSOR, inputs, states, **params)
 
 
 def _gate_params(cell, gates, hidden_size, input_size, inits):
     """Register ``i2h_weight``, ``h2h_weight``, ``i2h_bias``, ``h2h_bias``
-    for a cell of ``gates`` gates."""
-    if not input_size:
-        raise MXNetError(
-            f"{type(cell).__name__}: pass input_size; the port has no "
-            "deferred initialization (ROADMAP Queue 1 item 8)")
+    for a cell of ``gates`` gates; without ``input_size`` the i2h weight
+    waits for the first step's input width."""
     n = gates * hidden_size
     for name, shape, init in zip(
             ("i2h_weight", "h2h_weight", "i2h_bias", "h2h_bias"),

@@ -8,9 +8,9 @@ their concatenation in MXNet's flat order (``_flat_params``: every weight,
 then every bias), so gradients reach each parameter through the
 concatenation. Layouts TNC and NTC; called without states, a layer starts
 from zeros and returns the output alone, with states it returns (output,
-new states). ``input_size`` is required: the port has no deferred
-initialization (ROADMAP Queue 1 item 8). The graph of a layer on a Symbol
-is not ported (item 11).
+new states). Without ``input_size`` the first layer's ``i2h_weight`` waits
+for the first forward, which reads the input's width. The graph of a layer
+on a Symbol is not ported (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -39,10 +39,6 @@ class _RNNLayer(HybridBlock):
         if projection_size:
             raise MXNetError("projection_size (LSTMP) is not ported yet "
                              "(ROADMAP Queue 1 item 11)")
-        if not input_size:
-            raise MXNetError(
-                f"{type(self).__name__}: pass input_size; the port has no "
-                "deferred initialization (ROADMAP Queue 1 item 8)")
         self._hidden_size = hidden_size
         self._num_layers = num_layers
         self._mode = mode
@@ -105,10 +101,18 @@ class _RNNLayer(HybridBlock):
         bs = [getattr(self, n) for n in self._names if n.endswith("bias")]
         return torch.cat(ws + bs)
 
+    def _infer_shapes(self, inputs, *args):
+        """The first layer's ``i2h_weight`` (each direction's) takes the
+        input's width."""
+        return {f"{j}0_i2h_weight": (GATES[self._mode] * self._hidden_size,
+                                     inputs.shape[2]) for j in "lr"}
+
     def forward(self, inputs, states=None):
         if _is_symbol(inputs):
             raise MXNetError(f"{type(self).__name__} on a Symbol is not "
                              "ported yet (ROADMAP Queue 1 item 11)")
+        if self._pending_init:
+            self._finish_deferred_init(inputs)
         batch_size = inputs.shape[self._layout.find("N")]
         skip_states = states is None
         if skip_states:

@@ -242,12 +242,18 @@ def flatten(data):
 
 @cast_op("LayerNorm")
 def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
-    """Normalise over the last axis with the population variance
-    (``mxnet_tpu/ops/nn.py:282-293``)."""
-    if axis not in (-1, data.dim() - 1):
-        raise ValueError("layer_norm: only the last axis is supported, got "
-                         f"axis={axis}")
-    return F.layer_norm(data, (data.shape[-1],), gamma, beta, eps)
+    """Normalise over ``axis`` with the population variance, then
+    ``* gamma + beta`` (``mxnet_tpu/ops/nn.py:280-291``): ``F.layer_norm``
+    over the last axis, the registered op's composition over any other."""
+    ax = axis % data.dim()
+    if ax == data.dim() - 1:
+        return F.layer_norm(data, (data.shape[-1],), gamma, beta, eps)
+    mean = torch.mean(data, dim=ax, keepdim=True)
+    var = torch.mean(torch.square(data - mean), dim=ax, keepdim=True)
+    bshape = [1] * data.dim()
+    bshape[ax] = data.shape[ax]
+    return (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(bshape) \
+        + beta.reshape(bshape)
 
 
 def _gelu_tanh(x):

@@ -160,8 +160,11 @@ class Predictor:
             self.warmup()
 
     def _init_block(self, block):
-        for name, t in block.collect_params().items():
+        for name, p in block._param_objects().items():
+            t = p._tensor()
             if t is None:
+                if p._deferred is not None:
+                    p.data()      # DeferredInitializationError: one forward
                 raise MXNetError(f"Predictor: parameter '{name}' is not "
                                  "initialized")
             if t.device != self._device:

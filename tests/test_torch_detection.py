@@ -273,8 +273,8 @@ def test_tensor_f_reaches_contrib():
 
 def test_deferred_initialization():
     """Conv2D and Dense without input widths draw their weights at the
-    first forward (or take carried weights' shapes); a layer that cannot
-    infer its shapes raises naming the ROADMAP item."""
+    first forward (or take carried weights' shapes); a user's layer that
+    cannot infer its shapes raises DeferredInitializationError."""
     with mt.cpu():
         net = mt.gluon.nn.HybridSequential()
         net.add(mt.gluon.nn.Conv2D(4, 3, padding=1),
@@ -310,7 +310,8 @@ def test_deferred_initialization():
 
         odd = Odd()
         odd.initialize(ctx=mt.cpu())
-        with pytest.raises(mt.MXNetError, match="item 8"):
+        with pytest.raises(mt.gluon.DeferredInitializationError,
+                           match="cannot infer"):
             odd(torch.zeros(2, 2))
 
 

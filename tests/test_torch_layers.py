@@ -201,3 +201,254 @@ def test_initializers_follow_the_generator():
     assert (a.bias == 0).all()
     bound = np.sqrt(3.0 / 8)
     assert a.weight.abs().max() <= bound
+
+
+# ----------------------------- the rest of mxnet_tpu's gluon.nn layers
+# Every case is built in both packages with its input width left out
+# (deferred) where the layer takes one. The port's own first forward must
+# resolve the same name -> shape map as mxnet_tpu's; then mxnet_tpu's
+# (random) values are carried over and the forward, the input gradient and
+# every parameter gradient of sum(out * head) are compared, within 1e-5 of
+# scale (1e-4 where f32 sums reorder: the normalizations and the convs).
+
+def _scaled(got, want, tol):
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=tol * max(1.0, np.abs(want).max()))
+
+
+def _layer_values(jblk, rng):
+    values = {}
+    for name, p in jblk.collect_params().items():
+        v = rng.randn(*p.shape).astype(np.float32) * 0.5
+        if name.endswith("var"):
+            v = np.abs(v) + 0.5
+        values[name] = v
+        p.set_data(mx.nd.array(v))
+    return values
+
+
+def _fwd_bwd(jblk, tblk, x, train=False, tol=TOL, seed=0):
+    """Forward and gradients of both blocks on ``x``; returns the port's
+    and mxnet_tpu's (outputs, input gradient, {name: param gradient})."""
+    rng = np.random.RandomState(seed)
+    jblk.initialize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        out_shape = jblk(mx.nd.array(x)).shape    # resolves deferred shapes
+    tblk.initialize(ctx=mt.cpu())
+    with torch.inference_mode():
+        tblk(torch.from_numpy(x))
+    want_shapes = {k: tuple(p.shape) for k, p in
+                   jblk.collect_params().items()}
+    got_shapes = {k: tuple(t.shape) for k, t in
+                  tblk.collect_params().items()}
+    assert got_shapes == want_shapes
+    values = _layer_values(jblk, rng)
+    tblk.load_numpy_params(values)
+    xj = mx.nd.array(x)
+    xj.attach_grad()
+    head = rng.randn(*out_shape).astype(np.float32)
+    with mx.autograd.record(train_mode=train):
+        yj = jblk(xj)
+        loss = (yj * mx.nd.array(head)).sum()
+    loss.backward()
+    xt = torch.from_numpy(x.copy()).requires_grad_()
+    with mt.autograd.record(train_mode=train):
+        yt = tblk(xt)
+        (yt * torch.from_numpy(head)).sum().backward()
+    _scaled(yt.detach().numpy(), yj.asnumpy(), tol)
+    _scaled(xt.grad.numpy(), xj.grad.asnumpy(), tol)
+    tparams = tblk._param_objects()
+    for name, p in jblk.collect_params().items():
+        if p.grad_req == "null":
+            assert tparams[name].grad_req == "null", name
+            continue
+        _scaled(tparams[name].grad().numpy(), p.grad().asnumpy(), tol)
+    return yt.detach().numpy()
+
+
+def _x(*shape, seed=1):
+    return (np.random.RandomState(seed).randn(*shape) * 2 + 0.5).astype(
+        np.float32)
+
+
+# name, constructor (lib's nn -> block), input shape, train, tolerance
+LAYERS = [
+    ("dropout_p0", lambda nn: nn.Dropout(0.0), (2, 3, 4), True, TOL),
+    ("dropout_predict", lambda nn: nn.Dropout(0.5), (2, 3, 4), False, TOL),
+    ("instance_norm", lambda nn: nn.InstanceNorm(prefix="in_"),
+     (2, 3, 5, 4), False, 1e-4),
+    ("instance_norm_scale", lambda nn: nn.InstanceNorm(
+        scale=True, center=False, prefix="in_"), (2, 4, 5, 3), False, 1e-4),
+    ("group_norm", lambda nn: nn.GroupNorm(num_groups=2, prefix="gn_"),
+     (2, 4, 3, 3), False, 1e-4),
+    ("layer_norm_axis1", lambda nn: nn.LayerNorm(axis=1, prefix="ln_"),
+     (2, 5, 3), False, 1e-4),
+    ("layer_norm_no_center_scale", lambda nn: nn.LayerNorm(
+        center=False, scale=False, prefix="ln_"), (2, 3, 6), False, 1e-4),
+    ("batch_norm_deferred_train", lambda nn: nn.BatchNorm(prefix="bn_"),
+     (4, 3, 2, 2), True, 1e-4),
+    ("batch_norm_axis3_predict", lambda nn: nn.BatchNorm(axis=3,
+                                                         prefix="bn_"),
+     (2, 2, 2, 5), False, 1e-4),
+    ("prelu", lambda nn: _prelu(nn)(prefix="pr_"), (2, 3, 4), False, TOL),
+    ("prelu_channels", lambda nn: _prelu(nn)(in_channels=3, prefix="pr_"),
+     (2, 3, 4), False, TOL),
+    ("elu", lambda nn: nn.ELU(alpha=0.7), (2, 9), False, TOL),
+    ("selu", lambda nn: nn.SELU(), (2, 9), False, TOL),
+    ("swish", lambda nn: nn.Swish(beta=1.5), (2, 9), False, TOL),
+    ("hybrid_lambda_op", lambda nn: nn.HybridLambda("tanh"), (2, 5), False,
+     TOL),
+    ("hybrid_lambda_fn", lambda nn: nn.HybridLambda(
+        lambda F, x: F.relu(x) * 2), (2, 5), False, TOL),
+    ("dense_deferred", lambda nn: nn.Dense(4, prefix="d_"), (2, 3, 2),
+     False, TOL),
+    ("conv1d", lambda nn: nn.Conv1D(4, 3, strides=2, padding=1,
+                                    prefix="c_"), (2, 3, 9), False, 1e-4),
+    ("conv1d_groups_dilate", lambda nn: nn.Conv1D(
+        4, 3, dilation=2, groups=2, activation="relu", prefix="c_"),
+     (2, 4, 9), False, 1e-4),
+    ("conv3d", lambda nn: nn.Conv3D(3, (2, 3, 1), strides=(1, 2, 1),
+                                    padding=(1, 0, 0), prefix="c_"),
+     (1, 2, 4, 5, 3), False, 1e-4),
+    ("conv1d_transpose", lambda nn: nn.Conv1DTranspose(
+        3, 4, strides=2, padding=1, output_padding=1, prefix="ct_"),
+     (2, 2, 5), False, 1e-4),
+    ("conv2d_transpose_groups", lambda nn: nn.Conv2DTranspose(
+        4, 3, strides=2, padding=1, output_padding=1, groups=2,
+        prefix="ct_"), (1, 4, 3, 4), False, 1e-4),
+    ("conv2d_transpose_dilate", lambda nn: nn.Conv2DTranspose(
+        2, (2, 3), strides=(1, 2), dilation=2, use_bias=False,
+        prefix="ct_"), (1, 3, 3, 3), False, 1e-4),
+    ("conv3d_transpose", lambda nn: nn.Conv3DTranspose(
+        2, 2, strides=2, output_padding=(1, 0, 1), prefix="ct_"),
+     (1, 3, 2, 3, 2), False, 1e-4),
+    ("maxpool1d", lambda nn: nn.MaxPool1D(3, 2, 1), (2, 3, 8), False, TOL),
+    ("avgpool1d_ceil", lambda nn: nn.AvgPool1D(3, 2, ceil_mode=True),
+     (2, 3, 8), False, TOL),
+    ("avgpool1d_no_pad_count", lambda nn: nn.AvgPool1D(
+        3, 2, 1, count_include_pad=False), (2, 3, 8), False, TOL),
+    ("global_pools_1d", lambda nn: _stack(nn, nn.GlobalMaxPool1D(),
+                                          nn.GlobalAvgPool1D()),
+     (2, 3, 8), False, TOL),
+    ("maxpool3d", lambda nn: nn.MaxPool3D(2, 1, ceil_mode=True),
+     (1, 2, 3, 4, 3), False, TOL),
+    ("avgpool3d", lambda nn: nn.AvgPool3D((2, 2, 1), padding=(1, 0, 0)),
+     (1, 2, 3, 4, 3), False, TOL),
+    ("global_pools_3d", lambda nn: _stack(nn, nn.GlobalAvgPool3D(),
+                                          nn.GlobalMaxPool3D()),
+     (1, 2, 3, 4, 3), False, TOL),
+    ("reflection_pad2d", lambda nn: nn.ReflectionPad2D(2), (1, 2, 4, 5),
+     False, TOL),
+    ("reflection_pad2d_pairs", lambda nn: nn.ReflectionPad2D(
+        (0, 0, 0, 0, 1, 2, 0, 3)), (1, 2, 4, 5), False, TOL),
+]
+
+
+class _JaxPReLU(jgluon.nn.PReLU):
+    """mxnet_tpu's PReLU passes its slope as ``gamma=``, which its op
+    wrapper leaves an NDArray inside the traced function (it raises);
+    the same op with the slope given positionally is the reference."""
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, alpha, act_type="prelu", name="fwd")
+
+
+def _prelu(nn):
+    return _JaxPReLU if nn is jgluon.nn else nn.PReLU
+
+
+def _stack(nn, *blocks):
+    seq = nn.HybridSequential(prefix="s_")
+    seq.add(*blocks)
+    return seq
+
+
+@pytest.mark.parametrize("name,make,shape,train,tol", LAYERS,
+                         ids=[c[0] for c in LAYERS])
+def test_new_layer_matches_mxnet_tpu(name, make, shape, train, tol):
+    _fwd_bwd(make(jgluon.nn), make(tnn), _x(*shape), train=train, tol=tol)
+
+
+def test_batch_norm_deferred_running_statistics():
+    """A deferred BatchNorm trained one step writes the running
+    statistics mxnet_tpu writes."""
+    jb, tb = jgluon.nn.BatchNorm(prefix="bn_"), tnn.BatchNorm(prefix="bn_")
+    x = _x(6, 3, 2, 2)
+    _fwd_bwd(jb, tb, x, train=True, tol=1e-4)
+    for name in ("bn_running_mean", "bn_running_var"):
+        _scaled(tb.collect_params()[name].numpy(),
+                jb.collect_params()[name].data().asnumpy(), 1e-5)
+
+
+def test_lambda_wraps_a_function_or_an_nd_op():
+    t = tnn.Lambda(lambda x: x * 3)
+    x = torch.arange(4.0)
+    assert torch.equal(t(x), x * 3)
+    t = tnn.Lambda("relu")
+    with mt.cpu():
+        got = t(mt.nd.array(np.array([-1.0, 2.0], np.float32)))
+    assert got.asnumpy().tolist() == [0.0, 2.0]
+    with pytest.raises(ValueError, match="not found"):
+        tnn.Lambda("no_such_op")
+    with pytest.raises(ValueError, match="not found"):
+        tnn.HybridLambda("no_such_op")
+
+
+@pytest.mark.parametrize("p,axes", [(0.3, ()), (0.5, (1,)), (0.75, (0, 2))])
+def test_dropout_statistics_in_training(p, axes):
+    """In training a kept element is scaled by 1 / (1 - p) and about 1 - p
+    of them are kept, whole along ``axes``; from the device's generator,
+    so a seed repeats the mask."""
+    layer = tnn.Dropout(p, axes=axes)
+    x = torch.ones(64, 32, 48)
+
+    def run(seed):
+        mt.random.seed(seed)
+        with mt.autograd.train_mode():
+            return layer(x)
+
+    out = run(3)
+    kept = out != 0
+    assert torch.allclose(out[kept], torch.full_like(out[kept], 1 / (1 - p)))
+    draws = x.numel() // np.prod([x.shape[a] for a in axes], dtype=int)
+    assert abs(kept.float().mean().item() - (1 - p)) < \
+        4 * np.sqrt(p * (1 - p) / draws)
+    for ax in axes:
+        assert (kept == kept.narrow(ax, 0, 1)).all()
+    assert torch.equal(out, run(3))
+    assert not torch.equal(out, run(4))
+    with mt.autograd.predict_mode():
+        assert torch.equal(layer(x), x)
+
+
+def test_layers_on_a_symbol_write_mxnet_tpu_nodes():
+    """The new layers called on a Symbol build a graph whose forward is
+    the layer's own."""
+    seq = tnn.HybridSequential(prefix="g_")
+    seq.add(tnn.Conv1D(4, 3, in_channels=2), tnn.InstanceNorm(in_channels=4),
+            tnn.ELU(0.5), tnn.GlobalAvgPool1D())
+    seq.initialize(ctx=mt.cpu(), generator=torch.Generator().manual_seed(0))
+    sym = seq(mt.symbol.var("data"))
+    x = torch.from_numpy(_x(2, 2, 7))
+    args = dict(seq.collect_params(), data=x)
+    with mt.cpu():
+        ex = sym.bind(mt.cpu(), {k: mt.nd.NDArray(v) for k, v in args.items()
+                                 if k in sym.list_arguments()})
+        out = ex.forward()[0].asnumpy()
+    with torch.inference_mode():
+        np.testing.assert_allclose(out, seq(x).numpy(), rtol=0, atol=1e-6)
+
+
+def test_deferred_parameter_data_raises_until_the_first_forward():
+    d = tnn.Dense(3, prefix="q_")
+    d.initialize(ctx=mt.cpu())
+    with pytest.raises(mt.gluon.DeferredInitializationError,
+                       match="deferred"):
+        d._reg_params["weight"].data()
+    d(torch.ones(2, 5))
+    assert d._reg_params["weight"].data().shape == (3, 5)
+    e = tnn.Embedding(0, 4)
+    e.initialize(ctx=mt.cpu())
+    with pytest.raises(mt.MXNetError, match="input_dim"):
+        e(torch.zeros(2, dtype=torch.int64))

@@ -307,10 +307,19 @@ def test_lstm_layer_gradients_match():
 
 
 def test_layer_without_input_size_raises_naming_item_8():
-    with pytest.raises(mt.MXNetError, match="item 8"):
-        trnn.LSTM(8)
-    with pytest.raises(mt.MXNetError, match="item 8"):
-        trnn.LSTMCell(8)
+    """Without input_size a layer and a cell defer their i2h weight to the
+    first forward; until then its data raises
+    DeferredInitializationError."""
+    layer, cell = trnn.LSTM(8), trnn.LSTMCell(8)
+    for blk in (layer, cell):
+        blk.initialize(ctx=mt.cpu())
+        with pytest.raises(mt.gluon.DeferredInitializationError):
+            blk._reg_params[[n for n in blk._reg_params
+                             if n.endswith("i2h_weight")][0]].data()
+    layer(torch.zeros(3, 2, I))
+    cell(torch.zeros(2, I), cell.begin_state(batch_size=2))
+    assert layer.l0_i2h_weight.shape == (32, I)
+    assert cell.i2h_weight.shape == (32, I)
 
 
 CELLS = [

@@ -287,7 +287,7 @@ def test_get_model_builds_and_rejects_unknown():
     assert len(shapes) == len(jvision.get_model(
         "resnet50_v1", classes=10).collect_params())
     with pytest.raises(ValueError, match="not supported"):
-        tvision.get_model("vgg16")
+        tvision.get_model("vgg17")        # vgg16 is in the table
 
 
 def test_predictor_serves_a_small_resnet():
